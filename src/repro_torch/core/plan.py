@@ -1,0 +1,261 @@
+"""KernelPlanner — one cache-aware planning layer for every kernel dispatch.
+
+Port of ``repro/core/plan.py`` for the k-means ops (``assign``, ``update``,
+``step``). The closed-form math lives in ``core.heuristics``; this module
+owns the plan contract (``plan(op, shape, dtype) -> KernelPlan``, with the
+shared-memory footprint and modeled HBM bytes attached), the in-process
+memo keyed on ``(op, shape bucket, itemsize, hardware)`` — batch-like dims
+bucketed to the next power of two — and hardware detection
+(``detect_hardware`` maps a CUDA device onto a ``Hardware`` row read from
+the card; ``device="cpu"`` gets the CPU row). The ``chooser_calls``
+counter lets tests assert that a repeated geometry is a pure cache hit.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+
+import torch
+
+from repro_torch.core import heuristics
+from repro_torch.kernels.ops import BlockConfig
+
+OPS = ("assign", "update", "step")
+_BUCKET_DIMS = {"assign": (0,), "update": (0,), "step": (0,)}
+
+
+def bucket_dim(v: int) -> int:
+    """Next power of two >= v (floor 8)."""
+    return max(8, 1 << max(0, int(v) - 1).bit_length())
+
+
+def _itemsize(dtype) -> int:
+    if isinstance(dtype, int):
+        return dtype
+    return dtype.itemsize
+
+
+def _device(device) -> torch.device:
+    """``None`` means the card: entry points run on CUDA unless asked."""
+    return torch.device("cuda" if device is None else device)
+
+
+def detect_hardware(device=None) -> heuristics.Hardware:
+    """The ``Hardware`` row of a device.
+
+    CPU -> ``heuristics.CPU``. CUDA -> the H100 data-sheet row (its peaks
+    and memory rate), named after the card, with the SM count, L2 size and
+    memory read from
+    ``torch.cuda.get_device_properties`` and the block's opt-in shared
+    memory from ``cudaDevAttrMaxSharedMemoryPerBlockOptin`` (torch's
+    ``shared_memory_per_block`` reports only the 48 KB default).
+    """
+    dev = _device(device)
+    if dev.type == "cpu":
+        return heuristics.CPU
+    if dev.type != "cuda":
+        raise ValueError(f"no hardware row for device {dev}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA device requested but torch.cuda is not "
+                           "available; pass device='cpu' to plan for the CPU")
+    from repro_torch.kernels import _build
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    props = torch.cuda.get_device_properties(idx)
+    return dataclasses.replace(
+        heuristics.H100, name=props.name.lower().replace(" ", "_"),
+        num_sms=props.multi_processor_count, l2_bytes=props.L2_cache_size,
+        smem_block_bytes=_build.max_smem_optin(idx),
+        hbm_bytes=props.total_memory)
+
+
+def hardware_for(name: str | None, device=None) -> heuristics.Hardware:
+    """The row a plan was made for (by ``plan.hw``), else the device's
+    default planner's row."""
+    planner = default_planner(device)
+    if name is None or name == planner.hw.name:
+        return planner.hw
+    for hw in (heuristics.CPU, heuristics.H100):
+        if hw.name == name:
+            return hw
+    return planner.hw
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelPlan:
+    """The planner's answer for one (op, shape bucket, dtype, hardware).
+
+    ``blocks`` are the op's own two tile dims; ``block`` the full
+    ``BlockConfig``. ``smem_bytes`` is the shared-memory footprint at
+    ``blocks`` (for ``step``: of the chosen path), ``smem_limit`` the
+    block limit it was judged against, ``hbm_bytes`` the modeled traffic.
+    """
+    op: str
+    shape: tuple
+    itemsize: int
+    hw: str
+    impl: str             # assign: "flash" | update: "sort_inverse"
+                          # step: "fused" / "two_pass"
+    blocks: tuple
+    block: BlockConfig
+    smem_bytes: int
+    smem_limit: int
+    hbm_bytes: float
+
+
+class KernelPlanner:
+    """Single entry point for kernel dispatch planning.
+
+    >>> planner = KernelPlanner(device="cpu")
+    >>> p = planner.plan("step", (1_000_000, 1024, 128))
+    >>> p.impl, p.blocks, p.smem_bytes
+    """
+
+    def __init__(self, hw: heuristics.Hardware | None = None, *,
+                 device=None):
+        self.hw = hw if hw is not None else detect_hardware(device)
+        self._mem: dict[str, KernelPlan] = {}
+        self.hits = 0
+        self.misses = 0
+        self.chooser_calls = 0   # closed-form planning passes actually run
+
+    def plan(self, op: str, shape, dtype=torch.float32, *,
+             blk: BlockConfig | None = None) -> KernelPlan:
+        """Plan one dispatch. ``shape`` is ``(n, k, d)``; ``dtype`` a torch
+        dtype or an itemsize. ``blk`` pins a ``BlockConfig`` (the plan is
+        then judged, and memoized, for those tiles)."""
+        if op not in OPS:
+            raise ValueError(f"unknown plan op {op!r}; expected one of {OPS}")
+        shape = tuple(int(s) for s in shape)
+        if len(shape) != 3:
+            raise ValueError(f"op {op!r} expects a shape of arity 3, "
+                             f"got {shape}")
+        b = _itemsize(dtype)
+        bshape = tuple(bucket_dim(s) if i in _BUCKET_DIMS[op] else s
+                       for i, s in enumerate(shape))
+        if blk is not None:
+            base = self._mem.get(self._key(op, bshape, b))
+            if base is not None and base.block == blk:
+                blk = None
+        key = self._key(op, bshape, b, blk)
+        got = self._mem.get(key)
+        if got is not None:
+            self.hits += 1
+            return got
+        self.misses += 1
+        plan = self._compute(op, bshape, b, blk)
+        self._store(plan, key, pinned=blk is not None)
+        return plan
+
+    def block_config(self, n: int, k: int, d: int,
+                     dtype_bytes: int = 4) -> BlockConfig:
+        """Full ``BlockConfig`` (all three kmeans legs) for a geometry."""
+        return self.plan("step", (n, k, d), dtype_bytes).block
+
+    def step_impl(self, n: int, k: int, d: int, dtype_bytes: int = 4,
+                  blk: BlockConfig | None = None) -> str:
+        """``"fused"`` or ``"two_pass"``, judged at ``blk`` when given."""
+        return self.plan("step", (n, k, d), dtype_bytes, blk=blk).impl
+
+    def counters(self) -> dict:
+        return {"hits": self.hits, "misses": self.misses,
+                "chooser_calls": self.chooser_calls,
+                "entries": len(self._mem)}
+
+    def clear(self) -> None:
+        self._mem.clear()
+
+    def _key(self, op: str, bshape: tuple, itemsize: int,
+             blk: BlockConfig | None = None) -> str:
+        blk_part = (None if blk is None else
+                    [getattr(blk, f.name) for f in dataclasses.fields(blk)])
+        return json.dumps([op, list(bshape), itemsize, self.hw.name,
+                           blk_part])
+
+    def _leg_plans(self, s: tuple, b: int, cfg: BlockConfig):
+        """The assign and update plans of one geometry and tile set."""
+        H, hw = heuristics, self.hw
+        n, k, d = s
+        mk = lambda **kw: KernelPlan(shape=s, itemsize=b, hw=hw.name,
+                                     block=cfg,
+                                     smem_limit=hw.smem_block_bytes, **kw)
+        assign = mk(op="assign", impl="flash",
+                    blocks=(cfg.assign_block_n, cfg.assign_block_k),
+                    smem_bytes=H.assign_footprint(
+                        cfg.assign_block_n, cfg.assign_block_k, d, b),
+                    hbm_bytes=H.assign_bytes_flash(n, k, d, b))
+        update = mk(op="update", impl="sort_inverse",
+                    blocks=(cfg.update_block_n, cfg.update_block_k),
+                    smem_bytes=H.update_footprint(
+                        cfg.update_block_n, cfg.update_block_k, d, b),
+                    hbm_bytes=H.update_bytes_sort_inverse(
+                        n, k, d, b, cfg.update_block_n))
+        return assign, update
+
+    def _compute(self, op: str, s: tuple, b: int,
+                 blk: BlockConfig | None) -> KernelPlan:
+        """Run the closed-form choosers for one cache miss."""
+        H, hw = heuristics, self.hw
+        self.chooser_calls += 1
+        n, k, d = s
+        cfg = blk if blk is not None else H.choose_blocks(
+            n, k, d, dtype_bytes=b, hw=hw)
+        assign, update = self._leg_plans(s, b, cfg)
+        if op == "assign":
+            return assign
+        if op == "update":
+            return update
+        impl = H.choose_step_impl(n, k, d, dtype_bytes=b, hw=hw, blk=cfg)
+        if impl == "fused":
+            bn, bk = cfg.fused_block_n, cfg.fused_block_k
+            return dataclasses.replace(
+                assign, op="step", impl=impl, blocks=(bn, bk),
+                smem_bytes=H.fused_footprint(bn, bk, d, b, k),
+                hbm_bytes=H.lloyd_bytes_fused(n, k, d, b,
+                                              H.fused_grid(n, hw)))
+        return dataclasses.replace(
+            assign, op="step", impl=impl,
+            smem_bytes=max(assign.smem_bytes, update.smem_bytes),
+            hbm_bytes=assign.hbm_bytes + update.hbm_bytes)
+
+    def _store(self, plan: KernelPlan, key: str, pinned: bool) -> None:
+        """Memoize ``plan``; an un-pinned step plan also fills its assign
+        and update siblings (they share one ``choose_blocks`` run, so
+        planning them again would be a phantom miss)."""
+        self._mem[key] = plan
+        if plan.op == "step" and not pinned:
+            for sib in self._leg_plans(plan.shape, plan.itemsize, plan.block):
+                self._mem[self._key(sib.op, sib.shape, sib.itemsize)] = sib
+
+
+# ---------------------------------------------------------------------------
+# per-device default planners
+# ---------------------------------------------------------------------------
+
+_DEFAULT: dict[str, KernelPlanner] = {}
+
+
+def _planner_key(device) -> str:
+    dev = _device(device)
+    if dev.type != "cuda" or dev.index is not None:
+        return str(dev)
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA device requested but torch.cuda is not "
+                           "available; pass device='cpu' to run on the CPU")
+    return f"cuda:{torch.cuda.current_device()}"
+
+
+def default_planner(device=None) -> KernelPlanner:
+    """The process-wide planner of a device (``None`` -> ``"cuda"``)."""
+    key = _planner_key(device)
+    if key not in _DEFAULT:
+        _DEFAULT[key] = KernelPlanner(device=key)
+    return _DEFAULT[key]
+
+
+def set_default_planner(planner: KernelPlanner | None, device=None) -> None:
+    """Swap (or, with ``None``, drop) a device's default planner."""
+    key = _planner_key(device)
+    if planner is None:
+        _DEFAULT.pop(key, None)
+    else:
+        _DEFAULT[key] = planner

@@ -1,0 +1,157 @@
+"""Build and load the port's CUDA kernels (``repro_torch/csrc/*.cu``).
+
+Each ``.cu`` source is compiled by its own ``nvcc`` process, all started
+together, for ``sm_90a``; the objects are linked into one shared library
+with a plain C interface, which is loaded with ``ctypes``. The build goes
+to ``build/repro_torch/<hash>/`` at the repository root, keyed on a hash of
+the sources and flags, and happens at first use: importing this module
+builds nothing and needs no ``nvcc``.
+
+Every C entry point returns a ``cudaError_t``; ``check`` raises on a
+non-zero code. Pointers and the stream are passed as ``ctypes.c_void_p``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+REPO_ROOT = Path(__file__).resolve().parents[3]
+BUILD_ROOT = REPO_ROOT / "build" / "repro_torch"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+# name -> argument types; every function returns int (cudaError_t)
+SIGNATURES = {
+    "fk_flash_assign": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "fk_sort_inverse_update": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
+    "fk_flash_lloyd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _P),
+    "fk_flash_lloyd_static_smem": (_I, ctypes.POINTER(_I)),
+    "fk_max_smem_optin": (_I, ctypes.POINTER(_I)),
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+build_seconds: float | None = None
+ptxas_log: str = ""
+
+
+def find_nvcc() -> str:
+    """``nvcc`` from ``CUDA_HOME``, then ``PATH``, then ``/usr/local/cuda``."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    on_path = shutil.which("nvcc")
+    if on_path:
+        cands.append(Path(on_path))
+    cands.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in cands:
+        if c.is_file() and os.access(c, os.X_OK):
+            return str(c)
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, $PATH and "
+        "/usr/local/cuda/bin): the repro_torch CUDA kernels are built from "
+        "src/repro_torch/csrc at first use and need the CUDA toolkit")
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile every source in parallel and link ``libfkmeans.so``;
+    returns its path. A build already present for this hash is reused."""
+    global build_seconds, ptxas_log
+    import time
+    out_dir = BUILD_ROOT / source_hash()
+    lib = out_dir / "libfkmeans.so"
+    if lib.is_file():
+        return lib
+    nvcc = find_nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = []
+    for src in sources():
+        obj = out_dir / (src.stem + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for src, _, p in procs:
+        out, _ = p.communicate()
+        logs.append(f"== {src.name}\n{out}")
+        if p.returncode != 0:
+            failed.append(src.name)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
+    tmp = out_dir / f"libfkmeans.{os.getpid()}.so"
+    link = subprocess.run(
+        [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+         *(str(o) for _, o, _ in procs)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    os.replace(tmp, lib)
+    build_seconds = time.perf_counter() - t0
+    ptxas_log = "\n".join(logs)
+    return lib
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = handle
+        return _lib
+
+
+def check(code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {code}")
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def max_smem_optin(device_index: int = 0) -> int:
+    """``cudaDevAttrMaxSharedMemoryPerBlockOptin`` of a device (232,448
+    bytes on sm_90); ``torch``'s ``shared_memory_per_block`` reports only
+    the 48 KB default."""
+    out = ctypes.c_int(0)
+    check(lib().fk_max_smem_optin(device_index, ctypes.byref(out)),
+          "cudaDeviceGetAttribute")
+    return int(out.value)
+
+
+def lloyd_static_smem(is_bf16: bool) -> int:
+    out = ctypes.c_int(0)
+    check(lib().fk_flash_lloyd_static_smem(int(is_bf16), ctypes.byref(out)),
+          "cudaFuncGetAttributes")
+    return int(out.value)

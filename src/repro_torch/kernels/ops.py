@@ -1,0 +1,287 @@
+"""Public wrappers around the port's flash-kmeans kernels.
+
+Ports of ``repro/kernels/ops.py`` with the same signatures and return
+contracts: ``||x||^2`` is added back outside the assign kernel and clamped
+at 0, clusters without points get exactly-zero sums and counts, and
+``finalize_centroids`` divides by any ``cnt > 0``. Each wrapper dispatches
+by the tensors' device: the kernel modules run their plain PyTorch version
+for CPU tensors and launch the CUDA kernel for CUDA tensors.
+
+Block resolution: every wrapper accepts an optional ``plan=``
+(``core.plan.KernelPlan``) and/or explicit ``block_*`` overrides; with
+neither, the device's default ``KernelPlanner`` plans the dispatch. The
+resolved tiles are audited against the block's shared-memory limit
+(``core.heuristics`` footprints). The assign and fused kernels are compiled
+for one tile shape (``BlockConfig`` defaults); the sort-inverse kernel's
+two tile dims (sorted rows per CTA, threads across the columns) are free.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.kernels import flash_assign as _fa
+from repro_torch.kernels import flash_lloyd as _fl
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import sort_inverse_update as _siu
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockConfig:
+    """Tile shapes for the kernels (see core.heuristics for selection).
+
+    ``assign_*``/``fused_*``: points and centroids per CTA tile (fixed by
+    the CUDA sources). ``update_block_n``: sorted rows per sort-inverse
+    CTA; ``update_block_k``: that CTA's threads across the feature columns.
+    """
+    assign_block_n: int = _fa.TILE_N
+    assign_block_k: int = _fa.TILE_K
+    update_block_n: int = 512
+    update_block_k: int = 128
+    fused_block_n: int = _fa.TILE_N
+    fused_block_k: int = _fa.TILE_K
+
+    def validate(self) -> "BlockConfig":
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if v <= 0 or (v & (v - 1)) != 0 and v % 128 != 0:
+                raise ValueError(f"{f.name}={v} must be a positive power of "
+                                 "two or a multiple of 128")
+        return self
+
+
+def _plan_leg(plan, leg: str) -> tuple[int, int]:
+    """Extract the tile dims a wrapper needs from a ``KernelPlan``."""
+    if plan.op == leg:
+        return plan.blocks
+    if plan.block is not None and leg in ("assign", "update", "fused"):
+        b = plan.block
+        return {"assign": (b.assign_block_n, b.assign_block_k),
+                "update": (b.update_block_n, b.update_block_k),
+                "fused": (b.fused_block_n, b.fused_block_k)}[leg]
+    raise ValueError(
+        f"a plan for op {plan.op!r} cannot drive the {leg!r} kernel")
+
+
+def _resolve_blocks(op: str, shape: tuple, dtype, block_n, block_k, plan,
+                    device, leg: str | None = None) -> tuple[int, int]:
+    """Explicit ``block_*`` win; a ``plan`` covers the rest; with neither,
+    the device's default ``KernelPlanner`` plans the dispatch."""
+    if block_n is not None and block_k is not None:
+        return block_n, block_k
+    if plan is None:
+        from repro_torch.core.plan import default_planner
+        plan = default_planner(device).plan(op, shape, dtype)
+    pn, pk = _plan_leg(plan, leg or op)
+    return (pn if block_n is None else block_n,
+            pk if block_k is None else block_k)
+
+
+def _audit_blocks(op: str, bn: int, bk: int, d: int, itemsize: int, device,
+                  *, k: int | None = None, plan=None) -> None:
+    """The resolved tiles must be ones the kernel was built for, and their
+    shared-memory footprint must fit the block limit of the hardware the
+    plan was made for (the device's detected hardware without a plan).
+    Raises ``ValueError`` otherwise: a fused ``(K, d)`` accumulator that
+    does not fit cannot be tiled down, the caller must go two-pass."""
+    from repro_torch.core import heuristics as H
+    from repro_torch.core import plan as _planmod
+    hw = _planmod.hardware_for(plan.hw if plan is not None else None, device)
+    if op in ("assign", "fused") and (bn, bk) != (_fa.TILE_N, _fa.TILE_K):
+        raise ValueError(
+            f"{op} tiles ({bn}, {bk}) differ from the kernel's compiled "
+            f"tiles ({_fa.TILE_N}, {_fa.TILE_K})")
+    if op == "assign":
+        need = H.assign_footprint(bn, bk, d, itemsize)
+    elif op == "update":
+        if bk % 32 or not 32 <= bk <= 1024:
+            raise ValueError(f"update_block_k={bk} must be a multiple of 32 "
+                             "in [32, 1024] (threads per CTA)")
+        need = H.update_footprint(bn, bk, d, itemsize)
+    else:
+        need = H.fused_footprint(bn, bk, d, itemsize, k)
+    if need > hw.smem_block_bytes:
+        raise ValueError(
+            f"{op} kernel working set ({need} bytes) exceeds the {hw.name} "
+            f"block shared-memory limit ({hw.smem_block_bytes} bytes) for "
+            f"d={d}" + (f", K={k}" if op == "fused" else "")
+            + ("; use the two-pass path" if op == "fused" else ""))
+
+
+def _dists(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    x32 = x.float()
+    return torch.clamp(m + (x32 * x32).sum(-1), min=0.0)  # fp residue
+
+
+# ---------------------------------------------------------------------------
+# FlashAssign
+# ---------------------------------------------------------------------------
+
+def flash_assign(x: torch.Tensor, c: torch.Tensor, *,
+                 block_n: int | None = None, block_k: int | None = None,
+                 plan=None, want_dists: bool = True
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused assignment. x: (N, d), c: (K, d).
+
+    Returns ``(assignments int32 (N,), min_sq_dists f32 (N,))``; distances
+    are true squared distances unless ``want_dists=False`` (then the
+    ``||x||^2``-free score).
+    """
+    n, d = x.shape
+    k = c.shape[0]
+    bn, bk = _resolve_blocks("assign", (n, k, d), x.dtype, block_n, block_k,
+                             plan, x.device)
+    _audit_blocks("assign", bn, bk, d, x.element_size(), x.device, plan=plan)
+    a, m = _fa.flash_assign_raw(x.unsqueeze(0), c.unsqueeze(0))
+    a, m = a[0], m[0]
+    return a, (_dists(x, m) if want_dists else m)
+
+
+def flash_assign_batched(x: torch.Tensor, c: torch.Tensor, *,
+                         block_n: int | None = None,
+                         block_k: int | None = None, plan=None,
+                         want_dists: bool = True
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, N, d), c: (B, K, d) — per-problem centroids, one launch."""
+    b, n, d = x.shape
+    bn, bk = _resolve_blocks("assign", (n, c.shape[1], d), x.dtype,
+                             block_n, block_k, plan, x.device)
+    _audit_blocks("assign", bn, bk, d, x.element_size(), x.device, plan=plan)
+    a, m = _fa.flash_assign_raw(x, c)
+    return a, (_dists(x, m) if want_dists else m)
+
+
+# ---------------------------------------------------------------------------
+# Sort-Inverse Update
+# ---------------------------------------------------------------------------
+
+def _sort_inverse(x2: torch.Tensor, ids: torch.Tensor, segments: int,
+                  bn: int, bk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Prologue (stable sort of the 4-byte ids) + the segment-sum kernel."""
+    ids_sorted, order = torch.sort(ids.to(torch.int32), stable=True)
+    return _siu.sort_inverse_update_raw(
+        x2, order.to(torch.int32), ids_sorted, segments, chunk=bn,
+        threads=bk)
+
+
+def sort_inverse_update(x: torch.Tensor, a: torch.Tensor, *, k: int,
+                        block_n: int | None = None,
+                        block_k: int | None = None, plan=None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Contention-free centroid statistics. x: (N, d), a: (N,) int32.
+
+    Returns ``(sums f32 (K, d), counts f32 (K,))``.
+    """
+    n, d = x.shape
+    bn, bk = _resolve_blocks("update", (n, k, d), x.dtype, block_n, block_k,
+                             plan, x.device)
+    _audit_blocks("update", bn, bk, d, x.element_size(), x.device, plan=plan)
+    return _sort_inverse(x, a, k, bn, bk)
+
+
+def sort_inverse_update_batched(x: torch.Tensor, a: torch.Tensor, *, k: int,
+                                block_n: int | None = None,
+                                block_k: int | None = None, plan=None
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, N, d), a: (B, N). Ids are offset by ``b * k`` so one sort
+    and one kernel launch cover all B problems."""
+    b, n, d = x.shape
+    bn, bk = _resolve_blocks("update", (n, k, d), x.dtype, block_n, block_k,
+                             plan, x.device)
+    _audit_blocks("update", bn, bk, d, x.element_size(), x.device, plan=plan)
+    ids = a.to(torch.int32) + k * torch.arange(
+        b, dtype=torch.int32, device=a.device).unsqueeze(1)
+    s, cnt = _sort_inverse(x.reshape(b * n, d), ids.reshape(-1), b * k,
+                           bn, bk)
+    return s.reshape(b, k, d), cnt.reshape(b, k)
+
+
+# ---------------------------------------------------------------------------
+# FlashLloyd — fused assignment + statistics in one pass
+# ---------------------------------------------------------------------------
+
+def flash_lloyd_step_batched(x: torch.Tensor, c: torch.Tensor, *,
+                             block_n: int | None = None,
+                             block_k: int | None = None, plan=None):
+    """x: (B, N, d), c: (B, K, d). Returns ``(a int32 (B, N), sums f32
+    (B, K, d), counts f32 (B, K), inertia f32 (B,))`` in one launch."""
+    b, n, d = x.shape
+    k = c.shape[1]
+    bn, bk = _resolve_blocks("step", (n, k, d), x.dtype, block_n, block_k,
+                             plan, x.device, leg="fused")
+    _audit_blocks("fused", bn, bk, d, x.element_size(), x.device, k=k,
+                  plan=plan)
+    return _fl.flash_lloyd_raw(x, c)
+
+
+def flash_lloyd_step(x: torch.Tensor, c: torch.Tensor, *,
+                     block_n: int | None = None, block_k: int | None = None,
+                     plan=None):
+    """Fused Lloyd statistics. x: (N, d), c: (K, d).
+
+    Returns ``(assignments int32 (N,), sums f32 (K, d), counts f32 (K,),
+    inertia f32 ())`` in a single pass over ``x``. The ``(K, d)`` f32
+    accumulator must fit one CTA's shared memory; the planner's step plan
+    sends larger shapes to the two-pass pipeline.
+    """
+    a, s, cnt, j = flash_lloyd_step_batched(
+        x.unsqueeze(0), c.unsqueeze(0), block_n=block_n, block_k=block_k,
+        plan=plan)
+    return a[0], s[0], cnt[0], j[0]
+
+
+# ---------------------------------------------------------------------------
+# Statistics by any two-pass dataflow + centroid update
+# ---------------------------------------------------------------------------
+
+def centroid_stats(x: torch.Tensor, a: torch.Tensor, *, k: int,
+                   impl: str = "sort_inverse", block_n: int | None = None,
+                   block_k: int | None = None, plan=None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Centroid sufficient statistics ``(sums f32 (K, d), counts f32
+    (K,))`` by any of the two-pass update dataflows."""
+    if impl == "sort_inverse":
+        return sort_inverse_update(x, a, k=k, block_n=block_n,
+                                   block_k=block_k, plan=plan)
+    if impl == "scatter":
+        return _ref.update_scatter_ref(x, a, k)
+    if impl == "dense_onehot":
+        return _ref.update_dense_onehot_ref(x, a, k)
+    raise ValueError(f"unknown update impl {impl!r}")
+
+
+def centroid_stats_batched(x: torch.Tensor, a: torch.Tensor, *, k: int,
+                           impl: str = "sort_inverse", **kw
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched ``centroid_stats``: x (B, N, d), a (B, N)."""
+    if impl == "sort_inverse":
+        return sort_inverse_update_batched(x, a, k=k, **kw)
+    if impl not in ("scatter", "dense_onehot"):
+        raise ValueError(f"unknown update impl {impl!r}")
+    outs = [centroid_stats(x[i], a[i], k=k, impl=impl)
+            for i in range(x.shape[0])]  # reference dataflows, not kernels
+    return (torch.stack([s for s, _ in outs]),
+            torch.stack([cnt for _, cnt in outs]))
+
+
+def finalize_centroids(s: torch.Tensor, cnt: torch.Tensor,
+                       c_prev: torch.Tensor) -> torch.Tensor:
+    """sums/counts -> centroids with empty-cluster fallback (keep old).
+
+    Counts may be fractional, so any ``cnt > 0`` is a valid divisor;
+    clamping to 1 would shrink low-weight centroids toward the origin.
+    Works on ``(K, d)`` and batched ``(B, K, d)`` statistics.
+    """
+    live = (cnt > 0).unsqueeze(-1)
+    new_c = s / torch.where(cnt > 0, cnt, torch.ones_like(cnt)).unsqueeze(-1)
+    return torch.where(live, new_c, c_prev.float()).to(c_prev.dtype)
+
+
+def centroid_update(x: torch.Tensor, a: torch.Tensor, c_prev: torch.Tensor,
+                    *, impl: str = "sort_inverse", block_n: int | None = None,
+                    block_k: int | None = None, plan=None) -> torch.Tensor:
+    """Full update stage with empty-cluster fallback (keeps old centroid)."""
+    s, cnt = centroid_stats(x, a, k=c_prev.shape[0], impl=impl,
+                            block_n=block_n, block_k=block_k, plan=plan)
+    return finalize_centroids(s, cnt, c_prev)
