@@ -5,17 +5,31 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
 sm_90a), holds each kernel against its plain PyTorch version on the card,
-then drives the exact Lloyd fit (``KMeans.fit`` / ``fit_batched`` and the
-online ``iterate``) at the widths of the paper's four regimes
-(``benchmarks/bench_e2e.py``), with the launch counters zeroed just before
-each regime's run and read just after. It prints the kernel table as one
-JSON line, the card's name and power limit, and as its last line
-``{"ok": true, "device": {...}}``. It exits non-zero, printing no result,
-without a CUDA device or outside a checkout of the repository, and when
-any check fails. Details go to ``chiprun_out/chip_smoke.json``.
+then drives two paths, with the launch counters zeroed just before each
+run and read just after:
+
+- the exact Lloyd fit (``KMeans.fit`` / ``fit_batched`` and the online
+  ``iterate``) at the widths of the paper's four regimes
+  (``benchmarks/bench_e2e.py``);
+- FlashIVF search (``repro_torch.index.IVFIndex``) at the FAISS
+  ``IVF1024,Flat`` configuration on SIFT1M (N = 1,048,576, d = 128,
+  K = 1,024; a synthetic corpus of 1,024 Gaussian blobs made on the card
+  from the seed): ``build``, then batches of 256 queries at ``topk=10``,
+  ``nprobe=16``, with the ``fp32`` and the ``q8`` codec, recall@10 held
+  against ``search_brute`` and against the corpus's own exact neighbours;
+  and full-probe exactness on a smaller index.
+
+It prints the kernel table as one JSON line, the card's name and power
+limit, and as its last line ``{"ok": true, "device": {...}}``. It exits
+non-zero, printing no result, without a CUDA device or outside a checkout
+of the repository, and when any check fails. ``--kernels-only`` stops
+after the build and the ragged kernel checks (a first call after a kernel
+change). Details go to ``chip_smoke.json`` in the repository's
+git-ignored output directory.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import subprocess
@@ -44,6 +58,29 @@ PLAIN_ELEMS = 2 ** 28   # entries of one plain score matrix (1 GiB in f32)
 # (B, N, K, d): tails of every tile dim, K = 1, d = 1, a single point
 RAGGED = [(1, 1000, 37, 19), (3, 777, 100, 64), (1, 1, 1, 1),
           (2, 130, 1, 3), (1, 4097, 65, 129)]
+# FlashProbe ragged checks. L in {1, 7, 40, K}, K/C/W tails, d in {1, 19,
+# 129}, one query, lists longer than the kernel keeps in shared memory
+# (L > 2048), duplicated rows (the lower-index tie rule), store padding
+# rows (the 1e15 coordinate), q8 rows with fewer live slots than L.
+# probe: (N, K, d, L, duplicated centroids)
+PROBE_RAGGED = [(1, 1, 1, 1, False), (37, 100, 19, 7, False),
+                (5, 300, 129, 300, False), (64, 3000, 16, 3000, False),
+                (40, 150, 32, 60, True), (256, 1024, 128, 40, False)]
+# grouped scan: (B, C, d, L, padding rows per query, duplicated rows)
+SCAN_RAGGED = [(1, 5, 1, 1, 0, False), (7, 1000, 19, 7, 3, False),
+               (16, 4100, 129, 40, 50, False), (3, 2500, 16, 2500, 10, False),
+               (8, 300, 32, 40, 0, True)]
+# q8 scan: (B, nprobe, W, d, L, duplicated slots)
+Q8_RAGGED = [(1, 1, 1, 1, 1, False), (5, 3, 37, 19, 7, False),
+             (16, 16, 100, 129, 40, False), (4, 4, 700, 16, 2800, False),
+             (8, 4, 64, 32, 40, True)]
+PAD = 1e15   # the store's padding coordinate (index/store.py)
+# FlashIVF: the FAISS IVF1024,Flat configuration on SIFT1M (N, K, d),
+# searched in batches of IVF_B queries at topk 10, nprobe 16
+IVF = (1048576, 1024, 128)
+IVF_B, IVF_BATCHES, TOPK, NPROBE = 256, 4, 10, 16
+EXACT = (65536, 64, 128)   # the full-probe exactness index
+EXACT_B = 32
 
 failures: list[str] = []
 
@@ -66,6 +103,10 @@ def plain_chunks(b: int, n: int, k: int):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="build and run the ragged kernel checks only")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -80,8 +121,13 @@ def main() -> int:
         return 2
     from repro_torch.core import KMeans, KMeansConfig
     from repro_torch.core import heuristics as H
+    from repro_torch.index import IVFIndex, recall_at_k
+    from repro_torch.index import ivf as ivf_mod
+    from repro_torch.index import store as store_mod
     from repro_torch.kernels import flash_assign as fa
     from repro_torch.kernels import flash_lloyd as fl
+    from repro_torch.kernels import flash_probe as fp
+    from repro_torch.kernels import ops
     from repro_torch.kernels import sort_inverse_update as siu
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in fp32
@@ -108,12 +154,29 @@ def main() -> int:
         check(got == model, f"flash_lloyd static smem {got} == the "
                             f"planner's model {model} (bf16={bf16})")
 
+    for kname, (regs, local) in fp.kernel_attrs().items():
+        check(regs <= H.PROBE_REGS, f"{kname}: {regs} registers <= "
+              f"{H.PROBE_REGS} (the planner's model); {local} bytes of local "
+              f"memory")
+
     mods = {"flash_assign": fa, "sort_inverse_update": siu,
             "flash_lloyd": fl}
-    launches = {k: 0 for k in mods}
-    max_err = {k: 0.0 for k in mods}
+    probe_names = tuple(fp.launches)
+    launches = {k: 0 for k in (*mods, *probe_names)}
+    max_err = {k: 0.0 for k in launches}
     timing: dict[str, dict] = {}
-    details = {"card": smi, "regimes": [], "kernel_checks": []}
+    details = {"card": smi, "regimes": [], "kernel_checks": [], "ivf": [],
+               "ivf_truth": []}
+
+    def zero_counts():
+        for mod in mods.values():
+            mod.launches = 0
+        for kname in probe_names:
+            fp.launches[kname] = 0
+
+    def read_counts():
+        return {**{kname: mod.launches for kname, mod in mods.items()},
+                **fp.launches}
 
     def ms_of(fn, reps=3):
         fn()  # warm-up
@@ -183,10 +246,11 @@ def main() -> int:
         abssum.index_add_(0, ids.long(), absx)
         return 2 * U32 * cnt.unsqueeze(1) * abssum + 1e-30
 
-    def siu_check(x2, ids, segments, tag):
+    def siu_check(x2, ids, segments, tag, chunk=512, threads=128):
         ids_s, order = torch.sort(ids, stable=True)
         order = order.to(torch.int32)
-        s, cnt = siu.sort_inverse_update_raw(x2, order, ids_s, segments)
+        s, cnt = siu.sort_inverse_update_raw(x2, order, ids_s, segments,
+                                             chunk=chunk, threads=threads)
         sp, cp = siu.sort_inverse_update_plain(x2, order, ids_s, segments)
         torch.cuda.synchronize()
         err_t = (s - sp).abs()
@@ -234,6 +298,159 @@ def main() -> int:
         max_err["flash_lloyd"] = max(max_err["flash_lloyd"], err)
         return a_assign
 
+    # ---- FlashProbe helpers: dense scores and the top-L check ------------
+    def probe_scores(q, c):
+        """(N, K) ``||c||^2 - 2 q.c`` and the worst-case magnitude."""
+        q32, c32 = q.float(), c.float()
+        mag = ((c32 * c32).sum(-1).max() + 2 * q32.norm(dim=-1).max()
+               * c32.norm(dim=-1).max())
+        return (c32 * c32).sum(-1) - 2.0 * (q32 @ c32.t()), mag
+
+    def scan_scores(q, c):
+        """(B, C) per-query ``||c||^2 - 2 q.c``; the magnitude is taken over
+        real rows (store padding rows are checked relative to their own
+        huge score)."""
+        q32, c32 = q.float(), c.float()
+        real = c32.abs().amax(-1) < PAD / 10
+        cn = torch.where(real, c32.norm(dim=-1), torch.zeros((), device=dev))
+        mag = cn.max() ** 2 + 2 * q32.norm(dim=-1).max() * cn.max()
+        cross = torch.bmm(c32, q32.unsqueeze(-1)).squeeze(-1)
+        return (c32 * c32).sum(-1) - 2.0 * cross, mag
+
+    def q8_scores(qp, codes, scales):
+        """(B, nprobe * W) true quantized distances, +inf on dead slots."""
+        b, p, w, _ = codes.shape
+        r = codes.float() * scales.unsqueeze(-1)
+        cross = torch.matmul(r, qp.unsqueeze(-1)).squeeze(-1)
+        qsq = (qp * qp).sum(-1, keepdim=True)
+        score = torch.where(scales > 0, qsq - 2.0 * cross + (r * r).sum(-1),
+                            torch.full_like(cross, float("inf")))
+        rn = torch.where(scales > 0, r.norm(dim=-1),
+                         torch.zeros((), device=dev)).max()
+        qn = qp.norm(dim=-1).max()
+        return score.reshape(b, p * w), (qn + rn) ** 2
+
+    def topl_check(kname, tag, got, exp, score, mag, d):
+        """Kernel ``got`` against the plain version's ``exp`` (ids, values):
+        +inf in the same places, and the ids of those entries equal; finite
+        values within the fp32 worst case ``2 d u (mag + |v|)``; every id
+        in range and distinct in its row, its dense score equal to the
+        kernel's value; ids that differ sit on near-ties inside the bound;
+        equal values keep ascending ids (the lower-index rule)."""
+        idx, v = got
+        idx_p, v_p = exp
+        torch.cuda.synchronize()
+        c_n = score.shape[1]
+        zero = torch.zeros((), device=dev)
+        fin = torch.isfinite(v_p)
+        tol = 2 * d * U32 * (mag + torch.where(fin, v_p.abs(), zero))
+        err_t = torch.where(fin, (v - v_p).abs(), zero)
+        real = fin & (v_p.abs() < PAD)
+        err = float(err_t[real].max()) if bool(real.any()) else 0.0
+        sk = score.gather(1, idx.long().clamp(0, c_n - 1))
+        sp = score.gather(1, idx_p.long())
+        diff = idx != idx_p
+        gap_t = torch.where(diff & fin, (sk - sp).abs(), zero)
+        srt = torch.sort(idx, dim=1).values
+        eq = v[:, 1:] == v[:, :-1]
+        parts = {
+            "inf_same": torch.equal(torch.isinf(v), torch.isinf(v_p))
+            and torch.equal(idx[~fin], idx_p[~fin]),
+            "values": bool((err_t <= tol).all()),
+            "ids_in_range": bool(((idx >= 0) & (idx < c_n)).all()),
+            "ids_distinct": bool((srt[:, 1:] > srt[:, :-1]).all()),
+            "value_is_score": bool((torch.where(fin, (sk - v).abs(), zero)
+                                    <= tol).all()),
+            "near_ties": bool((gap_t <= tol).all()),
+            "lower_index": bool((idx[:, 1:] > idx[:, :-1])[eq].all()),
+        }
+        mism, gap = int((diff & fin).sum()), float(gap_t.max())
+        details["kernel_checks"].append(
+            {"kernel": kname, "at": tag, "shape": list(score.shape),
+             "l": v.shape[1], "max_abs_err": err, "mismatches": mism,
+             "tie_gap": gap, **parts})
+        check(all(parts.values()),
+              f"{kname} {tag}: {v.numel()} entries, err {err:.3g}, {mism} "
+              f"id mismatches (gap {gap:.3g}), failed: "
+              f"{[k for k, ok in parts.items() if not ok]}")
+        max_err[kname] = max(max_err[kname], err)
+
+    def probe_check(q, c, l, tag, splits=None):
+        c32 = c.float()
+        csq = (c32 * c32).sum(-1)
+        score, mag = probe_scores(q, c)
+        exp = fp.flash_probe_plain(q, c, csq, l)
+        got = ops.flash_probe(q, c, l=l, splits=splits, want_dists=False,
+                              c_sq=csq)
+        topl_check("flash_probe", tag, got, exp, score, mag, q.shape[1])
+        return got
+
+    def scan_check(q, c, l, tag, splits=None):
+        score, mag = scan_scores(q, c)
+        exp = fp.flash_probe_grouped_plain(q, c, l)
+        got = ops.flash_probe_grouped(q, c, l=l, splits=splits,
+                                      want_dists=False)
+        topl_check("flash_probe_grouped", tag, got, exp, score, mag,
+                   q.shape[1])
+        return got
+
+    def q8_check(qp, codes, scales, l, tag, splits=None):
+        score, mag = q8_scores(qp, codes, scales)
+        exp = fp.flash_probe_grouped_q8_plain(qp, codes, scales, l)
+        got = ops.flash_probe_grouped_q8(qp, codes, scales, l=l,
+                                         splits=splits)
+        topl_check("flash_probe_grouped_q8", tag, got, exp, score, mag,
+                   qp.shape[-1])
+        return got
+
+    # ---- FlashIVF helpers: the corpus's own exact neighbours --------------
+    def corpus_topk(x, q, topk):
+        """Exact top-``topk`` of ``||x - q||^2`` over the corpus rows, with
+        ids = row positions (the ids ``build`` gives them): the fp32
+        expanded form and a stable ascending sort, queries in chunks whose
+        score matrix has at most ``PLAIN_ELEMS`` entries."""
+        xsq = (x * x).sum(-1)
+        step = max(1, PLAIN_ELEMS // x.shape[0])
+        ids, dd = [], []
+        for s in range(0, q.shape[0], step):
+            qc = q[s:s + step].float()
+            sc = xsq - 2.0 * (qc @ x.t()) + (qc * qc).sum(-1, keepdim=True)
+            v, i = torch.sort(sc, dim=1, stable=True)
+            ids.append(i[:, :topk].to(torch.int32))
+            dd.append(v[:, :topk])
+            del sc, v, i
+        return torch.cat(ids), torch.cat(dd)
+
+    def truth_check(tag, ids, dd, x, q, ref_ids, exact=True):
+        """Search results ``(ids, dd)`` held against the corpus: each
+        distance equals the float64 distance from the query to the corpus
+        row of its id (so ids are bound to the right rows), within the fp32
+        worst case ``2 d u (|q| + max |x|)^2``; with ``exact``, ids equal
+        ``ref_ids`` except on near-ties inside that bound."""
+        q64 = q.double().unsqueeze(1)
+        d = x.shape[1]
+
+        def true_d(i):
+            return ((x[i.long().clamp(0, x.shape[0] - 1)].double() - q64)
+                    ** 2).sum(-1)
+        mag = (q.norm(dim=-1).max() + x.norm(dim=-1).max()) ** 2
+        tol = float(2 * d * U32 * mag)
+        d_got = true_d(ids)
+        err = float((dd.double() - d_got).abs().max())
+        diff = ids != ref_ids
+        gap = float((d_got - true_d(ref_ids)).abs()[diff].max()) \
+            if bool(diff.any()) else 0.0
+        in_range = bool(((ids >= 0) & (ids < x.shape[0])).all())
+        ok = in_range and err <= tol and (not exact or gap <= tol)
+        rec = {"at": tag, "dist_err": err, "tol": tol,
+               "mismatches": int(diff.sum()), "tie_gap": gap}
+        details["ivf_truth"].append(rec)
+        check(ok, f"{tag}: dists == true distances of their ids' corpus "
+                  f"rows (err {err:.3g})" + (
+                      f", {int(diff.sum())} id mismatches (gap {gap:.3g})"
+                      if exact else "") + f" <= tol {tol:.3g}")
+        return rec
+
     # ---- phase 2a: ragged and degenerate shapes, every kernel ------------
     gen = torch.Generator(device=dev).manual_seed(SEED)
     print("\n[ragged shapes]", flush=True)
@@ -246,6 +463,52 @@ def main() -> int:
                                        dtype=torch.int32).unsqueeze(1)
             siu_check(x.reshape(-1, d), ids.reshape(-1), b * k,
                       f"ragged{(b, n, k, d)}")
+
+    print("\n[FlashProbe ragged shapes]", flush=True)
+    for n, k, d, l, dup in PROBE_RAGGED:
+        for cdt in (torch.float32, torch.bfloat16):
+            q = torch.randn(n, d, device=dev, generator=gen).to(cdt)
+            c = torch.randn(k, d, device=dev, generator=gen)
+            if dup:   # every centroid three times
+                c = torch.cat([c[:k // 3]] * 3)
+            for splits in (None, 3):
+                probe_check(q, c.to(cdt), l, f"ragged{(n, k, d, l)}/"
+                            f"{cdt}/splits={splits or 'planned'}", splits)
+    for b, cn, d, l, npad, dup in SCAN_RAGGED:
+        for cdt in (torch.float32, torch.bfloat16):
+            q = torch.randn(b, d, device=dev, generator=gen)
+            c = torch.randn(b, cn, d, device=dev, generator=gen)
+            if dup:
+                c[:, cn // 2:] = c[:, :cn // 2]
+            if npad:
+                rows = torch.randperm(cn, device=dev, generator=gen)[:npad]
+                c[:, rows] = PAD
+            for splits in (None, 3):
+                scan_check(q.to(cdt), c.to(cdt), l, f"ragged{(b, cn, d, l)}/"
+                           f"pad={npad}/{cdt}/splits={splits or 'planned'}",
+                           splits)
+    for b, p, w, d, l, dup in Q8_RAGGED:
+        qp = torch.randn(b, p, d, device=dev, generator=gen)
+        codes = torch.randint(-127, 128, (b, p, w, d), device=dev,
+                              generator=gen).to(torch.int8)
+        scales = torch.rand(b, p, w, device=dev, generator=gen) * 0.02 + 1e-3
+        scales[torch.rand(b, p, w, device=dev, generator=gen) < 0.3] = 0.0
+        scales[0] = 0.0          # query 0: fewer live slots than L
+        scales[0, 0, :min(2, w)] = 1e-2
+        if dup:
+            codes[:, :, w // 2:] = codes[:, :, :w // 2]
+            scales[:, :, w // 2:] = scales[:, :, :w // 2]
+        for splits in (None, 3):
+            q8_check(qp, codes, scales, l, f"ragged{(b, p, w, d, l)}/"
+                     f"splits={splits or 'planned'}", splits)
+    if args.kernels_only:
+        if failures:
+            print(f"\nchip_smoke: {len(failures)} check(s) failed",
+                  file=sys.stderr)
+            return 1
+        print(f"\nchip_smoke --kernels-only: all "
+              f"{len(details['kernel_checks'])} kernel checks passed")
+        return 0
 
     # ---- phases 2-3: per regime, compare, then drive the main path ------
     for name, n, k, d, b, dt, iters in REGIMES:
@@ -278,8 +541,7 @@ def main() -> int:
         cfg = KMeansConfig(k=k, max_iters=iters, tol=0.0)
         km = KMeans(cfg)
         impl = cfg.resolved_step_impl(n, d, x.element_size(), device=dev)
-        for mod in mods.values():
-            mod.launches = 0
+        zero_counts()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -416,20 +678,247 @@ def main() -> int:
         del x, c0, xb, cb, st, c
         torch.cuda.empty_cache()
 
+    # ---- phase 5: FlashIVF search at full width, fp32 and q8 -------------
+    n, k, d = IVF
+    centers = torch.randn(k, d, device=dev, generator=gen) * 5.0
+    x = centers[torch.randint(0, k, (n,), device=dev, generator=gen)]
+    x += 0.4 * torch.randn(n, d, device=dev, generator=gen)
+    qlab = torch.randint(0, k, (IVF_BATCHES, IVF_B), device=dev,
+                         generator=gen)
+    queries = centers[qlab] + 0.4 * torch.randn(IVF_BATCHES, IVF_B, d,
+                                                device=dev, generator=gen)
+    main_inputs = {}
+    for codec in ("fp32", "q8"):
+        print(f"\n[ivf/{codec}] IVF{k},Flat shape: N={n} d={d} K={k}, "
+              f"{IVF_BATCHES} batches of {IVF_B} queries, topk={TOPK} "
+              f"nprobe={NPROBE}", flush=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index = IVFIndex.build(x, k=k, max_iters=8, codec=codec, seed=SEED)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        width = index.search_geometry(TOPK, NPROBE)[2]
+        index.search(queries[0], topk=TOPK, nprobe=NPROBE)   # warm-up
+        results, batch_ms = [], []
+        for qb in queries:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            results.append(index.search(qb, topk=TOPK, nprobe=NPROBE))
+            e1.record()
+            torch.cuda.synchronize()
+            batch_ms.append(e0.elapsed_time(e1))
+        counts = read_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        for kname in launches:
+            launches[kname] += counts[kname]
+        # recall against search_brute (the index's own rows) and against
+        # the corpus's exact neighbours; search_brute must equal the
+        # latter, and every returned distance must be its id's true one
+        recall, recall_c = [], []
+        for i, ((ids, dd), qb) in enumerate(zip(results, queries)):
+            ids_b, dd_b = index.search_brute(qb, topk=TOPK)
+            ids_t, _ = corpus_topk(x, qb, TOPK)
+            recall.append(recall_at_k(ids, ids_b))
+            recall_c.append(recall_at_k(ids, ids_t))
+            truth_check(f"ivf/{codec} batch {i} search_brute vs corpus",
+                        ids_b, dd_b, x, qb, ids_t)
+            truth_check(f"ivf/{codec} batch {i} search", ids, dd, x, qb,
+                        ids_t, exact=False)
+        recall, recall_c = statistics.mean(recall), statistics.mean(recall_c)
+        ms = statistics.median(batch_ms)
+        row = d * 4 if codec == "fp32" else d + 4
+        block = IVF_B * NPROBE * width * row
+        print(f"  build {build_s:.3f} s; cap {index.cap}, gather_width "
+              f"{width}; candidate block {IVF_B}x{NPROBE}x{width} rows = "
+              f"{block} bytes; {ms:.3f} ms per batch (CUDA events, median "
+              f"of {len(batch_ms)} after a warm-up) = "
+              f"{IVF_B / ms * 1e3:.1f} queries/s; peak {peak_gib:.2f} GiB; "
+              f"recall@{TOPK} {recall:.4f} (vs search_brute), "
+              f"{recall_c:.4f} (vs the corpus)", flush=True)
+        check(recall >= 0.9 and recall_c >= 0.9,
+              f"ivf/{codec} recall@{TOPK} {recall:.4f} (search_brute), "
+              f"{recall_c:.4f} (corpus) >= 0.9")
+        need = ["flash_assign", "sort_inverse_update", "flash_probe",
+                "flash_probe_grouped"] + (["flash_probe_grouped_q8"]
+                                          if codec == "q8" else [])
+        idle = ["flash_probe_grouped_q8"] if codec == "fp32" else []
+        check(all(counts[kn] > 0 for kn in need)
+              and all(counts[kn] == 0 for kn in idle),
+              f"ivf/{codec} kernels launched: {counts}")
+        ok_out = all(
+            ids.shape == (IVF_B, TOPK) and bool(((ids >= 0) & (ids < n)).all())
+            and bool(torch.isfinite(dd).all())
+            and bool((dd[:, 1:] >= dd[:, :-1]).all())
+            for ids, dd in results)
+        check(ok_out, f"ivf/{codec} results: ids in [0, N), finite "
+                      f"ascending distances of shape ({IVF_B}, {TOPK})")
+        details["ivf"].append(
+            {"codec": codec, "N": n, "K": k, "d": d, "B": IVF_B,
+             "topk": TOPK, "nprobe": NPROBE, "build_s": build_s,
+             "cap": index.cap, "gather_width": width,
+             "candidate_block_bytes": block, "ms_per_batch": ms,
+             "batch_ms": batch_ms, "qps": IVF_B / ms * 1e3,
+             "peak_gib": peak_gib, "recall_at_10": recall,
+             "recall_at_10_corpus": recall_c, "launches": counts})
+
+        # build's and add's kernels at the shapes this path gave them:
+        # FlashAssign of the corpus on the built centroids, then the
+        # sort-inverse statistics of its ids with the planner's blocks
+        a_ivf = assign_check(x.unsqueeze(0), index.centroids.to(
+            x.dtype).unsqueeze(0), f"ivf/{codec}")
+        blk = index._batch_blocks(n)
+        siu_check(x, a_ivf.reshape(-1), k, f"ivf/{codec}",
+                  chunk=blk.update_block_n, threads=blk.update_block_k)
+        del a_ivf
+
+        # the search kernels at the shapes this path gave them, held
+        # against their plain versions (outside the counted run)
+        qb = queries[0]
+        plans = index.plan_search(IVF_B, TOPK, NPROBE)
+        cnorm = index._centroid_norms()
+        probe, _ = probe_check(qb, index.centroids, NPROBE,
+                               f"ivf/{codec}", plans[0])
+        if codec == "fp32":
+            cand_x, _ = store_mod.gather_global(
+                "padded", index.store.device_arrays(), probe, width)
+            scan_check(qb, cand_x, TOPK, "ivf/fp32", plans[2])
+            # where a batch's time goes besides the kernels: the gather
+            # that materializes the candidate block
+            parts = {"gather_ms": ms_of(lambda: store_mod.gather_global(
+                "padded", index.store.device_arrays(), probe, width))}
+            main_inputs["flash_probe"] = (
+                lambda qb=qb, c=index.centroids, cn=cnorm, s=plans[0]:
+                fp.flash_probe_raw(qb, c, cn, NPROBE, splits=s),
+                lambda qb=qb, c=index.centroids, cn=cnorm:
+                fp.flash_probe_plain(qb, c, cn, NPROBE),
+                H.probe_bytes(IVF_B, k, d, NPROBE), 2.0 * IVF_B * k * d,
+                [IVF_B, k, d, NPROBE])
+            c_n = NPROBE * width
+            main_inputs["flash_probe_grouped"] = (
+                lambda qb=qb, cx=cand_x, s=plans[2]:
+                fp.flash_probe_grouped_raw(qb, cx, TOPK, splits=s),
+                lambda qb=qb, cx=cand_x:
+                fp.flash_probe_grouped_plain(qb, cx, TOPK),
+                H.scan_bytes(IVF_B, c_n, d, TOPK), 4.0 * IVF_B * c_n * d,
+                [IVF_B, c_n, d, TOPK])
+        else:
+            *arrays, anchors = index.store.device_arrays()
+            codes, scales, _ = store_mod.gather_global_q8(
+                "padded", tuple(arrays), probe, width)
+            qp = qb.float().unsqueeze(1) - anchors[probe.long()]
+            codes = codes.reshape(IVF_B, NPROBE, width, d)
+            scales = scales.reshape(IVF_B, NPROBE, width)
+            r = index._rescore_r(TOPK, NPROBE, width)
+            q8_check(qp, codes, scales, r, "ivf/q8", plans[2])
+            ids, deq = ivf_mod._q8_propose(
+                qb, index.centroids, cnorm, index.store.device_arrays(),
+                kind="padded", r=r, nprobe=NPROBE, width=width,
+                probe_splits=plans[0], scan_splits=plans[2])
+            # phase 1 on the card; the host round trip (ids to the host,
+            # the reservoir's lookup, rows back: median of 5 on the host
+            # clock); the exact rescore on the card
+            host_ms = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                rows, found = index.store.reservoir.lookup(ids.cpu().numpy())
+                rows = torch.as_tensor(rows, device=dev)
+                found = torch.as_tensor(found, device=dev)
+                torch.cuda.synchronize()
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+            # the rescore scan on the rows the path feeds it: reservoir
+            # rows, dequantized codes where missing, padding for id -1
+            cand = ivf_mod._rescore_rows(deq, ids, rows, found)
+            scan_check(qb, cand, TOPK, "ivf/q8-rescore", plans[4])
+            del cand
+            parts = {
+                "gather_ms": ms_of(lambda: store_mod.gather_global_q8(
+                    "padded", tuple(arrays), probe, width)),
+                "propose_ms": ms_of(lambda: ivf_mod._q8_propose(
+                    qb, index.centroids, cnorm, index.store.device_arrays(),
+                    kind="padded", r=r, nprobe=NPROBE, width=width,
+                    probe_splits=plans[0], scan_splits=plans[2])),
+                "host_round_trip_ms": statistics.median(host_ms),
+                "rescore_ms": ms_of(lambda: ivf_mod._rescore_body(
+                    qb, deq, ids, rows, found, topk=TOPK, splits=plans[4]))}
+            del rows, found
+            live = int((scales > 0).sum())
+            c_n = NPROBE * width
+            main_inputs["flash_probe_grouped_q8"] = (
+                lambda qp=qp, cd=codes, sc=scales, s=plans[2], r=r:
+                fp.flash_probe_grouped_q8_raw(qp, cd, sc, r, splits=s),
+                lambda qp=qp, cd=codes, sc=scales, r=r:
+                fp.flash_probe_grouped_q8_plain(qp, cd, sc, r),
+                # q' rows, every scale, the codes of live slots, the pair out
+                IVF_B * NPROBE * d * 4 + IVF_B * c_n * 4 + live * d
+                + 2 * IVF_B * r * 4,
+                5.0 * live * d, [IVF_B, NPROBE, width, d, r])
+            del codes, scales, qp, deq
+        details["ivf"][-1].update(parts)
+        print("  " + ", ".join(f"{key} {v:.3f}" for key, v in parts.items()),
+              flush=True)
+        del index, probe
+        torch.cuda.empty_cache()
+
+    # kernel times at the main path's shapes
+    for kname, (kern, plain, byt, ops_, shape) in main_inputs.items():
+        timing[f"ivf/{kname}"] = {
+            "ms": ms_of(kern, reps=20), "plain_ms": ms_of(plain, reps=3),
+            "library_ms": None, "bytes": byt, "ops": ops_,
+            "dtype": "float32", "shape": shape}
+    del main_inputs, x, centers, queries
+    torch.cuda.empty_cache()
+
+    # ---- phase 6: full-probe exactness on a smaller index -----------------
+    n, k, d = EXACT
+    centers = torch.randn(k, d, device=dev, generator=gen) * 5.0
+    x = centers[torch.randint(0, k, (n,), device=dev, generator=gen)]
+    x += 0.4 * torch.randn(n, d, device=dev, generator=gen)
+    q = centers[torch.randint(0, k, (EXACT_B,), device=dev, generator=gen)]
+    q += 0.4 * torch.randn(EXACT_B, d, device=dev, generator=gen)
+    ids_t, _ = corpus_topk(x, q, TOPK)
+    for codec in ("fp32", "q8"):
+        index = IVFIndex.build(x, k=k, max_iters=8, codec=codec, seed=SEED,
+                               rescore_mult=n)   # R = the whole pool
+        ids, dd = index.search(q, topk=TOPK, nprobe=k)
+        ids_b, dd_b = index.search_brute(q, topk=TOPK)
+        tag = f"ivf/{codec} full probe (N={n}, K={k})"
+        rec = truth_check(f"{tag} search vs search_brute", ids, dd, x, q,
+                          ids_b)
+        truth_check(f"{tag} search vs corpus", ids, dd, x, q, ids_t)
+        truth_check(f"{tag} search_brute vs corpus", ids_b, dd_b, x, q,
+                    ids_t)
+        details["ivf"].append(
+            {"codec": codec, "exactness": True, "N": n, "K": k, "d": d,
+             "B": EXACT_B, "nprobe": k, **rec})
+        del index
+    del x, centers, q
+    torch.cuda.empty_cache()
+
     # ---- phase 4: the kernel table ---------------------------------------
     main_shape = {"flash_assign": "largeN_smallK/float32",
                   "sort_inverse_update": "largeN_smallK/float32",
-                  "flash_lloyd": "smallN_smallK/float32"}
+                  "flash_lloyd": "smallN_smallK/float32",
+                  **{kname: "ivf" for kname in probe_names}}
     sources = {"flash_assign": "src/repro_torch/csrc/flash_assign.cu",
                "sort_inverse_update":
                    "src/repro_torch/csrc/sort_inverse_update.cu",
-               "flash_lloyd": "src/repro_torch/csrc/flash_lloyd.cu"}
+               "flash_lloyd": "src/repro_torch/csrc/flash_lloyd.cu",
+               **{kname: "src/repro_torch/csrc/flash_probe.cu"
+                  for kname in probe_names}}
     replaces = {"flash_assign": "src/repro/kernels/flash_assign.py:77",
                 "sort_inverse_update":
                     "src/repro/kernels/sort_inverse_update.py:104",
-                "flash_lloyd": "src/repro/kernels/flash_lloyd.py:118"}
+                "flash_lloyd": "src/repro/kernels/flash_lloyd.py:118",
+                "flash_probe": "src/repro/kernels/flash_probe.py:301",
+                "flash_probe_grouped": "src/repro/kernels/flash_probe.py:261",
+                "flash_probe_grouped_q8":
+                    "src/repro/kernels/flash_probe.py:215"}
     table = []
-    for kname in mods:
+    for kname in launches:
         t = timing[f"{main_shape[kname]}/{kname}"]
         t_bytes = t["bytes"] / HBM_BW * 1e3
         t_ops = t["ops"] / PEAK[t["dtype"]] * 1e3

@@ -18,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+from repro_torch.kernels import flash_probe as _fp
 from repro_torch.kernels.ops import BlockConfig
 
 _STAGE_D = 16        # feature columns per shared stage (csrc/common.cuh)
@@ -169,3 +170,90 @@ def max_fused_k(d: int, hw: Hardware = H100) -> int:
     """Largest K whose FlashLloyd accumulator fits one CTA at width d."""
     fixed = fused_footprint(64, 64, d, 4, 0)
     return max(0, math.floor((hw.smem_block_bytes - fixed) / (4 * (d + 1))))
+
+
+# --- FlashProbe (csrc/flash_probe.cu) --------------------------------------
+# One CTA of PROBE_THREADS scans one query's chunk of candidates; a query's
+# candidate axis is shared by ``splits`` CTAs, whose sorted partial lists a
+# second kernel merges. The tiles are compiled constants: PROBE_TILE rows per
+# selection round (the shared survivor buffer), running lists in shared
+# memory up to PROBE_LIST_SMEM_MAX entries and in global scratch beyond.
+
+PROBE_THREADS = 256
+PROBE_TILE = _fp.TILE
+PROBE_LIST_SMEM_MAX = _fp.LIST_SMEM_MAX
+PROBE_REGS = 64            # __launch_bounds__(256, 4): the register cap
+PROBE_MIN_CHUNK = 2048     # fewest candidate rows worth a CTA of their own
+_THREADS_PER_SM = 2048
+
+
+def probe_footprint(lp: int) -> int:
+    """Shared bytes of one scan CTA: the survivor counter and buffer
+    (``(score, index)`` per row of a round), plus the double-buffered
+    running list of ``lp`` entries when it is kept in shared memory.
+    Independent of ``d`` and the input type: rows stream through
+    registers."""
+    lst = 16 * lp if lp <= PROBE_LIST_SMEM_MAX else 0
+    return 16 + 8 * PROBE_TILE + lst
+
+
+def probe_merge_footprint(l: int) -> int:
+    """Shared bytes of one merge CTA: its double-buffered list of ``l``
+    entries, or none when the list is in global scratch."""
+    return 16 * l if l <= PROBE_LIST_SMEM_MAX else 0
+
+
+def probe_ctas_per_sm(lp: int, hw: Hardware = H100) -> int:
+    """Resident scan CTAs per SM: the least of the thread limit, the
+    register file at the ``PROBE_REGS`` cap, and shared memory (taken as
+    the block limit, which is within 1 KB of the SM's)."""
+    by_threads = _THREADS_PER_SM // PROBE_THREADS
+    by_regs = 65536 // (PROBE_THREADS * PROBE_REGS)
+    by_smem = max(1, hw.smem_block_bytes // probe_footprint(lp))
+    return max(1, min(by_threads, by_regs, by_smem))
+
+
+def choose_probe_splits(b: int, c: int, l: int, hw: Hardware = H100) -> int:
+    """CTAs per query along the candidate axis: enough CTAs to fill every
+    SM once (``b * splits >= num_sms * ctas_per_sm``), but no CTA with
+    fewer than ``PROBE_MIN_CHUNK`` rows, where the partial lists' merge
+    would cost more than the scan it spreads. The result does not depend
+    on the split; only the time does."""
+    want = hw.num_sms * probe_ctas_per_sm(min(l, PROBE_MIN_CHUNK), hw)
+    by_fill = -(-want // max(1, b))
+    by_rows = -(-max(1, c) // PROBE_MIN_CHUNK)
+    return max(1, min(by_fill, by_rows))
+
+
+def probe_bytes(n: int, k: int, d: int, l: int, b: int = 4) -> float:
+    """FlashProbe: read Q, C and ``||c||^2`` once, write the (N, L)
+    index/score pair."""
+    return (n * d + k * d) * b + k * 4 + 2 * n * l * 4
+
+
+def scan_bytes(bq: int, c: int, d: int, l: int, b: int = 4) -> float:
+    """Grouped scan: the queries and each query's own candidate block once,
+    the (B, L) pair out."""
+    return (bq * d + bq * c * d) * b + 2 * bq * l * 4
+
+
+def scan_q8_bytes(bq: int, c: int, d: int, l: int) -> float:
+    """Quantized scan: f32 shifted queries, int8 codes plus one f32 scale
+    per candidate row, the (B, L) pair out. The shifted queries are one
+    row per probe slot; they are counted as ``bq * d`` as in the
+    reference's model, a small term next to the codes."""
+    return bq * d * 4.0 + bq * c * (d + 4) + 2 * bq * l * 4
+
+
+def choose_rescore_mult(topk: int, d: int, cand: int) -> int:
+    """The q8 rescore multiplier for ``rescore_mult="auto"`` (port of the
+    reference's ``choose_rescore_mult`` at its defaults): ``R/topk =
+    ceil(-2 ln(1 - 0.95)) = 6`` (the exponential coverage model at recall
+    0.95), capped so that rescoring ``R`` exact f32 rows per query does not
+    spend more bytes than the int8 codes (``d + 4`` bytes a row) saved on
+    the ``cand``-row scan."""
+    code_bytes, full_bytes = d + 4.0, 4.0 * d
+    base = int(math.ceil(-2.0 * math.log(1.0 - 0.95)))
+    saved = max(0.0, float(cand) * (full_bytes - code_bytes))
+    cap = max(1, int(saved // max(1.0, float(topk) * full_bytes)))
+    return max(1, min(base, cap))

@@ -213,8 +213,9 @@ def resolve_device(device=None) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "KMeans runs on a CUDA device by default and none is available; "
-            "pass device='cpu' to run the plain PyTorch versions on the CPU")
+            "repro_torch's entry points (KMeans, IVFIndex) run on a CUDA "
+            "device by default and none is available; pass device='cpu' to "
+            "run the plain PyTorch versions on the CPU")
     return dev
 
 

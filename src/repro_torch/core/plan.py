@@ -1,7 +1,9 @@
 """KernelPlanner — one cache-aware planning layer for every kernel dispatch.
 
 Port of ``repro/core/plan.py`` for the k-means ops (``assign``, ``update``,
-``step``). The closed-form math lives in ``core.heuristics``; this module
+``step``) and the FlashProbe ops (``probe``, ``scan``, ``scan_q8``; the
+reference's ``route`` waits for the two-level router and ``rescore`` for
+the device rescore cache). The closed-form math lives in ``core.heuristics``; this module
 owns the plan contract (``plan(op, shape, dtype) -> KernelPlan``, with the
 shared-memory footprint and modeled HBM bytes attached), the in-process
 memo keyed on ``(op, shape bucket, itemsize, hardware)`` — batch-like dims
@@ -20,8 +22,13 @@ import torch
 from repro_torch.core import heuristics
 from repro_torch.kernels.ops import BlockConfig
 
-OPS = ("assign", "update", "step")
-_BUCKET_DIMS = {"assign": (0,), "update": (0,), "step": (0,)}
+OPS = ("assign", "update", "step", "probe", "scan", "scan_q8")
+_ARITY = {"assign": 3, "update": 3, "step": 3, "probe": 4, "scan": 4,
+          "scan_q8": 4}
+# batch-like shape positions, bucketed to the next power of two; geometry
+# dims (k, d, l) stay exact
+_BUCKET_DIMS = {"assign": (0,), "update": (0,), "step": (0,),
+                "probe": (0,), "scan": (0, 1), "scan_q8": (0, 1)}
 
 
 def bucket_dim(v: int) -> int:
@@ -94,9 +101,11 @@ class KernelPlan:
     itemsize: int
     hw: str
     impl: str             # assign: "flash" | update: "sort_inverse"
-                          # step: "fused" / "two_pass"
+                          # step: "fused" / "two_pass" | probe:
+                          # "online_topl" | scan: "grouped_scan" |
+                          # scan_q8: "grouped_scan_q8"
     blocks: tuple
-    block: BlockConfig
+    block: BlockConfig | None   # None for the probe ops
     smem_bytes: int
     smem_limit: int
     hbm_bytes: float
@@ -120,15 +129,17 @@ class KernelPlanner:
 
     def plan(self, op: str, shape, dtype=torch.float32, *,
              blk: BlockConfig | None = None) -> KernelPlan:
-        """Plan one dispatch. ``shape`` is ``(n, k, d)``; ``dtype`` a torch
-        dtype or an itemsize. ``blk`` pins a ``BlockConfig`` (the plan is
-        then judged, and memoized, for those tiles)."""
+        """Plan one dispatch. ``shape`` is ``(n, k, d)`` for the k-means
+        ops, ``(n, k, d, l)`` for ``probe`` and ``(b, c, d, l)`` for
+        ``scan``/``scan_q8``; ``dtype`` a torch dtype or an itemsize.
+        ``blk`` pins a ``BlockConfig`` (the plan is then judged, and
+        memoized, for those tiles; the probe ops have none)."""
         if op not in OPS:
             raise ValueError(f"unknown plan op {op!r}; expected one of {OPS}")
         shape = tuple(int(s) for s in shape)
-        if len(shape) != 3:
-            raise ValueError(f"op {op!r} expects a shape of arity 3, "
-                             f"got {shape}")
+        if len(shape) != _ARITY[op]:
+            raise ValueError(f"op {op!r} expects a shape of arity "
+                             f"{_ARITY[op]}, got {shape}")
         b = _itemsize(dtype)
         bshape = tuple(bucket_dim(s) if i in _BUCKET_DIMS[op] else s
                        for i, s in enumerate(shape))
@@ -196,6 +207,8 @@ class KernelPlanner:
         """Run the closed-form choosers for one cache miss."""
         H, hw = heuristics, self.hw
         self.chooser_calls += 1
+        if op in ("probe", "scan", "scan_q8"):
+            return self._probe_plan(op, s, b)
         n, k, d = s
         cfg = blk if blk is not None else H.choose_blocks(
             n, k, d, dtype_bytes=b, hw=hw)
@@ -216,6 +229,26 @@ class KernelPlanner:
             assign, op="step", impl=impl,
             smem_bytes=max(assign.smem_bytes, update.smem_bytes),
             hbm_bytes=assign.hbm_bytes + update.hbm_bytes)
+
+    def _probe_plan(self, op: str, s: tuple, b: int) -> KernelPlan:
+        """A FlashProbe kernel: ``blocks = (splits, PROBE_TILE)`` — CTAs per
+        query along the candidate axis and rows per selection round."""
+        H, hw = heuristics, self.hw
+        n, c, d, l = s
+        splits = H.choose_probe_splits(n, c, l, hw)
+        lp = min(l, -(-c // splits))
+        smem = max(H.probe_footprint(lp), H.probe_merge_footprint(l)
+                   if splits > 1 else 0)
+        if op == "probe":
+            impl, hbm = "online_topl", H.probe_bytes(n, c, d, l, b)
+        elif op == "scan":
+            impl, hbm = "grouped_scan", H.scan_bytes(n, c, d, l, b)
+        else:
+            impl, hbm = "grouped_scan_q8", H.scan_q8_bytes(n, c, d, l)
+        return KernelPlan(op=op, shape=s, itemsize=b, hw=hw.name, impl=impl,
+                          blocks=(splits, H.PROBE_TILE), block=None,
+                          smem_bytes=smem, smem_limit=hw.smem_block_bytes,
+                          hbm_bytes=hbm)
 
     def _store(self, plan: KernelPlan, key: str, pinned: bool) -> None:
         """Memoize ``plan``; an un-pinned step plan also fills its assign

@@ -1,0 +1,39 @@
+"""repro_torch.index — FlashIVF on the port's kernels (one device).
+
+Public API:
+  IVFIndex — coarse-quantized inverted-file index: ``build`` trains the
+  coarse centroids with the port's ``KMeans``, ``search`` runs the
+  FlashProbe kernels for the ``nprobe`` selection and the posting-list
+  scan (int8 proposal + exact rescore on a ``q8`` store), ``add`` /
+  ``refresh`` keep the index online through ``SufficientStats``.
+  Runs on the card unless ``device="cpu"`` is asked for.
+
+  PaddedBucketStore / QuantizedBucketStore / RescoreReservoir — the
+  posting-list storage (``index/store.py``); Fp32Codec /
+  Int8ResidualCodec — the payload codecs (``index/quant.py``);
+  FlatRouter — the cell selection (``index/router.py``).
+
+  index_from_numpy / index_to_numpy — carry an index's state across
+  packages (``index/bridge.py``).
+
+Not ported yet (ROADMAP.md, queue A item 5): the paged store, the
+two-level router, the device rescore cache, the sharded index, the
+out-of-core build and snapshots.
+"""
+from repro_torch.index.bridge import index_from_numpy, index_to_numpy
+from repro_torch.index.ivf import IVFIndex, csr_from_assignments, recall_at_k
+from repro_torch.index.quant import (CODEC_KINDS, Codec, Fp32Codec,
+                                     Int8ResidualCodec, default_codec_kind,
+                                     make_codec)
+from repro_torch.index.router import ROUTER_KINDS, FlatRouter, make_router
+from repro_torch.index.store import (BucketStore, PaddedBucketStore,
+                                     QuantizedBucketStore, RescoreReservoir,
+                                     make_quantized_store, make_store)
+
+__all__ = ["IVFIndex", "csr_from_assignments", "recall_at_k",
+           "index_from_numpy", "index_to_numpy",
+           "BucketStore", "PaddedBucketStore", "QuantizedBucketStore",
+           "RescoreReservoir", "make_store",
+           "make_quantized_store", "CODEC_KINDS", "Codec", "Fp32Codec",
+           "Int8ResidualCodec", "default_codec_kind", "make_codec",
+           "ROUTER_KINDS", "FlatRouter", "make_router"]

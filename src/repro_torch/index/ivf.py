@@ -1,0 +1,574 @@
+"""FlashIVF — an online IVF vector-search index on the port's kernels.
+
+Port of ``repro/index/ivf.py`` for one device, the ``padded`` store, the
+``flat`` router and both codecs:
+
+- **train** — ``build`` fits the coarse centroids with the port's
+  ``KMeans`` (init from a ``torch.Generator`` seeded with ``seed``, so the
+  centroids differ from the reference's ``jax.random`` init) and assigns
+  the corpus with FlashAssign;
+- **invert** — posting lists are the sort-inverse mapping: one stable sort
+  of the assignments is the concatenation of all lists;
+- **probe** — ``ops.flash_probe`` picks each query's ``nprobe`` nearest
+  cells, the store gathers their candidates into one ``(B, nprobe*width,
+  d)`` block, and ``ops.flash_probe_grouped`` scans each query against
+  its own block; on a ``q8`` store the scan is ``flash_probe_grouped_q8``
+  over int8 codes (top-``R`` proposal) followed by an exact fp32 rescore
+  of the ``R`` rows read from the host ``RescoreReservoir``;
+- **online** — ``add`` assigns with FlashAssign, appends in CSR order and
+  folds the batch statistics into pending ``SufficientStats``;
+  ``refresh`` commits them and re-centers the centroids, O(K d).
+
+Not ported yet (ROADMAP.md, queue A item 5): ``pctx`` (the sharded
+index), ``chunk_size`` (out-of-core build), fault injection, ``save`` and
+``load``, the paged store, the two-level router and ``rescore="device"``.
+Each raises ``NotImplementedError``. ``IVFIndex`` runs on the card unless
+it is asked for the CPU: ``device=None`` means ``"cuda"`` and raises when
+no CUDA device is present.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import heuristics as _heur
+from repro_torch.core import plan as _plan
+from repro_torch.core.kmeans import KMeans, KMeansConfig, resolve_device
+from repro_torch.core.streaming import SufficientStats
+from repro_torch.index import router as _router
+from repro_torch.index import store as _store
+from repro_torch.kernels import ops, ref
+
+_PAD_COORD = _store._PAD_COORD
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
+                               f"queue A item 5)")
+
+
+def _as_float(a, device) -> torch.Tensor:
+    """``a`` on ``device``, as float32 unless it is bfloat16 (numpy's
+    float64 becomes float32, as ``jnp.asarray`` makes it)."""
+    t = torch.as_tensor(a).to(device)
+    return t if t.dtype in (torch.float32, torch.bfloat16) else t.float()
+
+
+def csr_from_assignments(a: torch.Tensor, k: int
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """CSR posting lists from an assignment vector: ``order`` (N,) int32 is
+    the stable argsort of ``a`` (cluster-major, original order within a
+    cluster), ``offsets`` (K+1,) int32 the segment boundaries."""
+    a_sorted, order = torch.sort(a, stable=True)
+    offsets = torch.searchsorted(
+        a_sorted, torch.arange(k + 1, dtype=a_sorted.dtype, device=a.device))
+    return order.to(torch.int32), offsets.to(torch.int32)
+
+
+def recall_at_k(ids, ids_ref) -> float:
+    """Mean fraction of reference neighbours retrieved, per query; ``-1``
+    slots count as misses."""
+    ids = np.asarray(ids.cpu() if isinstance(ids, torch.Tensor) else ids)
+    ids_ref = np.asarray(ids_ref.cpu() if isinstance(ids_ref, torch.Tensor)
+                         else ids_ref)
+    k = ids_ref.shape[1]
+    return float(np.mean([
+        len(set(a.tolist()) & set(b.tolist()) - {-1}) / k
+        for a, b in zip(ids, ids_ref)]))
+
+
+def _take_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``t (B, C, ...)`` at ``idx (B, L)`` along axis 1."""
+    idx = idx.long()
+    if t.ndim == 2:
+        return torch.gather(t, 1, idx)
+    return torch.gather(t, 1, idx.reshape(*idx.shape, *([1] * (t.ndim - 2)))
+                        .expand(*idx.shape, *t.shape[2:]))
+
+
+def _ivf_search(q, centroids, c_sq, store_arrays, *, kind: str, topk: int,
+                nprobe: int, width: int, probe_splits: int,
+                scan_splits: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Two-stage search: FlashProbe over the centroids picks the cells,
+    the store gathers their candidates, the grouped scan keeps each
+    query's top-k."""
+    probe, _ = ops.flash_probe(q, centroids.to(q.dtype), l=nprobe,
+                               splits=probe_splits, want_dists=False,
+                               c_sq=c_sq)
+    cand_x, cand_ids = _store.gather_global(kind, store_arrays, probe, width)
+    li, dist = ops.flash_probe_grouped(q, cand_x, l=topk, splits=scan_splits)
+    return _take_rows(cand_ids, li), dist
+
+
+def _q8_propose(q, centroids, c_sq, store_arrays, *, kind: str, r: int,
+                nprobe: int, width: int, probe_splits: int,
+                scan_splits: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Phase 1 of two-phase search on a quantized store: probe, gather
+    int8 codes and scales, and scan in the residual frame ``q' = q -
+    anchor[cell]`` (the kernel's distance is then the true quantized
+    one). Returns the top-``r`` ids (-1 where fewer than ``r`` live
+    candidates exist) and their dequantized rows, the rescore's fallback
+    for ids the reservoir does not hold."""
+    probe, _ = ops.flash_probe(q, centroids.to(q.dtype), l=nprobe,
+                               splits=probe_splits, want_dists=False,
+                               c_sq=c_sq)
+    *arrays, anchors = store_arrays
+    codes, scales, cand_ids = _store.gather_global_q8(kind, tuple(arrays),
+                                                      probe, width)
+    b, d = q.shape
+    anch = anchors[probe.long()]                        # (B, nprobe, d)
+    qp = q.float().unsqueeze(1) - anch
+    li, val = ops.flash_probe_grouped_q8(
+        qp, codes.reshape(b, nprobe, width, d),
+        scales.reshape(b, nprobe, width), l=r, splits=scan_splits)
+    ids = torch.where(torch.isfinite(val), _take_rows(cand_ids, li),
+                      torch.full_like(li, -1))
+    deq = (_take_rows(anch, torch.div(li, width, rounding_mode="floor"))
+           + _take_rows(codes, li).float()
+           * _take_rows(scales, li).unsqueeze(-1))
+    return ids, deq
+
+
+def _rescore_rows(deq, ids, res_rows, found) -> torch.Tensor:
+    """The rows phase 2 scores: the reservoir's original rows where found,
+    the dequantized codes otherwise; dead proposals (id -1) become
+    padding rows."""
+    cand = torch.where(found.unsqueeze(-1), res_rows, deq)
+    return torch.where((ids < 0).unsqueeze(-1),
+                       torch.full_like(cand, _PAD_COORD), cand)
+
+
+def _rescore_body(q, cand, ids, res_rows, found, *, topk: int,
+                  splits: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Phase 2: score the proposed rows (``_rescore_rows``) at full
+    precision and keep the true top-k."""
+    cand = _rescore_rows(cand, ids, res_rows, found)
+    li, dist = ops.flash_probe_grouped(q.to(cand.dtype), cand, l=topk,
+                                       splits=splits)
+    return _take_rows(ids, li), dist
+
+
+class IVFIndex:
+    """Online IVF index: coarse k-means cells + CSR posting lists.
+
+    >>> index = IVFIndex.build(x, k=256, max_iters=10)          # on "cuda"
+    >>> ids, dists = index.search(q, topk=10, nprobe=16)
+    >>> index.add(x_new)                 # FlashAssign + list append
+    >>> index.refresh()                  # warm-start re-center, O(K d)
+    >>> ids_ref, _ = index.search_brute(q, topk=10)   # exactness oracle
+
+    ``codec`` selects the payload ("fp32" | "q8", default from
+    ``REPRO_BUCKET_CODEC``): a "q8" index stores int8 residual codes
+    anchored at the construction-time centroids and searches in two
+    phases (quantized top-``R`` proposal, ``R = rescore_mult * topk``
+    clamped to the probed pool, or the codec-aware chooser with
+    ``rescore_mult="auto"``; then an exact fp32 rescore).
+    ``rescore_bytes`` budgets the rescore reservoir (None = unbounded).
+    """
+
+    def __init__(self, centroids, capacity: int, *,
+                 max_cap: int | None = None, device=None,
+                 planner: "_plan.KernelPlanner | None" = None,
+                 pctx=None, store: "str | _store.BucketStore | None" = None,
+                 page_size: int | None = None,
+                 store_bytes: int | None = None,
+                 codec: str | None = None, rescore_mult: "int | str" = 4,
+                 rescore_bytes: int | None = None,
+                 rescore: str | None = None, router=None):
+        if pctx is not None:
+            raise _not_ported("a sharded IVFIndex (pctx)")
+        if page_size is not None or store_bytes is not None:
+            raise _not_ported("the paged store (page_size, store_bytes)")
+        _router.make_router(router)   # only the flat router is ported
+        self.device = resolve_device(device)
+        centroids = _as_float(centroids, self.device)
+        k, d = centroids.shape
+        self.centroids = centroids
+        self.k, self.d = k, d
+        if isinstance(rescore_mult, str):
+            if rescore_mult != "auto":
+                raise ValueError(f"rescore_mult={rescore_mult!r}: "
+                                 f"expected an int or 'auto'")
+            self.rescore_mult = None   # chosen per geometry (_rescore_r)
+        else:
+            self.rescore_mult = max(1, int(rescore_mult))
+        if isinstance(store, _store.BucketStore):
+            self.store = store
+        else:
+            from repro_torch.index.quant import default_codec_kind
+            codec = default_codec_kind() if codec is None else codec
+            if codec == "fp32":
+                self.store = _store.make_store(
+                    store, k, d, centroids.dtype, capacity=int(capacity),
+                    max_cap=max_cap, device=self.device)
+            else:
+                # codes are anchored at the construction-time centroids:
+                # refresh() moves the routing centroids only
+                self.store = _store.make_quantized_store(
+                    store, k, d, centroids.dtype, anchors=centroids,
+                    codec=codec, capacity=int(capacity), max_cap=max_cap,
+                    rescore_bytes=rescore_bytes, rescore=rescore,
+                    device=self.device)
+        self.n_total = 0
+        self.repaired_cells = 0     # NaN stats rows zeroed by refresh
+        self.reseeded_cells = 0     # dead cells re-seeded by refresh
+        # committed evidence (what the current centroids were refreshed
+        # from) and pending evidence (folded in by the next refresh)
+        self.stats = SufficientStats.zero(k, d, self.device)
+        self._pending = SufficientStats.zero(k, d, self.device)
+        self.planner = planner if planner is not None \
+            else _plan.default_planner(self.device)
+        self._cnorms: torch.Tensor | None = None   # ||c||^2, per centroid set
+        self._search_plans: dict[tuple, tuple[int, ...]] = {}
+
+    # ------------------------------------------------------------------
+    # store views
+    # ------------------------------------------------------------------
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.store.dtype
+
+    @property
+    def cap(self) -> int:
+        return self.store.capacity
+
+    @property
+    def max_cap(self) -> int | None:
+        return self.store.max_cap
+
+    @property
+    def counts(self) -> torch.Tensor:
+        return self.store.counts
+
+    @counts.setter
+    def counts(self, v) -> None:
+        self.store.set_counts(v)
+
+    @property
+    def spilled(self) -> int:
+        return self.store.spilled
+
+    @property
+    def spill_counts(self) -> np.ndarray:
+        return self.store.spill_counts
+
+    @property
+    def store_kind(self) -> str:
+        return self.store.kind
+
+    @property
+    def codec_kind(self) -> str:
+        return self.store.codec_kind
+
+    @property
+    def faults(self):
+        return None
+
+    @faults.setter
+    def faults(self, injector) -> None:
+        if injector is not None:
+            raise _not_ported("fault injection")
+
+    def resident_bytes(self) -> int:
+        """Device bytes held by the posting-list payload (+ anchors)."""
+        return self.store.resident_bytes()
+
+    def block_until_ready(self) -> None:
+        self.store.block_until_ready()
+
+    # ------------------------------------------------------------------
+    # construction
+    # ------------------------------------------------------------------
+
+    @classmethod
+    def build(cls, x, k: int, *, max_iters: int = 10, init: str = "kmeans++",
+              tol: float = 0.0, step_impl: str = "auto",
+              capacity: int | None = None, max_cap: int | None = None,
+              chunk_size: int | None = None, seed: int = 0, device=None,
+              planner: "_plan.KernelPlanner | None" = None, pctx=None,
+              store: str | None = None, page_size: int | None = None,
+              store_bytes: int | None = None, codec: str | None = None,
+              rescore_mult: "int | str" = 4,
+              rescore_bytes: int | None = None, rescore: str | None = None,
+              router=None) -> "IVFIndex":
+        """Train coarse centroids on ``x`` (N, d) and invert the corpus
+        into posting lists. The initial centroids come from a
+        ``torch.Generator`` seeded with ``seed``."""
+        if chunk_size is not None:
+            raise _not_ported("the out-of-core build (chunk_size)")
+        if pctx is not None:
+            raise _not_ported("a sharded IVFIndex (pctx)")
+        dev = resolve_device(device)
+        x = _as_float(x, dev)
+        cfg = KMeansConfig(k=k, max_iters=max_iters, init=init, tol=tol,
+                           step_impl=step_impl, planner=planner)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        centroids = KMeans(cfg, device=dev).fit(x, generator=gen).centroids
+        blk = cfg.blocks_for(x.shape[0], x.shape[1], x.element_size(), dev)
+        a, m = ops.flash_assign(x, centroids.to(x.dtype),
+                                block_n=blk.assign_block_n,
+                                block_k=blk.assign_block_k)
+        cap = capacity if capacity is not None else int(
+            torch.bincount(a.long(), minlength=k).max())
+        index = cls(centroids, cap, max_cap=max_cap, device=dev,
+                    planner=planner, store=store, page_size=page_size,
+                    store_bytes=store_bytes, codec=codec,
+                    rescore_mult=rescore_mult, rescore_bytes=rescore_bytes,
+                    rescore=rescore, router=router)
+        index._fold(x, a, m)
+        # build-time evidence is the committed baseline, not drift
+        index.stats = index.stats.merge(index._pending)
+        index._pending = SufficientStats.zero(k, index.d, dev)
+        return index
+
+    # ------------------------------------------------------------------
+    # online mutation
+    # ------------------------------------------------------------------
+
+    def add(self, x_new) -> torch.Tensor:
+        """Assign, append and account new vectors. Returns their cells."""
+        x_new = torch.as_tensor(x_new).to(device=self.device,
+                                          dtype=self.dtype)
+        if x_new.shape[0] == 0:
+            return torch.zeros((0,), dtype=torch.int32, device=self.device)
+        blk = self._batch_blocks(x_new.shape[0])
+        a, m = ops.flash_assign(x_new, self.centroids.to(x_new.dtype),
+                                block_n=blk.assign_block_n,
+                                block_k=blk.assign_block_k)
+        self._fold(x_new, a, m)
+        return a
+
+    def _batch_blocks(self, n: int):
+        """Assign/update tiles for an ``n``-row batch (planner-cached)."""
+        return self.planner.block_config(n, self.k, self.d,
+                                         self.dtype.itemsize)
+
+    def _fold(self, x: torch.Tensor, a: torch.Tensor, m: torch.Tensor
+              ) -> None:
+        """Append a pre-assigned batch and account its statistics."""
+        blk = self._batch_blocks(x.shape[0])
+        s, cnt = ops.centroid_stats(x, a, k=self.k,
+                                    block_n=blk.update_block_n,
+                                    block_k=blk.update_block_k)
+        self._pending = self._pending.merge(SufficientStats(s, cnt, m.sum()))
+        self._append(x, a)
+
+    def refresh(self, decay: float = 1.0, *, guard: bool = False,
+                repair_dead: bool = False) -> "IVFIndex":
+        """Commit pending evidence and re-center the coarse centroids: one
+        O(K d) merge + M-step, no pass over any stored vector. ``decay <
+        1`` down-weights old evidence. ``guard`` sanitizes both evidence
+        terms before the merge (a cluster with non-finite stats keeps its
+        centroid); ``repair_dead`` re-seeds cells with no vectors and no
+        evidence by splitting the heaviest cell."""
+        pending, base = self._pending, self.stats.scale(decay)
+        if guard:
+            pending, bad_p = pending.sanitize()
+            base, bad_b = base.sanitize()
+            self.repaired_cells += int(bad_p.sum()) + int(bad_b.sum())
+        self.stats = base.merge(pending)
+        self._pending = SufficientStats.zero(self.k, self.d, self.device)
+        self.centroids = self.stats.finalize(self.centroids)
+        if repair_dead:
+            self.reseeded_cells += self._repair_dead_cells()
+        self._cnorms = None   # centroids moved: the ||c||^2 cache is stale
+        return self
+
+    def _repair_dead_cells(self, eps: float = 1e-3) -> int:
+        """Re-seed cells with no stored vectors and no evidence: each takes
+        a perturbed copy of the heaviest cell's centroid and half its
+        evidence. Host-side, at refresh cadence."""
+        cnt = self.stats.counts.cpu().numpy().copy()
+        stored = self.counts.cpu().numpy()
+        dead = np.where((cnt <= 0.0) & (stored == 0))[0]
+        if dead.size == 0:
+            return 0
+        c = self.centroids.cpu().numpy().copy()
+        sums = self.stats.sums.cpu().numpy().copy()
+        n = 0
+        for cell in dead:
+            donor = int(np.argmax(cnt))
+            if cnt[donor] <= 1.0:   # nothing heavy enough to split
+                break
+            c[cell] = c[donor] * (1.0 + eps) + eps
+            cnt[donor] *= 0.5
+            sums[donor] *= 0.5
+            cnt[cell] = cnt[donor]
+            sums[cell] = c[cell] * cnt[cell]
+            n += 1
+        if n:
+            dev = self.device
+            self.centroids = torch.as_tensor(c, device=dev)
+            self.stats = SufficientStats(torch.as_tensor(sums, device=dev),
+                                         torch.as_tensor(cnt, device=dev),
+                                         self.stats.inertia)
+        return n
+
+    def _append(self, x: torch.Tensor, a: torch.Tensor) -> None:
+        """Append a batch in CSR order; ids stay monotone (spilled rows
+        consume ids too)."""
+        n = x.shape[0]
+        if n == 0:
+            return
+        order, _ = csr_from_assignments(a, self.k)
+        o = order.long()
+        a_sorted = a[o].cpu().numpy()
+        ids_new = (self.n_total + order.cpu().numpy()).astype(np.int32)
+        self.store.append(a_sorted, x[o], ids_new)
+        self.n_total += n
+
+    # ------------------------------------------------------------------
+    # queries
+    # ------------------------------------------------------------------
+
+    def _gather_width(self, topk: int, nprobe: int) -> int:
+        """The store's occupied per-cell candidate width for a geometry
+        (>= ceil(topk / nprobe), so the scan's top-k always fits)."""
+        return self.store.gather_width(-(-int(topk) // max(1, int(nprobe))))
+
+    def _centroid_norms(self) -> torch.Tensor:
+        """Cached ``||c||^2`` (K,) f32 of the centroids in the store's
+        dtype, fed to every FlashProbe; ``refresh`` invalidates it."""
+        if self._cnorms is None:
+            c32 = self.centroids.to(self.dtype).float()
+            self._cnorms = (c32 * c32).sum(-1)
+        return self._cnorms
+
+    def search_geometry(self, topk: int = 10, nprobe: int = 8) -> tuple:
+        """Changes exactly when the planned search would re-key (the
+        store's occupancy crossed a ``gather_width`` bucket)."""
+        nprobe = min(nprobe, self.k)
+        return (nprobe, topk, self._gather_width(topk, nprobe))
+
+    def _rescore_r(self, topk: int, nprobe: int, width: int) -> int:
+        """Phase-1 proposal depth: ``rescore_mult * topk`` (or the
+        codec-aware chooser's multiplier with ``"auto"``), clamped to the
+        probed candidate pool."""
+        mult = self.rescore_mult
+        if mult is None:
+            mult = _heur.choose_rescore_mult(topk, self.d, nprobe * width)
+        return min(max(topk, mult * topk), nprobe * width)
+
+    def plan_search(self, b: int, topk: int = 10, nprobe: int = 8
+                    ) -> tuple[int, ...]:
+        """Plan (and cache) the search kernels for a ``(b, d)`` batch.
+
+        Returns the planner's blocks, ``(splits, tile)`` per kernel:
+        ``(probe, scan)`` on an fp32 store and ``(probe, scan_q8,
+        rescore scan)`` on a q8 store, flattened. Cached per ``(b, nprobe,
+        topk, width)``; ``width`` is the store's gather-width bucket, so
+        occupancy growth re-keys.
+        """
+        nprobe = min(nprobe, self.k)
+        width = self._gather_width(topk, nprobe)
+        geom = (int(b), nprobe, int(topk), width)
+        plans = self._search_plans.get(geom)
+        if plans is None:
+            dt = self.dtype
+            head = self.planner.plan("probe", (b, self.k, self.d, nprobe),
+                                     dt).blocks
+            if self.store.codec_kind != "fp32":
+                r = self._rescore_r(topk, nprobe, width)
+                q8 = self.planner.plan(
+                    "scan_q8", (b, nprobe * width, self.d, r), torch.int8)
+                rescore = self.planner.plan(
+                    "scan", (int(b), r, self.d, min(topk, r)),
+                    torch.float32)
+                plans = (*head, *q8.blocks, *rescore.blocks)
+            else:
+                scan = self.planner.plan(
+                    "scan", (b, nprobe * width, self.d, topk), dt)
+                plans = (*head, *scan.blocks)
+            self._search_plans[geom] = plans
+        return plans
+
+    def search(self, q, topk: int = 10, nprobe: int = 8
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Batched top-k search. q: (B, d) -> (ids (B, topk) int32,
+        sq_dists f32 (B, topk)), ascending; ids of unfilled slots are -1.
+        ``nprobe = k`` probes every cell: the result is the brute-force
+        top-k over all indexed vectors."""
+        q = torch.as_tensor(q).to(device=self.device, dtype=self.dtype)
+        nprobe = min(nprobe, self.k)
+        cand = nprobe * self.cap
+        if topk > cand:
+            raise ValueError(
+                f"topk={topk} exceeds the probed candidate pool "
+                f"nprobe*cap={cand}; raise nprobe or capacity")
+        if self.store.codec_kind != "fp32":
+            return self._search_q8(q, topk, nprobe)
+        st = self.store
+        width = self._gather_width(topk, nprobe)
+        ps, _, ss, _ = self.plan_search(q.shape[0], topk, nprobe)
+        return _ivf_search(q, self.centroids, self._centroid_norms(),
+                           st.device_arrays(), kind=st.kind, topk=topk,
+                           nprobe=nprobe, width=width, probe_splits=ps,
+                           scan_splits=ss)
+
+    def _search_q8(self, q: torch.Tensor, topk: int, nprobe: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Two-phase search on a quantized store: propose the top-``R``
+        from the int8 payload, then rescore those ``R`` rows at full
+        precision from the host reservoir (the reference's
+        ``rescore="host"`` path). At full ``nprobe`` with ``R`` covering
+        the live candidates this reproduces brute force exactly."""
+        st = self.store
+        width = self._gather_width(topk, nprobe)
+        r = self._rescore_r(topk, nprobe, width)
+        ps, _, qs, _, rs, _ = self.plan_search(q.shape[0], topk, nprobe)
+        ids, deq = _q8_propose(q, self.centroids, self._centroid_norms(),
+                               st.device_arrays(), kind=st.kind, r=r,
+                               nprobe=nprobe, width=width, probe_splits=ps,
+                               scan_splits=qs)
+        ids_np = ids.cpu().numpy()
+        if st.reservoir is not None:
+            rows, found = st.reservoir.lookup(ids_np)
+        else:
+            rows = np.zeros(ids_np.shape + (self.d,), np.float32)
+            found = np.zeros(ids_np.shape, bool)
+        return _rescore_body(q, deq, ids,
+                             torch.as_tensor(rows, device=self.device),
+                             torch.as_tensor(found, device=self.device),
+                             topk=topk, splits=rs)
+
+    def search_brute(self, q, topk: int = 10
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Dense brute-force reference over every indexed vector (the
+        exactness/recall oracle: it materializes the full score matrix)."""
+        q = torch.as_tensor(q).to(device=self.device, dtype=self.dtype)
+        flat_x, flat_ids = self.store.flat()
+        idx, dists = ref.probe_ref(q, flat_x, topk)
+        return flat_ids[idx.long()], dists
+
+    def save(self, directory: str, **kw):
+        raise _not_ported("IVFIndex.save (snapshots)")
+
+    @classmethod
+    def load(cls, directory: str, **kw):
+        raise _not_ported("IVFIndex.load (snapshots)")
+
+    # ------------------------------------------------------------------
+    # introspection
+    # ------------------------------------------------------------------
+
+    def posting_lists(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The CSR view ``(ids, offsets)``: list ``j`` is
+        ``ids[offsets[j]:offsets[j+1]]`` (insertion order preserved)."""
+        dense_ids = self.store.dense_ids()
+        slot = torch.arange(dense_ids.shape[1], device=dense_ids.device)
+        ids = dense_ids[slot.unsqueeze(0) < self.counts.unsqueeze(1)]
+        offsets = torch.cat([torch.zeros((1,), dtype=torch.int64,
+                                         device=self.device),
+                             torch.cumsum(self.counts.long(), 0)])
+        return ids, offsets.to(torch.int32)
+
+    def __len__(self) -> int:
+        return self.n_total
+
+    def __repr__(self) -> str:
+        codec = (f", codec={self.store.codec_kind}"
+                 if self.store.codec_kind != "fp32" else "")
+        return (f"IVFIndex(k={self.k}, d={self.d}, n={self.n_total}, "
+                f"cap={self.cap}, store={self.store.kind}{codec}, "
+                f"device={self.device})")

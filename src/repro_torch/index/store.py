@@ -1,0 +1,591 @@
+"""BucketStore — the storage layer under FlashIVF posting lists.
+
+Port of ``repro/index/store.py`` for one device and the ``padded``
+layout: one capacity-padded ``(K, cap, d)`` tensor plus ``(K, cap)`` int32
+ids, amortized-doubling growth and a ``max_cap`` spill budget. Padded
+slots hold the finite sentinel ``_PAD_COORD`` (their scores are huge but
+never inf or NaN inside a kernel) and id ``-1``. ``QuantizedBucketStore``
+wraps a padded store of int8 codes with a per-slot f32 scale sidecar
+(``0.0`` on empty slots), the frozen encode-time anchors and the host
+``RescoreReservoir`` of original rows.
+
+Not ported yet (ROADMAP.md, queue A item 5): the paged store
+(``kind="paged"`` raises ``NotImplementedError``) and the device rescore
+cache. Unlike the JAX package the port updates its tensors in place, and
+``dense``/``flat`` return tensors on the store's device; ``state_arrays``
+and ``meta`` give the snapshot format's numpy arrays and keys.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# Padded-slot coordinate: large enough that a padded candidate can never
+# beat a real one, small enough that d * _PAD^2 stays finite in f32.
+_PAD_COORD = 1e15
+
+_NOT_PORTED = ("is not ported yet (ROADMAP.md, queue A item 5: the paged "
+               "store, the two-level router and the device rescore cache)")
+
+
+def _round_up(v: int, mult: int) -> int:
+    return ((v + mult - 1) // mult) * mult
+
+
+def _pow2ceil(v: int) -> int:
+    return 1 << max(0, int(v) - 1).bit_length()
+
+
+def _pad_value(dtype: torch.dtype):
+    """The far-away sentinel for float payloads; 0 for int8 code pools
+    (quantized stores mask padding through the zero scale)."""
+    return _PAD_COORD if dtype.is_floating_point else 0
+
+
+def _sublane_min(dtype: torch.dtype) -> int:
+    """Floor of the gather width: the reference's minimum tile for the
+    dtype (8 rows of f32, 16 of bf16, 32 of int8). Kept so that gather
+    widths, and with them the q8 proposal depth and the plan keys, equal
+    the reference's."""
+    return max(8, 32 // max(1, dtype.itemsize))
+
+
+def _resolve_kind(kind: str | None) -> str:
+    kind = kind or "padded"
+    if kind == "paged":
+        raise NotImplementedError(f"store kind 'paged' {_NOT_PORTED}")
+    if kind != "padded":
+        raise ValueError(f"unknown bucket store kind {kind!r}")
+    return kind
+
+
+def make_store(kind: str | None, k: int, d: int, dtype, *, capacity: int = 8,
+               max_cap: int | None = None, device=None) -> "BucketStore":
+    """A posting-list store (``kind=None`` means ``"padded"``)."""
+    _resolve_kind(kind)
+    return PaddedBucketStore(k, d, dtype, capacity=capacity, max_cap=max_cap,
+                             device=device)
+
+
+# ---------------------------------------------------------------------------
+# candidate gathers (called from the search bodies)
+# ---------------------------------------------------------------------------
+
+def gather_global(kind: str, arrays, probe: torch.Tensor, width: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``probe (B, nprobe)`` cells -> ``(cand_x (B, nprobe*width, d),
+    cand_ids (B, nprobe*width))``: ``width`` slots of each probed cell,
+    probe-rank major. The block is materialized in device memory, as in
+    the reference (``B * nprobe * width * d`` elements)."""
+    _resolve_kind(kind)
+    buckets, bucket_ids = arrays
+    b, nprobe = probe.shape
+    p = probe.long()
+    cand_x = buckets[:, :width][p].reshape(b, nprobe * width,
+                                           buckets.shape[-1])
+    cand_ids = bucket_ids[:, :width][p].reshape(b, nprobe * width)
+    return cand_x, cand_ids
+
+
+def gather_global_q8(kind: str, arrays, probe: torch.Tensor, width: int
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Quantized variant: ``(codes (B, nprobe*width, d) int8, scales
+    (B, nprobe*width) f32, ids)``; padding slots carry scale 0.0."""
+    _resolve_kind(kind)
+    buckets, bucket_ids, bucket_aux = arrays
+    b, nprobe = probe.shape
+    p = probe.long()
+    w = nprobe * width
+    return (buckets[:, :width][p].reshape(b, w, buckets.shape[-1]),
+            bucket_aux[:, :width][p].reshape(b, w),
+            bucket_ids[:, :width][p].reshape(b, w))
+
+
+# ---------------------------------------------------------------------------
+# the store contract
+# ---------------------------------------------------------------------------
+
+class BucketStore:
+    """Shared bookkeeping: counts (device tensor and host mirror) and
+    spill accounting."""
+
+    kind = "abstract"
+    codec_kind = "fp32"
+
+    def __init__(self, k: int, d: int, dtype, *, max_cap: int | None = None,
+                 device=None):
+        self.k, self.d = int(k), int(d)
+        self.dtype = dtype
+        self.device = torch.device("cpu" if device is None else device)
+        # posting lists never grow past max_cap slots per cell: overflow
+        # rows spill (counted, not stored)
+        self.max_cap = None if max_cap is None \
+            else max(8, _round_up(max_cap, 8))
+        self._counts_np = np.zeros(self.k, np.int64)
+        self.counts = torch.zeros((self.k,), dtype=torch.int32,
+                                  device=self.device)
+        self.spilled = 0
+        self.evicted = 0
+        self.spill_counts = np.zeros(self.k, np.int64)
+        self.evict_counts = np.zeros(self.k, np.int64)
+
+    def _account_spill(self, cells: np.ndarray) -> None:
+        self.spill_counts += np.bincount(
+            cells, minlength=self.k).astype(np.int64)
+        self.spilled += int(cells.size)
+
+    def set_counts(self, v) -> None:
+        """Test/repair seam: overwrite the logical list lengths."""
+        self._counts_np = np.asarray(v).astype(np.int64)
+        self.counts = torch.as_tensor(self._counts_np, dtype=torch.int32,
+                                      device=self.device)
+
+    @property
+    def max_count(self) -> int:
+        return int(self._counts_np.max()) if self.k else 0
+
+    @property
+    def capacity(self) -> int:
+        raise NotImplementedError
+
+    def append(self, cells: np.ndarray, x_sorted: torch.Tensor,
+               ids: np.ndarray) -> None:
+        """Store a CSR-ordered batch: ``cells`` ascending (host), the
+        matching rows ``x_sorted`` (device) and their int32 ids (host)."""
+        raise NotImplementedError
+
+    def gather_width(self, min_slots: int = 1) -> int:
+        raise NotImplementedError
+
+    def device_arrays(self) -> tuple:
+        raise NotImplementedError
+
+    def dense(self) -> tuple[torch.Tensor, torch.Tensor]:
+        raise NotImplementedError
+
+    def dense_ids(self) -> torch.Tensor:
+        raise NotImplementedError
+
+    def flat(self) -> tuple[torch.Tensor, torch.Tensor]:
+        raise NotImplementedError
+
+    def state_arrays(self) -> dict:
+        raise NotImplementedError
+
+    def meta(self) -> dict:
+        raise NotImplementedError
+
+    def resident_bytes(self) -> int:
+        raise NotImplementedError
+
+    def block_until_ready(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+
+class PaddedBucketStore(BucketStore):
+    """One ``(K, cap, d)`` tensor; amortized-doubling growth; ``max_cap``
+    spill budget; optional per-slot f32 sidecar (codec scales)."""
+
+    kind = "padded"
+
+    def __init__(self, k: int, d: int, dtype, *, capacity: int = 8,
+                 max_cap: int | None = None, aux: bool = False, device=None):
+        super().__init__(k, d, dtype, max_cap=max_cap, device=device)
+        self.cap = max(8, _round_up(int(capacity), 8))
+        if self.max_cap is not None:
+            self.cap = min(self.cap, self.max_cap)
+        self.buckets = torch.full((self.k, self.cap, self.d),
+                                  _pad_value(self.dtype), dtype=self.dtype,
+                                  device=self.device)
+        self.bucket_ids = torch.full((self.k, self.cap), -1,
+                                     dtype=torch.int32, device=self.device)
+        self.has_aux = bool(aux)
+        self.bucket_aux = torch.zeros((self.k, self.cap), dtype=torch.float32,
+                                      device=self.device) \
+            if self.has_aux else None
+
+    @property
+    def capacity(self) -> int:
+        return self.cap
+
+    def append(self, cells, x_sorted, ids, aux=None):
+        n = int(cells.shape[0])
+        if n == 0:
+            return
+        cells = np.asarray(cells, np.int64)
+        ids = np.asarray(ids, np.int32)
+        rank = np.arange(n) - np.searchsorted(cells, cells)
+        slots = self._counts_np[cells] + rank
+        needed = int(slots.max()) + 1
+        if needed > self.cap:
+            self._grow(needed)
+        if needed > self.cap:   # max_cap reached: spill the overflow
+            keep = slots < self.cap
+            self._account_spill(cells[~keep])
+            kj = np.flatnonzero(keep)
+            cells, slots, ids = cells[kj], slots[kj], ids[kj]
+            kt = torch.as_tensor(kj, device=x_sorted.device)
+            x_sorted = x_sorted[kt]
+            if aux is not None:
+                aux = aux[kt]
+        if cells.size:
+            cj = torch.as_tensor(cells, device=self.device)
+            sj = torch.as_tensor(slots, device=self.device)
+            self.buckets[cj, sj] = x_sorted.to(self.dtype)
+            self.bucket_ids[cj, sj] = torch.as_tensor(ids, device=self.device)
+            if self.has_aux and aux is not None:
+                self.bucket_aux[cj, sj] = aux.float()
+            self._counts_np += np.bincount(
+                cells, minlength=self.k).astype(np.int64)
+            self.counts = torch.as_tensor(self._counts_np, dtype=torch.int32,
+                                          device=self.device)
+
+    def _grow(self, needed: int) -> None:
+        """Amortized doubling, clamped to the ``max_cap`` budget."""
+        new_cap = max(_round_up(needed, 8), 2 * self.cap)
+        if self.max_cap is not None:
+            new_cap = min(new_cap, self.max_cap)
+        if new_cap <= self.cap:
+            return
+        pad = new_cap - self.cap
+        self.buckets = torch.cat([self.buckets, torch.full(
+            (self.k, pad, self.d), _pad_value(self.dtype), dtype=self.dtype,
+            device=self.device)], dim=1)
+        self.bucket_ids = torch.cat([self.bucket_ids, torch.full(
+            (self.k, pad), -1, dtype=torch.int32, device=self.device)], dim=1)
+        if self.has_aux:
+            self.bucket_aux = torch.cat([self.bucket_aux, torch.zeros(
+                (self.k, pad), dtype=torch.float32, device=self.device)],
+                dim=1)
+        self.cap = new_cap
+
+    def gather_width(self, min_slots: int = 1) -> int:
+        sl = _sublane_min(self.dtype)
+        w = _pow2ceil(max(sl, self.max_count))
+        w = max(w, _round_up(max(1, min_slots), sl))
+        return min(self.cap, w)
+
+    def device_arrays(self):
+        if self.has_aux:
+            return (self.buckets, self.bucket_ids, self.bucket_aux)
+        return (self.buckets, self.bucket_ids)
+
+    def dense(self):
+        return self.buckets, self.bucket_ids
+
+    def dense_ids(self):
+        return self.bucket_ids
+
+    def flat(self):
+        return (self.buckets.reshape(self.k * self.cap, self.d),
+                self.bucket_ids.reshape(self.k * self.cap))
+
+    def state_arrays(self):
+        out = {"buckets": self.buckets.cpu().numpy(),
+               "bucket_ids": self.bucket_ids.cpu().numpy(),
+               "counts": self.counts.cpu().numpy(),
+               "spill_counts": self.spill_counts.copy()}
+        if self.has_aux:
+            out["bucket_aux"] = self.bucket_aux.cpu().numpy()
+        return out
+
+    def meta(self):
+        return {"kind": self.kind, "cap": self.cap, "max_cap": self.max_cap,
+                "spilled": int(self.spilled)}
+
+    @classmethod
+    def restore(cls, host, meta, *, k, d, dtype, device=None):
+        st = cls(k, d, dtype, capacity=meta["cap"],
+                 max_cap=meta.get("max_cap"), aux="bucket_aux" in host,
+                 device=device)
+        if st.cap != meta["cap"]:
+            raise ValueError(f"capacity {meta['cap']} does not survive the "
+                             f"store's rounding (got {st.cap})")
+        st.buckets = torch.tensor(np.asarray(host["buckets"]),
+                                  device=st.device).to(dtype)
+        st.bucket_ids = torch.tensor(np.asarray(host["bucket_ids"]),
+                                     device=st.device).to(torch.int32)
+        if st.has_aux:
+            st.bucket_aux = torch.tensor(np.asarray(host["bucket_aux"]),
+                                         device=st.device).float()
+        st.set_counts(host["counts"])
+        st.spill_counts = np.asarray(host["spill_counts"]).astype(
+            np.int64).copy()
+        st.spilled = int(meta.get("spilled", st.spill_counts.sum()))
+        return st
+
+    def resident_bytes(self) -> int:
+        aux = 4 if self.has_aux else 0
+        return self.k * self.cap * (self.d * self.dtype.itemsize + 4 + aux)
+
+    def __repr__(self):
+        return (f"PaddedBucketStore(k={self.k}, d={self.d}, "
+                f"cap={self.cap})")
+
+
+# ---------------------------------------------------------------------------
+# quantized payloads: rescore reservoir + codec wrapper
+# ---------------------------------------------------------------------------
+
+class RescoreReservoir:
+    """Host-side full-precision row pool keyed by global id — the exact
+    half of two-phase search. The quantized scan proposes top-``R`` ids;
+    the verify phase looks their original f32 rows up here. FIFO ring
+    under an optional byte budget: evicted rows rescore from their
+    decoded codes instead."""
+
+    def __init__(self, d: int, *, max_bytes: int | None = None):
+        self.d = int(d)
+        self.max_bytes = max_bytes
+        cap = self._cap_rows()
+        n0 = 0 if cap is None else cap
+        self._rows = np.zeros((n0, self.d), np.float32)
+        self._ids = np.full(n0, -1, np.int64)    # id held per row
+        self._id2row = np.full(1024, -1, np.int64)
+        self._cursor = 0
+        self.evicted = 0
+
+    def _cap_rows(self) -> int | None:
+        if self.max_bytes is None:
+            return None
+        return max(1, int(self.max_bytes) // (4 * self.d + 8))
+
+    def __len__(self) -> int:
+        return int((self._ids >= 0).sum())
+
+    def resident_bytes(self) -> int:
+        return self._rows.shape[0] * (4 * self.d + 8)
+
+    def _ensure_index(self, max_id: int) -> None:
+        if max_id >= self._id2row.size:
+            grown = np.full(_pow2ceil(max_id + 1), -1, np.int64)
+            grown[:self._id2row.size] = self._id2row
+            self._id2row = grown
+
+    def put(self, ids, x) -> None:
+        ids = np.asarray(ids, np.int64).reshape(-1)
+        x = np.asarray(x, np.float32).reshape(-1, self.d)
+        if ids.size == 0:
+            return
+        self._ensure_index(int(ids.max()))
+        row = self._id2row[ids]
+        have = row >= 0
+        if have.any():                      # refresh in place
+            self._rows[row[have]] = x[have]
+        new_ids, new_x = ids[~have], x[~have]
+        if new_ids.size == 0:
+            return
+        cap = self._cap_rows()
+        if cap is None:                     # unbounded: plain append
+            base = self._rows.shape[0]
+            self._rows = np.concatenate([self._rows, new_x])
+            self._ids = np.concatenate([self._ids, new_ids])
+            self._id2row[new_ids] = base + np.arange(new_ids.size)
+            return
+        if new_ids.size > cap:              # batch larger than the ring
+            self.evicted += new_ids.size - cap
+            new_ids, new_x = new_ids[-cap:], new_x[-cap:]
+        pos = (self._cursor + np.arange(new_ids.size)) % cap
+        old = self._ids[pos]
+        dropped = old[old >= 0]
+        self._id2row[dropped] = -1
+        self.evicted += int(dropped.size)
+        self._rows[pos] = new_x
+        self._ids[pos] = new_ids
+        self._id2row[new_ids] = pos
+        self._cursor = int((self._cursor + new_ids.size) % cap)
+
+    def lookup(self, ids) -> tuple[np.ndarray, np.ndarray]:
+        """``ids`` any-shape int -> (rows ``ids.shape + (d,)`` f32,
+        found bool). Missing / negative ids return zero rows."""
+        ids = np.asarray(ids, np.int64)
+        safe = np.clip(ids, 0, self._id2row.size - 1)
+        row = np.where((ids >= 0) & (ids < self._id2row.size),
+                       self._id2row[safe], -1)
+        found = row >= 0
+        out = np.zeros(ids.shape + (self.d,), np.float32)
+        out[found] = self._rows[row[found]]
+        return out, found
+
+    def state_arrays(self) -> dict:
+        """Occupied rows packed oldest-first (ring order)."""
+        cap = self._cap_rows()
+        if cap is None:
+            keep = self._ids >= 0
+            return {"rescore_rows": self._rows[keep],
+                    "rescore_ids": self._ids[keep]}
+        order = (self._cursor + np.arange(cap)) % cap
+        order = order[self._ids[order] >= 0]
+        return {"rescore_rows": self._rows[order],
+                "rescore_ids": self._ids[order]}
+
+    @classmethod
+    def restore(cls, host, d: int, *, max_bytes=None) -> "RescoreReservoir":
+        res = cls(d, max_bytes=max_bytes)
+        res.put(host["rescore_ids"], host["rescore_rows"])
+        res.evicted = 0
+        return res
+
+
+class QuantizedBucketStore(BucketStore):
+    """Codec wrapper over a padded store: the inner store holds int8 codes
+    plus the per-slot f32 scale sidecar; the wrapper owns the anchors (the
+    cell centroids frozen at encode time: ``refresh`` moves the routing
+    centroids only, so stored codes stay decodable) and the optional
+    ``RescoreReservoir``. ``kind`` stays the inner backend's name."""
+
+    def __init__(self, inner: PaddedBucketStore, codec, anchors, *,
+                 reservoir: RescoreReservoir | None = None,
+                 logical_dtype=torch.float32):
+        # no super().__init__: the bookkeeping is the inner store's
+        self._inner = inner
+        self.codec = codec
+        self.device = inner.device
+        self.anchors = torch.as_tensor(anchors).to(device=self.device,
+                                                   dtype=torch.float32)
+        self.reservoir = reservoir
+        self.dtype = logical_dtype      # what consumers feed us
+        self.k, self.d = inner.k, inner.d
+
+    kind = property(lambda self: self._inner.kind)
+    codec_kind = property(lambda self: self.codec.kind)
+    counts = property(lambda self: self._inner.counts)
+    max_count = property(lambda self: self._inner.max_count)
+    max_cap = property(lambda self: self._inner.max_cap)
+    capacity = property(lambda self: self._inner.capacity)
+    evicted = property(lambda self: self._inner.evicted)
+    evict_counts = property(lambda self: self._inner.evict_counts)
+
+    @property
+    def spilled(self) -> int:
+        return self._inner.spilled
+
+    @spilled.setter
+    def spilled(self, v) -> None:
+        self._inner.spilled = v
+
+    @property
+    def spill_counts(self):
+        return self._inner.spill_counts
+
+    @spill_counts.setter
+    def spill_counts(self, v) -> None:
+        self._inner.spill_counts = v
+
+    def set_counts(self, v) -> None:
+        self._inner.set_counts(v)
+
+    def gather_width(self, min_slots: int = 1) -> int:
+        return self._inner.gather_width(min_slots)
+
+    def append(self, cells, x_sorted, ids):
+        if int(np.asarray(cells).shape[0]) == 0:
+            return
+        cj = torch.as_tensor(np.asarray(cells), device=self.device)
+        codes, scales = self.codec.encode(x_sorted.float(), self.anchors[cj])
+        if self.reservoir is not None:
+            self.reservoir.put(np.asarray(ids),
+                               x_sorted.float().cpu().numpy())
+        self._inner.append(cells, codes, ids, aux=scales)
+
+    def device_arrays(self):
+        return (*self._inner.device_arrays(), self.anchors)
+
+    def dense(self):
+        """Decoded f32 view with the reservoir's original rows overlaid —
+        the rows two-phase rescore scores, so brute force and two-phase
+        search score identical rows. Padding slots hold ``_PAD_COORD``."""
+        codes, ids = self._inner.dense()
+        x = self.anchors.unsqueeze(1) + codes.float() * \
+            self._inner.bucket_aux.unsqueeze(-1)
+        if self.reservoir is not None:
+            rows, found = self.reservoir.lookup(ids.cpu().numpy())
+            found_t = torch.as_tensor(found, device=self.device)
+            x = torch.where(found_t.unsqueeze(-1),
+                            torch.as_tensor(rows, device=self.device), x)
+        x = torch.where((ids < 0).unsqueeze(-1),
+                        torch.full_like(x, _PAD_COORD), x)
+        return x, ids
+
+    def dense_ids(self):
+        return self._inner.dense_ids()
+
+    def flat(self):
+        x, ids = self.dense()
+        return x.reshape(-1, self.d), ids.reshape(-1)
+
+    def state_arrays(self):
+        out = self._inner.state_arrays()
+        out["anchors"] = self.anchors.cpu().numpy()
+        if self.reservoir is not None:
+            out.update(self.reservoir.state_arrays())
+        return out
+
+    def meta(self):
+        return dict(self._inner.meta(), codec=self.codec.kind,
+                    reservoir=self.reservoir is not None,
+                    rescore_bytes=None if self.reservoir is None
+                    else self.reservoir.max_bytes,
+                    rescore_cache=None)
+
+    @classmethod
+    def restore(cls, host, meta, *, k, d, dtype, device=None):
+        from repro_torch.index.quant import make_codec
+        codec = make_codec(meta["codec"])
+        _resolve_kind(meta.get("kind", "padded"))
+        inner = PaddedBucketStore.restore(host, meta, k=k, d=d,
+                                          dtype=codec.pool_dtype,
+                                          device=device)
+        reservoir = None
+        if meta.get("reservoir") and "rescore_ids" in host:
+            reservoir = RescoreReservoir.restore(
+                host, d, max_bytes=meta.get("rescore_bytes"))
+        return cls(inner, codec, np.array(host["anchors"], np.float32),
+                   reservoir=reservoir, logical_dtype=dtype)
+
+    def resident_bytes(self) -> int:
+        return self._inner.resident_bytes() + self.k * self.d * 4
+
+    def __repr__(self):
+        res = len(self.reservoir) if self.reservoir is not None else 0
+        return (f"QuantizedBucketStore(codec={self.codec.kind}, "
+                f"inner={self._inner!r}, reservoir_rows={res})")
+
+
+RESCORE_KINDS = ("device", "host")
+
+
+def resolve_rescore(rescore: str | None) -> str:
+    """The q8 phase-2 row source. ``None`` means ``"host"`` (the
+    reservoir): the reference's default, the device rescore cache, is not
+    ported yet and raises. The reference's two sources return identical
+    results."""
+    rescore = rescore or "host"
+    if rescore == "device":
+        raise NotImplementedError(f"rescore='device' (DeviceRescoreCache) "
+                                  f"{_NOT_PORTED}")
+    if rescore not in RESCORE_KINDS:
+        raise ValueError(
+            f"unknown rescore kind {rescore!r}: expected {RESCORE_KINDS}")
+    return rescore
+
+
+def make_quantized_store(kind: str | None, k: int, d: int, dtype, *,
+                         anchors, codec: str = "q8", capacity: int = 8,
+                         max_cap: int | None = None,
+                         rescore_bytes: int | None = None,
+                         rescore: str | None = None,
+                         device=None) -> QuantizedBucketStore:
+    """Codec-wrapped padded store with a ``RescoreReservoir`` under an
+    optional byte budget (``rescore_bytes``)."""
+    from repro_torch.index.quant import make_codec
+    cdc = make_codec(codec)
+    _resolve_kind(kind)
+    resolve_rescore(rescore)
+    inner = PaddedBucketStore(k, d, cdc.pool_dtype, capacity=capacity,
+                              max_cap=max_cap, aux=True, device=device)
+    return QuantizedBucketStore(inner, cdc, anchors,
+                                reservoir=RescoreReservoir(
+                                    d, max_bytes=rescore_bytes),
+                                logical_dtype=dtype)

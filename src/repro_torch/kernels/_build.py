@@ -40,6 +40,16 @@ SIGNATURES = {
                        _P),
     "fk_flash_lloyd_static_smem": (_I, ctypes.POINTER(_I)),
     "fk_max_smem_optin": (_I, ctypes.POINTER(_I)),
+    # q, c, csq, 8 output/partial/scratch pointers, N, K, d, L, S, chunk,
+    # lp, is_bf16, stream
+    "fk_flash_probe": (_P,) * 11 + (_I,) * 8 + (_P,),
+    # q, c, 8 output/partial/scratch pointers, B, C, d, L, S, chunk, lp,
+    # is_bf16, stream
+    "fk_flash_probe_grouped": (_P,) * 10 + (_I,) * 8 + (_P,),
+    # qp, codes, scales, qsq, 8 output/partial/scratch pointers, B, P, W,
+    # d, L, S, chunk, lp, stream
+    "fk_flash_probe_grouped_q8": (_P,) * 12 + (_I,) * 8 + (_P,),
+    "fk_flash_probe_attrs": (_I, ctypes.POINTER(_I), ctypes.POINTER(_I)),
 }
 
 _lock = threading.Lock()

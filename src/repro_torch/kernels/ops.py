@@ -7,6 +7,13 @@ at 0, clusters without points get exactly-zero sums and counts, and
 by the tensors' device: the kernel modules run their plain PyTorch version
 for CPU tensors and launch the CUDA kernel for CUDA tensors.
 
+The FlashProbe wrappers (``flash_probe``, ``flash_probe_grouped``,
+``flash_probe_grouped_q8``) keep the reference's contracts: ``want_dists``
+adds ``||q||^2`` back and clamps at 0, ``c_sq`` may be passed in, and
+``l > K`` (or ``> C``) or ``l < 1`` raises ``ValueError``. Their one
+launch parameter is ``splits``, the CTAs that share one query's candidate
+axis, from ``splits=``, a ``plan=`` or the default planner.
+
 Block resolution: every wrapper accepts an optional ``plan=``
 (``core.plan.KernelPlan``) and/or explicit ``block_*`` overrides; with
 neither, the device's default ``KernelPlanner`` plans the dispatch. The
@@ -23,6 +30,7 @@ import torch
 
 from repro_torch.kernels import flash_assign as _fa
 from repro_torch.kernels import flash_lloyd as _fl
+from repro_torch.kernels import flash_probe as _fp
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import sort_inverse_update as _siu
 
@@ -229,6 +237,103 @@ def flash_lloyd_step(x: torch.Tensor, c: torch.Tensor, *,
         x.unsqueeze(0), c.unsqueeze(0), block_n=block_n, block_k=block_k,
         plan=plan)
     return a[0], s[0], cnt[0], j[0]
+
+
+# ---------------------------------------------------------------------------
+# FlashProbe — fused distance + online top-L (IVF search primitive)
+# ---------------------------------------------------------------------------
+
+def _probe_splits(op: str, shape: tuple, dtype, splits, plan, device) -> int:
+    """CTAs per query along the candidate axis: explicit ``splits`` win,
+    then a plan's, then the device's default planner's. The plan's shared
+    memory must fit the block limit of its hardware row."""
+    if splits is not None:
+        return int(splits)
+    if plan is None:
+        from repro_torch.core.plan import default_planner
+        plan = default_planner(device).plan(op, shape, dtype)
+    elif plan.op != op:
+        raise ValueError(
+            f"a plan for op {plan.op!r} cannot drive the {op!r} kernel")
+    if plan.smem_bytes > plan.smem_limit:
+        raise ValueError(f"{op} kernel working set ({plan.smem_bytes} bytes) "
+                         f"exceeds the {plan.hw} block shared-memory limit "
+                         f"({plan.smem_limit} bytes)")
+    return plan.blocks[0]
+
+
+def _add_qsq(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``||q||^2`` added back to each row of scores, clamped at 0."""
+    q32 = q.float()
+    return torch.clamp(v + (q32 * q32).sum(-1, keepdim=True), min=0.0)
+
+
+def flash_probe(q: torch.Tensor, c: torch.Tensor, *, l: int,
+                splits: int | None = None, plan=None,
+                want_dists: bool = True,
+                c_sq: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused L-nearest-centroid probe. q: (N, d), c: (K, d), ``1 <= l <=
+    K``.
+
+    Returns ``(indices int32 (N, l), dists f32 (N, l))`` ascending, ties to
+    the lower index. Distances are true squared distances unless
+    ``want_dists=False`` (then the ``||q||^2``-free score). ``c_sq``: the
+    centroids' ``||c||^2`` (K,) f32, e.g. ``IVFIndex``'s cached strip;
+    derived here when absent.
+    """
+    n, d = q.shape
+    k = c.shape[0]
+    splits = _probe_splits("probe", (n, k, d, l), q.dtype, splits, plan,
+                           q.device)
+    if c_sq is None:
+        c32 = c.float()
+        c_sq = (c32 * c32).sum(-1)
+    idx, v = _fp.flash_probe_raw(q, c, c_sq.float(), l, splits=splits)
+    return idx, (_add_qsq(q, v) if want_dists else v)
+
+
+def flash_probe_grouped(q: torch.Tensor, c: torch.Tensor, *, l: int,
+                        splits: int | None = None, plan=None,
+                        want_dists: bool = True
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-query-candidate top-L scan. q: (B, d), c: (B, C, d), ``1 <= l
+    <= C``: query ``i`` against its own block ``c[i]``, one launch for the
+    batch. Returns ``(indices int32 (B, l) into each query's candidate
+    axis, dists f32 (B, l))`` ascending."""
+    b, d = q.shape
+    c_n = c.shape[1]
+    splits = _probe_splits("scan", (b, c_n, d, l), q.dtype, splits, plan,
+                           q.device)
+    idx, v = _fp.flash_probe_grouped_raw(q, c, l, splits=splits)
+    return idx, (_add_qsq(q, v) if want_dists else v)
+
+
+def flash_probe_grouped_q8(qp: torch.Tensor, codes: torch.Tensor,
+                           scales: torch.Tensor, *, l: int,
+                           splits: int | None = None, plan=None
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantized per-query-candidate top-L scan (dequantized in registers).
+
+    qp: (B, nprobe, d) f32 shifted queries ``q - anchor[cell]``, codes:
+    (B, nprobe, W, d) int8, scales: (B, nprobe, W) f32, exactly 0.0 on
+    empty slots. Returns ``(indices int32 (B, l), dists f32 (B, l))``
+    ascending: indices address the flattened ``nprobe*W`` axis in
+    probe-rank-major order, dists are the true quantized squared
+    distances. Rows with fewer than ``l`` live candidates end in ``+inf``.
+
+    The reference pads W to its tile and remaps the kernel's indices back
+    to the unpadded axis (``repro/kernels/ops.py:460``); this kernel never
+    pads W, so its indices already are the unpadded ones and the remap is
+    the identity.
+    """
+    b, nprobe, d = qp.shape
+    w = codes.shape[2]
+    c_n = nprobe * w
+    splits = _probe_splits("scan_q8", (b, c_n, d, l), torch.int8, splits,
+                           plan, qp.device)
+    return _fp.flash_probe_grouped_q8_raw(qp, codes, scales, l,
+                                          splits=splits)
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,9 @@ dataflow:
 - ``update_scatter_ref`` adds point by point into the cluster rows (the
   atomic-contention baseline);
 - ``update_dense_onehot_ref`` computes ``S = A_onehot^T X``, contention
-  free but ``O(N K d)`` flops.
+  free but ``O(N K d)`` flops;
+- ``probe_ref`` materializes the ``N x K`` scores and sorts each row
+  (the FlashProbe oracle).
 
 They are the oracles of the tests and the reference implementations
 behind ``assign_impl="ref"`` and ``update_impl="scatter"/"dense_onehot"``.
@@ -52,6 +54,25 @@ def assign_ref_crossterm(x: torch.Tensor, c: torch.Tensor
     score = csq.unsqueeze(-2) - 2.0 * torch.matmul(x.float(),
                                                    c32.transpose(-1, -2))
     return _argmin_rows(score)
+
+
+def probe_ref(q: torch.Tensor, c: torch.Tensor, l: int, *,
+              want_dists: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dense top-L oracle of FlashProbe: the full score matrix in the
+    kernel's form ``||c||^2 - 2 q.c``, then a *stable* ascending sort, so
+    equal scores keep the lower index first (``lax.top_k``'s order;
+    ``torch.topk`` leaves it unspecified). Returns ``(indices int32 (N, l),
+    values f32 (N, l))``; with ``want_dists`` the per-query ``||q||^2`` is
+    added back and the result clamped at 0."""
+    c32 = c.float()
+    csq = (c32 * c32).sum(-1)
+    score = csq.unsqueeze(0) - 2.0 * torch.matmul(q.float(), c32.t())
+    v, idx = torch.sort(score, dim=-1, stable=True)
+    idx, v = idx[:, :l].to(torch.int32), v[:, :l]
+    if not want_dists:
+        return idx, v
+    q32 = q.float()
+    return idx, torch.clamp(v + (q32 * q32).sum(-1, keepdim=True), min=0.0)
 
 
 def update_scatter_ref(x: torch.Tensor, a: torch.Tensor, k: int

@@ -98,7 +98,7 @@ def test_planner_memo_and_counters():
     assert planner.counters()["chooser_calls"] == 3
     assert planner.plan("step", (1000, 64, 32), blk=p1.block) is p1
     with pytest.raises(ValueError, match="unknown plan op"):
-        planner.plan("probe", (1, 2, 3))
+        planner.plan("route", (1, 2, 3, 4))     # waits for two_level
     with pytest.raises(ValueError, match="arity"):
         planner.plan("step", (1, 2))
 
