@@ -7,22 +7,26 @@ footprint of each CUDA kernel, the per-iteration HBM byte models, the
 block choice, and the fused-vs-two-pass crossover. It is also the single
 source of the hardware constants the roofline uses.
 
-Footprints are bytes of shared memory one CTA needs. The assign and fused
-kernels stream the feature axis through ``16``-column stages, so their
-tile cost does not grow with ``d``; only the fused kernel's resident
-``(K, d)`` f32 accumulator does, and it must fit the block's opt-in limit
-(232,448 bytes on sm_90) — a much narrower window than the TPU's VMEM.
+Footprints are bytes of shared memory one CTA needs. FlashAssign streams
+the feature axis through a ring of ``128``-byte stages (TMA, tensor cores),
+so its footprint depends on the input type and on whether its point tile
+stays resident (``d <= 128`` in f32, ``<= 256`` in bf16); FlashLloyd streams it
+through ``16``-column f32 stages on the CUDA cores, and only its resident
+``(K, d)`` f32 accumulator grows with the shape: it must fit the block's
+opt-in limit (232,448 bytes on sm_90), a much narrower window than the
+TPU's VMEM.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 
+from repro_torch.kernels import flash_assign as _fa
 from repro_torch.kernels import flash_probe as _fp
 from repro_torch.kernels.ops import BlockConfig
 
-_STAGE_D = 16        # feature columns per shared stage (csrc/common.cuh)
-_STAGE_PAD = 4       # row padding of the stages
+_STAGE_D = 16        # FlashLloyd: feature columns per shared stage (common.cuh)
+_STAGE_PAD = 4       # row padding of those stages
 _FUSED_THREADS = 256
 
 
@@ -33,6 +37,7 @@ class Hardware:
     num_sms: int
     l2_bytes: int
     flops_f32: float         # fp32 FMA peak on CUDA cores, FLOP/s
+    flops_tf32: float        # dense TF32 tensor-core peak, FLOP/s
     flops_bf16: float        # dense bf16 tensor-core peak, FLOP/s
     hbm_bw: float            # device memory bytes/s
     hbm_bytes: int
@@ -40,7 +45,8 @@ class Hardware:
 
 def hopper_row(name: str = "h100_sxm", *, num_sms: int = 132,
                l2_bytes: int = 50 * 2**20, smem_block_bytes: int = 232_448,
-               flops_f32: float = 67e12, flops_bf16: float = 989e12,
+               flops_f32: float = 67e12, flops_tf32: float = 495e12,
+               flops_bf16: float = 989e12,
                hbm_bw: float = 3.35e12, hbm_bytes: int = 80 * 10**9
                ) -> Hardware:
     """A Hopper row; defaults are the H100 SXM data sheet. ``detect_hardware``
@@ -48,7 +54,8 @@ def hopper_row(name: str = "h100_sxm", *, num_sms: int = 132,
     tests build rows with explicit values."""
     return Hardware(name=name, smem_block_bytes=smem_block_bytes,
                     num_sms=num_sms, l2_bytes=l2_bytes, flops_f32=flops_f32,
-                    flops_bf16=flops_bf16, hbm_bw=hbm_bw, hbm_bytes=hbm_bytes)
+                    flops_tf32=flops_tf32, flops_bf16=flops_bf16,
+                    hbm_bw=hbm_bw, hbm_bytes=hbm_bytes)
 
 
 H100 = hopper_row()
@@ -67,9 +74,27 @@ def _pow2_ceil(v: int) -> int:
 
 
 def assign_footprint(bn: int, bk: int, d: int, bytes_in: int) -> int:
-    """Shared bytes of one FlashAssign CTA: the two f32 feature stages plus
-    the tile's (min, argmin) pair. Independent of ``d`` and the input
-    type (stages hold f32)."""
+    """Dynamic shared bytes of one FlashAssign CTA (the attribute its launch
+    sets; ``csrc/flash_assign.cu`` ``Cfg``). Tiles are rows of 128 bytes of
+    features: x in ``bn`` rows (for f32 also its tf32 low part, split in
+    place), the centroids in ``bk`` rows (``c_hi`` and ``c_lo`` for f32,
+    ``c`` for bf16). While ``d`` (padded to 16 bytes) fits ``RES_CHUNKS``
+    rows, the x tile stays resident and each ring stage holds centroids
+    only; otherwise each stage holds both. Plus two mbarriers per stage and
+    1,024 bytes to align to the swizzle's period."""
+    split = 2 if bytes_in == 4 else 1
+    stages = _fa.STAGES[bytes_in]
+    d_pad = d + (-d % (16 // bytes_in))
+    resident = d_pad * bytes_in <= _fa.RES_CHUNKS * _fa.ROW_BYTES
+    x_res = split * _fa.RES_CHUNKS * _fa.ROW_BYTES * bn if resident else 0
+    x_stage = 0 if resident else split * _fa.ROW_BYTES * bn
+    stage = x_stage + split * _fa.ROW_BYTES * bk
+    return x_res + stages * (stage + 2 * 8) + 1024
+
+
+def lloyd_stage_footprint(bn: int, bk: int) -> int:
+    """Static shared bytes of FlashLloyd's argmin stages: the two f32
+    feature stages plus the tile's (min, argmin) pair."""
     return 4 * _STAGE_D * (bn + _STAGE_PAD + bk + _STAGE_PAD) + bn * 8
 
 
@@ -83,9 +108,9 @@ def fused_footprint(bn: int, bk: int, d: int, bytes_in: int,
                     k_pad: int) -> int:
     """Shared bytes of one FlashLloyd CTA: the resident f32 ``(K, d)`` sums
     and ``(K,)`` counts (``k_pad = K``: the port does not pad K), the
-    assign stages, and the per-warp inertia slots. The ``4·K·d`` term is
+    argmin stages, and the per-warp inertia slots. The ``4·K·d`` term is
     the constraint the two-pass path does not have."""
-    return (4 * (k_pad * d + k_pad) + assign_footprint(bn, bk, d, bytes_in)
+    return (4 * (k_pad * d + k_pad) + lloyd_stage_footprint(bn, bk)
             + 4 * (_FUSED_THREADS // 32))
 
 
@@ -119,6 +144,13 @@ def fused_grid(n: int, hw: Hardware) -> int:
     return max(1, min(hw.num_sms, -(-n // 64)))
 
 
+def assign_flops_rate(dtype_bytes: int, hw: Hardware) -> float:
+    """FlashAssign's peak rate in FLOP/s of ``2 N K d``: float32 runs
+    3xTF32 (three tensor-core products per term), bfloat16 one bf16
+    product."""
+    return hw.flops_tf32 / 3.0 if dtype_bytes == 4 else hw.flops_bf16
+
+
 def choose_step_impl(n: int, k: int, d: int, *, dtype_bytes: int = 4,
                      hw: Hardware = H100,
                      blk: BlockConfig | None = None) -> str:
@@ -133,19 +165,24 @@ def choose_step_impl(n: int, k: int, d: int, *, dtype_bytes: int = 4,
        plus every CTA's accumulator flush) beats the summed two-pass
        stages (the same argmin, then the sort and the gathered read).
 
-    Both paths do their flops as fp32 FMAs on the CUDA cores, whatever the
-    input type, so the compute leg uses ``hw.flops_f32``.
+    The two paths do their flops on different units: FlashLloyd runs fp32
+    FMAs on the CUDA cores whatever the input type (``hw.flops_f32``);
+    FlashAssign runs on the tensor cores at ``assign_flops_rate`` (3xTF32
+    for f32, bf16 for bf16). So the two-pass path wins once the argmin's
+    flops outweigh the update's bytes: on the H100 row at d = 128 from
+    K = 83 (f32) or 43 (bf16).
     """
     if blk is None:
         blk = choose_blocks(n, k, d, dtype_bytes=dtype_bytes, hw=hw)
     if fused_footprint(blk.fused_block_n, blk.fused_block_k, d,
                        dtype_bytes, k) > hw.smem_block_bytes:
         return "two_pass"
-    peak, bw = hw.flops_f32, hw.hbm_bw
+    bw = hw.hbm_bw
     flops = 2.0 * n * k * d
-    t_fused = max(flops / peak, lloyd_bytes_fused(
+    t_fused = max(flops / hw.flops_f32, lloyd_bytes_fused(
         n, k, d, dtype_bytes, fused_grid(n, hw)) / bw)
-    t_assign = max(flops / peak, assign_bytes_flash(n, k, d, dtype_bytes) / bw)
+    t_assign = max(flops / assign_flops_rate(dtype_bytes, hw),
+                   assign_bytes_flash(n, k, d, dtype_bytes) / bw)
     t_update = update_bytes_sort_inverse(n, k, d, dtype_bytes,
                                          blk.update_block_n) / bw
     return "fused" if t_fused <= t_assign + t_update else "two_pass"
@@ -155,7 +192,8 @@ def choose_blocks(n: int, k: int, d: int, *, dtype_bytes: int = 4,
                   hw: Hardware = H100) -> BlockConfig:
     """Closed-form block selection — zero search.
 
-    The assign and fused tiles are the kernels' compiled 64 x 64. The
+    The assign and fused tiles are the kernels' compiled ones (128 x 128
+    and 64 x 64). The
     sort-inverse CTA takes as many sorted rows as keeps about four CTAs per
     SM busy (fewer segment atomics per row the longer the chunk), between
     128 and 1024, and one thread per feature column up to 256.

@@ -1,11 +1,12 @@
 // Shared pieces of the flash-kmeans CUDA kernels (sm_90a, fp32 FMA on CUDA cores).
 //
-// tile_argmin is the FlashAssign inner loop: one CTA of 256 threads scores a tile
-// of kTileN points against every centroid, kTileK centroids at a time, with the
-// feature axis streamed through shared memory kTileD columns at a time. Each
-// thread owns a 4 x 4 micro-tile (rows ty + 16 i, columns tx + 16 j), so a warp
-// reads one shared x value per row (broadcast) and 16 consecutive centroid
-// values (no bank conflicts). flash_assign.cu and flash_lloyd.cu both call it.
+// tile_argmin is FlashLloyd's argmin loop (flash_lloyd.cu): one CTA of 256
+// threads scores a tile of kTileN points against every centroid, kTileK
+// centroids at a time, with the feature axis streamed through shared memory
+// kTileD columns at a time. Each thread owns a 4 x 4 micro-tile (rows ty + 16 i,
+// columns tx + 16 j), so a warp reads one shared x value per row (broadcast) and
+// 16 consecutive centroid values (no bank conflicts). FlashAssign runs on the
+// tensor cores instead (flash_assign.cu).
 #pragma once
 
 #include <cuda_bf16.h>

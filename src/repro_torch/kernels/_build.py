@@ -34,7 +34,9 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # name -> argument types; every function returns int (cudaError_t)
 SIGNATURES = {
-    "fk_flash_assign": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, c, csq, c split, a, m, B, N, K, d, is_bf16, stream
+    "fk_flash_assign": (_P,) * 6 + (_I,) * 5 + (_P,),
+    "fk_flash_assign_smem": (_I, _I, ctypes.POINTER(_I)),
     "fk_sort_inverse_update": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
     "fk_flash_lloyd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _P),
@@ -90,12 +92,16 @@ def source_hash() -> str:
 
 def build() -> Path:
     """Compile every source in parallel and link ``libfkmeans.so``;
-    returns its path. A build already present for this hash is reused."""
+    returns its path. A build already present for this hash is reused, with
+    the ``-Xptxas -v`` log it left beside it (``ptxas_log``)."""
     global build_seconds, ptxas_log
     import time
     out_dir = BUILD_ROOT / source_hash()
     lib = out_dir / "libfkmeans.so"
+    log = out_dir / "ptxas.log"
     if lib.is_file():
+        if not ptxas_log and log.is_file():
+            ptxas_log = log.read_text()
         return lib
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -121,9 +127,10 @@ def build() -> Path:
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    ptxas_log = "\n".join(logs)
+    log.write_text(ptxas_log)
     os.replace(tmp, lib)
     build_seconds = time.perf_counter() - t0
-    ptxas_log = "\n".join(logs)
     return lib
 
 
@@ -157,6 +164,15 @@ def max_smem_optin(device_index: int = 0) -> int:
     out = ctypes.c_int(0)
     check(lib().fk_max_smem_optin(device_index, ctypes.byref(out)),
           "cudaDeviceGetAttribute")
+    return int(out.value)
+
+
+def assign_dynamic_smem(is_bf16: bool, d: int) -> int:
+    """The dynamic shared memory FlashAssign's launch at width ``d`` sets,
+    read back from the kernel's attributes."""
+    out = ctypes.c_int(0)
+    check(lib().fk_flash_assign_smem(int(is_bf16), d, ctypes.byref(out)),
+          "cudaFuncGetAttributes")
     return int(out.value)
 
 

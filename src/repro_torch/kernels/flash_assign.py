@@ -1,24 +1,33 @@
 """FlashAssign — fused distance + online-argmin assignment.
 
-The kernel is ``csrc/flash_assign.cu`` (CUDA C++ for sm_90a); it replaces
-the Pallas TPU kernel ``repro/kernels/flash_assign.py:flash_assign_raw``.
+The kernel is ``csrc/flash_assign.cu`` (CUDA C++ for sm_90a, ``wgmma`` on
+the tensor cores: 3xTF32 for float32 inputs, bf16 for bfloat16 inputs; TMA
+loads into a ring of shared-memory stages); it replaces the Pallas TPU
+kernel ``repro/kernels/flash_assign.py:flash_assign_raw``.
 ``flash_assign_raw`` dispatches by the tensors' device: CPU tensors go to
-``flash_assign_plain`` (the same math in plain PyTorch), CUDA tensors
+``flash_assign_plain`` (the same function in plain PyTorch), CUDA tensors
 launch the kernel or raise.
 
 Both return ``(a int32 (B, N), score f32 (B, N))`` for x ``(B, N, d)`` and
 c ``(B, K, d)``, where ``score = ||c_a||^2 - 2 x.c_a`` (add ``||x||^2`` for
 the true squared distance). Ties go to the lower centroid index.
+``score_tol`` bounds how far the kernel's scores may lie from the plain
+version's.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 
-TILE_N = 64   # points per CTA (csrc/common.cuh kTileN)
-TILE_K = 64   # centroids per sweep step (kTileK)
+TILE_N = 128   # points per CTA: two warpgroups of 64 rows (csrc kBM)
+TILE_K = 128   # centroids per tile, the wgmma N (kBN)
+ROW_BYTES = 128  # feature bytes of a stage row: the 128-byte swizzle
+RES_CHUNKS = 4   # x stays in shared memory while d * itemsize <= 4 * 128
+STAGES = {4: 3, 2: 4}  # depth of the TMA ring by input itemsize (f32, bf16)
 DTYPES = (torch.float32, torch.bfloat16)
+U32 = 2.0 ** -24  # fp32 unit roundoff
 
 launches = 0  # kernel launches (CUDA only); reset by callers that count
 
@@ -54,6 +63,53 @@ def flash_assign_plain(x: torch.Tensor, c: torch.Tensor
     return a.to(torch.int32), m
 
 
+def score_tol(x: torch.Tensor, c: torch.Tensor) -> float:
+    """Bound on ``|kernel score - plain score|`` for x ``(B, N, d)``, c
+    ``(B, K, d)``: the kernel's worst-case error plus the plain version's.
+
+    With ``u = 2^-24``, ``P = sum_j |x_j c_j| <= ||x|| ||c||`` and
+    ``mag = max ||c||^2 + 2 max ||x|| max ||c||`` (which bounds ``|score|``):
+
+    - plain (fp32 products and sums rounded to nearest, ``d`` terms):
+      ``||c||^2`` is off by ``d u ||c||^2``, ``x.c`` by ``d u P``, the final
+      ``csq - 2 x.c`` by ``u |score|``: in all ``(d + 1) u mag``;
+    - kernel, float32 (3xTF32): a split ``v = hi + lo + r`` leaves
+      ``|r| <= 2^-22 |v|``, so the three products miss ``x.c`` by at most
+      ``3 * 2^-22 P = 12 u P`` (the dropped ``x_lo c_lo`` and the two ``r``).
+      The ``3 d`` tf32 products are exact in fp32; the tensor core's
+      accumulation is not documented to round to nearest, so each of the
+      ``3 d`` additions may truncate (``2 u`` of the running sum):
+      ``6 d u P``. With ``csq`` as above and the subtraction:
+      ``(6 d + 13) u mag``;
+    - kernel, bfloat16: bf16 products are exact in fp32; ``d`` truncating
+      additions give ``2 d u P``: ``(2 d + 1) u mag``.
+
+    Zero padding of the feature axis adds exact zeros and changes no term.
+    """
+    d = x.shape[-1]
+    c32 = c.float()
+    cn = torch.linalg.vector_norm(c32, dim=-1).max()
+    xn = torch.linalg.vector_norm(x, dim=-1, dtype=torch.float32).max()
+    mag = float(cn * cn + 2 * xn * cn)
+    kernel = 6 * d + 13 if x.dtype == torch.float32 else 2 * d + 1
+    return (kernel + d + 1) * U32 * mag
+
+
+def pad_features(x: torch.Tensor, c: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Contiguous x and c whose feature axis TMA can read: rows of a
+    multiple of 16 bytes (d % 4 == 0 in f32, d % 8 == 0 in bf16). Other d
+    are copied into zero-padded ``(B, ., d_pad)`` buffers; zero columns
+    change no dot product and no norm. The main paths (d = 128, 512) never
+    pay the copy."""
+    d = x.shape[-1]
+    align = 16 // x.element_size()
+    pad = -d % align
+    if pad == 0:
+        return x.contiguous(), c.contiguous()
+    return F.pad(x, (0, pad)), F.pad(c, (0, pad))
+
+
 def flash_assign_raw(x: torch.Tensor, c: torch.Tensor
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """FlashAssign over a batch: x (B, N, d), c (B, K, d)."""
@@ -63,17 +119,24 @@ def flash_assign_raw(x: torch.Tensor, c: torch.Tensor
         return flash_assign_plain(x, c)
     if x.device.type != "cuda":
         raise ValueError(f"flash_assign: unsupported device {x.device}")
-    x, c = x.contiguous(), c.contiguous()
-    b, n, d = x.shape
+    b, n, _ = x.shape
     k = c.shape[1]
     a = torch.empty((b, n), dtype=torch.int32, device=x.device)
     m = torch.empty((b, n), dtype=torch.float32, device=x.device)
     if n == 0:
         return a, m
-    csq = torch.empty((b, k), dtype=torch.float32, device=x.device)
+    x, c = pad_features(x, c)
+    d = x.shape[-1]
+    is_bf16 = x.dtype == torch.bfloat16
+    # ||c||^2, padded with +inf to a multiple of the kernel's centroid tile
+    csq = torch.empty((b, -(-k // TILE_K) * TILE_K), dtype=torch.float32,
+                      device=x.device)
+    # f32: the centroids' tf32 split (c_hi, c_lo), written by the prologue
+    split = torch.empty((0 if is_bf16 else 2, b, k, d), dtype=torch.float32,
+                        device=x.device)
     code = _build.lib().fk_flash_assign(
-        x.data_ptr(), c.data_ptr(), csq.data_ptr(), a.data_ptr(),
-        m.data_ptr(), b, n, k, d, int(x.dtype == torch.bfloat16),
+        x.data_ptr(), c.data_ptr(), csq.data_ptr(), split.data_ptr(),
+        a.data_ptr(), m.data_ptr(), b, n, k, d, int(is_bf16),
         _build.stream_ptr(x.device))
     _build.check(code, "flash_assign kernel launch")
     launches += 1

@@ -20,8 +20,10 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_assign import (TILE_N, check_xc,
-                                              flash_assign_plain)
+from repro_torch.kernels.flash_assign import check_xc, flash_assign_plain
+
+TILE_N = 64   # points per CTA tile (csrc/common.cuh kTileN)
+TILE_K = 64   # centroids per sweep step (kTileK)
 
 launches = 0  # kernel launches (CUDA only); reset by callers that count
 

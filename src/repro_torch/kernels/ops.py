@@ -47,8 +47,8 @@ class BlockConfig:
     assign_block_k: int = _fa.TILE_K
     update_block_n: int = 512
     update_block_k: int = 128
-    fused_block_n: int = _fa.TILE_N
-    fused_block_k: int = _fa.TILE_K
+    fused_block_n: int = _fl.TILE_N
+    fused_block_k: int = _fl.TILE_K
 
     def validate(self) -> "BlockConfig":
         for f in dataclasses.fields(self):
@@ -96,10 +96,12 @@ def _audit_blocks(op: str, bn: int, bk: int, d: int, itemsize: int, device,
     from repro_torch.core import heuristics as H
     from repro_torch.core import plan as _planmod
     hw = _planmod.hardware_for(plan.hw if plan is not None else None, device)
-    if op in ("assign", "fused") and (bn, bk) != (_fa.TILE_N, _fa.TILE_K):
+    compiled = {"assign": (_fa.TILE_N, _fa.TILE_K),
+                "fused": (_fl.TILE_N, _fl.TILE_K)}.get(op)
+    if compiled is not None and (bn, bk) != compiled:
         raise ValueError(
             f"{op} tiles ({bn}, {bk}) differ from the kernel's compiled "
-            f"tiles ({_fa.TILE_N}, {_fa.TILE_K})")
+            f"tiles {compiled}")
     if op == "assign":
         need = H.assign_footprint(bn, bk, d, itemsize)
     elif op == "update":

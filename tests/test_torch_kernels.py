@@ -257,8 +257,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         fa.flash_assign_raw(x[None], x[None, :3].bfloat16())
     with pytest.raises(ValueError):
         fa.flash_assign_raw(x[None], torch.randn(1, 3, 5))
-    with pytest.raises(ValueError):
-        ops.flash_assign(x, x[:3], block_n=128, block_k=64)  # not compiled
+    for bn, bk in ((64, 64), (128, 64)):   # not the compiled 128 x 128
+        with pytest.raises(ValueError, match="compiled"):
+            ops.flash_assign(x, x[:3], block_n=bn, block_k=bk)
     with pytest.raises(ValueError):
         ops.sort_inverse_update(x, torch.zeros(10, dtype=torch.int32), k=2,
                                 block_n=256, block_k=48)

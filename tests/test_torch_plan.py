@@ -19,12 +19,19 @@ def fused_smem_bytes(k, d):
 
 H100 = H.hopper_row("h100_test", num_sms=132, l2_bytes=50 * 2**20,
                     smem_block_bytes=232_448)
+# a row whose tensor cores run no faster than its CUDA cores: FlashAssign and
+# FlashLloyd then share one flop rate and only bytes and shared memory decide
+CUDA_CORES = dataclasses.replace(H100, flops_tf32=3 * H100.flops_f32,
+                                 flops_bf16=H100.flops_f32)
 
 
 @pytest.mark.parametrize("itemsize", [4, 2])
 def test_paper_regimes_plan_as_expected(itemsize):
+    # FlashAssign's tensor-core argmin (3xTF32 / bf16) plus the sort-inverse
+    # bytes beat FlashLloyd's CUDA-core argmin at all four regimes
     planner = P.KernelPlanner(H100)
-    assert planner.plan("step", (65536, 256, 128), itemsize).impl == "fused"
+    assert planner.plan("step", (65536, 256, 128),
+                        itemsize).impl == "two_pass"
     assert planner.plan("step", (8388608, 1024, 128),
                         itemsize).impl == "two_pass"
     assert planner.plan("step", (65536, 1024, 128), itemsize).impl == \
@@ -58,19 +65,58 @@ def test_fused_window_is_the_shared_memory_bound():
     assert 400 <= kmax <= 450
     assert fused_smem_bytes(kmax, 128) <= H100.smem_block_bytes
     assert fused_smem_bytes(kmax + 1, 128) > H100.smem_block_bytes
-    assert H.choose_step_impl(65536, kmax, 128, hw=H100) == "fused"
-    assert H.choose_step_impl(65536, kmax + 1, 128, hw=H100) == "two_pass"
+    assert H.choose_step_impl(65536, kmax, 128, hw=CUDA_CORES) == "fused"
+    assert H.choose_step_impl(65536, kmax + 1, 128,
+                              hw=CUDA_CORES) == "two_pass"
     # 4 (K d + K) dynamic bytes on top of the kernel's 9,248 static ones
     # (chip_smoke.py checks the static size against the compiled kernel)
     assert fused_smem_bytes(256, 128) == 4 * (256 * 128 + 256) + 9248
 
 
+@pytest.mark.parametrize("itemsize,d,want", [
+    (4, 128, 230_448), (4, 3, 230_448), (4, 129, 197_680), (4, 512, 197_680),
+    (2, 128, 132_160), (2, 256, 132_160), (2, 512, 132_160)])
+def test_assign_footprint_is_the_kernels_layout(itemsize, d, want):
+    """FlashAssign's dynamic shared memory (chip_smoke.py reads the same
+    numbers back from the compiled kernel): f32 keeps x and its tf32 low
+    part resident up to d = 128 (128 KB) beside a 3-stage ring of c_hi and
+    c_lo (32 KB a stage), else a 3-stage ring of all four (64 KB a stage);
+    bf16 keeps x resident up to d = 256 (64 KB) beside a 4-stage ring of c
+    (16 KB), else a 4-stage ring of x and c (32 KB). Plus 16 bytes of
+    mbarriers a stage and 1,024 of alignment."""
+    assert H.assign_footprint(128, 128, d, itemsize) == want
+    assert want <= H100.smem_block_bytes
+
+
 def test_roofline_leg_uses_the_rows_peaks():
-    slow_mem = dataclasses.replace(H100, hbm_bw=1e9)
+    slow_mem = dataclasses.replace(CUDA_CORES, hbm_bw=1e9)
     # with a starved memory system the per-CTA accumulator flush dominates
     # a tiny problem and the fused path stops winning
-    assert H.choose_step_impl(256, 400, 128, hw=H100) == "fused"
+    assert H.choose_step_impl(256, 400, 128, hw=CUDA_CORES) == "fused"
     assert H.choose_step_impl(256, 400, 128, hw=slow_mem) == "two_pass"
+    # the assign leg runs at the row's TF32 (f32, three products) and bf16
+    # tensor-core rates
+    for itemsize in (4, 2):
+        assert H.choose_step_impl(65536, 256, 128, dtype_bytes=itemsize,
+                                  hw=H100) == "two_pass"
+        assert H.choose_step_impl(65536, 256, 128, dtype_bytes=itemsize,
+                                  hw=CUDA_CORES) == "fused"
+    assert H.assign_flops_rate(4, H100) == H100.flops_tf32 / 3
+    assert H.assign_flops_rate(2, H100) == H100.flops_bf16
+
+
+@pytest.mark.parametrize("itemsize,k_cross", [(4, 82), (2, 42)])
+def test_fused_two_pass_crossover(itemsize, k_cross):
+    """The roofline crossover at N = 65,536, d = 128: FlashLloyd's CUDA-core
+    argmin, ``2 N K d / 67e12``, against the tensor-core argmin
+    (``3 * 2 N K d / 495e12`` in f32, ``2 N K d / 989e12`` in bf16) plus the
+    update's bytes, about ``(16 N + N d b) / 3.35e12``, meet at K = 82 (f32)
+    and 42 (bf16)."""
+    for n in (65536, 8388608):
+        assert H.choose_step_impl(n, k_cross, 128, dtype_bytes=itemsize,
+                                  hw=H100) == "fused"
+        assert H.choose_step_impl(n, k_cross + 1, 128, dtype_bytes=itemsize,
+                                  hw=H100) == "two_pass"
 
 
 def test_choose_blocks_update_tiles():
@@ -78,7 +124,7 @@ def test_choose_blocks_update_tiles():
         blk = H.choose_blocks(n, 1024, d, hw=H100).validate()
         assert 128 <= blk.update_block_n <= 1024
         assert blk.update_block_k % 32 == 0 and blk.update_block_k <= 256
-        assert (blk.assign_block_n, blk.assign_block_k) == (64, 64)
+        assert (blk.assign_block_n, blk.assign_block_k) == (128, 128)
         assert (blk.fused_block_n, blk.fused_block_k) == (64, 64)
 
 
@@ -119,7 +165,7 @@ def test_detect_hardware_cpu_and_missing_cuda(monkeypatch):
 
 
 def test_config_auto_uses_the_device_planner():
-    cfg = KMeansConfig(k=256)
+    cfg = KMeansConfig(k=64)
     assert cfg.resolved_step_impl(65536, 128, 4, device="cpu") == "fused"
     cfg = KMeansConfig(k=1024)
     assert cfg.resolved_step_impl(8388608, 128, 4, device="cpu") == \
