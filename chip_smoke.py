@@ -72,12 +72,26 @@ RAGGED = [(1, 1000, 37, 19), (3, 777, 100, 64), (1, 1, 1, 1),
 # FlashAssign's own edges (B, N, K, d, kind): N off the 128-row CTA tile, K
 # tails inside one 128-column tile (1, 37, 129, 257), d that TMA reads
 # directly (8, 512) or through the wrapper's zero padding (1, 3, 19, 129),
-# duplicated centroids (ids must go to the lower copy), and a batch whose
-# points and centroids sit far from the origin
+# duplicated centroids (ids must go to the lower copy), a batch whose points
+# and centroids sit far from the origin, and "aligned" data: positive values
+# near 1 whose low mantissa bits sit just under TF32's rounding point, so that
+# a kernel with fewer TF32 products than 3xTF32 errs by the most, always one way
 ASSIGN_EDGE = [(1, 1000, 257, 8, "random"), (2, 333, 129, 512, "random"),
                (1, 4100, 37, 3, "random"), (1, 190, 1, 129, "random"),
                (3, 517, 64, 1, "random"), (2, 700, 129, 19, "random"),
-               (3, 517, 64, 19, "duplicated"), (2, 300, 257, 128, "far")]
+               (3, 517, 64, 19, "duplicated"), (2, 300, 257, 128, "far"),
+               (2, 300, 257, 3, "far"), (2, 300, 257, 19, "far"),
+               (1, 3000, 257, 128, "aligned"), (1, 1000, 257, 512, "aligned")]
+# The controls: FlashAssign's f32 arithmetic with fewer products than the
+# kernel takes ("tf32": x_hi c_hi alone; "drop_x_lo": x_hi c_lo + x_hi c_hi),
+# emulated in plain PyTorch and sent through the kernel's own comparison,
+# which must reject them on these edges and on the main path's inputs
+# (largeN_smallK f32). Elsewhere their readings are recorded: on random or far
+# data the TF32 error grows as sqrt(d) while the worst-case bound grows as d.
+CONTROL_KINDS = ("tf32", "drop_x_lo")
+CONTROL_EDGES = {(2, 300, 257, 3, "far"), (2, 300, 257, 19, "far"),
+                 (1, 3000, 257, 128, "aligned"), (1, 1000, 257, 512, "aligned")}
+CONTROL_REGIME = "largeN_smallK"
 # FlashProbe ragged checks. L in {1, 7, 40, K}, K/C/W tails, d in {1, 19,
 # 129}, one query, lists longer than the kernel keeps in shared memory
 # (L > 2048), duplicated rows (the lower-index tie rule), store padding
@@ -205,7 +219,7 @@ def main() -> int:
     max_err = {k: 0.0 for k in launches}
     timing: dict[str, dict] = {}
     details = {"card": smi, "regimes": [], "kernel_checks": [], "ivf": [],
-               "ivf_truth": []}
+               "ivf_truth": [], "controls": []}
 
     def zero_counts():
         for mod in mods.values():
@@ -260,13 +274,11 @@ def main() -> int:
             gap[bi, ni] = (score(a1[bi, ni]) - score(a2[bi, ni])).abs()
         return gap
 
-    def assign_check(x, c, tag):
-        """x (B, N, d), c (B, K, d) of one dtype: the kernel runs over the
-        whole batch and every row is held against the plain version, which
-        runs in chunks that fit the card: scores within each problem's
-        ``score_tol``, ids equal except on near-ties inside it. Returns the
-        kernel's ids."""
-        a, m = fa.flash_assign_raw(x, c)
+    def assign_compare(x, c, a, m, tag, kname="flash_assign"):
+        """``(a, m)`` for x (B, N, d), c (B, K, d) of one dtype, every row
+        held against the plain version, which runs in chunks that fit the
+        card: scores within each problem's ``score_tol``, ids equal except
+        on near-ties inside it. Returns the record, with ``ok``."""
         b, n, d = x.shape
         k = c.shape[1]
         tol = batch_tol(x, c)
@@ -279,20 +291,80 @@ def main() -> int:
             gap[bs] = torch.maximum(
                 gap[bs], row_gap(x[bs, rs], c[bs], a[bs, rs], ap).amax(1))
             mism += int((a[bs, rs] != ap).sum())
-        ok = bool((err <= tol).all()) and bool((gap <= tol).all())
-        rec = {"kernel": "flash_assign", "at": tag, "dtype": str(x.dtype),
-               "shape": [b, n, k, d], "rows_compared": b * n,
-               "max_abs_err": float(err.max()), "tol": float(tol.max()),
-               "err_over_tol": float((err / tol).max()), "mismatches": mism,
-               "tie_gap": float(gap.max())}
+        return {"kernel": kname, "at": tag, "dtype": str(x.dtype),
+                "shape": [b, n, k, d], "rows_compared": b * n,
+                "max_abs_err": float(err.max()), "tol": float(tol.max()),
+                "err_over_tol": float((err / tol).max()), "mismatches": mism,
+                "tie_gap": float(gap.max()),
+                "gap_over_tol": float((gap / tol).max()),
+                "ok": bool((err <= tol).all()) and bool((gap <= tol).all())}
+
+    def assign_check(x, c, tag):
+        """The kernel over the whole batch, held to ``assign_compare``.
+        Returns the kernel's ids."""
+        a, m = fa.flash_assign_raw(x, c)
+        rec = assign_compare(x, c, a, m, tag)
         details["kernel_checks"].append(rec)
-        check(ok, f"flash_assign {tag} {x.dtype}: all {b * n} rows, score "
+        b, n, k = x.shape[0], x.shape[1], c.shape[1]
+        mism = rec["mismatches"]
+        check(rec["ok"], f"flash_assign {tag} {x.dtype}: all {b * n} rows, score "
                   f"err {rec['max_abs_err']:.3g}, {mism} id mismatches (max "
                   f"gap {rec['tie_gap']:.3g}) <= score_tol {rec['tol']:.3g} "
                   f"(err/tol {rec['err_over_tol']:.3g})")
         max_err["flash_assign"] = max(max_err["flash_assign"],
                                       rec["max_abs_err"])
         return a
+
+    def tf32_rna(v):
+        """``cvt.rna.tf32.f32``: 13 low mantissa bits cleared, rounding half
+        away from zero (half the dropped ulp added to the sign-magnitude
+        bits)."""
+        return ((v.contiguous().view(torch.int32) + 0x1000)
+                & -0x2000).view(torch.float32)
+
+    def assign_emulated(x, c, kind):
+        """``(a, m)`` of FlashAssign's f32 arithmetic with fewer TF32
+        products than the kernel takes, in plain PyTorch: ``tf32`` takes
+        x_hi c_hi alone, ``drop_x_lo`` x_hi c_lo + x_hi c_hi (the kernel
+        with its x_lo c_hi term lost). The products are summed in float64,
+        so only the dropped terms err; chunked like the plain version."""
+        b, n, _ = x.shape
+        a = torch.empty((b, n), dtype=torch.int32, device=dev)
+        m = torch.empty((b, n), dtype=torch.float32, device=dev)
+        for bs, rs in plain_chunks(b, n, c.shape[1]):
+            xs, cs = x[bs, rs], c[bs]
+            c_hi = tf32_rna(cs)
+            c_b = c_hi.double()
+            if kind == "drop_x_lo":   # c_hi + c_lo is exact in float64
+                c_b = c_b + tf32_rna(cs - c_hi).double()
+            dot = torch.matmul(tf32_rna(xs).double(), c_b.transpose(-1, -2))
+            c64 = cs.double()
+            score = ((c64 * c64).sum(-1).unsqueeze(-2) - 2.0 * dot).float()
+            del dot
+            ai = torch.argmin(score, dim=-1)
+            a[bs, rs] = ai.to(torch.int32)
+            m[bs, rs] = torch.gather(score, -1, ai.unsqueeze(-1)).squeeze(-1)
+            del score
+        return a, m
+
+    def assign_control(x, c, tag, must_fail):
+        """The controls of CONTROL_KINDS on f32 inputs, through
+        ``assign_compare``: with ``must_fail`` the comparison must reject
+        each, else its reading is recorded."""
+        for kind in CONTROL_KINDS:
+            a, m = assign_emulated(x, c, kind)
+            rec = assign_compare(x, c, a, m, tag, kname=f"control/{kind}")
+            rec["must_fail"] = must_fail
+            details["controls"].append(rec)
+            what = (f"control {kind} at {tag}: score err/tol "
+                    f"{rec['err_over_tol']:.3g}, tie gap/tol "
+                    f"{rec['gap_over_tol']:.3g}, {rec['mismatches']} ids "
+                    f"differ")
+            if must_fail:
+                check(not rec["ok"], what + ": rejected by assign_check's "
+                      "comparison")
+            else:
+                print("  read " + what, flush=True)
 
     def sums_tol(x2, ids, segments, cnt):
         """|sum error| bound per (segment, column): 2 n u sum |x|."""
@@ -315,10 +387,11 @@ def main() -> int:
         details["kernel_checks"].append(
             {"kernel": "sort_inverse_update", "at": tag,
              "dtype": str(x2.dtype), "rows": x2.shape[0],
-             "segments": segments, "max_abs_err": err,
-             "counts_equal": torch.equal(cnt, cp)})
-        check(ok, f"sort_inverse_update {tag} {x2.dtype}: sums err {err:.3g}"
-                  f" within 2nu*sum|x|, counts equal {torch.equal(cnt, cp)}")
+             "segments": segments, "chunk": chunk, "threads": threads,
+             "max_abs_err": err, "counts_equal": torch.equal(cnt, cp)})
+        check(ok, f"sort_inverse_update {tag} {x2.dtype} (chunk {chunk}, "
+                  f"threads {threads}): sums err {err:.3g} within "
+                  f"2nu*sum|x|, counts equal {torch.equal(cnt, cp)}")
         max_err["sort_inverse_update"] = max(max_err["sort_inverse_update"],
                                              err)
         return order, ids_s
@@ -564,6 +637,12 @@ def main() -> int:
             q8_check(qp, codes, scales, l, f"ragged{(b, p, w, d, l)}/"
                      f"splits={splits or 'planned'}", splits)
     print("\n[FlashAssign edges]", flush=True)
+    def aligned(shape):
+        """Values in [1, 1 + 1/16) with the low 13 mantissa bits 0x0fff:
+        ``cvt.rna.tf32`` rounds each down by almost half its ulp."""
+        v = 1.0 + torch.rand(shape, device=dev, generator=gen) / 16
+        return ((v.view(torch.int32) & -0x2000) | 0x0fff).view(torch.float32)
+
     for b, n, k, d, kind in ASSIGN_EDGE:
         for cdt in (torch.float32, torch.bfloat16):
             x = torch.randn(b, n, d, device=dev, generator=gen)
@@ -573,7 +652,13 @@ def main() -> int:
             elif kind == "far":   # the last problem far from the origin
                 x[-1] += 100.0
                 c[-1] += 100.0
-            a = assign_check(x.to(cdt), c.to(cdt), f"edge{(b, n, k, d)}/{kind}")
+            elif kind == "aligned":
+                x, c = aligned(x.shape), aligned(c.shape)
+            tag = f"edge{(b, n, k, d)}/{kind}"
+            a = assign_check(x.to(cdt), c.to(cdt), tag)
+            if cdt == torch.float32 and kind in ("far", "aligned"):
+                assign_control(x, c, tag,
+                               (b, n, k, d, kind) in CONTROL_EDGES)
             if kind == "duplicated":
                 h = k // 2
                 check(not bool(((a >= h) & (a < 2 * h)).any()),
@@ -600,18 +685,24 @@ def main() -> int:
         c0 = torch.stack([x[i, torch.randperm(n, device=dev, generator=gen)
                             [:k]] for i in range(b)])
         # phase 2: each kernel against its plain version, f32 and bf16,
-        # over every row of the run
+        # over every row of the run; the sort-inverse update from the
+        # checked ids with the planner's blocks, as the two-pass path runs it
+        blk = KMeansConfig(k=k).blocks_for(n, d, x.element_size(), dev)
         for cdt in (torch.float32, torch.bfloat16):
             xc, cc = x.to(cdt), c0.to(cdt)
             if name == "smallN_smallK":
-                lloyd_check(xc, cc, name)
-                continue
-            a_k = assign_check(xc, cc, name)
-            if cdt == dtype:   # sort-inverse from the checked ids
+                a_k = lloyd_check(xc, cc, name)
+            else:
+                a_k = assign_check(xc, cc, name)
+            if cdt == dtype:
                 ids = (a_k + k * torch.arange(
                     b, device=dev, dtype=torch.int32).unsqueeze(1))
-                siu_check(x.reshape(-1, d), ids.reshape(-1), b * k, name)
+                siu_check(x.reshape(-1, d), ids.reshape(-1), b * k, name,
+                          chunk=blk.update_block_n,
+                          threads=blk.update_block_k)
                 del ids
+            if cdt == dtype == torch.float32:
+                assign_control(xc, cc, name, name == CONTROL_REGIME)
             del xc, cc, a_k
         torch.cuda.synchronize()
 
@@ -693,27 +784,30 @@ def main() -> int:
                             f"choice {want})")
         zero_counts()
         km, st, fit_s, traj, ms_iter, step_ms = drive("auto")
-        extra = []
-        if name == "smallN_smallK":
-            # the other entry points: fits that draw their own start on
-            # the card, and predict (FlashAssign)
-            for init in ("random", "kmeans++"):
-                g1 = torch.Generator(device=dev).manual_seed(SEED + 1)
-                s2 = KMeans(KMeansConfig(k=k, max_iters=3, init=init)).fit(
-                    x[0], generator=g1)
-                extra.append((f"fit(init={init!r}) finite, "
-                               f"{int(s2.iteration)} iterations",
-                               bool(torch.isfinite(s2.inertia))
-                               and int(s2.iteration) >= 1))
-            pred = km.predict(x[0], st.centroids)
         counts = read_counts()
         for kname in mods:
             launches[kname] += counts[kname]
         check_path("auto", impl, km, st, fit_s, traj, ms_iter, step_ms,
                    counts)
-        for what, ok in extra:
-            check(ok, what)
         if name == "smallN_smallK":
+            # the other entry points, counted on their own: fits that draw
+            # their own start on the card, and predict (FlashAssign)
+            zero_counts()
+            for init in ("random", "kmeans++"):
+                g1 = torch.Generator(device=dev).manual_seed(SEED + 1)
+                s2 = KMeans(KMeansConfig(k=k, max_iters=3, init=init)).fit(
+                    x[0], generator=g1)
+                check(bool(torch.isfinite(s2.inertia))
+                      and int(s2.iteration) >= 1,
+                      f"fit(init={init!r}) finite, {int(s2.iteration)} "
+                      "iterations")
+            pred = km.predict(x[0], st.centroids)
+            counts_e = read_counts()
+            for kname in mods:
+                launches[kname] += counts_e[kname]
+            details["regimes"][-1]["launches_other_entry_points"] = counts_e
+            check(counts_e["flash_assign"] > 0,
+                  f"fit(init=...) and predict: kernels launched: {counts_e}")
             zero_counts()
             km_f, st_f, *rest = drive("fused")
             counts_f = read_counts()
@@ -760,6 +854,18 @@ def main() -> int:
                 "library_ms": None,
                 "bytes": (nb * d + b * k * d) * x.element_size() + nb * 8,
                 "ops": 2.0 * nb * k * d, "dtype": dt, "shape": [b, n, k, d]}
+            if dt == "bfloat16":
+                # the warpgroups' ping-pong (it runs here: a bf16 tile at
+                # d = 128 takes half the ring) against no ping-pong, in the
+                # order on, off, off, on
+                pp = {True: [], False: []}
+                for on in (True, False, False, True):
+                    pp[on].append(ms_of(lambda on=on: fa.flash_assign_raw(
+                        xb, cb, pingpong=on), reps=5))
+                timing[tag + "/flash_assign"].update(
+                    pingpong_ms=pp[True], no_pingpong_ms=pp[False])
+                print(f"  flash_assign {tag}: ping-pong {pp[True]} ms, "
+                      f"without {pp[False]} ms", flush=True)
             if dt == "float32":   # the same flops as fp32 FMAs on the CUDA
                 # cores, beside the 3xTF32 bound
                 timing[tag + "/flash_assign"]["bound_cuda_core_ms"] = (
@@ -769,7 +875,6 @@ def main() -> int:
             ids_s, order = torch.sort(ids, stable=True)
             order = order.to(torch.int32)
             x2 = xb.reshape(-1, d)
-            blk = km.cfg.blocks_for(n, d, x.element_size(), dev)
             ids_l = ids.long()
             timing[tag + "/sort_inverse_update"] = {
                 "ms": ms_of(lambda: siu.sort_inverse_update_raw(

@@ -285,7 +285,8 @@ __global__ void __launch_bounds__(kThreadsTC, 1)
                     const __grid_constant__ CUtensorMap tc_hi,
                     const __grid_constant__ CUtensorMap tc_lo,
                     const float* __restrict__ csq, int* __restrict__ a,
-                    float* __restrict__ m, int N, int K, int Kp, int d) {
+                    float* __restrict__ m, int N, int K, int Kp, int d,
+                    int allow_pingpong) {
   using C = Cfg<kF32, kResX>;
   constexpr int S = C::kStages;
   extern __shared__ uint8_t smem_raw[];
@@ -391,7 +392,9 @@ __global__ void __launch_bounds__(kThreadsTC, 1)
   // products keep the tensor cores busy. Warpgroup 1 then trails by one tile,
   // which the ring holds: the slots of tile kt were last used by tile kt - 2,
   // which both warpgroups released before warpgroup 0 may issue tile kt.
-  const bool pingpong = 2 * nd <= S;
+  // allow_pingpong = 0 keeps the two warpgroups unsynchronised (to time the
+  // schedule against).
+  const bool pingpong = allow_pingpong && 2 * nd <= S;
   int t = 0;
   for (int kt = 0; kt < nk; ++kt, t += nd) {
     if (pingpong && (wg == 1 || kt > 0)) bar_sync(3 + wg, 256);  // our turn
@@ -502,12 +505,12 @@ cudaError_t set_smem() {
 template <bool kF32, bool kResX>
 cudaError_t launch(const CUtensorMap& tx, const CUtensorMap& thi, const CUtensorMap& tlo,
                    const float* csq, int* a, float* m, int B, int N, int K, int Kp,
-                   int d, cudaStream_t s) {
+                   int d, int pingpong, cudaStream_t s) {
   cudaError_t e = set_smem<kF32, kResX>();
   if (e != cudaSuccess) return e;
   const dim3 grid((N + kBM - 1) / kBM, B);
   flash_assign_tc<kF32, kResX><<<grid, kThreadsTC, Cfg<kF32, kResX>::kSmem, s>>>(
-      tx, thi, tlo, csq, a, m, N, K, Kp, d);
+      tx, thi, tlo, csq, a, m, N, K, Kp, d, pingpong);
   return cudaGetLastError();
 }
 
@@ -521,11 +524,11 @@ inline bool resident_x(bool f32, int d) {
 
 // x (B, N, d), c (B, K, d); csq (B, Kp) with Kp = K rounded up to a multiple of
 // 128 and, for f32, csplit (2, B, K, d) are scratch; a (B, N) int32 and m (B, N)
-// f32 out. d must be a multiple of 4 (f32)
-// or 8 (bf16); N >= 1.
+// f32 out. d must be a multiple of 4 (f32) or 8 (bf16); N >= 1. pingpong = 0
+// turns the warpgroups' ping-pong schedule off.
 extern "C" int fk_flash_assign(const void* x, const void* c, void* csq, void* csplit,
                                void* a, void* m, int B, int N, int K, int d, int is_bf16,
-                               void* stream) {
+                               int pingpong, void* stream) {
   using namespace fk;
   using namespace fk::fa;
   cudaStream_t s = (cudaStream_t)stream;
@@ -555,12 +558,14 @@ extern "C" int fk_flash_assign(const void* x, const void* c, void* csq, void* cs
     return (int)cudaErrorInvalidValue;
   const float* cq = (const float*)csq;
   const bool res = resident_x(f32, d);
+  int* ai = (int*)a;
+  float* mf = (float*)m;
   if (f32)
-    e = res ? launch<true, true>(tx, thi, tlo, cq, (int*)a, (float*)m, B, N, K, Kp, d, s)
-            : launch<true, false>(tx, thi, tlo, cq, (int*)a, (float*)m, B, N, K, Kp, d, s);
+    e = res ? launch<true, true>(tx, thi, tlo, cq, ai, mf, B, N, K, Kp, d, pingpong, s)
+            : launch<true, false>(tx, thi, tlo, cq, ai, mf, B, N, K, Kp, d, pingpong, s);
   else
-    e = res ? launch<false, true>(tx, thi, tlo, cq, (int*)a, (float*)m, B, N, K, Kp, d, s)
-            : launch<false, false>(tx, thi, tlo, cq, (int*)a, (float*)m, B, N, K, Kp, d, s);
+    e = res ? launch<false, true>(tx, thi, tlo, cq, ai, mf, B, N, K, Kp, d, pingpong, s)
+            : launch<false, false>(tx, thi, tlo, cq, ai, mf, B, N, K, Kp, d, pingpong, s);
   return (int)e;
 }
 

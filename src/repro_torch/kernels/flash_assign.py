@@ -110,9 +110,13 @@ def pad_features(x: torch.Tensor, c: torch.Tensor
     return F.pad(x, (0, pad)), F.pad(c, (0, pad))
 
 
-def flash_assign_raw(x: torch.Tensor, c: torch.Tensor
+def flash_assign_raw(x: torch.Tensor, c: torch.Tensor, *,
+                     pingpong: bool = True
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """FlashAssign over a batch: x (B, N, d), c (B, K, d)."""
+    """FlashAssign over a batch: x (B, N, d), c (B, K, d). ``pingpong=False``
+    turns off the kernel's ping-pong of its two warpgroups (which runs only
+    where a centroid tile takes at most half the TMA ring: bf16 at
+    d <= 128, f32 at d <= 32), to time the schedule against."""
     global launches
     check_xc(x, c, "flash_assign")
     if x.device.type == "cpu":
@@ -136,7 +140,7 @@ def flash_assign_raw(x: torch.Tensor, c: torch.Tensor
                         device=x.device)
     code = _build.lib().fk_flash_assign(
         x.data_ptr(), c.data_ptr(), csq.data_ptr(), split.data_ptr(),
-        a.data_ptr(), m.data_ptr(), b, n, k, d, int(is_bf16),
+        a.data_ptr(), m.data_ptr(), b, n, k, d, int(is_bf16), int(pingpong),
         _build.stream_ptr(x.device))
     _build.check(code, "flash_assign kernel launch")
     launches += 1

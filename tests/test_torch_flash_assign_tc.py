@@ -7,7 +7,8 @@ bits cleared), each operand split ``v = hi + lo``, and per k-step of 8
 features the three products ``x_lo c_hi``, ``x_hi c_lo``, ``x_hi c_hi``
 added in that order into one fp32 accumulator. The emulation is held
 against float64 within ``flash_assign.score_tol`` and against the JAX
-package's ``flash_assign`` ids on tie-free rows. The wrapper's feature
+package's ``flash_assign`` ids on tie-free rows; the same arithmetic with
+fewer products is shown to break ``score_tol``. The wrapper's feature
 padding (the path TMA needs for d % 4 != 0 in f32, d % 8 != 0 in bf16) is
 checked through the plain version.
 """
@@ -34,13 +35,16 @@ def split(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, tf32_rna(v - hi)
 
 
-def scores_3xtf32(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """(N, K) ``||c||^2 - 2 x.c`` as the kernel computes it in f32."""
+def scores_3xtf32(x: torch.Tensor, c: torch.Tensor,
+                  drop_x_lo: bool = False) -> torch.Tensor:
+    """(N, K) ``||c||^2 - 2 x.c`` as the kernel computes it in f32; with
+    ``drop_x_lo`` the kernel's ``x_lo c_hi`` term is lost."""
     (xh, xl), (ch, cl) = split(x), split(c)
     acc = torch.zeros((x.shape[0], c.shape[0]), dtype=torch.float32)
     for j in range(0, x.shape[1], 8):
         s = slice(j, j + 8)
-        acc = acc + xl[:, s] @ ch[:, s].T
+        if not drop_x_lo:
+            acc = acc + xl[:, s] @ ch[:, s].T
         acc = acc + xh[:, s] @ cl[:, s].T
         acc = acc + xh[:, s] @ ch[:, s].T
     return (c * c).sum(-1) - 2.0 * acc
@@ -56,6 +60,14 @@ def exact(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (c64 * c64).sum(-1) - 2.0 * (x64 @ c64.T)
 
 
+def aligned(rng, shape) -> np.ndarray:
+    """Values in [1, 1 + 1/16) whose 13 low mantissa bits are 0x0fff:
+    ``cvt.rna.tf32`` rounds each down by almost half its ulp, so every TF32
+    product errs the same way."""
+    v = (1.0 + rng.uniform(0, 1 / 16, shape)).astype(np.float32)
+    return (v.view(np.int32) & -0x2000 | 0x0fff).view(np.float32)
+
+
 def make(kind: str, d: int, seed: int = 0):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((N, d))
@@ -67,6 +79,8 @@ def make(kind: str, d: int, seed: int = 0):
         c = c * 10.0 ** rng.uniform(-3, 3, (K, d))
     elif kind == "duplicated":  # the second half repeats the first
         c[K // 2:2 * (K // 2)] = c[:K // 2]
+    elif kind == "aligned":
+        x, c = aligned(rng, (N, d)), aligned(rng, (K, d))
     return (torch.from_numpy(x.astype(np.float32)),
             torch.from_numpy(c.astype(np.float32)))
 
@@ -85,7 +99,8 @@ def test_tf32_rna_rounds_to_nearest_ties_away():
                  <= 2.0 ** -22 * x.double().abs()).all())
 
 
-@pytest.mark.parametrize("kind", ["random", "far", "mixed", "duplicated"])
+@pytest.mark.parametrize("kind", ["random", "far", "mixed", "duplicated",
+                                  "aligned"])
 @pytest.mark.parametrize("d", [1, 3, 19, 128, 512])
 def test_3xtf32_error_within_score_tol(kind, d):
     x, c = make(kind, d)
@@ -108,6 +123,23 @@ def test_one_tf32_product_breaks_the_bound(d):
     tol = fa.score_tol(x, c)
     assert float((scores_tf32(x, c).double() - exact(x, c)).abs().max()) \
         > tol
+    assert float((scores_3xtf32(x, c).double() - exact(x, c)).abs().max()) \
+        <= tol
+
+
+@pytest.mark.parametrize("variant", ["tf32", "drop_x_lo"])
+@pytest.mark.parametrize("kind,d", [("far", 3), ("far", 19), ("aligned", 128),
+                                    ("aligned", 512)])
+def test_fewer_tf32_products_break_the_bound(variant, kind, d):
+    """The controls that chip_smoke.py sends through the kernel's check: one
+    TF32 product, or the three with ``x_lo c_hi`` lost, miss ``score_tol``
+    on far data at small d and on aligned data up to d = 512; the kernel's
+    three products keep it."""
+    x, c = make(kind, d)
+    got = (scores_tf32(x, c) if variant == "tf32"
+           else scores_3xtf32(x, c, drop_x_lo=True))
+    tol = fa.score_tol(x, c)
+    assert float((got.double() - exact(x, c)).abs().max()) > tol
     assert float((scores_3xtf32(x, c).double() - exact(x, c)).abs().max()) \
         <= tol
 
