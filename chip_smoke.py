@@ -854,18 +854,6 @@ def main() -> int:
                 "library_ms": None,
                 "bytes": (nb * d + b * k * d) * x.element_size() + nb * 8,
                 "ops": 2.0 * nb * k * d, "dtype": dt, "shape": [b, n, k, d]}
-            if dt == "bfloat16":
-                # the warpgroups' ping-pong (it runs here: a bf16 tile at
-                # d = 128 takes half the ring) against no ping-pong, in the
-                # order on, off, off, on
-                pp = {True: [], False: []}
-                for on in (True, False, False, True):
-                    pp[on].append(ms_of(lambda on=on: fa.flash_assign_raw(
-                        xb, cb, pingpong=on), reps=5))
-                timing[tag + "/flash_assign"].update(
-                    pingpong_ms=pp[True], no_pingpong_ms=pp[False])
-                print(f"  flash_assign {tag}: ping-pong {pp[True]} ms, "
-                      f"without {pp[False]} ms", flush=True)
             if dt == "float32":   # the same flops as fp32 FMAs on the CUDA
                 # cores, beside the 3xTF32 bound
                 timing[tag + "/flash_assign"]["bound_cuda_core_ms"] = (

@@ -41,10 +41,8 @@
 // place into x_hi and x_lo (element-wise, so the swizzle carries over), then
 // fence.proxy.async so that the wgmma (the async proxy) sees the writes. The
 // wgmma reads both operands from shared memory; a warpgroup issues the next
-// chunk's products before waiting for the current one's (wait_group 1), and
-// where a tile takes at most half the ring the two warpgroups take turns per
-// tile (ping-pong), so one's epilogue overlaps the other's products. After a
-// tile's feature sweep the epilogue runs in registers:
+// chunk's products before waiting for the current one's (wait_group 1). After
+// a tile's feature sweep the epilogue runs in registers:
 // score = csq[k] - 2 acc, where the prologue pads csq with +inf past K (a
 // zero-filled centroid would score 0 and win), each thread scanning its columns
 // in ascending k with a strict '<' (four independent chains, merged by (value,
@@ -206,9 +204,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[64], uint64_t desc_a,
 __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
-__device__ __forceinline__ void bar_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
 
 // Splits a warpgroup's 64 rows of an f32 x chunk (8 KB at xh) in place into
 // tf32 hi and, at xl, lo: 16 bytes per thread and step. The split is element-
@@ -285,8 +280,7 @@ __global__ void __launch_bounds__(kThreadsTC, 1)
                     const __grid_constant__ CUtensorMap tc_hi,
                     const __grid_constant__ CUtensorMap tc_lo,
                     const float* __restrict__ csq, int* __restrict__ a,
-                    float* __restrict__ m, int N, int K, int Kp, int d,
-                    int allow_pingpong) {
+                    float* __restrict__ m, int N, int K, int Kp, int d) {
   using C = Cfg<kF32, kResX>;
   constexpr int S = C::kStages;
   extern __shared__ uint8_t smem_raw[];
@@ -385,19 +379,8 @@ __global__ void __launch_bounds__(kThreadsTC, 1)
   // Within a tile, step t + 1 is issued before step t has finished, so the
   // tensor cores stay fed while the warpgroup waits for and splits the next
   // chunk; the epilogue needs the whole tile.
-  //
-  // Ping-pong: where a tile takes at most half the ring (2 nd <= S), the two
-  // warpgroups take turns to issue a tile's products (named barriers 3 and 4
-  // pass the turn), so one warpgroup's epilogue runs while the other's
-  // products keep the tensor cores busy. Warpgroup 1 then trails by one tile,
-  // which the ring holds: the slots of tile kt were last used by tile kt - 2,
-  // which both warpgroups released before warpgroup 0 may issue tile kt.
-  // allow_pingpong = 0 keeps the two warpgroups unsynchronised (to time the
-  // schedule against).
-  const bool pingpong = allow_pingpong && 2 * nd <= S;
   int t = 0;
   for (int kt = 0; kt < nk; ++kt, t += nd) {
-    if (pingpong && (wg == 1 || kt > 0)) bar_sync(3 + wg, 256);  // our turn
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.f;
     issue(t, kt, 0);
@@ -406,7 +389,6 @@ __global__ void __launch_bounds__(kThreadsTC, 1)
       wgmma_wait<1>();  // all but the group just issued
       release(t + dc - 1);
     }
-    if (pingpong) bar_arrive(4 - wg, 256);  // the other warpgroup's turn
     wgmma_wait<0>();
     fence_acc(acc);
     release(t + nd - 1);
@@ -441,7 +423,6 @@ __global__ void __launch_bounds__(kThreadsTC, 1)
                kb + 8 * (ci[0] >> 1) + 2 * q + (ci[0] & 1));
     }
   }
-  if (pingpong && wg == 0) bar_sync(3, 256);  // warpgroup 1's last turn
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float v = best_v[r];
@@ -505,12 +486,12 @@ cudaError_t set_smem() {
 template <bool kF32, bool kResX>
 cudaError_t launch(const CUtensorMap& tx, const CUtensorMap& thi, const CUtensorMap& tlo,
                    const float* csq, int* a, float* m, int B, int N, int K, int Kp,
-                   int d, int pingpong, cudaStream_t s) {
+                   int d, cudaStream_t s) {
   cudaError_t e = set_smem<kF32, kResX>();
   if (e != cudaSuccess) return e;
   const dim3 grid((N + kBM - 1) / kBM, B);
   flash_assign_tc<kF32, kResX><<<grid, kThreadsTC, Cfg<kF32, kResX>::kSmem, s>>>(
-      tx, thi, tlo, csq, a, m, N, K, Kp, d, pingpong);
+      tx, thi, tlo, csq, a, m, N, K, Kp, d);
   return cudaGetLastError();
 }
 
@@ -524,11 +505,10 @@ inline bool resident_x(bool f32, int d) {
 
 // x (B, N, d), c (B, K, d); csq (B, Kp) with Kp = K rounded up to a multiple of
 // 128 and, for f32, csplit (2, B, K, d) are scratch; a (B, N) int32 and m (B, N)
-// f32 out. d must be a multiple of 4 (f32) or 8 (bf16); N >= 1. pingpong = 0
-// turns the warpgroups' ping-pong schedule off.
+// f32 out. d must be a multiple of 4 (f32) or 8 (bf16); N >= 1.
 extern "C" int fk_flash_assign(const void* x, const void* c, void* csq, void* csplit,
                                void* a, void* m, int B, int N, int K, int d, int is_bf16,
-                               int pingpong, void* stream) {
+                               void* stream) {
   using namespace fk;
   using namespace fk::fa;
   cudaStream_t s = (cudaStream_t)stream;
@@ -558,14 +538,12 @@ extern "C" int fk_flash_assign(const void* x, const void* c, void* csq, void* cs
     return (int)cudaErrorInvalidValue;
   const float* cq = (const float*)csq;
   const bool res = resident_x(f32, d);
-  int* ai = (int*)a;
-  float* mf = (float*)m;
   if (f32)
-    e = res ? launch<true, true>(tx, thi, tlo, cq, ai, mf, B, N, K, Kp, d, pingpong, s)
-            : launch<true, false>(tx, thi, tlo, cq, ai, mf, B, N, K, Kp, d, pingpong, s);
+    e = res ? launch<true, true>(tx, thi, tlo, cq, (int*)a, (float*)m, B, N, K, Kp, d, s)
+            : launch<true, false>(tx, thi, tlo, cq, (int*)a, (float*)m, B, N, K, Kp, d, s);
   else
-    e = res ? launch<false, true>(tx, thi, tlo, cq, ai, mf, B, N, K, Kp, d, pingpong, s)
-            : launch<false, false>(tx, thi, tlo, cq, ai, mf, B, N, K, Kp, d, pingpong, s);
+    e = res ? launch<false, true>(tx, thi, tlo, cq, (int*)a, (float*)m, B, N, K, Kp, d, s)
+            : launch<false, false>(tx, thi, tlo, cq, (int*)a, (float*)m, B, N, K, Kp, d, s);
   return (int)e;
 }
 

@@ -34,8 +34,8 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # name -> argument types; every function returns int (cudaError_t)
 SIGNATURES = {
-    # x, c, csq, c split, a, m, B, N, K, d, is_bf16, pingpong, stream
-    "fk_flash_assign": (_P,) * 6 + (_I,) * 6 + (_P,),
+    # x, c, csq, c split, a, m, B, N, K, d, is_bf16, stream
+    "fk_flash_assign": (_P,) * 6 + (_I,) * 5 + (_P,),
     "fk_flash_assign_smem": (_I, _I, ctypes.POINTER(_I)),
     "fk_sort_inverse_update": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
     "fk_flash_lloyd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

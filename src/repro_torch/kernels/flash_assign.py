@@ -110,13 +110,9 @@ def pad_features(x: torch.Tensor, c: torch.Tensor
     return F.pad(x, (0, pad)), F.pad(c, (0, pad))
 
 
-def flash_assign_raw(x: torch.Tensor, c: torch.Tensor, *,
-                     pingpong: bool = True
+def flash_assign_raw(x: torch.Tensor, c: torch.Tensor
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """FlashAssign over a batch: x (B, N, d), c (B, K, d). ``pingpong=False``
-    turns off the kernel's ping-pong of its two warpgroups (which runs only
-    where a centroid tile takes at most half the TMA ring: bf16 at
-    d <= 128, f32 at d <= 32), to time the schedule against."""
+    """FlashAssign over a batch: x (B, N, d), c (B, K, d)."""
     global launches
     check_xc(x, c, "flash_assign")
     if x.device.type == "cpu":
@@ -140,7 +136,7 @@ def flash_assign_raw(x: torch.Tensor, c: torch.Tensor, *,
                         device=x.device)
     code = _build.lib().fk_flash_assign(
         x.data_ptr(), c.data_ptr(), csq.data_ptr(), split.data_ptr(),
-        a.data_ptr(), m.data_ptr(), b, n, k, d, int(is_bf16), int(pingpong),
+        a.data_ptr(), m.data_ptr(), b, n, k, d, int(is_bf16),
         _build.stream_ptr(x.device))
     _build.check(code, "flash_assign kernel launch")
     launches += 1
