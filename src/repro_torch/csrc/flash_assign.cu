@@ -55,7 +55,7 @@
 // (ceil(N / 128), B), 288 threads, dynamic shared memory (fk_flash_assign_smem).
 //
 // Measured (chip_smoke.py, H100 80GB HBM3 at 700 W; PERF.md): N = 8,388,608,
-// K = 1,024, d = 128 in 18.9 ms f32 (bound 13.3 ms) and 5.1 ms bf16 (bound
+// K = 1,024, d = 128 in 19.7 ms f32 (bound 13.3 ms) and 5.3 ms bf16 (bound
 // 2.2 ms). Error: |score - exact| <= (6 d + 13) u mag for f32 and (2 d + 1) u mag
 // for bf16 (u = 2^-24, mag = max ||c||^2 + 2 max ||x|| max ||c||), as derived in
 // kernels/flash_assign.py:score_tol.
