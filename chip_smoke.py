@@ -17,7 +17,18 @@ run and read just after:
   from the seed): ``build``, then batches of 256 queries at ``topk=10``,
   ``nprobe=16``, with the ``fp32`` and the ``q8`` codec, recall@10 held
   against ``search_brute`` and against the corpus's own exact neighbours;
-  and full-probe exactness on a smaller index.
+  the fp32 search (the store scan, which reads the probed cells in place)
+  held to the block path (the gathered candidate block and the grouped
+  scan) on the same batch; and full-probe exactness on a smaller index.
+
+Before the paths, the sort-inverse update and the store scan are held to
+their plain versions on edge shapes (one segment over every CTA, K > N,
+ragged chunks, R < 32, d = 1, 3, 19, 129, batched ids, an unaligned x;
+empty, full and over-width cells, fewer live rows than L, duplicate rows,
+the scalar path, bf16, one and several CTAs per pair). At smallN_smallK
+the two-pass and fused iterations are timed in alternation and split by
+kernel with ``torch.profiler``, as is a two-pass iteration at
+largeN_smallK bf16.
 
 It prints the kernel table as one JSON line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -109,7 +120,24 @@ SCAN_RAGGED = [(1, 5, 1, 1, 0, False), (7, 1000, 19, 7, 3, False),
 Q8_RAGGED = [(1, 1, 1, 1, 1, False), (5, 3, 37, 19, 7, False),
              (16, 16, 100, 129, 40, False), (4, 4, 700, 16, 2800, False),
              (8, 4, 64, 32, 40, True)]
-PAD = 1e15   # the store's padding coordinate (index/store.py)
+PAD = 1e15   # the store's padding coordinate (kernels/flash_probe.py)
+# sort-inverse edges: (R, S, d, ids, chunk): one segment over every CTA, K > N
+# with most clusters empty, R off the chunk, R < 32, d off the vector width
+SIU_EDGE = [(5000, 3, 128, "equal", 512), (300, 5000, 64, "random", 64),
+            (1000, 37, 128, "random", 256), (20, 4, 128, "random", 64)] + [
+    (3000, 50, d, "random", 256) for d in (1, 3, 19, 129)]
+# store scan edges: (B, K, cap, width, d, nprobe, L); every case has an
+# empty cell, one at count == width and one at count == cap (> width where
+# cap > width), query 0 probing the emptiest cells (fewer live rows than L
+# where they hold fewer), and cells 5 and 6 holding the same rows. d covers
+# every lane-group size of the vector path (1 .. 32 lanes) and the scalar
+# path (d = 1, 3, 19); L = 2,500 keeps the running list in global scratch
+STORE_EDGE = [(64, 40, 256, 200, 128, 8, 10), (33, 24, 64, 64, 19, 5, 40),
+              (16, 12, 300, 300, 8, 4, 100), (8, 10, 3000, 3000, 16, 4, 2500),
+              (20, 16, 100, 96, 64, 6, 7), (12, 9, 48, 48, 3, 3, 20),
+              (7, 7, 40, 40, 1, 2, 5), (10, 12, 128, 128, 512, 4, 10),
+              (5, 30, 2200, 2128, 32, 16, 10)]
+STEP_PAIRS = 12  # smallN_smallK: two-pass / fused iteration pairs, ABAB
 # FlashIVF: the FAISS IVF1024,Flat configuration on SIFT1M (N, K, d),
 # searched in batches of IVF_B queries at topk 10, nprobe 16
 IVF = (1048576, 1024, 128)
@@ -209,9 +237,19 @@ def main() -> int:
                             f"planner's model {model} (bf16={bf16})")
 
     for kname, (regs, local) in fp.kernel_attrs().items():
-        check(regs <= H.PROBE_REGS, f"{kname}: {regs} registers <= "
-              f"{H.PROBE_REGS} (the planner's model); {local} bytes of local "
-              f"memory")
+        cap = H.STORE_REGS if kname.startswith("flash_probe_store") \
+            else H.PROBE_REGS
+        check(regs <= cap, f"{kname}: {regs} registers <= {cap} (the "
+              f"planner's model); {local} bytes of local memory")
+    # the sort-inverse launch's layout and shared memory, as compiled,
+    # against the planner's model
+    for d, bf16 in itertools.product((1, 19, 128, 129, 512), (False, True)):
+        isz = 2 if bf16 else 4
+        got = siu.kernel_layout(d, 256, siu.THREADS, bf16)
+        model = (H.update_footprint(256, siu.THREADS, d, isz),
+                 *siu.layout(d, isz))
+        check(got == model, f"sort_inverse_update (smem, V, G, VPL) {got} "
+                            f"== the planner's {model} (d={d}, bf16={bf16})")
 
     mods = {"flash_assign": fa, "sort_inverse_update": siu,
             "flash_lloyd": fl}
@@ -220,7 +258,8 @@ def main() -> int:
     max_err = {k: 0.0 for k in launches}
     timing: dict[str, dict] = {}
     details = {"card": smi, "regimes": [], "kernel_checks": [], "ivf": [],
-               "ivf_truth": [], "controls": []}
+               "ivf_truth": [], "controls": [], "step_pairs": [],
+               "profiles": []}
 
     def zero_counts():
         for mod in mods.values():
@@ -373,25 +412,32 @@ def main() -> int:
         abssum.index_add_(0, ids.long(), absx)
         return 2 * U32 * cnt.unsqueeze(1) * abssum + 1e-30
 
-    def siu_check(x2, ids, segments, tag, chunk=512, threads=128):
+    def siu_check(x2, ids, segments, tag, chunk=512, threads=128, got=None):
+        """The kernel (or ``got``, its result through a wrapper) against the
+        plain version: sums within ``2 n u sum|x|``, counts equal, clusters
+        without points exactly 0."""
         ids_s, order = torch.sort(ids, stable=True)
         order = order.to(torch.int32)
-        s, cnt = siu.sort_inverse_update_raw(x2, order, ids_s, segments,
-                                             chunk=chunk, threads=threads)
+        s, cnt = got if got is not None else siu.sort_inverse_update_raw(
+            x2, order, ids_s, segments, chunk=chunk, threads=threads)
         sp, cp = siu.sort_inverse_update_plain(x2, order, ids_s, segments)
         torch.cuda.synchronize()
         err_t = (s - sp).abs()
         bound = sums_tol(x2, ids, segments, cp)
         err = float(err_t.max())
-        ok = bool((err_t <= bound).all()) and torch.equal(cnt, cp)
+        empty = cp == 0
+        zeros = bool((s[empty] == 0).all()) and bool((cnt[empty] == 0).all())
+        ok = bool((err_t <= bound).all()) and torch.equal(cnt, cp) and zeros
         details["kernel_checks"].append(
             {"kernel": "sort_inverse_update", "at": tag,
              "dtype": str(x2.dtype), "rows": x2.shape[0],
              "segments": segments, "chunk": chunk, "threads": threads,
-             "max_abs_err": err, "counts_equal": torch.equal(cnt, cp)})
+             "max_abs_err": err, "counts_equal": torch.equal(cnt, cp),
+             "empty_clusters": int(empty.sum()), "empty_exact_zero": zeros})
         check(ok, f"sort_inverse_update {tag} {x2.dtype} (chunk {chunk}, "
                   f"threads {threads}): sums err {err:.3g} within "
-                  f"2nu*sum|x|, counts equal {torch.equal(cnt, cp)}")
+                  f"2nu*sum|x|, counts equal {torch.equal(cnt, cp)}, "
+                  f"{int(empty.sum())} empty clusters exactly 0 {zeros}")
         max_err["sort_inverse_update"] = max(max_err["sort_inverse_update"],
                                              err)
         return order, ids_s
@@ -529,6 +575,25 @@ def main() -> int:
                    q.shape[1])
         return got
 
+    def store_check(q, buckets, counts, probe, width, l, tag, splits=None):
+        """The store scan against its plain version (the gathered block and
+        the grouped scan's plain version), scored on that block; and against
+        the grouped kernel on the gathered block, which it must equal bit
+        for bit (same per-lane sums, same shuffle pairing)."""
+        cand = fp.store_candidates(buckets, probe, width)
+        score, mag = scan_scores(q, cand)
+        exp = fp.flash_probe_store_plain(q, buckets, counts, probe, width, l)
+        got = ops.flash_probe_store(q, buckets, counts, probe, width=width,
+                                    l=l, splits=splits, want_dists=False)
+        topl_check("flash_probe_store", tag, got, exp, score, mag,
+                   q.shape[1])
+        blk = ops.flash_probe_grouped(q, cand, l=l, want_dists=False)
+        check(torch.equal(got[0], blk[0]) and torch.equal(got[1], blk[1]),
+              f"flash_probe_store {tag}: indices and scores equal the "
+              f"grouped kernel's on the gathered block, bit for bit "
+              f"({int((got[0] != blk[0]).sum())} indices differ)")
+        return got
+
     def q8_check(qp, codes, scales, l, tag, splits=None):
         score, mag = q8_scores(qp, codes, scales)
         exp = fp.flash_probe_grouped_q8_plain(qp, codes, scales, l)
@@ -636,6 +701,61 @@ def main() -> int:
         for splits in (None, 3):
             q8_check(qp, codes, scales, l, f"ragged{(b, p, w, d, l)}/"
                      f"splits={splits or 'planned'}", splits)
+    # the new edges draw from a generator of their own, so that the data of
+    # the later phases does not depend on them
+    gen_e = torch.Generator(device=dev).manual_seed(SEED + 2)
+    print("\n[sort-inverse edges]", flush=True)
+    for r, segs, d, kind, chunk in SIU_EDGE:
+        for cdt in (torch.float32, torch.bfloat16):
+            x2 = torch.randn(r, d, device=dev, generator=gen_e).to(cdt)
+            ids = (torch.ones(r, dtype=torch.int32, device=dev)
+                   if kind == "equal" else torch.randint(
+                       0, segs, (r,), device=dev, generator=gen_e,
+                       dtype=torch.int32))
+            siu_check(x2, ids, segs, f"edge(R={r}, S={segs}, d={d}, {kind})",
+                      chunk=chunk, threads=siu.THREADS)
+    for cdt in (torch.float32, torch.bfloat16):
+        # batched ids through the wrapper (offset by b * K, one launch)
+        b, n, k, d = 3, 2000, 40, 128
+        x = torch.randn(b, n, d, device=dev, generator=gen_e).to(cdt)
+        a = torch.randint(0, k, (b, n), device=dev, generator=gen_e,
+                          dtype=torch.int32)
+        s_b, c_b = ops.sort_inverse_update_batched(x, a, k=k)
+        ids = a + k * torch.arange(b, device=dev,
+                                   dtype=torch.int32).unsqueeze(1)
+        siu_check(x.reshape(-1, d), ids.reshape(-1), b * k,
+                  f"edge batched(B={b}, N={n}, K={k})",
+                  got=(s_b.reshape(b * k, d), c_b.reshape(-1)))
+        # an x that is not 16-byte aligned: the scalar path at d = 128
+        buf = torch.randn(4000 * 128 + 1, device=dev, generator=gen_e).to(cdt)
+        x2 = buf[1:].view(4000, 128)
+        ids = torch.randint(0, 100, (4000,), device=dev, generator=gen_e,
+                            dtype=torch.int32)
+        siu_check(x2, ids, 100, "edge unaligned x (R=4000, S=100, d=128)",
+                  chunk=256, threads=siu.THREADS)
+
+    print("\n[store scan edges]", flush=True)
+    for bq, kc, cap, width, d, nprobe, l in STORE_EDGE:
+        cnt = torch.randint(0, width + 1, (kc,), device=dev, generator=gen_e)
+        cnt[0], cnt[1], cnt[2], cnt[3], cnt[4] = 0, width, cap, 1, 2
+        xs = torch.randn(kc, cap, d, device=dev, generator=gen_e)
+        n56 = int(torch.minimum(cnt[5], cnt[6]))
+        xs[6, :n56] = xs[5, :n56]                    # duplicated rows
+        xs[torch.arange(cap, device=dev)[None, :] >= cnt[:, None]] = PAD
+        probe = torch.argsort(torch.rand(bq, kc, device=dev, generator=gen_e),
+                              dim=1)[:, :nprobe]
+        probe[0] = torch.argsort(cnt, stable=True)[:nprobe]   # emptiest
+        probe = probe.to(torch.int32).contiguous()
+        counts = cnt.to(torch.int32)
+        q = torch.randn(bq, d, device=dev, generator=gen_e)
+        live0 = int(torch.clamp(cnt[probe[0].long()], max=width).sum())
+        for cdt in (torch.float32, torch.bfloat16):
+            for splits in (None, 1, 3):
+                store_check(q.to(cdt), xs.to(cdt), counts, probe, width, l,
+                            f"edge{(bq, kc, cap, width, d, nprobe, l)}/"
+                            f"query0 live {live0}/{cdt}/"
+                            f"splits={splits or 'planned'}", splits)
+
     def aligned(shape, g):
         """Values in [1, 1 + 1/16) with the low 13 mantissa bits 0x0fff:
         ``cvt.rna.tf32`` rounds each down by almost half its ulp."""
@@ -673,6 +793,63 @@ def main() -> int:
         print(f"\nchip_smoke --kernels-only: all "
               f"{len(details['kernel_checks'])} kernel checks passed")
         return 0
+
+    def device_rows(step, reps):
+        """``torch.profiler`` over ``reps`` calls of ``step``: the device's
+        kernels (and memsets, copies) by name, time and calls per call."""
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                step()
+            torch.cuda.synchronize()
+        rows = []
+        for ev in prof.key_averages():
+            if "cuda" not in str(getattr(ev, "device_type", "")).lower():
+                continue
+            t = getattr(ev, "self_device_time_total", None)
+            if t is None:
+                t = getattr(ev, "self_cuda_time_total", 0.0)
+            if t > 0:
+                rows.append({"name": ev.key, "ms": t / reps / 1e3,
+                             "calls": ev.count / reps})
+        rows.sort(key=lambda r: -r["ms"])
+        return rows
+
+    def device_ms_of(fn, reps=10):
+        """Device time of one call of ``fn`` (all its kernels), from the
+        profiler, after a warm-up: the event time of back-to-back calls
+        is the host's launch rate where a call's kernels are short."""
+        fn()
+        torch.cuda.synchronize()
+        return sum(r["ms"] for r in device_rows(fn, reps))
+
+    def profile_steps(label, step, reps=3):
+        """Device time by kernel per call of ``step``, beside the CUDA-event
+        time of a call, so that what the kernel table does not time shows
+        by name. Returns the record."""
+        step()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        step()
+        e1.record()
+        torch.cuda.synchronize()
+        rows = device_rows(step, reps)
+        busy = sum(r["ms"] for r in rows)
+        launches_ = sum(r["calls"] for r in rows)
+        call_ms = e0.elapsed_time(e1)
+        print(f"  profile {label}: {call_ms:.3f} ms a call (CUDA events), "
+              f"device busy {busy:.3f} ms in {launches_:g} launches of "
+              f"{len(rows)} kernels; idle {max(0.0, call_ms - busy):.3f} ms",
+              flush=True)
+        for r in rows[:14]:
+            print(f"    {r['ms']:.4f} ms  x{r['calls']:g}  {r['name'][:100]}")
+        rec = {"at": label, "call_ms": call_ms, "device_busy_ms": busy,
+               "launches": launches_, "kernels": rows}
+        details["profiles"].append(rec)
+        return rec
 
     # ---- phases 2-3: per regime, compare, then drive the main path ------
     for name, n, k, d, b, dt, iters in REGIMES:
@@ -790,6 +967,9 @@ def main() -> int:
             launches[kname] += counts[kname]
         check_path("auto", impl, km, st, fit_s, traj, ms_iter, step_ms,
                    counts)
+        if (name, dt) == ("largeN_smallK", "bfloat16"):   # by kernel
+            profile_steps(f"{name}/{dt} iterate ({impl})",
+                          lambda: km.iterate(x[0], c0[0]))
         if name == "smallN_smallK":
             # the other entry points, counted on their own: fits that draw
             # their own start on the card, and predict (FlashAssign)
@@ -828,6 +1008,48 @@ def main() -> int:
                   f"predict ids == the fused step's ids but {n_diff} "
                   f"near-ties (gap {float(gap.max()):.3g} <= score_tol)")
             del km_f, st_f, rest, a_fused, pred
+            # the planner's rule at this shape: two-pass against fused,
+            # alternating (A B A B ...), each sample the median of 10 event
+            # timed iterate calls from c0 after a warm-up
+            kms = {impl_: KMeans(KMeansConfig(k=k, step_impl=impl_))
+                   for impl_ in ("two_pass", "fused")}
+
+            def iter_ms(km_):
+                t = []
+                for _ in range(10):
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                    km_.iterate(x[0], c0[0])
+                    e1.record()
+                    torch.cuda.synchronize()
+                    t.append(e0.elapsed_time(e1))
+                return statistics.median(t)
+            for km_ in kms.values():
+                iter_ms(km_)
+            pairs = [(iter_ms(kms["two_pass"]), iter_ms(kms["fused"]))
+                     for _ in range(STEP_PAIRS)]
+            med = [statistics.median(p[i] for p in pairs) for i in (0, 1)]
+            fused_wins = sum(f < t for t, f in pairs)
+            print(f"  two-pass vs fused, {STEP_PAIRS} alternating pairs (ms "
+                  f"per iterate): {[(round(t, 4), round(f, 4)) for t, f in pairs]}"
+                  f"; medians {med[0]:.4f} / {med[1]:.4f}; fused won "
+                  f"{fused_wins} of {STEP_PAIRS}", flush=True)
+            # each path by kernel: launches per iteration and device time
+            prof = {impl_: profile_steps(f"{name}/{dt} iterate ({impl_})",
+                                         lambda km_=km_: km_.iterate(
+                                             x[0], c0[0]))
+                    for impl_, km_ in kms.items()}
+            extra = prof["two_pass"]["launches"] - prof["fused"]["launches"]
+            per_launch = (med[0] - med[1]) / extra if extra else float("nan")
+            print(f"  two-pass makes {extra:g} more launches an iteration; "
+                  f"the median gap over them: {per_launch * 1e3:.2f} us a "
+                  f"launch", flush=True)
+            details["step_pairs"] = {
+                "pairs_ms": pairs, "median_ms": med, "fused_wins": fused_wins,
+                "launches": {k_: v["launches"] for k_, v in prof.items()},
+                "ms_per_extra_launch": per_launch}
+            del kms, prof
 
         # kernel times at this regime's shapes (after the counted runs)
         xb, cb = x, c0
@@ -868,11 +1090,19 @@ def main() -> int:
             timing[tag + "/sort_inverse_update"] = {
                 "ms": ms_of(lambda: siu.sort_inverse_update_raw(
                     x2, order, ids_s, b * k, chunk=blk.update_block_n,
-                    threads=blk.update_block_k)),
+                    threads=blk.update_block_k), reps=20),
                 "plain_ms": ms_of(lambda: siu.sort_inverse_update_plain(
                     x2, order, ids_s, b * k)),
                 # index_add_ computes the f32 sums only from f32 rows
                 "library_ms": ms_of(lambda: torch.zeros(
+                    (b * k, d), device=dev).index_add_(0, ids_l, x2),
+                    reps=20) if x2.dtype == torch.float32 else None,
+                # device time alone (the memset with the kernel; zeros and
+                # index_add_), where a call is short next to its launch
+                "device_ms": device_ms_of(lambda: siu.sort_inverse_update_raw(
+                    x2, order, ids_s, b * k, chunk=blk.update_block_n,
+                    threads=blk.update_block_k)),
+                "library_device_ms": device_ms_of(lambda: torch.zeros(
                     (b * k, d), device=dev).index_add_(0, ids_l, x2))
                 if x2.dtype == torch.float32 else None,
                 "sort_ms": ms_of(lambda: torch.sort(ids, stable=True)),
@@ -905,6 +1135,8 @@ def main() -> int:
         index = IVFIndex.build(x, k=k, max_iters=8, codec=codec, seed=SEED)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
+        build_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()   # the searches' own peak
         width = index.search_geometry(TOPK, NPROBE)[2]
         index.search(queries[0], topk=TOPK, nprobe=NPROBE)   # warm-up
         results, batch_ms = [], []
@@ -935,22 +1167,23 @@ def main() -> int:
                         ids_t, exact=False)
         recall, recall_c = statistics.mean(recall), statistics.mean(recall_c)
         ms = statistics.median(batch_ms)
-        row = d * 4 if codec == "fp32" else d + 4
-        block = IVF_B * NPROBE * width * row
-        print(f"  build {build_s:.3f} s; cap {index.cap}, gather_width "
-              f"{width}; candidate block {IVF_B}x{NPROBE}x{width} rows = "
+        # the fp32 scan reads the store in place: no candidate block
+        block = 0 if codec == "fp32" else IVF_B * NPROBE * width * (d + 4)
+        print(f"  build {build_s:.3f} s (peak {build_peak_gib:.2f} GiB); cap "
+              f"{index.cap}, gather_width {width}; candidate block "
               f"{block} bytes; {ms:.3f} ms per batch (CUDA events, median "
               f"of {len(batch_ms)} after a warm-up) = "
-              f"{IVF_B / ms * 1e3:.1f} queries/s; peak {peak_gib:.2f} GiB; "
-              f"recall@{TOPK} {recall:.4f} (vs search_brute), "
-              f"{recall_c:.4f} (vs the corpus)", flush=True)
+              f"{IVF_B / ms * 1e3:.1f} queries/s; search peak "
+              f"{peak_gib:.2f} GiB; recall@{TOPK} {recall:.4f} (vs "
+              f"search_brute), {recall_c:.4f} (vs the corpus)", flush=True)
         check(recall >= 0.9 and recall_c >= 0.9,
               f"ivf/{codec} recall@{TOPK} {recall:.4f} (search_brute), "
               f"{recall_c:.4f} (corpus) >= 0.9")
-        need = ["flash_assign", "sort_inverse_update", "flash_probe",
-                "flash_probe_grouped"] + (["flash_probe_grouped_q8"]
-                                          if codec == "q8" else [])
-        idle = ["flash_probe_grouped_q8"] if codec == "fp32" else []
+        need = ["flash_assign", "sort_inverse_update", "flash_probe"] + (
+            ["flash_probe_store"] if codec == "fp32"
+            else ["flash_probe_grouped_q8", "flash_probe_grouped"])
+        idle = (["flash_probe_grouped", "flash_probe_grouped_q8"]
+                if codec == "fp32" else ["flash_probe_store"])
         check(all(counts[kn] > 0 for kn in need)
               and all(counts[kn] == 0 for kn in idle),
               f"ivf/{codec} kernels launched: {counts}")
@@ -967,7 +1200,8 @@ def main() -> int:
              "cap": index.cap, "gather_width": width,
              "candidate_block_bytes": block, "ms_per_batch": ms,
              "batch_ms": batch_ms, "qps": IVF_B / ms * 1e3,
-             "peak_gib": peak_gib, "recall_at_10": recall,
+             "build_peak_gib": build_peak_gib, "search_peak_gib": peak_gib,
+             "recall_at_10": recall,
              "recall_at_10_corpus": recall_c, "launches": counts})
 
         # build's and add's kernels at the shapes this path gave them:
@@ -988,28 +1222,71 @@ def main() -> int:
         probe, _ = probe_check(qb, index.centroids, NPROBE,
                                f"ivf/{codec}", plans[0])
         if codec == "fp32":
-            cand_x, _ = store_mod.gather_global(
+            buckets, bucket_ids = index.store.device_arrays()
+            cnts = index.counts
+            store_check(qb, buckets, cnts, probe, width, TOPK, "ivf/fp32",
+                        plans[2])
+            # the block path on the same batch: the gathered candidate block
+            # and the grouped scan, as before the store scan
+            cand_x, cand_ids = store_mod.gather_global(
                 "padded", index.store.device_arrays(), probe, width)
-            scan_check(qb, cand_x, TOPK, "ivf/fp32", plans[2])
-            # where a batch's time goes besides the kernels: the gather
-            # that materializes the candidate block
-            parts = {"gather_ms": ms_of(lambda: store_mod.gather_global(
-                "padded", index.store.device_arrays(), probe, width))}
+            c_n = NPROBE * width
+            blk_splits = index.planner.plan(
+                "scan", (IVF_B, c_n, d, TOPK), torch.float32).blocks[0]
+            scan_check(qb, cand_x, TOPK, "ivf/fp32 block path", blk_splits)
+            li_b, dd_b = ops.flash_probe_grouped(qb, cand_x, l=TOPK,
+                                                 splits=blk_splits)
+            ids_b = ivf_mod._take_rows(cand_ids, li_b)
+            check(torch.equal(results[0][0], ids_b)
+                  and torch.equal(results[0][1], dd_b),
+                  f"ivf/fp32 batch 0: the search returns the block path's "
+                  f"ids and distances bit for bit "
+                  f"({int((results[0][0] != ids_b).sum())} ids differ)")
+            # the bytes the store scan must read: each query's live rows,
+            # and each probed cell's live rows once
+            live_rows = int(torch.clamp(cnts[probe.long()], max=width).sum())
+            cells = torch.unique(probe.long())
+            cell_rows = int(torch.clamp(cnts[cells], max=width).sum())
+            lookup = lambda li=li_b: bucket_ids[torch.gather(
+                probe.long(), 1, torch.div(li.long(), width,
+                                           rounding_mode="floor")),
+                li.long() % width]
+            parts = {"block_gather_ms": ms_of(
+                lambda: store_mod.gather_global(
+                    "padded", index.store.device_arrays(), probe, width)),
+                "id_lookup_ms": ms_of(lookup),
+                "live_rows": live_rows, "probed_cells": int(cells.numel()),
+                "probed_cell_rows": cell_rows}
             main_inputs["flash_probe"] = (
                 lambda qb=qb, c=index.centroids, cn=cnorm, s=plans[0]:
                 fp.flash_probe_raw(qb, c, cn, NPROBE, splits=s),
                 lambda qb=qb, c=index.centroids, cn=cnorm:
                 fp.flash_probe_plain(qb, c, cn, NPROBE),
                 H.probe_bytes(IVF_B, k, d, NPROBE), 2.0 * IVF_B * k * d,
-                [IVF_B, k, d, NPROBE])
-            c_n = NPROBE * width
-            main_inputs["flash_probe_grouped"] = (
-                lambda qb=qb, cx=cand_x, s=plans[2]:
+                [IVF_B, k, d, NPROBE], {})
+            # bound: each probed cell's live rows read once; beside it the
+            # bound of each query reading its own live rows
+            main_inputs["flash_probe_store"] = (
+                lambda qb=qb, bk=buckets, cn=cnts, pr=probe, s=plans[2]:
+                fp.flash_probe_store_raw(qb, bk, cn, pr, width, TOPK,
+                                         splits=s),
+                lambda qb=qb, bk=buckets, cn=cnts, pr=probe:
+                fp.flash_probe_store_plain(qb, bk, cn, pr, width, TOPK),
+                H.scan_store_bytes(IVF_B, NPROBE, width, d, TOPK,
+                                   rows_read=cell_rows),
+                4.0 * live_rows * d, [IVF_B, NPROBE, width, d, TOPK],
+                {"bound_query_rows_ms": H.scan_store_bytes(
+                    IVF_B, NPROBE, width, d, TOPK, rows_read=live_rows)
+                 / HBM_BW * 1e3})
+            # the block path's scan, for comparison (not on the main path)
+            block_inputs = (
+                lambda qb=qb, cx=cand_x, s=blk_splits:
                 fp.flash_probe_grouped_raw(qb, cx, TOPK, splits=s),
                 lambda qb=qb, cx=cand_x:
                 fp.flash_probe_grouped_plain(qb, cx, TOPK),
                 H.scan_bytes(IVF_B, c_n, d, TOPK), 4.0 * IVF_B * c_n * d,
-                [IVF_B, c_n, d, TOPK])
+                [IVF_B, c_n, d, TOPK], {})
+            del li_b, dd_b
         else:
             *arrays, anchors = index.store.device_arrays()
             codes, scales, _ = store_mod.gather_global_q8(
@@ -1038,7 +1315,13 @@ def main() -> int:
             # rows, dequantized codes where missing, padding for id -1
             cand = ivf_mod._rescore_rows(deq, ids, rows, found)
             scan_check(qb, cand, TOPK, "ivf/q8-rescore", plans[4])
-            del cand
+            main_inputs["flash_probe_grouped"] = (
+                lambda qb=qb, cx=cand, s=plans[4]:
+                fp.flash_probe_grouped_raw(qb, cx, TOPK, splits=s),
+                lambda qb=qb, cx=cand:
+                fp.flash_probe_grouped_plain(qb, cx, TOPK),
+                H.scan_bytes(IVF_B, r, d, TOPK), 4.0 * IVF_B * r * d,
+                [IVF_B, r, d, TOPK], {})
             parts = {
                 "gather_ms": ms_of(lambda: store_mod.gather_global_q8(
                     "padded", tuple(arrays), probe, width)),
@@ -1060,7 +1343,7 @@ def main() -> int:
                 # q' rows, every scale, the codes of live slots, the pair out
                 IVF_B * NPROBE * d * 4 + IVF_B * c_n * 4 + live * d
                 + 2 * IVF_B * r * 4,
-                5.0 * live * d, [IVF_B, NPROBE, width, d, r])
+                5.0 * live * d, [IVF_B, NPROBE, width, d, r], {})
             del codes, scales, qp, deq
         details["ivf"][-1].update(parts)
         print("  " + ", ".join(f"{key} {v:.3f}" for key, v in parts.items()),
@@ -1068,13 +1351,15 @@ def main() -> int:
         del index, probe
         torch.cuda.empty_cache()
 
-    # kernel times at the main path's shapes
-    for kname, (kern, plain, byt, ops_, shape) in main_inputs.items():
-        timing[f"ivf/{kname}"] = {
+    # kernel times at the main path's shapes, and the block path's scan
+    for tag, (kern, plain, byt, ops_, shape, extra) in [
+            *((f"ivf/{kn}", v) for kn, v in main_inputs.items()),
+            ("ivf-block/flash_probe_grouped", block_inputs)]:
+        timing[tag] = {
             "ms": ms_of(kern, reps=20), "plain_ms": ms_of(plain, reps=3),
             "library_ms": None, "bytes": byt, "ops": ops_,
-            "dtype": "float32", "shape": shape}
-    del main_inputs, x, centers, queries
+            "dtype": "float32", "shape": shape, **extra}
+    del main_inputs, block_inputs, x, centers, queries
     torch.cuda.empty_cache()
 
     # ---- phase 6: full-probe exactness on a smaller index -----------------
@@ -1120,6 +1405,7 @@ def main() -> int:
                 "flash_lloyd": "src/repro/kernels/flash_lloyd.py:118",
                 "flash_probe": "src/repro/kernels/flash_probe.py:301",
                 "flash_probe_grouped": "src/repro/kernels/flash_probe.py:261",
+                "flash_probe_store": "src/repro/kernels/flash_probe.py:261",
                 "flash_probe_grouped_q8":
                     "src/repro/kernels/flash_probe.py:215"}
     table = []
@@ -1144,8 +1430,19 @@ def main() -> int:
         t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         cuda_core = (f", CUDA-core bound {t['bound_cuda_core_ms']:.3f} ms"
                      if "bound_cuda_core_ms" in t else "")
-        print(f"  {tag}: {t['ms']:.3f} ms (bound {t['bound_ms']:.3f} ms by "
-              f"{t['bound_by']}{cuda_core}; plain {t['plain_ms']:.3f} ms)")
+        per_query = (f", bound with each query's own rows "
+                     f"{t['bound_query_rows_ms']:.3f} ms"
+                     if "bound_query_rows_ms" in t else "")
+        lib = (f"; library {t['library_ms']:.4f} ms, the kernel "
+               f"{'faster' if t['ms'] < t['library_ms'] else 'slower'}"
+               if t["library_ms"] is not None else "")
+        if "device_ms" in t:
+            lib += f"; device time {t['device_ms']:.4f} ms" + (
+                f" against the library's {t['library_device_ms']:.4f} ms"
+                if t["library_device_ms"] is not None else "")
+        print(f"  {tag}: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f} ms by "
+              f"{t['bound_by']}{cuda_core}{per_query}; plain "
+              f"{t['plain_ms']:.3f} ms{lib})")
     details["timing"] = timing
     details["failures"] = failures
     out = ROOT / "chiprun_out"

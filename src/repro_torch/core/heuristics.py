@@ -23,11 +23,20 @@ import math
 
 from repro_torch.kernels import flash_assign as _fa
 from repro_torch.kernels import flash_probe as _fp
+from repro_torch.kernels import sort_inverse_update as _siu
 from repro_torch.kernels.ops import BlockConfig
 
 _STAGE_D = 16        # FlashLloyd: feature columns per shared stage (common.cuh)
 _STAGE_PAD = 4       # row padding of those stages
 _FUSED_THREADS = 256
+_THREADS_PER_SM = 2048
+# sort-inverse update (csrc/sort_inverse_update.cu): threads per CTA, the
+# resident CTAs per SM that each layout's __launch_bounds__ guarantees (by
+# 16-byte loads per lane: 1 -> 3, 2 -> 2, 4 -> 1), and the chunk range
+UPDATE_THREADS = _siu.THREADS
+UPDATE_MIN_BLOCKS = {1: 3, 2: 2, 4: 1}
+UPDATE_MIN_CHUNK = 64
+UPDATE_MAX_CHUNK = 2048
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,9 +108,23 @@ def lloyd_stage_footprint(bn: int, bk: int) -> int:
 
 
 def update_footprint(bn: int, bk: int, d: int, bytes_in: int) -> int:
-    """Shared bytes of one sort-inverse CTA: its chunk of sorted ids and
-    point indices (``bn`` rows); the segment sums live in registers."""
-    return 2 * bn * 4
+    """Dynamic shared bytes of one sort-inverse CTA of ``bk`` threads over
+    ``bn`` sorted rows (``csrc/sort_inverse_update.cu``): the chunk's ids
+    and point indices, and two boundary slots per worker holding one slab
+    of partial sums; the running sums live in registers."""
+    return _siu.smem_bytes(d, bytes_in, bn, bk)
+
+
+def update_ctas_per_sm(d: int, bytes_in: int, chunk: int,
+                       hw: Hardware) -> int:
+    """Resident sort-inverse CTAs per SM: the least of the thread limit, the
+    register cap of the layout's ``__launch_bounds__`` (``UPDATE_MIN_BLOCKS``
+    by loads per lane) and shared memory."""
+    vpl = _siu.layout(d, bytes_in)[2]
+    by_threads = _THREADS_PER_SM // UPDATE_THREADS
+    by_smem = hw.smem_block_bytes // update_footprint(
+        chunk, UPDATE_THREADS, d, bytes_in)
+    return max(1, min(by_threads, UPDATE_MIN_BLOCKS[vpl], by_smem))
 
 
 def fused_footprint(bn: int, bk: int, d: int, bytes_in: int,
@@ -125,12 +148,14 @@ def assign_bytes_flash(n: int, k: int, d: int, b: int = 4) -> float:
 def update_bytes_sort_inverse(n: int, k: int, d: int, b: int = 4,
                               chunk: int = 512) -> float:
     """Sort of the 4-byte ids (keys and indices in and out), one gathered
-    read of X, the sorted ids/indices read by the kernel, and one atomic
-    per (segment, column): at most ``n / chunk + k`` segments."""
+    read of X, the sorted ids/indices read by the kernel, the memset and the
+    one write of the ``(K, d + 1)`` outputs, and at most two atomics per CTA
+    per column (a chunk's first and last segment)."""
     sort_io = 4 * n * 4
     gather = n * d * b + 2 * n * 4
-    atomics = (n / max(1, chunk) + k) * (d + 1) * 4
-    return sort_io + gather + atomics
+    out = 2 * k * (d + 1) * 4
+    atomics = 2 * -(-n // max(1, chunk)) * (d + 1) * 4
+    return sort_io + gather + out + atomics
 
 
 def lloyd_bytes_fused(n: int, k: int, d: int, b: int = 4,
@@ -193,15 +218,18 @@ def choose_blocks(n: int, k: int, d: int, *, dtype_bytes: int = 4,
     """Closed-form block selection — zero search.
 
     The assign and fused tiles are the kernels' compiled ones (128 x 128
-    and 64 x 64). The
-    sort-inverse CTA takes as many sorted rows as keeps about four CTAs per
-    SM busy (fewer segment atomics per row the longer the chunk), between
-    128 and 1024, and one thread per feature column up to 256.
+    and 64 x 64). The sort-inverse CTA has ``UPDATE_THREADS`` threads and
+    takes the fewest sorted rows (a power of two) that keep every CTA
+    resident in one wave (``update_ctas_per_sm`` on each SM): at small N
+    the kernel is bound by the latency of its gathers, so all of them
+    should be in flight at once. Between ``UPDATE_MIN_CHUNK`` (eight rows
+    per warp) and ``UPDATE_MAX_CHUNK`` (fewer boundary atomics no longer
+    matter there, and shared memory stays near 48 KB).
     """
-    chunk = _pow2_floor(max(1, n) // (4 * hw.num_sms))
-    chunk = min(1024, max(128, chunk))
-    threads = min(256, max(32, _pow2_ceil(d)))
-    return BlockConfig(update_block_n=chunk, update_block_k=threads)
+    per_sm = update_ctas_per_sm(d, dtype_bytes, UPDATE_MAX_CHUNK, hw)
+    chunk = _pow2_ceil(-(-max(1, n) // (hw.num_sms * per_sm)))
+    chunk = min(UPDATE_MAX_CHUNK, max(UPDATE_MIN_CHUNK, chunk))
+    return BlockConfig(update_block_n=chunk, update_block_k=UPDATE_THREADS)
 
 
 def max_fused_k(d: int, hw: Hardware = H100) -> int:
@@ -222,7 +250,6 @@ PROBE_TILE = _fp.TILE
 PROBE_LIST_SMEM_MAX = _fp.LIST_SMEM_MAX
 PROBE_REGS = 64            # __launch_bounds__(256, 4): the register cap
 PROBE_MIN_CHUNK = 2048     # fewest candidate rows worth a CTA of their own
-_THREADS_PER_SM = 2048
 
 
 def probe_footprint(lp: int) -> int:
@@ -261,6 +288,53 @@ def choose_probe_splits(b: int, c: int, l: int, hw: Hardware = H100) -> int:
     by_fill = -(-want // max(1, b))
     by_rows = -(-max(1, c) // PROBE_MIN_CHUNK)
     return max(1, min(by_fill, by_rows))
+
+
+STORE_REGS = 80            # the store scan's __launch_bounds__(256, 3) cap
+STORE_MIN_CHUNK = 512      # CTA mode: fewest slots of a cell worth a CTA
+STORE_WARP_LIST = 32       # lists up to this long run one warp a pair
+STORE_WARP_WAVES = 4       # warp mode: waves of resident warps to fill
+STORE_WARP_MIN_ROWS = 256  # warp mode: fewest slots a warp scans
+
+
+def store_ctas_per_sm(lp: int, hw: Hardware = H100) -> int:
+    """Resident store-scan CTAs per SM: as ``probe_ctas_per_sm`` at the
+    store kernel's register cap; the warp mode (``lp <= STORE_WARP_LIST``)
+    holds its list in registers and takes no shared memory."""
+    by_threads = _THREADS_PER_SM // PROBE_THREADS
+    by_regs = 65536 // (PROBE_THREADS * STORE_REGS)
+    by_smem = by_threads if lp <= STORE_WARP_LIST else max(
+        1, hw.smem_block_bytes // probe_footprint(lp))
+    return max(1, min(by_threads, by_regs, by_smem))
+
+
+def choose_store_splits(b: int, nprobe: int, width: int, l: int,
+                        hw: Hardware = H100) -> int:
+    """Splits of each (query, probe) pair's ``width`` slots. Warp mode
+    (``l <= STORE_WARP_LIST``, one warp a split): enough splits that the
+    ``b * nprobe`` pairs fill ``STORE_WARP_WAVES`` waves of resident warps,
+    with no warp under ``STORE_WARP_MIN_ROWS`` slots. CTA mode: one CTA a
+    split, enough to fill every SM once, none under ``STORE_MIN_CHUNK``."""
+    pairs = max(1, b * nprobe)
+    if l <= STORE_WARP_LIST:
+        warps = hw.num_sms * store_ctas_per_sm(l, hw) * (PROBE_THREADS // 32)
+        by_fill = -(-STORE_WARP_WAVES * warps // pairs)
+        by_rows = max(1, width // STORE_WARP_MIN_ROWS)
+    else:
+        want = hw.num_sms * store_ctas_per_sm(min(l, STORE_MIN_CHUNK), hw)
+        by_fill = -(-want // pairs)
+        by_rows = max(1, width // STORE_MIN_CHUNK)
+    return max(1, min(by_fill, by_rows))
+
+
+def scan_store_bytes(bq: int, nprobe: int, width: int, d: int, l: int,
+                     b: int = 4, rows_read: int | None = None) -> float:
+    """Store scan: the queries once, the probe list, one count per pair,
+    ``rows_read`` store rows (each probed cell's live rows once for the
+    least the data needs, or each pair's; every slot of every pair when
+    not given, the most it can read), and the (B, L) pair out."""
+    rows = bq * nprobe * width if rows_read is None else rows_read
+    return (bq * d + rows * d) * b + 2 * bq * nprobe * 4 + 2 * bq * l * 4
 
 
 def probe_bytes(n: int, k: int, d: int, l: int, b: int = 4) -> float:

@@ -1,7 +1,8 @@
 """KernelPlanner — one cache-aware planning layer for every kernel dispatch.
 
 Port of ``repro/core/plan.py`` for the k-means ops (``assign``, ``update``,
-``step``) and the FlashProbe ops (``probe``, ``scan``, ``scan_q8``; the
+``step``) and the FlashProbe ops (``probe``, ``scan``, ``scan_q8``, and
+the port's ``scan_store``, the posting-list scan that reads the store; the
 reference's ``route`` waits for the two-level router and ``rescore`` for
 the device rescore cache). The closed-form math lives in ``core.heuristics``; this module
 owns the plan contract (``plan(op, shape, dtype) -> KernelPlan``, with the
@@ -22,13 +23,14 @@ import torch
 from repro_torch.core import heuristics
 from repro_torch.kernels.ops import BlockConfig
 
-OPS = ("assign", "update", "step", "probe", "scan", "scan_q8")
+OPS = ("assign", "update", "step", "probe", "scan", "scan_store", "scan_q8")
 _ARITY = {"assign": 3, "update": 3, "step": 3, "probe": 4, "scan": 4,
-          "scan_q8": 4}
+          "scan_store": 5, "scan_q8": 4}
 # batch-like shape positions, bucketed to the next power of two; geometry
-# dims (k, d, l) stay exact
+# dims (k, d, l, nprobe, width) stay exact
 _BUCKET_DIMS = {"assign": (0,), "update": (0,), "step": (0,),
-                "probe": (0,), "scan": (0, 1), "scan_q8": (0, 1)}
+                "probe": (0,), "scan": (0, 1), "scan_store": (0,),
+                "scan_q8": (0, 1)}
 
 
 def bucket_dim(v: int) -> int:
@@ -103,6 +105,8 @@ class KernelPlan:
     impl: str             # assign: "flash" | update: "sort_inverse"
                           # step: "fused" / "two_pass" | probe:
                           # "online_topl" | scan: "grouped_scan" |
+                          # scan_store: "store_scan_warp" /
+                          # "store_scan" |
                           # scan_q8: "grouped_scan_q8"
     blocks: tuple
     block: BlockConfig | None   # None for the probe ops
@@ -130,8 +134,9 @@ class KernelPlanner:
     def plan(self, op: str, shape, dtype=torch.float32, *,
              blk: BlockConfig | None = None) -> KernelPlan:
         """Plan one dispatch. ``shape`` is ``(n, k, d)`` for the k-means
-        ops, ``(n, k, d, l)`` for ``probe`` and ``(b, c, d, l)`` for
-        ``scan``/``scan_q8``; ``dtype`` a torch dtype or an itemsize.
+        ops, ``(n, k, d, l)`` for ``probe``, ``(b, c, d, l)`` for
+        ``scan``/``scan_q8`` and ``(b, nprobe, width, d, l)`` for
+        ``scan_store``; ``dtype`` a torch dtype or an itemsize.
         ``blk`` pins a ``BlockConfig`` (the plan is then judged, and
         memoized, for those tiles; the probe ops have none)."""
         if op not in OPS:
@@ -209,6 +214,8 @@ class KernelPlanner:
         self.chooser_calls += 1
         if op in ("probe", "scan", "scan_q8"):
             return self._probe_plan(op, s, b)
+        if op == "scan_store":
+            return self._store_plan(s, b)
         n, k, d = s
         cfg = blk if blk is not None else H.choose_blocks(
             n, k, d, dtype_bytes=b, hw=hw)
@@ -249,6 +256,26 @@ class KernelPlanner:
                           blocks=(splits, H.PROBE_TILE), block=None,
                           smem_bytes=smem, smem_limit=hw.smem_block_bytes,
                           hbm_bytes=hbm)
+
+    def _store_plan(self, s: tuple, b: int) -> KernelPlan:
+        """The store scan: ``blocks = (splits, PROBE_TILE)`` — splits of
+        each (query, probe) pair's slots (a warp each in the warp mode, a
+        CTA each otherwise), and rows per selection round. ``hbm_bytes`` is
+        the most it can read (every slot live)."""
+        H, hw = heuristics, self.hw
+        n, nprobe, width, d, l = s
+        splits = H.choose_store_splits(n, nprobe, width, l, hw)
+        lp = min(l, -(-width // splits))
+        warp = lp <= H.STORE_WARP_LIST
+        merge = H.probe_merge_footprint(l) if nprobe * splits > 1 else 0
+        smem = merge if warp else max(H.probe_footprint(lp), merge)
+        return KernelPlan(op="scan_store", shape=s, itemsize=b, hw=hw.name,
+                          impl="store_scan_warp" if warp else "store_scan",
+                          blocks=(splits, H.PROBE_TILE),
+                          block=None, smem_bytes=smem,
+                          smem_limit=hw.smem_block_bytes,
+                          hbm_bytes=H.scan_store_bytes(n, nprobe, width, d,
+                                                       l, b))
 
     def _store(self, plan: KernelPlan, key: str, pinned: bool) -> None:
         """Memoize ``plan``; an un-pinned step plan also fills its assign

@@ -3,6 +3,10 @@
 // Replaces the three Pallas TPU kernels of src/repro/kernels/flash_probe.py:
 //   flash_probe_raw            (_flash_probe_kernel, l.73)            -> flash_probe_kernel
 //   flash_probe_grouped_raw    (_flash_probe_grouped_kernel, l.116)   -> flash_probe_grouped_kernel
+//                              and, reading the padded store in place instead of a
+//                              gathered block (with gather_global, repro/index/store.py)
+//                                                                     -> flash_probe_store_kernel,
+//                                                                        flash_probe_store_warp_kernel
 //   flash_probe_grouped_q8_raw (_flash_probe_grouped_q8_kernel, l.157) -> flash_probe_grouped_q8_kernel
 //
 // Each returns, for every query b, the L candidates of smallest score in ascending
@@ -11,7 +15,7 @@
 // flattened probe-rank-major (nprobe, W) axis (q8). Equal scores go to the lower index,
 // as lax.top_k. Scores keep the reference's expanded forms:
 //   probe:   ||c||^2 - 2 q.c          (||c||^2 passed in as csq)
-//   grouped: ||c||^2 - 2 q.c          (both sums taken here, in fp32)
+//   grouped: ||c||^2 - 2 q.c          (summed term by term here, in fp32)
 //   q8:      ||q'||^2 - 2 q'.r + ||r||^2 with r = float(code) * s, +inf where s <= 0
 // bf16 and int8 inputs widen to fp32 on load; every sum is fp32.
 //
@@ -205,34 +209,36 @@ struct GroupedRow {  // kernel 5: each query against its own candidate block
   const T* q;        // (B, d)
   const T* c;        // (B, C, d)
   int C, d;
+  // ||c||^2 - 2 q.c summed term by term, c c then -2 q c for each column, in one
+  // accumulator (StoreRows sums alike, so the two modes agree bit for bit).
   __device__ float operator()(int b, int idx, bool valid, int lane_g, int g) const {
-    float dot = 0.f, sq = 0.f;
+    float acc = 0.f;
     if (valid) {
       const T* qr = q + (size_t)b * d;
       const T* cr = c + ((size_t)b * C + idx) * d;
       if constexpr (kVec) {
         constexpr int V = Vec16<T>::N;
         for (int j = lane_g * V; j < d; j += g * V) {
-          float cv[V], qv[V];
+          float cv[V], qm2[V];
           load_vec<T, true>(cr + j, cv);
-          load_vec<T, false>(qr + j, qv);
+          load_vec<T, false>(qr + j, qm2);
 #pragma unroll
           for (int e = 0; e < V; ++e) {
-            sq = fmaf(cv[e], cv[e], sq);
-            dot = fmaf(qv[e], cv[e], dot);
+            qm2[e] *= -2.f;
+            acc = fmaf(cv[e], cv[e], acc);
+            acc = fmaf(qm2[e], cv[e], acc);
           }
         }
       } else {
         for (int j = lane_g; j < d; j += g) {
           const float cv = to_f32(cr[j]);
-          sq = fmaf(cv, cv, sq);
-          dot = fmaf(to_f32(qr[j]), cv, dot);
+          const float qm2 = -2.f * to_f32(qr[j]);
+          acc = fmaf(cv, cv, acc);
+          acc = fmaf(qm2, cv, acc);
         }
       }
     }
-    dot = group_sum(dot, g);
-    sq = group_sum(sq, g);
-    return sq - 2.f * dot;
+    return group_sum(acc, g);
   }
 };
 
@@ -286,6 +292,37 @@ struct Q8Row {          // kernel 6: int8 residual codes, dequantized in registe
 
 // ---- selection --------------------------------------------------------------------
 
+__device__ __forceinline__ void swap_lists(float*& av, int*& ai, float*& bv, int*& bi) {
+  float* tf = av;
+  av = bv;
+  bv = tf;
+  int* tx = ai;
+  ai = bi;
+  bi = tx;
+}
+
+// Sort the round's m > 0 survivors (the shared buffer after the counter) and merge them
+// into the running list (av, ai) of lp entries; the merged list is written to (bv, bi)
+// and the two swap. Every thread calls it with the same m; it resets the counter and
+// ends with a barrier.
+__device__ void merge_survivors(int m, int lp, float*& av, int*& ai, float*& bv, int*& bi) {
+  int* s_count = reinterpret_cast<int*>(smem);
+  float* buf_v = reinterpret_cast<float*>(smem + 16);
+  int* buf_i = reinterpret_cast<int*>(smem + 16 + kTile * 4);
+  int n2 = 1;
+  while (n2 < m) n2 <<= 1;
+  for (int i = m + threadIdx.x; i < n2; i += blockDim.x) {
+    buf_v[i] = INFINITY;
+    buf_i[i] = kSentinel;
+  }
+  if (threadIdx.x == 0) *s_count = 0;
+  __syncthreads();
+  bitonic_sort(buf_v, buf_i, n2);
+  merge_lists(av, ai, lp, buf_v, buf_i, m, bv, bi, lp);
+  __syncthreads();
+  swap_lists(av, ai, bv, bi);
+}
+
 // Top-lp of rows [c0, c1) of query b into out (lp entries, ascending). The running list
 // is (lv0, li0) / (lv1, li1), double-buffered; rows past c1 never enter.
 template <class Row>
@@ -323,25 +360,7 @@ __device__ void scan_topl(const Row& row, int b, int c0, int c1, int lp, int g, 
     __syncthreads();
     const int m = *s_count;
     __syncthreads();
-    if (m > 0) {  // uniform: every thread read the same count
-      int n2 = 1;
-      while (n2 < m) n2 <<= 1;
-      for (int i = m + tid; i < n2; i += blockDim.x) {
-        buf_v[i] = INFINITY;
-        buf_i[i] = kSentinel;
-      }
-      if (tid == 0) *s_count = 0;
-      __syncthreads();
-      bitonic_sort(buf_v, buf_i, n2);
-      merge_lists(av, ai, lp, buf_v, buf_i, m, bv, bi, lp);
-      __syncthreads();
-      float* tf = av;
-      av = bv;
-      bv = tf;
-      int* tx = ai;
-      ai = bi;
-      bi = tx;
-    }
+    if (m > 0) merge_survivors(m, lp, av, ai, bv, bi);  // uniform: one count for all
   }
   for (int i = tid; i < lp; i += blockDim.x) {
     out_v[i] = av[i];
@@ -375,6 +394,321 @@ __device__ void run_stage1(const Row& row, int C, int lp, int chunk, int g, floa
   }
   const size_t o = ((size_t)b * S + s) * lp;
   scan_topl(row, b, c0, c1, lp, g, lv0, li0, lv1, li1, part_v + o, part_i + o);
+}
+
+// ---- kernel 5, store mode: the posting-list scan reads the padded store ------------
+//
+// Query b's candidate p * width + w is slot w of cell probe[b, p]. A cell's live rows
+// [0, counts[cell]) are contiguous in the (K, cap, d) store and are read in place: no
+// candidate block is written. Slots at or past counts[cell] are padding (every
+// coordinate the store's padding value, id -1); no pad row is read. All of a query's
+// pads score alike, so the scorer runs once on the constant and the pads a list needs
+// enter as one sorted run (ascending index), exactly where they would if read.
+//
+// The unit of work is one split of one (query, probe) pair; the wrapper sorts the pairs
+// by cell, so the units that read one cell run together. Lists of at most kWarpList
+// entries (the search's top-k) take the warp mode: a warp a unit, its list in
+// registers, the warps of a CTA mostly on one cell, so L1 serves the repeats. Longer
+// lists take a CTA a unit (scan_topl's shared-memory selection) and L2 serves them.
+//
+// Scoring: a group of G lanes takes 8 consecutive rows at once, each lane loading 16
+// bytes of each of the 8 rows (8 rows in flight a group) and keeping one partial score
+// a row; tree8 then reduces the 8 partials with one shuffle tree (7 halving shuffles
+// plus one per remaining level) instead of 8 trees of log2(G) levels. Its per-lane sums
+// are GroupedRow's and it pairs the lanes as group_sum does, so the scores, and with
+// them the selected indices, are bitwise those of the gathered block's scan.
+//
+// What bounds it: bytes, at least each probed cell's live rows read once from HBM. At
+// the IVF1024 shape that is 0.10 ms against 0.50 ms measured (PERF.md): the warps of a
+// CTA wait together on one row stream, 8 rows deep, so the SM holds few bytes in
+// flight. A shared-memory ring for eight cell-sorted pairs lost to this (they span
+// about two cells, so warps idle while the other cell streams); one whose CTAs each
+// take one cell's queries is the next step.
+
+// Lane lane_g of a group of G lanes enters with partial sums of rows 0..7 in v and
+// leaves with full sums: of rows held_base<G>(lane_g) + i in v[i], i < 8 / min(G, 8).
+// Each halving stage keeps half the values and trades the other half with the partner
+// lane O away; once one value is left, the remaining levels add it up.
+template <int O, int M>
+__device__ __forceinline__ void tree8(float (&v)[8], int lane_g) {
+  if constexpr (O >= 1) {
+    if constexpr (M > 1) {
+      const bool up = (lane_g & O) != 0;
+#pragma unroll
+      for (int i = 0; i < M / 2; ++i) {
+        const float send = up ? v[i] : v[i + M / 2];
+        const float keep = up ? v[i + M / 2] : v[i];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+      }
+      tree8<O / 2, M / 2>(v, lane_g);
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
+      tree8<O / 2, 1>(v, lane_g);
+    }
+  }
+}
+
+template <int G>
+__device__ __forceinline__ int held_base(int lane_g) {
+  int base = 0, m = 8;
+#pragma unroll
+  for (int o = G / 2; o >= 1 && m > 1; o >>= 1) {
+    m >>= 1;
+    if (lane_g & o) base += m;
+  }
+  return base;
+}
+
+template <typename T, bool kVec, int G>
+struct StoreRows {
+  const T* q;     // this query's row (d)
+  const T* rows;  // the cell's slots (cap, d)
+  int d;
+  float pad;      // the store's padding coordinate, as its dtype holds it
+
+  // Scores ||c||^2 - 2 q.c of rows w .. w + 7 (rows at or past w + n are not read), or
+  // with kPad of the padding row, left as tree8 leaves them. Each lane sums its columns
+  // as GroupedRow does, and tree8 pairs the lanes as group_sum's butterfly does, so
+  // every score is bitwise the block kernel's on the gathered row.
+  template <bool kPad>
+  __device__ __forceinline__ void score8(int w, int n, int lane_g, float (&v)[8]) const {
+#pragma unroll
+    for (int r = 0; r < 8; ++r) v[r] = 0.f;
+    if constexpr (kVec) {
+      constexpr int V = Vec16<T>::N;
+      using VT = typename Vec16<T>::V;
+      for (int j = lane_g * V; j < d; j += G * V) {
+        float qm2[V];
+        load_vec<T, false>(q + j, qm2);
+#pragma unroll
+        for (int e = 0; e < V; ++e) qm2[e] *= -2.f;
+        VT raw[8];
+        if constexpr (!kPad) {
+#pragma unroll
+          for (int r = 0; r < 8; ++r)  // L1 and L2 keep the rows for the cell's other queries
+            if (r < n) raw[r] = __ldg(reinterpret_cast<const VT*>(rows + (size_t)(w + r) * d + j));
+        }
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          if (!kPad && r >= n) continue;
+          float c[V];
+          if constexpr (kPad) {
+#pragma unroll
+            for (int e = 0; e < V; ++e) c[e] = pad;
+          } else {
+            unpack(raw[r], c);
+          }
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            v[r] = fmaf(c[e], c[e], v[r]);
+            v[r] = fmaf(qm2[e], c[e], v[r]);
+          }
+        }
+      }
+    } else {
+      for (int j = lane_g; j < d; j += G) {
+        const float qm2 = -2.f * to_f32(q[j]);
+        float c[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          c[r] = kPad ? pad : (r < n ? to_f32(rows[(size_t)(w + r) * d + j]) : 0.f);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          v[r] = fmaf(c[r], c[r], v[r]);
+          v[r] = fmaf(qm2, c[r], v[r]);
+        }
+      }
+    }
+    tree8<G / 2, 8>(v, lane_g);
+  }
+};
+
+// Top-lp of one pair's slots [lo, pad_hi): live rows [lo, hi) read from the store, pads
+// [pad_lo, pad_hi) scored once; candidate index base + w. Lists as in scan_topl.
+template <class Rows, int G>
+__device__ void scan_store_topl(const Rows& rows, int lo, int hi, int pad_lo, int pad_hi,
+                                int base, int lp, float* lv0, int* li0, float* lv1, int* li1,
+                                float* out_v, int* out_i) {
+  int* s_count = reinterpret_cast<int*>(smem);
+  float* buf_v = reinterpret_cast<float*>(smem + 16);
+  int* buf_i = reinterpret_cast<int*>(smem + 16 + kTile * 4);
+  constexpr int kRowsPerWarp = 8 * (32 / G);
+  constexpr int kHeld = G >= 8 ? 1 : 8 / G;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int lane_g = lane & (G - 1), grp = lane / G;
+  const int hb = held_base<G>(lane_g);
+  const bool holder = G <= 8 || (lane_g & (G / 8 - 1)) == 0;  // one lane per held row
+  for (int i = tid; i < lp; i += blockDim.x) {
+    lv0[i] = INFINITY;
+    li0[i] = kSentinel;
+  }
+  if (tid == 0) *s_count = 0;
+  __syncthreads();
+  float *av = lv0, *bv = lv1;
+  int *ai = li0, *bi = li1;
+  for (int t0 = lo; t0 < hi; t0 += kTile) {
+    const int nt = min(kTile, hi - t0);
+    const float tv = av[lp - 1];  // the current L-th entry: rows must beat it
+    const int ti = ai[lp - 1];
+    for (int r8 = warp * kRowsPerWarp; r8 < nt; r8 += nwarps * kRowsPerWarp) {  // per warp
+      const int r0 = r8 + grp * 8;  // this group's first row of the tile
+      float v[8];
+      rows.template score8<false>(t0 + r0, nt - r0, lane_g, v);
+      if (holder) {
+#pragma unroll
+        for (int i = 0; i < kHeld; ++i) {
+          const int r = r0 + hb + i;
+          const int idx = base + t0 + r;
+          if (r < nt && key_less(v[i], idx, tv, ti)) {
+            const int pos = atomicAdd(s_count, 1);
+            buf_v[pos] = v[i];
+            buf_i[pos] = idx;
+          }
+        }
+      }
+    }
+    __syncthreads();
+    const int m = *s_count;
+    __syncthreads();
+    if (m > 0) merge_survivors(m, lp, av, ai, bv, bi);
+  }
+  if (pad_lo < pad_hi) {
+    float v[8];
+    rows.template score8<true>(0, 8, lane_g, v);
+    const float sp = __shfl_sync(0xffffffffu, v[0], 0);  // lane 0 holds row 0
+    for (int w = pad_lo; w < pad_hi;) {
+      if (!key_less(sp, base + w, av[lp - 1], ai[lp - 1])) break;  // uniform
+      const int n = min(min(kTile, lp), pad_hi - w);
+      for (int i = tid; i < n; i += blockDim.x) {
+        buf_v[i] = sp;
+        buf_i[i] = base + w + i;
+      }
+      __syncthreads();
+      merge_lists(av, ai, lp, buf_v, buf_i, n, bv, bi, lp);  // already ascending
+      __syncthreads();
+      swap_lists(av, ai, bv, bi);
+      w += n;
+    }
+  }
+  for (int i = tid; i < lp; i += blockDim.x) {
+    out_v[i] = av[i];
+    out_i[i] = ai[i];
+  }
+}
+
+constexpr int kStoreMinBlocks = 3;  // __launch_bounds__: at most 80 registers a thread
+constexpr int kWarpList = 32;       // longest list the warp mode keeps, one entry a lane
+
+// Insert (s, x) into a warp's ascending list of lp <= 32 entries, lane i holding entry
+// i in (mv, mi); (tv, ti) is entry lp - 1 on every lane. s, x are the same on every lane.
+__device__ __forceinline__ void warp_insert(float s, int x, int lp, int lane, float& mv,
+                                            int& mi, float& tv, int& ti) {
+  if (!key_less(s, x, tv, ti)) return;
+  const bool before = lane < lp && key_less(mv, mi, s, x);
+  const int pos = __popc(__ballot_sync(0xffffffffu, before));
+  const float uv = __shfl_up_sync(0xffffffffu, mv, 1);
+  const int ui = __shfl_up_sync(0xffffffffu, mi, 1);
+  if (lane == pos) {
+    mv = s;
+    mi = x;
+  } else if (lane > pos) {
+    mv = uv;
+    mi = ui;
+  }
+  tv = __shfl_sync(0xffffffffu, mv, lp - 1);
+  ti = __shfl_sync(0xffffffffu, mi, lp - 1);
+}
+
+// Warp mode, for lists of at most kWarpList entries (the search's top-k): one warp
+// scans one (query, probe) pair's split and keeps its list in registers, so there is
+// no shared memory and no barrier. Warps are numbered split-major, then by their pair's
+// rank in the cell-major order: the warps of one CTA mostly read the same cell's rows
+// at the same time, and L1 serves all but the first read of each row.
+template <typename T, bool kVec, int G>
+__global__ void __launch_bounds__(kThreads, kStoreMinBlocks)
+    flash_probe_store_warp_kernel(const T* q, const T* buckets, const int* counts,
+                                  const int* probe, const int* order, int npairs, int P,
+                                  int cap, int width, int d, float pad, int lp, int chunk,
+                                  int S, float* pv, int* pi) {
+  const int lane = threadIdx.x & 31;
+  const long long gw = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (gw >= (long long)npairs * S) return;  // the whole warp
+  const int s = (int)(gw / npairs);
+  const int pair = order[gw - (long long)s * npairs];
+  const int b = pair / P, p = pair - b * P;
+  const int cell = probe[pair];
+  const int live = min(counts[cell], width);
+  const int w0 = s * chunk, w1 = min(width, w0 + chunk);
+  const int hi = min(w1, live), base = p * width;
+  const StoreRows<T, kVec, G> rows{q + (size_t)b * d, buckets + (size_t)cell * cap * d, d, pad};
+  constexpr int kHeld = G >= 8 ? 1 : 8 / G;
+  const int lane_g = lane & (G - 1), grp = lane / G;
+  const int hb = held_base<G>(lane_g);
+  const bool holder = G <= 8 || (lane_g & (G / 8 - 1)) == 0;
+  float mv = INFINITY, tv = INFINITY;
+  int mi = kSentinel, ti = kSentinel;
+  for (int r8 = w0; r8 < hi; r8 += 8 * (32 / G)) {
+    const int r0 = r8 + grp * 8;  // this group's first row
+    float v[8];
+    rows.template score8<false>(r0, hi - r0, lane_g, v);
+#pragma unroll
+    for (int i = 0; i < kHeld; ++i) {
+      const int r = r0 + hb + i;
+      const int idx = base + r;
+      unsigned m = __ballot_sync(0xffffffffu, holder && r < hi && key_less(v[i], idx, tv, ti));
+      while (m) {  // uniform
+        const int src = __ffs(m) - 1;
+        m &= m - 1;
+        warp_insert(__shfl_sync(0xffffffffu, v[i], src), __shfl_sync(0xffffffffu, idx, src),
+                    lp, lane, mv, mi, tv, ti);
+      }
+    }
+  }
+  if (max(w0, live) < w1) {  // pads, ascending index, while they beat the lp-th entry
+    float v[8];
+    rows.template score8<true>(0, 8, lane_g, v);
+    const float sp = __shfl_sync(0xffffffffu, v[0], 0);  // lane 0 holds row 0
+    for (int w = max(w0, live); w < w1 && key_less(sp, base + w, tv, ti); ++w)
+      warp_insert(sp, base + w, lp, lane, mv, mi, tv, ti);
+  }
+  const size_t slot = ((size_t)pair * S + s) * lp;
+  if (lane < lp) {
+    pv[slot + lane] = mv;
+    pi[slot + lane] = mi;
+  }
+}
+
+template <typename T, bool kVec, int G>
+__global__ void __launch_bounds__(kThreads, kStoreMinBlocks)
+    flash_probe_store_kernel(const T* q, const T* buckets, const int* counts, const int* probe,
+                             const int* order, int P, int cap, int width, int d, float pad,
+                             int lp, int chunk, int S, float* pv, int* pi, float* lv, int* li) {
+  const int pair = order[blockIdx.x / S];  // b * P + p
+  const int s = blockIdx.x % S;
+  const int b = pair / P, p = pair - b * P;
+  const int cell = probe[pair];
+  const int live = min(counts[cell], width);
+  const int w0 = s * chunk, w1 = min(width, w0 + chunk);
+  const size_t slot = (size_t)pair * S + s;  // query b's lists are slots [b P S, (b + 1) P S)
+  float *lv0, *lv1;
+  int *li0, *li1;
+  if (lv == nullptr) {
+    unsigned char* m = smem + kHead;
+    lv0 = reinterpret_cast<float*>(m);
+    li0 = reinterpret_cast<int*>(m + 4 * (size_t)lp);
+    lv1 = reinterpret_cast<float*>(m + 8 * (size_t)lp);
+    li1 = reinterpret_cast<int*>(m + 12 * (size_t)lp);
+  } else {
+    lv0 = lv + slot * 2 * lp;
+    lv1 = lv0 + lp;
+    li0 = li + slot * 2 * lp;
+    li1 = li0 + lp;
+  }
+  const StoreRows<T, kVec, G> rows{q + (size_t)b * d, buckets + (size_t)cell * cap * d, d, pad};
+  scan_store_topl<StoreRows<T, kVec, G>, G>(rows, w0, min(w1, live), max(w0, live), w1,
+                                            p * width, lp, lv0, li0, lv1, li1, pv + slot * lp,
+                                            pi + slot * lp);
 }
 
 template <typename T, bool kVec>
@@ -430,12 +764,7 @@ __global__ void __launch_bounds__(kThreads)
     if (key_less(sv[0], si[0], av[L - 1], ai[L - 1])) {  // same values on every thread
       merge_lists(av, ai, L, sv, si, lp, bv, bi, L);
       __syncthreads();
-      float* tf = av;
-      av = bv;
-      bv = tf;
-      int* tx = ai;
-      ai = bi;
-      bi = tx;
+      swap_lists(av, ai, bv, bi);
     }
   }
   for (int i = threadIdx.x; i < L; i += blockDim.x) {
@@ -500,6 +829,63 @@ cudaError_t launch_grouped(const void* q, const void* c, int B, int C, int d, in
   return cudaGetLastError();
 }
 
+template <typename T, bool kVec, int G>
+cudaError_t launch_store_g(const void* q, const void* buckets, const void* counts,
+                           const void* probe, const void* order, int B, int P, int cap,
+                           int width, int d, float pad, int lp, int S, int chunk, void* pv,
+                           void* pi, void* lv, void* li, cudaStream_t st) {
+  const long long units = (long long)B * P * S;
+  if (lp <= kWarpList) {
+    const long long blocks = (units + kThreads / 32 - 1) / (kThreads / 32);
+    flash_probe_store_warp_kernel<T, kVec, G><<<(unsigned)blocks, kThreads, 0, st>>>(
+        (const T*)q, (const T*)buckets, (const int*)counts, (const int*)probe,
+        (const int*)order, B * P, P, cap, width, d, pad, lp, chunk, S, (float*)pv, (int*)pi);
+  } else {
+    const size_t sm = stage1_smem(lp, lv);
+    flash_probe_store_kernel<T, kVec, G><<<(unsigned)units, kThreads, sm, st>>>(
+        (const T*)q, (const T*)buckets, (const int*)counts, (const int*)probe,
+        (const int*)order, P, cap, width, d, pad, lp, chunk, S, (float*)pv, (int*)pi,
+        (float*)lv, (int*)li);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T, bool kVec>
+cudaError_t launch_store_v(int g, const void* q, const void* buckets, const void* counts,
+                           const void* probe, const void* order, int B, int P, int cap,
+                           int width, int d, float pad, int lp, int S, int chunk, void* pv,
+                           void* pi, void* lv, void* li, cudaStream_t st) {
+#define FK_STORE_G(GG)                                                                    \
+  case GG:                                                                                \
+    return launch_store_g<T, kVec, GG>(q, buckets, counts, probe, order, B, P, cap, width, \
+                                       d, pad, lp, S, chunk, pv, pi, lv, li, st);
+  switch (g) {
+    FK_STORE_G(1)
+    FK_STORE_G(2)
+    FK_STORE_G(4)
+    FK_STORE_G(8)
+    FK_STORE_G(16)
+    default:
+      return launch_store_g<T, kVec, 32>(q, buckets, counts, probe, order, B, P, cap, width,
+                                         d, pad, lp, S, chunk, pv, pi, lv, li, st);
+  }
+#undef FK_STORE_G
+}
+
+template <typename T>
+cudaError_t launch_store(const void* q, const void* buckets, const void* counts,
+                         const void* probe, const void* order, int B, int P, int cap, int width,
+                         int d, float pad, int lp, int S, int chunk, void* pv, void* pi,
+                         void* lv, void* li, cudaStream_t st) {
+  constexpr int V = Vec16<T>::N;
+  const bool vec = d % V == 0 && aligned16(q) && aligned16(buckets);
+  const int g = group_lanes(vec ? d / V : d);
+  return vec ? launch_store_v<T, true>(g, q, buckets, counts, probe, order, B, P, cap, width, d,
+                                       pad, lp, S, chunk, pv, pi, lv, li, st)
+             : launch_store_v<T, false>(g, q, buckets, counts, probe, order, B, P, cap, width,
+                                        d, pad, lp, S, chunk, pv, pi, lv, li, st);
+}
+
 }  // namespace probe
 }  // namespace fk
 
@@ -539,6 +925,28 @@ extern "C" int fk_flash_probe_grouped(const void* q, const void* c, void* out_v,
   return (int)merge_partials(B, S, lp, L, part_v, part_i, mws_v, mws_i, out_v, out_i, st);
 }
 
+// The store scan: q (B, d), buckets (K, cap, d) of q's dtype, counts (K,), probe (B, P)
+// and order (B * P,) int32 (the pairs b * P + p in the order their CTAs run). S CTAs per
+// pair split its `width` slots in chunks; the B * P * S partial lists go to part, and
+// the merge takes P * S of them per query (with P * S == 1 part must be the outputs).
+extern "C" int fk_flash_probe_store(const void* q, const void* buckets, const void* counts,
+                                    const void* probe, const void* order, void* out_v,
+                                    void* out_i, void* part_v, void* part_i, void* lws_v,
+                                    void* lws_i, void* mws_v, void* mws_i, int B, int P,
+                                    int cap, int width, int d, int L, int S, int chunk, int lp,
+                                    float pad, int is_bf16, void* stream) {
+  using namespace fk::probe;
+  cudaStream_t st = (cudaStream_t)stream;
+  const cudaError_t e =
+      is_bf16 ? launch_store<__nv_bfloat16>(q, buckets, counts, probe, order, B, P, cap, width,
+                                            d, pad, lp, S, chunk, part_v, part_i, lws_v, lws_i,
+                                            st)
+              : launch_store<float>(q, buckets, counts, probe, order, B, P, cap, width, d, pad,
+                                    lp, S, chunk, part_v, part_i, lws_v, lws_i, st);
+  if (e != cudaSuccess) return (int)e;
+  return (int)merge_partials(B, P * S, lp, L, part_v, part_i, mws_v, mws_i, out_v, out_i, st);
+}
+
 // qsq: workspace of B * P floats for ||q'||^2, written by a prologue kernel.
 extern "C" int fk_flash_probe_grouped_q8(const void* qp, const void* codes, const void* scales,
                                          void* qsq, void* out_v, void* out_i, void* part_v,
@@ -572,7 +980,12 @@ extern "C" int fk_flash_probe_attrs(int which, int* regs, int* local_bytes) {
     case 0: e = cudaFuncGetAttributes(&a, flash_probe_kernel<float, true>); break;
     case 1: e = cudaFuncGetAttributes(&a, flash_probe_grouped_kernel<float, true>); break;
     case 2: e = cudaFuncGetAttributes(&a, flash_probe_grouped_q8_kernel<true>); break;
-    default: e = cudaFuncGetAttributes(&a, topl_merge_kernel); break;
+    case 3: e = cudaFuncGetAttributes(&a, topl_merge_kernel); break;
+    case 4: e = cudaFuncGetAttributes(&a, flash_probe_store_kernel<float, true, 32>); break;
+    case 5: e = cudaFuncGetAttributes(&a, flash_probe_store_kernel<__nv_bfloat16, true, 16>); break;
+    case 6: e = cudaFuncGetAttributes(&a, flash_probe_store_warp_kernel<float, true, 32>); break;
+    default:
+      e = cudaFuncGetAttributes(&a, flash_probe_store_warp_kernel<__nv_bfloat16, true, 16>);
   }
   if (e != cudaSuccess) return (int)e;
   *regs = a.numRegs;

@@ -10,11 +10,12 @@ Port of ``repro/index/ivf.py`` for one device, the ``padded`` store, the
 - **invert** — posting lists are the sort-inverse mapping: one stable sort
   of the assignments is the concatenation of all lists;
 - **probe** — ``ops.flash_probe`` picks each query's ``nprobe`` nearest
-  cells, the store gathers their candidates into one ``(B, nprobe*width,
-  d)`` block, and ``ops.flash_probe_grouped`` scans each query against
-  its own block; on a ``q8`` store the scan is ``flash_probe_grouped_q8``
-  over int8 codes (top-``R`` proposal) followed by an exact fp32 rescore
-  of the ``R`` rows read from the host ``RescoreReservoir``;
+  cells and ``ops.flash_probe_store`` scans their live rows in place in
+  the padded store (the reference gathers a ``(B, nprobe*width, d)``
+  candidate block first; the result is the same); on a ``q8`` store the
+  store gathers the int8 codes, ``flash_probe_grouped_q8`` proposes the
+  top ``R``, and ``flash_probe_grouped`` rescores the ``R`` rows read from
+  the host ``RescoreReservoir`` in fp32;
 - **online** — ``add`` assigns with FlashAssign, appends in CSR order and
   folds the batch statistics into pending ``SufficientStats``;
   ``refresh`` commits them and re-centers the centroids, O(K d).
@@ -86,18 +87,23 @@ def _take_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                         .expand(*idx.shape, *t.shape[2:]))
 
 
-def _ivf_search(q, centroids, c_sq, store_arrays, *, kind: str, topk: int,
+def _ivf_search(q, centroids, c_sq, store_arrays, counts, *, topk: int,
                 nprobe: int, width: int, probe_splits: int,
                 scan_splits: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Two-stage search: FlashProbe over the centroids picks the cells,
-    the store gathers their candidates, the grouped scan keeps each
-    query's top-k."""
+    the store scan keeps each query's top-k of their ``width`` slots
+    (probe-rank-major index ``p * width + w``), and the ids are looked up
+    at those (B, topk) slots."""
     probe, _ = ops.flash_probe(q, centroids.to(q.dtype), l=nprobe,
                                splits=probe_splits, want_dists=False,
                                c_sq=c_sq)
-    cand_x, cand_ids = _store.gather_global(kind, store_arrays, probe, width)
-    li, dist = ops.flash_probe_grouped(q, cand_x, l=topk, splits=scan_splits)
-    return _take_rows(cand_ids, li), dist
+    buckets, bucket_ids = store_arrays
+    li, dist = ops.flash_probe_store(q, buckets, counts, probe, width=width,
+                                     l=topk, splits=scan_splits)
+    li = li.long()
+    cell = torch.gather(probe.long(), 1,
+                        torch.div(li, width, rounding_mode="floor"))
+    return bucket_ids[cell, li % width], dist
 
 
 def _q8_propose(q, centroids, c_sq, store_arrays, *, kind: str, r: int,
@@ -455,7 +461,7 @@ class IVFIndex:
         """Plan (and cache) the search kernels for a ``(b, d)`` batch.
 
         Returns the planner's blocks, ``(splits, tile)`` per kernel:
-        ``(probe, scan)`` on an fp32 store and ``(probe, scan_q8,
+        ``(probe, store scan)`` on an fp32 store and ``(probe, scan_q8,
         rescore scan)`` on a q8 store, flattened. Cached per ``(b, nprobe,
         topk, width)``; ``width`` is the store's gather-width bucket, so
         occupancy growth re-keys.
@@ -478,7 +484,7 @@ class IVFIndex:
                 plans = (*head, *q8.blocks, *rescore.blocks)
             else:
                 scan = self.planner.plan(
-                    "scan", (b, nprobe * width, self.d, topk), dt)
+                    "scan_store", (b, nprobe, width, self.d, topk), dt)
                 plans = (*head, *scan.blocks)
             self._search_plans[geom] = plans
         return plans
@@ -502,7 +508,7 @@ class IVFIndex:
         width = self._gather_width(topk, nprobe)
         ps, _, ss, _ = self.plan_search(q.shape[0], topk, nprobe)
         return _ivf_search(q, self.centroids, self._centroid_norms(),
-                           st.device_arrays(), kind=st.kind, topk=topk,
+                           st.device_arrays(), st.counts, topk=topk,
                            nprobe=nprobe, width=width, probe_splits=ps,
                            scan_splits=ss)
 

@@ -20,9 +20,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-# Padded-slot coordinate: large enough that a padded candidate can never
-# beat a real one, small enough that d * _PAD^2 stays finite in f32.
-_PAD_COORD = 1e15
+from repro_torch.kernels import flash_probe as _fp
+
+# Padded-slot coordinate (the store scan kernel scores it without reading
+# the slot; see flash_probe.PAD_COORD). Invariant: every slot at or past
+# counts[cell] holds it in every coordinate, and id -1.
+_PAD_COORD = _fp.PAD_COORD
 
 _NOT_PORTED = ("is not ported yet (ROADMAP.md, queue A item 5: the paged "
                "store, the two-level router and the device rescore cache)")
@@ -76,15 +79,11 @@ def gather_global(kind: str, arrays, probe: torch.Tensor, width: int
     """``probe (B, nprobe)`` cells -> ``(cand_x (B, nprobe*width, d),
     cand_ids (B, nprobe*width))``: ``width`` slots of each probed cell,
     probe-rank major. The block is materialized in device memory, as in
-    the reference (``B * nprobe * width * d`` elements)."""
+    the reference (``B * nprobe * width * d`` elements). The port's fp32
+    search does not gather (``ops.flash_probe_store`` reads the store in
+    place); this is the block path it is held to."""
     _resolve_kind(kind)
-    buckets, bucket_ids = arrays
-    b, nprobe = probe.shape
-    p = probe.long()
-    cand_x = buckets[:, :width][p].reshape(b, nprobe * width,
-                                           buckets.shape[-1])
-    cand_ids = bucket_ids[:, :width][p].reshape(b, nprobe * width)
-    return cand_x, cand_ids
+    return tuple(_fp.store_candidates(t, probe, width) for t in arrays)
 
 
 def gather_global_q8(kind: str, arrays, probe: torch.Tensor, width: int
@@ -93,12 +92,8 @@ def gather_global_q8(kind: str, arrays, probe: torch.Tensor, width: int
     (B, nprobe*width) f32, ids)``; padding slots carry scale 0.0."""
     _resolve_kind(kind)
     buckets, bucket_ids, bucket_aux = arrays
-    b, nprobe = probe.shape
-    p = probe.long()
-    w = nprobe * width
-    return (buckets[:, :width][p].reshape(b, w, buckets.shape[-1]),
-            bucket_aux[:, :width][p].reshape(b, w),
-            bucket_ids[:, :width][p].reshape(b, w))
+    return tuple(_fp.store_candidates(t, probe, width)
+                 for t in (buckets, bucket_aux, bucket_ids))
 
 
 # ---------------------------------------------------------------------------

@@ -37,7 +37,9 @@ SIGNATURES = {
     # x, c, csq, c split, a, m, B, N, K, d, is_bf16, stream
     "fk_flash_assign": (_P,) * 6 + (_I,) * 5 + (_P,),
     "fk_flash_assign_smem": (_I, _I, ctypes.POINTER(_I)),
-    "fk_sort_inverse_update": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
+    # x, sorted_idx, ids_sorted, out, R, d, S, chunk, threads, is_bf16, stream
+    "fk_sort_inverse_update": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
+    "fk_sort_inverse_layout": (_I, _I, _I, _I, _I, ctypes.POINTER(_I)),
     "fk_flash_lloyd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _P),
     "fk_flash_lloyd_static_smem": (_I, ctypes.POINTER(_I)),
@@ -51,6 +53,9 @@ SIGNATURES = {
     # qp, codes, scales, qsq, 8 output/partial/scratch pointers, B, P, W,
     # d, L, S, chunk, lp, stream
     "fk_flash_probe_grouped_q8": (_P,) * 12 + (_I,) * 8 + (_P,),
+    # q, buckets, counts, probe, order, 8 output/partial/scratch pointers, B,
+    # P, cap, width, d, L, S, chunk, lp, pad, is_bf16, stream
+    "fk_flash_probe_store": (_P,) * 13 + (_I,) * 9 + (ctypes.c_float, _I, _P),
     "fk_flash_probe_attrs": (_I, ctypes.POINTER(_I), ctypes.POINTER(_I)),
 }
 

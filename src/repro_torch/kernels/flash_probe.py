@@ -6,8 +6,13 @@ replace the Pallas TPU kernels of ``repro/kernels/flash_probe.py``:
 - ``flash_probe_raw`` (``flash_probe_kernel``): queries against one shared
   centroid set — the ``nprobe`` cell selection;
 - ``flash_probe_grouped_raw`` (``flash_probe_grouped_kernel``): each query
-  against its own gathered candidate block — the posting-list scan and
-  the exact rescore;
+  against its own gathered candidate block — the exact rescore of the q8
+  path;
+- ``flash_probe_store_raw`` (``flash_probe_store_kernel``): the same
+  function over the probed cells of the padded store, read in place
+  through ``probe`` and ``counts`` (no candidate block is gathered, and
+  no padding row is read) — the posting-list scan of an fp32 or bf16
+  store;
 - ``flash_probe_grouped_q8_raw`` (``flash_probe_grouped_q8_kernel``): the
   same scan over int8 residual codes with per-slot scales, dequantized in
   registers — the q8 proposal.
@@ -33,10 +38,15 @@ from repro_torch.kernels import _build
 TILE = 1024            # candidate rows per selection round (csrc kTile)
 LIST_SMEM_MAX = 2048   # longest running list held in shared memory
 DTYPES = (torch.float32, torch.bfloat16)
+# The padded store's value in every coordinate of an empty slot: large
+# enough that a padding row can never beat a real one, small enough that
+# d * PAD_COORD^2 stays finite in f32. The store scan scores it without
+# reading it.
+PAD_COORD = 1e15
 
 # kernel launches (CUDA only); reset by callers that count
 launches = {"flash_probe": 0, "flash_probe_grouped": 0,
-            "flash_probe_grouped_q8": 0}
+            "flash_probe_store": 0, "flash_probe_grouped_q8": 0}
 
 
 def _topl(score: torch.Tensor, l: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -204,6 +214,94 @@ def flash_probe_grouped_raw(q: torch.Tensor, c: torch.Tensor, l: int, *,
 
 
 # ---------------------------------------------------------------------------
+# kernel 5, store mode: the probed cells of the padded store, read in place
+# ---------------------------------------------------------------------------
+
+def store_candidates(t: torch.Tensor, probe: torch.Tensor,
+                     width: int) -> torch.Tensor:
+    """``width`` slots of each probed cell of a per-slot store array ``t
+    (K, cap, ...)``, probe-rank major: ``(B, nprobe * width, ...)``. On the
+    buckets this is the candidate block the store scan never writes."""
+    b, nprobe = probe.shape
+    return t[:, :width][probe.long()].reshape(b, nprobe * width,
+                                              *t.shape[2:])
+
+
+def flash_probe_store_plain(q: torch.Tensor, buckets: torch.Tensor,
+                            counts: torch.Tensor, probe: torch.Tensor,
+                            width: int, l: int
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: gather the block (``store_candidates``), then
+    ``flash_probe_grouped_plain``. Slots past ``counts`` are scored from
+    what they hold, ``PAD_COORD`` in every coordinate by the store's
+    invariant (the kernel scores that constant without reading them)."""
+    return flash_probe_grouped_plain(
+        q, store_candidates(buckets, probe, width), l)
+
+
+def flash_probe_store_raw(q: torch.Tensor, buckets: torch.Tensor,
+                          counts: torch.Tensor, probe: torch.Tensor,
+                          width: int, l: int, *, splits: int = 1
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-l of each query's probed cells, read from the padded store: q
+    (B, d), buckets (K, cap, d) of q's dtype, counts (K,) int32 (live
+    slots per cell; later slots hold ``PAD_COORD``), probe (B, nprobe)
+    int32 cells. Query b's candidate ``p * width + w`` is ``buckets[probe[b,
+    p], w]`` for ``w < width``: the index of ``flash_probe_grouped_raw`` on
+    the gathered block, which this computes. Returns ``(indices int32 (B,
+    l), scores f32 (B, l))``, score ``||c||^2 - 2 q.c``. ``splits``: CTAs
+    per (query, probe) pair along its ``width`` slots. Precondition (not
+    checked, it would cost a device sync): probe lies in ``[0, K)``.
+    Lists of at most 32 entries run one warp a split (``csrc`` warp mode),
+    longer ones one CTA a split."""
+    if (q.ndim != 2 or buckets.ndim != 3 or probe.ndim != 2
+            or buckets.shape[2] != q.shape[1]
+            or probe.shape[0] != q.shape[0]
+            or counts.shape != (buckets.shape[0],)):
+        raise ValueError(f"flash_probe_store: q (B, d), buckets (K, cap, d), "
+                         f"counts (K,), probe (B, nprobe) expected, got "
+                         f"{tuple(q.shape)}, {tuple(buckets.shape)}, "
+                         f"{tuple(counts.shape)}, {tuple(probe.shape)}")
+    b, d = q.shape
+    k, cap, _ = buckets.shape
+    nprobe = probe.shape[1]
+    if not 1 <= width <= cap:
+        raise ValueError(f"flash_probe_store needs 1 <= width <= cap, got "
+                         f"width={width}, cap={cap}")
+    _check_l(l, nprobe * width, "flash_probe_store", "nprobe*width")
+    _check_float("flash_probe_store", q, buckets)
+    if counts.dtype != torch.int32 or probe.dtype != torch.int32:
+        raise TypeError(f"flash_probe_store: counts and probe must be int32, "
+                        f"got {counts.dtype}, {probe.dtype}")
+    if _check_device("flash_probe_store", q, buckets, counts,
+                     probe).type == "cpu":
+        return flash_probe_store_plain(q, buckets, counts, probe, width, l)
+    if max(b * nprobe, k * cap, nprobe * width, d) >= 2**31:
+        raise ValueError("flash_probe_store: dims must fit int32")
+    if b == 0:
+        return (torch.empty((0, l), dtype=torch.int32, device=q.device),
+                torch.empty((0, l), dtype=torch.float32, device=q.device))
+    q, buckets = q.contiguous(), buckets.contiguous()
+    counts, probe = counts.contiguous(), probe.contiguous()
+    splits, chunk, lp = _launch_geometry(width, l, splits)
+    if b * nprobe * splits >= 2**31:
+        raise ValueError("flash_probe_store: B * nprobe * splits must fit "
+                         "int32")
+    ptrs, keep = _buffers(b, l, nprobe * splits, lp, q.device)
+    # cell-major: the CTAs that read one cell run together
+    order = torch.sort(probe.reshape(-1), stable=True)[1].to(torch.int32)
+    pad = float(torch.tensor(PAD_COORD, dtype=q.dtype))
+    code = _build.lib().fk_flash_probe_store(
+        q.data_ptr(), buckets.data_ptr(), counts.data_ptr(),
+        probe.data_ptr(), order.data_ptr(), *ptrs, b, nprobe, cap, width,
+        d, l, splits, chunk, lp, pad, int(q.dtype == torch.bfloat16),
+        _build.stream_ptr(q.device))
+    _build.check(code, "flash_probe_store kernel launch")
+    launches["flash_probe_store"] += 1
+    return keep[1], keep[0]
+
+
+# ---------------------------------------------------------------------------
 # kernel 6: int8 residual codes
 # ---------------------------------------------------------------------------
 
@@ -274,7 +372,11 @@ def kernel_attrs() -> dict[str, tuple[int, int]]:
     import ctypes
     out = {}
     for which, name in enumerate(("flash_probe", "flash_probe_grouped",
-                                  "flash_probe_grouped_q8", "topl_merge")):
+                                  "flash_probe_grouped_q8", "topl_merge",
+                                  "flash_probe_store",
+                                  "flash_probe_store<bf16>",
+                                  "flash_probe_store_warp",
+                                  "flash_probe_store_warp<bf16>")):
         regs, local = ctypes.c_int(0), ctypes.c_int(0)
         _build.check(_build.lib().fk_flash_probe_attrs(
             which, ctypes.byref(regs), ctypes.byref(local)),

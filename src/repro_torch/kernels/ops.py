@@ -8,11 +8,13 @@ by the tensors' device: the kernel modules run their plain PyTorch version
 for CPU tensors and launch the CUDA kernel for CUDA tensors.
 
 The FlashProbe wrappers (``flash_probe``, ``flash_probe_grouped``,
-``flash_probe_grouped_q8``) keep the reference's contracts: ``want_dists``
-adds ``||q||^2`` back and clamps at 0, ``c_sq`` may be passed in, and
-``l > K`` (or ``> C``) or ``l < 1`` raises ``ValueError``. Their one
-launch parameter is ``splits``, the CTAs that share one query's candidate
-axis, from ``splits=``, a ``plan=`` or the default planner.
+``flash_probe_store``, ``flash_probe_grouped_q8``) keep the reference's
+contracts: ``want_dists`` adds ``||q||^2`` back and clamps at 0, ``c_sq``
+may be passed in, and ``l > K`` (or ``> C``) or ``l < 1`` raises
+``ValueError``. Their one launch parameter is ``splits``, the CTAs that
+share one query's candidate axis (for ``flash_probe_store``, one (query,
+probe) pair's slots), from ``splits=``, a ``plan=`` or the default
+planner.
 
 Block resolution: every wrapper accepts an optional ``plan=``
 (``core.plan.KernelPlan``) and/or explicit ``block_*`` overrides; with
@@ -20,7 +22,7 @@ neither, the device's default ``KernelPlanner`` plans the dispatch. The
 resolved tiles are audited against the block's shared-memory limit
 (``core.heuristics`` footprints). The assign and fused kernels are compiled
 for one tile shape (``BlockConfig`` defaults); the sort-inverse kernel's
-two tile dims (sorted rows per CTA, threads across the columns) are free.
+two tile dims (sorted rows per CTA, threads per CTA) are free.
 """
 from __future__ import annotations
 
@@ -41,12 +43,12 @@ class BlockConfig:
 
     ``assign_*``/``fused_*``: points and centroids per CTA tile (fixed by
     the CUDA sources). ``update_block_n``: sorted rows per sort-inverse
-    CTA; ``update_block_k``: that CTA's threads across the feature columns.
+    CTA; ``update_block_k``: that CTA's threads.
     """
     assign_block_n: int = _fa.TILE_N
     assign_block_k: int = _fa.TILE_K
     update_block_n: int = 512
-    update_block_k: int = 128
+    update_block_k: int = _siu.THREADS
     fused_block_n: int = _fl.TILE_N
     fused_block_k: int = _fl.TILE_K
 
@@ -105,9 +107,9 @@ def _audit_blocks(op: str, bn: int, bk: int, d: int, itemsize: int, device,
     if op == "assign":
         need = H.assign_footprint(bn, bk, d, itemsize)
     elif op == "update":
-        if bk % 32 or not 32 <= bk <= 1024:
+        if bk % 32 or not 32 <= bk <= _siu.THREADS:
             raise ValueError(f"update_block_k={bk} must be a multiple of 32 "
-                             "in [32, 1024] (threads per CTA)")
+                             f"in [32, {_siu.THREADS}] (threads per CTA)")
         need = H.update_footprint(bn, bk, d, itemsize)
     else:
         need = H.fused_footprint(bn, bk, d, itemsize, k)
@@ -308,6 +310,27 @@ def flash_probe_grouped(q: torch.Tensor, c: torch.Tensor, *, l: int,
     splits = _probe_splits("scan", (b, c_n, d, l), q.dtype, splits, plan,
                            q.device)
     idx, v = _fp.flash_probe_grouped_raw(q, c, l, splits=splits)
+    return idx, (_add_qsq(q, v) if want_dists else v)
+
+
+def flash_probe_store(q: torch.Tensor, buckets: torch.Tensor,
+                      counts: torch.Tensor, probe: torch.Tensor, *,
+                      width: int, l: int, splits: int | None = None,
+                      plan=None, want_dists: bool = True
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The posting-list scan over the padded store, read in place. q (B,
+    d), buckets (K, cap, d), counts (K,) int32, probe (B, nprobe) int32
+    cells, ``1 <= l <= nprobe * width``. Computes what
+    ``flash_probe_grouped`` computes on the store's gathered ``(B, nprobe
+    * width, d)`` block, without writing it: ``(indices int32 (B, l) into
+    the probe-rank-major ``p * width + w`` axis, dists f32 (B, l))``
+    ascending."""
+    b, d = q.shape
+    nprobe = probe.shape[1]
+    splits = _probe_splits("scan_store", (b, nprobe, width, d, l), q.dtype,
+                           splits, plan, q.device)
+    idx, v = _fp.flash_probe_store_raw(q, buckets, counts, probe, width, l,
+                                       splits=splits)
     return idx, (_add_qsq(q, v) if want_dists else v)
 
 

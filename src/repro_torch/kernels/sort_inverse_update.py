@@ -23,6 +23,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_assign import DTYPES
 
 launches = 0  # kernel launches (CUDA only); reset by callers that count
+THREADS = 256  # threads per CTA (the kernels' __launch_bounds__)
 
 
 def _check(x, sorted_idx, ids_sorted, num_segments, who):
@@ -54,10 +55,11 @@ def sort_inverse_update_plain(x: torch.Tensor, sorted_idx: torch.Tensor,
 
 def sort_inverse_update_raw(x: torch.Tensor, sorted_idx: torch.Tensor,
                             ids_sorted: torch.Tensor, num_segments: int, *,
-                            chunk: int = 512, threads: int = 128
+                            chunk: int = 512, threads: int = THREADS
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Segment sums over the sorted order. ``chunk``: sorted rows per CTA;
-    ``threads``: CTA width over the feature columns (multiple of 32)."""
+    ``threads``: threads per CTA (a multiple of 32, at most 256), split
+    into workers of whole rows (``layout``)."""
     global launches
     _check(x, sorted_idx, ids_sorted, num_segments, "sort_inverse_update")
     if x.device.type == "cpu":
@@ -65,20 +67,59 @@ def sort_inverse_update_raw(x: torch.Tensor, sorted_idx: torch.Tensor,
                                          num_segments)
     if x.device.type != "cuda":
         raise ValueError(f"sort_inverse_update: unsupported device {x.device}")
-    if chunk < 1 or threads < 32 or threads > 1024 or threads % 32:
+    if chunk < 1 or threads < 32 or threads > THREADS or threads % 32:
         raise ValueError(f"sort_inverse_update: chunk={chunk} must be >= 1 "
-                         f"and threads={threads} a multiple of 32 <= 1024")
+                         f"and threads={threads} a multiple of 32 <= "
+                         f"{THREADS}")
     x = x.contiguous()
     r, d = x.shape
-    sums = torch.zeros((num_segments, d), dtype=torch.float32, device=x.device)
-    counts = torch.zeros((num_segments,), dtype=torch.float32, device=x.device)
-    if r == 0:
-        return sums, counts
+    # sums then counts in one allocation, zeroed by the launch's memset
+    out = torch.empty(num_segments * (d + 1), dtype=torch.float32,
+                      device=x.device)
     code = _build.lib().fk_sort_inverse_update(
         x.data_ptr(), sorted_idx.contiguous().data_ptr(),
-        ids_sorted.contiguous().data_ptr(), sums.data_ptr(), counts.data_ptr(),
-        r, d, chunk, threads, int(x.dtype == torch.bfloat16),
+        ids_sorted.contiguous().data_ptr(), out.data_ptr(), r, d,
+        num_segments, chunk, threads, int(x.dtype == torch.bfloat16),
         _build.stream_ptr(x.device))
     _build.check(code, "sort_inverse_update kernel launch")
     launches += 1
-    return sums, counts
+    return (out[:num_segments * d].view(num_segments, d),
+            out[num_segments * d:])
+
+
+def layout(d: int, itemsize: int, aligned: bool = True
+           ) -> tuple[int, int, int]:
+    """``(V, G, VPL)`` of a launch at width ``d``: elements per load (16
+    bytes, or 1 on the scalar path for a ``d`` off the vector width or an
+    unaligned ``x``), lanes per worker (the power of two covering the row's
+    loads, at most 32) and loads per lane per slab of the feature axis
+    (``csrc/sort_inverse_update.cu`` ``layout_for``)."""
+    vw = 16 // itemsize
+    v = vw if d % vw == 0 and aligned else 1
+    nvec = d // v
+    g = 1
+    while g < nvec and g < 32:
+        g <<= 1
+    vpl = 1 if nvec <= 32 else (2 if nvec <= 64 else 4)
+    return v, g, vpl
+
+
+def smem_bytes(d: int, itemsize: int, chunk: int, threads: int = THREADS,
+               aligned: bool = True) -> int:
+    """Dynamic shared memory of one CTA: two boundary slots per worker of
+    one slab's partial sums, the chunk's sorted ids and point indices, the
+    slots' ids and row counts, and two flags."""
+    v, g, vpl = layout(d, itemsize, aligned)
+    e = 2 * (threads // g)
+    return e * g * vpl * v * 4 + (2 * chunk + 2 * e + 2) * 4
+
+
+def kernel_layout(d: int, chunk: int, threads: int, is_bf16: bool,
+                  aligned: bool = True) -> tuple[int, int, int, int]:
+    """``(smem bytes, V, G, VPL)`` as the compiled launcher computes them."""
+    import ctypes
+    out = (ctypes.c_int * 4)()
+    _build.check(_build.lib().fk_sort_inverse_layout(
+        d, chunk, threads, int(is_bf16), int(aligned), out),
+        "fk_sort_inverse_layout")
+    return tuple(int(v) for v in out)

@@ -67,18 +67,19 @@ def _assert_search_equal(got, exp, q, x):
     np.testing.assert_allclose(dists, jdists, rtol=1e-5, atol=_atol(q, x))
 
 
-def _pair(d, codec, seed=1, extra_dead=False):
+def _pair(d, codec, seed=1, extra_dead=False, max_cap=None):
     """The same index in both packages: carried centroids (blob centres
     plus noise; with ``extra_dead`` one far-away cell that stays empty),
-    then one ``add`` of the corpus."""
+    then one ``add`` of the corpus (rows past ``max_cap`` in a cell
+    spill)."""
     x, centers = _blobs(seed, N, K, d)
     rng = np.random.default_rng(seed + 100)
     c0 = centers + rng.standard_normal(centers.shape).astype(np.float32)
     if extra_dead:
         c0 = np.concatenate([c0, np.full((1, d), 500.0, np.float32)])
     kw = {} if codec == "fp32" else {"rescore": "host"}
-    jidx = JIVF(jnp.asarray(c0), 8, codec=codec, **kw)
-    tidx = IVFIndex(c0, 8, device="cpu", codec=codec, **kw)
+    jidx = JIVF(jnp.asarray(c0), 8, codec=codec, max_cap=max_cap, **kw)
+    tidx = IVFIndex(c0, 8, device="cpu", codec=codec, max_cap=max_cap, **kw)
     ja = jidx.add(jnp.asarray(x))
     ta = tidx.add(x)
     assert np.array_equal(ta.numpy(), np.asarray(ja))
@@ -197,6 +198,20 @@ def test_full_probe_equals_brute(pair):
     assert np.array_equal(got[0].numpy(), ref[0].numpy())
     np.testing.assert_allclose(got[1].numpy(), ref[1].numpy(), rtol=1e-5,
                                atol=_atol(q, x))
+
+
+def test_search_with_spills_matches_jax():
+    """``max_cap`` spills: each cell keeps its first 96 rows, and the search
+    (the store scan over those cells) returns the JAX package's ids."""
+    x, jidx, tidx = _pair(16, "fp32", max_cap=96)
+    assert tidx.spilled == jidx.spilled > 0 and tidx.cap == jidx.cap == 96
+    ids, _ = tidx.posting_lists()
+    stored = x[np.sort(ids.numpy())]
+    q = x[3::N // NQ][:NQ]   # tie-free against the stored rows
+    for nprobe in (4, K):
+        _assert_search_equal(tidx.search(q, topk=10, nprobe=nprobe),
+                             jidx.search(jnp.asarray(q), topk=10,
+                                         nprobe=nprobe), q, stored)
 
 
 def test_refresh_with_guard_and_repair_matches_jax():

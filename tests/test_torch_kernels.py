@@ -143,7 +143,12 @@ def test_flash_assign_batched_matches_jax():
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("n,k,d", [(64, 4, 2), (1000, 37, 19),
                                    (513, 100, 33), (100, 1000, 7),
-                                   (2048, 512, 64)])
+                                   (2048, 512, 64),
+                                   # K = 1: every id equal, one segment over
+                                   # every chunk; K > N, most clusters empty;
+                                   # d = 129 and d = 1 off the vector width
+                                   (2048, 1, 8), (50, 4000, 3),
+                                   (1500, 40, 129), (31, 5, 1)])
 def test_sort_inverse_matches_jax(n, k, d, dt):
     x, _ = _data(n, k, d, seed=6)
     a = np.random.default_rng(7).integers(0, k, n).astype(np.int32)

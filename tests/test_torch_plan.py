@@ -10,6 +10,7 @@ from repro_torch.core import heuristics as H
 from repro_torch.core import plan as P
 from repro_torch.core import KMeansConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels import sort_inverse_update as siu
 
 
 def fused_smem_bytes(k, d):
@@ -120,12 +121,35 @@ def test_fused_two_pass_crossover(itemsize, k_cross):
 
 
 def test_choose_blocks_update_tiles():
+    """The sort-inverse CTA: 256 threads, the fewest sorted rows (a power of
+    two in [64, 2048]) that keep every CTA resident in one wave, so that at
+    small N all of its gathers are in flight at once."""
     for n, d in ((100, 3), (65536, 128), (8388608, 128), (262144, 512)):
         blk = H.choose_blocks(n, 1024, d, hw=H100).validate()
-        assert 128 <= blk.update_block_n <= 1024
-        assert blk.update_block_k % 32 == 0 and blk.update_block_k <= 256
+        chunk = blk.update_block_n
+        assert H.UPDATE_MIN_CHUNK <= chunk <= H.UPDATE_MAX_CHUNK == 2048
+        assert blk.update_block_k == H.UPDATE_THREADS == 256
         assert (blk.assign_block_n, blk.assign_block_k) == (128, 128)
         assert (blk.fused_block_n, blk.fused_block_k) == (64, 64)
+        ctas = -(-n // chunk)
+        resident = H100.num_sms * H.update_ctas_per_sm(d, 4, chunk, H100)
+        if chunk < H.UPDATE_MAX_CHUNK:   # one wave, and no shorter chunk is
+            assert ctas <= resident      # one
+            assert chunk == H.UPDATE_MIN_CHUNK or -(-n // (chunk // 2)) \
+                > resident
+        assert H.update_footprint(chunk, 256, d, 4) <= H100.smem_block_bytes
+    # smallN_smallK: 256 rows a CTA, 256 CTAs within 3 a SM on 132 SMs
+    assert H.choose_blocks(65536, 256, 128, hw=H100).update_block_n == 256
+    assert H.update_ctas_per_sm(128, 4, 256, H100) == 3
+    # the layouts: one f32 row a warp at d = 128, two bf16 rows with 16 lanes
+    # each, four vectors a lane at d = 512, the scalar path off the vector
+    assert siu.layout(128, 4) == (4, 32, 1)
+    assert siu.layout(128, 2) == (8, 16, 1)
+    assert siu.layout(512, 4) == (4, 32, 4)
+    assert siu.layout(19, 4) == (1, 32, 1)
+    assert siu.layout(129, 2) == (1, 32, 4)
+    assert siu.layout(128, 4, aligned=False) == (1, 32, 4)
+    assert siu.layout(1, 4) == (1, 1, 1)
 
 
 def test_planner_memo_and_counters():
