@@ -120,7 +120,7 @@ SCAN_RAGGED = [(1, 5, 1, 1, 0, False), (7, 1000, 19, 7, 3, False),
 Q8_RAGGED = [(1, 1, 1, 1, 1, False), (5, 3, 37, 19, 7, False),
              (16, 16, 100, 129, 40, False), (4, 4, 700, 16, 2800, False),
              (8, 4, 64, 32, 40, True)]
-PAD = 1e15   # the store's padding coordinate (kernels/flash_probe.py)
+PAD = 1e15   # the store's padding coordinate (index/store.py _PAD_COORD)
 # sort-inverse edges: (R, S, d, ids, chunk): one segment over every CTA, K > N
 # with most clusters empty, R off the chunk, R < 32, d off the vector width
 SIU_EDGE = [(5000, 3, 128, "equal", 512), (300, 5000, 64, "random", 64),
@@ -131,12 +131,16 @@ SIU_EDGE = [(5000, 3, 128, "equal", 512), (300, 5000, 64, "random", 64),
 # cap > width), query 0 probing the emptiest cells (fewer live rows than L
 # where they hold fewer), and cells 5 and 6 holding the same rows. d covers
 # every lane-group size of the vector path (1 .. 32 lanes) and the scalar
-# path (d = 1, 3, 19); L = 2,500 keeps the running list in global scratch
+# path (d = 1, 3, 19). L <= 32 takes the cell mode: cells probed by more
+# than 8 pairs (several units), more than 1,024 pairs with runs of one cell
+# across the prologue's chunks, more tiles than the ring holds. L = 40, 100
+# and 2,500 take the list mode; 2,500 keeps its list in global scratch
 STORE_EDGE = [(64, 40, 256, 200, 128, 8, 10), (33, 24, 64, 64, 19, 5, 40),
               (16, 12, 300, 300, 8, 4, 100), (8, 10, 3000, 3000, 16, 4, 2500),
               (20, 16, 100, 96, 64, 6, 7), (12, 9, 48, 48, 3, 3, 20),
               (7, 7, 40, 40, 1, 2, 5), (10, 12, 128, 128, 512, 4, 10),
-              (5, 30, 2200, 2128, 32, 16, 10)]
+              (5, 30, 2200, 2128, 32, 16, 10), (40, 8, 64, 60, 19, 3, 12),
+              (1100, 7, 40, 40, 16, 3, 3)]
 STEP_PAIRS = 12  # smallN_smallK: two-pass / fused iteration pairs, ABAB
 # FlashIVF: the FAISS IVF1024,Flat configuration on SIFT1M (N, K, d),
 # searched in batches of IVF_B queries at topk 10, nprobe 16
@@ -580,11 +584,13 @@ def main() -> int:
         the grouped scan's plain version), scored on that block; and against
         the grouped kernel on the gathered block, which it must equal bit
         for bit (same per-lane sums, same shuffle pairing)."""
-        cand = fp.store_candidates(buckets, probe, width)
+        cand = store_mod.candidate_slots(buckets, probe, width)
         score, mag = scan_scores(q, cand)
-        exp = fp.flash_probe_store_plain(q, buckets, counts, probe, width, l)
+        exp = fp.flash_probe_store_plain(q, buckets, counts, probe, width, l,
+                                         PAD)
         got = ops.flash_probe_store(q, buckets, counts, probe, width=width,
-                                    l=l, splits=splits, want_dists=False)
+                                    l=l, pad=PAD, splits=splits,
+                                    want_dists=False)
         topl_check("flash_probe_store", tag, got, exp, score, mag,
                    q.shape[1])
         blk = ops.flash_probe_grouped(q, cand, l=l, want_dists=False)
@@ -749,12 +755,15 @@ def main() -> int:
         counts = cnt.to(torch.int32)
         q = torch.randn(bq, d, device=dev, generator=gen_e)
         live0 = int(torch.clamp(cnt[probe[0].long()], max=width).sum())
-        for cdt in (torch.float32, torch.bfloat16):
+        for cdt, var in itertools.product((torch.float32, torch.bfloat16),
+                                          ("cell", "rows")):
+            fp.STORE_VARIANT = var
             for splits in (None, 1, 3):
                 store_check(q.to(cdt), xs.to(cdt), counts, probe, width, l,
                             f"edge{(bq, kc, cap, width, d, nprobe, l)}/"
-                            f"query0 live {live0}/{cdt}/"
+                            f"query0 live {live0}/{cdt}/{var}/"
                             f"splits={splits or 'planned'}", splits)
+        fp.STORE_VARIANT = "cell"
 
     def aligned(shape, g):
         """Values in [1, 1 + 1/16) with the low 13 mantissa bits 0x0fff:
@@ -1224,8 +1233,67 @@ def main() -> int:
         if codec == "fp32":
             buckets, bucket_ids = index.store.device_arrays()
             cnts = index.counts
-            store_check(qb, buckets, cnts, probe, width, TOPK, "ivf/fp32",
-                        plans[2])
+            got_cell = store_check(qb, buckets, cnts, probe, width, TOPK,
+                                   "ivf/fp32", plans[2])
+            # the cell mode's two kernels on this batch, in turns (cell,
+            # warp, warp, cell), and the cell kernel at other splits
+            def store_ms(s=plans[2]):
+                return ms_of(lambda: fp.flash_probe_store_raw(
+                    qb, buckets, cnts, probe, width, TOPK, PAD, splits=s),
+                    reps=20)
+            variants = {"cell": [], "warp": [], "rows": []}
+            for name in ("rows", "cell", "warp", "warp", "cell", "rows"):
+                fp.STORE_VARIANT = name
+                variants[name].append(store_ms())
+            fp.STORE_VARIANT = "warp"
+            got_warp = fp.flash_probe_store_raw(qb, buckets, cnts, probe,
+                                                width, TOPK, PAD,
+                                                splits=plans[2])
+            fp.STORE_VARIANT = "rows"
+            got_rows = fp.flash_probe_store_raw(qb, buckets, cnts, probe,
+                                                width, TOPK, PAD,
+                                                splits=plans[2])
+            split_rows = {s: store_ms(s) for s in (1, 2, 3, 4, 8)}
+            fp.STORE_VARIANT = "cell"
+            check(torch.equal(got_cell[0], got_warp[0])
+                  and torch.equal(got_cell[1], got_warp[1])
+                  and torch.equal(got_cell[0], got_rows[0])
+                  and torch.equal(got_cell[1], got_rows[1]),
+                  "ivf/fp32: the cell, warp and rows kernels agree bit for "
+                  "bit")
+            print(f"  the rows kernel by splits: {split_rows}", flush=True)
+            split_ms = {s: store_ms(s) for s in (1, 2, 4, 8, 16)}
+            diag = {}
+            for name in ("cell", "cell_noscore", "cell_noload",
+                         "cell_noinsert", "cell_notree", "cell_nolds",
+                         "cell_nofma", "cell"):
+                fp.STORE_VARIANT = name
+                diag.setdefault(name, []).append(store_ms())
+            print(f"  store scan diagnostics (ms): {diag}", flush=True)
+            for name in ("cell", "warp", "rows"):
+                fp.STORE_VARIANT = name
+                call = lambda: fp.flash_probe_store_raw(
+                    qb, buckets, cnts, probe, width, TOPK, PAD,
+                    splits=plans[2])
+                call()
+                torch.cuda.synchronize()
+                h0 = time.perf_counter()
+                for _ in range(20):
+                    call()
+                h1 = time.perf_counter()
+                torch.cuda.synchronize()
+                rows = device_rows(call, 10)
+                print(f"  store scan {name}: host {(h1 - h0) / 20 * 1e3:.4f} "
+                      f"ms a call to enqueue; device by kernel: "
+                      + "; ".join(f"{r['name'][:60]} {r['ms']:.4f} ms x"
+                                  f"{r['calls']:g}" for r in rows),
+                      flush=True)
+            fp.STORE_VARIANT = "cell"
+            print(f"  store scan, cell vs warp kernel (ms, in turns): "
+                  f"{variants}; the cell kernel by splits: {split_ms} "
+                  f"(planned {plans[2]})", flush=True)
+            details["ivf"][-1]["store_variants_ms"] = variants
+            details["ivf"][-1]["store_cell_splits_ms"] = split_ms
             # the block path on the same batch: the gathered candidate block
             # and the grouped scan, as before the store scan
             cand_x, cand_ids = store_mod.gather_global(
@@ -1268,10 +1336,10 @@ def main() -> int:
             # bound of each query reading its own live rows
             main_inputs["flash_probe_store"] = (
                 lambda qb=qb, bk=buckets, cn=cnts, pr=probe, s=plans[2]:
-                fp.flash_probe_store_raw(qb, bk, cn, pr, width, TOPK,
+                fp.flash_probe_store_raw(qb, bk, cn, pr, width, TOPK, PAD,
                                          splits=s),
                 lambda qb=qb, bk=buckets, cn=cnts, pr=probe:
-                fp.flash_probe_store_plain(qb, bk, cn, pr, width, TOPK),
+                fp.flash_probe_store_plain(qb, bk, cn, pr, width, TOPK, PAD),
                 H.scan_store_bytes(IVF_B, NPROBE, width, d, TOPK,
                                    rows_read=cell_rows),
                 4.0 * live_rows * d, [IVF_B, NPROBE, width, d, TOPK],

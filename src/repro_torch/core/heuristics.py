@@ -290,40 +290,36 @@ def choose_probe_splits(b: int, c: int, l: int, hw: Hardware = H100) -> int:
     return max(1, min(by_fill, by_rows))
 
 
-STORE_REGS = 80            # the store scan's __launch_bounds__(256, 3) cap
-STORE_MIN_CHUNK = 512      # CTA mode: fewest slots of a cell worth a CTA
-STORE_WARP_LIST = 32       # lists up to this long run one warp a pair
-STORE_WARP_WAVES = 4       # warp mode: waves of resident warps to fill
-STORE_WARP_MIN_ROWS = 256  # warp mode: fewest slots a warp scans
+STORE_REGS = 80            # the cell kernel's __launch_bounds__(256, 3) cap
+STORE_CELL_PAIRS = PROBE_THREADS // 32  # pairs of one cell a unit scores
+STORE_WAVES = 4            # cell mode: work items per resident CTA to aim for
+STORE_MIN_ROWS = 256       # cell mode: fewest slots of a cell worth an item
 
 
-def store_ctas_per_sm(lp: int, hw: Hardware = H100) -> int:
-    """Resident store-scan CTAs per SM: as ``probe_ctas_per_sm`` at the
-    store kernel's register cap; the warp mode (``lp <= STORE_WARP_LIST``)
-    holds its list in registers and takes no shared memory."""
+def store_ctas_per_sm(d: int, itemsize: int, hw: Hardware = H100) -> int:
+    """Resident cell-mode CTAs per SM: threads, the kernel's register cap
+    and its ring of row tiles (``flash_probe.store_cell_smem``)."""
     by_threads = _THREADS_PER_SM // PROBE_THREADS
     by_regs = 65536 // (PROBE_THREADS * STORE_REGS)
-    by_smem = by_threads if lp <= STORE_WARP_LIST else max(
-        1, hw.smem_block_bytes // probe_footprint(lp))
+    by_smem = hw.smem_block_bytes // _fp.store_cell_smem(d, itemsize)
     return max(1, min(by_threads, by_regs, by_smem))
 
 
-def choose_store_splits(b: int, nprobe: int, width: int, l: int,
-                        hw: Hardware = H100) -> int:
-    """Splits of each (query, probe) pair's ``width`` slots. Warp mode
-    (``l <= STORE_WARP_LIST``, one warp a split): enough splits that the
-    ``b * nprobe`` pairs fill ``STORE_WARP_WAVES`` waves of resident warps,
-    with no warp under ``STORE_WARP_MIN_ROWS`` slots. CTA mode: one CTA a
-    split, enough to fill every SM once, none under ``STORE_MIN_CHUNK``."""
-    pairs = max(1, b * nprobe)
-    if l <= STORE_WARP_LIST:
-        warps = hw.num_sms * store_ctas_per_sm(l, hw) * (PROBE_THREADS // 32)
-        by_fill = -(-STORE_WARP_WAVES * warps // pairs)
-        by_rows = max(1, width // STORE_WARP_MIN_ROWS)
-    else:
-        want = hw.num_sms * store_ctas_per_sm(min(l, STORE_MIN_CHUNK), hw)
-        by_fill = -(-want // pairs)
-        by_rows = max(1, width // STORE_MIN_CHUNK)
+def choose_store_splits(b: int, nprobe: int, width: int, d: int, l: int,
+                        itemsize: int = 4, hw: Hardware = H100) -> int:
+    """Splits of the store scan (``flash_probe.store_geometry``). Cell mode:
+    a work item is a unit of at most ``STORE_CELL_PAIRS`` pairs of one cell
+    and one split of its ``width`` slots; the units are at least ``b *
+    nprobe / STORE_CELL_PAIRS`` (each cell probed that often), so take
+    enough splits for ``STORE_WAVES`` items per resident CTA, none under
+    ``STORE_MIN_ROWS`` slots. List mode: the block scan's rule over each
+    query's ``nprobe * width`` slots."""
+    if not _fp.store_cell_mode(l, d, itemsize):
+        return choose_probe_splits(b, nprobe * width, l, hw)
+    units = max(1, -(-b * nprobe // STORE_CELL_PAIRS))
+    ctas = hw.num_sms * store_ctas_per_sm(d, itemsize, hw)
+    by_fill = -(-STORE_WAVES * ctas // units)
+    by_rows = max(1, width // STORE_MIN_ROWS)
     return max(1, min(by_fill, by_rows))
 
 

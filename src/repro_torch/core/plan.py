@@ -21,6 +21,7 @@ import json
 import torch
 
 from repro_torch.core import heuristics
+from repro_torch.kernels import flash_probe as _fp
 from repro_torch.kernels.ops import BlockConfig
 
 OPS = ("assign", "update", "step", "probe", "scan", "scan_store", "scan_q8")
@@ -105,8 +106,8 @@ class KernelPlan:
     impl: str             # assign: "flash" | update: "sort_inverse"
                           # step: "fused" / "two_pass" | probe:
                           # "online_topl" | scan: "grouped_scan" |
-                          # scan_store: "store_scan_warp" /
-                          # "store_scan" |
+                          # scan_store: "store_scan_cell" /
+                          # "store_scan_list" |
                           # scan_q8: "grouped_scan_q8"
     blocks: tuple
     block: BlockConfig | None   # None for the probe ops
@@ -258,19 +259,20 @@ class KernelPlanner:
                           hbm_bytes=hbm)
 
     def _store_plan(self, s: tuple, b: int) -> KernelPlan:
-        """The store scan: ``blocks = (splits, PROBE_TILE)`` — splits of
-        each (query, probe) pair's slots (a warp each in the warp mode, a
-        CTA each otherwise), and rows per selection round. ``hbm_bytes`` is
-        the most it can read (every slot live)."""
+        """The store scan: ``blocks = (splits, PROBE_TILE)``, the splits of
+        ``flash_probe.store_geometry`` and the list mode's rows per
+        selection round. ``hbm_bytes`` is the most it can read (every slot
+        live, read once per pair)."""
         H, hw = heuristics, self.hw
         n, nprobe, width, d, l = s
-        splits = H.choose_store_splits(n, nprobe, width, l, hw)
-        lp = min(l, -(-width // splits))
-        warp = lp <= H.STORE_WARP_LIST
-        merge = H.probe_merge_footprint(l) if nprobe * splits > 1 else 0
-        smem = merge if warp else max(H.probe_footprint(lp), merge)
+        splits = H.choose_store_splits(n, nprobe, width, d, l, b, hw)
+        _, _, lp, lists = _fp.store_geometry(nprobe, width, d, b, l, splits)
+        merge = H.probe_merge_footprint(l) if lists > 1 else 0
+        cell = _fp.store_cell_mode(l, d, b)
+        smem = max(_fp.store_cell_smem(d, b) if cell
+                   else H.probe_footprint(lp), merge)
         return KernelPlan(op="scan_store", shape=s, itemsize=b, hw=hw.name,
-                          impl="store_scan_warp" if warp else "store_scan",
+                          impl="store_scan_cell" if cell else "store_scan_list",
                           blocks=(splits, H.PROBE_TILE),
                           block=None, smem_bytes=smem,
                           smem_limit=hw.smem_block_bytes,

@@ -5,8 +5,9 @@
 //   flash_probe_grouped_raw    (_flash_probe_grouped_kernel, l.116)   -> flash_probe_grouped_kernel
 //                              and, reading the padded store in place instead of a
 //                              gathered block (with gather_global, repro/index/store.py)
-//                                                                     -> flash_probe_store_kernel,
-//                                                                        flash_probe_store_warp_kernel
+//                                                                     -> flash_probe_store_kernel
+//                                                                        (lists of at most 32),
+//                                                                        flash_probe_store_list_kernel
 //   flash_probe_grouped_q8_raw (_flash_probe_grouped_q8_kernel, l.157) -> flash_probe_grouped_q8_kernel
 //
 // Each returns, for every query b, the L candidates of smallest score in ascending
@@ -204,39 +205,74 @@ struct ProbeRow {  // kernel 4: centroids shared by every query
   }
 };
 
+// One lane's share of ||c||^2 - 2 q.c for row cr, summed term by term, c c then
+// -2 q c for each column, in one accumulator; cr == nullptr scores a padding row (every
+// coordinate pad) without reading it. Every mode of kernel 5 sums alike (StoreRows
+// too), so they agree bit for bit.
+template <typename T, bool kVec, bool kStream>
+__device__ __forceinline__ float expanded_part(const T* qr, const T* cr, float pad, int d,
+                                               int lane_g, int g) {
+  float acc = 0.f;
+  if constexpr (kVec) {
+    constexpr int V = Vec16<T>::N;
+    for (int j = lane_g * V; j < d; j += g * V) {
+      float cv[V], qm2[V];
+      if (cr != nullptr) {
+        load_vec<T, kStream>(cr + j, cv);
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e) cv[e] = pad;
+      }
+      load_vec<T, false>(qr + j, qm2);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        qm2[e] *= -2.f;
+        acc = fmaf(cv[e], cv[e], acc);
+        acc = fmaf(qm2[e], cv[e], acc);
+      }
+    }
+  } else {
+    for (int j = lane_g; j < d; j += g) {
+      const float cv = cr != nullptr ? to_f32(cr[j]) : pad;
+      const float qm2 = -2.f * to_f32(qr[j]);
+      acc = fmaf(cv, cv, acc);
+      acc = fmaf(qm2, cv, acc);
+    }
+  }
+  return acc;
+}
+
 template <typename T, bool kVec>
 struct GroupedRow {  // kernel 5: each query against its own candidate block
   const T* q;        // (B, d)
   const T* c;        // (B, C, d)
   int C, d;
-  // ||c||^2 - 2 q.c summed term by term, c c then -2 q c for each column, in one
-  // accumulator (StoreRows sums alike, so the two modes agree bit for bit).
+  __device__ float operator()(int b, int idx, bool valid, int lane_g, int g) const {
+    const float acc = valid ? expanded_part<T, kVec, true>(q + (size_t)b * d,
+                                                           c + ((size_t)b * C + idx) * d,
+                                                           0.f, d, lane_g, g)
+                            : 0.f;
+    return group_sum(acc, g);
+  }
+};
+
+template <typename T, bool kVec>
+struct StoreRow {      // kernel 5, store mode, lists longer than a warp keeps
+  const T* q;          // (B, d)
+  const T* buckets;    // (K, cap, d)
+  const int* counts;   // (K,)
+  const int* probe;    // (B, P)
+  int P, cap, width, d;
+  float pad;           // the store's padding coordinate, as its dtype holds it
+  // Candidate idx = p * width + w is slot w of cell probe[b, p]; a slot at or past the
+  // cell's count is a pad, scored from the constant without a read.
   __device__ float operator()(int b, int idx, bool valid, int lane_g, int g) const {
     float acc = 0.f;
     if (valid) {
-      const T* qr = q + (size_t)b * d;
-      const T* cr = c + ((size_t)b * C + idx) * d;
-      if constexpr (kVec) {
-        constexpr int V = Vec16<T>::N;
-        for (int j = lane_g * V; j < d; j += g * V) {
-          float cv[V], qm2[V];
-          load_vec<T, true>(cr + j, cv);
-          load_vec<T, false>(qr + j, qm2);
-#pragma unroll
-          for (int e = 0; e < V; ++e) {
-            qm2[e] *= -2.f;
-            acc = fmaf(cv[e], cv[e], acc);
-            acc = fmaf(qm2[e], cv[e], acc);
-          }
-        }
-      } else {
-        for (int j = lane_g; j < d; j += g) {
-          const float cv = to_f32(cr[j]);
-          const float qm2 = -2.f * to_f32(qr[j]);
-          acc = fmaf(cv, cv, acc);
-          acc = fmaf(qm2, cv, acc);
-        }
-      }
+      const int p = idx / width, w = idx - p * width;
+      const int cell = __ldg(probe + (size_t)b * P + p);
+      const T* cr = w < __ldg(counts + cell) ? buckets + ((size_t)cell * cap + w) * d : nullptr;
+      acc = expanded_part<T, kVec, false>(q + (size_t)b * d, cr, pad, d, lane_g, g);
     }
     return group_sum(acc, g);
   }
@@ -405,25 +441,35 @@ __device__ void run_stage1(const Row& row, int C, int lp, int chunk, int g, floa
 // pads score alike, so the scorer runs once on the constant and the pads a list needs
 // enter as one sorted run (ascending index), exactly where they would if read.
 //
-// The unit of work is one split of one (query, probe) pair; the wrapper sorts the pairs
-// by cell, so the units that read one cell run together. Lists of at most kWarpList
-// entries (the search's top-k) take the warp mode: a warp a unit, its list in
-// registers, the warps of a CTA mostly on one cell, so L1 serves the repeats. Longer
-// lists take a CTA a unit (scan_topl's shared-memory selection) and L2 serves them.
+// Cell mode, for lists of at most kWarpList entries (the search's top-k). The wrapper
+// sorts the (query, probe) pairs by cell; a prologue kernel cuts the sorted pairs into
+// units of at most kCellPairs pairs of one cell. A work item is one unit and one of S
+// splits of the cell's slots. A CTA takes items from a counter; it streams the item's
+// live rows with TMA bulk copies (cp.async.bulk, completion on an mbarrier) through a
+// ring of kCellStages shared-memory tiles, and each warp scores every tile against its
+// own pair's query, keeping that pair's list in registers (lane i holds entry i). So a
+// row is read from HBM once per unit, not once per pair, and every pair of the unit
+// scores it from shared memory. Rows whose width is not a multiple of 16 bytes are
+// copied by the threads instead (the scalar path).
 //
 // Scoring: a group of G lanes takes 8 consecutive rows at once, each lane loading 16
-// bytes of each of the 8 rows (8 rows in flight a group) and keeping one partial score
-// a row; tree8 then reduces the 8 partials with one shuffle tree (7 halving shuffles
-// plus one per remaining level) instead of 8 trees of log2(G) levels. Its per-lane sums
-// are GroupedRow's and it pairs the lanes as group_sum does, so the scores, and with
-// them the selected indices, are bitwise those of the gathered block's scan.
+// bytes of each of the 8 rows and keeping one partial score a row; tree8 then reduces
+// the 8 partials with one shuffle tree (7 halving shuffles plus one per remaining
+// level) instead of 8 trees of log2(G) levels. Its per-lane sums are expanded_part's
+// and it pairs the lanes as group_sum does, so the scores, and with them the selected
+// indices, are bitwise those of the gathered block's scan.
 //
-// What bounds it: bytes, at least each probed cell's live rows read once from HBM. At
-// the IVF1024 shape that is 0.10 ms against 0.50 ms measured (PERF.md): the warps of a
-// CTA wait together on one row stream, 8 rows deep, so the SM holds few bytes in
-// flight. A shared-memory ring for eight cell-sorted pairs lost to this (they span
-// about two cells, so warps idle while the other cell streams); one whose CTAs each
-// take one cell's queries is the next step.
+// List mode, for longer lists: run_stage1 with StoreRow, a CTA per split of a query's
+// nprobe * width slots, as the block kernel over the gathered block.
+//
+// What bounds it: bytes, at least each probed cell's live rows read once from HBM, and
+// then the scoring from shared memory: every (pair, live row) costs 2 d FMAs.
+
+constexpr int kStoreMinBlocks = 3;         // __launch_bounds__: at most 80 registers a thread
+constexpr int kWarpList = 32;              // longest list the cell mode keeps, one entry a lane
+constexpr int kCellPairs = kThreads / 32;  // pairs of one cell a unit scores, a warp each
+constexpr int kCellStages = 4;             // tiles in the shared-memory ring
+constexpr int kCellHead = 128;             // the ring's mbarriers and the work item, before it
 
 // Lane lane_g of a group of G lanes enters with partial sums of rows 0..7 in v and
 // leaves with full sums: of rows held_base<G>(lane_g) + i in v[i], i < 8 / min(G, 8).
@@ -459,16 +505,17 @@ __device__ __forceinline__ int held_base(int lane_g) {
   return base;
 }
 
-template <typename T, bool kVec, int G>
+template <typename T, bool kVec, int G, bool kShared>
 struct StoreRows {
   const T* q;     // this query's row (d)
-  const T* rows;  // the cell's slots (cap, d)
+  const T* rows;  // consecutive rows (shared memory with kShared, else global)
   int d;
   float pad;      // the store's padding coordinate, as its dtype holds it
+  int flags = 0;
 
   // Scores ||c||^2 - 2 q.c of rows w .. w + 7 (rows at or past w + n are not read), or
   // with kPad of the padding row, left as tree8 leaves them. Each lane sums its columns
-  // as GroupedRow does, and tree8 pairs the lanes as group_sum's butterfly does, so
+  // as expanded_part does, and tree8 pairs the lanes as group_sum's butterfly does, so
   // every score is bitwise the block kernel's on the gathered row.
   template <bool kPad>
   __device__ __forceinline__ void score8(int w, int n, int lane_g, float (&v)[8]) const {
@@ -485,8 +532,13 @@ struct StoreRows {
         VT raw[8];
         if constexpr (!kPad) {
 #pragma unroll
-          for (int r = 0; r < 8; ++r)  // L1 and L2 keep the rows for the cell's other queries
-            if (r < n) raw[r] = __ldg(reinterpret_cast<const VT*>(rows + (size_t)(w + r) * d + j));
+          for (int r = 0; r < 8; ++r)
+            if (r < n) {
+              const VT* p = reinterpret_cast<const VT*>(rows + (size_t)(w + r) * d + j);
+              if (flags & 16) raw[r] = VT{};
+              else if constexpr (kShared) raw[r] = *p;
+              else raw[r] = __ldg(p);  // L1 and L2 keep the rows for the cell's other queries
+            }
         }
 #pragma unroll
         for (int r = 0; r < 8; ++r) {
@@ -497,6 +549,10 @@ struct StoreRows {
             for (int e = 0; e < V; ++e) c[e] = pad;
           } else {
             unpack(raw[r], c);
+          }
+          if (flags & 32) {
+            v[r] += c[0] + qm2[0];
+            continue;
           }
 #pragma unroll
           for (int e = 0; e < V; ++e) {
@@ -519,86 +575,9 @@ struct StoreRows {
         }
       }
     }
-    tree8<G / 2, 8>(v, lane_g);
+    if (!(flags & 8)) tree8<G / 2, 8>(v, lane_g);
   }
 };
-
-// Top-lp of one pair's slots [lo, pad_hi): live rows [lo, hi) read from the store, pads
-// [pad_lo, pad_hi) scored once; candidate index base + w. Lists as in scan_topl.
-template <class Rows, int G>
-__device__ void scan_store_topl(const Rows& rows, int lo, int hi, int pad_lo, int pad_hi,
-                                int base, int lp, float* lv0, int* li0, float* lv1, int* li1,
-                                float* out_v, int* out_i) {
-  int* s_count = reinterpret_cast<int*>(smem);
-  float* buf_v = reinterpret_cast<float*>(smem + 16);
-  int* buf_i = reinterpret_cast<int*>(smem + 16 + kTile * 4);
-  constexpr int kRowsPerWarp = 8 * (32 / G);
-  constexpr int kHeld = G >= 8 ? 1 : 8 / G;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int lane_g = lane & (G - 1), grp = lane / G;
-  const int hb = held_base<G>(lane_g);
-  const bool holder = G <= 8 || (lane_g & (G / 8 - 1)) == 0;  // one lane per held row
-  for (int i = tid; i < lp; i += blockDim.x) {
-    lv0[i] = INFINITY;
-    li0[i] = kSentinel;
-  }
-  if (tid == 0) *s_count = 0;
-  __syncthreads();
-  float *av = lv0, *bv = lv1;
-  int *ai = li0, *bi = li1;
-  for (int t0 = lo; t0 < hi; t0 += kTile) {
-    const int nt = min(kTile, hi - t0);
-    const float tv = av[lp - 1];  // the current L-th entry: rows must beat it
-    const int ti = ai[lp - 1];
-    for (int r8 = warp * kRowsPerWarp; r8 < nt; r8 += nwarps * kRowsPerWarp) {  // per warp
-      const int r0 = r8 + grp * 8;  // this group's first row of the tile
-      float v[8];
-      rows.template score8<false>(t0 + r0, nt - r0, lane_g, v);
-      if (holder) {
-#pragma unroll
-        for (int i = 0; i < kHeld; ++i) {
-          const int r = r0 + hb + i;
-          const int idx = base + t0 + r;
-          if (r < nt && key_less(v[i], idx, tv, ti)) {
-            const int pos = atomicAdd(s_count, 1);
-            buf_v[pos] = v[i];
-            buf_i[pos] = idx;
-          }
-        }
-      }
-    }
-    __syncthreads();
-    const int m = *s_count;
-    __syncthreads();
-    if (m > 0) merge_survivors(m, lp, av, ai, bv, bi);
-  }
-  if (pad_lo < pad_hi) {
-    float v[8];
-    rows.template score8<true>(0, 8, lane_g, v);
-    const float sp = __shfl_sync(0xffffffffu, v[0], 0);  // lane 0 holds row 0
-    for (int w = pad_lo; w < pad_hi;) {
-      if (!key_less(sp, base + w, av[lp - 1], ai[lp - 1])) break;  // uniform
-      const int n = min(min(kTile, lp), pad_hi - w);
-      for (int i = tid; i < n; i += blockDim.x) {
-        buf_v[i] = sp;
-        buf_i[i] = base + w + i;
-      }
-      __syncthreads();
-      merge_lists(av, ai, lp, buf_v, buf_i, n, bv, bi, lp);  // already ascending
-      __syncthreads();
-      swap_lists(av, ai, bv, bi);
-      w += n;
-    }
-  }
-  for (int i = tid; i < lp; i += blockDim.x) {
-    out_v[i] = av[i];
-    out_i[i] = ai[i];
-  }
-}
-
-constexpr int kStoreMinBlocks = 3;  // __launch_bounds__: at most 80 registers a thread
-constexpr int kWarpList = 32;       // longest list the warp mode keeps, one entry a lane
 
 // Insert (s, x) into a warp's ascending list of lp <= 32 entries, lane i holding entry
 // i in (mv, mi); (tv, ti) is entry lp - 1 on every lane. s, x are the same on every lane.
@@ -620,11 +599,434 @@ __device__ __forceinline__ void warp_insert(float s, int x, int lp, int lane, fl
   ti = __shfl_sync(0xffffffffu, mi, lp - 1);
 }
 
-// Warp mode, for lists of at most kWarpList entries (the search's top-k): one warp
-// scans one (query, probe) pair's split and keeps its list in registers, so there is
-// no shared memory and no barrier. Warps are numbered split-major, then by their pair's
-// rank in the cell-major order: the warps of one CTA mostly read the same cell's rows
-// at the same time, and L1 serves all but the first read of each row.
+// Rows [r0, r1) of `rows` into a warp's list of lp entries, candidate index base + r:
+// each group of G lanes scores 8 rows at once, and the rows that beat the lp-th entry
+// are inserted one by one.
+template <class Rows, int G>
+__device__ __forceinline__ void warp_scan(const Rows& rows, int r0, int r1, int base, int lp,
+                                          int lane, float& mv, int& mi, float& tv, int& ti,
+                                          bool sel = true) {
+  constexpr int kHeld = G >= 8 ? 1 : 8 / G;
+  const int lane_g = lane & (G - 1), grp = lane / G;
+  const int hb = held_base<G>(lane_g);
+  const bool holder = G <= 8 || (lane_g & (G / 8 - 1)) == 0;  // one lane per held row
+  for (int r8 = r0; r8 < r1; r8 += 8 * (32 / G)) {
+    const int rg = r8 + grp * 8;  // this group's first row
+    float v[8];
+    rows.template score8<false>(rg, r1 - rg, lane_g, v);
+#pragma unroll
+    for (int i = 0; i < kHeld; ++i) {
+      const int r = rg + hb + i;
+      const int idx = base + r;
+      unsigned m = __ballot_sync(0xffffffffu, holder && r < r1 &&
+                                 (sel ? key_less(v[i], idx, tv, ti) : v[i] < -1e37f));
+      while (m) {  // uniform
+        const int src = __ffs(m) - 1;
+        m &= m - 1;
+        warp_insert(__shfl_sync(0xffffffffu, v[i], src), __shfl_sync(0xffffffffu, idx, src),
+                    lp, lane, mv, mi, tv, ti);
+      }
+    }
+  }
+}
+
+// The pads [w0, w1) of a pair, ascending index base + w, while they beat the lp-th entry.
+template <class Rows, int G>
+__device__ __forceinline__ void warp_pads(const Rows& rows, int w0, int w1, int base, int lp,
+                                          int lane, float& mv, int& mi, float& tv, int& ti) {
+  if (w0 >= w1) return;
+  float v[8];
+  rows.template score8<true>(0, 8, lane & (G - 1), v);
+  const float sp = __shfl_sync(0xffffffffu, v[0], 0);  // lane 0 holds row 0
+  for (int w = w0; w < w1 && key_less(sp, base + w, tv, ti); ++w)
+    warp_insert(sp, base + w, lp, lane, mv, mi, tv, ti);
+}
+
+// Prologue of the cell mode, one CTA: sc holds the n probed cells in ascending order.
+// A unit starts at every position whose distance to the start of its cell's run is a
+// multiple of kCellPairs; units[u] is unit u's first position, work[0] the number of
+// units, and work[1] (the work-item counter) is set to 0.
+__global__ void __launch_bounds__(1024) cell_units_kernel(const int* sc, int n, int* units,
+                                                          int* work) {
+  __shared__ int part[32];
+  __shared__ int carry[2];  // last run start so far, units so far
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) carry[0] = carry[1] = 0;
+  __syncthreads();
+  for (int i0 = 0; i0 < n; i0 += blockDim.x) {
+    const int i = i0 + tid;
+    int rs = i < n && (i == 0 || sc[i] != sc[i - 1]) ? i : -1;  // inclusive max-scan
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, rs, o);
+      if (lane >= o) rs = max(rs, v);
+    }
+    if (lane == 31) part[warp] = rs;
+    __syncthreads();
+    if (warp == 0) {
+      int v = part[lane];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(0xffffffffu, v, o);
+        if (lane >= o) v = max(v, u);
+      }
+      part[lane] = v;
+    }
+    __syncthreads();
+    rs = max(max(rs, warp > 0 ? part[warp - 1] : -1), carry[0]);
+    const bool lead = i < n && (i - rs) % kCellPairs == 0;
+    const unsigned bal = __ballot_sync(0xffffffffu, lead);
+    __syncthreads();
+    if (lane == 0) part[warp] = __popc(bal);
+    __syncthreads();
+    if (warp == 0) {  // inclusive sum-scan of the warps' leads
+      int v = part[lane];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(0xffffffffu, v, o);
+        if (lane >= o) v += u;
+      }
+      part[lane] = v;
+    }
+    __syncthreads();
+    const int at = carry[1] + (warp > 0 ? part[warp - 1] : 0) + __popc(bal & ((1u << lane) - 1));
+    if (lead) units[at] = i;
+    __syncthreads();
+    if (tid == blockDim.x - 1) {
+      carry[0] = rs;
+      carry[1] = at + (lead ? 1 : 0);
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    work[0] = carry[1];
+    work[1] = 0;
+  }
+}
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+          dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// The cell mode. pos0 = units[u] .. : the unit's pairs are order[pos0 + w] for the
+// warps w whose position still holds the unit's cell. The item's slots are split s of
+// the cell's width: [s * chunk, min(width, (s + 1) * chunk)); its lists go to part slot
+// pair * S + s, so query b's lists are slots [b P S, (b + 1) P S).
+template <typename T, bool kVec, int G>
+__global__ void __launch_bounds__(kThreads, kStoreMinBlocks)
+    flash_probe_store_kernel(const T* q, const T* buckets, const int* counts, const int* sc,
+                             const int* order, const int* units, int* work, int npairs, int P,
+                             int cap, int width, int d, float pad, int lp, int chunk, int S,
+                             int tile_rows, float* pv, int* pi, int flags) {
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  int* s_item = reinterpret_cast<int*>(smem + 8 * kCellStages);
+  T* ring = reinterpret_cast<T*>(smem + kCellHead);
+  const size_t stage = (size_t)tile_rows * d;  // elements of one tile
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < kCellStages; ++k) mbar_init(smem_u32(bars + k), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  const int items = work[0] * S;
+  unsigned used = 0;  // tiles this CTA consumed: tile g is in stage g % kCellStages
+  for (;;) {
+    if (threadIdx.x == 0) *s_item = atomicAdd(work + 1, 1);
+    __syncthreads();
+    const int item = *s_item;
+    __syncthreads();
+    if (item >= items) break;
+    const int u = item / S, s = item - u * S;
+    const int pos0 = units[u], cell = sc[pos0];
+    const int live = min(counts[cell], width);
+    const int w0 = s * chunk, w1 = min(width, w0 + chunk), hi = max(w0, min(w1, live));
+    const int ntiles = (hi - w0 + tile_rows - 1) / tile_rows;
+    const T* src = buckets + ((size_t)cell * cap + w0) * d;
+    auto fill = [&](int t) {  // tile t of the item into its stage
+      if (flags & 2) return;
+      const unsigned k = (used + t) % kCellStages;
+      const int nt = min(tile_rows, hi - w0 - t * tile_rows);
+      T* dst = ring + k * stage;
+      const T* from = src + (size_t)t * tile_rows * d;
+      if constexpr (kVec) {
+        if (threadIdx.x == 0) {
+          const uint32_t bytes = (uint32_t)((size_t)nt * d * sizeof(T));
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          mbar_expect_tx(smem_u32(bars + k), bytes);
+          bulk_load(smem_u32(dst), from, bytes, smem_u32(bars + k));
+        }
+      } else {
+        for (int e = threadIdx.x; e < nt * d; e += blockDim.x) dst[e] = from[e];
+      }
+    };
+    for (int t = 0; t < min(ntiles, kCellStages - 1); ++t) fill(t);
+    const int pos = pos0 + warp;
+    const bool mine = pos < npairs && sc[pos] == cell;  // warp-uniform
+    const int pair = mine ? order[pos] : 0;
+    const int b = pair / P, base = (pair - b * P) * width;
+    const T* qb = q + (size_t)b * d;
+    float mv = INFINITY, tv = INFINITY;
+    int mi = kSentinel, ti = kSentinel;
+    for (int t = 0; t < ntiles; ++t) {
+      if (t + kCellStages - 1 < ntiles) fill(t + kCellStages - 1);  // the stage freed last round
+      const unsigned g = used + t, k = g % kCellStages;
+      if constexpr (kVec) { if (!(flags & 2)) mbar_wait(smem_u32(bars + k), (g / kCellStages) & 1); }
+      else __syncthreads();  // the threads' copies are visible
+      if (mine && !(flags & 1)) {
+        const int r0 = t * tile_rows;
+        const StoreRows<T, kVec, G, true> rows{qb, ring + k * stage, d, pad, flags};
+        warp_scan<StoreRows<T, kVec, G, true>, G>(rows, 0, min(tile_rows, hi - w0 - r0),
+                                                  base + w0 + r0, lp, lane, mv, mi, tv, ti,
+                                                  !(flags & 4));
+      }
+      __syncthreads();  // every warp is done with stage k before it is refilled
+    }
+    used += ntiles;
+    if (mine) {
+      const StoreRows<T, kVec, G, true> pads{qb, nullptr, d, pad};
+      warp_pads<StoreRows<T, kVec, G, true>, G>(pads, hi, w1, base, lp, lane, mv, mi, tv, ti);
+      const size_t slot = ((size_t)pair * S + s) * lp;
+      if (lane < lp) {
+        pv[slot + lane] = mv;
+        pi[slot + lane] = mi;
+      }
+    }
+  }
+}
+
+// Offer this group's rows rg + held_base + i (scores v[i] as tree8 leaves them) with
+// index base + row to a warp's list; rows at or past r1 are not offered.
+template <int G>
+__device__ __forceinline__ void warp_offer(const float (&v)[8], int rg, int r1, int base,
+                                           int lp, int lane, float& mv, int& mi, float& tv,
+                                           int& ti) {
+  constexpr int kHeld = G >= 8 ? 1 : 8 / G;
+  const int lane_g = lane & (G - 1);
+  const int hb = held_base<G>(lane_g);
+  const bool holder = G <= 8 || (lane_g & (G / 8 - 1)) == 0;  // one lane per held row
+#pragma unroll
+  for (int i = 0; i < kHeld; ++i) {
+    const int r = rg + hb + i;
+    const int idx = base + r;
+    unsigned m = __ballot_sync(0xffffffffu, holder && r < r1 && key_less(v[i], idx, tv, ti));
+    while (m) {  // uniform
+      const int src = __ffs(m) - 1;
+      m &= m - 1;
+      warp_insert(__shfl_sync(0xffffffffu, v[i], src), __shfl_sync(0xffffffffu, idx, src), lp,
+                  lane, mv, mi, tv, ti);
+    }
+  }
+}
+
+constexpr int kRowGroups = 4;                         // row-owner mode: row groups a tile
+constexpr int kWarpPairs = kCellPairs / (kThreads / 32 / kRowGroups);  // pairs a warp scores
+constexpr int kRowStages = 3;
+
+// Partial sums (as tree8 wants them) of rows w .. w + 7 (rows at or past w + n are not
+// read) against up to kWarpPairs queries; q[jj] == nullptr: no pair. Each row slice is
+// read from shared memory once for all of them; per (pair, row), each lane sums its
+// columns as expanded_part does.
+template <typename T, bool kVec, int G>
+__device__ __forceinline__ void score8_pairs(const T* const (&q)[kWarpPairs], const T* rows,
+                                             int w, int n, int d, int lane_g,
+                                             float (&acc)[kWarpPairs][8]) {
+#pragma unroll
+  for (int jj = 0; jj < kWarpPairs; ++jj)
+#pragma unroll
+    for (int r = 0; r < 8; ++r) acc[jj][r] = 0.f;
+  if constexpr (kVec) {
+    constexpr int V = Vec16<T>::N;
+    using VT = typename Vec16<T>::V;
+    for (int j = lane_g * V; j < d; j += G * V) {
+      VT raw[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        raw[r] = VT{};
+        if (r < n) raw[r] = *reinterpret_cast<const VT*>(rows + (size_t)(w + r) * d + j);
+      }
+#pragma unroll
+      for (int jj = 0; jj < kWarpPairs; ++jj) {
+        if (q[jj] == nullptr) continue;
+        float qm2[V];
+        load_vec<T, false>(q[jj] + j, qm2);
+#pragma unroll
+        for (int e = 0; e < V; ++e) qm2[e] *= -2.f;
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          float c[V];
+          unpack(raw[r], c);
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            acc[jj][r] = fmaf(c[e], c[e], acc[jj][r]);
+            acc[jj][r] = fmaf(qm2[e], c[e], acc[jj][r]);
+          }
+        }
+      }
+    }
+  } else {
+    for (int j = lane_g; j < d; j += G) {
+      float c[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) c[r] = r < n ? to_f32(rows[(size_t)(w + r) * d + j]) : 0.f;
+#pragma unroll
+      for (int jj = 0; jj < kWarpPairs; ++jj) {
+        if (q[jj] == nullptr) continue;
+        const float qm2 = -2.f * to_f32(q[jj][j]);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          acc[jj][r] = fmaf(c[r], c[r], acc[jj][r]);
+          acc[jj][r] = fmaf(qm2, c[r], acc[jj][r]);
+        }
+      }
+    }
+  }
+}
+
+// Row-owner mode. Warp w owns row group w % kRowGroups of every tile (one warp step,
+// 8 * (32 / G) rows) and the unit's pairs w / kRowGroups + 2 jj, jj < kWarpPairs, each
+// with a list in registers over its rows. At the item's end the kRowGroups lists of
+// each pair are merged by rank in shared memory.
+template <typename T, bool kVec, int G>
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_probe_store_rows_kernel(const T* q, const T* buckets, const int* counts,
+                                  const int* sc, const int* order, const int* units, int* work,
+                                  int npairs, int P, int cap, int width, int d, float pad,
+                                  int lp, int chunk, int S, float* pv, int* pi) {
+  constexpr int kStep = 8 * (32 / G);  // rows of one warp step
+  constexpr int kTile = kRowGroups * kStep;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  int* s_item = reinterpret_cast<int*>(smem + 8 * kRowStages);
+  T* ring = reinterpret_cast<T*>(smem + kCellHead);
+  const size_t stage = (size_t)kTile * d;
+  float* lv = reinterpret_cast<float*>(smem + kCellHead + kRowStages * stage * sizeof(T));
+  int* li = reinterpret_cast<int*>(lv + kCellPairs * kRowGroups * kWarpList);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rgp = warp % kRowGroups, ph = warp / kRowGroups;
+  const int lane_g = lane & (G - 1), grp = lane / G;
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < kRowStages; ++k) mbar_init(smem_u32(bars + k), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  const int items = work[0] * S;
+  unsigned used = 0;
+  for (;;) {
+    if (threadIdx.x == 0) *s_item = atomicAdd(work + 1, 1);
+    __syncthreads();
+    const int item = *s_item;
+    __syncthreads();
+    if (item >= items) break;
+    const int u = item / S, s = item - u * S;
+    const int pos0 = units[u], cell = sc[pos0];
+    const int live = min(counts[cell], width);
+    const int w0 = s * chunk, w1 = min(width, w0 + chunk), hi = max(w0, min(w1, live));
+    const int ntiles = (hi - w0 + kTile - 1) / kTile;
+    const T* src = buckets + ((size_t)cell * cap + w0) * d;
+    auto fill = [&](int t) {
+      const unsigned k = (used + t) % kRowStages;
+      const int nt = min(kTile, hi - w0 - t * kTile);
+      T* dst = ring + k * stage;
+      const T* from = src + (size_t)t * kTile * d;
+      if constexpr (kVec) {
+        if (threadIdx.x == 0) {
+          const uint32_t bytes = (uint32_t)((size_t)nt * d * sizeof(T));
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          mbar_expect_tx(smem_u32(bars + k), bytes);
+          bulk_load(smem_u32(dst), from, bytes, smem_u32(bars + k));
+        }
+      } else {
+        for (int e = threadIdx.x; e < nt * d; e += blockDim.x) dst[e] = from[e];
+      }
+    };
+    for (int t = 0; t < min(ntiles, kRowStages - 1); ++t) fill(t);
+    const T* qp[kWarpPairs];
+    int base[kWarpPairs];
+    float mv[kWarpPairs], tv[kWarpPairs];
+    int mi[kWarpPairs], ti[kWarpPairs];
+#pragma unroll
+    for (int jj = 0; jj < kWarpPairs; ++jj) {
+      const int pos = pos0 + ph + (kThreads / 32 / kRowGroups) * jj;
+      const bool has = pos < npairs && sc[pos] == cell;  // warp-uniform
+      const int pair = has ? order[pos] : 0;
+      const int b = pair / P;
+      qp[jj] = has ? q + (size_t)b * d : nullptr;
+      base[jj] = (pair - b * P) * width;
+      mv[jj] = tv[jj] = INFINITY;
+      mi[jj] = ti[jj] = kSentinel;
+    }
+    for (int t = 0; t < ntiles; ++t) {
+      if (t + kRowStages - 1 < ntiles) fill(t + kRowStages - 1);
+      const unsigned g = used + t, k = g % kRowStages;
+      if constexpr (kVec) mbar_wait(smem_u32(bars + k), (g / kRowStages) & 1);
+      else __syncthreads();
+      const int nt = min(kTile, hi - w0 - t * kTile);  // rows of this tile
+      const int r0 = rgp * kStep + grp * 8;              // this group's first row
+      if (rgp * kStep < nt && qp[0] != nullptr) {
+        float acc[kWarpPairs][8];
+        score8_pairs<T, kVec, G>(qp, ring + k * stage, r0, nt - r0, d, lane_g, acc);
+#pragma unroll
+        for (int jj = 0; jj < kWarpPairs; ++jj) {
+          if (qp[jj] == nullptr) continue;
+          tree8<G / 2, 8>(acc[jj], lane_g);
+          warp_offer<G>(acc[jj], r0, nt, base[jj] + w0 + t * kTile, lp, lane, mv[jj], mi[jj],
+                        tv[jj], ti[jj]);
+        }
+      }
+      __syncthreads();
+    }
+    used += ntiles;
+    // pads enter the row group 0 lists; every list goes to shared memory
+#pragma unroll
+    for (int jj = 0; jj < kWarpPairs; ++jj) {
+      if (qp[jj] == nullptr) continue;
+      if (rgp == 0) {
+        const StoreRows<T, kVec, G, true> pads{qp[jj], nullptr, d, pad};
+        warp_pads<StoreRows<T, kVec, G, true>, G>(pads, hi, w1, base[jj], lp, lane, mv[jj],
+                                                  mi[jj], tv[jj], ti[jj]);
+      }
+      const int j = ph + (kThreads / 32 / kRowGroups) * jj;
+      const int o = (j * kRowGroups + rgp) * kWarpList;
+      if (lane < lp) {
+        lv[o + lane] = mv[jj];
+        li[o + lane] = mi[jj];
+      }
+    }
+    __syncthreads();
+    // warp j merges pair j's lists: an entry's place is its own plus the entries before
+    // it in the other lists (earlier lists first on equal keys)
+    const int pos = pos0 + warp;
+    if (pos < npairs && sc[pos] == cell) {
+      const size_t slot = ((size_t)order[pos] * S + s) * lp;
+      for (int e = lane; e < kRowGroups * lp; e += 32) {
+        const int a = e / lp, i = e - a * lp;
+        const int o = (warp * kRowGroups + a) * kWarpList;
+        const float kv = lv[o + i];
+        const int kx = li[o + i];
+        int rank = i;
+        for (int c = 0; c < kRowGroups; ++c) {
+          if (c == a) continue;
+          const int oc = (warp * kRowGroups + c) * kWarpList;
+          rank += c < a ? count_before<false>(lv + oc, li + oc, lp, kv, kx)
+                        : count_before<true>(lv + oc, li + oc, lp, kv, kx);
+        }
+        if (rank < lp) {
+          pv[slot + rank] = kv;
+          pi[slot + rank] = kx;
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Warp mode: one warp per split of one (query, probe) pair, reading its cell's rows
+// from global memory (L1 and L2 serve the cell's other pairs); warps are numbered
+// split-major, then by their pair's rank in the cell-major order.
 template <typename T, bool kVec, int G>
 __global__ void __launch_bounds__(kThreads, kStoreMinBlocks)
     flash_probe_store_warp_kernel(const T* q, const T* buckets, const int* counts,
@@ -640,75 +1042,18 @@ __global__ void __launch_bounds__(kThreads, kStoreMinBlocks)
   const int cell = probe[pair];
   const int live = min(counts[cell], width);
   const int w0 = s * chunk, w1 = min(width, w0 + chunk);
-  const int hi = min(w1, live), base = p * width;
-  const StoreRows<T, kVec, G> rows{q + (size_t)b * d, buckets + (size_t)cell * cap * d, d, pad};
-  constexpr int kHeld = G >= 8 ? 1 : 8 / G;
-  const int lane_g = lane & (G - 1), grp = lane / G;
-  const int hb = held_base<G>(lane_g);
-  const bool holder = G <= 8 || (lane_g & (G / 8 - 1)) == 0;
+  const int hi = max(w0, min(w1, live)), base = p * width;
+  const StoreRows<T, kVec, G, false> rows{q + (size_t)b * d, buckets + (size_t)cell * cap * d,
+                                          d, pad};
   float mv = INFINITY, tv = INFINITY;
   int mi = kSentinel, ti = kSentinel;
-  for (int r8 = w0; r8 < hi; r8 += 8 * (32 / G)) {
-    const int r0 = r8 + grp * 8;  // this group's first row
-    float v[8];
-    rows.template score8<false>(r0, hi - r0, lane_g, v);
-#pragma unroll
-    for (int i = 0; i < kHeld; ++i) {
-      const int r = r0 + hb + i;
-      const int idx = base + r;
-      unsigned m = __ballot_sync(0xffffffffu, holder && r < hi && key_less(v[i], idx, tv, ti));
-      while (m) {  // uniform
-        const int src = __ffs(m) - 1;
-        m &= m - 1;
-        warp_insert(__shfl_sync(0xffffffffu, v[i], src), __shfl_sync(0xffffffffu, idx, src),
-                    lp, lane, mv, mi, tv, ti);
-      }
-    }
-  }
-  if (max(w0, live) < w1) {  // pads, ascending index, while they beat the lp-th entry
-    float v[8];
-    rows.template score8<true>(0, 8, lane_g, v);
-    const float sp = __shfl_sync(0xffffffffu, v[0], 0);  // lane 0 holds row 0
-    for (int w = max(w0, live); w < w1 && key_less(sp, base + w, tv, ti); ++w)
-      warp_insert(sp, base + w, lp, lane, mv, mi, tv, ti);
-  }
+  warp_scan<StoreRows<T, kVec, G, false>, G>(rows, w0, hi, base, lp, lane, mv, mi, tv, ti);
+  warp_pads<StoreRows<T, kVec, G, false>, G>(rows, hi, w1, base, lp, lane, mv, mi, tv, ti);
   const size_t slot = ((size_t)pair * S + s) * lp;
   if (lane < lp) {
     pv[slot + lane] = mv;
     pi[slot + lane] = mi;
   }
-}
-
-template <typename T, bool kVec, int G>
-__global__ void __launch_bounds__(kThreads, kStoreMinBlocks)
-    flash_probe_store_kernel(const T* q, const T* buckets, const int* counts, const int* probe,
-                             const int* order, int P, int cap, int width, int d, float pad,
-                             int lp, int chunk, int S, float* pv, int* pi, float* lv, int* li) {
-  const int pair = order[blockIdx.x / S];  // b * P + p
-  const int s = blockIdx.x % S;
-  const int b = pair / P, p = pair - b * P;
-  const int cell = probe[pair];
-  const int live = min(counts[cell], width);
-  const int w0 = s * chunk, w1 = min(width, w0 + chunk);
-  const size_t slot = (size_t)pair * S + s;  // query b's lists are slots [b P S, (b + 1) P S)
-  float *lv0, *lv1;
-  int *li0, *li1;
-  if (lv == nullptr) {
-    unsigned char* m = smem + kHead;
-    lv0 = reinterpret_cast<float*>(m);
-    li0 = reinterpret_cast<int*>(m + 4 * (size_t)lp);
-    lv1 = reinterpret_cast<float*>(m + 8 * (size_t)lp);
-    li1 = reinterpret_cast<int*>(m + 12 * (size_t)lp);
-  } else {
-    lv0 = lv + slot * 2 * lp;
-    lv1 = lv0 + lp;
-    li0 = li + slot * 2 * lp;
-    li1 = li0 + lp;
-  }
-  const StoreRows<T, kVec, G> rows{q + (size_t)b * d, buckets + (size_t)cell * cap * d, d, pad};
-  scan_store_topl<StoreRows<T, kVec, G>, G>(rows, w0, min(w1, live), max(w0, live), w1,
-                                            p * width, lp, lv0, li0, lv1, li1, pv + slot * lp,
-                                            pi + slot * lp);
 }
 
 template <typename T, bool kVec>
@@ -723,6 +1068,16 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     flash_probe_grouped_kernel(const T* q, const T* c, int C, int d, int lp, int chunk,
                                int g, float* pv, int* pi, float* lv, int* li) {
   run_stage1(GroupedRow<T, kVec>{q, c, C, d}, C, lp, chunk, g, pv, pi, lv, li);
+}
+
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    flash_probe_store_list_kernel(const T* q, const T* buckets, const int* counts,
+                                  const int* probe, int P, int cap, int width, int d, float pad,
+                                  int lp, int chunk, int g, float* pv, int* pi, float* lv,
+                                  int* li) {
+  run_stage1(StoreRow<T, kVec>{q, buckets, counts, probe, P, cap, width, d, pad}, P * width, lp,
+             chunk, g, pv, pi, lv, li);
 }
 
 template <bool kVec>
@@ -829,61 +1184,97 @@ cudaError_t launch_grouped(const void* q, const void* c, int B, int C, int d, in
   return cudaGetLastError();
 }
 
+// The store scan's arguments (fk_flash_probe_store).
+struct StoreArgs {
+  const void *q, *buckets, *counts, *probe, *sc, *order;
+  void* units;
+  int B, P, cap, width, d, lp, S, chunk, tile_rows;
+  float pad;
+  void *pv, *pi, *lv, *li;
+};
+
+enum StoreMode { kStoreList = 0, kStoreCell = 1, kStoreWarp = 2 };
+
+// Allow `sm` dynamic shared bytes for `kernel`, and count its resident CTAs per SM.
+template <typename K>
+cudaError_t resident_per_sm(K kernel, size_t sm, int* per_sm) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, kThreads, sm);
+}
+
 template <typename T, bool kVec, int G>
-cudaError_t launch_store_g(const void* q, const void* buckets, const void* counts,
-                           const void* probe, const void* order, int B, int P, int cap,
-                           int width, int d, float pad, int lp, int S, int chunk, void* pv,
-                           void* pi, void* lv, void* li, cudaStream_t st) {
-  const long long units = (long long)B * P * S;
-  if (lp <= kWarpList) {
-    const long long blocks = (units + kThreads / 32 - 1) / (kThreads / 32);
+cudaError_t launch_store_g(const StoreArgs& a, int mode, cudaStream_t st) {
+  const int npairs = a.B * a.P;
+  if ((mode & 15) == kStoreWarp) {
+    const long long blocks = ((long long)npairs * a.S + kThreads / 32 - 1) / (kThreads / 32);
     flash_probe_store_warp_kernel<T, kVec, G><<<(unsigned)blocks, kThreads, 0, st>>>(
-        (const T*)q, (const T*)buckets, (const int*)counts, (const int*)probe,
-        (const int*)order, B * P, P, cap, width, d, pad, lp, chunk, S, (float*)pv, (int*)pi);
-  } else {
-    const size_t sm = stage1_smem(lp, lv);
-    flash_probe_store_kernel<T, kVec, G><<<(unsigned)units, kThreads, sm, st>>>(
-        (const T*)q, (const T*)buckets, (const int*)counts, (const int*)probe,
-        (const int*)order, P, cap, width, d, pad, lp, chunk, S, (float*)pv, (int*)pi,
-        (float*)lv, (int*)li);
+        (const T*)a.q, (const T*)a.buckets, (const int*)a.counts, (const int*)a.probe,
+        (const int*)a.order, npairs, a.P, a.cap, a.width, a.d, a.pad, a.lp, a.chunk, a.S,
+        (float*)a.pv, (int*)a.pi);
+    return cudaGetLastError();
   }
+  // the cell mode: the prologue cuts the units, then as many CTAs as stay resident
+  // take the work items from its counter
+  const bool rows_mode = (mode & 15) == 3;
+  const size_t sm =
+      rows_mode ? kCellHead + (size_t)kRowStages * kRowGroups * 8 * (32 / G) * a.d * sizeof(T) +
+                      (size_t)kCellPairs * kRowGroups * kWarpList * 8
+                : kCellHead + (size_t)kCellStages * a.tile_rows * a.d * sizeof(T);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = rows_mode ? resident_per_sm(flash_probe_store_rows_kernel<T, kVec, G>, sm, &per_sm)
+                            : resident_per_sm(flash_probe_store_kernel<T, kVec, G>, sm, &per_sm);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  int* units = (int*)a.units;
+  cell_units_kernel<<<1, 1024, 0, st>>>((const int*)a.sc, npairs, units, units + npairs);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const long long items = (long long)npairs * a.S;  // at least the units' items
+  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const unsigned grid = (unsigned)(items < resident ? items : resident);
+  if (rows_mode)
+    flash_probe_store_rows_kernel<T, kVec, G><<<grid, kThreads, sm, st>>>(
+        (const T*)a.q, (const T*)a.buckets, (const int*)a.counts, (const int*)a.sc,
+        (const int*)a.order, units, units + npairs, npairs, a.P, a.cap, a.width, a.d, a.pad,
+        a.lp, a.chunk, a.S, (float*)a.pv, (int*)a.pi);
+  else
+    flash_probe_store_kernel<T, kVec, G><<<grid, kThreads, sm, st>>>(
+        (const T*)a.q, (const T*)a.buckets, (const int*)a.counts, (const int*)a.sc,
+        (const int*)a.order, units, units + npairs, npairs, a.P, a.cap, a.width, a.d, a.pad,
+        a.lp, a.chunk, a.S, a.tile_rows, (float*)a.pv, (int*)a.pi, mode >> 4);
   return cudaGetLastError();
 }
 
 template <typename T, bool kVec>
-cudaError_t launch_store_v(int g, const void* q, const void* buckets, const void* counts,
-                           const void* probe, const void* order, int B, int P, int cap,
-                           int width, int d, float pad, int lp, int S, int chunk, void* pv,
-                           void* pi, void* lv, void* li, cudaStream_t st) {
-#define FK_STORE_G(GG)                                                                    \
-  case GG:                                                                                \
-    return launch_store_g<T, kVec, GG>(q, buckets, counts, probe, order, B, P, cap, width, \
-                                       d, pad, lp, S, chunk, pv, pi, lv, li, st);
+cudaError_t launch_store_v(int g, const StoreArgs& a, int mode, cudaStream_t st) {
   switch (g) {
-    FK_STORE_G(1)
-    FK_STORE_G(2)
-    FK_STORE_G(4)
-    FK_STORE_G(8)
-    FK_STORE_G(16)
-    default:
-      return launch_store_g<T, kVec, 32>(q, buckets, counts, probe, order, B, P, cap, width,
-                                         d, pad, lp, S, chunk, pv, pi, lv, li, st);
+    case 1: return launch_store_g<T, kVec, 1>(a, mode, st);
+    case 2: return launch_store_g<T, kVec, 2>(a, mode, st);
+    case 4: return launch_store_g<T, kVec, 4>(a, mode, st);
+    case 8: return launch_store_g<T, kVec, 8>(a, mode, st);
+    case 16: return launch_store_g<T, kVec, 16>(a, mode, st);
+    default: return launch_store_g<T, kVec, 32>(a, mode, st);
   }
-#undef FK_STORE_G
 }
 
 template <typename T>
-cudaError_t launch_store(const void* q, const void* buckets, const void* counts,
-                         const void* probe, const void* order, int B, int P, int cap, int width,
-                         int d, float pad, int lp, int S, int chunk, void* pv, void* pi,
-                         void* lv, void* li, cudaStream_t st) {
+cudaError_t launch_store(const StoreArgs& a, int mode, cudaStream_t st) {
   constexpr int V = Vec16<T>::N;
-  const bool vec = d % V == 0 && aligned16(q) && aligned16(buckets);
-  const int g = group_lanes(vec ? d / V : d);
-  return vec ? launch_store_v<T, true>(g, q, buckets, counts, probe, order, B, P, cap, width, d,
-                                       pad, lp, S, chunk, pv, pi, lv, li, st)
-             : launch_store_v<T, false>(g, q, buckets, counts, probe, order, B, P, cap, width,
-                                        d, pad, lp, S, chunk, pv, pi, lv, li, st);
+  const bool vec = a.d % V == 0 && aligned16(a.q) && aligned16(a.buckets);
+  const int g = group_lanes(vec ? a.d / V : a.d);
+  if (mode != kStoreList)
+    return vec ? launch_store_v<T, true>(g, a, mode, st) : launch_store_v<T, false>(g, a, mode, st);
+  const dim3 grid(a.B, a.S);
+  const size_t sm = stage1_smem(a.lp, a.lv);
+  auto kernel = vec ? flash_probe_store_list_kernel<T, true>
+                    : flash_probe_store_list_kernel<T, false>;
+  kernel<<<grid, kThreads, sm, st>>>((const T*)a.q, (const T*)a.buckets, (const int*)a.counts,
+                                     (const int*)a.probe, a.P, a.cap, a.width, a.d, a.pad, a.lp,
+                                     a.chunk, g, (float*)a.pv, (int*)a.pi, (float*)a.lv,
+                                     (int*)a.li);
+  return cudaGetLastError();
 }
 
 }  // namespace probe
@@ -926,25 +1317,27 @@ extern "C" int fk_flash_probe_grouped(const void* q, const void* c, void* out_v,
 }
 
 // The store scan: q (B, d), buckets (K, cap, d) of q's dtype, counts (K,), probe (B, P)
-// and order (B * P,) int32 (the pairs b * P + p in the order their CTAs run). S CTAs per
-// pair split its `width` slots in chunks; the B * P * S partial lists go to part, and
-// the merge takes P * S of them per query (with P * S == 1 part must be the outputs).
+// int32. mode kStoreCell (or kStoreWarp): sc and order are probe's cells sorted and
+// their positions b * P + p, units scratch of B * P + 2 ints; S splits of each pair's
+// `width` slots in chunks, B * P * S partial lists (the merge takes P * S a query).
+// mode kStoreList: S CTAs per query split its P * width slots, B * S partial lists
+// (sc, order, units unused). With a single list per query part must be the outputs.
 extern "C" int fk_flash_probe_store(const void* q, const void* buckets, const void* counts,
-                                    const void* probe, const void* order, void* out_v,
-                                    void* out_i, void* part_v, void* part_i, void* lws_v,
-                                    void* lws_i, void* mws_v, void* mws_i, int B, int P,
-                                    int cap, int width, int d, int L, int S, int chunk, int lp,
-                                    float pad, int is_bf16, void* stream) {
+                                    const void* probe, const void* sc, const void* order,
+                                    void* units, void* out_v, void* out_i, void* part_v,
+                                    void* part_i, void* lws_v, void* lws_i, void* mws_v,
+                                    void* mws_i, int B, int P, int cap, int width, int d, int L,
+                                    int S, int chunk, int lp, int tile_rows, float pad, int mode,
+                                    int is_bf16, void* stream) {
   using namespace fk::probe;
   cudaStream_t st = (cudaStream_t)stream;
-  const cudaError_t e =
-      is_bf16 ? launch_store<__nv_bfloat16>(q, buckets, counts, probe, order, B, P, cap, width,
-                                            d, pad, lp, S, chunk, part_v, part_i, lws_v, lws_i,
-                                            st)
-              : launch_store<float>(q, buckets, counts, probe, order, B, P, cap, width, d, pad,
-                                    lp, S, chunk, part_v, part_i, lws_v, lws_i, st);
+  const StoreArgs a{q, buckets, counts, probe, sc, order, units, B, P, cap, width, d,
+                    lp, S, chunk, tile_rows, pad, part_v, part_i, lws_v, lws_i};
+  const cudaError_t e = is_bf16 ? launch_store<__nv_bfloat16>(a, mode, st)
+                                : launch_store<float>(a, mode, st);
   if (e != cudaSuccess) return (int)e;
-  return (int)merge_partials(B, P * S, lp, L, part_v, part_i, mws_v, mws_i, out_v, out_i, st);
+  const int lists = (mode & 15) == kStoreList ? S : P * S;
+  return (int)merge_partials(B, lists, lp, L, part_v, part_i, mws_v, mws_i, out_v, out_i, st);
 }
 
 // qsq: workspace of B * P floats for ||q'||^2, written by a prologue kernel.
@@ -983,9 +1376,9 @@ extern "C" int fk_flash_probe_attrs(int which, int* regs, int* local_bytes) {
     case 3: e = cudaFuncGetAttributes(&a, topl_merge_kernel); break;
     case 4: e = cudaFuncGetAttributes(&a, flash_probe_store_kernel<float, true, 32>); break;
     case 5: e = cudaFuncGetAttributes(&a, flash_probe_store_kernel<__nv_bfloat16, true, 16>); break;
-    case 6: e = cudaFuncGetAttributes(&a, flash_probe_store_warp_kernel<float, true, 32>); break;
-    default:
-      e = cudaFuncGetAttributes(&a, flash_probe_store_warp_kernel<__nv_bfloat16, true, 16>);
+    case 6: e = cudaFuncGetAttributes(&a, flash_probe_store_list_kernel<float, true>); break;
+    case 7: e = cudaFuncGetAttributes(&a, flash_probe_store_warp_kernel<float, true, 32>); break;
+    default: e = cudaFuncGetAttributes(&a, flash_probe_store_rows_kernel<float, true, 32>);
   }
   if (e != cudaSuccess) return (int)e;
   *regs = a.numRegs;

@@ -99,7 +99,8 @@ def _ivf_search(q, centroids, c_sq, store_arrays, counts, *, topk: int,
                                c_sq=c_sq)
     buckets, bucket_ids = store_arrays
     li, dist = ops.flash_probe_store(q, buckets, counts, probe, width=width,
-                                     l=topk, splits=scan_splits)
+                                     l=topk, pad=_PAD_COORD,
+                                     splits=scan_splits)
     li = li.long()
     cell = torch.gather(probe.long(), 1,
                         torch.div(li, width, rounding_mode="floor"))

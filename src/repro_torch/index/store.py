@@ -20,12 +20,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.kernels import flash_probe as _fp
-
-# Padded-slot coordinate (the store scan kernel scores it without reading
-# the slot; see flash_probe.PAD_COORD). Invariant: every slot at or past
-# counts[cell] holds it in every coordinate, and id -1.
-_PAD_COORD = _fp.PAD_COORD
+# Padded-slot coordinate: large enough that a padded candidate can never
+# beat a real one, small enough that d * _PAD^2 stays finite in f32.
+# Invariant: every slot at or past counts[cell] holds it in every
+# coordinate, and id -1; the fp32 search's store scan scores it without
+# reading those slots (``ops.flash_probe_store``'s ``pad``).
+_PAD_COORD = 1e15
 
 _NOT_PORTED = ("is not ported yet (ROADMAP.md, queue A item 5: the paged "
                "store, the two-level router and the device rescore cache)")
@@ -74,6 +74,15 @@ def make_store(kind: str | None, k: int, d: int, dtype, *, capacity: int = 8,
 # candidate gathers (called from the search bodies)
 # ---------------------------------------------------------------------------
 
+def candidate_slots(t: torch.Tensor, probe: torch.Tensor,
+                    width: int) -> torch.Tensor:
+    """``width`` slots of each probed cell of a per-slot store array ``t
+    (K, cap, ...)``, probe-rank major: ``(B, nprobe * width, ...)``."""
+    b, nprobe = probe.shape
+    return t[:, :width][probe.long()].reshape(b, nprobe * width,
+                                              *t.shape[2:])
+
+
 def gather_global(kind: str, arrays, probe: torch.Tensor, width: int
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """``probe (B, nprobe)`` cells -> ``(cand_x (B, nprobe*width, d),
@@ -83,7 +92,7 @@ def gather_global(kind: str, arrays, probe: torch.Tensor, width: int
     search does not gather (``ops.flash_probe_store`` reads the store in
     place); this is the block path it is held to."""
     _resolve_kind(kind)
-    return tuple(_fp.store_candidates(t, probe, width) for t in arrays)
+    return tuple(candidate_slots(t, probe, width) for t in arrays)
 
 
 def gather_global_q8(kind: str, arrays, probe: torch.Tensor, width: int
@@ -92,7 +101,7 @@ def gather_global_q8(kind: str, arrays, probe: torch.Tensor, width: int
     (B, nprobe*width) f32, ids)``; padding slots carry scale 0.0."""
     _resolve_kind(kind)
     buckets, bucket_ids, bucket_aux = arrays
-    return tuple(_fp.store_candidates(t, probe, width)
+    return tuple(candidate_slots(t, probe, width)
                  for t in (buckets, bucket_aux, bucket_ids))
 
 

@@ -8,7 +8,8 @@ replace the Pallas TPU kernels of ``repro/kernels/flash_probe.py``:
 - ``flash_probe_grouped_raw`` (``flash_probe_grouped_kernel``): each query
   against its own gathered candidate block — the exact rescore of the q8
   path;
-- ``flash_probe_store_raw`` (``flash_probe_store_kernel``): the same
+- ``flash_probe_store_raw`` (``flash_probe_store_kernel``, and
+  ``flash_probe_store_list_kernel`` for lists longer than 32): the same
   function over the probed cells of the padded store, read in place
   through ``probe`` and ``counts`` (no candidate block is gathered, and
   no padding row is read) — the posting-list scan of an fp32 or bf16
@@ -38,11 +39,6 @@ from repro_torch.kernels import _build
 TILE = 1024            # candidate rows per selection round (csrc kTile)
 LIST_SMEM_MAX = 2048   # longest running list held in shared memory
 DTYPES = (torch.float32, torch.bfloat16)
-# The padded store's value in every coordinate of an empty slot: large
-# enough that a padding row can never beat a real one, small enough that
-# d * PAD_COORD^2 stays finite in f32. The store scan scores it without
-# reading it.
-PAD_COORD = 1e15
 
 # kernel launches (CUDA only); reset by callers that count
 launches = {"flash_probe": 0, "flash_probe_grouped": 0,
@@ -217,43 +213,82 @@ def flash_probe_grouped_raw(q: torch.Tensor, c: torch.Tensor, l: int, *,
 # kernel 5, store mode: the probed cells of the padded store, read in place
 # ---------------------------------------------------------------------------
 
-def store_candidates(t: torch.Tensor, probe: torch.Tensor,
-                     width: int) -> torch.Tensor:
-    """``width`` slots of each probed cell of a per-slot store array ``t
-    (K, cap, ...)``, probe-rank major: ``(B, nprobe * width, ...)``. On the
-    buckets this is the candidate block the store scan never writes."""
-    b, nprobe = probe.shape
-    return t[:, :width][probe.long()].reshape(b, nprobe * width,
-                                              *t.shape[2:])
+STORE_CELL_LIST = 32        # longest list the cell mode keeps (csrc kWarpList)
+STORE_STAGES = 4            # tiles in the cell mode's ring (csrc kCellStages)
+STORE_TILE_BYTES = 16384    # bytes of one tile of rows
+STORE_HEAD = 128            # shared bytes before the ring (csrc kCellHead)
+_MODES = {"list": 0, "cell": 1, "warp": 2, "rows": 3, "cell_noscore": 1 + 16,
+          "cell_noload": 1 + 32, "cell_noinsert": 1 + 64,
+          "cell_notree": 1 + 128, "cell_nolds": 1 + 256, "cell_nofma": 1 + 512}
+# the cell mode's kernel: "cell" (rows through shared memory, all pairs of a
+# cell at once) or "warp" (a warp a pair, rows from global memory), for a
+# comparison of the two on the card
+STORE_VARIANT = "cell"
+
+
+def store_tile_rows(d: int, itemsize: int) -> int:
+    """Rows of one tile of the cell mode's ring: ``STORE_TILE_BYTES`` of
+    whole rows."""
+    return max(1, STORE_TILE_BYTES // (d * itemsize))
+
+
+def store_cell_smem(d: int, itemsize: int) -> int:
+    """Dynamic shared bytes of a cell-mode CTA: the ring and its head."""
+    return STORE_HEAD + STORE_STAGES * store_tile_rows(d, itemsize) * d \
+        * itemsize
+
+
+def store_cell_mode(l: int, d: int, itemsize: int) -> bool:
+    """The cell mode takes lists of at most ``STORE_CELL_LIST`` entries and
+    rows that fit one tile; the list mode takes the rest."""
+    return l <= STORE_CELL_LIST and d * itemsize <= STORE_TILE_BYTES
+
+
+def store_geometry(nprobe: int, width: int, d: int, itemsize: int, l: int,
+                   splits: int) -> tuple[int, int, int, int]:
+    """``(splits, chunk, lp, lists)``: the cell mode splits each (query,
+    probe) pair's ``width`` slots, and a query has ``nprobe * splits``
+    partial lists; the list mode splits a query's ``nprobe * width`` slots,
+    ``splits`` lists."""
+    if store_cell_mode(l, d, itemsize):
+        splits, chunk, lp = _launch_geometry(width, l, splits)
+        return splits, chunk, lp, nprobe * splits
+    splits, chunk, lp = _launch_geometry(nprobe * width, l, splits)
+    return splits, chunk, lp, splits
 
 
 def flash_probe_store_plain(q: torch.Tensor, buckets: torch.Tensor,
                             counts: torch.Tensor, probe: torch.Tensor,
-                            width: int, l: int
+                            width: int, l: int, pad: float
                             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version: gather the block (``store_candidates``), then
-    ``flash_probe_grouped_plain``. Slots past ``counts`` are scored from
-    what they hold, ``PAD_COORD`` in every coordinate by the store's
-    invariant (the kernel scores that constant without reading them)."""
+    """Plain PyTorch version: the ``(B, nprobe * width, d)`` block of the
+    probed cells' slots, ``pad`` in every coordinate of a slot at or past
+    its cell's count, then ``flash_probe_grouped_plain``."""
+    b, nprobe = probe.shape
+    p = probe.long()
+    cand = buckets[:, :width][p]                       # (B, nprobe, width, d)
+    dead = (torch.arange(width, device=q.device)
+            >= counts[p].unsqueeze(-1)).unsqueeze(-1)
+    cand = torch.where(dead, torch.tensor(pad, dtype=cand.dtype), cand)
     return flash_probe_grouped_plain(
-        q, store_candidates(buckets, probe, width), l)
+        q, cand.reshape(b, nprobe * width, cand.shape[-1]), l)
 
 
 def flash_probe_store_raw(q: torch.Tensor, buckets: torch.Tensor,
                           counts: torch.Tensor, probe: torch.Tensor,
-                          width: int, l: int, *, splits: int = 1
+                          width: int, l: int, pad: float, *, splits: int = 1
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-l of each query's probed cells, read from the padded store: q
     (B, d), buckets (K, cap, d) of q's dtype, counts (K,) int32 (live
-    slots per cell; later slots hold ``PAD_COORD``), probe (B, nprobe)
-    int32 cells. Query b's candidate ``p * width + w`` is ``buckets[probe[b,
-    p], w]`` for ``w < width``: the index of ``flash_probe_grouped_raw`` on
-    the gathered block, which this computes. Returns ``(indices int32 (B,
-    l), scores f32 (B, l))``, score ``||c||^2 - 2 q.c``. ``splits``: CTAs
-    per (query, probe) pair along its ``width`` slots. Precondition (not
-    checked, it would cost a device sync): probe lies in ``[0, K)``.
-    Lists of at most 32 entries run one warp a split (``csrc`` warp mode),
-    longer ones one CTA a split."""
+    slots per cell), probe (B, nprobe) int32 cells, ``pad`` the store's
+    padding coordinate (the value of every coordinate of a slot at or past
+    its cell's count, which the kernel scores without reading). Query b's
+    candidate ``p * width + w`` is ``buckets[probe[b, p], w]`` for ``w <
+    width``: the index of ``flash_probe_grouped_raw`` on the gathered
+    block, which this computes. Returns ``(indices int32 (B, l), scores f32
+    (B, l))``, score ``||c||^2 - 2 q.c``. ``splits``: see
+    ``store_geometry``. Precondition (not checked, it would cost a device
+    sync): probe lies in ``[0, K)``."""
     if (q.ndim != 2 or buckets.ndim != 3 or probe.ndim != 2
             or buckets.shape[2] != q.shape[1]
             or probe.shape[0] != q.shape[0]
@@ -275,7 +310,8 @@ def flash_probe_store_raw(q: torch.Tensor, buckets: torch.Tensor,
                         f"got {counts.dtype}, {probe.dtype}")
     if _check_device("flash_probe_store", q, buckets, counts,
                      probe).type == "cpu":
-        return flash_probe_store_plain(q, buckets, counts, probe, width, l)
+        return flash_probe_store_plain(q, buckets, counts, probe, width, l,
+                                       pad)
     if max(b * nprobe, k * cap, nprobe * width, d) >= 2**31:
         raise ValueError("flash_probe_store: dims must fit int32")
     if b == 0:
@@ -283,19 +319,29 @@ def flash_probe_store_raw(q: torch.Tensor, buckets: torch.Tensor,
                 torch.empty((0, l), dtype=torch.float32, device=q.device))
     q, buckets = q.contiguous(), buckets.contiguous()
     counts, probe = counts.contiguous(), probe.contiguous()
-    splits, chunk, lp = _launch_geometry(width, l, splits)
-    if b * nprobe * splits >= 2**31:
-        raise ValueError("flash_probe_store: B * nprobe * splits must fit "
-                         "int32")
-    ptrs, keep = _buffers(b, l, nprobe * splits, lp, q.device)
-    # cell-major: the CTAs that read one cell run together
-    order = torch.sort(probe.reshape(-1), stable=True)[1].to(torch.int32)
-    pad = float(torch.tensor(PAD_COORD, dtype=q.dtype))
+    itemsize = q.element_size()
+    splits, chunk, lp, lists = store_geometry(nprobe, width, d, itemsize, l,
+                                              splits)
+    if b * lists >= 2**31:
+        raise ValueError("flash_probe_store: B * lists must fit int32")
+    ptrs, keep = _buffers(b, l, lists, lp, q.device)
+    if store_cell_mode(l, d, itemsize):
+        mode, tile_rows = _MODES[STORE_VARIANT], store_tile_rows(d, itemsize)
+        # cell-major: the pairs of one cell are adjacent
+        sc, order = torch.sort(probe.reshape(-1), stable=True)
+        order = order.to(torch.int32)
+        units = torch.empty(b * nprobe + 2, dtype=torch.int32,
+                            device=q.device)
+        keep += [sc, order, units]
+        cell_ptrs = (sc.data_ptr(), order.data_ptr(), units.data_ptr())
+    else:
+        mode, tile_rows, cell_ptrs = _MODES["list"], 0, (None,) * 3
     code = _build.lib().fk_flash_probe_store(
         q.data_ptr(), buckets.data_ptr(), counts.data_ptr(),
-        probe.data_ptr(), order.data_ptr(), *ptrs, b, nprobe, cap, width,
-        d, l, splits, chunk, lp, pad, int(q.dtype == torch.bfloat16),
-        _build.stream_ptr(q.device))
+        probe.data_ptr(), *cell_ptrs, *ptrs, b, nprobe, cap, width, d, l,
+        splits, chunk, lp, tile_rows,
+        float(torch.tensor(pad, dtype=q.dtype)), mode,
+        int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device))
     _build.check(code, "flash_probe_store kernel launch")
     launches["flash_probe_store"] += 1
     return keep[1], keep[0]
@@ -375,8 +421,9 @@ def kernel_attrs() -> dict[str, tuple[int, int]]:
                                   "flash_probe_grouped_q8", "topl_merge",
                                   "flash_probe_store",
                                   "flash_probe_store<bf16>",
+                                  "flash_probe_store_list",
                                   "flash_probe_store_warp",
-                                  "flash_probe_store_warp<bf16>")):
+                                  "flash_probe_store_rows")):
         regs, local = ctypes.c_int(0), ctypes.c_int(0)
         _build.check(_build.lib().fk_flash_probe_attrs(
             which, ctypes.byref(regs), ctypes.byref(local)),

@@ -315,12 +315,14 @@ def flash_probe_grouped(q: torch.Tensor, c: torch.Tensor, *, l: int,
 
 def flash_probe_store(q: torch.Tensor, buckets: torch.Tensor,
                       counts: torch.Tensor, probe: torch.Tensor, *,
-                      width: int, l: int, splits: int | None = None,
-                      plan=None, want_dists: bool = True
+                      width: int, l: int, pad: float,
+                      splits: int | None = None, plan=None,
+                      want_dists: bool = True
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """The posting-list scan over the padded store, read in place. q (B,
     d), buckets (K, cap, d), counts (K,) int32, probe (B, nprobe) int32
-    cells, ``1 <= l <= nprobe * width``. Computes what
+    cells, ``pad`` the store's padding coordinate (held by every slot at or
+    past its cell's count), ``1 <= l <= nprobe * width``. Computes what
     ``flash_probe_grouped`` computes on the store's gathered ``(B, nprobe
     * width, d)`` block, without writing it: ``(indices int32 (B, l) into
     the probe-rank-major ``p * width + w`` axis, dists f32 (B, l))``
@@ -330,7 +332,7 @@ def flash_probe_store(q: torch.Tensor, buckets: torch.Tensor,
     splits = _probe_splits("scan_store", (b, nprobe, width, d, l), q.dtype,
                            splits, plan, q.device)
     idx, v = _fp.flash_probe_store_raw(q, buckets, counts, probe, width, l,
-                                       splits=splits)
+                                       pad, splits=splits)
     return idx, (_add_qsq(q, v) if want_dists else v)
 
 

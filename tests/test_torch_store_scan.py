@@ -30,7 +30,7 @@ from repro_torch.index import store as store_mod
 from repro_torch.kernels import flash_probe as fp
 from repro_torch.kernels import ops
 
-PAD = fp.PAD_COORD
+PAD = store_mod._PAD_COORD
 DTYPES = {"f32": (torch.float32, jnp.float32),
           "bf16": (torch.bfloat16, jnp.bfloat16)}
 
@@ -64,12 +64,12 @@ def _jax_scan(q, buckets, ids, probe, width, l, jdt):
             np.take_along_axis(np.asarray(cand_ids), np.asarray(li), 1))
 
 
-def _port_scan(q, buckets, ids, counts, probe, width, l, tdt, splits):
+def _port_scan(q, buckets, ids, counts, probe, width, l, tdt):
     tp = torch.from_numpy(probe)
     li, dist = ops.flash_probe_store(
         torch.from_numpy(q).to(tdt), torch.from_numpy(buckets).to(tdt),
         torch.from_numpy(np.asarray(counts, np.int32)), tp, width=width, l=l,
-        splits=splits)
+        pad=PAD)
     # the id lookup of IVFIndex.search: (B, l) slots, no gathered id block
     lil = li.long()
     cell = torch.gather(tp.long(), 1, lil // width)
@@ -86,15 +86,20 @@ def _atol(q, buckets, counts):
 
 # (B, K, cap, width, d, nprobe, l): ragged counts with empty cells, a cell at
 # count == width and one at count == cap > width (its slots past width are
-# not candidates), d = 19 (the kernel's scalar path), l beyond a probe's rows
+# not candidates), d = 1, 19 and 129 (the kernel's scalar path), l beyond a
+# probe's rows, l at and just past the cell mode's 32, l = 1, every cell
+# probed by every query (units of more than 8 pairs), one probe a query.
+# The card's splits are the smoke's concern: on the CPU the wrapper runs the
+# plain version, which has none.
 CASES = [(16, 12, 40, 32, 16, 4, 10), (9, 7, 24, 24, 19, 3, 37),
-         (5, 20, 64, 64, 8, 6, 100), (4, 6, 16, 8, 19, 2, 16)]
+         (5, 20, 64, 64, 8, 6, 100), (4, 6, 16, 8, 19, 2, 16),
+         (12, 30, 48, 48, 1, 8, 32), (6, 10, 40, 40, 129, 5, 33),
+         (20, 9, 32, 32, 64, 9, 1), (3, 5, 70, 64, 8, 1, 64)]
 
 
 @pytest.mark.parametrize("b,k,cap,width,d,nprobe,l", CASES)
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("splits", [1, 3])
-def test_store_scan_matches_jax(b, k, cap, width, d, nprobe, l, dt, splits):
+def test_store_scan_matches_jax(b, k, cap, width, d, nprobe, l, dt):
     rng = np.random.default_rng(b * k + d + l)
     counts = rng.integers(0, width + 1, k)
     counts[0], counts[1], counts[2] = 0, width, cap
@@ -104,7 +109,7 @@ def test_store_scan_matches_jax(b, k, cap, width, d, nprobe, l, dt, splits):
     tdt, jdt = DTYPES[dt]
     jli, jdist, jids = _jax_scan(q, buckets, ids, probe, width, l, jdt)
     li, dist, got_ids = _port_scan(q, buckets, ids, counts, probe, width, l,
-                                   tdt, splits)
+                                   tdt)
     assert li.dtype == np.int32 and li.shape == jli.shape == (b, l)
     np.testing.assert_allclose(dist, jdist, rtol=1e-5,
                                atol=_atol(q, buckets, counts))
@@ -133,7 +138,7 @@ def test_fewer_live_rows_than_l_fill_with_pads():
     jli, jdist, jids = _jax_scan(q, buckets, ids, probe, width, l,
                                  jnp.float32)
     li, dist, got_ids = _port_scan(q, buckets, ids, counts, probe, width, l,
-                                   torch.float32, 2)
+                                   torch.float32)
     assert np.array_equal(li, jli)
     assert np.array_equal(got_ids, jids)
     np.testing.assert_allclose(dist, jdist, rtol=1e-5,
@@ -156,7 +161,7 @@ def test_duplicate_rows_across_cells_keep_the_lower_index():
     jli, jdist, jids = _jax_scan(q, buckets, ids, probe, width, 12,
                                  jnp.float32)
     li, dist, got_ids = _port_scan(q, buckets, ids, counts, probe, width, 12,
-                                   torch.float32, 1)
+                                   torch.float32)
     assert np.array_equal(li, jli) and np.array_equal(got_ids, jids)
     for row, vals in zip(li, dist):     # equal scores: ascending index
         eq = vals[1:] == vals[:-1]
@@ -170,15 +175,17 @@ def test_store_scan_contract():
     probe = torch.zeros(2, 2, dtype=torch.int32)
     for l in (0, 2 * 8 + 1):
         with pytest.raises(ValueError):
-            ops.flash_probe_store(q, buckets, counts, probe, width=8, l=l)
+            ops.flash_probe_store(q, buckets, counts, probe, width=8, l=l,
+                                  pad=PAD)
     with pytest.raises(ValueError, match="width"):
-        ops.flash_probe_store(q, buckets, counts, probe, width=9, l=1)
+        ops.flash_probe_store(q, buckets, counts, probe, width=9, l=1,
+                              pad=PAD)
     with pytest.raises(TypeError):
-        fp.flash_probe_store_raw(q, buckets, counts.long(), probe, 8, 1)
+        fp.flash_probe_store_raw(q, buckets, counts.long(), probe, 8, 1, PAD)
     with pytest.raises(ValueError):
-        fp.flash_probe_store_raw(q, buckets, counts[:2], probe, 8, 1)
+        fp.flash_probe_store_raw(q, buckets, counts[:2], probe, 8, 1, PAD)
     got = ops.flash_probe_store(q[:0], buckets, counts, probe[:0], width=8,
-                                l=3)
+                                l=3, pad=PAD)
     assert got[0].shape == (0, 3) and got[1].shape == (0, 3)
 
 
@@ -186,27 +193,40 @@ def test_store_scan_contract():
     (256, 16, 2128, 10), (1, 16, 2128, 10), (1, 1, 100, 100),
     (3, 4, 5000, 3000), (32, 64, 2048, 10), (256, 16, 2128, 40)])
 def test_store_plan_geometry_covers_every_slot(b, nprobe, width, l):
-    """Lists of at most 32 entries run a warp per split of a (query, probe)
-    pair, longer ones a CTA; either way the splits cover every slot once
-    and the partial lists hold at least l entries per query."""
+    """Lists of at most 32 entries take the cell mode (splits of each
+    pair's width slots), longer ones the list mode (splits of each query's
+    nprobe * width slots); either way the splits cover every slot once and
+    the partial lists hold at least l entries per query."""
     planner = P.KernelPlanner(H.hopper_row("h100_test"))
     plan = planner.plan("scan_store", (b, nprobe, width, 128, l), 4)
-    warp = l <= H.STORE_WARP_LIST
+    cell = l <= fp.STORE_CELL_LIST
     assert plan.op == "scan_store"
-    assert plan.impl == ("store_scan_warp" if warp else "store_scan")
+    assert plan.impl == ("store_scan_cell" if cell else "store_scan_list")
     splits, tile = plan.blocks
     assert tile == fp.TILE and plan.smem_bytes <= plan.smem_limit
-    s, chunk, lp = fp._launch_geometry(width, l, splits)
-    assert s == splits and (s - 1) * chunk < width <= s * chunk
-    assert lp == min(l, chunk) and nprobe * s * lp >= l
-    min_rows = H.STORE_WARP_MIN_ROWS if warp else H.STORE_MIN_CHUNK
-    assert splits <= max(1, width // min_rows)    # no split under min_rows
+    s, chunk, lp, lists = fp.store_geometry(nprobe, width, 128, 4, l, splits)
+    axis = width if cell else nprobe * width
+    assert s == splits and (s - 1) * chunk < axis <= s * chunk
+    assert lp == min(l, chunk) and lists * lp >= l
+    assert lists == (nprobe * s if cell else s)
+    if cell:
+        assert splits <= max(1, width // H.STORE_MIN_ROWS)  # none under 256
     if (b, nprobe, width, l) == (256, 16, 2128, 10):
-        # the IVF1024 search: 4,096 pairs, 4 waves of 3 x 8 warps on 132 SMs
-        assert splits == 4 and plan.smem_bytes == H.probe_merge_footprint(l)
+        # the IVF1024 search: at least 512 units of 8 pairs, 4 items per
+        # resident CTA (3 a SM: registers and the 64 KiB ring) on 132 SMs
+        assert splits == 4
+        assert plan.smem_bytes == fp.store_cell_smem(128, 4) == 128 + 4 * 32 * 512
     if (b, nprobe, width, l) == (256, 16, 2128, 40):
-        assert splits == 1                 # the pairs alone fill the card
+        assert splits == H.choose_probe_splits(256, 16 * 2128, 40)
     assert planner.plan("scan_store", (b, nprobe, width, 128, l), 4) is plan
+
+
+def test_store_cell_mode_takes_short_lists_of_rows_that_fit_a_tile():
+    assert fp.store_cell_mode(32, 128, 4) and not fp.store_cell_mode(33, 128, 4)
+    assert fp.store_tile_rows(128, 4) == 32 and fp.store_tile_rows(128, 2) == 64
+    assert fp.store_tile_rows(19, 4) == 215 and fp.store_tile_rows(8192, 2) == 1
+    assert fp.store_cell_mode(10, 4096, 4)        # one row a tile
+    assert not fp.store_cell_mode(10, 4097, 4)    # the list mode's rows
 
 
 # --- the store invariant: slots at or past counts[cell] hold -1 and PAD -----
@@ -256,14 +276,18 @@ def test_store_invariant_after_spills_refresh_and_repair():
     tidx.refresh(repair_dead=True)
     assert tidx.reseeded_cells == jidx.reseeded_cells >= 1
     check()
-    # the store scan on this store equals the gathered block's scan
+    # the port's store scan on its store against the JAX package's gather
+    # and grouped scan on its own store, after the same sequence
     q = x[:8]
-    st = tidx.store
     width = tidx.search_geometry(10, 4)[2]
-    probe = torch.from_numpy(_probe(rng, 8, k + 1, 4))
-    got = ops.flash_probe_store(torch.from_numpy(q), st.buckets, st.counts,
-                                probe, width=width, l=10)
-    cand, _ = store_mod.gather_global("padded", st.device_arrays(), probe,
-                                      width)
-    exp = ops.flash_probe_grouped(torch.from_numpy(q), cand, l=10)
-    assert torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])
+    probe = _probe(rng, 8, k + 1, 4)
+    jb, ji = jidx.store.dense()
+    tb, ti = tidx.store.dense()
+    jli, jdist, jids = _jax_scan(q, np.asarray(jb), np.asarray(ji), probe,
+                                 width, 10, jnp.float32)
+    li, dist, got_ids = _port_scan(q, tb.numpy(), ti.numpy(),
+                                   tidx.counts.numpy(), probe, width, 10,
+                                   torch.float32)
+    assert np.array_equal(li, jli) and np.array_equal(got_ids, jids)
+    np.testing.assert_allclose(dist, jdist, rtol=1e-5,
+                               atol=_atol(q, tb.numpy(), tidx.counts.numpy()))
