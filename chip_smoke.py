@@ -755,15 +755,12 @@ def main() -> int:
         counts = cnt.to(torch.int32)
         q = torch.randn(bq, d, device=dev, generator=gen_e)
         live0 = int(torch.clamp(cnt[probe[0].long()], max=width).sum())
-        for cdt, var in itertools.product((torch.float32, torch.bfloat16),
-                                          ("cell", "rows")):
-            fp.STORE_VARIANT = var
+        for cdt in (torch.float32, torch.bfloat16):
             for splits in (None, 1, 3):
                 store_check(q.to(cdt), xs.to(cdt), counts, probe, width, l,
                             f"edge{(bq, kc, cap, width, d, nprobe, l)}/"
-                            f"query0 live {live0}/{cdt}/{var}/"
+                            f"query0 live {live0}/{cdt}/"
                             f"splits={splits or 'planned'}", splits)
-        fp.STORE_VARIANT = "cell"
 
     def aligned(shape, g):
         """Values in [1, 1 + 1/16) with the low 13 mantissa bits 0x0fff:
@@ -1241,36 +1238,20 @@ def main() -> int:
                 return ms_of(lambda: fp.flash_probe_store_raw(
                     qb, buckets, cnts, probe, width, TOPK, PAD, splits=s),
                     reps=20)
-            variants = {"cell": [], "warp": [], "rows": []}
-            for name in ("rows", "cell", "warp", "warp", "cell", "rows"):
+            variants = {"cell": [], "warp": []}
+            for name in ("cell", "warp", "warp", "cell"):
                 fp.STORE_VARIANT = name
                 variants[name].append(store_ms())
             fp.STORE_VARIANT = "warp"
             got_warp = fp.flash_probe_store_raw(qb, buckets, cnts, probe,
                                                 width, TOPK, PAD,
                                                 splits=plans[2])
-            fp.STORE_VARIANT = "rows"
-            got_rows = fp.flash_probe_store_raw(qb, buckets, cnts, probe,
-                                                width, TOPK, PAD,
-                                                splits=plans[2])
-            split_rows = {s: store_ms(s) for s in (1, 2, 3, 4, 8)}
             fp.STORE_VARIANT = "cell"
             check(torch.equal(got_cell[0], got_warp[0])
-                  and torch.equal(got_cell[1], got_warp[1])
-                  and torch.equal(got_cell[0], got_rows[0])
-                  and torch.equal(got_cell[1], got_rows[1]),
-                  "ivf/fp32: the cell, warp and rows kernels agree bit for "
-                  "bit")
-            print(f"  the rows kernel by splits: {split_rows}", flush=True)
+                  and torch.equal(got_cell[1], got_warp[1]),
+                  "ivf/fp32: the cell and warp kernels agree bit for bit")
             split_ms = {s: store_ms(s) for s in (1, 2, 4, 8, 16)}
-            diag = {}
-            for name in ("cell", "cell_noscore", "cell_noload",
-                         "cell_noinsert", "cell_notree", "cell_nolds",
-                         "cell_nofma", "cell"):
-                fp.STORE_VARIANT = name
-                diag.setdefault(name, []).append(store_ms())
-            print(f"  store scan diagnostics (ms): {diag}", flush=True)
-            for name in ("cell", "warp", "rows"):
+            for name in ("cell", "warp"):
                 fp.STORE_VARIANT = name
                 call = lambda: fp.flash_probe_store_raw(
                     qb, buckets, cnts, probe, width, TOPK, PAD,

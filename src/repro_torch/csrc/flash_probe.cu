@@ -505,18 +505,31 @@ __device__ __forceinline__ int held_base(int lane_g) {
   return base;
 }
 
+__device__ __forceinline__ void lds128(uint32_t addr, uint4& v) {
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void lds128(uint32_t addr, float4& v) {
+  uint4 u;
+  lds128(addr, u);
+  v = make_float4(__uint_as_float(u.x), __uint_as_float(u.y), __uint_as_float(u.z),
+                  __uint_as_float(u.w));
+}
+
 template <typename T, bool kVec, int G, bool kShared>
 struct StoreRows {
   const T* q;     // this query's row (d)
   const T* rows;  // consecutive rows (shared memory with kShared, else global)
   int d;
   float pad;      // the store's padding coordinate, as its dtype holds it
-  int flags = 0;
 
-  // Scores ||c||^2 - 2 q.c of rows w .. w + 7 (rows at or past w + n are not read), or
-  // with kPad of the padding row, left as tree8 leaves them. Each lane sums its columns
-  // as expanded_part does, and tree8 pairs the lanes as group_sum's butterfly does, so
-  // every score is bitwise the block kernel's on the gathered row.
+  // Scores ||c||^2 - 2 q.c of rows w .. w + 7 (rows at or past w + n are not read; with
+  // kShared all 8 are read, the caller's tile holds them), or with kPad of the padding
+  // row, left as tree8 leaves them. Each lane sums its columns as expanded_part does,
+  // and tree8 pairs the lanes as group_sum's butterfly does, so every score is bitwise
+  // the block kernel's on the gathered row.
   template <bool kPad>
   __device__ __forceinline__ void score8(int w, int n, int lane_g, float (&v)[8]) const {
 #pragma unroll
@@ -530,29 +543,24 @@ struct StoreRows {
 #pragma unroll
         for (int e = 0; e < V; ++e) qm2[e] *= -2.f;
         VT raw[8];
-        if constexpr (!kPad) {
+        if constexpr (kShared && !kPad) {
+          const uint32_t at = smem_u32(rows) + ((uint32_t)w * d + j) * (uint32_t)sizeof(T);
 #pragma unroll
-          for (int r = 0; r < 8; ++r)
-            if (r < n) {
-              const VT* p = reinterpret_cast<const VT*>(rows + (size_t)(w + r) * d + j);
-              if (flags & 16) raw[r] = VT{};
-              else if constexpr (kShared) raw[r] = *p;
-              else raw[r] = __ldg(p);  // L1 and L2 keep the rows for the cell's other queries
-            }
+          for (int r = 0; r < 8; ++r) lds128(at + (uint32_t)(r * d * sizeof(T)), raw[r]);
+        } else if constexpr (!kPad) {
+#pragma unroll
+          for (int r = 0; r < 8; ++r)  // L1 and L2 keep the rows for the cell's other queries
+            if (r < n) raw[r] = __ldg(reinterpret_cast<const VT*>(rows + (size_t)(w + r) * d + j));
         }
 #pragma unroll
         for (int r = 0; r < 8; ++r) {
-          if (!kPad && r >= n) continue;
+          if (!kPad && !kShared && r >= n) continue;
           float c[V];
           if constexpr (kPad) {
 #pragma unroll
             for (int e = 0; e < V; ++e) c[e] = pad;
           } else {
             unpack(raw[r], c);
-          }
-          if (flags & 32) {
-            v[r] += c[0] + qm2[0];
-            continue;
           }
 #pragma unroll
           for (int e = 0; e < V; ++e) {
@@ -567,7 +575,8 @@ struct StoreRows {
         float c[8];
 #pragma unroll
         for (int r = 0; r < 8; ++r)
-          c[r] = kPad ? pad : (r < n ? to_f32(rows[(size_t)(w + r) * d + j]) : 0.f);
+          c[r] = kPad ? pad
+                      : (kShared || r < n ? to_f32(rows[(size_t)(w + r) * d + j]) : 0.f);
 #pragma unroll
         for (int r = 0; r < 8; ++r) {
           v[r] = fmaf(c[r], c[r], v[r]);
@@ -575,7 +584,7 @@ struct StoreRows {
         }
       }
     }
-    if (!(flags & 8)) tree8<G / 2, 8>(v, lane_g);
+    tree8<G / 2, 8>(v, lane_g);
   }
 };
 
@@ -604,8 +613,7 @@ __device__ __forceinline__ void warp_insert(float s, int x, int lp, int lane, fl
 // are inserted one by one.
 template <class Rows, int G>
 __device__ __forceinline__ void warp_scan(const Rows& rows, int r0, int r1, int base, int lp,
-                                          int lane, float& mv, int& mi, float& tv, int& ti,
-                                          bool sel = true) {
+                                          int lane, float& mv, int& mi, float& tv, int& ti) {
   constexpr int kHeld = G >= 8 ? 1 : 8 / G;
   const int lane_g = lane & (G - 1), grp = lane / G;
   const int hb = held_base<G>(lane_g);
@@ -618,8 +626,7 @@ __device__ __forceinline__ void warp_scan(const Rows& rows, int r0, int r1, int 
     for (int i = 0; i < kHeld; ++i) {
       const int r = rg + hb + i;
       const int idx = base + r;
-      unsigned m = __ballot_sync(0xffffffffu, holder && r < r1 &&
-                                 (sel ? key_less(v[i], idx, tv, ti) : v[i] < -1e37f));
+      unsigned m = __ballot_sync(0xffffffffu, holder && r < r1 && key_less(v[i], idx, tv, ti));
       while (m) {  // uniform
         const int src = __ffs(m) - 1;
         m &= m - 1;
@@ -722,7 +729,7 @@ __global__ void __launch_bounds__(kThreads, kStoreMinBlocks)
     flash_probe_store_kernel(const T* q, const T* buckets, const int* counts, const int* sc,
                              const int* order, const int* units, int* work, int npairs, int P,
                              int cap, int width, int d, float pad, int lp, int chunk, int S,
-                             int tile_rows, float* pv, int* pi, int flags) {
+                             int tile_rows, float* pv, int* pi) {
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
   int* s_item = reinterpret_cast<int*>(smem + 8 * kCellStages);
   T* ring = reinterpret_cast<T*>(smem + kCellHead);
@@ -748,7 +755,6 @@ __global__ void __launch_bounds__(kThreads, kStoreMinBlocks)
     const int ntiles = (hi - w0 + tile_rows - 1) / tile_rows;
     const T* src = buckets + ((size_t)cell * cap + w0) * d;
     auto fill = [&](int t) {  // tile t of the item into its stage
-      if (flags & 2) return;
       const unsigned k = (used + t) % kCellStages;
       const int nt = min(tile_rows, hi - w0 - t * tile_rows);
       T* dst = ring + k * stage;
@@ -775,14 +781,13 @@ __global__ void __launch_bounds__(kThreads, kStoreMinBlocks)
     for (int t = 0; t < ntiles; ++t) {
       if (t + kCellStages - 1 < ntiles) fill(t + kCellStages - 1);  // the stage freed last round
       const unsigned g = used + t, k = g % kCellStages;
-      if constexpr (kVec) { if (!(flags & 2)) mbar_wait(smem_u32(bars + k), (g / kCellStages) & 1); }
+      if constexpr (kVec) mbar_wait(smem_u32(bars + k), (g / kCellStages) & 1);
       else __syncthreads();  // the threads' copies are visible
-      if (mine && !(flags & 1)) {
+      if (mine) {
         const int r0 = t * tile_rows;
-        const StoreRows<T, kVec, G, true> rows{qb, ring + k * stage, d, pad, flags};
+        const StoreRows<T, kVec, G, true> rows{qb, ring + k * stage, d, pad};
         warp_scan<StoreRows<T, kVec, G, true>, G>(rows, 0, min(tile_rows, hi - w0 - r0),
-                                                  base + w0 + r0, lp, lane, mv, mi, tv, ti,
-                                                  !(flags & 4));
+                                                  base + w0 + r0, lp, lane, mv, mi, tv, ti);
       }
       __syncthreads();  // every warp is done with stage k before it is refilled
     }
@@ -796,231 +801,6 @@ __global__ void __launch_bounds__(kThreads, kStoreMinBlocks)
         pi[slot + lane] = mi;
       }
     }
-  }
-}
-
-// Offer this group's rows rg + held_base + i (scores v[i] as tree8 leaves them) with
-// index base + row to a warp's list; rows at or past r1 are not offered.
-template <int G>
-__device__ __forceinline__ void warp_offer(const float (&v)[8], int rg, int r1, int base,
-                                           int lp, int lane, float& mv, int& mi, float& tv,
-                                           int& ti) {
-  constexpr int kHeld = G >= 8 ? 1 : 8 / G;
-  const int lane_g = lane & (G - 1);
-  const int hb = held_base<G>(lane_g);
-  const bool holder = G <= 8 || (lane_g & (G / 8 - 1)) == 0;  // one lane per held row
-#pragma unroll
-  for (int i = 0; i < kHeld; ++i) {
-    const int r = rg + hb + i;
-    const int idx = base + r;
-    unsigned m = __ballot_sync(0xffffffffu, holder && r < r1 && key_less(v[i], idx, tv, ti));
-    while (m) {  // uniform
-      const int src = __ffs(m) - 1;
-      m &= m - 1;
-      warp_insert(__shfl_sync(0xffffffffu, v[i], src), __shfl_sync(0xffffffffu, idx, src), lp,
-                  lane, mv, mi, tv, ti);
-    }
-  }
-}
-
-constexpr int kRowGroups = 4;                         // row-owner mode: row groups a tile
-constexpr int kWarpPairs = kCellPairs / (kThreads / 32 / kRowGroups);  // pairs a warp scores
-constexpr int kRowStages = 3;
-
-// Partial sums (as tree8 wants them) of rows w .. w + 7 (rows at or past w + n are not
-// read) against up to kWarpPairs queries; q[jj] == nullptr: no pair. Each row slice is
-// read from shared memory once for all of them; per (pair, row), each lane sums its
-// columns as expanded_part does.
-template <typename T, bool kVec, int G>
-__device__ __forceinline__ void score8_pairs(const T* const (&q)[kWarpPairs], const T* rows,
-                                             int w, int n, int d, int lane_g,
-                                             float (&acc)[kWarpPairs][8]) {
-#pragma unroll
-  for (int jj = 0; jj < kWarpPairs; ++jj)
-#pragma unroll
-    for (int r = 0; r < 8; ++r) acc[jj][r] = 0.f;
-  if constexpr (kVec) {
-    constexpr int V = Vec16<T>::N;
-    using VT = typename Vec16<T>::V;
-    for (int j = lane_g * V; j < d; j += G * V) {
-      VT raw[8];
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        raw[r] = VT{};
-        if (r < n) raw[r] = *reinterpret_cast<const VT*>(rows + (size_t)(w + r) * d + j);
-      }
-#pragma unroll
-      for (int jj = 0; jj < kWarpPairs; ++jj) {
-        if (q[jj] == nullptr) continue;
-        float qm2[V];
-        load_vec<T, false>(q[jj] + j, qm2);
-#pragma unroll
-        for (int e = 0; e < V; ++e) qm2[e] *= -2.f;
-#pragma unroll
-        for (int r = 0; r < 8; ++r) {
-          float c[V];
-          unpack(raw[r], c);
-#pragma unroll
-          for (int e = 0; e < V; ++e) {
-            acc[jj][r] = fmaf(c[e], c[e], acc[jj][r]);
-            acc[jj][r] = fmaf(qm2[e], c[e], acc[jj][r]);
-          }
-        }
-      }
-    }
-  } else {
-    for (int j = lane_g; j < d; j += G) {
-      float c[8];
-#pragma unroll
-      for (int r = 0; r < 8; ++r) c[r] = r < n ? to_f32(rows[(size_t)(w + r) * d + j]) : 0.f;
-#pragma unroll
-      for (int jj = 0; jj < kWarpPairs; ++jj) {
-        if (q[jj] == nullptr) continue;
-        const float qm2 = -2.f * to_f32(q[jj][j]);
-#pragma unroll
-        for (int r = 0; r < 8; ++r) {
-          acc[jj][r] = fmaf(c[r], c[r], acc[jj][r]);
-          acc[jj][r] = fmaf(qm2, c[r], acc[jj][r]);
-        }
-      }
-    }
-  }
-}
-
-// Row-owner mode. Warp w owns row group w % kRowGroups of every tile (one warp step,
-// 8 * (32 / G) rows) and the unit's pairs w / kRowGroups + 2 jj, jj < kWarpPairs, each
-// with a list in registers over its rows. At the item's end the kRowGroups lists of
-// each pair are merged by rank in shared memory.
-template <typename T, bool kVec, int G>
-__global__ void __launch_bounds__(kThreads, 2)
-    flash_probe_store_rows_kernel(const T* q, const T* buckets, const int* counts,
-                                  const int* sc, const int* order, const int* units, int* work,
-                                  int npairs, int P, int cap, int width, int d, float pad,
-                                  int lp, int chunk, int S, float* pv, int* pi) {
-  constexpr int kStep = 8 * (32 / G);  // rows of one warp step
-  constexpr int kTile = kRowGroups * kStep;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
-  int* s_item = reinterpret_cast<int*>(smem + 8 * kRowStages);
-  T* ring = reinterpret_cast<T*>(smem + kCellHead);
-  const size_t stage = (size_t)kTile * d;
-  float* lv = reinterpret_cast<float*>(smem + kCellHead + kRowStages * stage * sizeof(T));
-  int* li = reinterpret_cast<int*>(lv + kCellPairs * kRowGroups * kWarpList);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rgp = warp % kRowGroups, ph = warp / kRowGroups;
-  const int lane_g = lane & (G - 1), grp = lane / G;
-  if (threadIdx.x == 0) {
-    for (int k = 0; k < kRowStages; ++k) mbar_init(smem_u32(bars + k), 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-  const int items = work[0] * S;
-  unsigned used = 0;
-  for (;;) {
-    if (threadIdx.x == 0) *s_item = atomicAdd(work + 1, 1);
-    __syncthreads();
-    const int item = *s_item;
-    __syncthreads();
-    if (item >= items) break;
-    const int u = item / S, s = item - u * S;
-    const int pos0 = units[u], cell = sc[pos0];
-    const int live = min(counts[cell], width);
-    const int w0 = s * chunk, w1 = min(width, w0 + chunk), hi = max(w0, min(w1, live));
-    const int ntiles = (hi - w0 + kTile - 1) / kTile;
-    const T* src = buckets + ((size_t)cell * cap + w0) * d;
-    auto fill = [&](int t) {
-      const unsigned k = (used + t) % kRowStages;
-      const int nt = min(kTile, hi - w0 - t * kTile);
-      T* dst = ring + k * stage;
-      const T* from = src + (size_t)t * kTile * d;
-      if constexpr (kVec) {
-        if (threadIdx.x == 0) {
-          const uint32_t bytes = (uint32_t)((size_t)nt * d * sizeof(T));
-          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-          mbar_expect_tx(smem_u32(bars + k), bytes);
-          bulk_load(smem_u32(dst), from, bytes, smem_u32(bars + k));
-        }
-      } else {
-        for (int e = threadIdx.x; e < nt * d; e += blockDim.x) dst[e] = from[e];
-      }
-    };
-    for (int t = 0; t < min(ntiles, kRowStages - 1); ++t) fill(t);
-    const T* qp[kWarpPairs];
-    int base[kWarpPairs];
-    float mv[kWarpPairs], tv[kWarpPairs];
-    int mi[kWarpPairs], ti[kWarpPairs];
-#pragma unroll
-    for (int jj = 0; jj < kWarpPairs; ++jj) {
-      const int pos = pos0 + ph + (kThreads / 32 / kRowGroups) * jj;
-      const bool has = pos < npairs && sc[pos] == cell;  // warp-uniform
-      const int pair = has ? order[pos] : 0;
-      const int b = pair / P;
-      qp[jj] = has ? q + (size_t)b * d : nullptr;
-      base[jj] = (pair - b * P) * width;
-      mv[jj] = tv[jj] = INFINITY;
-      mi[jj] = ti[jj] = kSentinel;
-    }
-    for (int t = 0; t < ntiles; ++t) {
-      if (t + kRowStages - 1 < ntiles) fill(t + kRowStages - 1);
-      const unsigned g = used + t, k = g % kRowStages;
-      if constexpr (kVec) mbar_wait(smem_u32(bars + k), (g / kRowStages) & 1);
-      else __syncthreads();
-      const int nt = min(kTile, hi - w0 - t * kTile);  // rows of this tile
-      const int r0 = rgp * kStep + grp * 8;              // this group's first row
-      if (rgp * kStep < nt && qp[0] != nullptr) {
-        float acc[kWarpPairs][8];
-        score8_pairs<T, kVec, G>(qp, ring + k * stage, r0, nt - r0, d, lane_g, acc);
-#pragma unroll
-        for (int jj = 0; jj < kWarpPairs; ++jj) {
-          if (qp[jj] == nullptr) continue;
-          tree8<G / 2, 8>(acc[jj], lane_g);
-          warp_offer<G>(acc[jj], r0, nt, base[jj] + w0 + t * kTile, lp, lane, mv[jj], mi[jj],
-                        tv[jj], ti[jj]);
-        }
-      }
-      __syncthreads();
-    }
-    used += ntiles;
-    // pads enter the row group 0 lists; every list goes to shared memory
-#pragma unroll
-    for (int jj = 0; jj < kWarpPairs; ++jj) {
-      if (qp[jj] == nullptr) continue;
-      if (rgp == 0) {
-        const StoreRows<T, kVec, G, true> pads{qp[jj], nullptr, d, pad};
-        warp_pads<StoreRows<T, kVec, G, true>, G>(pads, hi, w1, base[jj], lp, lane, mv[jj],
-                                                  mi[jj], tv[jj], ti[jj]);
-      }
-      const int j = ph + (kThreads / 32 / kRowGroups) * jj;
-      const int o = (j * kRowGroups + rgp) * kWarpList;
-      if (lane < lp) {
-        lv[o + lane] = mv[jj];
-        li[o + lane] = mi[jj];
-      }
-    }
-    __syncthreads();
-    // warp j merges pair j's lists: an entry's place is its own plus the entries before
-    // it in the other lists (earlier lists first on equal keys)
-    const int pos = pos0 + warp;
-    if (pos < npairs && sc[pos] == cell) {
-      const size_t slot = ((size_t)order[pos] * S + s) * lp;
-      for (int e = lane; e < kRowGroups * lp; e += 32) {
-        const int a = e / lp, i = e - a * lp;
-        const int o = (warp * kRowGroups + a) * kWarpList;
-        const float kv = lv[o + i];
-        const int kx = li[o + i];
-        int rank = i;
-        for (int c = 0; c < kRowGroups; ++c) {
-          if (c == a) continue;
-          const int oc = (warp * kRowGroups + c) * kWarpList;
-          rank += c < a ? count_before<false>(lv + oc, li + oc, lp, kv, kx)
-                        : count_before<true>(lv + oc, li + oc, lp, kv, kx);
-        }
-        if (rank < lp) {
-          pv[slot + rank] = kv;
-          pi[slot + rank] = kx;
-        }
-      }
-    }
-    __syncthreads();
   }
 }
 
@@ -1195,18 +975,10 @@ struct StoreArgs {
 
 enum StoreMode { kStoreList = 0, kStoreCell = 1, kStoreWarp = 2 };
 
-// Allow `sm` dynamic shared bytes for `kernel`, and count its resident CTAs per SM.
-template <typename K>
-cudaError_t resident_per_sm(K kernel, size_t sm, int* per_sm) {
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
-  if (e != cudaSuccess) return e;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, kThreads, sm);
-}
-
 template <typename T, bool kVec, int G>
 cudaError_t launch_store_g(const StoreArgs& a, int mode, cudaStream_t st) {
   const int npairs = a.B * a.P;
-  if ((mode & 15) == kStoreWarp) {
+  if (mode == kStoreWarp) {
     const long long blocks = ((long long)npairs * a.S + kThreads / 32 - 1) / (kThreads / 32);
     flash_probe_store_warp_kernel<T, kVec, G><<<(unsigned)blocks, kThreads, 0, st>>>(
         (const T*)a.q, (const T*)a.buckets, (const int*)a.counts, (const int*)a.probe,
@@ -1216,16 +988,15 @@ cudaError_t launch_store_g(const StoreArgs& a, int mode, cudaStream_t st) {
   }
   // the cell mode: the prologue cuts the units, then as many CTAs as stay resident
   // take the work items from its counter
-  const bool rows_mode = (mode & 15) == 3;
-  const size_t sm =
-      rows_mode ? kCellHead + (size_t)kRowStages * kRowGroups * 8 * (32 / G) * a.d * sizeof(T) +
-                      (size_t)kCellPairs * kRowGroups * kWarpList * 8
-                : kCellHead + (size_t)kCellStages * a.tile_rows * a.d * sizeof(T);
+  auto kernel = flash_probe_store_kernel<T, kVec, G>;
+  const size_t sm = kCellHead + (size_t)kCellStages * a.tile_rows * a.d * sizeof(T);
   int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = rows_mode ? resident_per_sm(flash_probe_store_rows_kernel<T, kVec, G>, sm, &per_sm)
-                            : resident_per_sm(flash_probe_store_kernel<T, kVec, G>, sm, &per_sm);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)sm);
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, sm);
   if (e != cudaSuccess) return e;
   int* units = (int*)a.units;
   cell_units_kernel<<<1, 1024, 0, st>>>((const int*)a.sc, npairs, units, units + npairs);
@@ -1233,17 +1004,10 @@ cudaError_t launch_store_g(const StoreArgs& a, int mode, cudaStream_t st) {
   if (e != cudaSuccess) return e;
   const long long items = (long long)npairs * a.S;  // at least the units' items
   const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  const unsigned grid = (unsigned)(items < resident ? items : resident);
-  if (rows_mode)
-    flash_probe_store_rows_kernel<T, kVec, G><<<grid, kThreads, sm, st>>>(
-        (const T*)a.q, (const T*)a.buckets, (const int*)a.counts, (const int*)a.sc,
-        (const int*)a.order, units, units + npairs, npairs, a.P, a.cap, a.width, a.d, a.pad,
-        a.lp, a.chunk, a.S, (float*)a.pv, (int*)a.pi);
-  else
-    flash_probe_store_kernel<T, kVec, G><<<grid, kThreads, sm, st>>>(
-        (const T*)a.q, (const T*)a.buckets, (const int*)a.counts, (const int*)a.sc,
-        (const int*)a.order, units, units + npairs, npairs, a.P, a.cap, a.width, a.d, a.pad,
-        a.lp, a.chunk, a.S, a.tile_rows, (float*)a.pv, (int*)a.pi, mode >> 4);
+  kernel<<<(unsigned)(items < resident ? items : resident), kThreads, sm, st>>>(
+      (const T*)a.q, (const T*)a.buckets, (const int*)a.counts, (const int*)a.sc,
+      (const int*)a.order, units, units + npairs, npairs, a.P, a.cap, a.width, a.d, a.pad, a.lp,
+      a.chunk, a.S, a.tile_rows, (float*)a.pv, (int*)a.pi);
   return cudaGetLastError();
 }
 
@@ -1336,7 +1100,7 @@ extern "C" int fk_flash_probe_store(const void* q, const void* buckets, const vo
   const cudaError_t e = is_bf16 ? launch_store<__nv_bfloat16>(a, mode, st)
                                 : launch_store<float>(a, mode, st);
   if (e != cudaSuccess) return (int)e;
-  const int lists = (mode & 15) == kStoreList ? S : P * S;
+  const int lists = mode == kStoreList ? S : P * S;
   return (int)merge_partials(B, lists, lp, L, part_v, part_i, mws_v, mws_i, out_v, out_i, st);
 }
 
@@ -1377,8 +1141,7 @@ extern "C" int fk_flash_probe_attrs(int which, int* regs, int* local_bytes) {
     case 4: e = cudaFuncGetAttributes(&a, flash_probe_store_kernel<float, true, 32>); break;
     case 5: e = cudaFuncGetAttributes(&a, flash_probe_store_kernel<__nv_bfloat16, true, 16>); break;
     case 6: e = cudaFuncGetAttributes(&a, flash_probe_store_list_kernel<float, true>); break;
-    case 7: e = cudaFuncGetAttributes(&a, flash_probe_store_warp_kernel<float, true, 32>); break;
-    default: e = cudaFuncGetAttributes(&a, flash_probe_store_rows_kernel<float, true, 32>);
+    default: e = cudaFuncGetAttributes(&a, flash_probe_store_warp_kernel<float, true, 32>);
   }
   if (e != cudaSuccess) return (int)e;
   *regs = a.numRegs;

@@ -217,19 +217,31 @@ STORE_CELL_LIST = 32        # longest list the cell mode keeps (csrc kWarpList)
 STORE_STAGES = 4            # tiles in the cell mode's ring (csrc kCellStages)
 STORE_TILE_BYTES = 16384    # bytes of one tile of rows
 STORE_HEAD = 128            # shared bytes before the ring (csrc kCellHead)
-_MODES = {"list": 0, "cell": 1, "warp": 2, "rows": 3, "cell_noscore": 1 + 16,
-          "cell_noload": 1 + 32, "cell_noinsert": 1 + 64,
-          "cell_notree": 1 + 128, "cell_nolds": 1 + 256, "cell_nofma": 1 + 512}
+_MODES = {"list": 0, "cell": 1, "warp": 2}
 # the cell mode's kernel: "cell" (rows through shared memory, all pairs of a
 # cell at once) or "warp" (a warp a pair, rows from global memory), for a
 # comparison of the two on the card
 STORE_VARIANT = "cell"
 
 
+def _row_lanes(d: int, itemsize: int) -> int:
+    """Lanes that score one row (csrc ``group_lanes``): the power of two
+    covering its 16-byte vectors (its scalars if ``d`` is not a multiple of
+    the vector width), at most 32."""
+    per_vec = 16 // itemsize
+    units = d // per_vec if d % per_vec == 0 else d
+    g = 1
+    while g < units and g < 32:
+        g <<= 1
+    return g
+
+
 def store_tile_rows(d: int, itemsize: int) -> int:
     """Rows of one tile of the cell mode's ring: ``STORE_TILE_BYTES`` of
-    whole rows."""
-    return max(1, STORE_TILE_BYTES // (d * itemsize))
+    whole rows, a multiple of a warp's step (8 rows a group of lanes), so
+    that every group reads 8 rows of the tile."""
+    step = 8 * (32 // _row_lanes(d, itemsize))
+    return max(step, STORE_TILE_BYTES // (d * itemsize) // step * step)
 
 
 def store_cell_smem(d: int, itemsize: int) -> int:
@@ -240,8 +252,8 @@ def store_cell_smem(d: int, itemsize: int) -> int:
 
 def store_cell_mode(l: int, d: int, itemsize: int) -> bool:
     """The cell mode takes lists of at most ``STORE_CELL_LIST`` entries and
-    rows that fit one tile; the list mode takes the rest."""
-    return l <= STORE_CELL_LIST and d * itemsize <= STORE_TILE_BYTES
+    rows of which a tile holds 8; the list mode takes the rest."""
+    return l <= STORE_CELL_LIST and d * itemsize <= STORE_TILE_BYTES // 8
 
 
 def store_geometry(nprobe: int, width: int, d: int, itemsize: int, l: int,
@@ -422,8 +434,7 @@ def kernel_attrs() -> dict[str, tuple[int, int]]:
                                   "flash_probe_store",
                                   "flash_probe_store<bf16>",
                                   "flash_probe_store_list",
-                                  "flash_probe_store_warp",
-                                  "flash_probe_store_rows")):
+                                  "flash_probe_store_warp")):
         regs, local = ctypes.c_int(0), ctypes.c_int(0)
         _build.check(_build.lib().fk_flash_probe_attrs(
             which, ctypes.byref(regs), ctypes.byref(local)),

@@ -222,11 +222,21 @@ def test_store_plan_geometry_covers_every_slot(b, nprobe, width, l):
 
 
 def test_store_cell_mode_takes_short_lists_of_rows_that_fit_a_tile():
+    """A tile is 16 KiB of whole rows, a multiple of a warp's step: 8 rows
+    a group of lanes, 32 / lanes groups a warp."""
     assert fp.store_cell_mode(32, 128, 4) and not fp.store_cell_mode(33, 128, 4)
-    assert fp.store_tile_rows(128, 4) == 32 and fp.store_tile_rows(128, 2) == 64
-    assert fp.store_tile_rows(19, 4) == 215 and fp.store_tile_rows(8192, 2) == 1
-    assert fp.store_cell_mode(10, 4096, 4)        # one row a tile
-    assert not fp.store_cell_mode(10, 4097, 4)    # the list mode's rows
+    assert fp.store_tile_rows(128, 4) == 32       # 32 lanes a row: step 8
+    assert fp.store_tile_rows(128, 2) == 64       # 16 lanes a row: step 16
+    assert fp.store_tile_rows(19, 4) == 208       # scalar, 32 lanes: 215 -> 208
+    assert fp.store_tile_rows(1, 4) == 4096       # 1 lane a row: step 256
+    assert fp.store_tile_rows(3, 2) == 2688       # scalar, 4 lanes: step 64
+    assert fp.store_tile_rows(512, 4) == 8        # the largest row, 2 KiB
+    assert fp.store_cell_mode(10, 512, 4) and fp.store_cell_mode(10, 1024, 2)
+    assert not fp.store_cell_mode(10, 513, 4)     # the list mode's rows
+    for d, isz in ((1, 4), (3, 2), (19, 4), (64, 4), (128, 2), (512, 4)):
+        step = 8 * (32 // fp._row_lanes(d, isz))
+        rows = fp.store_tile_rows(d, isz)
+        assert rows % step == 0 and rows * d * isz <= fp.STORE_TILE_BYTES
 
 
 # --- the store invariant: slots at or past counts[cell] hold -1 and PAD -----
