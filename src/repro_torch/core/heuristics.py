@@ -292,7 +292,7 @@ def choose_probe_splits(b: int, c: int, l: int, hw: Hardware = H100) -> int:
 
 STORE_REGS = 80            # the cell kernel's __launch_bounds__(256, 3) cap
 STORE_CELL_PAIRS = PROBE_THREADS // 32  # pairs of one cell a unit scores
-STORE_WAVES = 4            # cell mode: work items per resident CTA to aim for
+STORE_WAVES = 2            # cell mode: work items per resident CTA to aim for
 STORE_MIN_ROWS = 256       # cell mode: fewest slots of a cell worth an item
 
 

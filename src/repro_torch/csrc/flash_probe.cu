@@ -917,6 +917,11 @@ inline int group_lanes(int units) {
   return g;
 }
 
+// Lanes per row of kernel 5 (both modes): each lane takes up to 4 of the row's vectors
+// (or scalars), so that a row's shuffle tree is short and a warp scores more rows at
+// once. The block and store modes must use the same count to agree bit for bit.
+inline int scan_lanes(int units) { return group_lanes((units + 3) / 4); }
+
 inline size_t stage1_smem(int lp, const void* lws) {
   return kHead + (lws == nullptr ? (size_t)16 * lp : 0);
 }
@@ -955,7 +960,7 @@ cudaError_t launch_grouped(const void* q, const void* c, int B, int C, int d, in
                            cudaStream_t st) {
   constexpr int V = Vec16<T>::N;
   const bool vec = d % V == 0 && aligned16(q) && aligned16(c);
-  const int g = group_lanes(vec ? d / V : d);
+  const int g = scan_lanes(vec ? d / V : d);
   const dim3 grid(B, S);
   const size_t sm = stage1_smem(lp, lv);
   auto kernel = vec ? flash_probe_grouped_kernel<T, true> : flash_probe_grouped_kernel<T, false>;
@@ -1027,7 +1032,7 @@ template <typename T>
 cudaError_t launch_store(const StoreArgs& a, int mode, cudaStream_t st) {
   constexpr int V = Vec16<T>::N;
   const bool vec = a.d % V == 0 && aligned16(a.q) && aligned16(a.buckets);
-  const int g = group_lanes(vec ? a.d / V : a.d);
+  const int g = scan_lanes(vec ? a.d / V : a.d);
   if (mode != kStoreList)
     return vec ? launch_store_v<T, true>(g, a, mode, st) : launch_store_v<T, false>(g, a, mode, st);
   const dim3 grid(a.B, a.S);

@@ -225,13 +225,13 @@ STORE_VARIANT = "cell"
 
 
 def _row_lanes(d: int, itemsize: int) -> int:
-    """Lanes that score one row (csrc ``group_lanes``): the power of two
-    covering its 16-byte vectors (its scalars if ``d`` is not a multiple of
-    the vector width), at most 32."""
+    """Lanes that score one row of kernel 5 (csrc ``scan_lanes``): the power
+    of two covering a quarter of its 16-byte vectors (of its scalars if
+    ``d`` is not a multiple of the vector width), at most 32."""
     per_vec = 16 // itemsize
     units = d // per_vec if d % per_vec == 0 else d
     g = 1
-    while g < units and g < 32:
+    while g < -(-units // 4) and g < 32:
         g <<= 1
     return g
 

@@ -212,9 +212,9 @@ def test_store_plan_geometry_covers_every_slot(b, nprobe, width, l):
     if cell:
         assert splits <= max(1, width // H.STORE_MIN_ROWS)  # none under 256
     if (b, nprobe, width, l) == (256, 16, 2128, 10):
-        # the IVF1024 search: at least 512 units of 8 pairs, 4 items per
+        # the IVF1024 search: at least 512 units of 8 pairs, 2 items per
         # resident CTA (3 a SM: registers and the 64 KiB ring) on 132 SMs
-        assert splits == 4
+        assert splits == 2
         assert plan.smem_bytes == fp.store_cell_smem(128, 4) == 128 + 4 * 32 * 512
     if (b, nprobe, width, l) == (256, 16, 2128, 40):
         assert splits == H.choose_probe_splits(256, 16 * 2128, 40)
@@ -223,14 +223,15 @@ def test_store_plan_geometry_covers_every_slot(b, nprobe, width, l):
 
 def test_store_cell_mode_takes_short_lists_of_rows_that_fit_a_tile():
     """A tile is 16 KiB of whole rows, a multiple of a warp's step: 8 rows
-    a group of lanes, 32 / lanes groups a warp."""
+    a group of lanes, 32 / lanes groups a warp; a lane takes up to 4 of a
+    row's 16-byte vectors."""
     assert fp.store_cell_mode(32, 128, 4) and not fp.store_cell_mode(33, 128, 4)
-    assert fp.store_tile_rows(128, 4) == 32       # 32 lanes a row: step 8
-    assert fp.store_tile_rows(128, 2) == 64       # 16 lanes a row: step 16
-    assert fp.store_tile_rows(19, 4) == 208       # scalar, 32 lanes: 215 -> 208
+    assert fp.store_tile_rows(128, 4) == 32       # 8 lanes a row: step 32
+    assert fp.store_tile_rows(128, 2) == 64       # 4 lanes a row: step 64
+    assert fp.store_tile_rows(19, 4) == 192       # scalar, 8 lanes: 215 -> 192
     assert fp.store_tile_rows(1, 4) == 4096       # 1 lane a row: step 256
-    assert fp.store_tile_rows(3, 2) == 2688       # scalar, 4 lanes: step 64
-    assert fp.store_tile_rows(512, 4) == 8        # the largest row, 2 KiB
+    assert fp.store_tile_rows(3, 2) == 2560       # scalar, 1 lane: step 256
+    assert fp.store_tile_rows(512, 4) == 8        # the largest row, 2 KiB, 32 lanes
     assert fp.store_cell_mode(10, 512, 4) and fp.store_cell_mode(10, 1024, 2)
     assert not fp.store_cell_mode(10, 513, 4)     # the list mode's rows
     for d, isz in ((1, 4), (3, 2), (19, 4), (64, 4), (128, 2), (512, 4)):
