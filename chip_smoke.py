@@ -1230,51 +1230,8 @@ def main() -> int:
         if codec == "fp32":
             buckets, bucket_ids = index.store.device_arrays()
             cnts = index.counts
-            got_cell = store_check(qb, buckets, cnts, probe, width, TOPK,
-                                   "ivf/fp32", plans[2])
-            # the cell mode's two kernels on this batch, in turns (cell,
-            # warp, warp, cell), and the cell kernel at other splits
-            def store_ms(s=plans[2]):
-                return ms_of(lambda: fp.flash_probe_store_raw(
-                    qb, buckets, cnts, probe, width, TOPK, PAD, splits=s),
-                    reps=20)
-            variants = {"cell": [], "warp": []}
-            for name in ("cell", "warp", "warp", "cell"):
-                fp.STORE_VARIANT = name
-                variants[name].append(store_ms())
-            fp.STORE_VARIANT = "warp"
-            got_warp = fp.flash_probe_store_raw(qb, buckets, cnts, probe,
-                                                width, TOPK, PAD,
-                                                splits=plans[2])
-            fp.STORE_VARIANT = "cell"
-            check(torch.equal(got_cell[0], got_warp[0])
-                  and torch.equal(got_cell[1], got_warp[1]),
-                  "ivf/fp32: the cell and warp kernels agree bit for bit")
-            split_ms = {s: store_ms(s) for s in (1, 2, 4, 8, 16)}
-            for name in ("cell", "warp"):
-                fp.STORE_VARIANT = name
-                call = lambda: fp.flash_probe_store_raw(
-                    qb, buckets, cnts, probe, width, TOPK, PAD,
-                    splits=plans[2])
-                call()
-                torch.cuda.synchronize()
-                h0 = time.perf_counter()
-                for _ in range(20):
-                    call()
-                h1 = time.perf_counter()
-                torch.cuda.synchronize()
-                rows = device_rows(call, 10)
-                print(f"  store scan {name}: host {(h1 - h0) / 20 * 1e3:.4f} "
-                      f"ms a call to enqueue; device by kernel: "
-                      + "; ".join(f"{r['name'][:60]} {r['ms']:.4f} ms x"
-                                  f"{r['calls']:g}" for r in rows),
-                      flush=True)
-            fp.STORE_VARIANT = "cell"
-            print(f"  store scan, cell vs warp kernel (ms, in turns): "
-                  f"{variants}; the cell kernel by splits: {split_ms} "
-                  f"(planned {plans[2]})", flush=True)
-            details["ivf"][-1]["store_variants_ms"] = variants
-            details["ivf"][-1]["store_cell_splits_ms"] = split_ms
+            store_check(qb, buckets, cnts, probe, width, TOPK, "ivf/fp32",
+                        plans[2])
             # the block path on the same batch: the gathered candidate block
             # and the grouped scan, as before the store scan
             cand_x, cand_ids = store_mod.gather_global(

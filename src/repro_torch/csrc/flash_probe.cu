@@ -452,18 +452,24 @@ __device__ void run_stage1(const Row& row, int C, int lp, int chunk, int g, floa
 // scores it from shared memory. Rows whose width is not a multiple of 16 bytes are
 // copied by the threads instead (the scalar path).
 //
-// Scoring: a group of G lanes takes 8 consecutive rows at once, each lane loading 16
-// bytes of each of the 8 rows and keeping one partial score a row; tree8 then reduces
-// the 8 partials with one shuffle tree (7 halving shuffles plus one per remaining
-// level) instead of 8 trees of log2(G) levels. Its per-lane sums are expanded_part's
-// and it pairs the lanes as group_sum does, so the scores, and with them the selected
-// indices, are bitwise those of the gathered block's scan.
+// Scoring: a group of G lanes (scan_lanes: each lane up to 4 of a row's 16-byte
+// vectors) takes 8 consecutive rows of the tile at once, each lane reading its vectors
+// of the 8 rows with ld.shared.v4 and keeping one partial score a row; tree8 then
+// reduces the 8 partials with one shuffle tree (7 halving shuffles plus one per
+// remaining level) instead of 8 trees of log2(G) levels. A tile holds a whole number
+// of warp steps (8 rows a group, 32 / G groups), so no read is predicated: rows past
+// the tile's live ones are scored and never offered. The per-lane sums are
+// expanded_part's and tree8 pairs the lanes as group_sum does, so the scores, and with
+// them the selected indices, are bitwise those of the gathered block's scan.
 //
 // List mode, for longer lists: run_stage1 with StoreRow, a CTA per split of a query's
 // nprobe * width slots, as the block kernel over the gathered block.
 //
-// What bounds it: bytes, at least each probed cell's live rows read once from HBM, and
-// then the scoring from shared memory: every (pair, live row) costs 2 d FMAs.
+// What bounds it: bytes, at least each probed cell's live rows read once from HBM. At
+// the IVF1024 shape that is 0.10 ms against 0.23 ms measured (PERF.md); streaming alone
+// runs near the bound, and the rest is the scoring from shared memory, 2 d FMAs, a
+// share of a shuffle tree and a 16-byte shared load per lane for every (pair, row),
+// with the 8 - n warps of a unit of n pairs idle.
 
 constexpr int kStoreMinBlocks = 3;         // __launch_bounds__: at most 80 registers a thread
 constexpr int kWarpList = 32;              // longest list the cell mode keeps, one entry a lane
@@ -518,20 +524,20 @@ __device__ __forceinline__ void lds128(uint32_t addr, float4& v) {
                   __uint_as_float(u.w));
 }
 
-template <typename T, bool kVec, int G, bool kShared>
+template <typename T, bool kVec, int G>
 struct StoreRows {
   const T* q;     // this query's row (d)
-  const T* rows;  // consecutive rows (shared memory with kShared, else global)
+  const T* rows;  // a tile of consecutive rows in shared memory
   int d;
   float pad;      // the store's padding coordinate, as its dtype holds it
 
-  // Scores ||c||^2 - 2 q.c of rows w .. w + 7 (rows at or past w + n are not read; with
-  // kShared all 8 are read, the caller's tile holds them), or with kPad of the padding
-  // row, left as tree8 leaves them. Each lane sums its columns as expanded_part does,
-  // and tree8 pairs the lanes as group_sum's butterfly does, so every score is bitwise
-  // the block kernel's on the gathered row.
+  // Scores ||c||^2 - 2 q.c of rows w .. w + 7 of the tile (all 8 are read: the tile
+  // holds them, and rows past its live ones are never offered), or with kPad of the
+  // padding row, left as tree8 leaves them. Each lane sums its columns as
+  // expanded_part does, and tree8 pairs the lanes as group_sum's butterfly does, so
+  // every score is bitwise the block kernel's on the gathered row.
   template <bool kPad>
-  __device__ __forceinline__ void score8(int w, int n, int lane_g, float (&v)[8]) const {
+  __device__ __forceinline__ void score8(int w, int lane_g, float (&v)[8]) const {
 #pragma unroll
     for (int r = 0; r < 8; ++r) v[r] = 0.f;
     if constexpr (kVec) {
@@ -543,18 +549,13 @@ struct StoreRows {
 #pragma unroll
         for (int e = 0; e < V; ++e) qm2[e] *= -2.f;
         VT raw[8];
-        if constexpr (kShared && !kPad) {
+        if constexpr (!kPad) {
           const uint32_t at = smem_u32(rows) + ((uint32_t)w * d + j) * (uint32_t)sizeof(T);
 #pragma unroll
           for (int r = 0; r < 8; ++r) lds128(at + (uint32_t)(r * d * sizeof(T)), raw[r]);
-        } else if constexpr (!kPad) {
-#pragma unroll
-          for (int r = 0; r < 8; ++r)  // L1 and L2 keep the rows for the cell's other queries
-            if (r < n) raw[r] = __ldg(reinterpret_cast<const VT*>(rows + (size_t)(w + r) * d + j));
         }
 #pragma unroll
         for (int r = 0; r < 8; ++r) {
-          if (!kPad && !kShared && r >= n) continue;
           float c[V];
           if constexpr (kPad) {
 #pragma unroll
@@ -574,9 +575,7 @@ struct StoreRows {
         const float qm2 = -2.f * to_f32(q[j]);
         float c[8];
 #pragma unroll
-        for (int r = 0; r < 8; ++r)
-          c[r] = kPad ? pad
-                      : (kShared || r < n ? to_f32(rows[(size_t)(w + r) * d + j]) : 0.f);
+        for (int r = 0; r < 8; ++r) c[r] = kPad ? pad : to_f32(rows[(size_t)(w + r) * d + j]);
 #pragma unroll
         for (int r = 0; r < 8; ++r) {
           v[r] = fmaf(c[r], c[r], v[r]);
@@ -621,7 +620,7 @@ __device__ __forceinline__ void warp_scan(const Rows& rows, int r0, int r1, int 
   for (int r8 = r0; r8 < r1; r8 += 8 * (32 / G)) {
     const int rg = r8 + grp * 8;  // this group's first row
     float v[8];
-    rows.template score8<false>(rg, r1 - rg, lane_g, v);
+    rows.template score8<false>(rg, lane_g, v);
 #pragma unroll
     for (int i = 0; i < kHeld; ++i) {
       const int r = rg + hb + i;
@@ -643,7 +642,7 @@ __device__ __forceinline__ void warp_pads(const Rows& rows, int w0, int w1, int 
                                           int lane, float& mv, int& mi, float& tv, int& ti) {
   if (w0 >= w1) return;
   float v[8];
-  rows.template score8<true>(0, 8, lane & (G - 1), v);
+  rows.template score8<true>(0, lane & (G - 1), v);
   const float sp = __shfl_sync(0xffffffffu, v[0], 0);  // lane 0 holds row 0
   for (int w = w0; w < w1 && key_less(sp, base + w, tv, ti); ++w)
     warp_insert(sp, base + w, lp, lane, mv, mi, tv, ti);
@@ -785,54 +784,22 @@ __global__ void __launch_bounds__(kThreads, kStoreMinBlocks)
       else __syncthreads();  // the threads' copies are visible
       if (mine) {
         const int r0 = t * tile_rows;
-        const StoreRows<T, kVec, G, true> rows{qb, ring + k * stage, d, pad};
-        warp_scan<StoreRows<T, kVec, G, true>, G>(rows, 0, min(tile_rows, hi - w0 - r0),
-                                                  base + w0 + r0, lp, lane, mv, mi, tv, ti);
+        const StoreRows<T, kVec, G> rows{qb, ring + k * stage, d, pad};
+        warp_scan<StoreRows<T, kVec, G>, G>(rows, 0, min(tile_rows, hi - w0 - r0),
+                                            base + w0 + r0, lp, lane, mv, mi, tv, ti);
       }
       __syncthreads();  // every warp is done with stage k before it is refilled
     }
     used += ntiles;
     if (mine) {
-      const StoreRows<T, kVec, G, true> pads{qb, nullptr, d, pad};
-      warp_pads<StoreRows<T, kVec, G, true>, G>(pads, hi, w1, base, lp, lane, mv, mi, tv, ti);
+      const StoreRows<T, kVec, G> pads{qb, nullptr, d, pad};
+      warp_pads<StoreRows<T, kVec, G>, G>(pads, hi, w1, base, lp, lane, mv, mi, tv, ti);
       const size_t slot = ((size_t)pair * S + s) * lp;
       if (lane < lp) {
         pv[slot + lane] = mv;
         pi[slot + lane] = mi;
       }
     }
-  }
-}
-
-// Warp mode: one warp per split of one (query, probe) pair, reading its cell's rows
-// from global memory (L1 and L2 serve the cell's other pairs); warps are numbered
-// split-major, then by their pair's rank in the cell-major order.
-template <typename T, bool kVec, int G>
-__global__ void __launch_bounds__(kThreads, kStoreMinBlocks)
-    flash_probe_store_warp_kernel(const T* q, const T* buckets, const int* counts,
-                                  const int* probe, const int* order, int npairs, int P,
-                                  int cap, int width, int d, float pad, int lp, int chunk,
-                                  int S, float* pv, int* pi) {
-  const int lane = threadIdx.x & 31;
-  const long long gw = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (gw >= (long long)npairs * S) return;  // the whole warp
-  const int s = (int)(gw / npairs);
-  const int pair = order[gw - (long long)s * npairs];
-  const int b = pair / P, p = pair - b * P;
-  const int cell = probe[pair];
-  const int live = min(counts[cell], width);
-  const int w0 = s * chunk, w1 = min(width, w0 + chunk);
-  const int hi = max(w0, min(w1, live)), base = p * width;
-  const StoreRows<T, kVec, G, false> rows{q + (size_t)b * d, buckets + (size_t)cell * cap * d,
-                                          d, pad};
-  float mv = INFINITY, tv = INFINITY;
-  int mi = kSentinel, ti = kSentinel;
-  warp_scan<StoreRows<T, kVec, G, false>, G>(rows, w0, hi, base, lp, lane, mv, mi, tv, ti);
-  warp_pads<StoreRows<T, kVec, G, false>, G>(rows, hi, w1, base, lp, lane, mv, mi, tv, ti);
-  const size_t slot = ((size_t)pair * S + s) * lp;
-  if (lane < lp) {
-    pv[slot + lane] = mv;
-    pi[slot + lane] = mi;
   }
 }
 
@@ -978,19 +945,9 @@ struct StoreArgs {
   void *pv, *pi, *lv, *li;
 };
 
-enum StoreMode { kStoreList = 0, kStoreCell = 1, kStoreWarp = 2 };
-
 template <typename T, bool kVec, int G>
-cudaError_t launch_store_g(const StoreArgs& a, int mode, cudaStream_t st) {
+cudaError_t launch_store_g(const StoreArgs& a, cudaStream_t st) {
   const int npairs = a.B * a.P;
-  if (mode == kStoreWarp) {
-    const long long blocks = ((long long)npairs * a.S + kThreads / 32 - 1) / (kThreads / 32);
-    flash_probe_store_warp_kernel<T, kVec, G><<<(unsigned)blocks, kThreads, 0, st>>>(
-        (const T*)a.q, (const T*)a.buckets, (const int*)a.counts, (const int*)a.probe,
-        (const int*)a.order, npairs, a.P, a.cap, a.width, a.d, a.pad, a.lp, a.chunk, a.S,
-        (float*)a.pv, (int*)a.pi);
-    return cudaGetLastError();
-  }
   // the cell mode: the prologue cuts the units, then as many CTAs as stay resident
   // take the work items from its counter
   auto kernel = flash_probe_store_kernel<T, kVec, G>;
@@ -1017,24 +974,23 @@ cudaError_t launch_store_g(const StoreArgs& a, int mode, cudaStream_t st) {
 }
 
 template <typename T, bool kVec>
-cudaError_t launch_store_v(int g, const StoreArgs& a, int mode, cudaStream_t st) {
+cudaError_t launch_store_v(int g, const StoreArgs& a, cudaStream_t st) {
   switch (g) {
-    case 1: return launch_store_g<T, kVec, 1>(a, mode, st);
-    case 2: return launch_store_g<T, kVec, 2>(a, mode, st);
-    case 4: return launch_store_g<T, kVec, 4>(a, mode, st);
-    case 8: return launch_store_g<T, kVec, 8>(a, mode, st);
-    case 16: return launch_store_g<T, kVec, 16>(a, mode, st);
-    default: return launch_store_g<T, kVec, 32>(a, mode, st);
+    case 1: return launch_store_g<T, kVec, 1>(a, st);
+    case 2: return launch_store_g<T, kVec, 2>(a, st);
+    case 4: return launch_store_g<T, kVec, 4>(a, st);
+    case 8: return launch_store_g<T, kVec, 8>(a, st);
+    case 16: return launch_store_g<T, kVec, 16>(a, st);
+    default: return launch_store_g<T, kVec, 32>(a, st);
   }
 }
 
 template <typename T>
-cudaError_t launch_store(const StoreArgs& a, int mode, cudaStream_t st) {
+cudaError_t launch_store(const StoreArgs& a, bool cell, cudaStream_t st) {
   constexpr int V = Vec16<T>::N;
   const bool vec = a.d % V == 0 && aligned16(a.q) && aligned16(a.buckets);
   const int g = scan_lanes(vec ? a.d / V : a.d);
-  if (mode != kStoreList)
-    return vec ? launch_store_v<T, true>(g, a, mode, st) : launch_store_v<T, false>(g, a, mode, st);
+  if (cell) return vec ? launch_store_v<T, true>(g, a, st) : launch_store_v<T, false>(g, a, st);
   const dim3 grid(a.B, a.S);
   const size_t sm = stage1_smem(a.lp, a.lv);
   auto kernel = vec ? flash_probe_store_list_kernel<T, true>
@@ -1086,26 +1042,26 @@ extern "C" int fk_flash_probe_grouped(const void* q, const void* c, void* out_v,
 }
 
 // The store scan: q (B, d), buckets (K, cap, d) of q's dtype, counts (K,), probe (B, P)
-// int32. mode kStoreCell (or kStoreWarp): sc and order are probe's cells sorted and
+// int32. cell != 0 (the cell mode): sc and order are probe's cells sorted and
 // their positions b * P + p, units scratch of B * P + 2 ints; S splits of each pair's
 // `width` slots in chunks, B * P * S partial lists (the merge takes P * S a query).
-// mode kStoreList: S CTAs per query split its P * width slots, B * S partial lists
+// cell == 0 (the list mode): S CTAs per query split its P * width slots, B * S lists
 // (sc, order, units unused). With a single list per query part must be the outputs.
 extern "C" int fk_flash_probe_store(const void* q, const void* buckets, const void* counts,
                                     const void* probe, const void* sc, const void* order,
                                     void* units, void* out_v, void* out_i, void* part_v,
                                     void* part_i, void* lws_v, void* lws_i, void* mws_v,
                                     void* mws_i, int B, int P, int cap, int width, int d, int L,
-                                    int S, int chunk, int lp, int tile_rows, float pad, int mode,
+                                    int S, int chunk, int lp, int tile_rows, float pad, int cell,
                                     int is_bf16, void* stream) {
   using namespace fk::probe;
   cudaStream_t st = (cudaStream_t)stream;
   const StoreArgs a{q, buckets, counts, probe, sc, order, units, B, P, cap, width, d,
                     lp, S, chunk, tile_rows, pad, part_v, part_i, lws_v, lws_i};
-  const cudaError_t e = is_bf16 ? launch_store<__nv_bfloat16>(a, mode, st)
-                                : launch_store<float>(a, mode, st);
+  const cudaError_t e = is_bf16 ? launch_store<__nv_bfloat16>(a, cell != 0, st)
+                                : launch_store<float>(a, cell != 0, st);
   if (e != cudaSuccess) return (int)e;
-  const int lists = mode == kStoreList ? S : P * S;
+  const int lists = cell ? P * S : S;
   return (int)merge_partials(B, lists, lp, L, part_v, part_i, mws_v, mws_i, out_v, out_i, st);
 }
 
@@ -1143,10 +1099,9 @@ extern "C" int fk_flash_probe_attrs(int which, int* regs, int* local_bytes) {
     case 1: e = cudaFuncGetAttributes(&a, flash_probe_grouped_kernel<float, true>); break;
     case 2: e = cudaFuncGetAttributes(&a, flash_probe_grouped_q8_kernel<true>); break;
     case 3: e = cudaFuncGetAttributes(&a, topl_merge_kernel); break;
-    case 4: e = cudaFuncGetAttributes(&a, flash_probe_store_kernel<float, true, 32>); break;
-    case 5: e = cudaFuncGetAttributes(&a, flash_probe_store_kernel<__nv_bfloat16, true, 16>); break;
-    case 6: e = cudaFuncGetAttributes(&a, flash_probe_store_list_kernel<float, true>); break;
-    default: e = cudaFuncGetAttributes(&a, flash_probe_store_warp_kernel<float, true, 32>);
+    case 4: e = cudaFuncGetAttributes(&a, flash_probe_store_kernel<float, true, 8>); break;
+    case 5: e = cudaFuncGetAttributes(&a, flash_probe_store_kernel<__nv_bfloat16, true, 4>); break;
+    default: e = cudaFuncGetAttributes(&a, flash_probe_store_list_kernel<float, true>);
   }
   if (e != cudaSuccess) return (int)e;
   *regs = a.numRegs;

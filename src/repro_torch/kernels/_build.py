@@ -55,7 +55,7 @@ SIGNATURES = {
     "fk_flash_probe_grouped_q8": (_P,) * 12 + (_I,) * 8 + (_P,),
     # q, buckets, counts, probe, sorted cells, order, units, 8
     # output/partial/scratch pointers, B, P, cap, width, d, L, S, chunk, lp,
-    # tile_rows, pad, mode, is_bf16, stream
+    # tile_rows, pad, cell mode, is_bf16, stream
     "fk_flash_probe_store": (_P,) * 15 + (_I,) * 10 + (ctypes.c_float, _I, _I,
                                                        _P),
     "fk_flash_probe_attrs": (_I, ctypes.POINTER(_I), ctypes.POINTER(_I)),

@@ -217,11 +217,6 @@ STORE_CELL_LIST = 32        # longest list the cell mode keeps (csrc kWarpList)
 STORE_STAGES = 4            # tiles in the cell mode's ring (csrc kCellStages)
 STORE_TILE_BYTES = 16384    # bytes of one tile of rows
 STORE_HEAD = 128            # shared bytes before the ring (csrc kCellHead)
-_MODES = {"list": 0, "cell": 1, "warp": 2}
-# the cell mode's kernel: "cell" (rows through shared memory, all pairs of a
-# cell at once) or "warp" (a warp a pair, rows from global memory), for a
-# comparison of the two on the card
-STORE_VARIANT = "cell"
 
 
 def _row_lanes(d: int, itemsize: int) -> int:
@@ -337,8 +332,9 @@ def flash_probe_store_raw(q: torch.Tensor, buckets: torch.Tensor,
     if b * lists >= 2**31:
         raise ValueError("flash_probe_store: B * lists must fit int32")
     ptrs, keep = _buffers(b, l, lists, lp, q.device)
-    if store_cell_mode(l, d, itemsize):
-        mode, tile_rows = _MODES[STORE_VARIANT], store_tile_rows(d, itemsize)
+    cell = store_cell_mode(l, d, itemsize)
+    if cell:
+        tile_rows = store_tile_rows(d, itemsize)
         # cell-major: the pairs of one cell are adjacent
         sc, order = torch.sort(probe.reshape(-1), stable=True)
         order = order.to(torch.int32)
@@ -347,12 +343,12 @@ def flash_probe_store_raw(q: torch.Tensor, buckets: torch.Tensor,
         keep += [sc, order, units]
         cell_ptrs = (sc.data_ptr(), order.data_ptr(), units.data_ptr())
     else:
-        mode, tile_rows, cell_ptrs = _MODES["list"], 0, (None,) * 3
+        tile_rows, cell_ptrs = 0, (None,) * 3
     code = _build.lib().fk_flash_probe_store(
         q.data_ptr(), buckets.data_ptr(), counts.data_ptr(),
         probe.data_ptr(), *cell_ptrs, *ptrs, b, nprobe, cap, width, d, l,
         splits, chunk, lp, tile_rows,
-        float(torch.tensor(pad, dtype=q.dtype)), mode,
+        float(torch.tensor(pad, dtype=q.dtype)), int(cell),
         int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device))
     _build.check(code, "flash_probe_store kernel launch")
     launches["flash_probe_store"] += 1
@@ -433,8 +429,7 @@ def kernel_attrs() -> dict[str, tuple[int, int]]:
                                   "flash_probe_grouped_q8", "topl_merge",
                                   "flash_probe_store",
                                   "flash_probe_store<bf16>",
-                                  "flash_probe_store_list",
-                                  "flash_probe_store_warp")):
+                                  "flash_probe_store_list")):
         regs, local = ctypes.c_int(0), ctypes.c_int(0)
         _build.check(_build.lib().fk_flash_probe_attrs(
             which, ctypes.byref(regs), ctypes.byref(local)),
