@@ -1361,10 +1361,20 @@ def main() -> int:
     for tag, (kern, plain, byt, ops_, shape, extra) in [
             *((f"ivf/{kn}", v) for kn, v in main_inputs.items()),
             ("ivf-block/flash_probe_grouped", block_inputs)]:
+        kern()
+        torch.cuda.synchronize()
+        rows = device_rows(kern, 10)
+        # the event time is that of back-to-back wrapper calls, which the
+        # host can pace; beside it the device's own time, by kernel
         timing[tag] = {
             "ms": ms_of(kern, reps=20), "plain_ms": ms_of(plain, reps=3),
             "library_ms": None, "bytes": byt, "ops": ops_,
-            "dtype": "float32", "shape": shape, **extra}
+            "dtype": "float32", "shape": shape,
+            "device_ms": sum(r["ms"] for r in rows),
+            "library_device_ms": None, "device_rows": rows, **extra}
+        print(f"  {tag} device time by kernel: " + "; ".join(
+            f"{r['name'][:48]} {r['ms']:.4f} ms x{r['calls']:g}"
+            for r in rows), flush=True)
     del main_inputs, block_inputs, x, centers, queries
     torch.cuda.empty_cache()
 
