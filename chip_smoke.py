@@ -755,15 +755,12 @@ def main() -> int:
         counts = cnt.to(torch.int32)
         q = torch.randn(bq, d, device=dev, generator=gen_e)
         live0 = int(torch.clamp(cnt[probe[0].long()], max=width).sum())
-        for cdt, var in itertools.product((torch.float32, torch.bfloat16),
-                                          (1, 2)):
-            fp.STORE_VARIANT = var
+        for cdt in (torch.float32, torch.bfloat16):
             for splits in (None, 1, 3):
                 store_check(q.to(cdt), xs.to(cdt), counts, probe, width, l,
                             f"edge{(bq, kc, cap, width, d, nprobe, l)}/"
-                            f"query0 live {live0}/{cdt}/variant {var}/"
+                            f"query0 live {live0}/{cdt}/"
                             f"splits={splits or 'planned'}", splits)
-        fp.STORE_VARIANT = 1
 
     def aligned(shape, g):
         """Values in [1, 1 + 1/16) with the low 13 mantissa bits 0x0fff:
@@ -1233,36 +1230,8 @@ def main() -> int:
         if codec == "fp32":
             buckets, bucket_ids = index.store.device_arrays()
             cnts = index.counts
-            got1 = store_check(qb, buckets, cnts, probe, width, TOPK,
-                               "ivf/fp32", plans[2])
-            # the cell kernel's two occupancies, in turns, and by splits
-            def store_ms(s=plans[2]):
-                return ms_of(lambda: fp.flash_probe_store_raw(
-                    qb, buckets, cnts, probe, width, TOPK, PAD, splits=s),
-                    reps=20)
-            turns = {1: [], 2: []}
-            for var in (1, 2, 2, 1):
-                fp.STORE_VARIANT = var
-                turns[var].append(store_ms())
-            by_splits = {}
-            for var in (1, 2):
-                fp.STORE_VARIANT = var
-                by_splits[var] = {s: store_ms(s) for s in (2, 3, 4)}
-                call = lambda: fp.flash_probe_store_raw(
-                    qb, buckets, cnts, probe, width, TOPK, PAD,
-                    splits=plans[2])
-                got = call()
-                check(torch.equal(got[0], got1[0])
-                      and torch.equal(got[1], got1[1]),
-                      f"ivf/fp32: store variant {var} equals variant 1")
-                rows = device_rows(call, 10)
-                print(f"  store variant {var} device by kernel: " + "; ".join(
-                    f"{r['name'][:40]} {r['ms']:.4f} ms" for r in rows[:2]),
-                    flush=True)
-            fp.STORE_VARIANT = 1
-            print(f"  store variants (1: 4 tiles, 3 CTAs a SM; 2: 3 tiles, "
-                  f"4 CTAs), ms a call in turns: {turns}; by splits: "
-                  f"{by_splits} (planned {plans[2]})", flush=True)
+            store_check(qb, buckets, cnts, probe, width, TOPK, "ivf/fp32",
+                        plans[2])
             # the block path on the same batch: the gathered candidate block
             # and the grouped scan, as before the store scan
             cand_x, cand_ids = store_mod.gather_global(

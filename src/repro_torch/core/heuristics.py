@@ -290,9 +290,9 @@ def choose_probe_splits(b: int, c: int, l: int, hw: Hardware = H100) -> int:
     return max(1, min(by_fill, by_rows))
 
 
-STORE_REGS = 80            # the cell kernel's __launch_bounds__(256, 3) cap
+STORE_REGS = 64            # the cell kernel's __launch_bounds__(256, 4) cap
 STORE_CELL_PAIRS = PROBE_THREADS // 32  # pairs of one cell a unit scores
-STORE_WAVES = 2            # cell mode: work items per resident CTA to aim for
+STORE_WAVES = 1            # cell mode: work items per resident CTA, fewest units
 STORE_MIN_ROWS = 256       # cell mode: fewest slots of a cell worth an item
 
 

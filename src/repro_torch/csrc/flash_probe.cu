@@ -471,10 +471,10 @@ __device__ void run_stage1(const Row& row, int C, int lp, int chunk, int g, floa
 // share of a shuffle tree and a 16-byte shared load per lane for every (pair, row),
 // with the 8 - n warps of a unit of n pairs idle.
 
-constexpr int kStoreMinBlocks = 3;         // __launch_bounds__: at most 80 registers a thread
+constexpr int kStoreMinBlocks = 4;         // __launch_bounds__: at most 64 registers a thread
 constexpr int kWarpList = 32;              // longest list the cell mode keeps, one entry a lane
 constexpr int kCellPairs = kThreads / 32;  // pairs of one cell a unit scores, a warp each
-constexpr int kCellStages = 4;             // tiles in the shared-memory ring
+constexpr int kCellStages = 3;             // tiles in the shared-memory ring
 constexpr int kCellHead = 128;             // the ring's mbarriers and the work item, before it
 
 // Lane lane_g of a group of G lanes enters with partial sums of rows 0..7 in v and
@@ -723,24 +723,24 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
 // warps w whose position still holds the unit's cell. The item's slots are split s of
 // the cell's width: [s * chunk, min(width, (s + 1) * chunk)); its lists go to part slot
 // pair * S + s, so query b's lists are slots [b P S, (b + 1) P S).
-template <typename T, bool kVec, int G, int kStages, int kBlocks>
-__global__ void __launch_bounds__(kThreads, kBlocks)
+template <typename T, bool kVec, int G>
+__global__ void __launch_bounds__(kThreads, kStoreMinBlocks)
     flash_probe_store_kernel(const T* q, const T* buckets, const int* counts, const int* sc,
                              const int* order, const int* units, int* work, int npairs, int P,
                              int cap, int width, int d, float pad, int lp, int chunk, int S,
                              int tile_rows, float* pv, int* pi) {
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
-  int* s_item = reinterpret_cast<int*>(smem + 8 * kStages);
+  int* s_item = reinterpret_cast<int*>(smem + 8 * kCellStages);
   T* ring = reinterpret_cast<T*>(smem + kCellHead);
   const size_t stage = (size_t)tile_rows * d;  // elements of one tile
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (threadIdx.x == 0) {
-    for (int k = 0; k < kStages; ++k) mbar_init(smem_u32(bars + k), 1);
+    for (int k = 0; k < kCellStages; ++k) mbar_init(smem_u32(bars + k), 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
   const int items = work[0] * S;
-  unsigned used = 0;  // tiles this CTA consumed: tile g is in stage g % kStages
+  unsigned used = 0;  // tiles this CTA consumed: tile g is in stage g % kCellStages
   for (;;) {
     if (threadIdx.x == 0) *s_item = atomicAdd(work + 1, 1);
     __syncthreads();
@@ -754,7 +754,7 @@ __global__ void __launch_bounds__(kThreads, kBlocks)
     const int ntiles = (hi - w0 + tile_rows - 1) / tile_rows;
     const T* src = buckets + ((size_t)cell * cap + w0) * d;
     auto fill = [&](int t) {  // tile t of the item into its stage
-      const unsigned k = (used + t) % kStages;
+      const unsigned k = (used + t) % kCellStages;
       const int nt = min(tile_rows, hi - w0 - t * tile_rows);
       T* dst = ring + k * stage;
       const T* from = src + (size_t)t * tile_rows * d;
@@ -769,7 +769,7 @@ __global__ void __launch_bounds__(kThreads, kBlocks)
         for (int e = threadIdx.x; e < nt * d; e += blockDim.x) dst[e] = from[e];
       }
     };
-    for (int t = 0; t < min(ntiles, kStages - 1); ++t) fill(t);
+    for (int t = 0; t < min(ntiles, kCellStages - 1); ++t) fill(t);
     const int pos = pos0 + warp;
     const bool mine = pos < npairs && sc[pos] == cell;  // warp-uniform
     const int pair = mine ? order[pos] : 0;
@@ -778,9 +778,9 @@ __global__ void __launch_bounds__(kThreads, kBlocks)
     float mv = INFINITY, tv = INFINITY;
     int mi = kSentinel, ti = kSentinel;
     for (int t = 0; t < ntiles; ++t) {
-      if (t + kStages - 1 < ntiles) fill(t + kStages - 1);  // the stage freed last round
-      const unsigned g = used + t, k = g % kStages;
-      if constexpr (kVec) mbar_wait(smem_u32(bars + k), (g / kStages) & 1);
+      if (t + kCellStages - 1 < ntiles) fill(t + kCellStages - 1);  // the stage freed last round
+      const unsigned g = used + t, k = g % kCellStages;
+      if constexpr (kVec) mbar_wait(smem_u32(bars + k), (g / kCellStages) & 1);
       else __syncthreads();  // the threads' copies are visible
       if (mine) {
         const int r0 = t * tile_rows;
@@ -945,11 +945,13 @@ struct StoreArgs {
   void *pv, *pi, *lv, *li;
 };
 
-template <typename T, bool kVec, int G, int kStages, int kBlocks>
-cudaError_t launch_cell(const StoreArgs& a, cudaStream_t st) {
+template <typename T, bool kVec, int G>
+cudaError_t launch_store_g(const StoreArgs& a, cudaStream_t st) {
   const int npairs = a.B * a.P;
-  auto kernel = flash_probe_store_kernel<T, kVec, G, kStages, kBlocks>;
-  const size_t sm = kCellHead + (size_t)kStages * a.tile_rows * a.d * sizeof(T);
+  // the cell mode: the prologue cuts the units, then as many CTAs as stay resident
+  // take the work items from its counter
+  auto kernel = flash_probe_store_kernel<T, kVec, G>;
+  const size_t sm = kCellHead + (size_t)kCellStages * a.tile_rows * a.d * sizeof(T);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)sm);
@@ -971,31 +973,24 @@ cudaError_t launch_cell(const StoreArgs& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-
-template <typename T, bool kVec, int G>
-cudaError_t launch_store_g(const StoreArgs& a, int variant, cudaStream_t st) {
-  return variant == 2 ? launch_cell<T, kVec, G, 3, 4>(a, st) : launch_cell<T, kVec, G, 4, 3>(a, st);
-}
-
 template <typename T, bool kVec>
-cudaError_t launch_store_v(int g, const StoreArgs& a, int variant, cudaStream_t st) {
+cudaError_t launch_store_v(int g, const StoreArgs& a, cudaStream_t st) {
   switch (g) {
-    case 1: return launch_store_g<T, kVec, 1>(a, variant, st);
-    case 2: return launch_store_g<T, kVec, 2>(a, variant, st);
-    case 4: return launch_store_g<T, kVec, 4>(a, variant, st);
-    case 8: return launch_store_g<T, kVec, 8>(a, variant, st);
-    case 16: return launch_store_g<T, kVec, 16>(a, variant, st);
-    default: return launch_store_g<T, kVec, 32>(a, variant, st);
+    case 1: return launch_store_g<T, kVec, 1>(a, st);
+    case 2: return launch_store_g<T, kVec, 2>(a, st);
+    case 4: return launch_store_g<T, kVec, 4>(a, st);
+    case 8: return launch_store_g<T, kVec, 8>(a, st);
+    case 16: return launch_store_g<T, kVec, 16>(a, st);
+    default: return launch_store_g<T, kVec, 32>(a, st);
   }
 }
 
 template <typename T>
-cudaError_t launch_store(const StoreArgs& a, int cell, cudaStream_t st) {
+cudaError_t launch_store(const StoreArgs& a, bool cell, cudaStream_t st) {
   constexpr int V = Vec16<T>::N;
   const bool vec = a.d % V == 0 && aligned16(a.q) && aligned16(a.buckets);
   const int g = scan_lanes(vec ? a.d / V : a.d);
-  if (cell)
-    return vec ? launch_store_v<T, true>(g, a, cell, st) : launch_store_v<T, false>(g, a, cell, st);
+  if (cell) return vec ? launch_store_v<T, true>(g, a, st) : launch_store_v<T, false>(g, a, st);
   const dim3 grid(a.B, a.S);
   const size_t sm = stage1_smem(a.lp, a.lv);
   auto kernel = vec ? flash_probe_store_list_kernel<T, true>
@@ -1063,8 +1058,8 @@ extern "C" int fk_flash_probe_store(const void* q, const void* buckets, const vo
   cudaStream_t st = (cudaStream_t)stream;
   const StoreArgs a{q, buckets, counts, probe, sc, order, units, B, P, cap, width, d,
                     lp, S, chunk, tile_rows, pad, part_v, part_i, lws_v, lws_i};
-  const cudaError_t e = is_bf16 ? launch_store<__nv_bfloat16>(a, cell, st)
-                                : launch_store<float>(a, cell, st);
+  const cudaError_t e = is_bf16 ? launch_store<__nv_bfloat16>(a, cell != 0, st)
+                                : launch_store<float>(a, cell != 0, st);
   if (e != cudaSuccess) return (int)e;
   const int lists = cell ? P * S : S;
   return (int)merge_partials(B, lists, lp, L, part_v, part_i, mws_v, mws_i, out_v, out_i, st);
@@ -1104,9 +1099,8 @@ extern "C" int fk_flash_probe_attrs(int which, int* regs, int* local_bytes) {
     case 1: e = cudaFuncGetAttributes(&a, flash_probe_grouped_kernel<float, true>); break;
     case 2: e = cudaFuncGetAttributes(&a, flash_probe_grouped_q8_kernel<true>); break;
     case 3: e = cudaFuncGetAttributes(&a, topl_merge_kernel); break;
-    case 4: e = cudaFuncGetAttributes(&a, flash_probe_store_kernel<float, true, 8, 4, 3>); break;
-    case 5: e = cudaFuncGetAttributes(&a, flash_probe_store_kernel<__nv_bfloat16, true, 4, 4, 3>); break;
-    case 6: e = cudaFuncGetAttributes(&a, flash_probe_store_kernel<float, true, 8, 3, 4>); break;
+    case 4: e = cudaFuncGetAttributes(&a, flash_probe_store_kernel<float, true, 8>); break;
+    case 5: e = cudaFuncGetAttributes(&a, flash_probe_store_kernel<__nv_bfloat16, true, 4>); break;
     default: e = cudaFuncGetAttributes(&a, flash_probe_store_list_kernel<float, true>);
   }
   if (e != cudaSuccess) return (int)e;

@@ -214,10 +214,9 @@ def flash_probe_grouped_raw(q: torch.Tensor, c: torch.Tensor, l: int, *,
 # ---------------------------------------------------------------------------
 
 STORE_CELL_LIST = 32        # longest list the cell mode keeps (csrc kWarpList)
-STORE_STAGES = 4            # tiles in the cell mode's ring (csrc kCellStages)
+STORE_STAGES = 3            # tiles in the cell mode's ring (csrc kCellStages)
 STORE_TILE_BYTES = 16384    # bytes of one tile of rows
 STORE_HEAD = 128            # shared bytes before the ring (csrc kCellHead)
-STORE_VARIANT = 1           # 1: a 4-tile ring, 3 CTAs a SM; 2: 3 tiles, 4 CTAs
 
 
 def _row_lanes(d: int, itemsize: int) -> int:
@@ -349,7 +348,7 @@ def flash_probe_store_raw(q: torch.Tensor, buckets: torch.Tensor,
         q.data_ptr(), buckets.data_ptr(), counts.data_ptr(),
         probe.data_ptr(), *cell_ptrs, *ptrs, b, nprobe, cap, width, d, l,
         splits, chunk, lp, tile_rows,
-        float(torch.tensor(pad, dtype=q.dtype)), STORE_VARIANT if cell else 0,
+        float(torch.tensor(pad, dtype=q.dtype)), int(cell),
         int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device))
     _build.check(code, "flash_probe_store kernel launch")
     launches["flash_probe_store"] += 1
@@ -430,7 +429,6 @@ def kernel_attrs() -> dict[str, tuple[int, int]]:
                                   "flash_probe_grouped_q8", "topl_merge",
                                   "flash_probe_store",
                                   "flash_probe_store<bf16>",
-                                  "flash_probe_store_b4s3",
                                   "flash_probe_store_list")):
         regs, local = ctypes.c_int(0), ctypes.c_int(0)
         _build.check(_build.lib().fk_flash_probe_attrs(

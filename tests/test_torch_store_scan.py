@@ -212,10 +212,10 @@ def test_store_plan_geometry_covers_every_slot(b, nprobe, width, l):
     if cell:
         assert splits <= max(1, width // H.STORE_MIN_ROWS)  # none under 256
     if (b, nprobe, width, l) == (256, 16, 2128, 10):
-        # the IVF1024 search: at least 512 units of 8 pairs, 2 items per
-        # resident CTA (3 a SM: registers and the 64 KiB ring) on 132 SMs
+        # the IVF1024 search: at least 512 units of 8 pairs, an item per
+        # resident CTA (4 a SM: registers and the 48 KiB ring) on 132 SMs
         assert splits == 2
-        assert plan.smem_bytes == fp.store_cell_smem(128, 4) == 128 + 4 * 32 * 512
+        assert plan.smem_bytes == fp.store_cell_smem(128, 4) == 128 + 3 * 32 * 512
     if (b, nprobe, width, l) == (256, 16, 2128, 40):
         assert splits == H.choose_probe_splits(256, 16 * 2128, 40)
     assert planner.plan("scan_store", (b, nprobe, width, 128, l), 4) is plan
