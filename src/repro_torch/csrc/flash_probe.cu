@@ -466,7 +466,7 @@ __device__ void run_stage1(const Row& row, int C, int lp, int chunk, int g, floa
 // nprobe * width slots, as the block kernel over the gathered block.
 //
 // What bounds it: bytes, at least each probed cell's live rows read once from HBM. At
-// the IVF1024 shape that is 0.10 ms against 0.23 ms measured (PERF.md); streaming alone
+// the IVF1024 shape that is 0.10 ms against 0.22 ms measured (PERF.md); streaming alone
 // runs near the bound, and the rest is the scoring from shared memory, 2 d FMAs, a
 // share of a shuffle tree and a 16-byte shared load per lane for every (pair, row),
 // with the 8 - n warps of a unit of n pairs idle.
