@@ -10,7 +10,8 @@ run and read just after:
 
 - the exact Lloyd fit (``KMeans.fit`` / ``fit_batched`` and the online
   ``iterate``) at the widths of the paper's four regimes
-  (``benchmarks/bench_e2e.py``);
+  (``benchmarks/bench_e2e.py``), smallN_smallK in f32 and bf16, and at
+  smallN_smallK f32 also the path auto does not take;
 - FlashIVF search (``repro_torch.index.IVFIndex``) at the FAISS
   ``IVF1024,Flat`` configuration on SIFT1M (N = 1,048,576, d = 128,
   K = 1,024; a synthetic corpus of 1,024 Gaussian blobs made on the card
@@ -21,14 +22,19 @@ run and read just after:
   held to the block path (the gathered candidate block and the grouped
   scan) on the same batch; and full-probe exactness on a smaller index.
 
-Before the paths, the sort-inverse update and the store scan are held to
-their plain versions on edge shapes (one segment over every CTA, K > N,
-ragged chunks, R < 32, d = 1, 3, 19, 129, batched ids, an unaligned x;
-empty, full and over-width cells, fewer live rows than L, duplicate rows,
-the scalar path, bf16, one and several CTAs per pair). At smallN_smallK
-the two-pass and fused iterations are timed in alternation and split by
-kernel with ``torch.profiler``, as is a two-pass iteration at
-largeN_smallK bf16.
+Before the paths, the sort-inverse update, FlashLloyd and the store scan
+are held to their plain versions on edge shapes (one segment over every
+CTA, K > N, ragged chunks, R < 32, d = 1, 3, 19, 129, batched ids, an
+unaligned x; each FlashLloyd cluster size at the largest K it takes, no
+points, fewer points than a tile, K = 1, K = 16 with every row near 3
+centroids, batches across clusters of 2 and 8, FlashLloyd's ids equal to
+FlashAssign's bit for bit; empty, full and over-width cells, fewer live rows
+than L, duplicate rows, the scalar path, bf16, one and several CTAs per
+pair). Wherever the fused step fits, the two-pass and fused iterations are
+timed in alternation (auto must take the winner of most pairs) and split by
+kernel with ``torch.profiler``; FlashLloyd's device time is read beside
+FlashAssign's on the same inputs, and at smallN_smallK its smallest cluster
+size against the next one up.
 
 It prints the kernel table as one JSON line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -55,10 +61,12 @@ SEED = 0
 HBM_BW = 3.35e12                    # H100 SXM data sheet, bytes/s
 CUDA_CORE_F32 = 67e12               # fp32 FMA on the CUDA cores, FLOP/s
 # the least time per counted operation, by kernel and input type (H100 SXM
-# data sheet): FlashAssign runs on the tensor cores, 3xTF32 for f32 (three
-# products per term at 495 TFLOP/s) and dense bf16 (989 TFLOP/s); the other
-# kernels run fp32 arithmetic on the CUDA cores whatever the input type
-PEAK = {"flash_assign": {"float32": 495e12 / 3, "bfloat16": 989e12}}
+# data sheet): FlashAssign and FlashLloyd run their argmin on the tensor
+# cores, 3xTF32 for f32 (three products per term at 495 TFLOP/s) and dense
+# bf16 (989 TFLOP/s); the other kernels run fp32 arithmetic on the CUDA cores
+# whatever the input type
+PEAK = {kname: {"float32": 495e12 / 3, "bfloat16": 989e12}
+        for kname in ("flash_assign", "flash_lloyd")}
 U32 = 2.0 ** -24                    # fp32 unit roundoff
 
 
@@ -70,6 +78,7 @@ def peak(kname: str, dtype: str) -> float:
 # benchmarks/bench_e2e.py; largeN_largeK's N is cut from 1,048,576)
 REGIMES = [
     ("smallN_smallK", 65536, 256, 128, 1, "float32", 10),
+    ("smallN_smallK", 65536, 256, 128, 1, "bfloat16", 10),
     ("largeN_smallK", 8388608, 1024, 128, 1, "float32", 4),
     ("largeN_smallK", 8388608, 1024, 128, 1, "bfloat16", 4),
     ("batched_B32", 65536, 1024, 128, 32, "float32", 4),
@@ -126,6 +135,17 @@ PAD = 1e15   # the store's padding coordinate (index/store.py _PAD_COORD)
 SIU_EDGE = [(5000, 3, 128, "equal", 512), (300, 5000, 64, "random", 64),
             (1000, 37, 128, "random", 256), (20, 4, 128, "random", 64)] + [
     (3000, 50, d, "random", 256) for d in (1, 3, 19, 129)]
+# FlashLloyd edges (B, N, K, d, kind, cluster size or None for the
+# planner's): each cluster size at the largest K that fits it ("window"), d
+# off the 16-byte row (1, 3, 19, 129), no points, fewer points than one
+# tile, K = 1, K > N (most clusters empty), K = 16 with every row near one of
+# 3 centroids, B > 1 across clusters of 2 and of 8
+LLOYD_EDGE = [(1, 3000, 0, 128, "window", cl) for cl in (1, 2, 4, 8)] + [
+    (1, 2000, 50, d, "random", None) for d in (1, 3, 19, 129)] + [
+    (1, 0, 10, 128, "random", None), (1, 50, 10, 128, "random", None),
+    (1, 1000, 1, 128, "random", None), (1, 100, 1000, 128, "random", None),
+    (1, 20000, 16, 128, "few", None), (3, 2000, 300, 128, "random", 2),
+    (2, 700, 100, 64, "random", 8)]
 # store scan edges: (B, K, cap, width, d, nprobe, L); every case has an
 # empty cell, one at count == width and one at count == cap (> width where
 # cap > width), query 0 probing the emptiest cells (fewer live rows than L
@@ -141,7 +161,7 @@ STORE_EDGE = [(64, 40, 256, 200, 128, 8, 10), (33, 24, 64, 64, 19, 5, 40),
               (7, 7, 40, 40, 1, 2, 5), (10, 12, 128, 128, 512, 4, 10),
               (5, 30, 2200, 2128, 32, 16, 10), (40, 8, 64, 60, 19, 3, 12),
               (1100, 7, 40, 40, 16, 3, 3)]
-STEP_PAIRS = 12  # smallN_smallK: two-pass / fused iteration pairs, ABAB
+STEP_PAIRS = 11  # two-pass / fused iteration pairs, ABAB, where fused fits
 # FlashIVF: the FAISS IVF1024,Flat configuration on SIFT1M (N, K, d),
 # searched in batches of IVF_B queries at topk 10, nprobe 16
 IVF = (1048576, 1024, 128)
@@ -234,11 +254,32 @@ def main() -> int:
         model = H.assign_footprint(fa.TILE_N, fa.TILE_K, d, 2 if bf16 else 4)
         check(got == model, f"flash_assign dynamic smem {got} == the "
                             f"planner's model {model} (bf16={bf16}, d={d})")
-    model = H.fused_footprint(fl.TILE_N, fl.TILE_K, 1, 4, 0)
-    for bf16 in (False, True):
-        got = _build.lloyd_static_smem(bf16)
-        check(got == model, f"flash_lloyd static smem {got} == the "
-                            f"planner's model {model} (bf16={bf16})")
+    # FlashLloyd: registers and spills, then for every cluster size its
+    # shared memory at the largest K that fits (the planner's window), as
+    # the launch sets it, against the planner's model; and the clusters the
+    # card keeps resident there (cudaOccupancyMaxActiveClusters)
+    for line in _build.ptxas_log.splitlines():
+        if "Compiling entry function" in line:
+            fname = line.split("'")[1]
+        elif "Used" in line and "flash_lloyd_tc" in fname:
+            f32 = re.findall(r"Lb([01])E", fname)[0]
+            print(f"  flash_lloyd_tc<{'f32' if f32 == '1' else 'bf16'}>: "
+                  f"{line.split(':', 1)[1].strip()}; {spills.get(fname, '')}")
+    for bf16, d, cl in itertools.product((False, True), (1, 19, 128, 129),
+                                         fl.CLUSTERS):
+        isz = 2 if bf16 else 4
+        kmax = H.max_fused_k(d, isz, cl, H.H100)
+        dp = fl.padded_d(d, isz)
+        got = _build.lloyd_smem(bf16, dp, kmax, cl)
+        model = H.fused_footprint(kmax, d, isz, cl)
+        active = fl.active_clusters(dev, bf16, dp, kmax, cl)
+        check(got == (model, 0) and model <= H.H100.smem_block_bytes
+              and H.fused_footprint(kmax + 1, d, isz, cl)
+              > H.H100.smem_block_bytes,
+              f"flash_lloyd (dynamic, static) smem {got} == the planner's "
+              f"({model}, 0) at the window's edge K={kmax} (bf16={bf16}, "
+              f"d={d}, C={cl}); {active} clusters of {cl} resident "
+              f"({active * cl} CTAs)")
 
     for kname, (regs, local) in fp.kernel_attrs().items():
         cap = H.STORE_REGS if kname.startswith("flash_probe_store") \
@@ -298,8 +339,8 @@ def main() -> int:
     # ---- phase 2 helpers: kernel vs plain on the card -------------------
     def batch_tol(x, c):
         """Per problem: ``flash_assign.score_tol``, the kernel's worst-case
-        score error plus the plain version's (and FlashLloyd's, whose fp32
-        CUDA-core arithmetic is the plain version's)."""
+        score error plus the plain version's (FlashLloyd runs the same
+        argmin)."""
         return torch.tensor([fa.score_tol(x[i], c[i])
                              for i in range(x.shape[0])], device=dev)
 
@@ -446,12 +487,33 @@ def main() -> int:
                                              err)
         return order, ids_s
 
-    def lloyd_check(x, c, tag):
-        a, s, cnt, j = fl.flash_lloyd_raw(x, c)
+    def inertia_bound(x, c, jp):
+        """Per problem, the derived bound on ``|kernel inertia - plain|``:
+        each row's score within ``flash_assign.score_tol`` (both sides),
+        its ``||x||^2`` within ``d u ||x||^2`` on each side, and the sum of
+        the N clamped terms within ``N u`` of its value on each side. Used
+        where rows sit near their centroids, so that ``m + ||x||^2``
+        cancels and no relative bound holds."""
+        n, d = x.shape[1], x.shape[2]
+        xn = torch.linalg.vector_norm(x.float(), dim=-1).amax(-1)
+        return n * (batch_tol(x, c) + 2 * d * U32 * xn * xn) \
+            + 2 * n * U32 * jp.abs()
+
+    def lloyd_check(x, c, tag, cluster=None, near=False):
+        """FlashLloyd (at ``cluster`` CTAs a cluster, the planner's smallest
+        when None) against FlashAssign's ids, which it must equal bit for
+        bit (the same tensor-core argmin), and against the plain version's
+        statistics of its own ids: sums within ``2 n u sum|x|``, counts
+        equal, clusters without points exactly 0; the inertia within rtol
+        1e-4 of the plain version's, or with ``near`` (rows near their
+        centroids) within ``inertia_bound``. Returns the ids."""
+        a, s, cnt, j = fl.flash_lloyd_raw(x, c, cluster=cluster)
         torch.cuda.synchronize()
-        a_assign = assign_check(x, c, tag + "/fused-argmin")
         b, n, d = x.shape
         k = c.shape[1]
+        cl = cluster or H.choose_lloyd_cluster(k, d, x.element_size(),
+                                               P.detect_hardware(dev))
+        a_assign = assign_check(x, c, tag + "/fused-argmin") if n else a
         ids = (a.long() + k * torch.arange(b, device=dev).unsqueeze(1))
         ids = ids.reshape(-1)
         x2 = x.reshape(-1, d)
@@ -462,24 +524,28 @@ def main() -> int:
         bound = sums_tol(x2, ids, b * k, cp)
         err_t = (s.reshape(b * k, d) - sp).abs()
         err = float(err_t.max())
-        jerr = float(((j - jp).abs() / jp.abs()).max())
-        # FlashLloyd (fp32 on the CUDA cores) and FlashAssign (tensor cores)
-        # round differently: their ids may differ only on near-ties inside
-        # the sum of their bounds
-        diff_a = int((a != a_assign).sum())
-        gap = row_gap(x, c, a, a_assign).amax(1)
-        tie_ok = bool((gap <= batch_tol(x, c)).all())
+        jerr = float(((j - jp).abs() / jp.abs().clamp_min(1e-30)).max())
+        if near:
+            j_ok = bool(((j - jp).abs() <= inertia_bound(x, c, jp)).all())
+            j_what = "within the derived bound"
+        else:
+            j_ok, j_what = jerr <= 1e-4, "<= 1e-4"
+        same = torch.equal(a, a_assign)
+        empty = cp == 0
+        zeros = bool((s.reshape(b * k, d)[empty] == 0).all()) and bool(
+            (cnt.reshape(-1)[empty] == 0).all())
         ok = (bool((err_t <= bound).all()) and torch.equal(
-            cnt.reshape(-1), cp) and jerr <= 1e-4 and tie_ok)
+            cnt.reshape(-1), cp) and j_ok and same and zeros)
         details["kernel_checks"].append(
             {"kernel": "flash_lloyd", "at": tag, "dtype": str(x.dtype),
-             "shape": [b, n, k, d], "max_abs_err": err,
-             "inertia_rel_err": jerr, "ids_differ_from_assign": diff_a,
-             "tie_gap": float(gap.max())})
-        check(ok, f"flash_lloyd {tag} {x.dtype}: sums err {err:.3g} within "
-                  f"2nu*sum|x|, counts equal, inertia rel err {jerr:.2g} <= "
-                  f"1e-4, ids == FlashAssign's but {diff_a} near-ties (gap "
-                  f"{float(gap.max()):.3g} <= score_tol)")
+             "shape": [b, n, k, d], "cluster": cl, "max_abs_err": err,
+             "inertia_rel_err": jerr, "ids_equal_assign": same,
+             "empty_clusters": int(empty.sum()), "empty_exact_zero": zeros})
+        check(ok, f"flash_lloyd {tag} {x.dtype} (C={cl}): ids == "
+                  f"FlashAssign's bit for bit {same}, sums err {err:.3g} "
+                  f"within 2nu*sum|x|, counts equal, {int(empty.sum())} empty "
+                  f"clusters exactly 0 {zeros}, inertia rel err {jerr:.2g} "
+                  f"{j_what}")
         max_err["flash_lloyd"] = max(max_err["flash_lloyd"], err)
         return a_assign
 
@@ -740,6 +806,24 @@ def main() -> int:
         siu_check(x2, ids, 100, "edge unaligned x (R=4000, S=100, d=128)",
                   chunk=256, threads=siu.THREADS)
 
+    print("\n[FlashLloyd edges]", flush=True)
+    gen_l = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for b, n, k, d, kind, cl in LLOYD_EDGE:
+        for cdt in (torch.float32, torch.bfloat16):
+            isz = 2 if cdt == torch.bfloat16 else 4
+            if kind == "window":   # the largest K of cluster size cl
+                k = H.max_fused_k(d, isz, cl, H.H100)
+            if kind == "few":      # every row near one of 3 centroids
+                c = torch.randn(b, k, d, device=dev, generator=gen_l) * 2.0
+                lab = torch.randint(0, 3, (b, n), device=dev, generator=gen_l)
+                x = torch.stack([c[i, lab[i]] for i in range(b)]) + 0.1 * \
+                    torch.randn(b, n, d, device=dev, generator=gen_l)
+            else:
+                x = torch.randn(b, n, d, device=dev, generator=gen_l)
+                c = torch.randn(b, k, d, device=dev, generator=gen_l)
+            lloyd_check(x.to(cdt), c.to(cdt), f"edge{(b, n, k, d)}/{kind}",
+                        cluster=cl, near=kind == "few")
+
     print("\n[store scan edges]", flush=True)
     for bq, kc, cap, width, d, nprobe, l in STORE_EDGE:
         cnt = torch.randint(0, width + 1, (kc,), device=dev, generator=gen_e)
@@ -874,8 +958,9 @@ def main() -> int:
         blk = KMeansConfig(k=k).blocks_for(n, d, x.element_size(), dev)
         for cdt in (torch.float32, torch.bfloat16):
             xc, cc = x.to(cdt), c0.to(cdt)
-            if name == "smallN_smallK":
-                a_k = lloyd_check(xc, cc, name)
+            if H.choose_lloyd_cluster(k, d, xc.element_size(),
+                                      P.detect_hardware(dev)) is not None:
+                a_k = lloyd_check(xc, cc, name)   # with FlashAssign's check
             else:
                 a_k = assign_check(xc, cc, name)
             if cdt == dtype:
@@ -960,10 +1045,10 @@ def main() -> int:
                  "step_ms": step_ms, "inertia": [t.tolist() for t in traj],
                  "launches": counts, "peak_gib": peak_gib})
 
-        impl = KMeansConfig(k=k).resolved_step_impl(n, d, x.element_size(),
-                                                    device=dev)
-        want = H.choose_step_impl(n, k, d, dtype_bytes=x.element_size(),
-                                  hw=P.detect_hardware(dev))
+        isz = x.element_size()
+        hw_ = P.detect_hardware(dev)
+        impl = KMeansConfig(k=k).resolved_step_impl(n, d, isz, device=dev)
+        want = H.choose_step_impl(n, k, d, dtype_bytes=isz, hw=hw_)
         check(impl == want, f"step_impl auto -> {impl} (the planner's "
                             f"choice {want})")
         zero_counts()
@@ -976,7 +1061,7 @@ def main() -> int:
         if (name, dt) == ("largeN_smallK", "bfloat16"):   # by kernel
             profile_steps(f"{name}/{dt} iterate ({impl})",
                           lambda: km.iterate(x[0], c0[0]))
-        if name == "smallN_smallK":
+        if (name, dt) == ("smallN_smallK", "float32"):
             # the other entry points, counted on their own: fits that draw
             # their own start on the card, and predict (FlashAssign)
             zero_counts()
@@ -995,30 +1080,38 @@ def main() -> int:
             details["regimes"][-1]["launches_other_entry_points"] = counts_e
             check(counts_e["flash_assign"] > 0,
                   f"fit(init=...) and predict: kernels launched: {counts_e}")
+            # the path auto did not take, which a user asks for with
+            # step_impl, counted too, so that both paths stay driven
+            other = "two_pass" if impl == "fused" else "fused"
             zero_counts()
-            km_f, st_f, *rest = drive("fused")
-            counts_f = read_counts()
+            km_o, st_o, *rest = drive(other)
+            counts_o = read_counts()
             for kname in mods:
-                launches[kname] += counts_f[kname]
-            check_path("fused", "fused", km_f, st_f, *rest, counts_f)
-            # predict (FlashAssign, tensor cores) against the fused step's
-            # ids (FlashLloyd, CUDA cores) on the same centroids: equal but
-            # on near-ties inside the sum of their bounds
+                launches[kname] += counts_o[kname]
+            check_path(other, other, km_o, st_o, *rest, counts_o)
+            # predict (FlashAssign) against the fused step's ids (FlashLloyd)
+            # on the same centroids: the same argmin, so equal bit for bit
+            km_f = km if impl == "fused" else km_o
             _, a_fused, _ = km_f.iterate(x[0], st.centroids)
-            gap = row_gap(x[:1], st.centroids[None], pred[None],
-                          a_fused[None])
             n_diff = int((pred != a_fused).sum())
             details["regimes"][-1]["predict_ids_differ_from_fused"] = n_diff
-            check(float(gap.max()) <= float(batch_tol(x[:1],
-                                                      st.centroids[None])[0]),
-                  f"predict ids == the fused step's ids but {n_diff} "
-                  f"near-ties (gap {float(gap.max()):.3g} <= score_tol)")
-            del km_f, st_f, rest, a_fused, pred
-            # the planner's rule at this shape: two-pass against fused,
-            # alternating (A B A B ...), each sample the median of 10 event
-            # timed iterate calls from c0 after a warm-up
+            check(n_diff == 0, f"predict ids == the fused step's ids bit for "
+                               f"bit ({n_diff} differ)")
+            del km_o, st_o, rest, a_fused, pred, km_f
+        cl_ = H.choose_lloyd_cluster(k, d, isz, hw_)
+        if cl_ is not None:
+            # the planner's rule where fused is feasible: two-pass against
+            # fused, alternating (A B A B ...), each sample the median of 10
+            # event-timed iterate calls from c0 after a warm-up; auto must
+            # take the path that wins most of the pairs
             kms = {impl_: KMeans(KMeansConfig(k=k, step_impl=impl_))
                    for impl_ in ("two_pass", "fused")}
+
+            def one_iterate(km_):
+                if b == 1:
+                    km_.iterate(x[0], c0[0])
+                else:
+                    km_.iterate_batched(x, c0)
 
             def iter_ms(km_):
                 t = []
@@ -1026,7 +1119,7 @@ def main() -> int:
                     e0 = torch.cuda.Event(enable_timing=True)
                     e1 = torch.cuda.Event(enable_timing=True)
                     e0.record()
-                    km_.iterate(x[0], c0[0])
+                    one_iterate(km_)
                     e1.record()
                     torch.cuda.synchronize()
                     t.append(e0.elapsed_time(e1))
@@ -1037,85 +1130,144 @@ def main() -> int:
                      for _ in range(STEP_PAIRS)]
             med = [statistics.median(p[i] for p in pairs) for i in (0, 1)]
             fused_wins = sum(f < t for t, f in pairs)
-            print(f"  two-pass vs fused, {STEP_PAIRS} alternating pairs (ms "
-                  f"per iterate): {[(round(t, 4), round(f, 4)) for t, f in pairs]}"
-                  f"; medians {med[0]:.4f} / {med[1]:.4f}; fused won "
+            winner = "fused" if 2 * fused_wins > STEP_PAIRS else "two_pass"
+            print(f"  two-pass vs fused (C={cl_}), {STEP_PAIRS} alternating "
+                  f"pairs (ms per iterate): "
+                  f"{[(round(t, 4), round(f, 4)) for t, f in pairs]}; "
+                  f"medians {med[0]:.4f} / {med[1]:.4f}; fused won "
                   f"{fused_wins} of {STEP_PAIRS}", flush=True)
             # each path by kernel: launches per iteration and device time
             prof = {impl_: profile_steps(f"{name}/{dt} iterate ({impl_})",
-                                         lambda km_=km_: km_.iterate(
-                                             x[0], c0[0]))
+                                         lambda km_=km_: one_iterate(km_))
                     for impl_, km_ in kms.items()}
-            extra = prof["two_pass"]["launches"] - prof["fused"]["launches"]
-            per_launch = (med[0] - med[1]) / extra if extra else float("nan")
-            print(f"  two-pass makes {extra:g} more launches an iteration; "
-                  f"the median gap over them: {per_launch * 1e3:.2f} us a "
-                  f"launch", flush=True)
-            details["step_pairs"] = {
-                "pairs_ms": pairs, "median_ms": med, "fused_wins": fused_wins,
-                "launches": {k_: v["launches"] for k_, v in prof.items()},
-                "ms_per_extra_launch": per_launch}
+            check(impl == winner, f"{name}/{dt}: auto picks {impl}, the "
+                  f"winner of most of the {STEP_PAIRS} pairs ({winner}: "
+                  f"fused won {fused_wins})")
+            details["step_pairs"].append(
+                {"regime": name, "dtype": dt, "cluster": cl_, "auto": impl,
+                 "pairs_ms": pairs, "median_ms": med,
+                 "fused_wins": fused_wins, "winner": winner,
+                 "launches": {k_: v["launches"] for k_, v in prof.items()},
+                 "device_busy_ms": {k_: v["device_busy_ms"]
+                                    for k_, v in prof.items()}})
             del kms, prof
 
         # kernel times at this regime's shapes (after the counted runs)
         xb, cb = x, c0
         tag = f"{name}/{dt}"
-        nb = b * n
-        if name == "smallN_smallK":
-            # inputs read once, outputs (a, sums, counts, inertia) once
-            byt = ((nb * d + b * k * d) * x.element_size() + nb * 4
-                   + b * (k * d + k + 1) * 4)
-            ops_ = 2.0 * nb * k * d + nb * d
-            timing[tag + "/flash_lloyd"] = {
-                "ms": ms_of(lambda: fl.flash_lloyd_raw(xb, cb)),
-                "plain_ms": ms_of(lambda: fl.flash_lloyd_plain(xb, cb)),
-                "library_ms": None, "bytes": byt, "ops": ops_,
-                "dtype": dt, "shape": [b, n, k, d]}
-        if impl == "two_pass":
-            a_full, _ = fa.flash_assign_raw(xb, cb)
 
-            def assign_plain_chunked():
-                for bs, rs in plain_chunks(b, n, k):
-                    fa.flash_assign_plain(xb[bs, rs], cb[bs])
-            timing[tag + "/flash_assign"] = {
-                "ms": ms_of(lambda: fa.flash_assign_raw(xb, cb)),
-                "plain_ms": ms_of(assign_plain_chunked, reps=1),
-                "library_ms": None,
-                "bytes": (nb * d + b * k * d) * x.element_size() + nb * 8,
-                "ops": 2.0 * nb * k * d, "dtype": dt, "shape": [b, n, k, d]}
-            if dt == "float32":   # the same flops as fp32 FMAs on the CUDA
-                # cores, beside the 3xTF32 bound
-                timing[tag + "/flash_assign"]["bound_cuda_core_ms"] = (
-                    2.0 * nb * k * d / CUDA_CORE_F32 * 1e3)
-            ids = (a_full + k * torch.arange(
-                b, device=dev, dtype=torch.int32).unsqueeze(1)).reshape(-1)
-            ids_s, order = torch.sort(ids, stable=True)
-            order = order.to(torch.int32)
-            x2 = xb.reshape(-1, d)
-            ids_l = ids.long()
-            timing[tag + "/sort_inverse_update"] = {
-                "ms": ms_of(lambda: siu.sort_inverse_update_raw(
-                    x2, order, ids_s, b * k, chunk=blk.update_block_n,
-                    threads=blk.update_block_k), reps=20),
-                "plain_ms": ms_of(lambda: siu.sort_inverse_update_plain(
-                    x2, order, ids_s, b * k)),
-                # index_add_ computes the f32 sums only from f32 rows
-                "library_ms": ms_of(lambda: torch.zeros(
-                    (b * k, d), device=dev).index_add_(0, ids_l, x2),
-                    reps=20) if x2.dtype == torch.float32 else None,
-                # device time alone (the memset with the kernel; zeros and
-                # index_add_), where a call is short next to its launch
-                "device_ms": device_ms_of(lambda: siu.sort_inverse_update_raw(
-                    x2, order, ids_s, b * k, chunk=blk.update_block_n,
-                    threads=blk.update_block_k)),
-                "library_device_ms": device_ms_of(lambda: torch.zeros(
-                    (b * k, d), device=dev).index_add_(0, ids_l, x2))
-                if x2.dtype == torch.float32 else None,
-                "sort_ms": ms_of(lambda: torch.sort(ids, stable=True)),
-                "bytes": nb * d * x.element_size() + nb * 8
-                + b * k * (d + 1) * 4,
-                "ops": float(nb * d), "dtype": dt, "shape": [b, n, k, d]}
-            del a_full, ids, ids_s, order, ids_l
+        def assign_plain_chunked(xb=xb, cb=cb):
+            for bs, rs in plain_chunks(xb.shape[0], xb.shape[1],
+                                       cb.shape[1]):
+                fa.flash_assign_plain(xb[bs, rs], cb[bs])
+
+        def lloyd_times(xb, cb, tag, cl=None):
+            """FlashLloyd at (xb, cb): event time of back-to-back calls,
+            the profiler's device time, and FlashAssign's device time on the
+            same inputs (the argmin both run)."""
+            b_, n_, d_ = xb.shape
+            k_ = cb.shape[1]
+            nb_ = b_ * n_
+
+            def lloyd_plain_chunked():
+                for bs, rs in plain_chunks(b_, n_, k_):
+                    fl.flash_lloyd_plain(xb[bs, rs], cb[bs])
+            rec = {
+                "ms": ms_of(lambda: fl.flash_lloyd_raw(xb, cb, cluster=cl)),
+                "device_ms": device_ms_of(
+                    lambda: fl.flash_lloyd_raw(xb, cb, cluster=cl), reps=5),
+                "assign_device_ms": device_ms_of(
+                    lambda: fa.flash_assign_raw(xb, cb), reps=5),
+                "plain_ms": ms_of(lloyd_plain_chunked, reps=1),
+                "library_ms": None, "library_device_ms": None,
+                "cluster": cl or H.choose_lloyd_cluster(
+                    k_, d_, xb.element_size(), hw_),
+                # inputs read once; a, sums, counts, inertia written once
+                "bytes": (nb_ * d_ + b_ * k_ * d_) * xb.element_size()
+                + nb_ * 4 + b_ * (k_ * d_ + k_ + 1) * 4,
+                "ops": 2.0 * nb_ * k_ * d_ + nb_ * d_,
+                "dtype": str(xb.dtype).split(".")[1],
+                "shape": [b_, n_, k_, d_]}
+            if xb.dtype == torch.float32:   # the flops as fp32 FMAs on the
+                # CUDA cores, beside the 3xTF32 bound
+                rec["bound_cuda_core_ms"] = 2.0 * nb_ * k_ * d_ \
+                    / CUDA_CORE_F32 * 1e3
+            # its time beyond FlashAssign's, a second per value of N d and
+            # per value and centroid tile after the first
+            extra_s = (rec["device_ms"] - rec["assign_device_ms"]) * 1e-3
+            nk = -(-k_ // fl.TILE_K)
+            rec["values_per_s"] = nb_ * d_ / extra_s if extra_s > 0 else None
+            rec["tile_values_per_s"] = ((nk - 1) * nb_ * d_ / extra_s
+                                        if extra_s > 0 and nk > 1 else None)
+            print(f"  {tag}: FlashLloyd (C={rec['cluster']}) device "
+                  f"{rec['device_ms']:.4f} ms, a call {rec['ms']:.4f} ms; "
+                  f"FlashAssign device {rec['assign_device_ms']:.4f} ms; "
+                  f"beyond it: {rec['values_per_s'] or 0:.4g} values/s, "
+                  f"{rec['tile_values_per_s'] or 0:.4g} values x tiles/s",
+                  flush=True)
+            timing[tag] = rec
+            return rec
+
+        if cl_ is not None:
+            lloyd_times(xb, cb, tag + "/flash_lloyd")
+            if name == "smallN_smallK":
+                # K = 16 (a centroid tile of its own, the additions alone
+                # beyond the argmin)
+                x16 = mixture(1, n, 16, d, gen).to(x.dtype)
+                c16 = x16[:, torch.randperm(n, device=dev,
+                                            generator=gen)[:16]].clone()
+                lloyd_times(x16, c16, f"smallN_K16/{dt}/flash_lloyd")
+                del x16, c16
+            nxt = [c_ for c_ in fl.CLUSTERS if c_ > cl_]
+            if (name, dt) == ("smallN_smallK", "float32") and nxt:
+                # the smallest C against the next one up, (C, C', C', C)
+                turns = [(c_, device_ms_of(lambda c_=c_: fl.flash_lloyd_raw(
+                    xb, cb, cluster=c_), reps=10))
+                    for c_ in (cl_, nxt[0], nxt[0], cl_)]
+                timing[tag + "/flash_lloyd"]["cluster_turns"] = turns
+                print(f"  FlashLloyd device ms by C, in turns: {turns}",
+                      flush=True)
+        nb = b * n
+        a_full, _ = fa.flash_assign_raw(xb, cb)
+        timing[tag + "/flash_assign"] = {
+            "ms": ms_of(lambda: fa.flash_assign_raw(xb, cb)),
+            "plain_ms": ms_of(assign_plain_chunked, reps=1),
+            "library_ms": None,
+            "bytes": (nb * d + b * k * d) * x.element_size() + nb * 8,
+            "ops": 2.0 * nb * k * d, "dtype": dt, "shape": [b, n, k, d]}
+        if dt == "float32":   # the same flops as fp32 FMAs on the CUDA
+            # cores, beside the 3xTF32 bound
+            timing[tag + "/flash_assign"]["bound_cuda_core_ms"] = (
+                2.0 * nb * k * d / CUDA_CORE_F32 * 1e3)
+        ids = (a_full + k * torch.arange(
+            b, device=dev, dtype=torch.int32).unsqueeze(1)).reshape(-1)
+        ids_s, order = torch.sort(ids, stable=True)
+        order = order.to(torch.int32)
+        x2 = xb.reshape(-1, d)
+        ids_l = ids.long()
+        timing[tag + "/sort_inverse_update"] = {
+            "ms": ms_of(lambda: siu.sort_inverse_update_raw(
+                x2, order, ids_s, b * k, chunk=blk.update_block_n,
+                threads=blk.update_block_k), reps=20),
+            "plain_ms": ms_of(lambda: siu.sort_inverse_update_plain(
+                x2, order, ids_s, b * k)),
+            # index_add_ computes the f32 sums only from f32 rows
+            "library_ms": ms_of(lambda: torch.zeros(
+                (b * k, d), device=dev).index_add_(0, ids_l, x2),
+                reps=20) if x2.dtype == torch.float32 else None,
+            # device time alone (the memset with the kernel; zeros and
+            # index_add_), where a call is short next to its launch
+            "device_ms": device_ms_of(lambda: siu.sort_inverse_update_raw(
+                x2, order, ids_s, b * k, chunk=blk.update_block_n,
+                threads=blk.update_block_k)),
+            "library_device_ms": device_ms_of(lambda: torch.zeros(
+                (b * k, d), device=dev).index_add_(0, ids_l, x2))
+            if x2.dtype == torch.float32 else None,
+            "sort_ms": ms_of(lambda: torch.sort(ids, stable=True)),
+            "bytes": nb * d * x.element_size() + nb * 8
+            + b * k * (d + 1) * 4,
+            "ops": float(nb * d), "dtype": dt, "shape": [b, n, k, d]}
+        del a_full, ids, ids_s, order, ids_l
         del x, c0, xb, cb, st, km
         torch.cuda.empty_cache()
 

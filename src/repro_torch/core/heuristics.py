@@ -7,14 +7,15 @@ footprint of each CUDA kernel, the per-iteration HBM byte models, the
 block choice, and the fused-vs-two-pass crossover. It is also the single
 source of the hardware constants the roofline uses.
 
-Footprints are bytes of shared memory one CTA needs. FlashAssign streams
-the feature axis through a ring of ``128``-byte stages (TMA, tensor cores),
-so its footprint depends on the input type and on whether its point tile
-stays resident (``d <= 128`` in f32, ``<= 256`` in bf16); FlashLloyd streams it
-through ``16``-column f32 stages on the CUDA cores, and only its resident
-``(K, d)`` f32 accumulator grows with the shape: it must fit the block's
-opt-in limit (232,448 bytes on sm_90), a much narrower window than the
-TPU's VMEM.
+Footprints are bytes of shared memory one CTA needs. FlashAssign and
+FlashLloyd share one tensor-core argmin (``csrc/tc_argmin.cuh``) that
+streams the feature axis through a ring of ``128``-byte stages (TMA);
+FlashAssign's footprint depends on the input type and on whether its point
+tile stays resident (``d <= 128`` in f32, ``<= 256`` in bf16). FlashLloyd
+streams x with the centroids through a 128 KiB ring and keeps its f32
+``(K, d)`` sums beside it, spread over a thread-block cluster of ``C``
+CTAs (``choose_lloyd_cluster``): a slice of ``ceil(K / C)`` rows must fit
+each CTA's opt-in limit (232,448 bytes on sm_90) with the ring.
 """
 from __future__ import annotations
 
@@ -22,13 +23,11 @@ import dataclasses
 import math
 
 from repro_torch.kernels import flash_assign as _fa
+from repro_torch.kernels import flash_lloyd as _fl
 from repro_torch.kernels import flash_probe as _fp
 from repro_torch.kernels import sort_inverse_update as _siu
 from repro_torch.kernels.ops import BlockConfig
 
-_STAGE_D = 16        # FlashLloyd: feature columns per shared stage (common.cuh)
-_STAGE_PAD = 4       # row padding of those stages
-_FUSED_THREADS = 256
 _THREADS_PER_SM = 2048
 # sort-inverse update (csrc/sort_inverse_update.cu): threads per CTA, the
 # resident CTAs per SM that each layout's __launch_bounds__ guarantees (by
@@ -37,6 +36,15 @@ UPDATE_THREADS = _siu.THREADS
 UPDATE_MIN_BLOCKS = {1: 3, 2: 2, 4: 1}
 UPDATE_MIN_CHUNK = 64
 UPDATE_MAX_CHUNK = 2048
+# FlashLloyd beyond FlashAssign's argmin, measured on the card by
+# chip_smoke.py (lloyd_times: device times, NVIDIA H100 80GB HBM3 at 700 W):
+# its row additions in values (rows x d) a second, by input itemsize, at
+# K = 16 (one centroid tile, where the argmin hides little of them); and for
+# f32 the re-split of its streamed x, in values a second for each centroid
+# tile after the first (FlashAssign keeps x resident), at B 32 x N 65,536 x
+# K 1,024. PERF.md names the run that measured them.
+LLOYD_ADD_RATE = {4: 3.18e11, 2: 2.53e11}
+LLOYD_SPLIT_RATE = 3.02e11
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,12 +109,6 @@ def assign_footprint(bn: int, bk: int, d: int, bytes_in: int) -> int:
     return x_res + stages * (stage + 2 * 8) + 1024
 
 
-def lloyd_stage_footprint(bn: int, bk: int) -> int:
-    """Static shared bytes of FlashLloyd's argmin stages: the two f32
-    feature stages plus the tile's (min, argmin) pair."""
-    return 4 * _STAGE_D * (bn + _STAGE_PAD + bk + _STAGE_PAD) + bn * 8
-
-
 def update_footprint(bn: int, bk: int, d: int, bytes_in: int) -> int:
     """Dynamic shared bytes of one sort-inverse CTA of ``bk`` threads over
     ``bn`` sorted rows (``csrc/sort_inverse_update.cu``): the chunk's ids
@@ -127,14 +129,35 @@ def update_ctas_per_sm(d: int, bytes_in: int, chunk: int,
     return max(1, min(by_threads, UPDATE_MIN_BLOCKS[vpl], by_smem))
 
 
-def fused_footprint(bn: int, bk: int, d: int, bytes_in: int,
-                    k_pad: int) -> int:
-    """Shared bytes of one FlashLloyd CTA: the resident f32 ``(K, d)`` sums
-    and ``(K,)`` counts (``k_pad = K``: the port does not pad K), the
-    argmin stages, and the per-warp inertia slots. The ``4·K·d`` term is
-    the constraint the two-pass path does not have."""
-    return (4 * (k_pad * d + k_pad) + lloyd_stage_footprint(bn, bk)
-            + 4 * (_FUSED_THREADS // 32))
+def fused_footprint(k: int, d: int, bytes_in: int, cluster: int) -> int:
+    """Dynamic shared bytes of one FlashLloyd CTA in a cluster of
+    ``cluster`` CTAs (``flash_lloyd.smem_bytes``): the 128 KiB argmin ring,
+    its alignment, the published ids and the adders' lists, and a slice of
+    ``ceil(K / C)`` rows of the f32 sums and counts at the padded width.
+    The slice is the term the two-pass path does not have."""
+    return _fl.smem_bytes(k, d, bytes_in, cluster)
+
+
+def choose_lloyd_cluster(k: int, d: int, bytes_in: int = 4,
+                         hw: Hardware = H100) -> int | None:
+    """The smallest cluster size C in ``flash_lloyd.CLUSTERS`` whose slice
+    fits beside the ring (``fused_footprint <= hw.smem_block_bytes``), or
+    None past ``C = 8``'s window: with fewer CTAs a cluster each round's
+    adders read fewer published tiles and keep shorter lists (C = 2 beat
+    C = 4 at smallN_smallK f32 on the H100, ``PERF.md``)."""
+    for cluster in _fl.CLUSTERS:
+        if fused_footprint(k, d, bytes_in, cluster) <= hw.smem_block_bytes:
+            return cluster
+    return None
+
+
+def max_fused_k(d: int, bytes_in: int = 4, cluster: int = 8,
+                hw: Hardware = H100) -> int:
+    """Largest K whose FlashLloyd slice fits one CTA of a cluster of
+    ``cluster`` at width d."""
+    dp = _fl.padded_d(d, bytes_in)
+    room = hw.smem_block_bytes - fused_footprint(0, d, bytes_in, cluster)
+    return max(0, room // (4 * (dp + 1))) * cluster
 
 
 # --- per-iteration HBM traffic models -------------------------------------
@@ -158,15 +181,26 @@ def update_bytes_sort_inverse(n: int, k: int, d: int, b: int = 4,
     return sort_io + gather + out + atomics
 
 
+def inertia_bytes(n: int, d: int, b: int = 4) -> float:
+    """The two-pass path's ``||x||^2`` pass (``ops._dists``): x read as f32
+    (a bf16 x first copied to f32), squared into a temporary, summed."""
+    cast = n * d * (b + 4) if b != 4 else 0
+    return cast + 12.0 * n * d
+
+
 def lloyd_bytes_fused(n: int, k: int, d: int, b: int = 4,
-                      grid: int = 1) -> float:
+                      clusters: int = 1) -> float:
     """FlashLloyd: read X and C once, write assignments, and flush each of
-    the ``grid`` CTAs' (K, d) + (K,) accumulators once."""
-    return (n * d + k * d) * b + n * 4 + grid * (k * d + k) * 4
+    the problem's ``clusters`` slices of the (K, d) + (K,) statistics
+    once."""
+    return (n * d + k * d) * b + n * 4 + clusters * (k * d + k) * 4
 
 
-def fused_grid(n: int, hw: Hardware) -> int:
-    return max(1, min(hw.num_sms, -(-n // 64)))
+def fused_clusters(n: int, cluster: int, hw: Hardware) -> int:
+    """Clusters a problem's persistent grid holds (one CTA an SM): as many
+    as the SMs take, no more than its point tiles need."""
+    tiles = -(-max(1, n) // _fl.TILE_N)
+    return max(1, min(hw.num_sms // cluster, -(-tiles // cluster)))
 
 
 def assign_flops_rate(dtype_bytes: int, hw: Hardware) -> float:
@@ -183,44 +217,47 @@ def choose_step_impl(n: int, k: int, d: int, *, dtype_bytes: int = 4,
 
     ``"fused"`` requires both legs:
 
-    1. *feasibility* — the FlashLloyd CTA's shared memory (``4·(K·d+K)``
-       plus the stages) fits the block limit; the two-pass kernels hold
-       no ``K``-sized state and scale to any ``K·d``;
-    2. *roofline win* — one kernel's time (the argmin flops or its bytes,
-       plus every CTA's accumulator flush) beats the summed two-pass
-       stages (the same argmin, then the sort and the gathered read).
+    1. *feasibility* — a FlashLloyd cluster size fits
+       (``choose_lloyd_cluster``); the two-pass kernels hold no
+       ``K``-sized state and scale to any ``K·d``;
+    2. *roofline win* — the fused step's time beats the two-pass one's.
 
-    The two paths do their flops on different units: FlashLloyd runs fp32
-    FMAs on the CUDA cores whatever the input type (``hw.flops_f32``);
-    FlashAssign runs on the tensor cores at ``assign_flops_rate`` (3xTF32
-    for f32, bf16 for bf16). So the two-pass path wins once the argmin's
-    flops outweigh the update's bytes: on the H100 row at d = 128 from
-    K = 83 (f32) or 43 (bf16).
+    Both paths run the same tensor-core argmin (``assign_flops_rate``:
+    3xTF32 for f32, bf16 for bf16), bound by its flops or its bytes. The
+    fused step streams x with the centroids, so in f32 it splits each x
+    chunk again for every centroid tile after the first
+    (``LLOYD_SPLIT_RATE``); its adder warps add the rows beside the argmin
+    (``LLOYD_ADD_RATE``), and it flushes its clusters' slices. The
+    two-pass step adds the sort-inverse update's bytes and the ``||x||^2``
+    pass's (``inertia_bytes``).
     """
     if blk is None:
         blk = choose_blocks(n, k, d, dtype_bytes=dtype_bytes, hw=hw)
-    if fused_footprint(blk.fused_block_n, blk.fused_block_k, d,
-                       dtype_bytes, k) > hw.smem_block_bytes:
+    cluster = choose_lloyd_cluster(k, d, dtype_bytes, hw)
+    if cluster is None:
         return "two_pass"
     bw = hw.hbm_bw
-    flops = 2.0 * n * k * d
-    t_fused = max(flops / hw.flops_f32, lloyd_bytes_fused(
-        n, k, d, dtype_bytes, fused_grid(n, hw)) / bw)
-    t_assign = max(flops / assign_flops_rate(dtype_bytes, hw),
+    t_argmin = max(2.0 * n * k * d / assign_flops_rate(dtype_bytes, hw),
                    assign_bytes_flash(n, k, d, dtype_bytes) / bw)
-    t_update = update_bytes_sort_inverse(n, k, d, dtype_bytes,
-                                         blk.update_block_n) / bw
-    return "fused" if t_fused <= t_assign + t_update else "two_pass"
+    flush = fused_clusters(n, cluster, hw) * (k * d + k) * 4
+    nk = -(-k // _fl.TILE_K)
+    split = (nk - 1) * n * d / LLOYD_SPLIT_RATE if dtype_bytes == 4 else 0.0
+    t_fused = max(t_argmin + split,
+                  n * d / LLOYD_ADD_RATE[dtype_bytes]) + flush / bw
+    t_two = t_argmin + (update_bytes_sort_inverse(
+        n, k, d, dtype_bytes, blk.update_block_n)
+        + inertia_bytes(n, d, dtype_bytes)) / bw
+    return "fused" if t_fused <= t_two else "two_pass"
 
 
 def choose_blocks(n: int, k: int, d: int, *, dtype_bytes: int = 4,
                   hw: Hardware = H100) -> BlockConfig:
     """Closed-form block selection — zero search.
 
-    The assign and fused tiles are the kernels' compiled ones (128 x 128
-    and 64 x 64). The sort-inverse CTA has ``UPDATE_THREADS`` threads and
-    takes the fewest sorted rows (a power of two) that keep every CTA
-    resident in one wave (``update_ctas_per_sm`` on each SM): at small N
+    The assign and fused tiles are the kernels' compiled ones (128 x 128,
+    the shared argmin's). The sort-inverse CTA has ``UPDATE_THREADS``
+    threads and takes the fewest sorted rows (a power of two) that keep
+    every CTA resident in one wave (``update_ctas_per_sm`` on each SM): at small N
     the kernel is bound by the latency of its gathers, so all of them
     should be in flight at once. Between ``UPDATE_MIN_CHUNK`` (eight rows
     per warp) and ``UPDATE_MAX_CHUNK`` (fewer boundary atomics no longer
@@ -230,12 +267,6 @@ def choose_blocks(n: int, k: int, d: int, *, dtype_bytes: int = 4,
     chunk = _pow2_ceil(-(-max(1, n) // (hw.num_sms * per_sm)))
     chunk = min(UPDATE_MAX_CHUNK, max(UPDATE_MIN_CHUNK, chunk))
     return BlockConfig(update_block_n=chunk, update_block_k=UPDATE_THREADS)
-
-
-def max_fused_k(d: int, hw: Hardware = H100) -> int:
-    """Largest K whose FlashLloyd accumulator fits one CTA at width d."""
-    fixed = fused_footprint(64, 64, d, 4, 0)
-    return max(0, math.floor((hw.smem_block_bytes - fixed) / (4 * (d + 1))))
 
 
 # --- FlashProbe (csrc/flash_probe.cu) --------------------------------------

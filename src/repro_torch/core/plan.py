@@ -98,6 +98,7 @@ class KernelPlan:
     ``BlockConfig``. ``smem_bytes`` is the shared-memory footprint at
     ``blocks`` (for ``step``: of the chosen path), ``smem_limit`` the
     block limit it was judged against, ``hbm_bytes`` the modeled traffic.
+    ``cluster`` is a fused step's FlashLloyd cluster size (None otherwise).
     """
     op: str
     shape: tuple
@@ -114,6 +115,7 @@ class KernelPlan:
     smem_bytes: int
     smem_limit: int
     hbm_bytes: float
+    cluster: int | None = None
 
 
 class KernelPlanner:
@@ -227,12 +229,13 @@ class KernelPlanner:
             return update
         impl = H.choose_step_impl(n, k, d, dtype_bytes=b, hw=hw, blk=cfg)
         if impl == "fused":
-            bn, bk = cfg.fused_block_n, cfg.fused_block_k
+            cl = H.choose_lloyd_cluster(k, d, b, hw)
             return dataclasses.replace(
-                assign, op="step", impl=impl, blocks=(bn, bk),
-                smem_bytes=H.fused_footprint(bn, bk, d, b, k),
-                hbm_bytes=H.lloyd_bytes_fused(n, k, d, b,
-                                              H.fused_grid(n, hw)))
+                assign, op="step", impl=impl, cluster=cl,
+                blocks=(cfg.fused_block_n, cfg.fused_block_k),
+                smem_bytes=H.fused_footprint(k, d, b, cl),
+                hbm_bytes=H.lloyd_bytes_fused(
+                    n, k, d, b, H.fused_clusters(n, cl, hw)))
         return dataclasses.replace(
             assign, op="step", impl=impl,
             smem_bytes=max(assign.smem_bytes, update.smem_bytes),

@@ -40,9 +40,13 @@ SIGNATURES = {
     # x, sorted_idx, ids_sorted, out, R, d, S, chunk, threads, is_bf16, stream
     "fk_sort_inverse_update": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
     "fk_sort_inverse_layout": (_I, _I, _I, _I, _I, ctypes.POINTER(_I)),
-    "fk_flash_lloyd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _P),
-    "fk_flash_lloyd_static_smem": (_I, ctypes.POINTER(_I)),
+    # x, c, csq, c split, a, sums, counts, inertia partials, B, N, K, dp,
+    # cluster, grid_x, is_bf16, stream
+    "fk_flash_lloyd": (_P,) * 8 + (_I,) * 7 + (_P,),
+    # is_bf16, dp, K, cluster, dynamic bytes out, static bytes out
+    "fk_flash_lloyd_smem": (_I,) * 4 + (ctypes.POINTER(_I),) * 2,
+    # is_bf16, dp, K, cluster, resident clusters out
+    "fk_flash_lloyd_clusters": (_I,) * 4 + (ctypes.POINTER(_I),),
     "fk_max_smem_optin": (_I, ctypes.POINTER(_I)),
     # q, c, csq, 8 output/partial/scratch pointers, N, K, d, L, S, chunk,
     # lp, is_bf16, stream
@@ -183,8 +187,13 @@ def assign_dynamic_smem(is_bf16: bool, d: int) -> int:
     return int(out.value)
 
 
-def lloyd_static_smem(is_bf16: bool) -> int:
-    out = ctypes.c_int(0)
-    check(lib().fk_flash_lloyd_static_smem(int(is_bf16), ctypes.byref(out)),
+def lloyd_smem(is_bf16: bool, dp: int, k: int, cluster: int
+               ) -> tuple[int, int]:
+    """FlashLloyd's (dynamic, static) shared memory for the launch at padded
+    width ``dp``, ``K`` and cluster size ``cluster``, read back from the
+    kernel's attributes."""
+    dyn, stat = ctypes.c_int(0), ctypes.c_int(0)
+    check(lib().fk_flash_lloyd_smem(int(is_bf16), dp, k, cluster,
+                                    ctypes.byref(dyn), ctypes.byref(stat)),
           "cudaFuncGetAttributes")
-    return int(out.value)
+    return int(dyn.value), int(stat.value)

@@ -89,12 +89,14 @@ def _resolve_blocks(op: str, shape: tuple, dtype, block_n, block_k, plan,
 
 
 def _audit_blocks(op: str, bn: int, bk: int, d: int, itemsize: int, device,
-                  *, k: int | None = None, plan=None) -> None:
+                  *, k: int | None = None, plan=None) -> int | None:
     """The resolved tiles must be ones the kernel was built for, and their
     shared-memory footprint must fit the block limit of the hardware the
     plan was made for (the device's detected hardware without a plan).
-    Raises ``ValueError`` otherwise: a fused ``(K, d)`` accumulator that
-    does not fit cannot be tiled down, the caller must go two-pass."""
+    Raises ``ValueError`` otherwise: FlashLloyd's ``(K, d)`` sums that fit
+    no cluster size cannot be tiled down, the caller must go two-pass.
+    Returns the fused step's cluster size (the planner's
+    ``choose_lloyd_cluster``)."""
     from repro_torch.core import heuristics as H
     from repro_torch.core import plan as _planmod
     hw = _planmod.hardware_for(plan.hw if plan is not None else None, device)
@@ -104,21 +106,30 @@ def _audit_blocks(op: str, bn: int, bk: int, d: int, itemsize: int, device,
         raise ValueError(
             f"{op} tiles ({bn}, {bk}) differ from the kernel's compiled "
             f"tiles {compiled}")
+    if op == "fused":
+        cluster = H.choose_lloyd_cluster(k, d, itemsize, hw)
+        if cluster is None:
+            big = _fl.CLUSTERS[-1]
+            raise ValueError(
+                f"fused kernel working set "
+                f"({H.fused_footprint(k, d, itemsize, big)} bytes a CTA in a "
+                f"cluster of {big}) exceeds the {hw.name} block "
+                f"shared-memory limit ({hw.smem_block_bytes} bytes) for "
+                f"d={d}, K={k}; use the two-pass path")
+        return cluster
     if op == "assign":
         need = H.assign_footprint(bn, bk, d, itemsize)
-    elif op == "update":
+    else:
         if bk % 32 or not 32 <= bk <= _siu.THREADS:
             raise ValueError(f"update_block_k={bk} must be a multiple of 32 "
                              f"in [32, {_siu.THREADS}] (threads per CTA)")
         need = H.update_footprint(bn, bk, d, itemsize)
-    else:
-        need = H.fused_footprint(bn, bk, d, itemsize, k)
     if need > hw.smem_block_bytes:
         raise ValueError(
             f"{op} kernel working set ({need} bytes) exceeds the {hw.name} "
             f"block shared-memory limit ({hw.smem_block_bytes} bytes) for "
-            f"d={d}" + (f", K={k}" if op == "fused" else "")
-            + ("; use the two-pass path" if op == "fused" else ""))
+            f"d={d}")
+    return None
 
 
 def _dists(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -222,9 +233,9 @@ def flash_lloyd_step_batched(x: torch.Tensor, c: torch.Tensor, *,
     k = c.shape[1]
     bn, bk = _resolve_blocks("step", (n, k, d), x.dtype, block_n, block_k,
                              plan, x.device, leg="fused")
-    _audit_blocks("fused", bn, bk, d, x.element_size(), x.device, k=k,
-                  plan=plan)
-    return _fl.flash_lloyd_raw(x, c)
+    cluster = _audit_blocks("fused", bn, bk, d, x.element_size(), x.device,
+                            k=k, plan=plan)
+    return _fl.flash_lloyd_raw(x, c, cluster=cluster)
 
 
 def flash_lloyd_step(x: torch.Tensor, c: torch.Tensor, *,
@@ -234,8 +245,8 @@ def flash_lloyd_step(x: torch.Tensor, c: torch.Tensor, *,
 
     Returns ``(assignments int32 (N,), sums f32 (K, d), counts f32 (K,),
     inertia f32 ())`` in a single pass over ``x``. The ``(K, d)`` f32
-    accumulator must fit one CTA's shared memory; the planner's step plan
-    sends larger shapes to the two-pass pipeline.
+    sums must fit the shared memory of a cluster of at most 8 CTAs; the
+    planner's step plan sends larger shapes to the two-pass pipeline.
     """
     a, s, cnt, j = flash_lloyd_step_batched(
         x.unsqueeze(0), c.unsqueeze(0), block_n=block_n, block_k=block_k,

@@ -271,8 +271,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(TypeError):
         siu.sort_inverse_update_raw(x, torch.zeros(10, dtype=torch.int64),
                                     torch.zeros(10, dtype=torch.int32), 2)
-    with pytest.raises(ValueError, match="two-pass"):
-        ops.flash_lloyd_step(torch.randn(8, 128), torch.randn(1024, 128))
+    with pytest.raises(ValueError, match="two-pass"):   # past C = 8's window
+        ops.flash_lloyd_step(torch.randn(8, 128), torch.randn(1337, 128))
 
 
 def test_cpu_tensors_take_the_plain_versions():
