@@ -45,6 +45,14 @@ UPDATE_MAX_CHUNK = 2048
 # K 1,024. PERF.md names the run that measured them.
 LLOYD_ADD_RATE = {4: 3.18e11, 2: 2.53e11}
 LLOYD_SPLIT_RATE = 3.02e11
+# The two-pass step's stable sort of its ids (``ops._sort_inverse``,
+# ``torch.sort``: a radix sort of several launches), as device time
+# ``SORT_FLOOR_S + n / SORT_RATE``: fitted to chip_smoke.py's
+# ``sort_device_ms`` at n = 65,536 and 8,388,608 (0.0398 and 0.4372 ms; it
+# predicts n = 262,144 and 2,097,152 within 2%), NVIDIA H100 80GB HBM3 at
+# 700 W; PERF.md names the run.
+SORT_RATE = 2.09e10
+SORT_FLOOR_S = 3.67e-5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,15 +98,17 @@ def _pow2_ceil(v: int) -> int:
     return 1 << max(0, int(v) - 1).bit_length()
 
 
-def assign_footprint(bn: int, bk: int, d: int, bytes_in: int) -> int:
+def assign_footprint(bn: int, bk: int, d: int, bytes_in: int,
+                     dists: bool = False) -> int:
     """Dynamic shared bytes of one FlashAssign CTA (the attribute its launch
     sets; ``csrc/flash_assign.cu`` ``Cfg``). Tiles are rows of 128 bytes of
     features: x in ``bn`` rows (for f32 also its tf32 low part, split in
     place), the centroids in ``bk`` rows (``c_hi`` and ``c_lo`` for f32,
     ``c`` for bf16). While ``d`` (padded to 16 bytes) fits ``RES_CHUNKS``
     rows, the x tile stays resident and each ring stage holds centroids
-    only; otherwise each stage holds both. Plus two mbarriers per stage and
-    1,024 bytes to align to the swizzle's period."""
+    only; otherwise each stage holds both. Plus two mbarriers per stage,
+    1,024 bytes to align to the swizzle's period and, for the launch that
+    returns distances (``dists``), the ``bn`` rows' f32 ``||x||^2``."""
     split = 2 if bytes_in == 4 else 1
     stages = _fa.STAGES[bytes_in]
     d_pad = d + (-d % (16 // bytes_in))
@@ -106,7 +116,7 @@ def assign_footprint(bn: int, bk: int, d: int, bytes_in: int) -> int:
     x_res = split * _fa.RES_CHUNKS * _fa.ROW_BYTES * bn if resident else 0
     x_stage = 0 if resident else split * _fa.ROW_BYTES * bn
     stage = x_stage + split * _fa.ROW_BYTES * bk
-    return x_res + stages * (stage + 2 * 8) + 1024
+    return x_res + stages * (stage + 2 * 8) + 1024 + (4 * bn if dists else 0)
 
 
 def update_footprint(bn: int, bk: int, d: int, bytes_in: int) -> int:
@@ -181,11 +191,10 @@ def update_bytes_sort_inverse(n: int, k: int, d: int, b: int = 4,
     return sort_io + gather + out + atomics
 
 
-def inertia_bytes(n: int, d: int, b: int = 4) -> float:
-    """The two-pass path's ``||x||^2`` pass (``ops._dists``): x read as f32
-    (a bf16 x first copied to f32), squared into a temporary, summed."""
-    cast = n * d * (b + 4) if b != 4 else 0
-    return cast + 12.0 * n * d
+def sort_seconds(n: int) -> float:
+    """Device time of the two-pass step's stable sort of ``n`` ids
+    (``SORT_FLOOR_S``, ``SORT_RATE``)."""
+    return SORT_FLOOR_S + n / SORT_RATE
 
 
 def lloyd_bytes_fused(n: int, k: int, d: int, b: int = 4,
@@ -228,8 +237,9 @@ def choose_step_impl(n: int, k: int, d: int, *, dtype_bytes: int = 4,
     chunk again for every centroid tile after the first
     (``LLOYD_SPLIT_RATE``); its adder warps add the rows beside the argmin
     (``LLOYD_ADD_RATE``), and it flushes its clusters' slices. The
-    two-pass step adds the sort-inverse update's bytes and the ``||x||^2``
-    pass's (``inertia_bytes``).
+    two-pass step adds the stable sort of its ids (``sort_seconds``) and
+    the sort-inverse update's bytes; FlashAssign's consumers sum
+    ``||x||^2`` beside the argmin, so it has no pass of its own.
     """
     if blk is None:
         blk = choose_blocks(n, k, d, dtype_bytes=dtype_bytes, hw=hw)
@@ -244,9 +254,8 @@ def choose_step_impl(n: int, k: int, d: int, *, dtype_bytes: int = 4,
     split = (nk - 1) * n * d / LLOYD_SPLIT_RATE if dtype_bytes == 4 else 0.0
     t_fused = max(t_argmin + split,
                   n * d / LLOYD_ADD_RATE[dtype_bytes]) + flush / bw
-    t_two = t_argmin + (update_bytes_sort_inverse(
-        n, k, d, dtype_bytes, blk.update_block_n)
-        + inertia_bytes(n, d, dtype_bytes)) / bw
+    t_two = t_argmin + sort_seconds(n) + update_bytes_sort_inverse(
+        n, k, d, dtype_bytes, blk.update_block_n) / bw
     return "fused" if t_fused <= t_two else "two_pass"
 
 
@@ -352,6 +361,45 @@ def choose_store_splits(b: int, nprobe: int, width: int, d: int, l: int,
     by_fill = -(-STORE_WAVES * ctas // units)
     by_rows = max(1, width // STORE_MIN_ROWS)
     return max(1, min(by_fill, by_rows))
+
+
+STORE_Q8_REGS = 85         # the q8 cell kernel's __launch_bounds__(256, 3) cap
+
+
+def q8_store_ctas_per_sm(d: int, hw: Hardware = H100) -> int:
+    """Resident q8 cell-mode CTAs per SM: threads, the register cap, and its
+    ring of code-and-scale tiles with one tile's dequantized rows
+    (``flash_probe.store_q8_cell_smem``)."""
+    by_threads = _THREADS_PER_SM // PROBE_THREADS
+    by_regs = 65536 // (PROBE_THREADS * STORE_Q8_REGS)
+    by_smem = hw.smem_block_bytes // _fp.store_q8_cell_smem(d)
+    return max(1, min(by_threads, by_regs, by_smem))
+
+
+def choose_store_q8_splits(b: int, nprobe: int, width: int, d: int, l: int,
+                           hw: Hardware = H100) -> int:
+    """Splits of the q8 store scan (``flash_probe.store_q8_geometry``), by
+    ``choose_store_splits``'s rule: in the cell mode enough splits of each
+    unit for ``STORE_WAVES`` items per resident CTA, none under
+    ``STORE_MIN_ROWS`` slots; in the list mode the block scan's rule."""
+    if not _fp.store_q8_cell_mode(l, d):
+        return choose_probe_splits(b, nprobe * width, l, hw)
+    units = max(1, -(-b * nprobe // STORE_CELL_PAIRS))
+    ctas = hw.num_sms * q8_store_ctas_per_sm(d, hw)
+    by_fill = -(-STORE_WAVES * ctas // units)
+    by_rows = max(1, width // STORE_MIN_ROWS)
+    return max(1, min(by_fill, by_rows))
+
+
+def scan_q8_store_bytes(bq: int, nprobe: int, width: int, d: int, l: int,
+                        rows_read: int | None = None) -> float:
+    """q8 store scan: the f32 shifted queries (one row a pair), the probe
+    list, one count per pair, ``rows_read`` slots' codes and scales (``d +
+    4`` bytes; every slot of every pair when not given), the (B, L) pair
+    out."""
+    rows = bq * nprobe * width if rows_read is None else rows_read
+    return (bq * nprobe * d * 4 + rows * (d + 4) + 2 * bq * nprobe * 4
+            + 2 * bq * l * 4)
 
 
 def scan_store_bytes(bq: int, nprobe: int, width: int, d: int, l: int,

@@ -102,11 +102,13 @@ class KMeansState(NamedTuple):
 
 
 def _assign(x: torch.Tensor, c: torch.Tensor, cfg: KMeansConfig,
-            blk: BlockConfig) -> tuple[torch.Tensor, torch.Tensor]:
+            blk: BlockConfig, want_dists: bool = True
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Batched assignment: x (B, N, d), c (B, K, d)."""
     if cfg.assign_impl == "flash":
         return ops.flash_assign_batched(x, c, block_n=blk.assign_block_n,
-                                        block_k=blk.assign_block_k)
+                                        block_k=blk.assign_block_k,
+                                        want_dists=want_dists)
     if cfg.assign_impl == "ref":
         return ref.assign_ref(x, c)
     raise ValueError(f"unknown assign impl {cfg.assign_impl!r}")
@@ -271,7 +273,9 @@ class KMeans:
         return ops.finalize_centroids(s, cnt, c), a, j
 
     def predict(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        """The ids alone: FlashAssign returns no distances here."""
         x, c = self._cast(x), self._cast(c)
         blk = self.cfg.blocks_for(x.shape[0], x.shape[1], x.element_size(),
                                   x.device)
-        return _assign(x.unsqueeze(0), c.unsqueeze(0), self.cfg, blk)[0][0]
+        return _assign(x.unsqueeze(0), c.unsqueeze(0), self.cfg, blk,
+                       want_dists=False)[0][0]

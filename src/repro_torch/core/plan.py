@@ -2,7 +2,8 @@
 
 Port of ``repro/core/plan.py`` for the k-means ops (``assign``, ``update``,
 ``step``) and the FlashProbe ops (``probe``, ``scan``, ``scan_q8``, and
-the port's ``scan_store``, the posting-list scan that reads the store; the
+the port's ``scan_store`` and ``scan_q8_store``, the posting-list scans
+that read the fp32 and the quantized store; the
 reference's ``route`` waits for the two-level router and ``rescore`` for
 the device rescore cache). The closed-form math lives in ``core.heuristics``; this module
 owns the plan contract (``plan(op, shape, dtype) -> KernelPlan``, with the
@@ -24,14 +25,15 @@ from repro_torch.core import heuristics
 from repro_torch.kernels import flash_probe as _fp
 from repro_torch.kernels.ops import BlockConfig
 
-OPS = ("assign", "update", "step", "probe", "scan", "scan_store", "scan_q8")
+OPS = ("assign", "update", "step", "probe", "scan", "scan_store", "scan_q8",
+       "scan_q8_store")
 _ARITY = {"assign": 3, "update": 3, "step": 3, "probe": 4, "scan": 4,
-          "scan_store": 5, "scan_q8": 4}
+          "scan_store": 5, "scan_q8": 4, "scan_q8_store": 5}
 # batch-like shape positions, bucketed to the next power of two; geometry
 # dims (k, d, l, nprobe, width) stay exact
 _BUCKET_DIMS = {"assign": (0,), "update": (0,), "step": (0,),
                 "probe": (0,), "scan": (0, 1), "scan_store": (0,),
-                "scan_q8": (0, 1)}
+                "scan_q8": (0, 1), "scan_q8_store": (0,)}
 
 
 def bucket_dim(v: int) -> int:
@@ -109,7 +111,9 @@ class KernelPlan:
                           # "online_topl" | scan: "grouped_scan" |
                           # scan_store: "store_scan_cell" /
                           # "store_scan_list" |
-                          # scan_q8: "grouped_scan_q8"
+                          # scan_q8: "grouped_scan_q8" |
+                          # scan_q8_store: "store_scan_q8_cell" /
+                          # "store_scan_q8_list"
     blocks: tuple
     block: BlockConfig | None   # None for the probe ops
     smem_bytes: int
@@ -200,7 +204,8 @@ class KernelPlanner:
         assign = mk(op="assign", impl="flash",
                     blocks=(cfg.assign_block_n, cfg.assign_block_k),
                     smem_bytes=H.assign_footprint(
-                        cfg.assign_block_n, cfg.assign_block_k, d, b),
+                        cfg.assign_block_n, cfg.assign_block_k, d, b,
+                        dists=True),
                     hbm_bytes=H.assign_bytes_flash(n, k, d, b))
         update = mk(op="update", impl="sort_inverse",
                     blocks=(cfg.update_block_n, cfg.update_block_k),
@@ -219,6 +224,8 @@ class KernelPlanner:
             return self._probe_plan(op, s, b)
         if op == "scan_store":
             return self._store_plan(s, b)
+        if op == "scan_q8_store":
+            return self._store_q8_plan(s)
         n, k, d = s
         cfg = blk if blk is not None else H.choose_blocks(
             n, k, d, dtype_bytes=b, hw=hw)
@@ -281,6 +288,26 @@ class KernelPlanner:
                           smem_limit=hw.smem_block_bytes,
                           hbm_bytes=H.scan_store_bytes(n, nprobe, width, d,
                                                        l, b))
+
+    def _store_q8_plan(self, s: tuple) -> KernelPlan:
+        """The q8 store scan: ``blocks = (splits, PROBE_TILE)``, the splits
+        of ``flash_probe.store_q8_geometry``; ``hbm_bytes`` the most it can
+        read (every slot live, read once per pair)."""
+        H, hw = heuristics, self.hw
+        n, nprobe, width, d, l = s
+        splits = H.choose_store_q8_splits(n, nprobe, width, d, l, hw)
+        _, _, lp, lists = _fp.store_q8_geometry(nprobe, width, d, l, splits)
+        merge = H.probe_merge_footprint(l) if lists > 1 else 0
+        cell = _fp.store_q8_cell_mode(l, d)
+        smem = max(_fp.store_q8_cell_smem(d) if cell
+                   else H.probe_footprint(lp), merge)
+        return KernelPlan(op="scan_q8_store", shape=s, itemsize=1,
+                          hw=hw.name, impl="store_scan_q8_cell" if cell
+                          else "store_scan_q8_list",
+                          blocks=(splits, H.PROBE_TILE), block=None,
+                          smem_bytes=smem, smem_limit=hw.smem_block_bytes,
+                          hbm_bytes=H.scan_q8_store_bytes(n, nprobe, width,
+                                                          d, l))
 
     def _store(self, plan: KernelPlan, key: str, pinned: bool) -> None:
         """Memoize ``plan``; an un-pinned step plan also fills its assign

@@ -4,9 +4,12 @@
 // kernel of the fused distance + online-argmin assignment).
 //
 // Computes, for every point n and problem b, a[n] = argmin_k (||c_k||^2 - 2 x_n.c_k)
-// and m[n] = that minimum (||x_n||^2 is added back by the Python wrapper). Ties go
-// to the lower index, as jnp.argmin does. The N x K score matrix never leaves the
-// registers: reads are O(N d + K d) from HBM, writes O(N).
+// and m[n] = that minimum or, with want_dists, the true squared distance
+// max(m + ||x_n||^2, 0), whose ||x_n||^2 the consumers sum from the x chunks they
+// read anyway (argmin<kSq> of tc_argmin.cuh, as FlashLloyd does), so no pass over x
+// follows the kernel. Ties go to the lower index, as jnp.argmin does. The N x K
+// score matrix never leaves the registers: reads are O(N d + K d) from HBM, writes
+// O(N).
 //
 // What bounds it on the H100: tensor-core operations. 2 N K d flops per call; the
 // feature bytes are read once from HBM (the re-reads of a tile come from L2).
@@ -23,13 +26,14 @@
 //
 // Layout: x (B, N, d), c (B, K, d) row-major, d a multiple of 4 (f32) or 8 (bf16)
 // so that TMA sees 16-byte row strides (the wrapper zero-pads other d). Grid
-// (ceil(N / 128), B), 288 threads, dynamic shared memory (fk_flash_assign_smem).
+// (ceil(N / 128), B), 288 threads, dynamic shared memory (fk_flash_assign_smem;
+// kDists adds the kBM floats of row_sq past the ring).
 //
 // Measured (chip_smoke.py, H100 80GB HBM3 at 700 W; PERF.md): N = 8,388,608,
 // K = 1,024, d = 128 in 19.7 ms f32 (bound 13.3 ms) and 5.3 ms bf16 (bound
 // 2.2 ms). Error: |score - exact| <= (6 d + 13) u mag for f32 and (2 d + 1) u mag
 // for bf16 (u = 2^-24, mag = max ||c||^2 + 2 max ||x|| max ||c||), as derived in
-// kernels/flash_assign.py:score_tol.
+// kernels/flash_assign.py:score_tol; the distances' in dist_tol there.
 #include "tc_argmin.cuh"
 
 namespace fk {
@@ -38,13 +42,14 @@ namespace fa {
 using namespace fk::tc;
 
 // the ring: 3 stages for f32, 4 for bf16; plus 1,024 bytes of slack to align the
-// base to the swizzle's period (core/heuristics.assign_footprint)
+// base to the swizzle's period and, with kDists, the rows' ||x||^2 past the ring
+// (core/heuristics.assign_footprint)
 template <bool kF32, bool kResX>
 using Ring = Cfg<kF32, kResX, kF32 ? 3 : 4>;
-template <bool kF32, bool kResX>
-constexpr int kSmem = Ring<kF32, kResX>::kBytes + 1024;
+template <bool kF32, bool kResX, bool kDists>
+constexpr int kSmem = Ring<kF32, kResX>::kBytes + 1024 + (kDists ? kBM * 4 : 0);
 
-template <bool kF32, bool kResX>
+template <bool kF32, bool kResX, bool kDists>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_assign_tc(const __grid_constant__ CUtensorMap tx,
                     const __grid_constant__ CUtensorMap tc_hi,
@@ -53,7 +58,10 @@ __global__ void __launch_bounds__(kThreads, 1)
                     float* __restrict__ m, int N, int K, int Kp, int d) {
   using C = Ring<kF32, kResX>;
   extern __shared__ uint8_t smem_raw[];
-  const Pipe<C> pipe{(smem_u32(smem_raw) + 1023) & ~1023u};
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const Pipe<C> pipe{base};
+  float* const row_sq = reinterpret_cast<float*>(smem_raw + (base - raw) + C::kBytes);
   const int b = blockIdx.y;
   const int n0 = blockIdx.x * kBM;
   const int nk = (K + kBN - 1) / kBN;
@@ -65,36 +73,45 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (threadIdx.x == kConsumers) pipe.produce(&tx, &tc_hi, &tc_lo, t, n0, b, nk, nd);
     return;
   }
-  float best_v[2];
+  float best_v[2], x_sq[2];
   int best_i[2];
-  pipe.argmin(csq + (long long)b * Kp, t, nk, nd, best_v, best_i);
+  pipe.template argmin<kDists>(csq + (long long)b * Kp, t, nk, nd, best_v, best_i,
+                               row_sq, x_sq);
   const int r0 = row_of_thread();
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int n = n0 + r0 + 8 * r;
     if ((threadIdx.x & 3) == 0 && n < N) {
       a[(long long)b * N + n] = best_i[r];
-      m[(long long)b * N + n] = best_v[r];
+      // the clamp of ops._dists and of FlashLloyd's inertia
+      m[(long long)b * N + n] = kDists ? fmaxf(best_v[r] + x_sq[r], 0.f) : best_v[r];
     }
   }
 }
 
-template <bool kF32, bool kResX>
+template <bool kF32, bool kResX, bool kDists>
 cudaError_t set_smem() {
-  return cudaFuncSetAttribute(flash_assign_tc<kF32, kResX>,
+  return cudaFuncSetAttribute(flash_assign_tc<kF32, kResX, kDists>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              kSmem<kF32, kResX>);
+                              kSmem<kF32, kResX, kDists>);
+}
+
+template <bool kF32, bool kResX, bool kDists>
+cudaError_t launch(const Operands& o, const float* csq, int* a, float* m, int B, int N,
+                   int K, int d, cudaStream_t s) {
+  cudaError_t e = set_smem<kF32, kResX, kDists>();
+  if (e != cudaSuccess) return e;
+  const dim3 grid((N + kBM - 1) / kBM, B);
+  flash_assign_tc<kF32, kResX, kDists><<<grid, kThreads, kSmem<kF32, kResX, kDists>, s>>>(
+      o.tx, o.thi, o.tlo, csq, a, m, N, K, o.Kp, d);
+  return cudaGetLastError();
 }
 
 template <bool kF32, bool kResX>
-cudaError_t launch(const Operands& o, const float* csq, int* a, float* m, int B, int N,
-                   int K, int d, cudaStream_t s) {
-  cudaError_t e = set_smem<kF32, kResX>();
-  if (e != cudaSuccess) return e;
-  const dim3 grid((N + kBM - 1) / kBM, B);
-  flash_assign_tc<kF32, kResX><<<grid, kThreads, kSmem<kF32, kResX>, s>>>(
-      o.tx, o.thi, o.tlo, csq, a, m, N, K, o.Kp, d);
-  return cudaGetLastError();
+cudaError_t launch_dists(bool dists, const Operands& o, const float* csq, int* a, float* m,
+                         int B, int N, int K, int d, cudaStream_t s) {
+  return dists ? launch<kF32, kResX, true>(o, csq, a, m, B, N, K, d, s)
+               : launch<kF32, kResX, false>(o, csq, a, m, B, N, K, d, s);
 }
 
 // x stays resident when its CTA tile fits kResChunks stage rows
@@ -107,10 +124,11 @@ inline bool resident_x(bool f32, int d) {
 
 // x (B, N, d), c (B, K, d); csq (B, Kp) with Kp = K rounded up to a multiple of
 // 128 and, for f32, csplit (2, B, K, d) are scratch; a (B, N) int32 and m (B, N)
-// f32 out. d must be a multiple of 4 (f32) or 8 (bf16); N >= 1.
+// f32 out: the score, or with want_dists the squared distance. d must be a
+// multiple of 4 (f32) or 8 (bf16); N >= 1.
 extern "C" int fk_flash_assign(const void* x, const void* c, void* csq, void* csplit,
                                void* a, void* m, int B, int N, int K, int d, int is_bf16,
-                               void* stream) {
+                               int want_dists, void* stream) {
   using namespace fk::fa;
   cudaStream_t s = (cudaStream_t)stream;
   const bool f32 = !is_bf16;
@@ -120,30 +138,35 @@ extern "C" int fk_flash_assign(const void* x, const void* c, void* csq, void* cs
   if (e != cudaSuccess) return (int)e;
   const float* cq = (const float*)csq;
   const bool res = resident_x(f32, d);
+  const bool dd = want_dists != 0;
   if (f32)
-    e = res ? launch<true, true>(o, cq, (int*)a, (float*)m, B, N, K, d, s)
-            : launch<true, false>(o, cq, (int*)a, (float*)m, B, N, K, d, s);
+    e = res ? launch_dists<true, true>(dd, o, cq, (int*)a, (float*)m, B, N, K, d, s)
+            : launch_dists<true, false>(dd, o, cq, (int*)a, (float*)m, B, N, K, d, s);
   else
-    e = res ? launch<false, true>(o, cq, (int*)a, (float*)m, B, N, K, d, s)
-            : launch<false, false>(o, cq, (int*)a, (float*)m, B, N, K, d, s);
+    e = res ? launch_dists<false, true>(dd, o, cq, (int*)a, (float*)m, B, N, K, d, s)
+            : launch_dists<false, false>(dd, o, cq, (int*)a, (float*)m, B, N, K, d, s);
   return (int)e;
 }
 
-// The dynamic shared memory the launch at width d sets, read back from the
-// kernel's attributes (cudaFuncAttributes::maxDynamicSharedSizeBytes).
-extern "C" int fk_flash_assign_smem(int is_bf16, int d, int* out) {
+// The dynamic shared memory the launch at width d (with or without distances)
+// sets, read back from the kernel's attributes
+// (cudaFuncAttributes::maxDynamicSharedSizeBytes).
+extern "C" int fk_flash_assign_smem(int is_bf16, int d, int want_dists, int* out) {
   using namespace fk::fa;
   cudaFuncAttributes attr;
   cudaError_t e;
   const bool res = resident_x(!is_bf16, d);
-#define FK_SMEM_OF(F32, RES)                                                  \
-  if ((e = set_smem<F32, RES>()) != cudaSuccess) return (int)e;               \
-  e = cudaFuncGetAttributes(&attr, flash_assign_tc<F32, RES>);
+#define FK_SMEM_OF(F32, RES, DI)                                              \
+  if ((e = set_smem<F32, RES, DI>()) != cudaSuccess) return (int)e;           \
+  e = cudaFuncGetAttributes(&attr, flash_assign_tc<F32, RES, DI>);
+#define FK_SMEM_D(F32, RES) \
+  if (want_dists) { FK_SMEM_OF(F32, RES, true) } else { FK_SMEM_OF(F32, RES, false) }
   if (is_bf16) {
-    if (res) { FK_SMEM_OF(false, true) } else { FK_SMEM_OF(false, false) }
+    if (res) { FK_SMEM_D(false, true) } else { FK_SMEM_D(false, false) }
   } else {
-    if (res) { FK_SMEM_OF(true, true) } else { FK_SMEM_OF(true, false) }
+    if (res) { FK_SMEM_D(true, true) } else { FK_SMEM_D(true, false) }
   }
+#undef FK_SMEM_D
 #undef FK_SMEM_OF
   if (e == cudaSuccess) *out = attr.maxDynamicSharedSizeBytes;
   return (int)e;
@@ -151,4 +174,15 @@ extern "C" int fk_flash_assign_smem(int is_bf16, int d, int* out) {
 
 extern "C" int fk_max_smem_optin(int device, int* out) {
   return (int)cudaDeviceGetAttribute(out, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+}
+
+namespace fk {
+__global__ void empty_kernel() {}
+}  // namespace fk
+
+// One launch of an empty kernel: the least device time any launch takes (the
+// floor the kernel table ranks latency-bound kernels against).
+extern "C" int fk_empty_launch(void* stream) {
+  fk::empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
 }

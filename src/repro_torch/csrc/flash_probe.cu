@@ -9,6 +9,11 @@
 //                                                                        (lists of at most 32),
 //                                                                        flash_probe_store_list_kernel
 //   flash_probe_grouped_q8_raw (_flash_probe_grouped_q8_kernel, l.157) -> flash_probe_grouped_q8_kernel
+//                              and, reading the quantized store in place instead of a
+//                              gathered block (with gather_global_q8)
+//                                                                     -> flash_probe_store_q8_kernel
+//                                                                        (lists of at most 64),
+//                                                                        flash_probe_store_q8_list_kernel
 //
 // Each returns, for every query b, the L candidates of smallest score in ascending
 // (score, index) order, where index is the position on the candidate axis: a centroid
@@ -278,6 +283,63 @@ struct StoreRow {      // kernel 5, store mode, lists longer than a warp keeps
   }
 };
 
+// One lane's share of q'.r and ||r||^2 of one q8 row, r = code * s: with kVec the
+// lane takes the row's 16-byte vectors lane_g, lane_g + g, ... (16 codes each),
+// else its values lane_g, lane_g + g, ..., each r rounded once and added by one FMA
+// into each sum. Q supplies q' (vec(j, 16 values) / at(j)), Cd the codes. The block
+// kernel and the store's list mode sum through this with the same g, and the store's
+// cell mode (q8_dequant, Q8Rows) in the same order, so their scores agree bit for bit.
+template <bool kVec, class Q, class Cd>
+__device__ __forceinline__ void q8_parts(const Q& q, const Cd& cd, float s, int d,
+                                         int lane_g, int g, float& cross, float& rsq) {
+  if constexpr (kVec) {
+    for (int j = lane_g * 16; j < d; j += g * 16) {
+      float cv[16], qv[16];
+      cd.vec(j, cv);
+      q.vec(j, qv);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const float r = cv[e] * s;
+        cross = fmaf(qv[e], r, cross);
+        rsq = fmaf(r, r, rsq);
+      }
+    }
+  } else {
+    for (int j = lane_g; j < d; j += g) {
+      const float r = cd.at(j) * s;
+      cross = fmaf(q.at(j), r, cross);
+      rsq = fmaf(r, r, rsq);
+    }
+  }
+}
+
+// The q8 score from a row's full sums: +inf where the scale is not positive.
+__device__ __forceinline__ float q8_score(float qsq, float cross, float rsq, float s) {
+  return s > 0.f ? qsq - 2.f * cross + rsq : INFINITY;
+}
+
+struct GlobalQ {  // a shifted query row in global memory (read through L1)
+  const float* r;
+  __device__ __forceinline__ void vec(int j, float (&o)[16]) const {
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      float f[4];
+      load_vec<float, false>(r + j + 4 * h, f);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[4 * h + e] = f[e];
+    }
+  }
+  __device__ __forceinline__ float at(int j) const { return r[j]; }
+};
+
+struct GlobalCodes {  // a row of codes read once (streamed around L1)
+  const int8_t* r;
+  __device__ __forceinline__ void vec(int j, float (&o)[16]) const {
+    load_vec<int8_t, true>(r + j, o);
+  }
+  __device__ __forceinline__ float at(int j) const { return to_f32(r[j]); }
+};
+
 template <bool kVec>
 struct Q8Row {          // kernel 6: int8 residual codes, dequantized in registers
   const float* qp;      // (B, P, d) per-probe shifted queries q - anchor[cell]
@@ -290,39 +352,39 @@ struct Q8Row {          // kernel 6: int8 residual codes, dequantized in registe
     const int p = idx / W;
     const float s = valid ? __ldcs(scales + row) : 0.f;  // one address for the group
     float cross = 0.f, rsq = 0.f;
-    if (s > 0.f) {  // empty slots cost one 4-byte read
-      const float* qr = qp + ((size_t)b * P + p) * d;
-      const int8_t* cr = codes + row * d;
-      if constexpr (kVec) {
-        for (int j = lane_g * 16; j < d; j += g * 16) {
-          float cv[16], qv[16];
-          load_vec<int8_t, true>(cr + j, cv);
-#pragma unroll
-          for (int h = 0; h < 4; ++h) {
-            float f[4];
-            load_vec<float, false>(qr + j + 4 * h, f);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) qv[4 * h + e] = f[e];
-          }
-#pragma unroll
-          for (int e = 0; e < 16; ++e) {
-            const float r = cv[e] * s;
-            cross = fmaf(qv[e], r, cross);
-            rsq = fmaf(r, r, rsq);
-          }
-        }
-      } else {
-        for (int j = lane_g; j < d; j += g) {
-          const float r = to_f32(cr[j]) * s;
-          cross = fmaf(qr[j], r, cross);
-          rsq = fmaf(r, r, rsq);
-        }
-      }
-    }
+    if (s > 0.f)  // empty slots cost one 4-byte read
+      q8_parts<kVec>(GlobalQ{qp + ((size_t)b * P + p) * d}, GlobalCodes{codes + row * d}, s,
+                     d, lane_g, g, cross, rsq);
     cross = group_sum(cross, g);
     rsq = group_sum(rsq, g);
-    if (!(s > 0.f)) return INFINITY;
-    return qsq[(size_t)b * P + p] - 2.f * cross + rsq;
+    return q8_score(valid ? qsq[(size_t)b * P + p] : 0.f, cross, rsq, s);
+  }
+};
+
+template <bool kVec>
+struct StoreQ8Row {     // kernel 6, store mode, lists longer than the cell mode keeps
+  const float* qp;      // (B, P, d) shifted queries
+  const float* qsq;     // (B, P) ||q'||^2
+  const int8_t* codes;  // (K, cap, d)
+  const float* scales;  // (K, cap), 0 on empty slots
+  const int* counts;    // (K,)
+  const int* probe;     // (B, P)
+  int P, cap, width, d;
+  // Candidate idx = p * width + w is slot w of cell probe[b, p]; a slot at or past the
+  // cell's count scores +inf without a read.
+  __device__ float operator()(int b, int idx, bool valid, int lane_g, int g) const {
+    const int p = idx / width, w = idx - p * width;
+    const int cell = valid ? __ldg(probe + (size_t)b * P + p) : 0;
+    const bool live = valid && w < __ldg(counts + cell);
+    const size_t row = (size_t)cell * cap + w;
+    const float s = live ? __ldg(scales + row) : 0.f;
+    float cross = 0.f, rsq = 0.f;
+    if (s > 0.f)
+      q8_parts<kVec>(GlobalQ{qp + ((size_t)b * P + p) * d}, GlobalCodes{codes + row * d}, s,
+                     d, lane_g, g, cross, rsq);
+    cross = group_sum(cross, g);
+    rsq = group_sum(rsq, g);
+    return q8_score(valid ? qsq[(size_t)b * P + p] : 0.f, cross, rsq, s);
   }
 };
 
@@ -587,32 +649,65 @@ struct StoreRows {
   }
 };
 
-// Insert (s, x) into a warp's ascending list of lp <= 32 entries, lane i holding entry
-// i in (mv, mi); (tv, ti) is entry lp - 1 on every lane. s, x are the same on every lane.
-__device__ __forceinline__ void warp_insert(float s, int x, int lp, int lane, float& mv,
-                                            int& mi, float& tv, int& ti) {
+// Insert (s, x) into a warp's ascending list of lp <= 32 kN entries, lane i holding
+// entries i + 32 j in (mv[j], mi[j]); (tv, ti) is entry lp - 1 on every lane. s, x are
+// the same on every lane.
+template <int kN>
+__device__ __forceinline__ void warp_insert(float s, int x, int lp, int lane, float (&mv)[kN],
+                                            int (&mi)[kN], float& tv, int& ti) {
   if (!key_less(s, x, tv, ti)) return;
-  const bool before = lane < lp && key_less(mv, mi, s, x);
-  const int pos = __popc(__ballot_sync(0xffffffffu, before));
-  const float uv = __shfl_up_sync(0xffffffffu, mv, 1);
-  const int ui = __shfl_up_sync(0xffffffffu, mi, 1);
-  if (lane == pos) {
-    mv = s;
-    mi = x;
-  } else if (lane > pos) {
-    mv = uv;
-    mi = ui;
+  int pos = 0;
+#pragma unroll
+  for (int j = 0; j < kN; ++j)
+    pos += __popc(__ballot_sync(0xffffffffu, 32 * j + lane < lp && key_less(mv[j], mi[j], s, x)));
+  // entry e takes entry e - 1 for e > pos: from the lane below, or for lane 0 from
+  // lane 31 of the slot below
+  float uv[kN];
+  int ui[kN];
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+    uv[j] = __shfl_up_sync(0xffffffffu, mv[j], 1);
+    ui[j] = __shfl_up_sync(0xffffffffu, mi[j], 1);
   }
-  tv = __shfl_sync(0xffffffffu, mv, lp - 1);
-  ti = __shfl_sync(0xffffffffu, mi, lp - 1);
+#pragma unroll
+  for (int j = kN - 1; j > 0; --j) {
+    const float lv = __shfl_sync(0xffffffffu, mv[j - 1], 31);
+    const int li = __shfl_sync(0xffffffffu, mi[j - 1], 31);
+    if (lane == 0) {
+      uv[j] = lv;
+      ui[j] = li;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+    const int e = 32 * j + lane;
+    if (e == pos) {
+      mv[j] = s;
+      mi[j] = x;
+    } else if (e > pos) {
+      mv[j] = uv[j];
+      mi[j] = ui[j];
+    }
+  }
+  float sv = mv[0];
+  int si = mi[0];
+#pragma unroll
+  for (int j = 1; j < kN; ++j)
+    if ((lp - 1) >> 5 == j) {
+      sv = mv[j];
+      si = mi[j];
+    }
+  tv = __shfl_sync(0xffffffffu, sv, (lp - 1) & 31);
+  ti = __shfl_sync(0xffffffffu, si, (lp - 1) & 31);
 }
 
 // Rows [r0, r1) of `rows` into a warp's list of lp entries, candidate index base + r:
 // each group of G lanes scores 8 rows at once, and the rows that beat the lp-th entry
 // are inserted one by one.
-template <class Rows, int G>
+template <class Rows, int G, int kN>
 __device__ __forceinline__ void warp_scan(const Rows& rows, int r0, int r1, int base, int lp,
-                                          int lane, float& mv, int& mi, float& tv, int& ti) {
+                                          int lane, float (&mv)[kN], int (&mi)[kN], float& tv,
+                                          int& ti) {
   constexpr int kHeld = G >= 8 ? 1 : 8 / G;
   const int lane_g = lane & (G - 1), grp = lane / G;
   const int hb = held_base<G>(lane_g);
@@ -636,14 +731,11 @@ __device__ __forceinline__ void warp_scan(const Rows& rows, int r0, int r1, int 
   }
 }
 
-// The pads [w0, w1) of a pair, ascending index base + w, while they beat the lp-th entry.
-template <class Rows, int G>
-__device__ __forceinline__ void warp_pads(const Rows& rows, int w0, int w1, int base, int lp,
-                                          int lane, float& mv, int& mi, float& tv, int& ti) {
-  if (w0 >= w1) return;
-  float v[8];
-  rows.template score8<true>(0, lane & (G - 1), v);
-  const float sp = __shfl_sync(0xffffffffu, v[0], 0);  // lane 0 holds row 0
+// The pads [w0, w1) of a pair, ascending index base + w, while they beat the lp-th entry:
+// each scores sp, the same for all of them.
+template <int kN>
+__device__ __forceinline__ void warp_pads(float sp, int w0, int w1, int base, int lp, int lane,
+                                          float (&mv)[kN], int (&mi)[kN], float& tv, int& ti) {
   for (int w = w0; w < w1 && key_less(sp, base + w, tv, ti); ++w)
     warp_insert(sp, base + w, lp, lane, mv, mi, tv, ti);
 }
@@ -775,8 +867,8 @@ __global__ void __launch_bounds__(kThreads, kStoreMinBlocks)
     const int pair = mine ? order[pos] : 0;
     const int b = pair / P, base = (pair - b * P) * width;
     const T* qb = q + (size_t)b * d;
-    float mv = INFINITY, tv = INFINITY;
-    int mi = kSentinel, ti = kSentinel;
+    float mv[1] = {INFINITY}, tv = INFINITY;
+    int mi[1] = {kSentinel}, ti = kSentinel;
     for (int t = 0; t < ntiles; ++t) {
       if (t + kCellStages - 1 < ntiles) fill(t + kCellStages - 1);  // the stage freed last round
       const unsigned g = used + t, k = g % kCellStages;
@@ -792,13 +884,268 @@ __global__ void __launch_bounds__(kThreads, kStoreMinBlocks)
     }
     used += ntiles;
     if (mine) {
-      const StoreRows<T, kVec, G> pads{qb, nullptr, d, pad};
-      warp_pads<StoreRows<T, kVec, G>, G>(pads, hi, w1, base, lp, lane, mv, mi, tv, ti);
+      if (hi < w1) {  // every pad scores alike: the scorer runs once on the constant
+        const StoreRows<T, kVec, G> pads{qb, nullptr, d, pad};
+        float v[8];
+        pads.template score8<true>(0, lane & (G - 1), v);
+        const float sp = __shfl_sync(0xffffffffu, v[0], 0);  // lane 0 holds row 0
+        warp_pads(sp, hi, w1, base, lp, lane, mv, mi, tv, ti);
+      }
       const size_t slot = ((size_t)pair * S + s) * lp;
       if (lane < lp) {
-        pv[slot + lane] = mv;
-        pi[slot + lane] = mi;
+        pv[slot + lane] = mv[0];
+        pi[slot + lane] = mi[0];
       }
+    }
+  }
+}
+
+// ---- kernel 6, store mode: the q8 scan reads the quantized store in place ---------
+//
+// The q8 proposal over the probed cells of the quantized store: codes (K, cap, d) int8
+// and scales (K, cap) f32 (0 on every dead slot), read in place through probe and
+// counts, so the (B, nprobe * width) candidate block of codes and scales is never
+// written. Query b's candidate p * width + w is slot w of cell probe[b, p], scored
+// ||q'||^2 - 2 q'.r + ||r||^2 with r = code * s and q' = q - anchor[cell] (the pair's
+// row of qp, with qsq its ||q'||^2: the block path's own prologue); +inf where s <= 0,
+// and +inf without a read for slots at or past the cell's count. Those +inf entries
+// take the lowest free indices, as the block kernel's do.
+//
+// Cell mode, for lists of at most kQ8List entries (two a lane) and rows of 16-code
+// vectors, d <= 512: the fp32 cell mode's dataflow. The pairs are sorted by cell, so the pairs of a unit share one
+// anchor and one cell; each work item streams its cell's live codes with their scales
+// (one more cp.async.bulk on the same mbarrier, so a tile's scales arrive with its
+// codes) through a ring of kCellStages tiles. r = code * s and ||r||^2 do not depend on
+// the query, so all the CTA's warps dequantize each tile once into shared memory
+// (q8_dequant), and each warp then scores the tile's rows for its own pair: a group of
+// G lanes (the block kernel's lane count, one 16-value vector a lane) takes 8 rows at
+// once, q' held in registers, and tree8 adds the lanes (Q8Rows). Every sum is Q8Row's,
+// in its order and lane pairing, so store and block modes agree bit for bit. Slot
+// offsets and tile sizes are multiples of 4 rows (the wrapper rounds the split), so the
+// scales' copies are 16-byte aligned; a tile's copy may run up to 3 rows past the live
+// ones, inside the cell's cap (a multiple of 4); stores whose scales are not 16-byte
+// aligned are copied by the threads.
+//
+// List mode, for longer lists and other rows (d % 16 != 0, the block kernel's scalar
+// path; d > 512): run_stage1 with StoreQ8Row, a CTA per split of a query's
+// nprobe * width slots.
+//
+// What bounds it: bytes, each probed cell's live codes and scales read once; beside
+// them 2 d flops per (pair, live row) for q'.r (PERF.md: at IVF1024 the scoring, and
+// the 40-entry lists' insertions, hold it, as they hold the fp32 cell mode).
+
+constexpr int kQ8List = 64;  // longest list the q8 cell mode keeps, two entries a lane
+constexpr int kStoreQ8MinBlocks = 3;  // __launch_bounds__: at most 85 registers a thread
+
+struct SharedCodes {  // a row of codes in a shared-memory tile
+  const int8_t* r;
+  __device__ __forceinline__ void vec(int j, float (&o)[16]) const {
+    uint4 v;
+    lds128(smem_u32(r + j), v);
+    unpack(make_int4((int)v.x, (int)v.y, (int)v.z, (int)v.w), o);
+  }
+};
+
+// group_sum at a lane count known when compiling: the same butterfly, unrolled
+template <int G>
+__device__ __forceinline__ float group_sum_g(float v) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ void sts128(float* p, float a, float b, float c, float d) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(smem_u32(p)), "f"(a), "f"(b),
+               "f"(c), "f"(d)
+               : "memory");
+}
+
+// The vector path's shared rows (d <= 16 G: one 16-value vector a lane): element 4 h + k
+// of lane lane_g's vector lies at (h * G + lane_g) * 4 + k, so the G lanes of a group
+// load one 16-byte piece each from consecutive addresses (no bank conflict).
+template <int G>
+__device__ __forceinline__ int deq_at(int h, int lane_g) {
+  return (h * G + lane_g) * 4;
+}
+
+// Dequantizes rows [0, nrows) of a tile once for every pair of the unit, with all the
+// CTA's warps, a group of G lanes a row as the scorers run: r = code * s into deq (16 G
+// floats a row) and ||r||^2 into rsq, each lane summing its values in order and the
+// group's butterfly adding the lanes, as Q8Row sums it.
+template <int G>
+__device__ __forceinline__ void q8_dequant(const int8_t* tc, const float* ts, int nrows, int d,
+                                           float* deq, float* rsq, int lane_g, int grp) {
+  constexpr int R = 32 / G;  // rows a warp step
+  for (int rb = (threadIdx.x >> 5) * R; rb < nrows; rb += (kThreads / 32) * R) {
+    const int r = rb + grp;  // < tile_rows: a tile holds whole warp steps
+    float sq = 0.f;
+    if (lane_g * 16 < d) {
+      const float s = ts[r];
+      float cv[16];
+      SharedCodes{tc + (size_t)r * d}.vec(lane_g * 16, cv);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        cv[e] *= s;
+        sq = fmaf(cv[e], cv[e], sq);
+      }
+      float* row = deq + (size_t)r * 16 * G;
+#pragma unroll
+      for (int h = 0; h < 4; ++h)
+        sts128(row + deq_at<G>(h, lane_g), cv[4 * h], cv[4 * h + 1], cv[4 * h + 2],
+               cv[4 * h + 3]);
+    }
+    sq = group_sum_g<G>(sq);
+    if (lane_g == 0) rsq[r] = sq;
+  }
+}
+
+// A tile's dequantized rows as one pair scores them (the vector path, G lanes a row,
+// d <= 16 G: one vector a lane, its q' piece held in qh): score8 takes 8 rows of a
+// group at once, each lane summing q'.r of its vector of each row as Q8Row does (eight
+// independent chains), tree8 adding the lanes as group_sum's butterfly does; the rows a
+// lane then holds get their scores, so they are bitwise the block kernel's.
+template <int G>
+struct Q8Rows {
+  const float* deq;  // the tile's rows, 16 G floats each (deq_at)
+  const float* rsq;  // their ||r||^2
+  const float* ts;   // their scales
+  float q2;          // the pair's ||q'||^2
+  int d;
+  float qh[16];
+
+  template <bool kPad>
+  __device__ __forceinline__ void score8(int w, int lane_g, float (&v)[8]) const {
+    static_assert(!kPad, "the q8 pads score +inf without a scorer");
+#pragma unroll
+    for (int r = 0; r < 8; ++r) v[r] = 0.f;
+    if (lane_g * 16 < d) {
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          float4 x;
+          lds128(smem_u32(deq + (size_t)(w + r) * 16 * G + deq_at<G>(h, lane_g)), x);
+          v[r] = fmaf(qh[4 * h], x.x, v[r]);
+          v[r] = fmaf(qh[4 * h + 1], x.y, v[r]);
+          v[r] = fmaf(qh[4 * h + 2], x.z, v[r]);
+          v[r] = fmaf(qh[4 * h + 3], x.w, v[r]);
+        }
+      }
+    }
+    tree8<G / 2, 8>(v, lane_g);
+    constexpr int kHeld = G >= 8 ? 1 : 8 / G;
+    const int hb = held_base<G>(lane_g);
+#pragma unroll
+    for (int i = 0; i < kHeld; ++i) {
+      const int row = w + hb + i;
+      v[i] = q8_score(q2, v[i], rsq[row], ts[row]);
+    }
+  }
+};
+
+// G lanes a row (d <= 16 G), its tiles dequantized once a unit into shared memory past
+// the ring: the rows' r values, then their ||r||^2.
+template <int G, int kN>
+__global__ void __launch_bounds__(kThreads, kStoreQ8MinBlocks)
+    flash_probe_store_q8_kernel(const float* qp, const float* qsq, const int8_t* codes,
+                                const float* scales, const int* counts, const int* sc,
+                                const int* order, const int* units, int* work, int npairs,
+                                int P, int cap, int width, int d, int lp, int chunk, int S,
+                                int tile_rows, int bulk, float* pv, int* pi) {
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  int* s_item = reinterpret_cast<int*>(smem + 8 * kCellStages);
+  unsigned char* ring = smem + kCellHead;
+  const size_t code_bytes = ((size_t)tile_rows * d + 15) / 16 * 16;
+  const size_t stage = code_bytes + (size_t)tile_rows * 4;  // codes, then scales
+  float* deq = reinterpret_cast<float*>(ring + kCellStages * stage);
+  float* rsq = deq + (size_t)tile_rows * 16 * G;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int lane_g = lane & (G - 1), grp = lane / G;
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < kCellStages; ++k) mbar_init(smem_u32(bars + k), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  const int items = work[0] * S;
+  unsigned used = 0;  // tiles this CTA consumed: tile g is in stage g % kCellStages
+  for (;;) {
+    if (threadIdx.x == 0) *s_item = atomicAdd(work + 1, 1);
+    __syncthreads();
+    const int item = *s_item;
+    __syncthreads();
+    if (item >= items) break;
+    const int u = item / S, s = item - u * S;
+    const int pos0 = units[u], cell = sc[pos0];
+    const int live = min(counts[cell], width);
+    const int w0 = s * chunk, w1 = min(width, w0 + chunk), hi = max(w0, min(w1, live));
+    const int ntiles = (hi - w0 + tile_rows - 1) / tile_rows;
+    const size_t row0 = (size_t)cell * cap + w0;
+    auto fill = [&](int t) {  // tile t of the item into its stage: codes and scales
+      const unsigned k = (used + t) % kCellStages;
+      const int nt = min(tile_rows, hi - w0 - t * tile_rows);
+      unsigned char* dst = ring + k * stage;
+      const size_t r0 = row0 + (size_t)t * tile_rows;
+      if (bulk) {
+        if (threadIdx.x == 0) {
+          const int n4 = (nt + 3) & ~3;  // whole 16-byte groups of scales
+          const uint32_t cb = (uint32_t)((size_t)n4 * d), sb = (uint32_t)n4 * 4;
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          mbar_expect_tx(smem_u32(bars + k), cb + sb);
+          bulk_load(smem_u32(dst), codes + r0 * d, cb, smem_u32(bars + k));
+          bulk_load(smem_u32(dst + code_bytes), scales + r0, sb, smem_u32(bars + k));
+        }
+      } else {
+        for (int e = threadIdx.x; e < nt * d; e += blockDim.x)
+          reinterpret_cast<int8_t*>(dst)[e] = codes[r0 * d + e];
+        for (int e = threadIdx.x; e < nt; e += blockDim.x)
+          reinterpret_cast<float*>(dst + code_bytes)[e] = scales[r0 + e];
+      }
+    };
+    for (int t = 0; t < min(ntiles, kCellStages - 1); ++t) fill(t);
+    const int pos = pos0 + warp;
+    const bool mine = pos < npairs && sc[pos] == cell;  // warp-uniform
+    const int pair = mine ? order[pos] : 0;
+    const int base = (pair % P) * width;
+    Q8Rows<G> rows;  // the pair's scorer (lanes past d hold no q')
+    rows.deq = deq;
+    rows.rsq = rsq;
+    rows.q2 = qsq[pair];
+    rows.d = d;
+    if (lane_g * 16 < d) GlobalQ{qp + (size_t)pair * d}.vec(lane_g * 16, rows.qh);
+    float mv[kN], tv = INFINITY;
+    int mi[kN], ti = kSentinel;
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      mv[j] = INFINITY;
+      mi[j] = kSentinel;
+    }
+    for (int t = 0; t < ntiles; ++t) {
+      if (t + kCellStages - 1 < ntiles) fill(t + kCellStages - 1);  // the stage freed last round
+      const unsigned gt = used + t, k = gt % kCellStages;
+      if (bulk) mbar_wait(smem_u32(bars + k), (gt / kCellStages) & 1);
+      else __syncthreads();  // the threads' copies are visible
+      const int8_t* tc = reinterpret_cast<const int8_t*>(ring + k * stage);
+      const float* ts = reinterpret_cast<const float*>(ring + k * stage + code_bytes);
+      const int nrows = min(tile_rows, hi - w0 - t * tile_rows);
+      q8_dequant<G>(tc, ts, nrows, d, deq, rsq, lane_g, grp);
+      __syncthreads();  // the tile's rows are dequantized
+      if (mine) {
+        rows.ts = ts;
+        warp_scan<Q8Rows<G>, G>(rows, 0, nrows, base + w0 + t * tile_rows, lp, lane, mv, mi,
+                                tv, ti);
+      }
+      __syncthreads();  // every warp is done with stage k (and the rows) before reuse
+    }
+    used += ntiles;
+    if (mine) {
+      warp_pads(INFINITY, hi, w1, base, lp, lane, mv, mi, tv, ti);
+      const size_t slot = ((size_t)pair * S + s) * lp;
+#pragma unroll
+      for (int j = 0; j < kN; ++j)
+        if (32 * j + lane < lp) {
+          pv[slot + 32 * j + lane] = mv[j];
+          pi[slot + 32 * j + lane] = mi[j];
+        }
     }
   }
 }
@@ -825,6 +1172,16 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                                   int* li) {
   run_stage1(StoreRow<T, kVec>{q, buckets, counts, probe, P, cap, width, d, pad}, P * width, lp,
              chunk, g, pv, pi, lv, li);
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    flash_probe_store_q8_list_kernel(const float* qp, const float* qsq, const int8_t* codes,
+                                     const float* scales, const int* counts, const int* probe,
+                                     int P, int cap, int width, int d, int lp, int chunk, int g,
+                                     float* pv, int* pi, float* lv, int* li) {
+  run_stage1(StoreQ8Row<kVec>{qp, qsq, codes, scales, counts, probe, P, cap, width, d},
+             P * width, lp, chunk, g, pv, pi, lv, li);
 }
 
 template <bool kVec>
@@ -1002,6 +1359,80 @@ cudaError_t launch_store(const StoreArgs& a, bool cell, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// The q8 store scan's arguments (fk_flash_probe_store_q8).
+struct StoreQ8Args {
+  const void *qp, *qsq, *codes, *scales, *counts, *probe, *sc, *order;
+  void* units;
+  int B, P, cap, width, d, lp, S, chunk, tile_rows;
+  void *pv, *pi, *lv, *li;
+};
+
+template <int G, int kN>
+cudaError_t launch_store_q8_cell(const StoreQ8Args& a, bool bulk, cudaStream_t st) {
+  const int npairs = a.B * a.P;
+  auto kernel = flash_probe_store_q8_kernel<G, kN>;
+  const size_t sm = kCellHead +
+                    (size_t)kCellStages * (((size_t)a.tile_rows * a.d + 15) / 16 * 16 +
+                                           (size_t)a.tile_rows * 4) +
+                    (size_t)a.tile_rows * (16 * G + 1) * 4;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)sm);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, sm);
+  if (e != cudaSuccess) return e;
+  int* units = (int*)a.units;
+  cell_units_kernel<<<1, 1024, 0, st>>>((const int*)a.sc, npairs, units, units + npairs);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const long long items = (long long)npairs * a.S;  // at least the units' items
+  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  kernel<<<(unsigned)(items < resident ? items : resident), kThreads, sm, st>>>(
+      (const float*)a.qp, (const float*)a.qsq, (const int8_t*)a.codes, (const float*)a.scales,
+      (const int*)a.counts, (const int*)a.sc, (const int*)a.order, units, units + npairs,
+      npairs, a.P, a.cap, a.width, a.d, a.lp, a.chunk, a.S, a.tile_rows, (int)bulk,
+      (float*)a.pv, (int*)a.pi);
+  return cudaGetLastError();
+}
+
+template <int kN>
+cudaError_t launch_store_q8_g(int g, const StoreQ8Args& a, bool bulk, cudaStream_t st) {
+  switch (g) {
+    case 1: return launch_store_q8_cell<1, kN>(a, bulk, st);
+    case 2: return launch_store_q8_cell<2, kN>(a, bulk, st);
+    case 4: return launch_store_q8_cell<4, kN>(a, bulk, st);
+    case 8: return launch_store_q8_cell<8, kN>(a, bulk, st);
+    case 16: return launch_store_q8_cell<16, kN>(a, bulk, st);
+    default: return launch_store_q8_cell<32, kN>(a, bulk, st);
+  }
+}
+
+cudaError_t launch_store_q8(const StoreQ8Args& a, bool cell, cudaStream_t st) {
+  // the block kernel's lane count and path (kVec), so that the two agree bit for bit
+  const bool vec = a.d % 16 == 0 && aligned16(a.qp) && aligned16(a.codes);
+  const int g = group_lanes(vec ? a.d / 16 : a.d);
+  if (cell) {
+    // 8 rows a group of g lanes, one 16-code vector a lane (the wrapper sends other
+    // rows to the list mode)
+    if (!vec || a.d > 16 * g || a.tile_rows % (8 * (32 / g)) != 0) return cudaErrorInvalidValue;
+    const bool bulk = aligned16(a.scales) && a.cap % 4 == 0;
+    if (a.lp > kWarpList) return launch_store_q8_g<2>(g, a, bulk, st);
+    return launch_store_q8_g<1>(g, a, bulk, st);
+  }
+  const dim3 grid(a.B, a.S);
+  const size_t sm = stage1_smem(a.lp, a.lv);
+  auto kernel = vec ? flash_probe_store_q8_list_kernel<true>
+                    : flash_probe_store_q8_list_kernel<false>;
+  kernel<<<grid, kThreads, sm, st>>>((const float*)a.qp, (const float*)a.qsq,
+                                     (const int8_t*)a.codes, (const float*)a.scales,
+                                     (const int*)a.counts, (const int*)a.probe, a.P, a.cap,
+                                     a.width, a.d, a.lp, a.chunk, g, (float*)a.pv, (int*)a.pi,
+                                     (float*)a.lv, (int*)a.li);
+  return cudaGetLastError();
+}
+
 }  // namespace probe
 }  // namespace fk
 
@@ -1089,6 +1520,35 @@ extern "C" int fk_flash_probe_grouped_q8(const void* qp, const void* codes, cons
   return (int)merge_partials(B, S, lp, L, part_v, part_i, mws_v, mws_i, out_v, out_i, st);
 }
 
+// The q8 store scan: qp (B, P, d) f32 shifted queries, qsq workspace of B * P floats
+// for ||q'||^2 (written by a prologue kernel), codes (K, cap, d) int8, scales (K, cap)
+// f32, counts (K,), probe (B, P) int32. cell != 0 (the cell mode, lists of at most
+// kQ8List): sc and order are probe's cells sorted and their positions b * P + p, units
+// scratch of B * P + 2 ints; S splits of each pair's width slots in chunks (a multiple
+// of 4), B * P * S partial lists. cell == 0 (the list mode): S CTAs per query split its
+// P * width slots, B * S lists. With a single list per query part must be the outputs.
+extern "C" int fk_flash_probe_store_q8(const void* qp, void* qsq, const void* codes,
+                                       const void* scales, const void* counts,
+                                       const void* probe, const void* sc, const void* order,
+                                       void* units, void* out_v, void* out_i, void* part_v,
+                                       void* part_i, void* lws_v, void* lws_i, void* mws_v,
+                                       void* mws_i, int B, int P, int cap, int width, int d,
+                                       int L, int S, int chunk, int lp, int tile_rows, int cell,
+                                       void* stream) {
+  using namespace fk::probe;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (cell && (lp > kQ8List || chunk % 4 != 0 || tile_rows % 32 != 0))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = fk::launch_csq_f32((const float*)qp, (float*)qsq, (long long)B * P, d, st);
+  if (e != cudaSuccess) return (int)e;
+  const StoreQ8Args a{qp, qsq, codes, scales, counts, probe, sc, order, units, B, P, cap,
+                      width, d, lp, S, chunk, tile_rows, part_v, part_i, lws_v, lws_i};
+  e = launch_store_q8(a, cell != 0, st);
+  if (e != cudaSuccess) return (int)e;
+  const int lists = cell ? P * S : S;
+  return (int)merge_partials(B, lists, lp, L, part_v, part_i, mws_v, mws_i, out_v, out_i, st);
+}
+
 // Register and local-memory use of one kernel, for the planner's register model.
 extern "C" int fk_flash_probe_attrs(int which, int* regs, int* local_bytes) {
   using namespace fk::probe;
@@ -1101,7 +1561,10 @@ extern "C" int fk_flash_probe_attrs(int which, int* regs, int* local_bytes) {
     case 3: e = cudaFuncGetAttributes(&a, topl_merge_kernel); break;
     case 4: e = cudaFuncGetAttributes(&a, flash_probe_store_kernel<float, true, 8>); break;
     case 5: e = cudaFuncGetAttributes(&a, flash_probe_store_kernel<__nv_bfloat16, true, 4>); break;
-    default: e = cudaFuncGetAttributes(&a, flash_probe_store_list_kernel<float, true>);
+    case 6: e = cudaFuncGetAttributes(&a, flash_probe_store_list_kernel<float, true>); break;
+    case 7: e = cudaFuncGetAttributes(&a, flash_probe_store_q8_kernel<8, 1>); break;
+    case 8: e = cudaFuncGetAttributes(&a, flash_probe_store_q8_kernel<8, 2>); break;
+    default: e = cudaFuncGetAttributes(&a, flash_probe_store_q8_list_kernel<true>);
   }
   if (e != cudaSuccess) return (int)e;
   *regs = a.numRegs;

@@ -12,10 +12,10 @@ Port of ``repro/index/ivf.py`` for one device, the ``padded`` store, the
 - **probe** — ``ops.flash_probe`` picks each query's ``nprobe`` nearest
   cells and ``ops.flash_probe_store`` scans their live rows in place in
   the padded store (the reference gathers a ``(B, nprobe*width, d)``
-  candidate block first; the result is the same); on a ``q8`` store the
-  store gathers the int8 codes, ``flash_probe_grouped_q8`` proposes the
-  top ``R``, and ``flash_probe_grouped`` rescores the ``R`` rows read from
-  the host ``RescoreReservoir`` in fp32;
+  candidate block first; the result is the same); on a ``q8`` store
+  ``ops.flash_probe_store_q8`` proposes the top ``R`` from the int8 codes,
+  read in place as well, and ``flash_probe_grouped`` rescores the ``R``
+  rows read from the host ``RescoreReservoir`` in fp32;
 - **online** — ``add`` assigns with FlashAssign, appends in CSR order and
   folds the batch statistics into pending ``SufficientStats``;
   ``refresh`` commits them and re-centers the centroids, O(K d).
@@ -87,6 +87,16 @@ def _take_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                         .expand(*idx.shape, *t.shape[2:]))
 
 
+def _slots(probe: torch.Tensor, li: torch.Tensor, width: int
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(cell, slot)`` of the store scans' probe-rank-major indices ``li =
+    p * width + w`` (B, L): slot w of cell ``probe[b, p]``."""
+    li = li.long()
+    cell = torch.gather(probe.long(), 1,
+                        torch.div(li, width, rounding_mode="floor"))
+    return cell, li % width
+
+
 def _ivf_search(q, centroids, c_sq, store_arrays, counts, *, topk: int,
                 nprobe: int, width: int, probe_splits: int,
                 scan_splits: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -101,38 +111,32 @@ def _ivf_search(q, centroids, c_sq, store_arrays, counts, *, topk: int,
     li, dist = ops.flash_probe_store(q, buckets, counts, probe, width=width,
                                      l=topk, pad=_PAD_COORD,
                                      splits=scan_splits)
-    li = li.long()
-    cell = torch.gather(probe.long(), 1,
-                        torch.div(li, width, rounding_mode="floor"))
-    return bucket_ids[cell, li % width], dist
+    return bucket_ids[_slots(probe, li, width)], dist
 
 
-def _q8_propose(q, centroids, c_sq, store_arrays, *, kind: str, r: int,
-                nprobe: int, width: int, probe_splits: int,
-                scan_splits: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Phase 1 of two-phase search on a quantized store: probe, gather
-    int8 codes and scales, and scan in the residual frame ``q' = q -
-    anchor[cell]`` (the kernel's distance is then the true quantized
-    one). Returns the top-``r`` ids (-1 where fewer than ``r`` live
-    candidates exist) and their dequantized rows, the rescore's fallback
-    for ids the reservoir does not hold."""
+def _q8_propose(q, centroids, c_sq, store_arrays, counts, *, r: int,
+                nprobe: int, width: int, probe_splits: int, scan_splits: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Phase 1 of two-phase search on a quantized store: probe, then scan
+    the probed cells' int8 codes and scales in place in the residual frame
+    ``q' = q - anchor[cell]`` (the kernel's distance is then the true
+    quantized one; the reference gathers a candidate block first, with the
+    same result). Returns the top-``r`` ids (-1 where fewer than ``r``
+    live candidates exist) and their dequantized rows, the rescore's
+    fallback for ids the reservoir does not hold, decoded for those (B,
+    r) proposals only."""
     probe, _ = ops.flash_probe(q, centroids.to(q.dtype), l=nprobe,
                                splits=probe_splits, want_dists=False,
                                c_sq=c_sq)
-    *arrays, anchors = store_arrays
-    codes, scales, cand_ids = _store.gather_global_q8(kind, tuple(arrays),
-                                                      probe, width)
-    b, d = q.shape
-    anch = anchors[probe.long()]                        # (B, nprobe, d)
-    qp = q.float().unsqueeze(1) - anch
-    li, val = ops.flash_probe_grouped_q8(
-        qp, codes.reshape(b, nprobe, width, d),
-        scales.reshape(b, nprobe, width), l=r, splits=scan_splits)
-    ids = torch.where(torch.isfinite(val), _take_rows(cand_ids, li),
-                      torch.full_like(li, -1))
-    deq = (_take_rows(anch, torch.div(li, width, rounding_mode="floor"))
-           + _take_rows(codes, li).float()
-           * _take_rows(scales, li).unsqueeze(-1))
+    codes, bucket_ids, scales, anchors = store_arrays
+    li, val = ops.flash_probe_store_q8(q, codes, scales, counts, probe,
+                                       anchors, width=width, l=r,
+                                       splits=scan_splits)
+    cell, w = _slots(probe, li, width)
+    ids = torch.where(torch.isfinite(val), bucket_ids[cell, w],
+                      torch.full_like(val, -1, dtype=torch.int32))
+    deq = (anchors[cell]
+           + codes[cell, w].float() * scales[cell, w].unsqueeze(-1))
     return ids, deq
 
 
@@ -462,10 +466,10 @@ class IVFIndex:
         """Plan (and cache) the search kernels for a ``(b, d)`` batch.
 
         Returns the planner's blocks, ``(splits, tile)`` per kernel:
-        ``(probe, store scan)`` on an fp32 store and ``(probe, scan_q8,
-        rescore scan)`` on a q8 store, flattened. Cached per ``(b, nprobe,
-        topk, width)``; ``width`` is the store's gather-width bucket, so
-        occupancy growth re-keys.
+        ``(probe, store scan)`` on an fp32 store and ``(probe, q8 store
+        scan, rescore scan)`` on a q8 store, flattened. Cached per ``(b,
+        nprobe, topk, width)``; ``width`` is the store's gather-width
+        bucket, so occupancy growth re-keys.
         """
         nprobe = min(nprobe, self.k)
         width = self._gather_width(topk, nprobe)
@@ -478,7 +482,8 @@ class IVFIndex:
             if self.store.codec_kind != "fp32":
                 r = self._rescore_r(topk, nprobe, width)
                 q8 = self.planner.plan(
-                    "scan_q8", (b, nprobe * width, self.d, r), torch.int8)
+                    "scan_q8_store", (b, nprobe, width, self.d, r),
+                    torch.int8)
                 rescore = self.planner.plan(
                     "scan", (int(b), r, self.d, min(topk, r)),
                     torch.float32)
@@ -525,7 +530,7 @@ class IVFIndex:
         r = self._rescore_r(topk, nprobe, width)
         ps, _, qs, _, rs, _ = self.plan_search(q.shape[0], topk, nprobe)
         ids, deq = _q8_propose(q, self.centroids, self._centroid_norms(),
-                               st.device_arrays(), kind=st.kind, r=r,
+                               st.device_arrays(), st.counts, r=r,
                                nprobe=nprobe, width=width, probe_splits=ps,
                                scan_splits=qs)
         ids_np = ids.cpu().numpy()

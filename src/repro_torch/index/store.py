@@ -98,7 +98,10 @@ def gather_global(kind: str, arrays, probe: torch.Tensor, width: int
 def gather_global_q8(kind: str, arrays, probe: torch.Tensor, width: int
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Quantized variant: ``(codes (B, nprobe*width, d) int8, scales
-    (B, nprobe*width) f32, ids)``; padding slots carry scale 0.0."""
+    (B, nprobe*width) f32, ids)``; padding slots carry scale 0.0. The
+    port's q8 search does not gather either (``ops.flash_probe_store_q8``
+    reads the quantized store in place); this is the block path it is
+    held to."""
     _resolve_kind(kind)
     buckets, bucket_ids, bucket_aux = arrays
     return tuple(candidate_slots(t, probe, width)

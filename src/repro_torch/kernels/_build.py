@@ -34,9 +34,9 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # name -> argument types; every function returns int (cudaError_t)
 SIGNATURES = {
-    # x, c, csq, c split, a, m, B, N, K, d, is_bf16, stream
-    "fk_flash_assign": (_P,) * 6 + (_I,) * 5 + (_P,),
-    "fk_flash_assign_smem": (_I, _I, ctypes.POINTER(_I)),
+    # x, c, csq, c split, a, m, B, N, K, d, is_bf16, want_dists, stream
+    "fk_flash_assign": (_P,) * 6 + (_I,) * 6 + (_P,),
+    "fk_flash_assign_smem": (_I, _I, _I, ctypes.POINTER(_I)),
     # x, sorted_idx, ids_sorted, out, R, d, S, chunk, threads, is_bf16, stream
     "fk_sort_inverse_update": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
     "fk_sort_inverse_layout": (_I, _I, _I, _I, _I, ctypes.POINTER(_I)),
@@ -48,6 +48,7 @@ SIGNATURES = {
     # is_bf16, dp, K, cluster, resident clusters out
     "fk_flash_lloyd_clusters": (_I,) * 4 + (ctypes.POINTER(_I),),
     "fk_max_smem_optin": (_I, ctypes.POINTER(_I)),
+    "fk_empty_launch": (_P,),
     # q, c, csq, 8 output/partial/scratch pointers, N, K, d, L, S, chunk,
     # lp, is_bf16, stream
     "fk_flash_probe": (_P,) * 11 + (_I,) * 8 + (_P,),
@@ -62,6 +63,10 @@ SIGNATURES = {
     # tile_rows, pad, cell mode, is_bf16, stream
     "fk_flash_probe_store": (_P,) * 15 + (_I,) * 10 + (ctypes.c_float, _I, _I,
                                                        _P),
+    # qp, qsq, codes, scales, counts, probe, sorted cells, order, units, 8
+    # output/partial/scratch pointers, B, P, cap, width, d, L, S, chunk, lp,
+    # tile_rows, cell mode, stream
+    "fk_flash_probe_store_q8": (_P,) * 17 + (_I,) * 11 + (_P,),
     "fk_flash_probe_attrs": (_I, ctypes.POINTER(_I), ctypes.POINTER(_I)),
 }
 
@@ -178,11 +183,19 @@ def max_smem_optin(device_index: int = 0) -> int:
     return int(out.value)
 
 
-def assign_dynamic_smem(is_bf16: bool, d: int) -> int:
-    """The dynamic shared memory FlashAssign's launch at width ``d`` sets,
-    read back from the kernel's attributes."""
+def empty_launch(device: torch.device) -> None:
+    """Launch an empty kernel on the device's current stream (the floor of
+    any launch's device time)."""
+    check(lib().fk_empty_launch(stream_ptr(device)), "empty kernel launch")
+
+
+def assign_dynamic_smem(is_bf16: bool, d: int, want_dists: bool = False
+                        ) -> int:
+    """The dynamic shared memory FlashAssign's launch at width ``d`` (with
+    or without distances) sets, read back from the kernel's attributes."""
     out = ctypes.c_int(0)
-    check(lib().fk_flash_assign_smem(int(is_bf16), d, ctypes.byref(out)),
+    check(lib().fk_flash_assign_smem(int(is_bf16), d, int(want_dists),
+                                     ctypes.byref(out)),
           "cudaFuncGetAttributes")
     return int(out.value)
 

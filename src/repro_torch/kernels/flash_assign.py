@@ -8,11 +8,13 @@ kernel ``repro/kernels/flash_assign.py:flash_assign_raw``.
 ``flash_assign_plain`` (the same function in plain PyTorch), CUDA tensors
 launch the kernel or raise.
 
-Both return ``(a int32 (B, N), score f32 (B, N))`` for x ``(B, N, d)`` and
-c ``(B, K, d)``, where ``score = ||c_a||^2 - 2 x.c_a`` (add ``||x||^2`` for
-the true squared distance). Ties go to the lower centroid index.
+Both return ``(a int32 (B, N), m f32 (B, N))`` for x ``(B, N, d)`` and
+c ``(B, K, d)``, where ``m = ||c_a||^2 - 2 x.c_a`` (the score) or, with
+``want_dists``, the true squared distance ``max(m + ||x||^2, 0)``. The
+kernel sums that ``||x||^2`` from the x chunks its consumers read for the
+argmin, so no pass over x follows it. Ties go to the lower centroid index.
 ``score_tol`` bounds how far the kernel's scores may lie from the plain
-version's.
+version's, ``dist_tol`` its distances.
 """
 from __future__ import annotations
 
@@ -51,15 +53,21 @@ def check_xc(x: torch.Tensor, c: torch.Tensor, who: str) -> None:
         raise ValueError(f"{who}: dims must fit int32")
 
 
-def flash_assign_plain(x: torch.Tensor, c: torch.Tensor
+def flash_assign_plain(x: torch.Tensor, c: torch.Tensor,
+                       want_dists: bool = False
                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch FlashAssign (``ref.assign_ref_crossterm`` math)."""
+    """Plain PyTorch FlashAssign (``ref.assign_ref_crossterm`` math); with
+    ``want_dists`` the score plus ``||x||^2``, clamped at 0, as the JAX
+    package's ``ops.flash_assign`` adds it."""
     c32 = c.float()
     csq = (c32 * c32).sum(-1)
     score = csq.unsqueeze(-2) - 2.0 * torch.matmul(x.float(),
                                                    c32.transpose(-1, -2))
     a = torch.argmin(score, dim=-1)  # first occurrence on ties
     m = torch.gather(score, -1, a.unsqueeze(-1)).squeeze(-1)
+    if want_dists:
+        x32 = x.float()
+        m = torch.clamp(m + (x32 * x32).sum(-1), min=0.0)  # fp residue
     return a.to(torch.int32), m
 
 
@@ -86,13 +94,57 @@ def score_tol(x: torch.Tensor, c: torch.Tensor) -> float:
 
     Zero padding of the feature axis adds exact zeros and changes no term.
     """
-    d = x.shape[-1]
-    c32 = c.float()
-    cn = torch.linalg.vector_norm(c32, dim=-1).max()
+    return (_kernel_terms(x) + x.shape[-1] + 1) * U32 * _mag(x, c)[0]
+
+
+def _mag(x: torch.Tensor, c: torch.Tensor) -> tuple[float, float]:
+    """``(mag, max ||x||^2)``: ``mag = max ||c||^2 + 2 max ||x|| max ||c||``
+    bounds ``|score|``."""
+    cn = torch.linalg.vector_norm(c.float(), dim=-1).max()
     xn = torch.linalg.vector_norm(x, dim=-1, dtype=torch.float32).max()
-    mag = float(cn * cn + 2 * xn * cn)
-    kernel = 6 * d + 13 if x.dtype == torch.float32 else 2 * d + 1
-    return (kernel + d + 1) * U32 * mag
+    return float(cn * cn + 2 * xn * cn), float(xn * xn)
+
+
+def _kernel_terms(x: torch.Tensor) -> int:
+    d = x.shape[-1]
+    return 6 * d + 13 if x.dtype == torch.float32 else 2 * d + 1
+
+
+def sq_chain(d: int, itemsize: int) -> int:
+    """Roundings on the path of one row's ``||x||^2`` in the kernel: each of
+    the 8 threads that hold a row's 16-byte pieces of a stage row (the
+    128-byte swizzle) adds the squares of its ``16 / itemsize`` values of
+    each of the ``ceil(d itemsize / 128)`` chunks into one fp32
+    accumulator, one FMA (one rounding) a value; a xor tree of 3 additions
+    then sums the 8 pieces. The zeros of the padded tail add exactly."""
+    chunks = -(-d * itemsize // ROW_BYTES)
+    return 16 // itemsize * chunks + 3
+
+
+def dist_tol(x: torch.Tensor, c: torch.Tensor) -> float:
+    """Bound on ``|kernel distance - plain distance|`` (``want_dists``), for
+    x ``(B, N, d)``, c ``(B, K, d)``.
+
+    Both sides take ``max(m + ||x||^2, 0)``, a 1-Lipschitz clamp, so the
+    difference is at most the scores' (``score_tol``) plus the two
+    ``||x||^2`` errors plus the rounding of the two final additions. With
+    ``u = 2^-24`` and ``X = max ||x||^2``, a sum of non-negative terms
+    whose path has ``h`` roundings misses by at most ``h u X / (1 - h u)``:
+
+    - kernel: ``h = sq_chain(d, itemsize)`` (the fused square-adds of a
+      thread's piece, then the xor tree), at most ``d / 8 + 11``;
+    - plain: ``(x * x).sum(-1)``, ``d`` rounded products and at most
+      ``d - 1`` additions on any path of its reduction: ``h = 2 d``;
+    - the additions ``m + ||x||^2``: ``u (|m| + X) <= u (mag + X)`` each.
+
+    So ``score_tol + (h_kernel + 2 d + 2) u X (1 + 1/64) + 2 u mag``; the
+    factor covers ``1 / (1 - h u)`` for any ``h u <= 1/64`` (``d`` up to
+    ``2^17``). The bf16 values widen to fp32 exactly on both sides.
+    """
+    d = x.shape[-1]
+    mag, xsq = _mag(x, c)
+    h = sq_chain(d, x.element_size()) + 2 * d + 2
+    return score_tol(x, c) + (h * xsq * (1 + 1 / 64) + 2 * mag) * U32
 
 
 def pad_features(x: torch.Tensor, c: torch.Tensor
@@ -110,13 +162,15 @@ def pad_features(x: torch.Tensor, c: torch.Tensor
     return F.pad(x, (0, pad)), F.pad(c, (0, pad))
 
 
-def flash_assign_raw(x: torch.Tensor, c: torch.Tensor
+def flash_assign_raw(x: torch.Tensor, c: torch.Tensor, *,
+                     want_dists: bool = False
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """FlashAssign over a batch: x (B, N, d), c (B, K, d)."""
+    """FlashAssign over a batch: x (B, N, d), c (B, K, d). Returns the
+    scores, or with ``want_dists`` the squared distances."""
     global launches
     check_xc(x, c, "flash_assign")
     if x.device.type == "cpu":
-        return flash_assign_plain(x, c)
+        return flash_assign_plain(x, c, want_dists)
     if x.device.type != "cuda":
         raise ValueError(f"flash_assign: unsupported device {x.device}")
     b, n, _ = x.shape
@@ -137,7 +191,7 @@ def flash_assign_raw(x: torch.Tensor, c: torch.Tensor
     code = _build.lib().fk_flash_assign(
         x.data_ptr(), c.data_ptr(), csq.data_ptr(), split.data_ptr(),
         a.data_ptr(), m.data_ptr(), b, n, k, d, int(is_bf16),
-        _build.stream_ptr(x.device))
+        int(want_dists), _build.stream_ptr(x.device))
     _build.check(code, "flash_assign kernel launch")
     launches += 1
     return a, m

@@ -16,7 +16,11 @@ replace the Pallas TPU kernels of ``repro/kernels/flash_probe.py``:
   store;
 - ``flash_probe_grouped_q8_raw`` (``flash_probe_grouped_q8_kernel``): the
   same scan over int8 residual codes with per-slot scales, dequantized in
-  registers — the q8 proposal.
+  registers, on a gathered block;
+- ``flash_probe_store_q8_raw`` (``flash_probe_store_q8_kernel``, and
+  ``flash_probe_store_q8_list_kernel`` for lists longer than 64): that
+  scan over the probed cells of the quantized store, read in place — the
+  q8 proposal.
 
 Each returns ``(indices int32 (B, l), scores f32 (B, l))``, ascending by
 (score, index): equal scores go to the lower index, as ``lax.top_k``.
@@ -42,7 +46,8 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 # kernel launches (CUDA only); reset by callers that count
 launches = {"flash_probe": 0, "flash_probe_grouped": 0,
-            "flash_probe_store": 0, "flash_probe_grouped_q8": 0}
+            "flash_probe_store": 0, "flash_probe_grouped_q8": 0,
+            "flash_probe_store_q8": 0}
 
 
 def _topl(score: torch.Tensor, l: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -420,6 +425,165 @@ def flash_probe_grouped_q8_raw(qp: torch.Tensor, codes: torch.Tensor,
     return keep[1], keep[0]
 
 
+# ---------------------------------------------------------------------------
+# kernel 6, store mode: the probed cells of the quantized store, read in place
+# ---------------------------------------------------------------------------
+
+STORE_Q8_LIST = 64     # longest list the q8 cell mode keeps (csrc kQ8List)
+STORE_Q8_ROWS = 32     # a q8 tile's rows are a multiple of a warp's (up to 32)
+STORE_Q8_DEQ_BYTES = 36864  # the dequantized rows of one tile, at most
+
+
+def _q8_lanes(d: int) -> int:
+    """Lanes that score one row of the q8 scan (csrc ``group_lanes``) for
+    ``d % 16 == 0``: the power of two covering the row's 16-byte vectors,
+    at most 32."""
+    g = 1
+    while g < d // 16 and g < 32:
+        g <<= 1
+    return g
+
+
+def store_q8_tile_rows(d: int) -> int:
+    """Rows of one tile of the q8 cell mode: at most ``STORE_TILE_BYTES``
+    of codes and scales (``d + 4`` bytes a row) and ``STORE_Q8_DEQ_BYTES``
+    of their dequantized values (``16 G`` floats and ``||r||^2`` a row); a
+    whole number of warp steps (8 rows a group of G lanes, ``256 / G``) and
+    of 32 rows (whole 16-byte groups of scales)."""
+    g = _q8_lanes(d)
+    rows = min(STORE_TILE_BYTES // (d + 4),
+               STORE_Q8_DEQ_BYTES // (4 * (16 * g + 1)))
+    step = max(STORE_Q8_ROWS, 256 // g)
+    return max(step, rows // step * step)
+
+
+def store_q8_cell_smem(d: int) -> int:
+    """Dynamic shared bytes of a q8 cell-mode CTA: the ring's tiles (codes
+    rounded up to 16 bytes, then the scales), its head, and one tile's
+    dequantized rows and their ``||r||^2``."""
+    rows = store_q8_tile_rows(d)
+    return (STORE_HEAD + STORE_STAGES * (-(-rows * d // 16) * 16 + 4 * rows)
+            + rows * (16 * _q8_lanes(d) + 1) * 4)
+
+
+def store_q8_cell_mode(l: int, d: int) -> bool:
+    """The q8 cell mode takes lists of at most ``STORE_Q8_LIST`` entries (two
+    a lane) and rows of whole 16-code vectors, one a lane (``d % 16 == 0``,
+    ``d <= 512``); the list mode the rest."""
+    return l <= STORE_Q8_LIST and d % 16 == 0 and d <= 512
+
+
+def store_q8_geometry(nprobe: int, width: int, d: int, l: int, splits: int
+                      ) -> tuple[int, int, int, int]:
+    """``(splits, chunk, lp, lists)`` of the q8 store scan, as
+    ``store_geometry``; the cell mode's chunk is a multiple of 4 slots, so
+    that every tile's scales start on 16 bytes."""
+    if not store_q8_cell_mode(l, d):
+        splits, chunk, lp = _launch_geometry(nprobe * width, l, splits)
+        return splits, chunk, lp, splits
+    splits = max(1, min(int(splits), width, 65535))
+    chunk = -(-width // splits)
+    chunk += -chunk % 4
+    splits = -(-width // chunk)
+    return splits, chunk, min(l, chunk), nprobe * splits
+
+
+def _check_q8_store(who, qp, codes, scales, counts, probe, width, l):
+    if (qp.ndim != 3 or codes.ndim != 3 or probe.ndim != 2
+            or qp.shape[:2] != probe.shape or qp.shape[2] != codes.shape[2]
+            or scales.shape != codes.shape[:2]
+            or counts.shape != (codes.shape[0],)):
+        raise ValueError(f"{who}: qp (B, nprobe, d), codes (K, cap, d), "
+                         f"scales (K, cap), counts (K,), probe (B, nprobe) "
+                         f"expected, got {tuple(qp.shape)}, "
+                         f"{tuple(codes.shape)}, {tuple(scales.shape)}, "
+                         f"{tuple(counts.shape)}, {tuple(probe.shape)}")
+    cap = codes.shape[1]
+    if not 1 <= width <= cap:
+        raise ValueError(f"{who} needs 1 <= width <= cap, got width={width}, "
+                         f"cap={cap}")
+    _check_l(l, probe.shape[1] * width, who, "nprobe*width")
+    if (qp.dtype != torch.float32 or codes.dtype != torch.int8
+            or scales.dtype != torch.float32 or counts.dtype != torch.int32
+            or probe.dtype != torch.int32):
+        raise TypeError(f"{who}: qp f32, codes int8, scales f32, counts and "
+                        f"probe int32 expected, got {qp.dtype}, "
+                        f"{codes.dtype}, {scales.dtype}, {counts.dtype}, "
+                        f"{probe.dtype}")
+
+
+def flash_probe_store_q8_plain(qp: torch.Tensor, codes: torch.Tensor,
+                               scales: torch.Tensor, counts: torch.Tensor,
+                               probe: torch.Tensor, width: int, l: int
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: the ``(B, nprobe, width)`` block of the probed
+    cells' codes and scales, scale 0 on every slot at or past its cell's
+    count, then ``flash_probe_grouped_q8_plain``."""
+    p = probe.long()
+    blk_codes = codes[:, :width][p]                  # (B, nprobe, width, d)
+    blk_scales = scales[:, :width][p]                # (B, nprobe, width)
+    dead = torch.arange(width, device=qp.device) >= counts[p].unsqueeze(-1)
+    blk_scales = torch.where(dead, torch.zeros_like(blk_scales), blk_scales)
+    return flash_probe_grouped_q8_plain(qp, blk_codes, blk_scales, l)
+
+
+def flash_probe_store_q8_raw(qp: torch.Tensor, codes: torch.Tensor,
+                             scales: torch.Tensor, counts: torch.Tensor,
+                             probe: torch.Tensor, width: int, l: int, *,
+                             splits: int = 1
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantized scan of each query's probed cells, read from the quantized
+    store: qp (B, nprobe, d) f32 shifted queries ``q - anchor[probe]``,
+    codes (K, cap, d) int8, scales (K, cap) f32 (0 on every dead slot),
+    counts (K,) int32, probe (B, nprobe) int32 cells. Query b's candidate
+    ``p * width + w`` is slot w of cell ``probe[b, p]``: the index of
+    ``flash_probe_grouped_q8_raw`` on the gathered block, which this
+    computes bit for bit, +inf entries included. Returns ``(indices int32
+    (B, l), distances f32 (B, l))``. ``splits``: see
+    ``store_q8_geometry``. Precondition (not checked, it would cost a
+    device sync): probe lies in ``[0, K)``."""
+    who = "flash_probe_store_q8"
+    _check_q8_store(who, qp, codes, scales, counts, probe, width, l)
+    b, nprobe, d = qp.shape
+    k, cap, _ = codes.shape
+    if _check_device(who, qp, codes, scales, counts, probe).type == "cpu":
+        return flash_probe_store_q8_plain(qp, codes, scales, counts, probe,
+                                          width, l)
+    if max(b * nprobe, k * cap, nprobe * width, d) >= 2**31:
+        raise ValueError(f"{who}: dims must fit int32")
+    if b == 0:
+        return (torch.empty((0, l), dtype=torch.int32, device=qp.device),
+                torch.empty((0, l), dtype=torch.float32, device=qp.device))
+    qp, codes, scales = qp.contiguous(), codes.contiguous(), \
+        scales.contiguous()
+    counts, probe = counts.contiguous(), probe.contiguous()
+    splits, chunk, lp, lists = store_q8_geometry(nprobe, width, d, l, splits)
+    if b * lists >= 2**31:
+        raise ValueError(f"{who}: B * lists must fit int32")
+    ptrs, keep = _buffers(b, l, lists, lp, qp.device)
+    cell = store_q8_cell_mode(l, d)
+    qsq = torch.empty((b, nprobe), dtype=torch.float32, device=qp.device)
+    if cell:
+        tile_rows = store_q8_tile_rows(d)
+        # cell-major: the pairs of one cell are adjacent
+        sc, order = torch.sort(probe.reshape(-1), stable=True)
+        order = order.to(torch.int32)
+        units = torch.empty(b * nprobe + 2, dtype=torch.int32,
+                            device=qp.device)
+        keep += [sc, order, units]
+        cell_ptrs = (sc.data_ptr(), order.data_ptr(), units.data_ptr())
+    else:
+        tile_rows, cell_ptrs = 0, (None,) * 3
+    code = _build.lib().fk_flash_probe_store_q8(
+        qp.data_ptr(), qsq.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+        counts.data_ptr(), probe.data_ptr(), *cell_ptrs, *ptrs, b, nprobe,
+        cap, width, d, l, splits, chunk, lp, tile_rows, int(cell),
+        _build.stream_ptr(qp.device))
+    _build.check(code, f"{who} kernel launch")
+    launches[who] += 1
+    return keep[1], keep[0]
+
+
 def kernel_attrs() -> dict[str, tuple[int, int]]:
     """``(registers per thread, local bytes)`` of each compiled kernel, as
     the card reports them (for the planner's register model)."""
@@ -429,7 +593,10 @@ def kernel_attrs() -> dict[str, tuple[int, int]]:
                                   "flash_probe_grouped_q8", "topl_merge",
                                   "flash_probe_store",
                                   "flash_probe_store<bf16>",
-                                  "flash_probe_store_list")):
+                                  "flash_probe_store_list",
+                                  "flash_probe_store_q8",
+                                  "flash_probe_store_q8<64 entries>",
+                                  "flash_probe_store_q8_list")):
         regs, local = ctypes.c_int(0), ctypes.c_int(0)
         _build.check(_build.lib().fk_flash_probe_attrs(
             which, ctypes.byref(regs), ctypes.byref(local)),

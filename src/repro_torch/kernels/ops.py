@@ -1,20 +1,21 @@
 """Public wrappers around the port's flash-kmeans kernels.
 
 Ports of ``repro/kernels/ops.py`` with the same signatures and return
-contracts: ``||x||^2`` is added back outside the assign kernel and clamped
-at 0, clusters without points get exactly-zero sums and counts, and
+contracts: FlashAssign's distances are ``score + ||x||^2`` clamped at 0
+(the kernel sums ``||x||^2`` itself; the reference adds it outside),
+clusters without points get exactly-zero sums and counts, and
 ``finalize_centroids`` divides by any ``cnt > 0``. Each wrapper dispatches
 by the tensors' device: the kernel modules run their plain PyTorch version
 for CPU tensors and launch the CUDA kernel for CUDA tensors.
 
 The FlashProbe wrappers (``flash_probe``, ``flash_probe_grouped``,
-``flash_probe_store``, ``flash_probe_grouped_q8``) keep the reference's
+``flash_probe_store``, ``flash_probe_grouped_q8``, ``flash_probe_store_q8``)
+keep the reference's
 contracts: ``want_dists`` adds ``||q||^2`` back and clamps at 0, ``c_sq``
 may be passed in, and ``l > K`` (or ``> C``) or ``l < 1`` raises
 ``ValueError``. Their one launch parameter is ``splits``, the CTAs that
-share one query's candidate axis (for ``flash_probe_store``, one (query,
-probe) pair's slots), from ``splits=``, a ``plan=`` or the default
-planner.
+share one query's candidate axis (for the store scans, one (query, probe)
+pair's slots), from ``splits=``, a ``plan=`` or the default planner.
 
 Block resolution: every wrapper accepts an optional ``plan=``
 (``core.plan.KernelPlan``) and/or explicit ``block_*`` overrides; with
@@ -117,8 +118,8 @@ def _audit_blocks(op: str, bn: int, bk: int, d: int, itemsize: int, device,
                 f"shared-memory limit ({hw.smem_block_bytes} bytes) for "
                 f"d={d}, K={k}; use the two-pass path")
         return cluster
-    if op == "assign":
-        need = H.assign_footprint(bn, bk, d, itemsize)
+    if op == "assign":   # the larger launch, which returns distances
+        need = H.assign_footprint(bn, bk, d, itemsize, dists=True)
     else:
         if bk % 32 or not 32 <= bk <= _siu.THREADS:
             raise ValueError(f"update_block_k={bk} must be a multiple of 32 "
@@ -130,11 +131,6 @@ def _audit_blocks(op: str, bn: int, bk: int, d: int, itemsize: int, device,
             f"block shared-memory limit ({hw.smem_block_bytes} bytes) for "
             f"d={d}")
     return None
-
-
-def _dists(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    x32 = x.float()
-    return torch.clamp(m + (x32 * x32).sum(-1), min=0.0)  # fp residue
 
 
 # ---------------------------------------------------------------------------
@@ -156,9 +152,9 @@ def flash_assign(x: torch.Tensor, c: torch.Tensor, *,
     bn, bk = _resolve_blocks("assign", (n, k, d), x.dtype, block_n, block_k,
                              plan, x.device)
     _audit_blocks("assign", bn, bk, d, x.element_size(), x.device, plan=plan)
-    a, m = _fa.flash_assign_raw(x.unsqueeze(0), c.unsqueeze(0))
-    a, m = a[0], m[0]
-    return a, (_dists(x, m) if want_dists else m)
+    a, m = _fa.flash_assign_raw(x.unsqueeze(0), c.unsqueeze(0),
+                                want_dists=want_dists)
+    return a[0], m[0]
 
 
 def flash_assign_batched(x: torch.Tensor, c: torch.Tensor, *,
@@ -171,8 +167,7 @@ def flash_assign_batched(x: torch.Tensor, c: torch.Tensor, *,
     bn, bk = _resolve_blocks("assign", (n, c.shape[1], d), x.dtype,
                              block_n, block_k, plan, x.device)
     _audit_blocks("assign", bn, bk, d, x.element_size(), x.device, plan=plan)
-    a, m = _fa.flash_assign_raw(x, c)
-    return a, (_dists(x, m) if want_dists else m)
+    return _fa.flash_assign_raw(x, c, want_dists=want_dists)
 
 
 # ---------------------------------------------------------------------------
@@ -372,6 +367,30 @@ def flash_probe_grouped_q8(qp: torch.Tensor, codes: torch.Tensor,
                            plan, qp.device)
     return _fp.flash_probe_grouped_q8_raw(qp, codes, scales, l,
                                           splits=splits)
+
+
+def flash_probe_store_q8(q: torch.Tensor, codes: torch.Tensor,
+                         scales: torch.Tensor, counts: torch.Tensor,
+                         probe: torch.Tensor, anchors: torch.Tensor, *,
+                         width: int, l: int, splits: int | None = None,
+                         plan=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The quantized posting-list scan over the store, read in place. q (B,
+    d), codes (K, cap, d) int8, scales (K, cap) f32 (0 on every dead slot),
+    counts (K,) int32, probe (B, nprobe) int32 cells, anchors (K, d) f32
+    (the codes' encode-time centroids), ``1 <= l <= nprobe * width``. The
+    shifted queries ``q' = q - anchors[probe]`` are the block path's own.
+    Computes what ``flash_probe_grouped_q8`` computes on the store's
+    gathered block, without writing it: ``(indices int32 (B, l) into the
+    probe-rank-major ``p * width + w`` axis, dists f32 (B, l))`` ascending,
+    the true quantized distances, ``+inf`` where fewer than ``l`` live
+    slots exist."""
+    b, d = q.shape
+    nprobe = probe.shape[1]
+    splits = _probe_splits("scan_q8_store", (b, nprobe, width, d, l),
+                           torch.int8, splits, plan, q.device)
+    qp = q.float().unsqueeze(1) - anchors[probe.long()]
+    return _fp.flash_probe_store_q8_raw(qp, codes, scales, counts, probe,
+                                        width, l, splits=splits)
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,11 @@ against float64 within ``flash_assign.score_tol`` and against the JAX
 package's ``flash_assign`` ids on tie-free rows; the same arithmetic with
 fewer products is shown to break ``score_tol``. The wrapper's feature
 padding (the path TMA needs for d % 4 != 0 in f32, d % 8 != 0 in bf16) is
-checked through the plain version.
+checked through the plain version. The launch that returns distances sums
+``||x||^2`` in its consumers (per-thread pieces of 16 bytes, then a xor
+tree); that order is emulated too, held against float64 within its chain
+bound, and the distances within ``flash_assign.dist_tol`` of the plain
+version's.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -178,3 +182,78 @@ def test_feature_padding_changes_no_score(dt, d):
     ap, mp = fa.flash_assign_plain(xp, cp)
     assert torch.equal(a, ap)
     assert float((m - mp).abs().max()) <= fa.score_tol(x, c)
+
+
+def sq_consumers(x: torch.Tensor) -> torch.Tensor:
+    """(N,) ``||x||^2`` as FlashAssign's consumers sum it for the launch
+    that returns distances (``argmin<kSq>``, ``csrc/tc_argmin.cuh``): each
+    128-byte stage row (chunk) of a row is 8 pieces of 16 bytes; the thread
+    that holds piece p (the swizzle moves which thread, not which values)
+    adds the squares of the piece's values into one fp32 accumulator, chunk
+    after chunk, one fused multiply-add (a single rounding) a value: in f32
+    the 4 values in order, in bf16 each pair odd value first (``fmaf(x, x,
+    fmaf(y, y, s))``); the tail past d is zeros. A xor tree then adds the 8
+    pieces: ``((s0 + s1) + (s2 + s3)) + ((s4 + s5) + (s6 + s7))``. The fused
+    step is emulated in float64 (the square is exact there) and rounded to
+    fp32."""
+    itemsize = x.element_size()
+    per = 16 // itemsize
+    chunk = fa.ROW_BYTES // itemsize
+    d = x.shape[-1]
+    v = torch.nn.functional.pad(x.double(), (0, -d % chunk))
+    v = v.reshape(x.shape[0], -1, 8, per)   # (N, chunks, piece, value)
+    order = list(range(per)) if itemsize == 4 else [
+        e ^ 1 for e in range(per)]
+    s = torch.zeros((x.shape[0], 8), dtype=torch.float32)
+    for ch in range(v.shape[1]):
+        for e in order:
+            s = (s.double() + v[:, ch, :, e] ** 2).float()
+    t = [s[:, p] + s[:, p ^ 1] for p in range(0, 8, 2)]
+    return (t[0] + t[1]) + (t[2] + t[3])
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["random", "far", "mixed", "aligned"])
+@pytest.mark.parametrize("d", [1, 3, 19, 128, 129, 512])
+def test_consumers_norms_within_their_chain_bound(dt, kind, d):
+    """The consumers' ``||x||^2`` misses float64 by at most ``h u ||x||^2``
+    (``h = sq_chain``: a piece's fused square-adds, then the 3-level tree)."""
+    x, _ = make(kind, d)
+    x = x.to(dt)
+    h = fa.sq_chain(d, x.element_size())
+    assert h <= d // 8 + 11
+    got = sq_consumers(x).double()
+    exact64 = (x.double() ** 2).sum(-1)
+    assert bool(((got - exact64).abs()
+                 <= h * fa.U32 * exact64 * (1 + 1 / 64)).all())
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["random", "far", "mixed", "duplicated",
+                                  "aligned"])
+@pytest.mark.parametrize("d", [1, 3, 19, 128, 512])
+def test_kernel_distances_within_dist_tol(dt, kind, d):
+    """The kernel's distance ``max(m + ||x||^2, 0)`` (its f32 scores
+    emulated as 3xTF32, bf16 scores exact products in float64, its norms in
+    the consumers' order, the final addition in fp32) lies within
+    ``dist_tol`` of the plain version's (``want_dists``), which itself adds
+    ``(x * x).sum(-1)`` as the JAX package does; the plain version's
+    distances are its scores plus that sum, clamped at 0."""
+    x, c = make(kind, d)
+    x, c = x.to(dt), c.to(dt)
+    if dt == torch.float32:
+        score = scores_3xtf32(x, c)
+    else:
+        score = exact(x.float(), c.float()).float()
+    m = score.min(1).values
+    got = torch.clamp(m + sq_consumers(x), min=0.0)
+    a_p, want = fa.flash_assign_plain(x[None], c[None], want_dists=True)
+    a_s, m_p = fa.flash_assign_plain(x[None], c[None])
+    assert torch.equal(a_p, a_s)
+    x32 = x.float()
+    assert torch.equal(want[0], torch.clamp(m_p[0] + (x32 * x32).sum(-1),
+                                            min=0.0))
+    tol = fa.dist_tol(x, c)
+    assert tol > fa.score_tol(x, c)
+    err = float((got - want[0]).abs().max())
+    assert err <= tol, (err, tol)

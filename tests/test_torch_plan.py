@@ -24,22 +24,25 @@ H100 = H.hopper_row("h100_test", num_sms=132, l2_bytes=50 * 2**20,
 # a row whose tensor cores run no faster than its CUDA cores
 CUDA_CORES = dataclasses.replace(H100, flops_tf32=3 * H100.flops_f32,
                                  flops_bf16=H100.flops_f32)
-# the largest K at which the planner takes the fused step at d = 128
+# the largest K at which the planner takes the fused step at d = 128 and
+# N = 65,536
 K_CROSS_F32, K_CROSS_BF16 = 256, 1336
 
 
 @pytest.mark.parametrize("itemsize", [4, 2])
 def test_paper_regimes_plan_as_expected(itemsize):
     # both paths run the tensor-core argmin; at smallN_smallK FlashLloyd's
-    # additions beat the update's and the ||x||^2 pass's bytes; at K = 1,024
-    # its f32 re-split of the streamed x for each of 8 centroid tiles costs
-    # more than they do, its bf16 additions less; K = 65,536 at d = 512 fits
-    # no cluster
+    # additions beat the update's bytes and the sort's device time; at K =
+    # 1,024 its f32 re-split of the streamed x for each of 8 centroid tiles
+    # costs more than they do; at N = 8,388,608 its additions cost more than
+    # them in both types (FlashAssign's consumers sum ||x||^2, so the
+    # two-pass step reads x twice, not four times); K = 65,536 at d = 512
+    # fits no cluster
     planner = P.KernelPlanner(H100)
     f32 = itemsize == 4
     assert planner.plan("step", (65536, 256, 128), itemsize).impl == "fused"
     assert planner.plan("step", (8388608, 1024, 128),
-                        itemsize).impl == ("two_pass" if f32 else "fused")
+                        itemsize).impl == "two_pass"
     assert planner.plan("step", (65536, 1024, 128), itemsize).impl == \
         ("two_pass" if f32 else "fused")
     assert planner.plan("step", (262144, 65536, 512),
@@ -113,11 +116,14 @@ def test_assign_footprint_is_the_kernels_layout(itemsize, d, want):
 
 
 def test_roofline_leg_uses_the_rows_peaks():
-    fast_mem = dataclasses.replace(H100, hbm_bw=1e15)
-    # with a memory system so fast that the update's and the ||x||^2
-    # pass's bytes cost nothing, FlashLloyd's measured additions lose
-    assert H.choose_step_impl(65536, 256, 128, hw=H100) == "fused"
-    assert H.choose_step_impl(65536, 256, 128, hw=fast_mem) == "two_pass"
+    slow_mem = dataclasses.replace(H100, hbm_bw=H100.hbm_bw / 10)
+    # at largeN_smallK bf16 the two-pass step wins by the row's memory rate;
+    # on a memory system ten times slower its two reads of x and the
+    # update's gathered rows cost more than FlashLloyd's one read
+    assert H.choose_step_impl(8388608, 1024, 128, dtype_bytes=2,
+                              hw=H100) == "two_pass"
+    assert H.choose_step_impl(8388608, 1024, 128, dtype_bytes=2,
+                              hw=slow_mem) == "fused"
     # both legs run the argmin at the row's TF32 (f32, three products) and
     # bf16 tensor-core rates
     for itemsize in (4, 2):
@@ -130,16 +136,28 @@ def test_roofline_leg_uses_the_rows_peaks():
 @pytest.mark.parametrize("itemsize,k_cross", [(4, K_CROSS_F32),
                                               (2, K_CROSS_BF16)])
 def test_fused_two_pass_crossover(itemsize, k_cross):
-    """The crossover at N = 65,536 and 8,388,608, d = 128. f32: through
-    K = 256 (two centroid tiles) FlashLloyd's one re-split of the streamed
-    x and its additions cost less than the update's and the ||x||^2 pass's
-    bytes; from the third tile on the re-splits cost more. bf16 has no
-    split: fused wherever a cluster size fits (K <= 1,336)."""
-    for n in (65536, 8388608):
-        assert H.choose_step_impl(n, k_cross, 128, dtype_bytes=itemsize,
-                                  hw=H100) == "fused"
-        assert H.choose_step_impl(n, k_cross + 1, 128, dtype_bytes=itemsize,
-                                  hw=H100) == "two_pass"
+    """The crossover at d = 128. At N = 65,536, f32: through K = 256 (two
+    centroid tiles) FlashLloyd's one re-split of the streamed x and its
+    additions cost less than the update's bytes and the sort's device time
+    (``sort_seconds``, mostly its floor there); from the third tile on the
+    re-splits cost more. bf16 has no split: fused wherever a cluster size
+    fits (K <= 1,336). At N = 8,388,608 the additions (N d values at the
+    measured rate) cost more than the update and the sort: two-pass at
+    every K in bf16, and in f32 outside the K at which one centroid tile's
+    argmin hides them."""
+    n = 65536
+    assert H.choose_step_impl(n, k_cross, 128, dtype_bytes=itemsize,
+                              hw=H100) == "fused"
+    assert H.choose_step_impl(n, k_cross + 1, 128, dtype_bytes=itemsize,
+                              hw=H100) == "two_pass"
+    big = [k for k in (16, 64, 256, 257, 1024, k_cross)
+           if H.choose_step_impl(8388608, k, 128, dtype_bytes=itemsize,
+                                 hw=H100) == "fused"]
+    assert big == []
+    # the sort's model at the sizes it was fitted to and checked against
+    for ids, ms in ((65536, 0.0398), (262144, 0.0497), (2097152, 0.1396),
+                    (8388608, 0.4372)):
+        assert abs(H.sort_seconds(ids) * 1e3 - ms) <= 0.02 * ms
 
 
 def test_choose_blocks_update_tiles():
@@ -257,3 +275,84 @@ def test_lloyd_layout_is_the_kernels(itemsize, d, windows, at256):
         assert H.fused_footprint(kmax, d, itemsize, cl) \
             <= H100.smem_block_bytes
     assert H.choose_lloyd_cluster(windows[-1] + 1, d, itemsize, H100) is None
+
+
+@pytest.mark.parametrize("itemsize,d", [(4, 128), (4, 3), (4, 512),
+                                        (2, 128), (2, 512)])
+def test_assign_footprint_with_distances_holds_the_rows_norms(itemsize, d):
+    """The launch that returns distances keeps each of its 128 rows'
+    ``||x||^2`` (f32) past the ring: 512 bytes more, still within the
+    block's limit; the planner and the wrappers' audit take that launch."""
+    plain = H.assign_footprint(128, 128, d, itemsize)
+    dists = H.assign_footprint(128, 128, d, itemsize, dists=True)
+    assert dists == plain + 4 * 128 <= H100.smem_block_bytes
+    planner = P.KernelPlanner(H100)
+    assert planner.plan("assign", (65536, 256, d), itemsize).smem_bytes \
+        == dists
+
+
+@pytest.mark.parametrize("b,nprobe,width,l", [
+    (256, 16, 3056, 40), (256, 16, 3056, 10), (1, 16, 2128, 64),
+    (3, 4, 5000, 65), (32, 64, 1021, 3000), (5, 3, 97, 30)])
+def test_q8_store_plan_geometry_covers_every_slot(b, nprobe, width, l):
+    """The q8 store scan: lists of at most 64 entries (two a lane) take the
+    cell mode, whose splits of a pair's width slots start on multiples of
+    4 slots (the scales' 16-byte copies); longer lists the list mode. The
+    splits cover every slot once and the partial lists hold at least l
+    entries per query."""
+    from repro_torch.kernels import flash_probe as fp
+    planner = P.KernelPlanner(H100)
+    plan = planner.plan("scan_q8_store", (b, nprobe, width, 128, l),
+                        torch.int8)
+    cell = l <= fp.STORE_Q8_LIST
+    assert plan.op == "scan_q8_store" and plan.itemsize == 1
+    assert plan.impl == ("store_scan_q8_cell" if cell
+                         else "store_scan_q8_list")
+    splits, tile = plan.blocks
+    assert tile == fp.TILE and plan.smem_bytes <= plan.smem_limit
+    s, chunk, lp, lists = fp.store_q8_geometry(nprobe, width, 128, l, splits)
+    axis = width if cell else nprobe * width
+    assert s == splits and (s - 1) * chunk < axis <= s * chunk
+    assert lp == min(l, chunk) and lists * lp >= l
+    assert lists == (nprobe * s if cell else s)
+    if cell:
+        assert chunk % 4 == 0
+        assert splits <= max(1, width // H.STORE_MIN_ROWS)
+        assert plan.smem_bytes >= fp.store_q8_cell_smem(128)
+    if (b, nprobe, width, l) == (256, 16, 3056, 40):
+        # the IVF1024 q8 search: 512 units of 8 pairs at least, more than
+        # the resident CTAs (3 a SM: the register cap; a CTA holds a 3-tile
+        # ring of 64 rows of codes and scales and one tile's dequantized
+        # rows, 57 KiB), so one split
+        assert splits == 1
+        assert fp.store_q8_cell_smem(128) == \
+            128 + 3 * (64 * 128 + 64 * 4) + 64 * (16 * 8 + 1) * 4
+        assert H.q8_store_ctas_per_sm(128, H100) == 3
+    # every slot of every pair read once, at most (B bucketed: plan.shape)
+    assert plan.shape[1:] == (nprobe, width, 128, l)
+    assert plan.hbm_bytes == H.scan_q8_store_bytes(*plan.shape)
+    assert planner.plan("scan_q8_store", (b, nprobe, width, 128, l),
+                        torch.int8) is plan
+
+
+def test_q8_store_tiles_hold_whole_warp_steps():
+    """A q8 tile holds at most 16 KiB of codes and scales (d + 4 bytes a
+    row) and 36 KiB of their dequantized rows (16 G floats and ||r||^2 a
+    row); its rows are a whole number of warp steps (8 rows a group of G
+    lanes, 256 / G) and of 32 (whole 16-byte groups of scales). Rows off
+    the 16-code vector (the block kernel's scalar path) and past 512 codes
+    take the list mode."""
+    from repro_torch.kernels import flash_probe as fp
+    for d in (16, 32, 48, 64, 128, 256, 512):
+        rows = fp.store_q8_tile_rows(d)
+        g = fp._q8_lanes(d)
+        step = 256 // g
+        assert rows % step == 0 and rows % 32 == 0 and rows >= step
+        assert 16 * g >= d                       # one vector a lane
+        assert rows * (d + 4) <= fp.STORE_TILE_BYTES or rows == max(32, step)
+        assert fp.store_q8_cell_smem(d) <= H100.smem_block_bytes
+        assert fp.store_q8_cell_mode(64, d)
+    assert fp.store_q8_tile_rows(128) == 64 and fp._q8_lanes(128) == 8
+    assert not fp.store_q8_cell_mode(65, 128)
+    assert not fp.store_q8_cell_mode(10, 19)     # the block's scalar path
+    assert not fp.store_q8_cell_mode(10, 528)
