@@ -172,7 +172,7 @@ STORE_EDGE = [(64, 40, 256, 200, 128, 8, 10), (33, 24, 64, 64, 19, 5, 40),
 # list entry a lane, 33-64 two; longer lists, rows off the 16-code vector
 # (d = 8, 19: the block kernel's scalar path) and d > 512 take the list
 # mode (L = 2,500 in global scratch); d covers every lane count (16: 1 lane
-# .. 512: 32), a cap off 4 slots (the threads copy the tiles), a width off 4
+# .. 512: 32), a cap off 4 slots (the list mode), a width off 4
 # and more tiles than the ring
 QSTORE_EDGE = [(64, 40, 256, 200, 128, 8, 10), (33, 24, 64, 64, 16, 5, 40),
                (16, 12, 300, 300, 32, 4, 64), (16, 12, 300, 296, 64, 4, 65),
@@ -181,6 +181,7 @@ QSTORE_EDGE = [(64, 40, 256, 200, 128, 8, 10), (33, 24, 64, 64, 16, 5, 40),
                (5, 30, 2200, 2128, 128, 16, 40), (1100, 7, 40, 40, 16, 3, 3),
                (7, 7, 40, 40, 8, 2, 5), (9, 8, 100, 97, 128, 3, 30),
                (6, 8, 42, 40, 128, 2, 12)]
+NO_SPILLS = r"\b0 bytes spill stores, 0 bytes spill loads"  # ptxas -v
 STEP_PAIRS = 11  # two-pass / fused iteration pairs, ABAB, where fused fits
 # FlashIVF: the FAISS IVF1024,Flat configuration on SIFT1M (N, K, d),
 # searched in batches of IVF_B queries at topk 10, nprobe 16
@@ -272,7 +273,7 @@ def main() -> int:
         elif "Used" in line and "flash_assign_tc" in fname:
             f32, res, dists = re.findall(r"Lb([01])E", fname)[:3]
             spill = spills.get(fname, "")
-            check("0 bytes spill stores, 0 bytes spill loads" in spill,
+            check(bool(re.search(NO_SPILLS, spill)),
                   f"flash_assign_tc<{'f32' if f32 == '1' else 'bf16'}, "
                   f"{'resident' if res == '1' else 'streamed'} x, "
                   f"{'distances' if dists == '1' else 'scores'}>: "
@@ -313,6 +314,14 @@ def main() -> int:
               f"d={d}, C={cl}); {active} clusters of {cl} resident "
               f"({active * cl} CTAs)")
 
+    # the q8 store scan's cell-mode instances (lanes a row, list entries a
+    # lane): its local memory is a stack frame, never spills
+    for fname, spill in spills.items():
+        if "flash_probe_store_q8_kernel" in fname:
+            g, kn = re.findall(r"ILi(\d+)ELi(\d+)E", fname)[0]
+            check(bool(re.search(NO_SPILLS, spill)),
+                  f"flash_probe_store_q8<{g} lanes, {32 * int(kn)} entries>: "
+                  f"{spill} (no spills)")
     for kname, (regs, local) in fp.kernel_attrs().items():
         cap = (H.PROBE_REGS if kname.endswith("_list")
                else H.STORE_Q8_REGS if kname.startswith("flash_probe_store_q8")
@@ -1696,8 +1705,11 @@ def main() -> int:
                 "live_rows": live_rows, "probed_cells": int(cells.numel()),
                 "probed_cell_rows": cell_rows}
             del rows, found
-            # bound: each probed cell's live codes and scales read once;
-            # beside it the bound of each query reading its own live rows
+            # bound: each probed cell's live codes and scales read once, and
+            # the work the function needs: r = code * s and ||r||^2 once a
+            # probed cell's live row (3 flops a code), q'.r for each pair's
+            # live rows (2 flops a code); beside it the bound of each query
+            # reading its own live rows
             main_inputs["flash_probe_store_q8"] = (
                 lambda qp=qp, cd=codes_s, sc=scales_s, cn=cnts, pr=probe,
                 s=plans[2], r=r:
@@ -1708,7 +1720,8 @@ def main() -> int:
                                                    r),
                 H.scan_q8_store_bytes(IVF_B, NPROBE, width, d, r,
                                       rows_read=cell_rows),
-                5.0 * live_rows * d, [IVF_B, NPROBE, width, d, r],
+                2.0 * live_rows * d + 3.0 * cell_rows * d,
+                [IVF_B, NPROBE, width, d, r],
                 {"bound_query_rows_ms": H.scan_q8_store_bytes(
                     IVF_B, NPROBE, width, d, r, rows_read=live_rows)
                  / HBM_BW * 1e3})

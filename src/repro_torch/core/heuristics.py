@@ -363,7 +363,8 @@ def choose_store_splits(b: int, nprobe: int, width: int, d: int, l: int,
     return max(1, min(by_fill, by_rows))
 
 
-STORE_Q8_REGS = 85         # the q8 cell kernel's __launch_bounds__(256, 3) cap
+STORE_Q8_REGS = 128        # the q8 cell kernel's __launch_bounds__(256, 2) cap
+# (lists of 33-64 entries at d <= 32 take 1 CTA an SM; splits do not see it)
 
 
 def q8_store_ctas_per_sm(d: int, hw: Hardware = H100) -> int:

@@ -923,8 +923,8 @@ __global__ void __launch_bounds__(kThreads, kStoreMinBlocks)
 // in its order and lane pairing, so store and block modes agree bit for bit. Slot
 // offsets and tile sizes are multiples of 4 rows (the wrapper rounds the split), so the
 // scales' copies are 16-byte aligned; a tile's copy may run up to 3 rows past the live
-// ones, inside the cell's cap (a multiple of 4); stores whose scales are not 16-byte
-// aligned are copied by the threads.
+// ones, inside the cell's cap (a multiple of 4; the wrapper sends other stores, and
+// scales that do not start on 16 bytes, to the list mode).
 //
 // List mode, for longer lists and other rows (d % 16 != 0, the block kernel's scalar
 // path; d > 512): run_stage1 with StoreQ8Row, a CTA per split of a query's
@@ -935,7 +935,6 @@ __global__ void __launch_bounds__(kThreads, kStoreMinBlocks)
 // the 40-entry lists' insertions, hold it, as they hold the fp32 cell mode).
 
 constexpr int kQ8List = 64;  // longest list the q8 cell mode keeps, two entries a lane
-constexpr int kStoreQ8MinBlocks = 3;  // __launch_bounds__: at most 85 registers a thread
 
 struct SharedCodes {  // a row of codes in a shared-memory tile
   const int8_t* r;
@@ -1044,14 +1043,16 @@ struct Q8Rows {
 };
 
 // G lanes a row (d <= 16 G), its tiles dequantized once a unit into shared memory past
-// the ring: the rows' r values, then their ||r||^2.
+// the ring: the rows' r values, then their ||r||^2. Launch bounds: 2 CTAs an SM, at most
+// 128 registers a thread (at 3 CTAs, 80 registers, every instance spilled); 1 CTA for two
+// list entries a lane at 1 or 2 lanes a row (8 rows held a lane), which spilled at 128.
 template <int G, int kN>
-__global__ void __launch_bounds__(kThreads, kStoreQ8MinBlocks)
+__global__ void __launch_bounds__(kThreads, (kN > 1 && G < 4 ? 1 : 2))
     flash_probe_store_q8_kernel(const float* qp, const float* qsq, const int8_t* codes,
                                 const float* scales, const int* counts, const int* sc,
                                 const int* order, const int* units, int* work, int npairs,
                                 int P, int cap, int width, int d, int lp, int chunk, int S,
-                                int tile_rows, int bulk, float* pv, int* pi) {
+                                int tile_rows, float* pv, int* pi) {
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
   int* s_item = reinterpret_cast<int*>(smem + 8 * kCellStages);
   unsigned char* ring = smem + kCellHead;
@@ -1085,20 +1086,13 @@ __global__ void __launch_bounds__(kThreads, kStoreQ8MinBlocks)
       const int nt = min(tile_rows, hi - w0 - t * tile_rows);
       unsigned char* dst = ring + k * stage;
       const size_t r0 = row0 + (size_t)t * tile_rows;
-      if (bulk) {
-        if (threadIdx.x == 0) {
-          const int n4 = (nt + 3) & ~3;  // whole 16-byte groups of scales
-          const uint32_t cb = (uint32_t)((size_t)n4 * d), sb = (uint32_t)n4 * 4;
-          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-          mbar_expect_tx(smem_u32(bars + k), cb + sb);
-          bulk_load(smem_u32(dst), codes + r0 * d, cb, smem_u32(bars + k));
-          bulk_load(smem_u32(dst + code_bytes), scales + r0, sb, smem_u32(bars + k));
-        }
-      } else {
-        for (int e = threadIdx.x; e < nt * d; e += blockDim.x)
-          reinterpret_cast<int8_t*>(dst)[e] = codes[r0 * d + e];
-        for (int e = threadIdx.x; e < nt; e += blockDim.x)
-          reinterpret_cast<float*>(dst + code_bytes)[e] = scales[r0 + e];
+      if (threadIdx.x == 0) {
+        const int n4 = (nt + 3) & ~3;  // whole 16-byte groups of scales
+        const uint32_t cb = (uint32_t)((size_t)n4 * d), sb = (uint32_t)n4 * 4;
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        mbar_expect_tx(smem_u32(bars + k), cb + sb);
+        bulk_load(smem_u32(dst), codes + r0 * d, cb, smem_u32(bars + k));
+        bulk_load(smem_u32(dst + code_bytes), scales + r0, sb, smem_u32(bars + k));
       }
     };
     for (int t = 0; t < min(ntiles, kCellStages - 1); ++t) fill(t);
@@ -1122,8 +1116,7 @@ __global__ void __launch_bounds__(kThreads, kStoreQ8MinBlocks)
     for (int t = 0; t < ntiles; ++t) {
       if (t + kCellStages - 1 < ntiles) fill(t + kCellStages - 1);  // the stage freed last round
       const unsigned gt = used + t, k = gt % kCellStages;
-      if (bulk) mbar_wait(smem_u32(bars + k), (gt / kCellStages) & 1);
-      else __syncthreads();  // the threads' copies are visible
+      mbar_wait(smem_u32(bars + k), (gt / kCellStages) & 1);
       const int8_t* tc = reinterpret_cast<const int8_t*>(ring + k * stage);
       const float* ts = reinterpret_cast<const float*>(ring + k * stage + code_bytes);
       const int nrows = min(tile_rows, hi - w0 - t * tile_rows);
@@ -1368,7 +1361,7 @@ struct StoreQ8Args {
 };
 
 template <int G, int kN>
-cudaError_t launch_store_q8_cell(const StoreQ8Args& a, bool bulk, cudaStream_t st) {
+cudaError_t launch_store_q8_cell(const StoreQ8Args& a, cudaStream_t st) {
   const int npairs = a.B * a.P;
   auto kernel = flash_probe_store_q8_kernel<G, kN>;
   const size_t sm = kCellHead +
@@ -1392,20 +1385,20 @@ cudaError_t launch_store_q8_cell(const StoreQ8Args& a, bool bulk, cudaStream_t s
   kernel<<<(unsigned)(items < resident ? items : resident), kThreads, sm, st>>>(
       (const float*)a.qp, (const float*)a.qsq, (const int8_t*)a.codes, (const float*)a.scales,
       (const int*)a.counts, (const int*)a.sc, (const int*)a.order, units, units + npairs,
-      npairs, a.P, a.cap, a.width, a.d, a.lp, a.chunk, a.S, a.tile_rows, (int)bulk,
-      (float*)a.pv, (int*)a.pi);
+      npairs, a.P, a.cap, a.width, a.d, a.lp, a.chunk, a.S, a.tile_rows, (float*)a.pv,
+      (int*)a.pi);
   return cudaGetLastError();
 }
 
 template <int kN>
-cudaError_t launch_store_q8_g(int g, const StoreQ8Args& a, bool bulk, cudaStream_t st) {
+cudaError_t launch_store_q8_g(int g, const StoreQ8Args& a, cudaStream_t st) {
   switch (g) {
-    case 1: return launch_store_q8_cell<1, kN>(a, bulk, st);
-    case 2: return launch_store_q8_cell<2, kN>(a, bulk, st);
-    case 4: return launch_store_q8_cell<4, kN>(a, bulk, st);
-    case 8: return launch_store_q8_cell<8, kN>(a, bulk, st);
-    case 16: return launch_store_q8_cell<16, kN>(a, bulk, st);
-    default: return launch_store_q8_cell<32, kN>(a, bulk, st);
+    case 1: return launch_store_q8_cell<1, kN>(a, st);
+    case 2: return launch_store_q8_cell<2, kN>(a, st);
+    case 4: return launch_store_q8_cell<4, kN>(a, st);
+    case 8: return launch_store_q8_cell<8, kN>(a, st);
+    case 16: return launch_store_q8_cell<16, kN>(a, st);
+    default: return launch_store_q8_cell<32, kN>(a, st);
   }
 }
 
@@ -1414,12 +1407,13 @@ cudaError_t launch_store_q8(const StoreQ8Args& a, bool cell, cudaStream_t st) {
   const bool vec = a.d % 16 == 0 && aligned16(a.qp) && aligned16(a.codes);
   const int g = group_lanes(vec ? a.d / 16 : a.d);
   if (cell) {
-    // 8 rows a group of g lanes, one 16-code vector a lane (the wrapper sends other
-    // rows to the list mode)
-    if (!vec || a.d > 16 * g || a.tile_rows % (8 * (32 / g)) != 0) return cudaErrorInvalidValue;
-    const bool bulk = aligned16(a.scales) && a.cap % 4 == 0;
-    if (a.lp > kWarpList) return launch_store_q8_g<2>(g, a, bulk, st);
-    return launch_store_q8_g<1>(g, a, bulk, st);
+    // 8 rows a group of g lanes, one 16-code vector a lane, tiles copied in whole
+    // 16-byte groups of scales (the wrapper sends other rows and stores to the list mode)
+    if (!vec || a.d > 16 * g || a.tile_rows % (8 * (32 / g)) != 0 || a.cap % 4 != 0 ||
+        !aligned16(a.scales))
+      return cudaErrorInvalidValue;
+    if (a.lp > kWarpList) return launch_store_q8_g<2>(g, a, st);
+    return launch_store_q8_g<1>(g, a, st);
   }
   const dim3 grid(a.B, a.S);
   const size_t sm = stage1_smem(a.lp, a.lv);

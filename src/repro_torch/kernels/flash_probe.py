@@ -469,16 +469,19 @@ def store_q8_cell_smem(d: int) -> int:
 def store_q8_cell_mode(l: int, d: int) -> bool:
     """The q8 cell mode takes lists of at most ``STORE_Q8_LIST`` entries (two
     a lane) and rows of whole 16-code vectors, one a lane (``d % 16 == 0``,
-    ``d <= 512``); the list mode the rest."""
+    ``d <= 512``); the list mode the rest, and stores whose cap is not a
+    multiple of 4 or whose scales do not start on 16 bytes (the quantized
+    store rounds its cap to 8)."""
     return l <= STORE_Q8_LIST and d % 16 == 0 and d <= 512
 
 
-def store_q8_geometry(nprobe: int, width: int, d: int, l: int, splits: int
-                      ) -> tuple[int, int, int, int]:
+def store_q8_geometry(nprobe: int, width: int, d: int, l: int, splits: int,
+                      cell: bool | None = None) -> tuple[int, int, int, int]:
     """``(splits, chunk, lp, lists)`` of the q8 store scan, as
     ``store_geometry``; the cell mode's chunk is a multiple of 4 slots, so
-    that every tile's scales start on 16 bytes."""
-    if not store_q8_cell_mode(l, d):
+    that every tile's scales start on 16 bytes. ``cell``: the mode, by
+    default ``store_q8_cell_mode(l, d)``."""
+    if not (store_q8_cell_mode(l, d) if cell is None else cell):
         splits, chunk, lp = _launch_geometry(nprobe * width, l, splits)
         return splits, chunk, lp, splits
     splits = max(1, min(int(splits), width, 65535))
@@ -557,11 +560,14 @@ def flash_probe_store_q8_raw(qp: torch.Tensor, codes: torch.Tensor,
     qp, codes, scales = qp.contiguous(), codes.contiguous(), \
         scales.contiguous()
     counts, probe = counts.contiguous(), probe.contiguous()
-    splits, chunk, lp, lists = store_q8_geometry(nprobe, width, d, l, splits)
+    # the cell mode copies a tile's scales in whole 16-byte groups
+    cell = (store_q8_cell_mode(l, d) and cap % 4 == 0
+            and scales.data_ptr() % 16 == 0)
+    splits, chunk, lp, lists = store_q8_geometry(nprobe, width, d, l, splits,
+                                                 cell)
     if b * lists >= 2**31:
         raise ValueError(f"{who}: B * lists must fit int32")
     ptrs, keep = _buffers(b, l, lists, lp, qp.device)
-    cell = store_q8_cell_mode(l, d)
     qsq = torch.empty((b, nprobe), dtype=torch.float32, device=qp.device)
     if cell:
         tile_rows = store_q8_tile_rows(d)
