@@ -20,8 +20,9 @@ run and read just after:
   against ``search_brute`` and against the corpus's own exact neighbours;
   the fp32 and q8 searches (the store scans, which read the probed cells
   in place) held to the block path (the gathered candidate block and the
-  grouped scan) on the same batch; and full-probe exactness on a smaller
-  index.
+  grouped scan) on the same batch, and to the same search with the probe's
+  and the rescore's list modes (batch times, recall, device profiles); and
+  full-probe exactness on a smaller index.
 
 Before the paths, the sort-inverse update, FlashLloyd and the store scan
 are held to their plain versions on edge shapes (one segment over every
@@ -32,7 +33,10 @@ centroids, batches across clusters of 2 and 8, FlashLloyd's ids equal to
 FlashAssign's bit for bit; empty, full and over-width cells, fewer live rows
 than L, duplicate rows, the scalar path, bf16, one and several CTAs per
 pair; for the q8 store scan also live slots of scale 0 and lists of one and
-two entries a lane and longer). FlashAssign's scores and its distances (the
+two entries a lane and longer; FlashProbe's tile mode at B, K and L off its
+tiles, narrow and wide rows, duplicated centroids and clusters of 2 and 8;
+the block scan's warp mode at short blocks off a warp step, padding and
+duplicated rows and every lane count, bit for bit against its list mode). FlashAssign's scores and its distances (the
 launch that sums ||x||^2 itself) are held to the plain version everywhere
 it runs. Wherever the fused step fits, the two-pass and fused iterations are
 timed in alternation (auto must take the winner of most pairs) and split by
@@ -51,6 +55,7 @@ git-ignored output directory.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import os
@@ -126,6 +131,23 @@ CONTROL_REGIME = "largeN_smallK"
 PROBE_RAGGED = [(1, 1, 1, 1, False), (37, 100, 19, 7, False),
                 (5, 300, 129, 300, False), (64, 3000, 16, 3000, False),
                 (40, 150, 32, 60, True), (256, 1024, 128, 40, False)]
+# the probe's tile mode (lists of at most 64): (B, K, row) for each L of
+# TILE_L not above K, f32 and bf16, the planned cluster and clusters of 2
+# and 8: B off the 16-query tile, K = 1 and 33 (slices of a cluster empty),
+# K off the 64-row ring tile; rows of d = 128, of 16 bytes (the narrowest)
+# and of 1,024 (the widest); at B = 17 every centroid of the first half
+# again in the second (the lower-index rule across slices)
+PROBE_TILE_EDGE = [(b, k, 128) for b in (1, 17, 255)
+                   for k in (1, 33, 1025)] + [(17, 1025, "16 bytes"),
+                                              (17, 1025, "1024 bytes")]
+TILE_L = (1, 16, 32, 33, 64)
+# the block scan's warp mode (lists of at most 64, blocks of at most 1,024
+# rows): C x L (L <= C) at d = 128, B = 33 (the last CTA holds one query,
+# the last query's block ends the tensor at a C off 32), padding rows and
+# duplicated rows; and (C, L) = (41, 10) at d = 4 .. 512 (1 .. 32 lanes a
+# row). Each is held to the plain version and to the list mode bit for bit
+WARP_C, WARP_L = (1, 10, 40, 41, 300), (1, 10, 32, 33, 64)
+WARP_D = (4, 32, 64, 256, 512)
 # grouped scan: (B, C, d, L, padding rows per query, duplicated rows)
 SCAN_RAGGED = [(1, 5, 1, 1, 0, False), (7, 1000, 19, 7, 3, False),
                (16, 4100, 129, 40, 50, False), (3, 2500, 16, 2500, 10, False),
@@ -315,20 +337,41 @@ def main() -> int:
               f"({active * cl} CTAs)")
 
     # the q8 store scan's cell-mode instances (lanes a row, list entries a
-    # lane): its local memory is a stack frame, never spills
+    # lane): its local memory is a stack frame, never spills; nor may any
+    # instance of the probe's tile mode or the block scan's warp mode
     for fname, spill in spills.items():
         if "flash_probe_store_q8_kernel" in fname:
             g, kn = re.findall(r"ILi(\d+)ELi(\d+)E", fname)[0]
             check(bool(re.search(NO_SPILLS, spill)),
                   f"flash_probe_store_q8<{g} lanes, {32 * int(kn)} entries>: "
                   f"{spill} (no spills)")
+        for kern in ("flash_probe_tile_kernel",
+                     "flash_probe_grouped_warp_kernel"):
+            if kern in fname:
+                check(bool(re.search(NO_SPILLS, spill)),
+                      f"{kern} {fname}: {spill} (no spills)")
     for kname, (regs, local) in fp.kernel_attrs().items():
         cap = (H.PROBE_REGS if kname.endswith("_list")
                else H.STORE_Q8_REGS if kname.startswith("flash_probe_store_q8")
                else H.STORE_REGS if kname.startswith("flash_probe_store")
+               else H.PROBE_TILE_REGS if kname.startswith("flash_probe_tile")
+               else H.GROUPED_WARP_REGS
+               if kname.startswith("flash_probe_grouped_warp")
                else H.PROBE_REGS)
         check(regs <= cap, f"{kname}: {regs} registers <= {cap} (the "
               f"planner's model); {local} bytes of local memory")
+    # the probe's tile mode: its launch's shared memory, as the CUDA source
+    # computes it, against the planner's model, at the widest rows
+    bad = [(d, isz, l, cl, _build.probe_tile_smem(d * isz, l, cl),
+            fp.probe_tile_smem(d, isz, l, cl))
+           for isz, l, cl in itertools.product((2, 4), (1, 16, 33, 64),
+                                               fp.PROBE_CLUSTERS)
+           for d in (16 // isz, 128, fp.PROBE_TILE_ROW_BYTES // isz)]
+    bad = [b for b in bad if b[4] != b[5] or b[5] > H.H100.smem_block_bytes]
+    check(not bad, f"flash_probe_tile dynamic smem == the planner's model <= "
+                   f"{H.H100.smem_block_bytes} at every (d, itemsize, L, "
+                   f"cluster) of the grid; (d, itemsize, L, cluster, got, "
+                   f"model) off: {bad}")
     # the sort-inverse launch's layout and shared memory, as compiled,
     # against the planner's model
     for d, bf16 in itertools.product((1, 19, 128, 129, 512), (False, True)):
@@ -697,22 +740,41 @@ def main() -> int:
         max_err[kname] = max(max_err[kname], err)
 
     def probe_check(q, c, l, tag, splits=None):
+        """FlashProbe in the mode the wrapper takes (its row: the tile or
+        the list mode) against the plain version."""
         c32 = c.float()
         csq = (c32 * c32).sum(-1)
         score, mag = probe_scores(q, c)
         exp = fp.flash_probe_plain(q, c, csq, l)
+        n0 = fp.launches["flash_probe_tile"]
         got = ops.flash_probe(q, c, l=l, splits=splits, want_dists=False,
                               c_sq=csq)
-        topl_check("flash_probe", tag, got, exp, score, mag, q.shape[1])
+        kname = ("flash_probe_tile" if fp.launches["flash_probe_tile"] > n0
+                 else "flash_probe")
+        topl_check(kname, tag, got, exp, score, mag, q.shape[1])
         return got
 
     def scan_check(q, c, l, tag, splits=None):
+        """The block scan in the mode the wrapper takes (the warp or the
+        list mode) against the plain version; the warp mode also against
+        the list mode, bit for bit (same per-lane sums and lane pairing)."""
         score, mag = scan_scores(q, c)
         exp = fp.flash_probe_grouped_plain(q, c, l)
+        n0 = fp.launches["flash_probe_grouped_warp"]
         got = ops.flash_probe_grouped(q, c, l=l, splits=splits,
                                       want_dists=False)
-        topl_check("flash_probe_grouped", tag, got, exp, score, mag,
-                   q.shape[1])
+        warp = fp.launches["flash_probe_grouped_warp"] > n0
+        kname = "flash_probe_grouped_warp" if warp else "flash_probe_grouped"
+        topl_check(kname, tag, got, exp, score, mag, q.shape[1])
+        if warp:
+            for s_ in (1, 3):
+                lst = fp.flash_probe_grouped_raw(q, c, l, splits=s_,
+                                                 mode="list")
+                check(torch.equal(got[0], lst[0])
+                      and torch.equal(got[1], lst[1]),
+                      f"{kname} {tag}: indices and scores equal the list "
+                      f"mode's (splits={s_}) bit for bit "
+                      f"({int((got[0] != lst[0]).sum())} indices differ)")
         return got
 
     def store_check(q, buckets, counts, probe, width, l, tag, splits=None):
@@ -729,11 +791,14 @@ def main() -> int:
                                     want_dists=False)
         topl_check("flash_probe_store", tag, got, exp, score, mag,
                    q.shape[1])
-        blk = ops.flash_probe_grouped(q, cand, l=l, want_dists=False)
-        check(torch.equal(got[0], blk[0]) and torch.equal(got[1], blk[1]),
-              f"flash_probe_store {tag}: indices and scores equal the "
-              f"grouped kernel's on the gathered block, bit for bit "
-              f"({int((got[0] != blk[0]).sum())} indices differ)")
+        for how, blk in (
+                ("", ops.flash_probe_grouped(q, cand, l=l, want_dists=False)),
+                (", list mode", fp.flash_probe_grouped_raw(q, cand, l,
+                                                            mode="list"))):
+            check(torch.equal(got[0], blk[0]) and torch.equal(got[1], blk[1]),
+                  f"flash_probe_store {tag}: indices and scores equal the "
+                  f"grouped kernel's{how} on the gathered block, bit for bit "
+                  f"({int((got[0] != blk[0]).sum())} indices differ)")
         return got
 
     def q8_check(qp, codes, scales, l, tag, splits=None):
@@ -875,6 +940,49 @@ def main() -> int:
     # the new edges draw from a generator of their own, so that the data of
     # the later phases does not depend on them
     gen_e = torch.Generator(device=dev).manual_seed(SEED + 2)
+    print("\n[FlashProbe tile edges]", flush=True)
+    gen_t = torch.Generator(device=dev).manual_seed(SEED + 6)
+    n_tile, n0 = 0, fp.launches["flash_probe_tile"]
+    for b, k, row in PROBE_TILE_EDGE:
+        for cdt in (torch.float32, torch.bfloat16):
+            isz = 2 if cdt == torch.bfloat16 else 4
+            d = row if isinstance(row, int) else int(row.split()[0]) // isz
+            q = torch.randn(b, d, device=dev, generator=gen_t).to(cdt)
+            c = torch.randn(k, d, device=dev, generator=gen_t)
+            if b == 17:
+                c[k // 2:2 * (k // 2)] = c[:k // 2]
+            for l in (l_ for l_ in TILE_L if l_ <= k):
+                for splits in (None, 2, 8):
+                    probe_check(q, c.to(cdt), l, f"tile edge{(b, k, d, l)}/"
+                                f"{cdt}/cluster={splits or 'planned'}"
+                                + ("/duplicated" if b == 17 else ""), splits)
+                    n_tile += 1
+    check(fp.launches["flash_probe_tile"] - n0 == n_tile,
+          f"flash_probe_tile: every tile edge took the tile mode "
+          f"({fp.launches['flash_probe_tile'] - n0} of {n_tile} launches)")
+
+    print("\n[grouped scan warp edges]", flush=True)
+    n_warp, n0 = 0, fp.launches["flash_probe_grouped_warp"]
+    warp_cases = [(cn, l, 128) for cn in WARP_C for l in WARP_L if l <= cn]
+    warp_cases += [(41, 10, d) for d in WARP_D]
+    for cn, l, d in warp_cases:
+        q = torch.randn(33, d, device=dev, generator=gen_t)
+        c = torch.randn(33, cn, d, device=dev, generator=gen_t)
+        if cn >= 40:       # duplicated rows: the lower-index rule
+            c[:, cn // 2:2 * (cn // 2)] = c[:, :cn // 2]
+        if cn >= 10:       # store padding rows
+            rows = torch.randperm(cn, device=dev, generator=gen_t)[:cn // 8]
+            c[:, rows] = PAD
+        for cdt in (torch.float32, torch.bfloat16):
+            if (d * (2 if cdt == torch.bfloat16 else 4)) % 16:
+                continue
+            scan_check(q.to(cdt), c.to(cdt), l, f"warp edge{(33, cn, d, l)}/"
+                       f"{cdt}", 3)
+            n_warp += 1
+    check(fp.launches["flash_probe_grouped_warp"] - n0 == n_warp,
+          f"flash_probe_grouped_warp: every warp edge took the warp mode "
+          f"({fp.launches['flash_probe_grouped_warp'] - n0} of {n_warp} "
+          f"launches)")
     print("\n[sort-inverse edges]", flush=True)
     for r, segs, d, kind, chunk in SIU_EDGE:
         for cdt in (torch.float32, torch.bfloat16):
@@ -1028,11 +1136,39 @@ def main() -> int:
             t = getattr(ev, "self_device_time_total", None)
             if t is None:
                 t = getattr(ev, "self_cuda_time_total", 0.0)
-            if t > 0:
+            if t > 0:   # launch_ms: per recorded launch (the profiler may
+                # record fewer launches of a short kernel than were made)
                 rows.append({"name": ev.key, "ms": t / reps / 1e3,
-                             "calls": ev.count / reps})
+                             "calls": ev.count / reps,
+                             "launch_ms": t / ev.count / 1e3})
         rows.sort(key=lambda r: -r["ms"])
         return rows
+
+    def graph_ms(fn, n=50):
+        """Device time of one call of ``fn`` inside a CUDA graph of ``n``
+        back-to-back calls (CUDA events around a replay, the least of 3):
+        no host time between the launches, and no profiler."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(n):
+                fn()
+        graph.replay()
+        best = float("inf")
+        for _ in range(3):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            graph.replay()
+            e1.record()
+            torch.cuda.synchronize()
+            best = min(best, e0.elapsed_time(e1) / n)
+        del graph
+        return best
 
     def device_ms_of(fn, reps=10):
         """Device time of one call of ``fn`` (all its kernels), from the
@@ -1449,6 +1585,22 @@ def main() -> int:
         del x, c0, xb, cb, st, km
         torch.cuda.empty_cache()
 
+    @contextlib.contextmanager
+    def list_modes(index):
+        """The index searches with the probe's and block scan's list modes
+        (the kernels before the tile and warp modes): both mode rules answer
+        "list" and the index plans afresh; restored on exit."""
+        saved = (fp.probe_mode, fp.grouped_mode, index.planner,
+                 index._search_plans)
+        fp.probe_mode = fp.grouped_mode = lambda *a: "list"
+        index.planner = P.KernelPlanner(index.planner.hw)
+        index._search_plans = {}
+        try:
+            yield
+        finally:
+            (fp.probe_mode, fp.grouped_mode, index.planner,
+             index._search_plans) = saved
+
     # ---- phase 5: FlashIVF search at full width, fp32 and q8 -------------
     # a generator of its own: the corpus does not depend on what the earlier
     # phases draw
@@ -1494,9 +1646,10 @@ def main() -> int:
         # recall against search_brute (the index's own rows) and against
         # the corpus's exact neighbours; search_brute must equal the
         # latter, and every returned distance must be its id's true one
-        recall, recall_c = [], []
+        recall, recall_c, brute = [], [], []
         for i, ((ids, dd), qb) in enumerate(zip(results, queries)):
             ids_b, dd_b = index.search_brute(qb, topk=TOPK)
+            brute.append(ids_b)
             ids_t, _ = corpus_topk(x, qb, TOPK)
             recall.append(recall_at_k(ids, ids_b))
             recall_c.append(recall_at_k(ids, ids_t))
@@ -1518,12 +1671,13 @@ def main() -> int:
         check(recall >= 0.9 and recall_c >= 0.9,
               f"ivf/{codec} recall@{TOPK} {recall:.4f} (search_brute), "
               f"{recall_c:.4f} (corpus) >= 0.9")
-        need = ["flash_assign", "sort_inverse_update", "flash_probe"] + (
+        need = ["flash_assign", "sort_inverse_update", "flash_probe_tile"] + (
             ["flash_probe_store"] if codec == "fp32"
-            else ["flash_probe_store_q8", "flash_probe_grouped"])
-        idle = ["flash_probe_grouped_q8"] + (
-            ["flash_probe_grouped", "flash_probe_store_q8"] if codec == "fp32"
-            else ["flash_probe_store"])
+            else ["flash_probe_store_q8", "flash_probe_grouped_warp"])
+        idle = ["flash_probe_grouped_q8", "flash_probe",
+                "flash_probe_grouped"] + (
+            ["flash_probe_grouped_warp", "flash_probe_store_q8"]
+            if codec == "fp32" else ["flash_probe_store"])
         check(all(counts[kn] > 0 for kn in need)
               and all(counts[kn] == 0 for kn in idle),
               f"ivf/{codec} kernels launched: {counts}")
@@ -1534,6 +1688,36 @@ def main() -> int:
             for ids, dd in results)
         check(ok_out, f"ivf/{codec} results: ids in [0, N), finite "
                       f"ascending distances of shape ({IVF_B}, {TOPK})")
+        # the same batches with the list modes (the probe and block scan
+        # kernels before their tile and warp modes) in the same process:
+        # batch times, recall, and both searches' device profiles
+        with list_modes(index):
+            index.search(queries[0], topk=TOPK, nprobe=NPROBE)   # warm-up
+            res_l, ms_l = [], []
+            for qb in queries:
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                res_l.append(index.search(qb, topk=TOPK, nprobe=NPROBE))
+                e1.record()
+                torch.cuda.synchronize()
+                ms_l.append(e0.elapsed_time(e1))
+            prof_l = profile_steps(f"ivf/{codec} search, list modes",
+                                   lambda: index.search(
+                                       queries[0], topk=TOPK, nprobe=NPROBE))
+        prof = profile_steps(f"ivf/{codec} search", lambda: index.search(
+            queries[0], topk=TOPK, nprobe=NPROBE))
+        recall_l = statistics.mean(recall_at_k(ids, ids_b) for (ids, _), ids_b
+                                   in zip(res_l, brute))
+        ms_list = statistics.median(ms_l)
+        print(f"  list modes: {ms_list:.3f} ms per batch (median of "
+              f"{len(ms_l)}), recall@{TOPK} {recall_l:.4f}; device busy "
+              f"{prof['device_busy_ms']:.4f} ms in {prof['launches']:g} "
+              f"launches, list modes {prof_l['device_busy_ms']:.4f} ms in "
+              f"{prof_l['launches']:g}", flush=True)
+        check(abs(recall - recall_l) <= 0.0005,
+              f"ivf/{codec} recall@{TOPK} {recall:.4f} within 0.0005 of the "
+              f"list modes' {recall_l:.4f} on the same batches")
         details["ivf"].append(
             {"codec": codec, "N": n, "K": k, "d": d, "B": IVF_B,
              "topk": TOPK, "nprobe": NPROBE, "build_s": build_s,
@@ -1542,7 +1726,13 @@ def main() -> int:
              "batch_ms": batch_ms, "qps": IVF_B / ms * 1e3,
              "build_peak_gib": build_peak_gib, "search_peak_gib": peak_gib,
              "recall_at_10": recall,
-             "recall_at_10_corpus": recall_c, "launches": counts})
+             "recall_at_10_corpus": recall_c, "launches": counts,
+             "list_modes": {"ms_per_batch": ms_list, "batch_ms": ms_l,
+                            "recall_at_10": recall_l,
+                            "device_busy_ms": prof_l["device_busy_ms"],
+                            "launches": prof_l["launches"]},
+             "search_device_busy_ms": prof["device_busy_ms"],
+             "search_launches": prof["launches"]})
 
         # build's and add's kernels at the shapes this path gave them:
         # FlashAssign of the corpus on the built centroids, then the
@@ -1597,13 +1787,44 @@ def main() -> int:
                 "id_lookup_ms": ms_of(lookup),
                 "live_rows": live_rows, "probed_cells": int(cells.numel()),
                 "probed_cell_rows": cell_rows}
-            main_inputs["flash_probe"] = (
-                lambda qb=qb, c=index.centroids, cn=cnorm, s=plans[0]:
+            # the tile mode (f32, and bf16 off the path) and beside it the
+            # list mode with the splits its planner gives (the kernel before
+            # the tile mode); the two-call yardstick, timed only (its tie
+            # order is not held)
+            ctr = index.centroids
+            list_s = H.choose_probe_splits(IVF_B, k, NPROBE)
+            two = lambda qb=qb, c=ctr, cn=cnorm: torch.topk(
+                torch.addmm(cn, qb, c.t(), alpha=-2), NPROBE, largest=False)
+            main_inputs["flash_probe_tile"] = (
+                lambda qb=qb, c=ctr, cn=cnorm, s=plans[0]:
                 fp.flash_probe_raw(qb, c, cn, NPROBE, splits=s),
-                lambda qb=qb, c=index.centroids, cn=cnorm:
+                lambda qb=qb, c=ctr, cn=cnorm:
+                fp.flash_probe_plain(qb, c, cn, NPROBE),
+                H.probe_bytes(IVF_B, k, d, NPROBE), 2.0 * IVF_B * k * d,
+                [IVF_B, k, d, NPROBE],
+                {"two_call_ms": ms_of(two, reps=20),
+                 "two_call_device_ms": device_ms_of(two)})
+            off_path["ivf/flash_probe"] = (
+                lambda qb=qb, c=ctr, cn=cnorm:
+                fp.flash_probe_raw(qb, c, cn, NPROBE, splits=list_s,
+                                   mode="list"),
+                lambda qb=qb, c=ctr, cn=cnorm:
                 fp.flash_probe_plain(qb, c, cn, NPROBE),
                 H.probe_bytes(IVF_B, k, d, NPROBE), 2.0 * IVF_B * k * d,
                 [IVF_B, k, d, NPROBE], {})
+            qh, ch = qb.to(torch.bfloat16), ctr.to(torch.bfloat16)
+            chq = (ch.float() * ch.float()).sum(-1)
+            probe_check(qh, ch, NPROBE, "ivf/bf16", plans[0])
+            for kn, md, s_ in (("flash_probe_tile", None, plans[0]),
+                               ("flash_probe", "list", list_s)):
+                off_path[f"ivf-bf16/{kn}"] = (
+                    lambda qh=qh, ch=ch, cn=chq, s=s_, md=md:
+                    fp.flash_probe_raw(qh, ch, cn, NPROBE, splits=s,
+                                       mode=md),
+                    lambda qh=qh, ch=ch, cn=chq:
+                    fp.flash_probe_plain(qh, ch, cn, NPROBE),
+                    H.probe_bytes(IVF_B, k, d, NPROBE, 2),
+                    2.0 * IVF_B * k * d, [IVF_B, k, d, NPROBE], {})
             # bound: each probed cell's live rows read once; beside it the
             # bound of each query reading its own live rows
             main_inputs["flash_probe_store"] = (
@@ -1681,9 +1902,20 @@ def main() -> int:
             # rows, dequantized codes where missing, padding for id -1
             cand = ivf_mod._rescore_rows(deq, ids, rows, found)
             scan_check(qb, cand, TOPK, "ivf/q8-rescore", plans[4])
-            main_inputs["flash_probe_grouped"] = (
+            # the warp mode, and beside it the list mode with the splits
+            # its planner gives (the kernel before the warp mode)
+            main_inputs["flash_probe_grouped_warp"] = (
                 lambda qb=qb, cx=cand, s=plans[4]:
                 fp.flash_probe_grouped_raw(qb, cx, TOPK, splits=s),
+                lambda qb=qb, cx=cand:
+                fp.flash_probe_grouped_plain(qb, cx, TOPK),
+                H.scan_bytes(IVF_B, r, d, TOPK), 4.0 * IVF_B * r * d,
+                [IVF_B, r, d, TOPK], {})
+            off_path["ivf/flash_probe_grouped"] = (
+                lambda qb=qb, cx=cand, s=H.choose_probe_splits(IVF_B, r,
+                                                               TOPK):
+                fp.flash_probe_grouped_raw(qb, cx, TOPK, splits=s,
+                                           mode="list"),
                 lambda qb=qb, cx=cand:
                 fp.flash_probe_grouped_plain(qb, cx, TOPK),
                 H.scan_bytes(IVF_B, r, d, TOPK), 4.0 * IVF_B * r * d,
@@ -1749,7 +1981,10 @@ def main() -> int:
             *off_path.items()]:
         kern()
         torch.cuda.synchronize()
-        rows = device_rows(kern, 10)
+        for _ in range(3):   # the profiler now and then records no kernel
+            rows = device_rows(kern, 10)
+            if rows:
+                break
         # the event time is that of back-to-back wrapper calls, which the
         # host can pace; beside it the device's own time, by kernel
         timing[tag] = {
@@ -1757,10 +1992,21 @@ def main() -> int:
             "library_ms": None, "bytes": byt, "ops": ops_,
             "dtype": "float32", "shape": shape,
             "device_ms": sum(r["ms"] for r in rows),
+            "device_launch_ms": rows[0]["launch_ms"] if len(rows) == 1
+            else None,
             "library_device_ms": None, "device_rows": rows, **extra}
+        if tag.rsplit("/", 1)[1] in ("flash_probe_tile", "flash_probe",
+                                     "flash_probe_grouped_warp",
+                                     "flash_probe_grouped"):
+            timing[tag]["graph_ms"] = graph_ms(kern)
         print(f"  {tag} device time by kernel: " + "; ".join(
-            f"{r['name'][:48]} {r['ms']:.4f} ms x{r['calls']:g}"
-            for r in rows), flush=True)
+            f"{r['name'][:48]} {r['ms']:.4f} ms x{r['calls']:g} "
+            f"({r['launch_ms']:.4f} ms a launch)" for r in rows), flush=True)
+        if tag.endswith(("/flash_probe_tile", "/flash_probe_grouped_warp")):
+            kern_name = tag.rsplit("/", 1)[1] + "_kernel"
+            check(len(rows) == 1 and kern_name in rows[0]["name"],
+                  f"{tag}: one launch a call, of {kern_name} alone (the "
+                  f"device ran {[r['name'][:60] for r in rows]})")
     del main_inputs, off_path, x, centers, queries
     torch.cuda.empty_cache()
 
@@ -1806,16 +2052,21 @@ def main() -> int:
                 "sort_inverse_update":
                     "src/repro/kernels/sort_inverse_update.py:104",
                 "flash_lloyd": "src/repro/kernels/flash_lloyd.py:118",
+                "flash_probe_tile": "src/repro/kernels/flash_probe.py:301",
                 "flash_probe": "src/repro/kernels/flash_probe.py:301",
+                "flash_probe_grouped_warp":
+                    "src/repro/kernels/flash_probe.py:261",
                 "flash_probe_grouped": "src/repro/kernels/flash_probe.py:261",
                 "flash_probe_store": "src/repro/kernels/flash_probe.py:261",
                 "flash_probe_grouped_q8":
                     "src/repro/kernels/flash_probe.py:215",
                 "flash_probe_store_q8":
                     "src/repro/kernels/flash_probe.py:215"}
-    # the block q8 scan left the main path (the store scan took its place):
-    # it is held to the store scan and timed, and launched by no path
-    off_main = {"flash_probe_grouped_q8"}
+    # the block q8 scan left the main path (the store scan took its place),
+    # and the probe's and block scan's list modes (their tile and warp modes
+    # took their place there): each is held to its plain version and timed
+    # at the main path's shapes, and launched by no main path
+    off_main = {"flash_probe_grouped_q8", "flash_probe", "flash_probe_grouped"}
     # one empty launch: the least device time of any launch (the floor the
     # kernel table's latency-bound kernels are ranked against)
     empty = {"device_ms": device_ms_of(lambda: _build.empty_launch(dev),
@@ -1857,10 +2108,17 @@ def main() -> int:
         lib = (f"; library {t['library_ms']:.4f} ms, the kernel "
                f"{'faster' if t['ms'] < t['library_ms'] else 'slower'}"
                if t["library_ms"] is not None else "")
+        if t.get("device_launch_ms") is not None:
+            lib += f"; device time a launch {t['device_launch_ms']:.4f} ms"
+        if "graph_ms" in t:
+            lib += f"; in a CUDA graph {t['graph_ms']:.4f} ms a call"
         if "device_ms" in t:
             lib += f"; device time {t['device_ms']:.4f} ms" + (
                 f" against the library's {t['library_device_ms']:.4f} ms"
                 if t["library_device_ms"] is not None else "")
+        if "two_call_ms" in t:
+            lib += (f"; two calls (addmm, topk) {t['two_call_ms']:.4f} ms, "
+                    f"device {t['two_call_device_ms']:.4f} ms")
         print(f"  {tag}: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f} ms by "
               f"{t['bound_by']}{cuda_core}{per_query}; plain "
               f"{t['plain_ms']:.3f} ms{lib})")

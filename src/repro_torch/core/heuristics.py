@@ -330,6 +330,22 @@ def choose_probe_splits(b: int, c: int, l: int, hw: Hardware = H100) -> int:
     return max(1, min(by_fill, by_rows))
 
 
+PROBE_TILE_REGS = 128      # tile mode: __launch_bounds__(256, 2)
+PROBE_TILE_MIN_SLICE = 64  # tile mode: fewest centroids worth a CTA of a cluster
+GROUPED_WARP_REGS = 255    # the warp mode's __launch_bounds__(128): no cap
+
+
+def choose_probe_cluster(b: int, k: int, hw: Hardware = H100) -> int:
+    """The tile mode's cluster size: enough CTAs to fill every SM once
+    (``ceil(b / 16)`` query tiles times the cluster), none with a slice
+    under ``PROBE_TILE_MIN_SLICE`` centroids; one of 1, 2, 4, 8
+    (``flash_probe.probe_cluster``). At B = 256, K = 1,024 that is 8: 128
+    CTAs; at B >= 2,112 it is 1."""
+    tiles = -(-max(1, b) // _fp.PROBE_TILE_QUERIES)
+    want = min(-(-hw.num_sms // tiles), -(-max(1, k) // PROBE_TILE_MIN_SLICE))
+    return _fp.probe_cluster(want)
+
+
 STORE_REGS = 64            # the cell kernel's __launch_bounds__(256, 4) cap
 STORE_CELL_PAIRS = PROBE_THREADS // 32  # pairs of one cell a unit scores
 STORE_WAVES = 1            # cell mode: work items per resident CTA, fewest units

@@ -108,7 +108,8 @@ class KernelPlan:
     hw: str
     impl: str             # assign: "flash" | update: "sort_inverse"
                           # step: "fused" / "two_pass" | probe:
-                          # "online_topl" | scan: "grouped_scan" |
+                          # "tile_topl" / "online_topl" | scan:
+                          # "grouped_scan_warp" / "grouped_scan" |
                           # scan_store: "store_scan_cell" /
                           # "store_scan_list" |
                           # scan_q8: "grouped_scan_q8" |
@@ -249,24 +250,37 @@ class KernelPlanner:
             hbm_bytes=assign.hbm_bytes + update.hbm_bytes)
 
     def _probe_plan(self, op: str, s: tuple, b: int) -> KernelPlan:
-        """A FlashProbe kernel: ``blocks = (splits, PROBE_TILE)`` — CTAs per
-        query along the candidate axis and rows per selection round."""
+        """A FlashProbe kernel. The probe's tile mode (``flash_probe.
+        probe_mode``): ``blocks = (cluster, PROBE_TILE_QUERIES)``, the
+        cluster size and queries a CTA. The block scan's warp mode
+        (``grouped_mode``): ``blocks = (1, GROUPED_WARP_QUERIES)``, no
+        split, queries a CTA, no dynamic shared memory. Otherwise (the list
+        mode) ``blocks = (splits, PROBE_TILE)``: CTAs per query along the
+        candidate axis and rows per selection round."""
         H, hw = heuristics, self.hw
         n, c, d, l = s
-        splits = H.choose_probe_splits(n, c, l, hw)
-        lp = min(l, -(-c // splits))
-        smem = max(H.probe_footprint(lp), H.probe_merge_footprint(l)
-                   if splits > 1 else 0)
         if op == "probe":
             impl, hbm = "online_topl", H.probe_bytes(n, c, d, l, b)
         elif op == "scan":
             impl, hbm = "grouped_scan", H.scan_bytes(n, c, d, l, b)
         else:
             impl, hbm = "grouped_scan_q8", H.scan_q8_bytes(n, c, d, l)
-        return KernelPlan(op=op, shape=s, itemsize=b, hw=hw.name, impl=impl,
-                          blocks=(splits, H.PROBE_TILE), block=None,
-                          smem_bytes=smem, smem_limit=hw.smem_block_bytes,
-                          hbm_bytes=hbm)
+        mk = lambda **kw: KernelPlan(op=op, shape=s, itemsize=b, hw=hw.name,
+                                     block=None, smem_limit=hw.smem_block_bytes,
+                                     hbm_bytes=hbm, **kw)
+        if op == "probe" and _fp.probe_mode(l, d, b) == "tile":
+            cl = H.choose_probe_cluster(n, c, hw)
+            return mk(impl="tile_topl",
+                      blocks=(cl, _fp.PROBE_TILE_QUERIES),
+                      smem_bytes=_fp.probe_tile_smem(d, b, l, cl))
+        if op == "scan" and _fp.grouped_mode(l, c, d, b) == "warp":
+            return mk(impl="grouped_scan_warp",
+                      blocks=(1, _fp.GROUPED_WARP_QUERIES), smem_bytes=0)
+        splits = H.choose_probe_splits(n, c, l, hw)
+        lp = min(l, -(-c // splits))
+        smem = max(H.probe_footprint(lp), H.probe_merge_footprint(l)
+                   if splits > 1 else 0)
+        return mk(impl=impl, blocks=(splits, H.PROBE_TILE), smem_bytes=smem)
 
     def _store_plan(self, s: tuple, b: int) -> KernelPlan:
         """The store scan: ``blocks = (splits, PROBE_TILE)``, the splits of

@@ -1,6 +1,7 @@
 // Shared pieces of the flash-kmeans CUDA kernels (sm_90a): type conversion, the
-// mbarrier operations of the TMA pipelines (tc_argmin.cuh, flash_probe.cu) and
-// ||c||^2 by rows (the q8 scan's query norms).
+// mbarrier operations of the TMA pipelines (tc_argmin.cuh, flash_probe.cu), the
+// cluster operations (flash_lloyd.cu, flash_probe.cu) and ||c||^2 by rows (the q8
+// scan's query norms).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -44,6 +45,33 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
                "r"(bytes)
                : "memory");
+}
+
+// Thread-block clusters (flash_lloyd.cu, flash_probe.cu): this CTA's rank, the
+// cluster-wide barrier, and reads of another CTA's shared memory.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// every thread of every CTA of the cluster; orders the shared-memory writes
+// before it (release) against the reads after it (acquire)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;" ::: "memory");
+}
+
+// the address of the same shared-memory offset in CTA `rank` of the cluster
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ int ld_cluster(uint32_t addr) {
+  int v;
+  asm volatile("ld.shared::cluster.b32 %0, [%1];" : "=r"(v) : "r"(addr) : "memory");
+  return v;
 }
 
 // ||c||^2 for every row of c, one warp per row (a template, so that each source

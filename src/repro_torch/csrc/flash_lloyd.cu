@@ -94,31 +94,6 @@ inline size_t smem_bytes(bool f32, int dp, int ks, int cluster) {
          (size_t)kAdderWarps * cluster * kBM * 4 + 4 * ((size_t)ks * dp + ks);
 }
 
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-
-// every thread of every CTA of the cluster; orders the shared-memory writes
-// before it (release) against the reads after it (acquire)
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;" ::: "memory");
-}
-
-// the address of the same shared-memory offset in CTA `rank` of the cluster
-__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(addr), "r"(rank));
-  return r;
-}
-
-__device__ __forceinline__ int ld_cluster(uint32_t addr) {
-  int v;
-  asm volatile("ld.shared::cluster.b32 %0, [%1];" : "=r"(v) : "r"(addr) : "memory");
-  return v;
-}
-
 // arrives on an mbarrier of a CTA of the cluster (release at cluster scope)
 __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
   asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(bar)

@@ -1,8 +1,13 @@
 // FlashProbe for Hopper (sm_90a): fused distance + online top-L selection.
 //
 // Replaces the three Pallas TPU kernels of src/repro/kernels/flash_probe.py:
-//   flash_probe_raw            (_flash_probe_kernel, l.73)            -> flash_probe_kernel
-//   flash_probe_grouped_raw    (_flash_probe_grouped_kernel, l.116)   -> flash_probe_grouped_kernel
+//   flash_probe_raw            (_flash_probe_kernel, l.73)            -> flash_probe_tile_kernel
+//                                                                        (lists of at most 64),
+//                                                                        flash_probe_kernel
+//   flash_probe_grouped_raw    (_flash_probe_grouped_kernel, l.116)   -> flash_probe_grouped_warp_kernel
+//                                                                        (lists of at most 64,
+//                                                                        blocks of at most 1,024 rows),
+//                                                                        flash_probe_grouped_kernel
 //                              and, reading the padded store in place instead of a
 //                              gathered block (with gather_global, repro/index/store.py)
 //                                                                     -> flash_probe_store_kernel
@@ -40,12 +45,20 @@
 // Tiles are swept in index order, but order does not matter: (score, index) is a total
 // order, so the top-L set and its order are those of a stable sort of all scores.
 //
+// That design (the list mode) serves lists longer than the modes below keep.
+//
 // What bounds it on the H100: bytes. The grouped kernels read a per-query candidate
 // block that no other query shares (B * C * d * 4 bytes in fp32, C * (d + 4) per query
 // in q8), once, with streaming 16-byte loads; scoring costs 2 d flops per row, far below
 // the fp32 rate per byte. Selection touches only the few rows that beat the running
-// L-th entry. The probe kernel at the IVF shape (B = 256 queries, K = 1024) moves about
-// 0.6 MB and is bound by its launch, not tuned here.
+// L-th entry. The probe kernel at the IVF shape (B = 256 queries, K = 1024, d = 128)
+// moves about 0.6 MB and does 67 MFLOP, 0.001 ms at the CUDA cores' fp32 rate: it is
+// bound by latency (its loads, the selection's dependent shuffles, the launch). Its tile
+// mode (flash_probe_tile_kernel, lists of at most 64) therefore reads each centroid once
+// per query tile, not once per query, scores on the CUDA cores in fp32 FMAs (3xTF32
+// wgmma would add a parity argument and buy nothing at this size), selects in
+// registers, and merges a cluster's partial lists in one launch. The short-list block
+// scan (the q8 rescore) has a warp-per-query mode (flash_probe_grouped_warp_kernel).
 #include "common.cuh"
 
 namespace fk {
@@ -649,6 +662,22 @@ struct StoreRows {
   }
 };
 
+// (tv, ti) = entry lp - 1 of a warp's list, on every lane.
+template <int kN>
+__device__ __forceinline__ void list_tail(int lp, const float (&mv)[kN], const int (&mi)[kN],
+                                          float& tv, int& ti) {
+  float sv = mv[0];
+  int si = mi[0];
+#pragma unroll
+  for (int j = 1; j < kN; ++j)
+    if ((lp - 1) >> 5 == j) {
+      sv = mv[j];
+      si = mi[j];
+    }
+  tv = __shfl_sync(0xffffffffu, sv, (lp - 1) & 31);
+  ti = __shfl_sync(0xffffffffu, si, (lp - 1) & 31);
+}
+
 // Insert (s, x) into a warp's ascending list of lp <= 32 kN entries, lane i holding
 // entries i + 32 j in (mv[j], mi[j]); (tv, ti) is entry lp - 1 on every lane. s, x are
 // the same on every lane.
@@ -689,22 +718,99 @@ __device__ __forceinline__ void warp_insert(float s, int x, int lp, int lane, fl
       mi[j] = ui[j];
     }
   }
-  float sv = mv[0];
-  int si = mi[0];
+  list_tail(lp, mv, mi, tv, ti);
+}
+
+// Candidates offered at least this many: sorted and merged at once (warp_sort,
+// warp_merge_sorted), else inserted one by one (warp_insert).
+constexpr int kSortMin = 4;
+
+// Sorts the 32 kS keys (v, x) a warp holds, kS a lane (position p at lane p & 31, slot
+// p >> 5), ascending by (value, index): a bitonic network, the exchanges across lanes
+// by shuffles.
+template <int kS>
+__device__ __forceinline__ void warp_sort(float (&v)[kS], int (&x)[kS], int lane) {
 #pragma unroll
-  for (int j = 1; j < kN; ++j)
-    if ((lp - 1) >> 5 == j) {
-      sv = mv[j];
-      si = mi[j];
+  for (int k = 2; k <= 32 * kS; k <<= 1)
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      if (j == 32) {  // positions lane and lane + 32, in one lane; ascending (k == 64)
+        if (key_less(v[1], x[1], v[0], x[0])) {
+          const float tv = v[0];
+          const int tx = x[0];
+          v[0] = v[1];
+          x[0] = x[1];
+          v[1] = tv;
+          x[1] = tx;
+        }
+      } else {
+#pragma unroll
+        for (int s = 0; s < kS; ++s) {
+          const int p = 32 * s + lane;
+          const float ov = __shfl_xor_sync(0xffffffffu, v[s], j);
+          const int ox = __shfl_xor_sync(0xffffffffu, x[s], j);
+          const bool keep_min = ((p & k) == 0) == ((p & j) == 0);
+          if (keep_min ? key_less(ov, ox, v[s], x[s]) : key_less(v[s], x[s], ov, ox)) {
+            v[s] = ov;
+            x[s] = ox;
+          }
+        }
+      }
     }
-  tv = __shfl_sync(0xffffffffu, sv, (lp - 1) & 31);
-  ti = __shfl_sync(0xffffffffu, si, (lp - 1) & 31);
+}
+
+// Keeps in a warp's list (mv, mi: 32 kN ascending positions, as warp_insert's) the
+// 32 kN smallest keys of the list and of the sorted candidates (cv, ci: 32 kS
+// positions, the same layout): c[p] = min(list[p], cand[32 kN - 1 - p]) holds them and
+// is bitonic, and a bitonic merge sorts it. Positions past the list's lp entries only
+// ever hold keys at or above its lp-th, so the first lp are those of inserting the
+// candidates one by one.
+template <int kN, int kS>
+__device__ __forceinline__ void warp_merge_sorted(float (&mv)[kN], int (&mi)[kN],
+                                                  const float (&cv)[kS], const int (&ci)[kS],
+                                                  int lane) {
+#pragma unroll
+  for (int s = 0; s < kN; ++s) {  // candidate 32 (kN - 1 - s) + 31 - lane
+    constexpr int kLast = kS - 1;
+    const int cs = kN - 1 - s;
+    const float rv = __shfl_sync(0xffffffffu, cv[cs < kS ? cs : kLast], 31 - lane);
+    const int ri = __shfl_sync(0xffffffffu, ci[cs < kS ? cs : kLast], 31 - lane);
+    if (cs < kS && key_less(rv, ri, mv[s], mi[s])) {
+      mv[s] = rv;
+      mi[s] = ri;
+    }
+  }
+#pragma unroll
+  for (int j = 16 * kN; j > 0; j >>= 1) {
+    if (j == 32) {
+      if (key_less(mv[kN - 1], mi[kN - 1], mv[0], mi[0])) {
+        const float tv = mv[0];
+        const int tx = mi[0];
+        mv[0] = mv[kN - 1];
+        mi[0] = mi[kN - 1];
+        mv[kN - 1] = tv;
+        mi[kN - 1] = tx;
+      }
+    } else {
+#pragma unroll
+      for (int s = 0; s < kN; ++s) {
+        const float ov = __shfl_xor_sync(0xffffffffu, mv[s], j);
+        const int ox = __shfl_xor_sync(0xffffffffu, mi[s], j);
+        const bool keep_min = (lane & j) == 0;
+        if (keep_min ? key_less(ov, ox, mv[s], mi[s]) : key_less(mv[s], mi[s], ov, ox)) {
+          mv[s] = ov;
+          mi[s] = ox;
+        }
+      }
+    }
+  }
 }
 
 // Rows [r0, r1) of `rows` into a warp's list of lp entries, candidate index base + r:
 // each group of G lanes scores 8 rows at once, and the rows that beat the lp-th entry
-// are inserted one by one.
-template <class Rows, int G, int kN>
+// are inserted one by one, or with kSort, where at least kSortMin of them do, sorted
+// and merged at once.
+template <class Rows, int G, int kN, bool kSort = false>
 __device__ __forceinline__ void warp_scan(const Rows& rows, int r0, int r1, int base, int lp,
                                           int lane, float (&mv)[kN], int (&mi)[kN], float& tv,
                                           int& ti) {
@@ -721,6 +827,17 @@ __device__ __forceinline__ void warp_scan(const Rows& rows, int r0, int r1, int 
       const int r = rg + hb + i;
       const int idx = base + r;
       unsigned m = __ballot_sync(0xffffffffu, holder && r < r1 && key_less(v[i], idx, tv, ti));
+      if constexpr (kSort) {
+        if (__popc(m) >= kSortMin) {  // uniform
+          const bool mine = (m >> lane) & 1u;
+          float cv[1] = {mine ? v[i] : INFINITY};
+          int ci[1] = {mine ? idx : kSentinel};
+          warp_sort(cv, ci, lane);
+          warp_merge_sorted(mv, mi, cv, ci, lane);
+          list_tail(lp, mv, mi, tv, ti);
+          continue;
+        }
+      }
       while (m) {  // uniform
         const int src = __ffs(m) - 1;
         m &= m - 1;
@@ -1143,6 +1260,347 @@ __global__ void __launch_bounds__(kThreads, (kN > 1 && G < 4 ? 1 : 2))
   }
 }
 
+// ---- kernel 4, tile mode: query tiles over a cluster's centroid slices -------------
+//
+// For lists of at most kTileList entries and rows of whole 16-byte vectors, at most
+// kTileRowBytes long (the wrapper sends other rows, unaligned pointers and longer lists
+// to the list mode). A CTA takes a tile of kTileQ queries, staged once in shared memory
+// (zeros past N). The S CTAs of a thread-block cluster (S = 1, 2, 4 or 8, along x) split
+// the K centroids into slices of `chunk`; each streams its slice's rows through a
+// two-stage cp.async ring of kTileK-row tiles, so every centroid is read from L2 once
+// per query tile, not once per query.
+//
+// Scoring, on the CUDA cores in fp32: warp w owns queries 2w and 2w + 1 of the tile,
+// lane l rows l and l + 32 of a ring tile. Each lane sums its four dot products along d
+// in element order from one 16-byte shared load of each row a step (the query rows are
+// a broadcast; the staged rows are padded to an odd number of 16-byte units, so the 8
+// lanes of a load phase hit 8 bank groups); the score is csq - 2 q.c. Selection: each
+// warp keeps its two queries' running lists in registers (lane i holds entries i and
+// i + 32); after each tile a ballot offers only the scores that beat a list's L-th
+// entry, inserted one by one (warp_insert) or, where at least kSortMin do, sorted
+// across the lanes and merged into the list at once (warp_sort, warp_merge_sorted: the
+// first tile's all beat an empty list). There is no survivor buffer in shared memory.
+// Rows past the slice (or
+// past K) are never offered; a cluster's CTAs whose slice is empty keep empty lists.
+//
+// Merge: with S > 1 every CTA leaves its sorted partial lists in shared memory. After a
+// cluster barrier CTA r copies, from every CTA of the cluster (ld.shared::cluster), the
+// S lists of queries r, r + S, ... of the tile; after a second barrier (no CTA exits
+// while another reads its memory) each entry goes to its rank, as in merge_lists: its
+// position in its own list plus the entries of the other lists strictly before it. The
+// keys are distinct (the slices are disjoint) except the empty entries (+inf,
+// kSentinel), whose ranks are at least L: the lists hold at least min(L, K) = L real
+// entries between them. So the probe is one launch, with no global partial lists.
+//
+// What bounds it: latency. At B = 256, K = 1024, d = 128 (S = 8, 128 CTAs) a CTA scores
+// 16 x 128 pairs (262,144 FMAs) and selects through chains of dependent shuffles (a
+// sort and merge of 64, or a few insertions, a tile and query), with two warps per SM
+// sub-partition to hide them.
+
+constexpr int kTileQ = 16;           // queries a CTA, two a warp
+constexpr int kTileK = 64;           // centroid rows a ring tile, two a lane
+constexpr int kTileStages = 2;       // ring tiles
+constexpr int kTileList = 64;        // longest list the tile mode keeps, two entries a lane
+constexpr int kTileRowBytes = 1024;  // longest row the tile mode stages
+
+// Bytes from one staged row to the next: the row's 16-byte units, made odd.
+__host__ __device__ inline int tile_row_stride(int row_bytes) {
+  return 16 * ((row_bytes / 16) | 1);
+}
+
+// Dynamic shared memory of a tile-mode CTA: the query tile and the ring, and with S > 1
+// the partial lists (kTileQ of L entries) and the lists of the queries it merges.
+__host__ __device__ inline size_t tile_smem(int row_bytes, int L, int S) {
+  size_t b = (size_t)(kTileQ + kTileStages * kTileK) * tile_row_stride(row_bytes);
+  if (S > 1) b += (size_t)8 * L * (kTileQ + (size_t)((kTileQ + S - 1) / S) * S);
+  return b;
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+__device__ __forceinline__ void sts128_zero(uint32_t addr) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};" ::"r"(addr), "r"(0) : "memory");
+}
+
+// Grid (ceil(N / kTileQ) * S), clusters of (S, 1, 1): CTA x takes query tile x / S and
+// centroid slice x % S, rows [rank * chunk, min(K, (rank + 1) * chunk)).
+template <typename T, int kN>
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_probe_tile_kernel(const T* q, const T* c, const float* csq, int N, int K, int d,
+                            int L, int chunk, int S, float* out_v, int* out_i) {
+  constexpr int V = Vec16<T>::N;
+  using VT = typename Vec16<T>::V;
+  const int vpr = d / V;  // 16-byte units of a row
+  const int rs = tile_row_stride(d * (int)sizeof(T));
+  const uint32_t qs = smem_u32(smem);
+  const uint32_t ring = qs + kTileQ * rs;
+  float* part_v = reinterpret_cast<float*>(smem + (size_t)(kTileQ + kTileStages * kTileK) * rs);
+  int* part_i = reinterpret_cast<int*>(part_v + kTileQ * L);
+  float* stg_v = reinterpret_cast<float*>(part_i + kTileQ * L);
+  int* stg_i = reinterpret_cast<int*>(stg_v + (size_t)((kTileQ + S - 1) / S) * S * L);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rank = (int)(blockIdx.x % S);  // the CTA's rank in its cluster
+  const long long b0 = (long long)(blockIdx.x / S) * kTileQ;
+  const int k0 = (int)min((long long)K, (long long)rank * chunk);
+  const int k1 = (int)min((long long)K, (long long)k0 + chunk);
+  const int ntiles = (k1 - k0 + kTileK - 1) / kTileK;
+
+  for (int e = tid; e < kTileQ * vpr; e += kThreads) {  // the query tile
+    const int r = e / vpr, u = e - r * vpr;
+    const uint32_t dst = qs + r * rs + u * 16;
+    if (b0 + r < N) cp_async16(dst, q + (size_t)(b0 + r) * d + u * V);
+    else sts128_zero(dst);
+  }
+  auto fill = [&](int t) {  // ring tile t of the slice, then a commit
+    const int r0 = k0 + t * kTileK, nr = min(kTileK, k1 - r0);
+    const uint32_t dst = ring + (t % kTileStages) * kTileK * rs;
+    for (int e = tid; e < nr * vpr; e += kThreads) {
+      const int r = e / vpr, u = e - r * vpr;
+      cp_async16(dst + r * rs + u * 16, c + (size_t)(r0 + r) * d + u * V);
+    }
+    cp_async_commit();
+  };
+  if (ntiles > 0) fill(0);
+  else cp_async_commit();
+
+  float mv[2][kN], tv[2];
+  int mi[2][kN], ti[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    tv[i] = INFINITY;
+    ti[i] = kSentinel;
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      mv[i][j] = INFINITY;
+      mi[i][j] = kSentinel;
+    }
+  }
+  const uint32_t qa = qs + 2 * warp * rs;  // this warp's two query rows
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // tile t is in for every thread; every warp is done with tile t - 1
+    if (t + 1 < ntiles) fill(t + 1);  // into the stage tile t - 1 held
+    const uint32_t ca = ring + (t % kTileStages) * kTileK * rs + lane * rs;
+    float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll 2
+    for (int u = 0; u < vpr; ++u) {
+      VT rq0, rq1, rc0, rc1;
+      lds128(qa + u * 16, rq0);
+      lds128(qa + rs + u * 16, rq1);
+      lds128(ca + u * 16, rc0);
+      lds128(ca + 32 * rs + u * 16, rc1);
+      float q0[V], q1[V], c0[V], c1[V];
+      unpack(rq0, q0);
+      unpack(rq1, q1);
+      unpack(rc0, c0);
+      unpack(rc1, c1);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        acc[0][0] = fmaf(q0[e], c0[e], acc[0][0]);
+        acc[0][1] = fmaf(q0[e], c1[e], acc[0][1]);
+        acc[1][0] = fmaf(q1[e], c0[e], acc[1][0]);
+        acc[1][1] = fmaf(q1[e], c1[e], acc[1][1]);
+      }
+    }
+    const int r0 = k0 + t * kTileK;
+    float cs[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int k = r0 + lane + 32 * j;
+      cs[j] = k < k1 ? __ldg(csq + k) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float sv[2];
+      int sx[2];
+      bool beat[2];
+      int n = 0;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        sv[j] = cs[j] - 2.f * acc[i][j];
+        sx[j] = r0 + lane + 32 * j;
+        beat[j] = sx[j] < k1 && key_less(sv[j], sx[j], tv[i], ti[i]);
+        n += __popc(__ballot_sync(0xffffffffu, beat[j]));
+      }
+      if (n >= kSortMin) {  // uniform: sort the tile's 64 and merge them at once
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          sv[j] = beat[j] ? sv[j] : INFINITY;
+          sx[j] = beat[j] ? sx[j] : kSentinel;
+        }
+        warp_sort(sv, sx, lane);
+        warp_merge_sorted(mv[i], mi[i], sv, sx, lane);
+        list_tail(L, mv[i], mi[i], tv[i], ti[i]);
+        continue;
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        unsigned m = __ballot_sync(0xffffffffu, beat[j]);
+        while (m) {  // uniform
+          const int src = __ffs(m) - 1;
+          m &= m - 1;
+          warp_insert(__shfl_sync(0xffffffffu, sv[j], src), r0 + 32 * j + src, L, lane,
+                      mv[i], mi[i], tv[i], ti[i]);
+        }
+      }
+    }
+  }
+
+  if (S == 1) {  // the lists are the outputs
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const long long b = b0 + 2 * warp + i;
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+        const int e = 32 * j + lane;
+        if (b < N && e < L) {
+          out_v[b * L + e] = mv[i][j];
+          out_i[b * L + e] = mi[i][j];
+        }
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      const int e = 32 * j + lane;
+      if (e < L) {
+        part_v[(2 * warp + i) * L + e] = mv[i][j];
+        part_i[(2 * warp + i) * L + e] = mi[i][j];
+      }
+    }
+  cluster_sync();  // every CTA's partial lists are written
+  const int mq = (kTileQ - rank + S - 1) / S;  // queries rank, rank + S, ... of the tile
+  const int per = S * L;                       // entries of one query's lists
+  for (int e = tid; e < mq * per; e += kThreads) {
+    const int m = e / per, o = (e - m * per) / L, j = e - m * per - o * L;
+    const int qi = rank + m * S;
+    stg_v[e] = __int_as_float(ld_cluster(map_rank(smem_u32(part_v + qi * L + j), o)));
+    stg_i[e] = ld_cluster(map_rank(smem_u32(part_i + qi * L + j), o));
+  }
+  cluster_sync();  // the copies are visible here, and no CTA reads another's memory after it
+  for (int e = tid; e < mq * per; e += kThreads) {
+    const int m = e / per, o = (e - m * per) / L, j = e - m * per - o * L;
+    const long long b = b0 + rank + m * S;
+    const float v = stg_v[e];
+    const int x = stg_i[e];
+    const float* lv = stg_v + m * per;
+    const int* li = stg_i + m * per;
+    int r = j;
+    for (int p = 0; p < S; ++p)
+      if (p != o) r += count_before<true>(lv + p * L, li + p * L, L, v, x);
+    if (r < L && b < N) {
+      out_v[b * L + r] = v;
+      out_i[b * L + r] = x;
+    }
+  }
+}
+
+// ---- kernel 5, block mode, short lists: a warp per query ----------------------------
+//
+// For lists of at most kTileList entries over blocks of at most kWarpScanRows rows of
+// whole 16-byte vectors (the q8 rescore: C = R = 40, L = topk). A CTA of kWarpQueries
+// warps takes as many queries; each warp scans its own query's block with warp_scan,
+// the list in registers (lane i holds entries i and i + 32), a step's rows sorted and
+// merged at once where at least kSortMin beat the list (the first step's all do): no
+// shared memory, no barrier. A step's loads (at most 4 vectors of 8 rows a lane: rows
+// of at most 2 KiB) are all issued before its sums, so a step waits on memory once. BlockRows reads the rows straight from the block in global memory,
+// streamed (__ldcs), in StoreRows::score8's order, with the same lane count (scan_lanes)
+// and tree8 pairing, so every score is bitwise the list mode's (GroupedRow) and the
+// store scan's. A warp step covers 8 rows a group of G lanes; rows of a step at or past
+// C are read from row C - 1 (never offered), so no load leaves the query's block, and
+// the live rows' sums do not change (tree8 keeps each row's sum to itself).
+
+constexpr int kWarpQueries = 4;      // warps, and queries, a CTA
+constexpr int kWarpScanRows = 1024;  // longest block a warp scans alone
+constexpr int kWarpVecs = 4;         // 16-byte vectors of a row a lane, at most
+constexpr int kWarpRowBytes = 2048;  // longest row: scan_lanes gives at most 4 a lane
+
+template <typename T, int G>
+struct BlockRows {
+  const T* q;     // the query's row (d)
+  const T* rows;  // its block (C, d) in global memory
+  int C, d;
+
+  template <bool kPad>
+  __device__ __forceinline__ void score8(int w, int lane_g, float (&v)[8]) const {
+    static_assert(!kPad, "a gathered block holds its padding rows");
+    constexpr int V = Vec16<T>::N;
+    using VT = typename Vec16<T>::V;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) v[r] = 0.f;
+    VT raw[kWarpVecs][8];  // vectors j = (lane_g + t G) V of the 8 rows, all in flight
+#pragma unroll
+    for (int t = 0; t < kWarpVecs; ++t) {
+      const int j = (lane_g + t * G) * V;
+      if (j < d)
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          raw[t][r] =
+              __ldcs(reinterpret_cast<const VT*>(rows + (size_t)min(w + r, C - 1) * d + j));
+    }
+#pragma unroll
+    for (int t = 0; t < kWarpVecs; ++t) {  // summed in expanded_part's order
+      const int j = (lane_g + t * G) * V;
+      if (j < d) {
+        float qm2[V];
+        load_vec<T, false>(q + j, qm2);
+#pragma unroll
+        for (int e = 0; e < V; ++e) qm2[e] *= -2.f;
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          float cv[V];
+          unpack(raw[t][r], cv);
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            v[r] = fmaf(cv[e], cv[e], v[r]);
+            v[r] = fmaf(qm2[e], cv[e], v[r]);
+          }
+        }
+      }
+    }
+    tree8<G / 2, 8>(v, lane_g);
+  }
+};
+
+template <typename T, int G, int kN>
+__global__ void __launch_bounds__(32 * kWarpQueries)
+    flash_probe_grouped_warp_kernel(const T* q, const T* c, int B, int C, int d, int L,
+                                    float* out_v, int* out_i) {
+  const int lane = threadIdx.x & 31;
+  const long long b = (long long)blockIdx.x * kWarpQueries + (threadIdx.x >> 5);
+  if (b >= B) return;  // uniform across the warp; no barrier follows
+  const BlockRows<T, G> rows{q + b * d, c + b * C * d, C, d};
+  float mv[kN], tv = INFINITY;
+  int mi[kN], ti = kSentinel;
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+    mv[j] = INFINITY;
+    mi[j] = kSentinel;
+  }
+  warp_scan<BlockRows<T, G>, G, kN, true>(rows, 0, C, 0, L, lane, mv, mi, tv, ti);
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+    const int e = 32 * j + lane;
+    if (e < L) {
+      out_v[b * L + e] = mv[j];
+      out_i[b * L + e] = mi[j];
+    }
+  }
+}
+
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     flash_probe_kernel(const T* q, const T* c, const float* csq, int K, int d, int lp,
@@ -1284,6 +1742,83 @@ cudaError_t launch_grouped(const void* q, const void* c, int B, int C, int d, in
   kernel<<<grid, kThreads, sm, st>>>((const T*)q, (const T*)c, C, d, lp, chunk, g, (float*)pv,
                                      (int*)pi, (float*)lv, (int*)li);
   return cudaGetLastError();
+}
+
+// The tile mode: clusters of S CTAs along x (cudaLaunchKernelEx), one launch.
+template <typename T, int kN>
+cudaError_t launch_tile_n(const void* q, const void* c, const void* csq, void* out_v,
+                          void* out_i, int N, int K, int d, int L, int S, int chunk,
+                          cudaStream_t st) {
+  auto kernel = flash_probe_tile_kernel<T, kN>;
+  const size_t sm = tile_smem(d * (int)sizeof(T), L, S);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)sm);
+  if (e != cudaSuccess) return e;
+  const long long tiles = ((long long)N + kTileQ - 1) / kTileQ;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(tiles * S), 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = sm;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, (const T*)q, (const T*)c, (const float*)csq, N, K, d,
+                         L, chunk, S, (float*)out_v, (int*)out_i);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_tile(const void* q, const void* c, const void* csq, void* out_v,
+                        void* out_i, int N, int K, int d, int L, int S, int chunk,
+                        cudaStream_t st) {
+  const int row = d * (int)sizeof(T);
+  if (L < 1 || L > kTileList || L > K || row % 16 != 0 || row > kTileRowBytes ||
+      !aligned16(q) || !aligned16(c) || (S != 1 && S != 2 && S != 4 && S != 8) ||
+      (long long)chunk * S < K)
+    return cudaErrorInvalidValue;
+  if (L > kWarpList) return launch_tile_n<T, 2>(q, c, csq, out_v, out_i, N, K, d, L, S, chunk, st);
+  return launch_tile_n<T, 1>(q, c, csq, out_v, out_i, N, K, d, L, S, chunk, st);
+}
+
+// The block scan's warp mode: kWarpQueries queries a CTA.
+template <typename T, int G, int kN>
+cudaError_t launch_grouped_warp_g(const void* q, const void* c, void* out_v, void* out_i,
+                                  int B, int C, int d, int L, cudaStream_t st) {
+  const unsigned blocks = (unsigned)(((long long)B + kWarpQueries - 1) / kWarpQueries);
+  flash_probe_grouped_warp_kernel<T, G, kN><<<blocks, 32 * kWarpQueries, 0, st>>>(
+      (const T*)q, (const T*)c, B, C, d, L, (float*)out_v, (int*)out_i);
+  return cudaGetLastError();
+}
+
+template <typename T, int kN>
+cudaError_t launch_grouped_warp_n(int g, const void* q, const void* c, void* out_v,
+                                  void* out_i, int B, int C, int d, int L, cudaStream_t st) {
+  switch (g) {
+    case 1: return launch_grouped_warp_g<T, 1, kN>(q, c, out_v, out_i, B, C, d, L, st);
+    case 2: return launch_grouped_warp_g<T, 2, kN>(q, c, out_v, out_i, B, C, d, L, st);
+    case 4: return launch_grouped_warp_g<T, 4, kN>(q, c, out_v, out_i, B, C, d, L, st);
+    case 8: return launch_grouped_warp_g<T, 8, kN>(q, c, out_v, out_i, B, C, d, L, st);
+    case 16: return launch_grouped_warp_g<T, 16, kN>(q, c, out_v, out_i, B, C, d, L, st);
+    default: return launch_grouped_warp_g<T, 32, kN>(q, c, out_v, out_i, B, C, d, L, st);
+  }
+}
+
+template <typename T>
+cudaError_t launch_grouped_warp(const void* q, const void* c, void* out_v, void* out_i, int B,
+                                int C, int d, int L, cudaStream_t st) {
+  constexpr int V = Vec16<T>::N;
+  if (L < 1 || L > kTileList || L > C || C > kWarpScanRows || d % V != 0 ||
+      d * (int)sizeof(T) > kWarpRowBytes || !aligned16(q) || !aligned16(c))
+    return cudaErrorInvalidValue;
+  const int g = scan_lanes(d / V);  // the list mode's lane count: bitwise its scores
+  if (L > kWarpList) return launch_grouped_warp_n<T, 2>(g, q, c, out_v, out_i, B, C, d, L, st);
+  return launch_grouped_warp_n<T, 1>(g, q, c, out_v, out_i, B, C, d, L, st);
 }
 
 // The store scan's arguments (fk_flash_probe_store).
@@ -1466,6 +2001,37 @@ extern "C" int fk_flash_probe_grouped(const void* q, const void* c, void* out_v,
   return (int)merge_partials(B, S, lp, L, part_v, part_i, mws_v, mws_i, out_v, out_i, st);
 }
 
+// The probe's tile mode (lists of at most 64, rows of whole 16-byte vectors of at most
+// 1,024 bytes, 16-byte aligned q and c): S (1, 2, 4 or 8) CTAs of a cluster split K in
+// slices of chunk (chunk * S >= K); outputs out_v f32 (N, L), out_i int32 (N, L).
+extern "C" int fk_flash_probe_tile(const void* q, const void* c, const void* csq, void* out_v,
+                                   void* out_i, int N, int K, int d, int L, int S, int chunk,
+                                   int is_bf16, void* stream) {
+  using namespace fk::probe;
+  cudaStream_t st = (cudaStream_t)stream;
+  return (int)(is_bf16 ? launch_tile<__nv_bfloat16>(q, c, csq, out_v, out_i, N, K, d, L, S,
+                                                   chunk, st)
+                       : launch_tile<float>(q, c, csq, out_v, out_i, N, K, d, L, S, chunk, st));
+}
+
+// The tile mode's dynamic shared memory for rows of row_bytes, lists of L, clusters of S.
+extern "C" int fk_flash_probe_tile_smem(int row_bytes, int L, int S, int* out) {
+  *out = (int)fk::probe::tile_smem(row_bytes, L, S);
+  return 0;
+}
+
+// The block scan's warp mode (lists of at most 64, blocks of at most 1,024 rows of whole
+// 16-byte vectors, 16-byte aligned q and c): a warp per query, no partial lists.
+extern "C" int fk_flash_probe_grouped_warp(const void* q, const void* c, void* out_v,
+                                           void* out_i, int B, int C, int d, int L, int is_bf16,
+                                           void* stream) {
+  using namespace fk::probe;
+  cudaStream_t st = (cudaStream_t)stream;
+  return (int)(is_bf16
+                   ? launch_grouped_warp<__nv_bfloat16>(q, c, out_v, out_i, B, C, d, L, st)
+                   : launch_grouped_warp<float>(q, c, out_v, out_i, B, C, d, L, st));
+}
+
 // The store scan: q (B, d), buckets (K, cap, d) of q's dtype, counts (K,), probe (B, P)
 // int32. cell != 0 (the cell mode): sc and order are probe's cells sorted and
 // their positions b * P + p, units scratch of B * P + 2 ints; S splits of each pair's
@@ -1558,7 +2124,13 @@ extern "C" int fk_flash_probe_attrs(int which, int* regs, int* local_bytes) {
     case 6: e = cudaFuncGetAttributes(&a, flash_probe_store_list_kernel<float, true>); break;
     case 7: e = cudaFuncGetAttributes(&a, flash_probe_store_q8_kernel<8, 1>); break;
     case 8: e = cudaFuncGetAttributes(&a, flash_probe_store_q8_kernel<8, 2>); break;
-    default: e = cudaFuncGetAttributes(&a, flash_probe_store_q8_list_kernel<true>);
+    case 9: e = cudaFuncGetAttributes(&a, flash_probe_store_q8_list_kernel<true>); break;
+    case 10: e = cudaFuncGetAttributes(&a, flash_probe_tile_kernel<float, 1>); break;
+    case 11: e = cudaFuncGetAttributes(&a, flash_probe_tile_kernel<float, 2>); break;
+    case 12: e = cudaFuncGetAttributes(&a, flash_probe_tile_kernel<__nv_bfloat16, 1>); break;
+    case 13: e = cudaFuncGetAttributes(&a, flash_probe_grouped_warp_kernel<float, 8, 1>); break;
+    case 14: e = cudaFuncGetAttributes(&a, flash_probe_grouped_warp_kernel<float, 8, 2>); break;
+    default: return (int)cudaErrorInvalidValue;
   }
   if (e != cudaSuccess) return (int)e;
   *regs = a.numRegs;

@@ -52,9 +52,15 @@ SIGNATURES = {
     # q, c, csq, 8 output/partial/scratch pointers, N, K, d, L, S, chunk,
     # lp, is_bf16, stream
     "fk_flash_probe": (_P,) * 11 + (_I,) * 8 + (_P,),
+    # q, c, csq, out_v, out_i, N, K, d, L, cluster, chunk, is_bf16, stream
+    "fk_flash_probe_tile": (_P,) * 5 + (_I,) * 7 + (_P,),
+    # row bytes, L, cluster, bytes out
+    "fk_flash_probe_tile_smem": (_I, _I, _I, ctypes.POINTER(_I)),
     # q, c, 8 output/partial/scratch pointers, B, C, d, L, S, chunk, lp,
     # is_bf16, stream
     "fk_flash_probe_grouped": (_P,) * 10 + (_I,) * 8 + (_P,),
+    # q, c, out_v, out_i, B, C, d, L, is_bf16, stream
+    "fk_flash_probe_grouped_warp": (_P,) * 4 + (_I,) * 5 + (_P,),
     # qp, codes, scales, qsq, 8 output/partial/scratch pointers, B, P, W,
     # d, L, S, chunk, lp, stream
     "fk_flash_probe_grouped_q8": (_P,) * 12 + (_I,) * 8 + (_P,),
@@ -197,6 +203,17 @@ def assign_dynamic_smem(is_bf16: bool, d: int, want_dists: bool = False
     check(lib().fk_flash_assign_smem(int(is_bf16), d, int(want_dists),
                                      ctypes.byref(out)),
           "cudaFuncGetAttributes")
+    return int(out.value)
+
+
+def probe_tile_smem(row_bytes: int, l: int, cluster: int) -> int:
+    """The dynamic shared memory of FlashProbe's tile-mode launch (rows of
+    ``row_bytes``, lists of ``l``, clusters of ``cluster``), as the CUDA
+    source computes it."""
+    out = ctypes.c_int(0)
+    check(lib().fk_flash_probe_tile_smem(row_bytes, l, cluster,
+                                         ctypes.byref(out)),
+          "fk_flash_probe_tile_smem")
     return int(out.value)
 
 

@@ -3,11 +3,14 @@
 The kernels are ``csrc/flash_probe.cu`` (CUDA C++ for sm_90a); they
 replace the Pallas TPU kernels of ``repro/kernels/flash_probe.py``:
 
-- ``flash_probe_raw`` (``flash_probe_kernel``): queries against one shared
-  centroid set — the ``nprobe`` cell selection;
-- ``flash_probe_grouped_raw`` (``flash_probe_grouped_kernel``): each query
-  against its own gathered candidate block — the exact rescore of the q8
-  path;
+- ``flash_probe_raw`` (``flash_probe_tile_kernel`` for lists of at most
+  64 over rows of whole 16-byte vectors, ``flash_probe_kernel``
+  otherwise): queries against one shared centroid set — the ``nprobe``
+  cell selection;
+- ``flash_probe_grouped_raw`` (``flash_probe_grouped_warp_kernel`` for
+  lists of at most 64 over blocks of at most 1,024 such rows of at most
+  2 KiB, ``flash_probe_grouped_kernel`` otherwise): each query against its
+  own gathered candidate block — the exact rescore of the q8 path;
 - ``flash_probe_store_raw`` (``flash_probe_store_kernel``, and
   ``flash_probe_store_list_kernel`` for lists longer than 32): the same
   function over the probed cells of the padded store, read in place
@@ -26,8 +29,11 @@ Each returns ``(indices int32 (B, l), scores f32 (B, l))``, ascending by
 (score, index): equal scores go to the lower index, as ``lax.top_k``.
 The port returns exactly ``l`` columns (the reference pads ``l`` to a
 multiple of 8 and slices). ``splits`` is the number of CTAs that share
-one query's candidate axis (``core.heuristics.choose_probe_splits``); the
-result does not depend on it.
+one query's candidate axis (``core.heuristics.choose_probe_splits``; in
+the probe's tile mode the cluster size, ``choose_probe_cluster``, and in
+the block scan's warp mode unused); the result does not depend on it.
+``mode`` picks a kernel's mode where it has two (``None``: the rule of
+``probe_mode`` / ``grouped_mode``).
 
 Dispatch is by the tensors' device: CPU tensors go to the ``*_plain``
 versions (the same math in plain PyTorch, with a stable sort), CUDA
@@ -45,7 +51,8 @@ LIST_SMEM_MAX = 2048   # longest running list held in shared memory
 DTYPES = (torch.float32, torch.bfloat16)
 
 # kernel launches (CUDA only); reset by callers that count
-launches = {"flash_probe": 0, "flash_probe_grouped": 0,
+launches = {"flash_probe_tile": 0, "flash_probe": 0,
+            "flash_probe_grouped_warp": 0, "flash_probe_grouped": 0,
             "flash_probe_store": 0, "flash_probe_grouped_q8": 0,
             "flash_probe_store_q8": 0}
 
@@ -121,9 +128,58 @@ def _buffers(b: int, l: int, splits: int, lp: int, device):
     return ptrs, keep
 
 
+def _aligned(*ts: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
 # ---------------------------------------------------------------------------
 # kernel 4: shared centroids
 # ---------------------------------------------------------------------------
+
+PROBE_TILE_QUERIES = 16    # queries a tile-mode CTA (csrc kTileQ)
+PROBE_TILE_ROWS = 64       # centroid rows a ring tile (csrc kTileK)
+PROBE_TILE_STAGES = 2      # ring tiles (csrc kTileStages)
+PROBE_TILE_LIST = 64       # longest list the tile mode keeps (csrc kTileList)
+PROBE_TILE_ROW_BYTES = 1024  # longest row the tile mode stages
+PROBE_CLUSTERS = (1, 2, 4, 8)  # cluster sizes of the tile mode
+
+
+def probe_mode(l: int, d: int, itemsize: int) -> str:
+    """``"tile"`` for lists of at most ``PROBE_TILE_LIST`` over rows of
+    whole 16-byte vectors of at most ``PROBE_TILE_ROW_BYTES``; ``"list"``
+    otherwise (and, in the wrapper, for pointers off 16 bytes)."""
+    row = d * itemsize
+    return ("tile" if l <= PROBE_TILE_LIST and row % 16 == 0
+            and row <= PROBE_TILE_ROW_BYTES else "list")
+
+
+def probe_cluster(splits: int) -> int:
+    """The tile mode's cluster size for ``splits`` CTAs a query: the
+    largest of ``PROBE_CLUSTERS`` not above it."""
+    return max(s for s in PROBE_CLUSTERS if s <= max(1, int(splits)))
+
+
+def probe_tile_geometry(n: int, k: int, splits: int) -> tuple[int, int, int]:
+    """``(cluster, chunk, tiles)`` of the tile mode: query tile ``t`` of
+    ``PROBE_TILE_QUERIES`` rows and the ``cluster`` CTAs of its cluster,
+    CTA ``s`` taking centroids ``[s * chunk, min(k, (s + 1) * chunk))``;
+    the grid is ``tiles * cluster`` CTAs."""
+    s = probe_cluster(splits)
+    return s, -(-k // s), -(-n // PROBE_TILE_QUERIES)
+
+
+def probe_tile_smem(d: int, itemsize: int, l: int, cluster: int) -> int:
+    """Dynamic shared bytes of a tile-mode CTA (csrc ``tile_smem``): the
+    query tile and the ring, rows padded to an odd number of 16-byte
+    units; with a cluster also the partial lists and the staged lists of
+    the queries the CTA merges."""
+    stride = 16 * ((d * itemsize // 16) | 1)
+    b = (PROBE_TILE_QUERIES + PROBE_TILE_STAGES * PROBE_TILE_ROWS) * stride
+    if cluster > 1:
+        merged = -(-PROBE_TILE_QUERIES // cluster) * cluster
+        b += 8 * l * (PROBE_TILE_QUERIES + merged)
+    return b
+
 
 def flash_probe_plain(q: torch.Tensor, c: torch.Tensor, c_sq: torch.Tensor,
                       l: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -135,11 +191,13 @@ def flash_probe_plain(q: torch.Tensor, c: torch.Tensor, c_sq: torch.Tensor,
 
 
 def flash_probe_raw(q: torch.Tensor, c: torch.Tensor, c_sq: torch.Tensor,
-                    l: int, *, splits: int = 1
+                    l: int, *, splits: int = 1, mode: str | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-l centroids per query: q (N, d), c (K, d), c_sq (K,) f32 (the
     centroids' ``||c||^2``). Returns ``(indices int32 (N, l), scores f32
-    (N, l))``, score ``||c||^2 - 2 q.c``."""
+    (N, l))``, score ``||c||^2 - 2 q.c``. ``mode``: ``"tile"`` (one
+    launch; ``splits`` is the cluster size, ``probe_cluster``) or
+    ``"list"``; by default ``probe_mode``'s, for 16-byte aligned q and c."""
     if q.ndim != 2 or c.ndim != 2 or q.shape[1] != c.shape[1]:
         raise ValueError(f"flash_probe: q must be (N, d) and c (K, d), got "
                          f"{tuple(q.shape)} and {tuple(c.shape)}")
@@ -158,12 +216,27 @@ def flash_probe_raw(q: torch.Tensor, c: torch.Tensor, c_sq: torch.Tensor,
         return (torch.empty((0, l), dtype=torch.int32, device=q.device),
                 torch.empty((0, l), dtype=torch.float32, device=q.device))
     q, c, c_sq = q.contiguous(), c.contiguous(), c_sq.contiguous()
+    tile = probe_mode(l, d, q.element_size()) == "tile" and _aligned(q, c)
+    if mode not in (None, "tile", "list") or mode == "tile" and not tile:
+        raise ValueError(f"flash_probe: mode {mode!r} does not take l={l}, "
+                         f"d={d}, {q.dtype} (or pointers off 16 bytes)")
+    bf16 = int(q.dtype == torch.bfloat16)
+    if tile and mode != "list":
+        cluster, chunk, _ = probe_tile_geometry(n, k, splits)
+        out_v = torch.empty((n, l), dtype=torch.float32, device=q.device)
+        out_i = torch.empty((n, l), dtype=torch.int32, device=q.device)
+        code = _build.lib().fk_flash_probe_tile(
+            q.data_ptr(), c.data_ptr(), c_sq.data_ptr(), out_v.data_ptr(),
+            out_i.data_ptr(), n, k, d, l, cluster, chunk, bf16,
+            _build.stream_ptr(q.device))
+        _build.check(code, "flash_probe_tile kernel launch")
+        launches["flash_probe_tile"] += 1
+        return out_i, out_v
     splits, chunk, lp = _launch_geometry(k, l, splits)
     ptrs, keep = _buffers(n, l, splits, lp, q.device)
     code = _build.lib().fk_flash_probe(
         q.data_ptr(), c.data_ptr(), c_sq.data_ptr(), *ptrs, n, k, d, l,
-        splits, chunk, lp, int(q.dtype == torch.bfloat16),
-        _build.stream_ptr(q.device))
+        splits, chunk, lp, bf16, _build.stream_ptr(q.device))
     _build.check(code, "flash_probe kernel launch")
     launches["flash_probe"] += 1
     return keep[1], keep[0]
@@ -172,6 +245,23 @@ def flash_probe_raw(q: torch.Tensor, c: torch.Tensor, c_sq: torch.Tensor,
 # ---------------------------------------------------------------------------
 # kernel 5: per-query candidate blocks
 # ---------------------------------------------------------------------------
+
+GROUPED_WARP_LIST = 64      # longest list the warp mode keeps (csrc kTileList)
+GROUPED_WARP_ROWS = 1024    # longest block a warp scans alone (kWarpScanRows)
+GROUPED_WARP_ROW_BYTES = 2048  # longest row (kWarpRowBytes): 4 vectors a lane
+GROUPED_WARP_QUERIES = 4    # warps, and queries, a warp-mode CTA
+
+
+def grouped_mode(l: int, c: int, d: int, itemsize: int) -> str:
+    """``"warp"`` (a warp per query) for lists of at most
+    ``GROUPED_WARP_LIST`` over blocks of at most ``GROUPED_WARP_ROWS`` rows
+    of whole 16-byte vectors, at most ``GROUPED_WARP_ROW_BYTES`` long;
+    ``"list"`` otherwise (and, in the wrapper, for pointers off 16 bytes).
+    Both give the same scores bit for bit."""
+    row = d * itemsize
+    return ("warp" if l <= GROUPED_WARP_LIST and c <= GROUPED_WARP_ROWS
+            and row % 16 == 0 and row <= GROUPED_WARP_ROW_BYTES else "list")
+
 
 def flash_probe_grouped_plain(q: torch.Tensor, c: torch.Tensor, l: int
                               ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -183,11 +273,13 @@ def flash_probe_grouped_plain(q: torch.Tensor, c: torch.Tensor, l: int
 
 
 def flash_probe_grouped_raw(q: torch.Tensor, c: torch.Tensor, l: int, *,
-                            splits: int = 1
+                            splits: int = 1, mode: str | None = None
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-l of each query's own candidates: q (B, d), c (B, C, d).
     Returns ``(indices int32 (B, l) into the candidate axis, scores f32
-    (B, l))``, score ``||c||^2 - 2 q.c``."""
+    (B, l))``, score ``||c||^2 - 2 q.c``. ``mode``: ``"warp"`` (a warp
+    per query; ``splits`` unused) or ``"list"``; by default
+    ``grouped_mode``'s, for 16-byte aligned q and c."""
     if (q.ndim != 2 or c.ndim != 3 or c.shape[0] != q.shape[0]
             or c.shape[2] != q.shape[1]):
         raise ValueError(f"flash_probe_grouped: q must be (B, d) and c "
@@ -204,11 +296,27 @@ def flash_probe_grouped_raw(q: torch.Tensor, c: torch.Tensor, l: int, *,
         return (torch.empty((0, l), dtype=torch.int32, device=q.device),
                 torch.empty((0, l), dtype=torch.float32, device=q.device))
     q, c = q.contiguous(), c.contiguous()
+    warp = (grouped_mode(l, cn, d, q.element_size()) == "warp"
+            and _aligned(q, c))
+    if mode not in (None, "warp", "list") or mode == "warp" and not warp:
+        raise ValueError(f"flash_probe_grouped: mode {mode!r} does not take "
+                         f"l={l}, C={cn}, d={d}, {q.dtype} (or pointers off "
+                         f"16 bytes)")
+    bf16 = int(q.dtype == torch.bfloat16)
+    if warp and mode != "list":
+        out_v = torch.empty((b, l), dtype=torch.float32, device=q.device)
+        out_i = torch.empty((b, l), dtype=torch.int32, device=q.device)
+        code = _build.lib().fk_flash_probe_grouped_warp(
+            q.data_ptr(), c.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
+            b, cn, d, l, bf16, _build.stream_ptr(q.device))
+        _build.check(code, "flash_probe_grouped_warp kernel launch")
+        launches["flash_probe_grouped_warp"] += 1
+        return out_i, out_v
     splits, chunk, lp = _launch_geometry(cn, l, splits)
     ptrs, keep = _buffers(b, l, splits, lp, q.device)
     code = _build.lib().fk_flash_probe_grouped(
         q.data_ptr(), c.data_ptr(), *ptrs, b, cn, d, l, splits, chunk, lp,
-        int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device))
+        bf16, _build.stream_ptr(q.device))
     _build.check(code, "flash_probe_grouped kernel launch")
     launches["flash_probe_grouped"] += 1
     return keep[1], keep[0]
@@ -602,7 +710,12 @@ def kernel_attrs() -> dict[str, tuple[int, int]]:
                                   "flash_probe_store_list",
                                   "flash_probe_store_q8",
                                   "flash_probe_store_q8<64 entries>",
-                                  "flash_probe_store_q8_list")):
+                                  "flash_probe_store_q8_list",
+                                  "flash_probe_tile",
+                                  "flash_probe_tile<64 entries>",
+                                  "flash_probe_tile<bf16>",
+                                  "flash_probe_grouped_warp",
+                                  "flash_probe_grouped_warp<64 entries>")):
         regs, local = ctypes.c_int(0), ctypes.c_int(0)
         _build.check(_build.lib().fk_flash_probe_attrs(
             which, ctypes.byref(regs), ctypes.byref(local)),

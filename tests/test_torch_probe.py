@@ -239,7 +239,10 @@ def test_probe_plans_fit_shared_memory(op, shape):
     planner = P.KernelPlanner(H.hopper_row("h100_test"))
     p = planner.plan(op, shape, 1 if op == "scan_q8" else 4)
     splits, tile = p.blocks
-    assert tile == fp.TILE and splits >= 1
+    # the probe's tile mode plans (cluster, queries a CTA); the list modes
+    # (splits, rows a selection round)
+    want = fp.PROBE_TILE_QUERIES if p.impl == "tile_topl" else fp.TILE
+    assert tile == want and splits >= 1
     assert p.smem_bytes <= p.smem_limit
     assert planner.plan(op, shape, 1 if op == "scan_q8" else 4) is p
     assert planner.chooser_calls == 1
@@ -283,3 +286,209 @@ def test_quant8_codes_equal_jax_bit_for_bit():
     ones = torch.ones(3)
     assert q8.quantize_symmetric(torch.tensor([0.5, 1.5, 2.5]),
                                  ones).tolist() == [0, 2, 2]
+
+
+# --- the probe's tile mode and the block scan's warp mode -------------------
+
+@pytest.mark.parametrize("l,d,itemsize,want", [
+    (16, 128, 4, "tile"), (64, 128, 4, "tile"), (65, 128, 4, "list"),
+    (1, 4, 4, "tile"), (16, 256, 4, "tile"), (16, 512, 4, "list"),
+    (16, 512, 2, "tile"), (16, 8, 2, "tile"), (16, 4, 2, "list"),
+    (7, 19, 4, "list"), (300, 129, 4, "list"), (3000, 16, 4, "list")])
+def test_probe_mode_takes_short_lists_of_16_byte_rows(l, d, itemsize, want):
+    """Lists of at most 64 over rows of whole 16-byte vectors of at most
+    1,024 bytes take the tile mode; the rest (the smoke's ragged (5, 300,
+    129, 300) and (64, 3000, 16, 3000) among them) the list mode."""
+    assert fp.probe_mode(l, d, itemsize) == want
+    plan = P.KernelPlanner(H.H100).plan("probe", (256, 1024, d, l), itemsize)
+    assert plan.impl == ("tile_topl" if want == "tile" else "online_topl")
+
+
+@pytest.mark.parametrize("l,c,d,itemsize,want", [
+    (10, 40, 128, 4, "warp"), (64, 1024, 128, 4, "warp"), (1, 1, 4, 4, "warp"),
+    (65, 300, 128, 4, "list"), (10, 1025, 128, 4, "list"),
+    (10, 48896, 128, 4, "list"), (10, 40, 19, 4, "list"),
+    (10, 40, 8, 2, "warp"), (10, 40, 4, 2, "list"), (10, 40, 512, 4, "warp"),
+    (10, 40, 513, 4, "list"), (10, 40, 1024, 2, "warp")])
+def test_grouped_mode_takes_short_lists_of_short_blocks(l, c, d, itemsize,
+                                                        want):
+    """The block scan's warp mode takes lists of at most 64 over blocks of
+    at most 1,024 rows of whole 16-byte vectors, at most 2 KiB (the q8
+    rescore, C = 40); the planner plans it without a split or shared
+    memory."""
+    assert fp.grouped_mode(l, c, d, itemsize) == want
+    plan = P.KernelPlanner(H.H100).plan("scan", (256, c, d, l), itemsize)
+    if want == "warp":
+        assert plan.impl == "grouped_scan_warp"
+        assert plan.blocks == (1, fp.GROUPED_WARP_QUERIES)
+        assert plan.smem_bytes == 0
+    else:
+        assert plan.impl == "grouped_scan" and plan.blocks[1] == fp.TILE
+
+
+def _tile_cover(n: int, k: int, splits: int):
+    """The tile mode's work, as the kernel cuts it: for every CTA of the
+    grid its query tile and its slice's ring tiles, lanes l and l + 32 of
+    each; returns per-centroid coverage by one query tile's cluster, the
+    queries the grid scores and writes, and the merging CTA of each query
+    of a tile."""
+    s, chunk, tiles = fp.probe_tile_geometry(n, k, splits)
+    qt, kt = fp.PROBE_TILE_QUERIES, fp.PROBE_TILE_ROWS
+    cover = np.zeros(k, np.int64)
+    for rank in range(s):                  # one cluster; every tile alike
+        k0 = min(k, rank * chunk)
+        k1 = min(k, k0 + chunk)
+        for t in range(-(-(k1 - k0) // kt)):
+            r0 = k0 + t * kt
+            rows = r0 + np.concatenate([np.arange(32), np.arange(32) + 32])
+            np.add.at(cover, rows[rows < k1], 1)
+    written = np.zeros(n, np.int64)
+    for tile in range(tiles):
+        b = tile * qt + np.arange(qt)
+        np.add.at(written, b[b < n], 1)
+    merger = np.full(qt, -1)
+    if s > 1:
+        for rank in range(s):
+            mq = (qt - rank + s - 1) // s
+            qi = rank + s * np.arange(mq)
+            assert (merger[qi] == -1).all()
+            merger[qi] = rank
+    return s, chunk, tiles, cover, written, merger
+
+
+@pytest.mark.parametrize("n", [1, 17, 255, 256, 4096])
+@pytest.mark.parametrize("k", [1, 7, 33, 1000, 1025, 65536])
+def test_probe_tile_geometry_covers_every_pair_once(n, k):
+    """Every (query, centroid) pair is scored by exactly one CTA of the
+    grid for each requested split 1-8 (cluster sizes 1, 2, 4, 8), K below
+    the cluster included (those CTAs get empty slices); every query of a
+    tile is merged by exactly one CTA of its cluster; the shared bytes of
+    the widest rows fit the block limit."""
+    for splits in range(1, 9):
+        s, chunk, tiles, cover, written, merger = _tile_cover(n, k, splits)
+        assert s in fp.PROBE_CLUSTERS and s <= splits and 2 * s > splits
+        assert chunk * s >= k and chunk == -(-k // s)
+        assert (cover == 1).all()
+        assert (written == 1).all() and tiles * fp.PROBE_TILE_QUERIES >= n
+        assert s == 1 or (merger >= 0).all()
+        for itemsize in (2, 4):
+            for l in (1, min(k, 64)):
+                d = fp.PROBE_TILE_ROW_BYTES // itemsize
+                assert fp.probe_tile_smem(d, itemsize, l, s) \
+                    <= H.H100.smem_block_bytes
+
+
+@pytest.mark.parametrize("n,k,l", [(256, 1024, 16), (256, 1024, 64),
+                                   (1, 1024, 10), (4096, 1024, 16),
+                                   (17, 33, 33), (255, 1, 1)])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_probe_plan_returns_the_tile_geometry(n, k, l, itemsize):
+    """``_probe_plan`` returns the tile mode's cluster (enough CTAs to
+    fill the SMs, slices of at least 64 centroids) and its shared bytes,
+    which the wrapper's geometry then takes as its cluster."""
+    plan = P.KernelPlanner(H.H100).plan("probe", (n, k, 128, l), itemsize)
+    cl, qt = plan.blocks
+    assert plan.impl == "tile_topl" and qt == fp.PROBE_TILE_QUERIES
+    assert cl == H.choose_probe_cluster(P.bucket_dim(n), k)
+    assert fp.probe_tile_geometry(n, k, cl)[0] == cl
+    assert plan.smem_bytes == fp.probe_tile_smem(128, itemsize, l, cl)
+    assert plan.smem_bytes <= plan.smem_limit
+    if (n, k) == (256, 1024):
+        assert cl == 8       # 16 query tiles x 8 = 128 CTAs on 132 SMs
+    if n == 4096 or k < 64:
+        assert cl == 1
+
+
+def _emulate_tile(score: np.ndarray, l: int, splits: int):
+    """The tile mode's selection and in-launch merge on a dense score
+    matrix: each CTA of a cluster keeps the top-l of its slice by (score,
+    index), empty entries (+inf, 2**31 - 1) after them; each entry of the
+    S partial lists goes to rank = its position + the entries of the other
+    lists strictly before it, if that is below l."""
+    n, k = score.shape
+    s, chunk, _ = fp.probe_tile_geometry(n, k, splits)
+    sent = np.iinfo(np.int32).max
+    out_v = np.full((n, l), np.nan, np.float32)
+    out_i = np.full((n, l), -1, np.int64)
+    for b in range(n):
+        lists = []
+        for rank in range(s):
+            k0, k1 = min(k, rank * chunk), min(k, rank * chunk + chunk)
+            idx = np.arange(k0, k1)
+            order = np.lexsort((idx, score[b, k0:k1]))[:l]
+            v = np.full(l, np.inf, np.float32)
+            i = np.full(l, sent, np.int64)
+            v[:len(order)], i[:len(order)] = score[b, k0:k1][order], idx[order]
+            lists.append((v, i))
+        for o, (v, i) in enumerate(lists):
+            for j in range(l):
+                r = j + sum(int(((pv < v[j]) | ((pv == v[j]) & (pi < i[j])))
+                                .sum()) for p, (pv, pi) in enumerate(lists)
+                            if p != o)
+                if r < l:
+                    assert out_i[b, r] == -1      # each rank taken once
+                    out_v[b, r], out_i[b, r] = v[j], i[j]
+    return out_i, out_v
+
+
+@pytest.mark.parametrize("n,k,l,splits,dup", [
+    (17, 33, 33, 8, False), (5, 1, 1, 8, False), (9, 7, 7, 8, True),
+    (17, 100, 16, 4, True), (3, 130, 64, 2, False), (4, 65, 64, 8, True)])
+def test_tile_merge_by_rank_matches_jax(n, k, l, splits, dup):
+    """The tile mode's rank merge of a cluster's partial lists (empty
+    slices, lists longer than their slice, duplicated centroids across
+    slices) gives the reference's top-l: ids equal, ties to the lower
+    index."""
+    rng = np.random.default_rng(n * k + l)
+    q = rng.standard_normal((n, 16)).astype(np.float32)
+    c = rng.standard_normal((k, 16)).astype(np.float32)
+    if dup:
+        c[k // 2:2 * (k // 2)] = c[:k // 2]
+    csq = (c * c).sum(-1)
+    score = fp.flash_probe_plain(torch.from_numpy(q), torch.from_numpy(c),
+                                 torch.from_numpy(csq), k)
+    dense = np.empty((n, k), np.float32)
+    np.put_along_axis(dense, score[0].numpy().astype(np.int64),
+                      score[1].numpy(), axis=1)
+    ids, vals = _emulate_tile(dense, l, splits)
+    exp = jops.flash_probe(jnp.asarray(q), jnp.asarray(c), l=l,
+                           want_dists=False, c_sq=jnp.asarray(csq))
+    assert np.array_equal(ids, np.asarray(exp[0]))
+    np.testing.assert_allclose(vals, np.asarray(exp[1]), rtol=1e-5,
+                               atol=_atol(q, c))
+
+
+@pytest.mark.parametrize("c", [1, 10, 40, 41, 300, 1024])
+@pytest.mark.parametrize("d,itemsize", [(4, 4), (32, 4), (64, 4), (128, 4),
+                                        (256, 4), (512, 4), (128, 2)])
+def test_grouped_warp_steps_read_inside_the_block(c, d, itemsize):
+    """The warp mode's steps (8 rows a group of ``_row_lanes`` lanes, the
+    list mode's lane count): every row below C is offered exactly once,
+    and every row read lies in [0, C) (rows past C read row C - 1)."""
+    g = fp._row_lanes(d, itemsize)
+    offered = np.zeros(c, np.int64)
+    step = 8 * (32 // g)
+    for r8 in range(0, c, step):
+        rows = r8 + np.arange(32 // g)[:, None] * 8 + np.arange(8)[None, :]
+        read = np.minimum(rows, c - 1)
+        assert read.min() >= 0 and read.max() < c
+        np.add.at(offered, rows[rows < c], 1)
+    assert (offered == 1).all()
+
+
+def test_mode_argument_on_the_cpu_runs_the_plain_version():
+    """On the CPU the wrappers run the plain versions whatever the mode,
+    and launch nothing."""
+    q, c = torch.randn(5, 16), torch.randn(40, 16)
+    csq = (c * c).sum(-1)
+    before = dict(fp.launches)
+    exp = fp.flash_probe_plain(q, c, csq, 7)
+    for mode in (None, "tile", "list"):
+        got = fp.flash_probe_raw(q, c, csq, 7, mode=mode)
+        assert torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])
+    blk = c[:20].expand(5, 20, 16)
+    exp = fp.flash_probe_grouped_plain(q, blk, 7)
+    for mode in (None, "warp", "list"):
+        got = fp.flash_probe_grouped_raw(q, blk, 7, mode=mode)
+        assert torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])
+    assert fp.launches == before
