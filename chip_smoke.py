@@ -34,9 +34,12 @@ FlashAssign's bit for bit; empty, full and over-width cells, fewer live rows
 than L, duplicate rows, the scalar path, bf16, one and several CTAs per
 pair; for the q8 store scan also live slots of scale 0 and lists of one and
 two entries a lane and longer; FlashProbe's tile mode at B, K and L off its
-tiles, narrow and wide rows, duplicated centroids and clusters of 2 and 8;
-the block scan's warp mode at short blocks off a warp step, padding and
-duplicated rows and every lane count, bit for bit against its list mode). FlashAssign's scores and its distances (the
+tiles, narrow and wide rows, duplicated centroids and clusters of 2 and 8,
+and its list mode on the same inputs; the block scan's warp mode at short
+blocks off a warp step, padding and duplicated rows and every lane count,
+bit for bit against its list mode). The probe's tile mode is also timed at
+each cluster size against L at the IVF shape. FlashAssign's scores and its
+distances (the
 launch that sums ||x||^2 itself) are held to the plain version everywhere
 it runs. Wherever the fused step fits, the two-pass and fused iterations are
 timed in alternation (auto must take the winner of most pairs) and split by
@@ -209,6 +212,7 @@ STEP_PAIRS = 11  # two-pass / fused iteration pairs, ABAB, where fused fits
 # searched in batches of IVF_B queries at topk 10, nprobe 16
 IVF = (1048576, 1024, 128)
 IVF_B, IVF_BATCHES, TOPK, NPROBE = 256, 4, 10, 16
+SWEEP_L = (1, 16, 32, 48, 64)   # the probe's tile mode: clusters against L
 EXACT = (65536, 64, 128)   # the full-probe exactness index
 EXACT_B = 32
 
@@ -739,25 +743,58 @@ def main() -> int:
               f"{[k for k, ok in parts.items() if not ok]}")
         max_err[kname] = max(max_err[kname], err)
 
-    def probe_check(q, c, l, tag, splits=None):
+    @contextlib.contextmanager
+    def list_rule():
+        """Both mode rules answer "list": the probe and the block scan take
+        their list modes (the kernels before the tile and warp modes), the
+        planner's plans with them; restored on exit."""
+        saved = fp.probe_mode, fp.grouped_mode
+        fp.probe_mode = fp.grouped_mode = lambda *a: "list"
+        try:
+            yield
+        finally:
+            fp.probe_mode, fp.grouped_mode = saved
+
+    def in_list_mode(fn, *a, **kw):
+        with list_rule():
+            return fn(*a, **kw)
+
+    def probe_check(q, c, l, tag, splits=None, cluster=None, plan=None,
+                    list_too=False):
         """FlashProbe in the mode the wrapper takes (its row: the tile or
-        the list mode) against the plain version."""
+        the list mode; ``cluster`` forces the tile mode's cluster size)
+        against the plain version; with ``list_too``, where the tile mode
+        ran, the list mode on the same inputs as well, at its planned
+        splits and at 3."""
         c32 = c.float()
         csq = (c32 * c32).sum(-1)
         score, mag = probe_scores(q, c)
         exp = fp.flash_probe_plain(q, c, csq, l)
         n0 = fp.launches["flash_probe_tile"]
-        got = ops.flash_probe(q, c, l=l, splits=splits, want_dists=False,
-                              c_sq=csq)
-        kname = ("flash_probe_tile" if fp.launches["flash_probe_tile"] > n0
-                 else "flash_probe")
+        if cluster is None:
+            got = ops.flash_probe(q, c, l=l, splits=splits, plan=plan,
+                                  want_dists=False, c_sq=csq)
+        else:
+            got = fp.flash_probe_raw(q, c, csq, l, cluster=cluster)
+        tile = fp.launches["flash_probe_tile"] > n0
+        kname = "flash_probe_tile" if tile else "flash_probe"
         topl_check(kname, tag, got, exp, score, mag, q.shape[1])
+        if tile and list_too:
+            planned = H.choose_probe_splits(q.shape[0], c.shape[0], l)
+            for s_ in sorted({planned, 3}):
+                lst = in_list_mode(fp.flash_probe_raw, q, c, csq, l,
+                                   splits=s_)
+                topl_check("flash_probe", f"{tag}/list mode, splits={s_}",
+                           lst, exp, score, mag, q.shape[1])
         return got
 
     def scan_check(q, c, l, tag, splits=None):
         """The block scan in the mode the wrapper takes (the warp or the
         list mode) against the plain version; the warp mode also against
-        the list mode, bit for bit (same per-lane sums and lane pairing)."""
+        the list mode, bit for bit (same per-lane sums and lane pairing),
+        on 16-byte aligned copies of q and c where they are not aligned
+        (the warp mode scans such copies; the list mode would take its
+        scalar path, which sums in another order)."""
         score, mag = scan_scores(q, c)
         exp = fp.flash_probe_grouped_plain(q, c, l)
         n0 = fp.launches["flash_probe_grouped_warp"]
@@ -767,9 +804,10 @@ def main() -> int:
         kname = "flash_probe_grouped_warp" if warp else "flash_probe_grouped"
         topl_check(kname, tag, got, exp, score, mag, q.shape[1])
         if warp:
+            qa, ca = fp._aligned_copy(q), fp._aligned_copy(c)
             for s_ in (1, 3):
-                lst = fp.flash_probe_grouped_raw(q, c, l, splits=s_,
-                                                 mode="list")
+                lst = in_list_mode(fp.flash_probe_grouped_raw, qa, ca, l,
+                                   splits=s_)
                 check(torch.equal(got[0], lst[0])
                       and torch.equal(got[1], lst[1]),
                       f"{kname} {tag}: indices and scores equal the list "
@@ -793,8 +831,8 @@ def main() -> int:
                    q.shape[1])
         for how, blk in (
                 ("", ops.flash_probe_grouped(q, cand, l=l, want_dists=False)),
-                (", list mode", fp.flash_probe_grouped_raw(q, cand, l,
-                                                            mode="list"))):
+                (", list mode", in_list_mode(fp.flash_probe_grouped_raw,
+                                             q, cand, l))):
             check(torch.equal(got[0], blk[0]) and torch.equal(got[1], blk[1]),
                   f"flash_probe_store {tag}: indices and scores equal the "
                   f"grouped kernel's{how} on the gathered block, bit for bit "
@@ -909,7 +947,8 @@ def main() -> int:
                 c = torch.cat([c[:k // 3]] * 3)
             for splits in (None, 3):
                 probe_check(q, c.to(cdt), l, f"ragged{(n, k, d, l)}/"
-                            f"{cdt}/splits={splits or 'planned'}", splits)
+                            f"{cdt}/splits={splits or 'planned'}", splits,
+                            list_too=splits is None)
     for b, cn, d, l, npad, dup in SCAN_RAGGED:
         for cdt in (torch.float32, torch.bfloat16):
             q = torch.randn(b, d, device=dev, generator=gen)
@@ -952,11 +991,19 @@ def main() -> int:
             if b == 17:
                 c[k // 2:2 * (k // 2)] = c[:k // 2]
             for l in (l_ for l_ in TILE_L if l_ <= k):
-                for splits in (None, 2, 8):
+                for cl in (None, 2, 8):
                     probe_check(q, c.to(cdt), l, f"tile edge{(b, k, d, l)}/"
-                                f"{cdt}/cluster={splits or 'planned'}"
-                                + ("/duplicated" if b == 17 else ""), splits)
+                                f"{cdt}/cluster={cl or 'planned'}"
+                                + ("/duplicated" if b == 17 else ""),
+                                cluster=cl, list_too=cl is None)
                     n_tile += 1
+    # q and c off 16 bytes: copied, then the tile mode
+    qu = torch.randn(17 * 128 + 1, device=dev, generator=gen_t)[1:]
+    cu = torch.randn(1025 * 128 + 1, device=dev, generator=gen_t)[1:]
+    probe_check(qu.view(17, 128), cu.view(1025, 128), 16,
+                "tile edge(17, 1025, 128, 16)/unaligned q and c",
+                list_too=True)
+    n_tile += 1
     check(fp.launches["flash_probe_tile"] - n0 == n_tile,
           f"flash_probe_tile: every tile edge took the tile mode "
           f"({fp.launches['flash_probe_tile'] - n0} of {n_tile} launches)")
@@ -979,6 +1026,12 @@ def main() -> int:
             scan_check(q.to(cdt), c.to(cdt), l, f"warp edge{(33, cn, d, l)}/"
                        f"{cdt}", 3)
             n_warp += 1
+    # q and the blocks off 16 bytes: copied, then the warp mode
+    qu = torch.randn(33 * 128 + 1, device=dev, generator=gen_t)[1:]
+    cu = torch.randn(33 * 40 * 128 + 1, device=dev, generator=gen_t)[1:]
+    scan_check(qu.view(33, 128), cu.view(33, 40, 128), 10,
+               "warp edge(33, 40, 128, 10)/unaligned q and c", 3)
+    n_warp += 1
     check(fp.launches["flash_probe_grouped_warp"] - n0 == n_warp,
           f"flash_probe_grouped_warp: every warp edge took the warp mode "
           f"({fp.launches['flash_probe_grouped_warp'] - n0} of {n_warp} "
@@ -1590,16 +1643,14 @@ def main() -> int:
         """The index searches with the probe's and block scan's list modes
         (the kernels before the tile and warp modes): both mode rules answer
         "list" and the index plans afresh; restored on exit."""
-        saved = (fp.probe_mode, fp.grouped_mode, index.planner,
-                 index._search_plans)
-        fp.probe_mode = fp.grouped_mode = lambda *a: "list"
+        saved = index.planner, index._search_plans
         index.planner = P.KernelPlanner(index.planner.hw)
         index._search_plans = {}
         try:
-            yield
+            with list_rule():
+                yield
         finally:
-            (fp.probe_mode, fp.grouped_mode, index.planner,
-             index._search_plans) = saved
+            index.planner, index._search_plans = saved
 
     # ---- phase 5: FlashIVF search at full width, fp32 and q8 -------------
     # a generator of its own: the corpus does not depend on what the earlier
@@ -1750,12 +1801,12 @@ def main() -> int:
         plans = index.plan_search(IVF_B, TOPK, NPROBE)
         cnorm = index._centroid_norms()
         probe, _ = probe_check(qb, index.centroids, NPROBE,
-                               f"ivf/{codec}", plans[0])
+                               f"ivf/{codec}", plan=plans[0], list_too=True)
         if codec == "fp32":
             buckets, bucket_ids = index.store.device_arrays()
             cnts = index.counts
             store_check(qb, buckets, cnts, probe, width, TOPK, "ivf/fp32",
-                        plans[2])
+                        plans[1].blocks[0])
             # the block path on the same batch: the gathered candidate block
             # and the grouped scan, as before the store scan
             cand_x, cand_ids = store_mod.gather_global(
@@ -1796,8 +1847,8 @@ def main() -> int:
             two = lambda qb=qb, c=ctr, cn=cnorm: torch.topk(
                 torch.addmm(cn, qb, c.t(), alpha=-2), NPROBE, largest=False)
             main_inputs["flash_probe_tile"] = (
-                lambda qb=qb, c=ctr, cn=cnorm, s=plans[0]:
-                fp.flash_probe_raw(qb, c, cn, NPROBE, splits=s),
+                lambda qb=qb, c=ctr, cn=cnorm, cl=plans[0].cluster:
+                fp.flash_probe_raw(qb, c, cn, NPROBE, cluster=cl),
                 lambda qb=qb, c=ctr, cn=cnorm:
                 fp.flash_probe_plain(qb, c, cn, NPROBE),
                 H.probe_bytes(IVF_B, k, d, NPROBE), 2.0 * IVF_B * k * d,
@@ -1806,29 +1857,58 @@ def main() -> int:
                  "two_call_device_ms": device_ms_of(two)})
             off_path["ivf/flash_probe"] = (
                 lambda qb=qb, c=ctr, cn=cnorm:
-                fp.flash_probe_raw(qb, c, cn, NPROBE, splits=list_s,
-                                   mode="list"),
+                in_list_mode(fp.flash_probe_raw, qb, c, cn, NPROBE,
+                             splits=list_s),
                 lambda qb=qb, c=ctr, cn=cnorm:
                 fp.flash_probe_plain(qb, c, cn, NPROBE),
                 H.probe_bytes(IVF_B, k, d, NPROBE), 2.0 * IVF_B * k * d,
                 [IVF_B, k, d, NPROBE], {})
             qh, ch = qb.to(torch.bfloat16), ctr.to(torch.bfloat16)
             chq = (ch.float() * ch.float()).sum(-1)
-            probe_check(qh, ch, NPROBE, "ivf/bf16", plans[0])
-            for kn, md, s_ in (("flash_probe_tile", None, plans[0]),
-                               ("flash_probe", "list", list_s)):
+            probe_check(qh, ch, NPROBE, "ivf/bf16", list_too=True)
+            plan_h = index.planner.plan("probe", (IVF_B, k, d, NPROBE),
+                                        torch.bfloat16)
+            for kn, run in (
+                    ("flash_probe_tile", lambda qh, ch, cn: fp.flash_probe_raw(
+                        qh, ch, cn, NPROBE, cluster=plan_h.cluster)),
+                    ("flash_probe", lambda qh, ch, cn: in_list_mode(
+                        fp.flash_probe_raw, qh, ch, cn, NPROBE,
+                        splits=list_s))):
                 off_path[f"ivf-bf16/{kn}"] = (
-                    lambda qh=qh, ch=ch, cn=chq, s=s_, md=md:
-                    fp.flash_probe_raw(qh, ch, cn, NPROBE, splits=s,
-                                       mode=md),
+                    lambda qh=qh, ch=ch, cn=chq, run=run: run(qh, ch, cn),
                     lambda qh=qh, ch=ch, cn=chq:
                     fp.flash_probe_plain(qh, ch, cn, NPROBE),
                     H.probe_bytes(IVF_B, k, d, NPROBE, 2),
                     2.0 * IVF_B * k * d, [IVF_B, k, d, NPROBE], {})
+            # the tile mode at each cluster size, in a CUDA graph, against L
+            # (the IVF centroids; f32 and bf16 at B 256, f32 at 1,024),
+            # beside the planner's choice
+            sweep, q_all = [], queries.reshape(-1, d)
+            for b_, dt_ in ((IVF_B, torch.float32), (IVF_B, torch.bfloat16),
+                            (4 * IVF_B, torch.float32)):
+                qx, cx = q_all[:b_].to(dt_), ctr.to(dt_)
+                cnx = (cx.float() * cx.float()).sum(-1)
+                for l_ in SWEEP_L:
+                    row = {"B": b_, "K": k, "d": d, "L": l_,
+                           "dtype": str(dt_).rsplit(".", 1)[1],
+                           "planned": H.choose_probe_cluster(b_, k, l_),
+                           "graph_ms": {cl: graph_ms(
+                               lambda cl=cl: fp.flash_probe_raw(
+                                   qx, cx, cnx, l_, cluster=cl))
+                               for cl in fp.PROBE_CLUSTERS}}
+                    sweep.append(row)
+                    best = min(row["graph_ms"], key=row["graph_ms"].get)
+                    print(f"  tile mode B={b_} {row['dtype']} L={l_}: "
+                          + ", ".join(f"cluster {cl} {t:.4f}" for cl, t
+                                      in row["graph_ms"].items())
+                          + f" ms (graph); planned {row['planned']}, "
+                          f"fastest {best}", flush=True)
+            details["probe_cluster_sweep"] = sweep
             # bound: each probed cell's live rows read once; beside it the
             # bound of each query reading its own live rows
             main_inputs["flash_probe_store"] = (
-                lambda qb=qb, bk=buckets, cn=cnts, pr=probe, s=plans[2]:
+                lambda qb=qb, bk=buckets, cn=cnts, pr=probe,
+                s=plans[1].blocks[0]:
                 fp.flash_probe_store_raw(qb, bk, cn, pr, width, TOPK, PAD,
                                          splits=s),
                 lambda qb=qb, bk=buckets, cn=cnts, pr=probe:
@@ -1854,7 +1934,7 @@ def main() -> int:
             cnts = index.counts
             r = index._rescore_r(TOPK, NPROBE, width)
             q8_store_check(qb, codes_s, scales_s, cnts, probe, anchors, width,
-                           r, "ivf/q8", plans[2])
+                           r, "ivf/q8", plans[1].blocks[0])
             # the block path on the same batch: the gathered codes and scales
             # and the block kernel, as before the store scan
             codes, scales, cand_ids = store_mod.gather_global_q8(
@@ -1868,8 +1948,8 @@ def main() -> int:
             q8_check(qp, codes, scales, r, "ivf/q8 block path", blk_splits)
             ids, deq = ivf_mod._q8_propose(
                 qb, index.centroids, cnorm, index.store.device_arrays(), cnts,
-                r=r, nprobe=NPROBE, width=width, probe_splits=plans[0],
-                scan_splits=plans[2])
+                r=r, nprobe=NPROBE, width=width, probe_plan=plans[0],
+                scan_plan=plans[1])
             li_b, v_b = ops.flash_probe_grouped_q8(qp, codes, scales, l=r,
                                                    splits=blk_splits)
             ids_b = torch.where(torch.isfinite(v_b),
@@ -1901,11 +1981,11 @@ def main() -> int:
             # the rescore scan on the rows the path feeds it: reservoir
             # rows, dequantized codes where missing, padding for id -1
             cand = ivf_mod._rescore_rows(deq, ids, rows, found)
-            scan_check(qb, cand, TOPK, "ivf/q8-rescore", plans[4])
+            scan_check(qb, cand, TOPK, "ivf/q8-rescore", plans[2].blocks[0])
             # the warp mode, and beside it the list mode with the splits
             # its planner gives (the kernel before the warp mode)
             main_inputs["flash_probe_grouped_warp"] = (
-                lambda qb=qb, cx=cand, s=plans[4]:
+                lambda qb=qb, cx=cand, s=plans[2].blocks[0]:
                 fp.flash_probe_grouped_raw(qb, cx, TOPK, splits=s),
                 lambda qb=qb, cx=cand:
                 fp.flash_probe_grouped_plain(qb, cx, TOPK),
@@ -1914,8 +1994,8 @@ def main() -> int:
             off_path["ivf/flash_probe_grouped"] = (
                 lambda qb=qb, cx=cand, s=H.choose_probe_splits(IVF_B, r,
                                                                TOPK):
-                fp.flash_probe_grouped_raw(qb, cx, TOPK, splits=s,
-                                           mode="list"),
+                in_list_mode(fp.flash_probe_grouped_raw, qb, cx, TOPK,
+                             splits=s),
                 lambda qb=qb, cx=cand:
                 fp.flash_probe_grouped_plain(qb, cx, TOPK),
                 H.scan_bytes(IVF_B, r, d, TOPK), 4.0 * IVF_B * r * d,
@@ -1930,10 +2010,10 @@ def main() -> int:
                 "propose_ms": ms_of(lambda: ivf_mod._q8_propose(
                     qb, index.centroids, cnorm, index.store.device_arrays(),
                     cnts, r=r, nprobe=NPROBE, width=width,
-                    probe_splits=plans[0], scan_splits=plans[2])),
+                    probe_plan=plans[0], scan_plan=plans[1])),
                 "host_round_trip_ms": statistics.median(host_ms),
                 "rescore_ms": ms_of(lambda: ivf_mod._rescore_body(
-                    qb, deq, ids, rows, found, topk=TOPK, splits=plans[4])),
+                    qb, deq, ids, rows, found, topk=TOPK, plan=plans[2])),
                 "live_rows": live_rows, "probed_cells": int(cells.numel()),
                 "probed_cell_rows": cell_rows}
             del rows, found
@@ -1944,7 +2024,7 @@ def main() -> int:
             # reading its own live rows
             main_inputs["flash_probe_store_q8"] = (
                 lambda qp=qp, cd=codes_s, sc=scales_s, cn=cnts, pr=probe,
-                s=plans[2], r=r:
+                s=plans[1].blocks[0], r=r:
                 fp.flash_probe_store_q8_raw(qp, cd, sc, cn, pr, width, r,
                                             splits=s),
                 lambda qp=qp, cd=codes_s, sc=scales_s, cn=cnts, pr=probe,

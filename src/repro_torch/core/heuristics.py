@@ -332,17 +332,24 @@ def choose_probe_splits(b: int, c: int, l: int, hw: Hardware = H100) -> int:
 
 PROBE_TILE_REGS = 128      # tile mode: __launch_bounds__(256, 2)
 PROBE_TILE_MIN_SLICE = 64  # tile mode: fewest centroids worth a CTA of a cluster
+PROBE_TILE_SLICE_PER_ENTRY = 4  # tile mode: fewest centroids a CTA per list entry
 GROUPED_WARP_REGS = 255    # the warp mode's __launch_bounds__(128): no cap
 
 
-def choose_probe_cluster(b: int, k: int, hw: Hardware = H100) -> int:
+def choose_probe_cluster(b: int, k: int, l: int, hw: Hardware = H100
+                         ) -> int:
     """The tile mode's cluster size: enough CTAs to fill every SM once
     (``ceil(b / 16)`` query tiles times the cluster), none with a slice
-    under ``PROBE_TILE_MIN_SLICE`` centroids; one of 1, 2, 4, 8
-    (``flash_probe.probe_cluster``). At B = 256, K = 1,024 that is 8: 128
-    CTAs; at B >= 2,112 it is 1."""
+    under ``PROBE_TILE_MIN_SLICE`` centroids or under
+    ``PROBE_TILE_SLICE_PER_ENTRY`` per entry of the ``l``-entry list (the
+    in-launch merge reads ``cluster * l`` entries a query); one of 1, 2, 4,
+    8 (``flash_probe.probe_cluster``). At B = 256, K = 1,024 that is 8 for
+    L <= 32 and 4 for L = 48 and 64, the fastest of the four in
+    ``chip_smoke.py``'s sweep on the H100, or within 2% of it; at B = 1,024
+    it is 2; at B >= 2,112 it is 1."""
     tiles = -(-max(1, b) // _fp.PROBE_TILE_QUERIES)
-    want = min(-(-hw.num_sms // tiles), -(-max(1, k) // PROBE_TILE_MIN_SLICE))
+    slice_ = max(PROBE_TILE_MIN_SLICE, PROBE_TILE_SLICE_PER_ENTRY * l)
+    want = min(-(-hw.num_sms // tiles), -(-max(1, k) // slice_))
     return _fp.probe_cluster(want)
 
 

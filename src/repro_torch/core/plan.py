@@ -100,7 +100,8 @@ class KernelPlan:
     ``BlockConfig``. ``smem_bytes`` is the shared-memory footprint at
     ``blocks`` (for ``step``: of the chosen path), ``smem_limit`` the
     block limit it was judged against, ``hbm_bytes`` the modeled traffic.
-    ``cluster`` is a fused step's FlashLloyd cluster size (None otherwise).
+    ``cluster`` is the thread-block cluster size of a fused step's
+    FlashLloyd or of the probe's tile mode (None otherwise).
     """
     op: str
     shape: tuple
@@ -250,12 +251,14 @@ class KernelPlanner:
             hbm_bytes=assign.hbm_bytes + update.hbm_bytes)
 
     def _probe_plan(self, op: str, s: tuple, b: int) -> KernelPlan:
-        """A FlashProbe kernel. The probe's tile mode (``flash_probe.
-        probe_mode``): ``blocks = (cluster, PROBE_TILE_QUERIES)``, the
-        cluster size and queries a CTA. The block scan's warp mode
-        (``grouped_mode``): ``blocks = (1, GROUPED_WARP_QUERIES)``, no
-        split, queries a CTA, no dynamic shared memory. Otherwise (the list
-        mode) ``blocks = (splits, PROBE_TILE)``: CTAs per query along the
+        """A FlashProbe kernel, in the mode its wrapper takes for the shape
+        (``flash_probe.probe_mode`` / ``grouped_mode``, the one rule both
+        read). The probe's tile mode: ``cluster`` the CTAs of a
+        thread-block cluster that split the centroids, ``blocks = (1,
+        PROBE_TILE_QUERIES)``, no list-mode split and queries a CTA. The
+        block scan's warp mode: ``blocks = (1, GROUPED_WARP_QUERIES)``, no
+        split, queries a CTA, no dynamic shared memory. The list modes:
+        ``blocks = (splits, PROBE_TILE)``, CTAs per query along the
         candidate axis and rows per selection round."""
         H, hw = heuristics, self.hw
         n, c, d, l = s
@@ -269,9 +272,9 @@ class KernelPlanner:
                                      block=None, smem_limit=hw.smem_block_bytes,
                                      hbm_bytes=hbm, **kw)
         if op == "probe" and _fp.probe_mode(l, d, b) == "tile":
-            cl = H.choose_probe_cluster(n, c, hw)
-            return mk(impl="tile_topl",
-                      blocks=(cl, _fp.PROBE_TILE_QUERIES),
+            cl = H.choose_probe_cluster(n, c, l, hw)
+            return mk(impl="tile_topl", cluster=cl,
+                      blocks=(1, _fp.PROBE_TILE_QUERIES),
                       smem_bytes=_fp.probe_tile_smem(d, b, l, cl))
         if op == "scan" and _fp.grouped_mode(l, c, d, b) == "warp":
             return mk(impl="grouped_scan_warp",

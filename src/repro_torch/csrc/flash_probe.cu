@@ -1355,12 +1355,6 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int k1 = (int)min((long long)K, (long long)k0 + chunk);
   const int ntiles = (k1 - k0 + kTileK - 1) / kTileK;
 
-  for (int e = tid; e < kTileQ * vpr; e += kThreads) {  // the query tile
-    const int r = e / vpr, u = e - r * vpr;
-    const uint32_t dst = qs + r * rs + u * 16;
-    if (b0 + r < N) cp_async16(dst, q + (size_t)(b0 + r) * d + u * V);
-    else sts128_zero(dst);
-  }
   auto fill = [&](int t) {  // ring tile t of the slice, then a commit
     const int r0 = k0 + t * kTileK, nr = min(kTileK, k1 - r0);
     const uint32_t dst = ring + (t % kTileStages) * kTileK * rs;
@@ -1370,8 +1364,15 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
     cp_async_commit();
   };
-  if (ntiles > 0) fill(0);
-  else cp_async_commit();
+  if (ntiles > 0) {  // the query tile with ring tile 0; an empty slice copies nothing
+    for (int e = tid; e < kTileQ * vpr; e += kThreads) {
+      const int r = e / vpr, u = e - r * vpr;
+      const uint32_t dst = qs + r * rs + u * 16;
+      if (b0 + r < N) cp_async16(dst, q + (size_t)(b0 + r) * d + u * V);
+      else sts128_zero(dst);
+    }
+    fill(0);
+  }
 
   float mv[2][kN], tv[2];
   int mi[2][kN], ti[2];

@@ -98,24 +98,23 @@ def _slots(probe: torch.Tensor, li: torch.Tensor, width: int
 
 
 def _ivf_search(q, centroids, c_sq, store_arrays, counts, *, topk: int,
-                nprobe: int, width: int, probe_splits: int,
-                scan_splits: int) -> tuple[torch.Tensor, torch.Tensor]:
+                nprobe: int, width: int, probe_plan=None, scan_plan=None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Two-stage search: FlashProbe over the centroids picks the cells,
     the store scan keeps each query's top-k of their ``width`` slots
     (probe-rank-major index ``p * width + w``), and the ids are looked up
-    at those (B, topk) slots."""
+    at those (B, topk) slots. The plans are ``IVFIndex.plan_search``'s
+    (None: the default planner's)."""
     probe, _ = ops.flash_probe(q, centroids.to(q.dtype), l=nprobe,
-                               splits=probe_splits, want_dists=False,
-                               c_sq=c_sq)
+                               plan=probe_plan, want_dists=False, c_sq=c_sq)
     buckets, bucket_ids = store_arrays
     li, dist = ops.flash_probe_store(q, buckets, counts, probe, width=width,
-                                     l=topk, pad=_PAD_COORD,
-                                     splits=scan_splits)
+                                     l=topk, pad=_PAD_COORD, plan=scan_plan)
     return bucket_ids[_slots(probe, li, width)], dist
 
 
 def _q8_propose(q, centroids, c_sq, store_arrays, counts, *, r: int,
-                nprobe: int, width: int, probe_splits: int, scan_splits: int
+                nprobe: int, width: int, probe_plan=None, scan_plan=None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Phase 1 of two-phase search on a quantized store: probe, then scan
     the probed cells' int8 codes and scales in place in the residual frame
@@ -126,12 +125,11 @@ def _q8_propose(q, centroids, c_sq, store_arrays, counts, *, r: int,
     fallback for ids the reservoir does not hold, decoded for those (B,
     r) proposals only."""
     probe, _ = ops.flash_probe(q, centroids.to(q.dtype), l=nprobe,
-                               splits=probe_splits, want_dists=False,
-                               c_sq=c_sq)
+                               plan=probe_plan, want_dists=False, c_sq=c_sq)
     codes, bucket_ids, scales, anchors = store_arrays
     li, val = ops.flash_probe_store_q8(q, codes, scales, counts, probe,
                                        anchors, width=width, l=r,
-                                       splits=scan_splits)
+                                       plan=scan_plan)
     cell, w = _slots(probe, li, width)
     ids = torch.where(torch.isfinite(val), bucket_ids[cell, w],
                       torch.full_like(val, -1, dtype=torch.int32))
@@ -150,12 +148,12 @@ def _rescore_rows(deq, ids, res_rows, found) -> torch.Tensor:
 
 
 def _rescore_body(q, cand, ids, res_rows, found, *, topk: int,
-                  splits: int) -> tuple[torch.Tensor, torch.Tensor]:
+                  plan=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Phase 2: score the proposed rows (``_rescore_rows``) at full
     precision and keep the true top-k."""
     cand = _rescore_rows(cand, ids, res_rows, found)
     li, dist = ops.flash_probe_grouped(q.to(cand.dtype), cand, l=topk,
-                                       splits=splits)
+                                       plan=plan)
     return _take_rows(ids, li), dist
 
 
@@ -230,7 +228,7 @@ class IVFIndex:
         self.planner = planner if planner is not None \
             else _plan.default_planner(self.device)
         self._cnorms: torch.Tensor | None = None   # ||c||^2, per centroid set
-        self._search_plans: dict[tuple, tuple[int, ...]] = {}
+        self._search_plans: dict[tuple, tuple] = {}
 
     # ------------------------------------------------------------------
     # store views
@@ -462,14 +460,14 @@ class IVFIndex:
         return min(max(topk, mult * topk), nprobe * width)
 
     def plan_search(self, b: int, topk: int = 10, nprobe: int = 8
-                    ) -> tuple[int, ...]:
+                    ) -> tuple:
         """Plan (and cache) the search kernels for a ``(b, d)`` batch.
 
-        Returns the planner's blocks, ``(splits, tile)`` per kernel:
-        ``(probe, store scan)`` on an fp32 store and ``(probe, q8 store
-        scan, rescore scan)`` on a q8 store, flattened. Cached per ``(b,
-        nprobe, topk, width)``; ``width`` is the store's gather-width
-        bucket, so occupancy growth re-keys.
+        Returns the planner's ``KernelPlan`` of each kernel: ``(probe,
+        store scan)`` on an fp32 store and ``(probe, q8 store scan,
+        rescore scan)`` on a q8 store. Cached per ``(b, nprobe, topk,
+        width)``; ``width`` is the store's gather-width bucket, so
+        occupancy growth re-keys.
         """
         nprobe = min(nprobe, self.k)
         width = self._gather_width(topk, nprobe)
@@ -478,7 +476,7 @@ class IVFIndex:
         if plans is None:
             dt = self.dtype
             head = self.planner.plan("probe", (b, self.k, self.d, nprobe),
-                                     dt).blocks
+                                     dt)
             if self.store.codec_kind != "fp32":
                 r = self._rescore_r(topk, nprobe, width)
                 q8 = self.planner.plan(
@@ -487,11 +485,11 @@ class IVFIndex:
                 rescore = self.planner.plan(
                     "scan", (int(b), r, self.d, min(topk, r)),
                     torch.float32)
-                plans = (*head, *q8.blocks, *rescore.blocks)
+                plans = (head, q8, rescore)
             else:
                 scan = self.planner.plan(
                     "scan_store", (b, nprobe, width, self.d, topk), dt)
-                plans = (*head, *scan.blocks)
+                plans = (head, scan)
             self._search_plans[geom] = plans
         return plans
 
@@ -512,11 +510,11 @@ class IVFIndex:
             return self._search_q8(q, topk, nprobe)
         st = self.store
         width = self._gather_width(topk, nprobe)
-        ps, _, ss, _ = self.plan_search(q.shape[0], topk, nprobe)
+        pp, sp = self.plan_search(q.shape[0], topk, nprobe)
         return _ivf_search(q, self.centroids, self._centroid_norms(),
                            st.device_arrays(), st.counts, topk=topk,
-                           nprobe=nprobe, width=width, probe_splits=ps,
-                           scan_splits=ss)
+                           nprobe=nprobe, width=width, probe_plan=pp,
+                           scan_plan=sp)
 
     def _search_q8(self, q: torch.Tensor, topk: int, nprobe: int
                    ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -528,11 +526,11 @@ class IVFIndex:
         st = self.store
         width = self._gather_width(topk, nprobe)
         r = self._rescore_r(topk, nprobe, width)
-        ps, _, qs, _, rs, _ = self.plan_search(q.shape[0], topk, nprobe)
+        pp, qp, rp = self.plan_search(q.shape[0], topk, nprobe)
         ids, deq = _q8_propose(q, self.centroids, self._centroid_norms(),
                                st.device_arrays(), st.counts, r=r,
-                               nprobe=nprobe, width=width, probe_splits=ps,
-                               scan_splits=qs)
+                               nprobe=nprobe, width=width, probe_plan=pp,
+                               scan_plan=qp)
         ids_np = ids.cpu().numpy()
         if st.reservoir is not None:
             rows, found = st.reservoir.lookup(ids_np)
@@ -542,7 +540,7 @@ class IVFIndex:
         return _rescore_body(q, deq, ids,
                              torch.as_tensor(rows, device=self.device),
                              torch.as_tensor(found, device=self.device),
-                             topk=topk, splits=rs)
+                             topk=topk, plan=rp)
 
     def search_brute(self, q, topk: int = 10
                      ) -> tuple[torch.Tensor, torch.Tensor]:

@@ -28,12 +28,15 @@ replace the Pallas TPU kernels of ``repro/kernels/flash_probe.py``:
 Each returns ``(indices int32 (B, l), scores f32 (B, l))``, ascending by
 (score, index): equal scores go to the lower index, as ``lax.top_k``.
 The port returns exactly ``l`` columns (the reference pads ``l`` to a
-multiple of 8 and slices). ``splits`` is the number of CTAs that share
-one query's candidate axis (``core.heuristics.choose_probe_splits``; in
-the probe's tile mode the cluster size, ``choose_probe_cluster``, and in
-the block scan's warp mode unused); the result does not depend on it.
-``mode`` picks a kernel's mode where it has two (``None``: the rule of
-``probe_mode`` / ``grouped_mode``).
+multiple of 8 and slices). Where a kernel has two modes, the mode follows
+from the shape alone (``probe_mode``, ``grouped_mode``: the planner reports
+the same rule); inputs off 16 bytes are copied before a mode that stages
+whole 16-byte vectors. ``splits`` is the number of CTAs that share one
+query's candidate axis in a list mode
+(``core.heuristics.choose_probe_splits``); the probe's tile mode takes
+``cluster``, the CTAs of a thread-block cluster that split the centroids
+(``choose_probe_cluster``), and the block scan's warp mode gives each
+query one warp. The result depends on neither.
 
 Dispatch is by the tensors' device: CPU tensors go to the ``*_plain``
 versions (the same math in plain PyTorch, with a stable sort), CUDA
@@ -128,8 +131,10 @@ def _buffers(b: int, l: int, splits: int, lp: int, device):
     return ptrs, keep
 
 
-def _aligned(*ts: torch.Tensor) -> bool:
-    return all(t.data_ptr() % 16 == 0 for t in ts)
+def _aligned_copy(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself if its data starts on 16 bytes, else a fresh copy (the
+    allocator's blocks are aligned far beyond 16 bytes)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 # ---------------------------------------------------------------------------
@@ -147,24 +152,26 @@ PROBE_CLUSTERS = (1, 2, 4, 8)  # cluster sizes of the tile mode
 def probe_mode(l: int, d: int, itemsize: int) -> str:
     """``"tile"`` for lists of at most ``PROBE_TILE_LIST`` over rows of
     whole 16-byte vectors of at most ``PROBE_TILE_ROW_BYTES``; ``"list"``
-    otherwise (and, in the wrapper, for pointers off 16 bytes)."""
+    otherwise."""
     row = d * itemsize
     return ("tile" if l <= PROBE_TILE_LIST and row % 16 == 0
             and row <= PROBE_TILE_ROW_BYTES else "list")
 
 
-def probe_cluster(splits: int) -> int:
-    """The tile mode's cluster size for ``splits`` CTAs a query: the
+def probe_cluster(want: int) -> int:
+    """The tile mode's cluster size for ``want`` CTAs a query tile: the
     largest of ``PROBE_CLUSTERS`` not above it."""
-    return max(s for s in PROBE_CLUSTERS if s <= max(1, int(splits)))
+    return max(s for s in PROBE_CLUSTERS if s <= max(1, int(want)))
 
 
-def probe_tile_geometry(n: int, k: int, splits: int) -> tuple[int, int, int]:
+def probe_tile_geometry(n: int, k: int, cluster: int
+                        ) -> tuple[int, int, int]:
     """``(cluster, chunk, tiles)`` of the tile mode: query tile ``t`` of
-    ``PROBE_TILE_QUERIES`` rows and the ``cluster`` CTAs of its cluster,
-    CTA ``s`` taking centroids ``[s * chunk, min(k, (s + 1) * chunk))``;
-    the grid is ``tiles * cluster`` CTAs."""
-    s = probe_cluster(splits)
+    ``PROBE_TILE_QUERIES`` rows and the ``cluster`` CTAs of its cluster
+    (``probe_cluster`` of the one asked for), CTA ``s`` taking centroids
+    ``[s * chunk, min(k, (s + 1) * chunk))``; the grid is ``tiles *
+    cluster`` CTAs."""
+    s = probe_cluster(cluster)
     return s, -(-k // s), -(-n // PROBE_TILE_QUERIES)
 
 
@@ -191,13 +198,13 @@ def flash_probe_plain(q: torch.Tensor, c: torch.Tensor, c_sq: torch.Tensor,
 
 
 def flash_probe_raw(q: torch.Tensor, c: torch.Tensor, c_sq: torch.Tensor,
-                    l: int, *, splits: int = 1, mode: str | None = None
+                    l: int, *, splits: int = 1, cluster: int = 1
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-l centroids per query: q (N, d), c (K, d), c_sq (K,) f32 (the
     centroids' ``||c||^2``). Returns ``(indices int32 (N, l), scores f32
-    (N, l))``, score ``||c||^2 - 2 q.c``. ``mode``: ``"tile"`` (one
-    launch; ``splits`` is the cluster size, ``probe_cluster``) or
-    ``"list"``; by default ``probe_mode``'s, for 16-byte aligned q and c."""
+    (N, l))``, score ``||c||^2 - 2 q.c``. The mode is ``probe_mode``'s:
+    the tile mode (one launch, ``cluster`` CTAs a query tile) or the list
+    mode (``splits`` CTAs a query, then a merge launch if above 1)."""
     if q.ndim != 2 or c.ndim != 2 or q.shape[1] != c.shape[1]:
         raise ValueError(f"flash_probe: q must be (N, d) and c (K, d), got "
                          f"{tuple(q.shape)} and {tuple(c.shape)}")
@@ -216,13 +223,10 @@ def flash_probe_raw(q: torch.Tensor, c: torch.Tensor, c_sq: torch.Tensor,
         return (torch.empty((0, l), dtype=torch.int32, device=q.device),
                 torch.empty((0, l), dtype=torch.float32, device=q.device))
     q, c, c_sq = q.contiguous(), c.contiguous(), c_sq.contiguous()
-    tile = probe_mode(l, d, q.element_size()) == "tile" and _aligned(q, c)
-    if mode not in (None, "tile", "list") or mode == "tile" and not tile:
-        raise ValueError(f"flash_probe: mode {mode!r} does not take l={l}, "
-                         f"d={d}, {q.dtype} (or pointers off 16 bytes)")
     bf16 = int(q.dtype == torch.bfloat16)
-    if tile and mode != "list":
-        cluster, chunk, _ = probe_tile_geometry(n, k, splits)
+    if probe_mode(l, d, q.element_size()) == "tile":
+        q, c = _aligned_copy(q), _aligned_copy(c)
+        cluster, chunk, _ = probe_tile_geometry(n, k, cluster)
         out_v = torch.empty((n, l), dtype=torch.float32, device=q.device)
         out_i = torch.empty((n, l), dtype=torch.int32, device=q.device)
         code = _build.lib().fk_flash_probe_tile(
@@ -256,8 +260,7 @@ def grouped_mode(l: int, c: int, d: int, itemsize: int) -> str:
     """``"warp"`` (a warp per query) for lists of at most
     ``GROUPED_WARP_LIST`` over blocks of at most ``GROUPED_WARP_ROWS`` rows
     of whole 16-byte vectors, at most ``GROUPED_WARP_ROW_BYTES`` long;
-    ``"list"`` otherwise (and, in the wrapper, for pointers off 16 bytes).
-    Both give the same scores bit for bit."""
+    ``"list"`` otherwise. Both give the same scores bit for bit."""
     row = d * itemsize
     return ("warp" if l <= GROUPED_WARP_LIST and c <= GROUPED_WARP_ROWS
             and row % 16 == 0 and row <= GROUPED_WARP_ROW_BYTES else "list")
@@ -273,13 +276,13 @@ def flash_probe_grouped_plain(q: torch.Tensor, c: torch.Tensor, l: int
 
 
 def flash_probe_grouped_raw(q: torch.Tensor, c: torch.Tensor, l: int, *,
-                            splits: int = 1, mode: str | None = None
+                            splits: int = 1
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-l of each query's own candidates: q (B, d), c (B, C, d).
     Returns ``(indices int32 (B, l) into the candidate axis, scores f32
-    (B, l))``, score ``||c||^2 - 2 q.c``. ``mode``: ``"warp"`` (a warp
-    per query; ``splits`` unused) or ``"list"``; by default
-    ``grouped_mode``'s, for 16-byte aligned q and c."""
+    (B, l))``, score ``||c||^2 - 2 q.c``. The mode is ``grouped_mode``'s:
+    the warp mode (a warp a query) or the list mode (``splits`` CTAs a
+    query, then a merge launch if above 1)."""
     if (q.ndim != 2 or c.ndim != 3 or c.shape[0] != q.shape[0]
             or c.shape[2] != q.shape[1]):
         raise ValueError(f"flash_probe_grouped: q must be (B, d) and c "
@@ -296,14 +299,9 @@ def flash_probe_grouped_raw(q: torch.Tensor, c: torch.Tensor, l: int, *,
         return (torch.empty((0, l), dtype=torch.int32, device=q.device),
                 torch.empty((0, l), dtype=torch.float32, device=q.device))
     q, c = q.contiguous(), c.contiguous()
-    warp = (grouped_mode(l, cn, d, q.element_size()) == "warp"
-            and _aligned(q, c))
-    if mode not in (None, "warp", "list") or mode == "warp" and not warp:
-        raise ValueError(f"flash_probe_grouped: mode {mode!r} does not take "
-                         f"l={l}, C={cn}, d={d}, {q.dtype} (or pointers off "
-                         f"16 bytes)")
     bf16 = int(q.dtype == torch.bfloat16)
-    if warp and mode != "list":
+    if grouped_mode(l, cn, d, q.element_size()) == "warp":
+        q, c = _aligned_copy(q), _aligned_copy(c)
         out_v = torch.empty((b, l), dtype=torch.float32, device=q.device)
         out_i = torch.empty((b, l), dtype=torch.int32, device=q.device)
         code = _build.lib().fk_flash_probe_grouped_warp(

@@ -13,9 +13,10 @@ The FlashProbe wrappers (``flash_probe``, ``flash_probe_grouped``,
 keep the reference's
 contracts: ``want_dists`` adds ``||q||^2`` back and clamps at 0, ``c_sq``
 may be passed in, and ``l > K`` (or ``> C``) or ``l < 1`` raises
-``ValueError``. Their one launch parameter is ``splits``, the CTAs that
-share one query's candidate axis (for the store scans, one (query, probe)
-pair's slots), from ``splits=``, a ``plan=`` or the default planner.
+``ValueError``. Their launch geometry comes from a ``plan=`` or the
+default planner; ``splits=`` overrides a list mode's CTAs that share one
+query's candidate axis (for the store scans, one (query, probe) pair's
+slots). The probe's tile mode takes the plan's ``cluster``.
 
 Block resolution: every wrapper accepts an optional ``plan=``
 (``core.plan.KernelPlan``) and/or explicit ``block_*`` overrides; with
@@ -255,10 +256,16 @@ def flash_lloyd_step(x: torch.Tensor, c: torch.Tensor, *,
 
 def _probe_splits(op: str, shape: tuple, dtype, splits, plan, device) -> int:
     """CTAs per query along the candidate axis: explicit ``splits`` win,
-    then a plan's, then the device's default planner's. The plan's shared
-    memory must fit the block limit of its hardware row."""
+    then a plan's, then the device's default planner's."""
     if splits is not None:
         return int(splits)
+    return _probe_plan(op, shape, dtype, plan, device).blocks[0]
+
+
+def _probe_plan(op: str, shape: tuple, dtype, plan, device):
+    """``plan``, or the device's default planner's for ``(op, shape)``.
+    The plan's shared memory must fit the block limit of its hardware
+    row."""
     if plan is None:
         from repro_torch.core.plan import default_planner
         plan = default_planner(device).plan(op, shape, dtype)
@@ -269,7 +276,7 @@ def _probe_splits(op: str, shape: tuple, dtype, splits, plan, device) -> int:
         raise ValueError(f"{op} kernel working set ({plan.smem_bytes} bytes) "
                          f"exceeds the {plan.hw} block shared-memory limit "
                          f"({plan.smem_limit} bytes)")
-    return plan.blocks[0]
+    return plan
 
 
 def _add_qsq(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -290,16 +297,18 @@ def flash_probe(q: torch.Tensor, c: torch.Tensor, *, l: int,
     the lower index. Distances are true squared distances unless
     ``want_dists=False`` (then the ``||q||^2``-free score). ``c_sq``: the
     centroids' ``||c||^2`` (K,) f32, e.g. ``IVFIndex``'s cached strip;
-    derived here when absent.
+    derived here when absent. ``splits`` sets the list mode's CTAs a
+    query; the tile mode's cluster is the plan's.
     """
     n, d = q.shape
     k = c.shape[0]
-    splits = _probe_splits("probe", (n, k, d, l), q.dtype, splits, plan,
-                           q.device)
+    p = _probe_plan("probe", (n, k, d, l), q.dtype, plan, q.device)
+    splits = int(splits) if splits is not None else p.blocks[0]
     if c_sq is None:
         c32 = c.float()
         c_sq = (c32 * c32).sum(-1)
-    idx, v = _fp.flash_probe_raw(q, c, c_sq.float(), l, splits=splits)
+    idx, v = _fp.flash_probe_raw(q, c, c_sq.float(), l, splits=splits,
+                                 cluster=p.cluster or 1)
     return idx, (_add_qsq(q, v) if want_dists else v)
 
 

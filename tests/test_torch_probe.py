@@ -239,8 +239,8 @@ def test_probe_plans_fit_shared_memory(op, shape):
     planner = P.KernelPlanner(H.hopper_row("h100_test"))
     p = planner.plan(op, shape, 1 if op == "scan_q8" else 4)
     splits, tile = p.blocks
-    # the probe's tile mode plans (cluster, queries a CTA); the list modes
-    # (splits, rows a selection round)
+    # the probe's tile mode plans (1, queries a CTA) and its cluster; the
+    # list modes (splits, rows a selection round)
     want = fp.PROBE_TILE_QUERIES if p.impl == "tile_topl" else fp.TILE
     assert tile == want and splits >= 1
     assert p.smem_bytes <= p.smem_limit
@@ -326,13 +326,13 @@ def test_grouped_mode_takes_short_lists_of_short_blocks(l, c, d, itemsize,
         assert plan.impl == "grouped_scan" and plan.blocks[1] == fp.TILE
 
 
-def _tile_cover(n: int, k: int, splits: int):
+def _tile_cover(n: int, k: int, want: int):
     """The tile mode's work, as the kernel cuts it: for every CTA of the
     grid its query tile and its slice's ring tiles, lanes l and l + 32 of
     each; returns per-centroid coverage by one query tile's cluster, the
     queries the grid scores and writes, and the merging CTA of each query
     of a tile."""
-    s, chunk, tiles = fp.probe_tile_geometry(n, k, splits)
+    s, chunk, tiles = fp.probe_tile_geometry(n, k, want)
     qt, kt = fp.PROBE_TILE_QUERIES, fp.PROBE_TILE_ROWS
     cover = np.zeros(k, np.int64)
     for rank in range(s):                  # one cluster; every tile alike
@@ -360,13 +360,13 @@ def _tile_cover(n: int, k: int, splits: int):
 @pytest.mark.parametrize("k", [1, 7, 33, 1000, 1025, 65536])
 def test_probe_tile_geometry_covers_every_pair_once(n, k):
     """Every (query, centroid) pair is scored by exactly one CTA of the
-    grid for each requested split 1-8 (cluster sizes 1, 2, 4, 8), K below
-    the cluster included (those CTAs get empty slices); every query of a
-    tile is merged by exactly one CTA of its cluster; the shared bytes of
-    the widest rows fit the block limit."""
-    for splits in range(1, 9):
-        s, chunk, tiles, cover, written, merger = _tile_cover(n, k, splits)
-        assert s in fp.PROBE_CLUSTERS and s <= splits and 2 * s > splits
+    grid for each cluster asked for, 1-8 (cluster sizes 1, 2, 4, 8), K
+    below the cluster included (those CTAs get empty slices); every query
+    of a tile is merged by exactly one CTA of its cluster; the shared bytes
+    of the widest rows fit the block limit."""
+    for want in range(1, 9):
+        s, chunk, tiles, cover, written, merger = _tile_cover(n, k, want)
+        assert s in fp.PROBE_CLUSTERS and s <= want and 2 * s > want
         assert chunk * s >= k and chunk == -(-k // s)
         assert (cover == 1).all()
         assert (written == 1).all() and tiles * fp.PROBE_TILE_QUERIES >= n
@@ -384,17 +384,20 @@ def test_probe_tile_geometry_covers_every_pair_once(n, k):
 @pytest.mark.parametrize("itemsize", [2, 4])
 def test_probe_plan_returns_the_tile_geometry(n, k, l, itemsize):
     """``_probe_plan`` returns the tile mode's cluster (enough CTAs to
-    fill the SMs, slices of at least 64 centroids) and its shared bytes,
-    which the wrapper's geometry then takes as its cluster."""
+    fill the SMs, slices long enough for the list) in its own field, no
+    list-mode split, and its shared bytes, which the wrapper's geometry
+    then takes as its cluster."""
     plan = P.KernelPlanner(H.H100).plan("probe", (n, k, 128, l), itemsize)
-    cl, qt = plan.blocks
+    splits, qt = plan.blocks
+    cl = plan.cluster
     assert plan.impl == "tile_topl" and qt == fp.PROBE_TILE_QUERIES
-    assert cl == H.choose_probe_cluster(P.bucket_dim(n), k)
+    assert splits == 1
+    assert cl == H.choose_probe_cluster(P.bucket_dim(n), k, l)
     assert fp.probe_tile_geometry(n, k, cl)[0] == cl
     assert plan.smem_bytes == fp.probe_tile_smem(128, itemsize, l, cl)
     assert plan.smem_bytes <= plan.smem_limit
-    if (n, k) == (256, 1024):
-        assert cl == 8       # 16 query tiles x 8 = 128 CTAs on 132 SMs
+    if (n, k) == (256, 1024):   # 16 query tiles x 8 = 128 CTAs on 132 SMs,
+        assert cl == (8 if l <= 32 else 4)   # slices of at least 4 L rows
     if n == 4096 or k < 64:
         assert cl == 1
 
@@ -476,19 +479,71 @@ def test_grouped_warp_steps_read_inside_the_block(c, d, itemsize):
     assert (offered == 1).all()
 
 
-def test_mode_argument_on_the_cpu_runs_the_plain_version():
-    """On the CPU the wrappers run the plain versions whatever the mode,
-    and launch nothing."""
-    q, c = torch.randn(5, 16), torch.randn(40, 16)
-    csq = (c * c).sum(-1)
+def test_wrappers_on_the_cpu_run_the_plain_version_in_either_mode():
+    """On the CPU the wrappers run the plain versions at shapes of either
+    mode, whatever the split or cluster, and launch nothing."""
     before = dict(fp.launches)
-    exp = fp.flash_probe_plain(q, c, csq, 7)
-    for mode in (None, "tile", "list"):
-        got = fp.flash_probe_raw(q, c, csq, 7, mode=mode)
-        assert torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])
-    blk = c[:20].expand(5, 20, 16)
-    exp = fp.flash_probe_grouped_plain(q, blk, 7)
-    for mode in (None, "warp", "list"):
-        got = fp.flash_probe_grouped_raw(q, blk, 7, mode=mode)
-        assert torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])
+    for l, d in ((7, 16), (7, 19), (40, 16)):   # tile, list, list
+        q, c = torch.randn(5, d), torch.randn(40, d)
+        csq = (c * c).sum(-1)
+        exp = fp.flash_probe_plain(q, c, csq, l)
+        for kw in ({}, {"splits": 3}, {"cluster": 8}):
+            got = fp.flash_probe_raw(q, c, csq, l, **kw)
+            assert torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])
+    for c_n in (20, 2000):                      # warp, list
+        q, blk = torch.randn(5, 16), torch.randn(5, c_n, 16)
+        exp = fp.flash_probe_grouped_plain(q, blk, 7)
+        for s_ in (1, 3):
+            got = fp.flash_probe_grouped_raw(q, blk, 7, splits=s_)
+            assert torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])
     assert fp.launches == before
+
+
+def test_probe_mode_rule_is_the_planners():
+    """The planner reports the mode the wrapper takes, by the same rule:
+    with the rule patched to the list mode the probe's and the block
+    scan's plans are the list modes' (no cluster, the list split)."""
+    planner = P.KernelPlanner(H.H100)
+    assert planner.plan("probe", (256, 1024, 128, 16), 4).impl == "tile_topl"
+    saved = fp.probe_mode, fp.grouped_mode
+    fp.probe_mode = fp.grouped_mode = lambda *a: "list"
+    try:
+        fresh = P.KernelPlanner(H.H100)
+        p = fresh.plan("probe", (256, 1024, 128, 16), 4)
+        g = fresh.plan("scan", (256, 40, 128, 10), 4)
+    finally:
+        fp.probe_mode, fp.grouped_mode = saved
+    assert p.impl == "online_topl" and p.cluster is None
+    assert p.blocks == (H.choose_probe_splits(256, 1024, 16), fp.TILE)
+    assert g.impl == "grouped_scan" and g.blocks[1] == fp.TILE
+
+
+@pytest.mark.parametrize("shape,want", [((256, 1024, 128, 16), "tile"),
+                                        ((256, 1024, 128, 100), "list")])
+def test_ops_probe_passes_the_plans_geometry(monkeypatch, shape, want):
+    """``ops.flash_probe`` hands the raw wrapper the plan's cluster and
+    list-mode split, each in its own parameter; an explicit ``splits``
+    overrides only the list mode's."""
+    n, k, d, l = shape
+    plan = P.KernelPlanner(H.H100).plan("probe", shape, 4)
+    seen = []
+    monkeypatch.setattr(fp, "flash_probe_raw", lambda q, c, csq, l, **kw: (
+        seen.append(kw) or fp.flash_probe_plain(q, c, csq, l)))
+    q, c = torch.randn(n, d), torch.randn(k, d)
+    ops.flash_probe(q, c, l=l, plan=plan)
+    ops.flash_probe(q, c, l=l, plan=plan, splits=3)
+    cl = plan.cluster or 1
+    assert seen == [{"splits": plan.blocks[0], "cluster": cl},
+                    {"splits": 3, "cluster": cl}]
+    assert (plan.impl == "tile_topl") == (want == "tile")
+    assert want == "list" or (plan.blocks[0] == 1 and cl in fp.PROBE_CLUSTERS)
+
+
+def test_aligned_copy_moves_only_data_off_16_bytes():
+    """The tile and warp modes stage whole 16-byte vectors: data that
+    starts off 16 bytes is copied (same values), aligned data is not."""
+    buf = torch.randn(4 * 64 + 1)
+    off = buf[1:].view(4, 64)
+    got = fp._aligned_copy(off)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, off)
+    assert fp._aligned_copy(got) is got

@@ -260,7 +260,7 @@ def test_q8_propose_matches_jax(nprobe, topk):
     ids, deq = tivf._q8_propose(
         torch.from_numpy(q), tidx.centroids, tidx._centroid_norms(),
         tidx.store.device_arrays(), tidx.counts, r=r, nprobe=nprobe,
-        width=width, probe_splits=1, scan_splits=1)
+        width=width)
     jids, jdeq = np.asarray(jids), np.asarray(jdeq)
     assert ids.dtype == torch.int32 and ids.shape == jids.shape == (24, r)
     assert np.array_equal(ids.numpy(), jids)
