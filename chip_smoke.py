@@ -22,7 +22,15 @@ run and read just after:
   in place) held to the block path (the gathered candidate block and the
   grouped scan) on the same batch, and to the same search with the probe's
   and the rescore's list modes (batch times, recall, device profiles); and
-  full-probe exactness on a smaller index.
+  full-probe exactness on a smaller index. The q8 search reads its rescore
+  rows from the device rescore cache (``rescore="device"``, the default),
+  held bit for bit to the host reservoir's path on every batch; both cells'
+  warm searches run under ``torch.cuda.set_sync_debug_mode("error")``;
+- serving: ``SearchEngine(query_batch=256, pipeline_depth=2)`` over both
+  IVF cells, 64 ragged search requests of 1-512 rows with 4 interleaved
+  adds of 4,096 rows (``refresh_every=2``), each request held bit for bit
+  to the same op stream through a synchronous engine (``pipeline_depth=1``)
+  over a copy of the index.
 
 Before the paths, the sort-inverse update, FlashLloyd and the store scan
 are held to their plain versions on edge shapes (one segment over every
@@ -38,12 +46,15 @@ tiles, narrow and wide rows, duplicated centroids and clusters of 2 and 8,
 and its list mode on the same inputs; the block scan's warp mode at short
 blocks off a warp step, padding and duplicated rows and every lane count,
 bit for bit against its list mode). The probe's tile mode is also timed at
-each cluster size against L at the IVF shape. FlashAssign's scores and its
-distances (the
-launch that sums ||x||^2 itself) are held to the plain version everywhere
-it runs. Wherever the fused step fits, the two-pass and fused iterations are
-timed in alternation (auto must take the winner of most pairs) and split by
-kernel with ``torch.profiler``; FlashLloyd's device time is read beside
+each cluster size against L at the IVF shape. The rescore cache's insert
+is held to its plain version on edges (ways 1 to 32, d off the vector
+width, ids of -1, duplicates, heavy eviction) and at the q8 build
+(unbounded, budgeted at a quarter of the rows' bytes, a re-insert).
+FlashAssign's scores and its distances (the launch that sums ||x||^2
+itself) are held to the plain version everywhere it runs. Wherever the
+fused step fits, the two-pass and fused iterations are timed in
+alternation (auto must take the winner of most pairs) and split by kernel
+with ``torch.profiler``; FlashLloyd's device time is read beside
 FlashAssign's on the same inputs, and at smallN_smallK its smallest cluster
 size against the next one up.
 
@@ -215,6 +226,20 @@ IVF_B, IVF_BATCHES, TOPK, NPROBE = 256, 4, 10, 16
 SWEEP_L = (1, 16, 32, 48, 64)   # the probe's tile mode: clusters against L
 EXACT = (65536, 64, 128)   # the full-probe exactness index
 EXACT_B = 32
+# the device rescore cache's insert (sets, ways, d, batch, ids below, kind):
+# ways 1, 4, 8 and 32, d off the 4-float vector (1, 3, 129) and an x off 16
+# bytes (the scalar copy), ids of -1 and duplicates within a batch, sets
+# that fill, that evict heavily, that take hits on a second batch
+INSERT_EDGE = [(64, 4, 128, 200, 100, "fill"),
+               (16, 4, 128, 1000, 1000, "evict"),
+               (8, 1, 3, 300, 300, "evict"),
+               (32, 32, 129, 3000, 5000, "evict"),
+               (7, 8, 16, 500, 900, "evict"), (4, 4, 1, 100, 40, "fill"),
+               (64, 4, 128, 700, 600, "unaligned")]
+# the serving phase: SearchEngine over each IVF cell, ragged traffic
+ENGINE_REQUESTS, ENGINE_MAX_ROWS = 64, 512
+ENGINE_ADDS, ENGINE_ADD_ROWS = 4, 4096
+ENGINE_RECALL_ROWS = 512
 
 failures: list[str] = []
 
@@ -261,14 +286,18 @@ def main() -> int:
     from repro_torch.core import KMeans, KMeansConfig
     from repro_torch.core import heuristics as H
     from repro_torch.core import plan as P
-    from repro_torch.index import IVFIndex, recall_at_k
+    from repro_torch.index import DeviceRescoreCache, IVFIndex, recall_at_k
+    from repro_torch.index import bridge
     from repro_torch.index import ivf as ivf_mod
     from repro_torch.index import store as store_mod
+    from repro_torch.index.rescore_cache import cache_lookup
     from repro_torch.kernels import flash_assign as fa
     from repro_torch.kernels import flash_lloyd as fl
     from repro_torch.kernels import flash_probe as fp
     from repro_torch.kernels import ops
+    from repro_torch.kernels import rescore_cache as rck
     from repro_torch.kernels import sort_inverse_update as siu
+    from repro_torch.serve import SearchConfig, SearchEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -387,14 +416,14 @@ def main() -> int:
                             f"== the planner's {model} (d={d}, bf16={bf16})")
 
     mods = {"flash_assign": fa, "sort_inverse_update": siu,
-            "flash_lloyd": fl}
+            "flash_lloyd": fl, "rescore_cache_insert": rck}
     probe_names = tuple(fp.launches)
     launches = {k: 0 for k in (*mods, *probe_names)}
     max_err = {k: 0.0 for k in launches}
     timing: dict[str, dict] = {}
     details = {"card": smi, "regimes": [], "kernel_checks": [], "ivf": [],
                "ivf_truth": [], "controls": [], "step_pairs": [],
-               "profiles": []}
+               "profiles": [], "cache_insert": [], "engine": []}
 
     def zero_counts():
         for mod in mods.values():
@@ -877,6 +906,36 @@ def main() -> int:
               f"differ, {int(torch.isinf(got[1]).sum())} +inf)")
         return got
 
+    def insert_state(cache):
+        return [cache.keys, cache.rows, cache.ref, cache.hand]
+
+    def insert_check(state, ids, x, tag):
+        """The rescore cache's insert on a copy of ``state`` (keys, rows,
+        ref, hand) against its plain version on another copy: keys, ref
+        bits and hands equal, rows equal on live lanes. Returns the
+        kernel's state."""
+        got = [t.clone() for t in state]
+        exp = [t.clone() for t in state]
+        rck.cache_insert_raw(*got, ids, x)
+        order, seg = rck.group_by_set(ids, state[0].shape[0])
+        rck.cache_insert_plain(*exp, ids, x, order, seg)
+        live = exp[0] >= 0
+        err = float((got[1] - exp[1])[live].abs().max()) if bool(
+            live.any()) else 0.0
+        same = [torch.equal(got[i], exp[i]) for i in (0, 2, 3)]
+        ok = all(same) and torch.equal(got[1][live], exp[1][live])
+        max_err["rescore_cache_insert"] = max(
+            max_err["rescore_cache_insert"], err)
+        rec = {"kernel": "rescore_cache_insert", "at": tag,
+               "shape": [*state[1].shape, int(ids.shape[0])],
+               "live_lanes": int(live.sum()), "max_abs_err": err,
+               "keys_ref_hand_equal": same, "ok": ok}
+        details["kernel_checks"].append(rec)
+        check(ok, f"rescore_cache_insert {tag}: keys, ref, hand equal the "
+                  f"plain version's {same}, rows on {int(live.sum())} live "
+                  f"lanes equal (max err {err:.3g})")
+        return got
+
     # ---- FlashIVF helpers: the corpus's own exact neighbours --------------
     def corpus_topk(x, q, topk):
         """Exact top-``topk`` of ``||x - q||^2`` over the corpus rows, with
@@ -1164,6 +1223,21 @@ def main() -> int:
                 check(not bool(((a >= h) & (a < 2 * h)).any()),
                       f"flash_assign edge{(b, n, k, d)} {cdt}: no id on the "
                       "upper copy of a duplicated centroid")
+    print("\n[rescore cache insert edges]", flush=True)
+    gen_i = torch.Generator(device=dev).manual_seed(SEED + 8)
+    for sets, ways, d, m, top, kind in INSERT_EDGE:
+        state = [torch.full((sets, ways), -1, dtype=torch.int32, device=dev),
+                 torch.zeros((sets, ways, d), device=dev),
+                 torch.zeros((sets, ways), dtype=torch.int32, device=dev),
+                 torch.zeros((sets,), dtype=torch.int32, device=dev)]
+        for step in range(2):   # the second batch meets the first's lanes
+            ids = torch.randint(-1, top, (m,), device=dev, generator=gen_i,
+                                dtype=torch.int32)
+            x = torch.randn(m * d + 1, device=dev, generator=gen_i)
+            x = (x[1:] if kind == "unaligned" else x[:-1]).view(m, d)
+            state = insert_check(state, ids, x, f"edge{(sets, ways, d, m)}/"
+                                 f"{kind}/batch {step}")
+
     if args.kernels_only:
         if failures:
             print(f"\nchip_smoke: {len(failures)} check(s) failed",
@@ -1652,6 +1726,285 @@ def main() -> int:
         finally:
             index.planner, index._search_plans = saved
 
+    @contextlib.contextmanager
+    def host_rescore(index):
+        """The q8 index searches through the host reservoir, the reference's
+        ``rescore="host"`` path: its cache is set aside (the plans of that
+        geometry plan the rescore as "scan"); restored on exit."""
+        cache = index.store.cache
+        index.store.cache = None
+        try:
+            yield
+        finally:
+            index.store.cache = cache
+
+    def no_sync_check(index, qb, tag):
+        """A warm search under ``set_sync_debug_mode("error")``: any host
+        sync on the path raises."""
+        torch.cuda.synchronize()
+        err = None
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            index.search(qb, topk=TOPK, nprobe=NPROBE)
+        except RuntimeError as e:
+            err = str(e).splitlines()[0][:200]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        check(err is None, f"{tag}: a warm search makes no host sync "
+                           f"(set_sync_debug_mode('error')): "
+                           f"{err or 'nothing raised'}")
+
+    def time_batches(index):
+        """Each query batch once after a warm-up: results and CUDA-event
+        ms per batch."""
+        index.search(queries[0], topk=TOPK, nprobe=NPROBE)   # warm-up
+        res, ms = [], []
+        for qb in queries:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            res.append(index.search(qb, topk=TOPK, nprobe=NPROBE))
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1))
+        return res, ms
+
+    def insert_timing(st0, ids, x, tag, reps=5):
+        """The insert from ``st0`` (never changed): CUDA events around the
+        wrapper (its grouping sort included) and the plain version, each
+        call on a fresh copy of the state; the device time of one call by
+        kernel (the profiler); the byte bound's operands."""
+        work = [t.clone() for t in st0]
+        sets, ways = st0[0].shape
+        d_ = st0[1].shape[2]
+
+        def reset():
+            for w, t in zip(work, st0):
+                w.copy_(t)
+            torch.cuda.synchronize()
+
+        def plain():
+            rck.cache_insert_plain(*work, ids, x,
+                                   *rck.group_by_set(ids, sets))
+        out = {}
+        for label, fn, n_ in (("ms", lambda: rck.cache_insert_raw(
+                *work, ids, x), reps), ("plain_ms", plain, 2)):
+            ts = []
+            for _ in range(n_ + 1):   # the first is a warm-up
+                reset()
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                fn()
+                e1.record()
+                torch.cuda.synchronize()
+                ts.append(e0.elapsed_time(e1))
+            out[label] = statistics.median(ts[1:])
+            out[label + "_runs"] = ts[1:]
+        rows = []
+        for _ in range(3):   # the profiler now and then records no kernel
+            reset()
+            rows = device_rows(lambda: rck.cache_insert_raw(*work, ids, x),
+                               1)
+            if rows:
+                break
+        _, seg = rck.group_by_set(ids, sets)
+        cnt = (seg[1:] - seg[:-1]).long()
+        touched = int((cnt > 0).sum())
+        slots = int(torch.clamp(cnt, max=ways).sum())
+        m = int(ids.shape[0])
+        # ids and rows read once; each touched set's written rows (at most
+        # its ways) and its lanes (keys, ref) and hand written once
+        byt = (m * 4 + m * d_ * 4 + slots * d_ * 4
+               + touched * (2 * ways + 1) * 4)
+        kern = [r for r in rows if "cache_insert" in r["name"]]
+        out.update({"library_ms": None, "bytes": byt, "ops": 0.0,
+                    "dtype": "float32", "shape": [sets, ways, d_, m],
+                    "device_ms": sum(r["ms"] for r in rows),
+                    "device_launch_ms": kern[0]["launch_ms"] if kern
+                    else None,
+                    "library_device_ms": None, "device_rows": rows,
+                    "touched_sets": touched, "written_slots": slots})
+        print(f"  {tag}: {out['ms']:.4f} ms a call (CUDA events, median of "
+              f"{reps}; plain {out['plain_ms']:.3f} ms); device "
+              f"{out['device_ms']:.4f} ms, the kernel "
+              f"{out['device_launch_ms']} ms; bound "
+              f"{byt / HBM_BW * 1e3:.4f} ms (bytes: {m} ids, {slots} rows "
+              f"written in {touched} sets)", flush=True)
+        del work
+        return out
+
+    def engine_phase(index, codec, centers):
+        """Ragged traffic through ``SearchEngine(query_batch=IVF_B,
+        pipeline_depth=2)`` over ``index`` and the same op stream through a
+        synchronous engine over a copy of it (the bridge's state, so both
+        start from the same bits: two builds need not, the sort-inverse
+        update's atomics add in no fixed order); every request must equal
+        bit for bit. The served engine's run is counted."""
+        tag = f"engine/{codec}"
+        print(f"\n[{tag}] SearchEngine(query_batch={IVF_B}, "
+              f"pipeline_depth=2), {ENGINE_REQUESTS} requests of 1-"
+              f"{ENGINE_MAX_ROWS} rows, {ENGINE_ADDS} adds of "
+              f"{ENGINE_ADD_ROWS}, refresh_every=2", flush=True)
+        snap = bridge.index_to_numpy(index)
+        twin = bridge.index_from_numpy(
+            snap["centroids"], snap["store_arrays"], snap["store_meta"],
+            n_total=snap["n_total"], stats=snap["stats"],
+            pending=snap["pending"], cache=snap["cache"], device=dev,
+            planner=index.planner)
+        del snap
+        same = [torch.equal(index.centroids, twin.centroids),
+                torch.equal(index.counts, twin.counts),
+                all(torch.equal(a, b) for a, b in zip(
+                    index.store.device_arrays(), twin.store.device_arrays()))]
+        if codec == "q8":
+            same.append(all(torch.equal(a, b) for a, b in zip(
+                index.store.cache_arrays(), twin.store.cache_arrays())))
+        check(all(same), f"{tag}: the synchronous engine's index equals the "
+                         f"served one (centroids, counts, store"
+                         f"{', cache' if codec == 'q8' else ''}): {same}")
+        g = torch.Generator().manual_seed(SEED + 9)     # the request sizes
+        sizes = torch.randint(1, ENGINE_MAX_ROWS + 1, (ENGINE_REQUESTS,),
+                              generator=g).tolist()
+        gd = torch.Generator(device=dev).manual_seed(SEED + 10)
+        dd_ = centers.shape[1]
+
+        def blobs(rows):
+            lab = torch.randint(0, centers.shape[0], (rows,), device=dev,
+                                generator=gd)
+            return centers[lab] + 0.4 * torch.randn(rows, dd_, device=dev,
+                                                    generator=gd)
+        every = ENGINE_REQUESTS // (ENGINE_ADDS + 1)
+        stream = []
+        for i, sz in enumerate(sizes):
+            stream.append(("search", blobs(sz)))
+            if (i + 1) % every == 0 and (i + 1) // every <= ENGINE_ADDS:
+                stream.append(("add", blobs(ENGINE_ADD_ROWS)))
+        rows_total = sum(sizes)
+
+        def run(idx, depth):
+            """The op stream through an engine; the host time of each of
+            its adds (``IVFIndex.add``, whose id readback syncs) apart."""
+            eng = SearchEngine(idx, SearchConfig(
+                topk=TOPK, nprobe=NPROBE, query_batch=IVF_B,
+                pipeline_depth=depth, refresh_every=2))
+            add_s, real_add = [], idx.add
+
+            def timed_add(x_new):
+                t = time.perf_counter()
+                a = real_add(x_new)
+                add_s.append(time.perf_counter() - t)
+                return a
+            idx.add = timed_add
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rids = [eng.submit(p) if kind == "search"
+                        else eng.submit_add(p) for kind, p in stream]
+                eng.pump()   # a server's loop: drain what was admitted
+                out = [eng.take(r) for r in rids]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                del idx.add
+            return eng, out, wall, add_s
+
+        zero_counts()
+        eng, out, wall, add_s = run(index, 2)
+        counts = read_counts()
+        for kname in launches:
+            launches[kname] += counts[kname]
+        ref_eng, ref_out, ref_wall, ref_add_s = run(twin, 1)
+        bad = [i for i, ((kind, _), a, b) in enumerate(zip(stream, out,
+                                                             ref_out))
+               if not (torch.equal(a, b) if kind == "add" else
+                       torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))]
+        check(not bad, f"{tag}: all {len(stream)} requests equal the "
+                       f"synchronous engine's bit for bit (ids, distances; "
+                       f"the adds' cells): {len(bad)} differ {bad[:8]}")
+        ok_out = all(a[0].shape == (p.shape[0], TOPK)
+                     and bool(((a[0] >= 0) & (a[0] < len(index))).all())
+                     and bool(torch.isfinite(a[1]).all())
+                     for (kind, p), a in zip(stream, out) if kind == "search")
+        check(ok_out, f"{tag}: every request's ids in [0, N), finite "
+                      f"distances, (rows, {TOPK})")
+        need = ["flash_assign", "sort_inverse_update", "flash_probe_tile"] + (
+            ["flash_probe_store"] if codec == "fp32" else
+            ["flash_probe_store_q8", "flash_probe_grouped_warp",
+             "rescore_cache_insert"])
+        check(all(counts[kn] > 0 for kn in need),
+              f"{tag} kernels launched: {counts}")
+        # recall@10 of the requests served after the last add, against
+        # search_brute on the index they searched
+        last_add = max(i for i, (kind, _) in enumerate(stream)
+                       if kind == "add")
+        tail = [(p, a[0]) for i, ((kind, p), a) in enumerate(zip(stream, out))
+                if i > last_add]
+        q_tail = torch.cat([p for p, _ in tail])[:ENGINE_RECALL_ROWS]
+        ids_tail = torch.cat([a for _, a in tail])[:ENGINE_RECALL_ROWS]
+        brute = torch.cat([index.search_brute(q_tail[i:i + IVF_B],
+                                              topk=TOPK)[0]
+                           for i in range(0, q_tail.shape[0], IVF_B)])
+        recall = recall_at_k(ids_tail, brute)
+        check(recall >= 0.9, f"{tag}: recall@{TOPK} {recall:.4f} of the "
+                             f"{q_tail.shape[0]} rows served after the last "
+                             f"add (vs search_brute) >= 0.9")
+        lat, lat_ref = eng.latency_stats(), ref_eng.latency_stats()
+        # where an add's host time goes: one more add of the same size on
+        # the served index, under cProfile (after every check above)
+        import cProfile
+        import io
+        import pstats
+        prof_add = cProfile.Profile()
+        x_add = blobs(ENGINE_ADD_ROWS)
+        torch.cuda.synchronize()
+        prof_add.enable()
+        index.add(x_add)
+        torch.cuda.synchronize()
+        prof_add.disable()
+        buf = io.StringIO()
+        pstats.Stats(prof_add, stream=buf).sort_stats("cumulative") \
+            .print_stats(14)
+        add_profile = [ln for ln in buf.getvalue().splitlines()
+                       if ln.strip()][-16:]
+        print("  one more add under cProfile (cumulative):\n    "
+              + "\n    ".join(add_profile), flush=True)
+        rec = {"codec": codec, "requests": ENGINE_REQUESTS,
+               "rows": rows_total, "adds": ENGINE_ADDS,
+               "add_rows": ENGINE_ADD_ROWS, "sizes": sizes,
+               "wall_s": wall, "qps": rows_total / wall,
+               "latency": lat, "batches_formed": eng.batches_formed,
+               "coalesced_requests": eng.coalesced_requests,
+               "interleaved_adds": eng.interleaved_adds,
+               "refresh_count": eng.refresh_count,
+               "recall_at_10": recall, "launches": counts,
+               "add_s": add_s, "qps_searches": rows_total
+               / (wall - sum(add_s)), "add_profile": add_profile,
+               "sync_engine": {"wall_s": ref_wall, "add_s": ref_add_s,
+                               "qps": rows_total / ref_wall,
+                               "qps_searches": rows_total
+                               / (ref_wall - sum(ref_add_s)),
+                               "latency": lat_ref}}
+        details["engine"].append(rec)
+        print(f"  {rows_total} query rows in {eng.batches_formed} units "
+              f"({eng.coalesced_requests} coalesced requests, "
+              f"{eng.interleaved_adds} adds, {eng.refresh_count} refreshes) "
+              f"in {wall:.3f} s = {rows_total / wall:.1f} queries/s "
+              f"(synchronous engine {rows_total / ref_wall:.1f}); "
+              f"overlap_hits {eng.overlap_hits}; recall@{TOPK} "
+              f"{recall:.4f}", flush=True)
+        fmt_ms = lambda ts: ", ".join(f"{t * 1e3:.1f}" for t in ts)
+        print(f"  adds {fmt_ms(add_s)} ms (synchronous engine "
+              f"{fmt_ms(ref_add_s)}); "
+              f"without the adds {rec['qps_searches']:.1f} queries/s "
+              f"(synchronous {rec['sync_engine']['qps_searches']:.1f})",
+              flush=True)
+        print(f"  latency_stats {json.dumps(lat)}; synchronous "
+              f"{json.dumps(lat_ref)}", flush=True)
+        del twin, eng, ref_eng, out, ref_out, stream
+        torch.cuda.empty_cache()
+
     # ---- phase 5: FlashIVF search at full width, fp32 and q8 -------------
     # a generator of its own: the corpus does not depend on what the earlier
     # phases draw
@@ -1680,16 +2033,12 @@ def main() -> int:
         build_peak_gib = torch.cuda.max_memory_allocated() / 2**30
         torch.cuda.reset_peak_memory_stats()   # the searches' own peak
         width = index.search_geometry(TOPK, NPROBE)[2]
+        if codec == "q8":
+            check(index.store.cache is not None, "ivf/q8: the index's "
+                  "default rescore is the device cache")
         index.search(queries[0], topk=TOPK, nprobe=NPROBE)   # warm-up
-        results, batch_ms = [], []
-        for qb in queries:
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            results.append(index.search(qb, topk=TOPK, nprobe=NPROBE))
-            e1.record()
-            torch.cuda.synchronize()
-            batch_ms.append(e0.elapsed_time(e1))
+        no_sync_check(index, queries[1], f"ivf/{codec}")
+        results, batch_ms = time_batches(index)
         counts = read_counts()
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         for kname in launches:
@@ -1724,10 +2073,12 @@ def main() -> int:
               f"{recall_c:.4f} (corpus) >= 0.9")
         need = ["flash_assign", "sort_inverse_update", "flash_probe_tile"] + (
             ["flash_probe_store"] if codec == "fp32"
-            else ["flash_probe_store_q8", "flash_probe_grouped_warp"])
+            else ["flash_probe_store_q8", "flash_probe_grouped_warp",
+                  "rescore_cache_insert"])
         idle = ["flash_probe_grouped_q8", "flash_probe",
                 "flash_probe_grouped"] + (
-            ["flash_probe_grouped_warp", "flash_probe_store_q8"]
+            ["flash_probe_grouped_warp", "flash_probe_store_q8",
+             "rescore_cache_insert"]
             if codec == "fp32" else ["flash_probe_store"])
         check(all(counts[kn] > 0 for kn in need)
               and all(counts[kn] == 0 for kn in idle),
@@ -1758,6 +2109,36 @@ def main() -> int:
                                        queries[0], topk=TOPK, nprobe=NPROBE))
         prof = profile_steps(f"ivf/{codec} search", lambda: index.search(
             queries[0], topk=TOPK, nprobe=NPROBE))
+        host = {}
+        if codec == "q8":
+            # the host reservoir's path on the same index, in the same
+            # process: every batch bit for bit the device path's
+            torch.cuda.reset_peak_memory_stats()
+            with host_rescore(index):
+                res_h, ms_h = time_batches(index)
+                prof_h = profile_steps("ivf/q8 search, host rescore",
+                                       lambda: index.search(
+                                           queries[0], topk=TOPK,
+                                           nprobe=NPROBE))
+            diff = [i for i, (a, b) in enumerate(zip(results, res_h))
+                    if not (torch.equal(a[0], b[0])
+                            and torch.equal(a[1], b[1]))]
+            check(not diff, f"ivf/q8: every batch of the device path equals "
+                            f"the host path's bit for bit (ids, distances): "
+                            f"batches {diff} differ")
+            host = {"ms_per_batch": statistics.median(ms_h), "batch_ms": ms_h,
+                    "device_busy_ms": prof_h["device_busy_ms"],
+                    "launches": prof_h["launches"],
+                    "search_peak_gib":
+                        torch.cuda.max_memory_allocated() / 2**30}
+            cache = index.store.cache
+            print(f"  device rescore: {ms:.3f} ms per batch, busy "
+                  f"{prof['device_busy_ms']:.4f} ms in {prof['launches']:g} "
+                  f"launches; host rescore: {host['ms_per_batch']:.3f} ms, "
+                  f"busy {host['device_busy_ms']:.4f} ms in "
+                  f"{host['launches']:g}; the cache {cache.sets} sets x "
+                  f"{cache.ways} ways, {cache.resident_bytes() / 2**30:.3f} "
+                  f"GiB resident", flush=True)
         recall_l = statistics.mean(recall_at_k(ids, ids_b) for (ids, _), ids_b
                                    in zip(res_l, brute))
         ms_list = statistics.median(ms_l)
@@ -1783,7 +2164,9 @@ def main() -> int:
                             "device_busy_ms": prof_l["device_busy_ms"],
                             "launches": prof_l["launches"]},
              "search_device_busy_ms": prof["device_busy_ms"],
-             "search_launches": prof["launches"]})
+             "search_launches": prof["launches"], "host_rescore": host,
+             "cache_bytes": index.store.cache.resident_bytes()
+             if codec == "q8" else 0})
 
         # build's and add's kernels at the shapes this path gave them:
         # FlashAssign of the corpus on the built centroids, then the
@@ -1978,9 +2361,16 @@ def main() -> int:
                 found = torch.as_tensor(found, device=dev)
                 torch.cuda.synchronize()
                 host_ms.append((time.perf_counter() - t0) * 1e3)
-            # the rescore scan on the rows the path feeds it: reservoir
-            # rows, dequantized codes where missing, padding for id -1
-            cand = ivf_mod._rescore_rows(deq, ids, rows, found)
+            # the device path's rows: the cache's lookup, on the card, bit
+            # for bit the reservoir's (the unbounded cache holds every id)
+            rows_c, found_c = cache_lookup(*index.store.cache_arrays(), ids)
+            check(torch.equal(found_c, found) and torch.equal(rows_c, rows),
+                  f"ivf/q8 batch 0: the device cache's rows and hits equal "
+                  f"the host reservoir's bit for bit ({int(found.sum())} of "
+                  f"{found.numel()} proposals found)")
+            # the rescore scan on the rows the path feeds it: cached rows,
+            # dequantized codes where missing, padding for id -1
+            cand = ivf_mod._rescore_rows(deq, ids, rows_c, found_c)
             scan_check(qb, cand, TOPK, "ivf/q8-rescore", plans[2].blocks[0])
             # the warp mode, and beside it the list mode with the splits
             # its planner gives (the kernel before the warp mode)
@@ -2012,6 +2402,8 @@ def main() -> int:
                     cnts, r=r, nprobe=NPROBE, width=width,
                     probe_plan=plans[0], scan_plan=plans[1])),
                 "host_round_trip_ms": statistics.median(host_ms),
+                "cache_lookup_ms": ms_of(lambda: cache_lookup(
+                    *index.store.cache_arrays(), ids)),
                 "rescore_ms": ms_of(lambda: ivf_mod._rescore_body(
                     qb, deq, ids, rows, found, topk=TOPK, plan=plans[2])),
                 "live_rows": live_rows, "probed_cells": int(cells.numel()),
@@ -2052,7 +2444,41 @@ def main() -> int:
         details["ivf"][-1].update(parts)
         print("  " + ", ".join(f"{key} {v:.3f}" for key, v in parts.items()),
               flush=True)
-        del index, probe
+        del probe
+        if codec == "q8":
+            # the rescore cache's insert at the build's shapes: the build's
+            # ids and rows in the store's append order (its posting lists),
+            # into an unbounded cache (the index's own, which it must
+            # equal) and one budgeted at a quarter of the rows' bytes (16
+            # items a set: heavy eviction); then a re-insert of every 16th
+            # id with new rows
+            ids_app = index.posting_lists()[0].to(torch.int32).contiguous()
+            rows_app = x[ids_app.long()]
+            for label, mb in (("unbounded", None), ("budgeted", n * d)):
+                c0 = DeviceRescoreCache(d, max_bytes=mb, device=dev)
+                if mb is None:
+                    c0._ensure(n - 1)
+                st0 = insert_state(c0)
+                tag = f"ivf/q8 {label} ({c0.sets} sets x {c0.ways})"
+                st1 = insert_check(st0, ids_app, rows_app, tag)
+                if mb is None:
+                    live = st1[0] >= 0
+                    same = torch.equal(index.store.cache.keys, st1[0]) and \
+                        torch.equal(index.store.cache.rows[live], st1[1][live])
+                    check(same, f"{tag}: the index's cache after its build "
+                                f"equals this insert's")
+                insert_check(st1, ids_app[::16].contiguous(),
+                             rows_app[::16] + 1.0, f"{tag} re-insert")
+                rec = insert_timing(st0, ids_app, rows_app, tag)
+                details["cache_insert"].append({"at": tag, **{
+                    kk: v for kk, v in rec.items() if kk != "device_rows"}})
+                if mb is None:
+                    timing["ivf/rescore_cache_insert"] = rec
+                del c0, st0, st1
+            del ids_app, rows_app
+            torch.cuda.empty_cache()
+        engine_phase(index, codec, centers)
+        del index
         torch.cuda.empty_cache()
 
     # kernel times at the main path's shapes, and the block path's scans
@@ -2121,14 +2547,19 @@ def main() -> int:
     main_shape = {"flash_assign": "largeN_smallK/float32",
                   "sort_inverse_update": "largeN_smallK/float32",
                   "flash_lloyd": "smallN_smallK/float32",
+                  "rescore_cache_insert": "ivf",
                   **{kname: "ivf" for kname in probe_names}}
     sources = {"flash_assign": "src/repro_torch/csrc/flash_assign.cu",
                "sort_inverse_update":
                    "src/repro_torch/csrc/sort_inverse_update.cu",
                "flash_lloyd": "src/repro_torch/csrc/flash_lloyd.cu",
+               "rescore_cache_insert": "src/repro_torch/csrc/rescore_cache.cu",
                **{kname: "src/repro_torch/csrc/flash_probe.cu"
                   for kname in probe_names}}
+    # the cache insert replaces no pl.pallas_call: the reference's insert
+    # is the jitted fori_loop _cache_insert
     replaces = {"flash_assign": "src/repro/kernels/flash_assign.py:77",
+                "rescore_cache_insert": "src/repro/index/rescore_cache.py:99",
                 "sort_inverse_update":
                     "src/repro/kernels/sort_inverse_update.py:104",
                 "flash_lloyd": "src/repro/kernels/flash_lloyd.py:118",

@@ -456,15 +456,31 @@ def scan_q8_bytes(bq: int, c: int, d: int, l: int) -> float:
     return bq * d * 4.0 + bq * c * (d + 4) + 2 * bq * l * 4
 
 
-def choose_rescore_mult(topk: int, d: int, cand: int) -> int:
-    """The q8 rescore multiplier for ``rescore_mult="auto"`` (port of the
-    reference's ``choose_rescore_mult`` at its defaults): ``R/topk =
-    ceil(-2 ln(1 - 0.95)) = 6`` (the exponential coverage model at recall
-    0.95), capped so that rescoring ``R`` exact f32 rows per query does not
-    spend more bytes than the int8 codes (``d + 4`` bytes a row) saved on
-    the ``cand``-row scan."""
+def rescore_bytes(bq: int, c: int, d: int, l: int) -> float:
+    """The q8 rescore fed by the device rescore cache (ref.
+    ``repro/core/plan.py:408-421``): the grouped scan's f32 traffic plus
+    the cache gather, an int32 key lane and a found mask per proposed
+    row."""
+    return scan_bytes(bq, c, d, l) + bq * c * 8.0
+
+
+def choose_rescore_mult(topk: int, d: int, cand: int, *,
+                        hit_rate: float | None = None) -> int:
+    """The q8 rescore multiplier for ``rescore_mult="auto"`` (port of
+    ``choose_rescore_mult``, ``repro/core/heuristics.py:407-441``, at its
+    recall target and row sizes): ``R/topk = ceil(-2 ln(1 - 0.95)) = 6``
+    (the exponential coverage model at recall 0.95), capped so that
+    rescoring ``R`` rows per query does not spend more bytes than the int8
+    codes (``d + 4`` bytes a row) saved on the ``cand``-row scan. A row
+    costs ``4 d`` bytes, or with the device cache's expected ``hit_rate``
+    ``max(hit_rate * 4 d, d + 4)``: only hits read fresh fp32 rows, misses
+    rescore the decoded rows the proposal already holds."""
     code_bytes, full_bytes = d + 4.0, 4.0 * d
     base = int(math.ceil(-2.0 * math.log(1.0 - 0.95)))
+    row_bytes = full_bytes
+    if hit_rate is not None:
+        row_bytes = max(code_bytes,
+                        full_bytes * min(1.0, max(0.0, float(hit_rate))))
     saved = max(0.0, float(cand) * (full_bytes - code_bytes))
-    cap = max(1, int(saved // max(1.0, float(topk) * full_bytes)))
+    cap = max(1, int(saved // max(1.0, float(topk) * row_bytes)))
     return max(1, min(base, cap))

@@ -1,13 +1,13 @@
 """KernelPlanner — one cache-aware planning layer for every kernel dispatch.
 
 Port of ``repro/core/plan.py`` for the k-means ops (``assign``, ``update``,
-``step``) and the FlashProbe ops (``probe``, ``scan``, ``scan_q8``, and
-the port's ``scan_store`` and ``scan_q8_store``, the posting-list scans
-that read the fp32 and the quantized store; the
-reference's ``route`` waits for the two-level router and ``rescore`` for
-the device rescore cache). The closed-form math lives in ``core.heuristics``; this module
-owns the plan contract (``plan(op, shape, dtype) -> KernelPlan``, with the
-shared-memory footprint and modeled HBM bytes attached), the in-process
+``step``) and the FlashProbe ops (``probe``, ``scan``, ``scan_q8``,
+``rescore``, and the port's ``scan_store`` and ``scan_q8_store``, the
+posting-list scans that read the fp32 and the quantized store; the
+reference's ``route`` waits for the two-level router). The closed-form
+math lives in ``core.heuristics``; this module owns the plan contract
+(``plan(op, shape, dtype) -> KernelPlan``, with the shared-memory
+footprint and modeled HBM bytes attached), the in-process
 memo keyed on ``(op, shape bucket, itemsize, hardware)`` — batch-like dims
 bucketed to the next power of two — and hardware detection
 (``detect_hardware`` maps a CUDA device onto a ``Hardware`` row read from
@@ -26,14 +26,14 @@ from repro_torch.kernels import flash_probe as _fp
 from repro_torch.kernels.ops import BlockConfig
 
 OPS = ("assign", "update", "step", "probe", "scan", "scan_store", "scan_q8",
-       "scan_q8_store")
+       "scan_q8_store", "rescore")
 _ARITY = {"assign": 3, "update": 3, "step": 3, "probe": 4, "scan": 4,
-          "scan_store": 5, "scan_q8": 4, "scan_q8_store": 5}
+          "scan_store": 5, "scan_q8": 4, "scan_q8_store": 5, "rescore": 4}
 # batch-like shape positions, bucketed to the next power of two; geometry
 # dims (k, d, l, nprobe, width) stay exact
 _BUCKET_DIMS = {"assign": (0,), "update": (0,), "step": (0,),
                 "probe": (0,), "scan": (0, 1), "scan_store": (0,),
-                "scan_q8": (0, 1), "scan_q8_store": (0,)}
+                "scan_q8": (0, 1), "scan_q8_store": (0,), "rescore": (0, 1)}
 
 
 def bucket_dim(v: int) -> int:
@@ -109,8 +109,9 @@ class KernelPlan:
     hw: str
     impl: str             # assign: "flash" | update: "sort_inverse"
                           # step: "fused" / "two_pass" | probe:
-                          # "tile_topl" / "online_topl" | scan:
-                          # "grouped_scan_warp" / "grouped_scan" |
+                          # "tile_topl" / "online_topl" | scan,
+                          # rescore: "grouped_scan_warp" /
+                          # "grouped_scan" |
                           # scan_store: "store_scan_cell" /
                           # "store_scan_list" |
                           # scan_q8: "grouped_scan_q8" |
@@ -146,6 +147,9 @@ class KernelPlanner:
         ops, ``(n, k, d, l)`` for ``probe``, ``(b, c, d, l)`` for
         ``scan``/``scan_q8`` and ``(b, nprobe, width, d, l)`` for
         ``scan_store``; ``dtype`` a torch dtype or an itemsize.
+        ``rescore`` (the q8 rescore fed by the device cache) takes the
+        ``scan`` shape and kernel; only its modeled bytes add the cache
+        gather (ref. ``repro/core/plan.py:408-421``).
         ``blk`` pins a ``BlockConfig`` (the plan is then judged, and
         memoized, for those tiles; the probe ops have none)."""
         if op not in OPS:
@@ -222,7 +226,7 @@ class KernelPlanner:
         """Run the closed-form choosers for one cache miss."""
         H, hw = heuristics, self.hw
         self.chooser_calls += 1
-        if op in ("probe", "scan", "scan_q8"):
+        if op in ("probe", "scan", "scan_q8", "rescore"):
             return self._probe_plan(op, s, b)
         if op == "scan_store":
             return self._store_plan(s, b)
@@ -266,6 +270,8 @@ class KernelPlanner:
             impl, hbm = "online_topl", H.probe_bytes(n, c, d, l, b)
         elif op == "scan":
             impl, hbm = "grouped_scan", H.scan_bytes(n, c, d, l, b)
+        elif op == "rescore":
+            impl, hbm = "grouped_scan", H.rescore_bytes(n, c, d, l)
         else:
             impl, hbm = "grouped_scan_q8", H.scan_q8_bytes(n, c, d, l)
         mk = lambda **kw: KernelPlan(op=op, shape=s, itemsize=b, hw=hw.name,
@@ -276,7 +282,8 @@ class KernelPlanner:
             return mk(impl="tile_topl", cluster=cl,
                       blocks=(1, _fp.PROBE_TILE_QUERIES),
                       smem_bytes=_fp.probe_tile_smem(d, b, l, cl))
-        if op == "scan" and _fp.grouped_mode(l, c, d, b) == "warp":
+        if op in ("scan", "rescore") and \
+                _fp.grouped_mode(l, c, d, b) == "warp":
             return mk(impl="grouped_scan_warp",
                       blocks=(1, _fp.GROUPED_WARP_QUERIES), smem_bytes=0)
         splits = H.choose_probe_splits(n, c, l, hw)

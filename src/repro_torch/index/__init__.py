@@ -9,22 +9,27 @@ Public API:
   Runs on the card unless ``device="cpu"`` is asked for.
 
   PaddedBucketStore / QuantizedBucketStore / RescoreReservoir — the
-  posting-list storage (``index/store.py``); Fp32Codec /
-  Int8ResidualCodec — the payload codecs (``index/quant.py``);
-  FlatRouter — the cell selection (``index/router.py``).
+  posting-list storage (``index/store.py``); DeviceRescoreCache — the q8
+  rescore's rows in device memory (``index/rescore_cache.py``,
+  ``rescore="device"``, the default); Fp32Codec / Int8ResidualCodec — the
+  payload codecs (``index/quant.py``); FlatRouter — the cell selection
+  (``index/router.py``).
 
   index_from_numpy / index_to_numpy — carry an index's state across
   packages (``index/bridge.py``).
 
-Not ported yet (ROADMAP.md, queue A item 5): the paged store, the
-two-level router, the device rescore cache, the sharded index, the
-out-of-core build and snapshots.
+Not ported yet (ROADMAP.md, queue A): the paged store, the two-level
+router and the out-of-core build (item 4), snapshots (item 5), the sharded
+index and the sharded cache (item 6).
 """
 from repro_torch.index.bridge import index_from_numpy, index_to_numpy
 from repro_torch.index.ivf import IVFIndex, csr_from_assignments, recall_at_k
 from repro_torch.index.quant import (CODEC_KINDS, Codec, Fp32Codec,
                                      Int8ResidualCodec, default_codec_kind,
                                      make_codec)
+from repro_torch.index.rescore_cache import (RESCORE_KINDS,
+                                             DeviceRescoreCache,
+                                             default_rescore_kind)
 from repro_torch.index.router import ROUTER_KINDS, FlatRouter, make_router
 from repro_torch.index.store import (BucketStore, PaddedBucketStore,
                                      QuantizedBucketStore, RescoreReservoir,
@@ -36,4 +41,5 @@ __all__ = ["IVFIndex", "csr_from_assignments", "recall_at_k",
            "RescoreReservoir", "make_store",
            "make_quantized_store", "CODEC_KINDS", "Codec", "Fp32Codec",
            "Int8ResidualCodec", "default_codec_kind", "make_codec",
-           "ROUTER_KINDS", "FlatRouter", "make_router"]
+           "ROUTER_KINDS", "FlatRouter", "make_router",
+           "RESCORE_KINDS", "DeviceRescoreCache", "default_rescore_kind"]

@@ -15,17 +15,20 @@ Port of ``repro/index/ivf.py`` for one device, the ``padded`` store, the
   candidate block first; the result is the same); on a ``q8`` store
   ``ops.flash_probe_store_q8`` proposes the top ``R`` from the int8 codes,
   read in place as well, and ``flash_probe_grouped`` rescores the ``R``
-  rows read from the host ``RescoreReservoir`` in fp32;
+  rows in fp32, read from the ``DeviceRescoreCache`` by a gather on the
+  card (``rescore="device"``, the default: no host read on the search
+  path) or from the host ``RescoreReservoir`` (``rescore="host"``, the
+  parity oracle);
 - **online** — ``add`` assigns with FlashAssign, appends in CSR order and
   folds the batch statistics into pending ``SufficientStats``;
   ``refresh`` commits them and re-centers the centroids, O(K d).
 
-Not ported yet (ROADMAP.md, queue A item 5): ``pctx`` (the sharded
-index), ``chunk_size`` (out-of-core build), fault injection, ``save`` and
-``load``, the paged store, the two-level router and ``rescore="device"``.
-Each raises ``NotImplementedError``. ``IVFIndex`` runs on the card unless
-it is asked for the CPU: ``device=None`` means ``"cuda"`` and raises when
-no CUDA device is present.
+Not ported yet (ROADMAP.md, queue A): ``pctx`` (the sharded index, item
+6), ``chunk_size`` (out-of-core build), the paged store, the two-level
+router and ``nprobe_c`` (item 4), fault injection, ``save`` and ``load``
+(item 5). Each raises ``NotImplementedError``. ``IVFIndex`` runs on the
+card unless it is asked for the CPU: ``device=None`` means ``"cuda"`` and
+raises when no CUDA device is present.
 """
 from __future__ import annotations
 
@@ -38,14 +41,15 @@ from repro_torch.core.kmeans import KMeans, KMeansConfig, resolve_device
 from repro_torch.core.streaming import SufficientStats
 from repro_torch.index import router as _router
 from repro_torch.index import store as _store
+from repro_torch.index.rescore_cache import cache_lookup
 from repro_torch.kernels import ops, ref
 
 _PAD_COORD = _store._PAD_COORD
 
 
-def _not_ported(what: str) -> NotImplementedError:
+def _not_ported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
-                               f"queue A item 5)")
+                               f"queue A item {item})")
 
 
 def _as_float(a, device) -> torch.Tensor:
@@ -139,9 +143,9 @@ def _q8_propose(q, centroids, c_sq, store_arrays, counts, *, r: int,
 
 
 def _rescore_rows(deq, ids, res_rows, found) -> torch.Tensor:
-    """The rows phase 2 scores: the reservoir's original rows where found,
-    the dequantized codes otherwise; dead proposals (id -1) become
-    padding rows."""
+    """The rows phase 2 scores: the cache's or the reservoir's original
+    rows where found, the dequantized codes otherwise; dead proposals (id
+    -1) become padding rows."""
     cand = torch.where(found.unsqueeze(-1), res_rows, deq)
     return torch.where((ids < 0).unsqueeze(-1),
                        torch.full_like(cand, _PAD_COORD), cand)
@@ -172,7 +176,9 @@ class IVFIndex:
     phases (quantized top-``R`` proposal, ``R = rescore_mult * topk``
     clamped to the probed pool, or the codec-aware chooser with
     ``rescore_mult="auto"``; then an exact fp32 rescore).
-    ``rescore_bytes`` budgets the rescore reservoir (None = unbounded).
+    ``rescore_bytes`` budgets the rescore reservoir and the device cache
+    (None = unbounded); ``rescore`` picks the rescore's row source
+    (``"device"``, ``"host"``; None = ``REPRO_RESCORE``, else device).
     """
 
     def __init__(self, centroids, capacity: int, *,
@@ -185,9 +191,9 @@ class IVFIndex:
                  rescore_bytes: int | None = None,
                  rescore: str | None = None, router=None):
         if pctx is not None:
-            raise _not_ported("a sharded IVFIndex (pctx)")
+            raise _not_ported("a sharded IVFIndex (pctx)", 6)
         if page_size is not None or store_bytes is not None:
-            raise _not_ported("the paged store (page_size, store_bytes)")
+            raise _not_ported("the paged store (page_size, store_bytes)", 4)
         _router.make_router(router)   # only the flat router is ported
         self.device = resolve_device(device)
         centroids = _as_float(centroids, self.device)
@@ -277,10 +283,11 @@ class IVFIndex:
     @faults.setter
     def faults(self, injector) -> None:
         if injector is not None:
-            raise _not_ported("fault injection")
+            raise _not_ported("fault injection", 5)
 
     def resident_bytes(self) -> int:
-        """Device bytes held by the posting-list payload (+ anchors)."""
+        """Device bytes held by the posting-list payload (+ anchors and the
+        device rescore cache)."""
         return self.store.resident_bytes()
 
     def block_until_ready(self) -> None:
@@ -305,9 +312,9 @@ class IVFIndex:
         into posting lists. The initial centroids come from a
         ``torch.Generator`` seeded with ``seed``."""
         if chunk_size is not None:
-            raise _not_ported("the out-of-core build (chunk_size)")
+            raise _not_ported("the out-of-core build (chunk_size)", 4)
         if pctx is not None:
-            raise _not_ported("a sharded IVFIndex (pctx)")
+            raise _not_ported("a sharded IVFIndex (pctx)", 6)
         dev = resolve_device(device)
         x = _as_float(x, dev)
         cfg = KMeansConfig(k=k, max_iters=max_iters, init=init, tol=tol,
@@ -444,34 +451,61 @@ class IVFIndex:
             self._cnorms = (c32 * c32).sum(-1)
         return self._cnorms
 
-    def search_geometry(self, topk: int = 10, nprobe: int = 8) -> tuple:
-        """Changes exactly when the planned search would re-key (the
-        store's occupancy crossed a ``gather_width`` bucket)."""
+    def _rescore_cache(self):
+        """The store's ``DeviceRescoreCache``, or None (fp32 payloads, or
+        the host-reservoir path)."""
+        return getattr(self.store, "cache", None)
+
+    @staticmethod
+    def _check_nprobe_c(nprobe_c) -> None:
+        if nprobe_c is not None:
+            raise _not_ported("nprobe_c (the two-level router's coarse "
+                              "probe)", 4)
+
+    def search_geometry(self, topk: int = 10, nprobe: int = 8,
+                        nprobe_c: int | None = None) -> tuple:
+        """Changes exactly when the planned search would re-key (ref.
+        l.1002-1018): the store's occupancy crossed a ``gather_width``
+        bucket, or the device rescore cache grew its table."""
+        self._check_nprobe_c(nprobe_c)
         nprobe = min(nprobe, self.k)
-        return (nprobe, topk, self._gather_width(topk, nprobe))
+        cache = self._rescore_cache()
+        cfp = cache.fingerprint() if cache is not None else ()
+        return (nprobe, topk, self._gather_width(topk, nprobe)) + cfp
 
     def _rescore_r(self, topk: int, nprobe: int, width: int) -> int:
         """Phase-1 proposal depth: ``rescore_mult * topk`` (or the
-        codec-aware chooser's multiplier with ``"auto"``), clamped to the
-        probed candidate pool."""
+        codec-aware chooser's multiplier with ``"auto"``, which with a
+        device cache also sees its hit rate, capacity over live rows; ref.
+        l.1020-1039), clamped to the probed candidate pool."""
         mult = self.rescore_mult
         if mult is None:
-            mult = _heur.choose_rescore_mult(topk, self.d, nprobe * width)
+            cache = self._rescore_cache()
+            hit_rate = None
+            if cache is not None:
+                hit_rate = min(1.0, cache.capacity / max(1, self.n_total))
+            mult = _heur.choose_rescore_mult(topk, self.d, nprobe * width,
+                                             hit_rate=hit_rate)
         return min(max(topk, mult * topk), nprobe * width)
 
-    def plan_search(self, b: int, topk: int = 10, nprobe: int = 8
-                    ) -> tuple:
+    def plan_search(self, b: int, topk: int = 10, nprobe: int = 8,
+                    nprobe_c: int | None = None) -> tuple:
         """Plan (and cache) the search kernels for a ``(b, d)`` batch.
 
         Returns the planner's ``KernelPlan`` of each kernel: ``(probe,
         store scan)`` on an fp32 store and ``(probe, q8 store scan,
-        rescore scan)`` on a q8 store. Cached per ``(b, nprobe, topk,
-        width)``; ``width`` is the store's gather-width bucket, so
-        occupancy growth re-keys.
+        rescore scan)`` on a q8 store, the rescore planned as ``"rescore"``
+        with a device cache and as ``"scan"`` on the host path (ref.
+        l.1119-1123; the same kernel either way). Cached per ``(b, nprobe,
+        topk, width)`` plus the cache's fingerprint; ``width`` is the
+        store's gather-width bucket, so occupancy growth re-keys.
         """
+        self._check_nprobe_c(nprobe_c)
         nprobe = min(nprobe, self.k)
         width = self._gather_width(topk, nprobe)
-        geom = (int(b), nprobe, int(topk), width)
+        cache = self._rescore_cache()
+        cfp = cache.fingerprint() if cache is not None else ()
+        geom = (int(b), nprobe, int(topk), width) + cfp
         plans = self._search_plans.get(geom)
         if plans is None:
             dt = self.dtype
@@ -483,8 +517,8 @@ class IVFIndex:
                     "scan_q8_store", (b, nprobe, width, self.d, r),
                     torch.int8)
                 rescore = self.planner.plan(
-                    "scan", (int(b), r, self.d, min(topk, r)),
-                    torch.float32)
+                    "scan" if cache is None else "rescore",
+                    (int(b), r, self.d, min(topk, r)), torch.float32)
                 plans = (head, q8, rescore)
             else:
                 scan = self.planner.plan(
@@ -493,12 +527,15 @@ class IVFIndex:
             self._search_plans[geom] = plans
         return plans
 
-    def search(self, q, topk: int = 10, nprobe: int = 8
+    def search(self, q, topk: int = 10, nprobe: int = 8, *,
+               nprobe_c: int | None = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
         """Batched top-k search. q: (B, d) -> (ids (B, topk) int32,
         sq_dists f32 (B, topk)), ascending; ids of unfilled slots are -1.
         ``nprobe = k`` probes every cell: the result is the brute-force
-        top-k over all indexed vectors."""
+        top-k over all indexed vectors. ``nprobe_c`` belongs to the
+        two-level router: only ``None`` is taken."""
+        self._check_nprobe_c(nprobe_c)
         q = torch.as_tensor(q).to(device=self.device, dtype=self.dtype)
         nprobe = min(nprobe, self.k)
         cand = nprobe * self.cap
@@ -520,9 +557,14 @@ class IVFIndex:
                    ) -> tuple[torch.Tensor, torch.Tensor]:
         """Two-phase search on a quantized store: propose the top-``R``
         from the int8 payload, then rescore those ``R`` rows at full
-        precision from the host reservoir (the reference's
-        ``rescore="host"`` path). At full ``nprobe`` with ``R`` covering
-        the live candidates this reproduces brute force exactly."""
+        precision. With a device cache the rows come from ``cache_lookup``
+        on the card and nothing is read on the host (ref.
+        ``_ivf_search_q8_device``, l.399-423, and l.1287-1297); otherwise
+        the ids go to the host reservoir and its rows come back (the
+        reference's ``rescore="host"`` path). Both feed ``_rescore_body``
+        the same ``(deq, ids, rows, found)``. At full ``nprobe`` with
+        ``R`` covering the live candidates this reproduces brute force
+        exactly."""
         st = self.store
         width = self._gather_width(topk, nprobe)
         r = self._rescore_r(topk, nprobe, width)
@@ -531,6 +573,10 @@ class IVFIndex:
                                st.device_arrays(), st.counts, r=r,
                                nprobe=nprobe, width=width, probe_plan=pp,
                                scan_plan=qp)
+        if self._rescore_cache() is not None:
+            rows, found = cache_lookup(*st.cache_arrays(), ids)
+            return _rescore_body(q, deq, ids, rows, found, topk=topk,
+                                 plan=rp)
         ids_np = ids.cpu().numpy()
         if st.reservoir is not None:
             rows, found = st.reservoir.lookup(ids_np)
@@ -552,11 +598,11 @@ class IVFIndex:
         return flat_ids[idx.long()], dists
 
     def save(self, directory: str, **kw):
-        raise _not_ported("IVFIndex.save (snapshots)")
+        raise _not_ported("IVFIndex.save (snapshots)", 5)
 
     @classmethod
     def load(cls, directory: str, **kw):
-        raise _not_ported("IVFIndex.load (snapshots)")
+        raise _not_ported("IVFIndex.load (snapshots)", 5)
 
     # ------------------------------------------------------------------
     # introspection

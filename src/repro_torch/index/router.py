@@ -30,6 +30,6 @@ def make_router(spec=None) -> FlatRouter:
     if kind == "two_level":
         raise NotImplementedError(
             "router 'two_level' is not ported yet (ROADMAP.md, queue A "
-            "item 5)")
+            "item 4)")
     raise ValueError(f"unknown router kind {kind!r}; expected one of "
                      f"{ROUTER_KINDS}")

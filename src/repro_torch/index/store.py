@@ -6,12 +6,13 @@ ids, amortized-doubling growth and a ``max_cap`` spill budget. Padded
 slots hold the finite sentinel ``_PAD_COORD`` (their scores are huge but
 never inf or NaN inside a kernel) and id ``-1``. ``QuantizedBucketStore``
 wraps a padded store of int8 codes with a per-slot f32 scale sidecar
-(``0.0`` on empty slots), the frozen encode-time anchors and the host
-``RescoreReservoir`` of original rows.
+(``0.0`` on empty slots), the frozen encode-time anchors, the host
+``RescoreReservoir`` of original rows (the durable tier) and, with
+``rescore="device"`` (the default), the ``DeviceRescoreCache``.
 
-Not ported yet (ROADMAP.md, queue A item 5): the paged store
-(``kind="paged"`` raises ``NotImplementedError``) and the device rescore
-cache. Unlike the JAX package the port updates its tensors in place, and
+Not ported yet (ROADMAP.md, queue A item 4): the paged store
+(``kind="paged"`` raises ``NotImplementedError``). Unlike the JAX package
+the port updates its tensors in place, and
 ``dense``/``flat`` return tensors on the store's device; ``state_arrays``
 and ``meta`` give the snapshot format's numpy arrays and keys.
 """
@@ -20,6 +21,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.index.rescore_cache import (RESCORE_KINDS,
+                                             DeviceRescoreCache,
+                                             default_rescore_kind)
+
 # Padded-slot coordinate: large enough that a padded candidate can never
 # beat a real one, small enough that d * _PAD^2 stays finite in f32.
 # Invariant: every slot at or past counts[cell] holds it in every
@@ -27,8 +32,8 @@ import torch
 # reading those slots (``ops.flash_probe_store``'s ``pad``).
 _PAD_COORD = 1e15
 
-_NOT_PORTED = ("is not ported yet (ROADMAP.md, queue A item 5: the paged "
-               "store, the two-level router and the device rescore cache)")
+_NOT_PORTED = ("is not ported yet (ROADMAP.md, queue A item 4: the paged "
+               "store and the two-level router)")
 
 
 def _round_up(v: int, mult: int) -> int:
@@ -439,12 +444,14 @@ class QuantizedBucketStore(BucketStore):
     """Codec wrapper over a padded store: the inner store holds int8 codes
     plus the per-slot f32 scale sidecar; the wrapper owns the anchors (the
     cell centroids frozen at encode time: ``refresh`` moves the routing
-    centroids only, so stored codes stay decodable) and the optional
-    ``RescoreReservoir``. ``kind`` stays the inner backend's name."""
+    centroids only, so stored codes stay decodable), the optional
+    ``RescoreReservoir`` and the optional ``DeviceRescoreCache``
+    (ref. ``repro/index/store.py:1025-1160``). ``kind`` stays the inner
+    backend's name."""
 
     def __init__(self, inner: PaddedBucketStore, codec, anchors, *,
                  reservoir: RescoreReservoir | None = None,
-                 logical_dtype=torch.float32):
+                 cache=None, logical_dtype=torch.float32):
         # no super().__init__: the bookkeeping is the inner store's
         self._inner = inner
         self.codec = codec
@@ -452,6 +459,7 @@ class QuantizedBucketStore(BucketStore):
         self.anchors = torch.as_tensor(anchors).to(device=self.device,
                                                    dtype=torch.float32)
         self.reservoir = reservoir
+        self.cache = cache              # DeviceRescoreCache | None
         self.dtype = logical_dtype      # what consumers feed us
         self.k, self.d = inner.k, inner.d
 
@@ -490,14 +498,33 @@ class QuantizedBucketStore(BucketStore):
         if int(np.asarray(cells).shape[0]) == 0:
             return
         cj = torch.as_tensor(np.asarray(cells), device=self.device)
-        codes, scales = self.codec.encode(x_sorted.float(), self.anchors[cj])
+        x32 = x_sorted.float()
+        codes, scales = self.codec.encode(x32, self.anchors[cj])
         if self.reservoir is not None:
-            self.reservoir.put(np.asarray(ids),
-                               x_sorted.float().cpu().numpy())
+            self.reservoir.put(np.asarray(ids), x32.cpu().numpy())
+        if self.cache is not None:      # the device rows, no host copy
+            self.cache.put(ids, x32)
         self._inner.append(cells, codes, ids, aux=scales)
 
     def device_arrays(self):
         return (*self._inner.device_arrays(), self.anchors)
+
+    def cache_arrays(self):
+        """The device rescore cache's ``(keys, rows)``: what the search's
+        lookup reads (never part of ``device_arrays``: the fp32 and host
+        paths do not read them)."""
+        return self.cache.device_arrays()
+
+    def _rewarm_cache(self) -> None:
+        """Re-warm the device cache from the host reservoir after a restore
+        (ref. l.1133-1151): every row the reservoir still holds, cell-major,
+        so the resident set under a byte budget follows from the state."""
+        if self.cache is None or self.reservoir is None:
+            return
+        ids = self._inner.dense_ids().cpu().numpy()
+        ids_v = ids[ids >= 0]
+        rows, found = self.reservoir.lookup(ids_v)
+        self.cache.put(ids_v[found], rows[found])
 
     def dense(self):
         """Decoded f32 view with the reservoir's original rows overlaid —
@@ -534,10 +561,15 @@ class QuantizedBucketStore(BucketStore):
                     reservoir=self.reservoir is not None,
                     rescore_bytes=None if self.reservoir is None
                     else self.reservoir.max_bytes,
-                    rescore_cache=None)
+                    rescore_cache=None if self.cache is None
+                    else self.cache.meta())
 
     @classmethod
     def restore(cls, host, meta, *, k, d, dtype, device=None):
+        """The store of a snapshot's arrays and manifest (ref. l.1200-1234).
+        A manifest that records ``rescore_cache`` rebuilds that cache (or
+        none); one without the key takes the process default. The cache
+        re-warms from the reservoir."""
         from repro_torch.index.quant import make_codec
         codec = make_codec(meta["codec"])
         _resolve_kind(meta.get("kind", "padded"))
@@ -548,30 +580,39 @@ class QuantizedBucketStore(BucketStore):
         if meta.get("reservoir") and "rescore_ids" in host:
             reservoir = RescoreReservoir.restore(
                 host, d, max_bytes=meta.get("rescore_bytes"))
-        return cls(inner, codec, np.array(host["anchors"], np.float32),
-                   reservoir=reservoir, logical_dtype=dtype)
+        if "rescore_cache" in meta:
+            cmeta = meta["rescore_cache"]
+            cache = None if cmeta is None else DeviceRescoreCache(
+                d, max_bytes=cmeta.get("max_bytes"),
+                ways=cmeta.get("ways", 4), device=inner.device)
+        elif resolve_rescore(None) == "device":
+            cache = DeviceRescoreCache(d, max_bytes=meta.get("rescore_bytes"),
+                                       device=inner.device)
+        else:
+            cache = None
+        st = cls(inner, codec, np.array(host["anchors"], np.float32),
+                 reservoir=reservoir, cache=cache, logical_dtype=dtype)
+        st._rewarm_cache()
+        return st
 
     def resident_bytes(self) -> int:
-        return self._inner.resident_bytes() + self.k * self.d * 4
+        extra = 0 if self.cache is None else self.cache.resident_bytes()
+        return self._inner.resident_bytes() + self.k * self.d * 4 + extra
 
     def __repr__(self):
         res = len(self.reservoir) if self.reservoir is not None else 0
         return (f"QuantizedBucketStore(codec={self.codec.kind}, "
-                f"inner={self._inner!r}, reservoir_rows={res})")
-
-
-RESCORE_KINDS = ("device", "host")
+                f"inner={self._inner!r}, reservoir_rows={res}, "
+                f"cache={self.cache!r})")
 
 
 def resolve_rescore(rescore: str | None) -> str:
-    """The q8 phase-2 row source. ``None`` means ``"host"`` (the
-    reservoir): the reference's default, the device rescore cache, is not
-    ported yet and raises. The reference's two sources return identical
-    results."""
-    rescore = rescore or "host"
-    if rescore == "device":
-        raise NotImplementedError(f"rescore='device' (DeviceRescoreCache) "
-                                  f"{_NOT_PORTED}")
+    """The q8 phase-2 row source: ``"device"`` (the ``DeviceRescoreCache``)
+    or ``"host"`` (the reservoir round trip, the parity oracle); ``None``
+    means ``default_rescore_kind()`` (``REPRO_RESCORE``, else
+    ``"device"``), as in the reference. With an unbounded cache the two
+    return identical results."""
+    rescore = rescore or default_rescore_kind()
     if rescore not in RESCORE_KINDS:
         raise ValueError(
             f"unknown rescore kind {rescore!r}: expected {RESCORE_KINDS}")
@@ -584,15 +625,20 @@ def make_quantized_store(kind: str | None, k: int, d: int, dtype, *,
                          rescore_bytes: int | None = None,
                          rescore: str | None = None,
                          device=None) -> QuantizedBucketStore:
-    """Codec-wrapped padded store with a ``RescoreReservoir`` under an
-    optional byte budget (``rescore_bytes``)."""
+    """Codec-wrapped padded store (ref. l.1265-1306) with a
+    ``RescoreReservoir`` under an optional byte budget (``rescore_bytes``)
+    and, for ``rescore="device"`` (``None``: ``REPRO_RESCORE``, else
+    device), a ``DeviceRescoreCache`` under the same budget."""
     from repro_torch.index.quant import make_codec
     cdc = make_codec(codec)
     _resolve_kind(kind)
-    resolve_rescore(rescore)
+    rescore = resolve_rescore(rescore)
     inner = PaddedBucketStore(k, d, cdc.pool_dtype, capacity=capacity,
                               max_cap=max_cap, aux=True, device=device)
+    cache = DeviceRescoreCache(d, max_bytes=rescore_bytes,
+                               device=inner.device) \
+        if rescore == "device" else None
     return QuantizedBucketStore(inner, cdc, anchors,
                                 reservoir=RescoreReservoir(
                                     d, max_bytes=rescore_bytes),
-                                logical_dtype=dtype)
+                                cache=cache, logical_dtype=dtype)

@@ -74,6 +74,8 @@ SIGNATURES = {
     # tile_rows, cell mode, stream
     "fk_flash_probe_store_q8": (_P,) * 17 + (_I,) * 11 + (_P,),
     "fk_flash_probe_attrs": (_I, ctypes.POINTER(_I), ctypes.POINTER(_I)),
+    # keys, rows, ref, hand, ids, x, order, seg, sets, ways, d, vec, stream
+    "fk_rescore_cache_insert": (_P,) * 8 + (_I,) * 4 + (_P,),
 }
 
 _lock = threading.Lock()

@@ -319,10 +319,12 @@ def flash_probe_grouped(q: torch.Tensor, c: torch.Tensor, *, l: int,
     """Per-query-candidate top-L scan. q: (B, d), c: (B, C, d), ``1 <= l
     <= C``: query ``i`` against its own block ``c[i]``, one launch for the
     batch. Returns ``(indices int32 (B, l) into each query's candidate
-    axis, dists f32 (B, l))`` ascending."""
+    axis, dists f32 (B, l))`` ascending. ``plan`` may be a ``scan`` plan
+    or the q8 search's ``rescore`` plan (the same kernel)."""
     b, d = q.shape
     c_n = c.shape[1]
-    splits = _probe_splits("scan", (b, c_n, d, l), q.dtype, splits, plan,
+    op = "rescore" if plan is not None and plan.op == "rescore" else "scan"
+    splits = _probe_splits(op, (b, c_n, d, l), q.dtype, splits, plan,
                            q.device)
     idx, v = _fp.flash_probe_grouped_raw(q, c, l, splits=splits)
     return idx, (_add_qsq(q, v) if want_dists else v)

@@ -323,9 +323,11 @@ def test_index_defaults_to_cuda_and_raises_without_it(monkeypatch):
     assert IVFIndex(c, 8, device="cpu").device.type == "cpu"
 
 
+# the device rescore cache is ported; a cache sharded over a mesh is not
 @pytest.mark.parametrize("kw", [{"store": "paged"}, {"router": "two_level"},
                                 {"pctx": object()},
-                                {"codec": "q8", "rescore": "device"},
+                                {"codec": "q8", "rescore": "device",
+                                 "pctx": object()},
                                 {"page_size": 64}, {"store_bytes": 1 << 20}],
                          ids=["paged", "two_level", "pctx", "rescore-device",
                               "page_size", "store_bytes"])
@@ -347,6 +349,7 @@ def test_unported_entry_points_raise(tmp_path):
         IVFIndex.load(str(tmp_path))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         idx.faults = object()
-    # rescore=None resolves to the host reservoir in the port
+    # rescore=None resolves to the device cache, as in the reference; the
+    # host reservoir stays beside it as the durable tier
     q8 = IVFIndex(x[:4], 8, device="cpu", codec="q8")
-    assert q8.store.reservoir is not None
+    assert q8.store.reservoir is not None and q8.store.cache is not None

@@ -82,7 +82,9 @@ def test_kernel_modules_import_without_nvcc():
             "import repro_torch.kernels.flash_assign, "
             "repro_torch.kernels.flash_lloyd, "
             "repro_torch.kernels.sort_inverse_update, "
-            "repro_torch.kernels.flash_probe, repro_torch.index\n"
+            "repro_torch.kernels.flash_probe, "
+            "repro_torch.kernels.rescore_cache, repro_torch.index, "
+            "repro_torch.serve, repro_torch.launch.serve\n"
             "print(b._lib is None)")
     out = _run(code, {"PATH": "/nonexistent", "CUDA_HOME": "/nonexistent"})
     assert out.returncode == 0, out.stderr
@@ -104,10 +106,10 @@ def test_every_kernel_source_is_listed_for_the_build():
     from repro_torch.kernels import _build
     names = {p.name for p in _build.sources()}
     assert names == {"flash_assign.cu", "sort_inverse_update.cu",
-                     "flash_lloyd.cu", "flash_probe.cu"}
+                     "flash_lloyd.cu", "flash_probe.cu", "rescore_cache.cu"}
     assert "arch=compute_90a,code=sm_90a" in _build.ARCH_FLAGS
     assert len(_build.source_hash()) == 16
     mods = {m.name for m in pkgutil.iter_modules(
         [str(SRC / "repro_torch" / "kernels")])}
     assert {"ref", "ops", "flash_assign", "sort_inverse_update",
-            "flash_lloyd", "flash_probe", "_build"} <= mods
+            "flash_lloyd", "flash_probe", "rescore_cache", "_build"} <= mods
