@@ -70,6 +70,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import itertools
 import json
 import os
@@ -240,6 +241,17 @@ INSERT_EDGE = [(64, 4, 128, 200, 100, "fill"),
 ENGINE_REQUESTS, ENGINE_MAX_ROWS = 64, 512
 ENGINE_ADDS, ENGINE_ADD_ROWS = 4, 4096
 ENGINE_RECALL_ROWS = 512
+# the k-means loops that reuse the Lloyd step: the out-of-core Lloyd over a corpus
+# logically larger than the card (N rows streamed from a pinned pool of
+# OOC_POOL chunks of OOC_CHUNK rows, d = 128, K = OOC_K), its peak at a
+# quarter of N, a pageable numpy source of OOC_NUMPY rows; the streaming
+# StreamingKMeans's ragged stream; the out-of-core IVF build; the tune
+OOC_N, OOC_N_SMALL, OOC_K = 2 ** 28, 2 ** 26, 4096
+OOC_CHUNK, OOC_POOL, OOC_NUMPY, OOC_ITERS = 2 ** 22, 4, 2 ** 24, 2
+STREAM_K, STREAM_BATCHES, STREAM_ROWS = 1024, 256, (4096, 65536)
+STREAM_INIT, STREAM_DECAY, STREAM_EPOCH = 65536, 0.95, 2 ** 20
+OOC_IVF, OOC_IVF_CHUNK = (4194304, 1024, 128), 262144
+TUNE = (8388608, 1024, 128)
 
 failures: list[str] = []
 
@@ -283,7 +295,16 @@ def main() -> int:
         print(f"chip_smoke: run from a checkout of the repository ({e})",
               file=sys.stderr)
         return 2
-    from repro_torch.core import KMeans, KMeansConfig
+    # a fresh plan file for the whole run: no earlier run's plans can change
+    # the paths the phases take
+    plan_file = ROOT / "build" / "chip_smoke_plans.json"
+    plan_file.parent.mkdir(parents=True, exist_ok=True)
+    plan_file.unlink(missing_ok=True)
+    os.environ["REPRO_PLAN_CACHE"] = str(plan_file)
+    from repro_torch.core import (ChunkedKMeans, ChunkedStats, KMeans,
+                                  KMeansConfig, StreamingKMeans,
+                                  stream_from_numpy)
+    from repro_torch.core import autotune
     from repro_torch.core import heuristics as H
     from repro_torch.core import plan as P
     from repro_torch.index import DeviceRescoreCache, IVFIndex, recall_at_k
@@ -423,7 +444,9 @@ def main() -> int:
     timing: dict[str, dict] = {}
     details = {"card": smi, "regimes": [], "kernel_checks": [], "ivf": [],
                "ivf_truth": [], "controls": [], "step_pairs": [],
-               "profiles": [], "cache_insert": [], "engine": []}
+               "profiles": [], "cache_insert": [], "engine": [],
+               "out_of_core": {}, "streaming": {}, "ooc_ivf": [],
+               "planner": {}}
 
     def zero_counts():
         for mod in mods.values():
@@ -2542,6 +2565,367 @@ def main() -> int:
         del index
     del x, centers, q
     torch.cuda.empty_cache()
+
+    # ---- phase 7: out-of-core Lloyd (ChunkedKMeans, paper §4.3) ----------
+    # a corpus logically larger than the card, streamed from a pool of
+    # distinct pinned chunks (their repeats leave the statistics exact over
+    # the logical multiset); the pool drawn on the card (seed 11), then
+    # copied to pinned host memory
+    n, d, k = OOC_N, 128, OOC_K
+    chunk, pool_n = OOC_CHUNK, OOC_POOL
+    host_ram = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    cuts = []
+    while host_ram < 4 * pool_n * chunk * d * 4 and chunk > 2 ** 16:
+        chunk //= 2
+        cuts.append(f"pool chunks halved to {chunk} rows: host RAM "
+                    f"{host_ram / 2**30:.1f} GiB < 4x the pool")
+    rec = details["out_of_core"]
+    rec.update(N=n, N_small=OOC_N_SMALL, K=k, d=d, chunk=chunk,
+               pool_chunks=pool_n, host_ram_gib=host_ram / 2**30, cuts=cuts)
+    print(f"\n[out_of_core] ChunkedKMeans: logical N={n} "
+          f"({n * d * 4 / 2**30:.0f} GiB f32), d={d}, K={k}, chunks of "
+          f"{chunk} rows cycling a pinned pool of {pool_n}; host RAM "
+          f"{host_ram / 2**30:.1f} GiB{'; ' + '; '.join(cuts) if cuts else ''}",
+          flush=True)
+    gen_o = torch.Generator(device=dev).manual_seed(11)
+    t0 = time.perf_counter()
+    xo = mixture(1, pool_n * chunk, k, d, gen_o)[0]
+    c_o = xo[torch.randperm(xo.shape[0], device=dev, generator=gen_o)[:k]]
+    pool = [torch.empty((chunk, d), dtype=torch.float32, pin_memory=True)
+            .copy_(xo[i * chunk:(i + 1) * chunk]) for i in range(pool_n)]
+    rec["pool_seconds"] = time.perf_counter() - t0
+    cfg_o = KMeansConfig(k=k)
+
+    def pool_source(rows):
+        def chunks():
+            for i in range(rows // chunk):
+                yield pool[i % pool_n]
+        return chunks
+
+    # exactness: one chunked iteration over the pool against the in-core
+    # step on the same centroids
+    ck = ChunkedKMeans(cfg_o, chunk_size=chunk, device=dev)
+    ids_ch = torch.empty(xo.shape[0], dtype=torch.int32, device=dev)
+    c_ch, j_ch = ck.iterate(pool_source(pool_n * chunk), c_o,
+                            assignments=ids_ch)
+    c_in, a_in, j_in = KMeans(cfg_o, device=dev).iterate(xo, c_o)
+    torch.cuda.synchronize()
+    c_err = float((c_ch - c_in).abs().max())
+    c_ok = bool(torch.allclose(c_ch, c_in, rtol=1e-5, atol=1e-5))
+    j_rel = abs(float(j_ch) - float(j_in)) / float(j_in)
+    ids_eq = bool(torch.equal(ids_ch, a_in))
+    rec["exactness"] = {"rows": xo.shape[0], "ids_equal": ids_eq,
+                        "centroid_max_abs_err": c_err,
+                        "inertia_rel_err": j_rel}
+    check(ids_eq and c_ok and j_rel <= 1e-5,
+          f"out_of_core: one chunked iteration over the pool "
+          f"({xo.shape[0]} rows) == the in-core step: ids equal "
+          f"{ids_eq}, centroids within rtol=atol=1e-5 (max err "
+          f"{c_err:.3g}), inertia rel err {j_rel:.3g} <= 1e-5")
+    del xo, c_in, a_in, ids_ch, c_ch
+    torch.cuda.empty_cache()
+
+    def ooc_run(source, rows, iters, tag):
+        """``iters`` chunked iterations; per iteration the wall and the
+        ChunkedStats; the device peak over the run, less what was
+        allocated before it (the earlier phases' tensors)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        c, its = c_o, []
+        for _ in range(iters):
+            ck.stats = ChunkedStats()
+            c, _ = ck.iterate(source, c)
+            st = ck.stats
+            byts = st.sampled_chunks * chunk * d * 4
+            its.append({
+                "ms": st.wall_seconds * 1e3, "chunks": st.chunks,
+                "sampled_chunks": st.sampled_chunks,
+                "h2d_gb_s": byts / st.h2d_seconds / 1e9,
+                "h2d_ms_per_chunk": st.h2d_seconds / st.sampled_chunks * 1e3,
+                "compute_ms_per_chunk":
+                    st.compute_seconds / st.sampled_chunks * 1e3,
+                "overlap": (st.h2d_seconds + st.compute_seconds)
+                / st.wall_seconds,
+                "staging_s": st.staging_seconds,
+                "dispatch_h2d_s": st.dispatch_h2d_seconds,
+                "dispatch_compute_s": st.dispatch_compute_seconds})
+            it = its[-1]
+            print(f"  {tag}: {it['ms']:.1f} ms an iteration ({it['chunks']} "
+                  f"chunks), H2D {it['h2d_gb_s']:.2f} GB/s "
+                  f"({it['h2d_ms_per_chunk']:.2f} ms a chunk), compute "
+                  f"{it['compute_ms_per_chunk']:.2f} ms a chunk (events, "
+                  f"{it['sampled_chunks']} warm chunks), overlap (h2d + "
+                  f"compute) / wall {it['overlap']:.3f}, host staging "
+                  f"{it['staging_s']:.3f} s", flush=True)
+        return its, torch.cuda.max_memory_allocated() - base, base
+
+    its_small, peak_small, _ = ooc_run(pool_source(OOC_N_SMALL), OOC_N_SMALL,
+                                    1, f"N={OOC_N_SMALL}")
+    zero_counts()
+    its, peak_b, base = ooc_run(pool_source(n), n, OOC_ITERS, f"N={n}")
+    counts = read_counts()
+    for kname in launches:
+        launches[kname] += counts[kname]
+    rec.update(iterations=its, iterations_small=its_small,
+               peak_bytes=peak_b, peak_bytes_small=peak_small,
+               allocated_before=base, launches=counts)
+    slots = 2 * chunk * d * 4   # ChunkedKMeans's two device slots
+    rec["slot_bytes"] = slots
+    print(f"  device peak {peak_b / 2**20:.1f} MiB at N={n}, "
+          f"{peak_small / 2**20:.1f} MiB at N={OOC_N_SMALL}, above the "
+          f"{base / 2**20:.1f} MiB allocated before (which holds "
+          f"ChunkedKMeans's two slots, {slots / 2**20:.0f} MiB)",
+          flush=True)
+    check(abs(peak_b - peak_small) <= 8 * 2**20,
+          f"out_of_core: the device peak does not grow with N "
+          f"({peak_b / 2**20:.1f} MiB at {n}, {peak_small / 2**20:.1f} at "
+          f"{OOC_N_SMALL}, within 8 MiB)")
+    check(all(r["staging_s"] == 0.0 for r in its),
+          "out_of_core: pinned chunks are copied from their own memory "
+          "(no host staging)")
+    check(counts["flash_assign"] == OOC_ITERS * n // chunk
+          and counts["sort_inverse_update"] == OOC_ITERS * n // chunk,
+          f"out_of_core: one FlashAssign and one sort-inverse launch a "
+          f"chunk (two-pass at K={k}): {counts}")
+    # the same iteration from a pageable numpy source: each chunk staged
+    # into pinned memory on the host first
+    x_np = torch.cat(pool[:OOC_NUMPY // chunk]).numpy()
+    ck.iterate(x_np[:chunk], c_o)   # allocates the pinned staging buffers
+    its_np = ooc_run(x_np, OOC_NUMPY, 1, f"numpy N={OOC_NUMPY}")[0]
+    its_pin = ooc_run(pool_source(OOC_NUMPY), OOC_NUMPY, 1,
+                      f"pinned N={OOC_NUMPY}")[0]
+    rec.update(numpy_source=its_np[0], pinned_source=its_pin[0])
+    check(its_np[0]["staging_s"] > 0,
+          "out_of_core: a numpy source is staged into pinned memory "
+          f"({its_np[0]['staging_s']:.3f} s on the host)")
+    del x_np, pool, ck
+    torch.cuda.empty_cache()
+
+    # ---- phase 8: streaming (StreamingKMeans) ----------------------------
+    k = STREAM_K
+    sizes = torch.randint(STREAM_ROWS[0], STREAM_ROWS[1] + 1,
+                          (STREAM_BATCHES,),
+                          generator=torch.Generator().manual_seed(12)).tolist()
+    print(f"\n[streaming] StreamingKMeans(k={k}, decay={STREAM_DECAY}, "
+          f"init_size={STREAM_INIT}): {STREAM_BATCHES} ragged batches of "
+          f"{min(sizes)}-{max(sizes)} rows, d={d}, drifting centres",
+          flush=True)
+    gen_s = torch.Generator(device=dev).manual_seed(12)
+    centers = torch.randn(k, d, device=dev, generator=gen_s) * 2.0
+
+    def drifting(rows):
+        centers.add_(0.01 * torch.randn(k, d, device=dev, generator=gen_s))
+        lab = torch.randint(0, k, (rows,), device=dev, generator=gen_s)
+        return centers[lab] + torch.randn(rows, d, device=dev,
+                                          generator=gen_s)
+
+    planner = P.default_planner(dev)
+    sk = StreamingKMeans(KMeansConfig(k=k), decay=STREAM_DECAY,
+                         init_size=STREAM_INIT, device=dev)
+    # warm-up: the batches buffered for the init draw, the bootstrap, and
+    # every later batch up to the first of the last new shape bucket; after
+    # it the planner must only hit
+    boot = next(i for i in range(len(sizes))
+                if sum(sizes[:i + 1]) >= STREAM_INIT)
+    seen, warm_from = set(), boot + 1
+    for i in range(boot + 1, len(sizes)):
+        if P.bucket_dim(sizes[i]) not in seen:
+            seen.add(P.bucket_dim(sizes[i]))
+            warm_from = i + 1
+    evs, calls_warm = [], None
+    zero_counts()
+    for i, rows in enumerate(sizes):
+        xb = drifting(rows)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        sk.partial_fit(xb)
+        e1.record()
+        evs.append((e0, e1))
+        if i == boot:
+            check(sk.centroids is not None and sk.n_batches == boot + 1,
+                  f"streaming: the init draw at batch {boot}, after "
+                  f"{sum(sizes[:boot + 1])} buffered rows")
+        if i + 1 == warm_from:
+            calls_warm = planner.counters()["chooser_calls"]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for kname in launches:
+        launches[kname] += counts[kname]
+    calls_end = planner.counters()["chooser_calls"]
+    ms = sorted(e0.elapsed_time(e1) for e0, e1 in evs[warm_from:])
+    p50, p99 = ms[len(ms) // 2], ms[min(len(ms) - 1, int(0.99 * len(ms)))]
+    rec = details["streaming"]
+    rec.update(k=k, batches=STREAM_BATCHES, rows=sum(sizes),
+               bootstrap_batch=boot, warm_from=warm_from,
+               ms_p50=p50, ms_p99=p99, ms_warm=ms,
+               chooser_calls_warm=calls_warm, chooser_calls_end=calls_end,
+               launches=counts)
+    print(f"  partial_fit p50 {p50:.3f} ms, p99 {p99:.3f} ms (CUDA events, "
+          f"{len(ms)} warm batches from batch {warm_from}; bootstrap at "
+          f"batch {boot}); chooser calls {calls_warm} after the warm-up, "
+          f"{calls_end} at the end; {sum(sizes)} rows", flush=True)
+    check(calls_end == calls_warm,
+          f"streaming: no plan after the warm-up (chooser calls "
+          f"{calls_warm} -> {calls_end})")
+    check(counts["flash_assign"] > 0 or counts["flash_lloyd"] > 0,
+          f"streaming: the stream ran the Lloyd kernels: {counts}")
+    warm = [drifting(rows) for rows in sizes[-3:]]
+    torch.cuda.synchronize()
+    err = None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sk.partial_fit(warm[0])
+        sk.partial_fit(warm[1])
+        sk.update(warm[2])
+    except RuntimeError as e:
+        err = str(e).splitlines()[0][:200]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(err is None, f"streaming: a warm partial_fit and update make no "
+                       f"host sync (set_sync_debug_mode('error')): "
+                       f"{err or 'nothing raised'}")
+    # decay=1: one epoch of disjoint batches against one full-batch Lloyd
+    # pass from the same centroids
+    xe = mixture(1, STREAM_EPOCH, k, d, gen_s)[0]
+    c_e = xe[torch.randperm(STREAM_EPOCH, device=dev, generator=gen_s)[:k]]
+    c1 = KMeans(KMeansConfig(k=k), device=dev).iterate(xe, c_e)[0]
+    j_full = float(ops.flash_assign(xe, c1)[1].sum())
+    sk1 = StreamingKMeans(KMeansConfig(k=k), decay=1.0, device=dev)
+    stream_from_numpy(sk1, {"centroids": c_e.cpu().numpy(),
+                            "sums": torch.zeros(k, d).numpy(),
+                            "counts": torch.zeros(k).numpy(),
+                            "inertia": torch.zeros(()).numpy(),
+                            "n_batches": 0})
+    for lo in range(0, STREAM_EPOCH, STREAM_ROWS[1]):
+        sk1.partial_fit(xe[lo:lo + STREAM_ROWS[1]])
+    j_stream = sk1.inertia(xe)
+    rec.update(epoch_rows=STREAM_EPOCH, epoch_inertia=j_stream,
+               lloyd_pass_inertia=j_full)
+    check(j_stream <= 1.02 * j_full,
+          f"streaming: decay=1, one epoch of {STREAM_EPOCH // STREAM_ROWS[1]}"
+          f" disjoint batches: inertia {j_stream:.6g} within 2% of one "
+          f"full-batch Lloyd pass's {j_full:.6g} (ratio "
+          f"{j_stream / j_full:.4f})")
+    del xe, c1, sk1, sk, warm, centers
+    torch.cuda.empty_cache()
+
+    # ---- phase 9: the out-of-core IVF build (IVFIndex.build(chunk_size=))
+    n, k, d = OOC_IVF
+    gen_b = torch.Generator(device=dev).manual_seed(13)
+    centers = torch.randn(k, d, device=dev, generator=gen_b) * 5.0
+    xb = centers[torch.randint(0, k, (n,), device=dev, generator=gen_b)]
+    xb += 0.4 * torch.randn(n, d, device=dev, generator=gen_b)
+    qb = centers[torch.randint(0, k, (IVF_B,), device=dev, generator=gen_b)]
+    qb += 0.4 * torch.randn(IVF_B, d, device=dev, generator=gen_b)
+    x_host = xb.cpu().numpy()
+    x_add = (centers[torch.randint(0, k, (3, ENGINE_ADD_ROWS), device=dev,
+                                   generator=gen_b)]
+             + 0.4 * torch.randn(3, ENGINE_ADD_ROWS, d, device=dev,
+                                 generator=gen_b))
+    del xb
+    for codec in ("fp32", "q8"):
+        print(f"\n[ooc_ivf/{codec}] IVFIndex.build(x_host, k={k}, "
+              f"chunk_size={OOC_IVF_CHUNK}, max_iters=8): N={n} host rows, "
+              f"d={d}", flush=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index = IVFIndex.build(x_host, k=k, chunk_size=OOC_IVF_CHUNK,
+                               max_iters=8, codec=codec, seed=SEED,
+                               device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        counts = read_counts()
+        for kname in launches:
+            launches[kname] += counts[kname]
+        peak_b = torch.cuda.max_memory_allocated() - base
+        ids, dd = index.search(qb, topk=TOPK, nprobe=NPROBE)
+        ids_b, _ = index.search_brute(qb, topk=TOPK)
+        recall = recall_at_k(ids, ids_b)
+        add_ms = []
+        for xa in x_add:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            index.add(xa)
+            torch.cuda.synchronize()
+            add_ms.append((time.perf_counter() - t1) * 1e3)
+        details["ooc_ivf"].append(
+            {"codec": codec, "N": n, "K": k, "d": d, "chunk": OOC_IVF_CHUNK,
+             "build_s": build_s, "peak_bytes": peak_b,
+             "allocated_before": base, "recall": recall,
+             "cap": index.cap, "add_ms": add_ms, "launches": counts})
+        print(f"  build {build_s:.3f} s, device peak {peak_b / 2**30:.3f} GiB"
+              f" above the {base / 2**30:.3f} GiB allocated before (the "
+              f"corpus {n * d * 4 / 2**30:.1f} GiB on the host), cap "
+              f"{index.cap}; recall@{TOPK} {recall:.4f} vs search_brute at "
+              f"nprobe {NPROBE}; adds of {ENGINE_ADD_ROWS} rows "
+              f"{', '.join(f'{v:.2f}' for v in add_ms)} ms", flush=True)
+        check(recall >= 0.9 and len(index) == n + 3 * ENGINE_ADD_ROWS,
+              f"ooc_ivf/{codec}: recall@{TOPK} {recall:.4f} >= 0.9, "
+              f"{len(index)} rows indexed")
+        del index
+    del x_host, centers, qb, x_add
+    torch.cuda.empty_cache()
+
+    # ---- phase 10: the planner: exhaustive tune, disk cache --------------
+    print(f"\n[planner] exhaustive_tune at largeN_smallK f32 {TUNE}; the "
+          f"disk cache", flush=True)
+    rep = autotune.exhaustive_tune(*TUNE, device=dev)
+    hw = P.detect_hardware(dev)
+    heur = autotune.heuristic_tune(*TUNE, hw=hw)
+    h_key = ("update", heur.best.update_block_n, heur.best.update_block_k)
+    ratio = rep.table[h_key] / rep.best_update_us
+    for (kind, bn, bk), us in sorted(rep.table.items()):
+        print(f"  {kind} ({bn}, {bk}): {us / 1e3:.4f} ms"
+              + ("  <- oracle" if (bn, bk) == (rep.best.update_block_n,
+                                               rep.best.update_block_k)
+                 and kind == "update" else "")
+              + ("  <- heuristic" if (kind, bn, bk) == h_key else ""))
+    print(f"  {rep.num_compiles} candidates timed in {rep.tune_seconds:.3f} "
+          f"s; heuristic_tune {heur.tune_seconds * 1e3:.3f} ms; the "
+          f"heuristic's update {rep.table[h_key] / 1e3:.4f} ms over the "
+          f"oracle's {rep.best_update_us / 1e3:.4f} ms = {ratio:.4f}",
+          flush=True)
+    rec = details["planner"]
+    rec.update(shape=TUNE, table={f"{kd}/{bn}/{bk}": us for (kd, bn, bk), us
+                                  in rep.table.items()},
+               oracle=dataclasses.asdict(rep.best),
+               heuristic=dataclasses.asdict(heur.best),
+               tune_seconds=rep.tune_seconds,
+               heuristic_seconds=heur.tune_seconds,
+               heuristic_over_oracle=ratio, candidates=rep.num_compiles)
+    check(h_key in rep.table and ratio >= 1.0,
+          f"planner: the heuristic's tiles {h_key[1:]} are a timed candidate "
+          f"({ratio:.4f}x the oracle)")
+    path = ROOT / "build" / "chip_smoke_roundtrip.json"
+    path.unlink(missing_ok=True)
+    shapes = [("step", (rn, rk, rd), getattr(torch, rdt).itemsize)
+              for _, rn, rk, rd, _, rdt, _ in REGIMES] + [
+        ("probe", (IVF_B, IVF[1], IVF[2], NPROBE), 4),
+        ("scan_store", (IVF_B, NPROBE, 3056, IVF[2], TOPK), 4)]
+    first = P.KernelPlanner(device=dev, cache_path=path)
+    for op, sh, isz in shapes:
+        first.plan(op, sh, isz)
+    first.fold_measured(*TUNE, report=rep)
+    again = P.KernelPlanner(device=dev, cache_path=path)
+    same = all(again.plan(op, sh, isz) == first.plan(op, sh, isz)
+               for op, sh, isz in shapes)
+    measured = again.plan("step", TUNE)
+    rec["disk"] = {**again.counters(), "entries_on_disk": len(json.loads(
+        path.read_text())["plans"]), "measured_source": measured.source}
+    print(f"  disk cache {path.name}: a second planner {again.counters()}",
+          flush=True)
+    check(same and again.counters()["chooser_calls"] == 0
+          and measured.source == "measured"
+          and measured.block.update_block_n == rep.best.update_block_n,
+          f"planner: the disk cache round-trips ({len(shapes)} plans and the "
+          f"measured one) with 0 chooser calls: {again.counters()}")
 
     # ---- phase 4: the kernel table ---------------------------------------
     main_shape = {"flash_assign": "largeN_smallK/float32",

@@ -2,10 +2,14 @@
 
 A JAX ``KMeansState`` handed over as a dict of numpy arrays (``centroids``,
 ``assignments``, ``inertia``, ``iteration``, ``shift``) becomes the port's
-``KMeansState`` and back. Neither package is imported here: the JAX side
-converts with ``np.asarray``. bfloat16 arrays (numpy's ``bfloat16``
-extension type, as JAX hands them over) are reinterpreted bit for bit;
-``state_to_numpy`` widens bfloat16 to float32, which is exact.
+``KMeansState`` and back; a ``StreamingKMeans``'s state (``STREAM_FIELDS``:
+the centroids, the running statistics' sums, counts and inertia, and
+``n_batches``) likewise, so one stream can go on in the other package (the
+two bootstraps draw from different generators). Neither package is
+imported here: the JAX side converts with ``np.asarray``. bfloat16 arrays
+(numpy's ``bfloat16`` extension type, as JAX hands them over) are
+reinterpreted bit for bit; ``state_to_numpy`` widens bfloat16 to float32,
+which is exact.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ import torch
 from repro_torch.core.kmeans import KMeansState
 
 FIELDS = KMeansState._fields
+STREAM_FIELDS = ("centroids", "sums", "counts", "inertia", "n_batches")
 
 
 def _to_tensor(arr, device) -> torch.Tensor:
@@ -47,3 +52,34 @@ def state_to_numpy(state: KMeansState) -> dict[str, np.ndarray]:
             t = t.float()
         out[name] = t.numpy()
     return out
+
+
+def stream_to_numpy(sk) -> dict:
+    """A bootstrapped ``StreamingKMeans``'s state as host numpy arrays."""
+    if sk.centroids is None:
+        raise ValueError("stream_to_numpy: the stream has no centroids yet")
+    out = {"centroids": sk.centroids, "sums": sk.stats.sums,
+           "counts": sk.stats.counts, "inertia": sk.stats.inertia}
+    out = {k: v.detach().float().cpu().numpy() if v.dtype == torch.bfloat16
+           else v.detach().cpu().numpy() for k, v in out.items()}
+    out["n_batches"] = np.asarray(sk.n_batches)
+    return out
+
+
+def stream_from_numpy(sk, d: dict):
+    """Load ``d`` (``STREAM_FIELDS``) into ``sk``, a ``StreamingKMeans``
+    made with the stream's config, on its device; an init buffer it held
+    is dropped. Returns ``sk``."""
+    from repro_torch.core.streaming import SufficientStats
+    missing = [f for f in STREAM_FIELDS if f not in d]
+    if missing:
+        raise KeyError(f"stream_from_numpy: missing fields {missing}")
+    dev = sk.device
+    c = _to_tensor(d["centroids"], dev)
+    sk.centroids = c if sk.cfg.dtype is None else c.to(sk.cfg.dtype)
+    sk.stats = SufficientStats(
+        *(_to_tensor(d[f], dev).to(torch.float32)
+          for f in ("sums", "counts", "inertia")))
+    sk.n_batches = int(d["n_batches"])
+    sk._init_buf, sk._pending = [], None
+    return sk

@@ -7,23 +7,41 @@ posting-list scans that read the fp32 and the quantized store; the
 reference's ``route`` waits for the two-level router). The closed-form
 math lives in ``core.heuristics``; this module owns the plan contract
 (``plan(op, shape, dtype) -> KernelPlan``, with the shared-memory
-footprint and modeled HBM bytes attached), the in-process
-memo keyed on ``(op, shape bucket, itemsize, hardware)`` — batch-like dims
-bucketed to the next power of two — and hardware detection
-(``detect_hardware`` maps a CUDA device onto a ``Hardware`` row read from
-the card; ``device="cpu"`` gets the CPU row). The ``chooser_calls``
-counter lets tests assert that a repeated geometry is a pure cache hit.
+footprint and modeled HBM bytes attached), the cache layers and hardware
+detection (``detect_hardware`` maps a CUDA device onto a ``Hardware`` row
+read from the card; ``device="cpu"`` gets the CPU row).
+
+Cache layers, consulted in order: the in-process memo keyed on ``(op,
+shape bucket, itemsize, hardware)`` — batch-like dims bucketed to the next
+power of two — then an on-disk JSON file (``REPRO_PLAN_CACHE``: a path, or
+``off``; by default ``~/.cache/flash_kmeans_torch/plans.json``), then the
+choosers, each run counted in ``chooser_calls`` so tests can assert that a
+repeated geometry is a pure cache hit. The file has the reference's format
+(``CACHE_VERSION``); a plan on disk is used only on the hardware and the
+build of ``csrc/`` (``kernels/_build.source_hash``) it was made for, and
+every entry the port does not use — another card's, another build's, the
+JAX package's — is written back verbatim. ``refine="measure"`` (or
+``fold_measured``) folds ``core.autotune.exhaustive_tune``'s measured
+tiles into the cache, from where they are served like any other plan.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import tempfile
 
 import torch
 
 from repro_torch.core import heuristics
 from repro_torch.kernels import flash_probe as _fp
 from repro_torch.kernels.ops import BlockConfig
+
+# The file format, the reference's (``repro/core/plan.py``): a file of
+# another version is ignored (not fatal) and overwritten. The port's entries
+# carry ``package`` and the ``build`` of the kernels they were planned for.
+CACHE_VERSION = 1
+PACKAGE = "repro_torch"
 
 OPS = ("assign", "update", "step", "probe", "scan", "scan_store", "scan_q8",
        "scan_q8_store", "rescore")
@@ -123,6 +141,41 @@ class KernelPlan:
     smem_limit: int
     hbm_bytes: float
     cluster: int | None = None
+    source: str = "heuristic"   # "heuristic" | "measured"
+
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["shape"] = list(self.shape)
+        d["blocks"] = list(self.blocks)
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "KernelPlan":
+        blk = d["block"]
+        cluster = d["cluster"]
+        return cls(
+            op=str(d["op"]), shape=tuple(int(v) for v in d["shape"]),
+            itemsize=int(d["itemsize"]), hw=str(d["hw"]),
+            impl=str(d["impl"]), blocks=tuple(int(v) for v in d["blocks"]),
+            block=None if blk is None else BlockConfig(
+                **{k: int(v) for k, v in blk.items()}),
+            smem_bytes=int(d["smem_bytes"]),
+            smem_limit=int(d["smem_limit"]),
+            hbm_bytes=float(d["hbm_bytes"]),
+            cluster=None if cluster is None else int(cluster),
+            source=str(d["source"]))
+
+
+def _default_cache_path() -> str | None:
+    """``REPRO_PLAN_CACHE`` (a path, or ``off``/``0``/``none``/empty for
+    no file), else the port's own file under ``~/.cache``."""
+    env = os.environ.get("REPRO_PLAN_CACHE")
+    if env is not None:
+        if env.strip().lower() in ("", "off", "0", "none"):
+            return None
+        return env
+    return os.path.join(os.path.expanduser("~"), ".cache",
+                        "flash_kmeans_torch", "plans.json")
 
 
 class KernelPlanner:
@@ -131,18 +184,36 @@ class KernelPlanner:
     >>> planner = KernelPlanner(device="cpu")
     >>> p = planner.plan("step", (1_000_000, 1024, 128))
     >>> p.impl, p.blocks, p.smem_bytes
+
+    ``cache_path`` names the plan file (``persist=False``: none; by default
+    ``REPRO_PLAN_CACHE`` or the port's own file). ``device`` is where the
+    hardware is read and where ``refine="measure"`` times its candidates
+    (the CPU row's planner times on the CPU).
     """
 
     def __init__(self, hw: heuristics.Hardware | None = None, *,
-                 device=None):
+                 device=None, cache_path: str | os.PathLike | None = None,
+                 persist: bool = True):
         self.hw = hw if hw is not None else detect_hardware(device)
+        self.device = torch.device("cpu") if self.hw.name == \
+            heuristics.CPU.name else _device(device)
+        self.cache_path = (str(cache_path) if cache_path is not None
+                           else (_default_cache_path() if persist else None))
         self._mem: dict[str, KernelPlan] = {}
+        # every raw entry on disk the port does not use (other hardware,
+        # another build, the JAX package's), written back verbatim
+        self._disk_raw: dict[str, dict] = {}
+        self._disk_loaded = False
+        self._build: str | None = None
         self.hits = 0
         self.misses = 0
         self.chooser_calls = 0   # closed-form planning passes actually run
+        self.measure_calls = 0   # exhaustive tunes actually run
+        self.disk_entries_loaded = 0
 
     def plan(self, op: str, shape, dtype=torch.float32, *,
-             blk: BlockConfig | None = None) -> KernelPlan:
+             blk: BlockConfig | None = None,
+             refine: str | None = None) -> KernelPlan:
         """Plan one dispatch. ``shape`` is ``(n, k, d)`` for the k-means
         ops, ``(n, k, d, l)`` for ``probe``, ``(b, c, d, l)`` for
         ``scan``/``scan_q8`` and ``(b, nprobe, width, d, l)`` for
@@ -151,16 +222,23 @@ class KernelPlanner:
         ``scan`` shape and kernel; only its modeled bytes add the cache
         gather (ref. ``repro/core/plan.py:408-421``).
         ``blk`` pins a ``BlockConfig`` (the plan is then judged, and
-        memoized, for those tiles; the probe ops have none)."""
+        memoized, for those tiles; the probe ops have none). ``refine`` in
+        ``(None, "heuristic", "measure")``: ``"measure"`` runs (once per
+        shape bucket) an exhaustive tune of the k-means ops and folds the
+        measured tiles into the cache."""
         if op not in OPS:
             raise ValueError(f"unknown plan op {op!r}; expected one of {OPS}")
         shape = tuple(int(s) for s in shape)
         if len(shape) != _ARITY[op]:
             raise ValueError(f"op {op!r} expects a shape of arity "
                              f"{_ARITY[op]}, got {shape}")
+        if refine not in (None, "heuristic", "measure"):
+            raise ValueError(f"unknown refine backend {refine!r}")
         b = _itemsize(dtype)
         bshape = tuple(bucket_dim(s) if i in _BUCKET_DIMS[op] else s
                        for i, s in enumerate(shape))
+        self._load_disk()
+        measure = refine == "measure" and op in ("assign", "update", "step")
         if blk is not None:
             base = self._mem.get(self._key(op, bshape, b))
             if base is not None and base.block == blk:
@@ -169,11 +247,15 @@ class KernelPlanner:
         got = self._mem.get(key)
         if got is not None:
             self.hits += 1
-            return got
-        self.misses += 1
-        plan = self._compute(op, bshape, b, blk)
-        self._store(plan, key, pinned=blk is not None)
-        return plan
+        else:
+            self.misses += 1
+            got = self._compute(op, bshape, b, blk)
+            self._store(got, key, pinned=blk is not None)
+        if measure and got.source != "measured":
+            step = self.fold_measured(*bshape, b)
+            return step if op == "step" else \
+                self._mem[self._key(op, bshape, b)]
+        return got
 
     def block_config(self, n: int, k: int, d: int,
                      dtype_bytes: int = 4) -> BlockConfig:
@@ -185,27 +267,70 @@ class KernelPlanner:
         """``"fused"`` or ``"two_pass"``, judged at ``blk`` when given."""
         return self.plan("step", (n, k, d), dtype_bytes, blk=blk).impl
 
+    def fold_measured(self, n: int, k: int, d: int, dtype=torch.float32,
+                      *, report=None) -> KernelPlan:
+        """Fold an exhaustive tune into the cache for this shape bucket.
+
+        ``report``: a ``core.autotune.TuneReport``; ``None`` runs the tune
+        here on the planner's device (once, then cached, on disk too).
+        The measured update tiles replace the heuristic's in the assign,
+        update and step entries (the assign and fused tiles are the
+        kernels' compiled ones); the fused leg and the crossover are
+        judged again at the merged tiles. Returns the step plan.
+        """
+        b = _itemsize(dtype)
+        bshape = (bucket_dim(n), int(k), int(d))
+        if report is None:
+            from repro_torch.core import autotune
+            report = autotune.exhaustive_tune(
+                *bshape, dtype={2: torch.bfloat16}.get(b, torch.float32),
+                device=self.device)
+            self.measure_calls += 1
+        self._load_disk()
+        base = self._compute("step", bshape, b, None)
+        merged = dataclasses.replace(
+            base.block,
+            assign_block_n=report.best.assign_block_n,
+            assign_block_k=report.best.assign_block_k,
+            update_block_n=report.best.update_block_n,
+            update_block_k=report.best.update_block_k)
+        step = dataclasses.replace(self._compute("step", bshape, b, merged),
+                                   source="measured")
+        self._store(step, self._key("step", bshape, b), pinned=False)
+        return step
+
     def counters(self) -> dict:
         return {"hits": self.hits, "misses": self.misses,
                 "chooser_calls": self.chooser_calls,
+                "measure_calls": self.measure_calls,
+                "disk_entries_loaded": self.disk_entries_loaded,
                 "entries": len(self._mem)}
 
-    def clear(self) -> None:
+    def clear(self, disk: bool = False) -> None:
+        """Forget the memo (and, with ``disk``, delete the plan file)."""
         self._mem.clear()
+        self._disk_raw.clear()
+        self._disk_loaded = False
+        if disk and self.cache_path:
+            try:
+                os.remove(self.cache_path)
+            except FileNotFoundError:
+                pass
 
     def _key(self, op: str, bshape: tuple, itemsize: int,
              blk: BlockConfig | None = None) -> str:
         blk_part = (None if blk is None else
                     [getattr(blk, f.name) for f in dataclasses.fields(blk)])
-        return json.dumps([op, list(bshape), itemsize, self.hw.name,
+        return json.dumps([PACKAGE, op, list(bshape), itemsize, self.hw.name,
                            blk_part])
 
-    def _leg_plans(self, s: tuple, b: int, cfg: BlockConfig):
+    def _leg_plans(self, s: tuple, b: int, cfg: BlockConfig,
+                   source: str = "heuristic"):
         """The assign and update plans of one geometry and tile set."""
         H, hw = heuristics, self.hw
         n, k, d = s
         mk = lambda **kw: KernelPlan(shape=s, itemsize=b, hw=hw.name,
-                                     block=cfg,
+                                     block=cfg, source=source,
                                      smem_limit=hw.smem_block_bytes, **kw)
         assign = mk(op="assign", impl="flash",
                     blocks=(cfg.assign_block_n, cfg.assign_block_k),
@@ -336,11 +461,72 @@ class KernelPlanner:
     def _store(self, plan: KernelPlan, key: str, pinned: bool) -> None:
         """Memoize ``plan``; an un-pinned step plan also fills its assign
         and update siblings (they share one ``choose_blocks`` run, so
-        planning them again would be a phantom miss)."""
+        planning them again would be a phantom miss). Writes the file."""
         self._mem[key] = plan
         if plan.op == "step" and not pinned:
-            for sib in self._leg_plans(plan.shape, plan.itemsize, plan.block):
+            for sib in self._leg_plans(plan.shape, plan.itemsize, plan.block,
+                                       plan.source):
                 self._mem[self._key(sib.op, sib.shape, sib.itemsize)] = sib
+        self._save()
+
+    def _build_hash(self) -> str:
+        if self._build is None:
+            from repro_torch.kernels import _build
+            self._build = _build.source_hash()
+        return self._build
+
+    def _load_disk(self) -> None:
+        """Read the plan file once: a missing, corrupt or other-version
+        file plans from scratch; a bad entry of the port's is dropped; an
+        entry of other hardware, another build or another package is kept
+        for the next write and not used."""
+        if self._disk_loaded or not self.cache_path:
+            return
+        self._disk_loaded = True
+        try:
+            with open(self.cache_path, encoding="utf-8") as f:
+                raw = json.load(f)
+        except (OSError, ValueError):
+            return
+        if not isinstance(raw, dict) or raw.get("version") != CACHE_VERSION \
+                or not isinstance(raw.get("plans"), dict):
+            return
+        for key, pd in raw["plans"].items():
+            if not isinstance(pd, dict) or pd.get("package") != PACKAGE:
+                self._disk_raw[key] = pd   # not the port's: kept verbatim
+                continue
+            try:
+                plan = KernelPlan.from_dict(pd)
+            except (KeyError, TypeError, ValueError, AttributeError):
+                continue                   # a bad entry of the port's
+            if plan.hw != self.hw.name or pd.get("build") != \
+                    self._build_hash():
+                self._disk_raw[key] = pd
+            elif key not in self._mem:
+                self._mem[key] = plan
+                self.disk_entries_loaded += 1
+
+    def _save(self) -> None:
+        """Write every plan of the memo over the raw entries read (at most
+        once a new geometry, never a dispatch), atomically; persistence is
+        best effort."""
+        if not self.cache_path:
+            return
+        self._load_disk()
+        mine = {k: {**p.to_dict(), "package": PACKAGE,
+                    "build": self._build_hash()}
+                for k, p in self._mem.items()}
+        payload = {"version": CACHE_VERSION,
+                   "plans": {**self._disk_raw, **mine}}
+        try:
+            dirname = os.path.dirname(self.cache_path) or "."
+            os.makedirs(dirname, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(dir=dirname, suffix=".tmp")
+            with os.fdopen(fd, "w", encoding="utf-8") as f:
+                json.dump(payload, f)
+            os.replace(tmp, self.cache_path)
+        except OSError:
+            pass   # a read-only file system: plans stay in memory
 
 
 # ---------------------------------------------------------------------------

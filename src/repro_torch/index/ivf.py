@@ -23,12 +23,15 @@ Port of ``repro/index/ivf.py`` for one device, the ``padded`` store, the
   folds the batch statistics into pending ``SufficientStats``;
   ``refresh`` commits them and re-centers the centroids, O(K d).
 
+The out-of-core build (``build(chunk_size=)``) trains with
+``ChunkedKMeans`` and inverts the chunk stream through ``add``.
+
 Not ported yet (ROADMAP.md, queue A): ``pctx`` (the sharded index, item
-6), ``chunk_size`` (out-of-core build), the paged store, the two-level
-router and ``nprobe_c`` (item 4), fault injection, ``save`` and ``load``
-(item 5). Each raises ``NotImplementedError``. ``IVFIndex`` runs on the
-card unless it is asked for the CPU: ``device=None`` means ``"cuda"`` and
-raises when no CUDA device is present.
+6), the paged store, the two-level router and ``nprobe_c`` (item 4), fault
+injection, ``save`` and ``load`` (item 5). Each raises
+``NotImplementedError``. ``IVFIndex`` runs on the card unless it is asked
+for the CPU: ``device=None`` means ``"cuda"`` and raises when no CUDA
+device is present.
 """
 from __future__ import annotations
 
@@ -37,6 +40,8 @@ import torch
 
 from repro_torch.core import heuristics as _heur
 from repro_torch.core import plan as _plan
+from repro_torch.core.chunked import ChunkedKMeans
+from repro_torch.core.init import init_centroids
 from repro_torch.core.kmeans import KMeans, KMeansConfig, resolve_device
 from repro_torch.core.streaming import SufficientStats
 from repro_torch.index import router as _router
@@ -310,29 +315,47 @@ class IVFIndex:
               router=None) -> "IVFIndex":
         """Train coarse centroids on ``x`` (N, d) and invert the corpus
         into posting lists. The initial centroids come from a
-        ``torch.Generator`` seeded with ``seed``."""
-        if chunk_size is not None:
-            raise _not_ported("the out-of-core build (chunk_size)", 4)
+        ``torch.Generator`` seeded with ``seed``.
+
+        With ``chunk_size`` set, ``x`` is a host numpy array, CPU tensor or
+        chunk factory handled out of core: ``ChunkedKMeans`` trains from
+        centroids drawn on the first chunk, then the same chunk stream is
+        inverted by ``add`` into an index of capacity 8 (or ``capacity``)
+        that grows as the lists fill; the device holds two chunks, the
+        centroids and the store."""
         if pctx is not None:
             raise _not_ported("a sharded IVFIndex (pctx)", 6)
         dev = resolve_device(device)
-        x = _as_float(x, dev)
         cfg = KMeansConfig(k=k, max_iters=max_iters, init=init, tol=tol,
                            step_impl=step_impl, planner=planner)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        centroids = KMeans(cfg, device=dev).fit(x, generator=gen).centroids
-        blk = cfg.blocks_for(x.shape[0], x.shape[1], x.element_size(), dev)
-        a, m = ops.flash_assign(x, centroids.to(x.dtype),
-                                block_n=blk.assign_block_n,
-                                block_k=blk.assign_block_k)
-        cap = capacity if capacity is not None else int(
-            torch.bincount(a.long(), minlength=k).max())
-        index = cls(centroids, cap, max_cap=max_cap, device=dev,
-                    planner=planner, store=store, page_size=page_size,
-                    store_bytes=store_bytes, codec=codec,
-                    rescore_mult=rescore_mult, rescore_bytes=rescore_bytes,
-                    rescore=rescore, router=router)
-        index._fold(x, a, m)
+        kw = dict(max_cap=max_cap, device=dev, planner=planner, store=store,
+                  page_size=page_size, store_bytes=store_bytes, codec=codec,
+                  rescore_mult=rescore_mult, rescore_bytes=rescore_bytes,
+                  rescore=rescore, router=router)
+        if chunk_size is not None:
+            driver = ChunkedKMeans(cfg, chunk_size=chunk_size, device=dev)
+            first = _as_float(next(driver._chunks(x)), dev)
+            c0 = init_centroids(first, k, init, generator=gen)
+            del first
+            centroids, _ = driver.fit(x, c0)
+            index = cls(centroids, capacity if capacity is not None else 8,
+                        **kw)
+            for chunk in driver._chunks(x):
+                index.add(chunk)
+        else:
+            x = _as_float(x, dev)
+            centroids = KMeans(cfg, device=dev).fit(
+                x, generator=gen).centroids
+            blk = cfg.blocks_for(x.shape[0], x.shape[1], x.element_size(),
+                                 dev)
+            a, m = ops.flash_assign(x, centroids.to(x.dtype),
+                                    block_n=blk.assign_block_n,
+                                    block_k=blk.assign_block_k)
+            cap = capacity if capacity is not None else int(
+                torch.bincount(a.long(), minlength=k).max())
+            index = cls(centroids, cap, **kw)
+            index._fold(x, a, m)
         # build-time evidence is the committed baseline, not drift
         index.stats = index.stats.merge(index._pending)
         index._pending = SufficientStats.zero(k, index.d, dev)

@@ -345,15 +345,22 @@ class RescoreReservoir:
     half of two-phase search. The quantized scan proposes top-``R`` ids;
     the verify phase looks their original f32 rows up here. FIFO ring
     under an optional byte budget: evicted rows rescore from their
-    decoded codes instead."""
+    decoded codes instead. Unbounded, the pool is a list of segments, each
+    at least as large as all before it (the capacity grows geometrically)
+    and never copied, so an add costs O(batch) where the reference copies
+    the whole pool; global row ``r`` lies in the segment that starts at or
+    before it (``_starts``)."""
 
     def __init__(self, d: int, *, max_bytes: int | None = None):
         self.d = int(d)
         self.max_bytes = max_bytes
         cap = self._cap_rows()
         n0 = 0 if cap is None else cap
-        self._rows = np.zeros((n0, self.d), np.float32)
+        self._rows = np.zeros((n0, self.d), np.float32)   # the ring
         self._ids = np.full(n0, -1, np.int64)    # id held per row
+        self._segs: list[tuple[np.ndarray, np.ndarray]] = []   # unbounded
+        self._starts: list[int] = []             # each segment's first row
+        self._n = 0                              # rows used (unbounded)
         self._id2row = np.full(1024, -1, np.int64)
         self._cursor = 0
         self.evicted = 0
@@ -363,17 +370,70 @@ class RescoreReservoir:
             return None
         return max(1, int(self.max_bytes) // (4 * self.d + 8))
 
+    def _used(self) -> list[tuple[np.ndarray, np.ndarray]]:
+        """(rows, ids) of the pool's occupied rows, in append order."""
+        if self._cap_rows() is not None:
+            return [(self._rows, self._ids)]
+        return [(r[:self._n - lo], i[:self._n - lo])
+                for (r, i), lo in zip(self._segs, self._starts)]
+
     def __len__(self) -> int:
-        return int((self._ids >= 0).sum())
+        return sum(int((ids >= 0).sum()) for _, ids in self._used())
 
     def resident_bytes(self) -> int:
-        return self._rows.shape[0] * (4 * self.d + 8)
+        cap = self._cap_rows()
+        return (self._n if cap is None else cap) * (4 * self.d + 8)
 
     def _ensure_index(self, max_id: int) -> None:
         if max_id >= self._id2row.size:
             grown = np.full(_pow2ceil(max_id + 1), -1, np.int64)
             grown[:self._id2row.size] = self._id2row
             self._id2row = grown
+
+    def _segment_of(self, row: np.ndarray):
+        """(segment, offset) of global rows of the unbounded pool."""
+        seg = np.searchsorted(np.asarray(self._starts), row,
+                              side="right") - 1
+        return seg, row - np.asarray(self._starts)[seg]
+
+    def _write(self, row: np.ndarray, x: np.ndarray) -> None:
+        if self._cap_rows() is not None:
+            self._rows[row] = x
+            return
+        seg, off = self._segment_of(row)
+        for s_ in np.unique(seg):
+            sel = seg == s_
+            self._segs[s_][0][off[sel]] = x[sel]
+
+    def _read(self, row: np.ndarray) -> np.ndarray:
+        if self._cap_rows() is not None:
+            return self._rows[row]
+        out = np.empty((row.size, self.d), np.float32)
+        seg, off = self._segment_of(row)
+        for s_ in np.unique(seg):
+            sel = seg == s_
+            out[sel] = self._segs[s_][0][off[sel]]
+        return out
+
+    def _append(self, new_ids: np.ndarray, new_x: np.ndarray) -> None:
+        """Unbounded: fill the last segment, then open one as large as the
+        pool so far (at least the rest of the batch)."""
+        self._id2row[new_ids] = self._n + np.arange(new_ids.size)
+        done = 0
+        while done < new_ids.size:
+            if not self._segs or \
+                    self._n == self._starts[-1] + len(self._segs[-1][1]):
+                size = max(new_ids.size - done, self._n)
+                self._segs.append((np.empty((size, self.d), np.float32),
+                                   np.full(size, -1, np.int64)))
+                self._starts.append(self._n)
+            rows, ids = self._segs[-1]
+            lo = self._n - self._starts[-1]
+            m = min(len(ids) - lo, new_ids.size - done)
+            rows[lo:lo + m] = new_x[done:done + m]
+            ids[lo:lo + m] = new_ids[done:done + m]
+            done += m
+            self._n += m
 
     def put(self, ids, x) -> None:
         ids = np.asarray(ids, np.int64).reshape(-1)
@@ -384,16 +444,13 @@ class RescoreReservoir:
         row = self._id2row[ids]
         have = row >= 0
         if have.any():                      # refresh in place
-            self._rows[row[have]] = x[have]
+            self._write(row[have], x[have])
         new_ids, new_x = ids[~have], x[~have]
         if new_ids.size == 0:
             return
         cap = self._cap_rows()
-        if cap is None:                     # unbounded: plain append
-            base = self._rows.shape[0]
-            self._rows = np.concatenate([self._rows, new_x])
-            self._ids = np.concatenate([self._ids, new_ids])
-            self._id2row[new_ids] = base + np.arange(new_ids.size)
+        if cap is None:                     # unbounded: O(batch) append
+            self._append(new_ids, new_x)
             return
         if new_ids.size > cap:              # batch larger than the ring
             self.evicted += new_ids.size - cap
@@ -417,16 +474,19 @@ class RescoreReservoir:
                        self._id2row[safe], -1)
         found = row >= 0
         out = np.zeros(ids.shape + (self.d,), np.float32)
-        out[found] = self._rows[row[found]]
+        out[found] = self._read(row[found])
         return out, found
 
     def state_arrays(self) -> dict:
         """Occupied rows packed oldest-first (ring order)."""
         cap = self._cap_rows()
         if cap is None:
-            keep = self._ids >= 0
-            return {"rescore_rows": self._rows[keep],
-                    "rescore_ids": self._ids[keep]}
+            used = self._used()
+            rows = np.concatenate([r for r, _ in used]) if used else \
+                self._rows
+            ids = np.concatenate([i for _, i in used]) if used else self._ids
+            keep = ids >= 0
+            return {"rescore_rows": rows[keep], "rescore_ids": ids[keep]}
         order = (self._cursor + np.arange(cap)) % cap
         order = order[self._ids[order] >= 0]
         return {"rescore_rows": self._rows[order],

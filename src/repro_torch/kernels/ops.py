@@ -55,8 +55,17 @@ class BlockConfig:
     fused_block_k: int = _fl.TILE_K
 
     def validate(self) -> "BlockConfig":
+        """Tiles are positive powers of two or multiples of 128;
+        ``update_block_k`` (threads) a multiple of 32 up to the kernel's
+        ``THREADS``."""
+        if self.update_block_k % 32 or \
+                not 32 <= self.update_block_k <= _siu.THREADS:
+            raise ValueError(f"update_block_k={self.update_block_k} must be "
+                             f"a multiple of 32 in [32, {_siu.THREADS}]")
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
+            if f.name == "update_block_k":
+                continue
             if v <= 0 or (v & (v - 1)) != 0 and v % 128 != 0:
                 raise ValueError(f"{f.name}={v} must be a positive power of "
                                  "two or a multiple of 128")
