@@ -30,7 +30,17 @@ run and read just after:
   IVF cells, 64 ragged search requests of 1-512 rows with 4 interleaved
   adds of 4,096 rows (``refresh_every=2``), each request held bit for bit
   to the same op stream through a synchronous engine (``pipeline_depth=1``)
-  over a copy of the index.
+  over a copy of the index;
+- the two-level router (``TwoLevelRouter``, ``search(nprobe_c=)``) at the
+  reference's routed regime (``benchmarks/bench_index.py:152-210``) at
+  d = 128: K = 65,536 fine centroids around 512 meta-centres, 64 rows a
+  cell (N = 4,194,304) added in chunks, a flat and a routed index over one
+  store, fp32 and q8, B = 16, 64 (the reference's) and 256 at nprobe 10
+  to 64 (batch times, device time by kernel, recall@10 against
+  ``search_brute``, the planner's ``route`` verdict), a warm routed
+  search without a host sync, and probe lists that end in the sentinel
+  cell (``nprobe_c = 1``); and at the IVF1024 cell, the routed index at
+  nprobe = K returns the flat index's ids.
 
 Before the paths, the sort-inverse update, FlashLloyd and the store scan
 are held to their plain versions on edge shapes (one segment over every
@@ -227,6 +237,16 @@ IVF_B, IVF_BATCHES, TOPK, NPROBE = 256, 4, 10, 16
 SWEEP_L = (1, 16, 32, 48, 64)   # the probe's tile mode: clusters against L
 EXACT = (65536, 64, 128)   # the full-probe exactness index
 EXACT_B = 32
+# the two-level router: the reference's routed regime (K fine centroids
+# around META meta-centres, benchmarks/bench_index.py:152-210) at d = 128,
+# ROWS_A_CELL rows a cell added in chunks of ROUTED_CHUNK; searched at
+# (B, nprobe) ROUTED_POINTS: the reference's B 64 at nprobe 10 and 32, B 16
+# (where the planner's route op answers two_level) and the serving batch
+# B 256; its kernels are held to their plain versions at B 256, nprobe
+# ROUTED_NPROBE
+ROUTED, ROUTED_CHUNK, ROUTED_NPROBE = (65536, 512, 64), 262144, (16, 64)
+ROUTED_POINTS = ((16, 10), (16, 32), (64, 10), (64, 32), (256, 16),
+                 (256, 64))
 # the device rescore cache's insert (sets, ways, d, batch, ids below, kind):
 # ways 1, 4, 8 and 32, d off the 4-float vector (1, 3, 129) and an x off 16
 # bytes (the scalar copy), ids of -1 and duplicates within a batch, sets
@@ -307,7 +327,8 @@ def main() -> int:
     from repro_torch.core import autotune
     from repro_torch.core import heuristics as H
     from repro_torch.core import plan as P
-    from repro_torch.index import DeviceRescoreCache, IVFIndex, recall_at_k
+    from repro_torch.index import (DeviceRescoreCache, IVFIndex,
+                                   TwoLevelRouter, recall_at_k)
     from repro_torch.index import bridge
     from repro_torch.index import ivf as ivf_mod
     from repro_torch.index import store as store_mod
@@ -445,6 +466,7 @@ def main() -> int:
     details = {"card": smi, "regimes": [], "kernel_checks": [], "ivf": [],
                "ivf_truth": [], "controls": [], "step_pairs": [],
                "profiles": [], "cache_insert": [], "engine": [],
+               "routed": {},
                "out_of_core": {}, "streaming": {}, "ooc_ivf": [],
                "planner": {}}
 
@@ -867,12 +889,24 @@ def main() -> int:
                       f"({int((got[0] != lst[0]).sum())} indices differ)")
         return got
 
+    def sentinel_block(t, probe, width, fill):
+        """``candidate_slots`` of a per-slot store array ``t (K, cap, ...)``
+        where ``probe`` may hold the sentinel cell K (counts of K + 1):
+        its slots gathered at cell K - 1 and set to ``fill``."""
+        k_ = t.shape[0]
+        blk = store_mod.candidate_slots(t, probe.clamp(max=k_ - 1), width)
+        dead = (probe >= k_).repeat_interleave(width, dim=1)
+        return torch.where(dead.reshape(*dead.shape, *([1] * (blk.ndim - 2))),
+                           torch.full_like(blk, fill), blk)
+
     def store_check(q, buckets, counts, probe, width, l, tag, splits=None):
         """The store scan against its plain version (the gathered block and
         the grouped scan's plain version), scored on that block; and against
         the grouped kernel on the gathered block, which it must equal bit
-        for bit (same per-lane sums, same shuffle pairing)."""
-        cand = store_mod.candidate_slots(buckets, probe, width)
+        for bit (same per-lane sums, same shuffle pairing). ``probe`` may
+        hold the sentinel cell K where ``counts`` has K + 1 entries: its
+        slots are padding rows in the block."""
+        cand = sentinel_block(buckets, probe, width, PAD)
         score, mag = scan_scores(q, cand)
         exp = fp.flash_probe_store_plain(q, buckets, counts, probe, width, l,
                                          PAD)
@@ -905,14 +939,15 @@ def main() -> int:
         """The q8 store scan against its plain version, scored on the
         gathered block; and against the block kernel on that block
         (``gather_global_q8``), which it must equal bit for bit, ``+inf``
-        entries and their indices included."""
+        entries and their indices included. ``probe`` may hold the sentinel
+        cell K where ``counts`` and ``anchors`` have K + 1 entries: its
+        slots have scale 0 in the block."""
         b, nprobe = probe.shape
         d = codes.shape[-1]
-        ids = torch.zeros(codes.shape[:2], dtype=torch.int32, device=dev)
-        cb, sb, _ = store_mod.gather_global_q8("padded", (codes, ids, scales),
-                                               probe, width)
-        cb = cb.reshape(b, nprobe, width, d)
-        sb = sb.reshape(b, nprobe, width)
+        cb = sentinel_block(codes, probe, width, 0).reshape(b, nprobe, width,
+                                                             d)
+        sb = sentinel_block(scales, probe, width, 0.0).reshape(b, nprobe,
+                                                                width)
         qp = q.float().unsqueeze(1) - anchors[probe.long()]
         score, mag = q8_scores(qp, cb, sb)
         exp = fp.flash_probe_store_q8_plain(qp, codes, scales, counts, probe,
@@ -2500,14 +2535,31 @@ def main() -> int:
                 del c0, st0, st1
             del ids_app, rows_app
             torch.cuda.empty_cache()
+        # the two-level router over this index's store: at nprobe = K every
+        # group is probed, so the routed ids equal the flat index's exactly
+        routed = IVFIndex(index.centroids, index.cap, store=index.store,
+                          router="two_level")
+        ids_f, dd_f = index.search(queries[0], topk=TOPK, nprobe=k)
+        ids_r, dd_r = routed.search(queries[0], topk=TOPK, nprobe=k)
+        check(routed.router.effective_nprobe_c(k) == routed.router.coarse_k
+              and torch.equal(ids_f, ids_r),
+              f"ivf/{codec} full coverage: the routed index ({routed.router!r})"
+              f" at nprobe = K = {k} returns the flat index's ids exactly "
+              f"({int((ids_f != ids_r).sum())} differ; distances within "
+              f"{float((dd_f - dd_r).abs().max()):.3g})")
+        details["ivf"][-1]["routed_full_coverage"] = {
+            "router": repr(routed.router),
+            "ids_differ": int((ids_f != ids_r).sum()),
+            "max_dist_diff": float((dd_f - dd_r).abs().max())}
+        del routed, ids_f, dd_f, ids_r, dd_r
         engine_phase(index, codec, centers)
         del index
         torch.cuda.empty_cache()
 
-    # kernel times at the main path's shapes, and the block path's scans
-    for tag, (kern, plain, byt, ops_, shape, extra) in [
-            *((f"ivf/{kn}", v) for kn, v in main_inputs.items()),
-            *off_path.items()]:
+    def time_kernel(tag, kern, plain, byt, ops_, shape, extra):
+        """A kernel's wrapper at one shape: CUDA events of back-to-back
+        calls, its plain version's, the device time by kernel (the
+        profiler), and the byte and operation counts of its bound."""
         kern()
         torch.cuda.synchronize()
         for _ in range(3):   # the profiler now and then records no kernel
@@ -2536,7 +2588,210 @@ def main() -> int:
             check(len(rows) == 1 and kern_name in rows[0]["name"],
                   f"{tag}: one launch a call, of {kern_name} alone (the "
                   f"device ran {[r['name'][:60] for r in rows]})")
+
+    # kernel times at the main path's shapes, and the block path's scans
+    for tag, args_ in [*((f"ivf/{kn}", v) for kn, v in main_inputs.items()),
+                       *off_path.items()]:
+        time_kernel(tag, *args_)
     del main_inputs, off_path, x, centers, queries
+    torch.cuda.empty_cache()
+
+    # ---- phase 5b: the two-level router at K = 65,536 ---------------------
+    # the reference's routed regime at the serving width d = 128: fine
+    # centroids around meta-centres (scale 8, unit noise), each cell's rows
+    # its centroid plus 0.05 noise, added in chunks to IVFIndex(cent,
+    # capacity=8); a flat and a routed index share one store, so a recall
+    # gap is routing's alone; a seed of its own
+    kr, n_meta, per_cell = ROUTED
+    dr, nr = 128, ROUTED[0] * ROUTED[2]
+    gen_r = torch.Generator(device=dev).manual_seed(SEED + 14)
+    meta = torch.randn(n_meta, dr, device=dev, generator=gen_r) * 8.0
+    cent = meta[torch.randint(0, n_meta, (kr,), device=dev, generator=gen_r)]
+    cent += torch.randn(kr, dr, device=dev, generator=gen_r)
+    xr = cent.repeat(per_cell, 1)           # row i lies at centroid i % K
+    xr += 0.05 * torch.randn(nr, dr, device=dev, generator=gen_r)
+    qr = xr[torch.randint(0, nr, (IVF_B,), device=dev, generator=gen_r)]
+    qr = qr + 0.05 * torch.randn(IVF_B, dr, device=dev, generator=gen_r)
+    del meta
+    rec_r = details["routed"]
+    rec_r.update(K=kr, meta_centres=n_meta, N=nr, d=dr, B=IVF_B, topk=TOPK,
+                 chunk=ROUTED_CHUNK, cells=[])
+    print(f"\n[routed] K={kr} fine centroids around {n_meta} meta-centres, "
+          f"N={nr} ({per_cell} rows a cell), d={dr}; topk={TOPK}, (B, "
+          f"nprobe) {ROUTED_POINTS}", flush=True)
+    router, ids_truth = None, None
+    for codec in ("fp32", "q8"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flat = IVFIndex(cent, capacity=8, codec=codec)
+        for lo in range(0, nr, ROUTED_CHUNK):
+            flat.add(xr[lo:lo + ROUTED_CHUNK])
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        build_peak = torch.cuda.max_memory_allocated() / 2**30
+        if router is None:
+            t0 = time.perf_counter()
+            router = TwoLevelRouter.train(cent, max_iters=4)
+            torch.cuda.synchronize()
+            rec_r["router"] = {
+                "train_s": time.perf_counter() - t0,
+                "coarse_k": router.coarse_k, "nprobe_c": router.nprobe_c,
+                "gcap": router.gcap,
+                "largest_group": int(router.group_sizes.max())}
+        routed = IVFIndex(cent, capacity=8, store=flat.store, router=router)
+        table = routed._route_view()   # the fine stage's (K_c, gcap, d)
+        if "table_bytes" not in rec_r["router"]:
+            rec_r["router"]["table_bytes"] = (table.numel()
+                                              * table.element_size())
+            print(f"  TwoLevelRouter.train(max_iters=4) "
+                  f"{rec_r['router']['train_s']:.3f} s: coarse_k "
+                  f"{router.coarse_k}, nprobe_c {router.nprobe_c}, gcap "
+                  f"{router.gcap} (largest group "
+                  f"{rec_r['router']['largest_group']}); the fine table "
+                  f"{rec_r['router']['table_bytes'] / 2**20:.1f} MiB",
+                  flush=True)
+        if ids_truth is None:   # the q8 store holds the same rows and ids
+            ids_truth = torch.cat([flat.search_brute(qr[i:i + 64], topk=TOPK)
+                                   [0] for i in range(0, IVF_B, 64)])
+        print(f"  [{codec}] added in chunks of {ROUTED_CHUNK}: {build_s:.3f} "
+              f"s (peak {build_peak:.2f} GiB); cap {flat.cap}, resident "
+              f"{flat.resident_bytes() / 2**30:.3f} GiB", flush=True)
+        cell = {"codec": codec, "build_s": build_s, "build_peak_gib":
+                build_peak, "cap": flat.cap,
+                "resident_bytes": flat.resident_bytes(), "searches": []}
+        recalls = {}
+        for bq, nprobe in ROUTED_POINTS:
+            verdict = routed.planner.plan("route", (bq, kr, dr, nprobe),
+                                          torch.float32).impl
+            for name, index in (("flat", flat), ("routed", routed)):
+                def run(index=index, nprobe=nprobe, bq=bq):
+                    return index.search(qr[:bq], topk=TOPK, nprobe=nprobe)
+                run()   # warm-up
+                ms = []
+                for _ in range(5):
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                    ids, dd = run()
+                    e1.record()
+                    torch.cuda.synchronize()
+                    ms.append(e0.elapsed_time(e1))
+                rows = device_rows(run, 3)
+                rc = recall_at_k(ids, ids_truth[:bq])
+                recalls[name, bq, nprobe] = rc
+                npc = router.effective_nprobe_c(nprobe) \
+                    if name == "routed" else None
+                check(ids.shape == (bq, TOPK)
+                      and bool(((ids >= 0) & (ids < nr)).all())
+                      and bool(torch.isfinite(dd).all()),
+                      f"routed/{codec} {name} B {bq} nprobe {nprobe}: ids "
+                      f"in [0, N), finite distances")
+                print(f"  [{codec}] {name} B {bq} nprobe {nprobe}"
+                      f"{f' (nprobe_c {npc})' if npc else ''}, route plan "
+                      f"{verdict}: "
+                      f"{statistics.median(ms):.3f} ms per batch (CUDA "
+                      f"events, median of 5 after a warm-up), recall@{TOPK} "
+                      f"{rc:.4f}; device busy "
+                      f"{sum(r['ms'] for r in rows):.4f} ms: " + "; ".join(
+                          f"{r['name'][:40]} {r['ms']:.4f} ms x{r['calls']:g}"
+                          for r in rows[:6]), flush=True)
+                cell["searches"].append(
+                    {"router": name, "B": bq, "nprobe": nprobe,
+                     "route_plan": verdict, "nprobe_c_eff": npc,
+                     "ms_per_batch": statistics.median(ms), "batch_ms": ms,
+                     "recall_at_10": rc,
+                     "device_busy_ms": sum(r["ms"] for r in rows),
+                     "device_rows": rows})
+        top = (IVF_B, max(ROUTED_NPROBE))
+        check(recalls["routed", *top] >= recalls["flat", *top] - 0.02,
+              f"routed/{codec} recall@{TOPK} at B {top[0]}, nprobe {top[1]}: "
+              f"routed {recalls['routed', *top]:.4f} >= flat "
+              f"{recalls['flat', *top]:.4f} - 0.02")
+        no_sync_check(routed, qr, f"routed/{codec}")
+        # nprobe_c = 1 below nprobe: nprobe_c * gcap < nprobe, so the probe
+        # lists end in the sentinel cell K
+        nps = min(kr, router.gcap + 16)
+        ids_s, dd_s = routed.search(qr, topk=TOPK, nprobe=nps, nprobe_c=1)
+        probe_s = routed._probe(
+            qr, nps, 1, routed.plan_search(IVF_B, TOPK, nps, 1)[:2])
+        counts_s = flat.store.counts_sentinel
+        sentinels = int((probe_s == kr).sum())
+        check(sentinels >= IVF_B * (nps - router.gcap)
+              and bool(((ids_s >= -1) & (ids_s < nr)).all())
+              and bool((torch.isfinite(dd_s) | (dd_s == float("inf"))).all()),
+              f"routed/{codec} nprobe {nps}, nprobe_c 1: {sentinels} "
+              f"sentinel cells in the probe lists; ids valid or -1 "
+              f"({int((ids_s < 0).sum())} of -1), distances finite or +inf")
+        counts = read_counts()
+        for kname in launches:
+            launches[kname] += counts[kname]
+        need = ["flash_assign", "sort_inverse_update", "flash_probe_tile",
+                "flash_probe_store"] + (
+            ["flash_probe_store_q8", "flash_probe_grouped_warp",
+             "rescore_cache_insert"] if codec == "q8" else [])
+        idle = ["flash_probe", "flash_probe_grouped", "flash_probe_grouped_q8"]
+        check(all(counts[kn] > 0 for kn in need)
+              and all(counts[kn] == 0 for kn in idle),
+              f"routed/{codec} kernels launched: {counts}")
+        cell.update(launches=counts, sentinel_nprobe=nps,
+                    sentinel_cells=sentinels)
+
+        # the routed path's kernels at the shapes it gave them, against
+        # their plain versions (outside the counted run): the coarse probe
+        # and the fine stage (the store scan over the router's table), and
+        # the bucket scans over probe lists that end in sentinels (the
+        # first 32 queries: the block they are held to grows with nprobe)
+        if codec == "fp32":
+            for nprobe in ROUTED_NPROBE:
+                plans = routed.plan_search(IVF_B, TOPK, nprobe)
+                _, npc, gcap = router.fingerprint(nprobe)
+                leff = min(nprobe, npc * gcap)
+                cidx, _ = probe_check(qr, router.coarse, npc,
+                                      f"routed coarse probe, nprobe {nprobe}",
+                                      plan=plans[0])
+                store_check(qr, table, router.group_sizes, cidx,
+                            gcap, leff, f"routed fine stage, nprobe {nprobe}",
+                            plans[1].blocks[0])
+                sizes = router.group_sizes
+                pair_rows = int(sizes[cidx.long()].sum())
+                group_rows = int(sizes[torch.unique(cidx.long())].sum())
+                time_kernel(
+                    f"routed/nprobe{nprobe}/flash_probe_store",
+                    lambda c=cidx, l=leff, s=plans[1].blocks[0]:
+                    fp.flash_probe_store_raw(qr, table, sizes, c,
+                                             gcap, l, PAD, splits=s),
+                    lambda c=cidx, l=leff:
+                    fp.flash_probe_store_plain(qr, table, sizes, c,
+                                               gcap, l, PAD),
+                    H.scan_store_bytes(IVF_B, npc, gcap, dr, leff,
+                                       rows_read=group_rows),
+                    2.0 * pair_rows * dr + 2.0 * group_rows * dr,
+                    [IVF_B, npc, gcap, dr, leff],
+                    {"bound_query_rows_ms": H.scan_store_bytes(
+                        IVF_B, npc, gcap, dr, leff, rows_read=pair_rows)
+                     / HBM_BW * 1e3, "pair_rows": pair_rows,
+                     "group_rows": group_rows})
+        qs, ps = qr[:32], probe_s[:32].contiguous()
+        width_s = routed._gather_width(TOPK, nps)
+        arrays = flat.store.device_arrays()
+        if codec == "fp32":
+            store_check(qs, arrays[0], counts_s, ps, width_s, TOPK,
+                        f"routed bucket scan, {int((ps == kr).sum())} "
+                        f"sentinel cells")
+        else:
+            codes_r, _, scales_r, _ = arrays
+            q8_store_check(qs, codes_r, scales_r, counts_s, ps,
+                           flat.store.anchors_sentinel,
+                           width_s, routed._rescore_r(TOPK, nps, width_s),
+                           f"routed q8 proposal, {int((ps == kr).sum())} "
+                           f"sentinel cells")
+        rec_r["cells"].append(cell)
+        del flat, routed, table, probe_s, counts_s, ids_s, dd_s, arrays, qs
+        del ps
+    del cent, xr, qr, router, ids_truth
     torch.cuda.empty_cache()
 
     # ---- phase 6: full-probe exactness on a smaller index -----------------

@@ -98,9 +98,14 @@ class ChunkedKMeans:
     ``data`` is a host numpy array or CPU tensor (sliced into chunks of
     ``chunk_size`` rows), or a factory ``() -> Iterator`` of either, each
     chunk at most ``chunk_size`` rows (the tail may be smaller).
+
+    ``sample_every`` is taken for the reference's signature and ignored:
+    the reference times one chunk in ``sample_every`` on the host, the port
+    times every warm chunk with CUDA events on both streams.
     """
 
-    def __init__(self, cfg: KMeansConfig, chunk_size: int, *, device=None):
+    def __init__(self, cfg: KMeansConfig, chunk_size: int,
+                 sample_every: int = 8, *, device=None):
         if chunk_size < 1:
             raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
         self.cfg = cfg

@@ -484,3 +484,61 @@ def choose_rescore_mult(topk: int, d: int, cand: int, *,
     saved = max(0.0, float(cand) * (full_bytes - code_bytes))
     cap = max(1, int(saved // max(1.0, float(topk) * row_bytes)))
     return max(1, min(base, cap))
+
+
+# ---------------------------------------------------------------------------
+# the two-level router (the planner's "route" op)
+# ---------------------------------------------------------------------------
+
+# Smallest coarse level the route chooser returns, and the floor of a
+# group's capacity: the reference's sublane (8 rows of f32), kept so that
+# (K_c, nprobe_c) and the group capacity equal the reference's at every
+# shape.
+ROUTE_MIN_GROUPS = 8
+
+
+def route_group_cap(k: int, kc: int) -> int:
+    """Modeled fine centroids a coarse group holds (ref.
+    ``repro/core/heuristics.py:353``): the mean group size ``ceil(K /
+    K_c)`` with 2x slack for imbalance, rounded up to a power of two, at
+    least ``ROUTE_MIN_GROUPS``."""
+    mean = (k + kc - 1) // max(1, kc)
+    return max(ROUTE_MIN_GROUPS, _pow2_ceil(max(1, 2 * mean)))
+
+
+def probe_bytes_routed(n: int, k: int, kc: int, nprobe_c: int, gcap: int,
+                       d: int, l: int, b: int = 4) -> float:
+    """The routed probe: FlashProbe over the ``K_c`` coarse centroids (top
+    ``nprobe_c``), then the store scan over each query's ``nprobe_c``
+    groups of the router's ``(K_c, gcap, d)`` table, at most every slot of
+    every (query, group) pair (``scan_store_bytes``); the flat probe's
+    ``K d`` stream becomes ``K_c d`` plus the groups' rows. ``k`` is
+    unused and kept for the reference's signature."""
+    return (probe_bytes(n, kc, d, nprobe_c, b)
+            + scan_store_bytes(n, nprobe_c, gcap, d, l, b))
+
+
+def choose_coarse_nprobe(recall_target: float = 0.95) -> int:
+    """Coarse probe width for a recall target (ref. l.377), from the
+    exponential coverage model: the chance that a query's nearest fine
+    centroid lies outside its ``c`` nearest groups decays like ``exp(-c /
+    2)``, so ``c = ceil(-2 ln(1 - r))`` (0.95 -> 6, 0.99 -> 10)."""
+    r = min(max(float(recall_target), 0.0), 1.0 - 1e-9)
+    return max(1, int(math.ceil(-2.0 * math.log(1.0 - r))))
+
+
+def choose_route_params(k: int, nprobe: int, *,
+                        recall_target: float = 0.95) -> tuple[int, int]:
+    """Closed-form ``(K_c, nprobe_c)`` of the two-level router (ref.
+    l.387-405). A query scans ``K_c d`` coarse and ``nprobe_c (K / K_c) d``
+    fine values, least at ``K_c = sqrt(nprobe_c K)``, rounded to the
+    nearest power of two and clamped to ``[ROUTE_MIN_GROUPS, K // 2]``;
+    below ``2 ROUTE_MIN_GROUPS`` cells there is nothing to route and the
+    chooser answers ``(K, nprobe_c)``."""
+    npc = choose_coarse_nprobe(recall_target)
+    if k < 2 * ROUTE_MIN_GROUPS:
+        return max(1, k), min(npc, max(1, k))
+    ideal = (npc * k) ** 0.5
+    kc = 1 << max(0, int(round(math.log2(max(1.0, ideal)))))
+    kc = max(ROUTE_MIN_GROUPS, min(kc, k // 2))
+    return kc, min(npc, kc, max(1, nprobe))

@@ -1,10 +1,10 @@
 """KernelPlanner — one cache-aware planning layer for every kernel dispatch.
 
 Port of ``repro/core/plan.py`` for the k-means ops (``assign``, ``update``,
-``step``) and the FlashProbe ops (``probe``, ``scan``, ``scan_q8``,
+``step``), the FlashProbe ops (``probe``, ``scan``, ``scan_q8``,
 ``rescore``, and the port's ``scan_store`` and ``scan_q8_store``, the
-posting-list scans that read the fp32 and the quantized store; the
-reference's ``route`` waits for the two-level router). The closed-form
+posting-list scans that read the fp32 and the quantized store) and
+``route``, the two-level router's geometry. The closed-form
 math lives in ``core.heuristics``; this module owns the plan contract
 (``plan(op, shape, dtype) -> KernelPlan``, with the shared-memory
 footprint and modeled HBM bytes attached), the cache layers and hardware
@@ -44,14 +44,16 @@ CACHE_VERSION = 1
 PACKAGE = "repro_torch"
 
 OPS = ("assign", "update", "step", "probe", "scan", "scan_store", "scan_q8",
-       "scan_q8_store", "rescore")
+       "scan_q8_store", "route", "rescore")
 _ARITY = {"assign": 3, "update": 3, "step": 3, "probe": 4, "scan": 4,
-          "scan_store": 5, "scan_q8": 4, "scan_q8_store": 5, "rescore": 4}
+          "scan_store": 5, "scan_q8": 4, "scan_q8_store": 5, "route": 4,
+          "rescore": 4}
 # batch-like shape positions, bucketed to the next power of two; geometry
 # dims (k, d, l, nprobe, width) stay exact
 _BUCKET_DIMS = {"assign": (0,), "update": (0,), "step": (0,),
                 "probe": (0,), "scan": (0, 1), "scan_store": (0,),
-                "scan_q8": (0, 1), "scan_q8_store": (0,), "rescore": (0, 1)}
+                "scan_q8": (0, 1), "scan_q8_store": (0,), "route": (0,),
+                "rescore": (0, 1)}
 
 
 def bucket_dim(v: int) -> int:
@@ -134,8 +136,9 @@ class KernelPlan:
                           # "store_scan_list" |
                           # scan_q8: "grouped_scan_q8" |
                           # scan_q8_store: "store_scan_q8_cell" /
-                          # "store_scan_q8_list"
-    blocks: tuple
+                          # "store_scan_q8_list" | route: "two_level" /
+                          # "flat"
+    blocks: tuple         # route: (K_c, nprobe_c), not tiles
     block: BlockConfig | None   # None for the probe ops
     smem_bytes: int
     smem_limit: int
@@ -217,7 +220,8 @@ class KernelPlanner:
         """Plan one dispatch. ``shape`` is ``(n, k, d)`` for the k-means
         ops, ``(n, k, d, l)`` for ``probe``, ``(b, c, d, l)`` for
         ``scan``/``scan_q8`` and ``(b, nprobe, width, d, l)`` for
-        ``scan_store``; ``dtype`` a torch dtype or an itemsize.
+        ``scan_store``, ``(b, k, d, nprobe)`` for ``route``; ``dtype`` a
+        torch dtype or an itemsize.
         ``rescore`` (the q8 rescore fed by the device cache) takes the
         ``scan`` shape and kernel; only its modeled bytes add the cache
         gather (ref. ``repro/core/plan.py:408-421``).
@@ -357,6 +361,8 @@ class KernelPlanner:
             return self._store_plan(s, b)
         if op == "scan_q8_store":
             return self._store_q8_plan(s)
+        if op == "route":
+            return self._route_plan(s, b)
         n, k, d = s
         cfg = blk if blk is not None else H.choose_blocks(
             n, k, d, dtype_bytes=b, hw=hw)
@@ -457,6 +463,29 @@ class KernelPlanner:
                           smem_bytes=smem, smem_limit=hw.smem_block_bytes,
                           hbm_bytes=H.scan_q8_store_bytes(n, nprobe, width,
                                                           d, l))
+
+    def _route_plan(self, s: tuple, b: int) -> KernelPlan:
+        """The two-level router's geometry for a K-cell index probed at
+        depth ``nprobe`` (ref. ``repro/core/plan.py:377-394``): ``blocks =
+        (K_c, nprobe_c)`` from ``choose_route_params``, ``impl``
+        ``"two_level"`` where the routed probe's modeled bytes (at the
+        modeled group capacity ``route_group_cap``) are below the flat
+        probe's, else ``"flat"``. The coarse and fine stages take their
+        own plans as ``probe`` and ``scan_store`` ops at the routed shapes;
+        ``smem_bytes`` is the coarse probe's."""
+        H, hw = heuristics, self.hw
+        n, k, d, nprobe = s
+        kc, npc = H.choose_route_params(k, nprobe)
+        gcap = H.route_group_cap(k, kc)
+        flat = H.probe_bytes(n, k, d, nprobe, b)
+        routed = H.probe_bytes_routed(n, k, kc, npc, gcap, d, nprobe, b)
+        coarse = self._probe_plan("probe", (n, kc, d, npc), b)
+        return KernelPlan(op="route", shape=s, itemsize=b, hw=hw.name,
+                          impl="two_level" if routed < flat else "flat",
+                          blocks=(kc, npc), block=None,
+                          smem_bytes=coarse.smem_bytes,
+                          smem_limit=hw.smem_block_bytes,
+                          hbm_bytes=min(routed, flat))
 
     def _store(self, plan: KernelPlan, key: str, pinned: bool) -> None:
         """Memoize ``plan``; an un-pinned step plan also fills its assign

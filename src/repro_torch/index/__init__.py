@@ -12,17 +12,18 @@ Public API:
   posting-list storage (``index/store.py``); DeviceRescoreCache — the q8
   rescore's rows in device memory (``index/rescore_cache.py``,
   ``rescore="device"``, the default); Fp32Codec / Int8ResidualCodec — the
-  payload codecs (``index/quant.py``); FlatRouter — the cell selection
-  (``index/router.py``).
+  payload codecs (``index/quant.py``); FlatRouter / TwoLevelRouter — the
+  cell selection (``index/router.py``, ``REPRO_ROUTER``).
 
-  index_from_numpy / index_to_numpy — carry an index's state across
-  packages (``index/bridge.py``).
+  index_from_numpy / index_to_numpy / router_from_numpy — carry an index's
+  state, its router's included, across packages (``index/bridge.py``).
 
-Not ported yet (ROADMAP.md, queue A): the paged store, the two-level
-router and the out-of-core build (item 4), snapshots (item 5), the sharded
-index and the sharded cache (item 6).
+Not ported yet (ROADMAP.md, queue A): the paged store (item 4b),
+snapshots and ``restore_router`` (item 5), the sharded index and the
+sharded cache (item 6).
 """
-from repro_torch.index.bridge import index_from_numpy, index_to_numpy
+from repro_torch.index.bridge import (index_from_numpy, index_to_numpy,
+                                      router_from_numpy)
 from repro_torch.index.ivf import IVFIndex, csr_from_assignments, recall_at_k
 from repro_torch.index.quant import (CODEC_KINDS, Codec, Fp32Codec,
                                      Int8ResidualCodec, default_codec_kind,
@@ -30,16 +31,20 @@ from repro_torch.index.quant import (CODEC_KINDS, Codec, Fp32Codec,
 from repro_torch.index.rescore_cache import (RESCORE_KINDS,
                                              DeviceRescoreCache,
                                              default_rescore_kind)
-from repro_torch.index.router import ROUTER_KINDS, FlatRouter, make_router
+from repro_torch.index.router import (ROUTER_KINDS, FlatRouter,
+                                      TwoLevelRouter, default_router_kind,
+                                      make_router)
 from repro_torch.index.store import (BucketStore, PaddedBucketStore,
                                      QuantizedBucketStore, RescoreReservoir,
-                                     make_quantized_store, make_store)
+                                     default_store_kind, make_quantized_store,
+                                     make_store)
 
 __all__ = ["IVFIndex", "csr_from_assignments", "recall_at_k",
-           "index_from_numpy", "index_to_numpy",
+           "index_from_numpy", "index_to_numpy", "router_from_numpy",
            "BucketStore", "PaddedBucketStore", "QuantizedBucketStore",
-           "RescoreReservoir", "make_store",
+           "RescoreReservoir", "default_store_kind", "make_store",
            "make_quantized_store", "CODEC_KINDS", "Codec", "Fp32Codec",
            "Int8ResidualCodec", "default_codec_kind", "make_codec",
-           "ROUTER_KINDS", "FlatRouter", "make_router",
+           "ROUTER_KINDS", "FlatRouter", "TwoLevelRouter",
+           "default_router_kind", "make_router",
            "RESCORE_KINDS", "DeviceRescoreCache", "default_rescore_kind"]

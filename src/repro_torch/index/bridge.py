@@ -6,7 +6,10 @@ keys of the reference's snapshot format), ``n_total``, the committed and
 pending ``SufficientStats`` as ``(sums, counts, inertia)`` and, for a q8
 store with a device rescore cache, the cache's state (``CACHE_KEYS``:
 ``keys``, ``rows``, ``ref``, ``hand``, ``sets``, ``ways``, ``max_bytes``,
-``inserted``), so a budgeted cache crosses with its eviction state.
+``inserted``), so a budgeted cache crosses with its eviction state, and
+the router as ``{"meta": router.meta(), "arrays": router.state_arrays()}``
+(the reference's snapshot keys; ``router_from_numpy``), so both packages
+search over one coarse level (their trainings draw from different RNGs).
 ``index_to_numpy`` gives the same state back from the port's index. The
 JAX side converts with ``np.asarray``; neither package is imported here.
 """
@@ -20,6 +23,7 @@ from repro_torch.core.streaming import SufficientStats
 from repro_torch.index import store as _store
 from repro_torch.index.ivf import IVFIndex
 from repro_torch.index.rescore_cache import DeviceRescoreCache
+from repro_torch.index.router import FlatRouter, TwoLevelRouter
 
 CACHE_KEYS = ("keys", "rows", "ref", "hand", "sets", "ways", "max_bytes",
               "inserted")
@@ -31,16 +35,35 @@ def _stats(t, device) -> SufficientStats:
     return SufficientStats(sums, counts, inertia)
 
 
+def router_from_numpy(state: dict | None, *, device=None, planner=None):
+    """A router from ``{"meta", "arrays"}`` (a router's ``meta()`` and
+    ``state_arrays()``, either package's); None or a flat meta gives the
+    flat router, as the reference's ``restore_router`` does
+    (``device=None`` means ``"cuda"``)."""
+    meta = (state or {}).get("meta") or {}
+    if meta.get("kind", "flat") == "flat":
+        return FlatRouter()
+    arrays = state["arrays"]
+    return TwoLevelRouter(
+        np.array(arrays["router_coarse"], np.float32),   # writable copies
+        np.array(arrays["router_owner"], np.int32),
+        nprobe_c=int(meta["nprobe_c"]),
+        retrain_every=int(meta.get("retrain_every", 8)),
+        refreshes_since_train=int(meta.get("refreshes_since_train", 0)),
+        planner=planner, device=device)
+
+
 def index_from_numpy(centroids, store_arrays: dict, store_meta: dict, *,
                      n_total: int, stats, pending, cache: dict | None = None,
-                     device=None, planner=None,
+                     router: dict | None = None, device=None, planner=None,
                      rescore_mult: "int | str" = 4) -> IVFIndex:
     """The port's index over the given state (``device=None`` means
     ``"cuda"``, as every entry point). A q8 store's reservoir comes back
     as the durable host tier. Its device rescore cache is the carried
     ``cache`` state when given; otherwise the manifest's ``rescore_cache``
     entry rebuilds it and it re-warms from the reservoir, as a snapshot
-    restore does."""
+    restore does. ``router``: the carried router state
+    (``router_from_numpy``; None: the flat router)."""
     centroids = np.array(centroids, np.float32)    # a writable copy
     k, d = centroids.shape
     host = {key: np.asarray(v) for key, v in store_arrays.items()}
@@ -49,9 +72,10 @@ def index_from_numpy(centroids, store_arrays: dict, store_meta: dict, *,
     store = _restore_store(host, meta, k, d, device)
     if cache is not None:
         store.cache = _cache_from_numpy(cache, d, store.device)
+    rt = router_from_numpy(router, device=store.device, planner=planner)
     index = IVFIndex(centroids, int(store_meta["cap"]), device=device,
                      planner=planner, rescore_mult=rescore_mult,
-                     store=store)
+                     store=store, router=rt)
     index.n_total = int(n_total)
     index.stats = _stats(stats, index.device)
     index._pending = _stats(pending, index.device)
@@ -96,11 +120,14 @@ def _restore_store(host: dict, meta: dict, k: int, d: int, device):
 
 def index_to_numpy(index: IVFIndex) -> dict:
     """``{"centroids", "store_arrays", "store_meta", "n_total", "stats",
-    "pending", "cache"}`` of the port's index, as host numpy (``cache``:
-    ``cache_to_numpy`` of the store's device rescore cache)."""
+    "pending", "cache", "router"}`` of the port's index, as host numpy
+    (``cache``: ``cache_to_numpy`` of the store's device rescore cache;
+    ``router``: its ``meta()`` and ``state_arrays()``)."""
     host = lambda st: tuple(t.cpu().numpy() for t in st)
     return {"centroids": index.centroids.float().cpu().numpy(),
             "store_arrays": index.store.state_arrays(),
             "store_meta": index.store.meta(), "n_total": index.n_total,
             "stats": host(index.stats), "pending": host(index._pending),
-            "cache": cache_to_numpy(getattr(index.store, "cache", None))}
+            "cache": cache_to_numpy(getattr(index.store, "cache", None)),
+            "router": {"meta": index.router.meta(),
+                       "arrays": index.router.state_arrays()}}

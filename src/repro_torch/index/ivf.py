@@ -1,7 +1,7 @@
 """FlashIVF — an online IVF vector-search index on the port's kernels.
 
-Port of ``repro/index/ivf.py`` for one device, the ``padded`` store, the
-``flat`` router and both codecs:
+Port of ``repro/index/ivf.py`` for one device, the ``padded`` store, both
+routers and both codecs:
 
 - **train** — ``build`` fits the coarse centroids with the port's
   ``KMeans`` (init from a ``torch.Generator`` seeded with ``seed``, so the
@@ -19,6 +19,17 @@ Port of ``repro/index/ivf.py`` for one device, the ``padded`` store, the
   card (``rescore="device"``, the default: no host read on the search
   path) or from the host ``RescoreReservoir`` (``rescore="host"``, the
   parity oracle);
+- **route** — the router (``index/router.py``) picks each query's
+  ``nprobe`` cells from its view of the index's centroids, which the index
+  keeps until they move or the router re-groups them. With
+  ``router="two_level"`` a coarse FlashProbe picks each query's
+  ``nprobe_c`` nearest groups and the store scan reads those groups' fine
+  centroids in place in that view, a ``(K_c, gcap, d)`` table (the
+  reference gathers a ``(B, nprobe_c * gcap, d)`` block of them); a query
+  with fewer candidates than ``nprobe`` gets the sentinel cell ``K``. The
+  bucket scans read ``K`` as a cell with no rows (the store's
+  ``counts_sentinel`` and ``anchors_sentinel``), so its slots score as
+  padding, with id -1;
 - **online** — ``add`` assigns with FlashAssign, appends in CSR order and
   folds the batch statistics into pending ``SufficientStats``;
   ``refresh`` commits them and re-centers the centroids, O(K d).
@@ -27,8 +38,8 @@ The out-of-core build (``build(chunk_size=)``) trains with
 ``ChunkedKMeans`` and inverts the chunk stream through ``add``.
 
 Not ported yet (ROADMAP.md, queue A): ``pctx`` (the sharded index, item
-6), the paged store, the two-level router and ``nprobe_c`` (item 4), fault
-injection, ``save`` and ``load`` (item 5). Each raises
+6), the paged store (item 4b), fault injection, ``save`` and ``load``
+(item 5). Each raises
 ``NotImplementedError``. ``IVFIndex`` runs on the card unless it is asked
 for the CPU: ``device=None`` means ``"cuda"`` and raises when no CUDA
 device is present.
@@ -52,7 +63,7 @@ from repro_torch.kernels import ops, ref
 _PAD_COORD = _store._PAD_COORD
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
+def _not_ported(what: str, item) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
                                f"queue A item {item})")
 
@@ -106,45 +117,58 @@ def _slots(probe: torch.Tensor, li: torch.Tensor, width: int
     return cell, li % width
 
 
-def _ivf_search(q, centroids, c_sq, store_arrays, counts, *, topk: int,
-                nprobe: int, width: int, probe_plan=None, scan_plan=None
+def _scan_cells(q, probe, store_arrays, counts, *, topk: int, width: int,
+                plan=None, k: int | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Two-stage search: FlashProbe over the centroids picks the cells,
-    the store scan keeps each query's top-k of their ``width`` slots
-    (probe-rank-major index ``p * width + w``), and the ids are looked up
-    at those (B, topk) slots. The plans are ``IVFIndex.plan_search``'s
-    (None: the default planner's)."""
-    probe, _ = ops.flash_probe(q, centroids.to(q.dtype), l=nprobe,
-                               plan=probe_plan, want_dists=False, c_sq=c_sq)
+    """The posting-list scan: the store scan keeps each query's top-k of
+    its probed cells' ``width`` slots (probe-rank-major index ``p * width +
+    w``), and the ids are looked up at those (B, topk) slots. ``k``: the
+    sentinel cell a routed probe list may hold (``counts`` then has K + 1
+    entries, the last 0): its slots score as padding and take id -1."""
     buckets, bucket_ids = store_arrays
     li, dist = ops.flash_probe_store(q, buckets, counts, probe, width=width,
-                                     l=topk, pad=_PAD_COORD, plan=scan_plan)
-    return bucket_ids[_slots(probe, li, width)], dist
+                                     l=topk, pad=_PAD_COORD, plan=plan)
+    cell, w = _slots(probe, li, width)
+    if k is None:
+        return bucket_ids[cell, w], dist
+    return torch.where(cell < k, bucket_ids[cell.clamp(max=k - 1), w],
+                       -1), dist
 
 
-def _q8_propose(q, centroids, c_sq, store_arrays, counts, *, r: int,
-                nprobe: int, width: int, probe_plan=None, scan_plan=None
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Phase 1 of two-phase search on a quantized store: probe, then scan
-    the probed cells' int8 codes and scales in place in the residual frame
-    ``q' = q - anchor[cell]`` (the kernel's distance is then the true
+def _q8_scan(q, probe, store_arrays, counts, *, r: int, width: int,
+             plan=None, k: int | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Phase 1 of two-phase search on a quantized store, past the probe:
+    scan the probed cells' int8 codes and scales in place in the residual
+    frame ``q' = q - anchor[cell]`` (the kernel's distance is then the true
     quantized one; the reference gathers a candidate block first, with the
     same result). Returns the top-``r`` ids (-1 where fewer than ``r``
     live candidates exist) and their dequantized rows, the rescore's
     fallback for ids the reservoir does not hold, decoded for those (B,
-    r) proposals only."""
-    probe, _ = ops.flash_probe(q, centroids.to(q.dtype), l=nprobe,
-                               plan=probe_plan, want_dists=False, c_sq=c_sq)
+    r) proposals only. ``k``: the sentinel cell, as in ``_scan_cells``
+    (``anchors`` then has K + 1 rows); its slots score ``+inf`` (id -1,
+    padding rows)."""
     codes, bucket_ids, scales, anchors = store_arrays
     li, val = ops.flash_probe_store_q8(q, codes, scales, counts, probe,
-                                       anchors, width=width, l=r,
-                                       plan=scan_plan)
+                                       anchors, width=width, l=r, plan=plan)
     cell, w = _slots(probe, li, width)
+    if k is not None:
+        cell = cell.clamp(max=k - 1)
     ids = torch.where(torch.isfinite(val), bucket_ids[cell, w],
                       torch.full_like(val, -1, dtype=torch.int32))
     deq = (anchors[cell]
            + codes[cell, w].float() * scales[cell, w].unsqueeze(-1))
     return ids, deq
+
+
+def _q8_propose(q, centroids, c_sq, store_arrays, counts, *, r: int,
+                nprobe: int, width: int, probe_plan=None, scan_plan=None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Phase 1 on the flat router: probe, then ``_q8_scan``."""
+    probe = _router.probe_cells(q, centroids, c_sq, nprobe=nprobe,
+                                plan=probe_plan)
+    return _q8_scan(q, probe, store_arrays, counts, r=r, width=width,
+                    plan=scan_plan)
 
 
 def _rescore_rows(deq, ids, res_rows, found) -> torch.Tensor:
@@ -184,6 +208,9 @@ class IVFIndex:
     ``rescore_bytes`` budgets the rescore reservoir and the device cache
     (None = unbounded); ``rescore`` picks the rescore's row source
     (``"device"``, ``"host"``; None = ``REPRO_RESCORE``, else device).
+    ``router`` picks how a search finds its ``nprobe`` cells (``"flat"``,
+    ``"two_level"``, a router instance; None = ``REPRO_ROUTER``, else
+    flat); a two-level router trains here over the centroids.
     """
 
     def __init__(self, centroids, capacity: int, *,
@@ -198,8 +225,8 @@ class IVFIndex:
         if pctx is not None:
             raise _not_ported("a sharded IVFIndex (pctx)", 6)
         if page_size is not None or store_bytes is not None:
-            raise _not_ported("the paged store (page_size, store_bytes)", 4)
-        _router.make_router(router)   # only the flat router is ported
+            raise _not_ported("the paged store (page_size, store_bytes)",
+                              "4b")
         self.device = resolve_device(device)
         centroids = _as_float(centroids, self.device)
         k, d = centroids.shape
@@ -239,7 +266,11 @@ class IVFIndex:
         self.planner = planner if planner is not None \
             else _plan.default_planner(self.device)
         self._cnorms: torch.Tensor | None = None   # ||c||^2, per centroid set
+        self._view: tuple | None = None   # (router version, router's view)
         self._search_plans: dict[tuple, tuple] = {}
+        self.router = _router.make_router(router, self.centroids,
+                                          planner=self.planner,
+                                          device=self.device)
 
     # ------------------------------------------------------------------
     # store views
@@ -411,7 +442,9 @@ class IVFIndex:
         self.centroids = self.stats.finalize(self.centroids)
         if repair_dead:
             self.reseeded_cells += self._repair_dead_cells()
-        self._cnorms = None   # centroids moved: the ||c||^2 cache is stale
+        self._cnorms = self._view = None   # centroids moved: both stale
+        # the router's groups follow the moved centroids (ref. l.905-909)
+        self.router.refresh(self.centroids)
         return self
 
     def _repair_dead_cells(self, eps: float = 1e-3) -> int:
@@ -479,22 +512,29 @@ class IVFIndex:
         the host-reservoir path)."""
         return getattr(self.store, "cache", None)
 
-    @staticmethod
-    def _check_nprobe_c(nprobe_c) -> None:
-        if nprobe_c is not None:
-            raise _not_ported("nprobe_c (the two-level router's coarse "
-                              "probe)", 4)
+    def _route_view(self):
+        """The router's view of this index's centroids (the flat router's
+        ``(centroids, ||c||^2)``, the two-level router's fine table), kept
+        until ``refresh`` moves the centroids or the router re-groups
+        them."""
+        version = self.router.version
+        if self._view is None or self._view[0] != version:
+            self._view = (version, self.router.view(
+                self.centroids.to(self.dtype), self._centroid_norms()))
+        return self._view[1]
 
     def search_geometry(self, topk: int = 10, nprobe: int = 8,
                         nprobe_c: int | None = None) -> tuple:
         """Changes exactly when the planned search would re-key (ref.
         l.1002-1018): the store's occupancy crossed a ``gather_width``
-        bucket, or the device rescore cache grew its table."""
-        self._check_nprobe_c(nprobe_c)
+        bucket, a re-grouping of the two-level router crossed a ``gcap``
+        bucket or moved the effective coarse width, or the device rescore
+        cache grew its table."""
         nprobe = min(nprobe, self.k)
         cache = self._rescore_cache()
         cfp = cache.fingerprint() if cache is not None else ()
-        return (nprobe, topk, self._gather_width(topk, nprobe)) + cfp
+        return ((nprobe, topk, self._gather_width(topk, nprobe))
+                + self.router.fingerprint(nprobe, nprobe_c) + cfp)
 
     def _rescore_r(self, topk: int, nprobe: int, width: int) -> int:
         """Phase-1 proposal depth: ``rescore_mult * topk`` (or the
@@ -519,21 +559,25 @@ class IVFIndex:
         store scan)`` on an fp32 store and ``(probe, q8 store scan,
         rescore scan)`` on a q8 store, the rescore planned as ``"rescore"``
         with a device cache and as ``"scan"`` on the host path (ref.
-        l.1119-1123; the same kernel either way). Cached per ``(b, nprobe,
-        topk, width)`` plus the cache's fingerprint; ``width`` is the
-        store's gather-width bucket, so occupancy growth re-keys.
+        l.1119-1123; the same kernel either way). Under the two-level
+        router the probe gives way to two plans, the coarse ``probe`` at
+        ``(b, K_c, d, nprobe_c)`` and the fine ``scan_store`` at ``(b,
+        nprobe_c, gcap, d, leff)`` (ref. l.1093-1103). Cached per ``(b,
+        nprobe, topk, width)`` plus the router's fingerprint and the
+        cache's; ``width`` is the store's gather-width bucket, so occupancy
+        growth re-keys, as does a ``gcap`` bucket.
         """
-        self._check_nprobe_c(nprobe_c)
         nprobe = min(nprobe, self.k)
         width = self._gather_width(topk, nprobe)
+        rfp = self.router.fingerprint(nprobe, nprobe_c)
         cache = self._rescore_cache()
         cfp = cache.fingerprint() if cache is not None else ()
-        geom = (int(b), nprobe, int(topk), width) + cfp
+        geom = (int(b), nprobe, int(topk), width) + rfp + cfp
         plans = self._search_plans.get(geom)
         if plans is None:
             dt = self.dtype
-            head = self.planner.plan("probe", (b, self.k, self.d, nprobe),
-                                     dt)
+            head = self.router.probe_plans(self.planner, b, self.k, self.d,
+                                           nprobe, nprobe_c, dt)
             if self.store.codec_kind != "fp32":
                 r = self._rescore_r(topk, nprobe, width)
                 q8 = self.planner.plan(
@@ -542,11 +586,11 @@ class IVFIndex:
                 rescore = self.planner.plan(
                     "scan" if cache is None else "rescore",
                     (int(b), r, self.d, min(topk, r)), torch.float32)
-                plans = (head, q8, rescore)
+                plans = (*head, q8, rescore)
             else:
                 scan = self.planner.plan(
                     "scan_store", (b, nprobe, width, self.d, topk), dt)
-                plans = (head, scan)
+                plans = (*head, scan)
             self._search_plans[geom] = plans
         return plans
 
@@ -556,9 +600,10 @@ class IVFIndex:
         """Batched top-k search. q: (B, d) -> (ids (B, topk) int32,
         sq_dists f32 (B, topk)), ascending; ids of unfilled slots are -1.
         ``nprobe = k`` probes every cell: the result is the brute-force
-        top-k over all indexed vectors. ``nprobe_c`` belongs to the
-        two-level router: only ``None`` is taken."""
-        self._check_nprobe_c(nprobe_c)
+        top-k over all indexed vectors, on the two-level router too (its
+        coarse width grows with ``nprobe`` to every group). ``nprobe_c``
+        sets the two-level router's coarse width; the flat router ignores
+        it."""
         q = torch.as_tensor(q).to(device=self.device, dtype=self.dtype)
         nprobe = min(nprobe, self.k)
         cand = nprobe * self.cap
@@ -567,16 +612,24 @@ class IVFIndex:
                 f"topk={topk} exceeds the probed candidate pool "
                 f"nprobe*cap={cand}; raise nprobe or capacity")
         if self.store.codec_kind != "fp32":
-            return self._search_q8(q, topk, nprobe)
-        st = self.store
+            return self._search_q8(q, topk, nprobe, nprobe_c)
         width = self._gather_width(topk, nprobe)
-        pp, sp = self.plan_search(q.shape[0], topk, nprobe)
-        return _ivf_search(q, self.centroids, self._centroid_norms(),
-                           st.device_arrays(), st.counts, topk=topk,
-                           nprobe=nprobe, width=width, probe_plan=pp,
-                           scan_plan=sp)
+        *head, sp = self.plan_search(q.shape[0], topk, nprobe, nprobe_c)
+        probe = self._probe(q, nprobe, nprobe_c, head)
+        return _scan_cells(q, probe, self.store.device_arrays(),
+                           self.store.counts_sentinel, topk=topk,
+                           width=width, plan=sp, k=self.k)
 
-    def _search_q8(self, q: torch.Tensor, topk: int, nprobe: int
+    def _probe(self, q: torch.Tensor, nprobe: int, nprobe_c: int | None,
+               head) -> torch.Tensor:
+        """The router's ``(B, nprobe)`` int32 cells in ``[0, K]``, where
+        ``K`` is the sentinel cell (a two-level router's, where a query
+        has fewer candidates). ``head``: ``plan_search``'s probe plans."""
+        return self.router.cells(q, self._route_view(), nprobe=nprobe,
+                                 nprobe_c=nprobe_c, plans=head)
+
+    def _search_q8(self, q: torch.Tensor, topk: int, nprobe: int,
+                   nprobe_c: int | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
         """Two-phase search on a quantized store: propose the top-``R``
         from the int8 payload, then rescore those ``R`` rows at full
@@ -591,11 +644,13 @@ class IVFIndex:
         st = self.store
         width = self._gather_width(topk, nprobe)
         r = self._rescore_r(topk, nprobe, width)
-        pp, qp, rp = self.plan_search(q.shape[0], topk, nprobe)
-        ids, deq = _q8_propose(q, self.centroids, self._centroid_norms(),
-                               st.device_arrays(), st.counts, r=r,
-                               nprobe=nprobe, width=width, probe_plan=pp,
-                               scan_plan=qp)
+        *head, qp, rp = self.plan_search(q.shape[0], topk, nprobe, nprobe_c)
+        probe = self._probe(q, nprobe, nprobe_c, head)
+        codes, bucket_ids, scales, _ = st.device_arrays()
+        ids, deq = _q8_scan(q, probe,
+                            (codes, bucket_ids, scales, st.anchors_sentinel),
+                            st.counts_sentinel, r=r, width=width, plan=qp,
+                            k=self.k)
         if self._rescore_cache() is not None:
             rows, found = cache_lookup(*st.cache_arrays(), ids)
             return _rescore_body(q, deq, ids, rows, found, topk=topk,
@@ -648,6 +703,8 @@ class IVFIndex:
     def __repr__(self) -> str:
         codec = (f", codec={self.store.codec_kind}"
                  if self.store.codec_kind != "fp32" else "")
+        rout = (f", router={self.router.kind}"
+                if self.router.kind != "flat" else "")
         return (f"IVFIndex(k={self.k}, d={self.d}, n={self.n_total}, "
-                f"cap={self.cap}, store={self.store.kind}{codec}, "
+                f"cap={self.cap}, store={self.store.kind}{codec}{rout}, "
                 f"device={self.device})")

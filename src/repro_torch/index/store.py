@@ -10,13 +10,17 @@ wraps a padded store of int8 codes with a per-slot f32 scale sidecar
 ``RescoreReservoir`` of original rows (the durable tier) and, with
 ``rescore="device"`` (the default), the ``DeviceRescoreCache``.
 
-Not ported yet (ROADMAP.md, queue A item 4): the paged store
-(``kind="paged"`` raises ``NotImplementedError``). Unlike the JAX package
+``kind=None`` takes ``default_store_kind()`` (``REPRO_BUCKET_STORE``, else
+``"padded"``), as in the reference. Not ported yet (ROADMAP.md, queue A
+item 4b): the paged store (``kind="paged"``, given or from the
+environment, raises ``NotImplementedError``). Unlike the JAX package
 the port updates its tensors in place, and
 ``dense``/``flat`` return tensors on the store's device; ``state_arrays``
 and ``meta`` give the snapshot format's numpy arrays and keys.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -32,8 +36,10 @@ from repro_torch.index.rescore_cache import (RESCORE_KINDS,
 # reading those slots (``ops.flash_probe_store``'s ``pad``).
 _PAD_COORD = 1e15
 
-_NOT_PORTED = ("is not ported yet (ROADMAP.md, queue A item 4: the paged "
-               "store and the two-level router)")
+STORE_KINDS = ("padded", "paged")
+
+_NOT_PORTED = ("is not ported yet (ROADMAP.md, queue A item 4b: the paged "
+               "store)")
 
 
 def _round_up(v: int, mult: int) -> int:
@@ -58,8 +64,18 @@ def _sublane_min(dtype: torch.dtype) -> int:
     return max(8, 32 // max(1, dtype.itemsize))
 
 
+def default_store_kind() -> str:
+    """The process-wide default backend (``REPRO_BUCKET_STORE``, else
+    ``"padded"``), read as the reference reads it."""
+    kind = os.environ.get("REPRO_BUCKET_STORE", "padded").strip().lower()
+    if kind not in STORE_KINDS:
+        raise ValueError(f"REPRO_BUCKET_STORE={kind!r}: "
+                         f"expected one of {STORE_KINDS}")
+    return kind
+
+
 def _resolve_kind(kind: str | None) -> str:
-    kind = kind or "padded"
+    kind = kind or default_store_kind()
     if kind == "paged":
         raise NotImplementedError(f"store kind 'paged' {_NOT_PORTED}")
     if kind != "padded":
@@ -69,7 +85,7 @@ def _resolve_kind(kind: str | None) -> str:
 
 def make_store(kind: str | None, k: int, d: int, dtype, *, capacity: int = 8,
                max_cap: int | None = None, device=None) -> "BucketStore":
-    """A posting-list store (``kind=None`` means ``"padded"``)."""
+    """A posting-list store (``kind=None``: ``default_store_kind()``)."""
     _resolve_kind(kind)
     return PaddedBucketStore(k, d, dtype, capacity=capacity, max_cap=max_cap,
                              device=device)
@@ -134,8 +150,7 @@ class BucketStore:
         self.max_cap = None if max_cap is None \
             else max(8, _round_up(max_cap, 8))
         self._counts_np = np.zeros(self.k, np.int64)
-        self.counts = torch.zeros((self.k,), dtype=torch.int32,
-                                  device=self.device)
+        self._upload_counts()
         self.spilled = 0
         self.evicted = 0
         self.spill_counts = np.zeros(self.k, np.int64)
@@ -146,11 +161,22 @@ class BucketStore:
             cells, minlength=self.k).astype(np.int64)
         self.spilled += int(cells.size)
 
+    def _upload_counts(self) -> None:
+        """Mirror the host counts on the device as ``counts_sentinel`` (K +
+        1,) int32, whose last entry, the sentinel cell ``K``, is always 0;
+        ``counts`` is the view of its first K. The routed search's probe
+        lists hold ``K`` where a query has fewer candidate cells than
+        ``nprobe``, and the store scans read that cell as one without
+        rows."""
+        self.counts_sentinel = torch.as_tensor(
+            np.append(self._counts_np, 0), dtype=torch.int32,
+            device=self.device)
+        self.counts = self.counts_sentinel[:self.k]
+
     def set_counts(self, v) -> None:
         """Test/repair seam: overwrite the logical list lengths."""
         self._counts_np = np.asarray(v).astype(np.int64)
-        self.counts = torch.as_tensor(self._counts_np, dtype=torch.int32,
-                                      device=self.device)
+        self._upload_counts()
 
     @property
     def max_count(self) -> int:
@@ -250,8 +276,7 @@ class PaddedBucketStore(BucketStore):
                 self.bucket_aux[cj, sj] = aux.float()
             self._counts_np += np.bincount(
                 cells, minlength=self.k).astype(np.int64)
-            self.counts = torch.as_tensor(self._counts_np, dtype=torch.int32,
-                                          device=self.device)
+            self._upload_counts()
 
     def _grow(self, needed: int) -> None:
         """Amortized doubling, clamped to the ``max_cap`` budget."""
@@ -516,8 +541,12 @@ class QuantizedBucketStore(BucketStore):
         self._inner = inner
         self.codec = codec
         self.device = inner.device
-        self.anchors = torch.as_tensor(anchors).to(device=self.device,
-                                                   dtype=torch.float32)
+        # anchors_sentinel (K + 1, d) ends in a zero row for the sentinel
+        # cell K (see ``_upload_counts``); ``anchors`` is its first K
+        a = torch.as_tensor(anchors).to(device=self.device,
+                                        dtype=torch.float32)
+        self.anchors_sentinel = torch.cat([a, a.new_zeros((1, a.shape[1]))])
+        self.anchors = self.anchors_sentinel[:a.shape[0]]
         self.reservoir = reservoir
         self.cache = cache              # DeviceRescoreCache | None
         self.dtype = logical_dtype      # what consumers feed us
@@ -526,6 +555,7 @@ class QuantizedBucketStore(BucketStore):
     kind = property(lambda self: self._inner.kind)
     codec_kind = property(lambda self: self.codec.kind)
     counts = property(lambda self: self._inner.counts)
+    counts_sentinel = property(lambda self: self._inner.counts_sentinel)
     max_count = property(lambda self: self._inner.max_count)
     max_cap = property(lambda self: self._inner.max_cap)
     capacity = property(lambda self: self._inner.capacity)
@@ -659,6 +689,11 @@ class QuantizedBucketStore(BucketStore):
         extra = 0 if self.cache is None else self.cache.resident_bytes()
         return self._inner.resident_bytes() + self.k * self.d * 4 + extra
 
+    def payload_bytes(self) -> int:
+        """Device bytes of the codes, ids and scales alone (ref. l.1247):
+        what compares with an fp32 store's ``resident_bytes``."""
+        return self._inner.resident_bytes()
+
     def __repr__(self):
         res = len(self.reservoir) if self.reservoir is not None else 0
         return (f"QuantizedBucketStore(codec={self.codec.kind}, "
@@ -683,12 +718,15 @@ def make_quantized_store(kind: str | None, k: int, d: int, dtype, *,
                          anchors, codec: str = "q8", capacity: int = 8,
                          max_cap: int | None = None,
                          rescore_bytes: int | None = None,
+                         reservoir: bool = True,
                          rescore: str | None = None,
                          device=None) -> QuantizedBucketStore:
     """Codec-wrapped padded store (ref. l.1265-1306) with a
-    ``RescoreReservoir`` under an optional byte budget (``rescore_bytes``)
-    and, for ``rescore="device"`` (``None``: ``REPRO_RESCORE``, else
-    device), a ``DeviceRescoreCache`` under the same budget."""
+    ``RescoreReservoir`` under an optional byte budget (``rescore_bytes``;
+    ``reservoir=False``: none, so the host rescore and ``dense()`` decode
+    the codes) and, for ``rescore="device"`` (``None``: ``REPRO_RESCORE``,
+    else device), a ``DeviceRescoreCache`` under the same budget, with or
+    without the reservoir, as in the reference."""
     from repro_torch.index.quant import make_codec
     cdc = make_codec(codec)
     _resolve_kind(kind)
@@ -698,7 +736,7 @@ def make_quantized_store(kind: str | None, k: int, d: int, dtype, *,
     cache = DeviceRescoreCache(d, max_bytes=rescore_bytes,
                                device=inner.device) \
         if rescore == "device" else None
-    return QuantizedBucketStore(inner, cdc, anchors,
-                                reservoir=RescoreReservoir(
-                                    d, max_bytes=rescore_bytes),
+    res = RescoreReservoir(d, max_bytes=rescore_bytes) if reservoir \
+        else None
+    return QuantizedBucketStore(inner, cdc, anchors, reservoir=res,
                                 cache=cache, logical_dtype=dtype)

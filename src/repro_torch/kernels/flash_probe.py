@@ -375,6 +375,20 @@ def store_geometry(nprobe: int, width: int, d: int, itemsize: int, l: int,
     return splits, chunk, lp, splits
 
 
+def _counts_ok(counts: torch.Tensor, k: int) -> bool:
+    """``counts`` of a store of K cells: (K,), or (K + 1,) whose last entry
+    is 0, so that ``probe`` may name the sentinel cell K, which holds no
+    rows (the two-level router's padding; not checked, it would cost a
+    device sync)."""
+    return counts.shape in ((k,), (k + 1,))
+
+
+def _gather_cells(p: torch.Tensor, k: int) -> torch.Tensor:
+    """Cells to gather the plain versions' blocks at: the sentinel K reads
+    cell K - 1, whose slots its count of 0 then marks dead."""
+    return p.clamp(max=k - 1)
+
+
 def flash_probe_store_plain(q: torch.Tensor, buckets: torch.Tensor,
                             counts: torch.Tensor, probe: torch.Tensor,
                             width: int, l: int, pad: float
@@ -384,7 +398,7 @@ def flash_probe_store_plain(q: torch.Tensor, buckets: torch.Tensor,
     its cell's count, then ``flash_probe_grouped_plain``."""
     b, nprobe = probe.shape
     p = probe.long()
-    cand = buckets[:, :width][p]                       # (B, nprobe, width, d)
+    cand = buckets[:, :width][_gather_cells(p, buckets.shape[0])]
     dead = (torch.arange(width, device=q.device)
             >= counts[p].unsqueeze(-1)).unsqueeze(-1)
     cand = torch.where(dead, torch.tensor(pad, dtype=cand.dtype), cand)
@@ -398,7 +412,8 @@ def flash_probe_store_raw(q: torch.Tensor, buckets: torch.Tensor,
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-l of each query's probed cells, read from the padded store: q
     (B, d), buckets (K, cap, d) of q's dtype, counts (K,) int32 (live
-    slots per cell), probe (B, nprobe) int32 cells, ``pad`` the store's
+    slots per cell; or (K + 1,), see ``_counts_ok``), probe (B, nprobe)
+    int32 cells, ``pad`` the store's
     padding coordinate (the value of every coordinate of a slot at or past
     its cell's count, which the kernel scores without reading). Query b's
     candidate ``p * width + w`` is ``buckets[probe[b, p], w]`` for ``w <
@@ -406,13 +421,14 @@ def flash_probe_store_raw(q: torch.Tensor, buckets: torch.Tensor,
     block, which this computes. Returns ``(indices int32 (B, l), scores f32
     (B, l))``, score ``||c||^2 - 2 q.c``. ``splits``: see
     ``store_geometry``. Precondition (not checked, it would cost a device
-    sync): probe lies in ``[0, K)``."""
+    sync): probe lies in ``[0, K)``, or ``[0, K]`` with K + 1 counts."""
     if (q.ndim != 2 or buckets.ndim != 3 or probe.ndim != 2
             or buckets.shape[2] != q.shape[1]
             or probe.shape[0] != q.shape[0]
-            or counts.shape != (buckets.shape[0],)):
+            or not _counts_ok(counts, buckets.shape[0])):
         raise ValueError(f"flash_probe_store: q (B, d), buckets (K, cap, d), "
-                         f"counts (K,), probe (B, nprobe) expected, got "
+                         f"counts (K,) or (K+1,), probe (B, nprobe) "
+                         f"expected, got "
                          f"{tuple(q.shape)}, {tuple(buckets.shape)}, "
                          f"{tuple(counts.shape)}, {tuple(probe.shape)}")
     b, d = q.shape
@@ -601,10 +617,10 @@ def _check_q8_store(who, qp, codes, scales, counts, probe, width, l):
     if (qp.ndim != 3 or codes.ndim != 3 or probe.ndim != 2
             or qp.shape[:2] != probe.shape or qp.shape[2] != codes.shape[2]
             or scales.shape != codes.shape[:2]
-            or counts.shape != (codes.shape[0],)):
+            or not _counts_ok(counts, codes.shape[0])):
         raise ValueError(f"{who}: qp (B, nprobe, d), codes (K, cap, d), "
-                         f"scales (K, cap), counts (K,), probe (B, nprobe) "
-                         f"expected, got {tuple(qp.shape)}, "
+                         f"scales (K, cap), counts (K,) or (K+1,), probe "
+                         f"(B, nprobe) expected, got {tuple(qp.shape)}, "
                          f"{tuple(codes.shape)}, {tuple(scales.shape)}, "
                          f"{tuple(counts.shape)}, {tuple(probe.shape)}")
     cap = codes.shape[1]
@@ -629,8 +645,9 @@ def flash_probe_store_q8_plain(qp: torch.Tensor, codes: torch.Tensor,
     cells' codes and scales, scale 0 on every slot at or past its cell's
     count, then ``flash_probe_grouped_q8_plain``."""
     p = probe.long()
-    blk_codes = codes[:, :width][p]                  # (B, nprobe, width, d)
-    blk_scales = scales[:, :width][p]                # (B, nprobe, width)
+    pc = _gather_cells(p, codes.shape[0])
+    blk_codes = codes[:, :width][pc]                 # (B, nprobe, width, d)
+    blk_scales = scales[:, :width][pc]               # (B, nprobe, width)
     dead = torch.arange(width, device=qp.device) >= counts[p].unsqueeze(-1)
     blk_scales = torch.where(dead, torch.zeros_like(blk_scales), blk_scales)
     return flash_probe_grouped_q8_plain(qp, blk_codes, blk_scales, l)
@@ -644,13 +661,15 @@ def flash_probe_store_q8_raw(qp: torch.Tensor, codes: torch.Tensor,
     """Quantized scan of each query's probed cells, read from the quantized
     store: qp (B, nprobe, d) f32 shifted queries ``q - anchor[probe]``,
     codes (K, cap, d) int8, scales (K, cap) f32 (0 on every dead slot),
-    counts (K,) int32, probe (B, nprobe) int32 cells. Query b's candidate
+    counts (K,) int32 (or (K + 1,), see ``_counts_ok``), probe (B, nprobe)
+    int32 cells. Query b's candidate
     ``p * width + w`` is slot w of cell ``probe[b, p]``: the index of
     ``flash_probe_grouped_q8_raw`` on the gathered block, which this
     computes bit for bit, +inf entries included. Returns ``(indices int32
     (B, l), distances f32 (B, l))``. ``splits``: see
     ``store_q8_geometry``. Precondition (not checked, it would cost a
-    device sync): probe lies in ``[0, K)``."""
+    device sync): probe lies in ``[0, K)``, or ``[0, K]`` with K + 1
+    counts."""
     who = "flash_probe_store_q8"
     _check_q8_store(who, qp, codes, scales, counts, probe, width, l)
     b, nprobe, d = qp.shape

@@ -348,7 +348,9 @@ def flash_probe_store(q: torch.Tensor, buckets: torch.Tensor,
     """The posting-list scan over the padded store, read in place. q (B,
     d), buckets (K, cap, d), counts (K,) int32, probe (B, nprobe) int32
     cells, ``pad`` the store's padding coordinate (held by every slot at or
-    past its cell's count), ``1 <= l <= nprobe * width``. Computes what
+    past its cell's count), ``1 <= l <= nprobe * width``. With counts of K
+    + 1 entries, the last 0, ``probe`` may hold the sentinel cell K, whose
+    slots all score as padding. Computes what
     ``flash_probe_grouped`` computes on the store's gathered ``(B, nprobe
     * width, d)`` block, without writing it: ``(indices int32 (B, l) into
     the probe-rank-major ``p * width + w`` axis, dists f32 (B, l))``
@@ -399,6 +401,8 @@ def flash_probe_store_q8(q: torch.Tensor, codes: torch.Tensor,
     counts (K,) int32, probe (B, nprobe) int32 cells, anchors (K, d) f32
     (the codes' encode-time centroids), ``1 <= l <= nprobe * width``. The
     shifted queries ``q' = q - anchors[probe]`` are the block path's own.
+    With counts of K + 1 entries, the last 0, and anchors of K + 1 rows,
+    ``probe`` may hold the sentinel cell K, whose slots all score ``+inf``.
     Computes what ``flash_probe_grouped_q8`` computes on the store's
     gathered block, without writing it: ``(indices int32 (B, l) into the
     probe-rank-major ``p * width + w`` axis, dists f32 (B, l))`` ascending,

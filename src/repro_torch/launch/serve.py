@@ -16,7 +16,8 @@ Not ported yet (ROADMAP.md, queue A), and refused with
 ``NotImplementedError``: ``--mode dense|clustered`` (items 7-8),
 ``--mesh`` (item 6), ``--health``, ``--snapshot-dir``,
 ``--snapshot-every``, ``--chaos-seed`` (item 5), ``--store paged``,
-``--page-size``, ``--router two_level`` (item 4).
+``--page-size`` (item 4b). ``--router two_level`` trains the two-level
+router over the built centroids and prints it.
 """
 from __future__ import annotations
 
@@ -43,9 +44,7 @@ def _refuse_unported(args) -> None:
         if given:
             raise _not_ported(f"{flag} (reliability)", "item 5")
     if args.store == "paged" or args.page_size is not None:
-        raise _not_ported("--store paged / --page-size", "item 4")
-    if args.router == "two_level":
-        raise _not_ported("--router two_level", "item 4")
+        raise _not_ported("--store paged / --page-size", "item 4b")
 
 
 def _serve_search(args) -> dict:
@@ -69,11 +68,13 @@ def _serve_search(args) -> dict:
     index = IVFIndex.build(x, k=args.kc, max_iters=args.kmeans_iters,
                            seed=args.seed, device=dev, store=args.store,
                            codec=args.codec, rescore_mult=rescore_mult,
-                           rescore=args.rescore)
+                           rescore=args.rescore, router=args.router)
     sync()
     t_build = time.perf_counter() - t0
     print(f"bucket store: {index.store!r} "
           f"({index.resident_bytes() / 1e6:.1f} MB resident)")
+    if index.router.kind != "flat":
+        print(f"router: {index.router!r}")
 
     eng = SearchEngine(index, SearchConfig(topk=args.topk,
                                            nprobe=args.nprobe,
@@ -131,7 +132,7 @@ def main(argv=None) -> dict:
                     help="posting-list backend (padded; paged is not "
                          "ported)")
     ap.add_argument("--page-size", type=int, default=None,
-                    help="not ported (item 4)")
+                    help="not ported (item 4b)")
     ap.add_argument("--codec", default=None, choices=["fp32", "q8"],
                     help="payload codec (default: REPRO_BUCKET_CODEC, else "
                          "fp32); q8 searches in two phases")
@@ -143,7 +144,8 @@ def main(argv=None) -> dict:
                          "device): the device cache, or the host "
                          "reservoir round trip")
     ap.add_argument("--router", default=None, choices=["flat", "two_level"],
-                    help="cell selection (flat; two_level is not ported)")
+                    help="cell selection (default: REPRO_ROUTER, else "
+                         "flat)")
     ap.add_argument("--snapshot-dir", default=None, help="not ported")
     ap.add_argument("--snapshot-every", type=int, default=0,
                     help="not ported")

@@ -51,7 +51,7 @@ _RELIABILITY = ("is not ported yet (ROADMAP.md, queue A item 5: the "
 class SearchConfig:
     topk: int = 10
     nprobe: int = 8
-    nprobe_c: int | None = None   # two-level router only (queue A item 4)
+    nprobe_c: int | None = None   # two-level router's coarse width
     query_batch: int = 256        # largest unit, and the top shape bucket
     pipeline_depth: int = 2       # most un-synced units in flight (1 = sync)
     refresh_every: int = 8        # adds between automatic refreshes

@@ -43,6 +43,26 @@ def _factory(x, size, as_tensor=False):
     return chunks
 
 
+@pytest.mark.parametrize("sample_every", [1, 8])
+def test_sample_every_is_taken_and_ignored(sample_every):
+    """The reference's signature ``ChunkedKMeans(cfg, chunk_size,
+    sample_every)`` builds the port's driver too (it times every warm chunk
+    with CUDA events, so the sampling rate has nothing to set), and the
+    iteration equals the reference's and the port's without it."""
+    x, c0 = _mixture()
+    ck = ChunkedKMeans(KMeansConfig(k=K, max_iters=1), 250, sample_every,
+                       device="cpu")
+    c1, j1 = ck.iterate(x, torch.from_numpy(c0))
+    c2, j2 = ChunkedKMeans(KMeansConfig(k=K, max_iters=1), 250,
+                           device="cpu").iterate(x, torch.from_numpy(c0))
+    assert torch.equal(c1, c2) and torch.equal(j1, j2)
+    jck = J.ChunkedKMeans(J.KMeansConfig(k=K, max_iters=1), 250,
+                          sample_every)
+    jc, jj = jck.iterate(x, jnp.asarray(c0))
+    np.testing.assert_allclose(c1.numpy(), np.asarray(jc), **TOL)
+    np.testing.assert_allclose(float(j1), float(jj), **TOL)
+
+
 @pytest.mark.parametrize("source", ["array", "tensor", "factory"])
 @pytest.mark.parametrize("chunk", [100, 250, 256, 1000, 5000])
 def test_iterate_matches_in_core_and_jax(chunk, source):

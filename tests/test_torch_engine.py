@@ -272,8 +272,11 @@ def test_unported_reliability_options_raise(corpus):
         eng.snapshot()
     with pytest.raises(NotImplementedError, match="queue A item 5"):
         SearchEngine.recover("snap")
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        SearchEngine(index, SearchConfig(nprobe_c=2))
+    # nprobe_c no longer raises (the two-level router is ported): the flat
+    # router takes it and ignores it, as the reference's does
+    eng = SearchEngine(index, SearchConfig(topk=5, nprobe=2, nprobe_c=2))
+    ids, _ = eng.search(x[:8])
+    assert torch.equal(ids, index.search(x[:8], topk=5, nprobe=2)[0])
 
 
 # --- the port's engine against the JAX package's -----------------------------
@@ -366,8 +369,21 @@ def test_launcher_serves_search_on_the_cpu(codec, capsys):
     (["--snapshot-dir", "snap"], "item 5"), (["--snapshot-every", "4"],
                                              "item 5"),
     (["--chaos-seed", "7"], "item 5"), (["--store", "paged"], "item 4"),
-    (["--page-size", "64"], "item 4"), (["--router", "two_level"], "item 4")])
+    (["--page-size", "64"], "item 4")])
 def test_launcher_refuses_what_is_not_ported(flags, item):
     from repro_torch.launch import serve
     with pytest.raises(NotImplementedError, match=f"queue A {item}"):
         serve.main(["--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("flags", [["--router", "two_level"]])
+def test_launcher_serves_the_routed_search(flags, capsys):
+    """``--router two_level`` (refused before the router was ported)
+    trains the router, prints it as the reference's launcher does and
+    serves through it."""
+    from repro_torch.launch import serve
+    out = serve.main(["--mode", "search", "--device", "cpu", "--n", "3000",
+                      "--d", "16", "--kc", "32", "--queries", "40",
+                      "--nprobe", "16", "--reps", "1", *flags])
+    assert out["recall"] >= 0.9 and out["qps"] > 0
+    assert "router: TwoLevelRouter(K_c=16, K=32" in capsys.readouterr().out

@@ -324,16 +324,149 @@ def test_index_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 # the device rescore cache is ported; a cache sharded over a mesh is not
-@pytest.mark.parametrize("kw", [{"store": "paged"}, {"router": "two_level"},
+@pytest.mark.parametrize("kw", [{"store": "paged"},
                                 {"pctx": object()},
                                 {"codec": "q8", "rescore": "device",
                                  "pctx": object()},
                                 {"page_size": 64}, {"store_bytes": 1 << 20}],
-                         ids=["paged", "two_level", "pctx", "rescore-device",
+                         ids=["paged", "pctx", "rescore-device",
                               "page_size", "store_bytes"])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         IVFIndex(np.zeros((4, 8), np.float32), 8, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("router", ["two_level"])
+def test_router_option_builds_the_router(router):
+    """``router="two_level"`` trains the two-level router over the
+    centroids (it raised before the router was ported)."""
+    from repro_torch.index import TwoLevelRouter
+    c, _ = _blobs(3, 64, 1, 8)
+    idx = IVFIndex(c, 8, device="cpu", router=router)
+    assert isinstance(idx.router, TwoLevelRouter) and idx.router.k == 64
+    assert "router=two_level" in repr(idx)
+
+
+# --- the store's environment default and the q8 store without reservoir ---
+
+@pytest.mark.parametrize("env,want", [(None, "padded"), (" Padded ", "padded"),
+                                      ("paged", "paged"),
+                                      ("banana", "ValueError")],
+                         ids=["unset", "padded", "paged", "unknown"])
+def test_default_store_kind_reads_the_environment(monkeypatch, env, want):
+    """``REPRO_BUCKET_STORE`` selects the store as in the reference; the
+    paged store, from the environment as from the argument, raises naming
+    its roadmap item."""
+    from repro.index.store import default_store_kind as j_default
+    from repro_torch.index import default_store_kind, make_store
+    if env is None:
+        monkeypatch.delenv("REPRO_BUCKET_STORE", raising=False)
+    else:
+        monkeypatch.setenv("REPRO_BUCKET_STORE", env)
+    c = np.zeros((4, 8), np.float32)
+    if want == "ValueError":
+        for call in (j_default, default_store_kind,
+                     lambda: IVFIndex(c, 8, device="cpu")):
+            with pytest.raises(ValueError, match="REPRO_BUCKET_STORE"):
+                call()
+        return
+    assert default_store_kind() == j_default() == want
+    if want == "paged":
+        for call in (lambda: IVFIndex(c, 8, device="cpu"),
+                     lambda: IVFIndex(c, 8, device="cpu", codec="q8"),
+                     lambda: make_store(None, 4, 8, torch.float32),
+                     lambda: make_store("paged", 4, 8, torch.float32)):
+            with pytest.raises(NotImplementedError, match="queue A item 4"):
+                call()
+    else:
+        assert IVFIndex(c, 8, device="cpu").store_kind == "padded"
+
+
+def _q8_store_pair(reservoir, rescore, seed=4, k=4, d=8, n=100):
+    """One padded q8 store in each package (ref. ``tests/index/
+    test_quant.py:144-157``) holding the same rows."""
+    from repro.index.store import make_quantized_store as j_make
+    from repro_torch.index import make_quantized_store
+    rng = np.random.default_rng(seed)
+    anchors = rng.normal(size=(k, d)).astype(np.float32)
+    cells = np.sort(rng.integers(0, k, size=n).astype(np.int32))
+    rows = rng.normal(size=(n, d)).astype(np.float32)
+    ids = np.arange(n, dtype=np.int32)
+    jst = j_make("padded", k, d, jnp.float32, anchors=anchors, capacity=8,
+                 reservoir=reservoir, rescore=rescore)
+    tst = make_quantized_store("padded", k, d, torch.float32,
+                               anchors=anchors, capacity=8,
+                               reservoir=reservoir, rescore=rescore,
+                               device="cpu")
+    jst.append(cells, jnp.asarray(rows), ids)
+    tst.append(cells, torch.from_numpy(rows), ids)
+    return rows, cells, jst, tst
+
+
+@pytest.mark.parametrize("rescore", ["host", "device"])
+def test_quantized_store_without_reservoir_matches_jax(rescore):
+    """``make_quantized_store(..., reservoir=False)``: no reservoir, so
+    ``dense()`` decodes the codes (lossy but close), as the reference's;
+    the device cache is built all the same with ``rescore="device"``, as
+    the reference builds it; the metadata and ``payload_bytes`` (codes,
+    ids and scales) equal the reference's. Decoded rows within
+    ``rtol=atol=1e-6`` (the same f32 arithmetic, ``anchor + code * s``)."""
+    rows, _, jst, tst = _q8_store_pair(False, rescore)
+    assert tst.reservoir is None and jst.reservoir is None
+    assert (tst.cache is None) == (jst.cache is None) == (rescore == "host")
+    x, ids = tst.dense()
+    jx, jids = jst.dense()
+    assert np.array_equal(ids.numpy(), np.asarray(jids))
+    np.testing.assert_allclose(x.numpy(), np.asarray(jx), rtol=1e-6,
+                               atol=1e-6)
+    live = ids.numpy() >= 0
+    errs = np.abs(x.numpy()[live] - rows[ids.numpy()[live]]).max()
+    assert 0.0 < errs < 0.2
+    assert tst.meta()["reservoir"] is False
+    assert tst.payload_bytes() == jst.payload_bytes() > 0
+    assert tst.payload_bytes() < tst.resident_bytes()
+
+
+def test_payload_bytes_is_a_quarter_of_fp32_as_in_jax():
+    """With the reservoir (ref. ``test_quant.py:120-141``): ``dense()``
+    overlays the original rows exactly, and the int8 payload is below 0.45
+    of the fp32 store's bytes, as the reference's."""
+    from repro_torch.index import make_store
+    k, d, n = 8, 16, 300
+    rows, cells, jst, tst = _q8_store_pair(True, "host", seed=3, k=k, d=d,
+                                           n=n)
+    x, ids = tst.dense()
+    live = ids.numpy() >= 0
+    np.testing.assert_array_equal(x.numpy()[live], rows[ids.numpy()[live]])
+    fp = make_store("padded", k, d, torch.float32, capacity=8, device="cpu")
+    fp.append(cells, torch.from_numpy(rows), np.arange(n, dtype=np.int32))
+    assert tst.payload_bytes() == jst.payload_bytes()
+    assert tst.payload_bytes() < 0.45 * fp.resident_bytes()
+
+
+def test_q8_search_without_reservoir_matches_jax():
+    """A q8 index over a store without reservoir, host rescore: phase 2
+    scores the decoded codes in both packages, with the same ids."""
+    from repro.index.store import make_quantized_store as j_make
+    from repro_torch.index import make_quantized_store
+    x, centers = _blobs(1, N, K, 16)
+    rng = np.random.default_rng(101)
+    c0 = centers + rng.standard_normal(centers.shape).astype(np.float32)
+    jst = j_make("padded", K, 16, jnp.float32, anchors=c0, capacity=8,
+                 reservoir=False, rescore="host")
+    tst = make_quantized_store("padded", K, 16, torch.float32, anchors=c0,
+                               capacity=8, reservoir=False, rescore="host",
+                               device="cpu")
+    jidx = JIVF(jnp.asarray(c0), 8, store=jst)
+    tidx = IVFIndex(c0, 8, device="cpu", store=tst)
+    jidx.add(jnp.asarray(x))
+    tidx.add(x)
+    q = x[:NQ] + 0.05
+    got = tidx.search(q, topk=10, nprobe=4)
+    exp = jidx.search(jnp.asarray(q), topk=10, nprobe=4)
+    assert np.array_equal(got[0].numpy(), np.asarray(exp[0]))
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(exp[1]),
+                               rtol=1e-5, atol=_atol(q, x))
 
 
 def test_unported_entry_points_raise(tmp_path):

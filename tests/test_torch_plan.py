@@ -207,8 +207,11 @@ def test_planner_memo_and_counters():
     assert planner.step_impl(1000, 64, 32, blk=pinned) == p1.impl
     assert planner.counters()["chooser_calls"] == 3
     assert planner.plan("step", (1000, 64, 32), blk=p1.block) is p1
+    route = planner.plan("route", (1, 2048, 3, 4))   # the router's op
+    assert route.op == "route" and route.blocks == H.choose_route_params(
+        2048, 4)
     with pytest.raises(ValueError, match="unknown plan op"):
-        planner.plan("route", (1, 2, 3, 4))     # waits for two_level
+        planner.plan("paged_scan", (1, 2, 3, 4))
     with pytest.raises(ValueError, match="arity"):
         planner.plan("step", (1, 2))
 

@@ -364,13 +364,16 @@ def test_auto_rescore_mult_sees_the_cache_hit_rate():
 
 
 def test_nprobe_c_is_refused():
-    _, idx = _build("device")
-    for call in (lambda: idx.search(np.zeros((2, 16), np.float32),
-                                    nprobe_c=2),
-                 lambda: idx.plan_search(8, 10, 4, 2),
-                 lambda: idx.search_geometry(10, 4, 2)):
-        with pytest.raises(NotImplementedError, match="queue A item 4"):
-            call()
+    """The flat router refuses ``nprobe_c`` the reference's way: it takes
+    it and ignores it (the two-level router's coarse width; raised before
+    that router was ported)."""
+    x, idx = _build("device")
+    q = x[:NQ]
+    for a, b in zip(idx.search(q, topk=10, nprobe=4, nprobe_c=2),
+                    idx.search(q, topk=10, nprobe=4)):
+        assert torch.equal(a, b)
+    assert idx.plan_search(8, 10, 4, 2) == idx.plan_search(8, 10, 4)
+    assert idx.search_geometry(10, 4, 2) == idx.search_geometry(10, 4)
 
 
 # --- the port against the reference, on bridged indexes ----------------------
