@@ -40,33 +40,46 @@ run and read just after:
   ``search_brute``, the planner's ``route`` verdict), a warm routed
   search without a host sync, and probe lists that end in the sentinel
   cell (``nprobe_c = 1``); and at the IVF1024 cell, the routed index at
-  nprobe = K returns the flat index's ids.
+  nprobe = K returns the flat index's ids;
+- the paged store (``IVFIndex(..., store="paged", page_size=64)``): at both
+  IVF cells the same centroids and corpus in a paged store, its batches
+  (flat, and two-level over one router) bit for bit the padded index's,
+  its resident bytes and batch times beside the padded ones, and the q8
+  cell served through ``SearchEngine`` as above; at the exactness index,
+  nprobe = K bit for bit the padded index's; ``paged_skew``, the IVF
+  cell's blob centres with each row's cell drawn from Zipf(1.0) (seed 15),
+  added in chunks of 262,144, a corpus the padded layout could not grow to
+  on the card (recall@10 against ``search_brute``, each add's allocator
+  time); ``paged_evict``, the uniform corpus by blob into a store of half
+  its page bytes (rows evicted, the count identity, ids in the posting
+  lists, the last add's cells kept).
 
-Before the paths, the sort-inverse update, FlashLloyd and the store scan
-are held to their plain versions on edge shapes (one segment over every
-CTA, K > N, ragged chunks, R < 32, d = 1, 3, 19, 129, batched ids, an
-unaligned x; each FlashLloyd cluster size at the largest K it takes, no
-points, fewer points than a tile, K = 1, K = 16 with every row near 3
-centroids, batches across clusters of 2 and 8, FlashLloyd's ids equal to
-FlashAssign's bit for bit; empty, full and over-width cells, fewer live rows
-than L, duplicate rows, the scalar path, bf16, one and several CTAs per
-pair; for the q8 store scan also live slots of scale 0 and lists of one and
-two entries a lane and longer; FlashProbe's tile mode at B, K and L off its
-tiles, narrow and wide rows, duplicated centroids and clusters of 2 and 8,
-and its list mode on the same inputs; the block scan's warp mode at short
-blocks off a warp step, padding and duplicated rows and every lane count,
-bit for bit against its list mode). The probe's tile mode is also timed at
-each cluster size against L at the IVF shape. The rescore cache's insert
-is held to its plain version on edges (ways 1 to 32, d off the vector
-width, ids of -1, duplicates, heavy eviction) and at the q8 build
-(unbounded, budgeted at a quarter of the rows' bytes, a re-insert).
-FlashAssign's scores and its distances (the launch that sums ||x||^2
-itself) are held to the plain version everywhere it runs. Wherever the
-fused step fits, the two-pass and fused iterations are timed in
-alternation (auto must take the winner of most pairs) and split by kernel
-with ``torch.profiler``; FlashLloyd's device time is read beside
-FlashAssign's on the same inputs, and at smallN_smallK its smallest cluster
-size against the next one up.
+Before the paths, the sort-inverse update, FlashLloyd and the store scan are
+held to their plain versions on edge shapes (one segment over every CTA, K >
+N, ragged chunks, R < 32, d = 1, 3, 19, 129, batched ids, an unaligned x; each
+FlashLloyd cluster size at the largest K it takes, no points, fewer points
+than a tile, K = 1, K = 16 with every row near 3 centroids, batches across
+clusters of 2 and 8, FlashLloyd's ids equal to FlashAssign's bit for bit;
+empty, full and over-width cells, fewer live rows than L, duplicate rows, the
+scalar path, bf16, one and several CTAs per pair; for the q8 store scan also
+live slots of scale 0 and lists of one and two entries a lane and longer; both
+store scans also through a page table, on pages of 8, 64 and 128 rows of a
+fragmented free list with the sentinel cell, bit for bit the padded scan over
+the same rows; FlashProbe's tile mode at B, K and L off its tiles, narrow and
+wide rows, duplicated centroids and clusters of 2 and 8, and its list mode on
+the same inputs; the block scan's warp mode at short blocks off a warp step,
+padding and duplicated rows and every lane count, bit for bit against its list
+mode). The probe's tile mode is also timed at each cluster size against L at
+the IVF shape. The rescore cache's insert is held to its plain version on
+edges (ways 1 to 32, d off the vector width, ids of -1, duplicates, heavy
+eviction) and at the q8 build (unbounded, budgeted at a quarter of the rows'
+bytes, a re-insert). FlashAssign's scores and its distances (the launch that
+sums ||x||^2 itself) are held to the plain version everywhere it runs.
+Wherever the fused step fits, the two-pass and fused iterations are timed in
+alternation (auto must take the winner of most pairs) and split by kernel with
+``torch.profiler``; FlashLloyd's device time is read beside FlashAssign's on
+the same inputs, and at smallN_smallK its smallest cluster size against the
+next one up.
 
 It prints the kernel table as one JSON line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -228,6 +241,20 @@ QSTORE_EDGE = [(64, 40, 256, 200, 128, 8, 10), (33, 24, 64, 64, 16, 5, 40),
                (5, 30, 2200, 2128, 128, 16, 40), (1100, 7, 40, 40, 16, 3, 3),
                (7, 7, 40, 40, 8, 2, 5), (9, 8, 100, 97, 128, 3, 30),
                (6, 8, 42, 40, 128, 2, 12)]
+# the paged store (PagedBucketStore): the page sizes of the store-scan edges
+# (each edge's cells on pages of a shuffled, gapped free list, cells of no
+# pages, partial last pages, the sentinel cell K, widths and splits off the
+# page boundaries), and the IVF cells' page size; the two scans' paged rows
+# in the kernel table
+PAGE_SIZES = (8, 64, 128)
+PAGE = 64
+PAGED_ROWS = {"flash_probe_store (paged)": "flash_probe_store",
+              "flash_probe_store_q8 (paged)": "flash_probe_store_q8"}
+# the skewed deployment: the IVF cell's blob centres (seed 4), each row's
+# cell drawn from Zipf(1.0) over a permutation of them (seed 15), added in
+# chunks of SKEW_CHUNK to IVFIndex(centres, 8, store="paged") (a trained
+# build would split the hot blob)
+SKEW_SEED, SKEW_CHUNK = 15, 262144
 NO_SPILLS = r"\b0 bytes spill stores, 0 bytes spill loads"  # ptxas -v
 STEP_PAIRS = 11  # two-pass / fused iteration pairs, ABAB, where fused fits
 # FlashIVF: the FAISS IVF1024,Flat configuration on SIFT1M (N, K, d),
@@ -461,12 +488,14 @@ def main() -> int:
             "flash_lloyd": fl, "rescore_cache_insert": rck}
     probe_names = tuple(fp.launches)
     launches = {k: 0 for k in (*mods, *probe_names)}
-    max_err = {k: 0.0 for k in launches}
+    max_err = {k: 0.0 for k in (*launches, *PAGED_ROWS)}
+    paged_launches = {k: 0 for k in PAGED_ROWS}
     timing: dict[str, dict] = {}
     details = {"card": smi, "regimes": [], "kernel_checks": [], "ivf": [],
                "ivf_truth": [], "controls": [], "step_pairs": [],
                "profiles": [], "cache_insert": [], "engine": [],
-               "routed": {},
+               "routed": {}, "paged": [], "paged_skew": [],
+               "paged_evict": {},
                "out_of_core": {}, "streaming": {}, "ooc_ivf": [],
                "planner": {}}
 
@@ -964,6 +993,116 @@ def main() -> int:
               f"differ, {int(torch.isinf(got[1]).sum())} +inf)")
         return got
 
+    def paged_layout(arrays, fills, cnt, ps):
+        """The cells of the per-slot ``arrays`` (K, cap, ...) as pools of
+        ``ps``-row pages under one page table (K + 1, ceil(cap / ps)) int32:
+        cell c's first ceil(cnt[c] / ps) pages, on page ids of a shuffled
+        free list with gaps (a fragmented allocator); page 0 and a last
+        page's slots past cap hold ``fills``, unmapped entries and the
+        sentinel cell K's row (the last) name page 0, and free pages hold
+        noise that no scan may read."""
+        k_, cap = arrays[0].shape[:2]
+        maxp = -(-cap // ps)
+        npg = (cnt.long() + ps - 1) // ps
+        n_ = int(npg.sum())
+        total = 2 * n_ + 3
+        pids = 1 + torch.randperm(total - 1, device=dev, generator=gen_p)[:n_]
+        cells = torch.repeat_interleave(torch.arange(k_, device=dev), npg)
+        pg = torch.arange(n_, device=dev) - torch.repeat_interleave(
+            torch.cumsum(npg, 0) - npg, npg)
+        table = torch.zeros((k_ + 1, maxp), dtype=torch.int32, device=dev)
+        table[cells, pg] = pids.to(torch.int32)
+        pools = []
+        for a, fill in zip(arrays, fills):
+            slots = torch.full((k_, maxp * ps, *a.shape[2:]), fill,
+                               dtype=a.dtype, device=dev)
+            slots[:, :cap] = a
+            pool = torch.randint(-100, 100, (total, ps, *a.shape[2:]),
+                                 device=dev, generator=gen_p).to(a.dtype)
+            pool[0] = fill
+            pool[pids] = slots.reshape(k_, maxp, ps, *a.shape[2:])[cells, pg]
+            pools.append(pool)
+        return pools, table
+
+    def logical_block(rows, table, counts, probe, width, fill):
+        """The ``(B, nprobe * width, ...)`` block of the probed cells' slots
+        gathered through the page table, ``fill`` on every slot at or past
+        its cell's count (the sentinel's all): what a store scan computes
+        on."""
+        page, row = fp._slot_pages(rows, table, probe, width)
+        blk = rows[page, row]
+        dead = (torch.arange(width, device=dev)
+                >= counts[probe.long()].unsqueeze(-1))
+        blk = torch.where(dead.reshape(*dead.shape, *([1] * (blk.ndim - 3))),
+                          torch.full_like(blk, fill), blk)
+        return blk.reshape(probe.shape[0], -1, *rows.shape[2:])
+
+    def paged_store_check(q, rows, table, counts, probe, width, l, tag,
+                          splits=None, padded=None):
+        """The store scan through a page table against its plain version,
+        scored on the table-gathered block; against the grouped kernel on
+        that block and, where ``padded`` (the same cells' (K, cap, d) store)
+        is given, against the padded scan, both bit for bit."""
+        cand = logical_block(rows, table, counts, probe, width, PAD)
+        score, mag = scan_scores(q, cand)
+        exp = fp.flash_probe_store_plain(q, rows, counts, probe, width, l,
+                                         PAD, table)
+        got = ops.flash_probe_store(q, rows, counts, probe, table=table,
+                                    width=width, l=l, pad=PAD, splits=splits,
+                                    want_dists=False)
+        kname = "flash_probe_store (paged)"
+        topl_check(kname, tag, got, exp, score, mag, q.shape[1])
+        refs = [("the grouped kernel's on the table-gathered block",
+                 ops.flash_probe_grouped(q, cand, l=l, want_dists=False))]
+        if padded is not None:
+            refs.append(("the padded scan's over the same rows",
+                         ops.flash_probe_store(q, padded, counts, probe,
+                                               width=width, l=l, pad=PAD,
+                                               splits=splits,
+                                               want_dists=False)))
+        for how, ref_ in refs:
+            check(torch.equal(got[0], ref_[0])
+                  and torch.equal(got[1], ref_[1]),
+                  f"{kname} {tag}: indices and scores equal {how}, bit for "
+                  f"bit ({int((got[0] != ref_[0]).sum())} indices differ)")
+        return got
+
+    def paged_q8_store_check(q, codes, scales, table, counts, probe, anchors,
+                             width, l, tag, splits=None, padded=None):
+        """The q8 store scan through a page table, as ``paged_store_check``:
+        against its plain version, the block kernel on the table-gathered
+        codes and scales and, with ``padded`` ((K, cap, d) codes, (K, cap)
+        scales), the padded scan, bit for bit, +inf entries included."""
+        b, nprobe = probe.shape
+        d = codes.shape[-1]
+        cb = logical_block(codes, table, counts, probe, width, 0).reshape(
+            b, nprobe, width, d)
+        sb = logical_block(scales, table, counts, probe, width, 0.0).reshape(
+            b, nprobe, width)
+        qp = q.float().unsqueeze(1) - anchors[probe.long()]
+        score, mag = q8_scores(qp, cb, sb)
+        exp = fp.flash_probe_store_q8_plain(qp, codes, scales, counts, probe,
+                                            width, l, table)
+        got = ops.flash_probe_store_q8(q, codes, scales, counts, probe,
+                                       anchors, table=table, width=width,
+                                       l=l, splits=splits)
+        kname = "flash_probe_store_q8 (paged)"
+        topl_check(kname, tag, got, exp, score, mag, d)
+        refs = [("the block kernel's on the table-gathered block",
+                 ops.flash_probe_grouped_q8(qp, cb, sb, l=l))]
+        if padded is not None:
+            refs.append(("the padded scan's over the same rows",
+                         ops.flash_probe_store_q8(q, *padded, counts, probe,
+                                                  anchors, width=width, l=l,
+                                                  splits=splits)))
+        for how, ref_ in refs:
+            check(torch.equal(got[0], ref_[0])
+                  and torch.equal(got[1], ref_[1]),
+                  f"{kname} {tag}: indices and distances equal {how}, bit "
+                  f"for bit, +inf entries included "
+                  f"({int((got[0] != ref_[0]).sum())} indices differ)")
+        return got
+
     def insert_state(cache):
         return [cache.keys, cache.rows, cache.ref, cache.hand]
 
@@ -1096,6 +1235,7 @@ def main() -> int:
     # the new edges draw from a generator of their own, so that the data of
     # the later phases does not depend on them
     gen_e = torch.Generator(device=dev).manual_seed(SEED + 2)
+    gen_p = torch.Generator(device=dev).manual_seed(SEED + 16)  # page ids
     print("\n[FlashProbe tile edges]", flush=True)
     gen_t = torch.Generator(device=dev).manual_seed(SEED + 6)
     n_tile, n0 = 0, fp.launches["flash_probe_tile"]
@@ -1222,6 +1362,19 @@ def main() -> int:
                             f"edge{(bq, kc, cap, width, d, nprobe, l)}/"
                             f"query0 live {live0}/{cdt}/"
                             f"splits={splits or 'planned'}", splits)
+        # the same cells on pages, the sentinel cell K in query 1's list
+        cs = torch.cat([counts, counts.new_zeros(1)])
+        pr = probe.clone()
+        pr[min(1, bq - 1), -1] = kc
+        for ps in PAGE_SIZES:
+            (pool,), table = paged_layout((xs,), (PAD,), cnt, ps)
+            for cdt in (torch.float32, torch.bfloat16):
+                for splits in (None, 3):
+                    paged_store_check(
+                        q.to(cdt), pool.to(cdt), table, cs, pr, width, l,
+                        f"edge{(bq, kc, cap, width, d, nprobe, l)}/page {ps}"
+                        f"/{cdt}/splits={splits or 'planned'}", splits,
+                        padded=xs.to(cdt))
 
     print("\n[q8 store scan edges]", flush=True)
     for bq, kc, cap, width, d, nprobe, l in QSTORE_EDGE:
@@ -1251,6 +1404,19 @@ def main() -> int:
                            f"edge{(bq, kc, cap, width, d, nprobe, l)}/query0 "
                            f"live {live0}/splits={splits or 'planned'}",
                            splits)
+        # the same cells on pages, the sentinel cell K in query 1's list
+        cs = torch.cat([counts, counts.new_zeros(1)])
+        anc = torch.cat([anchors, anchors.new_zeros((1, d))])
+        pr = probe.clone()
+        pr[min(1, bq - 1), -1] = kc
+        for ps in PAGE_SIZES:
+            (pc, pa), table = paged_layout((codes, scales), (0, 0.0), cnt, ps)
+            for splits in (None, 3):
+                paged_q8_store_check(
+                    q, pc, pa, table, cs, pr, anc, width, l,
+                    f"edge{(bq, kc, cap, width, d, nprobe, l)}/page {ps}/"
+                    f"splits={splits or 'planned'}", splits,
+                    padded=(codes, scales))
 
     def aligned(shape, g):
         """Values in [1, 1 + 1/16) with the low 13 mantissa bits 0x0fff:
@@ -1893,14 +2059,154 @@ def main() -> int:
         del work
         return out
 
+    def count_run(counts, paged=False):
+        """Add a counted run's launches to the kernel table's; on a paged
+        store the store scans' go to their paged rows."""
+        base = {v: k for k, v in PAGED_ROWS.items()}
+        for kname in launches:
+            if paged and kname in base:
+                paged_launches[base[kname]] += counts[kname]
+            else:
+                launches[kname] += counts[kname]
+
+    def paged_phase(index, codec, x, queries, results):
+        """The paged store at an IVF cell: the same centroids and corpus in
+        ``IVFIndex(..., store="paged", page_size=PAGE)`` filled by one add;
+        its batches (counted), flat and two-level over one router trained
+        on those centroids, bit for bit the padded index's (``results``:
+        the padded flat search's batches); its store scan at the main
+        path's shape held to its plain version and queued for timing
+        beside the padded one's. Returns the paged index."""
+        tag = f"ivf/{codec}/paged"
+        n_, d_ = x.shape
+        print(f"\n[{tag}] the same centroids and corpus, {PAGE} rows a page",
+              flush=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        paged = IVFIndex(index.centroids, 8, store="paged", page_size=PAGE,
+                         codec=codec)
+        paged.add(x)
+        torch.cuda.synchronize()
+        add_s = time.perf_counter() - t0
+        zero_counts()
+        res_p, ms_p = time_batches(paged)
+        counts = read_counts()
+        count_run(counts, paged=True)
+        base = "flash_probe_store" if codec == "fp32" \
+            else "flash_probe_store_q8"
+        check(counts[base] > 0 and counts["flash_probe_tile"] > 0,
+              f"{tag} kernels launched: {counts}")
+        diff = [i for i, (a, b) in enumerate(zip(results, res_p))
+                if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))]
+        check(not diff, f"{tag}: every batch's ids and distances equal the "
+                        f"padded index's bit for bit (flat router): batches "
+                        f"{diff} differ")
+        router = TwoLevelRouter.train(index.centroids, max_iters=4)
+        r_pad = IVFIndex(index.centroids, 8, store=index.store, router=router)
+        r_pag = IVFIndex(index.centroids, 8, store=paged.store, router=router)
+        bad = []
+        for i, qb in enumerate(queries):
+            a = r_pad.search(qb, topk=TOPK, nprobe=NPROBE)
+            b = r_pag.search(qb, topk=TOPK, nprobe=NPROBE)
+            if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+                bad.append(i)
+        check(not bad, f"{tag}: two-level ({router!r}) batches equal the "
+                       f"padded index's bit for bit: batches {bad} differ")
+        no_sync_check(paged, queries[1], tag)
+        st_p, st_d = paged.store, index.store
+        width_p = paged.search_geometry(TOPK, NPROBE)[2]
+        # batch times of both layouts in turns on the same batches (padded,
+        # paged, paged, padded), and each search's device profile
+        turns = {"padded": [], "paged": []}
+        for name in ("padded", "paged", "paged", "padded"):
+            turns[name] += time_batches(index if name == "padded"
+                                        else paged)[1]
+        prof = {name: profile_steps(f"{tag} search, {name}",
+                                    lambda idx=idx: idx.search(
+                                        queries[0], topk=TOPK, nprobe=NPROBE))
+                for name, idx in (("paged", paged), ("padded", index))}
+        ms, ms_d = (statistics.median(turns["paged"]),
+                    statistics.median(turns["padded"]))
+        rec = {"codec": codec, "page_size": PAGE, "add_s": add_s,
+               "gather_width": width_p, "gather_width_padded":
+                   index.search_geometry(TOPK, NPROBE)[2],
+               "occupied_pages": st_p.occupied_pages(),
+               "resident_bytes": st_p.resident_bytes(),
+               "resident_bytes_padded": st_d.resident_bytes(),
+               "ms_per_batch": ms, "batch_ms": ms_p, "turns_ms": turns,
+               "ms_per_batch_padded": ms_d,
+               "device_busy_ms": prof["paged"]["device_busy_ms"],
+               "device_busy_ms_padded": prof["padded"]["device_busy_ms"],
+               "launches": counts,
+               "batches_differ": diff, "two_level_batches_differ": bad}
+        details["paged"].append(rec)
+        print(f"  add {add_s:.3f} s; {st_p.occupied_pages()} pages occupied, "
+              f"resident {st_p.resident_bytes() / 2**30:.3f} GiB (padded "
+              f"{st_d.resident_bytes() / 2**30:.3f} GiB); gather_width "
+              f"{width_p} (padded {rec['gather_width_padded']}); {ms:.3f} ms "
+              f"per batch against the padded index's {ms_d:.3f} ms (CUDA "
+              f"events, medians of {len(turns['paged'])} in turns); device "
+              f"busy {rec['device_busy_ms']:.4f} ms against "
+              f"{rec['device_busy_ms_padded']:.4f} ms", flush=True)
+        # the paged scan at the main path's shape, against its plain version
+        # (outside the counted run), and queued for timing
+        qb = queries[0]
+        plans = paged.plan_search(IVF_B, TOPK, NPROBE)
+        probe = paged._probe(qb, NPROBE, None, plans[:1])
+        view = st_p.scan_view()
+        k_ = index.k
+        rows_, table_, cn = view.rows, view.table[:k_], view.counts[:k_]
+        live_rows = int(torch.clamp(cn[probe.long()], max=width_p).sum())
+        cells = torch.unique(probe.long())
+        cell_rows = int(torch.clamp(cn[cells], max=width_p).sum())
+        pages_read = int(((torch.clamp(cn[cells], max=width_p) + PAGE - 1)
+                          // PAGE).sum())
+        s_ = plans[1].blocks[0]
+        if codec == "fp32":
+            paged_store_check(qb, rows_, table_, cn, probe, width_p, TOPK,
+                              f"{tag} batch 0", s_)
+            main_inputs["flash_probe_store (paged)"] = (
+                lambda: fp.flash_probe_store_raw(qb, rows_, cn, probe,
+                                                 width_p, TOPK, PAD,
+                                                 table=table_, splits=s_),
+                lambda: fp.flash_probe_store_plain(qb, rows_, cn, probe,
+                                                   width_p, TOPK, PAD,
+                                                   table_),
+                H.scan_store_bytes(IVF_B, NPROBE, width_p, d_, TOPK,
+                                   rows_read=cell_rows) + 4 * pages_read,
+                4.0 * live_rows * d_, [IVF_B, NPROBE, width_p, d_, TOPK],
+                {"pages_read": pages_read, "page_size": PAGE})
+        else:
+            r = paged._rescore_r(TOPK, NPROBE, width_p)
+            anc = st_p.anchors_sentinel[:k_]
+            paged_q8_store_check(qb, rows_, view.scales, table_, cn, probe,
+                                 anc, width_p, r, f"{tag} batch 0", s_)
+            qp = qb.float().unsqueeze(1) - anc[probe.long()]
+            main_inputs["flash_probe_store_q8 (paged)"] = (
+                lambda: fp.flash_probe_store_q8_raw(
+                    qp, rows_, view.scales, cn, probe, width_p, r,
+                    table=table_, splits=s_),
+                lambda: fp.flash_probe_store_q8_plain(
+                    qp, rows_, view.scales, cn, probe, width_p, r, table_),
+                H.scan_q8_store_bytes(IVF_B, NPROBE, width_p, d_, r,
+                                      rows_read=cell_rows) + 4 * pages_read,
+                2.0 * live_rows * d_ + 3.0 * cell_rows * d_,
+                [IVF_B, NPROBE, width_p, d_, r],
+                {"pages_read": pages_read, "page_size": PAGE})
+        del r_pad, r_pag, router
+        return paged
+
     def engine_phase(index, codec, centers):
         """Ragged traffic through ``SearchEngine(query_batch=IVF_B,
         pipeline_depth=2)`` over ``index`` and the same op stream through a
         synchronous engine over a copy of it (the bridge's state, so both
         start from the same bits: two builds need not, the sort-inverse
         update's atomics add in no fixed order); every request must equal
-        bit for bit. The served engine's run is counted."""
-        tag = f"engine/{codec}"
+        bit for bit. The served engine's run is counted. A paged store's
+        copy is its canonical packed form, which an index filled by one add
+        already holds."""
+        tag = f"engine/{codec}" + ("/paged" if index.store_kind == "paged"
+                                   else "")
         print(f"\n[{tag}] SearchEngine(query_batch={IVF_B}, "
               f"pipeline_depth=2), {ENGINE_REQUESTS} requests of 1-"
               f"{ENGINE_MAX_ROWS} rows, {ENGINE_ADDS} adds of "
@@ -1971,8 +2277,7 @@ def main() -> int:
         zero_counts()
         eng, out, wall, add_s = run(index, 2)
         counts = read_counts()
-        for kname in launches:
-            launches[kname] += counts[kname]
+        count_run(counts, index.store_kind == "paged")
         ref_eng, ref_out, ref_wall, ref_add_s = run(twin, 1)
         bad = [i for i, ((kind, _), a, b) in enumerate(zip(stream, out,
                                                              ref_out))
@@ -2028,7 +2333,8 @@ def main() -> int:
                        if ln.strip()][-16:]
         print("  one more add under cProfile (cumulative):\n    "
               + "\n    ".join(add_profile), flush=True)
-        rec = {"codec": codec, "requests": ENGINE_REQUESTS,
+        rec = {"codec": codec, "store": index.store_kind,
+               "requests": ENGINE_REQUESTS,
                "rows": rows_total, "adds": ENGINE_ADDS,
                "add_rows": ENGINE_ADD_ROWS, "sizes": sizes,
                "wall_s": wall, "qps": rows_total / wall,
@@ -2388,8 +2694,8 @@ def main() -> int:
                 "scan_q8", (IVF_B, c_n, d, r), torch.int8).blocks[0]
             q8_check(qp, codes, scales, r, "ivf/q8 block path", blk_splits)
             ids, deq = ivf_mod._q8_propose(
-                qb, index.centroids, cnorm, index.store.device_arrays(), cnts,
-                r=r, nprobe=NPROBE, width=width, probe_plan=plans[0],
+                qb, index.centroids, cnorm, index.store.scan_view(), r=r,
+                nprobe=NPROBE, width=width, probe_plan=plans[0],
                 scan_plan=plans[1])
             li_b, v_b = ops.flash_probe_grouped_q8(qp, codes, scales, l=r,
                                                    splits=blk_splits)
@@ -2456,8 +2762,8 @@ def main() -> int:
                     "padded", (codes_s, bucket_ids, scales_s), probe,
                     width)),
                 "propose_ms": ms_of(lambda: ivf_mod._q8_propose(
-                    qb, index.centroids, cnorm, index.store.device_arrays(),
-                    cnts, r=r, nprobe=NPROBE, width=width,
+                    qb, index.centroids, cnorm, index.store.scan_view(),
+                    r=r, nprobe=NPROBE, width=width,
                     probe_plan=plans[0], scan_plan=plans[1])),
                 "host_round_trip_ms": statistics.median(host_ms),
                 "cache_lookup_ms": ms_of(lambda: cache_lookup(
@@ -2552,8 +2858,14 @@ def main() -> int:
             "ids_differ": int((ids_f != ids_r).sum()),
             "max_dist_diff": float((dd_f - dd_r).abs().max())}
         del routed, ids_f, dd_f, ids_r, dd_r
+        paged = paged_phase(index, codec, x, queries, results)
+        if codec == "fp32":   # the evicting store's budget: half of these
+            paged_page_bytes = paged.store.occupied_pages() * \
+                paged.store._page_bytes()
         engine_phase(index, codec, centers)
-        del index
+        if codec == "q8":
+            engine_phase(paged, codec, centers)
+        del index, paged, results
         torch.cuda.empty_cache()
 
     def time_kernel(tag, kern, plain, byt, ops_, shape, extra):
@@ -2814,11 +3126,189 @@ def main() -> int:
         truth_check(f"{tag} search vs corpus", ids, dd, x, q, ids_t)
         truth_check(f"{tag} search_brute vs corpus", ids_b, dd_b, x, q,
                     ids_t)
+        # the paged store over the same centroids and rows: at nprobe = K
+        # its ids and distances are the padded index's, bit for bit
+        paged = IVFIndex(index.centroids, 8, store="paged", page_size=PAGE,
+                         codec=codec, rescore_mult=n)
+        paged.add(x)
+        ids_p, dd_p = paged.search(q, topk=TOPK, nprobe=k)
+        same = torch.equal(ids_p, ids) and torch.equal(dd_p, dd)
+        check(same, f"{tag} paged ({PAGE} rows a page): ids and distances "
+                    f"equal the padded index's bit for bit "
+                    f"({int((ids_p != ids).sum())} ids differ)")
         details["ivf"].append(
             {"codec": codec, "exactness": True, "N": n, "K": k, "d": d,
-             "B": EXACT_B, "nprobe": k, **rec})
-        del index
+             "B": EXACT_B, "nprobe": k, "paged_equal": same, **rec})
+        del index, paged
     del x, centers, q
+    torch.cuda.empty_cache()
+
+    # ---- phase 6b: the paged store under a skewed corpus ------------------
+    # the IVF cell's blob centres (seed 4), each row's (and query's) cell
+    # drawn from Zipf(1.0) over a permutation of them (seed 15): the hottest
+    # cell holds about N / H(1,024) rows, which sets the padded layout's cap
+    # for every cell; the paged pool holds the occupied pages
+    n, k, d = IVF
+    centers = torch.randn(k, d, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(
+                              SEED + 4)) * 5.0
+    gen_z = torch.Generator(device=dev).manual_seed(SKEW_SEED)
+    perm = torch.randperm(k, device=dev, generator=gen_z)
+    zipf = 1.0 / torch.arange(1, k + 1, device=dev, dtype=torch.float64)
+    zipf /= zipf.sum()
+    lab = perm[torch.multinomial(zipf, n, replacement=True, generator=gen_z)]
+    x = centers[lab] + 0.4 * torch.randn(n, d, device=dev, generator=gen_z)
+    qlab = perm[torch.multinomial(zipf, IVF_BATCHES * IVF_B, replacement=True,
+                                  generator=gen_z)]
+    queries = (centers[qlab] + 0.4 * torch.randn(
+        IVF_BATCHES * IVF_B, d, device=dev, generator=gen_z)).reshape(
+        IVF_BATCHES, IVF_B, d)
+    del lab, qlab
+    brute = None
+    for codec in ("fp32", "q8"):
+        tag = f"paged_skew/{codec}"
+        print(f"\n[{tag}] N={n} d={d} K={k}, cells Zipf(1.0), {PAGE} rows a "
+              f"page, added in chunks of {SKEW_CHUNK}", flush=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        index = IVFIndex(centers, 8, store="paged", page_size=PAGE,
+                         codec=codec)
+        # the allocator's host time in each add (page tables, free list)
+        inner = getattr(index.store, "_inner", index.store)
+        alloc_s, map_pages = [], inner._map_pages
+
+        def timed_map(*a, map_pages=map_pages, alloc_s=alloc_s):
+            t = time.perf_counter()
+            out_ = map_pages(*a)
+            alloc_s.append(time.perf_counter() - t)
+            return out_
+        inner._map_pages = timed_map
+        add_s, hot_after = [], []
+        for lo in range(0, n, SKEW_CHUNK):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            index.add(x[lo:lo + SKEW_CHUNK])
+            torch.cuda.synchronize()
+            add_s.append(time.perf_counter() - t0)
+            hot_after.append(index.store.max_count)
+        del inner._map_pages
+        hottest = hot_after[-1]
+        width = index.search_geometry(TOPK, NPROBE)[2]
+        row_b = d * (4 if codec == "fp32" else 1) + 4 + (
+            0 if codec == "fp32" else 4)
+        # the padded layout over the same adds, from the counts alone: its
+        # (K, cap) payload at the end, and its peak while growing (the
+        # store's doubling holds the old and the new tensors at once)
+        cap_, grow_peak = 8, 0
+        for h in hot_after:
+            if h > cap_:
+                new_cap = max(-(-h // 8) * 8, 2 * cap_)
+                grow_peak = max(grow_peak, k * (cap_ + new_cap) * row_b)
+                cap_ = new_cap
+        padded_b = k * cap_ * row_b
+        zero_counts()
+        res, ms = time_batches(index)
+        counts = read_counts()
+        count_run(counts, paged=True)
+        base = "flash_probe_store" if codec == "fp32" \
+            else "flash_probe_store_q8"
+        check(counts[base] > 0, f"{tag} kernels launched: {counts}")
+        if brute is None:   # the q8 store holds the same rows and ids
+            brute = [index.search_brute(qb, topk=TOPK)[0] for qb in queries]
+        recall = statistics.mean(recall_at_k(ids, ids_b) for (ids, _), ids_b
+                                 in zip(res, brute))
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        rec = {"codec": codec, "N": n, "K": k, "d": d, "page_size": PAGE,
+               "hottest_cell_rows": hottest, "gather_width": width,
+               "occupied_pages": index.store.occupied_pages(),
+               "resident_bytes": index.resident_bytes(),
+               "padded_required_bytes": padded_b,
+               "padded_growth_peak_bytes": grow_peak, "add_s": add_s,
+               "alloc_s": alloc_s, "ms_per_batch": statistics.median(ms),
+               "batch_ms": ms, "recall_at_10": recall, "launches": counts,
+               "peak_gib": peak_gib}
+        details["paged_skew"].append(rec)
+        print(f"  hottest cell {hottest} rows; gather_width {width}; "
+              f"{rec['occupied_pages']} pages occupied, resident "
+              f"{rec['resident_bytes'] / 2**30:.3f} GiB; the padded layout "
+              f"would need {padded_b / 2**30:.2f} GiB ({grow_peak / 2**30:.2f}"
+              f" GiB while growing); adds "
+              + ", ".join(f"{t:.3f}" for t in add_s) + " s (allocator "
+              + ", ".join(f"{t:.3f}" for t in alloc_s) + f" s); "
+              f"{rec['ms_per_batch']:.3f} ms per batch (CUDA events, median "
+              f"of {len(ms)}); recall@{TOPK} {recall:.4f} (vs search_brute);"
+              f" peak {peak_gib:.2f} GiB", flush=True)
+        check(recall >= 0.9, f"{tag} recall@{TOPK} {recall:.4f} >= 0.9")
+        check(alloc_s[0] < 1.0, f"{tag}: the first add's allocator time "
+                                f"{alloc_s[0]:.3f} s < 1 s")
+        if codec == "fp32":
+            total = torch.cuda.get_device_properties(0).total_memory
+            check(grow_peak > total > 20 * index.resident_bytes(),
+                  f"{tag}: the padded layout would need {grow_peak / 2**30:.1f}"
+                  f" GiB to grow to this corpus, beyond the card's "
+                  f"{total / 2**30:.1f} GiB; the paged store holds it in "
+                  f"{index.resident_bytes() / 2**30:.2f} GiB")
+        check(all(ids.shape == (IVF_B, TOPK)
+                  and bool(((ids >= 0) & (ids < n)).all())
+                  and bool(torch.isfinite(dd).all()) for ids, dd in res),
+              f"{tag} results: ids in [0, N), finite distances")
+        del index, inner, res
+    del x, queries, brute
+    torch.cuda.empty_cache()
+
+    # ---- phase 6c: the paged store under a byte budget --------------------
+    # the uniform IVF corpus (seed 4, as phase 5 draws it), its rows sorted
+    # by their blob so that each chunk covers other cells than the last,
+    # into a paged fp32 store of half the full store's page bytes
+    gen_ivf = torch.Generator(device=dev).manual_seed(SEED + 4)
+    centers = torch.randn(k, d, device=dev, generator=gen_ivf) * 5.0
+    lab = torch.randint(0, k, (n,), device=dev, generator=gen_ivf)
+    x = centers[lab] + 0.4 * torch.randn(n, d, device=dev, generator=gen_ivf)
+    x = x[torch.argsort(lab, stable=True)]
+    q = x[torch.randperm(n, device=dev, generator=gen_ivf)[:IVF_B]]
+    budget = paged_page_bytes // 2
+    tag = "paged_evict/fp32"
+    print(f"\n[{tag}] N={n} d={d} K={k}, store_bytes {budget} (half the "
+          f"full paged store's page bytes), rows added by blob in chunks of "
+          f"{SKEW_CHUNK}", flush=True)
+    index = IVFIndex(centers, 8, store="paged", page_size=PAGE,
+                     store_bytes=budget, codec="fp32")
+    add_s, evicted = [], []
+    for lo in range(0, n, SKEW_CHUNK):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cells_last = index.add(x[lo:lo + SKEW_CHUNK])
+        torch.cuda.synchronize()
+        add_s.append(time.perf_counter() - t0)
+        evicted.append(index.evicted)
+    ids, dd = index.search(q, topk=TOPK, nprobe=NPROBE)
+    listed = index.posting_lists()[0]
+    stored = int(index.counts.sum())
+    last = torch.unique(cells_last.long()).cpu().numpy()
+    rec = {"N": n, "store_bytes": budget, "evicted": index.evicted,
+           "spilled": index.spilled, "stored": stored,
+           "evicted_after_add": evicted, "add_s": add_s,
+           "resident_bytes": index.resident_bytes(),
+           "occupied_pages": index.store.occupied_pages()}
+    details["paged_evict"] = rec
+    print(f"  evicted {index.evicted} rows, spilled {index.spilled}, stored "
+          f"{stored}; evicted after each add {evicted}; adds "
+          + ", ".join(f"{t:.3f}" for t in add_s) + " s; resident "
+          f"{index.resident_bytes() / 2**30:.3f} GiB", flush=True)
+    check(index.evicted > 0, f"{tag}: the budget evicted rows "
+                             f"({index.evicted})")
+    check(index.n_total - index.evicted - index.spilled == stored,
+          f"{tag}: n_total {index.n_total} - evicted {index.evicted} - "
+          f"spilled {index.spilled} == rows stored {stored}")
+    check(bool(torch.isin(ids[ids >= 0], listed).all()),
+          f"{tag}: every id a search returns is in posting_lists()")
+    check(bool((index.evict_counts[last] == 0).all()),
+          f"{tag}: the {last.size} cells of the last add keep their rows "
+          f"(evict_counts 0)")
+    check(bool(((ids >= -1) & (ids < n)).all())
+          and bool(torch.isfinite(dd[ids >= 0]).all()),
+          f"{tag}: ids valid or -1, finite distances where found")
+    del index, x, q, centers, lab, ids, dd, listed
     torch.cuda.empty_cache()
 
     # ---- phase 7: out-of-core Lloyd (ChunkedKMeans, paper §4.3) ----------
@@ -3245,9 +3735,27 @@ def main() -> int:
         else:
             check(launches[kname] > 0, f"{kname} launched on the main path "
                                        f"({launches[kname]} launches)")
+    # the store scans' paged mode: the same kernels reading rows through
+    # the paged store's page table, launched by the paged stores' runs
+    for kname, base_ in PAGED_ROWS.items():
+        t = timing[f"ivf/{kname}"]
+        t_bytes = t["bytes"] / HBM_BW * 1e3
+        t_ops = t["ops"] / peak(base_, t["dtype"]) * 1e3
+        table.append({
+            "name": kname, "route": "cuda", "source": sources[base_],
+            "replaces": replaces[base_], "launches": paged_launches[kname],
+            "max_abs_err": max_err[kname], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": t["library_ms"], "shape": t["shape"],
+            "dtype": t["dtype"]})
+        check(paged_launches[kname] > 0,
+              f"{kname} launched on the paged stores' paths "
+              f"({paged_launches[kname]} launches)")
     for tag, t in timing.items():
         t_bytes = t["bytes"] / HBM_BW * 1e3
-        t_ops = t["ops"] / peak(tag.rsplit("/", 1)[1], t["dtype"]) * 1e3
+        kn = tag.rsplit("/", 1)[1]
+        t_ops = t["ops"] / peak(PAGED_ROWS.get(kn, kn), t["dtype"]) * 1e3
         t["bound_ms"] = max(t_bytes, t_ops)
         t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         cuda_core = (f", CUDA-core bound {t['bound_cuda_core_ms']:.3f} ms"

@@ -8,14 +8,15 @@
 //                                                                        (lists of at most 64,
 //                                                                        blocks of at most 1,024 rows),
 //                                                                        flash_probe_grouped_kernel
-//                              and, reading the padded store in place instead of a
-//                              gathered block (with gather_global, repro/index/store.py)
+//                              and, reading the store in place through its page table
+//                              instead of a gathered block (with gather_global,
+//                              repro/index/store.py)
 //                                                                     -> flash_probe_store_kernel
 //                                                                        (lists of at most 32),
 //                                                                        flash_probe_store_list_kernel
 //   flash_probe_grouped_q8_raw (_flash_probe_grouped_q8_kernel, l.157) -> flash_probe_grouped_q8_kernel
-//                              and, reading the quantized store in place instead of a
-//                              gathered block (with gather_global_q8)
+//                              and, reading the quantized store in place through its page
+//                              table instead of a gathered block (with gather_global_q8)
 //                                                                     -> flash_probe_store_q8_kernel
 //                                                                        (lists of at most 64),
 //                                                                        flash_probe_store_q8_list_kernel
@@ -274,13 +275,25 @@ struct GroupedRow {  // kernel 5: each query against its own candidate block
   }
 };
 
+// The store scans' one addressing rule: slot w of cell c is row w % ps of pool page
+// table[c * maxp + w / ps], as a row of the (pages, ps, ...) pool. The paged store's
+// pages are ps rows; the padded store passes no table: it is K pages of cap rows, cell c
+// on page c, and no slot's page is looked up. Only live slots (w < the cell's count) are
+// ever addressed.
+__device__ __forceinline__ size_t page_row(const int* table, int maxp, int ps, int cell,
+                                          int w) {
+  const int page = table != nullptr ? __ldg(table + (size_t)cell * maxp + w / ps) : cell;
+  return (size_t)page * ps + w % ps;
+}
+
 template <typename T, bool kVec>
 struct StoreRow {      // kernel 5, store mode, lists longer than a warp keeps
   const T* q;          // (B, d)
-  const T* buckets;    // (K, cap, d)
-  const int* counts;   // (K,)
+  const T* rows;       // (pages, ps, d)
+  const int* table;    // (cells, maxp) page ids, or nullptr: cell c on page c
+  const int* counts;   // (cells,)
   const int* probe;    // (B, P)
-  int P, cap, width, d;
+  int P, maxp, ps, width, d;
   float pad;           // the store's padding coordinate, as its dtype holds it
   // Candidate idx = p * width + w is slot w of cell probe[b, p]; a slot at or past the
   // cell's count is a pad, scored from the constant without a read.
@@ -289,7 +302,8 @@ struct StoreRow {      // kernel 5, store mode, lists longer than a warp keeps
     if (valid) {
       const int p = idx / width, w = idx - p * width;
       const int cell = __ldg(probe + (size_t)b * P + p);
-      const T* cr = w < __ldg(counts + cell) ? buckets + ((size_t)cell * cap + w) * d : nullptr;
+      const T* cr =
+          w < __ldg(counts + cell) ? rows + page_row(table, maxp, ps, cell, w) * d : nullptr;
       acc = expanded_part<T, kVec, false>(q + (size_t)b * d, cr, pad, d, lane_g, g);
     }
     return group_sum(acc, g);
@@ -378,18 +392,19 @@ template <bool kVec>
 struct StoreQ8Row {     // kernel 6, store mode, lists longer than the cell mode keeps
   const float* qp;      // (B, P, d) shifted queries
   const float* qsq;     // (B, P) ||q'||^2
-  const int8_t* codes;  // (K, cap, d)
-  const float* scales;  // (K, cap), 0 on empty slots
-  const int* counts;    // (K,)
+  const int8_t* codes;  // (pages, ps, d)
+  const float* scales;  // (pages, ps), 0 on empty slots
+  const int* table;     // (cells, maxp) page ids, or nullptr: cell c on page c
+  const int* counts;    // (cells,)
   const int* probe;     // (B, P)
-  int P, cap, width, d;
+  int P, maxp, ps, width, d;
   // Candidate idx = p * width + w is slot w of cell probe[b, p]; a slot at or past the
   // cell's count scores +inf without a read.
   __device__ float operator()(int b, int idx, bool valid, int lane_g, int g) const {
     const int p = idx / width, w = idx - p * width;
     const int cell = valid ? __ldg(probe + (size_t)b * P + p) : 0;
     const bool live = valid && w < __ldg(counts + cell);
-    const size_t row = (size_t)cell * cap + w;
+    const size_t row = live ? page_row(table, maxp, ps, cell, w) : 0;
     const float s = live ? __ldg(scales + row) : 0.f;
     float cross = 0.f, rsq = 0.f;
     if (s > 0.f)
@@ -507,25 +522,31 @@ __device__ void run_stage1(const Row& row, int C, int lp, int chunk, int g, floa
   scan_topl(row, b, c0, c1, lp, g, lv0, li0, lv1, li1, part_v + o, part_i + o);
 }
 
-// ---- kernel 5, store mode: the posting-list scan reads the padded store ------------
+// ---- kernel 5, store mode: the posting-list scan reads the store in place ----------
 //
 // Query b's candidate p * width + w is slot w of cell probe[b, p]. A cell's live rows
-// [0, counts[cell]) are contiguous in the (K, cap, d) store and are read in place: no
-// candidate block is written. Slots at or past counts[cell] are padding (every
-// coordinate the store's padding value, id -1); no pad row is read. All of a query's
-// pads score alike, so the scorer runs once on the constant and the pads a list needs
-// enter as one sorted run (ascending index), exactly where they would if read.
+// [0, counts[cell]) are read in place through its page-table row (page_row): they are
+// contiguous within a page, pages of ps rows in a (pages, ps, d) pool (the padded store
+// is K pages of cap rows and passes no table, so a cell is one page, read without a
+// table lookup). No candidate block is written. Slots
+// at or past counts[cell] are padding (every coordinate the store's padding value, id
+// -1); no pad row is read. All of a query's pads score alike, so the scorer runs once on
+// the constant and the pads a list needs enter as one sorted run (ascending index),
+// exactly where they would if read.
 //
 // Cell mode, for lists of at most kWarpList entries (the search's top-k). The wrapper
 // sorts the (query, probe) pairs by cell; a prologue kernel cuts the sorted pairs into
 // units of at most kCellPairs pairs of one cell. A work item is one unit and one of S
 // splits of the cell's slots. A CTA takes items from a counter; it streams the item's
 // live rows with TMA bulk copies (cp.async.bulk, completion on an mbarrier) through a
-// ring of kCellStages shared-memory tiles, and each warp scores every tile against its
-// own pair's query, keeping that pair's list in registers (lane i holds entry i). So a
-// row is read from HBM once per unit, not once per pair, and every pair of the unit
-// scores it from shared memory. Rows whose width is not a multiple of 16 bytes are
-// copied by the threads instead (the scalar path).
+// ring of kCellStages shared-memory tiles, one copy per page run of a tile (a tile is
+// contiguous only within a page: at most ceil(tile_rows / ps) + 1 copies from thread 0,
+// all on the stage's mbarrier, whose expected bytes are their sum; the ring stays
+// contiguous). Items past a cell's live rows issue no copy. Each warp scores every tile
+// against its own pair's query, keeping that pair's list in registers (lane i holds
+// entry i). So a row is read from HBM once per unit, not once per pair, and every pair
+// of the unit scores it from shared memory. Rows whose width is not a multiple of 16
+// bytes are copied by the threads instead, through the same page_row (the scalar path).
 //
 // Scoring: a group of G lanes (scan_lanes: each lane up to 4 of a row's 16-byte
 // vectors) takes 8 consecutive rows of the tile at once, each lane reading its vectors
@@ -934,10 +955,10 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
 // pair * S + s, so query b's lists are slots [b P S, (b + 1) P S).
 template <typename T, bool kVec, int G>
 __global__ void __launch_bounds__(kThreads, kStoreMinBlocks)
-    flash_probe_store_kernel(const T* q, const T* buckets, const int* counts, const int* sc,
-                             const int* order, const int* units, int* work, int npairs, int P,
-                             int cap, int width, int d, float pad, int lp, int chunk, int S,
-                             int tile_rows, float* pv, int* pi) {
+    flash_probe_store_kernel(const T* q, const T* rows, const int* table, const int* counts,
+                             const int* sc, const int* order, const int* units, int* work,
+                             int npairs, int P, int maxp, int ps, int width, int d, float pad,
+                             int lp, int chunk, int S, int tile_rows, float* pv, int* pi) {
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
   int* s_item = reinterpret_cast<int*>(smem + 8 * kCellStages);
   T* ring = reinterpret_cast<T*>(smem + kCellHead);
@@ -961,21 +982,30 @@ __global__ void __launch_bounds__(kThreads, kStoreMinBlocks)
     const int live = min(counts[cell], width);
     const int w0 = s * chunk, w1 = min(width, w0 + chunk), hi = max(w0, min(w1, live));
     const int ntiles = (hi - w0 + tile_rows - 1) / tile_rows;
-    const T* src = buckets + ((size_t)cell * cap + w0) * d;
     auto fill = [&](int t) {  // tile t of the item into its stage
       const unsigned k = (used + t) % kCellStages;
-      const int nt = min(tile_rows, hi - w0 - t * tile_rows);
+      const int s0 = w0 + t * tile_rows;  // the tile's first slot
+      const int nt = min(tile_rows, hi - s0);
       T* dst = ring + k * stage;
-      const T* from = src + (size_t)t * tile_rows * d;
-      if constexpr (kVec) {
-        if (threadIdx.x == 0) {
-          const uint32_t bytes = (uint32_t)((size_t)nt * d * sizeof(T));
-          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-          mbar_expect_tx(smem_u32(bars + k), bytes);
-          bulk_load(smem_u32(dst), from, bytes, smem_u32(bars + k));
+      if constexpr (kVec) {  // thread 0 issues the copies
+        if (threadIdx.x != 0) return;
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        mbar_expect_tx(smem_u32(bars + k), (uint32_t)((size_t)nt * d * sizeof(T)));
+      }
+      // the tile's slots as runs within pages, page_row's rule a run at a time (pg:
+      // the run's table entry; no table: the cell's page): one bulk copy a run, or
+      // the threads' copies on the scalar path
+      const int* pg = table != nullptr ? table + (size_t)cell * maxp + s0 / ps : nullptr;
+      for (int r = 0, off = s0 % ps; r < nt; off = 0) {
+        const int n = min(nt - r, ps - off);
+        const T* src = rows + ((size_t)(pg != nullptr ? __ldg(pg++) : cell) * ps + off) * d;
+        if constexpr (kVec) {
+          bulk_load(smem_u32(dst + (size_t)r * d), src, (uint32_t)((size_t)n * d * sizeof(T)),
+                    smem_u32(bars + k));
+        } else {
+          for (int e = threadIdx.x; e < n * d; e += blockDim.x) dst[(size_t)r * d + e] = src[e];
         }
-      } else {
-        for (int e = threadIdx.x; e < nt * d; e += blockDim.x) dst[e] = from[e];
+        r += n;
       }
     };
     for (int t = 0; t < min(ntiles, kCellStages - 1); ++t) fill(t);
@@ -1019,10 +1049,10 @@ __global__ void __launch_bounds__(kThreads, kStoreMinBlocks)
 
 // ---- kernel 6, store mode: the q8 scan reads the quantized store in place ---------
 //
-// The q8 proposal over the probed cells of the quantized store: codes (K, cap, d) int8
-// and scales (K, cap) f32 (0 on every dead slot), read in place through probe and
-// counts, so the (B, nprobe * width) candidate block of codes and scales is never
-// written. Query b's candidate p * width + w is slot w of cell probe[b, p], scored
+// The q8 proposal over the probed cells of the quantized store: codes (pages, ps, d)
+// int8 and scales (pages, ps) f32 (0 on every dead slot), read in place through probe,
+// counts and the page table (page_row; the padded store passes none), so the
+// (B, nprobe * width) candidate block of codes and scales is never written. Query b's candidate p * width + w is slot w of cell probe[b, p], scored
 // ||q'||^2 - 2 q'.r + ||r||^2 with r = code * s and q' = q - anchor[cell] (the pair's
 // row of qp, with qsq its ||q'||^2: the block path's own prologue); +inf where s <= 0,
 // and +inf without a read for slots at or past the cell's count. Those +inf entries
@@ -1032,16 +1062,20 @@ __global__ void __launch_bounds__(kThreads, kStoreMinBlocks)
 // vectors, d <= 512: the fp32 cell mode's dataflow. The pairs are sorted by cell, so the pairs of a unit share one
 // anchor and one cell; each work item streams its cell's live codes with their scales
 // (one more cp.async.bulk on the same mbarrier, so a tile's scales arrive with its
-// codes) through a ring of kCellStages tiles. r = code * s and ||r||^2 do not depend on
+// codes; a pair of copies per page run of the tile) through a ring of kCellStages tiles. r = code * s and ||r||^2 do not depend on
 // the query, so all the CTA's warps dequantize each tile once into shared memory
 // (q8_dequant), and each warp then scores the tile's rows for its own pair: a group of
 // G lanes (the block kernel's lane count, one 16-value vector a lane) takes 8 rows at
 // once, q' held in registers, and tree8 adds the lanes (Q8Rows). Every sum is Q8Row's,
 // in its order and lane pairing, so store and block modes agree bit for bit. Slot
-// offsets and tile sizes are multiples of 4 rows (the wrapper rounds the split), so the
-// scales' copies are 16-byte aligned; a tile's copy may run up to 3 rows past the live
-// ones, inside the cell's cap (a multiple of 4; the wrapper sends other stores, and
-// scales that do not start on 16 bytes, to the list mode).
+// offsets and tile sizes are multiples of 4 rows (the wrapper rounds the split), and so
+// are page boundaries (ps % 4 == 0: both layouts round their pages to 8 rows; the
+// wrapper sends other stores, and scales that do not start on 16 bytes, to the list
+// mode). So every page run of a tile but the last is a whole number of 16-byte groups of
+// scales, and the last, rounded up to 4 rows, runs up to 3 rows past the live ones but
+// stays inside its own page, whose end is a multiple of 4. The dequantized tile, and
+// every sum, are in the same order as without pages, so store and block modes still
+// agree bit for bit.
 //
 // List mode, for longer lists and other rows (d % 16 != 0, the block kernel's scalar
 // path; d > 512): run_stage1 with StoreQ8Row, a CTA per split of a query's
@@ -1166,10 +1200,10 @@ struct Q8Rows {
 template <int G, int kN>
 __global__ void __launch_bounds__(kThreads, (kN > 1 && G < 4 ? 1 : 2))
     flash_probe_store_q8_kernel(const float* qp, const float* qsq, const int8_t* codes,
-                                const float* scales, const int* counts, const int* sc,
-                                const int* order, const int* units, int* work, int npairs,
-                                int P, int cap, int width, int d, int lp, int chunk, int S,
-                                int tile_rows, float* pv, int* pi) {
+                                const float* scales, const int* table, const int* counts,
+                                const int* sc, const int* order, const int* units, int* work,
+                                int npairs, int P, int maxp, int ps, int width, int d, int lp,
+                                int chunk, int S, int tile_rows, float* pv, int* pi) {
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
   int* s_item = reinterpret_cast<int*>(smem + 8 * kCellStages);
   unsigned char* ring = smem + kCellHead;
@@ -1197,19 +1231,26 @@ __global__ void __launch_bounds__(kThreads, (kN > 1 && G < 4 ? 1 : 2))
     const int live = min(counts[cell], width);
     const int w0 = s * chunk, w1 = min(width, w0 + chunk), hi = max(w0, min(w1, live));
     const int ntiles = (hi - w0 + tile_rows - 1) / tile_rows;
-    const size_t row0 = (size_t)cell * cap + w0;
     auto fill = [&](int t) {  // tile t of the item into its stage: codes and scales
       const unsigned k = (used + t) % kCellStages;
-      const int nt = min(tile_rows, hi - w0 - t * tile_rows);
-      unsigned char* dst = ring + k * stage;
-      const size_t r0 = row0 + (size_t)t * tile_rows;
       if (threadIdx.x == 0) {
-        const int n4 = (nt + 3) & ~3;  // whole 16-byte groups of scales
-        const uint32_t cb = (uint32_t)((size_t)n4 * d), sb = (uint32_t)n4 * 4;
+        const int s0 = w0 + t * tile_rows;  // the tile's first slot, a multiple of 4
+        const int n4 = (min(tile_rows, hi - s0) + 3) & ~3;  // whole 16-byte groups of scales
+        unsigned char* dst = ring + k * stage;
         asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-        mbar_expect_tx(smem_u32(bars + k), cb + sb);
-        bulk_load(smem_u32(dst), codes + r0 * d, cb, smem_u32(bars + k));
-        bulk_load(smem_u32(dst + code_bytes), scales + r0, sb, smem_u32(bars + k));
+        mbar_expect_tx(smem_u32(bars + k), (uint32_t)n4 * (uint32_t)(d + 4));
+        // one pair of copies per page run, page_row's rule a run at a time (pg: the
+        // run's table entry; no table: the cell's page): n % 4 == 0
+        const int* pg = table != nullptr ? table + (size_t)cell * maxp + s0 / ps : nullptr;
+        for (int r = 0, off = s0 % ps; r < n4; off = 0) {
+          const int n = min(n4 - r, ps - off);
+          const size_t row = (size_t)(pg != nullptr ? __ldg(pg++) : cell) * ps + off;
+          bulk_load(smem_u32(dst + (size_t)r * d), codes + row * d, (uint32_t)(n * d),
+                    smem_u32(bars + k));
+          bulk_load(smem_u32(dst + code_bytes + 4 * r), scales + row, (uint32_t)n * 4,
+                    smem_u32(bars + k));
+          r += n;
+        }
       }
     };
     for (int t = 0; t < min(ntiles, kCellStages - 1); ++t) fill(t);
@@ -1618,21 +1659,23 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-    flash_probe_store_list_kernel(const T* q, const T* buckets, const int* counts,
-                                  const int* probe, int P, int cap, int width, int d, float pad,
-                                  int lp, int chunk, int g, float* pv, int* pi, float* lv,
-                                  int* li) {
-  run_stage1(StoreRow<T, kVec>{q, buckets, counts, probe, P, cap, width, d, pad}, P * width, lp,
-             chunk, g, pv, pi, lv, li);
+    flash_probe_store_list_kernel(const T* q, const T* rows, const int* table,
+                                  const int* counts, const int* probe, int P, int maxp, int ps,
+                                  int width, int d, float pad, int lp, int chunk, int g,
+                                  float* pv, int* pi, float* lv, int* li) {
+  run_stage1(StoreRow<T, kVec>{q, rows, table, counts, probe, P, maxp, ps, width, d, pad},
+             P * width, lp, chunk, g, pv, pi, lv, li);
 }
 
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     flash_probe_store_q8_list_kernel(const float* qp, const float* qsq, const int8_t* codes,
-                                     const float* scales, const int* counts, const int* probe,
-                                     int P, int cap, int width, int d, int lp, int chunk, int g,
-                                     float* pv, int* pi, float* lv, int* li) {
-  run_stage1(StoreQ8Row<kVec>{qp, qsq, codes, scales, counts, probe, P, cap, width, d},
+                                     const float* scales, const int* table, const int* counts,
+                                     const int* probe, int P, int maxp, int ps, int width, int d,
+                                     int lp, int chunk, int g, float* pv, int* pi, float* lv,
+                                     int* li) {
+  run_stage1(StoreQ8Row<kVec>{qp, qsq, codes, scales, table, counts, probe, P, maxp, ps, width,
+                              d},
              P * width, lp, chunk, g, pv, pi, lv, li);
 }
 
@@ -1824,9 +1867,9 @@ cudaError_t launch_grouped_warp(const void* q, const void* c, void* out_v, void*
 
 // The store scan's arguments (fk_flash_probe_store).
 struct StoreArgs {
-  const void *q, *buckets, *counts, *probe, *sc, *order;
+  const void *q, *rows, *table, *counts, *probe, *sc, *order;
   void* units;
-  int B, P, cap, width, d, lp, S, chunk, tile_rows;
+  int B, P, maxp, ps, width, d, lp, S, chunk, tile_rows;
   float pad;
   void *pv, *pi, *lv, *li;
 };
@@ -1853,9 +1896,9 @@ cudaError_t launch_store_g(const StoreArgs& a, cudaStream_t st) {
   const long long items = (long long)npairs * a.S;  // at least the units' items
   const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
   kernel<<<(unsigned)(items < resident ? items : resident), kThreads, sm, st>>>(
-      (const T*)a.q, (const T*)a.buckets, (const int*)a.counts, (const int*)a.sc,
-      (const int*)a.order, units, units + npairs, npairs, a.P, a.cap, a.width, a.d, a.pad, a.lp,
-      a.chunk, a.S, a.tile_rows, (float*)a.pv, (int*)a.pi);
+      (const T*)a.q, (const T*)a.rows, (const int*)a.table, (const int*)a.counts,
+      (const int*)a.sc, (const int*)a.order, units, units + npairs, npairs, a.P, a.maxp, a.ps,
+      a.width, a.d, a.pad, a.lp, a.chunk, a.S, a.tile_rows, (float*)a.pv, (int*)a.pi);
   return cudaGetLastError();
 }
 
@@ -1874,25 +1917,25 @@ cudaError_t launch_store_v(int g, const StoreArgs& a, cudaStream_t st) {
 template <typename T>
 cudaError_t launch_store(const StoreArgs& a, bool cell, cudaStream_t st) {
   constexpr int V = Vec16<T>::N;
-  const bool vec = a.d % V == 0 && aligned16(a.q) && aligned16(a.buckets);
+  const bool vec = a.d % V == 0 && aligned16(a.q) && aligned16(a.rows);
   const int g = scan_lanes(vec ? a.d / V : a.d);
   if (cell) return vec ? launch_store_v<T, true>(g, a, st) : launch_store_v<T, false>(g, a, st);
   const dim3 grid(a.B, a.S);
   const size_t sm = stage1_smem(a.lp, a.lv);
   auto kernel = vec ? flash_probe_store_list_kernel<T, true>
                     : flash_probe_store_list_kernel<T, false>;
-  kernel<<<grid, kThreads, sm, st>>>((const T*)a.q, (const T*)a.buckets, (const int*)a.counts,
-                                     (const int*)a.probe, a.P, a.cap, a.width, a.d, a.pad, a.lp,
-                                     a.chunk, g, (float*)a.pv, (int*)a.pi, (float*)a.lv,
-                                     (int*)a.li);
+  kernel<<<grid, kThreads, sm, st>>>((const T*)a.q, (const T*)a.rows, (const int*)a.table,
+                                     (const int*)a.counts, (const int*)a.probe, a.P, a.maxp, a.ps,
+                                     a.width, a.d, a.pad, a.lp, a.chunk, g, (float*)a.pv,
+                                     (int*)a.pi, (float*)a.lv, (int*)a.li);
   return cudaGetLastError();
 }
 
 // The q8 store scan's arguments (fk_flash_probe_store_q8).
 struct StoreQ8Args {
-  const void *qp, *qsq, *codes, *scales, *counts, *probe, *sc, *order;
+  const void *qp, *qsq, *codes, *scales, *table, *counts, *probe, *sc, *order;
   void* units;
-  int B, P, cap, width, d, lp, S, chunk, tile_rows;
+  int B, P, maxp, ps, width, d, lp, S, chunk, tile_rows;
   void *pv, *pi, *lv, *li;
 };
 
@@ -1920,9 +1963,9 @@ cudaError_t launch_store_q8_cell(const StoreQ8Args& a, cudaStream_t st) {
   const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
   kernel<<<(unsigned)(items < resident ? items : resident), kThreads, sm, st>>>(
       (const float*)a.qp, (const float*)a.qsq, (const int8_t*)a.codes, (const float*)a.scales,
-      (const int*)a.counts, (const int*)a.sc, (const int*)a.order, units, units + npairs,
-      npairs, a.P, a.cap, a.width, a.d, a.lp, a.chunk, a.S, a.tile_rows, (float*)a.pv,
-      (int*)a.pi);
+      (const int*)a.table, (const int*)a.counts, (const int*)a.sc, (const int*)a.order, units,
+      units + npairs, npairs, a.P, a.maxp, a.ps, a.width, a.d, a.lp, a.chunk, a.S, a.tile_rows,
+      (float*)a.pv, (int*)a.pi);
   return cudaGetLastError();
 }
 
@@ -1944,8 +1987,9 @@ cudaError_t launch_store_q8(const StoreQ8Args& a, bool cell, cudaStream_t st) {
   const int g = group_lanes(vec ? a.d / 16 : a.d);
   if (cell) {
     // 8 rows a group of g lanes, one 16-code vector a lane, tiles copied in whole
-    // 16-byte groups of scales (the wrapper sends other rows and stores to the list mode)
-    if (!vec || a.d > 16 * g || a.tile_rows % (8 * (32 / g)) != 0 || a.cap % 4 != 0 ||
+    // 16-byte groups of scales, pages of a multiple of 4 rows (the wrapper sends other
+    // rows and stores to the list mode)
+    if (!vec || a.d > 16 * g || a.tile_rows % (8 * (32 / g)) != 0 || a.ps % 4 != 0 ||
         !aligned16(a.scales))
       return cudaErrorInvalidValue;
     if (a.lp > kWarpList) return launch_store_q8_g<2>(g, a, st);
@@ -1957,9 +2001,10 @@ cudaError_t launch_store_q8(const StoreQ8Args& a, bool cell, cudaStream_t st) {
                     : flash_probe_store_q8_list_kernel<false>;
   kernel<<<grid, kThreads, sm, st>>>((const float*)a.qp, (const float*)a.qsq,
                                      (const int8_t*)a.codes, (const float*)a.scales,
-                                     (const int*)a.counts, (const int*)a.probe, a.P, a.cap,
-                                     a.width, a.d, a.lp, a.chunk, g, (float*)a.pv, (int*)a.pi,
-                                     (float*)a.lv, (int*)a.li);
+                                     (const int*)a.table, (const int*)a.counts,
+                                     (const int*)a.probe, a.P, a.maxp, a.ps, a.width, a.d, a.lp,
+                                     a.chunk, g, (float*)a.pv, (int*)a.pi, (float*)a.lv,
+                                     (int*)a.li);
   return cudaGetLastError();
 }
 
@@ -2033,23 +2078,27 @@ extern "C" int fk_flash_probe_grouped_warp(const void* q, const void* c, void* o
                    : launch_grouped_warp<float>(q, c, out_v, out_i, B, C, d, L, st));
 }
 
-// The store scan: q (B, d), buckets (K, cap, d) of q's dtype, counts (K,), probe (B, P)
-// int32. cell != 0 (the cell mode): sc and order are probe's cells sorted and
+// The store scan: q (B, d), rows (pages, ps, d) of q's dtype, table (cells, maxp) int32
+// page ids (slot w of cell c is row w % ps of page table[c * maxp + w / ps]; nullptr:
+// cell c on page c, maxp 1), counts (cells,), probe (B, P) int32. cell != 0 (the cell mode): sc and order are probe's cells sorted and
 // their positions b * P + p, units scratch of B * P + 2 ints; S splits of each pair's
 // `width` slots in chunks, B * P * S partial lists (the merge takes P * S a query).
 // cell == 0 (the list mode): S CTAs per query split its P * width slots, B * S lists
 // (sc, order, units unused). With a single list per query part must be the outputs.
-extern "C" int fk_flash_probe_store(const void* q, const void* buckets, const void* counts,
-                                    const void* probe, const void* sc, const void* order,
-                                    void* units, void* out_v, void* out_i, void* part_v,
-                                    void* part_i, void* lws_v, void* lws_i, void* mws_v,
-                                    void* mws_i, int B, int P, int cap, int width, int d, int L,
-                                    int S, int chunk, int lp, int tile_rows, float pad, int cell,
-                                    int is_bf16, void* stream) {
+extern "C" int fk_flash_probe_store(const void* q, const void* rows, const void* table,
+                                    const void* counts, const void* probe, const void* sc,
+                                    const void* order, void* units, void* out_v, void* out_i,
+                                    void* part_v, void* part_i, void* lws_v, void* lws_i,
+                                    void* mws_v, void* mws_i, int B, int P, int maxp, int ps,
+                                    int width, int d, int L, int S, int chunk, int lp,
+                                    int tile_rows, float pad, int cell, int is_bf16,
+                                    void* stream) {
   using namespace fk::probe;
   cudaStream_t st = (cudaStream_t)stream;
-  const StoreArgs a{q, buckets, counts, probe, sc, order, units, B, P, cap, width, d,
-                    lp, S, chunk, tile_rows, pad, part_v, part_i, lws_v, lws_i};
+  if (maxp < 1 || ps < 1) return (int)cudaErrorInvalidValue;
+  const StoreArgs a{q,     rows, table, counts, probe, sc,        order, units,  B,
+                    P,     maxp, ps,    width,  d,     lp,        S,     chunk,  tile_rows,
+                    pad,   part_v, part_i, lws_v, lws_i};
   const cudaError_t e = is_bf16 ? launch_store<__nv_bfloat16>(a, cell != 0, st)
                                 : launch_store<float>(a, cell != 0, st);
   if (e != cudaSuccess) return (int)e;
@@ -2082,28 +2131,30 @@ extern "C" int fk_flash_probe_grouped_q8(const void* qp, const void* codes, cons
 }
 
 // The q8 store scan: qp (B, P, d) f32 shifted queries, qsq workspace of B * P floats
-// for ||q'||^2 (written by a prologue kernel), codes (K, cap, d) int8, scales (K, cap)
-// f32, counts (K,), probe (B, P) int32. cell != 0 (the cell mode, lists of at most
+// for ||q'||^2 (written by a prologue kernel), codes (pages, ps, d) int8, scales
+// (pages, ps) f32, table (cells, maxp) int32 page ids (nullptr: cell c on page c),
+// counts (cells,), probe (B, P) int32. cell != 0 (the cell mode, lists of at most
 // kQ8List): sc and order are probe's cells sorted and their positions b * P + p, units
 // scratch of B * P + 2 ints; S splits of each pair's width slots in chunks (a multiple
 // of 4), B * P * S partial lists. cell == 0 (the list mode): S CTAs per query split its
 // P * width slots, B * S lists. With a single list per query part must be the outputs.
 extern "C" int fk_flash_probe_store_q8(const void* qp, void* qsq, const void* codes,
-                                       const void* scales, const void* counts,
-                                       const void* probe, const void* sc, const void* order,
-                                       void* units, void* out_v, void* out_i, void* part_v,
-                                       void* part_i, void* lws_v, void* lws_i, void* mws_v,
-                                       void* mws_i, int B, int P, int cap, int width, int d,
-                                       int L, int S, int chunk, int lp, int tile_rows, int cell,
-                                       void* stream) {
+                                       const void* scales, const void* table,
+                                       const void* counts, const void* probe, const void* sc,
+                                       const void* order, void* units, void* out_v, void* out_i,
+                                       void* part_v, void* part_i, void* lws_v, void* lws_i,
+                                       void* mws_v, void* mws_i, int B, int P, int maxp, int ps,
+                                       int width, int d, int L, int S, int chunk, int lp,
+                                       int tile_rows, int cell, void* stream) {
   using namespace fk::probe;
   cudaStream_t st = (cudaStream_t)stream;
-  if (cell && (lp > kQ8List || chunk % 4 != 0 || tile_rows % 32 != 0))
+  if (maxp < 1 || ps < 1 || (cell && (lp > kQ8List || chunk % 4 != 0 || tile_rows % 32 != 0)))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = fk::launch_csq_f32((const float*)qp, (float*)qsq, (long long)B * P, d, st);
   if (e != cudaSuccess) return (int)e;
-  const StoreQ8Args a{qp, qsq, codes, scales, counts, probe, sc, order, units, B, P, cap,
-                      width, d, lp, S, chunk, tile_rows, part_v, part_i, lws_v, lws_i};
+  const StoreQ8Args a{qp,   qsq, codes, scales, table, counts, probe,  sc,     order,
+                      units, B,   P,     maxp,   ps,    width,  d,      lp,     S,
+                      chunk, tile_rows, part_v, part_i, lws_v, lws_i};
   e = launch_store_q8(a, cell != 0, st);
   if (e != cudaSuccess) return (int)e;
   const int lists = cell ? P * S : S;

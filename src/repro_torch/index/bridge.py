@@ -10,7 +10,9 @@ store with a device rescore cache, the cache's state (``CACHE_KEYS``:
 the router as ``{"meta": router.meta(), "arrays": router.state_arrays()}``
 (the reference's snapshot keys; ``router_from_numpy``), so both packages
 search over one coarse level (their trainings draw from different RNGs).
-``index_to_numpy`` gives the same state back from the port's index. The
+``index_to_numpy`` gives the same state back from the port's index (a
+paged store in the reference's canonical packed form: occupied pages
+cell-major, no free-list state). The
 JAX side converts with ``np.asarray``; neither package is imported here.
 """
 from __future__ import annotations
@@ -73,7 +75,7 @@ def index_from_numpy(centroids, store_arrays: dict, store_meta: dict, *,
     if cache is not None:
         store.cache = _cache_from_numpy(cache, d, store.device)
     rt = router_from_numpy(router, device=store.device, planner=planner)
-    index = IVFIndex(centroids, int(store_meta["cap"]), device=device,
+    index = IVFIndex(centroids, store.capacity, device=device,
                      planner=planner, rescore_mult=rescore_mult,
                      store=store, router=rt)
     index.n_total = int(n_total)
@@ -109,13 +111,14 @@ def cache_to_numpy(cache: DeviceRescoreCache | None) -> dict | None:
 
 
 def _restore_store(host: dict, meta: dict, k: int, d: int, device):
+    """Either layout's store from its snapshot arrays and meta (a paged
+    store's pages come back packed, cell-major)."""
     dev = resolve_device(device)
     if meta.get("codec", "fp32") != "fp32":
         return _store.QuantizedBucketStore.restore(
             host, meta, k=k, d=d, dtype=torch.float32, device=dev)
-    _store._resolve_kind(meta.get("kind", "padded"))
-    return _store.PaddedBucketStore.restore(host, meta, k=k, d=d,
-                                            dtype=torch.float32, device=dev)
+    return _store._layout(meta.get("kind", "padded")).restore(
+        host, meta, k=k, d=d, dtype=torch.float32, device=dev)
 
 
 def index_to_numpy(index: IVFIndex) -> dict:

@@ -1,7 +1,8 @@
 """FlashIVF — an online IVF vector-search index on the port's kernels.
 
-Port of ``repro/index/ivf.py`` for one device, the ``padded`` store, both
-routers and both codecs:
+Port of ``repro/index/ivf.py`` for one device, both stores (``padded``
+and ``paged``: ``store=``, ``page_size=``, ``store_bytes=``), both routers
+and both codecs:
 
 - **train** — ``build`` fits the coarse centroids with the port's
   ``KMeans`` (init from a ``torch.Generator`` seeded with ``seed``, so the
@@ -11,8 +12,9 @@ routers and both codecs:
   of the assignments is the concatenation of all lists;
 - **probe** — ``ops.flash_probe`` picks each query's ``nprobe`` nearest
   cells and ``ops.flash_probe_store`` scans their live rows in place in
-  the padded store (the reference gathers a ``(B, nprobe*width, d)``
-  candidate block first; the result is the same); on a ``q8`` store
+  the store, through its page table (the store's ``scan_view``; the
+  reference gathers a ``(B, nprobe*width, d)`` candidate block first; the
+  result is the same); on a ``q8`` store
   ``ops.flash_probe_store_q8`` proposes the top ``R`` from the int8 codes,
   read in place as well, and ``flash_probe_grouped`` rescores the ``R``
   rows in fp32, read from the ``DeviceRescoreCache`` by a gather on the
@@ -38,8 +40,7 @@ The out-of-core build (``build(chunk_size=)``) trains with
 ``ChunkedKMeans`` and inverts the chunk stream through ``add``.
 
 Not ported yet (ROADMAP.md, queue A): ``pctx`` (the sharded index, item
-6), the paged store (item 4b), fault injection, ``save`` and ``load``
-(item 5). Each raises
+6), fault injection, ``save`` and ``load`` (item 5). Each raises
 ``NotImplementedError``. ``IVFIndex`` runs on the card unless it is asked
 for the CPU: ``device=None`` means ``"cuda"`` and raises when no CUDA
 device is present.
@@ -112,31 +113,26 @@ def _slots(probe: torch.Tensor, li: torch.Tensor, width: int
     """``(cell, slot)`` of the store scans' probe-rank-major indices ``li =
     p * width + w`` (B, L): slot w of cell ``probe[b, p]``."""
     li = li.long()
-    cell = torch.gather(probe.long(), 1,
-                        torch.div(li, width, rounding_mode="floor"))
+    cell = torch.gather(probe, 1, torch.div(li, width, rounding_mode="floor"))
     return cell, li % width
 
 
-def _scan_cells(q, probe, store_arrays, counts, *, topk: int, width: int,
-                plan=None, k: int | None = None
+def _scan_cells(q, probe, view, *, topk: int, width: int, plan=None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The posting-list scan: the store scan keeps each query's top-k of
     its probed cells' ``width`` slots (probe-rank-major index ``p * width +
-    w``), and the ids are looked up at those (B, topk) slots. ``k``: the
-    sentinel cell a routed probe list may hold (``counts`` then has K + 1
-    entries, the last 0): its slots score as padding and take id -1."""
-    buckets, bucket_ids = store_arrays
-    li, dist = ops.flash_probe_store(q, buckets, counts, probe, width=width,
-                                     l=topk, pad=_PAD_COORD, plan=plan)
+    w``), read in place through the store's ``view`` (``ScanView``), and
+    the ids are looked up at those (B, topk) slots. A probe entry may be
+    the sentinel cell K (the view's counts and table have K + 1 rows): its
+    slots score as padding and take id -1."""
+    li, dist = ops.flash_probe_store(q, view.rows, view.counts, probe,
+                                     table=view.table, width=width, l=topk,
+                                     pad=_PAD_COORD, plan=plan)
     cell, w = _slots(probe, li, width)
-    if k is None:
-        return bucket_ids[cell, w], dist
-    return torch.where(cell < k, bucket_ids[cell.clamp(max=k - 1), w],
-                       -1), dist
+    return view.ids_at(cell, w), dist
 
 
-def _q8_scan(q, probe, store_arrays, counts, *, r: int, width: int,
-             plan=None, k: int | None = None
+def _q8_scan(q, probe, view, *, r: int, width: int, plan=None
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Phase 1 of two-phase search on a quantized store, past the probe:
     scan the probed cells' int8 codes and scales in place in the residual
@@ -145,30 +141,21 @@ def _q8_scan(q, probe, store_arrays, counts, *, r: int, width: int,
     same result). Returns the top-``r`` ids (-1 where fewer than ``r``
     live candidates exist) and their dequantized rows, the rescore's
     fallback for ids the reservoir does not hold, decoded for those (B,
-    r) proposals only. ``k``: the sentinel cell, as in ``_scan_cells``
-    (``anchors`` then has K + 1 rows); its slots score ``+inf`` (id -1,
-    padding rows)."""
-    codes, bucket_ids, scales, anchors = store_arrays
-    li, val = ops.flash_probe_store_q8(q, codes, scales, counts, probe,
-                                       anchors, width=width, l=r, plan=plan)
-    cell, w = _slots(probe, li, width)
-    if k is not None:
-        cell = cell.clamp(max=k - 1)
-    ids = torch.where(torch.isfinite(val), bucket_ids[cell, w],
-                      torch.full_like(val, -1, dtype=torch.int32))
-    deq = (anchors[cell]
-           + codes[cell, w].float() * scales[cell, w].unsqueeze(-1))
-    return ids, deq
+    r) proposals only. The sentinel cell K scores ``+inf`` (id -1)."""
+    li, val = ops.flash_probe_store_q8(q, view.rows, view.scales, view.counts,
+                                       probe, view.anchors, table=view.table,
+                                       width=width, l=r, plan=plan)
+    ids, deq = view.q8_at(*_slots(probe, li, width))
+    return torch.where(torch.isfinite(val), ids, -1), deq
 
 
-def _q8_propose(q, centroids, c_sq, store_arrays, counts, *, r: int,
-                nprobe: int, width: int, probe_plan=None, scan_plan=None
+def _q8_propose(q, centroids, c_sq, view, *, r: int, nprobe: int,
+                width: int, probe_plan=None, scan_plan=None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Phase 1 on the flat router: probe, then ``_q8_scan``."""
     probe = _router.probe_cells(q, centroids, c_sq, nprobe=nprobe,
                                 plan=probe_plan)
-    return _q8_scan(q, probe, store_arrays, counts, r=r, width=width,
-                    plan=scan_plan)
+    return _q8_scan(q, probe, view, r=r, width=width, plan=scan_plan)
 
 
 def _rescore_rows(deq, ids, res_rows, found) -> torch.Tensor:
@@ -210,7 +197,11 @@ class IVFIndex:
     (``"device"``, ``"host"``; None = ``REPRO_RESCORE``, else device).
     ``router`` picks how a search finds its ``nprobe`` cells (``"flat"``,
     ``"two_level"``, a router instance; None = ``REPRO_ROUTER``, else
-    flat); a two-level router trains here over the centroids.
+    flat); a two-level router trains here over the centroids. ``store``
+    picks the posting-list layout (``"padded"``, ``"paged"``, a store
+    instance; None = ``REPRO_BUCKET_STORE``, else padded); ``page_size``
+    (default 64) and ``store_bytes`` (the page pool's LRU budget) shape
+    the paged one.
     """
 
     def __init__(self, centroids, capacity: int, *,
@@ -224,9 +215,6 @@ class IVFIndex:
                  rescore: str | None = None, router=None):
         if pctx is not None:
             raise _not_ported("a sharded IVFIndex (pctx)", 6)
-        if page_size is not None or store_bytes is not None:
-            raise _not_ported("the paged store (page_size, store_bytes)",
-                              "4b")
         self.device = resolve_device(device)
         centroids = _as_float(centroids, self.device)
         k, d = centroids.shape
@@ -247,13 +235,15 @@ class IVFIndex:
             if codec == "fp32":
                 self.store = _store.make_store(
                     store, k, d, centroids.dtype, capacity=int(capacity),
-                    max_cap=max_cap, device=self.device)
+                    max_cap=max_cap, page_size=page_size,
+                    max_bytes=store_bytes, device=self.device)
             else:
                 # codes are anchored at the construction-time centroids:
                 # refresh() moves the routing centroids only
                 self.store = _store.make_quantized_store(
                     store, k, d, centroids.dtype, anchors=centroids,
                     codec=codec, capacity=int(capacity), max_cap=max_cap,
+                    page_size=page_size, max_bytes=store_bytes,
                     rescore_bytes=rescore_bytes, rescore=rescore,
                     device=self.device)
         self.n_total = 0
@@ -303,6 +293,14 @@ class IVFIndex:
     @property
     def spill_counts(self) -> np.ndarray:
         return self.store.spill_counts
+
+    @property
+    def evicted(self) -> int:
+        return self.store.evicted
+
+    @property
+    def evict_counts(self) -> np.ndarray:
+        return self.store.evict_counts
 
     @property
     def store_kind(self) -> str:
@@ -616,9 +614,8 @@ class IVFIndex:
         width = self._gather_width(topk, nprobe)
         *head, sp = self.plan_search(q.shape[0], topk, nprobe, nprobe_c)
         probe = self._probe(q, nprobe, nprobe_c, head)
-        return _scan_cells(q, probe, self.store.device_arrays(),
-                           self.store.counts_sentinel, topk=topk,
-                           width=width, plan=sp, k=self.k)
+        return _scan_cells(q, probe, self.store.scan_view(), topk=topk,
+                           width=width, plan=sp)
 
     def _probe(self, q: torch.Tensor, nprobe: int, nprobe_c: int | None,
                head) -> torch.Tensor:
@@ -646,11 +643,8 @@ class IVFIndex:
         r = self._rescore_r(topk, nprobe, width)
         *head, qp, rp = self.plan_search(q.shape[0], topk, nprobe, nprobe_c)
         probe = self._probe(q, nprobe, nprobe_c, head)
-        codes, bucket_ids, scales, _ = st.device_arrays()
-        ids, deq = _q8_scan(q, probe,
-                            (codes, bucket_ids, scales, st.anchors_sentinel),
-                            st.counts_sentinel, r=r, width=width, plan=qp,
-                            k=self.k)
+        ids, deq = _q8_scan(q, probe, st.scan_view(), r=r, width=width,
+                            plan=qp)
         if self._rescore_cache() is not None:
             rows, found = cache_lookup(*st.cache_arrays(), ids)
             return _rescore_body(q, deq, ids, rows, found, topk=topk,

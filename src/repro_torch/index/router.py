@@ -28,8 +28,9 @@ member table whose padding is the sentinel cell ``K``. The two-level
 router's view is the fine centroids in member order, ``(K_c, gcap, d)``
 with ``_PAD_COORD`` rows past each group's size: the fine stage reads that
 table in place with the store scan (``ops.flash_probe_store``, counts the
-group sizes), where the reference gathers a ``(B, nprobe_c gcap, d)``
-block of candidate centroids. The scan's probe-rank-major index ``p gcap +
+group sizes) as a store of ``K_c`` pages of ``gcap`` rows, group g on
+page g (the padded store's form), where the reference gathers a ``(B,
+nprobe_c gcap, d)`` block of candidate centroids. The scan's probe-rank-major index ``p gcap +
 w`` is the reference's candidate index, so ties resolve alike.
 
 ``refresh(centroids)`` re-assigns every fine centroid to its nearest group

@@ -1,26 +1,47 @@
 """BucketStore — the storage layer under FlashIVF posting lists.
 
-Port of ``repro/index/store.py`` for one device and the ``padded``
-layout: one capacity-padded ``(K, cap, d)`` tensor plus ``(K, cap)`` int32
-ids, amortized-doubling growth and a ``max_cap`` spill budget. Padded
-slots hold the finite sentinel ``_PAD_COORD`` (their scores are huge but
-never inf or NaN inside a kernel) and id ``-1``. ``QuantizedBucketStore``
-wraps a padded store of int8 codes with a per-slot f32 scale sidecar
+Port of ``repro/index/store.py`` for one device. Two layouts share one
+contract:
+
+- ``PaddedBucketStore``: one capacity-padded ``(K, cap, d)`` tensor plus
+  ``(K, cap)`` int32 ids, amortized-doubling growth and a ``max_cap`` spill
+  budget. One hot cell sets ``cap`` for all K cells.
+- ``PagedBucketStore``: all cells share one pool of ``(page_size, d)``
+  pages; each cell maps its slots through a row of an int32 page table;
+  pages come from a free list, lowest id first, as the reference hands them
+  out. Resident memory follows the occupied pages. Under ``max_bytes`` an
+  LRU evictor frees the coldest cells' pages (write-recency clock, bumped
+  per append batch), and evicted rows are counted per cell
+  (``evict_counts``, ``evicted``) as ``max_cap`` spills are. Page 0 is the
+  reserved padding page (``_PAD_COORD`` coordinates, id ``-1``), which every
+  unmapped table entry points at.
+
+Padded slots hold the finite sentinel ``_PAD_COORD`` (their scores are huge
+but never inf or NaN inside a kernel) and id ``-1``. ``QuantizedBucketStore``
+wraps either layout holding int8 codes with a per-slot f32 scale sidecar
 (``0.0`` on empty slots), the frozen encode-time anchors, the host
 ``RescoreReservoir`` of original rows (the durable tier) and, with
 ``rescore="device"`` (the default), the ``DeviceRescoreCache``.
 
+The search reads both layouts through one form, the store's ``ScanView``:
+slot ``w`` of cell ``c`` is row ``w % page_size`` of pool page ``table[c, w
+// page_size]``. A padded store is K pages of ``cap`` rows, cell ``c`` on
+page ``c``, and gives no table (the kernels then look no page up); the
+paged table's last row, the sentinel cell K, is all page 0. Outside this
+module nothing reads a raw store tensor.
+
 ``kind=None`` takes ``default_store_kind()`` (``REPRO_BUCKET_STORE``, else
 ``"padded"``), as in the reference. Not ported yet (ROADMAP.md, queue A
-item 4b): the paged store (``kind="paged"``, given or from the
-environment, raises ``NotImplementedError``). Unlike the JAX package
-the port updates its tensors in place, and
-``dense``/``flat`` return tensors on the store's device; ``state_arrays``
-and ``meta`` give the snapshot format's numpy arrays and keys.
+item 6): a store sharded over a mesh (``n_shards > 1``, ``place``,
+``shard_specs``, ``gather_cells``). Unlike the JAX package the port updates
+its tensors in place, and ``dense``/``flat`` return tensors on the store's
+device; ``state_arrays`` and ``meta`` give the snapshot format's numpy
+arrays and keys.
 """
 from __future__ import annotations
 
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -38,8 +59,10 @@ _PAD_COORD = 1e15
 
 STORE_KINDS = ("padded", "paged")
 
-_NOT_PORTED = ("is not ported yet (ROADMAP.md, queue A item 4b: the paged "
-               "store)")
+
+def _sharded(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
+                               f"queue A item 6: the sharded index)")
 
 
 def _round_up(v: int, mult: int) -> int:
@@ -48,6 +71,10 @@ def _round_up(v: int, mult: int) -> int:
 
 def _pow2ceil(v: int) -> int:
     return 1 << max(0, int(v) - 1).bit_length()
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-int(a) // int(b))
 
 
 def _pad_value(dtype: torch.dtype):
@@ -76,23 +103,78 @@ def default_store_kind() -> str:
 
 def _resolve_kind(kind: str | None) -> str:
     kind = kind or default_store_kind()
-    if kind == "paged":
-        raise NotImplementedError(f"store kind 'paged' {_NOT_PORTED}")
-    if kind != "padded":
+    if kind not in STORE_KINDS:
         raise ValueError(f"unknown bucket store kind {kind!r}")
     return kind
 
 
 def make_store(kind: str | None, k: int, d: int, dtype, *, capacity: int = 8,
-               max_cap: int | None = None, device=None) -> "BucketStore":
-    """A posting-list store (``kind=None``: ``default_store_kind()``)."""
-    _resolve_kind(kind)
-    return PaddedBucketStore(k, d, dtype, capacity=capacity, max_cap=max_cap,
-                             device=device)
+               max_cap: int | None = None, page_size: int | None = None,
+               max_bytes: int | None = None, n_shards: int = 1,
+               device=None) -> "BucketStore":
+    """A posting-list store (``kind=None``: ``default_store_kind()``);
+    ``page_size`` (default 64) and ``max_bytes`` apply to the paged
+    layout, as in the reference."""
+    if _resolve_kind(kind) == "padded":
+        return PaddedBucketStore(k, d, dtype, capacity=capacity,
+                                 max_cap=max_cap, device=device)
+    return PagedBucketStore(k, d, dtype, capacity=capacity, max_cap=max_cap,
+                            page_size=page_size or 64, max_bytes=max_bytes,
+                            n_shards=n_shards, device=device)
 
 
 # ---------------------------------------------------------------------------
-# candidate gathers (called from the search bodies)
+# the scan view: one addressing rule for both layouts
+# ---------------------------------------------------------------------------
+
+class ScanView(NamedTuple):
+    """What the store scans read: ``rows (pages, page_size, d)`` (the int8
+    codes of a quantized store), ``ids (pages, page_size)`` int32,
+    ``table (K + 1, maxp)`` int32 page ids, ``counts (K + 1,)`` int32 (the
+    last, the sentinel cell K's, 0) and on a quantized store ``scales
+    (pages, page_size)`` f32 and ``anchors (K + 1, d)`` f32. Slot ``w`` of
+    cell ``c`` is row ``w % page_size`` of page ``table[c, w //
+    page_size]``; ``table=None`` is the padded layout, K pages of ``cap``
+    rows, cell ``c`` on page ``c`` (the kernels then look no page up)."""
+    rows: torch.Tensor
+    ids: torch.Tensor
+    table: torch.Tensor | None
+    counts: torch.Tensor
+    page_size: int
+    scales: torch.Tensor | None = None
+    anchors: torch.Tensor | None = None
+
+    def locate(self, cell: torch.Tensor, w: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(page, row)`` of slot ``w`` of ``cell`` (int tensors of any
+        shape, cells in ``[0, K]``). The sentinel cell K lands on a page of
+        other rows (the paged table's page 0, the padded layout's last
+        cell): mask what is read there."""
+        if self.table is None:
+            return cell.clamp(max=self.rows.shape[0] - 1), w
+        page = self.table[cell, torch.div(w, self.page_size,
+                                          rounding_mode="floor")]
+        return page, w % self.page_size
+
+    def ids_at(self, cell: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """The ids at slot ``w`` of ``cell``; -1 for the sentinel cell."""
+        page, row = self.locate(cell, w)
+        return torch.where(cell < self.counts.shape[0] - 1,
+                           self.ids[page, row], -1)
+
+    def q8_at(self, cell: torch.Tensor, w: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+        """A quantized store's ``(ids, rows)`` at slot ``w`` of ``cell``:
+        the ids (the sentinel cell's unmasked: its slots score ``+inf``,
+        which the caller masks) and the dequantized rows ``anchor[cell] +
+        code * scale``."""
+        page, row = self.locate(cell, w)
+        return self.ids[page, row], (self.anchors[cell] + self.rows[
+            page, row].float() * self.scales[page, row].unsqueeze(-1))
+
+
+# ---------------------------------------------------------------------------
+# candidate gathers (the block path the store scans are held to)
 # ---------------------------------------------------------------------------
 
 def candidate_slots(t: torch.Tensor, probe: torch.Tensor,
@@ -104,29 +186,55 @@ def candidate_slots(t: torch.Tensor, probe: torch.Tensor,
                                               *t.shape[2:])
 
 
-def gather_global(kind: str, arrays, probe: torch.Tensor, width: int
+def _page_ids(tables: torch.Tensor, probe: torch.Tensor, width: int,
+              page_size: int, n_shards: int) -> torch.Tensor:
+    """``(B, nprobe * width / page_size)`` pool pages of the probed cells'
+    first ``width`` slots (unmapped entries are page 0, the padding
+    page)."""
+    if n_shards != 1:
+        raise _sharded("a gather over a sharded store")
+    b, nprobe = probe.shape
+    wp = width // page_size
+    return tables[:, :wp][probe.long()].reshape(b, nprobe * wp).long()
+
+
+def gather_global(kind: str, arrays, probe: torch.Tensor, width: int,
+                  page_size: int = 0, n_shards: int = 1
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """``probe (B, nprobe)`` cells -> ``(cand_x (B, nprobe*width, d),
     cand_ids (B, nprobe*width))``: ``width`` slots of each probed cell,
-    probe-rank major. The block is materialized in device memory, as in
-    the reference (``B * nprobe * width * d`` elements). The port's fp32
+    probe-rank major (ref. l.161-186). ``arrays``: the store's
+    ``device_arrays()``; on a paged store ``width`` is a multiple of
+    ``page_size``. The block is materialized in device memory, as in the
+    reference (``B * nprobe * width * d`` elements). The port's fp32
     search does not gather (``ops.flash_probe_store`` reads the store in
     place); this is the block path it is held to."""
-    _resolve_kind(kind)
-    return tuple(candidate_slots(t, probe, width) for t in arrays)
+    if _resolve_kind(kind) == "padded":
+        return tuple(candidate_slots(t, probe, width) for t in arrays)
+    pool, pool_ids, tables = arrays
+    pid = _page_ids(tables, probe, width, page_size, n_shards)
+    b, w = pid.shape[0], pid.shape[1] * page_size
+    return pool[pid].reshape(b, w, pool.shape[-1]), pool_ids[pid].reshape(b, w)
 
 
-def gather_global_q8(kind: str, arrays, probe: torch.Tensor, width: int
+def gather_global_q8(kind: str, arrays, probe: torch.Tensor, width: int,
+                     page_size: int = 0, n_shards: int = 1
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Quantized variant: ``(codes (B, nprobe*width, d) int8, scales
-    (B, nprobe*width) f32, ids)``; padding slots carry scale 0.0. The
-    port's q8 search does not gather either (``ops.flash_probe_store_q8``
-    reads the quantized store in place); this is the block path it is
-    held to."""
-    _resolve_kind(kind)
-    buckets, bucket_ids, bucket_aux = arrays
-    return tuple(candidate_slots(t, probe, width)
-                 for t in (buckets, bucket_aux, bucket_ids))
+    """Quantized variant (ref. l.218-241): ``(codes (B, nprobe*width, d)
+    int8, scales (B, nprobe*width) f32, ids)``; padding slots carry scale
+    0.0. ``arrays``: the inner store's ``device_arrays()`` (the anchors
+    that follow them are ignored). The port's q8 search does not gather
+    either (``ops.flash_probe_store_q8`` reads the quantized store in
+    place); this is the block path it is held to."""
+    if _resolve_kind(kind) == "padded":
+        buckets, bucket_ids, bucket_aux = arrays[:3]
+        return tuple(candidate_slots(t, probe, width)
+                     for t in (buckets, bucket_aux, bucket_ids))
+    pool, pool_ids, tables, pool_aux = arrays[:4]
+    pid = _page_ids(tables, probe, width, page_size, n_shards)
+    b, w = pid.shape[0], pid.shape[1] * page_size
+    return (pool[pid].reshape(b, w, pool.shape[-1]),
+            pool_aux[pid].reshape(b, w), pool_ids[pid].reshape(b, w))
 
 
 # ---------------------------------------------------------------------------
@@ -198,7 +306,16 @@ class BucketStore:
     def device_arrays(self) -> tuple:
         raise NotImplementedError
 
+    def scan_view(self) -> ScanView:
+        """The search's view of the store (``ScanView``)."""
+        raise NotImplementedError
+
     def dense(self) -> tuple[torch.Tensor, torch.Tensor]:
+        raise NotImplementedError
+
+    def dense_aux(self) -> torch.Tensor:
+        """``(K, W)`` per-slot sidecar (a quantized store's scales) in slot
+        order, as ``dense``."""
         raise NotImplementedError
 
     def dense_ids(self) -> torch.Tensor:
@@ -215,6 +332,16 @@ class BucketStore:
 
     def resident_bytes(self) -> int:
         raise NotImplementedError
+
+    @property
+    def n_shards(self) -> int:
+        return 1
+
+    def place(self, pctx) -> None:
+        raise _sharded("BucketStore.place")
+
+    def shard_specs(self, ka) -> tuple:
+        raise _sharded("BucketStore.shard_specs")
 
     def block_until_ready(self) -> None:
         if self.device.type == "cuda":
@@ -308,8 +435,15 @@ class PaddedBucketStore(BucketStore):
             return (self.buckets, self.bucket_ids, self.bucket_aux)
         return (self.buckets, self.bucket_ids)
 
+    def scan_view(self) -> ScanView:
+        return ScanView(self.buckets, self.bucket_ids, None,
+                        self.counts_sentinel, self.cap, self.bucket_aux)
+
     def dense(self):
         return self.buckets, self.bucket_ids
+
+    def dense_aux(self):
+        return self.bucket_aux
 
     def dense_ids(self):
         return self.bucket_ids
@@ -359,6 +493,393 @@ class PaddedBucketStore(BucketStore):
     def __repr__(self):
         return (f"PaddedBucketStore(k={self.k}, d={self.d}, "
                 f"cap={self.cap})")
+
+
+# ---------------------------------------------------------------------------
+# paged layout (one pool of pages, page tables, free list, LRU eviction)
+# ---------------------------------------------------------------------------
+
+class PagedBucketStore(BucketStore):
+    """Fixed-size pages in one pool, a page table per cell, a free list
+    handing out the lowest id first, LRU eviction under ``max_bytes`` (ref.
+    ``repro/index/store.py:543-906``, one shard). The host keeps the
+    allocator's state (``tables_np``, ``pages_np``, ``last_touch``,
+    ``_tick``, the free list); the device holds the pool and a mirror of
+    the tables with the sentinel row (``tables_sentinel``, its first K rows
+    ``tables``)."""
+
+    kind = "paged"
+
+    def __init__(self, k: int, d: int, dtype, *, capacity: int = 8,
+                 max_cap: int | None = None, page_size: int = 64,
+                 max_bytes: int | None = None, n_shards: int = 1,
+                 aux: bool = False, device=None):
+        if int(n_shards) != 1:
+            raise _sharded(f"a paged store over {n_shards} shards")
+        super().__init__(k, d, dtype, max_cap=max_cap, device=device)
+        self.has_aux = bool(aux)
+        self.page_size = max(8, _round_up(int(page_size), 8))
+        self.max_bytes = max_bytes
+        # table width (pages per cell) sized for the capacity hint; the
+        # pool starts one doubling above the single-hot-cell need
+        self.maxp = max(1, _ceil_div(int(capacity), self.page_size))
+        if self.max_cap is not None:
+            self.maxp = min(self.maxp,
+                            max(1, _ceil_div(self.max_cap, self.page_size)))
+        pps = max(2, _pow2ceil(1 + self.maxp))
+        if self.max_bytes is not None:
+            pps = min(pps, max(2, self._budget_pps()))
+        self.pps = pps                      # pages in the pool (incl. pad)
+        self.tables_np = np.zeros((self.k, self.maxp), np.int32)
+        self.pages_np = np.zeros(self.k, np.int32)
+        self.last_touch = np.zeros(self.k, np.int64)
+        self._tick = 0
+        # the free list, ascending (page 0 is the reserved padding page):
+        # the reference's list, which also stays sorted
+        self._free: list[int] = list(range(1, self.pps))
+        self.pool = torch.full((self.pps, self.page_size, self.d),
+                               _pad_value(self.dtype), dtype=self.dtype,
+                               device=self.device)
+        self.pool_ids = torch.full((self.pps, self.page_size), -1,
+                                   dtype=torch.int32, device=self.device)
+        self.pool_aux = torch.zeros((self.pps, self.page_size),
+                                    dtype=torch.float32, device=self.device) \
+            if self.has_aux else None
+        self._upload_tables()
+
+    # -- geometry ------------------------------------------------------
+
+    @property
+    def capacity(self) -> int:
+        return self.maxp * self.page_size
+
+    def _page_bytes(self) -> int:
+        aux = 4 if self.has_aux else 0
+        return self.page_size * (self.d * self.dtype.itemsize + 4 + aux)
+
+    def _budget_pps(self) -> int:
+        return int(self.max_bytes // self._page_bytes())
+
+    def _upload_tables(self) -> None:
+        """Mirror the page tables on the device with the sentinel cell K's
+        row of page 0 (the reference's ``gather_cells`` pads the same way)."""
+        self.tables_sentinel = torch.as_tensor(
+            np.concatenate([self.tables_np,
+                            np.zeros((1, self.maxp), np.int32)]),
+            device=self.device)
+        self.tables = self.tables_sentinel[:self.k]
+
+    # -- allocator -----------------------------------------------------
+
+    def _grow_pool(self, new_pps: int) -> None:
+        """New device tensors of ``new_pps`` pages, the old pages copied in
+        and the new ones padding; their ids join the free list."""
+        def grown(t, fill):
+            out = torch.full((new_pps, *t.shape[1:]), fill, dtype=t.dtype,
+                             device=self.device)
+            out[:self.pps] = t
+            return out
+        self.pool = grown(self.pool, _pad_value(self.dtype))
+        self.pool_ids = grown(self.pool_ids, -1)
+        if self.has_aux:
+            self.pool_aux = grown(self.pool_aux, 0.0)
+        self._free.extend(range(self.pps, new_pps))
+        self.pps = new_pps
+
+    def _grow_tables(self, need: int) -> None:
+        new_maxp = _pow2ceil(max(need, self.maxp + 1))
+        if self.max_cap is not None:
+            new_maxp = min(new_maxp,
+                           max(need, _ceil_div(self.max_cap,
+                                               self.page_size)))
+        self.tables_np = np.pad(self.tables_np,
+                                ((0, 0), (0, new_maxp - self.maxp)))
+        self.maxp = new_maxp
+
+    def _evict(self, cell: int) -> None:
+        """Free a cold cell's pages back to the allocator: its rows are
+        dropped (counted, like spills), its pages reset to padding so the
+        flat/brute views never see stale vectors."""
+        npg = int(self.pages_np[cell])
+        pids = self.tables_np[cell, :npg].tolist()
+        gp = torch.as_tensor(pids, dtype=torch.long, device=self.device)
+        self.pool[gp] = _pad_value(self.dtype)
+        self.pool_ids[gp] = -1
+        if self.has_aux:
+            self.pool_aux[gp] = 0.0
+        lost = int(self._counts_np[cell])
+        self.evict_counts[cell] += lost
+        self.evicted += lost
+        self._counts_np[cell] = 0
+        self.pages_np[cell] = 0
+        self.tables_np[cell, :] = 0
+        self._free = sorted(self._free + pids)
+
+    def _next_pps(self, pps: int) -> int:
+        """A pool of ``pps`` pages after one growth step (doubling, within
+        the byte budget); no larger when the budget is spent."""
+        new_pps = 2 * pps
+        if self.max_bytes is not None:
+            new_pps = min(new_pps, self._budget_pps())
+        return new_pps
+
+    def _reach(self, need: int) -> tuple[int, int]:
+        """``(pages, pps)``: the pages the free list and pool growth can
+        hand out before an eviction, growing (as the reference's allocator
+        does whenever its free list runs dry) no further than ``need``
+        asks, and the pool size that takes."""
+        avail, pps = len(self._free), self.pps
+        while avail < need and (nxt := self._next_pps(pps)) > pps:
+            avail += nxt - pps
+            pps = nxt
+        return avail, pps
+
+    def _take(self, n: int) -> list[int]:
+        """The ``n`` lowest free ids at once (``n`` within ``_reach``),
+        the pool grown first as the reference's allocator would."""
+        _, pps = self._reach(n)
+        if pps > self.pps:
+            self._grow_pool(pps)
+        taken, self._free = self._free[:n], self._free[n:]
+        return taken
+
+    def _alloc(self, protect: np.ndarray) -> int | None:
+        """One free page (lowest id), via the free list, then pool growth
+        within the byte budget, then eviction (ref. l.667-689, the fallback
+        of ``_map_pages``); ``None`` = refused. The reference's eviction
+        loop waits on the free list it started with, which ``_evict``
+        replaces, so once the budget is spent it evicts every cell not in
+        ``protect`` (bool (K,)) that holds pages, coldest first, and then
+        refuses the page: the caller drops the cell's remaining rows, and
+        the next cell takes the freed pages. The port keeps that, so that
+        both stores hold the same pages (ROADMAP.md, queue C)."""
+        if self._free:
+            return self._free.pop(0)
+        new_pps = self._next_pps(self.pps)
+        if new_pps > self.pps:
+            self._grow_pool(new_pps)
+            return self._free.pop(0)
+        cand = np.flatnonzero((self.pages_np > 0) & ~protect)
+        for c in cand[np.argsort(self.last_touch[cand], kind="stable")]:
+            self._evict(int(c))
+        return None
+
+    def _map_pages(self, ucells: np.ndarray, need: np.ndarray) -> dict:
+        """Give each cell of ``ucells`` (ascending) ``need`` pages, cell by
+        cell and page by page lowest id first, as the reference does:
+        the longest prefix of cells whose new pages fit without an
+        eviction takes its ids at once; from the first cell that needs an
+        eviction on, one page at a time through ``_alloc``. Returns
+        ``{cell: first unstorable slot}`` for cells the budget cannot
+        hold."""
+        ps = self.page_size
+        have = self.pages_np[ucells].astype(np.int64)
+        new = np.maximum(need - have, 0)
+        for n in need[need > self.maxp]:       # tables widen in cell order
+            if n > self.maxp:
+                self._grow_tables(int(n))
+        total = np.cumsum(new)
+        # the longest prefix the free list and pool growth can hold
+        avail, _ = self._reach(int(total[-1]) if total.size else 0)
+        m = int(np.searchsorted(total, avail, side="right"))
+        if m:
+            ids = np.asarray(self._take(int(total[m - 1])), np.int32)
+            nm = new[:m]
+            # (cell, page) of each new page, cell-major: a cell's pages
+            # from its count of pages on
+            rank = np.arange(ids.size) - np.repeat(total[:m] - nm, nm)
+            self.tables_np[np.repeat(ucells[:m], nm),
+                           np.repeat(have[:m], nm) + rank] = ids
+            self.pages_np[ucells[:m]] = np.maximum(have[:m], need[:m])
+        drop_from = {}
+        if m < ucells.size:
+            protect = np.zeros(self.k, bool)
+            protect[ucells] = True
+            for c, n in zip(ucells[m:], need[m:]):
+                c = int(c)
+                for p in range(int(self.pages_np[c]), int(n)):
+                    pid = self._alloc(protect)
+                    if pid is None:           # budget truly exhausted
+                        drop_from[c] = p * ps
+                        break
+                    self.tables_np[c, p] = pid
+                    self.pages_np[c] = p + 1
+        return drop_from
+
+    # -- the contract --------------------------------------------------
+
+    def _keep_rows(self, keep: np.ndarray, cells, slots, ids, x, aux):
+        kj = np.flatnonzero(keep)
+        kt = torch.as_tensor(kj, device=x.device)
+        return (cells[kj], slots[kj], ids[kj], x[kt],
+                None if aux is None else aux[kt])
+
+    def append(self, cells, x_sorted, ids, aux=None):
+        n = int(cells.shape[0])
+        if n == 0:
+            return
+        ps = self.page_size
+        cells = np.asarray(cells, np.int64)
+        ids = np.asarray(ids, np.int32)
+        rank = np.arange(n) - np.searchsorted(cells, cells)
+        slots = self._counts_np[cells] + rank
+        if self.max_cap is not None:     # same budget rule as padded
+            over = slots >= self.max_cap
+            if over.any():
+                self._account_spill(cells[over])
+                cells, slots, ids, x_sorted, aux = self._keep_rows(
+                    ~over, cells, slots, ids, x_sorted, aux)
+        ucells, ustart = np.unique(cells, return_index=True)
+        uend = np.r_[ustart[1:], cells.size] - 1
+        umax = slots[uend] if cells.size else np.zeros(0, np.int64)
+        drop_from = self._map_pages(ucells, umax // ps + 1)
+        if drop_from:
+            thr = np.full(self.k, np.iinfo(np.int64).max)
+            for c, t in drop_from.items():
+                thr[c] = t
+            over = slots >= thr[cells]
+            self._account_spill(cells[over])
+            cells, slots, ids, x_sorted, aux = self._keep_rows(
+                ~over, cells, slots, ids, x_sorted, aux)
+        if cells.size:
+            gj = torch.as_tensor(self.tables_np[cells, slots // ps],
+                                 dtype=torch.long, device=self.device)
+            sj = torch.as_tensor(slots % ps, device=self.device)
+            self.pool[gj, sj] = x_sorted.to(self.dtype)
+            self.pool_ids[gj, sj] = torch.as_tensor(ids, device=self.device)
+            if self.has_aux and aux is not None:
+                self.pool_aux[gj, sj] = aux.float()
+            self._counts_np += np.bincount(
+                cells, minlength=self.k).astype(np.int64)
+        if ucells.size:                  # write-recency LRU clock
+            self._tick += 1
+            self.last_touch[ucells] = self._tick
+        self._upload_counts()
+        self._upload_tables()
+
+    def gather_width(self, min_slots: int = 1) -> int:
+        wp = _pow2ceil(max(1, int(self.pages_np.max()) if self.k else 1))
+        wp = max(wp, _ceil_div(max(_sublane_min(self.dtype), min_slots),
+                               self.page_size))
+        return min(wp, self.maxp) * self.page_size
+
+    def device_arrays(self):
+        if self.has_aux:
+            return (self.pool, self.pool_ids, self.tables, self.pool_aux)
+        return (self.pool, self.pool_ids, self.tables)
+
+    def scan_view(self) -> ScanView:
+        return ScanView(self.pool, self.pool_ids, self.tables_sentinel,
+                        self.counts_sentinel, self.page_size, self.pool_aux)
+
+    def _dense_pages(self) -> torch.Tensor:
+        return torch.as_tensor(self.tables_np.reshape(-1), dtype=torch.long,
+                               device=self.device)
+
+    def dense(self):
+        gp, w = self._dense_pages(), self.maxp * self.page_size
+        return (self.pool[gp].reshape(self.k, w, self.d),
+                self.pool_ids[gp].reshape(self.k, w))
+
+    def dense_aux(self):
+        return self.pool_aux[self._dense_pages()].reshape(
+            self.k, self.maxp * self.page_size)
+
+    def dense_ids(self):
+        return self.pool_ids[self._dense_pages()].reshape(
+            self.k, self.maxp * self.page_size)
+
+    def flat(self):
+        # pad pages carry _PAD_COORD/-1: safe to scan wholesale
+        return self.pool.reshape(-1, self.d), self.pool_ids.reshape(-1)
+
+    def _occupied(self) -> np.ndarray:
+        """Occupied pages, cell-major in page order."""
+        mask = np.arange(self.maxp)[None, :] < self.pages_np[:, None]
+        return self.tables_np[mask].astype(np.int64)
+
+    def state_arrays(self):
+        # canonical packed form: occupied pages in cell-major page order
+        # (physical page ids / free-list fragmentation never serialize)
+        gp = torch.as_tensor(self._occupied(), device=self.device)
+        out = {"pool_pages": self.pool[gp].cpu().numpy(),
+               "pool_page_ids": self.pool_ids[gp].cpu().numpy(),
+               "cell_pages": self.pages_np.astype(np.int32),
+               "counts": self.counts.cpu().numpy(),
+               "last_touch": self.last_touch.copy(),
+               "spill_counts": self.spill_counts.copy(),
+               "evict_counts": self.evict_counts.copy()}
+        if self.has_aux:
+            out["pool_page_aux"] = self.pool_aux[gp].cpu().numpy()
+        return out
+
+    def meta(self):
+        return {"kind": self.kind, "page_size": self.page_size,
+                "pps": self.pps, "maxp": self.maxp, "n_shards": 1,
+                "max_cap": self.max_cap, "max_bytes": self.max_bytes,
+                "spilled": int(self.spilled), "evicted": int(self.evicted),
+                "tick": int(self._tick)}
+
+    @classmethod
+    def restore(cls, host, meta, *, k, d, dtype, device=None):
+        """The store of a snapshot's packed pages (ref. l.825-878): pages
+        re-allocated cell-major, lowest id first."""
+        if int(meta.get("n_shards") or 1) != 1:
+            raise _sharded("restoring a paged store of several shards")
+        ps = int(meta["page_size"])
+        st = cls(k, d, dtype, capacity=ps, page_size=ps,
+                 max_cap=meta.get("max_cap"), max_bytes=meta.get("max_bytes"),
+                 aux="pool_page_aux" in host, device=device)
+        st.maxp = max(1, int(meta["maxp"]))
+        cell_pages = np.asarray(host["cell_pages"], np.int64)
+        used = int(cell_pages.sum()) + 1
+        if meta.get("n_shards") == 1 and meta.get("pps"):
+            pps = max(int(meta["pps"]), used)
+        else:   # another mesh's snapshot: the canonical size
+            pps = max(2, _pow2ceil(used))
+        st.pps = pps
+        n_occ = used - 1
+        # occupied page u takes id u + 1: the lowest free ids, cell-major
+        st.tables_np = np.zeros((k, st.maxp), np.int32)
+        mask = np.arange(st.maxp)[None, :] < cell_pages[:, None]
+        st.tables_np[mask] = np.arange(1, n_occ + 1, dtype=np.int32)
+        st._free = list(range(n_occ + 1, pps))
+
+        def pool_of(shape, fill, dt, pages):
+            t = torch.full((pps, *shape), fill, dtype=dt, device=st.device)
+            if n_occ:
+                t[1:n_occ + 1] = torch.as_tensor(np.asarray(pages)).to(
+                    device=st.device, dtype=dt)
+            return t
+        st.pool = pool_of((ps, d), _pad_value(st.dtype), st.dtype,
+                          host["pool_pages"])
+        st.pool_ids = pool_of((ps,), -1, torch.int32, host["pool_page_ids"])
+        if st.has_aux:
+            st.pool_aux = pool_of((ps,), 0.0, torch.float32,
+                                  host["pool_page_aux"])
+        st.pages_np = cell_pages.astype(np.int32)
+        st.set_counts(host["counts"])
+        st._upload_tables()
+        st.last_touch = np.asarray(host["last_touch"]).astype(np.int64)
+        st._tick = int(meta.get("tick", st.last_touch.max(initial=0)))
+        st.spilled = int(meta.get("spilled", host["spill_counts"].sum()))
+        st.spill_counts = np.asarray(host["spill_counts"]).astype(
+            np.int64).copy()
+        st.evicted = int(meta.get("evicted", host["evict_counts"].sum()))
+        st.evict_counts = np.asarray(host["evict_counts"]).astype(
+            np.int64).copy()
+        return st
+
+    def resident_bytes(self) -> int:
+        return self.pps * self._page_bytes() + self.k * self.maxp * 4
+
+    def occupied_pages(self) -> int:
+        return int(self.pages_np.sum())
+
+    def __repr__(self):
+        return (f"PagedBucketStore(k={self.k}, d={self.d}, "
+                f"page_size={self.page_size}, pages={self.occupied_pages()}"
+                f"/{self.pps}, evicted={self.evicted})")
 
 
 # ---------------------------------------------------------------------------
@@ -526,15 +1047,16 @@ class RescoreReservoir:
 
 
 class QuantizedBucketStore(BucketStore):
-    """Codec wrapper over a padded store: the inner store holds int8 codes
-    plus the per-slot f32 scale sidecar; the wrapper owns the anchors (the
+    """Codec wrapper over either layout: the inner store holds int8 codes
+    plus the per-slot f32 scale sidecar (its ids, page tables, allocator,
+    evictor and snapshot form untouched); the wrapper owns the anchors (the
     cell centroids frozen at encode time: ``refresh`` moves the routing
     centroids only, so stored codes stay decodable), the optional
     ``RescoreReservoir`` and the optional ``DeviceRescoreCache``
     (ref. ``repro/index/store.py:1025-1160``). ``kind`` stays the inner
     backend's name."""
 
-    def __init__(self, inner: PaddedBucketStore, codec, anchors, *,
+    def __init__(self, inner: BucketStore, codec, anchors, *,
                  reservoir: RescoreReservoir | None = None,
                  cache=None, logical_dtype=torch.float32):
         # no super().__init__: the bookkeeping is the inner store's
@@ -561,6 +1083,12 @@ class QuantizedBucketStore(BucketStore):
     capacity = property(lambda self: self._inner.capacity)
     evicted = property(lambda self: self._inner.evicted)
     evict_counts = property(lambda self: self._inner.evict_counts)
+    # the paged layout's (AttributeError on a padded inner store, as the
+    # reference's delegation raises)
+    page_size = property(lambda self: self._inner.page_size)
+
+    def occupied_pages(self) -> int:
+        return self._inner.occupied_pages()
 
     @property
     def spilled(self) -> int:
@@ -599,6 +1127,10 @@ class QuantizedBucketStore(BucketStore):
     def device_arrays(self):
         return (*self._inner.device_arrays(), self.anchors)
 
+    def scan_view(self) -> ScanView:
+        """The inner store's view with its scales and ``anchors_sentinel``."""
+        return self._inner.scan_view()._replace(anchors=self.anchors_sentinel)
+
     def cache_arrays(self):
         """The device rescore cache's ``(keys, rows)``: what the search's
         lookup reads (never part of ``device_arrays``: the fp32 and host
@@ -622,7 +1154,7 @@ class QuantizedBucketStore(BucketStore):
         search score identical rows. Padding slots hold ``_PAD_COORD``."""
         codes, ids = self._inner.dense()
         x = self.anchors.unsqueeze(1) + codes.float() * \
-            self._inner.bucket_aux.unsqueeze(-1)
+            self._inner.dense_aux().unsqueeze(-1)
         if self.reservoir is not None:
             rows, found = self.reservoir.lookup(ids.cpu().numpy())
             found_t = torch.as_tensor(found, device=self.device)
@@ -662,10 +1194,8 @@ class QuantizedBucketStore(BucketStore):
         re-warms from the reservoir."""
         from repro_torch.index.quant import make_codec
         codec = make_codec(meta["codec"])
-        _resolve_kind(meta.get("kind", "padded"))
-        inner = PaddedBucketStore.restore(host, meta, k=k, d=d,
-                                          dtype=codec.pool_dtype,
-                                          device=device)
+        inner = _layout(meta.get("kind", "padded")).restore(
+            host, meta, k=k, d=d, dtype=codec.pool_dtype, device=device)
         reservoir = None
         if meta.get("reservoir") and "rescore_ids" in host:
             reservoir = RescoreReservoir.restore(
@@ -714,14 +1244,22 @@ def resolve_rescore(rescore: str | None) -> str:
     return rescore
 
 
+def _layout(kind: str) -> type:
+    """The store class of a layout kind."""
+    return PaddedBucketStore if _resolve_kind(kind) == "padded" \
+        else PagedBucketStore
+
+
 def make_quantized_store(kind: str | None, k: int, d: int, dtype, *,
                          anchors, codec: str = "q8", capacity: int = 8,
                          max_cap: int | None = None,
+                         page_size: int | None = None,
+                         max_bytes: int | None = None, n_shards: int = 1,
                          rescore_bytes: int | None = None,
                          reservoir: bool = True,
                          rescore: str | None = None,
                          device=None) -> QuantizedBucketStore:
-    """Codec-wrapped padded store (ref. l.1265-1306) with a
+    """Codec-wrapped store of either layout (ref. l.1262-1306) with a
     ``RescoreReservoir`` under an optional byte budget (``rescore_bytes``;
     ``reservoir=False``: none, so the host rescore and ``dense()`` decode
     the codes) and, for ``rescore="device"`` (``None``: ``REPRO_RESCORE``,
@@ -729,10 +1267,15 @@ def make_quantized_store(kind: str | None, k: int, d: int, dtype, *,
     without the reservoir, as in the reference."""
     from repro_torch.index.quant import make_codec
     cdc = make_codec(codec)
-    _resolve_kind(kind)
     rescore = resolve_rescore(rescore)
-    inner = PaddedBucketStore(k, d, cdc.pool_dtype, capacity=capacity,
-                              max_cap=max_cap, aux=True, device=device)
+    if _resolve_kind(kind) == "padded":
+        inner = PaddedBucketStore(k, d, cdc.pool_dtype, capacity=capacity,
+                                  max_cap=max_cap, aux=True, device=device)
+    else:
+        inner = PagedBucketStore(k, d, cdc.pool_dtype, capacity=capacity,
+                                 max_cap=max_cap, page_size=page_size or 64,
+                                 max_bytes=max_bytes, n_shards=n_shards,
+                                 aux=True, device=device)
     cache = DeviceRescoreCache(d, max_bytes=rescore_bytes,
                                device=inner.device) \
         if rescore == "device" else None

@@ -64,15 +64,15 @@ SIGNATURES = {
     # qp, codes, scales, qsq, 8 output/partial/scratch pointers, B, P, W,
     # d, L, S, chunk, lp, stream
     "fk_flash_probe_grouped_q8": (_P,) * 12 + (_I,) * 8 + (_P,),
-    # q, buckets, counts, probe, sorted cells, order, units, 8
-    # output/partial/scratch pointers, B, P, cap, width, d, L, S, chunk, lp,
-    # tile_rows, pad, cell mode, is_bf16, stream
-    "fk_flash_probe_store": (_P,) * 15 + (_I,) * 10 + (ctypes.c_float, _I, _I,
+    # q, rows, table, counts, probe, sorted cells, order, units, 8
+    # output/partial/scratch pointers, B, P, maxp, page_size, width, d, L,
+    # S, chunk, lp, tile_rows, pad, cell mode, is_bf16, stream
+    "fk_flash_probe_store": (_P,) * 16 + (_I,) * 11 + (ctypes.c_float, _I, _I,
                                                        _P),
-    # qp, qsq, codes, scales, counts, probe, sorted cells, order, units, 8
-    # output/partial/scratch pointers, B, P, cap, width, d, L, S, chunk, lp,
-    # tile_rows, cell mode, stream
-    "fk_flash_probe_store_q8": (_P,) * 17 + (_I,) * 11 + (_P,),
+    # qp, qsq, codes, scales, table, counts, probe, sorted cells, order,
+    # units, 8 output/partial/scratch pointers, B, P, maxp, page_size,
+    # width, d, L, S, chunk, lp, tile_rows, cell mode, stream
+    "fk_flash_probe_store_q8": (_P,) * 18 + (_I,) * 12 + (_P,),
     "fk_flash_probe_attrs": (_I, ctypes.POINTER(_I), ctypes.POINTER(_I)),
     # keys, rows, ref, hand, ids, x, order, seg, sets, ways, d, vec, stream
     "fk_rescore_cache_insert": (_P,) * 8 + (_I,) * 4 + (_P,),

@@ -13,17 +13,17 @@ replace the Pallas TPU kernels of ``repro/kernels/flash_probe.py``:
   own gathered candidate block — the exact rescore of the q8 path;
 - ``flash_probe_store_raw`` (``flash_probe_store_kernel``, and
   ``flash_probe_store_list_kernel`` for lists longer than 32): the same
-  function over the probed cells of the padded store, read in place
-  through ``probe`` and ``counts`` (no candidate block is gathered, and
-  no padding row is read) — the posting-list scan of an fp32 or bf16
-  store;
+  function over the probed cells of a store, read in place through
+  ``probe``, ``counts`` and the store's page table (no candidate block is
+  gathered, and no padding row is read) — the posting-list scan of an fp32
+  or bf16 store, padded (K pages of ``cap`` rows) or paged;
 - ``flash_probe_grouped_q8_raw`` (``flash_probe_grouped_q8_kernel``): the
   same scan over int8 residual codes with per-slot scales, dequantized in
   registers, on a gathered block;
 - ``flash_probe_store_q8_raw`` (``flash_probe_store_q8_kernel``, and
   ``flash_probe_store_q8_list_kernel`` for lists longer than 64): that
-  scan over the probed cells of the quantized store, read in place — the
-  q8 proposal.
+  scan over the probed cells of the quantized store, read in place through
+  its page table — the q8 proposal.
 
 Each returns ``(indices int32 (B, l), scores f32 (B, l))``, ascending by
 (score, index): equal scores go to the lower index, as ``lax.top_k``.
@@ -129,6 +129,11 @@ def _buffers(b: int, l: int, splits: int, lp: int, device):
     ptr = lambda t: None if t is None else t.data_ptr()
     ptrs = tuple(ptr(t) for t in (out_v, out_i, part_v, part_i, *lws, *mws))
     return ptrs, keep
+
+
+def _ptr(t: torch.Tensor | None):
+    """A tensor's data pointer, or None (a null pointer) for no tensor."""
+    return None if t is None else t.data_ptr()
 
 
 def _aligned_copy(t: torch.Tensor) -> torch.Tensor:
@@ -383,81 +388,132 @@ def _counts_ok(counts: torch.Tensor, k: int) -> bool:
     return counts.shape in ((k,), (k + 1,))
 
 
-def _gather_cells(p: torch.Tensor, k: int) -> torch.Tensor:
-    """Cells to gather the plain versions' blocks at: the sentinel K reads
-    cell K - 1, whose slots its count of 0 then marks dead."""
-    return p.clamp(max=k - 1)
+def _check_table(who: str, rows: torch.Tensor, counts: torch.Tensor,
+                 table: torch.Tensor | None, width: int) -> int:
+    """Checks the scan's page table against ``rows (pages, page_size,
+    ...)`` and ``counts``, and ``width`` against its capacity; returns its
+    ``maxp``. ``table``: one row a cell of ``counts``, int32 page ids; or
+    ``None``, the padded layout, cell ``c`` on page ``c`` (``rows`` then
+    holds K pages and ``counts`` K or K + 1 entries)."""
+    if table is None:
+        if not _counts_ok(counts, rows.shape[0]):
+            raise ValueError(f"{who}: counts must be (K,) or (K+1,) for a "
+                             f"store of K cells, got {tuple(counts.shape)} "
+                             f"and {tuple(rows.shape)}")
+        maxp = 1
+    elif (table.ndim != 2 or table.shape[0] != counts.shape[0]
+            or table.shape[1] < 1 or table.dtype != torch.int32):
+        raise ValueError(f"{who}: table must be int32 (cells, maxp) with a "
+                         f"row for every count, got {table.dtype} "
+                         f"{tuple(table.shape)} for counts "
+                         f"{tuple(counts.shape)}")
+    else:
+        maxp = table.shape[1]
+    if not 1 <= width <= maxp * rows.shape[1]:
+        raise ValueError(f"{who} needs 1 <= width <= maxp * page_size, got "
+                         f"width={width}, maxp * page_size="
+                         f"{maxp * rows.shape[1]}")
+    return maxp
 
 
-def flash_probe_store_plain(q: torch.Tensor, buckets: torch.Tensor,
+def _check_index(who: str, *, b, nprobe, cells, maxp, pages, ps, width,
+                 d) -> None:
+    """The kernels' int32 index arithmetic (rows are addressed in size_t)."""
+    if max(b * nprobe, cells * maxp, pages * ps, nprobe * width, d) >= 2**31:
+        raise ValueError(f"{who}: dims must fit int32")
+
+
+def _slot_pages(rows: torch.Tensor, table: torch.Tensor | None,
+                probe: torch.Tensor, width: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(page, row)`` (B, nprobe, width) of the probed cells' first
+    ``width`` slots, gathered through the table as the reference's
+    ``gather_global`` does (``table=None``: page = cell, the sentinel cell
+    K on the last page, its slots dead by count)."""
+    ps = rows.shape[1]
+    w = torch.arange(width, device=probe.device)
+    p = probe.long().unsqueeze(-1)
+    if table is None:
+        return p.clamp(max=rows.shape[0] - 1).expand(-1, -1, width), w
+    return table[p.squeeze(-1)][:, :, torch.div(w, ps, rounding_mode="floor")
+                                ].long(), w % ps
+
+
+def flash_probe_store_plain(q: torch.Tensor, rows: torch.Tensor,
                             counts: torch.Tensor, probe: torch.Tensor,
-                            width: int, l: int, pad: float
+                            width: int, l: int, pad: float,
+                            table: torch.Tensor | None = None
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version: the ``(B, nprobe * width, d)`` block of the
-    probed cells' slots, ``pad`` in every coordinate of a slot at or past
-    its cell's count, then ``flash_probe_grouped_plain``."""
+    probed cells' slots, gathered through the page table, ``pad`` in every
+    coordinate of a slot at or past its cell's count, then
+    ``flash_probe_grouped_plain``."""
     b, nprobe = probe.shape
-    p = probe.long()
-    cand = buckets[:, :width][_gather_cells(p, buckets.shape[0])]
+    page, row = _slot_pages(rows, table, probe, width)
+    cand = rows[page, row]                           # (B, nprobe, width, d)
     dead = (torch.arange(width, device=q.device)
-            >= counts[p].unsqueeze(-1)).unsqueeze(-1)
+            >= counts[probe.long()].unsqueeze(-1)).unsqueeze(-1)
     cand = torch.where(dead, torch.tensor(pad, dtype=cand.dtype), cand)
     return flash_probe_grouped_plain(
         q, cand.reshape(b, nprobe * width, cand.shape[-1]), l)
 
 
-def flash_probe_store_raw(q: torch.Tensor, buckets: torch.Tensor,
+def flash_probe_store_raw(q: torch.Tensor, rows: torch.Tensor,
                           counts: torch.Tensor, probe: torch.Tensor,
-                          width: int, l: int, pad: float, *, splits: int = 1
+                          width: int, l: int, pad: float, *,
+                          table: torch.Tensor | None = None, splits: int = 1
                           ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-l of each query's probed cells, read from the padded store: q
-    (B, d), buckets (K, cap, d) of q's dtype, counts (K,) int32 (live
-    slots per cell; or (K + 1,), see ``_counts_ok``), probe (B, nprobe)
-    int32 cells, ``pad`` the store's
-    padding coordinate (the value of every coordinate of a slot at or past
-    its cell's count, which the kernel scores without reading). Query b's
-    candidate ``p * width + w`` is ``buckets[probe[b, p], w]`` for ``w <
-    width``: the index of ``flash_probe_grouped_raw`` on the gathered
+    """Top-l of each query's probed cells, read in place from a store of
+    pages: q (B, d), rows (pages, page_size, d) of q's dtype, table (cells,
+    maxp) int32 (slot w of cell c is row ``w % page_size`` of page
+    ``table[c, w // page_size]``; None: the padded layout, ``rows`` (K, cap,
+    d) with cell c on page c), counts (cells,) int32 (live slots per cell;
+    with ``table=None`` (K,) or (K + 1,), see ``_counts_ok``), probe (B,
+    nprobe) int32 cells, ``pad`` the store's padding coordinate (the value
+    of every coordinate of a slot at or past its cell's count, which the
+    kernel scores without reading). Query b's candidate ``p * width + w``
+    is slot w of cell ``probe[b, p]`` for ``w < width <= maxp *
+    page_size``: the index of ``flash_probe_grouped_raw`` on the gathered
     block, which this computes. Returns ``(indices int32 (B, l), scores f32
     (B, l))``, score ``||c||^2 - 2 q.c``. ``splits``: see
     ``store_geometry``. Precondition (not checked, it would cost a device
-    sync): probe lies in ``[0, K)``, or ``[0, K]`` with K + 1 counts."""
-    if (q.ndim != 2 or buckets.ndim != 3 or probe.ndim != 2
-            or buckets.shape[2] != q.shape[1]
-            or probe.shape[0] != q.shape[0]
-            or not _counts_ok(counts, buckets.shape[0])):
-        raise ValueError(f"flash_probe_store: q (B, d), buckets (K, cap, d), "
-                         f"counts (K,) or (K+1,), probe (B, nprobe) "
-                         f"expected, got "
-                         f"{tuple(q.shape)}, {tuple(buckets.shape)}, "
+    sync): probe names a cell of ``counts``, and the table's entries for a
+    cell's live slots name pages of ``rows``."""
+    who = "flash_probe_store"
+    if (q.ndim != 2 or rows.ndim != 3 or probe.ndim != 2
+            or rows.shape[2] != q.shape[1]
+            or probe.shape[0] != q.shape[0] or counts.ndim != 1):
+        raise ValueError(f"{who}: q (B, d), rows (pages, page_size, d), "
+                         f"counts (cells,), probe (B, nprobe) expected, got "
+                         f"{tuple(q.shape)}, {tuple(rows.shape)}, "
                          f"{tuple(counts.shape)}, {tuple(probe.shape)}")
     b, d = q.shape
-    k, cap, _ = buckets.shape
+    pages, ps, _ = rows.shape
     nprobe = probe.shape[1]
-    if not 1 <= width <= cap:
-        raise ValueError(f"flash_probe_store needs 1 <= width <= cap, got "
-                         f"width={width}, cap={cap}")
-    _check_l(l, nprobe * width, "flash_probe_store", "nprobe*width")
-    _check_float("flash_probe_store", q, buckets)
     if counts.dtype != torch.int32 or probe.dtype != torch.int32:
-        raise TypeError(f"flash_probe_store: counts and probe must be int32, "
+        raise TypeError(f"{who}: counts and probe must be int32, "
                         f"got {counts.dtype}, {probe.dtype}")
-    if _check_device("flash_probe_store", q, buckets, counts,
-                     probe).type == "cpu":
-        return flash_probe_store_plain(q, buckets, counts, probe, width, l,
-                                       pad)
-    if max(b * nprobe, k * cap, nprobe * width, d) >= 2**31:
-        raise ValueError("flash_probe_store: dims must fit int32")
+    dev = _check_device(who, q, rows, counts, probe,
+                        *(() if table is None else (table,)))
+    maxp = _check_table(who, rows, counts, table, width)
+    _check_l(l, nprobe * width, who, "nprobe*width")
+    _check_float(who, q, rows)
+    if dev.type == "cpu":
+        return flash_probe_store_plain(q, rows, counts, probe, width, l, pad,
+                                       table)
+    _check_index(who, b=b, nprobe=nprobe, cells=counts.shape[0], maxp=maxp,
+                 pages=pages, ps=ps, width=width, d=d)
     if b == 0:
         return (torch.empty((0, l), dtype=torch.int32, device=q.device),
                 torch.empty((0, l), dtype=torch.float32, device=q.device))
-    q, buckets = q.contiguous(), buckets.contiguous()
+    q, rows = q.contiguous(), rows.contiguous()
+    table = None if table is None else table.contiguous()
     counts, probe = counts.contiguous(), probe.contiguous()
     itemsize = q.element_size()
     splits, chunk, lp, lists = store_geometry(nprobe, width, d, itemsize, l,
                                               splits)
     if b * lists >= 2**31:
-        raise ValueError("flash_probe_store: B * lists must fit int32")
+        raise ValueError(f"{who}: B * lists must fit int32")
     ptrs, keep = _buffers(b, l, lists, lp, q.device)
     cell = store_cell_mode(l, d, itemsize)
     if cell:
@@ -472,13 +528,13 @@ def flash_probe_store_raw(q: torch.Tensor, buckets: torch.Tensor,
     else:
         tile_rows, cell_ptrs = 0, (None,) * 3
     code = _build.lib().fk_flash_probe_store(
-        q.data_ptr(), buckets.data_ptr(), counts.data_ptr(),
-        probe.data_ptr(), *cell_ptrs, *ptrs, b, nprobe, cap, width, d, l,
-        splits, chunk, lp, tile_rows,
+        q.data_ptr(), rows.data_ptr(), _ptr(table), counts.data_ptr(),
+        probe.data_ptr(), *cell_ptrs, *ptrs, b, nprobe, maxp, ps,
+        width, d, l, splits, chunk, lp, tile_rows,
         float(torch.tensor(pad, dtype=q.dtype)), int(cell),
         int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device))
-    _build.check(code, "flash_probe_store kernel launch")
-    launches["flash_probe_store"] += 1
+    _build.check(code, f"{who} kernel launch")
+    launches[who] += 1
     return keep[1], keep[0]
 
 
@@ -591,9 +647,9 @@ def store_q8_cell_smem(d: int) -> int:
 def store_q8_cell_mode(l: int, d: int) -> bool:
     """The q8 cell mode takes lists of at most ``STORE_Q8_LIST`` entries (two
     a lane) and rows of whole 16-code vectors, one a lane (``d % 16 == 0``,
-    ``d <= 512``); the list mode the rest, and stores whose cap is not a
-    multiple of 4 or whose scales do not start on 16 bytes (the quantized
-    store rounds its cap to 8)."""
+    ``d <= 512``); the list mode the rest, and stores whose page size is not
+    a multiple of 4 or whose scales do not start on 16 bytes (both layouts
+    round their pages, the padded store's cap too, to 8 rows)."""
     return l <= STORE_Q8_LIST and d % 16 == 0 and d <= 512
 
 
@@ -613,21 +669,16 @@ def store_q8_geometry(nprobe: int, width: int, d: int, l: int, splits: int,
     return splits, chunk, min(l, chunk), nprobe * splits
 
 
-def _check_q8_store(who, qp, codes, scales, counts, probe, width, l):
+def _check_q8_store(who, qp, codes, scales, counts, probe, l):
     if (qp.ndim != 3 or codes.ndim != 3 or probe.ndim != 2
             or qp.shape[:2] != probe.shape or qp.shape[2] != codes.shape[2]
-            or scales.shape != codes.shape[:2]
-            or not _counts_ok(counts, codes.shape[0])):
-        raise ValueError(f"{who}: qp (B, nprobe, d), codes (K, cap, d), "
-                         f"scales (K, cap), counts (K,) or (K+1,), probe "
-                         f"(B, nprobe) expected, got {tuple(qp.shape)}, "
-                         f"{tuple(codes.shape)}, {tuple(scales.shape)}, "
-                         f"{tuple(counts.shape)}, {tuple(probe.shape)}")
-    cap = codes.shape[1]
-    if not 1 <= width <= cap:
-        raise ValueError(f"{who} needs 1 <= width <= cap, got width={width}, "
-                         f"cap={cap}")
-    _check_l(l, probe.shape[1] * width, who, "nprobe*width")
+            or scales.shape != codes.shape[:2] or counts.ndim != 1):
+        raise ValueError(f"{who}: qp (B, nprobe, d), codes (pages, "
+                         f"page_size, d), scales (pages, page_size), counts "
+                         f"(cells,), probe (B, nprobe) expected, got "
+                         f"{tuple(qp.shape)}, {tuple(codes.shape)}, "
+                         f"{tuple(scales.shape)}, {tuple(counts.shape)}, "
+                         f"{tuple(probe.shape)}")
     if (qp.dtype != torch.float32 or codes.dtype != torch.int8
             or scales.dtype != torch.float32 or counts.dtype != torch.int32
             or probe.dtype != torch.int32):
@@ -639,16 +690,18 @@ def _check_q8_store(who, qp, codes, scales, counts, probe, width, l):
 
 def flash_probe_store_q8_plain(qp: torch.Tensor, codes: torch.Tensor,
                                scales: torch.Tensor, counts: torch.Tensor,
-                               probe: torch.Tensor, width: int, l: int
+                               probe: torch.Tensor, width: int, l: int,
+                               table: torch.Tensor | None = None
                                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version: the ``(B, nprobe, width)`` block of the probed
-    cells' codes and scales, scale 0 on every slot at or past its cell's
-    count, then ``flash_probe_grouped_q8_plain``."""
-    p = probe.long()
-    pc = _gather_cells(p, codes.shape[0])
-    blk_codes = codes[:, :width][pc]                 # (B, nprobe, width, d)
-    blk_scales = scales[:, :width][pc]               # (B, nprobe, width)
-    dead = torch.arange(width, device=qp.device) >= counts[p].unsqueeze(-1)
+    cells' codes and scales, gathered through the page table, scale 0 on
+    every slot at or past its cell's count, then
+    ``flash_probe_grouped_q8_plain``."""
+    page, row = _slot_pages(codes, table, probe, width)
+    blk_codes = codes[page, row]                     # (B, nprobe, width, d)
+    blk_scales = scales[page, row]                   # (B, nprobe, width)
+    dead = (torch.arange(width, device=qp.device)
+            >= counts[probe.long()].unsqueeze(-1))
     blk_scales = torch.where(dead, torch.zeros_like(blk_scales), blk_scales)
     return flash_probe_grouped_q8_plain(qp, blk_codes, blk_scales, l)
 
@@ -656,37 +709,43 @@ def flash_probe_store_q8_plain(qp: torch.Tensor, codes: torch.Tensor,
 def flash_probe_store_q8_raw(qp: torch.Tensor, codes: torch.Tensor,
                              scales: torch.Tensor, counts: torch.Tensor,
                              probe: torch.Tensor, width: int, l: int, *,
+                             table: torch.Tensor | None = None,
                              splits: int = 1
                              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Quantized scan of each query's probed cells, read from the quantized
-    store: qp (B, nprobe, d) f32 shifted queries ``q - anchor[probe]``,
-    codes (K, cap, d) int8, scales (K, cap) f32 (0 on every dead slot),
-    counts (K,) int32 (or (K + 1,), see ``_counts_ok``), probe (B, nprobe)
-    int32 cells. Query b's candidate
-    ``p * width + w`` is slot w of cell ``probe[b, p]``: the index of
-    ``flash_probe_grouped_q8_raw`` on the gathered block, which this
-    computes bit for bit, +inf entries included. Returns ``(indices int32
-    (B, l), distances f32 (B, l))``. ``splits``: see
-    ``store_q8_geometry``. Precondition (not checked, it would cost a
-    device sync): probe lies in ``[0, K)``, or ``[0, K]`` with K + 1
-    counts."""
+    """Quantized scan of each query's probed cells, read in place from a
+    quantized store of pages: qp (B, nprobe, d) f32 shifted queries ``q -
+    anchor[probe]``, codes (pages, page_size, d) int8, scales (pages,
+    page_size) f32 (0 on every dead slot), table, counts and probe as in
+    ``flash_probe_store_raw`` (``table=None``: the padded layout, codes (K,
+    cap, d)). Query b's candidate ``p * width + w`` is slot w of cell
+    ``probe[b, p]``: the index of ``flash_probe_grouped_q8_raw`` on the
+    gathered block, which this computes bit for bit, +inf entries
+    included. Returns ``(indices int32 (B, l), distances f32 (B, l))``.
+    ``splits``: see ``store_q8_geometry``. Precondition (not checked, it
+    would cost a device sync): as ``flash_probe_store_raw``'s."""
     who = "flash_probe_store_q8"
-    _check_q8_store(who, qp, codes, scales, counts, probe, width, l)
+    _check_q8_store(who, qp, codes, scales, counts, probe, l)
     b, nprobe, d = qp.shape
-    k, cap, _ = codes.shape
-    if _check_device(who, qp, codes, scales, counts, probe).type == "cpu":
+    pages, ps, _ = codes.shape
+    dev = _check_device(who, qp, codes, scales, counts, probe,
+                        *(() if table is None else (table,)))
+    maxp = _check_table(who, codes, counts, table, width)
+    _check_l(l, nprobe * width, who, "nprobe*width")
+    if dev.type == "cpu":
         return flash_probe_store_q8_plain(qp, codes, scales, counts, probe,
-                                          width, l)
-    if max(b * nprobe, k * cap, nprobe * width, d) >= 2**31:
-        raise ValueError(f"{who}: dims must fit int32")
+                                          width, l, table)
+    _check_index(who, b=b, nprobe=nprobe, cells=counts.shape[0], maxp=maxp,
+                 pages=pages, ps=ps, width=width, d=d)
     if b == 0:
         return (torch.empty((0, l), dtype=torch.int32, device=qp.device),
                 torch.empty((0, l), dtype=torch.float32, device=qp.device))
     qp, codes, scales = qp.contiguous(), codes.contiguous(), \
         scales.contiguous()
+    table = None if table is None else table.contiguous()
     counts, probe = counts.contiguous(), probe.contiguous()
-    # the cell mode copies a tile's scales in whole 16-byte groups
-    cell = (store_q8_cell_mode(l, d) and cap % 4 == 0
+    # the cell mode copies a tile's scales in whole 16-byte groups, which
+    # pages of a multiple of 4 rows keep whole
+    cell = (store_q8_cell_mode(l, d) and ps % 4 == 0
             and scales.data_ptr() % 16 == 0)
     splits, chunk, lp, lists = store_q8_geometry(nprobe, width, d, l, splits,
                                                  cell)
@@ -707,9 +766,9 @@ def flash_probe_store_q8_raw(qp: torch.Tensor, codes: torch.Tensor,
         tile_rows, cell_ptrs = 0, (None,) * 3
     code = _build.lib().fk_flash_probe_store_q8(
         qp.data_ptr(), qsq.data_ptr(), codes.data_ptr(), scales.data_ptr(),
-        counts.data_ptr(), probe.data_ptr(), *cell_ptrs, *ptrs, b, nprobe,
-        cap, width, d, l, splits, chunk, lp, tile_rows, int(cell),
-        _build.stream_ptr(qp.device))
+        _ptr(table), counts.data_ptr(), probe.data_ptr(), *cell_ptrs,
+        *ptrs, b, nprobe, maxp, ps, width, d, l, splits, chunk, lp,
+        tile_rows, int(cell), _build.stream_ptr(qp.device))
     _build.check(code, f"{who} kernel launch")
     launches[who] += 1
     return keep[1], keep[0]

@@ -339,17 +339,21 @@ def flash_probe_grouped(q: torch.Tensor, c: torch.Tensor, *, l: int,
     return idx, (_add_qsq(q, v) if want_dists else v)
 
 
-def flash_probe_store(q: torch.Tensor, buckets: torch.Tensor,
+def flash_probe_store(q: torch.Tensor, rows: torch.Tensor,
                       counts: torch.Tensor, probe: torch.Tensor, *,
                       width: int, l: int, pad: float,
+                      table: torch.Tensor | None = None,
                       splits: int | None = None, plan=None,
                       want_dists: bool = True
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The posting-list scan over the padded store, read in place. q (B,
-    d), buckets (K, cap, d), counts (K,) int32, probe (B, nprobe) int32
-    cells, ``pad`` the store's padding coordinate (held by every slot at or
-    past its cell's count), ``1 <= l <= nprobe * width``. With counts of K
-    + 1 entries, the last 0, ``probe`` may hold the sentinel cell K, whose
+    """The posting-list scan over a store, read in place. q (B, d), rows
+    (pages, page_size, d), table (cells, maxp) int32 (slot w of cell c is
+    row ``w % page_size`` of page ``table[c, w // page_size]``; None: the
+    padded layout, rows (K, cap, d) with cell c on page c), counts (cells,)
+    int32, probe (B, nprobe) int32 cells, ``pad`` the store's padding
+    coordinate (held by every slot at or past its cell's count), ``1 <= l
+    <= nprobe * width``. With counts of K + 1 entries, the last 0, and a
+    table row for each, ``probe`` may hold the sentinel cell K, whose
     slots all score as padding. Computes what
     ``flash_probe_grouped`` computes on the store's gathered ``(B, nprobe
     * width, d)`` block, without writing it: ``(indices int32 (B, l) into
@@ -359,8 +363,8 @@ def flash_probe_store(q: torch.Tensor, buckets: torch.Tensor,
     nprobe = probe.shape[1]
     splits = _probe_splits("scan_store", (b, nprobe, width, d, l), q.dtype,
                            splits, plan, q.device)
-    idx, v = _fp.flash_probe_store_raw(q, buckets, counts, probe, width, l,
-                                       pad, splits=splits)
+    idx, v = _fp.flash_probe_store_raw(q, rows, counts, probe, width, l,
+                                       pad, table=table, splits=splits)
     return idx, (_add_qsq(q, v) if want_dists else v)
 
 
@@ -394,15 +398,19 @@ def flash_probe_grouped_q8(qp: torch.Tensor, codes: torch.Tensor,
 def flash_probe_store_q8(q: torch.Tensor, codes: torch.Tensor,
                          scales: torch.Tensor, counts: torch.Tensor,
                          probe: torch.Tensor, anchors: torch.Tensor, *,
-                         width: int, l: int, splits: int | None = None,
+                         width: int, l: int,
+                         table: torch.Tensor | None = None,
+                         splits: int | None = None,
                          plan=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """The quantized posting-list scan over the store, read in place. q (B,
-    d), codes (K, cap, d) int8, scales (K, cap) f32 (0 on every dead slot),
-    counts (K,) int32, probe (B, nprobe) int32 cells, anchors (K, d) f32
-    (the codes' encode-time centroids), ``1 <= l <= nprobe * width``. The
-    shifted queries ``q' = q - anchors[probe]`` are the block path's own.
-    With counts of K + 1 entries, the last 0, and anchors of K + 1 rows,
-    ``probe`` may hold the sentinel cell K, whose slots all score ``+inf``.
+    """The quantized posting-list scan over a store, read in place. q (B,
+    d), codes (pages, page_size, d) int8, scales (pages, page_size) f32 (0
+    on every dead slot), table as in ``flash_probe_store`` (None: the
+    padded layout, codes (K, cap, d)), counts (cells,) int32, probe (B,
+    nprobe) int32 cells, anchors (cells, d) f32 (the codes' encode-time
+    centroids), ``1 <= l <= nprobe * width``. The shifted queries ``q' = q
+    - anchors[probe]`` are the block path's own. With counts of K + 1
+    entries, the last 0, and anchors and table rows for each, ``probe`` may
+    hold the sentinel cell K, whose slots all score ``+inf``.
     Computes what ``flash_probe_grouped_q8`` computes on the store's
     gathered block, without writing it: ``(indices int32 (B, l) into the
     probe-rank-major ``p * width + w`` axis, dists f32 (B, l))`` ascending,
@@ -414,7 +422,7 @@ def flash_probe_store_q8(q: torch.Tensor, codes: torch.Tensor,
                            torch.int8, splits, plan, q.device)
     qp = q.float().unsqueeze(1) - anchors[probe.long()]
     return _fp.flash_probe_store_q8_raw(qp, codes, scales, counts, probe,
-                                        width, l, splits=splits)
+                                        width, l, table=table, splits=splits)
 
 
 # ---------------------------------------------------------------------------

@@ -15,9 +15,10 @@ through it and prints build time, queries/s, recall@topk against
 Not ported yet (ROADMAP.md, queue A), and refused with
 ``NotImplementedError``: ``--mode dense|clustered`` (items 7-8),
 ``--mesh`` (item 6), ``--health``, ``--snapshot-dir``,
-``--snapshot-every``, ``--chaos-seed`` (item 5), ``--store paged``,
-``--page-size`` (item 4b). ``--router two_level`` trains the two-level
-router over the built centroids and prints it.
+``--snapshot-every``, ``--chaos-seed`` (item 5). ``--store paged`` builds
+the paged store (``--page-size`` rows a page, default 64), as the
+reference's flags do. ``--router two_level`` trains the two-level router
+over the built centroids and prints it.
 """
 from __future__ import annotations
 
@@ -43,8 +44,6 @@ def _refuse_unported(args) -> None:
                         ("--chaos-seed", args.chaos_seed is not None)):
         if given:
             raise _not_ported(f"{flag} (reliability)", "item 5")
-    if args.store == "paged" or args.page_size is not None:
-        raise _not_ported("--store paged / --page-size", "item 4b")
 
 
 def _serve_search(args) -> dict:
@@ -67,6 +66,7 @@ def _serve_search(args) -> dict:
                     else int(args.rescore_mult))
     index = IVFIndex.build(x, k=args.kc, max_iters=args.kmeans_iters,
                            seed=args.seed, device=dev, store=args.store,
+                           page_size=args.page_size,
                            codec=args.codec, rescore_mult=rescore_mult,
                            rescore=args.rescore, router=args.router)
     sync()
@@ -129,10 +129,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--reps", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--store", default=None, choices=["padded", "paged"],
-                    help="posting-list backend (padded; paged is not "
-                         "ported)")
+                    help="posting-list backend (default: "
+                         "REPRO_BUCKET_STORE, else padded)")
     ap.add_argument("--page-size", type=int, default=None,
-                    help="not ported (item 4b)")
+                    help="rows a page of the paged store (default 64)")
     ap.add_argument("--codec", default=None, choices=["fp32", "q8"],
                     help="payload codec (default: REPRO_BUCKET_CODEC, else "
                          "fp32); q8 searches in two phases")

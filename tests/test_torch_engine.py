@@ -368,12 +368,26 @@ def test_launcher_serves_search_on_the_cpu(codec, capsys):
     (["--mesh", "1x8"], "item 6"), (["--health"], "item 5"),
     (["--snapshot-dir", "snap"], "item 5"), (["--snapshot-every", "4"],
                                              "item 5"),
-    (["--chaos-seed", "7"], "item 5"), (["--store", "paged"], "item 4"),
-    (["--page-size", "64"], "item 4")])
+    (["--chaos-seed", "7"], "item 5")])
 def test_launcher_refuses_what_is_not_ported(flags, item):
     from repro_torch.launch import serve
     with pytest.raises(NotImplementedError, match=f"queue A {item}"):
         serve.main(["--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("codec", ["fp32", "q8"])
+def test_launcher_serves_the_paged_store(codec, capsys):
+    """``--store paged --page-size 64`` (refused before the paged store was
+    ported) builds the paged store and serves through it."""
+    from repro_torch.launch import serve
+    out = serve.main(["--mode", "search", "--device", "cpu", "--n", "3000",
+                      "--d", "16", "--kc", "16", "--queries", "40",
+                      "--reps", "2", "--codec", codec, "--store", "paged",
+                      "--page-size", "64"])
+    assert out["recall"] >= 0.9 and out["qps"] > 0
+    assert out["inflight"] == 0
+    assert "PagedBucketStore(k=16, d=16, page_size=64" in \
+        capsys.readouterr().out
 
 
 @pytest.mark.parametrize("flags", [["--router", "two_level"]])

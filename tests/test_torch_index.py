@@ -324,16 +324,37 @@ def test_index_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 # the device rescore cache is ported; a cache sharded over a mesh is not
-@pytest.mark.parametrize("kw", [{"store": "paged"},
-                                {"pctx": object()},
+@pytest.mark.parametrize("kw", [{"pctx": object()},
                                 {"codec": "q8", "rescore": "device",
-                                 "pctx": object()},
-                                {"page_size": 64}, {"store_bytes": 1 << 20}],
-                         ids=["paged", "pctx", "rescore-device",
-                              "page_size", "store_bytes"])
+                                 "pctx": object()}],
+                         ids=["pctx", "rescore-device"])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         IVFIndex(np.zeros((4, 8), np.float32), 8, device="cpu", **kw)
+
+
+# the paged store's options (they raised before the paged store was ported)
+@pytest.mark.parametrize("kw", [{"store": "paged"},
+                                {"store": "paged", "page_size": 8},
+                                {"store": "paged", "store_bytes": 1 << 20}],
+                         ids=["paged", "page_size", "store_bytes"])
+def test_paged_options_build_and_search(kw):
+    """Each option builds the reference's paged store (its page size and
+    page-pool budget) and searches to the reference's ids."""
+    x, centers = _blobs(1, N, K, 16)
+    c0 = centers + np.random.default_rng(101).standard_normal(
+        centers.shape).astype(np.float32)
+    jidx = JIVF(jnp.asarray(c0), 8, codec="fp32", **kw)
+    tidx = IVFIndex(c0, 8, device="cpu", codec="fp32", **kw)
+    assert tidx.store_kind == jidx.store_kind == "paged"
+    assert tidx.store.page_size == jidx.store.page_size
+    assert tidx.store.max_bytes == jidx.store.max_bytes
+    jidx.add(jnp.asarray(x))
+    tidx.add(x)
+    assert tidx.store.meta() == jidx.store.meta()
+    q = x[::N // NQ][:NQ]
+    _assert_search_equal(tidx.search(q, topk=10, nprobe=4),
+                         jidx.search(jnp.asarray(q), topk=10, nprobe=4), q, x)
 
 
 @pytest.mark.parametrize("router", ["two_level"])
@@ -354,9 +375,8 @@ def test_router_option_builds_the_router(router):
                                       ("banana", "ValueError")],
                          ids=["unset", "padded", "paged", "unknown"])
 def test_default_store_kind_reads_the_environment(monkeypatch, env, want):
-    """``REPRO_BUCKET_STORE`` selects the store as in the reference; the
-    paged store, from the environment as from the argument, raises naming
-    its roadmap item."""
+    """``REPRO_BUCKET_STORE`` selects the store as in the reference, the
+    paged store from the environment as from the argument."""
     from repro.index.store import default_store_kind as j_default
     from repro_torch.index import default_store_kind, make_store
     if env is None:
@@ -372,12 +392,11 @@ def test_default_store_kind_reads_the_environment(monkeypatch, env, want):
         return
     assert default_store_kind() == j_default() == want
     if want == "paged":
-        for call in (lambda: IVFIndex(c, 8, device="cpu"),
-                     lambda: IVFIndex(c, 8, device="cpu", codec="q8"),
-                     lambda: make_store(None, 4, 8, torch.float32),
-                     lambda: make_store("paged", 4, 8, torch.float32)):
-            with pytest.raises(NotImplementedError, match="queue A item 4"):
-                call()
+        for st in (IVFIndex(c, 8, device="cpu").store,
+                   IVFIndex(c, 8, device="cpu", codec="q8").store,
+                   make_store(None, 4, 8, torch.float32),
+                   make_store("paged", 4, 8, torch.float32)):
+            assert st.kind == "paged"
     else:
         assert IVFIndex(c, 8, device="cpu").store_kind == "padded"
 

@@ -113,3 +113,25 @@ def test_every_kernel_source_is_listed_for_the_build():
         [str(SRC / "repro_torch" / "kernels")])}
     assert {"ref", "ops", "flash_assign", "sort_inverse_update",
             "flash_lloyd", "flash_probe", "rescore_cache", "_build"} <= mods
+
+
+_RAW_STORE = re.compile(r"\.(buckets|bucket_ids|bucket_aux|pool|pool_ids"
+                        r"|pool_aux|tables|tables_np|pages_np|last_touch"
+                        r"|_free)\b")
+
+
+def test_zero_raw_bucket_tensor_sites_outside_store():
+    """The reference's architecture guard (``tests/index/test_store.py``)
+    over the port and ``chip_smoke.py``: outside ``index/store.py`` no code
+    reads or writes a raw posting-list tensor or allocator attribute; the
+    search reads the store through its ``scan_view``."""
+    store = SRC / "repro_torch" / "index" / "store.py"
+    files = [f for f in sorted((SRC / "repro_torch").rglob("*.py"))
+             if f != store] + [ROOT / "chip_smoke.py"]
+    offenders = []
+    for f in files:
+        for lineno, line in enumerate(f.read_text().splitlines(), 1):
+            if _RAW_STORE.search(line.split("#", 1)[0]):
+                offenders.append(f"{f.relative_to(ROOT)}:{lineno}: "
+                                 f"{line.strip()}")
+    assert not offenders, "\n".join(offenders)

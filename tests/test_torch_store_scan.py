@@ -8,6 +8,13 @@ its own tests run it); the port scans the same store in place (on the CPU
 through the kernel's plain version). The same numpy inputs, made from a
 seed, go to both.
 
+The paged cases put the same cells in a pool of pages under a fragmented
+page table (``_paged``: shuffled page ids with gaps, cells of no pages,
+partial last pages, the sentinel cell K) and hold the scan through the
+table to the padded scan over the same logical rows bit for bit, and to
+the JAX package's table-gathered block (``gather_global`` of its paged
+layout) where the width is a whole number of pages.
+
 Tolerance: the data is continuous and random, so there are no ties but
 the ones a test builds: ids are equal (bf16 inputs: equal except on
 near-ties within the ``atol``); scores within ``rtol=1e-5`` plus ``atol =
@@ -47,6 +54,38 @@ def _store(rng, counts, cap, d):
         ids[c, :n] = np.arange(nid, nid + n)
         nid += n
     return buckets, ids
+
+
+def _paged(rng, arrays, fills, counts, ps):
+    """The cells of the padded per-slot ``arrays`` (K, cap, ...) as pools of
+    pages of ``ps`` slots under one page table (K + 1, ceil(cap / ps)):
+    cell c's first ceil(count / ps) pages hold its slots, on page ids drawn
+    from a shuffled free list with gaps (a fragmented allocator); page 0
+    holds ``fills`` (the padding page), and so do the slots of a last page
+    past ``cap``; unmapped entries and the sentinel cell K's row (the
+    last) name page 0; the free pages hold noise no scan may read."""
+    k, cap = arrays[0].shape[:2]
+    npg = -(-np.asarray(counts) // ps)
+    n = int(npg.sum())
+    total = 2 * n + 3
+    pids = 1 + rng.permutation(total - 1)[:n]
+    table = np.zeros((k + 1, -(-cap // ps)), np.int32)
+    pools = []
+    for a, fill in zip(arrays, fills):
+        pool = rng.integers(-100, 100, (total, ps) + a.shape[2:]).astype(
+            a.dtype)
+        pool[0] = fill
+        pools.append(pool)
+    u = 0
+    for c in range(k):
+        for p in range(int(npg[c])):
+            table[c, p] = pids[u]
+            lo, hi = p * ps, min((p + 1) * ps, cap)
+            for pool, a, fill in zip(pools, arrays, fills):
+                pool[pids[u]] = fill
+                pool[pids[u], :hi - lo] = a[c, lo:hi]
+            u += 1
+    return pools, table
 
 
 def _probe(rng, b, k, nprobe):
@@ -122,6 +161,65 @@ def test_store_scan_matches_jax(b, k, cap, width, d, nprobe, l, dt):
     assert np.array_equal(got_ids[~diff], jids[~diff])
     # every index is a candidate slot: below width in its probe rank
     assert li.min() >= 0 and li.max() < nprobe * width
+
+
+# (B, K, cap, width, d, nprobe, l): widths a whole number of pages and not
+# (24 at 16 rows a page), cap past the last page's end (70), d = 1 and 19
+# (the scalar path), lists past the cell mode's 32
+PAGED = [(16, 12, 40, 32, 16, 4, 10), (9, 7, 24, 24, 19, 3, 37),
+         (12, 30, 48, 48, 1, 8, 32), (3, 5, 70, 64, 8, 1, 64)]
+
+
+@pytest.mark.parametrize("b,k,cap,width,d,nprobe,l", PAGED)
+@pytest.mark.parametrize("ps", [8, 16])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_paged_store_scan_reads_through_the_table(b, k, cap, width, d, nprobe,
+                                                  l, ps, dt):
+    rng = np.random.default_rng(b * k + d + l + ps)
+    counts = rng.integers(0, width + 1, k)
+    counts[0], counts[1], counts[2] = 0, width, cap
+    buckets, ids = _store(rng, counts, cap, d)
+    (pool, pool_ids), table = _paged(rng, (buckets, ids), (PAD, -1), counts,
+                                     ps)
+    probe = _probe(rng, b, k, nprobe)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    tdt, jdt = DTYPES[dt]
+    tq = torch.from_numpy(q).to(tdt)
+    # with the sentinel cell K in a probe list: bit for bit the padded scan
+    # over the same logical rows, ids looked up through the scan view
+    ps_probe = probe.copy()
+    ps_probe[0, -1] = k
+    counts_s = torch.from_numpy(np.append(counts, 0).astype(np.int32))
+    view = store_mod.ScanView(torch.from_numpy(pool).to(tdt),
+                              torch.from_numpy(pool_ids),
+                              torch.from_numpy(table), counts_s, ps)
+    tp = torch.from_numpy(ps_probe)
+    got = ops.flash_probe_store(tq, view.rows, counts_s, tp, table=view.table,
+                                width=width, l=l, pad=PAD)
+    exp = ops.flash_probe_store(tq, torch.from_numpy(buckets).to(tdt),
+                                counts_s, tp, width=width, l=l, pad=PAD)
+    assert torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])
+    li = got[0].long()
+    cell = torch.gather(tp.long(), 1, li // width)
+    got_ids = view.ids_at(cell, li % width).numpy()
+    exp_ids = np.where(cell.numpy() < k,
+                       ids[cell.clamp(max=k - 1).numpy(), li.numpy() % width],
+                       -1)
+    assert np.array_equal(got_ids, exp_ids)
+    # without it: the reference's table-gathered block and its scan
+    if width % ps or dt != "f32":
+        return
+    cand_x, cand_ids = jstore.gather_global(
+        "paged", (jnp.asarray(pool), jnp.asarray(pool_ids),
+                  jnp.asarray(table[:k])), jnp.asarray(probe), width, ps, 1)
+    jli, jdist = jops.flash_probe_grouped(jnp.asarray(q), cand_x, l=l)
+    li, dist = ops.flash_probe_store(tq, view.rows, counts_s[:k],
+                                     torch.from_numpy(probe),
+                                     table=view.table[:k], width=width, l=l,
+                                     pad=PAD)
+    assert np.array_equal(li.numpy(), np.asarray(jli))
+    np.testing.assert_allclose(dist.numpy(), np.asarray(jdist), rtol=1e-5,
+                               atol=_atol(q, buckets, counts))
 
 
 def test_fewer_live_rows_than_l_fill_with_pads():

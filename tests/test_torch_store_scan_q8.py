@@ -9,6 +9,12 @@ its own tests run it); the port scans the same quantized store in place
 made from a seed, go to both; the shifted queries ``q' = q -
 anchor[cell]`` are the same f32 subtraction on both sides.
 
+The paged cases put the same cells in pools of pages under a fragmented
+page table (``test_torch_store_scan._paged``) and hold the scan through
+the table to the padded scan over the same logical rows bit for bit, the
+sentinel cell K included, and to the JAX package's table-gathered block
+where the width is a whole number of pages.
+
 Tolerance: the codes and scales are random, so there are no ties but the
 ones a test builds: ids are equal wherever the distance is finite (the
 JAX package pads W, so its ``+inf`` entries carry other indices; the
@@ -30,6 +36,7 @@ from repro_torch.index import IVFIndex
 from repro_torch.index import ivf as tivf
 from repro_torch.kernels import flash_probe as fp
 from repro_torch.kernels import ops
+from tests.test_torch_store_scan import _paged
 
 
 def _store(rng, counts, cap, d, dead_scale=0.05):
@@ -138,6 +145,61 @@ def test_q8_store_scan_matches_jax(b, k, cap, width, d, nprobe, l):
     probe = _probe(rng, b, k, nprobe, counts)
     q = (rng.standard_normal((b, d)) * 0.02).astype(np.float32)
     _check(q, codes, scales, anchors, ids, counts, probe, width, l)
+
+
+# (B, K, cap, width, d, nprobe, l): the cell mode's lists of one and two
+# entries a lane, the list mode (l > 64), the scalar path (d = 19), a width
+# not a whole number of pages (24 at 16 rows a page)
+PAGED = [(16, 12, 40, 32, 16, 4, 10), (9, 8, 24, 24, 19, 3, 37),
+         (5, 20, 64, 64, 32, 6, 64), (6, 10, 40, 40, 128, 5, 100)]
+
+
+@pytest.mark.parametrize("b,k,cap,width,d,nprobe,l", PAGED)
+@pytest.mark.parametrize("ps", [8, 16])
+def test_paged_q8_store_scan_reads_through_the_table(b, k, cap, width, d,
+                                                     nprobe, l, ps):
+    rng = np.random.default_rng(b * k + d + l + ps)
+    counts = rng.integers(0, width + 1, k)
+    counts[0], counts[1], counts[2] = 0, width, cap
+    codes, scales, anchors, ids = _store(rng, counts, cap, d)
+    (pc, pa, pi), table = _paged(rng, (codes, scales, ids), (0, 0.0, -1),
+                                 counts, ps)
+    probe = _probe(rng, b, k, nprobe, counts)
+    q = (rng.standard_normal((b, d)) * 0.02).astype(np.float32)
+    sprobe = probe.copy()
+    sprobe[1, -1] = k                    # the sentinel cell K
+    counts_s = torch.from_numpy(np.append(counts, 0).astype(np.int32))
+    anchors_s = torch.from_numpy(np.concatenate([anchors,
+                                                 np.zeros((1, d), np.float32)]))
+    tq, tp = torch.from_numpy(q), torch.from_numpy(sprobe)
+    got = ops.flash_probe_store_q8(tq, torch.from_numpy(pc),
+                                   torch.from_numpy(pa), counts_s, tp,
+                                   anchors_s, table=torch.from_numpy(table),
+                                   width=width, l=l)
+    exp = ops.flash_probe_store_q8(tq, torch.from_numpy(codes),
+                                   torch.from_numpy(scales), counts_s, tp,
+                                   anchors_s, width=width, l=l)
+    assert torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])
+    if width % ps:
+        return
+    # without the sentinel: the reference's table-gathered block
+    qp = q[:, None, :] - anchors[probe]
+    cb, sb, _ = jstore.gather_global_q8(
+        "paged", (jnp.asarray(pc), jnp.asarray(pi), jnp.asarray(table[:k]),
+                  jnp.asarray(pa)), jnp.asarray(probe), width, ps, 1)
+    jli, jdist = jops.flash_probe_grouped_q8(
+        jnp.asarray(qp), cb.reshape(b, nprobe, width, d),
+        sb.reshape(b, nprobe, width), l=l)
+    li, dist = ops.flash_probe_store_q8(
+        tq, torch.from_numpy(pc), torch.from_numpy(pa), counts_s[:k],
+        torch.from_numpy(probe), anchors_s[:k],
+        table=torch.from_numpy(table[:k]), width=width, l=l)
+    jdist = np.asarray(jdist)
+    fin = np.isfinite(jdist)
+    assert np.array_equal(np.isfinite(dist.numpy()), fin)
+    assert np.array_equal(li.numpy()[fin], np.asarray(jli)[fin])
+    np.testing.assert_allclose(dist.numpy()[fin], jdist[fin], rtol=1e-5,
+                               atol=_atol(qp, codes, scales))
 
 
 @pytest.mark.parametrize("l", [12, 40, 70])
@@ -259,8 +321,7 @@ def test_q8_propose_matches_jax(nprobe, topk):
         bsw=bsw, interpret=jidx.interpret)
     ids, deq = tivf._q8_propose(
         torch.from_numpy(q), tidx.centroids, tidx._centroid_norms(),
-        tidx.store.device_arrays(), tidx.counts, r=r, nprobe=nprobe,
-        width=width)
+        tidx.store.scan_view(), r=r, nprobe=nprobe, width=width)
     jids, jdeq = np.asarray(jids), np.asarray(jdeq)
     assert ids.dtype == torch.int32 and ids.shape == jids.shape == (24, r)
     assert np.array_equal(ids.numpy(), jids)
