@@ -52,7 +52,19 @@ run and read just after:
   on the card (recall@10 against ``search_brute``, each add's allocator
   time); ``paged_evict``, the uniform corpus by blob into a store of half
   its page bytes (rows evicted, the count identity, ids in the posting
-  lists, the last add's cells kept).
+  lists, the last add's cells kept);
+- reliability (``repro_torch.reliability``, ``reliability_phase``) at the
+  IVF cell's width over a padded fp32 flat index and a paged q8 two-level
+  index: the add path bit for bit from run to run (65,536 rows over K = 8,
+  and the phase's adds); a ``SearchEngine`` under a ``HealthPolicy`` with
+  a write-ahead log, killed as its second snapshot begins, and
+  ``SearchEngine.recover`` bit for bit the uninterrupted engine (index
+  state, a held-out batch); a snapshot round trip (the q8 cache re-warms);
+  seeded chaos (``FaultPlan.seeded(7, 8, 9)``): nothing raises, every
+  distance finite, units at the configured nprobe return a fault-free
+  engine's ids; snapshot save/load, recover and replay, a WAL append,
+  ``clone_index``, ``guard_batch`` and queries/s with and without the
+  policy timed.
 
 Before the paths, the sort-inverse update, FlashLloyd and the store scan are
 held to their plain versions on edge shapes (one segment over every CTA, K >
@@ -86,7 +98,7 @@ limit, and as its last line ``{"ok": true, "device": {...}}``. It exits
 non-zero, printing no result, without a CUDA device or outside a checkout
 of the repository, and when any check fails. ``--kernels-only`` stops
 after the build and the ragged kernel checks (a first call after a kernel
-change). Details go to ``chip_smoke.json`` in the repository's
+change); ``--reliability-only`` runs the build and the reliability phase. Details go to ``chip_smoke.json`` in the repository's
 git-ignored output directory.
 """
 from __future__ import annotations
@@ -300,6 +312,13 @@ STREAM_INIT, STREAM_DECAY, STREAM_EPOCH = 65536, 0.95, 2 ** 20
 OOC_IVF, OOC_IVF_CHUNK = (4194304, 1024, 128), 262144
 TUNE = (8388608, 1024, 128)
 
+# phase 11, the reliability layer, at phase 5's width over two indexes
+REL_ADDS, REL_ADD_ROWS = 24, 4096     # the durability run's adds
+REL_REFRESH, REL_SNAP = 8, 12         # refresh_every, snapshot_every
+REL_QPS_REQUESTS = 64                 # requests of IVF_B rows, +/- health
+CHAOS_SEEDS, CHAOS_UNITS, CHAOS_ADDS = (7, 8, 9), 64, 16
+DET_SHAPE, DET_REPS = (65536, 8), 5   # a cluster spans 32 update chunks
+
 failures: list[str] = []
 
 
@@ -320,10 +339,380 @@ def plain_chunks(b: int, n: int, k: int):
             for i in range(b) for r in range(0, n, rows)]
 
 
+def reliability_phase(dev, smi, zero_counts, read_counts, details):
+    """Phase 11: the reliability layer at phase 5's width (``IVF``, B
+    ``IVF_B``, ``nprobe`` ``NPROBE``) over two indexes, each from a seed of
+    its own: (a) the padded fp32 store with the flat router, (b) the paged
+    q8 store with the device rescore cache and the two-level router.
+
+    First the add path's determinism: ``IVFIndex.add`` of one batch on
+    clones of one state must give ``_pending`` bit for bit, at the phase's
+    batch and at ``DET_SHAPE`` (a cluster over many update chunks). Then,
+    for each index: a ``SearchEngine`` under a ``HealthPolicy`` with a
+    snapshot directory runs ``REL_ADDS`` adds, each followed by a search
+    unit; it is killed as its second automatic snapshot begins, and
+    ``recover`` (snapshot at add ``REL_SNAP``, the WAL's tail replayed)
+    must hold the uninterrupted engine's index and answer a held-out batch
+    bit for bit; ``save``/``load`` round-trips bit for bit (the q8 cache
+    re-warms); the engine serves ``CHAOS_UNITS`` units and ``CHAOS_ADDS``
+    adds under ``FaultPlan.seeded(s)`` without raising or a non-finite
+    distance, and each unit served at the configured nprobe returns a
+    fault-free engine's ids over the same index. Times: snapshot save and
+    load, recover and its replay, a WAL append, ``clone_index``,
+    ``guard_batch`` on a device batch, queries/s with and without the
+    policy. Snapshots go to a ``tempfile.mkdtemp()`` directory, removed at
+    the end. Returns each index's launch counts (store kind, counts) from
+    the driven runs (the determinism check and the timings apart)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.index import IVFIndex
+    from repro_torch.reliability import (AddLog, FaultInjector, FaultPlan,
+                                         HealthPolicy, clone_index,
+                                         guard_batch)
+    from repro_torch.serve import SearchConfig, SearchEngine
+
+    import numpy as np
+    n, k, d = IVF
+    sync = torch.cuda.synchronize
+    rec = details.setdefault("reliability", {"indexes": []})
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rel_")
+    free = shutil.disk_usage(tmp).free
+    print(f"\n[reliability] N={n} d={d} K={k}, B {IVF_B}, nprobe {NPROBE}; "
+          f"{REL_ADDS} adds of {REL_ADD_ROWS}, refresh_every {REL_REFRESH}, "
+          f"snapshot_every {REL_SNAP}; chaos seeds {CHAOS_SEEDS}; snapshots "
+          f"under {tmp} ({free / 2**30:.1f} GiB free); {smi}", flush=True)
+    rec.update(tmp_free_bytes=free, card=smi)
+    runs = []
+
+    def wall(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    def same_state(a, b):
+        """Store arrays, centroids, both statistics and n_total, bit for
+        bit; a list of what differs."""
+        bad = []
+        sa, sb = a.store.state_arrays(), b.store.state_arrays()
+        bad += [key for key in sorted(set(sa) | set(sb))
+                if key not in sa or key not in sb
+                or not np.array_equal(sa[key], sb[key])]
+        if not torch.equal(a.centroids, b.centroids):
+            bad.append("centroids")
+        for part in ("stats", "_pending"):
+            if not all(torch.equal(u, v) for u, v in
+                       zip(getattr(a, part), getattr(b, part))):
+                bad.append(part)
+        if a.n_total != b.n_total:
+            bad.append("n_total")
+        return bad
+
+    def add_bits(base, batch, reps):
+        """``_pending`` after ``add(batch)`` on ``reps`` clones of ``base``:
+        how many equal the first bit for bit."""
+        outs = []
+        for _ in range(reps):
+            c = clone_index(base)
+            c.add(batch)
+            outs.append([t.clone() for t in c._pending])
+            del c
+        return sum(all(torch.equal(u, v) for u, v in zip(o, outs[0]))
+                   for o in outs)
+
+    try:
+        # the add path's determinism at DET_SHAPE: a cluster of 8,192 rows
+        # over the planner's update chunks
+        gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+        dn, dk = DET_SHAPE
+        c8 = torch.randn(dk, d, device=dev, generator=gen) * 5.0
+        xb = c8[torch.randint(0, dk, (dn,), device=dev, generator=gen)] + \
+            torch.randn(dn, d, device=dev, generator=gen)
+        small = IVFIndex(c8, 2 * dn // dk)
+        chunk = small._batch_blocks(dn).update_block_n
+        biggest = int(torch.bincount(torch.cdist(xb, c8).argmin(1),
+                                     minlength=dk).max())
+        eq = add_bits(small, xb, DET_REPS)
+        print(f"  add path at ({dn} rows, K {dk}, update chunk {chunk}: the "
+              f"largest cluster {biggest} rows over "
+              f"{-(-biggest // chunk) + 1} chunks at most): _pending bit "
+              f"for bit in {eq} of {DET_REPS} runs", flush=True)
+        rec["determinism"] = [{"rows": dn, "k": dk, "chunk": chunk,
+                               "largest_cluster": biggest, "equal": eq,
+                               "reps": DET_REPS}]
+        check(eq == DET_REPS, f"reliability: IVFIndex.add of {dn} rows at "
+                              f"K {dk} gives _pending bit for bit in every "
+                              f"run ({eq} of {DET_REPS})")
+        del small, xb, c8
+
+        for label, kw, seed in (
+                ("fp32/padded/flat", {}, SEED + 20),
+                ("q8/paged/two_level", {"codec": "q8", "store": "paged",
+                                        "page_size": PAGE,
+                                        "router": "two_level"}, SEED + 21)):
+            tag = f"reliability/{label}"
+            print(f"\n[{tag}]", flush=True)
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            centers = torch.randn(k, d, device=dev, generator=gen) * 5.0
+
+            def blobs(rows):
+                lab = torch.randint(0, k, (rows,), device=dev, generator=gen)
+                return centers[lab] + 0.4 * torch.randn(
+                    rows, d, device=dev, generator=gen)
+            x = blobs(n)
+            base, build_s = wall(lambda: IVFIndex.build(
+                x, k=k, max_iters=8, seed=seed, **kw))
+            del x
+            adds = [blobs(REL_ADD_ROWS) for _ in range(REL_ADDS)]
+            units = [blobs(IVF_B) for _ in range(REL_ADDS)]
+            held = blobs(IVF_B)
+            r = {"index": label, "build_s": build_s,
+                 "resident_bytes": base.resident_bytes()}
+            eq = add_bits(base, adds[0], 3)
+            chunk = base._batch_blocks(REL_ADD_ROWS).update_block_n
+            print(f"  {base!r}, built in {build_s:.2f} s; add path at "
+                  f"({REL_ADD_ROWS} rows, K {k}, update chunk {chunk}): "
+                  f"_pending bit for bit in {eq} of 3 runs", flush=True)
+            rec["determinism"].append({"rows": REL_ADD_ROWS, "k": k,
+                                       "chunk": chunk, "equal": eq,
+                                       "reps": 3, "index": label})
+            check(eq == 3, f"{tag}: IVFIndex.add of {REL_ADD_ROWS} rows "
+                           f"gives _pending bit for bit ({eq} of 3)")
+
+            # the durability run: served engine and its uninterrupted twin
+            pol = HealthPolicy()
+            sdir = os.path.join(tmp, label.replace("/", "_"))
+            cfg = dict(topk=TOPK, nprobe=NPROBE, query_batch=IVF_B,
+                       refresh_every=REL_REFRESH)
+            scfg = SearchConfig(**cfg, snapshot_dir=sdir,
+                                snapshot_every=REL_SNAP, wal_log_every=1)
+            twin_index, clone_s = wall(lambda: clone_index(base))
+            twin = SearchEngine(twin_index, SearchConfig(**cfg), health=pol)
+            zero_counts()
+            eng = SearchEngine(base, scfg, health=pol)
+            saves, save_s = [], []
+            real_save = base.save
+
+            class Killed(Exception):
+                pass
+
+            def save_or_die(*a, **kw_):
+                saves.append(1)
+                if len(saves) == 2:   # the crash: as this snapshot begins
+                    raise Killed
+                out, t = wall(lambda: real_save(*a, **kw_))
+                save_s.append(t)
+                return out
+            base.save = save_or_die
+            killed_at = None
+            for i in range(REL_ADDS):
+                try:
+                    eng.add(adds[i])
+                except Killed:
+                    killed_at = i
+                    break
+                eng.search(units[i])
+            for i in range(REL_ADDS):
+                twin.add(adds[i])
+                twin.search(units[i])
+            check(killed_at == REL_ADDS - 1
+                  and eng.counters.snapshots_written == 1,
+                  f"{tag}: killed at add {killed_at} as its second snapshot "
+                  f"began, one snapshot written")
+            del eng, base, real_save
+            sync()
+            torch.cuda.empty_cache()
+            replay_s, real_add = [], SearchEngine.add
+
+            def timed_add(self, x_new):
+                out, t = wall(lambda: real_add(self, x_new))
+                replay_s.append(t)
+                return out
+            SearchEngine.add = timed_add
+            try:
+                back, recover_s = wall(lambda: SearchEngine.recover(
+                    sdir, SearchConfig(**cfg, snapshot_every=REL_SNAP),
+                    health=pol))
+            finally:
+                SearchEngine.add = real_add
+            diff = same_state(back.index, twin.index)
+            got, want = back.search(held), twin.search(held)
+            check(back.counters.wal_records_replayed == REL_ADDS - REL_SNAP
+                  and back.refresh_count == twin.refresh_count
+                  and back.adds_since_refresh == twin.adds_since_refresh,
+                  f"{tag}: recover replayed "
+                  f"{back.counters.wal_records_replayed} records "
+                  f"(expected {REL_ADDS - REL_SNAP}); refreshes "
+                  f"{back.refresh_count} / {twin.refresh_count}")
+            check(not diff, f"{tag}: the recovered index equals the "
+                            f"uninterrupted one bit for bit (store arrays, "
+                            f"centroids, statistics): {diff or 'all equal'}")
+            check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                  f"{tag}: the recovered engine's held-out batch equals the "
+                  f"uninterrupted one's bit for bit "
+                  f"({int((got[0] != want[0]).sum())} ids differ)")
+            snap_bytes = sum(os.path.getsize(os.path.join(sdir, f))
+                             for f in os.listdir(sdir))
+            r.update(auto_save_s=save_s, recover_s=recover_s,
+                     replay_s=sum(replay_s), replayed=len(replay_s),
+                     snapshot_dir_bytes=snap_bytes, clone_s=clone_s)
+            print(f"  recover {recover_s:.3f} s, of which the replay of "
+                  f"{len(replay_s)} records {sum(replay_s):.3f} s; the "
+                  f"snapshot at add {REL_SNAP} {save_s[0]:.3f} s; "
+                  f"{snap_bytes / 2**30:.3f} GiB on disk", flush=True)
+            del twin
+            live = back.index
+
+            # round trip
+            rdir = os.path.join(tmp, label.replace("/", "_") + "_rt")
+            path, t_save = wall(lambda: live.save(rdir, seqno=1))
+            size = os.path.getsize(path)
+            loaded, t_load = wall(lambda: IVFIndex.load(rdir))
+            got, want = loaded.search(held, topk=TOPK, nprobe=NPROBE), \
+                live.search(held, topk=TOPK, nprobe=NPROBE)
+            check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                  and not same_state(loaded, live),
+                  f"{tag}: save then load returns the index bit for bit "
+                  f"(state, held-out ids and distances)")
+            if kw.get("codec") == "q8":
+                cache = loaded.store.cache
+                check(cache is not None and cache.inserted == loaded.n_total,
+                      f"{tag}: the loaded index's device rescore cache "
+                      f"re-warmed from the reservoir ({cache.inserted} rows "
+                      f"of {loaded.n_total})")
+            r.update(save_s=t_save, load_s=t_load, snapshot_bytes=size,
+                     save_gbs=size / t_save / 1e9, load_gbs=size / t_load / 1e9)
+            print(f"  snapshot {size / 2**30:.3f} GiB: save {t_save * 1e3:.1f}"
+                  f" ms ({size / t_save / 1e9:.2f} GB/s), load "
+                  f"{t_load * 1e3:.1f} ms ({size / t_load / 1e9:.2f} GB/s)",
+                  flush=True)
+            del loaded
+            shutil.rmtree(rdir, ignore_errors=True)
+
+            # chaos: each seed over a fresh copy of the live index
+            chaos = []
+            for s in CHAOS_SEEDS:
+                idx = clone_index(live)
+                ce = SearchEngine(idx, SearchConfig(**cfg), health=pol,
+                                  faults=FaultInjector(FaultPlan.seeded(s)))
+                fe = SearchEngine(idx, SearchConfig(**cfg))
+                bad_ids, finite, err, at_full = [], True, None, 0
+                try:
+                    for u in range(CHAOS_UNITS):
+                        if u % (CHAOS_UNITS // CHAOS_ADDS) == 0:
+                            ce.add(adds[u // (CHAOS_UNITS // CHAOS_ADDS)])
+                        q_u = units[u % len(units)]
+                        ok0 = ce.counters.searches_ok
+                        ids, dd = ce.search(q_u)
+                        finite &= bool(torch.isfinite(dd).all())
+                        if ce.counters.searches_ok == ok0 + 1:
+                            at_full += 1
+                            inj, idx.faults = idx.faults, None
+                            ids_f, _ = fe.search(q_u)
+                            idx.faults = inj
+                            if not torch.equal(ids, ids_f):
+                                bad_ids.append(u)
+                except Exception as e:   # the contract: nothing raises
+                    err = f"{type(e).__name__}: {e}"[:200]
+                c = ce.counters.as_dict()
+                chaos.append({"seed": s, "counters": c,
+                              "fired": [e.kind for e in idx.faults.fired],
+                              "units_at_nprobe": at_full,
+                              "ids_differ_units": bad_ids, "error": err})
+                print(f"  chaos seed {s}: fired "
+                      f"{[e.kind for e in idx.faults.fired]}; counters "
+                      f"{ {kk: v for kk, v in c.items() if v} }; "
+                      f"{at_full} units at nprobe {NPROBE}", flush=True)
+                check(err is None and finite,
+                      f"{tag} chaos seed {s}: nothing raised ({err}), every "
+                      f"distance finite ({finite})")
+                check(not bad_ids and at_full > 0,
+                      f"{tag} chaos seed {s}: the {at_full} units served at "
+                      f"nprobe {NPROBE} return the fault-free engine's ids "
+                      f"(units {bad_ids} differ)")
+                del idx, ce, fe
+            r["chaos"] = chaos
+            counts = read_counts()
+            runs.append((live.store_kind, counts))
+            r["launches"] = counts
+            need = ["flash_assign", "sort_inverse_update",
+                    "flash_probe_tile", "flash_probe_store"] + (
+                ["flash_probe_store_q8", "flash_probe_grouped_warp",
+                 "rescore_cache_insert"] if kw.get("codec") == "q8" else [])
+            check(all(counts[kn] > 0 for kn in need),
+                  f"{tag} kernels launched: {counts}")
+
+            # times (outside the counted run)
+            wal = AddLog(os.path.join(tmp, "wal_timing"))
+            wal_s = [wall(lambda i=i: wal.append(i + 1, adds[i]))[1]
+                     for i in range(10)]
+            clones = [wall(lambda: clone_index(live))[1] for _ in range(3)]
+            m0 = torch.cuda.memory_allocated()
+            keep = clone_index(live)
+            clone_bytes = torch.cuda.memory_allocated() - m0
+            del keep
+            qd = held.clone()
+            guard_ms = []
+            for _ in range(21):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                guard_batch(qd, d, policy="sanitize")
+                e1.record()
+                sync()
+                guard_ms.append(e0.elapsed_time(e1))
+            guard_host = [wall(lambda: guard_batch(qd, d))[1]
+                          for _ in range(21)]
+
+            def qps(health):
+                e = SearchEngine(live, SearchConfig(**cfg), health=health)
+                e.search(units[0])
+                reqs = [units[i % len(units)] for i in range(REL_QPS_REQUESTS)]
+
+                def go():
+                    rids = [e.submit(qq) for qq in reqs]
+                    e.pump()
+                    return [e.take(rr) for rr in rids]
+                _, t = wall(go)
+                return REL_QPS_REQUESTS * IVF_B / t
+            qps_plain, qps_health = qps(None), qps(pol)
+            qps_plain2, qps_health2 = qps(None), qps(pol)
+            r.update(wal_append_s=wal_s, clone_index_s=clones,
+                     guard_ms=guard_ms[1:], guard_host_s=guard_host[1:],
+                     qps_without_health=[qps_plain, qps_plain2],
+                     qps_with_health=[qps_health, qps_health2],
+                     index_bytes=live.resident_bytes(),
+                     clone_device_bytes=clone_bytes)
+            med = statistics.median
+            print(f"  a WAL append ({REL_ADD_ROWS} x {d} f32 on the card) "
+                  f"{med(wal_s) * 1e3:.2f} ms (median of 10, host clock); "
+                  f"clone_index {med(clones) * 1e3:.2f} ms (median of 3), "
+                  f"the index {live.resident_bytes() / 2**30:.3f} GiB "
+                  f"resident, a clone {clone_bytes / 2**30:.3f} GiB more "
+                  f"device memory; guard_batch of {IVF_B} queries on "
+                  f"the card {med(guard_ms[1:]):.4f} ms (events), "
+                  f"{med(guard_host[1:]) * 1e3:.4f} ms (host); queries/s "
+                  f"without health {qps_plain:.0f}, {qps_plain2:.0f}, with "
+                  f"{qps_health:.0f}, {qps_health2:.0f} ({smi})",
+                  flush=True)
+            rec["indexes"].append(r)
+            del live, back, adds, units, held, wal
+            sync()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and run the ragged kernel checks only")
+    ap.add_argument("--reliability-only", action="store_true",
+                    help="build and run the reliability phase only")
     args = ap.parse_args()
     # the plain versions' score matrices take up to 32 GiB at a time, in
     # blocks of changing size: segments that grow keep the cache from
@@ -528,6 +917,19 @@ def main() -> int:
         for i in range(b):
             x[i].add_(centers[i].index_select(0, lab[i]))
         return x
+
+    if args.reliability_only:   # phase 11 alone (reliability_phase)
+        reliability_phase(dev, smi, zero_counts, read_counts, details)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_reliability.json").write_text(
+            json.dumps(details["reliability"], indent=1))
+        if failures:
+            print(f"\nchip_smoke: {len(failures)} check(s) failed",
+                  file=sys.stderr)
+            return 1
+        print("\nchip_smoke --reliability-only: all checks passed")
+        return 0
 
     # ---- phase 2 helpers: kernel vs plain on the card -------------------
     def batch_tol(x, c):
@@ -2200,9 +2602,8 @@ def main() -> int:
         """Ragged traffic through ``SearchEngine(query_batch=IVF_B,
         pipeline_depth=2)`` over ``index`` and the same op stream through a
         synchronous engine over a copy of it (the bridge's state, so both
-        start from the same bits: two builds need not, the sort-inverse
-        update's atomics add in no fixed order); every request must equal
-        bit for bit. The served engine's run is counted. A paged store's
+        start from the same bits without a second build); every request
+        must equal bit for bit. The served engine's run is counted. A paged store's
         copy is its canonical packed form, which an index filled by one add
         already holds."""
         tag = f"engine/{codec}" + ("/paged" if index.store_kind == "paged"
@@ -3671,6 +4072,11 @@ def main() -> int:
           and measured.block.update_block_n == rep.best.update_block_n,
           f"planner: the disk cache round-trips ({len(shapes)} plans and the "
           f"measured one) with 0 chooser calls: {again.counters()}")
+
+    # ---- phase 11: the reliability layer (reliability_phase) -------------
+    for store_kind, counts in reliability_phase(dev, smi, zero_counts,
+                                                read_counts, details):
+        count_run(counts, store_kind == "paged")
 
     # ---- phase 4: the kernel table ---------------------------------------
     main_shape = {"flash_assign": "largeN_smallK/float32",

@@ -24,18 +24,25 @@
 //   with plain stores. The first and last segment of each worker go to shared memory,
 //   where the workers that share a segment add their partials. The combined segment is
 //   written with plain stores, unless it is the chunk's first or last segment and its
-//   id continues into the neighbouring chunk: only those use atomicAdd, so there are
-//   at most 2 atomics per CTA per column.
+//   id continues into the neighbouring chunk: those two partials (sums and the row
+//   count) go to the chunk's two edge slots in a scratch buffer instead.
+// - Edge fold: a second, small kernel (one CTA a chunk) adds each cluster that crosses
+//   chunks in chunk order: the chunk where the cluster starts takes its last-edge slot,
+//   then the first-edge slot of every following chunk the cluster reaches, and writes
+//   the sum with plain stores. No atomics: the sums are bit for bit the same from run
+//   to run (atomics adding three or more partials in launch order were not).
 // - The outputs are one allocation, sums (S, d) then counts (S,), zeroed by one
-//   cudaMemsetAsync here; clusters no point belongs to stay exactly 0.
+//   cudaMemsetAsync here, then the edge scratch (not zeroed: the fold reads only slots
+//   the first kernel wrote); clusters no point belongs to stay exactly 0.
 //
 // Sums are fp32 in registers, in another order than the plain version's, so a check
 // holds them to 2 n u sum|x|; counts are exact (float of an int run, below 2^24).
 //
 // Layout: x (R, d) row-major float32 or bfloat16; sorted_idx, ids_sorted int32 (R,);
-// out = sums (S, d) then counts (S,) float32, S > max id. For a batch of problems the
-// caller offsets ids by b * K and flattens the points, so one launch covers every
-// problem. Grid ceil(R / chunk), `threads` threads (a multiple of 32).
+// out = sums (S, d), counts (S,), then the edge scratch (ceil(R / chunk), 2, d + 1),
+// float32, S > max id. For a batch of problems the caller offsets ids by b * K and
+// flattens the points, so one launch covers every problem. Grid ceil(R / chunk),
+// `threads` threads (a multiple of 32).
 #include "common.cuh"
 
 namespace fk {
@@ -98,7 +105,8 @@ template <typename T, int V, int VPL>
 __global__ void __launch_bounds__(256, MinBlocks<VPL>::value)
     sort_inverse_kernel(const T* __restrict__ x, const int* __restrict__ idx,
                         const int* __restrict__ ids, float* __restrict__ sums,
-                        float* __restrict__ cnt, long long R, int d, int chunk, int G) {
+                        float* __restrict__ cnt, float* __restrict__ edge, long long R, int d,
+                        int chunk, int G) {
   using VT = typename VecOf<T, V>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   const int nworkers = blockDim.x / G;
@@ -216,19 +224,63 @@ __global__ void __launch_bounds__(256, MinBlocks<VPL>::value)
         s += s_bsum[(size_t)q * SC + c];
         n += s_bcnt[q];
       }
-      const bool atomic = (id == first_id && first_atomic) || (id == last_id && last_atomic);
+      // a segment that crosses into a neighbouring chunk goes to this chunk's edge
+      // slot (0: the first segment, 1: the last), folded in chunk order below
+      const bool lead = id == first_id && first_atomic;
+      const bool to_edge = lead || (id == last_id && last_atomic);
+      float* ed = edge + ((size_t)blockIdx.x * 2 + (lead ? 0 : 1)) * (d + 1);
       const int gc = col0 + c;
       if (gc < d) {
-        float* dst = sums + (size_t)id * d + gc;
-        if (atomic) atomicAdd(dst, s);
-        else *dst = s;
+        if (to_edge) ed[gc] = s;
+        else sums[(size_t)id * d + gc] = s;
       }
       if (col0 == 0 && c == 0) {
-        if (atomic) atomicAdd(cnt + id, (float)n);
+        if (to_edge) ed[d] = (float)n;
         else cnt[id] = (float)n;
       }
     }
     __syncthreads();  // the next slab reuses the slots
+  }
+}
+
+// The edge fold: CTA b owns the cluster that is its chunk's last segment when that
+// cluster starts in chunk b and continues into chunk b + 1. Its threads first find the
+// last chunk e the cluster reaches (the first chunk after b whose last row ends the
+// cluster; blockDim.x chunks tested at a time), then each thread takes columns (column
+// d is the row count) and adds, in chunk order, chunk b's last-edge slot and the
+// first-edge slots of chunks b + 1 .. e. The loads do not depend on the sum, so they
+// are in flight together.
+__global__ void sort_inverse_fold_kernel(const int* __restrict__ ids,
+                                         const float* __restrict__ edge,
+                                         float* __restrict__ sums, float* __restrict__ cnt,
+                                         long long R, int d, int chunk) {
+  __shared__ int s_last;
+  const long long b = blockIdx.x;
+  const long long start = b * chunk;
+  const long long end = (R - start) < chunk ? R : start + chunk;
+  const int id = ids[end - 1];
+  if (end >= R || ids[end] != id) return;         // the cluster ends in this chunk
+  if (start > 0 && ids[start - 1] == id) return;  // it started in an earlier chunk
+  const int nblocks = (int)((R + chunk - 1) / chunk);  // R < 2^31
+  int last = -1;
+  for (int base = (int)b + 1; last < 0; base += blockDim.x) {
+    if (threadIdx.x == 0) s_last = nblocks;
+    __syncthreads();
+    const int c = base + threadIdx.x;
+    if (c < nblocks) {
+      const long long e = (R - (long long)c * chunk) < chunk ? R : (long long)(c + 1) * chunk;
+      if (e >= R || ids[e] != id) atomicMin(&s_last, c);  // chunk c ends the cluster
+    }
+    __syncthreads();
+    if (s_last < nblocks) last = s_last;
+    __syncthreads();
+  }
+  for (int c = threadIdx.x; c <= d; c += blockDim.x) {
+    float s = edge[(b * 2 + 1) * (d + 1) + c];
+#pragma unroll 4
+    for (long long nb = b + 1; nb <= last; ++nb) s += edge[(nb * 2) * (d + 1) + c];
+    if (c < d) sums[(size_t)id * d + c] = s;
+    else cnt[id] = s;
   }
 }
 
@@ -254,7 +306,7 @@ inline size_t smem_bytes(const Layout& L, int chunk, int threads) {
 
 template <typename T, int V, int VPL>
 cudaError_t launch(const void* x, const void* idx, const void* ids, float* sums, float* cnt,
-                   long long R, int d, int chunk, int threads, int G, size_t smem,
+                   float* edge, long long R, int d, int chunk, int threads, int G, size_t smem,
                    cudaStream_t s) {
   auto kernel = sort_inverse_kernel<T, V, VPL>;
   if (smem > 48 * 1024) {
@@ -264,32 +316,40 @@ cudaError_t launch(const void* x, const void* idx, const void* ids, float* sums,
   }
   const long long blocks = (R + chunk - 1) / chunk;
   kernel<<<(unsigned)blocks, threads, smem, s>>>((const T*)x, (const int*)idx, (const int*)ids,
-                                                 sums, cnt, R, d, chunk, G);
+                                                 sums, cnt, edge, R, d, chunk, G);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || blocks < 2) return e;
+  sort_inverse_fold_kernel<<<(unsigned)(blocks - 1), 128, 0, s>>>((const int*)ids, edge, sums,
+                                                                  cnt, R, d, chunk);
   return cudaGetLastError();
 }
 
 template <typename T, int VW>
 cudaError_t dispatch(const Layout& L, const void* x, const void* idx, const void* ids,
-                     float* sums, float* cnt, long long R, int d, int chunk, int threads,
-                     size_t smem, cudaStream_t s) {
+                     float* sums, float* cnt, float* edge, long long R, int d, int chunk,
+                     int threads, size_t smem, cudaStream_t s) {
+#define FK_SIU_LAUNCH(V_, VPL_) \
+  launch<T, V_, VPL_>(x, idx, ids, sums, cnt, edge, R, d, chunk, threads, L.G, smem, s)
   if (L.V == VW) {
     switch (L.VPL) {
-      case 1: return launch<T, VW, 1>(x, idx, ids, sums, cnt, R, d, chunk, threads, L.G, smem, s);
-      case 2: return launch<T, VW, 2>(x, idx, ids, sums, cnt, R, d, chunk, threads, L.G, smem, s);
-      default: return launch<T, VW, 4>(x, idx, ids, sums, cnt, R, d, chunk, threads, L.G, smem, s);
+      case 1: return FK_SIU_LAUNCH(VW, 1);
+      case 2: return FK_SIU_LAUNCH(VW, 2);
+      default: return FK_SIU_LAUNCH(VW, 4);
     }
   }
   switch (L.VPL) {
-    case 1: return launch<T, 1, 1>(x, idx, ids, sums, cnt, R, d, chunk, threads, L.G, smem, s);
-    case 2: return launch<T, 1, 2>(x, idx, ids, sums, cnt, R, d, chunk, threads, L.G, smem, s);
-    default: return launch<T, 1, 4>(x, idx, ids, sums, cnt, R, d, chunk, threads, L.G, smem, s);
+    case 1: return FK_SIU_LAUNCH(1, 1);
+    case 2: return FK_SIU_LAUNCH(1, 2);
+    default: return FK_SIU_LAUNCH(1, 4);
   }
+#undef FK_SIU_LAUNCH
 }
 
 }  // namespace siu
 }  // namespace fk
 
-// out: S * d sums then S counts (float32), zeroed here. threads: a multiple of 32.
+// out: S * d sums then S counts (float32), zeroed here, then the edge scratch of
+// ceil(R / chunk) * 2 * (d + 1) floats. threads: a multiple of 32.
 extern "C" int fk_sort_inverse_update(const void* x, const void* sorted_idx,
                                       const void* ids_sorted, void* out, long long R, int d,
                                       int S, int chunk, int threads, int is_bf16,
@@ -298,13 +358,14 @@ extern "C" int fk_sort_inverse_update(const void* x, const void* sorted_idx,
   cudaStream_t s = (cudaStream_t)stream;
   float* sums = (float*)out;
   float* cnt = sums + (size_t)S * d;
+  float* edge = cnt + S;
   cudaError_t e = cudaMemsetAsync(out, 0, (size_t)S * (d + 1) * sizeof(float), s);
   if (e != cudaSuccess || R <= 0) return (int)e;
   const Layout L = layout_for(d, is_bf16 != 0, ((uintptr_t)x & 15) == 0);
   const size_t smem = smem_bytes(L, chunk, threads);
-  e = is_bf16 ? dispatch<__nv_bfloat16, 8>(L, x, sorted_idx, ids_sorted, sums, cnt, R, d, chunk,
-                                          threads, smem, s)
-              : dispatch<float, 4>(L, x, sorted_idx, ids_sorted, sums, cnt, R, d, chunk,
+  e = is_bf16 ? dispatch<__nv_bfloat16, 8>(L, x, sorted_idx, ids_sorted, sums, cnt, edge, R, d,
+                                          chunk, threads, smem, s)
+              : dispatch<float, 4>(L, x, sorted_idx, ids_sorted, sums, cnt, edge, R, d, chunk,
                                    threads, smem, s);
   return (int)e;
 }

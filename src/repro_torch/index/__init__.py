@@ -16,11 +16,13 @@ Public API:
   cell selection (``index/router.py``, ``REPRO_ROUTER``).
 
   index_from_numpy / index_to_numpy / router_from_numpy — carry an index's
-  state, its router's included, across packages (``index/bridge.py``).
+  state, its router's included, across packages (``index/bridge.py``);
+  ``IVFIndex.save``/``load`` write and read snapshots in the reference's
+  format (``repro_torch.reliability``), through ``restore_store``,
+  ``infer_store_meta`` and ``restore_router``.
 
-Not ported yet (ROADMAP.md, queue A): the paged store (item 4b),
-snapshots and ``restore_router`` (item 5), the sharded index and the
-sharded cache (item 6).
+Not ported yet (ROADMAP.md, queue A): the sharded index and the sharded
+cache (item 6).
 """
 from repro_torch.index.bridge import (index_from_numpy, index_to_numpy,
                                       router_from_numpy)
@@ -33,18 +35,19 @@ from repro_torch.index.rescore_cache import (RESCORE_KINDS,
                                              default_rescore_kind)
 from repro_torch.index.router import (ROUTER_KINDS, FlatRouter,
                                       TwoLevelRouter, default_router_kind,
-                                      make_router)
+                                      make_router, restore_router)
 from repro_torch.index.store import (BucketStore, PaddedBucketStore,
                                      QuantizedBucketStore, RescoreReservoir,
-                                     default_store_kind, make_quantized_store,
-                                     make_store)
+                                     default_store_kind, infer_store_meta,
+                                     make_quantized_store, make_store,
+                                     restore_store)
 
 __all__ = ["IVFIndex", "csr_from_assignments", "recall_at_k",
            "index_from_numpy", "index_to_numpy", "router_from_numpy",
            "BucketStore", "PaddedBucketStore", "QuantizedBucketStore",
            "RescoreReservoir", "default_store_kind", "make_store",
-           "make_quantized_store", "CODEC_KINDS", "Codec", "Fp32Codec",
+           "make_quantized_store", "restore_store", "infer_store_meta", "CODEC_KINDS", "Codec", "Fp32Codec",
            "Int8ResidualCodec", "default_codec_kind", "make_codec",
            "ROUTER_KINDS", "FlatRouter", "TwoLevelRouter",
-           "default_router_kind", "make_router",
+           "default_router_kind", "make_router", "restore_router",
            "RESCORE_KINDS", "DeviceRescoreCache", "default_rescore_kind"]

@@ -8,7 +8,8 @@ store with a device rescore cache, the cache's state (``CACHE_KEYS``:
 ``keys``, ``rows``, ``ref``, ``hand``, ``sets``, ``ways``, ``max_bytes``,
 ``inserted``), so a budgeted cache crosses with its eviction state, and
 the router as ``{"meta": router.meta(), "arrays": router.state_arrays()}``
-(the reference's snapshot keys; ``router_from_numpy``), so both packages
+(the reference's snapshot keys; ``router_from_numpy``, through the
+snapshot's ``router.restore_router``), so both packages
 search over one coarse level (their trainings draw from different RNGs).
 ``index_to_numpy`` gives the same state back from the port's index (a
 paged store in the reference's canonical packed form: occupied pages
@@ -20,12 +21,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.kmeans import resolve_device
 from repro_torch.core.streaming import SufficientStats
-from repro_torch.index import store as _store
 from repro_torch.index.ivf import IVFIndex
 from repro_torch.index.rescore_cache import DeviceRescoreCache
-from repro_torch.index.router import FlatRouter, TwoLevelRouter
+from repro_torch.index.router import restore_router
+from repro_torch.index.store import restore_store
 
 CACHE_KEYS = ("keys", "rows", "ref", "hand", "sets", "ways", "max_bytes",
               "inserted")
@@ -40,19 +40,11 @@ def _stats(t, device) -> SufficientStats:
 def router_from_numpy(state: dict | None, *, device=None, planner=None):
     """A router from ``{"meta", "arrays"}`` (a router's ``meta()`` and
     ``state_arrays()``, either package's); None or a flat meta gives the
-    flat router, as the reference's ``restore_router`` does
-    (``device=None`` means ``"cuda"``)."""
-    meta = (state or {}).get("meta") or {}
-    if meta.get("kind", "flat") == "flat":
-        return FlatRouter()
-    arrays = state["arrays"]
-    return TwoLevelRouter(
-        np.array(arrays["router_coarse"], np.float32),   # writable copies
-        np.array(arrays["router_owner"], np.int32),
-        nprobe_c=int(meta["nprobe_c"]),
-        retrain_every=int(meta.get("retrain_every", 8)),
-        refreshes_since_train=int(meta.get("refreshes_since_train", 0)),
-        planner=planner, device=device)
+    flat router (``router.restore_router``; ``device=None`` means
+    ``"cuda"``)."""
+    state = state or {}
+    return restore_router(state.get("meta"), state.get("arrays") or {},
+                          planner=planner, device=device)
 
 
 def index_from_numpy(centroids, store_arrays: dict, store_meta: dict, *,
@@ -71,7 +63,8 @@ def index_from_numpy(centroids, store_arrays: dict, store_meta: dict, *,
     host = {key: np.asarray(v) for key, v in store_arrays.items()}
     meta = store_meta if cache is None else dict(store_meta,
                                                  rescore_cache=None)
-    store = _restore_store(host, meta, k, d, device)
+    store = restore_store(host, meta, k=k, d=d, dtype=torch.float32,
+                          device=device)
     if cache is not None:
         store.cache = _cache_from_numpy(cache, d, store.device)
     rt = router_from_numpy(router, device=store.device, planner=planner)
@@ -108,17 +101,6 @@ def cache_to_numpy(cache: DeviceRescoreCache | None) -> dict | None:
             "ref": cache.ref.cpu().numpy(), "hand": cache.hand.cpu().numpy(),
             "sets": cache.sets, "ways": cache.ways,
             "max_bytes": cache.max_bytes, "inserted": cache.inserted}
-
-
-def _restore_store(host: dict, meta: dict, k: int, d: int, device):
-    """Either layout's store from its snapshot arrays and meta (a paged
-    store's pages come back packed, cell-major)."""
-    dev = resolve_device(device)
-    if meta.get("codec", "fp32") != "fp32":
-        return _store.QuantizedBucketStore.restore(
-            host, meta, k=k, d=d, dtype=torch.float32, device=dev)
-    return _store._layout(meta.get("kind", "padded")).restore(
-        host, meta, k=k, d=d, dtype=torch.float32, device=dev)
 
 
 def index_to_numpy(index: IVFIndex) -> dict:

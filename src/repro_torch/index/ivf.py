@@ -39,13 +39,19 @@ and both codecs:
 The out-of-core build (``build(chunk_size=)``) trains with
 ``ChunkedKMeans`` and inverts the chunk stream through ``add``.
 
-Not ported yet (ROADMAP.md, queue A): ``pctx`` (the sharded index, item
-6), fault injection, ``save`` and ``load`` (item 5). Each raises
-``NotImplementedError``. ``IVFIndex`` runs on the card unless it is asked
-for the CPU: ``device=None`` means ``"cuda"`` and raises when no CUDA
+Durability and faults (``reliability/``): ``save``/``load`` write and read
+snapshots in the reference's format (``reliability/snapshot.py``), and
+``faults`` takes a ``FaultInjector`` consulted at the reference's seams in
+``add``, ``refresh`` and ``search``.
+
+Not ported yet (ROADMAP.md, queue A item 6): ``pctx`` (the sharded index)
+raises ``NotImplementedError``. ``IVFIndex`` runs on the card unless it is
+asked for the CPU: ``device=None`` means ``"cuda"`` and raises when no CUDA
 device is present.
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -60,6 +66,7 @@ from repro_torch.index import router as _router
 from repro_torch.index import store as _store
 from repro_torch.index.rescore_cache import cache_lookup
 from repro_torch.kernels import ops, ref
+from repro_torch.reliability.faults import InjectedFault, corrupt_stats
 
 _PAD_COORD = _store._PAD_COORD
 
@@ -247,6 +254,7 @@ class IVFIndex:
                     rescore_bytes=rescore_bytes, rescore=rescore,
                     device=self.device)
         self.n_total = 0
+        self.faults = None          # a reliability.faults.FaultInjector
         self.repaired_cells = 0     # NaN stats rows zeroed by refresh
         self.reseeded_cells = 0     # dead cells re-seeded by refresh
         # committed evidence (what the current centroids were refreshed
@@ -309,15 +317,6 @@ class IVFIndex:
     @property
     def codec_kind(self) -> str:
         return self.store.codec_kind
-
-    @property
-    def faults(self):
-        return None
-
-    @faults.setter
-    def faults(self, injector) -> None:
-        if injector is not None:
-            raise _not_ported("fault injection", 5)
 
     def resident_bytes(self) -> int:
         """Device bytes held by the posting-list payload (+ anchors and the
@@ -395,9 +394,25 @@ class IVFIndex:
     # ------------------------------------------------------------------
 
     def add(self, x_new) -> torch.Tensor:
-        """Assign, append and account new vectors. Returns their cells."""
+        """Assign, append and account new vectors. Returns their cells.
+        An attached injector acts first (ref. l.781-808): ``drop_add``
+        loses the batch, ``add_error`` raises, ``latency`` sleeps; its
+        ``nan_stats`` events corrupt the pending statistics after the
+        fold."""
         x_new = torch.as_tensor(x_new).to(device=self.device,
                                           dtype=self.dtype)
+        nan_evs: tuple = ()
+        if self.faults is not None:   # injection seam (reliability.faults)
+            evs = self.faults.poll("add")
+            for ev in evs:
+                if ev.kind == "drop_add":   # lost message: batch vanishes
+                    return torch.zeros((0,), dtype=torch.int32,
+                                       device=self.device)
+                if ev.kind == "add_error":
+                    raise InjectedFault(f"injected add failure ({ev})")
+                if ev.kind == "latency":
+                    time.sleep(ev.arg)
+            nan_evs = tuple(e for e in evs if e.kind == "nan_stats")
         if x_new.shape[0] == 0:
             return torch.zeros((0,), dtype=torch.int32, device=self.device)
         blk = self._batch_blocks(x_new.shape[0])
@@ -405,6 +420,8 @@ class IVFIndex:
                                 block_n=blk.assign_block_n,
                                 block_k=blk.assign_block_k)
         self._fold(x_new, a, m)
+        for ev in nan_evs:   # after the fold: refresh must repair
+            self._pending, _ = corrupt_stats(self._pending, int(ev.arg))
         return a
 
     def _batch_blocks(self, n: int):
@@ -429,7 +446,15 @@ class IVFIndex:
         1`` down-weights old evidence. ``guard`` sanitizes both evidence
         terms before the merge (a cluster with non-finite stats keeps its
         centroid); ``repair_dead`` re-seeds cells with no vectors and no
-        evidence by splitting the heaviest cell."""
+        evidence by splitting the heaviest cell. An attached injector's
+        ``nan_stats`` and ``latency`` act first (ref. l.887-893)."""
+        if self.faults is not None:   # injection seam (reliability.faults)
+            for ev in self.faults.poll("refresh"):
+                if ev.kind == "nan_stats":
+                    self._pending, _ = corrupt_stats(self._pending,
+                                                     int(ev.arg))
+                elif ev.kind == "latency":
+                    time.sleep(ev.arg)
         pending, base = self._pending, self.stats.scale(decay)
         if guard:
             pending, bad_p = pending.sanitize()
@@ -601,7 +626,9 @@ class IVFIndex:
         top-k over all indexed vectors, on the two-level router too (its
         coarse width grows with ``nprobe`` to every group). ``nprobe_c``
         sets the two-level router's coarse width; the flat router ignores
-        it."""
+        it. An attached injector acts after the pool check (ref.
+        l.1151-1166): ``latency`` sleeps, ``search_error`` raises, and
+        ``dead_shard`` raises too, one device being the whole replica."""
         q = torch.as_tensor(q).to(device=self.device, dtype=self.dtype)
         nprobe = min(nprobe, self.k)
         cand = nprobe * self.cap
@@ -609,6 +636,14 @@ class IVFIndex:
             raise ValueError(
                 f"topk={topk} exceeds the probed candidate pool "
                 f"nprobe*cap={cand}; raise nprobe or capacity")
+        if self.faults is not None:   # injection seam (reliability.faults)
+            for ev in self.faults.poll("search"):
+                if ev.kind == "latency":
+                    time.sleep(ev.arg)
+                elif ev.kind == "search_error":
+                    raise InjectedFault(f"injected search failure ({ev})")
+                elif ev.kind == "dead_shard":   # one replica: hard fail
+                    raise InjectedFault(f"injected replica death ({ev})")
         if self.store.codec_kind != "fp32":
             return self._search_q8(q, topk, nprobe, nprobe_c)
         width = self._gather_width(topk, nprobe)
@@ -669,12 +704,30 @@ class IVFIndex:
         idx, dists = ref.probe_ref(q, flat_x, topk)
         return flat_ids[idx.long()], dists
 
-    def save(self, directory: str, **kw):
-        raise _not_ported("IVFIndex.save (snapshots)", 5)
+    # ------------------------------------------------------------------
+    # durability (reliability.snapshot)
+    # ------------------------------------------------------------------
+
+    def save(self, directory: str, *, seqno: int = 0,
+             extra: dict | None = None) -> str:
+        """Atomic snapshot of the whole index state (store payload, counts,
+        committed and pending statistics, router) in the reference's format
+        (``reliability.snapshot.save_index``). ``seqno`` marks the WAL
+        position it covers."""
+        from repro_torch.reliability.snapshot import save_index
+        return save_index(self, directory, seqno=seqno, extra=extra)
 
     @classmethod
-    def load(cls, directory: str, **kw):
-        raise _not_ported("IVFIndex.load (snapshots)", 5)
+    def load(cls, directory: str, *, seqno: int | None = None,
+             planner: "_plan.KernelPlanner | None" = None, device=None,
+             pctx=None) -> "IVFIndex":
+        """Restore a snapshot written by either package onto ``device``
+        (None: ``"cuda"``); see ``reliability.snapshot.load_index``."""
+        if pctx is not None:
+            raise _not_ported("restoring onto a mesh (pctx)", 6)
+        from repro_torch.reliability.snapshot import load_index
+        return load_index(directory, seqno=seqno, planner=planner,
+                          device=device)
 
     # ------------------------------------------------------------------
     # introspection

@@ -40,8 +40,8 @@ rebuilt there, never on a search. ``nprobe = K`` covers every group, so the
 routed search then equals the flat one. Training draws its initial coarse
 centroids from a ``torch.Generator`` seeded with ``seed`` (the reference's
 ``jax.random.PRNGKey(seed)``), so the two packages train different coarse
-levels from one seed; ``index/bridge.py`` carries a trained router across.
-``restore_router`` (snapshots) waits for queue A item 5.
+levels from one seed; ``index/bridge.py`` carries a trained router across,
+and ``restore_router`` rebuilds one from a snapshot's state.
 """
 from __future__ import annotations
 
@@ -335,3 +335,21 @@ def make_router(spec, centroids=None, *, planner=None, device=None,
                                     device=device, **train_kw)
     raise ValueError(f"unknown router kind {kind!r}; expected one of "
                      f"{ROUTER_KINDS}")
+
+
+def restore_router(meta: dict | None, host: dict, *, planner=None,
+                   device=None):
+    """A router from snapshot state (ref. l.257-268): ``meta`` is the
+    manifest's ``router`` entry (absent in v1-v3 snapshots: the flat
+    router), ``host`` holds ``router_coarse`` and ``router_owner``. The
+    router is rebuilt from its state, never re-trained. ``device=None``
+    means ``"cuda"``."""
+    if not meta or meta.get("kind", "flat") == "flat":
+        return FlatRouter()
+    return TwoLevelRouter(
+        np.array(host["router_coarse"], np.float32),   # writable copies
+        np.array(host["router_owner"], np.int32),
+        nprobe_c=int(meta["nprobe_c"]),
+        retrain_every=int(meta.get("retrain_every", 8)),
+        refreshes_since_train=int(meta.get("refreshes_since_train", 0)),
+        planner=planner, device=device)

@@ -31,7 +31,9 @@ paged table's last row, the sentinel cell K, is all page 0. Outside this
 module nothing reads a raw store tensor.
 
 ``kind=None`` takes ``default_store_kind()`` (``REPRO_BUCKET_STORE``, else
-``"padded"``), as in the reference. Not ported yet (ROADMAP.md, queue A
+``"padded"``), as in the reference. ``restore_store`` and
+``infer_store_meta`` rebuild a store from a snapshot's arrays and meta.
+Not ported yet (ROADMAP.md, queue A
 item 6): a store sharded over a mesh (``n_shards > 1``, ``place``,
 ``shard_specs``, ``gather_cells``). Unlike the JAX package the port updates
 its tensors in place, and ``dense``/``flat`` return tensors on the store's
@@ -46,6 +48,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core.kmeans import resolve_device
 from repro_torch.index.rescore_cache import (RESCORE_KINDS,
                                              DeviceRescoreCache,
                                              default_rescore_kind)
@@ -1283,3 +1286,38 @@ def make_quantized_store(kind: str | None, k: int, d: int, dtype, *,
         else None
     return QuantizedBucketStore(inner, cdc, anchors, reservoir=res,
                                 cache=cache, logical_dtype=dtype)
+
+
+def restore_store(host: dict, meta: dict, *, k: int, d: int, dtype,
+                  n_shards: int = 1, device=None) -> BucketStore:
+    """A store from snapshot arrays and manifest meta (ref. l.120-133):
+    either layout, either codec. Manifests without a ``codec`` key
+    (snapshot v1/v2) are fp32. ``device=None`` means ``"cuda"``."""
+    if n_shards != 1:
+        raise _sharded("restoring a store over several shards")
+    dev = resolve_device(device)
+    if meta.get("codec", "fp32") != "fp32":
+        return QuantizedBucketStore.restore(host, meta, k=k, d=d,
+                                            dtype=dtype, device=dev)
+    return _layout(meta.get("kind", "padded")).restore(
+        host, meta, k=k, d=d, dtype=dtype, device=dev)
+
+
+def infer_store_meta(host: dict, meta: dict) -> dict:
+    """Store meta for a snapshot the manifest does not cover (an older
+    seqno than it records): scalars re-derived from the array shapes (ref.
+    l.136-156)."""
+    if "buckets" in host:
+        return {"kind": "padded", "cap": int(host["buckets"].shape[1]),
+                "max_cap": meta.get("max_cap"),
+                "spilled": int(host["spill_counts"].sum())}
+    cell_pages = host["cell_pages"]
+    ps = int(host["pool_pages"].shape[1])
+    return {"kind": "paged", "page_size": ps,
+            "maxp": max(1, int(cell_pages.max()) if cell_pages.size else 1),
+            "pps": 0, "n_shards": 1, "max_cap": meta.get("max_cap"),
+            "max_bytes": None,
+            "spilled": int(host["spill_counts"].sum()),
+            "evicted": int(host["evict_counts"].sum()),
+            "tick": int(host["last_touch"].max())
+            if host["last_touch"].size else 0}

@@ -14,6 +14,8 @@ with ``S = num_segments``; ids never seen stay exactly 0. CPU tensors go
 to ``sort_inverse_update_plain``, CUDA tensors launch the kernel or raise.
 Precondition (not checked, it would cost a device sync): ids are sorted
 ascending and lie in ``[0, S)``, and ``sorted_idx`` lies in ``[0, R)``.
+The kernel folds the partial sums of a cluster that crosses chunks in chunk
+order (no atomics), so its result is the same bit for bit from run to run.
 """
 from __future__ import annotations
 
@@ -73,8 +75,10 @@ def sort_inverse_update_raw(x: torch.Tensor, sorted_idx: torch.Tensor,
                          f"{THREADS}")
     x = x.contiguous()
     r, d = x.shape
-    # sums then counts in one allocation, zeroed by the launch's memset
-    out = torch.empty(num_segments * (d + 1), dtype=torch.float32,
+    # sums then counts in one allocation, zeroed by the launch's memset, then
+    # each chunk's two edge slots for the ordered fold (not zeroed)
+    edge = -(-r // chunk) * 2 * (d + 1)
+    out = torch.empty(num_segments * (d + 1) + edge, dtype=torch.float32,
                       device=x.device)
     code = _build.lib().fk_sort_inverse_update(
         x.data_ptr(), sorted_idx.contiguous().data_ptr(),
@@ -84,7 +88,7 @@ def sort_inverse_update_raw(x: torch.Tensor, sorted_idx: torch.Tensor,
     _build.check(code, "sort_inverse_update kernel launch")
     launches += 1
     return (out[:num_segments * d].view(num_segments, d),
-            out[num_segments * d:])
+            out[num_segments * d:num_segments * (d + 1)])
 
 
 def layout(d: int, itemsize: int, aligned: bool = True

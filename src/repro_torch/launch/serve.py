@@ -5,6 +5,10 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --mode search \\
       --n 20000 --d 64 --kc 64 --queries 512 --topk 10 --nprobe 8
 
+  # reliability: durable snapshots + WAL, the health ladder, seeded chaos
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode search \\
+      --snapshot-dir /tmp/ivf-snap --health --chaos-seed 7
+
 It builds an index over a synthetic clustered corpus (Gaussian blobs made
 from ``--seed`` on the device: centres x5, noise 0.4, as the reference),
 warms a ``SearchEngine``, times ``--reps`` searches of ``--queries`` rows
@@ -12,13 +16,19 @@ through it and prints build time, queries/s, recall@topk against
 ``search_brute`` and ``latency_stats()``. ``--device`` defaults to
 ``cuda``; ``--device cpu`` runs the kernels' plain versions.
 
+``--store paged`` builds the paged store (``--page-size`` rows a page,
+default 64), as the reference's flags do. ``--router two_level`` trains
+the two-level router over the built centroids and prints it. ``--health``
+serves under a ``HealthPolicy`` and ``--chaos-seed`` injects
+``FaultPlan.seeded(seed)``; either prints the health counters.
+``--snapshot-dir`` keeps snapshots and the WAL there (``--snapshot-every``
+adds between automatic snapshots) and runs the reference's demo:
+snapshot, drop the engine, ``recover``, and check that the restored
+engine's search returns the same ids.
+
 Not ported yet (ROADMAP.md, queue A), and refused with
-``NotImplementedError``: ``--mode dense|clustered`` (items 7-8),
-``--mesh`` (item 6), ``--health``, ``--snapshot-dir``,
-``--snapshot-every``, ``--chaos-seed`` (item 5). ``--store paged`` builds
-the paged store (``--page-size`` rows a page, default 64), as the
-reference's flags do. ``--router two_level`` trains the two-level router
-over the built centroids and prints it.
+``NotImplementedError``: ``--mode dense|clustered`` (items 7-8) and
+``--mesh`` (item 6).
 """
 from __future__ import annotations
 
@@ -38,18 +48,14 @@ def _refuse_unported(args) -> None:
         raise _not_ported(f"--mode {args.mode} (LM serving)", "items 7-8")
     if args.mesh is not None:
         raise _not_ported("--mesh (sharded serving)", "item 6")
-    for flag, given in (("--health", args.health),
-                        ("--snapshot-dir", args.snapshot_dir is not None),
-                        ("--snapshot-every", args.snapshot_every != 0),
-                        ("--chaos-seed", args.chaos_seed is not None)):
-        if given:
-            raise _not_ported(f"{flag} (reliability)", "item 5")
 
 
 def _serve_search(args) -> dict:
     """Build, warm, serve; returns what it printed as numbers."""
     from repro_torch.core.kmeans import resolve_device
     from repro_torch.index import IVFIndex, recall_at_k
+    from repro_torch.reliability import (FaultInjector, FaultPlan,
+                                         HealthPolicy)
     from repro_torch.serve import SearchConfig, SearchEngine
 
     dev = resolve_device(args.device)
@@ -76,9 +82,14 @@ def _serve_search(args) -> dict:
     if index.router.kind != "flat":
         print(f"router: {index.router!r}")
 
-    eng = SearchEngine(index, SearchConfig(topk=args.topk,
-                                           nprobe=args.nprobe,
-                                           query_batch=args.queries))
+    scfg = SearchConfig(topk=args.topk, nprobe=args.nprobe,
+                        query_batch=args.queries,
+                        snapshot_dir=args.snapshot_dir,
+                        snapshot_every=args.snapshot_every)
+    health = HealthPolicy() if args.health else None
+    faults = FaultInjector(FaultPlan.seeded(args.chaos_seed)) \
+        if args.chaos_seed is not None else None
+    eng = SearchEngine(index, scfg, health=health, faults=faults)
     q = x[torch.randint(0, args.n, (args.queries,), device=dev,
                         generator=gen)]
     eng.search(q)                          # warm: every kernel built
@@ -107,7 +118,29 @@ def _serve_search(args) -> dict:
           f"complete p50 {lat['complete_p50_ms']:.3f}ms "
           f"p99 {lat['complete_p99_ms']:.3f}ms; "
           f"{lat['overlap_hits']} overlapped units")
-    return {"build_s": t_build, "qps": qps, "recall": recall, **lat}
+    out = {"build_s": t_build, "qps": qps, "recall": recall, **lat}
+    if health is not None or faults is not None:
+        hot = {k: v for k, v in eng.counters.as_dict().items() if v}
+        print(f"health counters: {hot or 'all healthy'}")
+        out["counters"] = eng.counters.as_dict()
+    if args.snapshot_dir:
+        # durability demo: snapshot, kill, recover, check the identity
+        t0 = time.perf_counter()
+        eng.snapshot()
+        t_snap = time.perf_counter() - t0
+        index.faults = None   # the dead engine's injector dies with it
+        del eng
+        t0 = time.perf_counter()
+        eng2 = SearchEngine.recover(args.snapshot_dir, scfg, device=dev)
+        t_rec = time.perf_counter() - t0
+        ids2, _ = eng2.search(q)
+        same = bool(torch.equal(ids, ids2))
+        print(f"snapshot {t_snap * 1e3:.1f}ms; recover {t_rec:.2f}s "
+              f"(replayed {eng2.counters.wal_records_replayed} WAL "
+              f"records); restored search identical: {same}")
+        out.update(snapshot_s=t_snap, recover_s=t_rec, restored_same=same,
+                   wal_records_replayed=eng2.counters.wal_records_replayed)
+    return out
 
 
 def main(argv=None) -> dict:
@@ -146,12 +179,17 @@ def main(argv=None) -> dict:
     ap.add_argument("--router", default=None, choices=["flat", "two_level"],
                     help="cell selection (default: REPRO_ROUTER, else "
                          "flat)")
-    ap.add_argument("--snapshot-dir", default=None, help="not ported")
+    ap.add_argument("--snapshot-dir", default=None,
+                    help="index snapshots and the write-ahead add-log here; "
+                         "also runs a kill/recover identity demo")
     ap.add_argument("--snapshot-every", type=int, default=0,
-                    help="not ported")
-    ap.add_argument("--health", action="store_true", help="not ported")
+                    help="adds between automatic snapshots (0 = manual)")
+    ap.add_argument("--health", action="store_true",
+                    help="serve under a HealthPolicy (retry/backoff and the "
+                         "degradation ladder); prints its counters")
     ap.add_argument("--chaos-seed", type=int, default=None,
-                    help="not ported")
+                    help="inject FaultPlan.seeded(seed) into the serving "
+                         "path")
     args = ap.parse_args(argv)
     _refuse_unported(args)
     return _serve_search(args)

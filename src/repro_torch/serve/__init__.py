@@ -2,10 +2,11 @@
 
   SearchConfig / SearchEngine — continuous-batching vector search over an
   ``IVFIndex`` with inserts interleaved and CUDA-event overlapped dispatch
-  (``serve/engine.py``).
+  (``serve/engine.py``), with the reliability layer's health ladder, fault
+  injection, WAL, snapshots and ``recover``.
 
 Not ported yet (ROADMAP.md, queue A): the clustered-KV ``Engine`` and
-``ServeConfig`` (item 7); the engine's reliability options (item 5).
+``ServeConfig`` (item 8).
 """
 from repro_torch.serve.engine import SearchConfig, SearchEngine
 

@@ -27,12 +27,24 @@ with inserts interleaved in FIFO order, and overlapped dispatch.
 - **Timing.** ``latency_stats`` gives the reference's keys: ``dispatch``
   is the host's enqueue of a unit, ``complete`` host time from enqueue to
   its event being reached; first-seen shape buckets are not sampled.
+- **Reliability** (``repro_torch.reliability``, ref. l.235-714). With a
+  ``HealthPolicy`` (``health``), queries and inserts pass ``guard_batch``
+  (on the card for a tensor there), every unit walks the degradation
+  ladder (retries, halved ``nprobe``, brute force, the last-known-good
+  clone, honest ``(-1, 0.0)`` rows) and never raises or returns a
+  non-finite distance, an add that fails waits in a bounded queue and is
+  retried first at the next add, and ``refresh`` repairs NaN statistics
+  and dead cells. ``check_finite`` reads each unit's distances back, so a
+  unit under a policy waits for its result. ``faults`` attaches a
+  ``FaultInjector`` to the index's seams. With ``snapshot_dir`` every add
+  is written to the WAL before it is applied (``wal_log_every``),
+  ``snapshot_every`` adds snapshot the index, and ``recover`` loads the
+  latest snapshot and replays the WAL's tail through ``add``, which gives
+  the index an uninterrupted run holds, its schedule counters resumed from
+  the manifest.
 
-Not ported yet (ROADMAP.md, queue A item 5, reliability): the health
-ladder (``health``), fault injection (``faults``), the WAL and snapshots
-(``SearchConfig.snapshot_dir``, ``snapshot_every``, ``wal_log_every``,
-``snapshot``) and ``recover``; each raises ``NotImplementedError`` when
-given a value. The clustered-KV ``Engine`` waits for queue A item 7.
+Not ported yet (ROADMAP.md, queue A): ``recover(pctx=)`` (item 6) and the
+clustered-KV ``Engine`` (item 8).
 """
 from __future__ import annotations
 
@@ -43,8 +55,10 @@ import time
 import numpy as np
 import torch
 
-_RELIABILITY = ("is not ported yet (ROADMAP.md, queue A item 5: the "
-                "reliability layer)")
+from repro_torch.reliability.health import (HealthCounters, HealthPolicy,
+                                            NonFiniteResult)
+from repro_torch.reliability.validate import guard_batch
+from repro_torch.reliability.wal import AddLog
 
 
 @dataclasses.dataclass
@@ -57,10 +71,10 @@ class SearchConfig:
     refresh_every: int = 8        # adds between automatic refreshes
     refresh_decay: float = 1.0
     queue_max: int = 4096         # admission-queue bound (backpressure)
-    # durability (queue A item 5; only the defaults are taken)
-    snapshot_dir: str | None = None
-    snapshot_every: int = 0
-    wal_log_every: int = 1
+    # durability (None/0 = off)
+    snapshot_dir: str | None = None   # index snapshots + WAL live here
+    snapshot_every: int = 0           # adds between automatic snapshots
+    wal_log_every: int = 1            # RPO knob (see reliability.wal)
 
 
 class SearchEngine:
@@ -69,23 +83,28 @@ class SearchEngine:
     submit, then take."""
 
     def __init__(self, index, scfg: SearchConfig | None = None, *,
-                 health=None, faults=None):
-        self.scfg = scfg or SearchConfig()
-        if health is not None:
-            raise NotImplementedError(f"health (the HealthPolicy ladder) "
-                                      f"{_RELIABILITY}")
-        if faults is not None:
-            raise NotImplementedError(f"faults (fault injection) "
-                                      f"{_RELIABILITY}")
-        if (self.scfg.snapshot_dir is not None or self.scfg.snapshot_every
-                or self.scfg.wal_log_every != 1):
-            raise NotImplementedError(f"snapshot_dir / snapshot_every / "
-                                      f"wal_log_every (the WAL and "
-                                      f"snapshots) {_RELIABILITY}")
+                 health: HealthPolicy | None = None, faults=None):
         self.index = index
+        self.scfg = scfg or SearchConfig()
+        self.health = health
+        self.counters = HealthCounters()
+        if faults is not None:   # attach the injector at the index seams
+            index.faults = faults
         self.queries_served = 0
         self.adds_since_refresh = 0
         self.refresh_count = 0
+        # durability: the WAL and snapshots when a snapshot_dir is set
+        self.wal = AddLog(self.scfg.snapshot_dir,
+                          log_every=self.scfg.wal_log_every) \
+            if self.scfg.snapshot_dir else None
+        self._seqno = 0            # the last insert batch's seqno
+        self._adds_since_snap = 0
+        self._replaying = False    # WAL replay re-enters add(): no re-log
+        # the bounded queue of adds that failed, and the last-known-good
+        # clone (rung 4 of the ladder)
+        self._pending_adds: collections.deque = collections.deque()
+        self._lkg = None
+        self._mark_healthy()
         self._queue: collections.deque = collections.deque()
         self._results: dict[int, object] = {}
         self._partials: dict[int, tuple[list, list]] = {}
@@ -139,10 +158,15 @@ class SearchEngine:
     def submit(self, q) -> int:
         """Enqueue a search request (any row count, 0 included); returns
         its request id for ``take``. Rows on the host are copied to the
-        index's device here."""
-        q = torch.as_tensor(q).to(device=self.index.device,
-                                  dtype=self.index.dtype)
-        return self._admit("search", q)
+        index's device here; under a ``HealthPolicy`` they are sanitized
+        there (``query_policy``), so the queue holds servable rows only."""
+        q = torch.as_tensor(q).to(device=self.index.device)
+        if self.health is not None:
+            q, rep = guard_batch(q, self.index.d,
+                                 policy=self.health.query_policy,
+                                 name="query batch")
+            self.counters.queries_sanitized += rep.bad_rows
+        return self._admit("search", q.to(dtype=self.index.dtype))
 
     def submit_add(self, x) -> int:
         """Enqueue an insert, applied in FIFO position between search
@@ -238,8 +262,7 @@ class SearchEngine:
         if self._inflight:
             self.overlap_hits += 1
         t0 = time.perf_counter()
-        ids, dists = self.index.search(unit, topk=s.topk, nprobe=s.nprobe,
-                                       nprobe_c=s.nprobe_c)
+        ids, dists = self._search_padded(unit)
         if warm:
             self._dispatch_ms.append((time.perf_counter() - t0) * 1e3)
         event = None
@@ -280,31 +303,231 @@ class SearchEngine:
 
     def search(self, q) -> tuple[torch.Tensor, torch.Tensor]:
         """q: (B, d) -> (ids (B, topk), dists) for any B: submit, then
-        take."""
+        take. Under a ``HealthPolicy`` it never raises and never returns a
+        non-finite distance."""
         return self.take(self.submit(q))
+
+    def _search_padded(self, q: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+        if self.health is None:
+            return self.index.search(q, topk=self.scfg.topk,
+                                     nprobe=self.scfg.nprobe,
+                                     nprobe_c=self.scfg.nprobe_c)
+        return self._ladder(q)
+
+    def _attempt(self, q: torch.Tensor, nprobe: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+        """One configured search; non-finite output counts as a failure
+        (one read of the unit's distances)."""
+        ids, dists = self.index.search(q, topk=self.scfg.topk,
+                                       nprobe=nprobe,
+                                       nprobe_c=self.scfg.nprobe_c)
+        if self.health.check_finite and not bool(torch.isfinite(dists).all()):
+            raise NonFiniteResult("search returned non-finite distances")
+        return ids, dists
+
+    def _ladder(self, q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The degradation ladder (``reliability.health``): retry/backoff,
+        nprobe halving, brute force, last-known-good, black hole. Never
+        raises."""
+        pol, ctr = self.health, self.counters
+        nprobe = min(self.scfg.nprobe, self.index.k)
+        attempts = pol.max_retries + 1   # retries only at the full nprobe
+        delay = pol.backoff_s
+        while True:
+            for i in range(attempts):
+                try:
+                    ids, dists = self._attempt(q, nprobe)
+                    if nprobe >= min(self.scfg.nprobe, self.index.k):
+                        ctr.searches_ok += 1
+                    else:
+                        ctr.nprobe_degraded += 1
+                    return ids, dists
+                except Exception:
+                    if i < attempts - 1:
+                        ctr.retries += 1
+                        if delay > 0:
+                            time.sleep(delay)
+                            delay *= pol.backoff_factor
+            if nprobe > pol.min_nprobe:   # rung 2: cheaper, lower recall
+                nprobe = max(pol.min_nprobe, nprobe // 2)
+                attempts = 1
+                continue
+            break
+        if pol.brute_fallback:   # rung 3: no probe stage left to fail
+            try:
+                ids, dists = self.index.search_brute(q, topk=self.scfg.topk)
+                if not bool(torch.isfinite(dists).all()):
+                    raise NonFiniteResult("brute force non-finite")
+                ctr.brute_fallbacks += 1
+                return ids, dists
+            except Exception:
+                pass
+        if pol.lkg_fallback and self._lkg is not None:   # rung 4: stale
+            try:
+                ids, dists = self._lkg.search(q, topk=self.scfg.topk,
+                                              nprobe=nprobe)
+                if not bool(torch.isfinite(dists).all()):
+                    raise NonFiniteResult("lkg non-finite")
+                ctr.lkg_fallbacks += 1
+                return ids, dists
+            except Exception:
+                pass
+        ctr.blackholed += 1   # rung 5: honest empty rows
+        b, dev = q.shape[0], self.index.device
+        return (torch.full((b, self.scfg.topk), -1, dtype=torch.int32,
+                           device=dev),
+                torch.zeros((b, self.scfg.topk), dtype=torch.float32,
+                            device=dev))
+
+    # ------------------------------------------------------------------
+    # ingestion
+    # ------------------------------------------------------------------
 
     def add(self, x_new) -> torch.Tensor:
         """Online insert; refreshes the index every ``refresh_every`` adds
-        (a host counter)."""
-        if x_new.shape[0] == 0:
+        (a host counter). With durability set the batch is written to the
+        WAL before it touches the index (a batch on the card is copied to
+        the host for its record); under a ``HealthPolicy`` it is validated
+        first (``insert_policy``), and a failed add waits in the bounded
+        queue and is retried first at the next add, or is rejected once the
+        queue is full."""
+        x = x_new if isinstance(x_new, torch.Tensor) else np.asarray(x_new)
+        if self.health is not None:
+            x, rep = guard_batch(x, self.index.d,
+                                 policy=self.health.insert_policy,
+                                 name="insert batch")
+            if rep.action == "dropped":
+                self.counters.insert_rows_dropped += rep.bad_rows
+        if x.shape[0] == 0:
             return torch.zeros((0,), dtype=torch.int32,
                                device=self.index.device)
-        a = self.index.add(x_new)
-        self.adds_since_refresh += 1
+        self._seqno += 1
+        if self.wal is not None and not self._replaying:
+            self.wal.append(self._seqno, x)
+        self._drain_pending()
+        a = self._apply(self._seqno, x)
         if self.adds_since_refresh >= self.scfg.refresh_every:
             self.refresh()
+        self._adds_since_snap += 1
+        if (self.scfg.snapshot_every and not self._replaying
+                and self._adds_since_snap >= self.scfg.snapshot_every):
+            self.snapshot()
         return a
 
+    def _apply(self, seqno: int, x) -> torch.Tensor:
+        """Apply one logged batch; park it (bounded) on failure."""
+        try:
+            a = self.index.add(x)
+        except Exception:
+            if self.health is not None and len(self._pending_adds) \
+                    < self.health.max_pending_adds:
+                self._pending_adds.append((seqno, x))
+                self.counters.adds_requeued += 1
+            else:
+                self.counters.adds_rejected += 1
+            if self.health is None:
+                raise
+            return torch.zeros((0,), dtype=torch.int32,
+                               device=self.index.device)
+        self.adds_since_refresh += 1
+        return a
+
+    def _drain_pending(self) -> None:
+        """Retry the parked adds ahead of new work."""
+        for _ in range(len(self._pending_adds)):
+            seqno, x = self._pending_adds.popleft()
+            self._apply(seqno, x)
+
     def refresh(self) -> None:
-        """Commit pending evidence: re-center the index's centroids."""
-        self.index.refresh(decay=self.scfg.refresh_decay)
+        """Commit pending evidence: re-center the index's centroids. Under
+        a ``HealthPolicy`` the commit is guarded (NaN statistics rows
+        zeroed, dead cells re-seeded), and a failed commit leaves the
+        schedule armed instead of raising."""
+        pol = self.health
+        try:
+            if pol is not None:
+                r0 = self.index.repaired_cells
+                d0 = self.index.reseeded_cells
+                self.index.refresh(decay=self.scfg.refresh_decay,
+                                   guard=pol.guard_refresh,
+                                   repair_dead=pol.repair_dead)
+                self.counters.stats_repaired += \
+                    self.index.repaired_cells - r0
+                self.counters.dead_cells_reseeded += \
+                    self.index.reseeded_cells - d0
+            else:
+                self.index.refresh(decay=self.scfg.refresh_decay)
+        except Exception:
+            if pol is None:
+                raise
+            self.counters.refresh_failures += 1
+            return
         self.adds_since_refresh = 0
         self.refresh_count += 1
+        self._mark_healthy()
+
+    def _mark_healthy(self) -> None:
+        """Retake the last-known-good clone (rung 4 of the ladder): a copy
+        of the index on its device (``reliability.snapshot.clone_index``),
+        as large as the index."""
+        if self.health is not None and self.health.lkg_fallback:
+            from repro_torch.reliability.snapshot import clone_index
+            self._lkg = None   # free the old clone before the new one
+            self._lkg = clone_index(self.index)
+
+    # ------------------------------------------------------------------
+    # durability
+    # ------------------------------------------------------------------
 
     def snapshot(self) -> str:
-        raise NotImplementedError(f"SearchEngine.snapshot {_RELIABILITY}")
+        """Snapshot the index (and the engine's schedule counters) as of
+        the current WAL position, then drop the WAL records it covers."""
+        if not self.scfg.snapshot_dir:
+            raise ValueError("snapshot() needs scfg.snapshot_dir")
+        path = self.index.save(
+            self.scfg.snapshot_dir, seqno=self._seqno,
+            extra={"adds_since_refresh": self.adds_since_refresh,
+                   "refresh_count": self.refresh_count,
+                   "queries_served": self.queries_served})
+        if self.wal is not None:
+            self.wal.truncate(self._seqno)
+        self._adds_since_snap = 0
+        self.counters.snapshots_written += 1
+        return path
 
     @classmethod
-    def recover(cls, directory: str, scfg: SearchConfig | None = None, **kw
-                ) -> "SearchEngine":
-        raise NotImplementedError(f"SearchEngine.recover {_RELIABILITY}")
+    def recover(cls, directory: str, scfg: SearchConfig | None = None, *,
+                health: HealthPolicy | None = None, faults=None,
+                planner=None, device=None, pctx=None) -> "SearchEngine":
+        """Crash recovery: load the latest snapshot onto ``device`` (None:
+        ``"cuda"``) and replay the WAL's tail through the live ``add``
+        path, which gives the index an uninterrupted run holds (same
+        batches, same order, the refresh schedule resumed from the
+        manifest's ``extra``). ``pctx`` waits for queue A item 6."""
+        if pctx is not None:
+            raise NotImplementedError(
+                "recovering onto a mesh (pctx) is not ported yet "
+                "(ROADMAP.md, queue A item 6)")
+        from repro_torch.index.ivf import IVFIndex
+        from repro_torch.reliability.snapshot import read_manifest
+        index = IVFIndex.load(directory, planner=planner, device=device)
+        scfg = dataclasses.replace(scfg or SearchConfig(),
+                                   snapshot_dir=directory)
+        eng = cls(index, scfg, health=health, faults=faults)
+        manifest = read_manifest(directory)
+        extra = manifest.get("extra", {})
+        eng.adds_since_refresh = extra.get("adds_since_refresh", 0)
+        eng.refresh_count = extra.get("refresh_count", 0)
+        eng.queries_served = extra.get("queries_served", 0)
+        eng._seqno = int(manifest.get("seqno", 0))
+        eng._replaying = True
+        try:
+            for seqno, x in eng.wal.replay(after=eng._seqno):
+                eng._seqno = seqno - 1   # add() reassigns exactly seqno
+                eng.add(x)
+                eng.counters.wal_records_replayed += 1
+        finally:
+            eng._replaying = False
+        eng._mark_healthy()
+        return eng

@@ -255,23 +255,32 @@ def test_plans_are_pinned_and_repinned_on_geometry(corpus):
     assert eng.index.planner.counters()["misses"] > misses
 
 
-# --- what waits for the reliability layer ------------------------------------
+# --- the reliability options (ported; the sharded recovery waits) -----------
 
-def test_unported_reliability_options_raise(corpus):
+def test_unported_reliability_options_raise(corpus, tmp_path):
+    """The reliability options of queue A item 5 now work (they raised
+    before it was ported); only recovery onto a mesh (item 6) raises."""
+    from repro_torch.reliability import (FaultInjector, FaultPlan,
+                                         HealthPolicy)
     x, _ = corpus
     index = IVFIndex.build(x[:256], k=4, max_iters=2, device="cpu")
-    for kw in ({"health": object()}, {"faults": object()}):
-        with pytest.raises(NotImplementedError, match="queue A item 5"):
-            SearchEngine(index, **kw)
-    for cfg in ({"snapshot_dir": "snap"}, {"snapshot_every": 2},
-                {"wal_log_every": 4}):
-        with pytest.raises(NotImplementedError, match="queue A item 5"):
-            SearchEngine(index, SearchConfig(**cfg))
-    eng = SearchEngine(index)
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        eng.snapshot()
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        SearchEngine.recover("snap")
+    eng = SearchEngine(index, health=HealthPolicy(),
+                       faults=FaultInjector(FaultPlan.seeded(7)))
+    assert index.faults is not None and eng._lkg is not None
+    assert eng.search(x[:8])[0].shape == (8, 10)   # seed 7: retried
+    assert eng.counters.retries == 1
+    index.faults = None
+    snap = str(tmp_path / "snap")
+    for cfg in ({"snapshot_dir": snap}, {"snapshot_every": 2},
+                {"wal_log_every": 4, "snapshot_dir": snap}):
+        SearchEngine(index, SearchConfig(**cfg))
+    eng = SearchEngine(index, SearchConfig(snapshot_dir=snap))
+    eng.add(x[256:300])
+    assert eng.snapshot().endswith("index_00000001.npz")
+    rec = SearchEngine.recover(snap, device="cpu")
+    assert torch.equal(rec.search(x[:8])[0], eng.search(x[:8])[0])
+    with pytest.raises(NotImplementedError, match="queue A item 6"):
+        SearchEngine.recover(snap, device="cpu", pctx=object())
     # nprobe_c no longer raises (the two-level router is ported): the flat
     # router takes it and ignores it, as the reference's does
     eng = SearchEngine(index, SearchConfig(topk=5, nprobe=2, nprobe_c=2))
@@ -365,14 +374,29 @@ def test_launcher_serves_search_on_the_cpu(codec, capsys):
 
 @pytest.mark.parametrize("flags,item", [
     (["--mode", "dense"], "items 7-8"), (["--mode", "clustered"], "items 7-8"),
-    (["--mesh", "1x8"], "item 6"), (["--health"], "item 5"),
-    (["--snapshot-dir", "snap"], "item 5"), (["--snapshot-every", "4"],
-                                             "item 5"),
-    (["--chaos-seed", "7"], "item 5")])
+    (["--mesh", "1x8"], "item 6")])
 def test_launcher_refuses_what_is_not_ported(flags, item):
     from repro_torch.launch import serve
     with pytest.raises(NotImplementedError, match=f"queue A {item}"):
         serve.main(["--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--health"], ["--snapshot-dir", "SNAP"], ["--snapshot-every", "4"],
+    ["--chaos-seed", "8"]])
+def test_launcher_takes_the_reliability_flags(flags, tmp_path, capsys):
+    """The four flags of queue A item 5, which the launcher refused before
+    the reliability layer was ported, each serve a search."""
+    from repro_torch.launch import serve
+    flags = [str(tmp_path / "snap") if f == "SNAP" else f for f in flags]
+    out = serve.main(["--mode", "search", "--device", "cpu", "--n", "2000",
+                      "--d", "16", "--kc", "16", "--queries", "32",
+                      "--reps", "2", *flags])
+    assert out["recall"] >= 0.9 and out["qps"] > 0
+    text = capsys.readouterr().out
+    assert ("health counters:" in text) == (flags[0] in ("--health",
+                                                         "--chaos-seed"))
+    assert out.get("restored_same", True)
 
 
 @pytest.mark.parametrize("codec", ["fp32", "q8"])

@@ -494,13 +494,20 @@ def test_unported_entry_points_raise(tmp_path):
     assert len(IVFIndex.build(x, k=4, device="cpu", chunk_size=16)) == 64
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         IVFIndex.build(x, k=4, device="cpu", pctx=object())
+    # save, load and faults are ported (tests/test_torch_snapshot.py,
+    # tests/test_torch_reliability.py): a round trip, and an injector
     idx = IVFIndex(x[:4], 8, device="cpu")
+    idx.add(x)
+    idx.save(str(tmp_path))
+    back = IVFIndex.load(str(tmp_path), device="cpu")
+    got, exp = back.search(x[:8], topk=4, nprobe=2), idx.search(
+        x[:8], topk=4, nprobe=2)
+    assert torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])
+    from repro_torch.reliability import FaultEvent, FaultInjector, FaultPlan
+    idx.faults = FaultInjector(FaultPlan([FaultEvent("add", "drop_add", 0)]))
+    assert idx.add(x).shape == (0,) and len(idx) == 64
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        idx.save(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        IVFIndex.load(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        idx.faults = object()
+        IVFIndex.load(str(tmp_path), device="cpu", pctx=object())
     # rescore=None resolves to the device cache, as in the reference; the
     # host reservoir stays beside it as the durable tier
     q8 = IVFIndex(x[:4], 8, device="cpu", codec="q8")
