@@ -317,6 +317,7 @@ REL_ADDS, REL_ADD_ROWS = 24, 4096     # the durability run's adds
 REL_REFRESH, REL_SNAP = 8, 12         # refresh_every, snapshot_every
 REL_QPS_REQUESTS = 64                 # requests of IVF_B rows, +/- health
 CHAOS_SEEDS, CHAOS_UNITS, CHAOS_ADDS = (7, 8, 9), 64, 16
+UPDATE_BIT_REPS = 5   # runs of the regimes' update compared bit for bit
 DET_SHAPE, DET_REPS = (65536, 8), 5   # a cluster spans 32 update chunks
 
 failures: list[str] = []
@@ -357,7 +358,10 @@ def reliability_phase(dev, smi, zero_counts, read_counts, details):
     re-warms); the engine serves ``CHAOS_UNITS`` units and ``CHAOS_ADDS``
     adds under ``FaultPlan.seeded(s)`` without raising or a non-finite
     distance, and each unit served at the configured nprobe returns a
-    fault-free engine's ids over the same index. Times: snapshot save and
+    fault-free engine's ids over the same index. Every fault-free engine
+    under the policy (the served one, its twin, the recovered one, those
+    timed for queries/s) must serve each unit at the configured nprobe and
+    take no rung of the ladder. Times: snapshot save and
     load, recover and its replay, a WAL append, ``clone_index``,
     ``guard_batch`` on a device batch, queries/s with and without the
     policy. Snapshots go to a ``tempfile.mkdtemp()`` directory, removed at
@@ -410,6 +414,22 @@ def reliability_phase(dev, smi, zero_counts, read_counts, details):
         if a.n_total != b.n_total:
             bad.append("n_total")
         return bad
+
+    rungs = ("retries", "nprobe_degraded", "brute_fallbacks",
+             "lkg_fallbacks", "blackholed", "adds_requeued", "adds_rejected",
+             "refresh_failures")
+
+    def served_clean(tag, what, e, units):
+        """A fault-free engine under the policy served each of its
+        ``units`` units at the configured nprobe, through the kernels, and
+        took no rung of the ladder; its counters, printed."""
+        c = e.counters.as_dict()
+        print(f"  {what}: counters { {kk: v for kk, v in c.items() if v} }",
+              flush=True)
+        check(c["searches_ok"] == units and not any(c[x] for x in rungs),
+              f"{tag}: {what} served its {units} units at nprobe {NPROBE}, "
+              f"no rung of the ladder taken")
+        return c
 
     def add_bits(base, batch, reps):
         """``_pending`` after ``add(batch)`` on ``reps`` clones of ``base``:
@@ -522,6 +542,8 @@ def reliability_phase(dev, smi, zero_counts, read_counts, details):
                   and eng.counters.snapshots_written == 1,
                   f"{tag}: killed at add {killed_at} as its second snapshot "
                   f"began, one snapshot written")
+            clean = {"engine": served_clean(tag, "the served engine", eng,
+                                            REL_ADDS - 1)}
             del eng, base, real_save
             sync()
             torch.cuda.empty_cache()
@@ -540,6 +562,10 @@ def reliability_phase(dev, smi, zero_counts, read_counts, details):
                 SearchEngine.add = real_add
             diff = same_state(back.index, twin.index)
             got, want = back.search(held), twin.search(held)
+            clean["twin"] = served_clean(tag, "the uninterrupted engine", twin,
+                                         REL_ADDS + 1)
+            clean["recovered"] = served_clean(tag, "the recovered engine",
+                                              back, 1)
             check(back.counters.wal_records_replayed == REL_ADDS - REL_SNAP
                   and back.refresh_count == twin.refresh_count
                   and back.adds_since_refresh == twin.adds_since_refresh,
@@ -556,7 +582,8 @@ def reliability_phase(dev, smi, zero_counts, read_counts, details):
                   f"({int((got[0] != want[0]).sum())} ids differ)")
             snap_bytes = sum(os.path.getsize(os.path.join(sdir, f))
                              for f in os.listdir(sdir))
-            r.update(auto_save_s=save_s, recover_s=recover_s,
+            r.update(counters_fault_free=clean, auto_save_s=save_s,
+                     recover_s=recover_s,
                      replay_s=sum(replay_s), replayed=len(replay_s),
                      snapshot_dir_bytes=snap_bytes, clone_s=clone_s)
             print(f"  recover {recover_s:.3f} s, of which the replay of "
@@ -677,6 +704,10 @@ def reliability_phase(dev, smi, zero_counts, read_counts, details):
                     e.pump()
                     return [e.take(rr) for rr in rids]
                 _, t = wall(go)
+                if health is not None:
+                    clean.setdefault("qps_with_health", []).append(
+                        served_clean(tag, "the queries/s engine", e,
+                                     REL_QPS_REQUESTS + 1))
                 return REL_QPS_REQUESTS * IVF_B / t
             qps_plain, qps_health = qps(None), qps(pol)
             qps_plain2, qps_health2 = qps(None), qps(pol)
@@ -2332,8 +2363,25 @@ def main() -> int:
             + b * k * (d + 1) * 4,
             "ops": float(nb * d), "dtype": dt, "shape": [b, n, k, d]}
         tu = timing[tag + "/sort_inverse_update"]
-        print(f"  {tag}: the sort prologue of {nb} ids {tu['sort_ms']:.4f} ms "
-              f"(device {tu['sort_device_ms']:.4f} ms)", flush=True)
+
+        def update():
+            return siu.sort_inverse_update_raw(
+                x2, order, ids_s, b * k, chunk=blk.update_block_n,
+                threads=blk.update_block_k)
+        first = [t.clone() for t in update()]
+        tu["bitwise_runs"] = 1 + sum(
+            all(torch.equal(u, v) for u, v in zip(update(), first))
+            for _ in range(UPDATE_BIT_REPS - 1))
+        tu["bitwise_reps"] = UPDATE_BIT_REPS
+        print(f"  {tag}: sort_inverse_update {tu['ms']:.4f} ms (device "
+              f"{tu['device_ms']:.4f}), sums and counts bit for bit in "
+              f"{tu['bitwise_runs']} of {UPDATE_BIT_REPS} runs; the sort "
+              f"prologue of {nb} ids {tu['sort_ms']:.4f} ms (device "
+              f"{tu['sort_device_ms']:.4f} ms)", flush=True)
+        check(tu["bitwise_runs"] == UPDATE_BIT_REPS,
+              f"{tag}: sort_inverse_update gives the same sums and counts "
+              f"bit for bit from run to run")
+        del first
         del a_full, ids, ids_s, order, ids_l
         del x, c0, xb, cb, st, km
         torch.cuda.empty_cache()

@@ -9,6 +9,8 @@ builds nothing and needs no ``nvcc``.
 
 Every C entry point returns a ``cudaError_t``; ``check`` raises on a
 non-zero code. Pointers and the stream are passed as ``ctypes.c_void_p``.
+A kernel that cannot be built, loaded or launched raises
+``KernelUnavailable``, which the serving ladder never absorbs.
 """
 from __future__ import annotations
 
@@ -78,6 +80,12 @@ SIGNATURES = {
     "fk_rescore_cache_insert": (_P,) * 8 + (_I,) * 4 + (_P,),
 }
 
+class KernelUnavailable(RuntimeError):
+    """A hand-written kernel could not be built, loaded or launched. The
+    serving engine's degradation ladder re-raises it: a search or an add
+    is never answered by the plain version in the kernel's place."""
+
+
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None
@@ -96,7 +104,7 @@ def find_nvcc() -> str:
     for c in cands:
         if c.is_file() and os.access(c, os.X_OK):
             return str(c)
-    raise RuntimeError(
+    raise KernelUnavailable(
         "nvcc not found (looked in $CUDA_HOME/bin, $PATH and "
         "/usr/local/cuda/bin): the repro_torch CUDA kernels are built from "
         "src/repro_torch/csrc at first use and need the CUDA toolkit")
@@ -143,14 +151,15 @@ def build() -> Path:
         if p.returncode != 0:
             failed.append(src.name)
     if failed:
-        raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
+        raise KernelUnavailable(f"nvcc failed for {failed}:\n"
+                                + "\n".join(logs))
     tmp = out_dir / f"libfkmeans.{os.getpid()}.so"
     link = subprocess.run(
         [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
          *(str(o) for _, o, _ in procs)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if link.returncode != 0:
-        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        raise KernelUnavailable(f"nvcc link failed:\n{link.stdout}")
     ptxas_log = "\n".join(logs)
     log.write_text(ptxas_log)
     os.replace(tmp, lib)
@@ -163,7 +172,11 @@ def lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(str(build()))
+            try:
+                handle = ctypes.CDLL(str(build()))
+            except OSError as e:
+                raise KernelUnavailable(f"cannot load the kernel library: "
+                                        f"{e}") from e
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
@@ -174,7 +187,7 @@ def lib() -> ctypes.CDLL:
 
 def check(code: int, what: str) -> None:
     if code != 0:
-        raise RuntimeError(f"{what} failed: CUDA error {code}")
+        raise KernelUnavailable(f"{what} failed: CUDA error {code}")
 
 
 def stream_ptr(device: torch.device) -> int:

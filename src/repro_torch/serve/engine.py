@@ -34,14 +34,16 @@ with inserts interleaved in FIFO order, and overlapped dispatch.
   clone, honest ``(-1, 0.0)`` rows) and never raises or returns a
   non-finite distance, an add that fails waits in a bounded queue and is
   retried first at the next add, and ``refresh`` repairs NaN statistics
-  and dead cells. ``check_finite`` reads each unit's distances back, so a
-  unit under a policy waits for its result. ``faults`` attaches a
-  ``FaultInjector`` to the index's seams. With ``snapshot_dir`` every add
-  is written to the WAL before it is applied (``wal_log_every``),
-  ``snapshot_every`` adds snapshot the index, and ``recover`` loads the
-  latest snapshot and replays the WAL's tail through ``add``, which gives
-  the index an uninterrupted run holds, its schedule counters resumed from
-  the manifest.
+  and dead cells. A fault of the card's kernels (``KERNEL_FAULTS``: one
+  that cannot build or launch) is raised through all of these, never
+  answered by a plain version. ``check_finite`` reads each unit's
+  distances back, so a unit under a policy waits for its result.
+  ``faults`` attaches a ``FaultInjector`` to the index's seams. With
+  ``snapshot_dir`` every add is written to the WAL before it is applied
+  (``wal_log_every``), ``snapshot_every`` adds snapshot the index, and
+  ``recover`` loads the latest snapshot and replays the WAL's tail through
+  ``add``, which gives the index an uninterrupted run holds, its schedule
+  counters resumed from the manifest.
 
 Not ported yet (ROADMAP.md, queue A): ``recover(pctx=)`` (item 6) and the
 clustered-KV ``Engine`` (item 8).
@@ -55,10 +57,18 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.kernels._build import KernelUnavailable
 from repro_torch.reliability.health import (HealthCounters, HealthPolicy,
                                             NonFiniteResult)
 from repro_torch.reliability.validate import guard_batch
 from repro_torch.reliability.wal import AddLog
+
+# Faults of the card's kernels, never absorbed by the ladder or the queue of
+# pending adds: a kernel that cannot build or launch, and a CUDA error that
+# torch surfaces after a launch. The reliability layer answers injected and
+# transient faults; it does not answer with the plain version instead.
+KERNEL_FAULTS = (KernelUnavailable,) + (
+    (torch.AcceleratorError,) if hasattr(torch, "AcceleratorError") else ())
 
 
 @dataclasses.dataclass
@@ -303,8 +313,8 @@ class SearchEngine:
 
     def search(self, q) -> tuple[torch.Tensor, torch.Tensor]:
         """q: (B, d) -> (ids (B, topk), dists) for any B: submit, then
-        take. Under a ``HealthPolicy`` it never raises and never returns a
-        non-finite distance."""
+        take. Under a ``HealthPolicy`` it never returns a non-finite
+        distance and raises only ``KERNEL_FAULTS``."""
         return self.take(self.submit(q))
 
     def _search_padded(self, q: torch.Tensor
@@ -329,7 +339,8 @@ class SearchEngine:
     def _ladder(self, q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """The degradation ladder (``reliability.health``): retry/backoff,
         nprobe halving, brute force, last-known-good, black hole. Never
-        raises."""
+        raises, except on a fault of the card's kernels
+        (``KERNEL_FAULTS``), which it passes on."""
         pol, ctr = self.health, self.counters
         nprobe = min(self.scfg.nprobe, self.index.k)
         attempts = pol.max_retries + 1   # retries only at the full nprobe
@@ -343,6 +354,8 @@ class SearchEngine:
                     else:
                         ctr.nprobe_degraded += 1
                     return ids, dists
+                except KERNEL_FAULTS:
+                    raise
                 except Exception:
                     if i < attempts - 1:
                         ctr.retries += 1
@@ -361,6 +374,8 @@ class SearchEngine:
                     raise NonFiniteResult("brute force non-finite")
                 ctr.brute_fallbacks += 1
                 return ids, dists
+            except KERNEL_FAULTS:
+                raise
             except Exception:
                 pass
         if pol.lkg_fallback and self._lkg is not None:   # rung 4: stale
@@ -371,6 +386,8 @@ class SearchEngine:
                     raise NonFiniteResult("lkg non-finite")
                 ctr.lkg_fallbacks += 1
                 return ids, dists
+            except KERNEL_FAULTS:
+                raise
             except Exception:
                 pass
         ctr.blackholed += 1   # rung 5: honest empty rows
@@ -419,6 +436,8 @@ class SearchEngine:
         """Apply one logged batch; park it (bounded) on failure."""
         try:
             a = self.index.add(x)
+        except KERNEL_FAULTS:
+            raise
         except Exception:
             if self.health is not None and len(self._pending_adds) \
                     < self.health.max_pending_adds:
@@ -458,6 +477,8 @@ class SearchEngine:
                     self.index.reseeded_cells - d0
             else:
                 self.index.refresh(decay=self.scfg.refresh_decay)
+        except KERNEL_FAULTS:
+            raise
         except Exception:
             if pol is None:
                 raise

@@ -39,6 +39,7 @@ from repro.serve.engine import SearchConfig as JConfig
 from repro.serve.engine import SearchEngine as JEngine
 from repro_torch.core.streaming import SufficientStats
 from repro_torch.index import IVFIndex, index_to_numpy
+from repro_torch.kernels._build import KernelUnavailable
 from repro_torch.reliability import (AddLog, BatchReport, FaultEvent,
                                      FaultInjector, FaultPlan, HealthCounters,
                                      HealthPolicy, InjectedFault,
@@ -406,6 +407,48 @@ def test_ladder_reaches_brute_force_then_the_black_hole(data):
     ids, _ = eng.search(q[:8])
     assert eng.counters.lkg_fallbacks == 1
     assert torch.equal(ids, eng._lkg.search(q[:8], topk=6, nprobe=1)[0])
+
+
+def _kernel_fault(*_a, **_k):
+    raise KernelUnavailable("flash_probe_tile kernel launch failed: CUDA "
+                            "error 98")
+
+
+def _transient(*_a, **_k):
+    raise RuntimeError("a transient search fault")
+
+
+@pytest.mark.parametrize("where", ["search", "brute", "lkg", "add",
+                                   "refresh"])
+def test_kernel_faults_pass_through_the_ladder(where, data):
+    """A kernel that cannot build or launch is raised through the ladder,
+    the queue of pending adds and the guarded refresh: no rung answers
+    with the plain version in its place, and no counter absorbs it."""
+    _, _, stream, q = data
+    pol = HealthPolicy(**POL, brute_fallback=where != "lkg")
+    eng = SearchEngine(_index(data), SearchConfig(**KW), health=pol)
+    if where == "search":
+        eng.index.search = _kernel_fault
+    elif where in ("brute", "lkg"):   # the probe fails, the rung's kernel too
+        eng.index.search = _transient
+        eng.index.search_brute = _kernel_fault
+        eng._lkg.search = _kernel_fault
+    elif where == "add":
+        eng.index.add = _kernel_fault
+    else:
+        eng.index.refresh = _kernel_fault
+    with pytest.raises(KernelUnavailable, match="CUDA error 98"):
+        if where == "refresh":
+            eng.refresh()
+        elif where == "add":
+            eng.add(stream[0])
+        else:
+            eng.search(q[:8])
+    c = eng.counters
+    assert (c.searches_ok, c.nprobe_degraded, c.brute_fallbacks,
+            c.lkg_fallbacks, c.blackholed, c.adds_requeued, c.adds_rejected,
+            c.refresh_failures) == (0,) * 8
+    assert len(eng._pending_adds) == 0
 
 
 def test_dead_shard_on_one_device_is_a_search_error(data):
