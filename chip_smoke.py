@@ -64,7 +64,25 @@ run and read just after:
   distance finite, units at the configured nprobe return a fault-free
   engine's ids; snapshot save/load, recover and replay, a WAL append,
   ``clone_index``, ``guard_batch`` and queries/s with and without the
-  policy timed.
+  policy timed;
+- the parallel layer (``repro_torch.core.parallel``, ``parallel_phase``):
+  in this process, a world of one rank over NCCL, the distributed Lloyd fit
+  at largeN_smallK (N = 8,388,608, K = 1,024, d = 128, 5 iterations) bit
+  for bit ``KMeans.fit`` through ``ParallelContext.for_mesh``, and through
+  an explicit cells axis (the two-stage path) its first ids bit for bit
+  and its centroids within tolerance, with the ms an iteration of each
+  against ``KMeans.iterate``; ``StreamingKMeans(pctx=)`` over phase 8's
+  stream bit for bit; ``launch/serve.py --mode search --mesh 1x1``. Then
+  ranks spawned on the one card over gloo: two at mesh 2x1 (the same fit:
+  one iteration's ids bit for bit, the centroids within tolerance) and at
+  mesh 1x2 at largeN_largeK (the two-stage argmin bit for bit FlashAssign,
+  one K-sharded iteration, ``owned_stats`` and its extra bucket against the
+  plain version); four at mesh 2x2 at the IVF cell (a sharded and a
+  single-rank index from the same centroids, ids bit for bit before and
+  after an add of 4,096 rows and a refresh; full probe on the exactness
+  corpus against ``search_brute``; ``build(pctx=)`` recall). Every rank
+  reports its kernel launches; times at two or four ranks are ranks
+  time-slicing one card.
 
 Before the paths, the sort-inverse update, FlashLloyd and the store scan are
 held to their plain versions on edge shapes (one segment over every CTA, K >
@@ -98,8 +116,9 @@ limit, and as its last line ``{"ok": true, "device": {...}}``. It exits
 non-zero, printing no result, without a CUDA device or outside a checkout
 of the repository, and when any check fails. ``--kernels-only`` stops
 after the build and the ragged kernel checks (a first call after a kernel
-change); ``--reliability-only`` runs the build and the reliability phase. Details go to ``chip_smoke.json`` in the repository's
-git-ignored output directory.
+change); ``--reliability-only`` runs the build and the reliability phase,
+``--parallel-only`` the build and the parallel phase. Details go to
+``chip_smoke.json`` in the repository's git-ignored output directory.
 """
 from __future__ import annotations
 
@@ -738,12 +757,703 @@ def reliability_phase(dev, smi, zero_counts, read_counts, details):
     return runs
 
 
+# ---- phase 12: the parallel layer (core.parallel) ---------------------------
+# phase 12's shapes: the distributed fit at largeN_smallK over 1,024
+# well-separated blobs (the IVF corpus's spread; seed SEED + 12), a fixed
+# number of iterations (tol 0); the K-sharded assignment at largeN_largeK
+# (seed SEED + 13); the sharded index at phase 5's IVF cell and phase 6's
+# exactness corpus. Ranks beyond the first share the one card (gloo).
+PAR_FIT, PAR_FIT_ITERS = (8388608, 1024, 128), 5
+PAR_LARGE_K = (262144, 65536, 512)
+PAR_ADD_ROWS = 4096
+# the share of rows whose final cell in the 2x1 fit may differ from the
+# one-rank fit's (near-ties that the other order of the sums moved)
+MOVED_MAX = 0.005
+PAR_TIMEOUT_S = 300    # a rank's collective that waits longer fails
+PAR_JOIN_S = 420       # a group of ranks that runs longer is killed
+
+
+def ivf_corpus(dev):
+    """Phase 5's corpus (seed SEED + 4): ``(gen, centers, x, queries)``,
+    ``IVF`` rows around ``IVF[1]`` blob centres (x5, noise 0.4) and
+    ``IVF_BATCHES`` batches of ``IVF_B`` queries; ``gen`` goes on."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    n, k, d = IVF
+    centers = torch.randn(k, d, device=dev, generator=gen) * 5.0
+    x = centers[torch.randint(0, k, (n,), device=dev, generator=gen)]
+    x += 0.4 * torch.randn(n, d, device=dev, generator=gen)
+    qlab = torch.randint(0, k, (IVF_BATCHES, IVF_B), device=dev,
+                         generator=gen)
+    queries = centers[qlab] + 0.4 * torch.randn(IVF_BATCHES, IVF_B, d,
+                                                device=dev, generator=gen)
+    return gen, centers, x, queries
+
+
+def drifting_stream(dev, d):
+    """Phase 8's stream (seed 12): ``(sizes, gen, centers, drifting)``,
+    ``drifting(rows)`` the next batch around centres that drift."""
+    import torch
+    sizes = torch.randint(STREAM_ROWS[0], STREAM_ROWS[1] + 1,
+                          (STREAM_BATCHES,),
+                          generator=torch.Generator().manual_seed(12)).tolist()
+    gen = torch.Generator(device=dev).manual_seed(12)
+    centers = torch.randn(STREAM_K, d, device=dev, generator=gen) * 2.0
+
+    def drifting(rows):
+        centers.add_(0.01 * torch.randn(STREAM_K, d, device=dev,
+                                        generator=gen))
+        lab = torch.randint(0, STREAM_K, (rows,), device=dev, generator=gen)
+        return centers[lab] + torch.randn(rows, d, device=dev, generator=gen)
+
+    return sizes, gen, centers, drifting
+
+
+def stats_bound(x2, ids, segments, cnt):
+    """|sum error| bound per (segment, column) of a sort-inverse update
+    against its plain version: 2 n u sum |x|."""
+    import torch
+    abssum = torch.zeros((segments, x2.shape[1]), device=x2.device)
+    abssum.index_add_(0, ids.long(), x2.abs().float())
+    return 2 * U32 * cnt.unsqueeze(1) * abssum + 1e-30
+
+
+def launch_counters():
+    """``(zero, read)`` of this process's kernel launch counters."""
+    from repro_torch.kernels import flash_assign as fa
+    from repro_torch.kernels import flash_lloyd as fl
+    from repro_torch.kernels import flash_probe as fp
+    from repro_torch.kernels import rescore_cache as rck
+    from repro_torch.kernels import sort_inverse_update as siu
+    mods = {"flash_assign": fa, "sort_inverse_update": siu,
+            "flash_lloyd": fl, "rescore_cache_insert": rck}
+
+    def zero():
+        for mod in mods.values():
+            mod.launches = 0
+        for kname in fp.launches:
+            fp.launches[kname] = 0
+
+    def read():
+        return {**{kname: mod.launches for kname, mod in mods.items()},
+                **fp.launches}
+
+    return zero, read
+
+
+def events_ms(fn, reps=3):
+    """CUDA-event ms a call of ``fn`` over ``reps`` calls, after one
+    warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def wall_s(fn):
+    """``(fn(), seconds)`` on the host clock, the card synchronized."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def fit_corpus(dev, shape, seed, spread, noise):
+    """``(x, c0)``: ``shape[0]`` rows around ``shape[1]`` Gaussian centres
+    (``spread``, ``noise``) from ``seed``, and the c0 ``KMeans.fit`` draws
+    (``cfg.init`` random, its seed 0)."""
+    import torch
+    from repro_torch.core.init import init_centroids
+    n, k, d = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    centers = torch.randn(k, d, device=dev, generator=gen) * spread
+    x = centers[torch.randint(0, k, (n,), device=dev, generator=gen)]
+    x += noise * torch.randn(n, d, device=dev, generator=gen)
+    c0 = init_centroids(x, k, "random",
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    return x, c0
+
+
+def _rank_fits(rank, dev):
+    """Cases (b) and (c) on one of two ranks sharing the card."""
+    import torch
+    from repro_torch.core import KMeans, KMeansConfig
+    from repro_torch.core.parallel import ParallelContext, build_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sort_inverse_update as siu
+    zero, read = launch_counters()
+    out = {}
+    # (b) mesh 2x1: the N-sharded fit from (a)'s c0
+    n, k, d = PAR_FIT
+    x, c0 = fit_corpus(dev, PAR_FIT, SEED + 12, 5.0, 0.4)
+    cfg = KMeansConfig(k=k, max_iters=PAR_FIT_ITERS)
+    pctx = ParallelContext.for_mesh(build_mesh((2, 1), ("data", "model"),
+                                               backend="gloo"))
+    fit, assign = pctx.make_kmeans_fit(cfg), pctx.make_assign(cfg)
+    zero()
+    r, fit_s = wall_s(lambda: fit(x, c0))
+    ids1 = assign(x, c0)[0]
+    torch.cuda.synchronize()
+    out["b"] = {"centroids": r.centroids.cpu(), "ids": r.assignments.cpu(),
+                "ids1": ids1.cpu(), "iterations": r.iterations,
+                "inertia": float(r.inertia), "fit_s": fit_s,
+                "counts": read(),
+                "fused": cfg.resolved_step_impl(n // 2, d, 4, device=dev)
+                == "fused"}
+    # the fit is a Lloyd trajectory of its own: its first iteration from
+    # c0, and its final ids the argmin of the centroids one iteration back
+    # (the same gloo sums in the same order, so the same bits)
+    first = pctx.make_kmeans_fit(KMeansConfig(k=k, max_iters=1))(x, c0)
+    back = pctx.make_kmeans_fit(KMeansConfig(
+        k=k, max_iters=PAR_FIT_ITERS - 1))(x, c0)
+    out["b"]["centroids1"] = first.centroids.cpu()
+    out["b"]["last_ids_consistent"] = bool(torch.equal(
+        assign(x, back.centroids)[0], r.assignments))
+    del x, c0, r, ids1, first, back
+    torch.cuda.empty_cache()
+    # (c) mesh 1x2 at largeN_largeK: the two-stage argmin, one K-sharded
+    # iteration, the owned statistics and their extra bucket
+    n, k, d = PAR_LARGE_K
+    x, c0 = fit_corpus(dev, PAR_LARGE_K, SEED + 13, 2.0, 1.0)
+    a_ref = ops.flash_assign(x, c0, want_dists=False)[0]
+    c1 = KMeans(KMeansConfig(k=k), device=dev).iterate(x, c0)[0]
+    pk = ParallelContext.for_mesh(build_mesh((1, 2), ("data", "model"),
+                                             backend="gloo"))
+    cfg = KMeansConfig(k=k, max_iters=1)
+    zero()
+    (a, _), assign_s = wall_s(lambda: pk.make_assign(cfg)(x, c0))
+    r, iter_s = wall_s(lambda: pk.make_kmeans_fit(cfg)(x, c0))
+    counts = read()
+    kl = pk.k_local(k)
+    rel = a - pk.k_rank * kl
+    a_eff = torch.where((rel >= 0) & (rel < kl), rel, kl).to(torch.int32)
+    blk = cfg.blocks_for(n, d, 4, dev)
+    s_own, n_own = pk.owned_stats(x, a, k, cfg)
+    s_full, n_full = ops.centroid_stats(x, a_eff, k=kl + 1,
+                                        block_n=blk.update_block_n,
+                                        block_k=blk.update_block_k)
+    ids_s, order = torch.sort(a_eff, stable=True)
+    sp, cp = siu.sort_inverse_update_plain(x, order.to(torch.int32), ids_s,
+                                           kl + 1)
+    err = (s_full - sp).abs()
+    bound = stats_bound(x, a_eff, kl + 1, cp)
+    own_ms = events_ms(lambda: pk.owned_stats(x, a, k, cfg), reps=5)
+    out["c"] = {
+        "ids_equal": bool(torch.equal(a, a_ref)),
+        "ids_differ": int((a != a_ref).sum()),
+        "centroid_err": float((r.centroids - c1).abs().max()),
+        "centroids_ok": bool(torch.allclose(r.centroids, c1, rtol=1e-5,
+                                            atol=1e-5)),
+        "stats_ok": bool((err <= bound).all()) and torch.equal(n_full, cp),
+        "owned_is_sliced": torch.equal(s_own, s_full[:kl])
+        and torch.equal(n_own, n_full[:kl]),
+        "stats_err": float(err.max()),
+        "extra_bucket_rows": int(cp[kl]),
+        "extra_bucket_err": float(err[kl].max()),
+        "extra_bucket_bound": float(bound[kl].min()),
+        "owned_stats_ms": own_ms, "assign_s": assign_s, "iter_s": iter_s,
+        "counts": counts}
+    return out
+
+
+def _rank_ivf(rank, dev):
+    """Case (d) on one of four ranks sharing the card, mesh 2x2."""
+    import torch
+    from repro_torch.core.parallel import ParallelContext, build_mesh
+    from repro_torch.index import IVFIndex, recall_at_k
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+    zero, read = launch_counters()
+
+    def brute(index):
+        """``search_brute``'s ids of each batch, its score matrix taken 32
+        queries at a time: four ranks share the card's memory."""
+        flat_x, flat_ids = index.store.flat()   # a gather over the cells
+        return [torch.cat([flat_ids[kref.probe_ref(
+            qb[i:i + 32].to(flat_x.dtype), flat_x, TOPK)[0].long()]
+            for i in range(0, qb.shape[0], 32)]) for qb in queries]
+
+    gen, centers, x, queries = ivf_corpus(dev)
+    n, k, d = IVF
+    x2 = centers[torch.randint(0, k, (PAR_ADD_ROWS,), device=dev,
+                               generator=gen)]
+    x2 += 0.4 * torch.randn(PAR_ADD_ROWS, d, device=dev, generator=gen)
+    pctx = ParallelContext.for_mesh(build_mesh((2, 2), ("data", "model"),
+                                               backend="gloo"))
+    cap = int(torch.bincount(ops.flash_assign(x, centers)[0].long(),
+                             minlength=k).max())
+    zero()
+    sh = IVFIndex(centers, cap, pctx=pctx)
+    _, add_s = wall_s(lambda: sh.add(x))
+    sh.search(queries[0], topk=TOPK, nprobe=NPROBE)   # warm-up
+    got, batch_s = [], []
+    for qb in queries:
+        res, s = wall_s(lambda: sh.search(qb, topk=TOPK, nprobe=NPROBE))
+        got.append(res)
+        batch_s.append(s)
+    _, add2_s = wall_s(lambda: sh.add(x2))
+    sh.refresh()
+    after = [sh.search(qb, topk=TOPK, nprobe=NPROBE) for qb in queries]
+    counts = read()
+    c_sh = sh.global_centroids()
+    brute_ids = brute(sh)
+    out = {"results": [(i.cpu(), dd.cpu()) for i, dd in got + after],
+           "counts": counts, "add_s": add_s, "add2_s": add2_s,
+           "batch_s": batch_s, "cap": cap, "k_owned": sh.k_owned,
+           "resident_bytes": sh.resident_bytes(),
+           "collective_bytes": sh.search_collective_bytes(IVF_B, TOPK,
+                                                          NPROBE),
+           "recall_brute": [recall_at_k(ids, b)
+                            for (ids, _), b in zip(after, brute_ids)]}
+    if rank == 0:   # the single-rank index from the same centroids
+        one = IVFIndex(centers, cap)
+        one.add(x)
+        ref = [one.search(qb, topk=TOPK, nprobe=NPROBE) for qb in queries]
+        one.add(x2)
+        one.refresh()
+        ref_after = [one.search(qb, topk=TOPK, nprobe=NPROBE)
+                     for qb in queries]
+        cmp = []
+        for (i_s, d_s), (i_1, d_1) in zip(got + after, ref + ref_after):
+            cmp.append((torch.equal(i_s, i_1), int((i_s != i_1).sum()),
+                        float((d_s - d_1).abs().max()),
+                        bool(torch.allclose(d_s, d_1, rtol=1e-5,
+                                            atol=1e-4))))
+        out["vs_single"] = cmp
+        out["centroid_err"] = float((c_sh - one.centroids).abs().max())
+        del one
+    del sh
+    torch.cuda.empty_cache()
+    # the exactness corpus (phase 6's): nprobe = K against search_brute
+    gen_x = torch.Generator(device=dev).manual_seed(SEED + 5)
+    ne, ke, de = EXACT
+    ce = torch.randn(ke, de, device=dev, generator=gen_x) * 5.0
+    xe = ce[torch.randint(0, ke, (ne,), device=dev, generator=gen_x)]
+    xe += 0.4 * torch.randn(ne, de, device=dev, generator=gen_x)
+    qe = ce[torch.randint(0, ke, (EXACT_B,), device=dev, generator=gen_x)]
+    qe += 0.4 * torch.randn(EXACT_B, de, device=dev, generator=gen_x)
+    ex = IVFIndex.build(xe, k=ke, max_iters=8, seed=SEED, pctx=pctx)
+    ids, dd = ex.search(qe, topk=TOPK, nprobe=ke)
+    ids_b, dd_b = ex.search_brute(qe, topk=TOPK)
+    out["exact_results"] = (ids.cpu(), dd.cpu())
+    out["exact"] = near_ties(ids, ids_b, xe, qe)
+    out["exact"]["dist_err"] = float((dd - dd_b).abs().max())
+    del ex, xe
+    # build(pctx=) at the IVF cell: recall@10 against search_brute
+    zero()
+    built, build_s = wall_s(lambda: IVFIndex.build(x, k=k, max_iters=8,
+                                                   seed=SEED, pctx=pctx))
+    out["build_counts"] = read()
+    out["build_s"] = build_s
+    built_ids = [built.search(qb, topk=TOPK, nprobe=NPROBE)[0]
+                 for qb in queries]
+    out["build_results"] = [i.cpu() for i in built_ids]
+    out["build_recall"] = [recall_at_k(i, b)
+                           for i, b in zip(built_ids, brute(built))]
+    return out
+
+
+def near_ties(ids, ref_ids, x, q):
+    """Where ``ids`` and ``ref_ids`` differ, the gap between the float64
+    distances of the two ids' rows, against the fp32 worst case ``2 d u
+    (|q| + max |x|)^2``: ids may differ only on such near-ties."""
+    q64 = q.double().unsqueeze(1)
+
+    def true_d(i):
+        return ((x[i.long().clamp(0, x.shape[0] - 1)].double() - q64) ** 2
+                ).sum(-1)
+    mag = (q.norm(dim=-1).max() + x.norm(dim=-1).max()) ** 2
+    tol = float(2 * x.shape[1] * U32 * mag)
+    diff = ids != ref_ids
+    gap = float((true_d(ids) - true_d(ref_ids)).abs()[diff].max()) \
+        if bool(diff.any()) else 0.0
+    return {"mismatches": int(diff.sum()), "tie_gap": gap, "tol": tol,
+            "ok": gap <= tol}
+
+
+def parallel_rank(rank, world, init_file, case, out_dir):
+    """One rank of phase 12, in a spawned process on the card: a gloo world
+    of ``world`` ranks (the ranks share one card), then ``case``, its
+    results saved to ``out_dir``. Any error ends the process non-zero."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    os.environ["REPRO_PLAN_CACHE"] = "off"   # the parent's plan file is its
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{init_file}", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=PAR_TIMEOUT_S))
+    try:
+        res = {"fits": _rank_fits, "ivf": _rank_ivf}[case](rank, dev)
+    finally:
+        dist.destroy_process_group()
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    torch.save(res, Path(out_dir) / f"{case}{rank}.pt")
+
+
+def spawn_ranks(case, world):
+    """Run ``parallel_rank`` on ``world`` spawned processes; join them
+    within ``PAR_JOIN_S`` (the group is killed past it). Returns ``(results
+    or None by rank, exit codes, seconds)``."""
+    import multiprocessing as mp
+    import shutil
+    import tempfile
+    import torch
+    ctx = mp.get_context("spawn")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_parallel_"))
+    procs = [ctx.Process(target=parallel_rank,
+                         args=(r, world, str(tmp / "init"), case, str(tmp)))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(max(0.0, PAR_JOIN_S - (time.perf_counter() - t0)))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    secs = time.perf_counter() - t0
+    codes = [p.exitcode for p in procs]
+    res = [torch.load(tmp / f"{case}{r}.pt") if code == 0 else None
+           for r, code in enumerate(codes)]
+    shutil.rmtree(tmp, ignore_errors=True)
+    return res, codes, secs
+
+
+def parallel_phase(dev, smi, zero_counts, read_counts, details):
+    """Phase 12: the parallel layer on the card. (a) a world of one rank
+    (NCCL): the distributed fit through ``for_mesh`` bit for bit
+    ``KMeans.fit``, and with an explicit cells axis (the two-stage path);
+    ``StreamingKMeans(pctx=)`` over phase 8's stream bit for bit the
+    single-device one; the launcher's ``--mesh 1x1``. (b) two ranks sharing
+    the card (gloo), mesh 2x1: the same fit. (c) two ranks, mesh 1x2, at
+    largeN_largeK: the two-stage argmin bit for bit FlashAssign's, one
+    K-sharded iteration, the owned statistics against the plain version.
+    (d) four ranks, mesh 2x2, at the IVF cell: a sharded and a single-rank
+    index from the same centroids, bit for bit, before and after an add and
+    a refresh; full probe against ``search_brute``; ``build(pctx=)``. (e)
+    each rank's launch counts. Returns the parent's counted runs."""
+    import torch
+    from repro_torch.core import KMeans, KMeansConfig, StreamingKMeans
+    from repro_torch.core import parallel as par
+    from repro_torch.core.parallel import ParallelContext
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    t_phase = time.perf_counter()
+    rec = details.setdefault("parallel", {"card": smi})
+    runs = []
+    n, k, d = PAR_FIT
+    print(f"\n[parallel] (a) one rank (NCCL): the distributed fit at N={n} "
+          f"K={k} d={d}, {PAR_FIT_ITERS} iterations, tol 0", flush=True)
+    x, c0 = fit_corpus(dev, PAR_FIT, SEED + 12, 5.0, 0.4)
+    cfg = KMeansConfig(k=k, max_iters=PAR_FIT_ITERS)
+    km = KMeans(cfg, device=dev)
+    st = km.fit(x, c0=c0)
+    c1, ids1 = km.iterate(x, c0)[:2]
+    par.init_world("cuda", "nccl")
+    try:
+        mesh = par.build_mesh((1, 1), ("data", "model"), backend="nccl")
+        p1 = ParallelContext.for_mesh(mesh)
+        pk = ParallelContext(mesh, k_axis="model")
+        fit1, fitk = p1.make_kmeans_fit(cfg), pk.make_kmeans_fit(cfg)
+        zero_counts()
+        r = fit1(x, c0)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        runs.append(counts)
+        same = (torch.equal(r.centroids, st.centroids)
+                and torch.equal(r.assignments, st.assignments)
+                and r.iterations == int(st.iteration))
+        check(same, f"parallel (a) for_mesh 1x1: centroids, assignments and "
+                    f"iterations ({r.iterations}) equal KMeans.fit's bit for "
+                    f"bit")
+        zero_counts()
+        ids1_k = pk.make_assign(cfg)(x, c0)[0]
+        rk = fitk(x, c0)
+        torch.cuda.synchronize()
+        counts_k = read_counts()
+        runs.append(counts_k)
+        share = float((rk.assignments == st.assignments).float().mean())
+        c_err = float((rk.centroids - st.centroids).abs().max())
+        check(torch.equal(ids1_k, ids1),
+              "parallel (a) k_axis=model 1x1: the first iteration's ids "
+              "equal KMeans.iterate's bit for bit")
+        check(bool(torch.allclose(rk.centroids, st.centroids, rtol=1e-5,
+                                  atol=1e-5)) and rk.iterations
+              == int(st.iteration),
+              f"parallel (a) k_axis=model 1x1: centroids within rtol=atol="
+              f"1e-5 of KMeans.fit's (max err {c_err:.3g}), {rk.iterations} "
+              f"iterations; {share:.6f} of the ids equal")
+        ms_fit = events_ms(lambda: fit1(x, c0), reps=2) / PAR_FIT_ITERS
+        ms_fitk = events_ms(lambda: fitk(x, c0), reps=2) / PAR_FIT_ITERS
+        ms_iter = events_ms(lambda: km.iterate(x, c0), reps=3)
+        print(f"  an iteration: {ms_fit:.3f} ms through for_mesh, {ms_fitk:.3f}"
+              f" ms through the two-stage path, KMeans.iterate {ms_iter:.3f} "
+              f"ms (CUDA events; {smi})", flush=True)
+        rec["a"] = {"bit_equal": same, "iterations": r.iterations,
+                    "k_axis_ids_share": share, "k_axis_centroid_err": c_err,
+                    "ms_iter_for_mesh": ms_fit, "ms_iter_k_axis": ms_fitk,
+                    "ms_iterate": ms_iter, "counts": counts,
+                    "counts_k_axis": counts_k}
+        a_ref = {"centroids": st.centroids.cpu(), "ids1": ids1.cpu(),
+                 "ids": st.assignments.cpu(), "centroids1": c1.cpu(),
+                 "inertia": float(st.inertia)}
+        del x, c0, st, c1, ids1, ids1_k, r, rk
+        torch.cuda.empty_cache()
+        # FlashLloyd adds its clusters' sums to memory with atomics: the
+        # same step run again need not give the same bits
+        xf, cf = fit_corpus(dev, (65536, 256, 128), SEED + 14, 2.0, 1.0)
+        first = ops.flash_lloyd_step(xf, cf)
+        same_runs = sum(all(torch.equal(u, v) for u, v in zip(
+            first, ops.flash_lloyd_step(xf, cf))) for _ in range(4))
+        print(f"  FlashLloyd at N 65,536, K 256: {same_runs} of 4 reruns "
+              f"equal the first bit for bit", flush=True)
+        rec["a"]["flash_lloyd_bit_reruns"] = same_runs
+        del xf, cf, first
+        # the streaming phase's stream through one device and the mesh: bit
+        # for bit on the two-pass step; with auto's fused batches recorded
+        for impl in ("two_pass", "auto"):
+            sizes, _, _, drifting = drifting_stream(dev, 128)
+            cfg_s = KMeansConfig(k=STREAM_K, step_impl=impl)
+            one = StreamingKMeans(cfg_s, decay=STREAM_DECAY,
+                                  init_size=STREAM_INIT, device=dev)
+            sp = StreamingKMeans(cfg_s, decay=STREAM_DECAY,
+                                 init_size=STREAM_INIT, pctx=p1)
+            zero_counts()
+            for rows in sizes:
+                xb = drifting(rows)
+                one.partial_fit(xb)
+                sp.partial_fit(xb)
+            torch.cuda.synchronize()
+            counts_s = read_counts()
+            runs.append(counts_s)
+            same = torch.equal(one.centroids, sp.centroids) and all(
+                torch.equal(u, v) for u, v in zip(one.stats, sp.stats))
+            err = float((one.centroids - sp.centroids).abs().max())
+            rec["a"][f"stream_{impl}"] = {"bit_equal": same, "err": err,
+                                          "counts": counts_s}
+            if impl == "two_pass":
+                check(same, f"parallel (a) StreamingKMeans(pctx=) over phase "
+                            f"8's {len(sizes)} batches (two-pass steps): "
+                            f"centroids and statistics equal the "
+                            f"single-device stream's bit for bit")
+            else:
+                # FlashLloyd's atomics need not repeat their bits: the fp32
+                # tolerance, sums as means (within 1e-5 a row of weight)
+                (s1, n1, j1), (s2, n2, j2) = one.stats, sp.stats
+                close = (bool(torch.allclose(one.centroids, sp.centroids,
+                                             rtol=1e-5, atol=1e-5))
+                         and bool(((s1 - s2).abs() <= 1e-5 * (
+                             s2.abs() + n2.unsqueeze(1))).all())
+                         and bool(torch.allclose(n1, n2, rtol=1e-5, atol=0))
+                         and bool(torch.allclose(j1, j2, rtol=1e-5, atol=0)))
+                check(close and counts_s["flash_lloyd"] > 0,
+                      f"parallel (a) StreamingKMeans(pctx=) with auto's steps "
+                      f"({counts_s['flash_lloyd']} FlashLloyd launches): "
+                      f"centroids within rtol=atol=1e-5 of the single-device "
+                      f"stream's (max err {err:.3g}; bit for bit {same}), "
+                      f"sums within 1e-5 (|sum| + count), counts and inertia "
+                      f"within rtol 1e-5")
+            del one, sp
+    finally:
+        par.release_world()
+    out = serve.main(["--mode", "search", "--mesh", "1x1"])
+    check(out["recall"] >= 0.9 and out["collective_bytes"] == 0,
+          f"parallel (a) launch/serve.py --mode search --mesh 1x1: recall "
+          f"{out['recall']:.3f} >= 0.9, {out['qps']:.0f} queries/s")
+    rec["a"]["launcher"] = {kk: out[kk] for kk in ("qps", "recall",
+                                                   "collective_bytes")}
+    torch.cuda.empty_cache()
+    rec["parent_allocated_gib"] = torch.cuda.memory_allocated() / 2**30
+    rec["parent_reserved_gib"] = torch.cuda.memory_reserved() / 2**30
+    print(f"  the parent holds {rec['parent_allocated_gib']:.2f} GiB "
+          f"({rec['parent_reserved_gib']:.2f} GiB reserved) as the ranks "
+          f"start", flush=True)
+
+    def ranks_ok(tag, codes, secs):
+        ok = all(c == 0 for c in codes)
+        check(ok, f"parallel {tag}: every rank exited 0 within "
+                  f"{PAR_JOIN_S} s (exit codes {codes}, {secs:.1f} s)")
+        return ok
+
+    def ran(tag, counts, names):
+        check(all(counts[kname] > 0 for kname in names),
+              f"parallel {tag}: {', '.join(names)} launched ({counts})")
+
+    # (b), (c): two ranks sharing the card
+    print("\n[parallel] (b) two ranks sharing the card (gloo), mesh 2x1; "
+          "(c) mesh 1x2 at largeN_largeK", flush=True)
+    res, codes, secs = spawn_ranks("fits", 2)
+    rec["fits_s"] = secs
+    if ranks_ok("(b)(c)", codes, secs):
+        b0, b1 = res[0]["b"], res[1]["b"]
+        check(torch.equal(b0["ids1"], a_ref["ids1"])
+              and torch.equal(b1["ids1"], b0["ids1"]),
+              "parallel (b) 2x1: one iteration's ids from (a)'s c0 equal "
+              "(a)'s bit for bit on both ranks")
+        check(all(bool(torch.allclose(rr["b"]["centroids1"],
+                                      a_ref["centroids1"], rtol=1e-5,
+                                      atol=1e-5)) for rr in res),
+              "parallel (b) 2x1: one iteration's centroids from (a)'s c0 "
+              "within rtol=atol=1e-5 of (a)'s on both ranks")
+        check(all(rr["b"]["last_ids_consistent"] for rr in res),
+              "parallel (b) 2x1: the fit's final ids are, bit for bit, the "
+              "argmin of its centroids one iteration back, on both ranks")
+        # over the iterations a row near two centroids may change cells when
+        # the sums add in another order, and the cells it leaves and joins
+        # move: at most MOVED_MAX of the rows may, the other cells hold
+        # (a)'s centroids within 1e-5, the inertia stays within 1e-4 of
+        # (a)'s, and every centroid is the mean of the rows the fit gave
+        # it, within the update's bound
+        x, _ = fit_corpus(dev, PAR_FIT, SEED + 12, 5.0, 0.4)
+        ids_b, ids_a = b0["ids"].to(dev), a_ref["ids"].to(dev)
+        moved = torch.zeros(k, dtype=torch.bool, device=dev)
+        diff = ids_b != ids_a
+        moved[ids_b[diff].long()] = True
+        moved[ids_a[diff].long()] = True
+        cb, ca = b0["centroids"].to(dev), a_ref["centroids"].to(dev)
+        kept_ok = bool(torch.allclose(cb[~moved], ca[~moved], rtol=1e-5,
+                                      atol=1e-5))
+        cnt = torch.bincount(ids_b.long(), minlength=k).float()
+        sums = torch.zeros(k, d, device=dev, dtype=torch.float64)
+        sums.index_add_(0, ids_b.long(), x.double())
+        live = cnt > 0
+        mean_err = (cb.double() - sums / cnt.clamp(min=1).unsqueeze(1)
+                    ).abs()[live]
+        bound = stats_bound(x, ids_b, k, cnt)[live] / cnt[live].unsqueeze(1)
+        mean_ok = bool((mean_err <= bound).all())
+        n_moved = int(diff.sum())
+        share = 1.0 - n_moved / n
+        c_err = float((cb - ca).abs().max())
+        j_rel = abs(b0["inertia"] - a_ref["inertia"]) / a_ref["inertia"]
+        del x, ids_a, sums
+        check(n_moved <= MOVED_MAX * n and kept_ok and mean_ok
+              and j_rel <= 1e-4 and b0["iterations"] == PAR_FIT_ITERS
+              and torch.equal(b0["centroids"], b1["centroids"]),
+              f"parallel (b) 2x1: {b0['iterations']} iterations; {n_moved} "
+              f"rows moved <= {MOVED_MAX:.3%} of {n} ({int(moved.sum())} "
+              f"cells touched); the other cells' centroids within "
+              f"rtol=atol=1e-5 of (a)'s; inertia within {j_rel:.3g} <= 1e-4 "
+              f"of (a)'s; every centroid the mean of its rows within 2 n u "
+              f"sum|x| (max err {float(mean_err.max()):.3g}; against (a) "
+              f"{c_err:.3g}); the same on both ranks")
+        rec["b_vs_a"] = {"ids_share": share, "rows_moved": n_moved,
+                         "cells_touched": int(moved.sum()),
+                         "centroid_err": c_err, "inertia_rel": j_rel}
+        for rank, rr in enumerate(res):
+            want = (("flash_lloyd",) if rr["b"]["fused"]
+                    else ("flash_assign", "sort_inverse_update"))
+            ran(f"(b) rank {rank}", rr["b"]["counts"], want)
+            ran(f"(c) rank {rank}", rr["c"]["counts"],
+                ("flash_assign", "sort_inverse_update"))
+            runs += [rr["b"]["counts"], rr["c"]["counts"]]
+            cc = rr["c"]
+            check(cc["ids_equal"],
+                  f"parallel (c) 1x2 rank {rank}: make_assign's ids equal the "
+                  f"single-rank FlashAssign's bit for bit ({cc['ids_differ']} "
+                  f"differ)")
+            check(cc["centroids_ok"],
+                  f"parallel (c) rank {rank}: one K-sharded iteration's "
+                  f"centroids within rtol=atol=1e-5 of KMeans.iterate's (max "
+                  f"err {cc['centroid_err']:.3g})")
+            check(cc["stats_ok"] and cc["owned_is_sliced"],
+                  f"parallel (c) rank {rank}: owned_stats' sums within 2 n u "
+                  f"sum|x| of the plain version (max err {cc['stats_err']:.3g};"
+                  f" the extra bucket: {cc['extra_bucket_rows']} rows, err "
+                  f"{cc['extra_bucket_err']:.3g}), counts equal; "
+                  f"{cc['owned_stats_ms']:.3f} ms a call (ranks time-slicing "
+                  f"one card)")
+        print(f"  (b) a fit of {PAR_FIT_ITERS} iterations {b0['fit_s']:.3f} s "
+              f"on rank 0 (2 ranks time-slicing one card, {smi}); "
+              f"(c) assign {res[0]['c']['assign_s']:.3f} s, one iteration "
+              f"{res[0]['c']['iter_s']:.3f} s", flush=True)
+        rec["b"] = [{kk: v for kk, v in rr["b"].items()
+                     if kk not in ("centroids", "ids", "ids1", "centroids1")}
+                    | {"peak_gib": rr["peak_gib"]} for rr in res]
+        rec["c"] = [rr["c"] for rr in res]
+    # (d): four ranks sharing the card
+    n, k, d = IVF
+    print(f"\n[parallel] (d) four ranks sharing the card (gloo), mesh 2x2: "
+          f"IVF{k},Flat N={n} d={d}, {IVF_BATCHES} batches of {IVF_B}, "
+          f"topk={TOPK} nprobe={NPROBE}", flush=True)
+    res, codes, secs = spawn_ranks("ivf", 4)
+    rec["ivf_s"] = secs
+    if ranks_ok("(d)", codes, secs):
+        r0 = res[0]
+
+        def same_bits(u, v):
+            if torch.is_tensor(u):
+                return torch.equal(u, v)
+            return len(u) == len(v) and all(map(same_bits, u, v))
+        for rank, rr in enumerate(res[1:], 1):
+            check(all(same_bits(rr[kk], r0[kk]) for kk in (
+                "results", "exact_results", "build_results")),
+                f"parallel (d) rank {rank}: its search results (before and "
+                f"after the add and refresh, at full probe, from "
+                f"build(pctx=)) equal rank 0's bit for bit")
+        for i, (eq, ndiff, derr, dok) in enumerate(r0["vs_single"]):
+            when = "after the add and refresh" if i >= IVF_BATCHES else ""
+            check(eq and dok, f"parallel (d) batch {i % IVF_BATCHES} {when}: "
+                              f"ids equal the single-rank index's bit for bit"
+                              f" ({ndiff} differ), distances within rtol 1e-5"
+                              f" (max err {derr:.3g})")
+        for rank, rr in enumerate(res):
+            ran(f"(d) rank {rank}", rr["counts"],
+                ("flash_assign", "sort_inverse_update", "flash_probe_store"))
+            check(rr["counts"]["flash_probe_tile"]
+                  + rr["counts"]["flash_probe"] > 0,
+                  f"parallel (d) rank {rank}: the probe launched "
+                  f"({rr['counts']})")
+            ran(f"(d) rank {rank} build(pctx=)", rr["build_counts"],
+                ("flash_assign", "sort_inverse_update"))
+            runs += [rr["counts"], rr["build_counts"]]
+        ex = r0["exact"]
+        check(ex["ok"], f"parallel (d) exactness corpus {EXACT}: nprobe=K "
+                        f"equals search_brute ({ex['mismatches']} ids differ, "
+                        f"gap {ex['tie_gap']:.3g} <= {ex['tol']:.3g})")
+        rb = sum(r0["build_recall"]) / len(r0["build_recall"])
+        check(rb >= 0.9, f"parallel (d) build(pctx=): recall@{TOPK} {rb:.4f} "
+                         f">= 0.9 against search_brute ({r0['build_s']:.2f} s "
+                         f"to build on 4 ranks sharing one card)")
+        ms = [s * 1e3 for s in r0["batch_s"]]
+        print(f"  sharded search {min(ms):.2f}-{max(ms):.2f} ms a batch of "
+              f"{IVF_B} (4 ranks time-slicing one card, {smi}); "
+              f"{r0['collective_bytes']} cross-rank bytes a batch (modeled); "
+              f"add of {n} rows {r0['add_s']:.2f} s, of {PAR_ADD_ROWS} rows "
+              f"{r0['add2_s'] * 1e3:.1f} ms; centroids after the refresh "
+              f"within {r0['centroid_err']:.3g} of the single-rank index's; "
+              f"each rank's peak <= "
+              f"{max(rr['peak_gib'] for rr in res):.2f} GiB", flush=True)
+        rec["d"] = [{kk: v for kk, v in rr.items() if not kk.endswith(
+            "results")} for rr in res]
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"  [parallel] {rec['seconds']:.1f} s", flush=True)
+    return runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and run the ragged kernel checks only")
     ap.add_argument("--reliability-only", action="store_true",
                     help="build and run the reliability phase only")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="build and run the parallel phase only")
     args = ap.parse_args()
     # the plain versions' score matrices take up to 32 GiB at a time, in
     # blocks of changing size: segments that grow keep the cache from
@@ -919,27 +1629,8 @@ def main() -> int:
                "out_of_core": {}, "streaming": {}, "ooc_ivf": [],
                "planner": {}}
 
-    def zero_counts():
-        for mod in mods.values():
-            mod.launches = 0
-        for kname in probe_names:
-            fp.launches[kname] = 0
-
-    def read_counts():
-        return {**{kname: mod.launches for kname, mod in mods.items()},
-                **fp.launches}
-
-    def ms_of(fn, reps=3):
-        fn()  # warm-up
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(reps):
-            fn()
-        e1.record()
-        torch.cuda.synchronize()
-        return e0.elapsed_time(e1) / reps
+    zero_counts, read_counts = launch_counters()
+    ms_of = events_ms
 
     def mixture(b, n, k, d, gen):
         centers = torch.randn(b, k, d, device=dev, generator=gen) * 2.0
@@ -960,6 +1651,18 @@ def main() -> int:
                   file=sys.stderr)
             return 1
         print("\nchip_smoke --reliability-only: all checks passed")
+        return 0
+    if args.parallel_only:   # phase 12 alone (parallel_phase)
+        parallel_phase(dev, smi, zero_counts, read_counts, details)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_parallel.json").write_text(
+            json.dumps(details["parallel"], indent=1, default=str))
+        if failures:
+            print(f"\nchip_smoke: {len(failures)} check(s) failed",
+                  file=sys.stderr)
+            return 1
+        print("\nchip_smoke --parallel-only: all checks passed")
         return 0
 
     # ---- phase 2 helpers: kernel vs plain on the card -------------------
@@ -1102,12 +1805,7 @@ def main() -> int:
             else:
                 print("  read " + what, flush=True)
 
-    def sums_tol(x2, ids, segments, cnt):
-        """|sum error| bound per (segment, column): 2 n u sum |x|."""
-        absx = x2.abs().float()
-        abssum = torch.zeros((segments, x2.shape[1]), device=dev)
-        abssum.index_add_(0, ids.long(), absx)
-        return 2 * U32 * cnt.unsqueeze(1) * abssum + 1e-30
+    sums_tol = stats_bound
 
     def siu_check(x2, ids, segments, tag, chunk=512, threads=128, got=None):
         """The kernel (or ``got``, its result through a wrapper) against the
@@ -2821,15 +3519,8 @@ def main() -> int:
     # ---- phase 5: FlashIVF search at full width, fp32 and q8 -------------
     # a generator of its own: the corpus does not depend on what the earlier
     # phases draw
-    gen_ivf = torch.Generator(device=dev).manual_seed(SEED + 4)
+    gen_ivf, centers, x, queries = ivf_corpus(dev)
     n, k, d = IVF
-    centers = torch.randn(k, d, device=dev, generator=gen_ivf) * 5.0
-    x = centers[torch.randint(0, k, (n,), device=dev, generator=gen_ivf)]
-    x += 0.4 * torch.randn(n, d, device=dev, generator=gen_ivf)
-    qlab = torch.randint(0, k, (IVF_BATCHES, IVF_B), device=dev,
-                         generator=gen_ivf)
-    queries = centers[qlab] + 0.4 * torch.randn(IVF_BATCHES, IVF_B, d,
-                                                device=dev, generator=gen_ivf)
     main_inputs, off_path = {}, {}
     for codec in ("fp32", "q8"):
         print(f"\n[ivf/{codec}] IVF{k},Flat shape: N={n} d={d} K={k}, "
@@ -3898,22 +4589,11 @@ def main() -> int:
 
     # ---- phase 8: streaming (StreamingKMeans) ----------------------------
     k = STREAM_K
-    sizes = torch.randint(STREAM_ROWS[0], STREAM_ROWS[1] + 1,
-                          (STREAM_BATCHES,),
-                          generator=torch.Generator().manual_seed(12)).tolist()
+    sizes, gen_s, centers, drifting = drifting_stream(dev, d)
     print(f"\n[streaming] StreamingKMeans(k={k}, decay={STREAM_DECAY}, "
           f"init_size={STREAM_INIT}): {STREAM_BATCHES} ragged batches of "
           f"{min(sizes)}-{max(sizes)} rows, d={d}, drifting centres",
           flush=True)
-    gen_s = torch.Generator(device=dev).manual_seed(12)
-    centers = torch.randn(k, d, device=dev, generator=gen_s) * 2.0
-
-    def drifting(rows):
-        centers.add_(0.01 * torch.randn(k, d, device=dev, generator=gen_s))
-        lab = torch.randint(0, k, (rows,), device=dev, generator=gen_s)
-        return centers[lab] + torch.randn(rows, d, device=dev,
-                                          generator=gen_s)
-
     planner = P.default_planner(dev)
     sk = StreamingKMeans(KMeansConfig(k=k), decay=STREAM_DECAY,
                          init_size=STREAM_INIT, device=dev)
@@ -4125,6 +4805,10 @@ def main() -> int:
     for store_kind, counts in reliability_phase(dev, smi, zero_counts,
                                                 read_counts, details):
         count_run(counts, store_kind == "paged")
+
+    # ---- phase 12: the parallel layer (parallel_phase) -------------------
+    for counts in parallel_phase(dev, smi, zero_counts, read_counts, details):
+        count_run(counts)
 
     # ---- phase 4: the kernel table ---------------------------------------
     main_shape = {"flash_assign": "largeN_smallK/float32",

@@ -3,6 +3,10 @@
 Public API:
   KMeans, KMeansConfig, KMeansState     — the composable module
   lloyd_stats / lloyd_step / make_kmeans_fn
+  ParallelContext / build_mesh          — the one SPMD execution layer on
+                                          torch.distributed device meshes +
+                                          the one mesh helper
+  make_distributed_kmeans / shard_points — multi-rank adapter over it
   ChunkedKMeans / ChunkedStats          — out-of-core driver (copy stream,
                                           pinned staging) + its telemetry
   StreamingKMeans / partial_fit_step    — online / mini-batch driver
@@ -18,10 +22,14 @@ Public API:
 from repro_torch.core.bridge import (state_from_numpy, state_to_numpy,
                                      stream_from_numpy, stream_to_numpy)
 from repro_torch.core.chunked import ChunkedKMeans, ChunkedStats
+from repro_torch.core.distributed import make_distributed_kmeans, shard_points
 from repro_torch.core.heuristics import H100, Hardware, choose_blocks
 from repro_torch.core.init import init_centroids, kmeans_plus_plus, random_init
 from repro_torch.core.kmeans import (KMeans, KMeansConfig, KMeansState,
                                      lloyd_stats, lloyd_step, make_kmeans_fn)
+from repro_torch.core.parallel import (ParallelContext, build_mesh,
+                                       make_host_mesh, make_production_mesh,
+                                       parse_mesh_flag)
 from repro_torch.core.plan import (KernelPlan, KernelPlanner, default_planner,
                                    detect_hardware, set_default_planner)
 from repro_torch.core.streaming import (StreamingKMeans, SufficientStats,
@@ -30,6 +38,9 @@ from repro_torch.core.streaming import (StreamingKMeans, SufficientStats,
 __all__ = [
     "KMeans", "KMeansConfig", "KMeansState", "lloyd_stats", "lloyd_step",
     "make_kmeans_fn", "ChunkedKMeans", "ChunkedStats",
+    "make_distributed_kmeans", "shard_points",
+    "ParallelContext", "build_mesh", "make_host_mesh", "make_production_mesh",
+    "parse_mesh_flag",
     "StreamingKMeans", "SufficientStats", "partial_fit_step",
     "KernelPlan", "KernelPlanner", "default_planner", "detect_hardware",
     "set_default_planner",

@@ -169,23 +169,34 @@ class StreamingKMeans:
     with ``seed`` (other numbers than the reference's ``jax.random``); a
     warm ``partial_fit`` or ``update`` makes no host sync.
 
-    ``device=None`` means ``"cuda"`` (raises without a CUDA device).
-    ``pctx`` (the data-parallel stream) is not ported yet.
+    ``device=None`` means ``"cuda"`` (raises without a CUDA device), or
+    with ``pctx`` the mesh's device.
+
+    ``pctx`` (a ``core.parallel.ParallelContext`` without a ``k_axis``)
+    makes ``partial_fit``/``update`` data-parallel: each batch is padded to
+    a multiple of the data shards, each rank reduces its rows (the padding
+    masked out) and one O(K d) all-reduce a mini-batch merges them;
+    centroids and running statistics stay replicated. Every rank feeds the
+    same batches.
     """
 
     def __init__(self, cfg: KMeansConfig, *, decay: float = 1.0,
                  local_iters: int = 1, seed: int = 0,
                  init_size: int | None = None, pctx=None, device=None):
-        if pctx is not None:
-            raise NotImplementedError(
-                "a data-parallel StreamingKMeans (pctx) is not ported yet "
-                "(ROADMAP.md, queue A item 6)")
         if not 0.0 < decay <= 1.0:
             raise ValueError(f"decay must be in (0, 1], got {decay}")
+        if pctx is not None and pctx.k_axis is not None:
+            raise ValueError(
+                "StreamingKMeans is data-parallel only; use a "
+                "ParallelContext without a k_axis (centroids replicate)")
         self.cfg = cfg
         self.decay = float(decay)
         self.local_iters = int(local_iters)
         self.init_size = init_size
+        self.pctx = pctx
+        self._steps: dict[tuple, object] = {}   # (decay, iters) -> program
+        if pctx is not None and device is None:
+            device = pctx.device
         self.device = resolve_device(device)
         self.centroids: torch.Tensor | None = None
         self.stats: SufficientStats | None = None
@@ -216,9 +227,20 @@ class StreamingKMeans:
         return True
 
     def _step(self, batch: torch.Tensor, decay: float, local_iters: int):
-        return partial_fit_step(batch, self.centroids, self.stats,
-                                cfg=self.cfg, decay=decay,
-                                local_iters=local_iters)
+        """One step on one device, or through the mesh's program."""
+        if self.pctx is None:
+            return partial_fit_step(batch, self.centroids, self.stats,
+                                    cfg=self.cfg, decay=decay,
+                                    local_iters=local_iters)
+        prog = self._steps.get((decay, local_iters))
+        if prog is None:
+            prog = self.pctx.make_partial_fit(self.cfg, decay=decay,
+                                              local_iters=local_iters)
+            self._steps[(decay, local_iters)] = prog
+        x_pad, mask, n = self.pctx.pad_points(batch)
+        c, s, cnt, j, a, bj = prog(x_pad, mask if x_pad.shape[0] != n
+                                   else None, self.centroids, *self.stats)
+        return c, SufficientStats(s, cnt, j), a[:n], bj
 
     def partial_fit(self, batch) -> "StreamingKMeans":
         """Fold one mini-batch into the model (decayed warm-start step)."""

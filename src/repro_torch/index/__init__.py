@@ -21,8 +21,10 @@ Public API:
   format (``repro_torch.reliability``), through ``restore_store``,
   ``infer_store_meta`` and ``restore_router``.
 
-Not ported yet (ROADMAP.md, queue A): the sharded index and the sharded
-cache (item 6).
+``IVFIndex(pctx=)`` / ``build(pctx=)`` shard the padded fp32 flat index over
+a ``core.parallel.ParallelContext`` mesh. Not ported yet (ROADMAP.md, queue
+A item 6b): the sharded index's other axes (paged, q8 with the sharded
+cache, two-level) and its reliability.
 """
 from repro_torch.index.bridge import (index_from_numpy, index_to_numpy,
                                       router_from_numpy)

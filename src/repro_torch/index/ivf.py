@@ -44,10 +44,31 @@ snapshots in the reference's format (``reliability/snapshot.py``), and
 ``faults`` takes a ``FaultInjector`` consulted at the reference's seams in
 ``add``, ``refresh`` and ``search``.
 
-Not ported yet (ROADMAP.md, queue A item 6): ``pctx`` (the sharded index)
-raises ``NotImplementedError``. ``IVFIndex`` runs on the card unless it is
-asked for the CPU: ``device=None`` means ``"cuda"`` and raises when no CUDA
-device is present.
+**Sharded FlashIVF** (``pctx``, a ``core.parallel.ParallelContext``): the
+cells are split over the mesh's cells axis, each rank owning ``K / P_k``
+centroids, their posting lists (the padded store's owned rows) and their
+running statistics; the host bookkeeping (counts, capacity, ids) stays
+global on every rank. A search runs, on every rank, on its slice of the
+queries (split over the data axes, a ragged batch padded):
+
+  FlashProbe over the owned centroids  ->  cross-rank top-``nprobe`` merge
+  (O(b L) bytes)  ->  the store scan of the owned probed cells, read in
+  place  ->  cross-rank top-k merge (O(b topk) bytes), ties broken by the
+  global probe order, as on one device.
+
+The posting lists' rows never cross ranks. ``build`` trains through the
+context (the data- and cell-sharded Lloyd loop), ``add`` assigns by the
+two-stage argmin and sums the owned statistics over the data axes.
+``counts``, ``posting_lists``, ``search_brute`` and ``len`` answer the
+whole index on every rank (the middle two gather, a collective);
+``centroids`` is the owned slice (``global_centroids()`` gathers it).
+
+Not ported yet (ROADMAP.md, queue A item 6b): a sharded index with
+``store="paged"``, ``codec="q8"``, ``router="two_level"``, ``faults`` or
+refresh's ``guard``/``repair_dead``, and ``save``/``load`` over a mesh;
+each raises ``NotImplementedError``. ``IVFIndex`` runs on the card unless
+it is asked for the CPU: ``device=None`` means ``"cuda"`` (or, with
+``pctx``, the mesh's device) and raises when no CUDA device is present.
 """
 from __future__ import annotations
 
@@ -74,6 +95,21 @@ _PAD_COORD = _store._PAD_COORD
 def _not_ported(what: str, item) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
                                f"queue A item {item})")
+
+
+def _check_sharded(store, codec, router) -> None:
+    """A sharded index is the padded fp32 (or bf16) flat one for now: the
+    other axes are queue A item 6b."""
+    from repro_torch.index.quant import default_codec_kind
+    if isinstance(store, _store.BucketStore) or \
+            _store._resolve_kind(store) != "padded":
+        raise _not_ported("a sharded index over a paged or given store", "6b")
+    if (default_codec_kind() if codec is None else codec) != "fp32":
+        raise _not_ported("a sharded index with codec='q8'", "6b")
+    kind = router.kind if hasattr(router, "kind") else (
+        _router.default_router_kind() if router is None else str(router))
+    if kind != "flat":
+        raise _not_ported("a sharded index with router='two_level'", "6b")
 
 
 def _as_float(a, device) -> torch.Tensor:
@@ -104,6 +140,24 @@ def recall_at_k(ids, ids_ref) -> float:
     return float(np.mean([
         len(set(a.tolist()) & set(b.tolist()) - {-1}) / k
         for a, b in zip(ids, ids_ref)]))
+
+
+def _train_sharded(pctx, cfg: KMeansConfig, gen: torch.Generator,
+                   x: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Build-time training over a mesh (ref. l.121-145): the
+    ``ParallelContext`` Lloyd loop from centroids drawn with ``gen`` (the
+    same draw on every rank), then one two-stage assignment pass under the
+    final centroids. A ragged N is padded and masked. Returns the global
+    ``(centroids, assignments, min_sq_dists)``."""
+    n = x.shape[0]
+    c0 = init_centroids(x, cfg.k, cfg.init, generator=gen)
+    x_pad, mask, _ = pctx.pad_points(x)
+    ragged = x_pad.shape[0] != n
+    fit = pctx.make_kmeans_fit(cfg, masked=ragged)
+    c = (fit(x_pad, mask, c0) if ragged else fit(x_pad, c0)).centroids
+    a, m = pctx.make_assign(cfg)(x_pad, c)
+    return c, a[:n], m[:n]
 
 
 def _take_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -208,7 +262,8 @@ class IVFIndex:
     picks the posting-list layout (``"padded"``, ``"paged"``, a store
     instance; None = ``REPRO_BUCKET_STORE``, else padded); ``page_size``
     (default 64) and ``store_bytes`` (the page pool's LRU budget) shape
-    the paged one.
+    the paged one. ``pctx`` shards a padded fp32 or bf16 flat index over
+    a mesh (see the module's docstring).
     """
 
     def __init__(self, centroids, capacity: int, *,
@@ -220,13 +275,22 @@ class IVFIndex:
                  codec: str | None = None, rescore_mult: "int | str" = 4,
                  rescore_bytes: int | None = None,
                  rescore: str | None = None, router=None):
+        self.pctx = pctx
         if pctx is not None:
-            raise _not_ported("a sharded IVFIndex (pctx)", 6)
+            _check_sharded(store, codec, router)
+            if device is None:
+                device = pctx.device
+            elif torch.device(device).type != pctx.device.type:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{pctx.device}")
         self.device = resolve_device(device)
         centroids = _as_float(centroids, self.device)
         k, d = centroids.shape
-        self.centroids = centroids
         self.k, self.d = k, d
+        if self._k_sharded:
+            pctx.k_local(k)   # raises unless K divides the cells axis
+            centroids = pctx.shard_centroids(centroids)   # the owned slice
+        self.centroids = centroids
         if isinstance(rescore_mult, str):
             if rescore_mult != "auto":
                 raise ValueError(f"rescore_mult={rescore_mult!r}: "
@@ -253,14 +317,16 @@ class IVFIndex:
                     page_size=page_size, max_bytes=store_bytes,
                     rescore_bytes=rescore_bytes, rescore=rescore,
                     device=self.device)
+        if self._k_sharded:
+            self.store.place(pctx)
         self.n_total = 0
         self.faults = None          # a reliability.faults.FaultInjector
         self.repaired_cells = 0     # NaN stats rows zeroed by refresh
         self.reseeded_cells = 0     # dead cells re-seeded by refresh
         # committed evidence (what the current centroids were refreshed
         # from) and pending evidence (folded in by the next refresh)
-        self.stats = SufficientStats.zero(k, d, self.device)
-        self._pending = SufficientStats.zero(k, d, self.device)
+        self.stats = SufficientStats.zero(self.k_owned, d, self.device)
+        self._pending = SufficientStats.zero(self.k_owned, d, self.device)
         self.planner = planner if planner is not None \
             else _plan.default_planner(self.device)
         self._cnorms: torch.Tensor | None = None   # ||c||^2, per centroid set
@@ -327,6 +393,34 @@ class IVFIndex:
         self.store.block_until_ready()
 
     # ------------------------------------------------------------------
+    # sharding plumbing (no-ops without a k-sharded ParallelContext)
+    # ------------------------------------------------------------------
+
+    @property
+    def _k_sharded(self) -> bool:
+        return self.pctx is not None and self.pctx.k_axis is not None
+
+    @property
+    def k_owned(self) -> int:
+        """Cells this rank owns: ``K / P_k`` on a k-sharded index, else K."""
+        return self.pctx.k_local(self.k) if self._k_sharded else self.k
+
+    def _shard_cfg(self) -> KMeansConfig:
+        """The config the sharded assign and stats programs plan with."""
+        return KMeansConfig(k=self.k, planner=self.planner)
+
+    def global_centroids(self) -> torch.Tensor:
+        """All K centroids (gathered over the cells axis on a k-sharded
+        index: a collective, every rank calls it)."""
+        if not self._k_sharded:
+            return self.centroids
+        return self.pctx.gather(self.centroids, (self.pctx.k_axis,))
+
+    def _refuse_faults(self) -> None:
+        if self.faults is not None and self.pctx is not None:
+            raise _not_ported("fault injection into a sharded index", "6b")
+
+    # ------------------------------------------------------------------
     # construction
     # ------------------------------------------------------------------
 
@@ -350,9 +444,20 @@ class IVFIndex:
         centroids drawn on the first chunk, then the same chunk stream is
         inverted by ``add`` into an index of capacity 8 (or ``capacity``)
         that grows as the lists fill; the device holds two chunks, the
-        centroids and the store."""
+        centroids and the store.
+
+        ``pctx``: train and serve on a mesh (ref. l.698-710). The points
+        are split over the data axes (one O(K d) all-reduce a Lloyd
+        iteration, the ``tol`` rule of one device), the cells and their
+        posting lists over the cells axis, and the build's assignment is
+        the two-stage argmin the sharded add uses; a ragged N is padded
+        and masked. With ``chunk_size`` the training stays the one-device
+        ``ChunkedKMeans`` loop on every rank and the mesh takes over from
+        the inversion on. Every rank passes the same ``x`` and ``seed``."""
         if pctx is not None:
-            raise _not_ported("a sharded IVFIndex (pctx)", 6)
+            _check_sharded(store, codec, router)
+            if device is None:
+                device = pctx.device
         dev = resolve_device(device)
         cfg = KMeansConfig(k=k, max_iters=max_iters, init=init, tol=tol,
                            step_impl=step_impl, planner=planner)
@@ -360,7 +465,7 @@ class IVFIndex:
         kw = dict(max_cap=max_cap, device=dev, planner=planner, store=store,
                   page_size=page_size, store_bytes=store_bytes, codec=codec,
                   rescore_mult=rescore_mult, rescore_bytes=rescore_bytes,
-                  rescore=rescore, router=router)
+                  rescore=rescore, router=router, pctx=pctx)
         if chunk_size is not None:
             driver = ChunkedKMeans(cfg, chunk_size=chunk_size, device=dev)
             first = _as_float(next(driver._chunks(x)), dev)
@@ -373,20 +478,23 @@ class IVFIndex:
                 index.add(chunk)
         else:
             x = _as_float(x, dev)
-            centroids = KMeans(cfg, device=dev).fit(
-                x, generator=gen).centroids
-            blk = cfg.blocks_for(x.shape[0], x.shape[1], x.element_size(),
-                                 dev)
-            a, m = ops.flash_assign(x, centroids.to(x.dtype),
-                                    block_n=blk.assign_block_n,
-                                    block_k=blk.assign_block_k)
+            if pctx is not None:
+                centroids, a, m = _train_sharded(pctx, cfg, gen, x)
+            else:
+                centroids = KMeans(cfg, device=dev).fit(
+                    x, generator=gen).centroids
+                blk = cfg.blocks_for(x.shape[0], x.shape[1],
+                                     x.element_size(), dev)
+                a, m = ops.flash_assign(x, centroids.to(x.dtype),
+                                        block_n=blk.assign_block_n,
+                                        block_k=blk.assign_block_k)
             cap = capacity if capacity is not None else int(
                 torch.bincount(a.long(), minlength=k).max())
             index = cls(centroids, cap, **kw)
             index._fold(x, a, m)
         # build-time evidence is the committed baseline, not drift
         index.stats = index.stats.merge(index._pending)
-        index._pending = SufficientStats.zero(k, index.d, dev)
+        index._pending = SufficientStats.zero(index.k_owned, index.d, dev)
         return index
 
     # ------------------------------------------------------------------
@@ -398,7 +506,11 @@ class IVFIndex:
         An attached injector acts first (ref. l.781-808): ``drop_add``
         loses the batch, ``add_error`` raises, ``latency`` sleeps; its
         ``nan_stats`` events corrupt the pending statistics after the
-        fold."""
+        fold. Under a ``pctx`` the batch (the same on every rank) is split
+        over the data axes, its cells found by the two-stage argmin, and
+        the owned statistics arrive summed over the data axes (ref.
+        l.811-850)."""
+        self._refuse_faults()
         x_new = torch.as_tensor(x_new).to(device=self.device,
                                           dtype=self.dtype)
         nan_evs: tuple = ()
@@ -415,6 +527,8 @@ class IVFIndex:
             nan_evs = tuple(e for e in evs if e.kind == "nan_stats")
         if x_new.shape[0] == 0:
             return torch.zeros((0,), dtype=torch.int32, device=self.device)
+        if self.pctx is not None:
+            return self._add_sharded(x_new)
         blk = self._batch_blocks(x_new.shape[0])
         a, m = ops.flash_assign(x_new, self.centroids.to(x_new.dtype),
                                 block_n=blk.assign_block_n,
@@ -424,6 +538,27 @@ class IVFIndex:
             self._pending, _ = corrupt_stats(self._pending, int(ev.arg))
         return a
 
+    def _add_sharded(self, x_new: torch.Tensor) -> torch.Tensor:
+        """The sharded add: two-stage assign and the owned statistics in one
+        program over the data-split batch, then the CSR append of the
+        gathered cells (every rank's store writes its own cells)."""
+        pctx, cfg = self.pctx, self._shard_cfg()
+        x_pad, mask, n = pctx.pad_points(x_new)
+
+        def body(x, ok, c):
+            a, m = pctx.two_stage_assign(x, c, cfg)
+            s, cnt = pctx.owned_stats(x, a, self.k, cfg, mask=ok)
+            return a, s, cnt, pctx.psum(torch.where(ok, m, 0.0).sum())
+
+        a, s, cnt, j = pctx.spmd(
+            body, in_specs=(pctx.data_spec, pctx.points_spec, None),
+            out_specs=(pctx.points_spec, None, None, None))(
+                x_pad, mask, self.centroids)
+        a = a[:n]
+        self._pending = self._pending.merge(SufficientStats(s, cnt, j))
+        self._append(x_new, a)
+        return a
+
     def _batch_blocks(self, n: int):
         """Assign/update tiles for an ``n``-row batch (planner-cached)."""
         return self.planner.block_config(n, self.k, self.d,
@@ -431,11 +566,16 @@ class IVFIndex:
 
     def _fold(self, x: torch.Tensor, a: torch.Tensor, m: torch.Tensor
               ) -> None:
-        """Append a pre-assigned batch and account its statistics."""
+        """Append a pre-assigned batch and account its statistics; a
+        k-sharded index keeps the owned cells' rows of them (ref. ``_fold``
+        and ``_place``: every rank reduces the whole batch)."""
         blk = self._batch_blocks(x.shape[0])
         s, cnt = ops.centroid_stats(x, a, k=self.k,
                                     block_n=blk.update_block_n,
                                     block_k=blk.update_block_k)
+        if self._k_sharded:
+            s = self.pctx.shard_centroids(s)
+            cnt = self.pctx.put(cnt, (self.pctx.k_axis,))
         self._pending = self._pending.merge(SufficientStats(s, cnt, m.sum()))
         self._append(x, a)
 
@@ -447,7 +587,12 @@ class IVFIndex:
         terms before the merge (a cluster with non-finite stats keeps its
         centroid); ``repair_dead`` re-seeds cells with no vectors and no
         evidence by splitting the heaviest cell. An attached injector's
-        ``nan_stats`` and ``latency`` act first (ref. l.887-893)."""
+        ``nan_stats`` and ``latency`` act first (ref. l.887-893). Under
+        K-sharding each rank commits its owned cells' statistics."""
+        self._refuse_faults()
+        if self.pctx is not None and (guard or repair_dead):
+            raise _not_ported("refresh(guard=, repair_dead=) on a sharded "
+                              "index", "6b")
         if self.faults is not None:   # injection seam (reliability.faults)
             for ev in self.faults.poll("refresh"):
                 if ev.kind == "nan_stats":
@@ -461,7 +606,8 @@ class IVFIndex:
             base, bad_b = base.sanitize()
             self.repaired_cells += int(bad_p.sum()) + int(bad_b.sum())
         self.stats = base.merge(pending)
-        self._pending = SufficientStats.zero(self.k, self.d, self.device)
+        self._pending = SufficientStats.zero(self.k_owned, self.d,
+                                             self.device)
         self.centroids = self.stats.finalize(self.centroids)
         if repair_dead:
             self.reseeded_cells += self._repair_dead_cells()
@@ -556,7 +702,8 @@ class IVFIndex:
         nprobe = min(nprobe, self.k)
         cache = self._rescore_cache()
         cfp = cache.fingerprint() if cache is not None else ()
-        return ((nprobe, topk, self._gather_width(topk, nprobe))
+        shards = (self.pctx.n_k_shards,) if self._k_sharded else ()
+        return ((nprobe, topk, self._gather_width(topk, nprobe)) + shards
                 + self.router.fingerprint(nprobe, nprobe_c) + cfp)
 
     def _rescore_r(self, topk: int, nprobe: int, width: int) -> int:
@@ -589,9 +736,29 @@ class IVFIndex:
         nprobe, topk, width)`` plus the router's fingerprint and the
         cache's; ``width`` is the store's gather-width bucket, so occupancy
         growth re-keys, as does a ``gcap`` bucket.
+
+        Under a k-sharded ``pctx`` both kernels are planned at the shapes a
+        rank launches (ref. l.1074-1081): the probe over the ``K / P_k``
+        owned centroids at ``L = min(nprobe, K / P_k)`` for its slice of
+        the batch, the store scan over that many owned cells.
         """
         nprobe = min(nprobe, self.k)
         width = self._gather_width(topk, nprobe)
+        if self._k_sharded:
+            kl = self.pctx.k_local(self.k)
+            ll = min(nprobe, kl)             # owned cells a query probes
+            li = min(topk, ll * width)       # the local result list
+            bl = max(1, -(-int(b) // self.pctx.n_data_shards))
+            geom = (int(b), nprobe, int(topk), width, self.pctx.n_k_shards)
+            plans = self._search_plans.get(geom)
+            if plans is None:
+                plans = (self.planner.plan("probe", (bl, kl, self.d, ll),
+                                           self.dtype),
+                         self.planner.plan("scan_store",
+                                           (bl, ll, width, self.d, li),
+                                           self.dtype))
+                self._search_plans[geom] = plans
+            return plans
         rfp = self.router.fingerprint(nprobe, nprobe_c)
         cache = self._rescore_cache()
         cfp = cache.fingerprint() if cache is not None else ()
@@ -628,7 +795,9 @@ class IVFIndex:
         sets the two-level router's coarse width; the flat router ignores
         it. An attached injector acts after the pool check (ref.
         l.1151-1166): ``latency`` sleeps, ``search_error`` raises, and
-        ``dead_shard`` raises too, one device being the whole replica."""
+        ``dead_shard`` raises too, one device being the whole replica.
+        Under a k-sharded ``pctx`` see ``_search_sharded``."""
+        self._refuse_faults()
         q = torch.as_tensor(q).to(device=self.device, dtype=self.dtype)
         nprobe = min(nprobe, self.k)
         cand = nprobe * self.cap
@@ -646,11 +815,79 @@ class IVFIndex:
                     raise InjectedFault(f"injected replica death ({ev})")
         if self.store.codec_kind != "fp32":
             return self._search_q8(q, topk, nprobe, nprobe_c)
+        if self._k_sharded:
+            return self._search_sharded(q, topk, nprobe)
         width = self._gather_width(topk, nprobe)
         *head, sp = self.plan_search(q.shape[0], topk, nprobe, nprobe_c)
         probe = self._probe(q, nprobe, nprobe_c, head)
         return _scan_cells(q, probe, self.store.scan_view(), topk=topk,
                            width=width, plan=sp)
+
+    def _search_sharded(self, q: torch.Tensor, topk: int, nprobe: int
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The sharded search (ref. l.1445-1576, flat router). Each rank
+        takes its slice of the batch (split over the data axes; a ragged
+        batch is padded and the result cut back):
+
+        1. FlashProbe over the owned centroids at ``L = min(nprobe, K /
+           P_k)``, then the cross-rank top-``nprobe`` merge of the cells;
+        2. the owned probed cells, compacted in global probe order into
+           ``(bl, L)`` (a slot this rank does not own points at the
+           shard's sentinel cell, which the scan reads as empty), scanned
+           in place by the store scan;
+        3. the cross-rank top-k merge, ties broken by each candidate's
+           global probe-rank-major position (``order[p] * width + w``),
+           which is where the one-device scan sees it; ``||q||^2`` is added
+           once after the merge, clamped at 0, non-finite values to 0.
+
+        Only the two (value, id) lists cross ranks
+        (``search_collective_bytes``)."""
+        pctx = self.pctx
+        b = q.shape[0]
+        pd = pctx.n_data_shards
+        b_pad = -(-b // pd) * pd
+        if b_pad != b:
+            q = torch.cat([q, q.new_zeros((b_pad - b, self.d))])
+        kl = pctx.k_local(self.k)
+        ll = min(nprobe, kl)
+        width = self._gather_width(topk, nprobe)
+        li = min(topk, ll * width)
+        pp, sp = self.plan_search(b_pad, topk, nprobe)
+        view = self.store.scan_view()
+        lo = pctx.k_rank * kl
+
+        def body(ql, c_l, csq_l):
+            bl = ql.shape[0]
+            idx, val = ops.flash_probe(ql, c_l.to(ql.dtype), l=ll, plan=pp,
+                                       want_dists=False, c_sq=csq_l)
+            gcell, _ = pctx.merge_topl(idx + lo, val, nprobe)
+            rel = gcell - lo
+            owned = (rel >= 0) & (rel < kl)
+            pos = torch.arange(nprobe, device=ql.device).expand(bl, nprobe)
+            order = torch.sort(torch.where(owned, pos, nprobe), dim=1,
+                               stable=True).indices[:, :ll]
+            cell = torch.where(torch.gather(owned, 1, order),
+                               torch.gather(rel, 1, order), kl)
+            cell = cell.to(torch.int32)
+            lidx, lval = ops.flash_probe_store(
+                ql, view.rows, view.counts, cell, table=view.table,
+                width=width, l=li, pad=_PAD_COORD, plan=sp, want_dists=False)
+            ids_loc = view.ids_at(*_slots(cell, lidx, width))
+            lidx = lidx.long()
+            gpos = torch.gather(order, 1, lidx // width) * width \
+                + lidx % width
+            gids, gval = pctx.merge_topl(ids_loc, lval, topk, tie=gpos)
+            q32 = ql.float()
+            gval = gval + (q32 * q32).sum(-1, keepdim=True)
+            gval = torch.where(torch.isfinite(gval), gval.clamp(min=0.0),
+                               0.0)
+            return gids, gval
+
+        ids, dists = pctx.spmd(
+            body, in_specs=(pctx.data_spec, None, None),
+            out_specs=(pctx.data_spec, pctx.data_spec))(
+                q, self.centroids, self._centroid_norms())
+        return ids[:b], dists[:b]
 
     def _probe(self, q: torch.Tensor, nprobe: int, nprobe_c: int | None,
                head) -> torch.Tensor:
@@ -714,6 +951,8 @@ class IVFIndex:
         committed and pending statistics, router) in the reference's format
         (``reliability.snapshot.save_index``). ``seqno`` marks the WAL
         position it covers."""
+        if self.pctx is not None:
+            raise _not_ported("snapshots of a sharded index", "6b")
         from repro_torch.reliability.snapshot import save_index
         return save_index(self, directory, seqno=seqno, extra=extra)
 
@@ -724,7 +963,7 @@ class IVFIndex:
         """Restore a snapshot written by either package onto ``device``
         (None: ``"cuda"``); see ``reliability.snapshot.load_index``."""
         if pctx is not None:
-            raise _not_ported("restoring onto a mesh (pctx)", 6)
+            raise _not_ported("restoring onto a mesh (pctx)", "6b")
         from repro_torch.reliability.snapshot import load_index
         return load_index(directory, seqno=seqno, planner=planner,
                           device=device)
@@ -744,14 +983,26 @@ class IVFIndex:
                              torch.cumsum(self.counts.long(), 0)])
         return ids, offsets.to(torch.int32)
 
+    def search_collective_bytes(self, b: int, topk: int = 10,
+                                nprobe: int = 8) -> int:
+        """Modeled cross-rank wire bytes of one search batch (0 unless the
+        index is k-sharded); see
+        ``ParallelContext.search_collective_bytes``."""
+        if not self._k_sharded:
+            return 0
+        return self.pctx.search_collective_bytes(
+            b, min(nprobe, self.k), topk, self.k, cap=self.cap, d=self.d)
+
     def __len__(self) -> int:
         return self.n_total
 
     def __repr__(self) -> str:
+        shard = (f", cells_sharded x{self.pctx.n_k_shards}"
+                 if self._k_sharded else "")
         codec = (f", codec={self.store.codec_kind}"
                  if self.store.codec_kind != "fp32" else "")
         rout = (f", router={self.router.kind}"
                 if self.router.kind != "flat" else "")
         return (f"IVFIndex(k={self.k}, d={self.d}, n={self.n_total}, "
-                f"cap={self.cap}, store={self.store.kind}{codec}{rout}, "
-                f"device={self.device})")
+                f"cap={self.cap}, store={self.store.kind}{codec}{rout}"
+                f"{shard}, device={self.device})")

@@ -25,7 +25,7 @@ kernel ``kernels/rescore_cache.py`` (``csrc/rescore_cache.cu``); lookups
 ``REPRO_RESCORE`` picks the process default: ``device`` (this cache) or
 ``host`` (the reservoir round trip, kept as the parity oracle).
 
-Not ported yet (ROADMAP.md, queue A item 6, the parallel layer): a cache
+Not ported yet (ROADMAP.md, queue A item 6b, the sharded q8 index): a cache
 sharded over a mesh (``shards > 1``, ``put(shard=...)``, ``place``,
 ``shard_specs``); each raises ``NotImplementedError``.
 """
@@ -49,7 +49,7 @@ RESCORE_KINDS = ("device", "host")
 _ROW_OVERHEAD = 8
 
 _SHARDED = ("a device rescore cache sharded over a mesh is not ported yet "
-            "(ROADMAP.md, queue A item 6: the parallel layer)")
+            "(ROADMAP.md, queue A item 6b: the sharded q8 index)")
 
 
 def default_rescore_kind() -> str:

@@ -33,10 +33,21 @@ module nothing reads a raw store tensor.
 ``kind=None`` takes ``default_store_kind()`` (``REPRO_BUCKET_STORE``, else
 ``"padded"``), as in the reference. ``restore_store`` and
 ``infer_store_meta`` rebuild a store from a snapshot's arrays and meta.
-Not ported yet (ROADMAP.md, queue A
-item 6): a store sharded over a mesh (``n_shards > 1``, ``place``,
-``shard_specs``, ``gather_cells``). Unlike the JAX package the port updates
-its tensors in place, and ``dense``/``flat`` return tensors on the store's
+
+Over a mesh (``place(pctx)``, a ``core.parallel.ParallelContext`` with a
+``k_axis``) the padded store keeps on this rank's device only the cells it
+owns, a contiguous ``K / P_k`` of them: the ``(K/P_k, cap, d)`` payload,
+ids and sidecar. The host bookkeeping (counts, capacity growth, spills,
+``max_cap``) stays global and the same on every rank, so every rank grows
+at once; ``append`` takes the whole batch and writes the owned rows.
+``scan_view`` is the owned shard's, with its own sentinel cell ``K/P_k``;
+``dense``, ``dense_ids``, ``flat`` and ``state_arrays`` gather the whole
+store over the cells axis (a collective: every rank calls them together).
+Not ported yet (ROADMAP.md, queue A item 6b): the paged pool and the
+quantized store over several shards (``n_shards > 1``, their ``place``,
+``gather_cells`` on the paged kind, ``gather_cells_q8``) and restoring a
+store over several shards. Unlike the JAX package the port updates its
+tensors in place, and ``dense``/``flat`` return tensors on the store's
 device; ``state_arrays`` and ``meta`` give the snapshot format's numpy
 arrays and keys.
 """
@@ -65,7 +76,8 @@ STORE_KINDS = ("padded", "paged")
 
 def _sharded(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
-                               f"queue A item 6: the sharded index)")
+                               f"queue A item 6b: the sharded index's "
+                               f"other axes)")
 
 
 def _round_up(v: int, mult: int) -> int:
@@ -220,6 +232,36 @@ def gather_global(kind: str, arrays, probe: torch.Tensor, width: int,
     return pool[pid].reshape(b, w, pool.shape[-1]), pool_ids[pid].reshape(b, w)
 
 
+def gather_cells(kind: str, arrays, cell: torch.Tensor, width: int,
+                 page_size: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """The shard-local candidate gather (ref. l.189-214): ``cell (bl, ll)``
+    holds local cell indices, ``k_local`` (the owned cell count) being the
+    not-owned padding cell, whose slots are ``_PAD_COORD`` rows with id -1;
+    ``arrays`` are the owned shard's ``device_arrays()``. Returns ``(cand_x
+    (bl, ll * width, d), cand_ids (bl, ll * width))``. The sharded search
+    does not gather (the store scan reads the owned cells in place through
+    ``scan_view``); this is the block path it is held to."""
+    if _resolve_kind(kind) != "padded":
+        raise _sharded("gather_cells over a paged store")
+    buckets, bucket_ids = arrays[:2]
+    bl, ll = cell.shape
+    d = buckets.shape[-1]
+    bpad = torch.cat([buckets[:, :width], torch.full(
+        (1, width, d), _PAD_COORD, dtype=buckets.dtype,
+        device=buckets.device)])
+    ipad = torch.cat([bucket_ids[:, :width], torch.full(
+        (1, width), -1, dtype=torch.int32, device=bucket_ids.device)])
+    c = cell.long()
+    return (bpad[c].reshape(bl, ll * width, d),
+            ipad[c].reshape(bl, ll * width))
+
+
+def gather_cells_q8(kind: str, arrays, cell: torch.Tensor, width: int,
+                    page_size: int = 0):
+    """The quantized shard-local gather: queue A item 6b."""
+    raise _sharded("gather_cells_q8 (the sharded q8 search)")
+
+
 def gather_global_q8(kind: str, arrays, probe: torch.Tensor, width: int,
                      page_size: int = 0, n_shards: int = 1
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -261,6 +303,9 @@ class BucketStore:
         self.max_cap = None if max_cap is None \
             else max(8, _round_up(max_cap, 8))
         self._counts_np = np.zeros(self.k, np.int64)
+        # the owned cells [lo, lo + k_owned): all of them until ``place``
+        self.lo, self.k_owned = 0, self.k
+        self._pctx = None
         self._upload_counts()
         self.spilled = 0
         self.evicted = 0
@@ -278,11 +323,18 @@ class BucketStore:
         ``counts`` is the view of its first K. The routed search's probe
         lists hold ``K`` where a query has fewer candidate cells than
         ``nprobe``, and the store scans read that cell as one without
-        rows."""
-        self.counts_sentinel = torch.as_tensor(
-            np.append(self._counts_np, 0), dtype=torch.int32,
-            device=self.device)
-        self.counts = self.counts_sentinel[:self.k]
+        rows. On a store placed over a mesh ``counts`` stays global and
+        ``counts_sentinel`` is the owned cells' (K/P_k + 1,), the last the
+        shard's own sentinel cell ``K/P_k``."""
+        full = torch.as_tensor(np.append(self._counts_np, 0),
+                               dtype=torch.int32, device=self.device)
+        self.counts = full[:self.k]
+        if self.k_owned == self.k:
+            self.counts_sentinel = full
+        else:
+            self.counts_sentinel = torch.as_tensor(
+                np.append(self._counts_np[self.lo:self.lo + self.k_owned],
+                          0), dtype=torch.int32, device=self.device)
 
     def set_counts(self, v) -> None:
         """Test/repair seam: overwrite the logical list lengths."""
@@ -341,10 +393,19 @@ class BucketStore:
         return 1
 
     def place(self, pctx) -> None:
-        raise _sharded("BucketStore.place")
+        raise _sharded(f"placing a {self.kind} {self.codec_kind} store over "
+                       f"a mesh")
 
     def shard_specs(self, ka) -> tuple:
-        raise _sharded("BucketStore.shard_specs")
+        raise _sharded(f"the shard specs of a {self.kind} {self.codec_kind} "
+                       f"store")
+
+    def _whole(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole store's ``t`` from the owned cells' (gathered over the
+        cells axis on a placed store)."""
+        if self._pctx is None:
+            return t
+        return self._pctx.gather(t, (self._pctx.k_axis,))
 
     def block_until_ready(self) -> None:
         if self.device.type == "cuda":
@@ -363,15 +424,48 @@ class PaddedBucketStore(BucketStore):
         self.cap = max(8, _round_up(int(capacity), 8))
         if self.max_cap is not None:
             self.cap = min(self.cap, self.max_cap)
-        self.buckets = torch.full((self.k, self.cap, self.d),
-                                  _pad_value(self.dtype), dtype=self.dtype,
-                                  device=self.device)
-        self.bucket_ids = torch.full((self.k, self.cap), -1,
-                                     dtype=torch.int32, device=self.device)
         self.has_aux = bool(aux)
-        self.bucket_aux = torch.zeros((self.k, self.cap), dtype=torch.float32,
-                                      device=self.device) \
+        self._alloc()
+
+    def _alloc(self) -> None:
+        """Empty tensors of the owned cells at the current capacity."""
+        kw = {"device": self.device}
+        self.buckets = torch.full((self.k_owned, self.cap, self.d),
+                                  _pad_value(self.dtype), dtype=self.dtype,
+                                  **kw)
+        self.bucket_ids = torch.full((self.k_owned, self.cap), -1,
+                                     dtype=torch.int32, **kw)
+        self.bucket_aux = torch.zeros((self.k_owned, self.cap),
+                                      dtype=torch.float32, **kw) \
             if self.has_aux else None
+
+    def place(self, pctx) -> None:
+        """Keep only the cells this rank owns under ``pctx``'s ``k_axis``
+        (ref. l.519-525): a contiguous ``K / P_k`` of them, their rows cut
+        from the whole store's tensors without communication. Idempotent;
+        a context without a ``k_axis`` leaves the store whole."""
+        if pctx.k_axis is None:
+            return
+        kl = pctx.k_local(self.k)
+        lo = pctx.k_rank * kl
+        if self._pctx is not None:
+            if (lo, kl) != (self.lo, self.k_owned):
+                raise ValueError("the store is already placed on another "
+                                 "shard")
+            return
+        own = slice(lo, lo + kl)
+        self.buckets = self.buckets[own].contiguous()
+        self.bucket_ids = self.bucket_ids[own].contiguous()
+        if self.has_aux:
+            self.bucket_aux = self.bucket_aux[own].contiguous()
+        self.lo, self.k_owned, self._pctx = lo, kl, pctx
+        self._upload_counts()
+
+    def shard_specs(self, ka) -> tuple:
+        """The split of ``device_arrays()`` over the cells axis ``ka``."""
+        if self.has_aux:
+            return ((ka, None, None), (ka, None), (ka, None))
+        return ((ka, None, None), (ka, None))
 
     @property
     def capacity(self) -> int:
@@ -398,12 +492,24 @@ class PaddedBucketStore(BucketStore):
             if aux is not None:
                 aux = aux[kt]
         if cells.size:
-            cj = torch.as_tensor(cells, device=self.device)
-            sj = torch.as_tensor(slots, device=self.device)
-            self.buckets[cj, sj] = x_sorted.to(self.dtype)
-            self.bucket_ids[cj, sj] = torch.as_tensor(ids, device=self.device)
-            if self.has_aux and aux is not None:
-                self.bucket_aux[cj, sj] = aux.float()
+            own = (cells >= self.lo) & (cells < self.lo + self.k_owned)
+            if not own.all():   # a placed store writes its own cells only
+                oj = np.flatnonzero(own)
+                ot = torch.as_tensor(oj, device=x_sorted.device)
+                x_own = x_sorted[ot]
+                aux_own = aux[ot] if aux is not None else None
+                c_own, s_own, i_own = cells[oj], slots[oj], ids[oj]
+            else:
+                x_own, aux_own, c_own, s_own, i_own = (x_sorted, aux, cells,
+                                                       slots, ids)
+            if c_own.size:
+                cj = torch.as_tensor(c_own - self.lo, device=self.device)
+                sj = torch.as_tensor(s_own, device=self.device)
+                self.buckets[cj, sj] = x_own.to(self.dtype)
+                self.bucket_ids[cj, sj] = torch.as_tensor(i_own,
+                                                          device=self.device)
+                if self.has_aux and aux_own is not None:
+                    self.bucket_aux[cj, sj] = aux_own.float()
             self._counts_np += np.bincount(
                 cells, minlength=self.k).astype(np.int64)
             self._upload_counts()
@@ -415,16 +521,15 @@ class PaddedBucketStore(BucketStore):
             new_cap = min(new_cap, self.max_cap)
         if new_cap <= self.cap:
             return
-        pad = new_cap - self.cap
+        pad, ko = new_cap - self.cap, self.k_owned
         self.buckets = torch.cat([self.buckets, torch.full(
-            (self.k, pad, self.d), _pad_value(self.dtype), dtype=self.dtype,
+            (ko, pad, self.d), _pad_value(self.dtype), dtype=self.dtype,
             device=self.device)], dim=1)
         self.bucket_ids = torch.cat([self.bucket_ids, torch.full(
-            (self.k, pad), -1, dtype=torch.int32, device=self.device)], dim=1)
+            (ko, pad), -1, dtype=torch.int32, device=self.device)], dim=1)
         if self.has_aux:
             self.bucket_aux = torch.cat([self.bucket_aux, torch.zeros(
-                (self.k, pad), dtype=torch.float32, device=self.device)],
-                dim=1)
+                (ko, pad), dtype=torch.float32, device=self.device)], dim=1)
         self.cap = new_cap
 
     def gather_width(self, min_slots: int = 1) -> int:
@@ -443,25 +548,28 @@ class PaddedBucketStore(BucketStore):
                         self.counts_sentinel, self.cap, self.bucket_aux)
 
     def dense(self):
-        return self.buckets, self.bucket_ids
+        return self._whole(self.buckets), self._whole(self.bucket_ids)
 
     def dense_aux(self):
-        return self.bucket_aux
+        return None if self.bucket_aux is None \
+            else self._whole(self.bucket_aux)
 
     def dense_ids(self):
-        return self.bucket_ids
+        return self._whole(self.bucket_ids)
 
     def flat(self):
-        return (self.buckets.reshape(self.k * self.cap, self.d),
-                self.bucket_ids.reshape(self.k * self.cap))
+        x, ids = self.dense()
+        return (x.reshape(self.k * self.cap, self.d),
+                ids.reshape(self.k * self.cap))
 
     def state_arrays(self):
-        out = {"buckets": self.buckets.cpu().numpy(),
-               "bucket_ids": self.bucket_ids.cpu().numpy(),
+        x, ids = self.dense()
+        out = {"buckets": x.cpu().numpy(),
+               "bucket_ids": ids.cpu().numpy(),
                "counts": self.counts.cpu().numpy(),
                "spill_counts": self.spill_counts.copy()}
         if self.has_aux:
-            out["bucket_aux"] = self.bucket_aux.cpu().numpy()
+            out["bucket_aux"] = self.dense_aux().cpu().numpy()
         return out
 
     def meta(self):
@@ -490,12 +598,17 @@ class PaddedBucketStore(BucketStore):
         return st
 
     def resident_bytes(self) -> int:
+        """Bytes this rank's device holds (the owned cells on a placed
+        store)."""
         aux = 4 if self.has_aux else 0
-        return self.k * self.cap * (self.d * self.dtype.itemsize + 4 + aux)
+        return self.k_owned * self.cap * (self.d * self.dtype.itemsize + 4
+                                          + aux)
 
     def __repr__(self):
+        own = (f", cells {self.lo}-{self.lo + self.k_owned - 1}"
+               if self.k_owned != self.k else "")
         return (f"PaddedBucketStore(k={self.k}, d={self.d}, "
-                f"cap={self.cap})")
+                f"cap={self.cap}{own})")
 
 
 # ---------------------------------------------------------------------------

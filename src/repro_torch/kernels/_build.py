@@ -5,7 +5,10 @@ together, for ``sm_90a``; the objects are linked into one shared library
 with a plain C interface, which is loaded with ``ctypes``. The build goes
 to ``build/repro_torch/<hash>/`` at the repository root, keyed on a hash of
 the sources and flags, and happens at first use: importing this module
-builds nothing and needs no ``nvcc``.
+builds nothing and needs no ``nvcc``. Processes that build at once (the
+ranks of a mesh) take turns on an ``flock`` of ``<hash>/.lock``: the first
+compiles, into object files named by its process id, and links; the others
+then find the finished library and load it.
 
 Every C entry point returns a ``cudaError_t``; ``check`` raises on a
 non-zero code. Pointers and the stream are passed as ``ctypes.c_void_p``.
@@ -15,6 +18,7 @@ A kernel that cannot be built, loaded or launched raises
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -125,22 +129,37 @@ def source_hash() -> str:
 def build() -> Path:
     """Compile every source in parallel and link ``libfkmeans.so``;
     returns its path. A build already present for this hash is reused, with
-    the ``-Xptxas -v`` log it left beside it (``ptxas_log``)."""
-    global build_seconds, ptxas_log
-    import time
+    the ``-Xptxas -v`` log it left beside it (``ptxas_log``). The check,
+    the compiles and the link run under an exclusive ``flock`` of the hash
+    directory's lock file, so processes that build at once do it once."""
     out_dir = BUILD_ROOT / source_hash()
     lib = out_dir / "libfkmeans.so"
-    log = out_dir / "ptxas.log"
     if lib.is_file():
-        if not ptxas_log and log.is_file():
-            ptxas_log = log.read_text()
-        return lib
+        return _reuse(out_dir)
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)   # released when the file closes
+        if lib.is_file():                  # another process built it
+            return _reuse(out_dir)
+        return _compile_and_link(nvcc, out_dir)
+
+
+def _reuse(out_dir: Path) -> Path:
+    global ptxas_log
+    log = out_dir / "ptxas.log"
+    if not ptxas_log and log.is_file():
+        ptxas_log = log.read_text()
+    return out_dir / "libfkmeans.so"
+
+
+def _compile_and_link(nvcc: str, out_dir: Path) -> Path:
+    global build_seconds, ptxas_log
+    import time
     t0 = time.perf_counter()
     procs = []
     for src in sources():
-        obj = out_dir / (src.stem + ".o")
+        obj = out_dir / f"{src.stem}.{os.getpid()}.o"
         cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -161,8 +180,11 @@ def build() -> Path:
     if link.returncode != 0:
         raise KernelUnavailable(f"nvcc link failed:\n{link.stdout}")
     ptxas_log = "\n".join(logs)
-    log.write_text(ptxas_log)
+    (out_dir / "ptxas.log").write_text(ptxas_log)
+    lib = out_dir / "libfkmeans.so"
     os.replace(tmp, lib)
+    for _, obj, _ in procs:
+        obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
     return lib
 

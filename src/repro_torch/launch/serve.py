@@ -9,6 +9,10 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --mode search \\
       --snapshot-dir /tmp/ivf-snap --health --chaos-seed 7
 
+  # sharded serving: 2 data x 2 cell shards, one rank a card (NCCL)
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
+      -m repro_torch.launch.serve --mode search --mesh 2x2
+
 It builds an index over a synthetic clustered corpus (Gaussian blobs made
 from ``--seed`` on the device: centres x5, noise 0.4, as the reference),
 warms a ``SearchEngine``, times ``--reps`` searches of ``--queries`` rows
@@ -26,9 +30,18 @@ adds between automatic snapshots) and runs the reference's demo:
 snapshot, drop the engine, ``recover``, and check that the restored
 engine's search returns the same ids.
 
+``--mesh DATAxCELLS`` builds and serves the padded fp32 flat index sharded
+over a ``DATA x CELLS`` mesh (``core.parallel``): under ``torchrun`` (the
+rendezvous from the environment, NCCL, one rank a card; gloo with
+``--device cpu``), or without it at world size 1 for ``--mesh 1x1``. A
+mesh whose size is not the world's raises ``ValueError``. Every rank builds the same corpus from ``--seed``; only
+rank 0 prints, and it reports the modeled cross-rank bytes of a search
+batch beside queries/s.
+
 Not ported yet (ROADMAP.md, queue A), and refused with
-``NotImplementedError``: ``--mode dense|clustered`` (items 7-8) and
-``--mesh`` (item 6).
+``NotImplementedError``: ``--mode dense|clustered`` (items 7-8), and
+``--mesh`` with ``--store paged``, ``--codec q8``, ``--router two_level``,
+``--health``, ``--chaos-seed`` or ``--snapshot-dir`` (item 6b).
 """
 from __future__ import annotations
 
@@ -47,18 +60,46 @@ def _refuse_unported(args) -> None:
     if args.mode != "search":
         raise _not_ported(f"--mode {args.mode} (LM serving)", "items 7-8")
     if args.mesh is not None:
-        raise _not_ported("--mesh (sharded serving)", "item 6")
+        given = [flag for flag, on in (
+            ("--store paged", args.store == "paged"),
+            ("--codec q8", args.codec == "q8"),
+            ("--router two_level", args.router == "two_level"),
+            ("--health", args.health),
+            ("--chaos-seed", args.chaos_seed is not None),
+            ("--snapshot-dir", args.snapshot_dir is not None)) if on]
+        if given:
+            raise _not_ported(f"--mesh with {', '.join(given)}", "item 6b")
 
 
-def _serve_search(args) -> dict:
-    """Build, warm, serve; returns what it printed as numbers."""
+def main(argv=None) -> dict:
+    args = _parser().parse_args(argv)
+    _refuse_unported(args)
+    if args.mesh is None:
+        return _serve_search(args, None, print)
+    from repro_torch.core.kmeans import resolve_device
+    from repro_torch.core.parallel import (ParallelContext, parse_mesh_flag,
+                                           release_world)
+    dev = resolve_device(args.device)
+    try:
+        pctx = ParallelContext.for_mesh(parse_mesh_flag(
+            args.mesh, device_type=dev.type))
+        rank0 = int(pctx.mesh.get_rank()) == 0
+        say = print if rank0 else (lambda *a, **k: None)
+        say(f"sharded serving: {pctx.describe()}")
+        return _serve_search(args, pctx, say)
+    finally:
+        release_world()
+
+
+def _serve_search(args, pctx, say) -> dict:
+    """Build, warm, serve; returns what it printed (``say``) as numbers."""
     from repro_torch.core.kmeans import resolve_device
     from repro_torch.index import IVFIndex, recall_at_k
     from repro_torch.reliability import (FaultInjector, FaultPlan,
                                          HealthPolicy)
     from repro_torch.serve import SearchConfig, SearchEngine
 
-    dev = resolve_device(args.device)
+    dev = pctx.device if pctx is not None else resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     centers = torch.randn(args.kc, args.d, device=dev, generator=gen) * 5.0
     lbl = torch.randint(0, args.kc, (args.n,), device=dev, generator=gen)
@@ -74,13 +115,14 @@ def _serve_search(args) -> dict:
                            seed=args.seed, device=dev, store=args.store,
                            page_size=args.page_size,
                            codec=args.codec, rescore_mult=rescore_mult,
-                           rescore=args.rescore, router=args.router)
+                           rescore=args.rescore, router=args.router,
+                           pctx=pctx)
     sync()
     t_build = time.perf_counter() - t0
-    print(f"bucket store: {index.store!r} "
-          f"({index.resident_bytes() / 1e6:.1f} MB resident)")
+    say(f"bucket store: {index.store!r} "
+        f"({index.resident_bytes() / 1e6:.1f} MB resident)")
     if index.router.kind != "flat":
-        print(f"router: {index.router!r}")
+        say(f"router: {index.router!r}")
 
     scfg = SearchConfig(topk=args.topk, nprobe=args.nprobe,
                         query_batch=args.queries,
@@ -104,24 +146,29 @@ def _serve_search(args) -> dict:
     recall = recall_at_k(ids, ids_ref)
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu (the kernels' plain versions)")
-    print(f"mode=search n={args.n} d={args.d} kc={args.kc} "
-          f"nprobe={args.nprobe} topk={args.topk} on {name}")
-    print(f"build {t_build:.2f}s ({args.n / t_build:.0f} pts/s); "
-          f"serve {qps:.0f} qps; recall@{args.topk}={recall:.3f}")
-    print(f"scheduler: {eng.batches_formed} units, "
-          f"{eng.coalesced_requests} coalesced, "
-          f"{eng.interleaved_adds} interleaved adds, "
-          f"queue depth {eng.queue_depth}")
+    say(f"mode=search n={args.n} d={args.d} kc={args.kc} "
+        f"nprobe={args.nprobe} topk={args.topk} on {name}")
+    say(f"build {t_build:.2f}s ({args.n / t_build:.0f} pts/s); "
+        f"serve {qps:.0f} qps; recall@{args.topk}={recall:.3f}")
+    say(f"scheduler: {eng.batches_formed} units, "
+        f"{eng.coalesced_requests} coalesced, "
+        f"{eng.interleaved_adds} interleaved adds, "
+        f"queue depth {eng.queue_depth}")
     lat = eng.latency_stats()
-    print(f"latency: dispatch p50 {lat['dispatch_p50_ms']:.3f}ms "
-          f"p99 {lat['dispatch_p99_ms']:.3f}ms; "
-          f"complete p50 {lat['complete_p50_ms']:.3f}ms "
-          f"p99 {lat['complete_p99_ms']:.3f}ms; "
-          f"{lat['overlap_hits']} overlapped units")
+    say(f"latency: dispatch p50 {lat['dispatch_p50_ms']:.3f}ms "
+        f"p99 {lat['dispatch_p99_ms']:.3f}ms; "
+        f"complete p50 {lat['complete_p50_ms']:.3f}ms "
+        f"p99 {lat['complete_p99_ms']:.3f}ms; "
+        f"{lat['overlap_hits']} overlapped units")
     out = {"build_s": t_build, "qps": qps, "recall": recall, **lat}
+    if pctx is not None:
+        cb = index.search_collective_bytes(args.queries, args.topk,
+                                           args.nprobe)
+        say(f"collective bytes/batch (modeled, O(b*L)): {cb}")
+        out["collective_bytes"] = cb
     if health is not None or faults is not None:
         hot = {k: v for k, v in eng.counters.as_dict().items() if v}
-        print(f"health counters: {hot or 'all healthy'}")
+        say(f"health counters: {hot or 'all healthy'}")
         out["counters"] = eng.counters.as_dict()
     if args.snapshot_dir:
         # durability demo: snapshot, kill, recover, check the identity
@@ -135,22 +182,25 @@ def _serve_search(args) -> dict:
         t_rec = time.perf_counter() - t0
         ids2, _ = eng2.search(q)
         same = bool(torch.equal(ids, ids2))
-        print(f"snapshot {t_snap * 1e3:.1f}ms; recover {t_rec:.2f}s "
-              f"(replayed {eng2.counters.wal_records_replayed} WAL "
-              f"records); restored search identical: {same}")
+        say(f"snapshot {t_snap * 1e3:.1f}ms; recover {t_rec:.2f}s "
+            f"(replayed {eng2.counters.wal_records_replayed} WAL "
+            f"records); restored search identical: {same}")
         out.update(snapshot_s=t_snap, recover_s=t_rec, restored_same=same,
                    wal_records_replayed=eng2.counters.wal_records_replayed)
     return out
 
 
-def main(argv=None) -> dict:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mode", default="search",
                     choices=["dense", "clustered", "search"],
                     help="only search is ported")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain versions)")
-    ap.add_argument("--mesh", default=None, help="not ported (item 6)")
+    ap.add_argument("--mesh", default=None,
+                    help="serve on a DATAxCELLS mesh (e.g. 2x2): the "
+                         "sharded padded fp32 flat index; run under "
+                         "torchrun with DATA*CELLS ranks (1x1: no torchrun)")
     ap.add_argument("--n", type=int, default=20_000)
     ap.add_argument("--d", type=int, default=64)
     ap.add_argument("--kc", type=int, default=64,
@@ -190,9 +240,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--chaos-seed", type=int, default=None,
                     help="inject FaultPlan.seeded(seed) into the serving "
                          "path")
-    args = ap.parse_args(argv)
-    _refuse_unported(args)
-    return _serve_search(args)
+    return ap
 
 
 if __name__ == "__main__":

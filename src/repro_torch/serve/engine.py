@@ -45,8 +45,11 @@ with inserts interleaved in FIFO order, and overlapped dispatch.
   ``add``, which gives the index an uninterrupted run holds, its schedule
   counters resumed from the manifest.
 
-Not ported yet (ROADMAP.md, queue A): ``recover(pctx=)`` (item 6) and the
-clustered-KV ``Engine`` (item 8).
+A sharded index (``IVFIndex(pctx=)``) is served as any other: every rank
+runs the same engine over the same requests, and each search and add is one
+collective program. Not ported yet (ROADMAP.md, queue A): over a sharded
+index ``health``, ``faults``, ``snapshot_dir`` and ``recover(pctx=)`` (item
+6b), and the clustered-KV ``Engine`` (item 8).
 """
 from __future__ import annotations
 
@@ -96,6 +99,12 @@ class SearchEngine:
                  health: HealthPolicy | None = None, faults=None):
         self.index = index
         self.scfg = scfg or SearchConfig()
+        if getattr(index, "pctx", None) is not None and (
+                health is not None or faults is not None
+                or self.scfg.snapshot_dir):
+            raise NotImplementedError(
+                "health, faults and snapshots over a sharded index are not "
+                "ported yet (ROADMAP.md, queue A item 6b)")
         self.health = health
         self.counters = HealthCounters()
         if faults is not None:   # attach the injector at the index seams
@@ -525,11 +534,11 @@ class SearchEngine:
         ``"cuda"``) and replay the WAL's tail through the live ``add``
         path, which gives the index an uninterrupted run holds (same
         batches, same order, the refresh schedule resumed from the
-        manifest's ``extra``). ``pctx`` waits for queue A item 6."""
+        manifest's ``extra``). ``pctx`` waits for queue A item 6b."""
         if pctx is not None:
             raise NotImplementedError(
                 "recovering onto a mesh (pctx) is not ported yet "
-                "(ROADMAP.md, queue A item 6)")
+                "(ROADMAP.md, queue A item 6b)")
         from repro_torch.index.ivf import IVFIndex
         from repro_torch.reliability.snapshot import read_manifest
         index = IVFIndex.load(directory, planner=planner, device=device)

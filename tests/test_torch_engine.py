@@ -374,11 +374,102 @@ def test_launcher_serves_search_on_the_cpu(codec, capsys):
 
 @pytest.mark.parametrize("flags,item", [
     (["--mode", "dense"], "items 7-8"), (["--mode", "clustered"], "items 7-8"),
-    (["--mesh", "1x8"], "item 6")])
+    (["--mesh", "1x1", "--store", "paged"], "item 6")])
 def test_launcher_refuses_what_is_not_ported(flags, item):
+    """``--mesh`` itself is ported (``test_launcher_serves_a_mesh_of_one``);
+    its paged store waits for item 6b."""
     from repro_torch.launch import serve
     with pytest.raises(NotImplementedError, match=f"queue A {item}"):
         serve.main(["--device", "cpu", *flags])
+
+
+def test_launcher_serves_a_mesh_of_one(capsys):
+    """``--mesh 1x1`` runs without torchrun, at world size 1, and leaves no
+    process group behind."""
+    import torch.distributed as dist
+    from repro_torch.launch import serve
+    out = serve.main(["--mode", "search", "--device", "cpu", "--n", "2000",
+                      "--d", "16", "--kc", "16", "--queries", "32",
+                      "--reps", "2", "--mesh", "1x1"])
+    assert out["recall"] >= 0.9 and out["collective_bytes"] == 0
+    assert "sharded serving: ParallelContext" in capsys.readouterr().out
+    assert not dist.is_initialized()
+
+
+_RANK_MAIN = """
+import json, sys
+from repro_torch.launch import serve
+out = serve.main(sys.argv[2:])
+json.dump({k: out[k] for k in ("recall", "collective_bytes")},
+          open(sys.argv[1], "w"))
+"""
+
+
+def test_launcher_mesh_rendezvous_from_the_torchrun_environment(tmp_path):
+    """``--mesh 1x2`` on two ranks that find each other as ``torchrun``'s
+    ranks do: ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and
+    ``MASTER_PORT`` in the environment (gloo on the CPU). Both exit 0,
+    only rank 0 prints, and both report the same recall and the reference's
+    modeled bytes of a batch."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+    from repro.core.parallel import search_collective_bytes_model
+    with socket.socket() as sock:   # a free port, not a fixed one
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = Path(__file__).resolve().parents[1]
+    flags = ["--mode", "search", "--device", "cpu", "--n", "2000", "--d",
+             "16", "--kc", "16", "--queries", "32", "--nprobe", "8",
+             "--reps", "2", "--mesh", "1x2"]
+    procs = []
+    for r in range(2):
+        env = {**os.environ, "PYTHONPATH": str(root / "src"),
+               "OMP_NUM_THREADS": "1", "RANK": str(r), "LOCAL_RANK": str(r),
+               "WORLD_SIZE": "2", "LOCAL_WORLD_SIZE": "2",
+               "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _RANK_MAIN, str(tmp_path / f"{r}.json"),
+             *flags], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=180))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, f"rank {r}:\n{outs[r][1][-3000:]}"
+    assert "sharded serving: ParallelContext" in outs[0][0]
+    assert "recall@10=" in outs[0][0]
+    assert outs[1][0] == ""
+    res = [json.loads((tmp_path / f"{r}.json").read_text()) for r in range(2)]
+    assert res[0] == res[1]
+    assert res[0]["recall"] >= 0.9
+    assert res[0]["collective_bytes"] == search_collective_bytes_model(
+        32, 8, 10, 16, 2)
+
+
+def test_launcher_mesh_must_fill_the_world():
+    import torch.distributed as dist
+    from repro_torch.launch import serve
+    with pytest.raises(ValueError, match="ranks"):
+        serve.main(["--device", "cpu", "--mesh", "1x8"])
+    assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("flags", [
+    ["--store", "paged"], ["--codec", "q8"], ["--router", "two_level"],
+    ["--health"], ["--chaos-seed", "7"], ["--snapshot-dir", "SNAP"]])
+def test_launcher_mesh_refuses_what_6b_ports(flags):
+    from repro_torch.launch import serve
+    with pytest.raises(NotImplementedError, match="queue A item 6b"):
+        serve.main(["--device", "cpu", "--mesh", "2x2", *flags])
 
 
 @pytest.mark.parametrize("flags", [

@@ -323,8 +323,9 @@ def test_index_defaults_to_cuda_and_raises_without_it(monkeypatch):
     assert IVFIndex(c, 8, device="cpu").device.type == "cpu"
 
 
-# the device rescore cache is ported; a cache sharded over a mesh is not
-@pytest.mark.parametrize("kw", [{"pctx": object()},
+# the device rescore cache and the sharded padded flat index are ported; a
+# cache sharded over a mesh and a sharded two-level index are not (item 6b)
+@pytest.mark.parametrize("kw", [{"pctx": object(), "router": "two_level"},
                                 {"codec": "q8", "rescore": "device",
                                  "pctx": object()}],
                          ids=["pctx", "rescore-device"])
@@ -492,8 +493,10 @@ def test_unported_entry_points_raise(tmp_path):
     x, _ = _blobs(13, 64, 4, 8)
     # the out-of-core build is ported (tests/test_torch_chunked.py)
     assert len(IVFIndex.build(x, k=4, device="cpu", chunk_size=16)) == 64
+    # the sharded index is ported (tests/test_torch_parallel*.py) on the
+    # padded store; the paged one over a mesh waits for item 6b
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        IVFIndex.build(x, k=4, device="cpu", pctx=object())
+        IVFIndex.build(x, k=4, device="cpu", pctx=object(), store="paged")
     # save, load and faults are ported (tests/test_torch_snapshot.py,
     # tests/test_torch_reliability.py): a round trip, and an injector
     idx = IVFIndex(x[:4], 8, device="cpu")

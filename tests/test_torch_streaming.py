@@ -13,6 +13,8 @@ Tolerance (f32): assignments equal; sums, centroids and inertia within
 order; sums and inertia relative to their magnitude); counts equal, and
 decayed counts within ``rtol=1e-5``.
 """
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -205,8 +207,13 @@ def test_construction_rules(monkeypatch):
     for bad in (0.0, -0.5, 1.5):
         with pytest.raises(ValueError, match="decay"):
             StreamingKMeans(cfg, decay=bad, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        StreamingKMeans(cfg, pctx=object(), device="cpu")
+    # the data-parallel stream is ported (tests/test_torch_parallel*.py);
+    # a context that splits the centroids is refused, as in the reference
+    with pytest.raises(ValueError, match="data-parallel"):
+        StreamingKMeans(cfg, pctx=SimpleNamespace(k_axis="model"),
+                        device="cpu")
+    data_only = SimpleNamespace(k_axis=None, device=torch.device("cpu"))
+    assert StreamingKMeans(cfg, pctx=data_only).device.type == "cpu"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         StreamingKMeans(cfg)                   # device=None means the card
