@@ -336,7 +336,7 @@ REL_ADDS, REL_ADD_ROWS = 24, 4096     # the durability run's adds
 REL_REFRESH, REL_SNAP = 8, 12         # refresh_every, snapshot_every
 REL_QPS_REQUESTS = 64                 # requests of IVF_B rows, +/- health
 CHAOS_SEEDS, CHAOS_UNITS, CHAOS_ADDS = (7, 8, 9), 64, 16
-UPDATE_BIT_REPS = 5   # runs of the regimes' update compared bit for bit
+UPDATE_BIT_REPS = 5   # runs of the regimes' update and FlashLloyd compared
 DET_SHAPE, DET_REPS = (65536, 8), 5   # a cluster spans 32 update chunks
 
 failures: list[str] = []
@@ -771,6 +771,17 @@ PAR_ADD_ROWS = 4096
 MOVED_MAX = 0.005
 PAR_TIMEOUT_S = 300    # a rank's collective that waits longer fails
 PAR_JOIN_S = 420       # a group of ranks that runs longer is killed
+# (a') and (d'): the sharded index's search axes (queue A item 6b, parts
+# 1-3), name -> IVFIndex keywords: the paged pool over K-shards, q8 with the
+# rescore cache sharded over cells (padded and paged), and the routed
+# sharded probe, which runs at phase 5b's routed cell, its first
+# PAR_ROUTED_B queries at each of PAR_ROUTED_NPROBE
+PAR_AXES = {"paged": dict(store="paged", page_size=PAGE),
+            "q8": dict(codec="q8", rescore="device"),
+            "q8_paged": dict(codec="q8", store="paged", page_size=PAGE,
+                             rescore="device"),
+            "routed": dict(router="two_level")}
+PAR_ROUTED_B, PAR_ROUTED_NPROBE = 64, (10, 32)
 
 
 def ivf_corpus(dev):
@@ -1034,13 +1045,8 @@ def _rank_ivf(rank, dev):
     del sh
     torch.cuda.empty_cache()
     # the exactness corpus (phase 6's): nprobe = K against search_brute
-    gen_x = torch.Generator(device=dev).manual_seed(SEED + 5)
-    ne, ke, de = EXACT
-    ce = torch.randn(ke, de, device=dev, generator=gen_x) * 5.0
-    xe = ce[torch.randint(0, ke, (ne,), device=dev, generator=gen_x)]
-    xe += 0.4 * torch.randn(ne, de, device=dev, generator=gen_x)
-    qe = ce[torch.randint(0, ke, (EXACT_B,), device=dev, generator=gen_x)]
-    qe += 0.4 * torch.randn(EXACT_B, de, device=dev, generator=gen_x)
+    _, xe, qe = exact_corpus(dev)
+    ke = EXACT[1]
     ex = IVFIndex.build(xe, k=ke, max_iters=8, seed=SEED, pctx=pctx)
     ids, dd = ex.search(qe, topk=TOPK, nprobe=ke)
     ids_b, dd_b = ex.search_brute(qe, topk=TOPK)
@@ -1080,6 +1086,213 @@ def near_ties(ids, ref_ids, x, q):
             "ok": gap <= tol}
 
 
+def routed_corpus(dev):
+    """Phase 5b's routed cell (seed SEED + 14): ``(gen, cent, xr, qr)``,
+    ``ROUTED[0]`` fine centroids around meta-centres (scale 8, unit noise),
+    each cell's ``ROUTED[2]`` rows its centroid plus 0.05 noise (row i at
+    centroid i % K), ``IVF_B`` queries; ``gen`` goes on."""
+    import torch
+    kr, n_meta, per_cell = ROUTED
+    dr, nr = 128, kr * per_cell
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    meta = torch.randn(n_meta, dr, device=dev, generator=gen) * 8.0
+    cent = meta[torch.randint(0, n_meta, (kr,), device=dev, generator=gen)]
+    cent += torch.randn(kr, dr, device=dev, generator=gen)
+    xr = cent.repeat(per_cell, 1)
+    xr += 0.05 * torch.randn(nr, dr, device=dev, generator=gen)
+    qr = xr[torch.randint(0, nr, (IVF_B,), device=dev, generator=gen)]
+    qr = qr + 0.05 * torch.randn(IVF_B, dr, device=dev, generator=gen)
+    return gen, cent, xr, qr
+
+
+def exact_corpus(dev):
+    """Phase 6's exactness corpus (seed SEED + 5): ``(centres, x, q)``."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    ne, ke, de = EXACT
+    ce = torch.randn(ke, de, device=dev, generator=gen) * 5.0
+    xe = ce[torch.randint(0, ke, (ne,), device=dev, generator=gen)]
+    xe += 0.4 * torch.randn(ne, de, device=dev, generator=gen)
+    qe = ce[torch.randint(0, ke, (EXACT_B,), device=dev, generator=gen)]
+    qe += 0.4 * torch.randn(EXACT_B, de, device=dev, generator=gen)
+    return ce, xe, qe
+
+
+def router_copy(router, dev):
+    """A fresh router with ``router``'s state (an index's router moves on
+    its refresh, so two indexes never share one)."""
+    from repro_torch.index.router import TwoLevelRouter
+    return TwoLevelRouter(router.coarse, router.owner,
+                          nprobe_c=router.nprobe_c, device=dev)
+
+
+def axes_case(dev, pctx, name, router=None):
+    """One index of ``PAR_AXES`` over ``pctx`` (None: one device), built from
+    its cell's centroids: the corpus added (the routed cell's in chunks of
+    ``ROUTED_CHUNK``), its searches, an add of ``PAR_ADD_ROWS`` rows and a
+    refresh, its searches again. The IVF cell searches its ``IVF_BATCHES``
+    batches at ``NPROBE``; the routed cell its first ``PAR_ROUTED_B``
+    queries at each of ``PAR_ROUTED_NPROBE``, with a copy of ``router``
+    (trained over the fine centroids when None). On q8 every search runs
+    again with the cache set aside (the ``rescore="host"`` oracle). Returns
+    the results on the host, the seconds of each search, the wire bytes of
+    the last search, the launch counts and the router it used."""
+    import torch
+    from repro_torch.index import IVFIndex
+    from repro_torch.index.router import TwoLevelRouter
+    from repro_torch.kernels import ops
+    zero, read = launch_counters()
+    kw = dict(PAR_AXES[name])
+    if name == "routed":
+        gen, cent, x, qr = routed_corpus(dev)
+        points = [(qr[:PAR_ROUTED_B], npb) for npb in PAR_ROUTED_NPROBE]
+        if router is None:
+            router = TwoLevelRouter.train(cent, max_iters=4)
+        kw["router"] = router_copy(router, dev)
+        cap, chunk = 8, ROUTED_CHUNK
+    else:
+        gen, cent, x, queries = ivf_corpus(dev)
+        points = [(qb, NPROBE) for qb in queries]
+        cap = int(torch.bincount(ops.flash_assign(x, cent)[0].long(),
+                                 minlength=cent.shape[0]).max())
+        chunk = x.shape[0]
+    k, d = cent.shape
+    x2 = cent[torch.randint(0, k, (PAR_ADD_ROWS,), device=dev, generator=gen)]
+    x2 += 0.4 * torch.randn(PAR_ADD_ROWS, d, device=dev, generator=gen)
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    idx = IVFIndex(cent, cap, pctx=pctx, **kw)
+    for lo in range(0, x.shape[0], chunk):
+        idx.add(x[lo:lo + chunk])
+    del x
+    out = {"results": [], "host": [], "batch_s": [], "router": router}
+
+    def searches():
+        for qb, npb in points:
+            if pctx is not None:
+                pctx.wire_bytes = dict.fromkeys(pctx.wire_bytes, 0)
+            res, sec = wall_s(lambda: idx.search(qb, topk=TOPK, nprobe=npb))
+            out["results"].append(tuple(t.cpu() for t in res))
+            out["batch_s"].append(sec)
+            if pctx is not None:
+                out["wire"] = dict(pctx.wire_bytes)
+            if idx.store.codec_kind != "fp32":
+                cache, idx.store.cache = idx.store.cache, None
+                try:
+                    out["host"].append(tuple(t.cpu() for t in idx.search(
+                        qb, topk=TOPK, nprobe=npb)))
+                finally:
+                    idx.store.cache = cache
+    idx.search(points[0][0], topk=TOPK, nprobe=points[0][1])   # warm-up
+    searches()
+    idx.add(x2)
+    idx.refresh()
+    searches()
+    torch.cuda.synchronize()
+    out["counts"] = read()
+    b, npb = points[0][0].shape[0], points[0][1]
+    out["modeled"] = idx.search_collective_bytes(b, TOPK, npb)
+    out["exchange"] = idx.row_exchange_bytes(b, TOPK, npb)
+    out["resident_bytes"] = idx.resident_bytes()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del idx
+    torch.cuda.empty_cache()
+    return out
+
+
+def axes_exact(dev, pctx, name):
+    """The index of ``PAR_AXES[name]`` over the exactness corpus, searched
+    at nprobe = K: ``(ids, dists)`` and ``search_brute``'s ids on the
+    host."""
+    import torch
+    from repro_torch.index import IVFIndex
+    from repro_torch.kernels import ops
+    ce, xe, qe = exact_corpus(dev)
+    cap = int(torch.bincount(ops.flash_assign(xe, ce)[0].long(),
+                             minlength=ce.shape[0]).max())
+    ex = IVFIndex(ce, cap, pctx=pctx, **PAR_AXES[name])
+    ex.add(xe)
+    ids, dd = ex.search(qe, topk=TOPK, nprobe=ce.shape[0])
+    ids_b, _ = ex.search_brute(qe, topk=TOPK)
+    ties = near_ties(ids, ids_b, xe, qe)
+    del ex, xe
+    torch.cuda.empty_cache()
+    return ids.cpu(), dd.cpu(), ids_b.cpu(), ties
+
+
+def same_bits(u, v):
+    """Tensors, or nested sequences of them, equal bit for bit."""
+    import torch
+    if torch.is_tensor(u):
+        return torch.equal(u, v)
+    return len(u) == len(v) and all(map(same_bits, u, v))
+
+
+def axes_kernels(name):
+    """The kernels an index of ``PAR_AXES`` must launch beside the probe:
+    the fp32 store scan, or the q8 store scan, the rescore and the cache
+    insert."""
+    if PAR_AXES[name].get("codec") == "q8":
+        return ("flash_probe_store_q8", "rescore_cache_insert")
+    return ("flash_probe_store",)
+
+
+def ran_axes(tag, name, counts):
+    """Checks that an index of ``PAR_AXES`` launched the probe (tile or list
+    mode), the scan of its codec, and on q8 the rescore (warp or list mode)
+    and the cache insert."""
+    probe = counts["flash_probe_tile"] + counts["flash_probe"]
+    rescore = counts["flash_probe_grouped_warp"] + counts["flash_probe_grouped"]
+    q8 = PAR_AXES[name].get("codec") == "q8"
+    check(probe > 0 and (rescore > 0 or not q8)
+          and all(counts[kn] > 0 for kn in axes_kernels(name)),
+          f"parallel {tag} {name}: the probe, {', '.join(axes_kernels(name))}"
+          f"{' and the rescore' if q8 else ''} launched ({counts})")
+
+
+def axes_compare(got, want, rtol=0.0):
+    """Per search of two ``axes_case`` results: ``(ids equal, ids that
+    differ, max distance error, distances equal (rtol 0: bit for bit, else
+    within rtol))``."""
+    import torch
+    out = []
+    for (i_s, d_s), (i_1, d_1) in zip(got, want):
+        out.append((torch.equal(i_s, i_1), int((i_s != i_1).sum()),
+                    float((d_s - d_1).abs().max()),
+                    torch.equal(d_s, d_1) if rtol == 0.0 else
+                    bool(torch.allclose(d_s, d_1, rtol=rtol, atol=1e-4))))
+    return out
+
+
+def _rank_axes(rank, dev):
+    """Case (d') on one of four ranks sharing the card, mesh 2x2: each index
+    of ``PAR_AXES``, and on rank 0 its single-rank twin; then the indexes
+    over the exactness corpus at full probe."""
+    import torch
+    from repro_torch.core.parallel import ParallelContext, build_mesh
+    pctx = ParallelContext.for_mesh(build_mesh((2, 2), ("data", "model"),
+                                               backend="gloo"))
+    out, router = {}, None
+    for name in PAR_AXES:
+        res = axes_case(dev, pctx, name, router)
+        router = res.pop("router")
+        if rank == 0:
+            one = axes_case(dev, None, name, router)
+            res["vs_single"] = axes_compare(res["results"], one["results"],
+                                            rtol=1e-5)
+            del one
+        out[name] = res
+    for name in PAR_AXES:
+        ids, dd, ids_b, ties = axes_exact(dev, pctx, name)
+        out[f"exact/{name}"] = {"results": [(ids, dd)], "ties": ties}
+        if rank == 0 and PAR_AXES[name].get("codec") == "q8":
+            one = axes_exact(dev, None, name)
+            out[f"exact/{name}"]["vs_single"] = axes_compare(
+                [(ids, dd)], [one[:2]], rtol=1e-5)
+    torch.cuda.synchronize()
+    return out
+
+
 def parallel_rank(rank, world, init_file, case, out_dir):
     """One rank of phase 12, in a spawned process on the card: a gloo world
     of ``world`` ranks (the ranks share one card), then ``case``, its
@@ -1096,7 +1309,8 @@ def parallel_rank(rank, world, init_file, case, out_dir):
         "gloo", init_method=f"file://{init_file}", rank=rank,
         world_size=world, timeout=datetime.timedelta(seconds=PAR_TIMEOUT_S))
     try:
-        res = {"fits": _rank_fits, "ivf": _rank_ivf}[case](rank, dev)
+        res = {"fits": _rank_fits, "ivf": _rank_ivf,
+               "axes": _rank_axes}[case](rank, dev)
     finally:
         dist.destroy_process_group()
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -1215,18 +1429,18 @@ def parallel_phase(dev, smi, zero_counts, read_counts, details):
                  "inertia": float(st.inertia)}
         del x, c0, st, c1, ids1, ids1_k, r, rk
         torch.cuda.empty_cache()
-        # FlashLloyd adds its clusters' sums to memory with atomics: the
-        # same step run again need not give the same bits
+        # FlashLloyd's statistics are the same bits from run to run
         xf, cf = fit_corpus(dev, (65536, 256, 128), SEED + 14, 2.0, 1.0)
         first = ops.flash_lloyd_step(xf, cf)
         same_runs = sum(all(torch.equal(u, v) for u, v in zip(
             first, ops.flash_lloyd_step(xf, cf))) for _ in range(4))
-        print(f"  FlashLloyd at N 65,536, K 256: {same_runs} of 4 reruns "
-              f"equal the first bit for bit", flush=True)
+        check(same_runs == 4, f"parallel (a) FlashLloyd at N 65,536, K 256: "
+                              f"{same_runs} of 4 reruns equal the first bit "
+                              f"for bit")
         rec["a"]["flash_lloyd_bit_reruns"] = same_runs
         del xf, cf, first
-        # the streaming phase's stream through one device and the mesh: bit
-        # for bit on the two-pass step; with auto's fused batches recorded
+        # the streaming phase's stream through one device and the mesh, bit
+        # for bit on the two-pass steps and on auto's (FlashLloyd) steps
         for impl in ("two_pass", "auto"):
             sizes, _, _, drifting = drifting_stream(dev, 128)
             cfg_s = KMeansConfig(k=STREAM_K, step_impl=impl)
@@ -1247,29 +1461,47 @@ def parallel_phase(dev, smi, zero_counts, read_counts, details):
             err = float((one.centroids - sp.centroids).abs().max())
             rec["a"][f"stream_{impl}"] = {"bit_equal": same, "err": err,
                                           "counts": counts_s}
-            if impl == "two_pass":
-                check(same, f"parallel (a) StreamingKMeans(pctx=) over phase "
-                            f"8's {len(sizes)} batches (two-pass steps): "
-                            f"centroids and statistics equal the "
-                            f"single-device stream's bit for bit")
-            else:
-                # FlashLloyd's atomics need not repeat their bits: the fp32
-                # tolerance, sums as means (within 1e-5 a row of weight)
-                (s1, n1, j1), (s2, n2, j2) = one.stats, sp.stats
-                close = (bool(torch.allclose(one.centroids, sp.centroids,
-                                             rtol=1e-5, atol=1e-5))
-                         and bool(((s1 - s2).abs() <= 1e-5 * (
-                             s2.abs() + n2.unsqueeze(1))).all())
-                         and bool(torch.allclose(n1, n2, rtol=1e-5, atol=0))
-                         and bool(torch.allclose(j1, j2, rtol=1e-5, atol=0)))
-                check(close and counts_s["flash_lloyd"] > 0,
-                      f"parallel (a) StreamingKMeans(pctx=) with auto's steps "
-                      f"({counts_s['flash_lloyd']} FlashLloyd launches): "
-                      f"centroids within rtol=atol=1e-5 of the single-device "
-                      f"stream's (max err {err:.3g}; bit for bit {same}), "
-                      f"sums within 1e-5 (|sum| + count), counts and inertia "
-                      f"within rtol 1e-5")
+            check(same and (impl == "two_pass"
+                            or counts_s["flash_lloyd"] > 0),
+                  f"parallel (a) StreamingKMeans(pctx=) over phase 8's "
+                  f"{len(sizes)} batches ({impl} steps, "
+                  f"{counts_s['flash_lloyd']} FlashLloyd launches): "
+                  f"centroids and statistics equal the single-device "
+                  f"stream's bit for bit (max err {err:.3g})")
             del one, sp
+        # (a') the sharded index's search axes on one rank with an explicit
+        # cells axis: bit for bit the single-device index
+        rec["a_axes"], router = {}, None
+        for name in PAR_AXES:
+            sh = axes_case(dev, pk, name, router)
+            router = sh.pop("router")
+            one = axes_case(dev, None, name, router)
+            cmp = axes_compare(sh["results"], one["results"])
+            runs.append(sh["counts"])
+            check(all(eq and dok for eq, _, _, dok in cmp),
+                  f"parallel (a') {name} k_axis=model 1x1: ids and distances "
+                  f"of {len(cmp)} searches (before and after an add of "
+                  f"{PAR_ADD_ROWS} rows and a refresh) equal the "
+                  f"single-device index's bit for bit "
+                  f"({sum(nd for _, nd, _, _ in cmp)} ids differ, max "
+                  f"distance error {max(e for _, _, e, _ in cmp):.3g})")
+            if sh["host"]:
+                check(same_bits(sh["results"], sh["host"]),
+                      f"parallel (a') {name}: the device cache's searches "
+                      f"equal the rescore='host' oracle's bit for bit")
+            ran_axes("(a')", name, sh["counts"])
+            ms = [1e3 * t for t in sh["batch_s"]]
+            ms1 = [1e3 * t for t in one["batch_s"]]
+            print(f"  (a') {name}: {min(ms):.2f}-{max(ms):.2f} ms a search "
+                  f"(one device {min(ms1):.2f}-{max(ms1):.2f}); peak "
+                  f"{sh['peak_gib']:.2f} GiB", flush=True)
+            rec["a_axes"][name] = {"vs_single": cmp, "batch_ms": ms,
+                                   "single_batch_ms": ms1,
+                                   "peak_gib": sh["peak_gib"],
+                                   "counts": sh["counts"]}
+            del sh, one
+        del router
+        torch.cuda.empty_cache()
     finally:
         par.release_world()
     out = serve.main(["--mode", "search", "--mesh", "1x1"])
@@ -1395,11 +1627,6 @@ def parallel_phase(dev, smi, zero_counts, read_counts, details):
     rec["ivf_s"] = secs
     if ranks_ok("(d)", codes, secs):
         r0 = res[0]
-
-        def same_bits(u, v):
-            if torch.is_tensor(u):
-                return torch.equal(u, v)
-            return len(u) == len(v) and all(map(same_bits, u, v))
         for rank, rr in enumerate(res[1:], 1):
             check(all(same_bits(rr[kk], r0[kk]) for kk in (
                 "results", "exact_results", "build_results")),
@@ -1441,6 +1668,71 @@ def parallel_phase(dev, smi, zero_counts, read_counts, details):
               f"{max(rr['peak_gib'] for rr in res):.2f} GiB", flush=True)
         rec["d"] = [{kk: v for kk, v in rr.items() if not kk.endswith(
             "results")} for rr in res]
+    # (d'): the sharded index's search axes, four ranks sharing the card
+    print(f"\n[parallel] (d') four ranks sharing the card (gloo), mesh 2x2: "
+          f"{', '.join(PAR_AXES)} (the IVF cell's {IVF_BATCHES} batches of "
+          f"{IVF_B} at nprobe {NPROBE}; the routed cell K={ROUTED[0]}, "
+          f"N={ROUTED[0] * ROUTED[2]} at B {PAR_ROUTED_B}, nprobe "
+          f"{PAR_ROUTED_NPROBE})", flush=True)
+    res, codes, secs = spawn_ranks("axes", 4)
+    rec["axes_s"] = secs
+    if ranks_ok("(d')", codes, secs):
+        r0 = res[0]
+        for rank, rr in enumerate(res[1:], 1):
+            check(all(same_bits(rr[kk]["results"], r0[kk]["results"])
+                      and same_bits(rr[kk].get("host", []),
+                                    r0[kk].get("host", []))
+                      for kk in r0 if isinstance(r0[kk], dict)),
+                  f"parallel (d') rank {rank}: every index's searches (and "
+                  f"the q8 host oracle's, and at full probe) equal rank 0's "
+                  f"bit for bit")
+        rec["d_axes"] = {}
+        for name in PAR_AXES:
+            a, ex = r0[name], r0[f"exact/{name}"]
+            cmp = a["vs_single"]
+            check(all(eq and dok for eq, _, _, dok in cmp),
+                  f"parallel (d') {name}: ids of {len(cmp)} searches (before "
+                  f"and after an add and a refresh) equal the single-rank "
+                  f"index's bit for bit ({sum(nd for _, nd, _, _ in cmp)} "
+                  f"differ), distances within rtol 1e-5 (max err "
+                  f"{max(e for _, _, e, _ in cmp):.3g})")
+            if a["host"]:
+                check(same_bits(a["results"], a["host"]),
+                      f"parallel (d') {name}: the device cache's searches "
+                      f"equal the rescore='host' oracle's bit for bit")
+            if "vs_single" in ex:   # q8's proposals are approximate
+                eq, nd, err, dok = ex["vs_single"][0]
+                check(eq and dok, f"parallel (d') {name} exactness corpus "
+                                  f"{EXACT}: nprobe=K ids equal the "
+                                  f"single-rank index's ({nd} differ, max "
+                                  f"distance error {err:.3g})")
+            else:
+                t = ex["ties"]
+                check(t["ok"], f"parallel (d') {name} exactness corpus "
+                               f"{EXACT}: nprobe=K equals search_brute "
+                               f"({t['mismatches']} ids differ, gap "
+                               f"{t['tie_gap']:.3g} <= {t['tol']:.3g})")
+            for rank, rr in enumerate(res):
+                ran_axes(f"(d') rank {rank}", name, rr[name]["counts"])
+                runs.append(rr[name]["counts"])
+            ms = [1e3 * t for t in a["batch_s"]]
+            wire = a.get("wire", {})
+            print(f"  (d') {name}: {min(ms):.2f}-{max(ms):.2f} ms a search "
+                  f"(4 ranks time-slicing one card, {smi}); cross-rank bytes "
+                  f"a search on rank 0: {a['modeled']} modeled (the two "
+                  f"merges), measured {wire.get('all_gather', 0)} gathered "
+                  f"+ {wire.get('all_reduce', 0)} all-reduced (the q8 row "
+                  f"exchange alone: {a['exchange']} modeled); peaks "
+                  f"{[round(rr[name]['peak_gib'], 2) for rr in res]} GiB",
+                  flush=True)
+            rec["d_axes"][name] = {
+                "vs_single": cmp, "batch_ms": ms, "modeled_bytes":
+                a["modeled"], "exchange_bytes": a["exchange"], "wire": wire,
+                "peak_gib": [rr[name]["peak_gib"] for rr in res],
+                "resident_bytes": [rr[name]["resident_bytes"] for rr in res],
+                "counts": [rr[name]["counts"] for rr in res],
+                "exact": {kk: v for kk, v in ex.items() if kk != "results"}}
+        rec["axes_peak_gib"] = [rr["peak_gib"] for rr in res]
     rec["seconds"] = time.perf_counter() - t_phase
     print(f"  [parallel] {rec['seconds']:.1f} s", flush=True)
     return runs
@@ -2979,6 +3271,20 @@ def main() -> int:
                   f"beyond it: {rec['values_per_s'] or 0:.4g} values/s, "
                   f"{rec['tile_values_per_s'] or 0:.4g} values x tiles/s",
                   flush=True)
+            # the fused step's statistics are the same bits from run to run
+            # (the adders' lists and the clusters' fold in a fixed order)
+            first = [t.clone() for t in fl.flash_lloyd_raw(xb, cb,
+                                                            cluster=cl)]
+            rec["bitwise_runs"] = 1 + sum(
+                all(torch.equal(u, v) for u, v in zip(
+                    fl.flash_lloyd_raw(xb, cb, cluster=cl), first))
+                for _ in range(UPDATE_BIT_REPS - 1))
+            rec["bitwise_reps"] = UPDATE_BIT_REPS
+            check(rec["bitwise_runs"] == UPDATE_BIT_REPS,
+                  f"{tag}: FlashLloyd (C={rec['cluster']}) gives the same "
+                  f"ids, sums, counts and inertia bit for bit in "
+                  f"{rec['bitwise_runs']} of {UPDATE_BIT_REPS} runs")
+            del first
             timing[tag] = rec
             return rec
 
@@ -4056,15 +4362,7 @@ def main() -> int:
     # gap is routing's alone; a seed of its own
     kr, n_meta, per_cell = ROUTED
     dr, nr = 128, ROUTED[0] * ROUTED[2]
-    gen_r = torch.Generator(device=dev).manual_seed(SEED + 14)
-    meta = torch.randn(n_meta, dr, device=dev, generator=gen_r) * 8.0
-    cent = meta[torch.randint(0, n_meta, (kr,), device=dev, generator=gen_r)]
-    cent += torch.randn(kr, dr, device=dev, generator=gen_r)
-    xr = cent.repeat(per_cell, 1)           # row i lies at centroid i % K
-    xr += 0.05 * torch.randn(nr, dr, device=dev, generator=gen_r)
-    qr = xr[torch.randint(0, nr, (IVF_B,), device=dev, generator=gen_r)]
-    qr = qr + 0.05 * torch.randn(IVF_B, dr, device=dev, generator=gen_r)
-    del meta
+    _, cent, xr, qr = routed_corpus(dev)
     rec_r = details["routed"]
     rec_r.update(K=kr, meta_centres=n_meta, N=nr, d=dr, B=IVF_B, topk=TOPK,
                  chunk=ROUTED_CHUNK, cells=[])

@@ -227,6 +227,10 @@ class ParallelContext:
         if k_axis in self.data_axes:
             raise ValueError(f"k_axis={k_axis!r} overlaps data_axes")
         self.k_axis = k_axis
+        # payload bytes of this rank's collectives over axes of more than one
+        # rank: an all-gather's result, an all-reduce's tensor (callers zero
+        # and read it around a program)
+        self.wire_bytes = {"all_gather": 0, "all_reduce": 0}
 
     @classmethod
     def for_mesh(cls, mesh, rules: dict | None = None) -> "ParallelContext":
@@ -373,6 +377,7 @@ class ParallelContext:
         t = t.contiguous()
         out = [torch.empty_like(t) for _ in range(p)]
         dist.all_gather(out, t, group=self.mesh.get_group(axis))
+        self.wire_bytes["all_gather"] += p * t.numel() * t.element_size()
         return torch.stack(out)
 
     def psum(self, t: torch.Tensor, axes: Sequence[str] | None = None
@@ -387,6 +392,7 @@ class ParallelContext:
         for a in live:
             dist.all_reduce(out, op=dist.ReduceOp.SUM,
                             group=self.mesh.get_group(a))
+            self.wire_bytes["all_reduce"] += out.numel() * out.element_size()
         return out.reshape(()) if t.ndim == 0 else out
 
     def psum_stats(self, stats: SufficientStats,

@@ -41,25 +41,38 @@
 //   memory (red.shared::cluster) to a generic atom that waits for its reply
 //   (cuobjdump -sass), so N d of them would cost more than the argmin. The adders
 //   run beside the next round's argmin.
+// - The order of every addition is a fixed function of the inputs, so the
+//   statistics are the same bits from run to run. Each listing warp (warp 0
+//   lists rows 0-31 and 96-127 of the published tiles, warps 1 and 2 32 rows
+//   each) writes its entries into a segment of its own of each bucket's list,
+//   placed by its own prefix count (a ballot, no atomic), and the owner warp
+//   walks segments 0, 1, 2 in order. A bucket's list of C kBM entries holds the
+//   three segments (C 64, C 32 and C 32 entries); the three counts of a
+//   listing warp are packed into one int (10 bits each: at most 64 C <= 512).
 // - The grid is persistent (the clusters the card keeps resident, shared by the B
 //   problems); every CTA of a cluster runs the same number of rounds, publishing
 //   an empty tile where it has none left. The slices are zeroed and the cluster
 //   synchronised before the first round; after the last the cluster synchronises
-//   again and each CTA flushes its slice (non-zero values only) into the global
-//   sums and counts with one atomicAdd each, so the flush is (K d + K) values per
-//   cluster, and writes its inertia partial to inertia_part[b, blockIdx.x] (the
-//   wrapper sums the partials).
+//   again and each CTA writes its slice (all ks rows, zeros too) with plain
+//   stores: straight into sums and counts where the problem has one cluster,
+//   else into its cluster's rows of a scratch buffer (B, clusters, K dp + K),
+//   which a second kernel (flash_lloyd_fold) adds in cluster order. No atomic
+//   touches the sums, so the flush costs one write and one read of the
+//   scratch, (K d + K) values per cluster. Each CTA writes its inertia partial
+//   to inertia_part[b, blockIdx.x] (the wrapper sums the partials).
 //
 // Layout: x (B, N, dp), c (B, K, dp) row-major, dp a multiple of 4 (f32) or 8
 // (bf16) (the wrapper zero-pads d); a (B, N) int32; sums (B, K, dp), counts (B, K),
-// inertia_part (B, grid_x) float32, sums and counts zeroed by the caller. Grid
+// inertia_part (B, grid_x) float32, and with grid_x / C > 1 the scratch part
+// (B, grid_x / C, K dp + K) float32, none of them zeroed. Grid
 // (grid_x, B), grid_x a multiple of C, clusters of (C, 1, 1), 384 threads (a
 // 416-thread CTA would put 4 warps on one SM sub-partition and cap them at 128
 // registers), dynamic shared memory smem_bytes().
 //
-// Measured (chip_smoke.py, H100 80GB HBM3 at 700 W; PERF.md): N = 65,536, K = 256,
-// d = 128 in 0.078 ms f32 (C = 2; bound 0.026 ms, FlashAssign 0.048 ms) and
-// 0.054 ms bf16.
+// Measured (tools/lloyd_turns.py, H100 80GB HBM3 at 700 W; PERF.md): N = 65,536,
+// K = 256, d = 128 in 0.084 ms f32 (C = 2, the fold 0.006 ms of it; bound 0.026 ms,
+// FlashAssign 0.048 ms) and 0.059 ms bf16.
+#include <algorithm>
 #include <type_traits>
 
 #include "tc_argmin.cuh"
@@ -79,9 +92,9 @@ constexpr int kBatch = 8;                      // rows an adder warp loads at on
 
 // Shared memory past the ring (which starts at a 1024-byte aligned base): the
 // ready and free mbarriers of the published slots, the slots (a tile's ids), the
-// tile's row norms, the adder warps' list lengths and the consumer warps'
-// inertia, then one owned-row list per adder warp (C kBM codes each) and the
-// CTA's slice of ks rows of sums and counts.
+// tile's row norms, the listing warps' packed segment counts and the consumer
+// warps' inertia, then one owned-row list per adder warp (C kBM codes each, in
+// three segments) and the CTA's slice of ks rows of sums and counts.
 constexpr int kBars = 2 * kSlots * 8;
 constexpr int kPub = kSlots * kBM * 4;
 constexpr int kRowSq = kBM * 4;
@@ -132,8 +145,8 @@ __global__ void __launch_bounds__(kThreadsL, 1)
                    const __grid_constant__ CUtensorMap tc_lo, const void* __restrict__ xv,
                    const float* __restrict__ csq, int* __restrict__ a,
                    float* __restrict__ sums, float* __restrict__ cnt,
-                   float* __restrict__ inertia_part, int N, int K, int Kp, int dp, int ks,
-                   int cluster) {
+                   float* __restrict__ part, float* __restrict__ inertia_part, int N,
+                   int K, int Kp, int dp, int ks, int cluster) {
   using C = Ring<kF32>;
   using T = typename std::conditional<kF32, float, __nv_bfloat16>::type;
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -144,7 +157,7 @@ __global__ void __launch_bounds__(kThreadsL, 1)
   const uint32_t bars = smem_u32(tail);  // ready[s] at 8 s, free[s] at 8 (kSlots + s)
   int* const pub = reinterpret_cast<int*>(tail + kBars);  // [slot][kBM] ids
   float* const row_sq = reinterpret_cast<float*>(tail + kBars + kPub);
-  int* const list_n = reinterpret_cast<int*>(tail + kBars + kPub + kRowSq);
+  int* const list_n = reinterpret_cast<int*>(tail + kBars + kPub + kRowSq);  // packed
   float* const s_red = reinterpret_cast<float*>(list_n + 4);  // consumer warps
   int* const lists = reinterpret_cast<int*>(tail + kBars + kPub + kRowSq + kMisc);
   const int cap = cluster * kBM;  // entries of one adder warp's list
@@ -227,14 +240,17 @@ __global__ void __launch_bounds__(kThreadsL, 1)
     const int at = tid - kThreads;  // 0 .. kAdders - 1
     const int w = at >> 5;
     const int nv4 = dp >> 2;  // 4-value vectors of a row
+    const unsigned below = (1u << lane) - 1u;
+    // this warp's segment of each bucket's list: warp 0 lists 64 rows a round,
+    // warps 1 and 2 32 rows each (C entries a row)
+    const int my_seg = w == 0 ? 0 : cluster * 32 * (w + 1);
     int* const mine_list = lists + w * cap;
     for (int i = 0; i < rounds; ++i) {
       const int s = i % kSlots;
       const int tile0 = blockIdx.x - (int)rank + i * gridDim.x;  // rank 0's tile
       mbar_wait_cluster(ready(s), (i / kSlots) & 1);
       bar_sync(4, kAdders);  // the previous round's lists have been read
-      if (at < kAdderWarps) list_n[at] = 0;
-      bar_sync(4, kAdders);
+      int seg_n[kAdderWarps] = {0, 0, 0};  // uniform in the warp
       for (int row = at; row < kBM; row += kAdders) {  // uniform in a warp
         int id[8];
 #pragma unroll
@@ -246,23 +262,32 @@ __global__ void __launch_bounds__(kThreadsL, 1)
           const int lk = id[j] - (int)rank * ks;
           const bool mine = id[j] >= 0 && lk >= 0 && lk < ks;
           const int bucket = mine ? lk % kAdderWarps : -1;
-          const unsigned grp = __match_any_sync(0xffffffffu, bucket);
-          const int leader = __ffs(grp) - 1;
-          int pos = 0;
-          if (mine && lane == leader) pos = atomicAdd(&list_n[bucket], __popc(grp));
-          pos = __shfl_sync(0xffffffffu, pos, leader) + __popc(grp & ((1u << lane) - 1u));
-          if (mine) lists[bucket * cap + pos] = (lk << 10) | (j << 7) | row;
+#pragma unroll
+          for (int bk = 0; bk < kAdderWarps; ++bk) {
+            const unsigned grp = __ballot_sync(0xffffffffu, bucket == bk);
+            if (bucket == bk)
+              lists[bk * cap + my_seg + seg_n[bk] + __popc(grp & below)] =
+                  (lk << 10) | (j << 7) | row;
+            seg_n[bk] += __popc(grp);
+          }
         }
       }
+      if (lane == 0) list_n[w] = seg_n[0] | (seg_n[1] << 10) | (seg_n[2] << 20);
       bar_sync(4, kAdders);  // every published id read, every entry listed
       if (at == 0)
         for (int j = 0; j < cluster; ++j) mbar_arrive_cluster(map_rank(freed(s), j));
-      const int nl = list_n[w];
+      // this bucket's three segments, in listing-warp order
+      const int n0 = (list_n[0] >> (10 * w)) & 1023;
+      const int n01 = n0 + ((list_n[1] >> (10 * w)) & 1023);
+      const int nl = n01 + ((list_n[2] >> (10 * w)) & 1023);
       for (int e0 = 0; e0 < nl; e0 += kBatch) {
         int lk[kBatch], n[kBatch];
 #pragma unroll
         for (int u = 0; u < kBatch; ++u) {
-          const int code = e0 + u < nl ? mine_list[e0 + u] : 0;
+          const int e = e0 + u;
+          const int at_e =
+              e < n0 ? e : (e < n01 ? cluster * 64 + e - n0 : cluster * 96 + e - n01);
+          const int code = e < nl ? mine_list[at_e] : 0;
           lk[u] = code >> 10;
           n[u] = (tile0 + ((code >> 7) & 7)) * kBM + (code & 127);
         }
@@ -303,15 +328,38 @@ __global__ void __launch_bounds__(kThreadsL, 1)
   const int k0 = (int)rank * ks;
   const int rows = min(ks, K - k0);
   if (rows <= 0) return;
-  float* gs = sums + ((long long)b * K + k0) * dp;
-  float* gc = cnt + (long long)b * K + k0;
-  for (int i = tid; i < rows * dp; i += kThreadsL) {
-    const float v = s_sums[i];
-    if (v != 0.f) atomicAdd(&gs[i], v);
+  // plain stores: into sums and counts where this problem has one cluster,
+  // else into this cluster's rows of the scratch, folded in cluster order
+  float *gs, *gc;
+  if (part == nullptr) {
+    gs = sums + ((long long)b * K + k0) * dp;
+    gc = cnt + (long long)b * K + k0;
+  } else {
+    const int ncl = gridDim.x / cluster;
+    float* p = part + ((long long)b * ncl + blockIdx.x / cluster) * ((long long)K * (dp + 1));
+    gs = p + (long long)k0 * dp;
+    gc = p + (long long)K * dp + k0;
   }
-  for (int i = tid; i < rows; i += kThreadsL) {
-    const float v = s_cnt[i];
-    if (v != 0.f) atomicAdd(&gc[i], v);
+  for (int i = tid; i < rows * dp; i += kThreadsL) gs[i] = s_sums[i];
+  for (int i = tid; i < rows; i += kThreadsL) gc[i] = s_cnt[i];
+}
+
+// The fold: value i of problem b (the K dp sums, then the K counts) is the sum of
+// the ncl clusters' partials taken in cluster order, written with a plain store.
+// The loads do not depend on the sum, so they are in flight together.
+__global__ void flash_lloyd_fold(const float* __restrict__ part, float* __restrict__ sums,
+                                 float* __restrict__ cnt, int K, int dp, int ncl) {
+  const int b = blockIdx.y;
+  const long long kd = (long long)K * dp;
+  const long long V = kd + K;
+  const float* p = part + (long long)b * ncl * V;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < V;
+       i += (long long)gridDim.x * blockDim.x) {
+    float v = p[i];
+#pragma unroll 4
+    for (int c = 1; c < ncl; ++c) v += p[c * V + i];
+    if (i < kd) sums[(long long)b * kd + i] = v;
+    else cnt[(long long)b * K + (i - kd)] = v;
   }
 }
 
@@ -341,16 +389,23 @@ inline cudaLaunchConfig_t config(dim3 grid, size_t smem, int cluster, cudaStream
 
 template <bool kF32>
 cudaError_t launch(const Operands& o, const void* x, const float* csq, int* a,
-                   float* sums, float* cnt, float* part, int B, int N, int K, int dp,
-                   int cluster, int grid_x, cudaStream_t s) {
+                   float* sums, float* cnt, float* part, float* inertia, int B, int N,
+                   int K, int dp, int cluster, int grid_x, cudaStream_t s) {
   const int ks = (K + cluster - 1) / cluster;
   const size_t smem = smem_bytes(kF32, dp, ks, cluster);
   cudaError_t e = set_smem<kF32>(smem);
   if (e != cudaSuccess) return e;
+  const int ncl = grid_x / cluster;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = config(dim3(grid_x, B, 1), smem, cluster, s, attr);
-  return cudaLaunchKernelEx(&cfg, flash_lloyd_tc<kF32>, o.tx, o.thi, o.tlo, x, csq, a,
-                            sums, cnt, part, N, K, o.Kp, dp, ks, cluster);
+  e = cudaLaunchKernelEx(&cfg, flash_lloyd_tc<kF32>, o.tx, o.thi, o.tlo, x, csq, a, sums,
+                         cnt, ncl > 1 ? part : (float*)nullptr, inertia, N, K, o.Kp, dp,
+                         ks, cluster);
+  if (e != cudaSuccess || ncl == 1) return e;
+  const long long V = (long long)K * (dp + 1);
+  const int blocks = (int)std::min<long long>((V + 255) / 256, 1024);
+  flash_lloyd_fold<<<dim3(blocks, B, 1), 256, 0, s>>>(part, sums, cnt, K, dp, ncl);
+  return cudaGetLastError();
 }
 
 }  // namespace fl
@@ -358,12 +413,13 @@ cudaError_t launch(const Operands& o, const void* x, const float* csq, int* a,
 
 // x (B, N, dp), c (B, K, dp); csq (B, Kp) (Kp = K rounded up to 128) and, for
 // f32, csplit (2, B, K, dp) are scratch; a (B, N) int32, sums (B, K, dp), counts
-// (B, K) (both zeroed) and inertia_part (B, grid_x) out. cluster in {1, 2, 4, 8},
-// grid_x a multiple of it; N >= 1, K < 2^21.
+// (B, K) and inertia_part (B, grid_x) out (none zeroed); part (B, grid_x / cluster,
+// K dp + K) scratch, read only where grid_x / cluster > 1. cluster in {1, 2, 4,
+// 8}, grid_x a multiple of it; N >= 1, K < 2^21.
 extern "C" int fk_flash_lloyd(const void* x, const void* c, void* csq, void* csplit,
-                              void* a, void* sums, void* cnt, void* inertia_part, int B,
-                              int N, int K, int dp, int cluster, int grid_x, int is_bf16,
-                              void* stream) {
+                              void* a, void* sums, void* cnt, void* part,
+                              void* inertia_part, int B, int N, int K, int dp, int cluster,
+                              int grid_x, int is_bf16, void* stream) {
   using namespace fk::fl;
   cudaStream_t s = (cudaStream_t)stream;
   const bool f32 = !is_bf16;
@@ -374,9 +430,9 @@ extern "C" int fk_flash_lloyd(const void* x, const void* c, void* csq, void* csp
   cudaError_t e = prepare(o, x, c, csq, csplit, B, N, K, dp, f32, s);
   if (e != cudaSuccess) return (int)e;
   const float* cq = (const float*)csq;
-  e = f32 ? launch<true>(o, x, cq, (int*)a, (float*)sums, (float*)cnt,
+  e = f32 ? launch<true>(o, x, cq, (int*)a, (float*)sums, (float*)cnt, (float*)part,
                          (float*)inertia_part, B, N, K, dp, cluster, grid_x, s)
-          : launch<false>(o, x, cq, (int*)a, (float*)sums, (float*)cnt,
+          : launch<false>(o, x, cq, (int*)a, (float*)sums, (float*)cnt, (float*)part,
                           (float*)inertia_part, B, N, K, dp, cluster, grid_x, s);
   return (int)e;
 }

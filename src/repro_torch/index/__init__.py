@@ -21,10 +21,12 @@ Public API:
   format (``repro_torch.reliability``), through ``restore_store``,
   ``infer_store_meta`` and ``restore_router``.
 
-``IVFIndex(pctx=)`` / ``build(pctx=)`` shard the padded fp32 flat index over
-a ``core.parallel.ParallelContext`` mesh. Not ported yet (ROADMAP.md, queue
-A item 6b): the sharded index's other axes (paged, q8 with the sharded
-cache, two-level) and its reliability.
+``IVFIndex(pctx=)`` / ``build(pctx=)`` shard the index over a
+``core.parallel.ParallelContext`` mesh, on every search axis: both stores
+(the paged pool over K-shards), both codecs (q8 with the rescore cache
+sharded over cells) and both routers (the routed sharded probe). Not ported
+yet (ROADMAP.md, queue A item 6b): the sharded index's reliability (faults,
+guarded refresh, health, snapshots and restore over a mesh).
 """
 from repro_torch.index.bridge import (index_from_numpy, index_to_numpy,
                                       router_from_numpy)

@@ -46,29 +46,41 @@ snapshots in the reference's format (``reliability/snapshot.py``), and
 
 **Sharded FlashIVF** (``pctx``, a ``core.parallel.ParallelContext``): the
 cells are split over the mesh's cells axis, each rank owning ``K / P_k``
-centroids, their posting lists (the padded store's owned rows) and their
-running statistics; the host bookkeeping (counts, capacity, ids) stays
-global on every rank. A search runs, on every rank, on its slice of the
-queries (split over the data axes, a ragged batch padded):
+centroids, their posting lists (the owned rows of a padded store, or the
+owned shard's pages of a paged one; on a q8 store also their anchors and
+the rescore cache's slice of their ids) and their running statistics; the
+host bookkeeping (counts, capacity, page tables, ids, the host reservoir)
+stays global on every rank. A search runs, on every rank, on its slice of
+the queries (split over the data axes, a ragged batch padded):
 
-  FlashProbe over the owned centroids  ->  cross-rank top-``nprobe`` merge
-  (O(b L) bytes)  ->  the store scan of the owned probed cells, read in
+  cell selection  ->  the store scan of the owned probed cells, read in
   place  ->  cross-rank top-k merge (O(b topk) bytes), ties broken by the
   global probe order, as on one device.
 
-The posting lists' rows never cross ranks. ``build`` trains through the
-context (the data- and cell-sharded Lloyd loop), ``add`` assigns by the
-two-stage argmin and sums the owned statistics over the data axes.
-``counts``, ``posting_lists``, ``search_brute`` and ``len`` answer the
-whole index on every rank (the middle two gather, a collective);
-``centroids`` is the owned slice (``global_centroids()`` gathers it).
+The cell selection is FlashProbe over the owned centroids and a cross-rank
+top-``nprobe`` merge (O(b L) bytes); under the two-level router, the coarse
+probe on every rank (the coarse level is replicated, so every rank gets the
+same groups with no traffic), the store scan over the rank's fine table (its
+own fine centroids, padding rows elsewhere), and the same merge with the
+candidate-axis position as the tie key. On a q8 store the scan proposes the
+top ``R`` from the codes, the proposals merge to ``R``, and one all-reduce of
+``(b, R, d)`` rows (each rank's own proposals dequantized, or the cache's
+rows where it holds them) brings every proposal's row to the rank that
+rescores it.
+
+The posting lists' rows never cross ranks outside that q8 exchange.
+``build`` trains through the context (the data- and cell-sharded Lloyd
+loop), ``add`` assigns by the two-stage argmin and sums the owned
+statistics over the data axes. ``counts``, ``posting_lists``,
+``search_brute`` and ``len`` answer the whole index on every rank (the
+middle two gather, a collective); ``centroids`` is the owned slice
+(``global_centroids()`` gathers it).
 
 Not ported yet (ROADMAP.md, queue A item 6b): a sharded index with
-``store="paged"``, ``codec="q8"``, ``router="two_level"``, ``faults`` or
-refresh's ``guard``/``repair_dead``, and ``save``/``load`` over a mesh;
-each raises ``NotImplementedError``. ``IVFIndex`` runs on the card unless
-it is asked for the CPU: ``device=None`` means ``"cuda"`` (or, with
-``pctx``, the mesh's device) and raises when no CUDA device is present.
+``faults`` or refresh's ``guard``/``repair_dead``, and ``save``/``load``
+over a mesh; each raises ``NotImplementedError``. ``IVFIndex`` runs on the
+card unless it is asked for the CPU: ``device=None`` means ``"cuda"`` (or,
+with ``pctx``, the mesh's device) and raises when no CUDA device is present.
 """
 from __future__ import annotations
 
@@ -95,21 +107,6 @@ _PAD_COORD = _store._PAD_COORD
 def _not_ported(what: str, item) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
                                f"queue A item {item})")
-
-
-def _check_sharded(store, codec, router) -> None:
-    """A sharded index is the padded fp32 (or bf16) flat one for now: the
-    other axes are queue A item 6b."""
-    from repro_torch.index.quant import default_codec_kind
-    if isinstance(store, _store.BucketStore) or \
-            _store._resolve_kind(store) != "padded":
-        raise _not_ported("a sharded index over a paged or given store", "6b")
-    if (default_codec_kind() if codec is None else codec) != "fp32":
-        raise _not_ported("a sharded index with codec='q8'", "6b")
-    kind = router.kind if hasattr(router, "kind") else (
-        _router.default_router_kind() if router is None else str(router))
-    if kind != "flat":
-        raise _not_ported("a sharded index with router='two_level'", "6b")
 
 
 def _as_float(a, device) -> torch.Tensor:
@@ -277,7 +274,6 @@ class IVFIndex:
                  rescore: str | None = None, router=None):
         self.pctx = pctx
         if pctx is not None:
-            _check_sharded(store, codec, router)
             if device is None:
                 device = pctx.device
             elif torch.device(device).type != pctx.device.type:
@@ -287,8 +283,11 @@ class IVFIndex:
         centroids = _as_float(centroids, self.device)
         k, d = centroids.shape
         self.k, self.d = k, d
+        all_centroids = centroids       # what a two-level router trains on
+        n_shards = 1
         if self._k_sharded:
             pctx.k_local(k)   # raises unless K divides the cells axis
+            n_shards = pctx.n_k_shards
             centroids = pctx.shard_centroids(centroids)   # the owned slice
         self.centroids = centroids
         if isinstance(rescore_mult, str):
@@ -307,16 +306,17 @@ class IVFIndex:
                 self.store = _store.make_store(
                     store, k, d, centroids.dtype, capacity=int(capacity),
                     max_cap=max_cap, page_size=page_size,
-                    max_bytes=store_bytes, device=self.device)
+                    max_bytes=store_bytes, n_shards=n_shards,
+                    device=self.device)
             else:
                 # codes are anchored at the construction-time centroids:
                 # refresh() moves the routing centroids only
                 self.store = _store.make_quantized_store(
-                    store, k, d, centroids.dtype, anchors=centroids,
+                    store, k, d, centroids.dtype, anchors=all_centroids,
                     codec=codec, capacity=int(capacity), max_cap=max_cap,
                     page_size=page_size, max_bytes=store_bytes,
-                    rescore_bytes=rescore_bytes, rescore=rescore,
-                    device=self.device)
+                    n_shards=n_shards, rescore_bytes=rescore_bytes,
+                    rescore=rescore, device=self.device)
         if self._k_sharded:
             self.store.place(pctx)
         self.n_total = 0
@@ -332,7 +332,9 @@ class IVFIndex:
         self._cnorms: torch.Tensor | None = None   # ||c||^2, per centroid set
         self._view: tuple | None = None   # (router version, router's view)
         self._search_plans: dict[tuple, tuple] = {}
-        self.router = _router.make_router(router, self.centroids,
+        # the coarse level of a two-level router trains on all K centroids
+        # and is the same on every rank (ref. ``_place``: replicated)
+        self.router = _router.make_router(router, all_centroids,
                                           planner=self.planner,
                                           device=self.device)
 
@@ -454,10 +456,8 @@ class IVFIndex:
         and masked. With ``chunk_size`` the training stays the one-device
         ``ChunkedKMeans`` loop on every rank and the mesh takes over from
         the inversion on. Every rank passes the same ``x`` and ``seed``."""
-        if pctx is not None:
-            _check_sharded(store, codec, router)
-            if device is None:
-                device = pctx.device
+        if pctx is not None and device is None:
+            device = pctx.device
         dev = resolve_device(device)
         cfg = KMeansConfig(k=k, max_iters=max_iters, init=init, tol=tol,
                            step_impl=step_impl, planner=planner)
@@ -612,8 +612,10 @@ class IVFIndex:
         if repair_dead:
             self.reseeded_cells += self._repair_dead_cells()
         self._cnorms = self._view = None   # centroids moved: both stale
-        # the router's groups follow the moved centroids (ref. l.905-909)
-        self.router.refresh(self.centroids)
+        # the router's groups follow the moved centroids (ref. l.905-909);
+        # a sharded index gathers them first (every rank refreshes)
+        if self.router.kind != "flat":
+            self.router.refresh(self.global_centroids())
         return self
 
     def _repair_dead_cells(self, eps: float = 1e-3) -> int:
@@ -688,8 +690,17 @@ class IVFIndex:
         them."""
         version = self.router.version
         if self._view is None or self._view[0] != version:
+            c = self.centroids.to(self.dtype)
+            if self._k_sharded and self.router.kind != "flat":
+                # this rank's fine centroids, padding rows for the others'
+                # (ref. ``_route_cells_sharded``: non-owned slots read the
+                # padding row)
+                lo = self.pctx.k_rank * self.k_owned
+                full = c.new_full((self.k, self.d), _PAD_COORD)
+                full[lo:lo + self.k_owned] = c
+                c = full
             self._view = (version, self.router.view(
-                self.centroids.to(self.dtype), self._centroid_norms()))
+                c, self._centroid_norms()))
         return self._view[1]
 
     def search_geometry(self, topk: int = 10, nprobe: int = 8,
@@ -737,28 +748,50 @@ class IVFIndex:
         cache's; ``width`` is the store's gather-width bucket, so occupancy
         growth re-keys, as does a ``gcap`` bucket.
 
-        Under a k-sharded ``pctx`` both kernels are planned at the shapes a
-        rank launches (ref. l.1074-1081): the probe over the ``K / P_k``
-        owned centroids at ``L = min(nprobe, K / P_k)`` for its slice of
-        the batch, the store scan over that many owned cells.
+        Under a k-sharded ``pctx`` every kernel is planned at the shapes a
+        rank launches (ref. l.1074-1081) for its slice ``bl`` of the batch:
+        the probe over the ``K / P_k`` owned centroids at ``L = ll = min(nprobe,
+        K / P_k)`` (or the router's two plans at ``bl``), the store scan over
+        ``ll`` owned cells, on q8 at ``min(R, ll * width)`` proposals, and
+        the rescore of the ``R`` merged proposals.
         """
         nprobe = min(nprobe, self.k)
         width = self._gather_width(topk, nprobe)
-        if self._k_sharded:
-            kl = self.pctx.k_local(self.k)
-            ll = min(nprobe, kl)             # owned cells a query probes
-            li = min(topk, ll * width)       # the local result list
-            bl = max(1, -(-int(b) // self.pctx.n_data_shards))
-            geom = (int(b), nprobe, int(topk), width, self.pctx.n_k_shards)
-            plans = self._search_plans.get(geom)
-            if plans is None:
-                plans = (self.planner.plan("probe", (bl, kl, self.d, ll),
-                                           self.dtype),
-                         self.planner.plan("scan_store",
-                                           (bl, ll, width, self.d, li),
-                                           self.dtype))
-                self._search_plans[geom] = plans
-            return plans
+        if not self._k_sharded:
+            return self._plan_one_device(b, topk, nprobe, nprobe_c, width)
+        kl = self.pctx.k_local(self.k)
+        ll = min(nprobe, kl)                 # owned cells a query probes
+        bl = max(1, -(-int(b) // self.pctx.n_data_shards))
+        cache = self._rescore_cache()
+        cfp = cache.fingerprint() if cache is not None else ()
+        geom = ((int(b), nprobe, int(topk), width, self.pctx.n_k_shards)
+                + self.router.fingerprint(nprobe, nprobe_c) + cfp)
+        plans = self._search_plans.get(geom)
+        if plans is None:
+            dt = self.dtype
+            if self.router.kind == "flat":
+                head = (self.planner.plan("probe", (bl, kl, self.d, ll), dt),)
+            else:
+                head = self.router.probe_plans(self.planner, bl, self.k,
+                                               self.d, nprobe, nprobe_c, dt)
+            if self.store.codec_kind != "fp32":
+                r = self._rescore_r(topk, nprobe, width)
+                q8 = self.planner.plan(
+                    "scan_q8_store", (bl, ll, width, self.d,
+                                      min(r, ll * width)), torch.int8)
+                rescore = self.planner.plan(
+                    "scan" if cache is None else "rescore",
+                    (bl, r, self.d, min(topk, r)), torch.float32)
+                plans = (*head, q8, rescore)
+            else:
+                plans = (*head, self.planner.plan(
+                    "scan_store", (bl, ll, width, self.d,
+                                   min(topk, ll * width)), dt))
+            self._search_plans[geom] = plans
+        return plans
+
+    def _plan_one_device(self, b: int, topk: int, nprobe: int,
+                         nprobe_c: int | None, width: int) -> tuple:
         rfp = self.router.fingerprint(nprobe, nprobe_c)
         cache = self._rescore_cache()
         cfp = cache.fingerprint() if cache is not None else ()
@@ -813,35 +846,37 @@ class IVFIndex:
                     raise InjectedFault(f"injected search failure ({ev})")
                 elif ev.kind == "dead_shard":   # one replica: hard fail
                     raise InjectedFault(f"injected replica death ({ev})")
+        if self._k_sharded:
+            return self._search_sharded(q, topk, nprobe, nprobe_c)
         if self.store.codec_kind != "fp32":
             return self._search_q8(q, topk, nprobe, nprobe_c)
-        if self._k_sharded:
-            return self._search_sharded(q, topk, nprobe)
         width = self._gather_width(topk, nprobe)
         *head, sp = self.plan_search(q.shape[0], topk, nprobe, nprobe_c)
         probe = self._probe(q, nprobe, nprobe_c, head)
         return _scan_cells(q, probe, self.store.scan_view(), topk=topk,
                            width=width, plan=sp)
 
-    def _search_sharded(self, q: torch.Tensor, topk: int, nprobe: int
+    def _search_sharded(self, q: torch.Tensor, topk: int, nprobe: int,
+                        nprobe_c: int | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
-        """The sharded search (ref. l.1445-1576, flat router). Each rank
+        """The sharded search (ref. l.1221-1258, l.1317-1576). Each rank
         takes its slice of the batch (split over the data axes; a ragged
         batch is padded and the result cut back):
 
-        1. FlashProbe over the owned centroids at ``L = min(nprobe, K /
-           P_k)``, then the cross-rank top-``nprobe`` merge of the cells;
+        1. the global ``(bl, nprobe)`` probe list (``_sharded_cells``);
         2. the owned probed cells, compacted in global probe order into
-           ``(bl, L)`` (a slot this rank does not own points at the
-           shard's sentinel cell, which the scan reads as empty), scanned
-           in place by the store scan;
-        3. the cross-rank top-k merge, ties broken by each candidate's
+           ``(bl, ll)`` (a slot this rank does not own points at the
+           shard's sentinel cell ``K / P_k``, which the scans read as
+           empty), scanned in place by the store scan;
+        3. fp32: the cross-rank top-k merge, ties broken by each candidate's
            global probe-rank-major position (``order[p] * width + w``),
            which is where the one-device scan sees it; ``||q||^2`` is added
            once after the merge, clamped at 0, non-finite values to 0.
+           q8 (``_q8_sharded``): the proposals' merge to ``R`` with the same
+           tie, the row exchange, and the rescore of the rank's slice.
 
-        Only the two (value, id) lists cross ranks
-        (``search_collective_bytes``)."""
+        Two (value, id) lists cross ranks (``search_collective_bytes``), and
+        on q8 the ``(bl, R, d)`` exchanged rows (``row_exchange_bytes``)."""
         pctx = self.pctx
         b = q.shape[0]
         pd = pctx.n_data_shards
@@ -851,17 +886,17 @@ class IVFIndex:
         kl = pctx.k_local(self.k)
         ll = min(nprobe, kl)
         width = self._gather_width(topk, nprobe)
-        li = min(topk, ll * width)
-        pp, sp = self.plan_search(b_pad, topk, nprobe)
+        q8 = self.store.codec_kind != "fp32"
+        *head, sp = self.plan_search(b_pad, topk, nprobe, nprobe_c)
+        if q8:
+            head, sp = head[:-1], (head[-1], sp)
         view = self.store.scan_view()
         lo = pctx.k_rank * kl
 
-        def body(ql, c_l, csq_l):
+        def body(ql):
             bl = ql.shape[0]
-            idx, val = ops.flash_probe(ql, c_l.to(ql.dtype), l=ll, plan=pp,
-                                       want_dists=False, c_sq=csq_l)
-            gcell, _ = pctx.merge_topl(idx + lo, val, nprobe)
-            rel = gcell - lo
+            gcell = self._sharded_cells(ql, nprobe, nprobe_c, head)
+            rel = gcell.long() - lo
             owned = (rel >= 0) & (rel < kl)
             pos = torch.arange(nprobe, device=ql.device).expand(bl, nprobe)
             order = torch.sort(torch.where(owned, pos, nprobe), dim=1,
@@ -869,9 +904,13 @@ class IVFIndex:
             cell = torch.where(torch.gather(owned, 1, order),
                                torch.gather(rel, 1, order), kl)
             cell = cell.to(torch.int32)
+            if q8:
+                return self._q8_sharded(ql, cell, order, view, topk=topk,
+                                        nprobe=nprobe, width=width, plans=sp)
             lidx, lval = ops.flash_probe_store(
                 ql, view.rows, view.counts, cell, table=view.table,
-                width=width, l=li, pad=_PAD_COORD, plan=sp, want_dists=False)
+                width=width, l=min(topk, ll * width), pad=_PAD_COORD,
+                plan=sp, want_dists=False)
             ids_loc = view.ids_at(*_slots(cell, lidx, width))
             lidx = lidx.long()
             gpos = torch.gather(order, 1, lidx // width) * width \
@@ -884,10 +923,109 @@ class IVFIndex:
             return gids, gval
 
         ids, dists = pctx.spmd(
-            body, in_specs=(pctx.data_spec, None, None),
-            out_specs=(pctx.data_spec, pctx.data_spec))(
-                q, self.centroids, self._centroid_norms())
+            body, in_specs=(pctx.data_spec,),
+            out_specs=(pctx.data_spec, pctx.data_spec))(q)
         return ids[:b], dists[:b]
+
+    def _sharded_cells(self, ql: torch.Tensor, nprobe: int,
+                       nprobe_c: int | None, head) -> torch.Tensor:
+        """Each query's global ``(bl, nprobe)`` cells on a k-sharded index,
+        the same list on every rank of the cells axis. Flat: FlashProbe over
+        the owned centroids at ``L = min(nprobe, K / P_k)``, then the
+        cross-rank top-``nprobe`` merge. Two-level (ref.
+        ``_route_cells_sharded``, l.246-281): the coarse probe over the
+        replicated coarse centroids gives every rank the same groups with no
+        traffic; the store scan over this rank's fine table (``_route_view``:
+        its own fine centroids, padding rows for the others', read in place)
+        keeps ``leff`` candidates; a candidate this rank does not own is the
+        sentinel ``K``; the merge breaks ties by the candidate-axis position
+        ``p gcap + w``, where the one-device scan sees it, so the merged list
+        is the one-device routed list entry for entry."""
+        pctx = self.pctx
+        kl = pctx.k_local(self.k)
+        lo = pctx.k_rank * kl
+        if self.router.kind == "flat":
+            idx, val = ops.flash_probe(
+                ql, self.centroids.to(ql.dtype), l=min(nprobe, kl),
+                plan=head[0], want_dists=False, c_sq=self._centroid_norms())
+            gcell, _ = pctx.merge_topl(idx + lo, val, nprobe)
+            return gcell
+        member, fli, flv = self.router.candidates(
+            ql, self._route_view(), nprobe=nprobe, nprobe_c=nprobe_c,
+            plans=head)
+        owned = (member >= lo) & (member < lo + kl)
+        fcell = torch.where(owned, member, self.k)
+        gcell, _ = pctx.merge_topl(fcell, flv, nprobe, tie=fli)
+        return gcell
+
+    def _q8_sharded(self, ql, cell, order, view, *, topk: int, nprobe: int,
+                    width: int, plans) -> tuple[torch.Tensor, torch.Tensor]:
+        """A rank's q8 search past the cell selection (ref.
+        ``_make_sharded_q8_candidates``, l.1317-1443, and l.1221-1258): the
+        q8 store scan proposes this rank's top ``min(R, ll * width)`` of its
+        owned probed cells (the sentinel cell's slots are zero-scale rows of
+        a zero anchor: ``+inf``, id -1); the proposals merge to ``R`` with
+        the global probe-rank-major tie; each rank dequantizes its own
+        proposals, swaps in the cache's rows where it holds them (its slice
+        holds exactly the ids its cells own), and one all-reduce over the
+        cells axis sums the rows by id match (every live id has one owner);
+        then the rescore of the ``R`` rows at full precision, with the host
+        reservoir's rows where there is no device cache (the oracle)."""
+        pctx, st = self.pctx, self.store
+        qp, rp = plans
+        r = self._rescore_r(topk, nprobe, width)
+        rl = min(r, cell.shape[1] * width)
+        lidx, lval = ops.flash_probe_store_q8(
+            ql, view.rows, view.scales, view.counts, cell, view.anchors,
+            table=view.table, width=width, l=rl, plan=qp)
+        ids_loc, deq = view.q8_at(*_slots(cell, lidx, width))
+        ids_loc = torch.where(torch.isfinite(lval), ids_loc, -1)
+        lidx = lidx.long()
+        gpos = torch.gather(order, 1, lidx // width) * width + lidx % width
+        gids, _ = pctx.merge_topl(ids_loc, lval, r, tie=gpos)
+        cache = self._rescore_cache()
+        if cache is not None:
+            crows, cfound = cache_lookup(*st.cache_arrays(), ids_loc)
+            deq = torch.where(cfound.unsqueeze(-1), crows, deq)
+        rows = self._exchange_rows(gids, ids_loc, deq)
+        if cache is not None:
+            none = torch.zeros(gids.shape, dtype=torch.bool,
+                               device=gids.device)
+            return _rescore_body(ql, rows, gids, rows, none, topk=topk,
+                                 plan=rp)
+        res_rows, found = self._host_rows(gids)
+        return _rescore_body(ql, rows, gids, res_rows, found, topk=topk,
+                             plan=rp)
+
+    def _exchange_rows(self, gids, ids_loc, rows_loc) -> torch.Tensor:
+        """The q8 row exchange: ``(bl, R, d)`` rows of the merged proposals
+        ``gids``. Each rank puts the row of each proposal it made (``rows_loc``
+        at the matching ``ids_loc`` entry) and zeros elsewhere; the sum over
+        the cells axis then holds each live id's row from its one owner
+        (``x + 0`` is ``x``: the rows cross unchanged); dead ids read
+        padding rows."""
+        match = (gids.unsqueeze(-1) == ids_loc.unsqueeze(1)) \
+            & (ids_loc >= 0).unsqueeze(1)
+        at = match.to(torch.uint8).argmax(-1, keepdim=True)
+        mine = torch.gather(rows_loc, 1, at.expand(*at.shape[:2],
+                                                   rows_loc.shape[-1]))
+        mine = torch.where(match.any(-1, keepdim=True), mine, 0.0)
+        rows = self.pctx.psum(mine, (self.pctx.k_axis,))
+        return torch.where((gids >= 0).unsqueeze(-1), rows, _PAD_COORD)
+
+    def _host_rows(self, ids: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The host reservoir's rows of ``ids`` and which it holds (none
+        without a reservoir): the ``rescore="host"`` path's read."""
+        ids_np = ids.cpu().numpy()
+        res = self.store.reservoir
+        if res is not None:
+            rows, found = res.lookup(ids_np)
+        else:
+            rows = np.zeros(ids_np.shape + (self.d,), np.float32)
+            found = np.zeros(ids_np.shape, bool)
+        return (torch.as_tensor(rows, device=self.device),
+                torch.as_tensor(found, device=self.device))
 
     def _probe(self, q: torch.Tensor, nprobe: int, nprobe_c: int | None,
                head) -> torch.Tensor:
@@ -919,18 +1057,9 @@ class IVFIndex:
                             plan=qp)
         if self._rescore_cache() is not None:
             rows, found = cache_lookup(*st.cache_arrays(), ids)
-            return _rescore_body(q, deq, ids, rows, found, topk=topk,
-                                 plan=rp)
-        ids_np = ids.cpu().numpy()
-        if st.reservoir is not None:
-            rows, found = st.reservoir.lookup(ids_np)
         else:
-            rows = np.zeros(ids_np.shape + (self.d,), np.float32)
-            found = np.zeros(ids_np.shape, bool)
-        return _rescore_body(q, deq, ids,
-                             torch.as_tensor(rows, device=self.device),
-                             torch.as_tensor(found, device=self.device),
-                             topk=topk, plan=rp)
+            rows, found = self._host_rows(ids)
+        return _rescore_body(q, deq, ids, rows, found, topk=topk, plan=rp)
 
     def search_brute(self, q, topk: int = 10
                      ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -992,6 +1121,18 @@ class IVFIndex:
             return 0
         return self.pctx.search_collective_bytes(
             b, min(nprobe, self.k), topk, self.k, cap=self.cap, d=self.d)
+
+    def row_exchange_bytes(self, b: int, topk: int = 10,
+                           nprobe: int = 8) -> int:
+        """Bytes of the q8 row exchange a rank all-reduces for a batch of
+        ``b`` (its slice's ``(bl, R, d)`` f32 rows; 0 unless the index is
+        k-sharded and quantized). ``search_collective_bytes`` keeps the
+        reference's model, which leaves it out."""
+        if not self._k_sharded or self.store.codec_kind == "fp32":
+            return 0
+        nprobe = min(nprobe, self.k)
+        r = self._rescore_r(topk, nprobe, self._gather_width(topk, nprobe))
+        return 4 * -(-int(b) // self.pctx.n_data_shards) * r * self.d
 
     def __len__(self) -> int:
         return self.n_total

@@ -1,16 +1,17 @@
 """Device-resident exact-rescore row cache for quantized bucket stores.
 
-Port of ``repro/index/rescore_cache.py`` for one device. The q8 search
+Port of ``repro/index/rescore_cache.py``. The q8 search
 proposes top-``R`` ids from int8 codes and rescores them against exact
 fp32 rows; with the host ``RescoreReservoir`` that needs the ids on the
 host, a dictionary lookup and the rows sent back before the rescore can
 launch. ``DeviceRescoreCache`` keeps the rows in device memory, a
-set-associative id -> fp32-row table (ref. l.1-46):
+set-associative id -> fp32-row table (ref. l.1-46), in ``shards`` regions
+of ``sets`` sets (one on one device):
 
-- ``keys``  int32 ``(sets, ways)`` id lanes, ``-1`` = empty;
-- ``rows``  fp32  ``(sets, ways, d)`` row pool;
-- ``ref``   int32 ``(sets, ways)`` second-chance bits;
-- ``hand``  int32 ``(sets,)`` per-set clock hand.
+- ``keys``  int32 ``(shards * sets, ways)`` id lanes, ``-1`` = empty;
+- ``rows``  fp32  ``(shards * sets, ways, d)`` row pool;
+- ``ref``   int32 ``(shards * sets, ways)`` second-chance bits;
+- ``hand``  int32 ``(shards * sets,)`` per-set clock hand.
 
 Ids are dense (``IVFIndex._append`` allocates them in order), so the set
 is ``id % sets``. Unbounded (``max_bytes=None``) the table grows until
@@ -25,9 +26,13 @@ kernel ``kernels/rescore_cache.py`` (``csrc/rescore_cache.cu``); lookups
 ``REPRO_RESCORE`` picks the process default: ``device`` (this cache) or
 ``host`` (the reservoir round trip, kept as the parity oracle).
 
-Not ported yet (ROADMAP.md, queue A item 6b, the sharded q8 index): a cache
-sharded over a mesh (``shards > 1``, ``put(shard=...)``, ``place``,
-``shard_specs``); each raises ``NotImplementedError``.
+On a mesh the cache is split over the cells axis beside the codes
+(``place``, ``shard_specs``): region ``s`` holds the ids whose home cell
+K-shard ``s`` owns (``put(shard=)``, fixed at append time), and a rank keeps
+only its own region, ``(sets, ways)``, which ``cache_lookup`` and the insert
+kernel address as a whole table (set ``id % sets``). ``sets`` is sized for
+the global ids, so a region never conflicts past ``ways`` where one table
+would not.
 """
 from __future__ import annotations
 
@@ -47,10 +52,6 @@ RESCORE_KINDS = ("device", "host")
 # bytes a cached row: the fp32 payload plus the id/ref bookkeeping, as the
 # reservoir counts it, so both tiers read rescore_bytes the same way
 _ROW_OVERHEAD = 8
-
-_SHARDED = ("a device rescore cache sharded over a mesh is not ported yet "
-            "(ROADMAP.md, queue A item 6b: the sharded q8 index)")
-
 
 def default_rescore_kind() -> str:
     """The process default rescore-row source of quantized stores
@@ -91,34 +92,36 @@ class DeviceRescoreCache:
     def __init__(self, d: int, *, max_bytes: int | None = None,
                  ways: int = 4, shards: int = 1, init_sets: int = 64,
                  device=None):
-        if int(shards) > 1:
-            raise NotImplementedError(f"shards={shards}: {_SHARDED}")
         self.d = int(d)
         self.ways = int(ways)
+        self.shards = max(1, int(shards))
         self.max_bytes = max_bytes
         self.device = resolve_device(device)
         if max_bytes is None:
             sets = _pow2ceil(init_sets)
         else:
             cap_rows = max(1, int(max_bytes) // (4 * self.d + _ROW_OVERHEAD))
-            sets = _pow2ceil(max(1, cap_rows // self.ways))
+            sets = _pow2ceil(max(1, cap_rows // (self.ways * self.shards)))
         self.sets = sets
         self.inserted = 0      # rows put (ids are unique -> distinct ids)
+        # the regions this device holds: (first shard, count), all until
+        # ``place``
+        self._held = (0, self.shards)
         self._alloc()
 
     def _alloc(self) -> None:
         kw = {"device": self.device}
-        self.keys = torch.full((self.sets, self.ways), -1, dtype=torch.int32,
-                               **kw)
-        self.rows = torch.zeros((self.sets, self.ways, self.d),
+        rows = self._held[1] * self.sets
+        self.keys = torch.full((rows, self.ways), -1, dtype=torch.int32, **kw)
+        self.rows = torch.zeros((rows, self.ways, self.d),
                                 dtype=torch.float32, **kw)
-        self.ref = torch.zeros((self.sets, self.ways), dtype=torch.int32, **kw)
-        self.hand = torch.zeros((self.sets,), dtype=torch.int32, **kw)
+        self.ref = torch.zeros((rows, self.ways), dtype=torch.int32, **kw)
+        self.hand = torch.zeros((rows,), dtype=torch.int32, **kw)
 
     @property
     def capacity(self) -> int:
-        """Row slots of the table."""
-        return self.sets * self.ways
+        """Row slots of the table, over all shards."""
+        return self.shards * self.sets * self.ways
 
     @property
     def evicted(self) -> int:
@@ -135,22 +138,41 @@ class DeviceRescoreCache:
         return (self.keys, self.rows)
 
     def shard_specs(self, ka) -> tuple:
-        raise NotImplementedError(_SHARDED)
+        """The split of ``device_arrays()`` over the cells axis ``ka``."""
+        return ((ka, None), (ka, None, None))
 
     def place(self, pctx) -> None:
-        raise NotImplementedError(_SHARDED)
+        """Keep only this rank's region under ``pctx``'s ``k_axis`` (ref.
+        l.265-273), cut without communication. The cache must have as many
+        shards as the axis; a context without a ``k_axis`` leaves it
+        whole."""
+        if pctx.k_axis is None or self._held == (pctx.k_rank, 1):
+            return
+        if pctx.n_k_shards != self.shards or self._held[1] != self.shards:
+            raise ValueError(f"a cache of {self.shards} shards (holding "
+                             f"{self._held[1]}) on a {pctx.n_k_shards}-way "
+                             f"cells axis")
+        s = pctx.k_rank
+        own = slice(s * self.sets, (s + 1) * self.sets)
+        self.keys = self.keys[own].contiguous()
+        self.rows = self.rows[own].contiguous()
+        self.ref = self.ref[own].contiguous()
+        self.hand = self.hand[own].contiguous()
+        self._held = (s, 1)
 
     # ------------------------------------------------------------------
     def _grow(self, sets: int) -> None:
-        """Rehash to ``sets``, a power-of-two multiple of the current count,
-        in one step (ref. l.204-226 doubles one step at a time): new set
-        ``s'`` takes old set ``s' % S``'s lanes whose id lands in ``s'``,
-        their ref bits and the old set's hand and row pool. That is what the
-        doublings give, rows of empty lanes included."""
-        src = torch.arange(sets, device=self.device) % self.sets
+        """Rehash each held region to ``sets``, a power-of-two multiple of
+        the current count, in one step (ref. l.204-226 doubles one step at a
+        time): new set ``s'`` takes old set ``s' % S``'s lanes whose id lands
+        in ``s'``, their ref bits and the old set's hand and row pool. That
+        is what the doublings give, rows of empty lanes included."""
+        h, dev = self._held[1], self.device
+        new = torch.arange(sets, device=dev)
+        src = (torch.arange(h, device=dev).unsqueeze(1) * self.sets
+               + new % self.sets).reshape(-1)
         k = self.keys[src]
-        keep = (k >= 0) & (k % sets == torch.arange(
-            sets, device=self.device, dtype=k.dtype).unsqueeze(1))
+        keep = (k >= 0) & (k % sets == new.repeat(h).to(k.dtype).unsqueeze(1))
         self.keys = torch.where(keep, k, -1)
         self.ref = torch.where(keep, self.ref[src], 0)
         self.rows = self.rows[src]
@@ -169,9 +191,10 @@ class DeviceRescoreCache:
         """Batched insert at host cadence (``add``, build, restore; never
         the search path), in batch order. ``ids`` (numpy or a tensor; -1
         skips), ``rows`` (m, d), a tensor on the cache's device needs no
-        copy. The growth check reads ``max(ids)`` on the host."""
-        if shard is not None:
-            raise NotImplementedError(f"put(shard=...): {_SHARDED}")
+        copy. ``shard``: each row's home K-shard (``cell // (K /
+        shards)``, host ints; None: shard 0); a placed cache inserts its own
+        shard's rows only. The growth check reads the whole batch's
+        ``max(ids)`` on the host, so every rank grows alike."""
         if isinstance(ids, torch.Tensor):
             ids_t = ids.reshape(-1).to(device=self.device, dtype=torch.int32)
             top = lambda: int(ids_t.max())
@@ -185,9 +208,23 @@ class DeviceRescoreCache:
             return
         if self.max_bytes is None:
             self._ensure(top())
-        x = torch.as_tensor(rows).to(device=self.device, dtype=torch.float32)
-        _kernel.cache_insert_raw(self.keys, self.rows, self.ref, self.hand,
-                                 ids_t, x.reshape(m, self.d))
+        x = torch.as_tensor(rows).to(device=self.device,
+                                     dtype=torch.float32).reshape(m, self.d)
+        sh = np.zeros(m, np.int64) if shard is None \
+            else np.asarray(shard, np.int64).reshape(-1)
+        s0, h = self._held
+        for s in range(s0, s0 + h):
+            sel = sh == s
+            if not sel.any():
+                continue
+            ids_s, x_s = ids_t, x
+            if not sel.all():
+                pick = torch.as_tensor(np.flatnonzero(sel), device=self.device)
+                ids_s, x_s = ids_t[pick], x[pick]
+            region = slice((s - s0) * self.sets, (s - s0 + 1) * self.sets)
+            _kernel.cache_insert_raw(self.keys[region], self.rows[region],
+                                     self.ref[region], self.hand[region],
+                                     ids_s, x_s)
         self.inserted += m
 
     def lookup(self, ids) -> tuple[torch.Tensor, torch.Tensor]:
@@ -208,5 +245,6 @@ class DeviceRescoreCache:
 
     def __repr__(self) -> str:
         return (f"DeviceRescoreCache(d={self.d}, sets={self.sets}, "
-                f"ways={self.ways}, inserted={self.inserted}, "
+                f"ways={self.ways}, shards={self.shards}, "
+                f"inserted={self.inserted}, "
                 f"max_bytes={self.max_bytes}, device={self.device})")

@@ -20,7 +20,9 @@ c_sq)``, what its search reads of an index's centroids; and ``cells(q,
 view, ...)``, each query's ``nprobe`` cells. The index builds the view
 from its own centroids and keeps it until its centroids move or the router
 re-groups them (``version``), so a router shared by two indexes never
-scores the other's centroids.
+scores the other's centroids. A sharded index reads the two-level
+router's ``candidates`` (the fine stage's cells, positions and scores)
+and merges them across ranks itself.
 
 The groups are the sorted-inverse grouping of the owner vector (one stable
 argsort is the concatenation of all groups), padded into a ``(K_c, gcap)``
@@ -252,16 +254,17 @@ class TwoLevelRouter:
                                         dtype=c.dtype, device=self.device)])
         return cpad[self.members.long()]
 
-    def cells(self, q, view, *, nprobe: int, nprobe_c: int | None = None,
-              plans=(None, None)) -> torch.Tensor:
-        """Two-level cell selection (ref. ``_route_cells``, l.177-211):
-        FlashProbe over the ``K_c`` coarse centroids picks each query's
-        ``nprobe_c`` groups; the store scan over ``view`` (``view()``'s
-        table), read in place, keeps the ``leff = min(nprobe, nprobe_c
-        gcap)`` nearest of those groups' fine centroids. Returns ``(B,
-        nprobe)`` int32 cells in ``[0, K]``, ascending by distance: entries
-        that are no fine centroid (past a group's size, or not finite) are
-        the sentinel ``K``, and so is the tail past ``leff``."""
+    def candidates(self, q, view, *, nprobe: int, nprobe_c: int | None = None,
+                   plans=(None, None)
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The fine stage: FlashProbe over the ``K_c`` coarse centroids picks
+        each query's ``nprobe_c`` groups; the store scan over ``view``
+        (``view()``'s table), read in place, keeps the ``leff = min(nprobe,
+        nprobe_c gcap)`` nearest of those groups' fine centroids. Returns
+        ``(member, li, v)``, each ``(B, leff)``, ascending by ``v``: the
+        candidates' cells (int32; the sentinel ``K`` past a group's size),
+        their candidate-axis positions ``p gcap + w`` (int64) and scores
+        ``||c||^2 - 2 q.c``."""
         _, npc, gcap = self.fingerprint(nprobe, nprobe_c)
         leff = min(nprobe, npc * gcap)
         cidx, _ = ops.flash_probe(q, self.coarse.to(q.dtype), l=npc,
@@ -274,11 +277,21 @@ class TwoLevelRouter:
         li = li.long()
         group = torch.gather(cidx.long(), 1,
                              torch.div(li, gcap, rounding_mode="floor"))
-        cells = torch.where(torch.isfinite(v),
-                            self.members[group, li % gcap], self.k)
-        if leff < nprobe:
-            cells = torch.nn.functional.pad(cells, (0, nprobe - leff),
-                                            value=self.k)
+        return self.members[group, li % gcap], li, v
+
+    def cells(self, q, view, *, nprobe: int, nprobe_c: int | None = None,
+              plans=(None, None)) -> torch.Tensor:
+        """Two-level cell selection (ref. ``_route_cells``, l.177-211): the
+        ``candidates``. Returns ``(B, nprobe)`` int32 cells in ``[0, K]``,
+        ascending by distance: entries that are no fine centroid (past a
+        group's size, or not finite) are the sentinel ``K``, and so is the
+        tail past ``leff``."""
+        member, _, v = self.candidates(q, view, nprobe=nprobe,
+                                       nprobe_c=nprobe_c, plans=plans)
+        cells = torch.where(torch.isfinite(v), member, self.k)
+        if cells.shape[1] < nprobe:
+            cells = torch.nn.functional.pad(
+                cells, (0, nprobe - cells.shape[1]), value=self.k)
         return cells
 
     # ------------------------------------------------------------------

@@ -35,18 +35,23 @@ module nothing reads a raw store tensor.
 ``infer_store_meta`` rebuild a store from a snapshot's arrays and meta.
 
 Over a mesh (``place(pctx)``, a ``core.parallel.ParallelContext`` with a
-``k_axis``) the padded store keeps on this rank's device only the cells it
-owns, a contiguous ``K / P_k`` of them: the ``(K/P_k, cap, d)`` payload,
-ids and sidecar. The host bookkeeping (counts, capacity growth, spills,
-``max_cap``) stays global and the same on every rank, so every rank grows
-at once; ``append`` takes the whole batch and writes the owned rows.
-``scan_view`` is the owned shard's, with its own sentinel cell ``K/P_k``;
-``dense``, ``dense_ids``, ``flat`` and ``state_arrays`` gather the whole
-store over the cells axis (a collective: every rank calls them together).
-Not ported yet (ROADMAP.md, queue A item 6b): the paged pool and the
-quantized store over several shards (``n_shards > 1``, their ``place``,
-``gather_cells`` on the paged kind, ``gather_cells_q8``) and restoring a
-store over several shards. Unlike the JAX package the port updates its
+``k_axis``) a store keeps on this rank's device only the cells it owns, a
+contiguous ``K / P_k`` of them: the padded store its ``(K/P_k, cap, d)``
+payload, ids and sidecar; the paged store (built with ``n_shards = P_k``)
+its shard's slice of the pool, ``pps`` pages whose page 0 is the shard's
+padding page. The host bookkeeping (counts, capacity growth, page tables,
+the per-shard free lists, LRU ticks, spills and evictions, ``max_cap``)
+stays global and the same on every rank, so every rank grows and evicts at
+once; ``append`` takes the whole batch and writes the owned rows. The
+quantized store places its anchors and its ``DeviceRescoreCache`` (sharded
+over the same cells) beside the codes. ``scan_view`` is the owned shard's,
+with its own sentinel cell ``K/P_k``; ``dense``, ``dense_ids``, ``flat``
+and ``state_arrays`` gather the whole store over the cells axis (a
+collective: every rank calls them together). ``gather_cells`` and
+``gather_cells_q8`` are the shard-local candidate gathers the sharded
+search is held to. Not ported yet (ROADMAP.md, queue A item 6b): restoring
+a store over several shards.
+Unlike the JAX package the port updates its
 tensors in place, and ``dense``/``flat`` return tensors on the store's
 device; ``state_arrays`` and ``meta`` give the snapshot format's numpy
 arrays and keys.
@@ -202,15 +207,31 @@ def candidate_slots(t: torch.Tensor, probe: torch.Tensor,
 
 
 def _page_ids(tables: torch.Tensor, probe: torch.Tensor, width: int,
-              page_size: int, n_shards: int) -> torch.Tensor:
+              page_size: int, n_shards: int, pool_pages: int) -> torch.Tensor:
     """``(B, nprobe * width / page_size)`` pool pages of the probed cells'
-    first ``width`` slots (unmapped entries are page 0, the padding
-    page)."""
-    if n_shards != 1:
-        raise _sharded("a gather over a sharded store")
+    first ``width`` slots (unmapped entries are page 0 of the cell's shard,
+    its padding page). Over ``n_shards`` shards the tables hold shard-local
+    page ids and shard ``s`` owns pool pages ``[s pps, (s + 1) pps)``."""
     b, nprobe = probe.shape
     wp = width // page_size
-    return tables[:, :wp][probe.long()].reshape(b, nprobe * wp).long()
+    p = probe.long()
+    pid = tables[:, :wp][p].long()
+    if n_shards != 1:
+        cps = tables.shape[0] // n_shards
+        pid = pid + (torch.div(p, cps, rounding_mode="floor")
+                     * (pool_pages // n_shards)).unsqueeze(-1)
+    return pid.reshape(b, nprobe * wp)
+
+
+def _local_pages(tables: torch.Tensor, cell: torch.Tensor, width: int,
+                 page_size: int) -> torch.Tensor:
+    """``(bl, ll * width / page_size)`` pages of a shard's pool under local
+    ``cell (bl, ll)``, ``k_local`` being the padding cell, all of whose
+    slots map to the shard's padding page 0 (ref. l.205-211)."""
+    wp = width // page_size
+    tpad = torch.cat([tables[:, :wp], tables.new_zeros((1, wp))])
+    bl, ll = cell.shape
+    return tpad[cell.long()].reshape(bl, ll * wp).long()
 
 
 def gather_global(kind: str, arrays, probe: torch.Tensor, width: int,
@@ -227,24 +248,29 @@ def gather_global(kind: str, arrays, probe: torch.Tensor, width: int,
     if _resolve_kind(kind) == "padded":
         return tuple(candidate_slots(t, probe, width) for t in arrays)
     pool, pool_ids, tables = arrays
-    pid = _page_ids(tables, probe, width, page_size, n_shards)
+    pid = _page_ids(tables, probe, width, page_size, n_shards, pool.shape[0])
     b, w = pid.shape[0], pid.shape[1] * page_size
     return pool[pid].reshape(b, w, pool.shape[-1]), pool_ids[pid].reshape(b, w)
 
 
 def gather_cells(kind: str, arrays, cell: torch.Tensor, width: int,
                  page_size: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
-    """The shard-local candidate gather (ref. l.189-214): ``cell (bl, ll)``
+    """The shard-local candidate gather (ref. l.189-215): ``cell (bl, ll)``
     holds local cell indices, ``k_local`` (the owned cell count) being the
-    not-owned padding cell, whose slots are ``_PAD_COORD`` rows with id -1;
-    ``arrays`` are the owned shard's ``device_arrays()``. Returns ``(cand_x
-    (bl, ll * width, d), cand_ids (bl, ll * width))``. The sharded search
-    does not gather (the store scan reads the owned cells in place through
-    ``scan_view``); this is the block path it is held to."""
-    if _resolve_kind(kind) != "padded":
-        raise _sharded("gather_cells over a paged store")
-    buckets, bucket_ids = arrays[:2]
+    not-owned padding cell, whose slots are ``_PAD_COORD`` rows with id -1
+    (the paged store's padding page); ``arrays`` are the owned shard's
+    ``device_arrays()``. Returns ``(cand_x (bl, ll * width, d), cand_ids
+    (bl, ll * width))``. The sharded search does not gather (the store scan
+    reads the owned cells in place through ``scan_view``); this is the block
+    path it is held to."""
     bl, ll = cell.shape
+    if _resolve_kind(kind) != "padded":
+        pool, pool_ids, tables = arrays[:3]
+        pid = _local_pages(tables, cell, width, page_size)
+        w = pid.shape[1] * page_size
+        return (pool[pid].reshape(bl, w, pool.shape[-1]),
+                pool_ids[pid].reshape(bl, w))
+    buckets, bucket_ids = arrays[:2]
     d = buckets.shape[-1]
     bpad = torch.cat([buckets[:, :width], torch.full(
         (1, width, d), _PAD_COORD, dtype=buckets.dtype,
@@ -257,9 +283,31 @@ def gather_cells(kind: str, arrays, cell: torch.Tensor, width: int,
 
 
 def gather_cells_q8(kind: str, arrays, cell: torch.Tensor, width: int,
-                    page_size: int = 0):
-    """The quantized shard-local gather: queue A item 6b."""
-    raise _sharded("gather_cells_q8 (the sharded q8 search)")
+                    page_size: int = 0
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Quantized shard-local gather (ref. l.244-277): ``(codes (bl, ll *
+    width, d) int8, scales (bl, ll * width) f32, ids)``. The padding cell
+    ``k_local`` lands on zero-scale slots (zero codes, id -1 on the padded
+    layout; the padding page on the paged one), so its rows mask out of the
+    scan as unmapped pages do. ``arrays``: the owned shard's inner
+    ``device_arrays()`` (anchors that follow are ignored)."""
+    bl, ll = cell.shape
+    if _resolve_kind(kind) != "padded":
+        pool, pool_ids, tables, pool_aux = arrays[:4]
+        pid = _local_pages(tables, cell, width, page_size)
+        w = pid.shape[1] * page_size
+        return (pool[pid].reshape(bl, w, pool.shape[-1]),
+                pool_aux[pid].reshape(bl, w), pool_ids[pid].reshape(bl, w))
+    buckets, bucket_ids, bucket_aux = arrays[:3]
+    d = buckets.shape[-1]
+    c = cell.long()
+    bpad = torch.cat([buckets[:, :width], buckets.new_zeros((1, width, d))])
+    apad = torch.cat([bucket_aux[:, :width],
+                      bucket_aux.new_zeros((1, width))])
+    ipad = torch.cat([bucket_ids[:, :width], torch.full(
+        (1, width), -1, dtype=torch.int32, device=bucket_ids.device)])
+    return (bpad[c].reshape(bl, ll * width, d),
+            apad[c].reshape(bl, ll * width), ipad[c].reshape(bl, ll * width))
 
 
 def gather_global_q8(kind: str, arrays, probe: torch.Tensor, width: int,
@@ -276,7 +324,7 @@ def gather_global_q8(kind: str, arrays, probe: torch.Tensor, width: int,
         return tuple(candidate_slots(t, probe, width)
                      for t in (buckets, bucket_aux, bucket_ids))
     pool, pool_ids, tables, pool_aux = arrays[:4]
-    pid = _page_ids(tables, probe, width, page_size, n_shards)
+    pid = _page_ids(tables, probe, width, page_size, n_shards, pool.shape[0])
     b, w = pid.shape[0], pid.shape[1] * page_size
     return (pool[pid].reshape(b, w, pool.shape[-1]),
             pool_aux[pid].reshape(b, w), pool_ids[pid].reshape(b, w))
@@ -393,12 +441,13 @@ class BucketStore:
         return 1
 
     def place(self, pctx) -> None:
-        raise _sharded(f"placing a {self.kind} {self.codec_kind} store over "
-                       f"a mesh")
+        """Keep on this rank's device only the cells it owns under
+        ``pctx``'s ``k_axis`` (see the module docstring)."""
+        raise NotImplementedError
 
     def shard_specs(self, ka) -> tuple:
-        raise _sharded(f"the shard specs of a {self.kind} {self.codec_kind} "
-                       f"store")
+        """The split of ``device_arrays()`` over the cells axis ``ka``."""
+        raise NotImplementedError
 
     def _whole(self, t: torch.Tensor) -> torch.Tensor:
         """The whole store's ``t`` from the owned cells' (gathered over the
@@ -616,13 +665,15 @@ class PaddedBucketStore(BucketStore):
 # ---------------------------------------------------------------------------
 
 class PagedBucketStore(BucketStore):
-    """Fixed-size pages in one pool, a page table per cell, a free list
-    handing out the lowest id first, LRU eviction under ``max_bytes`` (ref.
-    ``repro/index/store.py:543-906``, one shard). The host keeps the
-    allocator's state (``tables_np``, ``pages_np``, ``last_touch``,
-    ``_tick``, the free list); the device holds the pool and a mirror of
-    the tables with the sentinel row (``tables_sentinel``, its first K rows
-    ``tables``)."""
+    """Fixed-size pages in one pool, a page table per cell, a free list per
+    shard handing out the lowest id first, LRU eviction under ``max_bytes``
+    (ref. ``repro/index/store.py:543-906``). Shard ``s`` owns cells ``[s
+    cps, (s + 1) cps)`` (``cps = K / n_shards``) and pool pages ``[s pps,
+    (s + 1) pps)``, its local page 0 being its padding page; the tables hold
+    shard-local page ids. The host keeps the allocator's state
+    (``tables_np``, ``pages_np``, ``last_touch``, ``_tick``, ``_frees``);
+    the device holds the pool of the shards it holds (all of them until
+    ``place``, then its own) and ``tables``, the owned cells' rows."""
 
     kind = "paged"
 
@@ -630,11 +681,13 @@ class PagedBucketStore(BucketStore):
                  max_cap: int | None = None, page_size: int = 64,
                  max_bytes: int | None = None, n_shards: int = 1,
                  aux: bool = False, device=None):
-        if int(n_shards) != 1:
-            raise _sharded(f"a paged store over {n_shards} shards")
         super().__init__(k, d, dtype, max_cap=max_cap, device=device)
+        if self.k % int(n_shards):
+            raise ValueError(f"k={k} not divisible by n_shards={n_shards}")
         self.has_aux = bool(aux)
         self.page_size = max(8, _round_up(int(page_size), 8))
+        self._n_shards = int(n_shards)
+        self.cells_per_shard = self.k // self._n_shards
         self.max_bytes = max_bytes
         # table width (pages per cell) sized for the capacity hint; the
         # pool starts one doubling above the single-hot-cell need
@@ -645,20 +698,22 @@ class PagedBucketStore(BucketStore):
         pps = max(2, _pow2ceil(1 + self.maxp))
         if self.max_bytes is not None:
             pps = min(pps, max(2, self._budget_pps()))
-        self.pps = pps                      # pages in the pool (incl. pad)
+        self.pps = pps                      # pages a shard (incl. pad)
         self.tables_np = np.zeros((self.k, self.maxp), np.int32)
         self.pages_np = np.zeros(self.k, np.int32)
         self.last_touch = np.zeros(self.k, np.int64)
         self._tick = 0
-        # the free list, ascending (page 0 is the reserved padding page):
-        # the reference's list, which also stays sorted
-        self._free: list[int] = list(range(1, self.pps))
-        self.pool = torch.full((self.pps, self.page_size, self.d),
+        # each shard's free list, ascending (its page 0 is the reserved
+        # padding page): the reference's lists, which also stay sorted
+        self._frees: list[list[int]] = [list(range(1, self.pps))
+                                        for _ in range(self._n_shards)]
+        rows = self._n_shards * self.pps
+        self.pool = torch.full((rows, self.page_size, self.d),
                                _pad_value(self.dtype), dtype=self.dtype,
                                device=self.device)
-        self.pool_ids = torch.full((self.pps, self.page_size), -1,
+        self.pool_ids = torch.full((rows, self.page_size), -1,
                                    dtype=torch.int32, device=self.device)
-        self.pool_aux = torch.zeros((self.pps, self.page_size),
+        self.pool_aux = torch.zeros((rows, self.page_size),
                                     dtype=torch.float32, device=self.device) \
             if self.has_aux else None
         self._upload_tables()
@@ -669,37 +724,100 @@ class PagedBucketStore(BucketStore):
     def capacity(self) -> int:
         return self.maxp * self.page_size
 
+    @property
+    def n_shards(self) -> int:
+        return self._n_shards
+
+    @property
+    def _held(self) -> tuple[int, int]:
+        """The shards whose pages this device holds: ``(first, count)``,
+        all of them until ``place``."""
+        cps = self.cells_per_shard
+        return self.lo // cps, self.k_owned // cps
+
     def _page_bytes(self) -> int:
         aux = 4 if self.has_aux else 0
         return self.page_size * (self.d * self.dtype.itemsize + 4 + aux)
 
     def _budget_pps(self) -> int:
-        return int(self.max_bytes // self._page_bytes())
+        return int(self.max_bytes // (self._n_shards * self._page_bytes()))
+
+    def _pool_rows(self, cells: np.ndarray, pages: np.ndarray) -> np.ndarray:
+        """Rows of this device's pool of the shard-local ``pages`` of
+        ``cells`` (broadcast against each other; cells of held shards)."""
+        return (cells // self.cells_per_shard - self._held[0]) * self.pps \
+            + pages
+
+    def _holds(self, cells: np.ndarray) -> np.ndarray:
+        sh = cells // self.cells_per_shard
+        return (sh >= self._held[0]) & (sh < self._held[0] + self._held[1])
 
     def _upload_tables(self) -> None:
-        """Mirror the page tables on the device with the sentinel cell K's
-        row of page 0 (the reference's ``gather_cells`` pads the same way)."""
-        self.tables_sentinel = torch.as_tensor(
-            np.concatenate([self.tables_np,
-                            np.zeros((1, self.maxp), np.int32)]),
-            device=self.device)
-        self.tables = self.tables_sentinel[:self.k]
+        """The owned cells' tables on the device (``tables``, shard-local
+        ids, as ``device_arrays`` gives them) and the scan's table: rows of
+        this device's pool, with the sentinel cell's row of page 0 (the
+        padding page; the reference's ``gather_cells`` pads the same
+        way)."""
+        lo, kl = self.lo, self.k_owned
+        t = self.tables_np[lo:lo + kl]
+        self.tables = torch.as_tensor(t, device=self.device)
+        if self._held[1] > 1:
+            t = self._pool_rows(np.arange(lo, lo + kl)[:, None], t)
+        self._scan_table = torch.as_tensor(
+            np.concatenate([t, np.zeros((1, self.maxp), t.dtype)]).astype(
+                np.int32), device=self.device)
+
+    def place(self, pctx) -> None:
+        """Keep only this rank's shard under ``pctx``'s ``k_axis`` (ref.
+        l.880-887): its ``pps`` pages of the pool, ids and sidecar, cut
+        without communication, and its cells' tables. The store must have
+        been built with ``n_shards`` equal to the axis's size. Idempotent;
+        a context without a ``k_axis`` leaves the store whole."""
+        if pctx.k_axis is None:
+            return
+        if pctx.n_k_shards != self._n_shards:
+            raise ValueError(f"a paged store of {self._n_shards} shards on a "
+                             f"{pctx.n_k_shards}-way cells axis")
+        kl = pctx.k_local(self.k)
+        s = pctx.k_rank
+        if self._pctx is not None:
+            if (s * kl, kl) != (self.lo, self.k_owned):
+                raise ValueError("the store is already placed on another "
+                                 "shard")
+            return
+        own = slice(s * self.pps, (s + 1) * self.pps)
+        self.pool = self.pool[own].contiguous()
+        self.pool_ids = self.pool_ids[own].contiguous()
+        if self.has_aux:
+            self.pool_aux = self.pool_aux[own].contiguous()
+        self.lo, self.k_owned, self._pctx = s * kl, kl, pctx
+        self._upload_counts()
+        self._upload_tables()
+
+    def shard_specs(self, ka) -> tuple:
+        """The split of ``device_arrays()`` over the cells axis ``ka``."""
+        specs = ((ka, None, None), (ka, None), (ka, None))
+        return specs + ((ka, None),) if self.has_aux else specs
 
     # -- allocator -----------------------------------------------------
 
     def _grow_pool(self, new_pps: int) -> None:
-        """New device tensors of ``new_pps`` pages, the old pages copied in
-        and the new ones padding; their ids join the free list."""
+        """Each held shard's slice grown to ``new_pps`` pages, the old pages
+        copied in and the new ones padding; their ids join every shard's
+        free list."""
+        h = self._held[1]
+
         def grown(t, fill):
-            out = torch.full((new_pps, *t.shape[1:]), fill, dtype=t.dtype,
+            out = torch.full((h, new_pps, *t.shape[1:]), fill, dtype=t.dtype,
                              device=self.device)
-            out[:self.pps] = t
-            return out
+            out[:, :self.pps] = t.view(h, self.pps, *t.shape[1:])
+            return out.view(h * new_pps, *t.shape[1:])
         self.pool = grown(self.pool, _pad_value(self.dtype))
         self.pool_ids = grown(self.pool_ids, -1)
         if self.has_aux:
             self.pool_aux = grown(self.pool_aux, 0.0)
-        self._free.extend(range(self.pps, new_pps))
+        for free in self._frees:
+            free.extend(range(self.pps, new_pps))
         self.pps = new_pps
 
     def _grow_tables(self, need: int) -> None:
@@ -713,113 +831,131 @@ class PagedBucketStore(BucketStore):
         self.maxp = new_maxp
 
     def _evict(self, cell: int) -> None:
-        """Free a cold cell's pages back to the allocator: its rows are
-        dropped (counted, like spills), its pages reset to padding so the
-        flat/brute views never see stale vectors."""
+        """Free a cold cell's pages back to its shard's allocator: its rows
+        are dropped (counted, like spills), its pages reset to padding
+        where this device holds them, so the flat/brute views never see
+        stale vectors."""
         npg = int(self.pages_np[cell])
         pids = self.tables_np[cell, :npg].tolist()
-        gp = torch.as_tensor(pids, dtype=torch.long, device=self.device)
-        self.pool[gp] = _pad_value(self.dtype)
-        self.pool_ids[gp] = -1
-        if self.has_aux:
-            self.pool_aux[gp] = 0.0
+        sh = cell // self.cells_per_shard
+        if self._holds(np.int64(cell)):
+            gp = torch.as_tensor(self._pool_rows(
+                np.int64(cell), np.asarray(pids, np.int64)),
+                dtype=torch.long, device=self.device)
+            self.pool[gp] = _pad_value(self.dtype)
+            self.pool_ids[gp] = -1
+            if self.has_aux:
+                self.pool_aux[gp] = 0.0
         lost = int(self._counts_np[cell])
         self.evict_counts[cell] += lost
         self.evicted += lost
         self._counts_np[cell] = 0
         self.pages_np[cell] = 0
         self.tables_np[cell, :] = 0
-        self._free = sorted(self._free + pids)
+        self._frees[sh] = sorted(self._frees[sh] + pids)
 
     def _next_pps(self, pps: int) -> int:
-        """A pool of ``pps`` pages after one growth step (doubling, within
+        """A shard of ``pps`` pages after one growth step (doubling, within
         the byte budget); no larger when the budget is spent."""
         new_pps = 2 * pps
         if self.max_bytes is not None:
             new_pps = min(new_pps, self._budget_pps())
         return new_pps
 
-    def _reach(self, need: int) -> tuple[int, int]:
-        """``(pages, pps)``: the pages the free list and pool growth can
-        hand out before an eviction, growing (as the reference's allocator
-        does whenever its free list runs dry) no further than ``need``
-        asks, and the pool size that takes."""
-        avail, pps = len(self._free), self.pps
+    def _reach(self, need: int, shard: int) -> tuple[int, int]:
+        """``(pages, pps)``: the pages ``shard``'s free list and pool growth
+        can hand out before an eviction, growing (as the reference's
+        allocator does whenever a free list runs dry) no further than
+        ``need`` asks, and the pool size that takes."""
+        avail, pps = len(self._frees[shard]), self.pps
         while avail < need and (nxt := self._next_pps(pps)) > pps:
             avail += nxt - pps
             pps = nxt
         return avail, pps
 
-    def _take(self, n: int) -> list[int]:
-        """The ``n`` lowest free ids at once (``n`` within ``_reach``),
-        the pool grown first as the reference's allocator would."""
-        _, pps = self._reach(n)
+    def _take(self, n: int, shard: int) -> list[int]:
+        """``shard``'s ``n`` lowest free ids at once (``n`` within
+        ``_reach``), the pool grown first as the reference's allocator
+        would."""
+        _, pps = self._reach(n, shard)
         if pps > self.pps:
             self._grow_pool(pps)
-        taken, self._free = self._free[:n], self._free[n:]
+        free = self._frees[shard]
+        taken, self._frees[shard] = free[:n], free[n:]
         return taken
 
-    def _alloc(self, protect: np.ndarray) -> int | None:
-        """One free page (lowest id), via the free list, then pool growth
-        within the byte budget, then eviction (ref. l.667-689, the fallback
-        of ``_map_pages``); ``None`` = refused. The reference's eviction
-        loop waits on the free list it started with, which ``_evict``
-        replaces, so once the budget is spent it evicts every cell not in
-        ``protect`` (bool (K,)) that holds pages, coldest first, and then
-        refuses the page: the caller drops the cell's remaining rows, and
-        the next cell takes the freed pages. The port keeps that, so that
-        both stores hold the same pages (ROADMAP.md, queue C)."""
-        if self._free:
-            return self._free.pop(0)
+    def _alloc(self, shard: int, protect: np.ndarray) -> int | None:
+        """One free page of ``shard`` (lowest id), via its free list, then
+        pool growth within the byte budget, then eviction (ref. l.667-689,
+        the fallback of ``_map_pages``); ``None`` = refused. The reference's
+        eviction loop waits on the free list it started with, which
+        ``_evict`` replaces, so once the budget is spent it evicts every
+        cell of the shard not in ``protect`` (bool (K,)) that holds pages,
+        coldest first, and then refuses the page: the caller drops the
+        cell's remaining rows, and the next cell takes the freed pages. The
+        port keeps that, so that both stores hold the same pages (ROADMAP.md,
+        queue C)."""
+        if self._frees[shard]:
+            return self._frees[shard].pop(0)
         new_pps = self._next_pps(self.pps)
         if new_pps > self.pps:
             self._grow_pool(new_pps)
-            return self._free.pop(0)
-        cand = np.flatnonzero((self.pages_np > 0) & ~protect)
+            return self._frees[shard].pop(0)
+        lo = shard * self.cells_per_shard
+        span = slice(lo, lo + self.cells_per_shard)
+        cand = lo + np.flatnonzero((self.pages_np[span] > 0) & ~protect[span])
         for c in cand[np.argsort(self.last_touch[cand], kind="stable")]:
             self._evict(int(c))
         return None
 
     def _map_pages(self, ucells: np.ndarray, need: np.ndarray) -> dict:
-        """Give each cell of ``ucells`` (ascending) ``need`` pages, cell by
-        cell and page by page lowest id first, as the reference does:
-        the longest prefix of cells whose new pages fit without an
-        eviction takes its ids at once; from the first cell that needs an
-        eviction on, one page at a time through ``_alloc``. Returns
+        """Give each cell of ``ucells`` (ascending) ``need`` pages of its
+        shard, cell by cell and page by page lowest id first, as the
+        reference does. A shard's cells come one after another, so shard by
+        shard: the longest prefix of its cells whose new pages fit without
+        an eviction takes its ids at once; from the first cell that needs
+        an eviction on, one page at a time through ``_alloc``. Returns
         ``{cell: first unstorable slot}`` for cells the budget cannot
         hold."""
         ps = self.page_size
-        have = self.pages_np[ucells].astype(np.int64)
-        new = np.maximum(need - have, 0)
         for n in need[need > self.maxp]:       # tables widen in cell order
             if n > self.maxp:
                 self._grow_tables(int(n))
-        total = np.cumsum(new)
-        # the longest prefix the free list and pool growth can hold
-        avail, _ = self._reach(int(total[-1]) if total.size else 0)
-        m = int(np.searchsorted(total, avail, side="right"))
-        if m:
-            ids = np.asarray(self._take(int(total[m - 1])), np.int32)
-            nm = new[:m]
-            # (cell, page) of each new page, cell-major: a cell's pages
-            # from its count of pages on
-            rank = np.arange(ids.size) - np.repeat(total[:m] - nm, nm)
-            self.tables_np[np.repeat(ucells[:m], nm),
-                           np.repeat(have[:m], nm) + rank] = ids
-            self.pages_np[ucells[:m]] = np.maximum(have[:m], need[:m])
-        drop_from = {}
-        if m < ucells.size:
-            protect = np.zeros(self.k, bool)
-            protect[ucells] = True
-            for c, n in zip(ucells[m:], need[m:]):
-                c = int(c)
-                for p in range(int(self.pages_np[c]), int(n)):
-                    pid = self._alloc(protect)
-                    if pid is None:           # budget truly exhausted
-                        drop_from[c] = p * ps
-                        break
-                    self.tables_np[c, p] = pid
-                    self.pages_np[c] = p + 1
+        shard = ucells // self.cells_per_shard
+        drop_from, protect = {}, None
+        for sh in np.unique(shard):
+            sel = shard == sh
+            uc, nd = ucells[sel], need[sel]
+            have = self.pages_np[uc].astype(np.int64)
+            new = np.maximum(nd - have, 0)
+            total = np.cumsum(new)
+            # the longest prefix the free list and pool growth can hold
+            avail, _ = self._reach(int(total[-1]) if total.size else 0,
+                                   int(sh))
+            m = int(np.searchsorted(total, avail, side="right"))
+            if m:
+                ids = np.asarray(self._take(int(total[m - 1]), int(sh)),
+                                 np.int32)
+                nm = new[:m]
+                # (cell, page) of each new page, cell-major: a cell's pages
+                # from its count of pages on
+                rank = np.arange(ids.size) - np.repeat(total[:m] - nm, nm)
+                self.tables_np[np.repeat(uc[:m], nm),
+                               np.repeat(have[:m], nm) + rank] = ids
+                self.pages_np[uc[:m]] = np.maximum(have[:m], nd[:m])
+            if m < uc.size:
+                if protect is None:
+                    protect = np.zeros(self.k, bool)
+                    protect[ucells] = True
+                for c, n in zip(uc[m:], nd[m:]):
+                    c = int(c)
+                    for p in range(int(self.pages_np[c]), int(n)):
+                        pid = self._alloc(int(sh), protect)
+                        if pid is None:           # budget truly exhausted
+                            drop_from[c] = p * ps
+                            break
+                        self.tables_np[c, p] = pid
+                        self.pages_np[c] = p + 1
         return drop_from
 
     # -- the contract --------------------------------------------------
@@ -858,15 +994,23 @@ class PagedBucketStore(BucketStore):
             cells, slots, ids, x_sorted, aux = self._keep_rows(
                 ~over, cells, slots, ids, x_sorted, aux)
         if cells.size:
-            gj = torch.as_tensor(self.tables_np[cells, slots // ps],
-                                 dtype=torch.long, device=self.device)
-            sj = torch.as_tensor(slots % ps, device=self.device)
-            self.pool[gj, sj] = x_sorted.to(self.dtype)
-            self.pool_ids[gj, sj] = torch.as_tensor(ids, device=self.device)
-            if self.has_aux and aux is not None:
-                self.pool_aux[gj, sj] = aux.float()
             self._counts_np += np.bincount(
                 cells, minlength=self.k).astype(np.int64)
+            held = self._holds(cells)
+            if not held.all():   # a placed store writes its own cells only
+                cells, slots, ids, x_sorted, aux = self._keep_rows(
+                    held, cells, slots, ids, x_sorted, aux)
+            if cells.size:
+                gj = torch.as_tensor(
+                    self._pool_rows(cells, self.tables_np[cells,
+                                                          slots // ps]),
+                    dtype=torch.long, device=self.device)
+                sj = torch.as_tensor(slots % ps, device=self.device)
+                self.pool[gj, sj] = x_sorted.to(self.dtype)
+                self.pool_ids[gj, sj] = torch.as_tensor(ids,
+                                                        device=self.device)
+                if self.has_aux and aux is not None:
+                    self.pool_aux[gj, sj] = aux.float()
         if ucells.size:                  # write-recency LRU clock
             self._tick += 1
             self.last_touch[ucells] = self._tick
@@ -885,56 +1029,71 @@ class PagedBucketStore(BucketStore):
         return (self.pool, self.pool_ids, self.tables)
 
     def scan_view(self) -> ScanView:
-        return ScanView(self.pool, self.pool_ids, self.tables_sentinel,
+        return ScanView(self.pool, self.pool_ids, self._scan_table,
                         self.counts_sentinel, self.page_size, self.pool_aux)
 
-    def _dense_pages(self) -> torch.Tensor:
-        return torch.as_tensor(self.tables_np.reshape(-1), dtype=torch.long,
-                               device=self.device)
+    def _dense_of(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole store's ``(K, maxp * page_size, ...)`` slot view of a
+        per-slot pool tensor (gathered over the cells axis when placed)."""
+        lo, kl = self.lo, self.k_owned
+        gp = torch.as_tensor(self._pool_rows(
+            np.arange(lo, lo + kl)[:, None], self.tables_np[lo:lo + kl]
+        ).reshape(-1), dtype=torch.long, device=self.device)
+        return self._whole(t[gp].reshape(kl, self.maxp * self.page_size,
+                                         *t.shape[2:]))
 
     def dense(self):
-        gp, w = self._dense_pages(), self.maxp * self.page_size
-        return (self.pool[gp].reshape(self.k, w, self.d),
-                self.pool_ids[gp].reshape(self.k, w))
+        return self._dense_of(self.pool), self._dense_of(self.pool_ids)
 
     def dense_aux(self):
-        return self.pool_aux[self._dense_pages()].reshape(
-            self.k, self.maxp * self.page_size)
+        return self._dense_of(self.pool_aux)
 
     def dense_ids(self):
-        return self.pool_ids[self._dense_pages()].reshape(
-            self.k, self.maxp * self.page_size)
+        return self._dense_of(self.pool_ids)
 
     def flat(self):
-        # pad pages carry _PAD_COORD/-1: safe to scan wholesale
-        return self.pool.reshape(-1, self.d), self.pool_ids.reshape(-1)
+        # pad pages carry _PAD_COORD/-1: safe to scan wholesale; the shards'
+        # slices gathered in shard order are the reference's pool
+        return (self._whole(self.pool).reshape(-1, self.d),
+                self._whole(self.pool_ids).reshape(-1))
 
     def _occupied(self) -> np.ndarray:
-        """Occupied pages, cell-major in page order."""
+        """Occupied pages as rows of this device's pool, cell-major in page
+        order (an unplaced store's)."""
         mask = np.arange(self.maxp)[None, :] < self.pages_np[:, None]
-        return self.tables_np[mask].astype(np.int64)
+        rows = self._pool_rows(np.arange(self.k)[:, None], self.tables_np)
+        return rows[mask].astype(np.int64)
+
+    def _packed(self, t: torch.Tensor) -> np.ndarray:
+        """``t``'s occupied pages in cell-major page order (on a placed
+        store from the gathered slot view)."""
+        if self._pctx is None:
+            return t[torch.as_tensor(self._occupied(),
+                                     device=self.device)].cpu().numpy()
+        mask = np.arange(self.maxp)[None, :] < self.pages_np[:, None]
+        dense = self._dense_of(t).reshape(self.k, self.maxp, *t.shape[1:])
+        return dense[torch.as_tensor(mask, device=self.device)].cpu().numpy()
 
     def state_arrays(self):
         # canonical packed form: occupied pages in cell-major page order
         # (physical page ids / free-list fragmentation never serialize)
-        gp = torch.as_tensor(self._occupied(), device=self.device)
-        out = {"pool_pages": self.pool[gp].cpu().numpy(),
-               "pool_page_ids": self.pool_ids[gp].cpu().numpy(),
+        out = {"pool_pages": self._packed(self.pool),
+               "pool_page_ids": self._packed(self.pool_ids),
                "cell_pages": self.pages_np.astype(np.int32),
                "counts": self.counts.cpu().numpy(),
                "last_touch": self.last_touch.copy(),
                "spill_counts": self.spill_counts.copy(),
                "evict_counts": self.evict_counts.copy()}
         if self.has_aux:
-            out["pool_page_aux"] = self.pool_aux[gp].cpu().numpy()
+            out["pool_page_aux"] = self._packed(self.pool_aux)
         return out
 
     def meta(self):
         return {"kind": self.kind, "page_size": self.page_size,
-                "pps": self.pps, "maxp": self.maxp, "n_shards": 1,
-                "max_cap": self.max_cap, "max_bytes": self.max_bytes,
-                "spilled": int(self.spilled), "evicted": int(self.evicted),
-                "tick": int(self._tick)}
+                "pps": self.pps, "maxp": self.maxp,
+                "n_shards": self._n_shards, "max_cap": self.max_cap,
+                "max_bytes": self.max_bytes, "spilled": int(self.spilled),
+                "evicted": int(self.evicted), "tick": int(self._tick)}
 
     @classmethod
     def restore(cls, host, meta, *, k, d, dtype, device=None):
@@ -959,7 +1118,7 @@ class PagedBucketStore(BucketStore):
         st.tables_np = np.zeros((k, st.maxp), np.int32)
         mask = np.arange(st.maxp)[None, :] < cell_pages[:, None]
         st.tables_np[mask] = np.arange(1, n_occ + 1, dtype=np.int32)
-        st._free = list(range(n_occ + 1, pps))
+        st._frees = [list(range(n_occ + 1, pps))]
 
         def pool_of(shape, fill, dt, pages):
             t = torch.full((pps, *shape), fill, dtype=dt, device=st.device)
@@ -987,7 +1146,10 @@ class PagedBucketStore(BucketStore):
         return st
 
     def resident_bytes(self) -> int:
-        return self.pps * self._page_bytes() + self.k * self.maxp * 4
+        """Bytes this rank's device holds (its shard's pages and its cells'
+        tables on a placed store)."""
+        return (self._held[1] * self.pps * self._page_bytes()
+                + self.k_owned * self.maxp * 4)
 
     def occupied_pages(self) -> int:
         return int(self.pages_np.sum())
@@ -995,7 +1157,8 @@ class PagedBucketStore(BucketStore):
     def __repr__(self):
         return (f"PagedBucketStore(k={self.k}, d={self.d}, "
                 f"page_size={self.page_size}, pages={self.occupied_pages()}"
-                f"/{self.pps}, evicted={self.evicted})")
+                f"/{self._n_shards * self.pps}, shards={self._n_shards}, "
+                f"evicted={self.evicted})")
 
 
 # ---------------------------------------------------------------------------
@@ -1183,14 +1346,19 @@ class QuantizedBucketStore(BucketStore):
         # cell K (see ``_upload_counts``); ``anchors`` is its first K
         a = torch.as_tensor(anchors).to(device=self.device,
                                         dtype=torch.float32)
-        self.anchors_sentinel = torch.cat([a, a.new_zeros((1, a.shape[1]))])
-        self.anchors = self.anchors_sentinel[:a.shape[0]]
+        self._anchors_all = a           # all K (the owned rows: ``anchors``)
+        self._set_anchors(a)
         self.reservoir = reservoir
         self.cache = cache              # DeviceRescoreCache | None
         self.dtype = logical_dtype      # what consumers feed us
         self.k, self.d = inner.k, inner.d
 
+    def _set_anchors(self, a: torch.Tensor) -> None:
+        self.anchors_sentinel = torch.cat([a, a.new_zeros((1, a.shape[1]))])
+        self.anchors = self.anchors_sentinel[:a.shape[0]]
+
     kind = property(lambda self: self._inner.kind)
+    n_shards = property(lambda self: self._inner.n_shards)
     codec_kind = property(lambda self: self.codec.kind)
     counts = property(lambda self: self._inner.counts)
     counts_sentinel = property(lambda self: self._inner.counts_sentinel)
@@ -1233,15 +1401,34 @@ class QuantizedBucketStore(BucketStore):
             return
         cj = torch.as_tensor(np.asarray(cells), device=self.device)
         x32 = x_sorted.float()
-        codes, scales = self.codec.encode(x32, self.anchors[cj])
+        codes, scales = self.codec.encode(x32, self._anchors_all[cj])
         if self.reservoir is not None:
             self.reservoir.put(np.asarray(ids), x32.cpu().numpy())
         if self.cache is not None:      # the device rows, no host copy
-            self.cache.put(ids, x32)
+            self.cache.put(ids, x32, shard=self._cache_shard(cells))
         self._inner.append(cells, codes, ids, aux=scales)
+
+    def _cache_shard(self, cells) -> np.ndarray | None:
+        """Each row's home K-shard (``cell // (K / shards)``), as the
+        reference's ``append`` passes it (l.1117-1121); None on one."""
+        if self.cache.shards == 1:
+            return None
+        return np.asarray(cells) // (self.k // self.cache.shards)
 
     def device_arrays(self):
         return (*self._inner.device_arrays(), self.anchors)
+
+    def shard_specs(self, ka) -> tuple:
+        return (*self._inner.shard_specs(ka), (ka, None))
+
+    def place(self, pctx) -> None:
+        """The inner store's ``place``, the owned anchors (with the shard's
+        sentinel row, zero) and the cache's owned slice (ref. l.1100-1106)."""
+        self._inner.place(pctx)
+        lo, kl = self._inner.lo, self._inner.k_owned
+        self._set_anchors(self._anchors_all[lo:lo + kl])
+        if self.cache is not None:
+            self.cache.place(pctx)
 
     def scan_view(self) -> ScanView:
         """The inner store's view with its scales and ``anchors_sentinel``."""
@@ -1260,16 +1447,19 @@ class QuantizedBucketStore(BucketStore):
         if self.cache is None or self.reservoir is None:
             return
         ids = self._inner.dense_ids().cpu().numpy()
-        ids_v = ids[ids >= 0]
+        cells = np.broadcast_to(np.arange(self.k)[:, None], ids.shape)
+        live = ids >= 0
+        ids_v, cells_v = ids[live], cells[live]
         rows, found = self.reservoir.lookup(ids_v)
-        self.cache.put(ids_v[found], rows[found])
+        self.cache.put(ids_v[found], rows[found],
+                       shard=self._cache_shard(cells_v[found]))
 
     def dense(self):
         """Decoded f32 view with the reservoir's original rows overlaid —
         the rows two-phase rescore scores, so brute force and two-phase
         search score identical rows. Padding slots hold ``_PAD_COORD``."""
         codes, ids = self._inner.dense()
-        x = self.anchors.unsqueeze(1) + codes.float() * \
+        x = self._anchors_all.unsqueeze(1) + codes.float() * \
             self._inner.dense_aux().unsqueeze(-1)
         if self.reservoir is not None:
             rows, found = self.reservoir.lookup(ids.cpu().numpy())
@@ -1289,7 +1479,7 @@ class QuantizedBucketStore(BucketStore):
 
     def state_arrays(self):
         out = self._inner.state_arrays()
-        out["anchors"] = self.anchors.cpu().numpy()
+        out["anchors"] = self._anchors_all.cpu().numpy()
         if self.reservoir is not None:
             out.update(self.reservoir.state_arrays())
         return out
@@ -1333,7 +1523,8 @@ class QuantizedBucketStore(BucketStore):
 
     def resident_bytes(self) -> int:
         extra = 0 if self.cache is None else self.cache.resident_bytes()
-        return self._inner.resident_bytes() + self.k * self.d * 4 + extra
+        return (self._inner.resident_bytes() + self.anchors.numel() * 4
+                + extra)
 
     def payload_bytes(self) -> int:
         """Device bytes of the codes, ids and scales alone (ref. l.1247):
@@ -1392,7 +1583,7 @@ def make_quantized_store(kind: str | None, k: int, d: int, dtype, *,
                                  max_cap=max_cap, page_size=page_size or 64,
                                  max_bytes=max_bytes, n_shards=n_shards,
                                  aux=True, device=device)
-    cache = DeviceRescoreCache(d, max_bytes=rescore_bytes,
+    cache = DeviceRescoreCache(d, max_bytes=rescore_bytes, shards=n_shards,
                                device=inner.device) \
         if rescore == "device" else None
     res = RescoreReservoir(d, max_bytes=rescore_bytes) if reservoir \

@@ -48,7 +48,7 @@ SIGNATURES = {
     "fk_sort_inverse_layout": (_I, _I, _I, _I, _I, ctypes.POINTER(_I)),
     # x, c, csq, c split, a, sums, counts, inertia partials, B, N, K, dp,
     # cluster, grid_x, is_bf16, stream
-    "fk_flash_lloyd": (_P,) * 8 + (_I,) * 7 + (_P,),
+    "fk_flash_lloyd": (_P,) * 9 + (_I,) * 7 + (_P,),
     # is_bf16, dp, K, cluster, dynamic bytes out, static bytes out
     "fk_flash_lloyd_smem": (_I,) * 4 + (ctypes.POINTER(_I),) * 2,
     # is_bf16, dp, K, cluster, resident clusters out

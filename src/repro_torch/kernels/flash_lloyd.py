@@ -11,7 +11,10 @@ the distributed shared memory of a thread-block cluster of ``C`` in
 ``CLUSTERS`` CTAs, a slice of ``ceil(K / C)`` rows each, so one CTA needs
 ``smem_bytes(K, d, itemsize, C)``. Each CTA's adder warps add the rows
 whose ids it owns, read from every CTA's published tile, with plain shared
-loads and stores: no atomic on the add path. The planner
+loads and stores: no atomic on the add path. The order of every addition
+is fixed by the inputs (the adders' lists by listing warp, the clusters'
+slices folded in cluster order from a scratch buffer by a second kernel),
+so the statistics are the same bits from run to run. The planner
 (``core.heuristics.choose_lloyd_cluster``) takes the smallest ``C`` that
 fits; past ``C = 8``'s window this wrapper raises ("use the two-pass
 path").
@@ -144,16 +147,20 @@ def flash_lloyd_raw(x: torch.Tensor, c: torch.Tensor, *,
     is_bf16 = x.dtype == torch.bfloat16
     dev = x.device
     a = torch.empty((b, n), dtype=torch.int32, device=dev)
-    # the sums and counts in one zeroed buffer (one memset)
-    stats = torch.zeros(b * k * (dp + 1), dtype=torch.float32, device=dev)
+    if n == 0:
+        return (a, torch.zeros((b, k, d), device=dev),
+                torch.zeros((b, k), device=dev), torch.zeros(b, device=dev))
+    # the sums and counts in one buffer, written whole by plain stores
+    stats = torch.empty(b * k * (dp + 1), dtype=torch.float32, device=dev)
     sums = stats[:b * k * dp].view(b, k, dp)
     counts = stats[b * k * dp:].view(b, k)
-    if n == 0:
-        return (a, sums[..., :d].contiguous(), counts,
-                torch.zeros(b, device=dev))
     grid_x = grid_width(active_clusters(dev, is_bf16, dp, k, cluster), b, n,
                         cluster)
     part = torch.empty((b, grid_x), dtype=torch.float32, device=dev)
+    # each cluster's slices, folded in cluster order (none with one cluster)
+    ncl = grid_x // cluster
+    fold = torch.empty((b * ncl * k * (dp + 1) if ncl > 1 else 0,),
+                       dtype=torch.float32, device=dev)
     # ||c||^2 padded with +inf to a multiple of the centroid tile, and for
     # f32 the centroids' tf32 split, written by the prologue
     csq = torch.empty((b, -(-k // TILE_K) * TILE_K), dtype=torch.float32,
@@ -162,8 +169,8 @@ def flash_lloyd_raw(x: torch.Tensor, c: torch.Tensor, *,
                         device=dev)
     code = _build.lib().fk_flash_lloyd(
         x.data_ptr(), c.data_ptr(), csq.data_ptr(), split.data_ptr(),
-        a.data_ptr(), sums.data_ptr(), counts.data_ptr(), part.data_ptr(), b,
-        n, k, dp, cluster, grid_x, int(is_bf16),
+        a.data_ptr(), sums.data_ptr(), counts.data_ptr(), fold.data_ptr(),
+        part.data_ptr(), b, n, k, dp, cluster, grid_x, int(is_bf16),
         _build.stream_ptr(dev))
     _build.check(code, "flash_lloyd kernel launch")
     launches += 1

@@ -30,8 +30,9 @@ adds between automatic snapshots) and runs the reference's demo:
 snapshot, drop the engine, ``recover``, and check that the restored
 engine's search returns the same ids.
 
-``--mesh DATAxCELLS`` builds and serves the padded fp32 flat index sharded
-over a ``DATA x CELLS`` mesh (``core.parallel``): under ``torchrun`` (the
+``--mesh DATAxCELLS`` builds and serves the index sharded over a ``DATA x
+CELLS`` mesh (``core.parallel``), with any ``--store``, ``--codec`` and
+``--router``: under ``torchrun`` (the
 rendezvous from the environment, NCCL, one rank a card; gloo with
 ``--device cpu``), or without it at world size 1 for ``--mesh 1x1``. A
 mesh whose size is not the world's raises ``ValueError``. Every rank builds the same corpus from ``--seed``; only
@@ -40,8 +41,8 @@ batch beside queries/s.
 
 Not ported yet (ROADMAP.md, queue A), and refused with
 ``NotImplementedError``: ``--mode dense|clustered`` (items 7-8), and
-``--mesh`` with ``--store paged``, ``--codec q8``, ``--router two_level``,
-``--health``, ``--chaos-seed`` or ``--snapshot-dir`` (item 6b).
+``--mesh`` with ``--health``, ``--chaos-seed`` or ``--snapshot-dir`` (item
+6b).
 """
 from __future__ import annotations
 
@@ -61,9 +62,6 @@ def _refuse_unported(args) -> None:
         raise _not_ported(f"--mode {args.mode} (LM serving)", "items 7-8")
     if args.mesh is not None:
         given = [flag for flag, on in (
-            ("--store paged", args.store == "paged"),
-            ("--codec q8", args.codec == "q8"),
-            ("--router two_level", args.router == "two_level"),
             ("--health", args.health),
             ("--chaos-seed", args.chaos_seed is not None),
             ("--snapshot-dir", args.snapshot_dir is not None)) if on]
@@ -199,8 +197,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="cuda (default) or cpu (the plain versions)")
     ap.add_argument("--mesh", default=None,
                     help="serve on a DATAxCELLS mesh (e.g. 2x2): the "
-                         "sharded padded fp32 flat index; run under "
-                         "torchrun with DATA*CELLS ranks (1x1: no torchrun)")
+                         "sharded index; run under torchrun with "
+                         "DATA*CELLS ranks (1x1: no torchrun)")
     ap.add_argument("--n", type=int, default=20_000)
     ap.add_argument("--d", type=int, default=64)
     ap.add_argument("--kc", type=int, default=64,

@@ -1,8 +1,10 @@
 """One rank of the port's parallel-layer checks on the CPU (gloo).
 
-    PYTHONPATH=src python tests/_torch_parallel_worker.py RANK WORLD STORE OUT
+    PYTHONPATH=src python tests/_torch_parallel_worker.py RANK WORLD STORE OUT [axes]
 
-Run WORLD copies at once (``tests/test_torch_parallel_ranks.py`` starts 4):
+Run WORLD copies at once (``tests/test_torch_parallel_ranks.py`` starts 4;
+with ``axes``, ``tests/test_torch_parallel_axes.py`` starts 4 that drive the
+sharded index's other axes instead, ``axes()``):
 each rendezvouses through the ``FileStore`` at STORE, builds the meshes of
 the cases below, drives the port's multi-rank programs on the same global
 inputs (``inputs()``, made from numpy seeds) and writes what it got to
@@ -50,7 +52,74 @@ def inputs() -> dict:
         "tie_pts": np.array([[3.0, 0.0], [7.0, 0.0]], np.float32),
         "tie_q": np.array([[5.0, 0.0]], np.float32),
     }
+    # a two-level router over the blob centres: 4 groups, each fine cell in
+    # the group of its nearest coarse centre
+    coarse = centers[[0, 5, 10, 15]].copy()
+    out["coarse"] = coarse
+    out["owner"] = ((centers[:, None] - coarse[None]) ** 2).sum(-1).argmin(
+        1).astype(np.int32)
     return out
+
+
+# the sharded indexes of ``axes()``: name -> IVFIndex keywords
+AXES = {
+    "paged": dict(store="paged", page_size=8),
+    "q8": dict(codec="q8"),
+    "q8_host": dict(codec="q8", rescore="host"),
+    "q8_paged": dict(codec="q8", store="paged", page_size=8),
+    "q8_paged_host": dict(codec="q8", store="paged", page_size=8,
+                          rescore="host"),
+    "routed": dict(router="two_level"),
+    "routed_q8": dict(router="two_level", codec="q8", store="paged",
+                      page_size=8),
+}
+
+
+def axes(rank: int, world: int, store: str, out: str) -> None:
+    """The sharded index's other axes on a 2x2 mesh: paged, q8 (padded and
+    paged, device cache and host oracle) and two-level, each built over
+    the blob centres, then an add, searches at nprobe 4 and K, a second add
+    and a refresh, and the searches again. The same index on one device
+    runs beside it (``one/...``)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.parallel import ParallelContext, build_mesh
+    from repro_torch.index import IVFIndex
+    from repro_torch.index.router import TwoLevelRouter
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    inp = inputs()
+    t = {k: torch.from_numpy(v) for k, v in inp.items()
+         if isinstance(v, np.ndarray)}
+    res: dict[str, np.ndarray] = {}
+    pctx = ParallelContext.for_mesh(build_mesh((2, 2), ("data", "model"),
+                                               device_type="cpu"))
+    for name, kw in AXES.items():
+        for tag, ctx in ((name, pctx), (f"one/{name}", None)):
+            if "router" in kw:
+                kw = dict(kw, router=TwoLevelRouter(
+                    inp["coarse"], inp["owner"], nprobe_c=2, device="cpu"))
+            idx = IVFIndex(t["centers"], 128, pctx=ctx, device="cpu", **kw)
+            res[f"{tag}/add"] = idx.add(t["x"]).numpy()
+            for npb in (4, K):
+                ids, d = idx.search(t["q"], topk=10, nprobe=npb)
+                res[f"{tag}/search{npb}/ids"] = ids.numpy()
+                res[f"{tag}/search{npb}/dists"] = d.numpy()
+            idx.add(t["x2"])
+            idx.refresh()
+            for npb in (4, K):
+                ids, d = idx.search(t["q_ragged"], topk=10, nprobe=npb)
+                res[f"{tag}/after{npb}/ids"] = ids.numpy()
+                res[f"{tag}/after{npb}/dists"] = d.numpy()
+            res[f"{tag}/counts"] = idx.counts.numpy()
+            res[f"{tag}/lists"] = idx.posting_lists()[0].numpy()
+            res[f"{tag}/bytes"] = np.array(idx.search_collective_bytes(
+                64, 10, 4))
+    np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
+    dist.destroy_process_group()
 
 
 def main(rank: int, world: int, store: str, out: str) -> None:
@@ -178,4 +247,5 @@ def main(rank: int, world: int, store: str, out: str) -> None:
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    run = axes if sys.argv[5:] == ["axes"] else main
+    run(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])

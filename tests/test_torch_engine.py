@@ -374,10 +374,12 @@ def test_launcher_serves_search_on_the_cpu(codec, capsys):
 
 @pytest.mark.parametrize("flags,item", [
     (["--mode", "dense"], "items 7-8"), (["--mode", "clustered"], "items 7-8"),
-    (["--mesh", "1x1", "--store", "paged"], "item 6")])
+    (["--mesh", "1x1", "--health"], "item 6")])
 def test_launcher_refuses_what_is_not_ported(flags, item):
-    """``--mesh`` itself is ported (``test_launcher_serves_a_mesh_of_one``);
-    its paged store waits for item 6b."""
+    """``--mesh`` itself is ported (``test_launcher_serves_a_mesh_of_one``),
+    with the paged store, q8 and the two-level router
+    (``test_launcher_mesh_serves_the_6b_axes``); its health policy waits
+    for item 6b."""
     from repro_torch.launch import serve
     with pytest.raises(NotImplementedError, match=f"queue A {item}"):
         serve.main(["--device", "cpu", *flags])
@@ -464,12 +466,33 @@ def test_launcher_mesh_must_fill_the_world():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--store", "paged"], ["--codec", "q8"], ["--router", "two_level"],
+    ["--store", "paged", "--health"], ["--codec", "q8", "--chaos-seed", "7"],
+    ["--router", "two_level", "--snapshot-dir", "SNAP"],
     ["--health"], ["--chaos-seed", "7"], ["--snapshot-dir", "SNAP"]])
 def test_launcher_mesh_refuses_what_6b_ports(flags):
+    """The reliability flags over a mesh wait for item 6b, beside any of the
+    axes it has ported."""
     from repro_torch.launch import serve
     with pytest.raises(NotImplementedError, match="queue A item 6b"):
         serve.main(["--device", "cpu", "--mesh", "2x2", *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--store", "paged", "--page-size", "16"], ["--codec", "q8"],
+    ["--codec", "q8", "--rescore", "host", "--store", "paged"],
+    ["--router", "two_level"]])
+def test_launcher_mesh_serves_the_6b_axes(flags, capsys):
+    """``--mesh`` with ``--store paged``, ``--codec q8`` and ``--router
+    two_level`` (queue A item 6b, parts 1-3) serves a search at world 1
+    and leaves no process group behind."""
+    import torch.distributed as dist
+    from repro_torch.launch import serve
+    out = serve.main(["--mode", "search", "--device", "cpu", "--n", "2000",
+                      "--d", "16", "--kc", "16", "--queries", "32",
+                      "--reps", "2", "--mesh", "1x1", *flags])
+    assert out["recall"] >= 0.9 and out["collective_bytes"] == 0
+    assert "sharded serving: ParallelContext" in capsys.readouterr().out
+    assert not dist.is_initialized()
 
 
 @pytest.mark.parametrize("flags", [

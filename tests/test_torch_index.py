@@ -323,15 +323,35 @@ def test_index_defaults_to_cuda_and_raises_without_it(monkeypatch):
     assert IVFIndex(c, 8, device="cpu").device.type == "cpu"
 
 
-# the device rescore cache and the sharded padded flat index are ported; a
-# cache sharded over a mesh and a sharded two-level index are not (item 6b)
-@pytest.mark.parametrize("kw", [{"pctx": object(), "router": "two_level"},
-                                {"codec": "q8", "rescore": "device",
-                                 "pctx": object()}],
+@pytest.fixture(scope="module")
+def one_rank(tmp_path_factory):
+    """A gloo world of one rank and a context over a 1x1 mesh with an
+    explicit cells axis, destroyed at the module's end."""
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch.core import parallel as par
+    store = dist.FileStore(str(tmp_path_factory.mktemp("pg") / "store"), 1)
+    dist.init_process_group("gloo", store=store, rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    yield par.ParallelContext(par.build_mesh((1, 1), ("data", "model"),
+                                             device_type="cpu"),
+                              k_axis="model")
+    dist.destroy_process_group()
+
+
+# a sharded two-level index and a q8 index whose cache is sharded over a mesh
+# are ported (item 6b, parts 1-3); their snapshots are not (item 6b, part 5)
+@pytest.mark.parametrize("kw", [{"router": "two_level"},
+                                {"codec": "q8", "rescore": "device"}],
                          ids=["pctx", "rescore-device"])
-def test_unported_options_raise(kw):
+def test_unported_options_raise(kw, one_rank, tmp_path):
+    c = np.random.default_rng(2).standard_normal((4, 8)).astype(np.float32)
+    idx = IVFIndex(c, 8, device="cpu", pctx=one_rank, **kw)
+    assert idx.router.kind == kw.get("router", "flat")
+    assert idx.store.codec_kind == kw.get("codec", "fp32")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        IVFIndex(np.zeros((4, 8), np.float32), 8, device="cpu", **kw)
+        idx.save(str(tmp_path))
 
 
 # the paged store's options (they raised before the paged store was ported)
@@ -489,14 +509,15 @@ def test_q8_search_without_reservoir_matches_jax():
                                rtol=1e-5, atol=_atol(q, x))
 
 
-def test_unported_entry_points_raise(tmp_path):
+def test_unported_entry_points_raise(tmp_path, one_rank):
     x, _ = _blobs(13, 64, 4, 8)
     # the out-of-core build is ported (tests/test_torch_chunked.py)
     assert len(IVFIndex.build(x, k=4, device="cpu", chunk_size=16)) == 64
-    # the sharded index is ported (tests/test_torch_parallel*.py) on the
-    # padded store; the paged one over a mesh waits for item 6b
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        IVFIndex.build(x, k=4, device="cpu", pctx=object(), store="paged")
+    # the sharded index is ported (tests/test_torch_parallel*.py), the paged
+    # one too; restoring onto a mesh waits for item 6b
+    paged = IVFIndex.build(x, k=4, device="cpu", pctx=one_rank,
+                           store="paged")
+    assert paged.store.kind == "paged" and len(paged) == 64
     # save, load and faults are ported (tests/test_torch_snapshot.py,
     # tests/test_torch_reliability.py): a round trip, and an injector
     idx = IVFIndex(x[:4], 8, device="cpu")

@@ -86,7 +86,7 @@ def test_allocator_state_matches_jax(case):
         tst.append(cells, torch.from_numpy(x), ids, aux=ta)
         assert np.array_equal(tst.tables_np, jst.tables_np)
         assert np.array_equal(tst.pages_np, jst.pages_np)
-        assert tst._free == jst._free[0]
+        assert tst._frees == jst._free
         assert np.array_equal(tst.last_touch, jst.last_touch)
         assert tst._tick == jst._tick
         assert np.array_equal(tst.evict_counts, jst.evict_counts)
@@ -112,7 +112,7 @@ def test_allocator_state_matches_jax(case):
                                     dtype=torch.float32, device="cpu")
     jback = JPaged.restore(host, jst.meta(), k=k, d=4, dtype=jnp.float32)
     assert np.array_equal(back.tables_np, jback.tables_np)
-    assert back._free == jback._free[0] and back.meta() == \
+    assert back._frees == jback._free and back.meta() == \
         jback.meta()
     assert np.array_equal(back.dense_ids().numpy(),
                           np.asarray(jback.dense_ids()))
@@ -128,7 +128,7 @@ def test_first_add_takes_its_pages_at_once():
               np.arange(cells.size, dtype=np.int32))
     assert st.occupied_pages() == k
     assert np.array_equal(st.tables_np[:, 0], np.arange(1, k + 1))
-    assert st.pps == 8192 and st._free == list(range(k + 1, 8192))
+    assert st.pps == 8192 and st._frees == [list(range(k + 1, 8192))]
 
 
 # --- search through both packages ------------------------------------------------

@@ -291,39 +291,39 @@ def test_streaming_rejects_a_k_sharded_context(world):
 # --- what waits for queue A item 6b ------------------------------------------
 
 def test_the_sharded_index_refuses_what_6b_ports(world, tmp_path):
+    """Its paged, q8 and two-level axes are ported (item 6b, parts 1-3;
+    tests/test_torch_parallel_axes.py); over each of them the reliability
+    options, snapshots and faults still raise."""
     from repro_torch.index import IVFIndex
     from repro_torch.reliability import FaultInjector, FaultPlan, HealthPolicy
     from repro_torch.serve import SearchConfig, SearchEngine
     pk = ParallelContext(_mesh(), k_axis="model")
     x = torch.randn(64, 4, generator=torch.Generator().manual_seed(3))
-    for kw in (dict(store="paged"), dict(codec="q8"),
+    for kw in (dict(), dict(store="paged"), dict(codec="q8"),
                dict(router="two_level")):
+        idx = IVFIndex(x[:4], 8, pctx=pk, **kw)
+        idx.add(x)
+        for rkw in (dict(guard=True), dict(repair_dead=True)):
+            with pytest.raises(NotImplementedError, match="queue A item 6b"):
+                idx.refresh(**rkw)
         with pytest.raises(NotImplementedError, match="queue A item 6b"):
-            IVFIndex(x[:4], 8, pctx=pk, **kw)
+            idx.save(str(tmp_path))
         with pytest.raises(NotImplementedError, match="queue A item 6b"):
-            IVFIndex.build(x, k=4, pctx=pk, **kw)
-    idx = IVFIndex(x[:4], 8, pctx=pk)
-    idx.add(x)
-    for kw in (dict(guard=True), dict(repair_dead=True)):
+            SearchEngine(idx, health=HealthPolicy())
         with pytest.raises(NotImplementedError, match="queue A item 6b"):
-            idx.refresh(**kw)
-    with pytest.raises(NotImplementedError, match="queue A item 6b"):
-        idx.save(str(tmp_path))
+            SearchEngine(idx, SearchConfig(snapshot_dir=str(tmp_path)))
+        idx.faults = FaultInjector(FaultPlan([]))
+        with pytest.raises(NotImplementedError, match="queue A item 6b"):
+            idx.search(x[:2], topk=2, nprobe=2)
+        idx.faults = None
+        eng = SearchEngine(idx, SearchConfig(topk=2, nprobe=2,
+                                             query_batch=4))
+        ids, _ = eng.search(x[:3])
+        assert torch.equal(ids, idx.search(x[:3], topk=2, nprobe=2)[0])
     with pytest.raises(NotImplementedError, match="queue A item 6b"):
         IVFIndex.load(str(tmp_path), pctx=pk)
     with pytest.raises(NotImplementedError, match="queue A item 6b"):
-        SearchEngine(idx, health=HealthPolicy())
-    with pytest.raises(NotImplementedError, match="queue A item 6b"):
-        SearchEngine(idx, SearchConfig(snapshot_dir=str(tmp_path)))
-    with pytest.raises(NotImplementedError, match="queue A item 6b"):
         SearchEngine.recover(str(tmp_path), pctx=pk)
-    idx.faults = FaultInjector(FaultPlan([]))
-    with pytest.raises(NotImplementedError, match="queue A item 6b"):
-        idx.search(x[:2], topk=2, nprobe=2)
-    idx.faults = None
-    eng = SearchEngine(idx, SearchConfig(topk=2, nprobe=2, query_batch=4))
-    ids, _ = eng.search(x[:3])
-    assert torch.equal(ids, idx.search(x[:3], topk=2, nprobe=2)[0])
 
 
 # --- the padded store over a mesh ---------------------------------------------
@@ -394,10 +394,19 @@ def test_gather_cells_matches_the_reference(width):
                                  torch.from_numpy(cell), width)
     assert np.array_equal(tx.numpy(), np.asarray(jx))
     assert np.array_equal(ti.numpy(), np.asarray(ji))
-    with pytest.raises(NotImplementedError, match="queue A item 6b"):
-        tstore.gather_cells("paged", (), torch.from_numpy(cell), width)
-    with pytest.raises(NotImplementedError, match="queue A item 6b"):
-        tstore.gather_cells_q8("padded", (), torch.from_numpy(cell), width)
+    # the quantized gather (item 6b; the paged kinds: test_torch_sharded_
+    # store.py): zero codes and scales, id -1 on the padding cell
+    codes = np.clip(buckets * 20, -127, 127).astype(np.int8)
+    aux = np.where(ids >= 0, 0.5, 0.0).astype(np.float32)
+    jq = jstore.gather_cells_q8("padded", (jnp.asarray(codes),
+                                           jnp.asarray(ids), jnp.asarray(aux)),
+                                jnp.asarray(cell), width, 0)
+    tq = tstore.gather_cells_q8("padded", (torch.from_numpy(codes),
+                                           torch.from_numpy(ids),
+                                           torch.from_numpy(aux)),
+                                torch.from_numpy(cell), width)
+    for j, t in zip(jq, tq):
+        assert np.array_equal(t.numpy(), np.asarray(j))
 
 
 # --- the architecture guard --------------------------------------------------

@@ -14,6 +14,8 @@ apart): ids equal, distances within ``rtol=1e-5`` plus ``atol = 1e-5 *
 (max ||q||^2 + max ||x||^2)``, the tolerance ``tests/test_torch_index.py``
 states (the packages sum ``||x||^2 - 2 q.x`` in different orders).
 """
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -146,14 +148,19 @@ def test_cache_geometry_and_unported_shards():
     assert (c.sets, c.capacity) == (j.sets, j.capacity) == (256, 1024)
     assert c.device_arrays()[0] is c.keys and c.device_arrays()[1] is c.rows
     assert repr(c).startswith("DeviceRescoreCache(d=32")
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        DeviceRescoreCache(8, device="cpu", shards=2)
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        c.put(np.arange(2), np.zeros((2, 32), np.float32), shard=[0, 1])
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        c.place(object())
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        c.shard_specs("k")
+    # over a mesh (queue A item 6b; tests/test_torch_sharded_store.py): the
+    # reference's geometry of shards regions, each sized for all the ids
+    c2 = DeviceRescoreCache(32, device="cpu", shards=2,
+                            max_bytes=1000 * (4 * 32 + 8))
+    j2 = JCache(32, shards=2, max_bytes=1000 * (4 * 32 + 8))
+    assert (c2.sets, c2.capacity) == (j2.sets, j2.capacity) == (128, 1024)
+    assert c2.keys.shape == (256, 4) and "shards=2" in repr(c2)
+    c2.put(np.arange(2), np.ones((2, 32), np.float32), shard=[0, 1])
+    j2.put(np.arange(2), np.ones((2, 32), np.float32), shard=[0, 1])
+    assert np.array_equal(c2.keys.numpy(), np.asarray(j2.keys))
+    with pytest.raises(ValueError, match="2 shards"):
+        c2.place(SimpleNamespace(k_axis="model", k_rank=0, n_k_shards=4))
+    assert c2.shard_specs("k") == (("k", None), ("k", None, None))
 
 
 def test_cache_defaults_to_cuda_and_raises_without_it(monkeypatch):
