@@ -80,9 +80,18 @@ run and read just after:
   plain version); four at mesh 2x2 at the IVF cell (a sharded and a
   single-rank index from the same centroids, ids bit for bit before and
   after an add of 4,096 rows and a refresh; full probe on the exactness
-  corpus against ``search_brute``; ``build(pctx=)`` recall). Every rank
-  reports its kernel launches; times at two or four ranks are ranks
-  time-slicing one card.
+  corpus against ``search_brute``; ``build(pctx=)`` recall), and the
+  sharded index's search axes. Part (e), the sharded index's reliability
+  (``rel_mesh_part``) over phase 11's two indexes at the IVF cell, on a 1x1
+  NCCL mesh against one device and on 2x2 gloo ranks: ``dead_shard`` equal
+  to the brute force over the surviving shards' rows, ``nan_stats`` and the
+  guarded refresh, the dead cells' repair, chaos seeds 7-9 with equal
+  counters on every rank, a durability run killed and recovered onto the
+  mesh bit for bit the uninterrupted run, its snapshot the one-device
+  twin's key for key and restored onto 1x4, 4x1 and one device bit for
+  bit, and the launcher's ``--mesh 1x1`` with every reliability flag.
+  Every rank reports its kernel launches; times at two or four ranks are
+  ranks time-slicing one card.
 
 Before the paths, the sort-inverse update, FlashLloyd and the store scan are
 held to their plain versions on edge shapes (one segment over every CTA, K >
@@ -117,12 +126,14 @@ non-zero, printing no result, without a CUDA device or outside a checkout
 of the repository, and when any check fails. ``--kernels-only`` stops
 after the build and the ragged kernel checks (a first call after a kernel
 change); ``--reliability-only`` runs the build and the reliability phase,
-``--parallel-only`` the build and the parallel phase. Details go to
+``--parallel-only`` the build and the parallel phase, ``--parallel-e-only``
+the build and that phase's part (e). Details go to
 ``chip_smoke.json`` in the repository's git-ignored output directory.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import itertools
@@ -1293,6 +1304,377 @@ def _rank_axes(rank, dev):
     return out
 
 
+# (e): the sharded index's reliability (queue A item 6b, parts 4-6) at the
+# IVF cell over phase 11's two indexes (the same seeds), on a 1x1 NCCL mesh
+# against one device and on 2x2 gloo ranks sharing the card. A durability
+# run of E_ADDS adds of REL_ADD_ROWS rows, a unit after each, refresh and
+# snapshot every E_SNAP adds, killed as its second snapshot begins; chaos
+# seeds CHAOS_SEEDS over E_CHAOS_UNITS units with an add every
+# E_CHAOS_EVERY; the dead-shard check at full probe on E_DEAD_B queries; the
+# dead cells' repair over E_LOW_ROWS rows in cells 0..K/2-1
+REL_E = {"fp32/padded/flat": ({}, SEED + 20),
+         "q8/paged/two_level": (dict(codec="q8", store="paged",
+                                     page_size=PAGE, router="two_level"),
+                                SEED + 21)}
+E_ADDS, E_SNAP = 8, 4
+E_CHAOS_UNITS, E_CHAOS_EVERY = 16, 4
+E_DEAD_B, E_LOW_ROWS, E_QPS_REQUESTS = 64, 262144, 16
+NAN_SEED, DEAD_SHARD = 9, 1
+# float arrays of a snapshot that a mesh of several data shards sums in
+# another order than one device (held within E_RTOL / E_ATOL there)
+E_FLOAT_KEYS = ("centroids", "stats_sums", "stats_counts", "stats_inertia",
+                "pending_sums", "pending_counts", "pending_inertia")
+E_RTOL, E_ATOL = 1e-5, 1e-4
+
+
+def rel_corpus(dev, seed):
+    """Phase 11's corpus of one index (``seed``): ``(centres, x, x2, adds,
+    units, held, x_low)``: ``IVF[0]`` rows, an add of ``REL_ADD_ROWS``,
+    the durability run's adds and units, a held-out batch, and
+    ``E_LOW_ROWS`` rows around the lower half of the centres."""
+    import torch
+    n, k, d = IVF
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    centers = torch.randn(k, d, device=dev, generator=gen) * 5.0
+
+    def blobs(rows, top=k):
+        lab = torch.randint(0, top, (rows,), device=dev, generator=gen)
+        return centers[lab] + 0.4 * torch.randn(rows, d, device=dev,
+                                                generator=gen)
+    x = blobs(n)
+    x2 = blobs(REL_ADD_ROWS)
+    adds = [blobs(REL_ADD_ROWS) for _ in range(E_ADDS)]
+    units = [blobs(IVF_B) for _ in range(E_ADDS)]
+    return centers, x, x2, adds, units, blobs(IVF_B), blobs(E_LOW_ROWS,
+                                                           k // 2)
+
+
+def snapshot_diff(dir_a, dir_b, seqno, exact):
+    """Key by key, the npz arrays of two snapshots at ``seqno``, and their
+    manifests' store meta but ``n_shards`` and ``pps``: ``(keys that differ,
+    max error of the float keys)``; the float keys within ``E_RTOL`` /
+    ``E_ATOL`` unless ``exact``."""
+    import numpy as np
+    from repro_torch.reliability import read_manifest
+    name = f"index_{seqno:08d}.npz"
+    with np.load(os.path.join(dir_a, name)) as fa, \
+            np.load(os.path.join(dir_b, name)) as fb:
+        a, b = dict(fa), dict(fb)
+    bad, err = sorted(set(a) ^ set(b)), 0.0
+    for key in sorted(set(a) & set(b)):
+        u, v = a[key], b[key]
+        if u.shape != v.shape:
+            bad.append(key)
+        elif key in E_FLOAT_KEYS and not exact:
+            err = max(err, float(np.abs(u - v).max(initial=0.0)))
+            if not np.allclose(u, v, rtol=E_RTOL, atol=E_ATOL):
+                bad.append(key)
+        elif not np.array_equal(u, v):
+            bad.append(key)
+    ma, mb = (dict(read_manifest(dd)["store"]) for dd in (dir_a, dir_b))
+    for m in (ma, mb):
+        m.pop("n_shards", None)
+        m.pop("pps", None)
+    if ma != mb:
+        bad.append("manifest store meta")
+    return bad, err
+
+
+def rel_mesh_case(dev, pctx, label, rank, root, others=()):
+    """Part (e) on one index of ``REL_E`` over ``pctx`` (every rank calls
+    it; rank 0 also drives the one-device twin): the dead shard (more than
+    one K-shard), ``nan_stats`` and the guarded refresh, the dead cells'
+    repair, chaos seeds under the policy, the durability run killed and
+    recovered onto ``pctx``, its snapshot restored onto each context of
+    ``others``; times and launch counts. Snapshots go under ``root``.
+    ``counts`` are the mesh path's launches alone: the one-device twin's
+    work runs between windows that are not counted, and the dead-shard
+    check's launches (at nprobe K, the probe's list mode) are
+    ``dead_counts``, a run of its own. Returns the results on the host."""
+    import torch
+    from repro_torch.index import IVFIndex
+    from repro_torch.index.router import TwoLevelRouter
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.reliability import (AddLog, FaultEvent, FaultInjector,
+                                         FaultPlan, HealthPolicy,
+                                         clone_index)
+    from repro_torch.serve import SearchConfig, SearchEngine
+    zero, read = launch_counters()
+    kw, seed = REL_E[label]
+    n, k, d = IVF
+    one = rank == 0
+    centers, x, x2, adds, units, held, x_low = rel_corpus(dev, seed)
+    router = TwoLevelRouter.train(centers, max_iters=4) \
+        if kw.get("router") else None
+
+    def fullest(rows):   # the capacity that holds ``rows`` (not counted)
+        return int(torch.bincount(ops.flash_assign(rows, centers)[0].long(),
+                                  minlength=k).max())
+    cap_x, cap_low = fullest(x), fullest(x_low)
+
+    def make(ctx, rows, cap):
+        kk = dict(kw)
+        if router is not None:
+            kk["router"] = router_copy(router, dev)
+        idx = IVFIndex(centers, cap, pctx=ctx, **kk)
+        idx.add(rows)
+        return idx
+
+    def host(res):
+        return tuple(t.cpu() for t in res)
+
+    def nan_injector():
+        return FaultInjector(FaultPlan([FaultEvent("add", "nan_stats", 0,
+                                                   arg=NAN_SEED)]))
+    out = {"label": label}
+    counted = collections.Counter()
+
+    def bank():   # the mesh path's launches since the last zero()
+        torch.cuda.synchronize()
+        counted.update(read())
+        zero()
+    t_case = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    twin = make(None, x, cap_x) if one else None   # not counted
+    zero()
+    idx = make(pctx, x, cap_x)
+    # 1. dead shard: the filtered brute force, then the healthy search again;
+    # an exactness check at full probe (L = K / P_k = 512 takes the probe's
+    # list mode), counted as a run of its own
+    if pctx.n_k_shards > 1:
+        bank()
+        qd = held[:E_DEAD_B]
+        healthy = host(idx.search(qd, topk=TOPK, nprobe=k))
+        idx.faults = FaultInjector(FaultPlan(
+            [FaultEvent("search", "dead_shard", 0, arg=DEAD_SHARD)]))
+        dead = host(idx.search(qd, topk=TOPK, nprobe=k))
+        healed = host(idx.search(qd, topk=TOPK, nprobe=k))
+        idx.faults = None
+        torch.cuda.synchronize()
+        out["dead_counts"] = read()
+        # the surviving shards' rows: the ids the store's posting lists put
+        # in other cells than the dead shard's (a gather: every rank), read
+        # from the corpus (the rows an id was added with; on q8 the rows
+        # the rescore reads from the cache)
+        ids, off = idx.posting_lists()
+        rec = {"finite": bool(torch.isfinite(dead[1]).all()),
+               "healed": same_bits(healed, healthy),
+               "ids_changed": int((dead[0] != healthy[0]).sum())}
+        if one:
+            kl = k // pctx.n_k_shards
+            alive = torch.cat([ids[:off[DEAD_SHARD * kl]],
+                               ids[off[(DEAD_SHARD + 1) * kl]:]]).long()
+            pos, _ = kref.probe_ref(qd, x[alive], TOPK)
+            rec.update(near_ties(dead[0].to(dev), alive[pos.long()], x, qd))
+        out["dead"] = rec
+        del ids, off
+        zero()
+    del x
+    torch.cuda.empty_cache()
+
+    def nan_then_guard(ix):
+        ix.faults = nan_injector()
+        ix.add(x2)
+        ix.faults = None
+        ix.refresh(guard=True)
+        return {"repaired": ix.repaired_cells,
+                "centroids": ix.global_centroids().cpu(),
+                "search": host(ix.search(held, topk=TOPK, nprobe=NPROBE))}
+
+    def repair(ctx):
+        low = make(ctx, x_low, cap_low)
+        low.refresh(repair_dead=True)
+        return {"reseeded": low.reseeded_cells,
+                "centroids": low.global_centroids().cpu()}
+    # 2. nan_stats on an add, then the guarded refresh; 3. the dead cells'
+    # repair: the upper half of the cells holds no row (the twin alike,
+    # outside the counted windows)
+    out["nan"] = nan_then_guard(idx)
+    out["repair"] = repair(pctx)
+    if one:
+        bank()
+        tw = nan_then_guard(twin)
+        out["nan"].update(twin_repaired=tw["repaired"],
+                          twin_centroids=tw["centroids"],
+                          twin_search=tw["search"])
+        out["twin_repair"] = repair(None)
+        zero()
+    torch.cuda.empty_cache()
+    pol = HealthPolicy()
+    cfg = dict(topk=TOPK, nprobe=NPROBE, query_batch=IVF_B,
+               refresh_every=E_SNAP)
+    # 4. chaos: each seed over a clone of the index
+    out["chaos"] = []
+    for s in CHAOS_SEEDS:
+        c = clone_index(idx)
+        ce = SearchEngine(c, SearchConfig(**cfg), health=pol,
+                          faults=FaultInjector(FaultPlan.seeded(s)))
+        finite, err = True, None
+        try:
+            for u in range(E_CHAOS_UNITS):
+                if u % E_CHAOS_EVERY == 0:
+                    ce.add(adds[u // E_CHAOS_EVERY])
+                finite &= bool(torch.isfinite(
+                    ce.search(units[u % len(units)])[1]).all())
+        except Exception as e:   # the contract: nothing raises
+            err = f"{type(e).__name__}: {e}"[:200]
+        out["chaos"].append({"seed": s, "finite": finite, "error": err,
+                             "counters": ce.counters.as_dict(),
+                             "fired": [e.kind for e in c.faults.fired]})
+        del c, ce
+    torch.cuda.empty_cache()
+    # 5. durability: killed as its second snapshot begins, recovered onto
+    # the mesh; an uninterrupted twin on the mesh, and on rank 0 one on one
+    # device that snapshots the same adds
+    sdir = os.path.join(root, f"{label.replace('/', '_')}_mesh")
+    base = clone_index(idx)
+    mesh_twin = SearchEngine(base, SearchConfig(**cfg), health=pol)
+    eng = SearchEngine(idx, SearchConfig(**cfg, snapshot_dir=sdir,
+                                         snapshot_every=E_SNAP), health=pol)
+    saves, save_s, real_save = [], [], idx.save
+
+    class Killed(Exception):
+        pass
+
+    def save_or_die(*a, **kw_):
+        saves.append(1)
+        if len(saves) == 2:   # the crash: as this snapshot begins
+            raise Killed
+        res, t = wall_s(lambda: real_save(*a, **kw_))
+        save_s.append(t)
+        return res
+    idx.save = save_or_die
+    killed_at = None
+    for i in range(E_ADDS):
+        try:
+            eng.add(adds[i])
+        except Killed:
+            killed_at = i
+            break
+        eng.search(units[i])
+    for i in range(E_ADDS):
+        mesh_twin.add(adds[i])
+        mesh_twin.search(units[i])
+    del eng, idx
+    torch.cuda.empty_cache()
+    replay_s, real_add = [], SearchEngine.add
+
+    def timed_add(self, x_new):
+        res, t = wall_s(lambda: real_add(self, x_new))
+        replay_s.append(t)
+        return res
+    SearchEngine.add = timed_add
+    try:
+        back, recover_s = wall_s(lambda: SearchEngine.recover(
+            sdir, SearchConfig(**cfg, snapshot_every=E_SNAP), health=pol,
+            pctx=pctx))
+    finally:
+        SearchEngine.add = real_add
+    got, want = host(back.search(held)), host(mesh_twin.search(held))
+    refreshes = (back.refresh_count, mesh_twin.refresh_count)
+    del mesh_twin, base
+    torch.cuda.empty_cache()
+    snap_bytes = os.path.getsize(os.path.join(sdir, f"index_{E_SNAP:08d}"
+                                              ".npz"))
+    out["durability"] = {
+        "killed_at": killed_at, "replayed": back.counters.
+        wal_records_replayed, "recovered_equal": same_bits(got, want),
+        "ids_differ": int((got[0] != want[0]).sum()),
+        "refreshes": refreshes,
+        "recover_s": recover_s, "replay_s": sum(replay_s),
+        "save_s": save_s, "snapshot_bytes": snap_bytes,
+        "held": got}
+    if one:   # the one-device twin's snapshot of the same adds (not counted)
+        bank()
+        tdir = os.path.join(root, f"{label.replace('/', '_')}_one")
+        te = SearchEngine(twin, SearchConfig(**cfg, snapshot_dir=tdir,
+                                             snapshot_every=E_SNAP),
+                          health=pol)
+        for i in range(E_SNAP):
+            te.add(adds[i])
+            te.search(units[i])
+        bad, err = snapshot_diff(sdir, tdir, E_SNAP,
+                                 exact=pctx.n_data_shards == 1)
+        out["durability"]["vs_one_device"] = {"differ": bad,
+                                              "float_err": err}
+        del te, twin
+        zero()
+    torch.cuda.empty_cache()
+    # times: a WAL append, clone_index, queries/s with and without the
+    # policy (on the recovered index)
+    live = back.index
+    wal = AddLog(os.path.join(root, f"wal_{label.replace('/', '_')}"),
+                 pctx=pctx)
+    out["wal_append_s"] = [wall_s(lambda i=i: wal.append(i + 1, adds[i]))[1]
+                           for i in range(3)]
+    out["clone_s"] = [wall_s(lambda: clone_index(live))[1] for _ in range(3)]
+
+    def qps(health):
+        e = SearchEngine(live, SearchConfig(**cfg), health=health)
+        e.search(units[0])
+        reqs = [units[i % len(units)] for i in range(E_QPS_REQUESTS)]
+
+        def go():
+            rids = [e.submit(qq) for qq in reqs]
+            e.pump()
+            return [e.take(rr) for rr in rids]
+        _, t = wall_s(go)
+        return E_QPS_REQUESTS * IVF_B / t
+    out["qps"] = {"without": [qps(None), qps(None)],
+                  "with": [qps(pol), qps(pol)]}
+    del back, live
+    torch.cuda.empty_cache()
+    # the snapshot restored onto each of the other meshes
+    restores = {}
+    for tag, ctx in (("same", pctx), *others):
+        r, t = wall_s(lambda: IVFIndex.load(sdir, seqno=E_SNAP, pctx=ctx))
+        restores[tag] = {"search": host(r.search(held, topk=TOPK,
+                                                 nprobe=NPROBE)),
+                         "load_s": t}
+        del r
+        torch.cuda.empty_cache()
+    out["restores"] = restores
+    bank()
+    out["counts"] = {kk: counted[kk] for kk in read()}
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["seconds"] = time.perf_counter() - t_case
+    return out
+
+
+def jsonable(obj):
+    """``obj`` (nested dicts and lists) without its tensors and tuples of
+    tensors, which the checks read and the details file does not keep."""
+    import torch
+
+    def keep(v):
+        return not (torch.is_tensor(v) or (isinstance(v, tuple) and v
+                                           and torch.is_tensor(v[0])))
+    if isinstance(obj, dict):
+        return {kk: jsonable(v) for kk, v in obj.items() if keep(v)}
+    if isinstance(obj, list):
+        return [jsonable(v) for v in obj if keep(v)]
+    return obj
+
+
+def _rank_rel(rank, dev):
+    """Part (e) on one of four ranks sharing the card, mesh 2x2, each index
+    of ``REL_E``; its snapshots restored onto 1x4 and 4x1 meshes of the same
+    ranks. Snapshots go under ``CHIP_SMOKE_REL_DIR`` (the parent's)."""
+    import torch
+    from repro_torch.core.parallel import ParallelContext, build_mesh
+    ctx = {shape: ParallelContext.for_mesh(build_mesh(
+        shape, ("data", "model"), backend="gloo"))
+        for shape in ((2, 2), (1, 4), (4, 1))}
+    root = os.environ["CHIP_SMOKE_REL_DIR"]
+    out = {label: rel_mesh_case(dev, ctx[(2, 2)], label, rank, root,
+                                others=(("1x4", ctx[(1, 4)]),
+                                        ("4x1", ctx[(4, 1)])))
+           for label in REL_E}
+    torch.cuda.synchronize()
+    return out
+
+
 def parallel_rank(rank, world, init_file, case, out_dir):
     """One rank of phase 12, in a spawned process on the card: a gloo world
     of ``world`` ranks (the ranks share one card), then ``case``, its
@@ -1310,7 +1692,7 @@ def parallel_rank(rank, world, init_file, case, out_dir):
         world_size=world, timeout=datetime.timedelta(seconds=PAR_TIMEOUT_S))
     try:
         res = {"fits": _rank_fits, "ivf": _rank_ivf,
-               "axes": _rank_axes}[case](rank, dev)
+               "axes": _rank_axes, "rel": _rank_rel}[case](rank, dev)
     finally:
         dist.destroy_process_group()
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -1360,8 +1742,11 @@ def parallel_phase(dev, smi, zero_counts, read_counts, details):
     K-sharded iteration, the owned statistics against the plain version.
     (d) four ranks, mesh 2x2, at the IVF cell: a sharded and a single-rank
     index from the same centroids, bit for bit, before and after an add and
-    a refresh; full probe against ``search_brute``; ``build(pctx=)``. (e)
-    each rank's launch counts. Returns the parent's counted runs."""
+    a refresh; full probe against ``search_brute``; ``build(pctx=)``. (d')
+    the sharded index's search axes. (e) the sharded index's reliability
+    (``rel_mesh_part``). Each rank's launch counts. Returns the counted
+    runs (``(counts, paged store)``) and the named runs outside the main
+    path (``(name, counts, paged store)``)."""
     import torch
     from repro_torch.core import KMeans, KMeansConfig, StreamingKMeans
     from repro_torch.core import parallel as par
@@ -1389,7 +1774,7 @@ def parallel_phase(dev, smi, zero_counts, read_counts, details):
         r = fit1(x, c0)
         torch.cuda.synchronize()
         counts = read_counts()
-        runs.append(counts)
+        runs.append((counts, False))
         same = (torch.equal(r.centroids, st.centroids)
                 and torch.equal(r.assignments, st.assignments)
                 and r.iterations == int(st.iteration))
@@ -1401,7 +1786,7 @@ def parallel_phase(dev, smi, zero_counts, read_counts, details):
         rk = fitk(x, c0)
         torch.cuda.synchronize()
         counts_k = read_counts()
-        runs.append(counts_k)
+        runs.append((counts_k, False))
         share = float((rk.assignments == st.assignments).float().mean())
         c_err = float((rk.centroids - st.centroids).abs().max())
         check(torch.equal(ids1_k, ids1),
@@ -1455,7 +1840,7 @@ def parallel_phase(dev, smi, zero_counts, read_counts, details):
                 sp.partial_fit(xb)
             torch.cuda.synchronize()
             counts_s = read_counts()
-            runs.append(counts_s)
+            runs.append((counts_s, False))
             same = torch.equal(one.centroids, sp.centroids) and all(
                 torch.equal(u, v) for u, v in zip(one.stats, sp.stats))
             err = float((one.centroids - sp.centroids).abs().max())
@@ -1477,7 +1862,7 @@ def parallel_phase(dev, smi, zero_counts, read_counts, details):
             router = sh.pop("router")
             one = axes_case(dev, None, name, router)
             cmp = axes_compare(sh["results"], one["results"])
-            runs.append(sh["counts"])
+            runs.append((sh["counts"], "paged" in name))
             check(all(eq and dok for eq, _, _, dok in cmp),
                   f"parallel (a') {name} k_axis=model 1x1: ids and distances "
                   f"of {len(cmp)} searches (before and after an add of "
@@ -1593,7 +1978,7 @@ def parallel_phase(dev, smi, zero_counts, read_counts, details):
             ran(f"(b) rank {rank}", rr["b"]["counts"], want)
             ran(f"(c) rank {rank}", rr["c"]["counts"],
                 ("flash_assign", "sort_inverse_update"))
-            runs += [rr["b"]["counts"], rr["c"]["counts"]]
+            runs += [(rr["b"]["counts"], False), (rr["c"]["counts"], False)]
             cc = rr["c"]
             check(cc["ids_equal"],
                   f"parallel (c) 1x2 rank {rank}: make_assign's ids equal the "
@@ -1648,7 +2033,7 @@ def parallel_phase(dev, smi, zero_counts, read_counts, details):
                   f"({rr['counts']})")
             ran(f"(d) rank {rank} build(pctx=)", rr["build_counts"],
                 ("flash_assign", "sort_inverse_update"))
-            runs += [rr["counts"], rr["build_counts"]]
+            runs += [(rr["counts"], False), (rr["build_counts"], False)]
         ex = r0["exact"]
         check(ex["ok"], f"parallel (d) exactness corpus {EXACT}: nprobe=K "
                         f"equals search_brute ({ex['mismatches']} ids differ, "
@@ -1714,7 +2099,7 @@ def parallel_phase(dev, smi, zero_counts, read_counts, details):
                                f"{t['tie_gap']:.3g} <= {t['tol']:.3g})")
             for rank, rr in enumerate(res):
                 ran_axes(f"(d') rank {rank}", name, rr[name]["counts"])
-                runs.append(rr[name]["counts"])
+                runs.append((rr[name]["counts"], "paged" in name))
             ms = [1e3 * t for t in a["batch_s"]]
             wire = a.get("wire", {})
             print(f"  (d') {name}: {min(ms):.2f}-{max(ms):.2f} ms a search "
@@ -1733,9 +2118,278 @@ def parallel_phase(dev, smi, zero_counts, read_counts, details):
                 "counts": [rr[name]["counts"] for rr in res],
                 "exact": {kk: v for kk, v in ex.items() if kk != "results"}}
         rec["axes_peak_gib"] = [rr["peak_gib"] for rr in res]
+    # (e): the sharded index's reliability
+    checks = []
+    rel_mesh_part(dev, smi, rec, runs, checks)
     rec["seconds"] = time.perf_counter() - t_phase
     print(f"  [parallel] {rec['seconds']:.1f} s", flush=True)
-    return runs
+    return runs, checks
+
+
+def rel_mesh_part(dev, smi, rec, runs, checks):
+    """Part (e) of phase 12, the sharded index's reliability, on each index
+    of ``REL_E``: (1) a 1x1 NCCL mesh with a cells axis against one device
+    (``rel_mesh_case``): the guarded refresh's centroids, the repair, the
+    durability run's snapshot bit for bit the one-device twin's; (2) the
+    launcher's ``--mesh 1x1`` with every reliability flag; (3) four ranks
+    sharing the card, mesh 2x2: the dead shard equal to the filtered brute
+    force, ranks 1-3 bit for bit rank 0 and its ids one device's, chaos
+    seeds with equal counters on every rank, recovery bit for bit the
+    uninterrupted run, the snapshot restored bit for bit onto 1x4 and 4x1;
+    (4) each mesh snapshot restored onto one device in this process. Adds
+    each run's launch counts to ``runs`` (``(counts, paged store)``) and
+    the dead-shard check's, a run outside the main path, to ``checks``
+    (``(name, counts, paged store)``)."""
+    import io
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.core import parallel as par
+    from repro_torch.core.parallel import ParallelContext
+    from repro_torch.index import IVFIndex
+    from repro_torch.launch import serve
+    t_e = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_rel_mesh_")
+    er = rec.setdefault("e", {"card": smi, "1x1": {}, "2x2": {}})
+    got1, got2 = {}, {}   # the full results (tensors too), by index
+    n, k, d = IVF
+    med = statistics.median
+
+    def nonzero(d_):
+        return {kk: v for kk, v in d_.items() if v}
+
+    def show(tag, label, r):
+        du = r["durability"]
+        size = du["snapshot_bytes"]
+        loads = {t: v["load_s"] for t, v in r["restores"].items()}
+        print(f"  (e) {tag} {label}: recover {du['recover_s']:.3f} s (the "
+              f"replay of {du['replayed']} records {du['replay_s']:.3f} s); "
+              f"save {du['save_s'][0]:.3f} s ({size / 2**30:.3f} GiB, "
+              f"{size / du['save_s'][0] / 1e9:.2f} GB/s); loads (s) "
+              f"{ {t: round(v, 3) for t, v in loads.items()} } "
+              f"({size / min(loads.values()) / 1e9:.2f} GB/s at best); "
+              f"clone_index {med(r['clone_s']) * 1e3:.1f} ms; WAL append "
+              f"{med(r['wal_append_s']) * 1e3:.2f} ms; queries/s without "
+              f"the policy {r['qps']['without'][0]:.0f}, "
+              f"{r['qps']['without'][1]:.0f}, with "
+              f"{r['qps']['with'][0]:.0f}, {r['qps']['with'][1]:.0f}; "
+              f"peak {r['peak_gib']:.2f} GiB; {r['seconds']:.1f} s ({smi})",
+              flush=True)
+
+    def ran_e(tag, label, counts):
+        need = ["flash_assign", "sort_inverse_update", "flash_probe_store"]
+        if "q8" in label:
+            need += ["flash_probe_store_q8", "rescore_cache_insert"]
+        probe = counts["flash_probe_tile"] + counts["flash_probe"]
+        rescore = counts["flash_probe_grouped_warp"] \
+            + counts["flash_probe_grouped"]
+        check(probe > 0 and all(counts[kn] > 0 for kn in need)
+              and (rescore > 0 or "q8" not in label),
+              f"(e) {tag} {label}: the probe, {', '.join(need)}"
+              f"{' and the rescore' if 'q8' in label else ''} launched "
+              f"({nonzero(counts)})")
+
+    def common(tag, label, r):
+        du = r["durability"]
+        check(not any(c["error"] for c in r["chaos"])
+              and all(c["finite"] for c in r["chaos"]),
+              f"(e) {tag} {label} chaos seeds {CHAOS_SEEDS}: nothing raised "
+              f"({[c['error'] for c in r['chaos']]}), every distance finite; "
+              f"counters {[nonzero(c['counters']) for c in r['chaos']]}")
+        check(du["killed_at"] == E_ADDS - 1
+              and du["replayed"] == E_ADDS - E_SNAP and du["recovered_equal"]
+              and du["refreshes"][0] == du["refreshes"][1],
+              f"(e) {tag} {label}: killed at add {du['killed_at']} as its "
+              f"second snapshot began, recover(pctx=) replayed "
+              f"{du['replayed']} records; the held-out batch equals the "
+              f"uninterrupted run's bit for bit ({du['ids_differ']} ids "
+              f"differ); refreshes {du['refreshes']}")
+        check(r["nan"]["repaired"] > 0,
+              f"(e) {tag} {label}: nan_stats then refresh(guard=True) "
+              f"repaired {r['nan']['repaired']} cells")
+
+    try:
+        # (1) one rank over NCCL, a cells axis of one shard
+        par.init_world("cuda", "nccl")
+        try:
+            pk = ParallelContext(par.build_mesh((1, 1), ("data", "model"),
+                                                backend="nccl"),
+                                 k_axis="model")
+            for label in REL_E:
+                print(f"\n[parallel] (e) 1x1 (NCCL, k_axis=model) {label}: "
+                      f"N={n} K={k} d={d}", flush=True)
+                r = rel_mesh_case(dev, pk, label, 0, root)
+                runs.append((r["counts"], "paged" in label))
+                ran_e("1x1", label, r["counts"])
+                print(f"  launches: {nonzero(r['counts'])}", flush=True)
+                nn, rp = r["nan"], r["repair"]
+                check(torch.equal(nn["centroids"], nn["twin_centroids"])
+                      and nn["repaired"] == nn["twin_repaired"]
+                      and same_bits(nn["search"], nn["twin_search"]),
+                      f"(e) 1x1 {label}: after nan_stats and the guarded "
+                      f"refresh, repaired_cells ({nn['repaired']}), the "
+                      f"centroids and a search equal the one-device twin's "
+                      f"bit for bit")
+                check(rp["reseeded"] == r["twin_repair"]["reseeded"] > 0
+                      and torch.equal(rp["centroids"],
+                                      r["twin_repair"]["centroids"]),
+                      f"(e) 1x1 {label}: refresh(repair_dead=True) re-seeded "
+                      f"{rp['reseeded']} cells, the centroids bit for bit "
+                      f"the one-device twin's")
+                common("1x1", label, r)
+                vs = r["durability"]["vs_one_device"]
+                check(not vs["differ"], f"(e) 1x1 {label}: the snapshot "
+                                        f"equals the one-device twin's key "
+                                        f"for key, bit for bit "
+                                        f"({vs['differ'] or 'all equal'})")
+                show("1x1", label, r)
+                got1[label] = r
+                er["1x1"][label] = jsonable(r)
+        finally:
+            par.release_world()
+        torch.cuda.empty_cache()
+        # (2) the launcher with every reliability flag over --mesh 1x1
+        ldir = os.path.join(root, "launcher")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            lo = serve.main(["--mode", "search", "--mesh", "1x1", "--health",
+                             "--chaos-seed", "7", "--snapshot-dir", ldir])
+        text = buf.getvalue()
+        print("  " + "\n  ".join(text.strip().splitlines()[-3:]), flush=True)
+        check("restored search identical: True" in text,
+              "(e) launch/serve.py --mode search --mesh 1x1 --health "
+              "--chaos-seed 7 --snapshot-dir: 'restored search identical: "
+              "True'")
+        er["launcher"] = {kk: lo.get(kk) for kk in (
+            "qps", "recall", "recover_s", "snapshot_s", "counters")}
+        torch.cuda.empty_cache()
+        # (3) four ranks sharing the card
+        print(f"\n[parallel] (e) four ranks sharing the card (gloo), mesh "
+              f"2x2: {', '.join(REL_E)}", flush=True)
+        os.environ["CHIP_SMOKE_REL_DIR"] = root
+        res, codes, secs = spawn_ranks("rel", 4)
+        er["ranks_s"] = secs
+        ok = all(c == 0 for c in codes)
+        check(ok, f"(e) 2x2: every rank exited 0 within {PAR_JOIN_S} s (exit "
+                  f"codes {codes}, {secs:.1f} s)")
+        if ok:
+            for label in REL_E:
+                r0 = res[0][label]
+                for rank, rr in enumerate(res[1:], 1):
+                    r = rr[label]
+                    same = (same_bits(r["nan"]["centroids"],
+                                      r0["nan"]["centroids"])
+                            and r["nan"]["repaired"] == r0["nan"]["repaired"]
+                            and same_bits(r["nan"]["search"],
+                                          r0["nan"]["search"])
+                            and r["repair"]["reseeded"]
+                            == r0["repair"]["reseeded"]
+                            and same_bits(r["repair"]["centroids"],
+                                          r0["repair"]["centroids"])
+                            and [c["counters"] for c in r["chaos"]]
+                            == [c["counters"] for c in r0["chaos"]]
+                            and same_bits(r["durability"]["held"],
+                                          r0["durability"]["held"])
+                            and all(same_bits(r["restores"][t]["search"],
+                                              r0["restores"][t]["search"])
+                                    for t in r0["restores"]))
+                    check(same, f"(e) 2x2 {label} rank {rank}: repaired_cells"
+                                f", the guarded refresh's centroids and "
+                                f"search, the repair, the chaos counters, "
+                                f"the recovered and restored searches equal "
+                                f"rank 0's bit for bit")
+                dd = r0["dead"]
+                check(dd["ok"] and dd["finite"]
+                      and all(rr[label]["dead"]["healed"] for rr in res),
+                      f"(e) 2x2 {label}: dead_shard {DEAD_SHARD} at nprobe K "
+                      f"equals the brute force over the surviving shards' "
+                      f"rows ({dd['mismatches']} ids differ, gap "
+                      f"{dd['tie_gap']:.3g} <= {dd['tol']:.3g}; "
+                      f"{dd['ids_changed']} ids changed from the healthy "
+                      f"search), distances finite; the next call is the "
+                      f"healthy search bit for bit on every rank")
+                nn = r0["nan"]
+                c_err = float((nn["centroids"] - nn["twin_centroids"]).abs()
+                              .max())
+                check(nn["repaired"] == nn["twin_repaired"]
+                      and torch.equal(nn["search"][0], nn["twin_search"][0])
+                      and bool(torch.allclose(nn["centroids"],
+                                              nn["twin_centroids"],
+                                              rtol=E_RTOL, atol=E_ATOL)),
+                      f"(e) 2x2 {label}: after nan_stats and the guarded "
+                      f"refresh, repaired_cells {nn['repaired']} and the "
+                      f"search's ids equal one device's; centroids within "
+                      f"rtol {E_RTOL}, atol {E_ATOL} (max err {c_err:.3g}: "
+                      f"two data shards sum in another order)")
+                rp, tr = r0["repair"], r0["twin_repair"]
+                r_err = float((rp["centroids"] - tr["centroids"]).abs().max())
+                check(rp["reseeded"] == tr["reseeded"] > 0
+                      and bool(torch.allclose(rp["centroids"],
+                                              tr["centroids"], rtol=E_RTOL,
+                                              atol=E_ATOL)),
+                      f"(e) 2x2 {label}: refresh(repair_dead=True) re-seeded "
+                      f"{rp['reseeded']} cells as one device did; centroids "
+                      f"within rtol {E_RTOL}, atol {E_ATOL} (max err "
+                      f"{r_err:.3g})")
+                common("2x2", label, r0)
+                vs = r0["durability"]["vs_one_device"]
+                check(not vs["differ"],
+                      f"(e) 2x2 {label}: the snapshot equals the one-device "
+                      f"twin's key for key (float statistics within rtol "
+                      f"{E_RTOL}, atol {E_ATOL}, max err "
+                      f"{vs['float_err']:.3g}; the rest bit for bit): "
+                      f"{vs['differ'] or 'all equal'}")
+                same_r = r0["restores"]["same"]["search"]
+                check(all(same_bits(v["search"], same_r)
+                          for v in r0["restores"].values()),
+                      f"(e) 2x2 {label}: the snapshot restored onto 1x4 and "
+                      f"4x1 searches bit for bit as restored onto 2x2")
+                for rank, rr in enumerate(res):
+                    runs.append((rr[label]["counts"], "paged" in label))
+                    ran_e(f"2x2 rank {rank}", label, rr[label]["counts"])
+                dead_n = collections.Counter()
+                for rr in res:
+                    dead_n.update(rr[label]["dead_counts"])
+                name = (f"phase 12 (e) 2x2 {label}: dead_shard check at "
+                        f"nprobe K, 4 ranks")
+                checks.append((name, dict(dead_n), "paged" in label))
+                check(dead_n["flash_probe_tile"] + dead_n["flash_probe"] > 0,
+                      f"(e) 2x2 {label}: the dead-shard check went through "
+                      f"the probe ({nonzero(dead_n)})")
+                print(f"  {name}: {nonzero(dead_n)}", flush=True)
+                print(f"  launches a rank: "
+                      f"{[nonzero(rr[label]['counts']) for rr in res]}; "
+                      f"peaks "
+                      f"{[round(rr[label]['peak_gib'], 2) for rr in res]} GiB",
+                      flush=True)
+                show("2x2 rank 0", label, r0)
+                rec_s = [round(rr[label]["durability"]["recover_s"], 3)
+                         for rr in res]
+                load_s = [[round(v["load_s"], 3)
+                           for v in rr[label]["restores"].values()]
+                          for rr in res]
+                print(f"  each rank: recover {rec_s} s; loads (2x2, 1x4, "
+                      f"4x1) {load_s} s", flush=True)
+                got2[label] = r0
+                er["2x2"][label] = [jsonable(rr[label]) for rr in res]
+        # (4) each mesh snapshot onto one device, in this process
+        for tag, got in (("1x1", got1), ("2x2", got2)):
+            for label, r in got.items():
+                _, _, _, _, _, held, _ = rel_corpus(dev, REL_E[label][1])
+                sdir = os.path.join(root, f"{label.replace('/', '_')}_mesh")
+                one, t = wall_s(lambda: IVFIndex.load(sdir, seqno=E_SNAP))
+                res1 = tuple(tt.cpu() for tt in one.search(
+                    held, topk=TOPK, nprobe=NPROBE))
+                check(same_bits(res1, r["restores"]["same"]["search"]),
+                      f"(e) {tag} {label}: the mesh's snapshot restored onto "
+                      f"one device searches bit for bit as restored onto "
+                      f"the mesh ({t:.3f} s to load)")
+                del one
+                torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    er["seconds"] = time.perf_counter() - t_e
+    print(f"  (e) {er['seconds']:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -1746,6 +2400,9 @@ def main() -> int:
                     help="build and run the reliability phase only")
     ap.add_argument("--parallel-only", action="store_true",
                     help="build and run the parallel phase only")
+    ap.add_argument("--parallel-e-only", action="store_true",
+                    help="build and run the parallel phase's part (e), the "
+                         "sharded index's reliability, only")
     args = ap.parse_args()
     # the plain versions' score matrices take up to 32 GiB at a time, in
     # blocks of changing size: segments that grow keep the cache from
@@ -1912,6 +2569,8 @@ def main() -> int:
     launches = {k: 0 for k in (*mods, *probe_names)}
     max_err = {k: 0.0 for k in (*launches, *PAGED_ROWS)}
     paged_launches = {k: 0 for k in PAGED_ROWS}
+    # runs outside the main path, by kernel table row: {run name: launches}
+    check_launches = {k: {} for k in (*launches, *PAGED_ROWS)}
     timing: dict[str, dict] = {}
     details = {"card": smi, "regimes": [], "kernel_checks": [], "ivf": [],
                "ivf_truth": [], "controls": [], "step_pairs": [],
@@ -1944,8 +2603,12 @@ def main() -> int:
             return 1
         print("\nchip_smoke --reliability-only: all checks passed")
         return 0
-    if args.parallel_only:   # phase 12 alone (parallel_phase)
-        parallel_phase(dev, smi, zero_counts, read_counts, details)
+    if args.parallel_only or args.parallel_e_only:   # phase 12 or its (e)
+        if args.parallel_e_only:
+            rel_mesh_part(dev, smi, details.setdefault("parallel", {
+                "card": smi}), [], [])
+        else:
+            parallel_phase(dev, smi, zero_counts, read_counts, details)
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
         (out / "chip_smoke_parallel.json").write_text(
@@ -1954,7 +2617,9 @@ def main() -> int:
             print(f"\nchip_smoke: {len(failures)} check(s) failed",
                   file=sys.stderr)
             return 1
-        print("\nchip_smoke --parallel-only: all checks passed")
+        print("\nchip_smoke --parallel-only: all checks passed"
+              if args.parallel_only else
+              "\nchip_smoke --parallel-e-only: all checks passed")
         return 0
 
     # ---- phase 2 helpers: kernel vs plain on the card -------------------
@@ -3522,6 +4187,17 @@ def main() -> int:
                 paged_launches[base[kname]] += counts[kname]
             else:
                 launches[kname] += counts[kname]
+
+    def count_check(name, counts, paged=False):
+        """A named run outside the main path (a check at another setting):
+        its launches go to the kernel table's ``check_launches`` under
+        ``name``, beside the main path's ``launches``."""
+        base = {v: k for k, v in PAGED_ROWS.items()}
+        for kname in launches:
+            row = base[kname] if paged and kname in base else kname
+            if counts.get(kname):
+                check_launches[row][name] = \
+                    check_launches[row].get(name, 0) + counts[kname]
 
     def paged_phase(index, codec, x, queries, results):
         """The paged store at an IVF cell: the same centroids and corpus in
@@ -5105,8 +5781,12 @@ def main() -> int:
         count_run(counts, store_kind == "paged")
 
     # ---- phase 12: the parallel layer (parallel_phase) -------------------
-    for counts in parallel_phase(dev, smi, zero_counts, read_counts, details):
-        count_run(counts)
+    par_runs, par_checks = parallel_phase(dev, smi, zero_counts, read_counts,
+                                          details)
+    for counts, paged in par_runs:
+        count_run(counts, paged)
+    for name, counts, paged in par_checks:
+        count_check(name, counts, paged)
 
     # ---- phase 4: the kernel table ---------------------------------------
     main_shape = {"flash_assign": "largeN_smallK/float32",
@@ -5160,6 +5840,7 @@ def main() -> int:
         table.append({
             "name": kname, "route": "cuda", "source": sources[kname],
             "replaces": replaces[kname], "launches": launches[kname],
+            "check_launches": check_launches[kname],
             "max_abs_err": max_err[kname], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -5180,6 +5861,7 @@ def main() -> int:
         table.append({
             "name": kname, "route": "cuda", "source": sources[base_],
             "replaces": replaces[base_], "launches": paged_launches[kname],
+            "check_launches": check_launches[kname],
             "max_abs_err": max_err[kname], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",

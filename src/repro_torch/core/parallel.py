@@ -38,7 +38,10 @@ several data axes is one ``all_reduce`` a group in turn.
   programs that take and return plain global tensors; data-sharded results
   are gathered, so every rank holds the global result.
 - No other module of the port calls a collective: they go through this
-  context (``psum``, ``all_gather``, ``gather``).
+  context (``psum``, ``all_gather``, ``gather``; for files and decisions
+  that every rank must share, ``rank0_write``, ``agree`` and ``all_ok``:
+  rank 0 writes a file and every rank agrees that it is in place; an
+  outcome is agreed before any rank acts on it).
 
 Backends are explicit (``build_mesh``): on ``"cuda"`` the default is NCCL,
 one rank a card; on ``"cpu"`` gloo. Ranks that share one card pass
@@ -54,7 +57,7 @@ from __future__ import annotations
 import datetime
 import math
 import os
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 import torch.distributed as dist
@@ -71,6 +74,10 @@ from repro_torch.utils import sharding as shu
 DEFAULT_TIMEOUT_S = 600.0
 
 _owned_world = False   # build_mesh initialized the default process group
+
+# errors of the collective layer itself (gloo or NCCL: a peer gone, a
+# timeout): a caller that retries or degrades on faults passes these on
+COLLECTIVE_FAULTS = (dist.DistError,)
 
 
 def _default_backend(device_type: str) -> str:
@@ -395,6 +402,55 @@ class ParallelContext:
             self.wire_bytes["all_reduce"] += out.numel() * out.element_size()
         return out.reshape(()) if t.ndim == 0 else out
 
+    def _reduce_all(self, t: torch.Tensor, op) -> torch.Tensor:
+        """``t`` reduced by ``op`` over every axis of the mesh in turn (the
+        whole world of the context)."""
+        t = t.clone()
+        for a in shu.mesh_axis_names(self.mesh):
+            if self.axis_size(a) > 1:
+                dist.all_reduce(t, op=op, group=self.mesh.get_group(a))
+                self.wire_bytes["all_reduce"] += t.numel() * t.element_size()
+        return t
+
+    # -- the world: rank-0 I/O and agreement ---------------------------------
+
+    @property
+    def is_world_rank0(self) -> bool:
+        """This rank is rank 0 of the mesh's world: the one rank that writes
+        a file every rank would write the same (a snapshot, a WAL
+        record)."""
+        return int(self.mesh.get_rank()) == 0
+
+    def agree(self, ok: bool) -> tuple[bool, bool]:
+        """``(every rank ok, some rank ok)`` over the world: one MIN
+        all-reduce of two flags, read on the host. Ranks that act on a
+        local outcome agree on it here first, so that every rank takes the
+        same branch."""
+        flags = torch.tensor([1 if ok else 0, 0 if ok else 1],
+                             dtype=torch.int32, device=self.device)
+        every, none = self._reduce_all(flags, dist.ReduceOp.MIN).tolist()
+        return bool(every), not none
+
+    def all_ok(self, ok: bool) -> bool:
+        """True on every rank when ``ok`` is true on every rank."""
+        return self.agree(ok)[0]
+
+    def rank0_write(self, write: Callable[[], object]) -> None:
+        """``write()`` on rank 0 of the world alone, then its outcome agreed
+        (``all_ok``, which is also the barrier): every rank returns once
+        the file is in place, or every rank raises ``OSError`` when the
+        write failed (rank 0's error its cause), so no rank waits in a
+        collective for a peer that left."""
+        err = None
+        if self.is_world_rank0:
+            try:
+                write()
+            except Exception as e:   # agreed below, then raised everywhere
+                err = e
+        if not self.all_ok(err is None):
+            raise OSError("rank 0 of the world failed to write a file every "
+                          "rank waits on") from err
+
     def psum_stats(self, stats: SufficientStats,
                    axes: Sequence[str] | None = None) -> SufficientStats:
         """The O(K d) sufficient-statistics reduction tree."""
@@ -413,11 +469,11 @@ class ParallelContext:
         position): a stable sort of the rank-major concatenation. With
         ``tie`` (B, L_loc) int, equal values break toward the lower tie key
         (a lexicographic (value, tie) order: a stable sort by tie, then by
-        value). ``valid`` (a bool, this rank's): ``False`` blanks this
-        rank's list to ``(+inf, -1)`` (tie ``int32`` max) before the
-        gather, as if the rank were absent."""
+        value). ``valid`` (a bool, this rank's; None or True adds no work):
+        ``False`` blanks this rank's list to ``(+inf, -1)`` (tie ``int32``
+        max) before the gather, as if the rank were absent."""
         axis = axis if axis is not None else self.k_axis
-        if valid is not None:
+        if valid is not None and valid is not True:
             ok = torch.as_tensor(valid, device=val.device)
             val = torch.where(ok, val, torch.inf)
             idx = torch.where(ok, idx, -1)

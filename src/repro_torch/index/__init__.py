@@ -24,9 +24,9 @@ Public API:
 ``IVFIndex(pctx=)`` / ``build(pctx=)`` shard the index over a
 ``core.parallel.ParallelContext`` mesh, on every search axis: both stores
 (the paged pool over K-shards), both codecs (q8 with the rescore cache
-sharded over cells) and both routers (the routed sharded probe). Not ported
-yet (ROADMAP.md, queue A item 6b): the sharded index's reliability (faults,
-guarded refresh, health, snapshots and restore over a mesh).
+sharded over cells) and both routers (the routed sharded probe), under
+faults (a dead K-shard left out of every merge), with the guarded and
+repairing refresh, and with snapshots that restore onto any mesh or none.
 """
 from repro_torch.index.bridge import (index_from_numpy, index_to_numpy,
                                       router_from_numpy)

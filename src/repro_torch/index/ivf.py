@@ -76,11 +76,22 @@ statistics over the data axes. ``counts``, ``posting_lists``,
 middle two gather, a collective); ``centroids`` is the owned slice
 (``global_centroids()`` gathers it).
 
-Not ported yet (ROADMAP.md, queue A item 6b): a sharded index with
-``faults`` or refresh's ``guard``/``repair_dead``, and ``save``/``load``
-over a mesh; each raises ``NotImplementedError``. ``IVFIndex`` runs on the
-card unless it is asked for the CPU: ``device=None`` means ``"cuda"`` (or,
-with ``pctx``, the mesh's device) and raises when no CUDA device is present.
+Under faults (``faults``, the same ``FaultPlan`` on every rank, polled in
+lockstep) a ``dead_shard`` event on a K-sharded index blanks that K-shard
+out of every cross-rank merge of the search (``shard_ok``, passed as
+``merge_topl(valid=)``; on q8 its proposals are blanked before the row
+exchange), so the search is the brute force over the surviving shards'
+rows; the next call heals. On a data-only mesh, or one device, the event
+raises ``InjectedFault``. ``refresh(guard=True)`` sanitizes each rank's owned
+statistics and counts the repaired cells over the cells axis, so
+``repaired_cells`` is the same on every rank; ``refresh(repair_dead=True)``
+gathers the K centroids and statistics, runs the one-device repair on every
+rank (the donor is the heaviest of all K cells) and keeps the owned slice.
+``save`` gathers the state (every rank calls it) and rank 0 writes it;
+``load(pctx=)`` restores a snapshot of any mesh, or of none, onto any mesh.
+``IVFIndex`` runs on the card unless it is asked for the CPU:
+``device=None`` means ``"cuda"`` (or, with ``pctx``, the mesh's device) and
+raises when no CUDA device is present.
 """
 from __future__ import annotations
 
@@ -102,11 +113,9 @@ from repro_torch.kernels import ops, ref
 from repro_torch.reliability.faults import InjectedFault, corrupt_stats
 
 _PAD_COORD = _store._PAD_COORD
-
-
-def _not_ported(what: str, item) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
-                               f"queue A item {item})")
+# entries of a brute-force score matrix scored at a time (1 GiB of f32):
+# four ranks sharing one card each hold one
+BRUTE_CHUNK_ELEMS = 1 << 28
 
 
 def _as_float(a, device) -> torch.Tensor:
@@ -259,8 +268,8 @@ class IVFIndex:
     picks the posting-list layout (``"padded"``, ``"paged"``, a store
     instance; None = ``REPRO_BUCKET_STORE``, else padded); ``page_size``
     (default 64) and ``store_bytes`` (the page pool's LRU budget) shape
-    the paged one. ``pctx`` shards a padded fp32 or bf16 flat index over
-    a mesh (see the module's docstring).
+    the paged one. ``pctx`` shards the index over a mesh, on every store,
+    codec and router (see the module's docstring).
     """
 
     def __init__(self, centroids, capacity: int, *,
@@ -418,9 +427,13 @@ class IVFIndex:
             return self.centroids
         return self.pctx.gather(self.centroids, (self.pctx.k_axis,))
 
-    def _refuse_faults(self) -> None:
-        if self.faults is not None and self.pctx is not None:
-            raise _not_ported("fault injection into a sharded index", "6b")
+    def _corrupt_pending(self, seed: int) -> None:
+        """The ``nan_stats`` fault: the reference's seeded rows of all K
+        cells set to NaN in the pending statistics (a K-sharded rank
+        corrupts those it owns)."""
+        lo = self.pctx.k_rank * self.k_owned if self._k_sharded else 0
+        self._pending, _ = corrupt_stats(self._pending, seed, k_total=self.k,
+                                         lo=lo)
 
     # ------------------------------------------------------------------
     # construction
@@ -510,7 +523,6 @@ class IVFIndex:
         over the data axes, its cells found by the two-stage argmin, and
         the owned statistics arrive summed over the data axes (ref.
         l.811-850)."""
-        self._refuse_faults()
         x_new = torch.as_tensor(x_new).to(device=self.device,
                                           dtype=self.dtype)
         nan_evs: tuple = ()
@@ -528,14 +540,15 @@ class IVFIndex:
         if x_new.shape[0] == 0:
             return torch.zeros((0,), dtype=torch.int32, device=self.device)
         if self.pctx is not None:
-            return self._add_sharded(x_new)
-        blk = self._batch_blocks(x_new.shape[0])
-        a, m = ops.flash_assign(x_new, self.centroids.to(x_new.dtype),
-                                block_n=blk.assign_block_n,
-                                block_k=blk.assign_block_k)
-        self._fold(x_new, a, m)
+            a = self._add_sharded(x_new)
+        else:
+            blk = self._batch_blocks(x_new.shape[0])
+            a, m = ops.flash_assign(x_new, self.centroids.to(x_new.dtype),
+                                    block_n=blk.assign_block_n,
+                                    block_k=blk.assign_block_k)
+            self._fold(x_new, a, m)
         for ev in nan_evs:   # after the fold: refresh must repair
-            self._pending, _ = corrupt_stats(self._pending, int(ev.arg))
+            self._corrupt_pending(int(ev.arg))
         return a
 
     def _add_sharded(self, x_new: torch.Tensor) -> torch.Tensor:
@@ -588,23 +601,24 @@ class IVFIndex:
         centroid); ``repair_dead`` re-seeds cells with no vectors and no
         evidence by splitting the heaviest cell. An attached injector's
         ``nan_stats`` and ``latency`` act first (ref. l.887-893). Under
-        K-sharding each rank commits its owned cells' statistics."""
-        self._refuse_faults()
-        if self.pctx is not None and (guard or repair_dead):
-            raise _not_ported("refresh(guard=, repair_dead=) on a sharded "
-                              "index", "6b")
+        K-sharding each rank commits its owned cells' statistics; the
+        guard's count is summed over the cells axis and the dead cells'
+        repair runs on the gathered K cells, so both counters are the
+        same on every rank."""
         if self.faults is not None:   # injection seam (reliability.faults)
             for ev in self.faults.poll("refresh"):
                 if ev.kind == "nan_stats":
-                    self._pending, _ = corrupt_stats(self._pending,
-                                                     int(ev.arg))
+                    self._corrupt_pending(int(ev.arg))
                 elif ev.kind == "latency":
                     time.sleep(ev.arg)
         pending, base = self._pending, self.stats.scale(decay)
         if guard:
             pending, bad_p = pending.sanitize()
             base, bad_b = base.sanitize()
-            self.repaired_cells += int(bad_p.sum()) + int(bad_b.sum())
+            bad = bad_p.sum() + bad_b.sum()
+            if self._k_sharded:   # each rank sanitized its owned cells
+                bad = self.pctx.psum(bad, (self.pctx.k_axis,))
+            self.repaired_cells += int(bad)
         self.stats = base.merge(pending)
         self._pending = SufficientStats.zero(self.k_owned, self.d,
                                              self.device)
@@ -621,14 +635,22 @@ class IVFIndex:
     def _repair_dead_cells(self, eps: float = 1e-3) -> int:
         """Re-seed cells with no stored vectors and no evidence: each takes
         a perturbed copy of the heaviest cell's centroid and half its
-        evidence. Host-side, at refresh cadence."""
-        cnt = self.stats.counts.cpu().numpy().copy()
+        evidence. Host-side, at refresh cadence. A K-sharded index gathers
+        the K centroids and statistics (a collective, O(K d)), repairs them
+        as one device does on every rank, and keeps its owned slice."""
+        cnt_t, sums_t, c_t = self.stats.counts, self.stats.sums, \
+            self.centroids
+        if self._k_sharded:
+            ka = (self.pctx.k_axis,)
+            cnt_t, sums_t, c_t = (self.pctx.gather(t, ka)
+                                  for t in (cnt_t, sums_t, c_t))
+        cnt = cnt_t.cpu().numpy().copy()
         stored = self.counts.cpu().numpy()
         dead = np.where((cnt <= 0.0) & (stored == 0))[0]
         if dead.size == 0:
             return 0
-        c = self.centroids.cpu().numpy().copy()
-        sums = self.stats.sums.cpu().numpy().copy()
+        c = c_t.cpu().numpy().copy()
+        sums = sums_t.cpu().numpy().copy()
         n = 0
         for cell in dead:
             donor = int(np.argmax(cnt))
@@ -641,11 +663,15 @@ class IVFIndex:
             sums[cell] = c[cell] * cnt[cell]
             n += 1
         if n:
+            own = slice(None)
+            if self._k_sharded:
+                lo = self.pctx.k_rank * self.k_owned
+                own = slice(lo, lo + self.k_owned)
             dev = self.device
-            self.centroids = torch.as_tensor(c, device=dev)
-            self.stats = SufficientStats(torch.as_tensor(sums, device=dev),
-                                         torch.as_tensor(cnt, device=dev),
-                                         self.stats.inertia)
+            self.centroids = torch.as_tensor(c[own], device=dev)
+            self.stats = SufficientStats(
+                torch.as_tensor(sums[own], device=dev),
+                torch.as_tensor(cnt[own], device=dev), self.stats.inertia)
         return n
 
     def _append(self, x: torch.Tensor, a: torch.Tensor) -> None:
@@ -828,9 +854,10 @@ class IVFIndex:
         sets the two-level router's coarse width; the flat router ignores
         it. An attached injector acts after the pool check (ref.
         l.1151-1166): ``latency`` sleeps, ``search_error`` raises, and
-        ``dead_shard`` raises too, one device being the whole replica.
-        Under a k-sharded ``pctx`` see ``_search_sharded``."""
-        self._refuse_faults()
+        ``dead_shard`` blanks its K-shard (``arg % P_k``) out of this
+        call's merges on a K-sharded index; on one device, or a data-only
+        mesh, where it is the whole replica, it raises. Under a k-sharded
+        ``pctx`` see ``_search_sharded``."""
         q = torch.as_tensor(q).to(device=self.device, dtype=self.dtype)
         nprobe = min(nprobe, self.k)
         cand = nprobe * self.cap
@@ -838,16 +865,21 @@ class IVFIndex:
             raise ValueError(
                 f"topk={topk} exceeds the probed candidate pool "
                 f"nprobe*cap={cand}; raise nprobe or capacity")
+        shard_ok = None
         if self.faults is not None:   # injection seam (reliability.faults)
             for ev in self.faults.poll("search"):
                 if ev.kind == "latency":
                     time.sleep(ev.arg)
                 elif ev.kind == "search_error":
                     raise InjectedFault(f"injected search failure ({ev})")
-                elif ev.kind == "dead_shard":   # one replica: hard fail
-                    raise InjectedFault(f"injected replica death ({ev})")
+                elif ev.kind == "dead_shard":
+                    if not self._k_sharded:   # one replica: hard fail
+                        raise InjectedFault(f"injected replica death ({ev})")
+                    nk = self.pctx.n_k_shards
+                    shard_ok = np.ones(nk, bool)
+                    shard_ok[int(ev.arg) % nk] = False
         if self._k_sharded:
-            return self._search_sharded(q, topk, nprobe, nprobe_c)
+            return self._search_sharded(q, topk, nprobe, nprobe_c, shard_ok)
         if self.store.codec_kind != "fp32":
             return self._search_q8(q, topk, nprobe, nprobe_c)
         width = self._gather_width(topk, nprobe)
@@ -857,7 +889,7 @@ class IVFIndex:
                            width=width, plan=sp)
 
     def _search_sharded(self, q: torch.Tensor, topk: int, nprobe: int,
-                        nprobe_c: int | None = None
+                        nprobe_c: int | None = None, shard_ok=None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
         """The sharded search (ref. l.1221-1258, l.1317-1576). Each rank
         takes its slice of the batch (split over the data axes; a ragged
@@ -874,6 +906,10 @@ class IVFIndex:
            once after the merge, clamped at 0, non-finite values to 0.
            q8 (``_q8_sharded``): the proposals' merge to ``R`` with the same
            tie, the row exchange, and the rescore of the rank's slice.
+
+        ``shard_ok`` ((P_k,) bool, None: all alive): a dead K-shard's lists
+        are blanked in every merge (``merge_topl(valid=)``), so it adds no
+        cell and no candidate.
 
         Two (value, id) lists cross ranks (``search_collective_bytes``), and
         on q8 the ``(bl, R, d)`` exchanged rows (``row_exchange_bytes``)."""
@@ -892,10 +928,13 @@ class IVFIndex:
             head, sp = head[:-1], (head[-1], sp)
         view = self.store.scan_view()
         lo = pctx.k_rank * kl
+        # False where this rank's K-shard is dead, else None: the healthy
+        # search adds no work for the mask (eager code needs none)
+        alive = None if shard_ok is None or shard_ok[pctx.k_rank] else False
 
         def body(ql):
             bl = ql.shape[0]
-            gcell = self._sharded_cells(ql, nprobe, nprobe_c, head)
+            gcell = self._sharded_cells(ql, nprobe, nprobe_c, head, alive)
             rel = gcell.long() - lo
             owned = (rel >= 0) & (rel < kl)
             pos = torch.arange(nprobe, device=ql.device).expand(bl, nprobe)
@@ -906,7 +945,8 @@ class IVFIndex:
             cell = cell.to(torch.int32)
             if q8:
                 return self._q8_sharded(ql, cell, order, view, topk=topk,
-                                        nprobe=nprobe, width=width, plans=sp)
+                                        nprobe=nprobe, width=width, plans=sp,
+                                        alive=alive)
             lidx, lval = ops.flash_probe_store(
                 ql, view.rows, view.counts, cell, table=view.table,
                 width=width, l=min(topk, ll * width), pad=_PAD_COORD,
@@ -915,7 +955,8 @@ class IVFIndex:
             lidx = lidx.long()
             gpos = torch.gather(order, 1, lidx // width) * width \
                 + lidx % width
-            gids, gval = pctx.merge_topl(ids_loc, lval, topk, tie=gpos)
+            gids, gval = pctx.merge_topl(ids_loc, lval, topk, tie=gpos,
+                                         valid=alive)
             q32 = ql.float()
             gval = gval + (q32 * q32).sum(-1, keepdim=True)
             gval = torch.where(torch.isfinite(gval), gval.clamp(min=0.0),
@@ -928,7 +969,7 @@ class IVFIndex:
         return ids[:b], dists[:b]
 
     def _sharded_cells(self, ql: torch.Tensor, nprobe: int,
-                       nprobe_c: int | None, head) -> torch.Tensor:
+                       nprobe_c: int | None, head, alive) -> torch.Tensor:
         """Each query's global ``(bl, nprobe)`` cells on a k-sharded index,
         the same list on every rank of the cells axis. Flat: FlashProbe over
         the owned centroids at ``L = min(nprobe, K / P_k)``, then the
@@ -940,7 +981,8 @@ class IVFIndex:
         keeps ``leff`` candidates; a candidate this rank does not own is the
         sentinel ``K``; the merge breaks ties by the candidate-axis position
         ``p gcap + w``, where the one-device scan sees it, so the merged list
-        is the one-device routed list entry for entry."""
+        is the one-device routed list entry for entry. A dead K-shard
+        (``alive`` false) adds no entry to the merge."""
         pctx = self.pctx
         kl = pctx.k_local(self.k)
         lo = pctx.k_rank * kl
@@ -948,18 +990,19 @@ class IVFIndex:
             idx, val = ops.flash_probe(
                 ql, self.centroids.to(ql.dtype), l=min(nprobe, kl),
                 plan=head[0], want_dists=False, c_sq=self._centroid_norms())
-            gcell, _ = pctx.merge_topl(idx + lo, val, nprobe)
+            gcell, _ = pctx.merge_topl(idx + lo, val, nprobe, valid=alive)
             return gcell
         member, fli, flv = self.router.candidates(
             ql, self._route_view(), nprobe=nprobe, nprobe_c=nprobe_c,
             plans=head)
         owned = (member >= lo) & (member < lo + kl)
         fcell = torch.where(owned, member, self.k)
-        gcell, _ = pctx.merge_topl(fcell, flv, nprobe, tie=fli)
+        gcell, _ = pctx.merge_topl(fcell, flv, nprobe, tie=fli, valid=alive)
         return gcell
 
     def _q8_sharded(self, ql, cell, order, view, *, topk: int, nprobe: int,
-                    width: int, plans) -> tuple[torch.Tensor, torch.Tensor]:
+                    width: int, plans, alive
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
         """A rank's q8 search past the cell selection (ref.
         ``_make_sharded_q8_candidates``, l.1317-1443, and l.1221-1258): the
         q8 store scan proposes this rank's top ``min(R, ll * width)`` of its
@@ -970,7 +1013,9 @@ class IVFIndex:
         holds exactly the ids its cells own), and one all-reduce over the
         cells axis sums the rows by id match (every live id has one owner);
         then the rescore of the ``R`` rows at full precision, with the host
-        reservoir's rows where there is no device cache (the oracle)."""
+        reservoir's rows where there is no device cache (the oracle). A
+        dead K-shard (``alive`` false) blanks its proposals before the
+        merge, so none of its rows enters the exchange."""
         pctx, st = self.pctx, self.store
         qp, rp = plans
         r = self._rescore_r(topk, nprobe, width)
@@ -980,9 +1025,11 @@ class IVFIndex:
             table=view.table, width=width, l=rl, plan=qp)
         ids_loc, deq = view.q8_at(*_slots(cell, lidx, width))
         ids_loc = torch.where(torch.isfinite(lval), ids_loc, -1)
+        if alive is False:   # a dead shard proposes nothing
+            ids_loc = torch.full_like(ids_loc, -1)
         lidx = lidx.long()
         gpos = torch.gather(order, 1, lidx // width) * width + lidx % width
-        gids, _ = pctx.merge_topl(ids_loc, lval, r, tie=gpos)
+        gids, _ = pctx.merge_topl(ids_loc, lval, r, tie=gpos, valid=alive)
         cache = self._rescore_cache()
         if cache is not None:
             crows, cfound = cache_lookup(*st.cache_arrays(), ids_loc)
@@ -1064,11 +1111,28 @@ class IVFIndex:
     def search_brute(self, q, topk: int = 10
                      ) -> tuple[torch.Tensor, torch.Tensor]:
         """Dense brute-force reference over every indexed vector (the
-        exactness/recall oracle: it materializes the full score matrix)."""
+        exactness/recall oracle). The rows are scored ``BRUTE_CHUNK_ELEMS /
+        B`` at a time, each chunk's top-k kept and the chunks' lists merged
+        ties to the lower row (``ref.probe_ref``'s order), so a score matrix
+        never exceeds that many entries. On a sharded index every rank
+        gathers the whole store (a collective)."""
         q = torch.as_tensor(q).to(device=self.device, dtype=self.dtype)
         flat_x, flat_ids = self.store.flat()
-        idx, dists = ref.probe_ref(q, flat_x, topk)
-        return flat_ids[idx.long()], dists
+        rows = max(topk, BRUTE_CHUNK_ELEMS // max(1, q.shape[0]))
+        parts_i, parts_v = [], []
+        for lo in range(0, flat_x.shape[0], rows):
+            idx, v = ref.probe_ref(q, flat_x[lo:lo + rows], topk,
+                                   want_dists=False)
+            parts_i.append(idx.long() + lo)
+            parts_v.append(v)
+        # chunk-major concatenation: a stable sort keeps equal scores in
+        # row order
+        v_all, i_all = torch.cat(parts_v, 1), torch.cat(parts_i, 1)
+        pos = torch.sort(v_all, dim=1, stable=True).indices[:, :topk]
+        idx, v = torch.gather(i_all, 1, pos), torch.gather(v_all, 1, pos)
+        q32 = q.float()
+        dists = torch.clamp(v + (q32 * q32).sum(-1, keepdim=True), min=0.0)
+        return flat_ids[idx], dists
 
     # ------------------------------------------------------------------
     # durability (reliability.snapshot)
@@ -1079,9 +1143,8 @@ class IVFIndex:
         """Atomic snapshot of the whole index state (store payload, counts,
         committed and pending statistics, router) in the reference's format
         (``reliability.snapshot.save_index``). ``seqno`` marks the WAL
-        position it covers."""
-        if self.pctx is not None:
-            raise _not_ported("snapshots of a sharded index", "6b")
+        position it covers. On a mesh every rank calls it (the state is
+        gathered) and rank 0 writes."""
         from repro_torch.reliability.snapshot import save_index
         return save_index(self, directory, seqno=seqno, extra=extra)
 
@@ -1089,13 +1152,12 @@ class IVFIndex:
     def load(cls, directory: str, *, seqno: int | None = None,
              planner: "_plan.KernelPlanner | None" = None, device=None,
              pctx=None) -> "IVFIndex":
-        """Restore a snapshot written by either package onto ``device``
-        (None: ``"cuda"``); see ``reliability.snapshot.load_index``."""
-        if pctx is not None:
-            raise _not_ported("restoring onto a mesh (pctx)", "6b")
+        """Restore a snapshot written by either package, on any mesh or on
+        none, onto ``device`` (None: ``"cuda"``) or onto the mesh of
+        ``pctx``; see ``reliability.snapshot.load_index``."""
         from repro_torch.reliability.snapshot import load_index
         return load_index(directory, seqno=seqno, planner=planner,
-                          device=device)
+                          device=device, pctx=pctx)
 
     # ------------------------------------------------------------------
     # introspection

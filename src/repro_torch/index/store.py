@@ -49,8 +49,11 @@ with its own sentinel cell ``K/P_k``; ``dense``, ``dense_ids``, ``flat``
 and ``state_arrays`` gather the whole store over the cells axis (a
 collective: every rank calls them together). ``gather_cells`` and
 ``gather_cells_q8`` are the shard-local candidate gathers the sharded
-search is held to. Not ported yet (ROADMAP.md, queue A item 6b): restoring
-a store over several shards.
+search is held to. ``restore_store(n_shards=)`` rebuilds either layout
+and either codec for a mesh of ``n_shards`` K-shards from a snapshot of any
+mesh (the paged pool re-allocated per shard, cell-major, lowest id first;
+the q8 cache sharded over the same cells and re-warmed from the
+reservoir), placed on a rank's cells when given the mesh's context.
 Unlike the JAX package the port updates its
 tensors in place, and ``dense``/``flat`` return tensors on the store's
 device; ``state_arrays`` and ``meta`` give the snapshot format's numpy
@@ -79,10 +82,9 @@ _PAD_COORD = 1e15
 STORE_KINDS = ("padded", "paged")
 
 
-def _sharded(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
-                               f"queue A item 6b: the sharded index's "
-                               f"other axes)")
+def _out(t: torch.Tensor, host: bool):
+    """A state array: ``t`` on the host, or left where it is."""
+    return t.cpu().numpy() if host else t
 
 
 def _round_up(v: int, mult: int) -> int:
@@ -427,7 +429,11 @@ class BucketStore:
     def flat(self) -> tuple[torch.Tensor, torch.Tensor]:
         raise NotImplementedError
 
-    def state_arrays(self) -> dict:
+    def state_arrays(self, host: bool = True) -> dict:
+        """The snapshot's arrays (gathered over the cells axis on a placed
+        store: every rank calls it). ``host=False`` leaves the gathered
+        tensors on the device: a rank that joins the gathers and writes
+        nothing skips the copies."""
         raise NotImplementedError
 
     def meta(self) -> dict:
@@ -611,14 +617,13 @@ class PaddedBucketStore(BucketStore):
         return (x.reshape(self.k * self.cap, self.d),
                 ids.reshape(self.k * self.cap))
 
-    def state_arrays(self):
+    def state_arrays(self, host=True):
         x, ids = self.dense()
-        out = {"buckets": x.cpu().numpy(),
-               "bucket_ids": ids.cpu().numpy(),
-               "counts": self.counts.cpu().numpy(),
+        out = {"buckets": _out(x, host), "bucket_ids": _out(ids, host),
+               "counts": _out(self.counts, host),
                "spill_counts": self.spill_counts.copy()}
         if self.has_aux:
-            out["bucket_aux"] = self.dense_aux().cpu().numpy()
+            out["bucket_aux"] = _out(self.dense_aux(), host)
         return out
 
     def meta(self):
@@ -626,7 +631,10 @@ class PaddedBucketStore(BucketStore):
                 "spilled": int(self.spilled)}
 
     @classmethod
-    def restore(cls, host, meta, *, k, d, dtype, device=None):
+    def restore(cls, host, meta, *, k, d, dtype, n_shards=1, device=None):
+        """The whole store of a snapshot's dense arrays (the same on any
+        number of shards: the index's constructor places it)."""
+        del n_shards
         st = cls(k, d, dtype, capacity=meta["cap"],
                  max_cap=meta.get("max_cap"), aux="bucket_aux" in host,
                  device=device)
@@ -1064,28 +1072,28 @@ class PagedBucketStore(BucketStore):
         rows = self._pool_rows(np.arange(self.k)[:, None], self.tables_np)
         return rows[mask].astype(np.int64)
 
-    def _packed(self, t: torch.Tensor) -> np.ndarray:
+    def _packed(self, t: torch.Tensor, host: bool = True):
         """``t``'s occupied pages in cell-major page order (on a placed
         store from the gathered slot view)."""
         if self._pctx is None:
-            return t[torch.as_tensor(self._occupied(),
-                                     device=self.device)].cpu().numpy()
+            return _out(t[torch.as_tensor(self._occupied(),
+                                          device=self.device)], host)
         mask = np.arange(self.maxp)[None, :] < self.pages_np[:, None]
         dense = self._dense_of(t).reshape(self.k, self.maxp, *t.shape[1:])
-        return dense[torch.as_tensor(mask, device=self.device)].cpu().numpy()
+        return _out(dense[torch.as_tensor(mask, device=self.device)], host)
 
-    def state_arrays(self):
+    def state_arrays(self, host=True):
         # canonical packed form: occupied pages in cell-major page order
         # (physical page ids / free-list fragmentation never serialize)
-        out = {"pool_pages": self._packed(self.pool),
-               "pool_page_ids": self._packed(self.pool_ids),
+        out = {"pool_pages": self._packed(self.pool, host),
+               "pool_page_ids": self._packed(self.pool_ids, host),
                "cell_pages": self.pages_np.astype(np.int32),
-               "counts": self.counts.cpu().numpy(),
+               "counts": _out(self.counts, host),
                "last_touch": self.last_touch.copy(),
                "spill_counts": self.spill_counts.copy(),
                "evict_counts": self.evict_counts.copy()}
         if self.has_aux:
-            out["pool_page_aux"] = self._packed(self.pool_aux)
+            out["pool_page_aux"] = self._packed(self.pool_aux, host)
         return out
 
     def meta(self):
@@ -1096,34 +1104,48 @@ class PagedBucketStore(BucketStore):
                 "evicted": int(self.evicted), "tick": int(self._tick)}
 
     @classmethod
-    def restore(cls, host, meta, *, k, d, dtype, device=None):
-        """The store of a snapshot's packed pages (ref. l.825-878): pages
-        re-allocated cell-major, lowest id first."""
-        if int(meta.get("n_shards") or 1) != 1:
-            raise _sharded("restoring a paged store of several shards")
+    def restore(cls, host, meta, *, k, d, dtype, n_shards=1, device=None):
+        """The store of a snapshot's packed pages over ``n_shards`` K-shards
+        (ref. l.825-878): each shard's pages re-allocated cell-major,
+        lowest id first from its page 1 (page 0 is its padding page); a
+        shard keeps ``pps`` pages, the snapshot's where it was taken on as
+        many shards, else the power of two that holds the fullest shard.
+        The tables stay shard-local."""
         ps = int(meta["page_size"])
         st = cls(k, d, dtype, capacity=ps, page_size=ps,
                  max_cap=meta.get("max_cap"), max_bytes=meta.get("max_bytes"),
-                 aux="pool_page_aux" in host, device=device)
+                 n_shards=n_shards, aux="pool_page_aux" in host,
+                 device=device)
         st.maxp = max(1, int(meta["maxp"]))
         cell_pages = np.asarray(host["cell_pages"], np.int64)
-        used = int(cell_pages.sum()) + 1
-        if meta.get("n_shards") == 1 and meta.get("pps"):
+        cps = st.cells_per_shard
+        shard_pages = cell_pages.reshape(n_shards, cps).sum(1)
+        used = int(shard_pages.max()) + 1
+        if meta.get("n_shards") == n_shards and meta.get("pps"):
             pps = max(int(meta["pps"]), used)
         else:   # another mesh's snapshot: the canonical size
             pps = max(2, _pow2ceil(used))
         st.pps = pps
-        n_occ = used - 1
-        # occupied page u takes id u + 1: the lowest free ids, cell-major
+        # shard s's occupied page u (cell-major within the shard) takes its
+        # id u + 1: the lowest free ids
         st.tables_np = np.zeros((k, st.maxp), np.int32)
         mask = np.arange(st.maxp)[None, :] < cell_pages[:, None]
-        st.tables_np[mask] = np.arange(1, n_occ + 1, dtype=np.int32)
-        st._frees = [list(range(n_occ + 1, pps))]
+        cell_first = np.concatenate([[0], np.cumsum(cell_pages)[:-1]])
+        shard_first = np.repeat(cell_first[::cps], cps)
+        local = (cell_first - shard_first)[:, None] + 1 \
+            + np.arange(st.maxp)[None, :]
+        st.tables_np[mask] = local[mask]
+        st._frees = [list(range(int(shard_pages[sh]) + 1, pps))
+                     for sh in range(n_shards)]
+        # pool row of each packed page: its shard's slice, then its id
+        rows = (np.arange(k) // cps)[:, None] * pps + st.tables_np
+        rows = torch.as_tensor(rows[mask].astype(np.int64), device=st.device)
 
         def pool_of(shape, fill, dt, pages):
-            t = torch.full((pps, *shape), fill, dtype=dt, device=st.device)
-            if n_occ:
-                t[1:n_occ + 1] = torch.as_tensor(np.asarray(pages)).to(
+            t = torch.full((n_shards * pps, *shape), fill, dtype=dt,
+                           device=st.device)
+            if rows.numel():
+                t[rows] = torch.as_tensor(np.asarray(pages)).to(
                     device=st.device, dtype=dt)
             return t
         st.pool = pool_of((ps, d), _pad_value(st.dtype), st.dtype,
@@ -1477,9 +1499,9 @@ class QuantizedBucketStore(BucketStore):
         x, ids = self.dense()
         return x.reshape(-1, self.d), ids.reshape(-1)
 
-    def state_arrays(self):
-        out = self._inner.state_arrays()
-        out["anchors"] = self._anchors_all.cpu().numpy()
+    def state_arrays(self, host=True):
+        out = self._inner.state_arrays(host)
+        out["anchors"] = _out(self._anchors_all, host)
         if self.reservoir is not None:
             out.update(self.reservoir.state_arrays())
         return out
@@ -1493,15 +1515,21 @@ class QuantizedBucketStore(BucketStore):
                     else self.cache.meta())
 
     @classmethod
-    def restore(cls, host, meta, *, k, d, dtype, device=None):
-        """The store of a snapshot's arrays and manifest (ref. l.1200-1234).
-        A manifest that records ``rescore_cache`` rebuilds that cache (or
-        none); one without the key takes the process default. The cache
-        re-warms from the reservoir."""
+    def restore(cls, host, meta, *, k, d, dtype, n_shards=1, device=None,
+                pctx=None):
+        """The store of a snapshot's arrays and manifest (ref. l.1200-1234)
+        over ``n_shards`` K-shards. A manifest that records
+        ``rescore_cache`` rebuilds that cache's geometry for this mesh (or
+        no cache); one without the key takes the process default. The
+        cache, sharded over the same cells, re-warms from the reservoir
+        (the durable tier), whatever mesh the snapshot was taken on; with
+        ``pctx`` the store is placed first, so a rank warms only its own
+        region (a gather of the ids: every rank calls it)."""
         from repro_torch.index.quant import make_codec
         codec = make_codec(meta["codec"])
         inner = _layout(meta.get("kind", "padded")).restore(
-            host, meta, k=k, d=d, dtype=codec.pool_dtype, device=device)
+            host, meta, k=k, d=d, dtype=codec.pool_dtype, n_shards=n_shards,
+            device=device)
         reservoir = None
         if meta.get("reservoir") and "rescore_ids" in host:
             reservoir = RescoreReservoir.restore(
@@ -1510,14 +1538,17 @@ class QuantizedBucketStore(BucketStore):
             cmeta = meta["rescore_cache"]
             cache = None if cmeta is None else DeviceRescoreCache(
                 d, max_bytes=cmeta.get("max_bytes"),
-                ways=cmeta.get("ways", 4), device=inner.device)
+                ways=cmeta.get("ways", 4), shards=n_shards,
+                device=inner.device)
         elif resolve_rescore(None) == "device":
             cache = DeviceRescoreCache(d, max_bytes=meta.get("rescore_bytes"),
-                                       device=inner.device)
+                                       shards=n_shards, device=inner.device)
         else:
             cache = None
         st = cls(inner, codec, np.array(host["anchors"], np.float32),
                  reservoir=reservoir, cache=cache, logical_dtype=dtype)
+        if pctx is not None:
+            st.place(pctx)
         st._rewarm_cache()
         return st
 
@@ -1593,18 +1624,26 @@ def make_quantized_store(kind: str | None, k: int, d: int, dtype, *,
 
 
 def restore_store(host: dict, meta: dict, *, k: int, d: int, dtype,
-                  n_shards: int = 1, device=None) -> BucketStore:
+                  n_shards: int = 1, device=None, pctx=None) -> BucketStore:
     """A store from snapshot arrays and manifest meta (ref. l.120-133):
-    either layout, either codec. Manifests without a ``codec`` key
-    (snapshot v1/v2) are fp32. ``device=None`` means ``"cuda"``."""
-    if n_shards != 1:
-        raise _sharded("restoring a store over several shards")
+    either layout, either codec, for ``n_shards`` K-shards (a mesh's cells
+    axis; the snapshot may come from any mesh). With ``pctx`` the shards
+    are its cells axis's and the store is placed on this rank's cells (a
+    q8 store before its cache re-warms, so a rank warms its own region).
+    Manifests without a ``codec`` key (snapshot v1/v2) are fp32.
+    ``device=None`` means ``"cuda"``."""
     dev = resolve_device(device)
+    if pctx is not None:
+        n_shards = pctx.n_k_shards
     if meta.get("codec", "fp32") != "fp32":
         return QuantizedBucketStore.restore(host, meta, k=k, d=d,
-                                            dtype=dtype, device=dev)
-    return _layout(meta.get("kind", "padded")).restore(
-        host, meta, k=k, d=d, dtype=dtype, device=dev)
+                                            dtype=dtype, n_shards=n_shards,
+                                            device=dev, pctx=pctx)
+    st = _layout(meta.get("kind", "padded")).restore(
+        host, meta, k=k, d=d, dtype=dtype, n_shards=n_shards, device=dev)
+    if pctx is not None:
+        st.place(pctx)
+    return st
 
 
 def infer_store_meta(host: dict, meta: dict) -> dict:

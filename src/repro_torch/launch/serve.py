@@ -32,7 +32,10 @@ engine's search returns the same ids.
 
 ``--mesh DATAxCELLS`` builds and serves the index sharded over a ``DATA x
 CELLS`` mesh (``core.parallel``), with any ``--store``, ``--codec`` and
-``--router``: under ``torchrun`` (the
+``--router`` and with the reliability flags (``--health``, ``--chaos-seed``,
+``--snapshot-dir``: every rank injects the same seeded plan; rank 0 writes
+the snapshots and the WAL; the demo recovers onto the same mesh): under
+``torchrun`` (the
 rendezvous from the environment, NCCL, one rank a card; gloo with
 ``--device cpu``), or without it at world size 1 for ``--mesh 1x1``. A
 mesh whose size is not the world's raises ``ValueError``. Every rank builds the same corpus from ``--seed``; only
@@ -40,9 +43,7 @@ rank 0 prints, and it reports the modeled cross-rank bytes of a search
 batch beside queries/s.
 
 Not ported yet (ROADMAP.md, queue A), and refused with
-``NotImplementedError``: ``--mode dense|clustered`` (items 7-8), and
-``--mesh`` with ``--health``, ``--chaos-seed`` or ``--snapshot-dir`` (item
-6b).
+``NotImplementedError``: ``--mode dense|clustered`` (items 7-8).
 """
 from __future__ import annotations
 
@@ -60,13 +61,6 @@ def _not_ported(flag: str, item: str) -> NotImplementedError:
 def _refuse_unported(args) -> None:
     if args.mode != "search":
         raise _not_ported(f"--mode {args.mode} (LM serving)", "items 7-8")
-    if args.mesh is not None:
-        given = [flag for flag, on in (
-            ("--health", args.health),
-            ("--chaos-seed", args.chaos_seed is not None),
-            ("--snapshot-dir", args.snapshot_dir is not None)) if on]
-        if given:
-            raise _not_ported(f"--mesh with {', '.join(given)}", "item 6b")
 
 
 def main(argv=None) -> dict:
@@ -176,7 +170,8 @@ def _serve_search(args, pctx, say) -> dict:
         index.faults = None   # the dead engine's injector dies with it
         del eng
         t0 = time.perf_counter()
-        eng2 = SearchEngine.recover(args.snapshot_dir, scfg, device=dev)
+        eng2 = SearchEngine.recover(args.snapshot_dir, scfg, device=dev,
+                                    pctx=pctx)
         t_rec = time.perf_counter() - t0
         ids2, _ = eng2.search(q)
         same = bool(torch.equal(ids, ids2))

@@ -1,7 +1,8 @@
 """repro_torch.reliability — the serving path's reliability layer.
 
-Port of ``repro/reliability`` for one device, in the reference's file
-formats:
+Port of ``repro/reliability``, on one device and over a mesh (rank 0 writes
+the files, and every rank agrees that they are in place before it goes on),
+in the reference's file formats:
 
 - **durability** (``snapshot``, ``wal``): ``IVFIndex`` snapshots (npz plus
   a JSON manifest, written atomically, ``SNAPSHOT_VERSION = 5``) and a

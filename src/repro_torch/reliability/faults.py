@@ -119,18 +119,25 @@ class FaultInjector:
         return sum(1 for e in self.fired if e.kind == kind)
 
 
-def corrupt_stats(stats, seed: int, frac: float = 0.125):
+def corrupt_stats(stats, seed: int, frac: float = 0.125, *,
+                  k_total: int | None = None, lo: int = 0):
     """Corrupt a seeded subset of per-cluster stats rows to NaN.
 
     ``frac`` of the K rows (at least one), chosen by ``seed`` as the
     reference chooses them, get NaN sums and counts, on the stats' device.
-    Returns ``(corrupted SufficientStats, bad_cells int array)``.
+    ``k_total`` and ``lo``: ``stats`` holds rows ``[lo, lo + K)`` of a
+    ``k_total``-row whole (a shard's owned cells); the rows are chosen over
+    the whole, and this shard corrupts those it holds.
+    Returns ``(corrupted SufficientStats, bad_cells int array)``, the cells
+    numbered over the whole.
     """
     from repro_torch.core.streaming import SufficientStats
     k = stats.counts.shape[0]
+    kt = k if k_total is None else int(k_total)
     rng = np.random.default_rng(int(seed))
-    bad = np.sort(rng.choice(k, max(1, int(k * frac)), replace=False))
-    bad_t = torch.as_tensor(bad, device=stats.sums.device)
+    bad = np.sort(rng.choice(kt, max(1, int(kt * frac)), replace=False))
+    mine = bad[(bad >= lo) & (bad < lo + k)] - lo
+    bad_t = torch.as_tensor(mine, device=stats.sums.device)
     return SufficientStats(stats.sums.index_fill(0, bad_t, float("nan")),
                            stats.counts.index_fill(0, bad_t, float("nan")),
                            stats.inertia), bad

@@ -1,6 +1,6 @@
-"""Durable ``IVFIndex`` snapshots in the reference's format.
+"""Durable, mesh-agnostic ``IVFIndex`` snapshots in the reference's format.
 
-Port of ``repro/reliability/snapshot.py`` for one device, file for file:
+Port of ``repro/reliability/snapshot.py``, file for file:
 one atomically written npz a snapshot (``index_%08d.npz``, tmp + rename)
 and a JSON manifest (``index_manifest.json``) recording each array's shape
 and dtype (``checkpoint.array_manifest``), the WAL sequence number the
@@ -26,11 +26,26 @@ its planner, in memory or from its disk cache keyed to the card.
 A bfloat16 index is refused (``NotImplementedError``): the reference's npz
 holds ``ml_dtypes`` bfloat16 arrays, which the card's machine cannot read.
 
+Meshes. A sharded index (``IVFIndex(pctx=)``) is saved unsharded: every
+rank gathers the whole state (the store's cells, the centroids and both
+statistics over the cells axis; a collective, so every rank calls
+``save_index``), rank 0 alone copies it to the host and writes the npz
+and the manifest (tmp + rename), and no rank goes on until they are
+durable. The file is the one-device twin's, array for array; only the paged
+store's meta ``n_shards`` and ``pps`` tell the mesh. ``load_index(pctx=)``
+reads the same file on every rank and restores it onto any mesh, or onto
+none: the store is rebuilt for the mesh's K-shards and placed
+(``store.restore_store(pctx=)``), the router comes back replicated from its
+state, never re-trained. A failed write raises on every rank
+(``ParallelContext.rank0_write``), so no rank waits for a peer that left.
+
 ``clone_index`` is the last-known-good copy the ``HealthPolicy`` ladder
 falls back to. The reference round-trips the state through the host; the
 port copies each tensor on its device (``copy.deepcopy``, which clones
 tensors into new storage), so the clone shares no storage with the live
-index and costs no host round trip.
+index and costs no host round trip. On a mesh each rank clones its own
+shard on its device; the context, its mesh and its process groups are
+shared, never copied.
 """
 from __future__ import annotations
 
@@ -61,22 +76,26 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-def _state_arrays(index) -> dict[str, np.ndarray]:
-    """The full index state on the host, under the snapshot's keys."""
+def _state_arrays(index, host: bool = True) -> dict:
+    """The full index state under the snapshot's keys (on a K-sharded
+    index gathered over the cells axis: every rank calls it), on the host
+    unless ``host`` is false (a rank that writes nothing)."""
     if index.centroids.dtype == torch.bfloat16:
         raise _no_bf16("save_index")
-    host = {
-        "centroids": _host(index.centroids),
-        "stats_sums": _host(index.stats.sums),
-        "stats_counts": _host(index.stats.counts),
-        "stats_inertia": _host(index.stats.inertia),
-        "pending_sums": _host(index._pending.sums),
-        "pending_counts": _host(index._pending.counts),
-        "pending_inertia": _host(index._pending.inertia),
-    }
-    host.update(index.store.state_arrays())
-    host.update(index.router.state_arrays())
-    return host
+    out = _host if host else (lambda t: t)
+
+    def whole(t):   # a per-cell tensor of all K cells
+        if not index._k_sharded:
+            return t
+        return index.pctx.gather(t, (index.pctx.k_axis,))
+    arrays = {"centroids": out(index.global_centroids())}
+    for prefix, st in (("stats", index.stats), ("pending", index._pending)):
+        arrays[f"{prefix}_sums"] = out(whole(st.sums))
+        arrays[f"{prefix}_counts"] = out(whole(st.counts))
+        arrays[f"{prefix}_inertia"] = out(st.inertia)
+    arrays.update(index.store.state_arrays(host))
+    arrays.update(index.router.state_arrays())
+    return arrays
 
 
 def _path(directory: str, seqno: int) -> str:
@@ -87,10 +106,27 @@ def save_index(index, directory: str, *, seqno: int = 0,
                extra: dict | None = None) -> str:
     """Snapshot ``index`` into ``directory`` as of WAL position ``seqno``.
     ``extra`` (JSON-able) rides in the manifest: the serving engine keeps
-    its schedule counters there, so recovery resumes the schedule."""
-    os.makedirs(directory, exist_ok=True)
-    host = _state_arrays(index)
+    its schedule counters there, so recovery resumes the schedule. On a
+    mesh every rank calls it (the gathers); rank 0 alone copies the state
+    to the host and writes, no rank returns before the files are in
+    place, and a failed write raises on every rank."""
+    pctx = index.pctx
+    writes = pctx is None or pctx.is_world_rank0
+    host = _state_arrays(index, host=writes)
     path = _path(directory, seqno)
+    if pctx is None:
+        _write(index, host, directory, path, seqno, extra)
+    else:
+        pctx.rank0_write(lambda: _write(index, host, directory, path, seqno,
+                                        extra))
+    return path
+
+
+def _write(index, host: dict, directory: str, path: str, seqno: int,
+           extra: dict | None) -> None:
+    """The npz, then the manifest, each written to a temporary name and
+    renamed into place."""
+    os.makedirs(directory, exist_ok=True)
     tmp = path + ".tmp.npz"
     np.savez(tmp, **host)
     os.replace(tmp, path)
@@ -109,7 +145,6 @@ def save_index(index, directory: str, *, seqno: int = 0,
     with open(mpath + ".tmp", "w") as f:
         json.dump(manifest, f)
     os.replace(mpath + ".tmp", mpath)
-    return path
 
 
 def read_manifest(directory: str) -> dict:
@@ -133,15 +168,21 @@ def _stats(host: dict, prefix: str, device) -> SufficientStats:
                              for key in ("sums", "counts", "inertia")))
 
 
-def _rebuild(host: dict, meta: dict, *, planner=None, device=None):
-    """A live ``IVFIndex`` from host state and its manifest meta."""
+def _rebuild(host: dict, meta: dict, *, planner=None, device=None,
+             pctx=None):
+    """A live ``IVFIndex`` from host state and its manifest meta, on
+    ``pctx``'s mesh when given (ref. l.128-145: the store restored for
+    ``n_shards = pctx.n_k_shards`` and placed on this rank's cells)."""
     from repro_torch.index.ivf import IVFIndex   # lazy: an import cycle
     centroids = np.asarray(host["centroids"])
     if centroids.dtype != np.float32:   # a bfloat16 index's npz
         raise _no_bf16("load_index")
     k, d = centroids.shape
+    if pctx is not None:
+        device = pctx.device
     store = _store.restore_store(host, meta["store"], k=k, d=d,
-                                 dtype=torch.float32, device=device)
+                                 dtype=torch.float32, device=device,
+                                 pctx=pctx)
     if store.kind != meta["store"].get("kind", "padded"):
         raise ValueError(f"store kind drifted: {store.kind!r} restored, "
                          f"{meta['store'].get('kind')!r} recorded")
@@ -149,20 +190,30 @@ def _rebuild(host: dict, meta: dict, *, planner=None, device=None):
     router = _router.restore_router(meta.get("router"), host,
                                     planner=planner, device=store.device)
     index = IVFIndex(centroids, capacity=store.capacity, device=store.device,
-                     planner=planner, store=store, router=router)
+                     planner=planner, store=store, router=router, pctx=pctx)
     index.n_total = int(meta["n_total"])
-    index.stats = _stats(host, "stats", index.device)
-    index._pending = _stats(host, "pending", index.device)
+    index.stats = _owned(index, _stats(host, "stats", index.device))
+    index._pending = _owned(index, _stats(host, "pending", index.device))
     return index
 
 
+def _owned(index, st: SufficientStats) -> SufficientStats:
+    """``st`` of all K cells cut to the cells ``index`` owns."""
+    if not index._k_sharded:
+        return st
+    pctx = index.pctx
+    return SufficientStats(pctx.shard_centroids(st.sums),
+                           pctx.put(st.counts, (pctx.k_axis,)), st.inertia)
+
+
 def load_index(directory: str, *, seqno: int | None = None, planner=None,
-               device=None):
+               device=None, pctx=None):
     """Restore a snapshot (the latest, or a given ``seqno``) onto
-    ``device`` (None: ``"cuda"``). Where the manifest covers the seqno,
-    the arrays are validated against its shape/dtype records first; an
-    older snapshot takes its scalars from the array shapes
-    (``store.infer_store_meta``), as in the reference."""
+    ``device`` (None: ``"cuda"``), or onto the mesh of ``pctx`` (every rank
+    calls it; the snapshot may come from any mesh or from none). Where the
+    manifest covers the seqno, the arrays are validated against its
+    shape/dtype records first; an older snapshot takes its scalars from
+    the array shapes (``store.infer_store_meta``), as in the reference."""
     if seqno is None:
         seqno = latest_snapshot_seqno(directory)
         if seqno is None:
@@ -182,27 +233,34 @@ def load_index(directory: str, *, seqno: int | None = None, planner=None,
     else:   # older snapshot than the manifest covers: scalars from shapes
         meta = {"n_total": int(host["counts"].sum()),
                 "store": _store.infer_store_meta(host, {})}
-    return _rebuild(host, meta, planner=planner, device=device)
+    return _rebuild(host, meta, planner=planner, device=device, pctx=pctx)
 
 
 def clone_index(index, *, planner=None):
     """The last-known-good copy: every tensor of the store (its device
     rescore cache included), the router, the centroids and both statistics
     cloned on its device, the host reservoir and host mirrors copied; no
-    storage shared with ``index`` and no fault injector attached."""
+    storage shared with ``index`` and no fault injector attached. On a
+    mesh each rank clones its own shard (the centroids are gathered, a
+    collective: every rank calls it) and the clone carries ``index.pctx``;
+    the context, its mesh and its process groups are shared, not copied."""
     from repro_torch.index.ivf import IVFIndex   # lazy: an import cycle
     planner = planner if planner is not None else index.planner
     memo = {id(index.planner): index.planner, id(planner): planner}
     rt = getattr(index.router, "planner", None)
     if rt is not None:
         memo[id(rt)] = rt
+    pctx = index.pctx
+    if pctx is not None:   # never deep-copy a process group
+        memo[id(pctx)] = pctx
+        memo[id(pctx.mesh)] = pctx.mesh
     store = copy.deepcopy(index.store, memo)
     router = copy.deepcopy(index.router, memo)
-    clone = IVFIndex(index.centroids.clone(), store.capacity,
+    clone = IVFIndex(index.global_centroids().clone(), store.capacity,
                      device=index.device, planner=planner,
                      rescore_mult=("auto" if index.rescore_mult is None
                                    else index.rescore_mult),
-                     store=store, router=router)
+                     store=store, router=router, pctx=pctx)
     clone.n_total = index.n_total
     clone.stats = SufficientStats(*(t.clone() for t in index.stats))
     clone._pending = SufficientStats(*(t.clone() for t in index._pending))

@@ -13,6 +13,13 @@ A batch that is a tensor on the card is copied to the host for its record.
 ``log_every = r`` logs every r-th batch (the RPO knob: up to ``r - 1``
 recent batches may be lost); ``fsync=True`` flushes each record to disk
 before its rename.
+
+On a mesh (``pctx``, a ``core.parallel.ParallelContext``; every rank holds
+the same batches) rank 0 alone writes a record, or drops the records a
+snapshot covers, and every rank then agrees on the outcome
+(``ParallelContext.rank0_write``): no rank applies an add before its record
+is durable, and a failed write raises on every rank. Every rank reads
+``replay``.
 """
 from __future__ import annotations
 
@@ -36,12 +43,13 @@ def _host(x) -> np.ndarray:
 
 class AddLog:
     def __init__(self, directory: str, *, log_every: int = 1,
-                 fsync: bool = False):
+                 fsync: bool = False, pctx=None):
         if log_every < 1:
             raise ValueError(f"log_every must be >= 1, got {log_every}")
         self.dir = directory
         self.log_every = int(log_every)
         self.fsync = fsync
+        self.pctx = pctx
         self.appended = 0   # append() calls (logged or RPO-skipped)
         self.skipped = 0    # batches inside the RPO window (not logged)
         os.makedirs(directory, exist_ok=True)
@@ -51,11 +59,20 @@ class AddLog:
 
     def append(self, seqno: int, x) -> bool:
         """Durably record batch ``seqno``; returns False when the RPO
-        policy (``log_every``) skipped it."""
+        policy (``log_every``) skipped it. On a mesh every rank calls it
+        and returns once rank 0's record is in place (or raises, every
+        rank, when it could not be written)."""
         self.appended += 1
         if (self.appended - 1) % self.log_every != 0:
             self.skipped += 1
             return False
+        if self.pctx is None:
+            self._write(seqno, x)
+        else:
+            self.pctx.rank0_write(lambda: self._write(seqno, x))
+        return True
+
+    def _write(self, seqno: int, x) -> None:
         path = self._path(seqno)
         tmp = path + ".tmp.npz"
         with open(tmp, "wb") as f:
@@ -64,7 +81,6 @@ class AddLog:
                 f.flush()
                 os.fsync(f.fileno())
         os.replace(tmp, path)
-        return True
 
     def seqnos(self) -> list[int]:
         return sorted(int(f[len(_PREFIX):-len(_SUFFIX)])
@@ -81,10 +97,15 @@ class AddLog:
                     yield s, data["x"]
 
     def truncate(self, upto: int) -> int:
-        """Drop records covered by a snapshot (seqno <= upto)."""
-        n = 0
-        for s in self.seqnos():
-            if s <= upto:
+        """Drop records covered by a snapshot (seqno <= upto); on a mesh
+        rank 0 removes them and every rank agrees on the outcome."""
+        covered = [s for s in self.seqnos() if s <= upto]
+
+        def drop():
+            for s in covered:
                 os.remove(self._path(s))
-                n += 1
-        return n
+        if self.pctx is None:
+            drop()
+        else:
+            self.pctx.rank0_write(drop)
+        return len(covered)

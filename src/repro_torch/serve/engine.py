@@ -47,9 +47,25 @@ with inserts interleaved in FIFO order, and overlapped dispatch.
 
 A sharded index (``IVFIndex(pctx=)``) is served as any other: every rank
 runs the same engine over the same requests, and each search and add is one
-collective program. Not ported yet (ROADMAP.md, queue A): over a sharded
-index ``health``, ``faults``, ``snapshot_dir`` and ``recover(pctx=)`` (item
-6b), and the clustered-KV ``Engine`` (item 8).
+collective program. Reliability over a mesh keeps every rank on the same
+path, since a rank that leaves a collective its peers are in hangs the
+world: each rank holds its own ``FaultInjector`` of the same ``FaultPlan``,
+polled in lockstep; inputs and merged results are replicated; under a
+policy each unit's outcome (a search attempt, a rung, an add, a refresh) is
+agreed by one all-reduce of two flags (``ParallelContext.agree``) before
+the engine acts on it. A search unit is replicated and changes nothing, so
+every rank takes the same rung and keeps the same ``HealthCounters``. An add
+or a refresh changes the rank's shard: where it failed on every rank it is
+parked or counted as on one device; where it failed on some ranks only,
+their states differ and every rank raises ``RanksDiverged``. Only a failure
+outside the unit's collectives can be agreed: a rank that raises inside one
+leaves its peers waiting there until the process group's timeout, whose
+error (``core.parallel.COLLECTIVE_FAULTS``: gloo or NCCL) passes through as
+a kernel fault does. The WAL and snapshots are written by rank 0, and every
+rank agrees that they are durable, or raises, before it goes on (see
+``reliability.wal`` and ``reliability.snapshot``). ``recover(pctx=)``
+restores onto any mesh. Not ported yet (ROADMAP.md, queue A): the
+clustered-KV ``Engine`` (item 8).
 """
 from __future__ import annotations
 
@@ -60,6 +76,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core.parallel import COLLECTIVE_FAULTS
 from repro_torch.kernels._build import KernelUnavailable
 from repro_torch.reliability.health import (HealthCounters, HealthPolicy,
                                             NonFiniteResult)
@@ -72,6 +89,18 @@ from repro_torch.reliability.wal import AddLog
 # transient faults; it does not answer with the plain version instead.
 KERNEL_FAULTS = (KernelUnavailable,) + (
     (torch.AcceleratorError,) if hasattr(torch, "AcceleratorError") else ())
+
+
+class RanksDiverged(RuntimeError):
+    """A unit that changes the index (an add, a refresh) failed on some
+    ranks of a mesh and succeeded on others: their shards now differ, which
+    no rung repairs, so every rank raises it."""
+
+
+# what the engine never absorbs: the kernels' faults, the collective
+# layer's (a retry would leave the world's ranks in different collectives)
+# and a mesh whose ranks' states diverged
+_PASS_THROUGH = KERNEL_FAULTS + COLLECTIVE_FAULTS + (RanksDiverged,)
 
 
 @dataclasses.dataclass
@@ -99,12 +128,7 @@ class SearchEngine:
                  health: HealthPolicy | None = None, faults=None):
         self.index = index
         self.scfg = scfg or SearchConfig()
-        if getattr(index, "pctx", None) is not None and (
-                health is not None or faults is not None
-                or self.scfg.snapshot_dir):
-            raise NotImplementedError(
-                "health, faults and snapshots over a sharded index are not "
-                "ported yet (ROADMAP.md, queue A item 6b)")
+        self.pctx = getattr(index, "pctx", None)
         self.health = health
         self.counters = HealthCounters()
         if faults is not None:   # attach the injector at the index seams
@@ -114,7 +138,8 @@ class SearchEngine:
         self.refresh_count = 0
         # durability: the WAL and snapshots when a snapshot_dir is set
         self.wal = AddLog(self.scfg.snapshot_dir,
-                          log_every=self.scfg.wal_log_every) \
+                          log_every=self.scfg.wal_log_every,
+                          pctx=self.pctx) \
             if self.scfg.snapshot_dir else None
         self._seqno = 0            # the last insert batch's seqno
         self._adds_since_snap = 0
@@ -334,22 +359,50 @@ class SearchEngine:
                                      nprobe_c=self.scfg.nprobe_c)
         return self._ladder(q)
 
+    def _agreed(self, run, check_finite: bool = False,
+                changes_state: bool = False):
+        """``run()``, its outcome agreed over the mesh: a result on every
+        rank, or the rank's own exception (``NonFiniteResult`` for
+        non-finite distances, when ``check_finite``; the peers' failure
+        where this rank succeeded) raised on every rank. A unit that
+        ``changes_state`` and failed on some ranks only raises
+        ``RanksDiverged`` on every rank. One read of the distances, and on
+        a mesh one all-reduce of the flags."""
+        err, out = None, None
+        try:
+            out = run()
+            if check_finite and not bool(torch.isfinite(out[1]).all()):
+                raise NonFiniteResult("search returned non-finite distances")
+        except _PASS_THROUGH:
+            raise
+        except Exception as e:
+            err = e
+        ok = err is None
+        if self.pctx is not None:
+            ok, some = self.pctx.agree(ok)
+            if changes_state and some and not ok:
+                raise RanksDiverged("a unit that changes the index failed "
+                                    "on some ranks and succeeded on "
+                                    "others") from err
+        if not ok:
+            raise err or RuntimeError("a peer rank failed this unit")
+        return out
+
     def _attempt(self, q: torch.Tensor, nprobe: int
                  ) -> tuple[torch.Tensor, torch.Tensor]:
         """One configured search; non-finite output counts as a failure
         (one read of the unit's distances)."""
-        ids, dists = self.index.search(q, topk=self.scfg.topk,
-                                       nprobe=nprobe,
-                                       nprobe_c=self.scfg.nprobe_c)
-        if self.health.check_finite and not bool(torch.isfinite(dists).all()):
-            raise NonFiniteResult("search returned non-finite distances")
-        return ids, dists
+        return self._agreed(lambda: self.index.search(
+            q, topk=self.scfg.topk, nprobe=nprobe,
+            nprobe_c=self.scfg.nprobe_c), self.health.check_finite)
 
     def _ladder(self, q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """The degradation ladder (``reliability.health``): retry/backoff,
         nprobe halving, brute force, last-known-good, black hole. Never
         raises, except on a fault of the card's kernels
-        (``KERNEL_FAULTS``), which it passes on."""
+        (``KERNEL_FAULTS``) or of the collective layer, which it passes on.
+        On a mesh every rung's outcome is agreed (``_agreed``), so every
+        rank takes the same rung."""
         pol, ctr = self.health, self.counters
         nprobe = min(self.scfg.nprobe, self.index.k)
         attempts = pol.max_retries + 1   # retries only at the full nprobe
@@ -363,7 +416,7 @@ class SearchEngine:
                     else:
                         ctr.nprobe_degraded += 1
                     return ids, dists
-                except KERNEL_FAULTS:
+                except _PASS_THROUGH:
                     raise
                 except Exception:
                     if i < attempts - 1:
@@ -378,24 +431,21 @@ class SearchEngine:
             break
         if pol.brute_fallback:   # rung 3: no probe stage left to fail
             try:
-                ids, dists = self.index.search_brute(q, topk=self.scfg.topk)
-                if not bool(torch.isfinite(dists).all()):
-                    raise NonFiniteResult("brute force non-finite")
+                ids, dists = self._agreed(lambda: self.index.search_brute(
+                    q, topk=self.scfg.topk), True)
                 ctr.brute_fallbacks += 1
                 return ids, dists
-            except KERNEL_FAULTS:
+            except _PASS_THROUGH:
                 raise
             except Exception:
                 pass
         if pol.lkg_fallback and self._lkg is not None:   # rung 4: stale
             try:
-                ids, dists = self._lkg.search(q, topk=self.scfg.topk,
-                                              nprobe=nprobe)
-                if not bool(torch.isfinite(dists).all()):
-                    raise NonFiniteResult("lkg non-finite")
+                ids, dists = self._agreed(lambda: self._lkg.search(
+                    q, topk=self.scfg.topk, nprobe=nprobe), True)
                 ctr.lkg_fallbacks += 1
                 return ids, dists
-            except KERNEL_FAULTS:
+            except _PASS_THROUGH:
                 raise
             except Exception:
                 pass
@@ -442,10 +492,15 @@ class SearchEngine:
         return a
 
     def _apply(self, seqno: int, x) -> torch.Tensor:
-        """Apply one logged batch; park it (bounded) on failure."""
+        """Apply one logged batch; park it (bounded) on failure (on a mesh
+        a failure of every rank; ``RanksDiverged`` where some succeeded)."""
         try:
-            a = self.index.add(x)
-        except KERNEL_FAULTS:
+            if self.health is None:
+                a = self.index.add(x)
+            else:
+                a = self._agreed(lambda: (self.index.add(x), None),
+                                 changes_state=True)[0]
+        except _PASS_THROUGH:
             raise
         except Exception:
             if self.health is not None and len(self._pending_adds) \
@@ -471,22 +526,23 @@ class SearchEngine:
         """Commit pending evidence: re-center the index's centroids. Under
         a ``HealthPolicy`` the commit is guarded (NaN statistics rows
         zeroed, dead cells re-seeded), and a failed commit leaves the
-        schedule armed instead of raising."""
+        schedule armed instead of raising (on a mesh where it failed on
+        every rank; ``RanksDiverged`` where some committed)."""
         pol = self.health
         try:
             if pol is not None:
                 r0 = self.index.repaired_cells
                 d0 = self.index.reseeded_cells
-                self.index.refresh(decay=self.scfg.refresh_decay,
-                                   guard=pol.guard_refresh,
-                                   repair_dead=pol.repair_dead)
+                self._agreed(lambda: (self.index.refresh(
+                    decay=self.scfg.refresh_decay, guard=pol.guard_refresh,
+                    repair_dead=pol.repair_dead), None), changes_state=True)
                 self.counters.stats_repaired += \
                     self.index.repaired_cells - r0
                 self.counters.dead_cells_reseeded += \
                     self.index.reseeded_cells - d0
             else:
                 self.index.refresh(decay=self.scfg.refresh_decay)
-        except KERNEL_FAULTS:
+        except _PASS_THROUGH:
             raise
         except Exception:
             if pol is None:
@@ -512,7 +568,8 @@ class SearchEngine:
 
     def snapshot(self) -> str:
         """Snapshot the index (and the engine's schedule counters) as of
-        the current WAL position, then drop the WAL records it covers."""
+        the current WAL position, then drop the WAL records it covers (on
+        a mesh every rank calls it; rank 0 writes)."""
         if not self.scfg.snapshot_dir:
             raise ValueError("snapshot() needs scfg.snapshot_dir")
         path = self.index.save(
@@ -534,14 +591,13 @@ class SearchEngine:
         ``"cuda"``) and replay the WAL's tail through the live ``add``
         path, which gives the index an uninterrupted run holds (same
         batches, same order, the refresh schedule resumed from the
-        manifest's ``extra``). ``pctx`` waits for queue A item 6b."""
-        if pctx is not None:
-            raise NotImplementedError(
-                "recovering onto a mesh (pctx) is not ported yet "
-                "(ROADMAP.md, queue A item 6b)")
+        manifest's ``extra``). ``pctx``: every rank recovers onto that
+        mesh, whatever mesh the snapshot was taken on (ref. l.682-700),
+        and replays the same records."""
         from repro_torch.index.ivf import IVFIndex
         from repro_torch.reliability.snapshot import read_manifest
-        index = IVFIndex.load(directory, planner=planner, device=device)
+        index = IVFIndex.load(directory, planner=planner, device=device,
+                              pctx=pctx)
         scfg = dataclasses.replace(scfg or SearchConfig(),
                                    snapshot_dir=directory)
         eng = cls(index, scfg, health=health, faults=faults)

@@ -1,10 +1,13 @@
 """One rank of the port's parallel-layer checks on the CPU (gloo).
 
-    PYTHONPATH=src python tests/_torch_parallel_worker.py RANK WORLD STORE OUT [axes]
+    PYTHONPATH=src python tests/_torch_parallel_worker.py RANK WORLD STORE \
+        OUT [axes|reliability]
 
 Run WORLD copies at once (``tests/test_torch_parallel_ranks.py`` starts 4;
 with ``axes``, ``tests/test_torch_parallel_axes.py`` starts 4 that drive the
-sharded index's other axes instead, ``axes()``):
+sharded index's other axes instead, ``axes()``; with ``reliability``,
+``tests/test_torch_parallel_reliability.py`` starts 4 that drive the sharded
+index's faults, refresh repairs, snapshots and engine, ``reliability()``):
 each rendezvouses through the ``FileStore`` at STORE, builds the meshes of
 the cases below, drives the port's multi-rank programs on the same global
 inputs (``inputs()``, made from numpy seeds) and writes what it got to
@@ -118,6 +121,214 @@ def axes(rank: int, world: int, store: str, out: str) -> None:
             res[f"{tag}/lists"] = idx.posting_lists()[0].numpy()
             res[f"{tag}/bytes"] = np.array(idx.search_collective_bytes(
                 64, 10, 4))
+    np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
+    dist.destroy_process_group()
+
+
+# the sharded indexes of ``reliability()``'s snapshot round trips: name ->
+# IVFIndex keywords (the two-level router made from ``inputs()``)
+SNAP_KINDS = {
+    "padded": dict(),
+    "paged": dict(store="paged", page_size=8),
+    "q8": dict(codec="q8"),
+    "q8_paged_routed": dict(codec="q8", store="paged", page_size=8,
+                            router="two_level"),
+}
+MESHES = ((2, 2), (1, 4), (4, 1))
+NAN_SEED, DEAD_SHARD = 9, 1
+ENGINE = dict(topk=10, nprobe=4, query_batch=64, refresh_every=2)
+CHAOS_SEED, CHAOS_UNITS = 7, 16
+
+
+def dead_low_corpus() -> np.ndarray:
+    """Rows only in cells 0..K/2-1 (the blob centres' lower half): on a 2x2
+    mesh the last K-shard owns only dead cells (ref.
+    tests/distributed/_parallel_worker.py:146-167)."""
+    inp = inputs()
+    rng = np.random.default_rng(5)
+    lab = rng.integers(0, K // 2, N)
+    return (inp["centers"][lab] + 0.4 * rng.standard_normal(
+        (N, D))).astype(np.float32)
+
+
+def index_kw(name: str, inp: dict, device: str = "cpu") -> dict:
+    """``SNAP_KINDS[name]`` with its router built (the same on every rank
+    and in the test's JAX index)."""
+    kw = dict(SNAP_KINDS[name])
+    if "router" in kw:
+        from repro_torch.index.router import TwoLevelRouter
+        kw["router"] = TwoLevelRouter(inp["coarse"], inp["owner"],
+                                      nprobe_c=2, device=device)
+    return kw
+
+
+def reliability(rank: int, world: int, store: str, out: str) -> None:
+    """The sharded index under faults, repairs and restores on a 2x2 mesh
+    (2 data x 2 cell shards), and the engine over it; snapshots written by
+    the test's JAX package (``OUT/jax_<kind>``) restored onto 2x2, 1x4, 4x1
+    and no mesh. Every case writes its results under its name; the test
+    holds them to the JAX package on one device."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.parallel import ParallelContext, build_mesh
+    from repro_torch.index import IVFIndex
+    from repro_torch.reliability import (FaultEvent, FaultInjector,
+                                         FaultPlan, HealthPolicy)
+    from repro_torch.serve import SearchConfig, SearchEngine
+    from repro_torch.serve.engine import RanksDiverged
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    inp = inputs()
+    t = {k: torch.from_numpy(v) for k, v in inp.items()
+         if isinstance(v, np.ndarray)}
+    res: dict[str, np.ndarray] = {}
+    ctx = {shape: ParallelContext.for_mesh(build_mesh(
+        shape, ("data", "model"), device_type="cpu")) for shape in MESHES}
+    pctx = ctx[(2, 2)]
+
+    def keep(tag, *arrays):
+        for i, a in enumerate(arrays):
+            res[f"{tag}/{i}"] = np.asarray(
+                a.detach().cpu().numpy() if torch.is_tensor(a) else a)
+
+    def searches(tag, idx):
+        for npb in (4, K):
+            keep(f"{tag}/search{npb}", *idx.search(t["q"], topk=10,
+                                                   nprobe=npb))
+
+    # the world's agreement: one rank's failure is every rank's; a write
+    # rank 0 fails raises on every rank, one it makes is seen by every rank
+    res["world/agree"] = np.array([pctx.agree(rank != 2), pctx.agree(True),
+                                   pctx.agree(False)])
+    res["world/all_ok"] = np.array([pctx.all_ok(rank != 2),
+                                    pctx.all_ok(True)])
+    res["world/rank0"] = np.array(pctx.is_world_rank0 == (rank == 0))
+
+    def disk_full():
+        raise OSError("no space left on device")
+    try:
+        pctx.rank0_write(disk_full)
+        res["world/failed_write_raised"] = np.array(False)
+    except OSError:
+        res["world/failed_write_raised"] = np.array(True)
+    marker = os.path.join(out, "rank0_wrote")
+    pctx.rank0_write(lambda: open(marker, "w").close())
+    res["world/write_seen"] = np.array(os.path.exists(marker))
+    # (i) dead_shard: blanked out of every merge, healed on the next call
+    for name in ("padded", "paged", "q8"):
+        idx = IVFIndex(t["centers"], 128, pctx=pctx, **index_kw(name, inp))
+        idx.add(t["x"])
+        idx.faults = FaultInjector(FaultPlan(
+            [FaultEvent("search", "dead_shard", 0, arg=DEAD_SHARD)]))
+        keep(f"dead/{name}", *idx.search(t["q"], topk=10, nprobe=K))
+        keep(f"dead/{name}/healed", *idx.search(t["q"], topk=10, nprobe=K))
+        idx.faults = None
+        keep(f"dead/{name}/healthy", *idx.search(t["q"], topk=10, nprobe=K))
+    # a data-only mesh has no shard to lose: the event is a search error
+    flat = IVFIndex(t["centers"], 128, pctx=ctx[(4, 1)])
+    flat.add(t["x"])
+    flat.faults = FaultInjector(FaultPlan(
+        [FaultEvent("search", "dead_shard", 0, arg=0)]))
+    try:
+        flat.search(t["q"], topk=10, nprobe=4)
+        res["dead/data_only_raised"] = np.array(False)
+    except RuntimeError as e:
+        res["dead/data_only_raised"] = np.array(
+            type(e).__name__ == "InjectedFault")
+    # (ii) nan_stats on an add, then the guarded refresh
+    idx = IVFIndex(t["centers"], 128, pctx=pctx)
+    idx.add(t["x"])
+    idx.faults = FaultInjector(FaultPlan(
+        [FaultEvent("add", "nan_stats", 0, arg=NAN_SEED)]))
+    idx.add(t["x2"])
+    idx.faults = None
+    res["nan/pending_nan"] = np.array(bool(torch.isnan(
+        idx._pending.sums).any()))
+    idx.refresh(guard=True)
+    keep("nan", idx.global_centroids(), idx.repaired_cells)
+    searches("nan", idx)
+    # (iii) the dead cells' repair: the last K-shard owns only dead cells
+    idx = IVFIndex(t["centers"], 256, pctx=pctx)
+    idx.add(torch.from_numpy(dead_low_corpus()))
+    idx.refresh(repair_dead=True)
+    keep("repair", idx.global_centroids(), idx.reseeded_cells)
+    # (iv) snapshots: the port's 2x2 snapshot of each kind (read by the
+    # test's JAX package) and its restores onto the other meshes and none;
+    # the JAX package's snapshot restored onto every mesh and none
+    for name in SNAP_KINDS:
+        idx = IVFIndex(t["centers"], 128, pctx=pctx, **index_kw(name, inp))
+        idx.add(t["x"])
+        idx.add(t["x2"])
+        idx.refresh()
+        searches(f"snap/{name}/live", idx)
+        idx.save(os.path.join(out, f"port_{name}"), seqno=3)
+        for src in ("port", "jax"):
+            d = os.path.join(out, f"{src}_{name}")
+            for shape in MESHES:
+                back = IVFIndex.load(d, pctx=ctx[shape])
+                searches(f"snap/{name}/{src}/{shape[0]}x{shape[1]}", back)
+            back = IVFIndex.load(d, device="cpu")
+            searches(f"snap/{name}/{src}/none", back)
+            del back
+    # (v) the engine over the mesh: a durability run dropped after its
+    # third add and recovered onto the same mesh, beside an uninterrupted
+    # twin; then seeded chaos under the policy
+    sdir = os.path.join(out, "engine")
+    stream = [torch.from_numpy(b) for b in inp["stream"]]
+    pol = HealthPolicy(backoff_s=0.0)
+    eng = SearchEngine(IVFIndex(t["centers"], 128, pctx=pctx),
+                       SearchConfig(**ENGINE, snapshot_dir=sdir,
+                                    snapshot_every=2), health=pol)
+    twin = SearchEngine(IVFIndex(t["centers"], 128, pctx=pctx),
+                        SearchConfig(**ENGINE), health=pol)
+    for b in stream[:3]:
+        eng.add(b)
+        eng.search(t["q"])
+    del eng
+    back = SearchEngine.recover(sdir, SearchConfig(**ENGINE,
+                                                   snapshot_every=2),
+                                health=pol, pctx=pctx)
+    res["engine/replayed"] = np.array(back.counters.wal_records_replayed)
+    back.add(stream[3])
+    for b in stream:
+        twin.add(b)
+    keep("engine/recovered", *back.search(t["q"]))
+    keep("engine/twin", *twin.search(t["q"]))
+    idx = IVFIndex(t["centers"], 128, pctx=pctx)
+    idx.add(t["x"])
+    ce = SearchEngine(idx, SearchConfig(**ENGINE), health=pol,
+                      faults=FaultInjector(FaultPlan.seeded(CHAOS_SEED)))
+    finite = True
+    for u in range(CHAOS_UNITS):
+        if u % 3 == 0:
+            ce.add(stream[u // 3 % len(stream)])
+        _, dd = ce.search(t["q"])
+        finite &= bool(torch.isfinite(dd).all())
+    res["chaos/finite"] = np.array(finite)
+    res["chaos/counters"] = np.array(list(ce.counters.as_dict().values()))
+    res["chaos/fired"] = np.array([e.kind for e in idx.faults.fired])
+    # an add that changed every rank's shard but failed on rank 2 after its
+    # collectives: the shards differ, so every rank raises RanksDiverged
+    # and none parks the batch
+    idx = IVFIndex(t["centers"], 128, pctx=pctx)
+    de = SearchEngine(idx, SearchConfig(**ENGINE), health=pol)
+    if rank == 2:
+        real_add = idx.add
+
+        def add_then_fail(x):
+            real_add(x)
+            raise RuntimeError("rank 2's add failed after it applied")
+        idx.add = add_then_fail
+    try:
+        de.add(stream[0])
+        diverged = False
+    except RanksDiverged:
+        diverged = True
+    res["engine/diverged"] = np.array([diverged, len(de._pending_adds),
+                                       de.counters.adds_requeued])
     np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
     dist.destroy_process_group()
 
@@ -247,5 +458,6 @@ def main(rank: int, world: int, store: str, out: str) -> None:
 
 
 if __name__ == "__main__":
-    run = axes if sys.argv[5:] == ["axes"] else main
+    run = {"axes": axes, "reliability": reliability}.get(
+        (sys.argv[5:] or [""])[0], main)
     run(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])

@@ -255,11 +255,13 @@ def test_plans_are_pinned_and_repinned_on_geometry(corpus):
     assert eng.index.planner.counters()["misses"] > misses
 
 
-# --- the reliability options (ported; the sharded recovery waits) -----------
+# --- the reliability options (ported, on one device and onto a mesh) ---------
 
 def test_unported_reliability_options_raise(corpus, tmp_path):
     """The reliability options of queue A item 5 now work (they raised
-    before it was ported); only recovery onto a mesh (item 6) raises."""
+    before it was ported), and so does recovery onto a mesh (item 6b,
+    which raised until it was ported): here onto a world of one rank with
+    a cells axis."""
     from repro_torch.reliability import (FaultInjector, FaultPlan,
                                          HealthPolicy)
     x, _ = corpus
@@ -279,8 +281,16 @@ def test_unported_reliability_options_raise(corpus, tmp_path):
     assert eng.snapshot().endswith("index_00000001.npz")
     rec = SearchEngine.recover(snap, device="cpu")
     assert torch.equal(rec.search(x[:8])[0], eng.search(x[:8])[0])
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        SearchEngine.recover(snap, device="cpu", pctx=object())
+    from repro_torch.core import parallel as par
+    try:
+        pk = par.ParallelContext(par.build_mesh(
+            (1, 1), ("data", "model"), device_type="cpu"), k_axis="model")
+        on_mesh = SearchEngine.recover(snap, pctx=pk)
+        assert on_mesh.index.pctx is pk and on_mesh.index._k_sharded
+        got, want = on_mesh.search(x[:8]), rec.search(x[:8])
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    finally:
+        par.release_world()
     # nprobe_c no longer raises (the two-level router is ported): the flat
     # router takes it and ignores it, as the reference's does
     eng = SearchEngine(index, SearchConfig(topk=5, nprobe=2, nprobe_c=2))
@@ -374,13 +384,20 @@ def test_launcher_serves_search_on_the_cpu(codec, capsys):
 
 @pytest.mark.parametrize("flags,item", [
     (["--mode", "dense"], "items 7-8"), (["--mode", "clustered"], "items 7-8"),
-    (["--mesh", "1x1", "--health"], "item 6")])
+    (["--mesh", "1x1", "--health"], None)])
 def test_launcher_refuses_what_is_not_ported(flags, item):
-    """``--mesh`` itself is ported (``test_launcher_serves_a_mesh_of_one``),
-    with the paged store, q8 and the two-level router
-    (``test_launcher_mesh_serves_the_6b_axes``); its health policy waits
-    for item 6b."""
+    """``--mode dense|clustered`` waits for items 7-8. ``--mesh`` itself is
+    ported (``test_launcher_serves_a_mesh_of_one``), with the paged store,
+    q8 and the two-level router (``test_launcher_mesh_serves_the_6b_axes``)
+    and, since item 6b, with its health policy (``item`` None: it
+    serves)."""
     from repro_torch.launch import serve
+    if item is None:
+        out = serve.main(["--device", "cpu", "--n", "2000", "--d", "16",
+                          "--kc", "16", "--queries", "32", "--reps", "2",
+                          *flags])
+        assert out["recall"] >= 0.9 and "counters" in out
+        return
     with pytest.raises(NotImplementedError, match=f"queue A {item}"):
         serve.main(["--device", "cpu", *flags])
 
@@ -466,15 +483,30 @@ def test_launcher_mesh_must_fill_the_world():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--store", "paged", "--health"], ["--codec", "q8", "--chaos-seed", "7"],
+    ["--store", "paged", "--health"],
+    ["--codec", "q8", "--chaos-seed", "7", "--health"],
     ["--router", "two_level", "--snapshot-dir", "SNAP"],
-    ["--health"], ["--chaos-seed", "7"], ["--snapshot-dir", "SNAP"]])
-def test_launcher_mesh_refuses_what_6b_ports(flags):
-    """The reliability flags over a mesh wait for item 6b, beside any of the
-    axes it has ported."""
+    ["--health"], ["--chaos-seed", "8"], ["--snapshot-dir", "SNAP"]])
+def test_launcher_mesh_refuses_what_6b_ports(flags, tmp_path, capsys):
+    """The reliability flags over a mesh, which waited for item 6b, serve
+    beside any of the axes: at ``--mesh 1x1`` (world 1; ``2x2`` needs four
+    ranks) the health counters print under a policy or a plan, and the
+    durability demo recovers onto the mesh with the same ids. (Seed 7's
+    plan fails the first search, which only a policy absorbs; seed 8's
+    first search fault comes later.)"""
+    import torch.distributed as dist
     from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match="queue A item 6b"):
-        serve.main(["--device", "cpu", "--mesh", "2x2", *flags])
+    flags = [str(tmp_path / "snap") if f == "SNAP" else f for f in flags]
+    out = serve.main(["--mode", "search", "--device", "cpu", "--n", "2000",
+                      "--d", "16", "--kc", "16", "--queries", "32",
+                      "--reps", "2", "--mesh", "1x1", *flags])
+    text = capsys.readouterr().out
+    assert out["recall"] >= 0.9 and "sharded serving:" in text
+    assert ("health counters:" in text) == any(
+        f in flags for f in ("--health", "--chaos-seed"))
+    if "--snapshot-dir" in flags:
+        assert "restored search identical: True" in text
+    assert not dist.is_initialized()
 
 
 @pytest.mark.parametrize("flags", [

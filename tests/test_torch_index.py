@@ -200,6 +200,22 @@ def test_full_probe_equals_brute(pair):
                                atol=_atol(q, x))
 
 
+def test_brute_force_in_row_chunks_matches_jax(pair, monkeypatch):
+    """``search_brute`` scores the rows ``BRUTE_CHUNK_ELEMS / B`` at a time
+    (chunks of 16 rows here) and merges the chunks' lists ties to the lower
+    row: the JAX package's dense brute force, and the ids of one chunk."""
+    from repro_torch.index import ivf as ivf_mod
+    x, jidx, tidx = pair
+    q = x[5::N // NQ][:NQ]
+    whole = tidx.search_brute(q, topk=10)
+    monkeypatch.setattr(ivf_mod, "BRUTE_CHUNK_ELEMS", 16 * NQ)
+    assert tidx.store.flat()[0].shape[0] > 16   # several chunks
+    got = tidx.search_brute(q, topk=10)
+    _assert_search_equal(got, jidx.search_brute(jnp.asarray(q), topk=10),
+                         q, x)
+    assert torch.equal(got[0], whole[0])
+
+
 def test_search_with_spills_matches_jax():
     """``max_cap`` spills: each cell keeps its first 96 rows, and the search
     (the store scan over those cells) returns the JAX package's ids."""
@@ -341,17 +357,25 @@ def one_rank(tmp_path_factory):
 
 
 # a sharded two-level index and a q8 index whose cache is sharded over a mesh
-# are ported (item 6b, parts 1-3); their snapshots are not (item 6b, part 5)
+# are ported (item 6b, parts 1-3), and so are their snapshots (item 6b, part
+# 5, which raised until it was ported): a round trip onto the mesh
 @pytest.mark.parametrize("kw", [{"router": "two_level"},
                                 {"codec": "q8", "rescore": "device"}],
                          ids=["pctx", "rescore-device"])
 def test_unported_options_raise(kw, one_rank, tmp_path):
-    c = np.random.default_rng(2).standard_normal((4, 8)).astype(np.float32)
+    rng = np.random.default_rng(2)
+    c = rng.standard_normal((4, 8)).astype(np.float32)
+    x = rng.standard_normal((40, 8)).astype(np.float32)
     idx = IVFIndex(c, 8, device="cpu", pctx=one_rank, **kw)
     assert idx.router.kind == kw.get("router", "flat")
     assert idx.store.codec_kind == kw.get("codec", "fp32")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        idx.save(str(tmp_path))
+    idx.add(x)
+    idx.save(str(tmp_path))
+    back = IVFIndex.load(str(tmp_path), pctx=one_rank)
+    assert back.router.kind == idx.router.kind
+    assert back.store.codec_kind == idx.store.codec_kind
+    got, want = (i.search(x[:6], topk=3, nprobe=2) for i in (back, idx))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 # the paged store's options (they raised before the paged store was ported)
@@ -514,7 +538,7 @@ def test_unported_entry_points_raise(tmp_path, one_rank):
     # the out-of-core build is ported (tests/test_torch_chunked.py)
     assert len(IVFIndex.build(x, k=4, device="cpu", chunk_size=16)) == 64
     # the sharded index is ported (tests/test_torch_parallel*.py), the paged
-    # one too; restoring onto a mesh waits for item 6b
+    # one too, and restoring onto a mesh (item 6b)
     paged = IVFIndex.build(x, k=4, device="cpu", pctx=one_rank,
                            store="paged")
     assert paged.store.kind == "paged" and len(paged) == 64
@@ -530,8 +554,10 @@ def test_unported_entry_points_raise(tmp_path, one_rank):
     from repro_torch.reliability import FaultEvent, FaultInjector, FaultPlan
     idx.faults = FaultInjector(FaultPlan([FaultEvent("add", "drop_add", 0)]))
     assert idx.add(x).shape == (0,) and len(idx) == 64
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        IVFIndex.load(str(tmp_path), device="cpu", pctx=object())
+    on_mesh = IVFIndex.load(str(tmp_path), pctx=one_rank)
+    assert on_mesh.pctx is one_rank and on_mesh._k_sharded
+    got = on_mesh.search(x[:8], topk=4, nprobe=2)
+    assert torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])
     # rescore=None resolves to the device cache, as in the reference; the
     # host reservoir stays beside it as the durable tier
     q8 = IVFIndex(x[:4], 8, device="cpu", codec="q8")

@@ -1,10 +1,10 @@
 """The port's parallel layer in one process (a gloo world of one rank),
 held to ``repro.core.parallel`` where both can run here: the mesh helpers,
 the validation rules, the collective-bytes models, the int8 codec of the
-compressed reduction, the merge's tie and ``valid`` rules, the refusals of
-what waits for queue A item 6b, and the architecture guard (no module of
-the port but ``core/parallel.py`` calls a collective). The multi-rank
-equivalences run in ``tests/test_torch_parallel_ranks.py``.
+compressed reduction, the merge's tie and ``valid`` rules, the sharded
+index's reliability options on one rank, and the architecture guard (no
+module of the port but ``core/parallel.py`` calls a collective). The
+multi-rank equivalences run in ``tests/test_torch_parallel_ranks.py``.
 """
 import datetime
 import re
@@ -288,42 +288,55 @@ def test_streaming_rejects_a_k_sharded_context(world):
     assert sk.device.type == "cpu"
 
 
-# --- what waits for queue A item 6b ------------------------------------------
+# --- the sharded index's reliability (ported from queue A item 6b) -----------
 
 def test_the_sharded_index_refuses_what_6b_ports(world, tmp_path):
-    """Its paged, q8 and two-level axes are ported (item 6b, parts 1-3;
-    tests/test_torch_parallel_axes.py); over each of them the reliability
-    options, snapshots and faults still raise."""
+    """Over each of its four kinds (padded, paged, q8, two-level) the
+    options that raised until queue A item 6b was ported now work on a
+    K-sharded index: the guarded and repairing refresh, snapshots and
+    restores onto the mesh, the engine's policy and snapshots, recovery
+    onto the mesh, and faults (a ``dead_shard`` of its one K-shard blanks
+    every merge: honest ``(-1, 0.0)`` rows, then the next call heals).
+    The multi-rank checks run in tests/test_torch_parallel_reliability.py."""
     from repro_torch.index import IVFIndex
-    from repro_torch.reliability import FaultInjector, FaultPlan, HealthPolicy
+    from repro_torch.reliability import (FaultEvent, FaultInjector,
+                                         FaultPlan, HealthPolicy)
     from repro_torch.serve import SearchConfig, SearchEngine
     pk = ParallelContext(_mesh(), k_axis="model")
     x = torch.randn(64, 4, generator=torch.Generator().manual_seed(3))
-    for kw in (dict(), dict(store="paged"), dict(codec="q8"),
-               dict(router="two_level")):
+    for i, kw in enumerate((dict(), dict(store="paged"), dict(codec="q8"),
+                            dict(router="two_level"))):
+        snap = str(tmp_path / f"kind{i}")
         idx = IVFIndex(x[:4], 8, pctx=pk, **kw)
         idx.add(x)
         for rkw in (dict(guard=True), dict(repair_dead=True)):
-            with pytest.raises(NotImplementedError, match="queue A item 6b"):
-                idx.refresh(**rkw)
-        with pytest.raises(NotImplementedError, match="queue A item 6b"):
-            idx.save(str(tmp_path))
-        with pytest.raises(NotImplementedError, match="queue A item 6b"):
-            SearchEngine(idx, health=HealthPolicy())
-        with pytest.raises(NotImplementedError, match="queue A item 6b"):
-            SearchEngine(idx, SearchConfig(snapshot_dir=str(tmp_path)))
-        idx.faults = FaultInjector(FaultPlan([]))
-        with pytest.raises(NotImplementedError, match="queue A item 6b"):
-            idx.search(x[:2], topk=2, nprobe=2)
+            idx.refresh(**rkw)
+        assert idx.repaired_cells == 0 and idx.reseeded_cells == 0
+        want = idx.search(x[:3], topk=2, nprobe=2)
+        idx.save(snap)
+        back = IVFIndex.load(snap, pctx=pk)
+        assert back.pctx is pk and back.store.kind == idx.store.kind
+        got = back.search(x[:3], topk=2, nprobe=2)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        eng = SearchEngine(idx, SearchConfig(topk=2, nprobe=2, query_batch=4,
+                                             snapshot_dir=snap),
+                           health=HealthPolicy())
+        assert eng._lkg is not None and eng._lkg.pctx is pk
+        assert torch.equal(eng.search(x[:3])[0], want[0])
+        eng.add(x[:8])
+        eng.snapshot()
+        rec = SearchEngine.recover(snap, SearchConfig(topk=2, nprobe=2,
+                                                      query_batch=4),
+                                   pctx=pk)
+        assert rec.index.pctx is pk and len(rec.index) == 72
+        assert torch.equal(rec.search(x[:3])[0], eng.search(x[:3])[0])
+        idx.faults = FaultInjector(FaultPlan(
+            [FaultEvent("search", "dead_shard", 0, arg=0)]))
+        ids, dists = idx.search(x[:2], topk=2, nprobe=2)
+        assert (ids == -1).all() and bool(torch.isfinite(dists).all())
+        assert torch.equal(idx.search(x[:3], topk=2, nprobe=2)[0],
+                           rec.index.search(x[:3], topk=2, nprobe=2)[0])
         idx.faults = None
-        eng = SearchEngine(idx, SearchConfig(topk=2, nprobe=2,
-                                             query_batch=4))
-        ids, _ = eng.search(x[:3])
-        assert torch.equal(ids, idx.search(x[:3], topk=2, nprobe=2)[0])
-    with pytest.raises(NotImplementedError, match="queue A item 6b"):
-        IVFIndex.load(str(tmp_path), pctx=pk)
-    with pytest.raises(NotImplementedError, match="queue A item 6b"):
-        SearchEngine.recover(str(tmp_path), pctx=pk)
 
 
 # --- the padded store over a mesh ---------------------------------------------

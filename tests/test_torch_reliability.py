@@ -321,8 +321,19 @@ def test_recovery_without_wal_tail(tmp_path, data):
     assert torch.equal(ids0, ids1) and torch.equal(d0, d1)
     assert read_manifest(str(tmp_path))["extra"]["refresh_count"] == \
         eng.refresh_count == 2
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        SearchEngine.recover(str(tmp_path), device="cpu", pctx=object())
+    # recovery onto a mesh (queue A item 6b, which raised until it was
+    # ported): a world of one rank with a cells axis answers bit for bit
+    from repro_torch.core import parallel as par
+    try:
+        pk = par.ParallelContext(par.build_mesh(
+            (1, 1), ("data", "model"), device_type="cpu"), k_axis="model")
+        eng3 = SearchEngine.recover(str(tmp_path), SearchConfig(**KW),
+                                    pctx=pk)
+        assert eng3.counters.wal_records_replayed == 0
+        ids3, d3 = eng3.search(q)
+        assert torch.equal(ids0, ids3) and torch.equal(d0, d3)
+    finally:
+        par.release_world()
 
 
 def test_auto_snapshot_schedule(tmp_path, data):

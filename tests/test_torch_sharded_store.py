@@ -246,3 +246,41 @@ def test_quantized_store_puts_each_row_in_its_home_shard():
     assert np.array_equal(ts.cache.rows.numpy(), np.asarray(js.cache.rows))
     assert np.array_equal(ts.state_arrays()["pool_pages"],
                           np.asarray(js.state_arrays()["pool_pages"]))
+
+
+@pytest.mark.parametrize("to_shards", [1, 2, 4])
+@pytest.mark.parametrize("from_shards", [1, 2, 4])
+def test_restore_over_shards_matches_jax(from_shards, to_shards):
+    """A paged store's snapshot arrays taken on ``from_shards`` K-shards,
+    restored over ``to_shards`` (``restore_store(n_shards=)``): each
+    shard's pages re-allocated cell-major from its page 1, its ``pps`` and
+    free list, the tables and the pool equal the reference's restore key
+    for key; the snapshot form round-trips; a placed shard holds its slice."""
+    kw, n_batches, rows, skew = ALLOC["growth"]
+    k = 12
+    src = tstore.PagedBucketStore(k, 4, torch.float32, n_shards=from_shards,
+                                  device="cpu", aux=True, **kw)
+    for cells, x, ids, aux in _batches(5, k, n_batches, rows, skew):
+        src.append(cells, torch.from_numpy(x), ids,
+                   aux=torch.from_numpy(aux))
+    host, meta = src.state_arrays(), src.meta()
+    got = tstore.restore_store(host, meta, k=k, d=4, dtype=torch.float32,
+                               n_shards=to_shards, device="cpu")
+    want = jstore.PagedBucketStore.restore(
+        {kk: np.asarray(v) for kk, v in host.items()}, meta, k=k, d=4,
+        dtype=jnp.float32, n_shards=to_shards)
+    assert got.pps == want.pps and got.maxp == want.maxp
+    assert got._frees == want._free
+    assert np.array_equal(got.tables_np, want.tables_np)
+    assert np.array_equal(got.pool.numpy(), np.asarray(want.pool))
+    assert np.array_equal(got.pool_ids.numpy(), np.asarray(want.pool_ids))
+    assert np.array_equal(got.pool_aux.numpy(), np.asarray(want.pool_aux))
+    back = got.state_arrays()
+    for key in host:
+        assert np.array_equal(np.asarray(back[key]), np.asarray(host[key]))
+    if to_shards > 1:
+        one = tstore.restore_store(host, meta, k=k, d=4, dtype=torch.float32,
+                                   n_shards=to_shards, device="cpu")
+        one.place(_owner(to_shards - 1, to_shards))
+        lo = (to_shards - 1) * one.pps
+        assert torch.equal(one.pool, got.pool[lo:lo + one.pps])

@@ -278,8 +278,19 @@ def test_snapshot_validation_and_refusals(data, tmp_path):
         load_index(str(tmp_path), device="cpu")
     with pytest.raises(FileNotFoundError):
         load_index(str(tmp_path / "none"), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        IVFIndex.load(str(tmp_path), device="cpu", pctx=object())
+    # restoring onto a mesh (queue A item 6b, which raised until it was
+    # ported): the validation holds there too, and a valid snapshot loads
+    from repro_torch.core import parallel as par
+    try:
+        pk = par.ParallelContext(par.build_mesh(
+            (1, 1), ("data", "model"), device_type="cpu"), k_axis="model")
+        with pytest.raises(ValueError, match="'centroids'"):
+            IVFIndex.load(str(tmp_path), pctx=pk)
+        tidx.save(str(tmp_path / "ok"))
+        back = IVFIndex.load(str(tmp_path / "ok"), pctx=pk)
+        assert back._k_sharded and back.n_total == tidx.n_total
+    finally:
+        par.release_world()
     bf = IVFIndex(tidx.centroids.to(torch.bfloat16), 8, device="cpu")
     with pytest.raises(NotImplementedError, match="bfloat16"):
         bf.save(str(tmp_path / "bf16"))
