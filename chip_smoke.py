@@ -91,7 +91,23 @@ run and read just after:
   twin's key for key and restored onto 1x4, 4x1 and one device bit for
   bit, and the launcher's ``--mesh 1x1`` with every reliability flag.
   Every rank reports its kernel launches; times at two or four ranks are
-  ranks time-slicing one card.
+  ranks time-slicing one card;
+- LM serving (``repro_torch.models``, ``repro_torch.serve.Engine``,
+  ``lm_phase``) at the full width of Llama-3-8B (32 layers, d_model 4,096,
+  GQA 32/8 heads, d_ff 14,336, vocab 128,256; f32, random weights from the
+  seed): ``kmeans_routed_attention`` at S 2,048 over 32 heads (one cluster
+  equal to dense attention, 16 through FlashAssign); dense prefill of 128
+  tokens and 128 decode steps, each equal to the full forward; the clustered
+  engine at B 4, prompt 2,048, 32 steps (kc 64, cap 128, two incremental
+  re-clusters: every logit finite, the buckets' invariants) beside the dense
+  engine; FlashAssign, the sort-inverse update and FlashLloyd at the
+  clustered cache's shape (1,024 problems of N 2,048, K 64, d 128) against
+  their plain versions; with the depth cut to 4 layers and every cluster
+  read (cap 2,176), the clustered engine's greedy ids equal to the dense
+  engine's; and ``launch/serve.py --mode clustered`` at B 4. It starts
+  once the earlier phases' tensors are freed (checked: under 1 GiB
+  allocated). The serving path's runs count as main-path launches; the cut
+  4-layer engines, the routed calls and the kernel checks are named checks.
 
 Before the paths, the sort-inverse update, FlashLloyd and the store scan are
 held to their plain versions on edge shapes (one segment over every CTA, K >
@@ -127,7 +143,8 @@ of the repository, and when any check fails. ``--kernels-only`` stops
 after the build and the ragged kernel checks (a first call after a kernel
 change); ``--reliability-only`` runs the build and the reliability phase,
 ``--parallel-only`` the build and the parallel phase, ``--parallel-e-only``
-the build and that phase's part (e). Details go to
+the build and that phase's part (e), ``--lm-only`` the build and the LM
+serving phase (details in ``chip_smoke_lm.json``). Details go to
 ``chip_smoke.json`` in the repository's git-ignored output directory.
 """
 from __future__ import annotations
@@ -2392,6 +2409,567 @@ def rel_mesh_part(dev, smi, rec, runs, checks):
     print(f"  (e) {er['seconds']:.1f} s", flush=True)
 
 
+# ---- phase 13: LM serving (models, kmeans_attention, Engine) ---------------
+# Llama-3-8B at full width (configs/llama3_8b.py), f32 as the reference's
+# Engine computes, random weights from SEED
+LM_ARCH = "llama3-8b"
+LM_DENSE = (128, 128)    # check 2: prompt, tokens decoded one by one (B 1)
+# check 3: depth cut to 4 layers; top = kc = 64 and a capacity factor of 66
+# (cap 2,176 >= 2,048 + 16 rows), so no row drops and every cluster is read
+LM_EXACT = {"layers": 4, "batch": 1, "prompt": 2048, "steps": 16,
+            "recent": 8, "capacity_factor": 66.0}
+LM_GEOM = {"batch": 4, "prompt": 2048, "steps": 32, "recent": 16}  # check 4
+LM_ROUTED = (1, 2048, 32, 128)   # check 5: B, S, H, hd
+LM_ROUTED_CLUSTERS = 16
+
+
+def device_rows(step, reps):
+    """``torch.profiler`` (CUPTI) over ``reps`` calls of ``step``: the
+    device's kernels (and memsets, copies) by name, time and calls per
+    call, largest first. The caller makes the warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        if "cuda" not in str(getattr(ev, "device_type", "")).lower():
+            continue
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0.0)
+        if t > 0:   # launch_ms: per recorded launch (the profiler may
+            # record fewer launches of a short kernel than were made)
+            rows.append({"name": ev.key, "ms": t / reps / 1e3,
+                         "calls": ev.count / reps,
+                         "launch_ms": t / ev.count / 1e3})
+    rows.sort(key=lambda r: -r["ms"])
+    return rows
+
+
+class LMProbe:
+    """Instruments an ``Engine``'s ``_prefill``, ``_decode``,
+    ``_cluster_caches`` and ``_recluster``: CUDA events around each call
+    (read after the run), the finiteness of every logit row it sampled
+    from (a device flag, no host read a step), the first decode's logits,
+    the launches of the cluster build, the built caches' ``bcount`` and
+    ``cweight``, and, with ``keep``, a copy of the prefill's keys and
+    values (the build's inputs)."""
+
+    def __init__(self, eng, read_counts, keep=False):
+        import torch
+        self.ev = {"prefill": [], "decode": [], "build": [], "flush": []}
+        self.finite = torch.ones((), dtype=torch.bool, device=eng.device)
+        self.first = None
+        self.logits = []
+        self.built = None
+        self.kv = None
+        self.build_counts = None
+
+        def timed(name, fn, after=None):
+            def run(*a, **k):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = fn(*a, **k)
+                e1.record()
+                self.ev[name].append((e0, e1))
+                if after is not None:
+                    after(a, out)
+                return out
+            return run
+
+        def logits_of(at):
+            def after(_, out):
+                lg = out[0][:, at]
+                self.finite &= torch.isfinite(lg).all()
+                self.logits.append(lg)
+                if at == 0 and self.first is None:
+                    self.first = lg.clone()
+            return after
+
+        build = eng._cluster_caches
+
+        def counted_build(caches, seq_len, *a, **k):
+            if keep:
+                self.kv = {key: (c["k"][:, :, :seq_len].clone(),
+                                 c["v"][:, :, :seq_len].clone())
+                           for key, c in caches.items() if "k" in c}
+            before = read_counts()
+            out = build(caches, seq_len, *a, **k)
+            after = read_counts()
+            self.build_counts = {kn: after[kn] - before[kn] for kn in after}
+            self.built = {key: (c["bcount"].clone(), c["cweight"].clone(),
+                                c["bk"].shape, 2 * c["bk"].numel()
+                                * c["bk"].element_size())
+                          for key, c in out.items() if "bcount" in c}
+            return out
+
+        eng._prefill = timed("prefill", eng._prefill, logits_of(-1))
+        eng._decode = timed("decode", eng._decode, logits_of(0))
+        eng._cluster_caches = timed("build", counted_build)
+        eng._recluster = timed("flush", eng._recluster)
+
+    def ms(self, name):
+        import torch
+        torch.cuda.synchronize()
+        return [e0.elapsed_time(e1) for e0, e1 in self.ev[name]]
+
+    def min_margin(self):
+        """The smallest top-two margin of the logit rows sampled from."""
+        import torch
+        m = [torch.topk(lg, 2, dim=-1).values for lg in self.logits]
+        return float(min(float((t[:, 0] - t[:, 1]).min()) for t in m))
+
+
+def _allclose_excess(got, want, rtol, atol):
+    """``max(|got - want| - atol - rtol |want|)``: <= 0 is allclose."""
+    return float(((got - want).abs() - atol - rtol * want.abs()).max())
+
+
+def lm_kernel_checks(dev, x, kc, iters, rec):
+    """Phase 13's kernels at the clustered cache's shape: x (P, N, d) the
+    prefill's keys of every (layer, sequence, kv head), the engine's initial
+    centroids. FlashAssign (ids equal except on near-ties within each
+    problem's ``flash_assign.score_tol``, scores within it, distances within
+    ``dist_tol``), the sort-inverse update of its ids (sums within rtol 1e-5
+    of sum|x| or the derived ``2 n u sum|x|``, counts equal) and FlashLloyd
+    (ids equal FlashAssign's bit for bit, sums and counts of its own ids,
+    inertia within rtol 1e-4), each against its plain version; their times
+    (CUDA events) beside the plain versions'. Returns ``{kernel: max abs
+    err}``."""
+    import torch
+    from repro_torch.core.kmeans import KMeansConfig
+    from repro_torch.kernels import flash_assign as fa
+    from repro_torch.kernels import flash_lloyd as fl
+    from repro_torch.kernels import ops
+    from repro_torch.models import kmeans_attention as kma
+    p, n, d = x.shape
+    c = kma.initial_centroids(x, kc)
+    cfgk = KMeansConfig(k=kc, max_iters=iters, init="random")
+    step = cfgk.resolved_step_impl(n, d, x.element_size(), device=dev)
+    errs = {}
+    out = rec.setdefault("kernels", {})
+    # per problem, fa.score_tol and fa.dist_tol, vectorized
+    cn = torch.linalg.vector_norm(c, dim=-1).amax(-1)
+    xn = torch.linalg.vector_norm(x, dim=-1).amax(-1)
+    mag = cn * cn + 2 * xn * cn
+    stol = (fa._kernel_terms(x) + d + 1) * U32 * mag
+    h = fa.sq_chain(d, x.element_size()) + 2 * d + 2
+    dtol = stol + (h * xn * xn * (1 + 1 / 64) + 2 * mag) * U32
+
+    a, m = ops.flash_assign_batched(x, c)
+    ap, mp = fa.flash_assign_plain(x, c, want_dists=True)
+    score_k = fa.flash_assign_raw(x, c)[1]
+    score_p = fa.flash_assign_plain(x, c)[1]
+    s_err = (score_k - score_p).abs().amax(-1)
+    d_err = (m - mp).abs().amax(-1)
+    diff = a != ap
+    gap = torch.zeros_like(s_err)
+    if bool(diff.any()):
+        bi, ni = diff.nonzero().unbind(1)
+        xr = x[bi, ni]
+
+        def score(kk):
+            ck = c[bi, kk.long()]
+            return (ck * ck).sum(-1) - 2 * (xr * ck).sum(-1)
+        g = (score(a[bi, ni]) - score(ap[bi, ni])).abs()
+        gap.scatter_reduce_(0, bi, g, reduce="amax")
+    mism = int(diff.sum())
+    ok = bool((s_err <= stol).all() and (d_err <= dtol).all()
+              and (gap <= stol).all())
+    errs["flash_assign"] = float(s_err.max())
+    out["flash_assign"] = {"mismatches": mism, "max_score_err": float(
+        s_err.max()), "score_err_over_tol": float((s_err / stol).max()),
+        "max_dist_err": float(d_err.max()), "tie_gap_over_tol": float(
+            (gap / stol).max())}
+    check(ok, f"[lm] flash_assign at the clustered shape (P {p}, N {n}, K "
+              f"{kc}, d {d}): scores within score_tol (max "
+              f"{float((s_err / stol).max()):.3g} of it), distances within "
+              f"dist_tol, {mism} ids differ, each a near-tie within the "
+              f"tolerance")
+
+    s, cnt = ops.sort_inverse_update_batched(x, a, k=kc)
+    ids = (a.long() + kc * torch.arange(p, device=dev).unsqueeze(1)
+           ).reshape(-1)
+    x2 = x.reshape(-1, d)
+    sp = torch.zeros((p * kc, d), device=dev).index_add_(0, ids, x2)
+    cp = torch.bincount(ids, minlength=p * kc).float()
+    absum = torch.zeros((p * kc, d), device=dev).index_add_(0, ids,
+                                                            x2.abs())
+    err_t = (s.reshape(p * kc, d) - sp).abs()
+    bound = torch.maximum(1e-5 * absum, stats_bound(x2, ids, p * kc, cp))
+    ok = bool((err_t <= bound).all()) and torch.equal(cnt.reshape(-1), cp)
+    errs["sort_inverse_update"] = float(err_t.max())
+    out["sort_inverse_update"] = {
+        "max_abs_err": float(err_t.max()),
+        "max_rel_to_abs_sum": float((err_t / absum.clamp_min(1e-30)).max())}
+    check(ok, f"[lm] sort_inverse_update at the clustered shape ({p * n} "
+              f"rows, {p * kc} segments): sums within rtol 1e-5 of sum|x| "
+              f"(max {out['sort_inverse_update']['max_rel_to_abs_sum']:.3g}),"
+              f" counts equal {torch.equal(cnt.reshape(-1), cp)}")
+    del sp, absum, err_t, bound
+
+    a_f, s_f, cnt_f, j_f = ops.flash_lloyd_step_batched(x, c)
+    ids_f = (a_f.long() + kc * torch.arange(p, device=dev).unsqueeze(1)
+             ).reshape(-1)
+    sp = torch.zeros((p * kc, d), device=dev).index_add_(0, ids_f, x2)
+    cp = torch.bincount(ids_f, minlength=p * kc).float()
+    err_t = (s_f.reshape(p * kc, d) - sp).abs()
+    bound = stats_bound(x2, ids_f, p * kc, cp)
+    jerr = float(((j_f - mp.sum(-1)).abs() / mp.sum(-1).abs()).max())
+    same = torch.equal(a_f, a)
+    ok = (same and bool((err_t <= bound).all())
+          and torch.equal(cnt_f.reshape(-1), cp) and jerr <= 1e-4)
+    errs["flash_lloyd"] = float(err_t.max())
+    out["flash_lloyd"] = {"ids_equal_assign": same,
+                          "max_abs_err": float(err_t.max()),
+                          "inertia_rel_err": jerr}
+    check(ok, f"[lm] flash_lloyd at the clustered shape: ids == FlashAssign's"
+              f" bit for bit {same}, sums within 2nu*sum|x|, counts equal, "
+              f"inertia rel err {jerr:.2g} <= 1e-4")
+    del sp, err_t, bound
+
+    times = {
+        "flash_assign": (lambda: ops.flash_assign_batched(x, c),
+                         lambda: fa.flash_assign_plain(x, c, True)),
+        "sort_inverse_update": (
+            lambda: ops.sort_inverse_update_batched(x, a, k=kc),
+            lambda: torch.zeros((p * kc, d), device=dev).index_add_(
+                0, ids, x2)),
+        "flash_lloyd": (lambda: ops.flash_lloyd_step_batched(x, c),
+                        lambda: fl.flash_lloyd_plain(x, c))}
+    for kname, (kern, plain) in times.items():
+        out[kname].update(ms=events_ms(kern), plain_ms=events_ms(plain))
+        print(f"  {kname} at P {p}, N {n}, K {kc}, d {d}: "
+              f"{out[kname]['ms']:.4f} ms a call (plain "
+              f"{out[kname]['plain_ms']:.3f} ms)", flush=True)
+    rec["step_impl"] = step
+    print(f"  the planner's step at N {n}, K {kc}, d {d}: {step}", flush=True)
+    return errs
+
+
+def lm_phase(dev, smi, zero_counts, read_counts, details):
+    """Phase 13: LM serving through the port's entry points at the full width
+    of Llama-3-8B (d_model 4,096, 32 heads, 8 kv heads, head_dim 128, d_ff
+    14,336, vocab 128,256 padded to 128,512, 32 layers; f32, random weights
+    from the seed):
+
+    (5) ``kmeans_routed_attention`` at B 1, S 2,048, 32 heads, hd 128:
+        ``clusters=1`` equals ``dot_attention`` (rtol 1e-4, atol 1e-5);
+        ``clusters=16`` routes its queries through FlashAssign;
+    (2) dense at full depth, B 1: prefill 128 tokens, decode 128 more one by
+        one; each step's logits equal the full forward's (rtol = atol =
+        1e-3);
+    (4) ``Engine(mode="clustered")`` at the config's geometry: B 4, prompt
+        2,048, 32 steps, ``recent`` 16 (kc 64, cap 128, two flushes): every
+        logit finite, each bucket's ``bcount`` = min(its weight, cap), the
+        weights summing to 2,048 a head, two flushes; the rows dropped by
+        capacity and the greedy agreement with the dense engine printed;
+    (1) the kernels at the clustered cache's shape (the prefill's keys of
+        those 1,024 problems, N 2,048, K 64, d 128) against their plain
+        versions (``lm_kernel_checks``), and the build re-run under the
+        profiler;
+    (3) exactness with the depth cut to 4 layers: B 1, prompt 2,048, 16
+        steps, ``recent`` 8, top = kc = 64, cap 2,176: greedy ids equal the
+        dense engine's, the first decode's logits within 1e-3 of the dense
+        step's, two flushes;
+    (6) ``launch/serve.py --arch llama3-8b --mode clustered --batch 4
+        --prompt-len 2048 --gen 32 --recent 16`` prints its tok/s.
+
+    Returns the main path's counted runs' launch counts ((2), (4) and
+    (6): the serving path at the config's own geometry), the named check
+    runs' ``(name, counts)`` ((1), the cut config of (3), and (5)'s routed
+    calls, a branch the model's forward does not take), and ``{kernel:
+    max abs err}``."""
+    import dataclasses
+    import gc
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import kmeans_attention as kma
+    from repro_torch.models import model as M
+    from repro_torch.models.common import Ctx
+    from repro_torch.models.layers import attention as attn
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.serve import Engine, ServeConfig
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    rec = details.setdefault("lm", {})
+    rec["card"] = smi
+    runs, checks = [], []
+    cfg = get_config(LM_ARCH)
+    ctx = Ctx(compute_dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    print(f"\n[lm] {cfg.name} at full width: d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads, {cfg.num_kv_heads} kv heads, head_dim "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} "
+          f"(padded {cfg.vocab_padded()}), {cfg.num_layers} layers; f32, "
+          f"TF32 {torch.backends.cuda.matmul.allow_tf32}; {smi}; "
+          f"{base / 2**30:.2f} GiB allocated before", flush=True)
+    check(base < 2 ** 30, f"[lm] phase 13 starts with the earlier phases' "
+                          f"tensors freed ({base / 2**30:.3f} GiB allocated, "
+                          f"< 1 GiB)")
+
+    # ---- (5) routed attention (before the weights: its scores are large)
+    b, s, h, hd = LM_ROUTED
+    q, k, v = (torch.randn((b, s, h, hd), device=dev, generator=gen)
+               for _ in range(3))
+    zero_counts()
+    out1 = kma.kmeans_routed_attention(q, k, v, clusters=1)
+    checks.append(("lm/(5) routed attention, clusters=1", read_counts()))
+    full = attn.dot_attention(q, k, v, causal=True)
+    exc = _allclose_excess(out1, full, 1e-4, 1e-5)
+    check(exc <= 0, f"[lm] (5) kmeans_routed_attention clusters=1 at B {b}, "
+                    f"S {s}, H {h}, hd {hd} == dot_attention (rtol 1e-4, "
+                    f"atol 1e-5; max abs diff "
+                    f"{float((out1 - full).abs().max()):.3g})")
+    del out1, full
+    torch.cuda.empty_cache()
+    zero_counts()
+    (out16, t_r) = wall_s(lambda: kma.kmeans_routed_attention(
+        q, k, v, clusters=LM_ROUTED_CLUSTERS))
+    counts = read_counts()
+    checks.append((f"lm/(5) routed attention, clusters="
+                   f"{LM_ROUTED_CLUSTERS}", counts))
+    check(bool(torch.isfinite(out16).all()) and counts["flash_assign"] > 0,
+          f"[lm] (5) kmeans_routed_attention clusters={LM_ROUTED_CLUSTERS}: "
+          f"finite, {counts['flash_assign']} FlashAssign launches (the "
+          f"queries' assignment among them), {t_r * 1e3:.1f} ms")
+    rec["routed"] = {"clusters16_ms": t_r * 1e3, "launches": counts}
+    del q, k, v, out16
+    torch.cuda.empty_cache()
+
+    # ---- the weights ------------------------------------------------------
+    params, t = wall_s(lambda: M.init_model(cfg, seed=SEED, device=dev))
+    n_el = M.n_elements(params)
+    norms = (2 * cfg.num_layers + 1) * cfg.d_model
+    check(n_el == cfg.n_params() + norms,
+          f"[lm] init_model {t:.2f} s: {n_el} parameters "
+          f"({n_el * 4 / 2**30:.2f} GiB f32) == ArchConfig.n_params() "
+          f"{cfg.n_params()} + the norms' {norms}")
+    rec.update(n_params=n_el, arch_n_params=cfg.n_params(), init_s=t)
+
+    # ---- (2) dense at full depth: prefill + decode == the full forward ---
+    p_len, steps = LM_DENSE
+    toks = torch.randint(0, cfg.vocab_size, (1, p_len + steps),
+                         generator=gen, device=dev)
+    full, t_full = wall_s(lambda: M.forward(params, toks, ctx, cfg))
+    zero_counts()
+    lp, caches = M.prefill(params, toks[:, :p_len], ctx, cfg,
+                           max_seq=p_len + steps + 8)
+    excess = [_allclose_excess(lp[:, -1], full[:, p_len - 1], 1e-3, 1e-3)]
+    step_ms, diffs = [], []
+    for t_ in range(p_len, p_len + steps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        ld, caches = M.decode_step(params, toks[:, t_:t_ + 1], caches, ctx,
+                                   cfg)
+        e1.record()
+        step_ms.append((e0, e1))
+        diffs.append(((ld[:, 0] - full[:, t_]).abs()
+                      - 1e-3 - 1e-3 * full[:, t_].abs()).max())
+    runs.append(read_counts())
+    worst = max(excess + [float(torch.stack(diffs).max())])
+    ms = [e0.elapsed_time(e1) for e0, e1 in step_ms]
+    check(worst <= 0, f"[lm] (2) dense, {cfg.num_layers} layers, B 1: prefill "
+                      f"{p_len} + {steps} decode steps, every step's logits "
+                      f"== the full forward's (rtol = atol = 1e-3; worst "
+                      f"excess {worst:.3g}); decode "
+                      f"{statistics.median(ms):.3f} ms a token (median), "
+                      f"the forward of {p_len + steps} tokens {t_full:.2f} s")
+    # where a step's time goes: one more step under the profiler (its slot
+    # is free), beside its CUDA-event time
+    nxt = toks[:, -1:]
+    one = lambda: M.decode_step(params, nxt, caches, ctx, cfg)
+    ev_ms = events_ms(one, reps=3)
+    rows = device_rows(one, 3)
+    busy, calls = sum(r["ms"] for r in rows), sum(r["calls"] for r in rows)
+    print(f"  a dense B 1 step: {ev_ms:.3f} ms (CUDA events, back to back); "
+          f"device busy {busy:.3f} ms in {calls:g} launches; largest: "
+          + "; ".join(f"{r['name'][:60]} {r['ms']:.3f} ms x{r['calls']:g}"
+                      for r in rows[:5]), flush=True)
+    rec["dense_b1"] = {"decode_ms": ms, "forward_s": t_full,
+                       "profiled_step": {"ms": ev_ms, "busy_ms": busy,
+                                         "launches": calls,
+                                         "rows": rows[:12]}}
+    del full, caches, lp, ld, diffs
+    torch.cuda.empty_cache()
+
+    # ---- (4) clustered at the config's geometry, full depth -------------
+    g = LM_GEOM
+    kc, cap = M.clustered_geometry(cfg, g["prompt"])
+    kc = min(kc, max(4, g["prompt"] // 8))
+    toks4 = torch.randint(0, cfg.vocab_size, (g["batch"], g["prompt"]),
+                          generator=gen, device=dev)
+    max_seq = g["prompt"] + g["steps"] + 8
+    res = {}
+    for mode in ("clustered", "dense"):
+        eng = Engine(cfg, params, ServeConfig(max_seq=max_seq, mode=mode,
+                                              recent=g["recent"]))
+        probe = LMProbe(eng, read_counts, keep=mode == "clustered")
+        zero_counts()
+        ids, wall = wall_s(lambda: eng.generate(toks4, g["steps"]))
+        counts = read_counts()
+        runs.append(counts)
+        res[mode] = {"ids": ids, "wall_s": wall, "probe": probe,
+                     "count": eng.recluster_count, "counts": counts,
+                     "tok_s": g["batch"] * g["steps"] / wall}
+        del eng
+    pc = res["clustered"]["probe"]
+    bc, cw, bk_shape, bucket_bytes = pc.built["0_block"]
+    rows_ok = torch.equal(bc, torch.clamp(cw, max=cap).to(torch.int32))
+    sums_ok = bool((cw.sum(-1) == g["prompt"]).all())
+    dropped = float((cw - bc).sum() / cw.sum())
+    agree = float((res["clustered"]["ids"] == res["dense"]["ids"]
+                   ).float().mean())
+    check(bool(pc.finite) and rows_ok and sums_ok
+          and res["clustered"]["count"] == 2
+          and tuple(bk_shape[-3:-1]) == (kc, cap),
+          f"[lm] (4) clustered, {cfg.num_layers} layers, B {g['batch']}, "
+          f"prompt {g['prompt']}, {g['steps']} steps, recent {g['recent']}: "
+          f"kc {kc}, cap {cap}; every logit finite {bool(pc.finite)}; bcount "
+          f"== min(weight, cap) in every bucket {rows_ok}; weights sum to "
+          f"{g['prompt']} a head {sums_ok}; {res['clustered']['count']} "
+          f"flushes (2)")
+    pre = {m: res[m]["probe"].ms("prefill")[0] for m in res}
+    dec = {m: statistics.median(res[m]["probe"].ms("decode")) for m in res}
+    build_ms = pc.ms("build")[0]
+    flush_ms = pc.ms("flush")
+    print(f"  rows dropped by capacity {dropped:.4f}; greedy agreement with "
+          f"the dense engine {agree:.4f}; buckets "
+          f"{bucket_bytes / 2**30:.2f} GiB; prefill "
+          f"{pre['clustered']:.1f} ms (dense engine's {pre['dense']:.1f} ms);"
+          f" a decoded token {dec['clustered']:.3f} ms clustered, "
+          f"{dec['dense']:.3f} ms dense (median of the steps); the cluster "
+          f"build {build_ms:.1f} ms ({pc.build_counts}); a flush "
+          f"{', '.join(f'{v:.2f}' for v in flush_ms)} ms; "
+          f"{res['clustered']['tok_s']:.1f} tok/s clustered, "
+          f"{res['dense']['tok_s']:.1f} tok/s dense (wall, prefill "
+          f"included)", flush=True)
+    rec["geometry"] = {
+        "kc": kc, "cap": cap, "dropped_share": dropped, "agreement": agree,
+        "bucket_bytes": bucket_bytes, "prefill_ms": pre, "decode_ms": dec,
+        "build_ms": build_ms, "build_launches": pc.build_counts,
+        "flush_ms": flush_ms, "wall_s": {m: res[m]["wall_s"] for m in res},
+        "tok_s": {m: res[m]["tok_s"] for m in res},
+        "launches": {m: res[m]["counts"] for m in res}}
+    kv = pc.kv["0_block"]
+    del res, pc
+    torch.cuda.empty_cache()
+
+    # ---- (1) the kernels at the clustered cache's shape ----------------
+    kk, vv = kv
+    x = kk.movedim(-2, -3).reshape(-1, g["prompt"], cfg.resolved_head_dim)
+    x = x.contiguous()
+    zero_counts()
+    errs = lm_kernel_checks(dev, x, kc, 4, rec)
+    from repro_torch.core import kmeans as km
+    from repro_torch.core.kmeans import KMeansConfig
+    st = km._lloyd_loop(x, kma.initial_centroids(x, kc),
+                        KMeansConfig(k=kc, max_iters=4, init="random"))
+    iters = int(st.iteration.max())
+    del st, x
+    build = lambda: kma.build_clustered_cache(kk, vv, kc=kc, capacity=cap,
+                                              iters=4)
+    build()
+    b_ms = events_ms(build, reps=2)
+    rows = device_rows(build, 1)
+    dev_ms, calls = sum(r["ms"] for r in rows), sum(r["calls"] for r in rows)
+    checks.append(("lm/kernel checks at the clustered shape", read_counts()))
+    print(f"  the cluster build re-run: {iters} Lloyd iterations, "
+          f"{b_ms:.2f} ms (CUDA events), device {dev_ms:.2f} ms in "
+          f"{calls:g} launches (all kernels, the bucket scatter included); "
+          f"largest: " + "; ".join(f"{r['name'][:60]} {r['ms']:.3f} ms "
+                                   f"x{r['calls']:g}" for r in rows[:5]),
+          flush=True)
+    rec["build"] = {"iterations": iters, "ms": b_ms, "device_ms": dev_ms,
+                    "device_launches": calls, "rows": rows[:12]}
+    del kk, vv, kv
+    torch.cuda.empty_cache()
+
+    # ---- (3) exactness, depth cut to 4 layers -----------------------------
+    e = LM_EXACT
+    cfg4 = dataclasses.replace(cfg, num_layers=e["layers"],
+                               kv_cluster_capacity_factor=e[
+                                   "capacity_factor"])
+    kc4, cap4 = M.clustered_geometry(cfg4, e["prompt"])
+    kc4 = min(kc4, max(4, e["prompt"] // 8))
+    cfg4 = dataclasses.replace(cfg4, kv_cluster_top=kc4)
+    p4 = dict(params, stack={"groups": tree_map(
+        lambda t_: t_[:e["layers"]], params["stack"]["groups"])})
+    toks3 = torch.randint(0, cfg.vocab_size, (e["batch"], e["prompt"]),
+                          generator=gen, device=dev)
+    res = {}
+    for mode in ("dense", "clustered"):
+        eng = Engine(cfg4, p4, ServeConfig(
+            max_seq=e["prompt"] + e["steps"] + 8, mode=mode,
+            recent=e["recent"]))
+        probe = LMProbe(eng, read_counts)
+        zero_counts()
+        ids = eng.generate(toks3, e["steps"])
+        checks.append((f"lm/(3) exactness, {e['layers']} layers, {mode} "
+                       f"engine", read_counts()))
+        res[mode] = (ids, probe, eng.recluster_count)
+        del eng
+    same = torch.equal(res["dense"][0], res["clustered"][0])
+    exc = _allclose_excess(res["clustered"][1].first, res["dense"][1].first,
+                           1e-3, 1e-3)
+    margin = res["dense"][1].min_margin()
+    check(same and exc <= 0 and res["clustered"][2] == 2
+          and cap4 >= e["prompt"] + e["steps"],
+          f"[lm] (3) {e['layers']} layers, B {e['batch']}, prompt "
+          f"{e['prompt']}, {e['steps']} steps, recent {e['recent']}, top = kc "
+          f"= {kc4}, cap {cap4}: greedy ids == the dense engine's {same} (its "
+          f"smallest top-two margin {margin:.3g}); the first decode's logits "
+          f"within 1e-3 of the dense step's (excess {exc:.3g}); "
+          f"{res['clustered'][2]} flushes (2)")
+    rec["exact"] = {"kc": kc4, "cap": cap4, "ids_equal": same,
+                    "first_logits_excess": exc, "dense_margin": margin}
+    del res, p4, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (6) the launcher ---------------------------------------------------
+    argv = ["--arch", LM_ARCH, "--mode", "clustered", "--batch", "4",
+            "--prompt-len", "2048", "--gen", "32", "--recent", "16"]
+    print(f"  python -m repro_torch.launch.serve {' '.join(argv)}",
+          flush=True)
+    zero_counts()
+    out = serve.main(argv)
+    counts = read_counts()
+    runs.append(counts)
+    check(out["tok_s"] > 0 and tuple(out["ids"].shape) == (4, 32)
+          and out["recluster_count"] == 2,
+          f"[lm] (6) the launcher served {out['tok_s']:.1f} tok/s "
+          f"({out['recluster_count']} flushes)")
+    rec["launcher"] = {"tok_s": out["tok_s"], "wall_s": out["wall_s"],
+                       "launches": counts}
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["main_launches"] = {kn: sum(r[kn] for r in runs) for kn in runs[0]}
+    rec["check_launches"] = dict(checks)
+    rec["max_abs_err"] = errs
+    print(f"  peak memory {rec['peak_bytes'] / 2**30:.2f} GiB; phase "
+          f"{rec['seconds']:.1f} s; the main path's runs launched "
+          f"{ {kn: v for kn, v in rec['main_launches'].items() if v} }",
+          flush=True)
+    return runs, checks, errs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -2403,6 +2981,8 @@ def main() -> int:
     ap.add_argument("--parallel-e-only", action="store_true",
                     help="build and run the parallel phase's part (e), the "
                          "sharded index's reliability, only")
+    ap.add_argument("--lm-only", action="store_true",
+                    help="build and run the LM serving phase (13) only")
     args = ap.parse_args()
     # the plain versions' score matrices take up to 32 GiB at a time, in
     # blocks of changing size: segments that grow keep the cache from
@@ -2602,6 +3182,18 @@ def main() -> int:
                   file=sys.stderr)
             return 1
         print("\nchip_smoke --reliability-only: all checks passed")
+        return 0
+    if args.lm_only:   # phase 13 alone (lm_phase)
+        lm_phase(dev, smi, zero_counts, read_counts, details)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_lm.json").write_text(
+            json.dumps(details["lm"], indent=1))
+        if failures:
+            print(f"\nchip_smoke: {len(failures)} check(s) failed",
+                  file=sys.stderr)
+            return 1
+        print("\nchip_smoke --lm-only: all checks passed")
         return 0
     if args.parallel_only or args.parallel_e_only:   # phase 12 or its (e)
         if args.parallel_e_only:
@@ -3558,30 +4150,6 @@ def main() -> int:
         print(f"\nchip_smoke --kernels-only: all "
               f"{len(details['kernel_checks'])} kernel checks passed")
         return 0
-
-    def device_rows(step, reps):
-        """``torch.profiler`` over ``reps`` calls of ``step``: the device's
-        kernels (and memsets, copies) by name, time and calls per call."""
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                step()
-            torch.cuda.synchronize()
-        rows = []
-        for ev in prof.key_averages():
-            if "cuda" not in str(getattr(ev, "device_type", "")).lower():
-                continue
-            t = getattr(ev, "self_device_time_total", None)
-            if t is None:
-                t = getattr(ev, "self_cuda_time_total", 0.0)
-            if t > 0:   # launch_ms: per recorded launch (the profiler may
-                # record fewer launches of a short kernel than were made)
-                rows.append({"name": ev.key, "ms": t / reps / 1e3,
-                             "calls": ev.count / reps,
-                             "launch_ms": t / ev.count / 1e3})
-        rows.sort(key=lambda r: -r["ms"])
-        return rows
 
     def graph_ms(fn, n=50):
         """Device time of one call of ``fn`` inside a CUDA graph of ``n``
@@ -5787,6 +6355,23 @@ def main() -> int:
         count_run(counts, paged)
     for name, counts, paged in par_checks:
         count_check(name, counts, paged)
+
+    # ---- phase 13: LM serving (lm_phase) ------------------------------------
+    # what the earlier phases left on the card (14.3 GiB): the IVF phase's
+    # gathered block and store arrays, indexes held by timing closures'
+    # defaults, the regimes' inputs; phase 13 needs 45 GiB of its own
+    del (cand_x, run, args_, buckets, cache, assign_plain_chunked, codes_r,
+         update, x2, codes_s, map_pages, timed_map, scales_r, lookup,
+         bucket_ids, scales_s, xa, rows_c, cand, qp, ooc_run, c_o, two, live,
+         cells_last)
+    lm_runs, lm_checks, lm_errs = lm_phase(dev, smi, zero_counts,
+                                           read_counts, details)
+    for counts in lm_runs:
+        count_run(counts)
+    for name, counts in lm_checks:
+        count_check(name, counts)
+    for kname, err in lm_errs.items():
+        max_err[kname] = max(max_err[kname], err)
 
     # ---- phase 4: the kernel table ---------------------------------------
     main_shape = {"flash_assign": "largeN_smallK/float32",

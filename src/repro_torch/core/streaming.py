@@ -90,10 +90,12 @@ class SufficientStats(NamedTuple):
     def from_centroids(cls, c: torch.Tensor, counts: torch.Tensor
                        ) -> "SufficientStats":
         """``sums = c * n``: the lossless inverse of ``finalize`` for
-        these counts."""
+        these counts. Takes (K, d) and (K,), or a batch (P, K, d) and (P,
+        K) (then ``inertia`` is (P,))."""
         counts = counts.float()
-        return cls(c.float() * counts.unsqueeze(1), counts,
-                   torch.zeros((), dtype=torch.float32, device=c.device))
+        return cls(c.float() * counts.unsqueeze(-1), counts,
+                   torch.zeros(counts.shape[:-1], dtype=torch.float32,
+                               device=c.device))
 
     def merge(self, other: "SufficientStats") -> "SufficientStats":
         return SufficientStats(self.sums + other.sums,
@@ -145,6 +147,50 @@ def partial_fit_step(x: torch.Tensor, c: torch.Tensor,
     merged, a, batch = base, None, None
     for _ in range(max(1, local_iters)):
         batch, a = SufficientStats.from_batch(x, c, cfg, mask=mask)
+        merged = base.merge(batch)
+        c = merged.finalize(c)
+    return c, merged, a, batch.inertia
+
+
+def _batch_stats(x: torch.Tensor, c: torch.Tensor, cfg: KMeansConfig,
+                 mask: torch.Tensor | None
+                 ) -> tuple[SufficientStats, torch.Tensor]:
+    """``SufficientStats.from_batch`` over P problems at once: x (P, N,
+    d), c (P, K, d), mask (P, N) bool or None. Every field gains the
+    leading P axis; one launch a kernel for all P."""
+    if mask is None:
+        a, s, cnt, j = _km._stats_batched(x, c, cfg, None)
+        return SufficientStats(s, cnt, j.float()), a
+    k = cfg.k
+    blk = cfg.blocks_for(x.shape[1], x.shape[2], x.element_size(), x.device)
+    a, m = _km._assign(x, c, cfg, blk)
+    a_eff = torch.where(mask, a, k).to(torch.int32)
+    s, cnt = ops.centroid_stats_batched(
+        x, a_eff, k=k + 1, impl=cfg.stats_only_update_impl(),
+        block_n=blk.update_block_n, block_k=blk.update_block_k)
+    j = torch.where(mask, m, 0.0).sum(-1)
+    return SufficientStats(s[:, :k], cnt[:, :k], j), a
+
+
+def partial_fit_step_batched(x: torch.Tensor, c: torch.Tensor,
+                             stats: SufficientStats, *, cfg: KMeansConfig,
+                             decay: float = 1.0, local_iters: int = 1,
+                             mask: torch.Tensor | None = None
+                             ) -> tuple[torch.Tensor, SufficientStats,
+                                        torch.Tensor, torch.Tensor]:
+    """``partial_fit_step`` of P independent problems in one pass a local
+    iteration: x (P, N, d), c (P, K, d), ``stats`` with a leading P axis
+    (``SufficientStats.from_centroids`` of (P, K, d) and (P, K)), mask (P,
+    N) bool. The statistics come from the batched assignment and update
+    (``core.kmeans._stats_batched``; with a mask, the two-pass path with
+    the masked rows in a dummy segment), so each kernel launches once a
+    local iteration for all P. Returns ``(c_new (P, K, d), stats_new,
+    assignments (P, N), batch_inertia (P,))``; reads nothing back to the
+    host."""
+    base = stats.scale(decay)
+    merged, a, batch = base, None, None
+    for _ in range(max(1, local_iters)):
+        batch, a = _batch_stats(x, c, cfg, mask)
         merged = base.merge(batch)
         c = merged.finalize(c)
     return c, merged, a, batch.inertia

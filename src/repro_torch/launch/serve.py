@@ -1,6 +1,15 @@
-"""Serving launcher of the port: FlashIVF vector search through
-``SearchEngine`` (``--mode search``), the counterpart of
-``repro/launch/serve.py`` l.64-160.
+"""Serving launcher of the port: batched LM prefill + decode through
+``Engine`` (``--mode dense|clustered``) and FlashIVF vector search through
+``SearchEngine`` (``--mode search``, the default), the counterpart of
+``repro/launch/serve.py``.
+
+  # Llama-3-8B at full width on the card, clustered KV cache
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
+      --mode clustered --batch 4 --prompt-len 2048 --gen 32 --recent 16
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
+      --reduced --batch 4 --prompt-len 128 --gen 32 --mode clustered \\
+      --device cpu
 
   PYTHONPATH=src python -m repro_torch.launch.serve --mode search \\
       --n 20000 --d 64 --kc 64 --queries 512 --topk 10 --nprobe 8
@@ -13,7 +22,17 @@
   PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
       -m repro_torch.launch.serve --mode search --mesh 2x2
 
-It builds an index over a synthetic clustered corpus (Gaussian blobs made
+LM serving (ref. ``_serve_lm``, l.31-58): ``--arch`` (``--reduced`` for
+the same-family miniature) is initialised from ``--seed`` on the device,
+``--batch`` prompts of ``--prompt-len`` random tokens are generated for
+``--gen`` steps (``--temperature`` > 0 samples, else greedy; ``--recent``
+slots of the clustered mode's recent buffer, the reference's 128 by
+default), and it prints the arch, mode and shape, the wall time and tok/s,
+and the first sample ids. The dense-attention family is served (llama3-8b,
+starcoder2-3b, gemma2-27b); the other families, and ``--mesh`` with an LM
+mode, refuse with ``NotImplementedError`` (ROADMAP.md, queue A item 8a).
+
+Search serving builds an index over a synthetic clustered corpus (Gaussian blobs made
 from ``--seed`` on the device: centres x5, noise 0.4, as the reference),
 warms a ``SearchEngine``, times ``--reps`` searches of ``--queries`` rows
 through it and prints build time, queries/s, recall@topk against
@@ -41,9 +60,6 @@ rendezvous from the environment, NCCL, one rank a card; gloo with
 mesh whose size is not the world's raises ``ValueError``. Every rank builds the same corpus from ``--seed``; only
 rank 0 prints, and it reports the modeled cross-rank bytes of a search
 batch beside queries/s.
-
-Not ported yet (ROADMAP.md, queue A), and refused with
-``NotImplementedError``: ``--mode dense|clustered`` (items 7-8).
 """
 from __future__ import annotations
 
@@ -59,13 +75,19 @@ def _not_ported(flag: str, item: str) -> NotImplementedError:
 
 
 def _refuse_unported(args) -> None:
-    if args.mode != "search":
-        raise _not_ported(f"--mode {args.mode} (LM serving)", "items 7-8")
+    if args.mode != "search" and args.mesh is not None:
+        raise _not_ported(f"--mesh with --mode {args.mode} (Engine over a "
+                          "mesh)", "item 8a")
 
 
 def main(argv=None) -> dict:
-    args = _parser().parse_args(argv)
+    ap = _parser()
+    args = ap.parse_args(argv)
     _refuse_unported(args)
+    if args.mode != "search":
+        if not args.arch:
+            ap.error("--arch is required for dense/clustered serving")
+        return _serve_lm(args)
     if args.mesh is None:
         return _serve_search(args, None, print)
     from repro_torch.core.kmeans import resolve_device
@@ -81,6 +103,48 @@ def main(argv=None) -> dict:
         return _serve_search(args, pctx, say)
     finally:
         release_world()
+
+
+def _serve_lm(args) -> dict:
+    """Prefill + decode through ``Engine``; returns the ids and times."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.kmeans import resolve_device
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import check_ported
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    check_ported(cfg)
+    dev = resolve_device(args.device)
+    params = M.init_model(cfg, seed=args.seed, device=dev)
+    engine = Engine(cfg, params,
+                    ServeConfig(max_seq=args.prompt_len + args.gen + 8,
+                                mode=args.mode, recent=args.recent,
+                                temperature=args.temperature))
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                           generator=gen, device=dev)
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
+        else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = engine.generate(tokens, args.gen,
+                          generator=gen if args.temperature > 0 else None)
+    sync()
+    dt = time.perf_counter() - t0
+    tok_s = args.batch * args.gen / dt
+    name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else "cpu (the kernels' plain versions)")
+    print(f"arch={cfg.name} mode={args.mode} batch={args.batch} "
+          f"prompt={args.prompt_len} gen={args.gen}")
+    print(f"on {name}: {M.n_elements(params)} parameters, "
+          f"{engine.recluster_count} incremental re-clusters")
+    print(f"wall {dt:.2f}s -> {tok_s:.1f} tok/s")
+    print("sample ids:", out[0, :16].tolist())
+    return {"ids": out, "wall_s": dt, "tok_s": tok_s,
+            "recluster_count": engine.recluster_count}
 
 
 def _serve_search(args, pctx, say) -> dict:
@@ -187,13 +251,27 @@ def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mode", default="search",
                     choices=["dense", "clustered", "search"],
-                    help="only search is ported")
+                    help="LM serving (dense or clustered KV cache, needs "
+                         "--arch) or vector search (the default)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain versions)")
     ap.add_argument("--mesh", default=None,
                     help="serve on a DATAxCELLS mesh (e.g. 2x2): the "
                          "sharded index; run under torchrun with "
                          "DATA*CELLS ranks (1x1: no torchrun)")
+    # LM serving
+    ap.add_argument("--arch", default=None,
+                    help="architecture record (configs), e.g. llama3-8b")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the arch's same-family miniature")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=128)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--recent", type=int, default=128,
+                    help="slots of the clustered mode's recent buffer "
+                         "(tokens between incremental re-clusters)")
+    # vector-search serving
     ap.add_argument("--n", type=int, default=20_000)
     ap.add_argument("--d", type=int, default=64)
     ap.add_argument("--kc", type=int, default=64,

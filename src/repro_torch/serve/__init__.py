@@ -1,13 +1,17 @@
-"""repro_torch.serve — serving over the port's index.
+"""repro_torch.serve — the port's serving engines.
 
+  ServeConfig / Engine — LM serving of the dense-attention family: prefill
+  and decode, dense or against the flash-kmeans clustered KV cache with
+  incremental re-clustering (``serve/engine.py``).
   SearchConfig / SearchEngine — continuous-batching vector search over an
-  ``IVFIndex`` with inserts interleaved and CUDA-event overlapped dispatch
-  (``serve/engine.py``), with the reliability layer's health ladder, fault
-  injection, WAL, snapshots and ``recover``.
+  ``IVFIndex`` with inserts interleaved and CUDA-event overlapped dispatch,
+  with the reliability layer's health ladder, fault injection, WAL,
+  snapshots and ``recover``.
 
-Not ported yet (ROADMAP.md, queue A): the clustered-KV ``Engine`` and
-``ServeConfig`` (item 8).
+Not ported yet (ROADMAP.md, queue A item 8a): ``Engine`` over a mesh and
+the LM families outside the dense-attention one.
 """
-from repro_torch.serve.engine import SearchConfig, SearchEngine
+from repro_torch.serve.engine import (Engine, SearchConfig, SearchEngine,
+                                      ServeConfig)
 
-__all__ = ["SearchConfig", "SearchEngine"]
+__all__ = ["Engine", "SearchConfig", "SearchEngine", "ServeConfig"]

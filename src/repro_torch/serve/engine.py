@@ -1,7 +1,32 @@
-"""Batched vector-search serving over the port's FlashIVF index.
+"""Batched serving engines of the port.
 
-Port of ``SearchConfig`` and ``SearchEngine`` from ``repro/serve/engine.py``
-(l.169-714) for one device: continuous batching of ragged query traffic
+``Engine`` and ``ServeConfig`` (port of ``repro/serve/engine.py`` l.47-167)
+serve an LM of the dense-attention family: prefill, then greedy or
+temperature decode, with an optional flash-kmeans clustered-KV mode. In
+clustered mode the engine
+
+1. runs the dense prefill,
+2. clusters every layer's cached keys with flash-kmeans and rebuilds the
+   cache in the bucketed (sort-inverse) layout: all G layer groups x B
+   sequences x KH kv heads in one batched fit
+   (``kmeans_attention.build_clustered_cache``), K = the prompt's
+   ``clustered_geometry``, capped at ``max(4, S // 8)``;
+3. decodes against the clustered cache; new tokens accumulate in a recent
+   buffer of ``recent`` slots, and when it fills the engine re-clusters
+   incrementally: one batched warm-start ``partial_fit`` over just the new
+   keys of every problem (``refresh_clustered_cache``), then the tokens are
+   appended to their buckets and the buffer resets.
+
+The flush schedule is a host counter, so a decode step reads nothing back
+from the device; the greedy token is ``argmax`` (the first index on ties),
+temperature sampling draws from a ``torch.Generator``. ``Engine`` runs on
+the device of the parameters it is given (``models.model.init_model``
+puts them on ``cuda`` unless asked for the CPU). Not ported yet (ROADMAP.md
+queue A item 8a): ``Engine`` over a mesh, and the families outside the
+dense-attention one (MLA, MoE, SSM, hybrid, VLM, audio), which refuse.
+
+``SearchConfig`` and ``SearchEngine`` (port of l.169-714) serve the
+FlashIVF index on one device: continuous batching of ragged query traffic
 with inserts interleaved in FIFO order, and overlapped dispatch.
 
 - **Admission.** ``submit`` (a search of any row count) and ``submit_add``
@@ -64,8 +89,7 @@ error (``core.parallel.COLLECTIVE_FAULTS``: gloo or NCCL) passes through as
 a kernel fault does. The WAL and snapshots are written by rank 0, and every
 rank agrees that they are durable, or raises, before it goes on (see
 ``reliability.wal`` and ``reliability.snapshot``). ``recover(pctx=)``
-restores onto any mesh. Not ported yet (ROADMAP.md, queue A): the
-clustered-KV ``Engine`` (item 8).
+restores onto any mesh.
 """
 from __future__ import annotations
 
@@ -76,8 +100,12 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.parallel import COLLECTIVE_FAULTS
 from repro_torch.kernels._build import KernelUnavailable
+from repro_torch.models import kmeans_attention as kma
+from repro_torch.models import model as M
+from repro_torch.models.common import Ctx, not_ported
 from repro_torch.reliability.health import (HealthCounters, HealthPolicy,
                                             NonFiniteResult)
 from repro_torch.reliability.validate import guard_batch
@@ -101,6 +129,129 @@ class RanksDiverged(RuntimeError):
 # layer's (a retry would leave the world's ranks in different collectives)
 # and a mesh whose ranks' states diverged
 _PASS_THROUGH = KERNEL_FAULTS + COLLECTIVE_FAULTS + (RanksDiverged,)
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_seq: int = 2048
+    mode: str = "dense"           # dense | clustered
+    recent: int = 128
+    kmeans_iters: int = 4
+    temperature: float = 0.0      # 0 = greedy
+    recluster_iters: int = 2      # partial_fit local iterations per flush
+    recluster_decay: float = 1.0  # decay on bucket stats at each flush
+
+
+def _is_clustered(x) -> bool:
+    return isinstance(x, dict) and "centroids" in x
+
+
+class Engine:
+    """Prefill + decode of an LM; ``mode="clustered"`` decodes against the
+    flash-kmeans clustered KV cache (see the module docstring).
+
+    >>> params = M.init_model(cfg)                          # on "cuda"
+    >>> eng = Engine(cfg, params, ServeConfig(max_seq=4096,
+    ...                                       mode="clustered"))
+    >>> ids = eng.generate(tokens, 32)                      # (B, 32) int32
+    """
+
+    def __init__(self, cfg: ArchConfig, params: dict, scfg: ServeConfig,
+                 mesh=None, compute_dtype=torch.float32):
+        if mesh is not None:
+            raise not_ported("Engine over a mesh")
+        if scfg.mode not in ("dense", "clustered"):
+            raise ValueError(f"unknown serving mode {scfg.mode!r}")
+        self.cfg = cfg
+        self.scfg = scfg
+        self.params = params
+        self.device = params["embed"]["embedding"].device
+        self.ctx = Ctx(compute_dtype=compute_dtype, device=self.device)
+        self.recluster_count = 0   # incremental flushes performed
+
+    # ------------------------------------------------------------------
+
+    def _prefill(self, tokens: torch.Tensor):
+        return M.prefill(self.params, tokens, self.ctx, self.cfg,
+                         max_seq=self.scfg.max_seq)
+
+    def _decode(self, tok: torch.Tensor, caches: dict):
+        return M.decode_step(self.params, tok, caches, self.ctx, self.cfg)
+
+    def _cluster_caches(self, caches: dict, seq_len: int) -> dict:
+        """Convert dense prefill caches to the clustered layout: for each
+        sub-block key, its G groups' keys in one batched build."""
+        cfg, scfg = self.cfg, self.scfg
+        kc, cap = M.clustered_geometry(cfg, seq_len)
+        kc = min(kc, max(4, seq_len // 8))
+        hd = cfg.resolved_head_dim
+        out = {}
+        for key, sub_cache in caches.items():
+            if "k" not in sub_cache:
+                out[key] = sub_cache
+                continue
+            k_, v_ = sub_cache["k"], sub_cache["v"]        # (G,B,S,KH,hd)
+            c = kma.build_clustered_cache(
+                k_[:, :, :seq_len], v_[:, :, :seq_len], kc=kc, capacity=cap,
+                iters=scfg.kmeans_iters)
+            g, b = k_.shape[0], k_.shape[1]
+            c.update(
+                recent_k=torch.zeros((g, b, cfg.num_kv_heads, scfg.recent,
+                                      hd), dtype=k_.dtype, device=k_.device),
+                recent_v=torch.zeros((g, b, cfg.num_kv_heads, scfg.recent,
+                                      hd), dtype=k_.dtype, device=k_.device),
+                rlen=torch.zeros((g,), dtype=torch.int32, device=k_.device),
+                pos=sub_cache["pos"])
+            out[key] = c
+        return out
+
+    def _recluster(self, caches: dict) -> dict:
+        """Flush every clustered sub-cache through the warm-start
+        ``partial_fit`` refresh (all its groups at once): no full refit
+        of the bucketed keys."""
+        caches = {key: kma.refresh_clustered_cache(
+                      c, iters=self.scfg.recluster_iters,
+                      decay=self.scfg.recluster_decay)
+                  if _is_clustered(c) else c for key, c in caches.items()}
+        self.recluster_count += 1
+        return caches
+
+    def generate(self, tokens: torch.Tensor, steps: int, *,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+        """tokens: (B, S) prompt -> (B, steps) int32 generated ids."""
+        tokens = torch.as_tensor(tokens).to(self.device)
+        logits, caches = self._prefill(tokens)
+        clustered = self.scfg.mode == "clustered"
+        if clustered:
+            caches = self._cluster_caches(caches, tokens.shape[1])
+            clustered = any(map(_is_clustered, caches.values()))
+        out = []
+        tok = self._sample(logits[:, -1], generator)
+        # The flush schedule is deterministic on the host (rlen advances by
+        # one a decode and resets to 0 at a flush): a host counter avoids a
+        # device read a token.
+        since_flush = 0
+        for _ in range(steps):
+            out.append(tok)
+            logits, caches = self._decode(tok, caches)
+            if clustered:
+                since_flush += 1
+                if since_flush >= self.scfg.recent:
+                    caches = self._recluster(caches)
+                    since_flush = 0
+            tok = self._sample(logits[:, 0], generator)
+        if not out:   # steps=0: prefill-only call, an empty result
+            return torch.zeros((tokens.shape[0], 0), dtype=torch.int32,
+                               device=self.device)
+        return torch.cat(out, dim=1)
+
+    def _sample(self, logits: torch.Tensor,
+                generator: torch.Generator | None) -> torch.Tensor:
+        if self.scfg.temperature <= 0 or generator is None:
+            return torch.argmax(logits, -1).unsqueeze(1).to(torch.int32)
+        probs = torch.softmax(logits / self.scfg.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=generator).to(
+            torch.int32)
 
 
 @dataclasses.dataclass
