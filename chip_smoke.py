@@ -107,7 +107,21 @@ run and read just after:
   engine's; and ``launch/serve.py --mode clustered`` at B 4. It starts
   once the earlier phases' tensors are freed (checked: under 1 GiB
   allocated). The serving path's runs count as main-path launches; the cut
-  4-layer engines, the routed calls and the kernel checks are named checks.
+  4-layer engines, the routed calls and the kernel checks are named checks;
+- the rest of the LM zoo (``zoo_phase``): zamba2-7b at full width and depth
+  (54 Mamba2 layers and 27 applications of one shared attention block of 32
+  heads of 112; f32, random weights): dense prefill of 128 tokens and 128
+  decode steps, each equal to the full forward; the clustered engine at B
+  4, prompt 2,048, 32 steps (the shared block's 27 caches: 3,456 problems
+  of N 2,048, K 64, d 112, two flushes) beside the dense engine; kernels 1-3
+  at that shape against their plain versions; with the depth cut to 2
+  groups and every cluster read, greedy ids equal to the dense engine's;
+  the launcher with ``--arch zamba2-7b``. Then granite-moe, minicpm3 (MLA),
+  xLSTM, phi-3-vision (576 patches), whisper-base (1,500 frames) at full
+  width and dbrx-132b cut to 2 layers, B 1, prompt 128, 16 steps: prefill
+  and decode against the forward (MoE with one token a group; xLSTM block
+  by block), and ``Engine`` in both modes. Its serving runs and the
+  full-depth engines count as main-path launches.
 
 Before the paths, the sort-inverse update, FlashLloyd and the store scan are
 held to their plain versions on edge shapes (one segment over every CTA, K >
@@ -144,7 +158,8 @@ after the build and the ragged kernel checks (a first call after a kernel
 change); ``--reliability-only`` runs the build and the reliability phase,
 ``--parallel-only`` the build and the parallel phase, ``--parallel-e-only``
 the build and that phase's part (e), ``--lm-only`` the build and the LM
-serving phase (details in ``chip_smoke_lm.json``). Details go to
+serving phase (details in ``chip_smoke_lm.json``), ``--zoo-only`` the build
+and the LM zoo phase (details in ``chip_smoke_zoo.json``). Details go to
 ``chip_smoke.json`` in the repository's git-ignored output directory.
 """
 from __future__ import annotations
@@ -2530,7 +2545,66 @@ def _allclose_excess(got, want, rtol, atol):
     return float(((got - want).abs() - atol - rtol * want.abs()).max())
 
 
-def lm_kernel_checks(dev, x, kc, iters, rec):
+def decode_against(params, cfg, ctx, toks, caches, full, p_len, tol,
+                   cross_kv=None):
+    """Decode ``toks[:, p_len:]`` one by one from ``caches`` and hold each
+    step's logits to ``full`` (the forward's) at rtol = atol = ``tol``.
+    Returns (the worst excess over the tolerance, each step's CUDA-event
+    ms, the caches after the last step)."""
+    import torch
+    from repro_torch.models import model as M
+    diffs, evs = [], []
+    for t_ in range(p_len, toks.shape[1]):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        ld, caches = M.decode_step(params, toks[:, t_:t_ + 1], caches, ctx,
+                                   cfg, cross_kv=cross_kv)
+        e1.record()
+        evs.append((e0, e1))
+        diffs.append(((ld[:, 0] - full[:, t_]).abs() - tol
+                      - tol * full[:, t_].abs()).max())
+    worst = float(torch.stack(diffs).max())
+    return worst, [e0.elapsed_time(e1) for e0, e1 in evs], caches
+
+
+def engine_runs(cfg, params, toks, steps, recent, fe, read_counts,
+                zero_counts, keep=False, modes=("clustered", "dense")):
+    """``Engine.generate`` in each mode through an ``LMProbe``: ``{mode:
+    {"ids", "wall_s", "probe", "count", "counts"}}``."""
+    from repro_torch.serve import Engine, ServeConfig
+    patches = cfg.frontend_seq if cfg.frontend and cfg.family != "audio" \
+        else 0
+    res = {}
+    for mode in modes:
+        eng = Engine(cfg, params, ServeConfig(
+            max_seq=patches + toks.shape[1] + steps + 8, mode=mode,
+            recent=recent))
+        probe = LMProbe(eng, read_counts, keep=keep and mode == "clustered")
+        zero_counts()
+        ids, wall = wall_s(lambda: eng.generate(toks, steps, frontend=fe))
+        res[mode] = {"ids": ids, "wall_s": wall, "probe": probe,
+                     "count": eng.recluster_count, "counts": read_counts()}
+        del eng
+    return res
+
+
+def bucket_invariants(probe, seq_len, kc, cap):
+    """Every built cache: ``bcount`` = min(its weight, cap) in every
+    bucket, the weights summing to ``seq_len`` a head, (kc, cap) buckets;
+    and the share of rows dropped by capacity."""
+    import torch
+    ok, dropped, total = True, 0.0, 0.0
+    for bc, cw, shape, _ in probe.built.values():
+        ok &= torch.equal(bc, torch.clamp(cw, max=cap).to(torch.int32))
+        ok &= bool((cw.sum(-1) == seq_len).all())
+        ok &= tuple(shape[-3:-1]) == (kc, cap)
+        dropped += float((cw - bc).sum())
+        total += float(cw.sum())
+    return ok and bool(probe.built), dropped / max(total, 1.0)
+
+
+def lm_kernel_checks(dev, x, kc, iters, rec, tag="lm"):
     """Phase 13's kernels at the clustered cache's shape: x (P, N, d) the
     prefill's keys of every (layer, sequence, kv head), the engine's initial
     centroids. FlashAssign (ids equal except on near-ties within each
@@ -2586,7 +2660,7 @@ def lm_kernel_checks(dev, x, kc, iters, rec):
         s_err.max()), "score_err_over_tol": float((s_err / stol).max()),
         "max_dist_err": float(d_err.max()), "tie_gap_over_tol": float(
             (gap / stol).max())}
-    check(ok, f"[lm] flash_assign at the clustered shape (P {p}, N {n}, K "
+    check(ok, f"[{tag}] flash_assign at the clustered shape (P {p}, N {n}, K "
               f"{kc}, d {d}): scores within score_tol (max "
               f"{float((s_err / stol).max()):.3g} of it), distances within "
               f"dist_tol, {mism} ids differ, each a near-tie within the "
@@ -2607,7 +2681,7 @@ def lm_kernel_checks(dev, x, kc, iters, rec):
     out["sort_inverse_update"] = {
         "max_abs_err": float(err_t.max()),
         "max_rel_to_abs_sum": float((err_t / absum.clamp_min(1e-30)).max())}
-    check(ok, f"[lm] sort_inverse_update at the clustered shape ({p * n} "
+    check(ok, f"[{tag}] sort_inverse_update at the clustered shape ({p * n} "
               f"rows, {p * kc} segments): sums within rtol 1e-5 of sum|x| "
               f"(max {out['sort_inverse_update']['max_rel_to_abs_sum']:.3g}),"
               f" counts equal {torch.equal(cnt.reshape(-1), cp)}")
@@ -2628,9 +2702,9 @@ def lm_kernel_checks(dev, x, kc, iters, rec):
     out["flash_lloyd"] = {"ids_equal_assign": same,
                           "max_abs_err": float(err_t.max()),
                           "inertia_rel_err": jerr}
-    check(ok, f"[lm] flash_lloyd at the clustered shape: ids == FlashAssign's"
-              f" bit for bit {same}, sums within 2nu*sum|x|, counts equal, "
-              f"inertia rel err {jerr:.2g} <= 1e-4")
+    check(ok, f"[{tag}] flash_lloyd at the clustered shape: ids == "
+              f"FlashAssign's bit for bit {same}, sums within 2nu*sum|x|, "
+              f"counts equal, inertia rel err {jerr:.2g} <= 1e-4")
     del sp, err_t, bound
 
     times = {
@@ -2697,7 +2771,6 @@ def lm_phase(dev, smi, zero_counts, read_counts, details):
     from repro_torch.models.common import Ctx
     from repro_torch.models.layers import attention as attn
     from repro_torch.models.transformer import tree_map
-    from repro_torch.serve import Engine, ServeConfig
 
     t_phase = time.perf_counter()
     gc.collect()
@@ -2765,23 +2838,13 @@ def lm_phase(dev, smi, zero_counts, read_counts, details):
                          generator=gen, device=dev)
     full, t_full = wall_s(lambda: M.forward(params, toks, ctx, cfg))
     zero_counts()
-    lp, caches = M.prefill(params, toks[:, :p_len], ctx, cfg,
-                           max_seq=p_len + steps + 8)
-    excess = [_allclose_excess(lp[:, -1], full[:, p_len - 1], 1e-3, 1e-3)]
-    step_ms, diffs = [], []
-    for t_ in range(p_len, p_len + steps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        ld, caches = M.decode_step(params, toks[:, t_:t_ + 1], caches, ctx,
-                                   cfg)
-        e1.record()
-        step_ms.append((e0, e1))
-        diffs.append(((ld[:, 0] - full[:, t_]).abs()
-                      - 1e-3 - 1e-3 * full[:, t_].abs()).max())
+    lp, caches, _ = M.prefill(params, toks[:, :p_len], ctx, cfg,
+                              max_seq=p_len + steps + 8)
+    first = _allclose_excess(lp[:, -1], full[:, p_len - 1], 1e-3, 1e-3)
+    worst, ms, caches = decode_against(params, cfg, ctx, toks, caches, full,
+                                       p_len, 1e-3)
     runs.append(read_counts())
-    worst = max(excess + [float(torch.stack(diffs).max())])
-    ms = [e0.elapsed_time(e1) for e0, e1 in step_ms]
+    worst = max(worst, first)
     check(worst <= 0, f"[lm] (2) dense, {cfg.num_layers} layers, B 1: prefill "
                       f"{p_len} + {steps} decode steps, every step's logits "
                       f"== the full forward's (rtol = atol = 1e-3; worst "
@@ -2803,7 +2866,7 @@ def lm_phase(dev, smi, zero_counts, read_counts, details):
                        "profiled_step": {"ms": ev_ms, "busy_ms": busy,
                                          "launches": calls,
                                          "rows": rows[:12]}}
-    del full, caches, lp, ld, diffs
+    del full, caches, lp
     torch.cuda.empty_cache()
 
     # ---- (4) clustered at the config's geometry, full depth -------------
@@ -2812,36 +2875,23 @@ def lm_phase(dev, smi, zero_counts, read_counts, details):
     kc = min(kc, max(4, g["prompt"] // 8))
     toks4 = torch.randint(0, cfg.vocab_size, (g["batch"], g["prompt"]),
                           generator=gen, device=dev)
-    max_seq = g["prompt"] + g["steps"] + 8
-    res = {}
-    for mode in ("clustered", "dense"):
-        eng = Engine(cfg, params, ServeConfig(max_seq=max_seq, mode=mode,
-                                              recent=g["recent"]))
-        probe = LMProbe(eng, read_counts, keep=mode == "clustered")
-        zero_counts()
-        ids, wall = wall_s(lambda: eng.generate(toks4, g["steps"]))
-        counts = read_counts()
-        runs.append(counts)
-        res[mode] = {"ids": ids, "wall_s": wall, "probe": probe,
-                     "count": eng.recluster_count, "counts": counts,
-                     "tok_s": g["batch"] * g["steps"] / wall}
-        del eng
+    res = engine_runs(cfg, params, toks4, g["steps"], g["recent"], None,
+                      read_counts, zero_counts, keep=True)
+    for m in res:
+        runs.append(res[m]["counts"])
+        res[m]["tok_s"] = g["batch"] * g["steps"] / res[m]["wall_s"]
     pc = res["clustered"]["probe"]
-    bc, cw, bk_shape, bucket_bytes = pc.built["0_block"]
-    rows_ok = torch.equal(bc, torch.clamp(cw, max=cap).to(torch.int32))
-    sums_ok = bool((cw.sum(-1) == g["prompt"]).all())
-    dropped = float((cw - bc).sum() / cw.sum())
+    bucket_bytes = pc.built["0_block"][3]
+    inv, dropped = bucket_invariants(pc, g["prompt"], kc, cap)
     agree = float((res["clustered"]["ids"] == res["dense"]["ids"]
                    ).float().mean())
-    check(bool(pc.finite) and rows_ok and sums_ok
-          and res["clustered"]["count"] == 2
-          and tuple(bk_shape[-3:-1]) == (kc, cap),
+    check(bool(pc.finite) and inv and res["clustered"]["count"] == 2,
           f"[lm] (4) clustered, {cfg.num_layers} layers, B {g['batch']}, "
           f"prompt {g['prompt']}, {g['steps']} steps, recent {g['recent']}: "
           f"kc {kc}, cap {cap}; every logit finite {bool(pc.finite)}; bcount "
-          f"== min(weight, cap) in every bucket {rows_ok}; weights sum to "
-          f"{g['prompt']} a head {sums_ok}; {res['clustered']['count']} "
-          f"flushes (2)")
+          f"== min(weight, cap) in every bucket, the weights summing to "
+          f"{g['prompt']} a head, (kc, cap) buckets {inv}; "
+          f"{res['clustered']['count']} flushes (2)")
     pre = {m: res[m]["probe"].ms("prefill")[0] for m in res}
     dec = {m: statistics.median(res[m]["probe"].ms("decode")) for m in res}
     build_ms = pc.ms("build")[0]
@@ -2910,30 +2960,23 @@ def lm_phase(dev, smi, zero_counts, read_counts, details):
         lambda t_: t_[:e["layers"]], params["stack"]["groups"])})
     toks3 = torch.randint(0, cfg.vocab_size, (e["batch"], e["prompt"]),
                           generator=gen, device=dev)
-    res = {}
-    for mode in ("dense", "clustered"):
-        eng = Engine(cfg4, p4, ServeConfig(
-            max_seq=e["prompt"] + e["steps"] + 8, mode=mode,
-            recent=e["recent"]))
-        probe = LMProbe(eng, read_counts)
-        zero_counts()
-        ids = eng.generate(toks3, e["steps"])
-        checks.append((f"lm/(3) exactness, {e['layers']} layers, {mode} "
-                       f"engine", read_counts()))
-        res[mode] = (ids, probe, eng.recluster_count)
-        del eng
-    same = torch.equal(res["dense"][0], res["clustered"][0])
-    exc = _allclose_excess(res["clustered"][1].first, res["dense"][1].first,
-                           1e-3, 1e-3)
-    margin = res["dense"][1].min_margin()
-    check(same and exc <= 0 and res["clustered"][2] == 2
+    res = engine_runs(cfg4, p4, toks3, e["steps"], e["recent"], None,
+                      read_counts, zero_counts)
+    for m in res:
+        checks.append((f"lm/(3) exactness, {e['layers']} layers, {m} "
+                       f"engine", res[m]["counts"]))
+    same = torch.equal(res["dense"]["ids"], res["clustered"]["ids"])
+    exc = _allclose_excess(res["clustered"]["probe"].first,
+                           res["dense"]["probe"].first, 1e-3, 1e-3)
+    margin = res["dense"]["probe"].min_margin()
+    check(same and exc <= 0 and res["clustered"]["count"] == 2
           and cap4 >= e["prompt"] + e["steps"],
           f"[lm] (3) {e['layers']} layers, B {e['batch']}, prompt "
           f"{e['prompt']}, {e['steps']} steps, recent {e['recent']}, top = kc "
           f"= {kc4}, cap {cap4}: greedy ids == the dense engine's {same} (its "
           f"smallest top-two margin {margin:.3g}); the first decode's logits "
           f"within 1e-3 of the dense step's (excess {exc:.3g}); "
-          f"{res['clustered'][2]} flushes (2)")
+          f"{res['clustered']['count']} flushes (2)")
     rec["exact"] = {"kc": kc4, "cap": cap4, "ids_equal": same,
                     "first_logits_excess": exc, "dense_margin": margin}
     del res, p4, params
@@ -2970,6 +3013,702 @@ def lm_phase(dev, smi, zero_counts, read_counts, details):
     return runs, checks, errs
 
 
+# ---- phase 14: the rest of the LM zoo (MoE, MLA, Mamba2, xLSTM, encoder) ---
+# (a) zamba2-7b at full width and depth (configs/zamba2_7b.py: 54 Mamba2
+# layers and 27 applications of one shared attention block, 32 heads of
+# 112), f32 as the reference's Engine computes, random weights from SEED
+ZOO_ARCH = "zamba2-7b"
+ZOO_DENSE = (128, 128)   # (1): prompt, steps (B 1); 256 tokens, one chunk
+ZOO_GEOM = {"batch": 4, "prompt": 2048, "steps": 32, "recent": 16}   # (2)
+# (4): depth cut to 2 groups (6 layers); top = kc and a capacity over every
+# row (cap 2,176 >= 2,048 + 16), so the shared block reads every key
+ZOO_EXACT = {"groups": 2, "batch": 1, "prompt": 2048, "steps": 16,
+             "recent": 8, "capacity_factor": 66.0}
+# (b) every other family at full width: (arch, layers kept or None = all);
+# dbrx-132b's 40 layers take 488 GiB in f32, 2 of them 26.6 GiB
+ZOO_FAMILIES = (("granite-moe-1b-a400m", None), ("minicpm3-4b", None),
+                ("xlstm-1.3b", None), ("phi-3-vision-4.2b", None),
+                ("whisper-base", None), ("dbrx-132b", 2))
+ZOO_B = {"prompt": 128, "steps": 16, "recent": 8}
+ZOO_TOL = 1e-3
+# xLSTM's chunk scan takes bfloat16 operands, its one-step recurrence is all
+# f32: the reference's own tolerance between them is one block's rtol = atol
+# = 2e-2, set at head_dim 16 (tests/models/test_layers.py:89-105)
+ZOO_TOL_BF16 = 2e-2
+# one mLSTM block at full width (head_dim 1,024): the JAX package's own
+# least rtol = atol over 42 draws is 0.0070-0.0258, past 2e-2 in 2 of them
+# (tools/xlstm_reference_gap.py); the port's 42 blocks are other draws, so
+# twice the reference's largest
+ZOO_XL_BLOCK_TAU = 0.05
+# xLSTM's decode against its forward with the depth cut to one group (7
+# mLSTM and 1 sLSTM block) at full width: the JAX package's own least
+# rtol = atol there is 0.24-0.34 over 4 seeds, and from zero caches (a
+# state not carried) 3.5-4.0 (tools/xlstm_reference_gap.py); the port's
+# weights are other draws, so twice the reference's largest
+ZOO_XL_TAU = 0.7
+# the model's decode step at full depth against its blocks' steps composed
+# by hand: the same operations in the same order
+ZOO_XL_STACK_TOL = 1e-4
+
+
+def zoo_phase(dev, smi, zero_counts, read_counts, details):
+    """Phase 14: the rest of the LM zoo through the port's entry points.
+
+    (a) zamba2-7b at full width and depth (d_model 3,584, 54 Mamba2 layers
+        of d_inner 7,168 and state 64, one shared attention block of 32
+        heads of 112 applied 27 times, d_ff 14,336; f32, random weights):
+        (1) dense, B 1: prefill 128 tokens, decode 128 more one by one,
+            each step's logits equal to the full forward's over 256 tokens
+            (rtol = atol = 1e-3);
+        (2) ``Engine(mode="clustered")`` at B 4, prompt 2,048, 32 steps,
+            ``recent`` 16 (the shared block's 27 caches: 3,456 problems of
+            N 2,048, K 64, d 112; two flushes) beside the dense engine:
+            every logit finite, the buckets' invariants, the greedy
+            agreement printed;
+        (3) kernels 1-3 at that shape against their plain versions
+            (``lm_kernel_checks``), the build re-run under the profiler;
+        (4) the depth cut to 2 groups (6 layers), B 1, prompt 2,048, 16
+            steps, top = kc, every row within the capacity: greedy ids
+            equal to the dense engine's;
+        (5) ``launch/serve.py --arch zamba2-7b --mode clustered``.
+    (b) every other family at full width (dbrx-132b cut to 2 layers), B 1,
+        prompt 128, 16 steps: prefill's logits equal to the forward's and
+        the decode steps equal to it where the reference's semantics make
+        them equal (MoE: ``moe_decode_check``; xLSTM: its decode against
+        its blocks composed by hand at full depth, ``xlstm_stack_check``,
+        block by block, ``xlstm_block_checks``, and against the forward
+        with the depth cut to one group, ``xlstm_cut_check``), then
+        ``Engine`` in both modes (``recent`` 8): ms a token, prefill ms,
+        the build's and flushes' ms, peak memory and each kernel's
+        launches; and kernels 1-3 on the keys of every clustered build
+        (d 64, 96, 128) against their plain versions (``lm_kernel_checks``).
+
+    Returns the main path's counted runs' launch counts ((a)(1), (2), (5)
+    and (b)'s full-depth engines), the named check runs' ``(name,
+    counts)`` ((3), (4), the cut dbrx engines, (b)'s kernel checks), and
+    ``{kernel: max abs err}``."""
+    import dataclasses
+    import gc
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models.common import Ctx
+    from repro_torch.models.transformer import tree_map
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    rec = details.setdefault("zoo", {})
+    rec["card"] = smi
+    runs, checks = [], []
+    ctx = Ctx(compute_dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    cfg = get_config(ZOO_ARCH)
+    print(f"\n[zoo] {cfg.name} at full width and depth: d_model "
+          f"{cfg.d_model}, {cfg.num_layers} layers ({cfg.num_layers // 3 * 2}"
+          f" Mamba2, d_inner {cfg.ssm_expand * cfg.d_model}, state "
+          f"{cfg.ssm_state}; {cfg.num_layers // 3} applications of one shared"
+          f" block of {cfg.num_heads} heads of {cfg.resolved_head_dim}), "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; f32; {smi}; "
+          f"{base / 2**30:.2f} GiB allocated before", flush=True)
+    check(base < 2 ** 30, f"[zoo] phase 14 starts with the earlier phases' "
+                          f"tensors freed ({base / 2**30:.3f} GiB allocated, "
+                          f"< 1 GiB)")
+    params, t = wall_s(lambda: M.init_model(cfg, seed=SEED, device=dev))
+    n_el = M.n_elements(params)
+    rec["zamba2"] = z = {"n_params": n_el, "init_s": t, "peak_gib": {}}
+
+    def peak_of(step):
+        """The peak since the last step's, in GiB, and a fresh count."""
+        z["peak_gib"][step] = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+    print(f"  init_model {t:.2f} s: {n_el} parameters ({n_el * 4 / 2**30:.2f}"
+          f" GiB f32)", flush=True)
+
+    # ---- (a)(1) dense at full depth: prefill + decode == the forward -----
+    p_len, steps = ZOO_DENSE
+    toks = torch.randint(0, cfg.vocab_size, (1, p_len + steps),
+                         generator=gen, device=dev)
+    full, t_full = wall_s(lambda: M.forward(params, toks, ctx, cfg))
+    zero_counts()
+    (lp, caches, _), t_pre = wall_s(lambda: M.prefill(
+        params, toks[:, :p_len], ctx, cfg, max_seq=p_len + steps + 8))
+    first = _allclose_excess(lp[:, -1], full[:, p_len - 1], ZOO_TOL, ZOO_TOL)
+    worst, ms, caches = decode_against(params, cfg, ctx, toks, caches, full,
+                                       p_len, ZOO_TOL)
+    runs.append(read_counts())
+    worst = max(worst, first)
+    check(worst <= 0, f"[zoo] (a)(1) dense, {cfg.num_layers} layers, B 1: "
+                      f"prefill {p_len} + {steps} decode steps, every step's "
+                      f"logits == the full forward's over {p_len + steps} "
+                      f"(rtol = atol = {ZOO_TOL}; worst excess {worst:.3g}); "
+                      f"decode {statistics.median(ms):.3f} ms a token "
+                      f"(median), prefill {t_pre * 1e3:.1f} ms, the forward "
+                      f"{t_full:.2f} s")
+    nxt = toks[:, -1:]
+    one = lambda: M.decode_step(params, nxt, caches, ctx, cfg)  # noqa: E731
+    ev_ms = events_ms(one, reps=3)
+    rows = device_rows(one, 3)
+    busy, calls = sum(r["ms"] for r in rows), sum(r["calls"] for r in rows)
+    print(f"  a dense B 1 step: {ev_ms:.3f} ms (CUDA events, back to back); "
+          f"device busy {busy:.3f} ms in {calls:g} launches; largest: "
+          + "; ".join(f"{r['name'][:50]} {r['ms']:.3f} ms x{r['calls']:g}"
+                      for r in rows[:4]), flush=True)
+    z["dense_b1"] = {"decode_ms": ms, "prefill_s": t_pre, "forward_s": t_full,
+                     "profiled_step": {"ms": ev_ms, "busy_ms": busy,
+                                       "launches": calls, "rows": rows[:12]}}
+    del full, caches, lp
+    torch.cuda.empty_cache()
+    peak_of("(1) dense")
+
+    # ---- (a)(2) the clustered engine at the config's geometry ------------
+    g = ZOO_GEOM
+    kc, cap = M.clustered_geometry(cfg, g["prompt"])
+    kc = min(kc, max(4, g["prompt"] // 8))
+    toks4 = torch.randint(0, cfg.vocab_size, (g["batch"], g["prompt"]),
+                          generator=gen, device=dev)
+    res = engine_runs(cfg, params, toks4, g["steps"], g["recent"], None,
+                      read_counts, zero_counts, keep=True)
+    for m in res:
+        runs.append(res[m]["counts"])
+    pc = res["clustered"]["probe"]
+    inv, dropped = bucket_invariants(pc, g["prompt"], kc, cap)
+    agree = float((res["clustered"]["ids"] == res["dense"]["ids"]
+                   ).float().mean())
+    n_prob = sum(c[0].numel() // kc for c in pc.built.values())
+    check(bool(pc.finite) and inv and res["clustered"]["count"] == 2,
+          f"[zoo] (a)(2) clustered, B {g['batch']}, prompt {g['prompt']}, "
+          f"{g['steps']} steps, recent {g['recent']}: {n_prob} problems (kc "
+          f"{kc}, cap {cap}, d {cfg.resolved_head_dim}); every logit finite "
+          f"{bool(pc.finite)}; bucket invariants {inv}; "
+          f"{res['clustered']['count']} flushes (2)")
+    cc, built = res["clustered"]["counts"], nonzero(pc.build_counts)
+    check(cc["flash_assign"] > 0 and cc["sort_inverse_update"] > 0
+          and sum(built.values()) > 0,
+          f"[zoo] (a)(2) the clustered engine ran the kernels: the build "
+          f"{built}, the whole run {nonzero(cc)} (FlashAssign and the "
+          f"update at each flush)")
+    pre = {m: res[m]["probe"].ms("prefill")[0] for m in res}
+    dec = {m: statistics.median(res[m]["probe"].ms("decode")) for m in res}
+    build_ms, flush_ms = pc.ms("build")[0], pc.ms("flush")
+    print(f"  rows dropped by capacity {dropped:.4f}; greedy agreement with "
+          f"the dense engine {agree:.4f}; prefill {pre['clustered']:.1f} ms "
+          f"(dense engine's {pre['dense']:.1f} ms); a decoded token "
+          f"{dec['clustered']:.3f} ms clustered, {dec['dense']:.3f} ms dense "
+          f"(median); the cluster build {build_ms:.1f} ms; a flush "
+          f"{', '.join(f'{v:.2f}' for v in flush_ms)} ms; tok/s (wall) "
+          + ", ".join(f"{m} {g['batch'] * g['steps'] / res[m]['wall_s']:.1f}"
+                      for m in res), flush=True)
+    z["geometry"] = {
+        "kc": kc, "cap": cap, "problems": n_prob, "dropped_share": dropped,
+        "agreement": agree, "prefill_ms": pre, "decode_ms": dec,
+        "build_ms": build_ms, "build_launches": pc.build_counts,
+        "flush_ms": flush_ms, "wall_s": {m: res[m]["wall_s"] for m in res},
+        "launches": {m: res[m]["counts"] for m in res}}
+    kk, vv = pc.kv["2_shared_attn"]
+    del res, pc
+    torch.cuda.empty_cache()
+    peak_of("(2) engines")
+
+    # ---- (a)(3) kernels 1-3 at the shared block's clustered shape --------
+    x = kk.movedim(-2, -3).reshape(-1, g["prompt"], cfg.resolved_head_dim)
+    x = x.contiguous()
+    zero_counts()
+    zrec = z.setdefault("kernel_checks", {})
+    errs = lm_kernel_checks(dev, x, kc, 4, zrec, tag="zoo")
+    del x
+    build = lambda: kma_build(kk, vv, kc, cap)   # noqa: E731
+    build()
+    b_ms = events_ms(build, reps=2)
+    rows = device_rows(build, 1)
+    dev_ms, calls = sum(r["ms"] for r in rows), sum(r["calls"] for r in rows)
+    checks.append(("zoo/(a)(3) kernel checks at the shared block's shape",
+                   read_counts()))
+    print(f"  the cluster build re-run: {b_ms:.2f} ms (CUDA events), device "
+          f"{dev_ms:.2f} ms in {calls:g} launches; largest: "
+          + "; ".join(f"{r['name'][:50]} {r['ms']:.3f} ms x{r['calls']:g}"
+                      for r in rows[:4]), flush=True)
+    z["build"] = {"ms": b_ms, "device_ms": dev_ms, "device_launches": calls,
+                  "rows": rows[:12]}
+    del kk, vv
+    torch.cuda.empty_cache()
+    peak_of("(3) kernels")
+
+    # ---- (a)(4) exactness, depth cut to 2 groups ---------------------------
+    e = ZOO_EXACT
+    cfg2 = dataclasses.replace(cfg, num_layers=3 * e["groups"],
+                               kv_cluster_capacity_factor=e[
+                                   "capacity_factor"])
+    kc2, cap2 = M.clustered_geometry(cfg2, e["prompt"])
+    kc2 = min(kc2, max(4, e["prompt"] // 8))
+    cfg2 = dataclasses.replace(cfg2, kv_cluster_top=kc2)
+    p2 = dict(params, stack={"groups": tree_map(
+        lambda t_: t_[:e["groups"]], params["stack"]["groups"]),
+        "shared": params["stack"]["shared"]})
+    toks2 = torch.randint(0, cfg.vocab_size, (e["batch"], e["prompt"]),
+                          generator=gen, device=dev)
+    res = engine_runs(cfg2, p2, toks2, e["steps"], e["recent"], None,
+                      read_counts, zero_counts)
+    for m in res:
+        checks.append((f"zoo/(a)(4) exactness, {3 * e['groups']} layers, {m} "
+                       f"engine", res[m]["counts"]))
+    same = torch.equal(res["dense"]["ids"], res["clustered"]["ids"])
+    margin = res["dense"]["probe"].min_margin()
+    check(same and res["clustered"]["count"] == 2
+          and cap2 >= e["prompt"] + e["steps"],
+          f"[zoo] (a)(4) {3 * e['groups']} layers, B {e['batch']}, prompt "
+          f"{e['prompt']}, {e['steps']} steps, recent {e['recent']}, top = kc "
+          f"= {kc2}, cap {cap2}: greedy ids == the dense engine's {same} (its "
+          f"smallest top-two margin {margin:.3g}); "
+          f"{res['clustered']['count']} flushes (2)")
+    z["exact"] = {"kc": kc2, "cap": cap2, "ids_equal": same,
+                  "dense_margin": margin}
+    del res, p2, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_of("(4) exactness")
+
+    # ---- (a)(5) the launcher ------------------------------------------------
+    argv = ["--arch", ZOO_ARCH, "--mode", "clustered", "--batch",
+            str(g["batch"]), "--prompt-len", str(g["prompt"]), "--gen",
+            str(g["steps"]), "--recent", str(g["recent"])]
+    print(f"  python -m repro_torch.launch.serve {' '.join(argv)}",
+          flush=True)
+    zero_counts()
+    out = serve.main(argv)
+    runs.append(read_counts())
+    check(out["tok_s"] > 0
+          and tuple(out["ids"].shape) == (g["batch"], g["steps"])
+          and out["recluster_count"] == 2,
+          f"[zoo] (a)(5) the launcher served {out['tok_s']:.1f} tok/s "
+          f"({out['recluster_count']} flushes)")
+    z["launcher"] = {"tok_s": out["tok_s"], "wall_s": out["wall_s"]}
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_of("(5) launcher")
+    z["peak_bytes"] = max(z["peak_gib"].values()) * 2 ** 30
+    z["seconds"] = time.perf_counter() - t_phase
+    print(f"  zamba2-7b's peaks (GiB): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in z["peak_gib"].items())
+          + f"; (a) {z['seconds']:.1f} s", flush=True)
+
+    # ---- (b) every other family at full width -----------------------------
+    fam = rec.setdefault("families", {})
+    for arch, layers in ZOO_FAMILIES:
+        for kn, v in zoo_family(dev, arch, layers, ctx, gen, fam, runs,
+                                checks, zero_counts, read_counts).items():
+            errs[kn] = max(errs[kn], v)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    rec["peak_bytes"] = max([z["peak_bytes"]] + [f["peak_bytes"]
+                                                for f in fam.values()])
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["main_launches"] = {kn: sum(r[kn] for r in runs) for kn in runs[0]}
+    rec["check_launches"] = dict(checks)
+    rec["max_abs_err"] = errs
+    print(f"  peak memory {rec['peak_bytes'] / 2**30:.2f} GiB; phase "
+          f"{rec['seconds']:.1f} s; the main path's runs launched "
+          f"{ {kn: v for kn, v in rec['main_launches'].items() if v} }",
+          flush=True)
+    return runs, checks, errs
+
+
+def nonzero(counts):
+    return {kn: v for kn, v in counts.items() if v}
+
+
+def kma_build(kk, vv, kc, cap):
+    from repro_torch.models import kmeans_attention as kma
+    return kma.build_clustered_cache(kk, vv, kc=kc, capacity=cap, iters=4)
+
+
+def moe_decode_check(params, cfg, ctx, toks, p_len):
+    """MoE: decode against the forward where the reference's semantics make
+    them equal. A (token, slot) pair's place in its expert is a cumsum over
+    its group's tokens slot by slot (``moe.py:61-67``): pairs past the
+    capacity ``int(gs * 1.25 * k / e) + 1`` drop, and pairs of two tokens
+    in different slots can share a place, where the dispatch sums them. A
+    decode step is a group of one token, which never drops and never
+    shares; the forward's group of 144 tokens does both, and a shared
+    place mixes a later token into an earlier one's output, so no position
+    of it equals a decode (the reference's own decode differs from its
+    forward by more than 0.1 in the logits: ``tests/test_torch_zoo_models.py
+    ::test_reference_moe_decode_equals_its_forward_only_per_token``). So:
+    prefill (the config's group) equals the forward over the
+    prompt, one group either way; and the decode steps are compared at
+    every position with the group size set to 1 (one token a group, as a
+    decode step is), where prefill + decode equal the forward. Returns
+    (the worst excess of the prompt check, of the group-1 decode, the ms
+    of those steps, (pairs dropped, pairs sharing a place) in layer 0 at
+    the config's group over the prompt)."""
+    import dataclasses
+
+    from repro_torch.models import common
+    from repro_torch.models import model as M
+    full_p = M.forward(params, toks[:, :p_len], ctx, cfg)
+    lp, _, _ = M.prefill(params, toks[:, :p_len], ctx, cfg,
+                         max_seq=toks.shape[1] + 8)
+    prompt_ex = _allclose_excess(lp[:, -1], full_p[:, -1], ZOO_TOL, ZOO_TOL)
+    cfg1 = dataclasses.replace(cfg, moe_group_size=1)
+    full1 = M.forward(params, toks, ctx, cfg1)
+    lp1, c1, _ = M.prefill(params, toks[:, :p_len], ctx, cfg1,
+                           max_seq=toks.shape[1] + 8)
+    ex1 = _allclose_excess(lp1[:, -1], full1[:, p_len - 1], ZOO_TOL, ZOO_TOL)
+    worst, ms, _ = decode_against(params, cfg1, ctx, toks, c1, full1, p_len,
+                                  ZOO_TOL)
+    h = M._embed_tokens(cfg, params, toks[:, :p_len], ctx)
+    blk = tree_first(params["stack"]["groups"]["0_block"])
+    h = common.norm_apply(cfg.norm)(blk["norm_attn"], h, ctx)
+    return prompt_ex, max(worst, ex1), ms, moe_dispatch_counts(
+        blk["mlp"], h, ctx, cfg)
+
+
+def moe_dispatch_counts(params, x, ctx, cfg):
+    """The (token, expert) pairs that ``moe`` drops for capacity at this
+    input, and the pairs that share their (expert, place) with a pair of
+    another token (a token's slots pick distinct experts), in groups of
+    ``cfg.moe_group_size``."""
+    import torch
+    from repro_torch.models.layers import moe
+    d = x.shape[-1]
+    tokens = x.reshape(-1, d)
+    gs = min(cfg.moe_group_size, tokens.shape[0])
+    xg = tokens.reshape(-1, gs, d)
+    k, e = cfg.experts_per_token, cfg.num_experts
+    _, _, top_i = moe.route((xg @ ctx.cast(params["router"])).float(), k)
+    cap = moe.capacity(gs, k, e)
+    _, pos = moe.places(top_i, e)
+    slot = (top_i.long() * (cap + 1) + pos.clamp(max=cap).long()).flatten(1)
+    occ = torch.zeros((xg.shape[0], e * (cap + 1)), device=x.device
+                      ).scatter_add_(1, slot, torch.ones(slot.shape,
+                                                         device=x.device))
+    shared = (occ.gather(1, slot) > 1) & (pos < cap).flatten(1)
+    return int((pos >= cap).sum()), int(shared.sum())
+
+
+def xlstm_block_checks(params, cfg, ctx, toks, p_len):
+    """xLSTM, block by block, as the reference's own test holds a block
+    (``tests/models/test_layers.py:89-105``): for every mLSTM and sLSTM
+    block at full width, on the normalized token embeddings, the prefill
+    (the chunk scan over the prompt, or sLSTM's loop) and then one-token
+    steps from its cache against one pass over the whole sequence. sLSTM
+    (an f32 loop either way) within rtol = atol = 1e-3; mLSTM, whose chunk
+    scan takes bfloat16 operands and whose step does not, within rtol =
+    atol = ``ZOO_XL_BLOCK_TAU``: the reference's test sets 2e-2 at
+    head_dim 16, and at full width (head_dim 1,024) the JAX package's own
+    blocks pass 2e-2 in 40 of 42 draws (``tools/xlstm_reference_gap.py``).
+    A control, the first block's input one f32 ulp off, shows the bfloat16
+    floor. Returns
+    {"mlstm_excess", "mlstm_max_abs", "slstm_excess", "control_max_abs",
+    "blocks"}."""
+    import torch
+    from repro_torch.models import common
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import xlstm as xl
+
+    x0 = M._embed_tokens(cfg, params, toks, ctx)
+    subs, n_groups = T.group_layout(cfg)
+    norm = common.norm_apply(cfg.norm)
+    out = {"mlstm_excess": -1.0, "mlstm_max_abs": 0.0, "slstm_excess": -1.0,
+           "control_max_abs": 0.0, "blocks": 0}
+    for g in range(n_groups):
+        for i, sub in enumerate(subs):
+            p = T.tree_map(lambda t: t[g], params["stack"]["groups"][
+                f"{i}_{sub}"])
+            h = norm(p["norm"], x0, ctx)
+            zero = T.subblock_cache(cfg, sub, h.shape[0], 1, ctx.compute_dtype,
+                                    device=h.device)
+            if sub == "mlstm":
+                run = lambda x_, c_: xl.mlstm(  # noqa: E731
+                    p["core"], x_, ctx, num_heads=cfg.num_heads,
+                    chunk=cfg.ssm_chunk, cache=c_)
+            else:
+                run = lambda x_, c_: xl.slstm(  # noqa: E731
+                    p["core"], x_, ctx, num_heads=cfg.num_heads, cache=c_)
+            full, _ = run(h, dict(zero))
+            y, c = run(h[:, :p_len], dict(zero))
+            ys = [y]
+            for t_ in range(p_len, h.shape[1]):
+                y, c = run(h[:, t_:t_ + 1], c)
+                ys.append(y)
+            got = torch.cat(ys, 1)
+            if sub == "mlstm":
+                out["mlstm_excess"] = max(
+                    out["mlstm_excess"], _allclose_excess(
+                        got, full, ZOO_XL_BLOCK_TAU, ZOO_XL_BLOCK_TAU))
+                out["mlstm_max_abs"] = max(out["mlstm_max_abs"], float(
+                    (got - full).abs().max()))
+                if out["blocks"] == 0:   # the control, on the first block
+                    ctl, _ = run(h * (1 + 2.0 ** -23), dict(zero))
+                    out["control_max_abs"] = float((ctl - full).abs().max())
+            else:
+                out["slstm_excess"] = max(out["slstm_excess"],
+                                          _allclose_excess(got, full, ZOO_TOL,
+                                                           ZOO_TOL))
+            out["blocks"] += 1
+    return out
+
+
+def xlstm_cut_check(params, cfg, ctx, toks, p_len):
+    """xLSTM's model path with the depth cut to one group (7 mLSTM blocks
+    and 1 sLSTM) at full width: ``prefill`` over the prompt and then
+    ``decode_step`` token by token against ``forward`` over the whole
+    sequence, and the same steps from zero caches (a state that is not
+    carried) as the control. Returns each one's least rtol = atol,
+    ``max |got - want| / (1 + |want|)``: {"decode", "control"}."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    cfg1 = dataclasses.replace(cfg, num_layers=cfg.slstm_every)
+    p1 = dict(params, stack=dict(params["stack"], groups=T.tree_map(
+        lambda t: t[:1], params["stack"]["groups"])))
+    full = M.forward(p1, toks, ctx, cfg1)[:, p_len:]
+    _, caches, _ = M.prefill(p1, toks[:, :p_len], ctx, cfg1,
+                             max_seq=toks.shape[1] + 8)
+    zero = M.init_decode_caches(cfg1, toks.shape[0], toks.shape[1] + 8,
+                                dtype=torch.float32, device=toks.device)
+    out = {}
+    for name, c in (("decode", caches), ("control", zero)):
+        steps = []
+        for t_ in range(p_len, toks.shape[1]):
+            lg, c = M.decode_step(p1, toks[:, t_:t_ + 1], c, ctx, cfg1)
+            steps.append(lg[:, 0])
+        d = (torch.stack(steps, 1) - full).abs() / (1 + full.abs())
+        out[name] = float(d.max())
+    return out
+
+
+def xlstm_stack_check(params, cfg, ctx, toks, caches, p_len):
+    """xLSTM's ``decode_step`` at full depth against its blocks' one-token
+    steps composed by hand from the same prefill caches (group by group,
+    each block ``x + block(norm(x))``, its cache a tuple carried alone):
+    the model's stacking of the tuple caches over the groups is held
+    exactly where the forward cannot hold it. Returns the worst excess over
+    rtol = atol = ``ZOO_XL_STACK_TOL`` of the logits of every step and of
+    every cache leaf after the last."""
+    from repro_torch.models import common
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import xlstm as xl
+    subs, n_groups = T.group_layout(cfg)
+    norm = common.norm_apply(cfg.norm)
+    tol = ZOO_XL_STACK_TOL
+    mc = T.tree_map(lambda t: t.clone(), caches)
+    hand = [{key: T.tree_map(lambda t: t[g].clone(), c)
+             for key, c in caches.items()} for g in range(n_groups)]
+    worst = -1.0
+    for t_ in range(p_len, toks.shape[1]):
+        tok = toks[:, t_:t_ + 1]
+        got, mc = M.decode_step(params, tok, mc, ctx, cfg)
+        x = M._embed_tokens(cfg, params, tok, ctx)
+        for g in range(n_groups):
+            for i, sub in enumerate(subs):
+                key = f"{i}_{sub}"
+                p = T.tree_map(lambda w: w[g], params["stack"]["groups"][key])
+                h = norm(p["norm"], x, ctx)
+                if sub == "mlstm":
+                    y, hand[g][key] = xl.mlstm(
+                        p["core"], h, ctx, num_heads=cfg.num_heads,
+                        chunk=cfg.ssm_chunk, cache=hand[g][key])
+                else:
+                    y, hand[g][key] = xl.slstm(
+                        p["core"], h, ctx, num_heads=cfg.num_heads,
+                        cache=hand[g][key])
+                x = x + y
+        want = M._logits(cfg, params, M._final_norm(cfg, params, x, ctx),
+                         ctx)
+        worst = max(worst, _allclose_excess(got, want, tol, tol))
+    for key, c in mc.items():
+        for g in range(n_groups):
+            for a, b in zip(M._leaves(T.tree_map(lambda t: t[g], c)),
+                            M._leaves(hand[g][key])):
+                worst = max(worst, _allclose_excess(a, b, tol, tol))
+    return worst
+
+
+def tree_first(tree):
+    """Group 0 of a stacked parameter tree."""
+    from repro_torch.models.transformer import tree_map
+    return tree_map(lambda t: t[0], tree)
+
+
+def zoo_family(dev, arch, layers, ctx, gen, fam, runs, checks, zero_counts,
+               read_counts):
+    """Phase 14 (b) for one config: see ``zoo_phase``. Returns ``{kernel:
+    max abs err}`` of its kernel checks ({} without a clustered cache)."""
+    import dataclasses
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    cut = layers is not None
+    if cut:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    params, t_init = wall_s(lambda: M.init_model(cfg, seed=SEED, device=dev))
+    n_el = M.n_elements(params)
+    b = ZOO_B
+    p_len, steps = b["prompt"], b["steps"]
+    toks = torch.randint(0, cfg.vocab_size, (1, p_len + steps),
+                         generator=gen, device=dev)
+    fe = (torch.randn((1, cfg.frontend_seq, cfg.d_model), generator=gen,
+                      device=dev) if cfg.frontend else None)
+    tol = ZOO_TOL
+    r = fam[arch] = {"layers": cfg.num_layers, "cut": cut, "n_params": n_el,
+                     "init_s": t_init, "tol": tol}
+    desc = (f"{arch}, {cfg.num_layers} layers{' (cut)' if cut else ''}, "
+            f"d_model {cfg.d_model}, {n_el * 4 / 2**30:.2f} GiB f32")
+    if cfg.num_experts:
+        prompt_ex, worst, ms, (drop, shared) = moe_decode_check(
+            params, cfg, ctx, toks, p_len)
+        check(prompt_ex <= 0 and worst <= 0,
+              f"[zoo] (b) {desc}: prefill's logits == the forward's over the "
+              f"prompt (one group of {p_len}; excess {prompt_ex:.3g}); with "
+              f"one token a group, prefill + {steps} decode steps == the "
+              f"forward at every position (rtol = atol = {tol}; worst excess "
+              f"{worst:.3g}); in the prompt's group, layer 0 drops {drop} "
+              f"(token, expert) pairs and {shared} share a place")
+        r.update(prompt_excess=prompt_ex, decode_excess=worst,
+                 layer0_dropped=drop, layer0_shared=shared)
+    elif cfg.family == "ssm":
+        full_p = M.forward(params, toks[:, :p_len], ctx, cfg)
+        lp, caches, _ = M.prefill(params, toks[:, :p_len], ctx, cfg,
+                                  max_seq=p_len + steps + 8)
+        prompt_ex = _allclose_excess(lp[:, -1], full_p[:, -1], ZOO_TOL,
+                                     ZOO_TOL)
+        full = M.forward(params, toks, ctx, cfg)
+        drift = float((full_p[:, -1] - full[:, p_len - 1]).abs().max())
+        stack_ex = xlstm_stack_check(params, cfg, ctx, toks, caches, p_len)
+        dec_ex, ms, _ = decode_against(params, cfg, ctx, toks, caches,
+                                       full, p_len, ZOO_TOL)
+        bl = xlstm_block_checks(params, cfg, ctx, toks, p_len)
+        cut1 = xlstm_cut_check(params, cfg, ctx, toks, p_len)
+        check(prompt_ex <= 0 and stack_ex <= 0 and bl["slstm_excess"] <= 0
+              and bl["mlstm_excess"] <= 0,
+              f"[zoo] (b) {desc}: prefill's logits == the forward's over the "
+              f"prompt (rtol = atol = {ZOO_TOL}; excess {prompt_ex:.3g}); "
+              f"{steps} decode steps == the {bl['blocks']} blocks' steps "
+              f"composed by hand, logits and caches (rtol = atol = "
+              f"{ZOO_XL_STACK_TOL}; excess {stack_ex:.3g}); each block's "
+              f"prefill + {steps} one-token steps == its pass over the whole "
+              f"sequence: sLSTM within rtol = atol = {ZOO_TOL} (excess "
+              f"{bl['slstm_excess']:.3g}), mLSTM within rtol = atol = "
+              f"{ZOO_XL_BLOCK_TAU} (excess {bl['mlstm_excess']:.3g}; largest "
+              f"element {bl['mlstm_max_abs']:.3g}, the 1-ulp control's "
+              f"{bl['control_max_abs']:.3g})")
+        check(cut1["decode"] <= ZOO_XL_TAU < cut1["control"],
+              f"[zoo] (b) {arch} cut to one group ({cfg.slstm_every} "
+              f"layers), full width: prefill + {steps} decode_steps == the "
+              f"forward within rtol = atol = {ZOO_XL_TAU} (least "
+              f"{cut1['decode']:.3g}; the reference's {ZOO_TOL_BF16} cannot "
+              f"hold: the JAX package's own least is 0.24-0.34 here), and "
+              f"the same steps from zero caches outside it (least "
+              f"{cut1['control']:.3g})")
+        print(f"  {arch}, the whole model against its forward (not gated): "
+              f"the forward over {p_len} and over {p_len + steps} tokens "
+              f"differ by {drift:.3g} at position {p_len - 1} (the chunk's "
+              f"bf16 rounding through {cfg.num_layers} layers of random "
+              f"weights), the decode steps by up to {dec_ex + ZOO_TOL:.3g} "
+              f"over rtol {ZOO_TOL}; logits of scale "
+              f"{float(full.abs().max()):.3g}", flush=True)
+        r.update(prompt_excess=prompt_ex, stack_excess=stack_ex, blocks=bl,
+                 one_group=cut1, forward_drift=drift,
+                 decode_excess_vs_forward=dec_ex)
+        del full, full_p, lp, caches
+    else:
+        full = M.forward(params, toks, ctx, cfg, frontend=fe)
+        lp, caches, cross = M.prefill(
+            params, toks[:, :p_len], ctx, cfg, frontend=fe,
+            max_seq=(fe.shape[1] if cfg.family == "vlm" else 0)
+            + p_len + steps + 8)
+        first = _allclose_excess(lp[:, -1], full[:, p_len - 1], ZOO_TOL,
+                                 ZOO_TOL)
+        worst, ms, _ = decode_against(params, cfg, ctx, toks, caches, full,
+                                      p_len, tol, cross_kv=cross)
+        check(first <= 0 and worst <= 0,
+              f"[zoo] (b) {desc}: prefill's logits == the forward's (rtol = "
+              f"atol = {ZOO_TOL}; excess {first:.3g}); {steps} decode steps "
+              f"== the forward (rtol = atol = {tol}; worst excess "
+              f"{worst:.3g})")
+        r.update(prefill_excess=first, decode_excess=worst)
+        del full, lp, caches, cross
+    r["decode_ms"] = ms
+    res = engine_runs(cfg, params, toks[:, :p_len], steps, b["recent"], fe,
+                      read_counts, zero_counts, keep=True)
+    flushes = 0 if (cfg.attention == "mla" or cfg.family == "ssm") else 2
+    kc, cap = M.clustered_geometry(cfg, p_len)
+    kc = min(kc, max(4, p_len // 8))
+    pc = res["clustered"]["probe"]
+    inv, dropped = (bucket_invariants(pc, p_len, kc, cap) if flushes
+                    else (not pc.built, 0.0))
+    for m in res:
+        if cut:
+            checks.append((f"zoo/(b) {arch} cut to {layers} layers, {m} "
+                           f"engine", res[m]["counts"]))
+        else:
+            runs.append(res[m]["counts"])
+    errs = {}
+    if pc.kv:
+        # kernels 1-3 on the keys the clustered build took (every layer,
+        # sequence and kv head: at d 64 for granite and whisper, 96 for
+        # phi-3-vision, 128 for dbrx) against their plain versions
+        x = torch.cat([kk.movedim(-2, -3).reshape(-1, p_len, kk.shape[-1])
+                       for kk, _ in pc.kv.values()]).contiguous()
+        zero_counts()
+        errs = lm_kernel_checks(dev, x, kc, 4, r, tag=f"zoo/{arch}")
+        checks.append((f"zoo/(b) {arch} kernel checks at the clustered "
+                       f"shape", read_counts()))
+        del x
+    pc.kv = None
+    fin = all(bool(res[m]["probe"].finite) for m in res)
+    agree = float((res["clustered"]["ids"] == res["dense"]["ids"]
+                   ).float().mean())
+    kern = nonzero(res["clustered"]["counts"])
+    dense_kern = nonzero(res["dense"]["counts"])
+    check(fin and inv and res["clustered"]["count"] == flushes
+          and res["dense"]["count"] == 0 and bool(kern) == bool(flushes)
+          and not dense_kern,
+          f"[zoo] (b) {arch} Engine, B 1, prompt {p_len}, {steps} steps, "
+          f"recent {b['recent']}: every logit finite {fin}; clustered "
+          f"{res['clustered']['count']} flushes ({flushes}), launches {kern}"
+          f" (none without a clustered cache); dense launches {dense_kern} "
+          f"(none); bucket invariants {inv}")
+    pre = {m: res[m]["probe"].ms("prefill")[0] for m in res}
+    dec = {m: statistics.median(res[m]["probe"].ms("decode")) for m in res}
+    build = pc.ms("build")[0]
+    flush = pc.ms("flush")
+    r.update(prefill_ms=pre, engine_decode_ms=dec, build_ms=build,
+             build_launches=pc.build_counts, flush_ms=flush,
+             dropped_share=dropped, agreement=agree,
+             launches={m: res[m]["counts"] for m in res},
+             peak_bytes=torch.cuda.max_memory_allocated(),
+             seconds=time.perf_counter() - t0)
+    print(f"  {arch}: decode {statistics.median(ms):.3f} ms a token (B 1, "
+          f"median); engine prefill {pre['clustered']:.1f} / "
+          f"{pre['dense']:.1f} ms, a token {dec['clustered']:.3f} / "
+          f"{dec['dense']:.3f} ms (clustered / dense); build {build:.2f} ms "
+          f"({nonzero(pc.build_counts)}), flushes "
+          f"{', '.join(f'{v:.2f}' for v in flush) or 'none'} ms; clustered "
+          f"launches {kern}; greedy agreement {agree:.3f}; peak "
+          f"{r['peak_bytes'] / 2**30:.2f} GiB; {r['seconds']:.1f} s",
+          flush=True)
+    return errs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -2983,6 +3722,8 @@ def main() -> int:
                          "sharded index's reliability, only")
     ap.add_argument("--lm-only", action="store_true",
                     help="build and run the LM serving phase (13) only")
+    ap.add_argument("--zoo-only", action="store_true",
+                    help="build and run the LM zoo phase (14) only")
     args = ap.parse_args()
     # the plain versions' score matrices take up to 32 GiB at a time, in
     # blocks of changing size: segments that grow keep the cache from
@@ -3194,6 +3935,18 @@ def main() -> int:
                   file=sys.stderr)
             return 1
         print("\nchip_smoke --lm-only: all checks passed")
+        return 0
+    if args.zoo_only:   # phase 14 alone (zoo_phase)
+        zoo_phase(dev, smi, zero_counts, read_counts, details)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_zoo.json").write_text(
+            json.dumps(details["zoo"], indent=1))
+        if failures:
+            print(f"\nchip_smoke: {len(failures)} check(s) failed",
+                  file=sys.stderr)
+            return 1
+        print("\nchip_smoke --zoo-only: all checks passed")
         return 0
     if args.parallel_only or args.parallel_e_only:   # phase 12 or its (e)
         if args.parallel_e_only:
@@ -6371,6 +7124,16 @@ def main() -> int:
     for name, counts in lm_checks:
         count_check(name, counts)
     for kname, err in lm_errs.items():
+        max_err[kname] = max(max_err[kname], err)
+
+    # ---- phase 14: the rest of the LM zoo (zoo_phase) --------------------
+    zoo_runs, zoo_checks, zoo_errs = zoo_phase(dev, smi, zero_counts,
+                                               read_counts, details)
+    for counts in zoo_runs:
+        count_run(counts)
+    for name, counts in zoo_checks:
+        count_check(name, counts)
+    for kname, err in zoo_errs.items():
         max_err[kname] = max(max_err[kname], err)
 
     # ---- phase 4: the kernel table ---------------------------------------

@@ -2,11 +2,8 @@
 
 Port of ``repro/configs/base.py``, record for record. Every config is
 selectable via ``--arch <id>`` in the launcher; the ``reduced()`` view
-produces a same-family miniature for CPU tests. The port serves the
-dense-attention family (GQA/MHA, RoPE, GLU or plain MLP, the norms and
-gemma2's local/global layers); the other families' records are here so
-that ``--arch`` names them, and their models refuse with
-``NotImplementedError`` (ROADMAP.md, queue A item 8a).
+produces a same-family miniature for CPU tests. The port serves every
+record on one device (``models``, ``serve.Engine``).
 """
 from __future__ import annotations
 

@@ -7,6 +7,10 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
       --mode clustered --batch 4 --prompt-len 2048 --gen 32 --recent 16
 
+  # zamba2-7b (Mamba2 + one shared attention block) at full width
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+      --mode clustered --batch 4 --prompt-len 2048 --gen 32 --recent 16
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
       --reduced --batch 4 --prompt-len 128 --gen 32 --mode clustered \\
       --device cpu
@@ -28,9 +32,16 @@ the same-family miniature) is initialised from ``--seed`` on the device,
 ``--gen`` steps (``--temperature`` > 0 samples, else greedy; ``--recent``
 slots of the clustered mode's recent buffer, the reference's 128 by
 default), and it prints the arch, mode and shape, the wall time and tok/s,
-and the first sample ids. The dense-attention family is served (llama3-8b,
-starcoder2-3b, gemma2-27b); the other families, and ``--mesh`` with an LM
-mode, refuse with ``NotImplementedError`` (ROADMAP.md, queue A item 8a).
+and the first sample ids. Every one of the ten records is served; for
+phi-3-vision's patches and whisper's frames (``frontend_seq`` rows of
+``d_model``) the input is drawn from a ``torch.Generator`` seeded by
+``--seed`` (the reference draws them from its key), and learned positions
+get ``--prompt-len + --gen + 64`` rows, as the reference's. The cache
+holds ``--prompt-len + --gen + 8`` slots, and phi-3-vision's patches
+besides (the reference's launcher leaves them out, and its prefill then
+refuses phi-3-vision). ``--mesh`` with
+an LM mode refuses with ``NotImplementedError`` (ROADMAP.md, queue A item
+8a).
 
 Search serving builds an index over a synthetic clustered corpus (Gaussian blobs made
 from ``--seed`` on the device: centres x5, noise 0.4, as the reference),
@@ -110,27 +121,37 @@ def _serve_lm(args) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.core.kmeans import resolve_device
     from repro_torch.models import model as M
-    from repro_torch.models.transformer import check_ported
     from repro_torch.serve import Engine, ServeConfig
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    check_ported(cfg)
     dev = resolve_device(args.device)
-    params = M.init_model(cfg, seed=args.seed, device=dev)
+    params = M.init_model(cfg, seed=args.seed, device=dev,
+                          max_pos=args.prompt_len + args.gen + 64)
+    # the vlm's patches sit in the cache before the prompt: its cache holds
+    # them too (the reference's launcher sizes it to the text alone, and its
+    # prefill's assertion then stops phi-3-vision)
+    patches = cfg.frontend_seq if cfg.frontend and cfg.family != "audio" \
+        else 0
     engine = Engine(cfg, params,
-                    ServeConfig(max_seq=args.prompt_len + args.gen + 8,
+                    ServeConfig(max_seq=patches + args.prompt_len + args.gen
+                                + 8,
                                 mode=args.mode, recent=args.recent,
                                 temperature=args.temperature))
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=dev)
+    frontend = None
+    if cfg.frontend:
+        frontend = torch.randn(
+            (args.batch, cfg.frontend_seq, cfg.d_model), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(args.seed + 2))
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
         else (lambda: None)
     sync()
     t0 = time.perf_counter()
-    out = engine.generate(tokens, args.gen,
+    out = engine.generate(tokens, args.gen, frontend=frontend,
                           generator=gen if args.temperature > 0 else None)
     sync()
     dt = time.perf_counter() - t0

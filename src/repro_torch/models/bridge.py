@@ -8,10 +8,13 @@ nested dicts of numpy arrays (``jax.tree_util.tree_map(np.asarray, tree)``),
 become the port's trees and back. The two trees have the same keys and the
 same leaf shapes: the port keeps the reference's weight layout, ``(d_in,
 d_out)`` applied as ``x @ W``, and its stacked leading group axis, so every
-leaf crosses by a copy and nothing is transposed. Neither package is
-imported here. bfloat16 leaves are reinterpreted bit for bit
-(``core.bridge``); ``caches_to_numpy`` widens them to float32, which is
-exact.
+leaf crosses by a copy and nothing is transposed: zamba2's shared block
+(``stack["shared"]``, unstacked), whisper's ``encoder``, ``enc_pos`` and
+``pos_embed``, the frontend's projection, and the recurrent caches' tuple
+leaves (``{"mlstm": (C_hat, n_hat, m)}``, ``{"slstm": (c, n, m, h)}``)
+included, in both directions. Neither package is imported here. bfloat16
+leaves are reinterpreted bit for bit (``core.bridge``);
+``caches_to_numpy`` widens them to float32, which is exact.
 """
 from __future__ import annotations
 
@@ -24,12 +27,16 @@ from repro_torch.core.bridge import _to_tensor
 def _tree_from_numpy(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_tree_from_numpy(v, device) for v in tree)
     return _to_tensor(tree, device)
 
 
 def _tree_to_numpy(tree):
     if isinstance(tree, dict):
         return {k: _tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_tree_to_numpy(v) for v in tree)
     t = tree.detach().cpu()
     if t.dtype == torch.bfloat16:
         t = t.float()
@@ -51,7 +58,8 @@ def params_from_numpy(cfg: ArchConfig, tree: dict, device) -> dict:
 
 def caches_from_numpy(tree: dict, device) -> dict:
     """A dense or clustered decode-cache tree (leaves stacked over the
-    groups, ``pos``/``rlen`` int32, ``ring`` bool) as the port's."""
+    groups, ``pos``/``rlen`` int32, ``ring`` bool, tuples kept) or
+    whisper's cross-KV as the port's."""
     return _tree_from_numpy(tree, device)
 
 

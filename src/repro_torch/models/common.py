@@ -69,6 +69,16 @@ class Init:
         return torch.ones((*self.lead, *shape), device=self.device)
 
 
+def dense_init(ini: Init, d_in: int, d_out: int, *,
+               scale: float | None = None) -> dict:
+    scale = scale if scale is not None else d_in ** -0.5
+    return {"w": ini.normal((d_in, d_out), scale)}
+
+
+def dense(params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+    return x @ ctx.cast(params["w"])
+
+
 # --------------------------------------------------------------------------
 # Norms
 # --------------------------------------------------------------------------

@@ -1,2 +1,2 @@
-"""repro_torch.models.layers — attention (port of ``repro/models/layers``;
-MLA, MoE, Mamba2 and xLSTM wait for ROADMAP.md queue A item 8a)."""
+"""repro_torch.models.layers — attention (with whisper's cross-attention),
+MLA, MoE, Mamba2 and xLSTM (port of ``repro/models/layers``)."""

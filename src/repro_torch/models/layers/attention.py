@@ -15,8 +15,9 @@ attention).
 The decode path writes the step's key and value into the cache tensors in
 place (``index_copy_`` at ``pos``, the start clamped so the update fits, as
 ``dynamic_update_slice`` clamps it); ``pos`` stays on the device, so a
-step reads nothing back to the host. Cross-attention (whisper) waits for
-ROADMAP.md queue A item 8a.
+step reads nothing back to the host. ``cross_attention`` and
+``build_cross_kv`` (whisper's decoder against the encoder's output, with
+the qkv biases) follow the reference's l.255-276.
 """
 from __future__ import annotations
 
@@ -253,3 +254,30 @@ def _decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     scores = torch.where(valid, scores, NEG_INF)
     w = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", w, v)
+
+
+def cross_attention(params, x: torch.Tensor, kv_cache: dict, ctx: Ctx, *,
+                    num_heads: int, num_kv_heads: int,
+                    head_dim: int) -> torch.Tensor:
+    """Encoder-decoder cross attention against precomputed (k, v)."""
+    q = x @ ctx.cast(params["wq"])
+    if "bq" in params:
+        q = q + ctx.cast(params["bq"])
+    b, s = x.shape[0], x.shape[1]
+    q = q.reshape(b, s, num_heads, head_dim)
+    o = dot_attention(q, kv_cache["k"], kv_cache["v"], causal=False)
+    return attn_out(params, o, ctx)
+
+
+def build_cross_kv(params, enc_out: torch.Tensor, ctx: Ctx, *,
+                   num_kv_heads: int, head_dim: int) -> dict:
+    """The cross-attention keys and values (B, S_enc, KH, hd) of one
+    decoder layer."""
+    k = enc_out @ ctx.cast(params["wk"])
+    v = enc_out @ ctx.cast(params["wv"])
+    if "bk" in params:
+        k = k + ctx.cast(params["bk"])
+        v = v + ctx.cast(params["bv"])
+    b, s = enc_out.shape[0], enc_out.shape[1]
+    return {"k": k.reshape(b, s, num_kv_heads, head_dim),
+            "v": v.reshape(b, s, num_kv_heads, head_dim)}

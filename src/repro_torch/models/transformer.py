@@ -1,23 +1,27 @@
-"""The decoder stack of the dense-attention family.
+"""The decoder stack of every architecture family.
 
-Port of the attention parts of ``repro/models/transformer.py`` (l.41-469).
-Layers are organized into groups, as in the reference:
+Port of ``repro/models/transformer.py``. Layers are organized into groups,
+as in the reference:
 
-  dense : group = [block] × num_layers
-  gemma2: group = [local_attn_block, global_attn_block] × L/2
+  dense/moe/vlm/audio : group = [block] × num_layers
+  gemma2              : group = [local_attn_block, global_attn_block] × L/2
+  xlstm               : group = [mLSTM × (k-1), sLSTM] × L/k
+  zamba2              : group = [mamba2, mamba2, shared_attn_block] × L/3
+                        (the shared block's params stored once, under
+                        ``params["stack"]["shared"]``, and applied at every
+                        third position)
 
 Params and caches keep the reference's trees: a group's sub-blocks are
 keyed ``f"{i}_{sub}"`` and every leaf is stacked over the G groups (a
 leading axis), so the JAX package's trees cross by a copy
 (``models.bridge``) and the clustered-cache build batches over the groups.
-``apply_stack`` is a Python loop over the groups (the reference's
-``lax.scan``). A decode step writes its key and value into the stacked
-cache tensors in place; a leaf a layer leaves in place is kept, any other
-is restacked.
-
-Not ported yet, and refused with ``NotImplementedError`` naming ROADMAP.md
-queue A item 8a: the ``mlstm``, ``slstm``, ``mamba2`` and ``shared_attn``
-sub-blocks (xLSTM, zamba2), MLA attention, MoE, and cross-attention.
+The recurrent caches hold tuples (``{"mlstm": (C_hat, n_hat, m)}``,
+``{"slstm": (c, n, m, h)}``), each member stacked. ``apply_stack`` is a
+Python loop over the groups (the reference's ``lax.scan``). A decode step
+writes its key and value into the stacked cache tensors in place; a leaf a
+layer leaves in place is kept, any other is restacked. A mesh (the
+reference's sharding constraints) is refused with ``NotImplementedError``
+naming ROADMAP.md queue A item 8a.
 """
 from __future__ import annotations
 
@@ -28,8 +32,15 @@ from repro_torch.core import kmeans as _km
 from repro_torch.models import common
 from repro_torch.models.common import Ctx, Init, not_ported
 from repro_torch.models.layers import attention as attn
+from repro_torch.models.layers import mamba2 as m2
+from repro_torch.models.layers import mla as mla_mod
+from repro_torch.models.layers import moe as moe_mod
+from repro_torch.models.layers import xlstm as xl
 
-_ATTN_SUBS = ("block", "attn_local", "attn_global")
+_RECURRENT = ("mlstm", "slstm", "mamba2")
+# MLA's fixed geometry (the reference's init_subblock, l.89-91)
+MLA = {"q_lora_rank": 768, "kv_lora_rank": 256, "nope_head_dim": 64,
+       "rope_head_dim": 32, "v_head_dim": 64}
 
 
 # ---------------------------------------------------------------------------
@@ -52,19 +63,11 @@ def group_layout(cfg: ArchConfig) -> tuple[list[str], int]:
     return ["block"], cfg.num_layers
 
 
-def check_ported(cfg: ArchConfig) -> None:
-    """Raise for the families and parts outside the dense-attention
-    family."""
-    if cfg.family in ("moe", "ssm", "hybrid", "vlm", "audio"):
-        raise not_ported(f"the {cfg.family} family ({cfg.name})")
-    if cfg.attention == "mla":
-        raise not_ported(f"MLA attention ({cfg.name})")
-    if cfg.num_experts:
-        raise not_ported(f"MoE layers ({cfg.name})")
-    if cfg.cross_attention or cfg.frontend or cfg.learned_pos \
-            or cfg.encoder_layers:
-        raise not_ported(f"encoders, frontends and cross-attention "
-                         f"({cfg.name})")
+def check_ported(cfg: ArchConfig, mesh=None) -> None:
+    """Every family is served on one device; an LM over a mesh (``Engine(
+    mesh=...)``) raises."""
+    if mesh is not None:
+        raise not_ported(f"serving an LM over a mesh ({cfg.name})")
 
 
 # ---------------------------------------------------------------------------
@@ -72,20 +75,46 @@ def check_ported(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def init_subblock(ini: Init, cfg: ArchConfig, sub: str) -> dict:
-    check_ported(cfg)
-    if sub not in _ATTN_SUBS:
-        raise not_ported(f"the {sub} sub-block")
     d = cfg.d_model
-    params = {"norm_attn": common.norm_init(cfg.norm, d, ini),
-              "attn": attn.attn_init(ini, d, cfg.num_heads, cfg.num_kv_heads,
-                                     cfg.resolved_head_dim,
-                                     qkv_bias=cfg.qkv_bias)}
+    if sub in _RECURRENT:
+        norm = common.norm_init(cfg.norm, d, ini)
+        if sub == "mlstm":
+            core = xl.mlstm_init(ini, d, cfg.num_heads,
+                                 proj_factor=cfg.mlstm_proj_factor)
+        elif sub == "slstm":
+            core = xl.slstm_init(ini, d, cfg.num_heads)
+        else:
+            core = m2.mamba2_init(ini, d, expand=cfg.ssm_expand,
+                                  head_dim=cfg.ssm_head_dim,
+                                  d_state=cfg.ssm_state,
+                                  conv_width=cfg.ssm_conv_width)
+        return {"norm": norm, "core": core}
+
+    # attention (+MLP/MoE) transformer block
+    params = {"norm_attn": common.norm_init(cfg.norm, d, ini)}
+    if cfg.attention == "mla":
+        params["attn"] = mla_mod.mla_init(ini, d, cfg.num_heads, **MLA)
+    else:
+        params["attn"] = attn.attn_init(ini, d, cfg.num_heads,
+                                        cfg.num_kv_heads,
+                                        cfg.resolved_head_dim,
+                                        qkv_bias=cfg.qkv_bias)
     if cfg.post_norm:
         params["postnorm_attn"] = common.norm_init(cfg.norm, d, ini)
         params["postnorm_mlp"] = common.norm_init(cfg.norm, d, ini)
     params["norm_mlp"] = common.norm_init(cfg.norm, d, ini)
-    params["mlp"] = (common.mlp_init(ini, d, cfg.d_ff, kind=cfg.mlp_kind)
-                     if cfg.mlp_kind != "none" else {})
+    if cfg.num_experts:
+        params["mlp"] = moe_mod.moe_init(ini, d, cfg.d_ff, cfg.num_experts)
+    elif cfg.mlp_kind != "none":
+        params["mlp"] = common.mlp_init(ini, d, cfg.d_ff, kind=cfg.mlp_kind)
+    else:
+        params["mlp"] = {}
+    if cfg.cross_attention:
+        params["cross"] = attn.attn_init(ini, d, cfg.num_heads,
+                                         cfg.num_kv_heads,
+                                         cfg.resolved_head_dim,
+                                         qkv_bias=cfg.qkv_bias)
+        params["norm_cross"] = common.norm_init(cfg.norm, d, ini)
     return params
 
 
@@ -94,13 +123,38 @@ def _norm(cfg: ArchConfig, params, x, ctx):
 
 
 def apply_subblock(params, x: torch.Tensor, ctx: Ctx, cfg: ArchConfig,
-                   sub: str, *, positions=None, cache=None, causal=True):
+                   sub: str, *, positions=None, cache=None, cross_kv=None,
+                   causal=True):
     """Returns (x_out, new_cache, aux_loss)."""
     aux = torch.zeros((), device=x.device)
+    if sub in _RECURRENT:
+        h = _norm(cfg, params["norm"], x, ctx)
+        if sub == "mlstm":
+            y, nc = xl.mlstm(params["core"], h, ctx, num_heads=cfg.num_heads,
+                             chunk=cfg.ssm_chunk, cache=cache)
+        elif sub == "slstm":
+            y, nc = xl.slstm(params["core"], h, ctx, num_heads=cfg.num_heads,
+                             cache=cache)
+        else:
+            y, nc = m2.mamba2(params["core"], h, ctx,
+                              head_dim=cfg.ssm_head_dim,
+                              d_state=cfg.ssm_state,
+                              conv_width=cfg.ssm_conv_width,
+                              chunk=cfg.ssm_chunk, cache=cache)
+        return x + y, nc, aux
+
+    # transformer block
     h = _norm(cfg, params["norm_attn"], x, ctx)
     window = cfg.window_size if sub == "attn_local" else None
     rope_theta = None if cfg.learned_pos else cfg.rope_theta
-    if cfg.kmeans_attn and cache is None and causal:
+    if cfg.attention == "mla":
+        y, nc = mla_mod.mla_attention(
+            params["attn"], h, ctx, num_heads=cfg.num_heads,
+            nope_head_dim=MLA["nope_head_dim"],
+            rope_head_dim=MLA["rope_head_dim"],
+            v_head_dim=MLA["v_head_dim"], kv_lora_rank=MLA["kv_lora_rank"],
+            rope_theta=cfg.rope_theta, positions=positions, cache=cache)
+    elif cfg.kmeans_attn and cache is None and causal:
         y, nc = _routed_train_attention(params["attn"], h, ctx, cfg,
                                         rope_theta, positions)
     elif isinstance(cache, dict) and "centroids" in cache:
@@ -122,8 +176,19 @@ def apply_subblock(params, x: torch.Tensor, ctx: Ctx, cfg: ArchConfig,
     if cfg.post_norm:
         y = _norm(cfg, params["postnorm_attn"], y, ctx)
     x = x + y
+    if cross_kv is not None:
+        h = _norm(cfg, params["norm_cross"], x, ctx)
+        x = x + attn.cross_attention(params["cross"], h, cross_kv, ctx,
+                                     num_heads=cfg.num_heads,
+                                     num_kv_heads=cfg.num_kv_heads,
+                                     head_dim=cfg.resolved_head_dim)
     h = _norm(cfg, params["norm_mlp"], x, ctx)
-    if cfg.mlp_kind != "none":
+    if cfg.num_experts:
+        y, aux = moe_mod.moe(params["mlp"], h, ctx,
+                             num_experts=cfg.num_experts,
+                             top_k=cfg.experts_per_token, act=cfg.act,
+                             group_size=cfg.moe_group_size)
+    elif cfg.mlp_kind != "none":
         y = common.mlp(params["mlp"], h, ctx, kind=cfg.mlp_kind, act=cfg.act)
     else:
         y = torch.zeros_like(x)
@@ -260,20 +325,26 @@ def _ring_decode(p, h, ctx: Ctx, cfg: ArchConfig, cache: dict, rope_theta,
 # ---------------------------------------------------------------------------
 
 def tree_map(fn, tree):
-    """``fn`` on every tensor leaf of nested dicts."""
+    """``fn`` on every tensor leaf of nested dicts and tuples."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
 
 
 def init_stack(ini: Init, cfg: ArchConfig) -> dict:
-    """Params of the decoder stack (no embeddings): every leaf drawn once
-    with a leading axis of the G groups."""
-    check_ported(cfg)
+    """Params of the decoder stack (no embeddings): every leaf of the
+    groups drawn once with a leading axis of the G groups; zamba2's shared
+    block drawn once, unstacked, under ``"shared"``."""
     subs, n_groups = group_layout(cfg)
     gi = Init(ini.generator, (*ini.lead, n_groups))
-    return {"groups": {f"{i}_{sub}": init_subblock(gi, cfg, sub)
-                       for i, sub in enumerate(subs)}}
+    params = {"groups": {f"{i}_{sub}": init_subblock(gi, cfg, sub)
+                         for i, sub in enumerate(subs)
+                         if sub != "shared_attn"}}
+    if "shared_attn" in subs:
+        params["shared"] = init_subblock(ini, cfg, "shared_attn")
+    return params
 
 
 def _aliases(new: torch.Tensor, old: torch.Tensor) -> bool:
@@ -282,42 +353,53 @@ def _aliases(new: torch.Tensor, old: torch.Tensor) -> bool:
             and new.stride() == old.stride())
 
 
+def _stack_leaf(old, leaves: list):
+    """Stack one leaf's per-group values (a tensor, or a tuple of them)
+    over the groups. A tensor that every group's layer left in place (a
+    view of the stacked ``old``) keeps the stacked tensor; any other is
+    stacked anew."""
+    if isinstance(leaves[0], tuple):
+        return tuple(_stack_leaf(None if old is None else old[j],
+                                 [lf[j] for lf in leaves])
+                     for j in range(len(leaves[0])))
+    if old is not None and all(_aliases(t, old[g])
+                               for g, t in enumerate(leaves)):
+        return old
+    return torch.stack(leaves)
+
+
 def _restack(old: dict | None, per_group: list[dict]) -> dict:
-    """Stack one sub-block's per-group caches over the groups. A leaf that
-    every group's layer left in place (a view of the stacked ``old``
-    leaf) keeps the stacked tensor; any other leaf is stacked anew."""
-    out = {}
-    for name in per_group[0]:
-        leaves = [c[name] for c in per_group]
-        stacked = None if old is None else old.get(name)
-        if stacked is not None and all(
-                _aliases(t, stacked[g]) for g, t in enumerate(leaves)):
-            out[name] = stacked
-        else:
-            out[name] = torch.stack(leaves)
-    return out
+    """Stack one sub-block's per-group caches over the groups."""
+    return {name: _stack_leaf(None if old is None else old.get(name),
+                              [c[name] for c in per_group])
+            for name in per_group[0]}
 
 
 def apply_stack(params, x: torch.Tensor, ctx: Ctx, cfg: ArchConfig, *,
-                positions=None, caches=None, causal=True):
+                positions=None, caches=None, cross_kv=None, causal=True):
     """Run all groups. ``caches``: the stacked tree (leading group axis),
-    ``{key: {}}`` to build caches at prefill, or None. Returns (x,
-    new_caches, aux_loss)."""
-    check_ported(cfg)
+    with ``{}`` for an attention sub-block to build its cache at prefill,
+    or None. ``cross_kv``: whisper's per-group encoder keys and values
+    (``{key: {"k", "v"}}``, stacked). Returns (x, new_caches, aux_loss)."""
     subs, n_groups = group_layout(cfg)
     groups = params["groups"]
+    shared = params.get("shared")
     aux = torch.zeros((), device=x.device)
     new: dict[str, list] = {}
     for g in range(n_groups):
+        at = lambda t: t[g]                                # noqa: E731
         for i, sub in enumerate(subs):
             key = f"{i}_{sub}"
-            p = tree_map(lambda t: t[g], groups[key])
+            p = shared if sub == "shared_attn" else tree_map(at, groups[key])
             c = None
             if caches is not None and key in caches:
-                c = {n: t[g] for n, t in caches[key].items()}
+                c = tree_map(at, caches[key])
+            ck = None
+            if cross_kv is not None and key in cross_kv:
+                ck = tree_map(at, cross_kv[key])
             x, nc, a = apply_subblock(p, x, ctx, cfg, sub,
                                       positions=positions, cache=c,
-                                      causal=causal)
+                                      cross_kv=ck, causal=causal)
             if nc is not None:
                 new.setdefault(key, []).append(nc)
             aux = aux + a
@@ -325,6 +407,60 @@ def apply_stack(params, x: torch.Tensor, ctx: Ctx, cfg: ArchConfig, *,
     new_caches = {key: _restack(None if caches is None else caches.get(key),
                                 cs) for key, cs in new.items()}
     return x, (new_caches or None), aux
+
+
+def subblock_cache(cfg: ArchConfig, sub: str, batch: int, max_seq: int,
+                   dtype=torch.bfloat16, *, local_ring: bool = False,
+                   split_append: int = 0, device=None) -> dict:
+    """One sub-block's zero decode cache (no group axis), the reference's
+    ``init_cache.one`` (l.410-464)."""
+    hd, kh = cfg.resolved_head_dim, cfg.num_kv_heads
+
+    def z(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    if sub == "mamba2":
+        d_inner = cfg.ssm_expand * cfg.d_model
+        nh = d_inner // cfg.ssm_head_dim
+        return {"ssm": z(batch, nh, cfg.ssm_head_dim, cfg.ssm_state,
+                         dt=torch.float32),
+                "conv": z(batch, cfg.ssm_conv_width - 1,
+                          d_inner + 2 * cfg.ssm_state)}
+    if sub == "mlstm":
+        xl_hd = int(cfg.d_model * cfg.mlstm_proj_factor) // cfg.num_heads
+        f32 = torch.float32
+        return {"mlstm": (z(batch, cfg.num_heads, xl_hd, xl_hd, dt=f32),
+                          z(batch, cfg.num_heads, xl_hd, dt=f32),
+                          z(batch, cfg.num_heads, dt=f32))}
+    if sub == "slstm":
+        dh = cfg.d_model // cfg.num_heads
+        return {"slstm": tuple(z(batch, cfg.num_heads, dh, dt=torch.float32)
+                               for _ in range(4))}
+    if sub not in ("block", "attn_local", "attn_global", "shared_attn"):
+        raise ValueError(sub)
+    if cfg.attention == "mla":
+        return {"latent": z(batch, max_seq, MLA["kv_lora_rank"]),
+                "k_rope": z(batch, max_seq, MLA["rope_head_dim"]),
+                "pos": z(dt=torch.int32)}
+    if sub == "attn_local" and local_ring and max_seq > cfg.window_size:
+        w = cfg.window_size
+        return {"k": z(batch, w, kh, hd), "v": z(batch, w, kh, hd),
+                "pos": z(dt=torch.int32),
+                "ring": torch.ones((), dtype=torch.bool, device=device)}
+    out = {"k": z(batch, max_seq, kh, hd), "v": z(batch, max_seq, kh, hd),
+           "pos": z(dt=torch.int32)}
+    if split_append:
+        out.update(append_k=z(batch, split_append, kh, hd),
+                   append_v=z(batch, split_append, kh, hd),
+                   rlen=z(dt=torch.int32),
+                   blen=torch.full((), max_seq, dtype=torch.int32,
+                                   device=device))
+    return out
+
+
+def stack_groups(cache: dict, n_groups: int) -> dict:
+    """A sub-block's cache repeated over the G groups (a leading axis)."""
+    return tree_map(lambda t: t.expand(n_groups, *t.shape).clone(), cache)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
@@ -335,30 +471,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
     ``local_ring``: sliding-window layers get a ring buffer of
     ``window_size`` slots instead of a full-length cache (decode only:
     prefill builds full caches). ``split_append``: a frozen bulk plus an
-    append buffer of that many slots. ``device`` defaults to ``"cuda"``."""
-    check_ported(cfg)
+    append buffer of that many slots. The recurrent sub-blocks get their
+    zero states. ``device`` defaults to ``"cuda"``."""
     device = _km.resolve_device(device)
     subs, n_groups = group_layout(cfg)
-    hd, kh = cfg.resolved_head_dim, cfg.num_kv_heads
-
-    def z(*shape, dt=dtype):
-        return torch.zeros((n_groups, *shape), dtype=dt, device=device)
-
-    def one(sub):
-        if sub == "attn_local" and local_ring and max_seq > cfg.window_size:
-            w = cfg.window_size
-            return {"k": z(batch, w, kh, hd), "v": z(batch, w, kh, hd),
-                    "pos": z(dt=torch.int32),
-                    "ring": torch.ones((n_groups,), dtype=torch.bool,
-                                       device=device)}
-        out = {"k": z(batch, max_seq, kh, hd), "v": z(batch, max_seq, kh, hd),
-               "pos": z(dt=torch.int32)}
-        if split_append:
-            out.update(append_k=z(batch, split_append, kh, hd),
-                       append_v=z(batch, split_append, kh, hd),
-                       rlen=z(dt=torch.int32),
-                       blen=torch.full((n_groups,), max_seq,
-                                       dtype=torch.int32, device=device))
-        return out
-
-    return {f"{i}_{sub}": one(sub) for i, sub in enumerate(subs)}
+    return {f"{i}_{sub}": stack_groups(subblock_cache(
+        cfg, sub, batch, max_seq, dtype, local_ring=local_ring,
+        split_append=split_append, device=device), n_groups)
+        for i, sub in enumerate(subs)}

@@ -1,6 +1,6 @@
 """repro_torch.serve — the port's serving engines.
 
-  ServeConfig / Engine — LM serving of the dense-attention family: prefill
+  ServeConfig / Engine — LM serving of every architecture record: prefill
   and decode, dense or against the flash-kmeans clustered KV cache with
   incremental re-clustering (``serve/engine.py``).
   SearchConfig / SearchEngine — continuous-batching vector search over an
@@ -8,8 +8,7 @@
   with the reliability layer's health ladder, fault injection, WAL,
   snapshots and ``recover``.
 
-Not ported yet (ROADMAP.md, queue A item 8a): ``Engine`` over a mesh and
-the LM families outside the dense-attention one.
+Not ported yet (ROADMAP.md, queue A item 8a): ``Engine`` over a mesh.
 """
 from repro_torch.serve.engine import (Engine, SearchConfig, SearchEngine,
                                       ServeConfig)

@@ -1,16 +1,20 @@
 """Batched serving engines of the port.
 
 ``Engine`` and ``ServeConfig`` (port of ``repro/serve/engine.py`` l.47-167)
-serve an LM of the dense-attention family: prefill, then greedy or
-temperature decode, with an optional flash-kmeans clustered-KV mode. In
+serve an LM of any of the ten architecture records: prefill, then greedy
+or temperature decode, with an optional flash-kmeans clustered-KV mode. In
 clustered mode the engine
 
 1. runs the dense prefill,
-2. clusters every layer's cached keys with flash-kmeans and rebuilds the
-   cache in the bucketed (sort-inverse) layout: all G layer groups x B
-   sequences x KH kv heads in one batched fit
+2. clusters every attention layer's cached keys with flash-kmeans and
+   rebuilds the cache in the bucketed (sort-inverse) layout: all G layer
+   groups x B sequences x KH kv heads in one batched fit
    (``kmeans_attention.build_clustered_cache``), K = the prompt's
-   ``clustered_geometry``, capped at ``max(4, S // 8)``;
+   ``clustered_geometry``, capped at ``max(4, S // 8)``, where S is the
+   text's length even when phi-3-vision's patches come first in the cache
+   (as the reference, ``src/repro/serve/engine.py:133``); MLA's latents
+   and the recurrent states (Mamba2, xLSTM) stay dense, and a model with no
+   clustered cache left never flushes;
 3. decodes against the clustered cache; new tokens accumulate in a recent
    buffer of ``recent`` slots, and when it fills the engine re-clusters
    incrementally: one batched warm-start ``partial_fit`` over just the new
@@ -21,9 +25,10 @@ The flush schedule is a host counter, so a decode step reads nothing back
 from the device; the greedy token is ``argmax`` (the first index on ties),
 temperature sampling draws from a ``torch.Generator``. ``Engine`` runs on
 the device of the parameters it is given (``models.model.init_model``
-puts them on ``cuda`` unless asked for the CPU). Not ported yet (ROADMAP.md
-queue A item 8a): ``Engine`` over a mesh, and the families outside the
-dense-attention one (MLA, MoE, SSM, hybrid, VLM, audio), which refuse.
+puts them on ``cuda`` unless asked for the CPU). ``generate(...,
+frontend=)`` hands phi-3-vision's patches or whisper's frames to the
+prefill, and whisper's cross-KV to every decode. Not ported yet (ROADMAP.md
+queue A item 8a): ``Engine`` over a mesh, which refuses.
 
 ``SearchConfig`` and ``SearchEngine`` (port of l.169-714) serve the
 FlashIVF index on one device: continuous batching of ragged query traffic
@@ -105,7 +110,8 @@ from repro_torch.core.parallel import COLLECTIVE_FAULTS
 from repro_torch.kernels._build import KernelUnavailable
 from repro_torch.models import kmeans_attention as kma
 from repro_torch.models import model as M
-from repro_torch.models.common import Ctx, not_ported
+from repro_torch.models import transformer as T
+from repro_torch.models.common import Ctx
 from repro_torch.reliability.health import (HealthCounters, HealthPolicy,
                                             NonFiniteResult)
 from repro_torch.reliability.validate import guard_batch
@@ -158,8 +164,7 @@ class Engine:
 
     def __init__(self, cfg: ArchConfig, params: dict, scfg: ServeConfig,
                  mesh=None, compute_dtype=torch.float32):
-        if mesh is not None:
-            raise not_ported("Engine over a mesh")
+        T.check_ported(cfg, mesh)        # an Engine over a mesh refuses
         if scfg.mode not in ("dense", "clustered"):
             raise ValueError(f"unknown serving mode {scfg.mode!r}")
         self.cfg = cfg
@@ -171,12 +176,15 @@ class Engine:
 
     # ------------------------------------------------------------------
 
-    def _prefill(self, tokens: torch.Tensor):
+    def _prefill(self, tokens: torch.Tensor,
+                 frontend: torch.Tensor | None = None):
         return M.prefill(self.params, tokens, self.ctx, self.cfg,
-                         max_seq=self.scfg.max_seq)
+                         max_seq=self.scfg.max_seq, frontend=frontend)
 
-    def _decode(self, tok: torch.Tensor, caches: dict):
-        return M.decode_step(self.params, tok, caches, self.ctx, self.cfg)
+    def _decode(self, tok: torch.Tensor, caches: dict,
+                cross_kv: dict | None = None):
+        return M.decode_step(self.params, tok, caches, self.ctx, self.cfg,
+                             cross_kv=cross_kv)
 
     def _cluster_caches(self, caches: dict, seq_len: int) -> dict:
         """Convert dense prefill caches to the clustered layout: for each
@@ -217,10 +225,14 @@ class Engine:
         return caches
 
     def generate(self, tokens: torch.Tensor, steps: int, *,
+                 frontend: torch.Tensor | None = None,
                  generator: torch.Generator | None = None) -> torch.Tensor:
-        """tokens: (B, S) prompt -> (B, steps) int32 generated ids."""
+        """tokens: (B, S) prompt -> (B, steps) int32 generated ids.
+        ``frontend``: (B, F, D) patches (vlm) or frames (audio)."""
         tokens = torch.as_tensor(tokens).to(self.device)
-        logits, caches = self._prefill(tokens)
+        if frontend is not None:
+            frontend = torch.as_tensor(frontend).to(self.device)
+        logits, caches, cross = self._prefill(tokens, frontend)
         clustered = self.scfg.mode == "clustered"
         if clustered:
             caches = self._cluster_caches(caches, tokens.shape[1])
@@ -233,7 +245,7 @@ class Engine:
         since_flush = 0
         for _ in range(steps):
             out.append(tok)
-            logits, caches = self._decode(tok, caches)
+            logits, caches = self._decode(tok, caches, cross)
             if clustered:
                 since_flush += 1
                 if since_flush >= self.scfg.recent:

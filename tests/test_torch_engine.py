@@ -385,12 +385,14 @@ def test_launcher_serves_search_on_the_cpu(codec, capsys):
 @pytest.mark.parametrize("flags,item", [
     (["--mode", "dense", "--arch", "llama3-8b", "--reduced", "--mesh",
       "1x1"], "item 8a"),
-    (["--mode", "clustered", "--arch", "minicpm3-4b"], "item 8a"),
+    (["--mode", "clustered", "--arch", "minicpm3-4b", "--mesh", "1x1"],
+     "item 8a"),
     (["--mesh", "1x1", "--health"], None)])
 def test_launcher_refuses_what_is_not_ported(flags, item):
-    """LM serving over a mesh and the LM families outside the
-    dense-attention one (here MLA) wait for item 8a; the dense-attention
-    family serves (``tests/test_torch_lm_engine.py``). ``--mesh`` itself is
+    """LM serving over a mesh waits for item 8a, for every family (here
+    the dense-attention one and MLA); on one device every family serves
+    (``tests/test_torch_lm_engine.py``, ``tests/test_torch_zoo_engine.py``).
+    ``--mesh`` itself is
     ported (``test_launcher_serves_a_mesh_of_one``), with the paged store,
     q8 and the two-level router (``test_launcher_mesh_serves_the_6b_axes``)
     and, since item 6b, with its health policy (``item`` None: it

@@ -134,7 +134,7 @@ def test_cluster_caches_match_the_jax_engine(monkeypatch):
     want = jax.tree_util.tree_map(np.asarray, jeng._cluster_caches(jc, 40))
     teng = Engine(tcfg, tp, ServeConfig(max_seq=48, mode="clustered",
                                         recent=4))
-    _, tc = teng._prefill(torch.from_numpy(tokens))
+    _, tc, _ = teng._prefill(torch.from_numpy(tokens))
     got = bridge.caches_to_numpy(teng._cluster_caches(tc, 40))
     assert sorted(got) == sorted(want)
     for key in want:
