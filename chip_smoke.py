@@ -121,7 +121,17 @@ run and read just after:
   width and dbrx-132b cut to 2 layers, B 1, prompt 128, 16 steps: prefill
   and decode against the forward (MoE with one token a group; xLSTM block
   by block), and ``Engine`` in both modes. Its serving runs and the
-  full-depth engines count as main-path launches.
+  full-depth engines count as main-path launches;
+- training (``train_phase``, f32 masters, random weights): granite-moe-1b-
+  a400m at full width and depth through ``launch/train.py`` (B 2, S 4,096,
+  bfloat16 with remat, 20 steps, a checkpoint every 10; the loss must
+  fall), the fault contract at depth 2 (a fault at step 9 replayed, a
+  SIGTERM at step 6 resumed, both bit for bit an uninterrupted run),
+  llama3-8b with ``kmeans_attn`` at depth 2 and S 4,096 (kernels 1-3 on a
+  layer's keys and queries against their plain versions, the flash step
+  against the plain one, remat against none, 4 counted steps), and one
+  step of each other family at full width. Its training runs count as
+  main-path launches.
 
 Before the paths, the sort-inverse update, FlashLloyd and the store scan are
 held to their plain versions on edge shapes (one segment over every CTA, K >
@@ -159,7 +169,9 @@ change); ``--reliability-only`` runs the build and the reliability phase,
 ``--parallel-only`` the build and the parallel phase, ``--parallel-e-only``
 the build and that phase's part (e), ``--lm-only`` the build and the LM
 serving phase (details in ``chip_smoke_lm.json``), ``--zoo-only`` the build
-and the LM zoo phase (details in ``chip_smoke_zoo.json``). Details go to
+and the LM zoo phase (details in ``chip_smoke_zoo.json``), ``--train-only``
+the build and the training phase (details in ``chip_smoke_train.json``).
+Details go to
 ``chip_smoke.json`` in the repository's git-ignored output directory.
 """
 from __future__ import annotations
@@ -3500,6 +3512,7 @@ def xlstm_stack_check(params, cfg, ctx, toks, caches, p_len):
     from repro_torch.models import model as M
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import xlstm as xl
+    from repro_torch.utils.tree import tree_leaves
     subs, n_groups = T.group_layout(cfg)
     norm = common.norm_apply(cfg.norm)
     tol = ZOO_XL_STACK_TOL
@@ -3530,8 +3543,8 @@ def xlstm_stack_check(params, cfg, ctx, toks, caches, p_len):
         worst = max(worst, _allclose_excess(got, want, tol, tol))
     for key, c in mc.items():
         for g in range(n_groups):
-            for a, b in zip(M._leaves(T.tree_map(lambda t: t[g], c)),
-                            M._leaves(hand[g][key])):
+            for a, b in zip(tree_leaves(T.tree_map(lambda t: t[g], c)),
+                            tree_leaves(hand[g][key])):
                 worst = max(worst, _allclose_excess(a, b, tol, tol))
     return worst
 
@@ -3709,6 +3722,506 @@ def zoo_family(dev, arch, layers, ctx, gen, fam, runs, checks, zero_counts,
     return errs
 
 
+# ---- phase 15: training (pipeline, AdamW, loss_fn, Trainer, launch/train) --
+TRAIN_ARCH = "granite-moe-1b-a400m"
+# (a) full width and depth through launch/train.py: train_4k's sequence,
+# its batch of 256 cut to 2 for the smoke's time, not for memory: on one
+# H100, B 4 took 2,954.8 ms a step at a peak of 33.53 GiB and 129.8 s for
+# (a), B 2 1,566.4 ms, 26.94 GiB and 65.7 s
+TRAIN_A = {"batch": 2, "seq": 4096, "steps": 20, "ckpt_every": 10}
+# (b) the fault contract: the same config at depth 2, f32, the reference
+# test's schedule (tests/distributed/test_fault_tolerance.py:22-33)
+TRAIN_B = {"layers": 2, "batch": 1, "seq": 4096, "steps": 12,
+           "ckpt_every": 4, "fault": 9, "sigterm": 6}
+# (c) the routed train-time workload: llama3-8b with kmeans_attn, depth 2
+TRAIN_C = {"arch": "llama3-8b", "layers": 2, "batch": 1, "seq": 4096,
+           "steps": 4}
+# flash against ref where some ids differ: loss and |g_flash - g_ref| /
+# |g_ref|. Not set from a reading: no run on the card has had an id differ
+TRAIN_C_LOSS_RTOL = 1e-3
+TRAIN_C_GRAD_RTOL = 0.05
+# (d) one step of each other family at full width, B 1, bf16 with remat:
+# {arch: (config cuts, S)}. Depth cut so the f32 params, grads and moments
+# fit about 60 GiB (about 20 bytes a parameter with the bf16 copy and the
+# update's temporaries); dbrx's one layer of 16 experts alone is 3.26 G
+# parameters, so its experts are cut to 8 (top-4 kept). S 1,024 (576 of
+# phi-3-vision's are its patches), xLSTM's 256: its sLSTM loops over time
+# steps on the host (1,024 took 17.9 s, measured on one H100)
+TRAIN_D = {"dbrx-132b": ({"num_layers": 1, "num_experts": 8}, 1024),
+           "gemma2-27b": ({"num_layers": 2}, 1024),
+           "minicpm3-4b": ({"num_layers": 32}, 1024),
+           "phi-3-vision-4.2b": ({"num_layers": 20}, 1024),
+           "starcoder2-3b": ({"num_layers": 24}, 1024),
+           "whisper-base": ({}, 1024),
+           "xlstm-1.3b": ({"num_layers": 32}, 256),
+           "zamba2-7b": ({"num_layers": 39}, 1024)}
+
+
+def same_tree(a, b) -> bool:
+    """Every leaf of two trees equal bit for bit."""
+    from repro_torch.utils.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and x.dtype == y.dtype and same_bits(x, y)
+        for x, y in zip(la, lb))
+
+
+def tree_rel_diff(a, b) -> float:
+    """|a - b| / |b| over two lists of tensors (global norms)."""
+    num = sum(float(((x.float() - y.float()) ** 2).sum())
+              for x, y in zip(a, b))
+    den = sum(float((y.float() ** 2).sum()) for y in b)
+    return (num / max(den, 1e-30)) ** 0.5
+
+
+class _Capture:
+    """Records the routed attention's inputs and its clustering's outputs
+    while a forward runs (``kmeans_routed_attention``, ``cluster_keys``);
+    ``impl`` ("flash" or "ref") replaces the one each call was given."""
+
+    def __init__(self, kma, impl=None):
+        self.kma, self.impl, self.calls, self.fits = kma, impl, [], []
+
+    def __enter__(self):
+        kma = self.kma
+        self._routed, self._fit = kma.kmeans_routed_attention, kma.cluster_keys
+
+        def routed(q, k, v, **kw):
+            self.calls.append((q.detach(), k.detach(), v.detach(), kw))
+            if self.impl is not None:
+                kw = dict(kw, impl=self.impl)
+            return self._routed(q, k, v, **kw)
+
+        def fit(*a, **kw):
+            out = self._fit(*a, **kw)
+            self.fits.append(tuple(t.detach() for t in out))
+            return out
+        kma.kmeans_routed_attention, kma.cluster_keys = routed, fit
+        return self
+
+    def __exit__(self, *exc):
+        self.kma.kmeans_routed_attention = self._routed
+        self.kma.cluster_keys = self._fit
+
+
+def train_phase(dev, smi, zero_counts, read_counts, details):
+    """Phase 15: training through the port's entry points (f32 masters,
+    random weights from the seed):
+
+    (a) granite-moe-1b-a400m at full width and depth (24 layers, d_model
+        1,024, 32 experts top-8) through ``launch/train.py``'s ``main``: B
+        2, S 4,096, bf16 mixed precision with remat, 20 steps, a checkpoint
+        every 10; every loss finite and the mean of the last 3 below the
+        first 3; ms a step (CUDA events, median), tokens/s, the peak memory
+        and 6 N_active tokens / step time against the bf16 dense peak;
+    (b) the fault contract at depth 2, f32, B 1, S 4,096: 12 steps, a
+        checkpoint every 4; a fault at step 9 replays to the uninterrupted
+        run's params and AdamW state bit for bit; a SIGTERM at step 6 (the
+        handler's flag) leaves a checkpoint that a new trainer resumes to
+        the same state bit for bit;
+    (c) llama3-8b with ``kmeans_attn`` at full width, depth 2, B 1, S 4,096
+        (32 problems a layer of N 4,096, K 64, d 128; window 512, cap 128),
+        f32 with remat, 4 counted steps. Named checks: kernels 1-3 on layer
+        0's keys and queries against their plain versions
+        (``lm_kernel_checks``); each routed layer at ``impl="flash"`` and
+        ``impl="ref"`` on the flash step's own inputs, the differing ids
+        counted and the attention rows bit for bit where the query's
+        cluster agrees; the step's loss and grads at ``impl="flash"``
+        against ``impl="ref"``, bit for bit where every id agrees, else
+        within ``TRAIN_C_*``; remat against no remat, loss and grads bit
+        for bit;
+    (d) one ``make_train_step`` step (bf16, remat) of each other family at
+        full width, B 1 (``TRAIN_D``'s depth cuts and lengths): the loss
+        finite, the grad norm finite and > 0.
+
+    Returns the counted runs' launch counts ((a), (b), (c)'s steps, (d)),
+    the named checks' ``(name, counts)`` and ``{kernel: max abs err}``."""
+    import dataclasses
+    import gc
+    import math
+    import shutil
+    import signal
+    import statistics
+    import tempfile
+
+    import torch
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.data.pipeline import (DataConfig, SyntheticPipeline,
+                                           pipeline_for, put_batch)
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import kmeans_attention as kma
+    from repro_torch.models import model as M
+    from repro_torch.models.common import Ctx
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    rec = details.setdefault("train", {})
+    rec["card"] = smi
+    runs, checks, errs = [], [], {}
+    bf16_peak = PEAK["flash_assign"]["bfloat16"]
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    print(f"\n[train] {smi}; {base / 2**30:.2f} GiB allocated before; "
+          f"checkpoints under {root} "
+          f"({shutil.disk_usage(root).free / 2**30:.0f} GiB free)",
+          flush=True)
+    check(base < 2 ** 30, f"[train] phase 15 starts with the earlier phases' "
+                          f"tensors freed ({base / 2**30:.3f} GiB, < 1 GiB)")
+    try:
+        # ---- (a) granite-moe at full width and depth, launch/train.py ----
+        cfg = get_config(TRAIN_ARCH)
+        a = TRAIN_A
+        argv = ["--arch", TRAIN_ARCH, "--batch", str(a["batch"]),
+                "--seq", str(a["seq"]), "--steps", str(a["steps"]),
+                "--ckpt-every", str(a["ckpt_every"]), "--ckpt-keep", "1",
+                "--log-every", "1", "--seed", str(SEED),
+                "--ckpt-dir", str(root / "a")]
+        print(f"[train/a] {cfg.name}: {cfg.num_layers} layers, d_model "
+              f"{cfg.d_model}, {cfg.num_experts} experts top-"
+              f"{cfg.experts_per_token}, {cfg.n_params() / 1e9:.3f} G params "
+              f"({cfg.n_active_params() / 1e9:.3f} G active); B {a['batch']}"
+              f" (train_4k's 256 cut for time), S {a['seq']}, bf16 over f32 masters, "
+              f"remat", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        out = train_launch.main(argv)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        runs.append(counts)
+        peak = torch.cuda.max_memory_allocated()
+        losses = [loss for _, loss in out["losses"]]
+        ms = statistics.median(out["device_ms"])
+        tokens = a["batch"] * a["seq"]
+        flops = 6 * cfg.n_active_params() * tokens
+        ra = {"steps": out["final_step"], "losses": losses,
+              "device_ms": out["device_ms"], "step_s": out["step_s"],
+              "ms_median": ms, "tokens_per_s": tokens / (ms / 1e3),
+              "peak_bytes": peak, "wall_s": wall,
+              "n_params": out["n_params"],
+              "n_active": cfg.n_active_params(),
+              "model_flops_share": flops / (ms / 1e3) / bf16_peak,
+              "stragglers": out["stragglers"], "retries": out["retries"],
+              "launches": counts}
+        rec["a"] = ra
+        print(f"  {ms:.1f} ms a step (CUDA events, median of "
+              f"{len(out['device_ms'])}), {ra['tokens_per_s']:.0f} tokens/s,"
+              f" peak {peak / 2**30:.2f} GiB, 6 N_active tokens / step time "
+              f"= {ra['model_flops_share']:.3f} of the bf16 dense peak; "
+              f"{wall:.1f} s in all", flush=True)
+        first = statistics.mean(losses[:3])
+        last = statistics.mean(losses[-3:])
+        check(out["final_step"] == a["steps"] and len(losses) == a["steps"]
+              and all(math.isfinite(x) for x in losses)
+              and out["retries"] == 0,
+              f"[train/a] {a['steps']} steps, every loss finite "
+              f"({len(losses)} logged), no step replayed "
+              f"({out['retries']} retries)")
+        check(last < first, f"[train/a] the loss falls: the mean of the "
+                            f"last 3 {last:.4f} < the first 3 {first:.4f}")
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- (b) the fault contract at depth 2 ------------------------------
+        b_ = TRAIN_B
+        cfg_b = dataclasses.replace(cfg, num_layers=b_["layers"])
+
+        def trainer_b(d, total, hook=None):
+            params = M.init_model(cfg_b, seed=SEED, device=dev, max_pos=1024)
+            step_fn = make_train_step(cfg_b, compute_dtype=torch.float32,
+                                      remat=False)
+            pipe = SyntheticPipeline(DataConfig(
+                seed=1, vocab_size=cfg_b.vocab_size, batch=b_["batch"],
+                seq_len=b_["seq"]))
+            tr = Trainer(TrainerConfig(
+                total_steps=total, checkpoint_every=b_["ckpt_every"],
+                checkpoint_dir=str(root / d), keep=2), step_fn, pipe,
+                lambda batch: put_batch(batch, dev))
+            tr.fault_hook = hook
+            return tr, params, adamw.init(params)
+
+        t0 = time.perf_counter()
+        zero_counts()
+        tr, p, o = trainer_b("clean", b_["steps"])
+        clean, _ = tr.run(p, o)
+        runs.append(read_counts())
+        clean_ms = statistics.median(tr.device_ms)
+        shutil.rmtree(root / "clean")
+        armed = {"on": True}
+
+        def fault(step):
+            if step == b_["fault"] and armed["on"]:
+                armed["on"] = False
+                raise RuntimeError("injected node failure")
+
+        tr, p, o = trainer_b("fault", b_["steps"], fault)
+        faulty, _ = tr.run(p, o)
+        replay_ok = same_tree(clean, faulty)
+        check(tr.retries == 1 and replay_ok,
+              f"[train/b] a fault at step {b_['fault']} ({tr.retries} retry) "
+              f"replays from step 8 to the uninterrupted run's params and "
+              f"AdamW state bit for bit: {replay_ok}")
+        del faulty, tr, p, o
+        shutil.rmtree(root / "fault")
+
+        def term(step):
+            if step == b_["sigterm"]:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        tr, p, o = trainer_b("term", b_["steps"], term)
+        _, stopped = tr.run(p, o)
+        saved = tr.ckpt.latest_step()
+        del tr, p, o
+        tr, p, o = trainer_b("term", b_["steps"])
+        resumed, final = tr.run(p, o)
+        resume_ok = same_tree(clean, resumed)
+        check(stopped == b_["sigterm"] + 1 and saved == stopped
+              and final == b_["steps"] and resume_ok,
+              f"[train/b] SIGTERM at step {b_['sigterm']}: stopped at "
+              f"{stopped} with a checkpoint at {saved}; a new trainer "
+              f"resumed to step {final}, bit for bit the uninterrupted run: "
+              f"{resume_ok}")
+        rec["b"] = {"replay_bitwise": replay_ok, "sigterm_stop": stopped,
+                    "sigterm_ckpt": saved, "resume_bitwise": resume_ok,
+                    "ms_median": clean_ms,
+                    "seconds": time.perf_counter() - t0}
+        print(f"  (b) {clean_ms:.1f} ms a step at depth 2 f32; "
+              f"{rec['b']['seconds']:.1f} s", flush=True)
+        del clean, resumed, tr, p, o
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- (c) routed attention: llama3-8b with kmeans_attn -----------
+        c_ = TRAIN_C
+        cfg_c = dataclasses.replace(get_config(c_["arch"]),
+                                    num_layers=c_["layers"], kmeans_attn=True)
+        rc = rec.setdefault("c", {})
+        t0 = time.perf_counter()
+        params = M.init_model(cfg_c, seed=SEED + 40, device=dev,
+                              max_pos=1024)
+        pipe = SyntheticPipeline(DataConfig(
+            seed=SEED + 41, vocab_size=cfg_c.vocab_size, batch=c_["batch"],
+            seq_len=c_["seq"]))
+        batch0 = put_batch(pipe.batch_at(0), dev)
+        s = c_["seq"]
+        print(f"[train/c] {cfg_c.name} with kmeans_attn: {c_['layers']} "
+              f"layers at full width, B {c_['batch']}, S {s}: "
+              f"{c_['batch'] * cfg_c.num_heads} problems a layer of N {s}, "
+              f"K {cfg_c.kv_cluster_k}, d {cfg_c.resolved_head_dim}, window "
+              f"{min(cfg_c.window_size, max(32, s // 8))}, cap "
+              f"{max(8, int(s / cfg_c.kv_cluster_k * 2.0))}", flush=True)
+
+        ctx_c = Ctx(compute_dtype=torch.float32)
+
+        def loss_grads(impl, remat):
+            """The step's loss and grads; ``impl`` None is the model's own
+            choice (``"flash"`` on the card), else forced on every routed
+            layer."""
+            ps = tree_map(lambda t: t.detach().requires_grad_(True), params)
+            with _Capture(kma, impl=impl) as cap:
+                loss, _ = M.loss_fn(ps, batch0, ctx_c, cfg_c, remat=remat)
+                grads = torch.autograd.grad(loss, tree_leaves(ps))
+            return loss.detach(), grads, cap
+
+        zero_counts()
+        lf, gf, capf = loss_grads(None, True)
+        nl = c_["layers"]
+        impls = [kw["impl"] for *_, kw in capf.calls[:nl]]
+        check(impls == ["flash"] * nl,
+              f"[train/c] the model's routed layers take the kernels on the "
+              f"card: impl {impls}")
+        # the kernels on layer 0's keys and queries (the first fit's)
+        q0, k0 = capf.calls[0][0], capf.calls[0][1]
+        z = q0.shape[0] * q0.shape[2]
+        for name, x in (("keys", k0), ("queries", q0)):
+            xe = x.movedim(2, 1).reshape(z, s, -1).contiguous()
+            e = lm_kernel_checks(dev, xe, cfg_c.kv_cluster_k, 4,
+                                 rc.setdefault(name, {}),
+                                 tag=f"train/c {name}")
+            for kn, v in e.items():
+                errs[kn] = max(errs.get(kn, 0.0), v)
+        checks.append(("train/c flash step + kernel checks", read_counts()))
+
+        zero_counts()
+        lr_, gr_, _ = loss_grads("ref", True)
+        checks.append(("train/c ref step", read_counts()))
+
+        # every routed layer on the flash step's own q, k and v, at
+        # impl="flash" and at impl="ref" (each its own fit of the same
+        # keys): the rows whose query's cluster holds the same keys and
+        # queries under both are equal bit for bit
+        kc = cfg_c.kv_cluster_k
+        zero_counts()
+        layers = []
+        for qa, ka, va, kw in capf.calls[:nl]:
+            outs, fits = {}, {}
+            for impl in ("flash", "ref"):
+                with _Capture(kma, impl=impl) as cap, torch.no_grad():
+                    o = kma.kmeans_routed_attention(qa, ka, va, **kw)
+                outs[impl] = o.movedim(2, 1).reshape(z, s, -1)
+                fits[impl] = cap.fits[0]
+            qz = qa.movedim(2, 1).reshape(z, s, -1).float()
+            aq_f = ops.flash_assign_batched(qz, fits["flash"][0].float(),
+                                            want_dists=False)[0]
+            aq_r = ref.assign_ref(qz, fits["ref"][0].float())[0]
+            ak_f, ak_r = fits["flash"][1], fits["ref"][1]
+            # a cluster agrees when no key or query moved into or out of it
+            moved = torch.zeros((z, kc + 1), dtype=torch.bool, device=dev)
+            for fa_, fr_ in ((ak_f, ak_r), (aq_f, aq_r)):
+                diff = fa_ != fr_
+                for col in (fa_, fr_):
+                    moved.scatter_(1, torch.where(diff, col, kc).long(),
+                                   True)
+            rows_ok = (aq_f == aq_r) & (~moved[:, :kc]).gather(
+                1, aq_f.long())
+            eq = (outs["flash"] == outs["ref"]).all(-1)
+            layers.append({"key_ids_differ": int((ak_f != ak_r).sum()),
+                           "query_ids_differ": int((aq_f != aq_r).sum()),
+                           "rows_agree": int(rows_ok.sum()),
+                           "rows_bitwise": bool(eq[rows_ok].all())})
+            del outs, fits, eq
+        checks.append(("train/c flash vs ref, each layer's inputs",
+                       read_counts()))
+        n_ids = z * s
+        check(all(r["rows_bitwise"] for r in layers),
+              f"[train/c] flash vs ref on each routed layer's inputs: the "
+              f"attention rows equal bit for bit where the query's cluster "
+              f"agrees ({[r['rows_agree'] for r in layers]} of {n_ids} "
+              f"rows); (key, query) ids differing "
+              f"{[(r['key_ids_differ'], r['query_ids_differ']) for r in layers]}")
+        loss_rel = abs(float(lf) - float(lr_)) / abs(float(lr_))
+        grad_rel = tree_rel_diff(gf, gr_)
+        rc["flash_vs_ref"] = {"layers": layers, "ids_a_layer": n_ids,
+                              "loss_flash": float(lf), "loss_ref": float(lr_),
+                              "loss_rel": loss_rel, "grad_rel": grad_rel}
+        print(f"  flash vs ref: loss {float(lf):.6f} vs {float(lr_):.6f} "
+              f"(rel {loss_rel:.3g}), grads rel {grad_rel:.3g}", flush=True)
+        if not any(r["key_ids_differ"] or r["query_ids_differ"]
+                   for r in layers):
+            # layer 0's inputs are the same in both steps; with every id
+            # equal each layer hands the next the same bits
+            check(same_bits(lf, lr_) and all(
+                same_bits(x, y) for x, y in zip(gf, gr_)),
+                "[train/c] every id agrees on every layer, so the flash "
+                "step's loss and grads equal the ref step's bit for bit")
+        else:
+            # never reached on the card so far (every id agreed in every
+            # run): TRAIN_C_*'s bounds come from no reading
+            check(loss_rel <= TRAIN_C_LOSS_RTOL
+                  and grad_rel <= TRAIN_C_GRAD_RTOL,
+                  f"[train/c] flash vs ref with some ids differing: loss "
+                  f"rel {loss_rel:.3g} <= {TRAIN_C_LOSS_RTOL}, grads rel "
+                  f"{grad_rel:.3g} <= {TRAIN_C_GRAD_RTOL}")
+        del gr_
+
+        zero_counts()
+        ln, gn_, _ = loss_grads(None, False)
+        checks.append(("train/c no-remat step", read_counts()))
+        remat_ok = same_bits(lf, ln) and all(
+            same_bits(x, y) for x, y in zip(gf, gn_))
+        # remat's backward re-ran each layer's fit (in reverse layer order)
+        refit = capf.fits[nl:]
+        refit_ok = len(refit) == nl and all(
+            same_bits(f, g) for f, g in zip(capf.fits[:nl], refit[::-1]))
+        check(remat_ok and refit_ok,
+              f"[train/c] remat and no remat: the loss and every grad bit "
+              f"for bit ({float(lf):.6f}): {remat_ok}; the backward's "
+              f"recomputed clusters the forward's bit for bit: {refit_ok}")
+        rc["remat_bitwise"] = remat_ok
+        rc["refit_bitwise"] = refit_ok
+        del gf, gn_, capf, q0, k0
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the counted run: make_train_step, 4 steps
+        step_fn = make_train_step(cfg_c, compute_dtype=torch.float32,
+                                  remat=True)
+        opt = adamw.init(params)
+        ms_c, losses_c = [], []
+        zero_counts()
+        for step in range(c_["steps"]):
+            batch = put_batch(pipe.batch_at(step), dev)
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            params, opt, met = step_fn(params, opt, batch, step)
+            e1.record()
+            losses_c.append(met["loss"].item())
+            ms_c.append(e0.elapsed_time(e1))
+        counts = read_counts()
+        runs.append(counts)
+        rc.update(losses=losses_c, device_ms=ms_c, launches=counts,
+                  seconds=time.perf_counter() - t0)
+        print(f"  {c_['steps']} steps: losses {losses_c}, "
+              f"{statistics.median(ms_c):.1f} ms a step (median), launches "
+              f"{ {kn: v for kn, v in counts.items() if v} }", flush=True)
+        check(all(math.isfinite(x) for x in losses_c)
+              and counts["flash_assign"] > 0
+              and counts["sort_inverse_update"] + counts["flash_lloyd"] > 0,
+              f"[train/c] {c_['steps']} routed steps: losses finite, "
+              f"FlashAssign launched {counts['flash_assign']} times, the "
+              f"update or FlashLloyd {counts['sort_inverse_update']} + "
+              f"{counts['flash_lloyd']}")
+        del params, opt, step_fn, batch, batch0, met
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- (d) every other family, one step -----------------------------
+        rd = rec.setdefault("d", {})
+        for arch, (cut, seq) in TRAIN_D.items():
+            t0 = time.perf_counter()
+            cfg_d = dataclasses.replace(get_config(arch), **cut)
+            torch.cuda.reset_peak_memory_stats()
+            params = M.init_model(cfg_d, seed=SEED, device=dev,
+                                  max_pos=max(seq, 1024))
+            opt = adamw.init(params)
+            step_fn = make_train_step(cfg_d, compute_dtype=torch.bfloat16,
+                                      remat=True)
+            pipe = pipeline_for(cfg_d, ShapeSpec("train", seq, 1, "train"),
+                                seed=SEED)
+            batch = put_batch(pipe.batch_at(0), dev)
+            zero_counts()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            params, opt, met = step_fn(params, opt, batch, 0)
+            e1.record()
+            loss, gnorm = met["loss"].item(), met["grad_norm"].item()
+            counts = read_counts()
+            runs.append(counts)
+            n = M.n_elements(params)
+            rd[arch] = {"cut": cut, "seq": seq, "n_params": n, "loss": loss,
+                        "grad_norm": gnorm, "ms": e0.elapsed_time(e1),
+                        "peak_bytes": torch.cuda.max_memory_allocated(),
+                        "seconds": time.perf_counter() - t0}
+            print(f"  (d) {arch} {cut or 'uncut'}, S {seq}: {n / 1e9:.3f} G "
+                  f"params, "
+                  f"loss {loss:.4f}, grad norm {gnorm:.4f}, "
+                  f"{rd[arch]['ms']:.1f} ms, peak "
+                  f"{rd[arch]['peak_bytes'] / 2**30:.1f} GiB", flush=True)
+            check(math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0,
+                  f"[train/d] {arch} ({cut or 'full depth'}): one step, loss "
+                  f"{loss:.4f} finite, grad norm {gnorm:.4g} finite and > 0")
+            del params, opt, step_fn, batch, met
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["main_launches"] = {kn: sum(r[kn] for r in runs) for kn in runs[0]}
+    rec["check_launches"] = dict(checks)
+    rec["max_abs_err"] = errs
+    print(f"  phase {rec['seconds']:.1f} s; the training path's runs "
+          f"launched { {kn: v for kn, v in rec['main_launches'].items() if v} }",
+          flush=True)
+    return runs, checks, errs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -3724,7 +4237,10 @@ def main() -> int:
                     help="build and run the LM serving phase (13) only")
     ap.add_argument("--zoo-only", action="store_true",
                     help="build and run the LM zoo phase (14) only")
+    ap.add_argument("--train-only", action="store_true",
+                    help="build and run the training phase (15) only")
     args = ap.parse_args()
+    t_main = time.perf_counter()
     # the plain versions' score matrices take up to 32 GiB at a time, in
     # blocks of changing size: segments that grow keep the cache from
     # fragmenting between them
@@ -3947,6 +4463,18 @@ def main() -> int:
                   file=sys.stderr)
             return 1
         print("\nchip_smoke --zoo-only: all checks passed")
+        return 0
+    if args.train_only:   # phase 15 alone (train_phase)
+        train_phase(dev, smi, zero_counts, read_counts, details)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_train.json").write_text(
+            json.dumps(details["train"], indent=1))
+        if failures:
+            print(f"\nchip_smoke: {len(failures)} check(s) failed",
+                  file=sys.stderr)
+            return 1
+        print("\nchip_smoke --train-only: all checks passed")
         return 0
     if args.parallel_only or args.parallel_e_only:   # phase 12 or its (e)
         if args.parallel_e_only:
@@ -7136,6 +7664,16 @@ def main() -> int:
     for kname, err in zoo_errs.items():
         max_err[kname] = max(max_err[kname], err)
 
+    # ---- phase 15: training (train_phase) --------------------------------
+    train_runs, train_checks, train_errs = train_phase(
+        dev, smi, zero_counts, read_counts, details)
+    for counts in train_runs:
+        count_run(counts)
+    for name, counts in train_checks:
+        count_check(name, counts)
+    for kname, err in train_errs.items():
+        max_err[kname] = max(max_err[kname], err)
+
     # ---- phase 4: the kernel table ---------------------------------------
     main_shape = {"flash_assign": "largeN_smallK/float32",
                   "sort_inverse_update": "largeN_smallK/float32",
@@ -7248,6 +7786,9 @@ def main() -> int:
               f"{t['plain_ms']:.3f} ms{lib})")
     details["timing"] = timing
     details["failures"] = failures
+    details["seconds"] = time.perf_counter() - t_main
+    print(f"[smoke] {details['seconds']:.1f} s from its start to the end of "
+          f"its checks", flush=True)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(details, indent=1))

@@ -8,9 +8,10 @@
 - ``kmeans_attention``: the clustered KV cache and cluster-routed
   attention on the port's k-means kernels (ROADMAP.md queue A item 7);
 - ``transformer``: the grouped decoder stack (zamba2's shared block
-  stored once); ``model``: init, the encoder and frontends, prefill,
-  decode and the decode caches (dense, clustered);
+  stored once, ``remat`` per group); ``model``: init, the encoder and
+  frontends, the training loss, prefill, decode and the decode caches
+  (dense, clustered);
 - ``bridge``: the JAX package's weight and cache trees as numpy.
 
-Serving over a mesh and training wait for queue A items 8a and 8c.
+Serving and training over a mesh wait for queue A item 8a.
 """

@@ -204,8 +204,45 @@ def embed_init(ini: Init, vocab_padded: int, d: int) -> dict:
     return {"embedding": ini.normal((vocab_padded, d), 0.02)}
 
 
+class _GatherRows(torch.autograd.Function):
+    """``table[ids]`` whose backward sums each row's gradients in a fixed
+    order (``segment_sum_rows``): the gather's own backward accumulates
+    repeated ids with atomics on a CUDA device, in no fixed order."""
+
+    @staticmethod
+    def forward(fctx, table, ids):
+        fctx.save_for_backward(ids)
+        fctx.rows = table.shape[0]
+        return table.index_select(0, ids.reshape(-1)).reshape(
+            *ids.shape, *table.shape[1:])
+
+    @staticmethod
+    def backward(fctx, grad):
+        (ids,) = fctx.saved_tensors
+        g = grad.reshape(ids.numel(), -1)
+        out = segment_sum_rows(g, ids.reshape(-1), fctx.rows)
+        return out.reshape(fctx.rows, *grad.shape[ids.ndim:]), None
+
+
+def segment_sum_rows(rows: torch.Tensor, ids: torch.Tensor,
+                     n: int) -> torch.Tensor:
+    """(n, d): out[i] = the sum of ``rows[j]`` over ``ids[j] == i``, the same
+    bits from run to run. The rows sorted by id (a stable sort) are summed
+    by a float64 prefix sum, each segment's sum the difference of its ends,
+    rounded once to ``rows``' dtype; every id is written once."""
+    ids_sorted, order = torch.sort(ids.long(), stable=True)
+    cs = torch.cumsum(rows.index_select(0, order).double(), dim=0)
+    last = torch.ones_like(ids_sorted, dtype=torch.bool)
+    last[:-1] = ids_sorted[1:] != ids_sorted[:-1]
+    ends = cs[last]
+    sums = torch.cat([ends[:1], ends[1:] - ends[:-1]])
+    out = rows.new_zeros((n, rows.shape[1]))
+    out[ids_sorted[last]] = sums.to(rows.dtype)
+    return out
+
+
 def embed(params, tokens: torch.Tensor, ctx: Ctx) -> torch.Tensor:
-    return ctx.cast(params["embedding"][tokens.long()])
+    return ctx.cast(_GatherRows.apply(params["embedding"], tokens.long()))
 
 
 def unembed(params, x: torch.Tensor, ctx: Ctx, *,

@@ -39,8 +39,10 @@ The JAX semantics kept where torch differs: ``jnp.argsort`` is stable
 ``dynamic_update_slice`` clamps its start. The buckets and the recent buffer
 are written in place (``append_to_buckets``, ``clustered_decode_attention``,
 ``refresh_clustered_cache``): a caller that keeps the old cache clones it.
-Everything is forward only; where the reference has ``stop_gradient`` the
-port detaches.
+Where the reference has ``stop_gradient`` the port detaches: no gradient
+flows through the clustering, and ``kmeans_routed_attention`` is
+differentiable in q, k and v (its bucket writes are ``index_put_`` into
+fresh zero tensors, whose backward gathers the written rows).
 
 Approximation note: the k-means itself is exact Lloyd; the sparse attention
 built on it is approximate by design, and bucket overflow beyond
@@ -284,7 +286,8 @@ def kmeans_routed_attention(q: torch.Tensor, k: torch.Tensor,
                             impl: str = "flash",
                             c0: torch.Tensor | None = None) -> torch.Tensor:
     """Cluster-routed causal self-attention (Routing-Transformer style, the
-    paper's train-time online-kmeans workload), forward only.
+    paper's train-time online-kmeans workload), differentiable in q, k and
+    v; the keys' clustering and the queries' assignment are detached.
 
     Keys are clustered per (batch, head), all heads in one batched fit;
     each query attends exactly to (a) its local window and (b) the

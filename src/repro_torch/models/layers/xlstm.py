@@ -194,7 +194,9 @@ def slstm(params, x: torch.Tensor, ctx: Ctx, *, num_heads: int,
     pre = (x @ ctx.cast(params["w_gates"])
            + ctx.cast(params["b_gates"])).float()
     pre = pre.reshape(b, s, 4, num_heads, dh)
-    r = params["r_gates"]                               # (H, dh, 4dh)
+    # f32 like the carried h; a bfloat16 copy (mixed-precision training)
+    # widens, as the reference's einsum promotes it
+    r = params["r_gates"].float()                       # (H, dh, 4dh)
 
     if cache is not None and "slstm" in cache:
         c, n, m, h_prev = cache["slstm"]

@@ -2,7 +2,7 @@
 prefill/decode, including whisper's encoder and cross-attention and the
 stubbed phi-3-vision / audio frontends.
 
-Port of ``repro/models/model.py`` (l.30-98, 161-324). Decode modes:
+Port of ``repro/models/model.py`` (l.30-324). Decode modes:
 
   "dense"     — the standard per-layer KV cache
   "clustered" — the flash-kmeans clustered-KV sparse decode
@@ -15,8 +15,9 @@ Port of ``repro/models/model.py`` (l.30-98, 161-324). Decode modes:
 numbers differ from ``jax.random``'s, and ``models.bridge`` carries the JAX
 package's trees across. ``prefill`` returns the reference's ``(logits,
 caches, cross_kv)``; ``decode_step`` writes into the caches it is given in
-place and returns them. ``loss_fn`` (training) waits for ROADMAP.md queue
-A item 8c.
+place and returns them. ``loss_fn`` is the training objective: the masked
+next-token NLL plus ``0.01 *`` the MoE load-balancing loss, with the stack
+under ``remat`` (``transformer.apply_stack``).
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from repro_torch.models import common, transformer
 from repro_torch.models import kmeans_attention as kma
 from repro_torch.models.common import Ctx, Init
 from repro_torch.models.layers import attention as attn_mod
+from repro_torch.utils.tree import tree_leaves
 
 
 # ---------------------------------------------------------------------------
@@ -116,9 +118,9 @@ def _encoder_ctx(cfg, params, frames, ctx):
     for i, sub in enumerate(subs):
         key = f"{i}_{sub}"
         per = [attn_mod.build_cross_kv(
-            transformer.tree_map(lambda t: t[g], groups[key]["cross"]), x,
-            ctx, num_kv_heads=cfg.num_kv_heads,
-            head_dim=cfg.resolved_head_dim) for g in range(n_groups)]
+            cross, x, ctx, num_kv_heads=cfg.num_kv_heads,
+            head_dim=cfg.resolved_head_dim)
+            for cross in transformer.unstack(groups[key]["cross"], n_groups)]
         out[key] = {n: torch.stack([c[n] for c in per]) for n in ("k", "v")}
     return out
 
@@ -151,6 +153,38 @@ def forward(params, tokens: torch.Tensor, ctx: Ctx, cfg: ArchConfig, *,
         cross_kv=cross_kv)
     x = _final_norm(cfg, params, x, ctx)
     return _logits(cfg, params, x[:, n_front:], ctx)
+
+
+# ---------------------------------------------------------------------------
+# train forward / loss
+# ---------------------------------------------------------------------------
+
+def loss_fn(params, batch: dict, ctx: Ctx, cfg: ArchConfig, *,
+            remat: bool = True) -> tuple[torch.Tensor, dict]:
+    """batch: tokens (B, S_text) int, labels (B, S_text) int (-1 = pad),
+    the frontend (B, F, D) f32 stub embeddings or frames where the config
+    has one. Returns (loss, {"nll", "aux", "ntok"}): the NLL averaged over
+    the labels >= 0, plus 0.01 times the stack's aux loss."""
+    labels = batch["labels"]
+    x, cross_kv, n_front = _inputs(cfg, params, batch["tokens"], ctx,
+                                   batch.get("frontend"))
+    x = ctx.constrain(x, "dp", None, None)
+    x, _, aux = transformer.apply_stack(
+        params["stack"], x, ctx, cfg,
+        positions=None if cfg.learned_pos else _positions(x),
+        cross_kv=cross_kv, remat=remat)
+    x = _final_norm(cfg, params, x, ctx)
+    logits = _logits(cfg, params, x[:, n_front:], ctx)    # (B,S,Vpad) f32
+
+    valid = labels >= 0
+    lbl = torch.clamp(labels, min=0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lbl.unsqueeze(-1)).squeeze(-1)
+    nll = (logz - gold) * valid
+    ntok = torch.clamp(valid.sum(dtype=torch.int32), min=1)
+    mean_nll = nll.sum() / ntok
+    loss = mean_nll + 0.01 * aux
+    return loss, {"nll": mean_nll, "aux": aux, "ntok": ntok}
 
 
 # ---------------------------------------------------------------------------
@@ -231,23 +265,11 @@ def decode_step(params, token: torch.Tensor, caches: dict, ctx: Ctx,
     return _logits(cfg, params, x, ctx), caches
 
 
-def _leaves(tree):
-    """Leaves in JAX's order: dict keys sorted, tuples in order."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves(tree[k])
-    elif isinstance(tree, (tuple, list)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def _first_pos(caches) -> torch.Tensor:
     """The reference's ``_first_pos`` (l.256): the first 1-D int32 leaf in
     JAX's leaf order, its first entry. For a split dense cache that leaf is
     ``blen`` (sorted before ``pos``), as in the reference."""
-    for leaf in _leaves(caches):
+    for leaf in tree_leaves(caches):
         if leaf.ndim == 1 and leaf.dtype == torch.int32:
             return leaf[0]
     return torch.zeros((), dtype=torch.int32)

@@ -26,6 +26,7 @@ naming ROADMAP.md queue A item 8a.
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import kmeans as _km
@@ -36,6 +37,7 @@ from repro_torch.models.layers import mamba2 as m2
 from repro_torch.models.layers import mla as mla_mod
 from repro_torch.models.layers import moe as moe_mod
 from repro_torch.models.layers import xlstm as xl
+from repro_torch.utils.tree import tree_map
 
 _RECURRENT = ("mlstm", "slstm", "mamba2")
 # MLA's fixed geometry (the reference's init_subblock, l.89-91)
@@ -209,9 +211,11 @@ def _rope_at(q, k, pos, rope_theta):
 
 def _routed_train_attention(p, h, ctx: Ctx, cfg: ArchConfig, rope_theta,
                             positions):
-    """Train-time cluster-routed sparse attention (cfg.kmeans_attn),
-    forward only: flash-kmeans over keys per head, window + same-cluster
-    coverage, with the plain dataflows (``impl="ref"``) as the reference."""
+    """Train-time cluster-routed sparse attention (cfg.kmeans_attn):
+    flash-kmeans over keys per head, window + same-cluster coverage,
+    differentiable in q, k and v (the clustering detached). On a CUDA
+    tensor the fit and the queries' assignment run the kernels
+    (``impl="flash"``), on the CPU the plain dataflows (``impl="ref"``)."""
     from repro_torch.models import kmeans_attention as kma
     b, s, _ = h.shape
     q, k, v = attn.project_qkv(p, h, ctx, num_heads=cfg.num_heads,
@@ -225,10 +229,11 @@ def _routed_train_attention(p, h, ctx: Ctx, cfg: ArchConfig, rope_theta,
     groups = cfg.num_heads // cfg.num_kv_heads
     k = attn._expand_kv(k, groups)
     v = attn._expand_kv(v, groups)
+    impl = "flash" if h.is_cuda else "ref"
     o = kma.kmeans_routed_attention(
         q, k, v, clusters=cfg.kv_cluster_k,
         window=min(cfg.window_size, max(32, s // 8)),
-        scale=cfg.query_scale, impl="ref")
+        scale=cfg.query_scale, impl=impl)
     return attn.attn_out(p, o, ctx), None
 
 
@@ -324,15 +329,6 @@ def _ring_decode(p, h, ctx: Ctx, cfg: ArchConfig, cache: dict, rope_theta,
 # Full stack
 # ---------------------------------------------------------------------------
 
-def tree_map(fn, tree):
-    """``fn`` on every tensor leaf of nested dicts and tuples."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
-
-
 def init_stack(ini: Init, cfg: ArchConfig) -> dict:
     """Params of the decoder stack (no embeddings): every leaf of the
     groups drawn once with a leading axis of the G groups; zamba2's shared
@@ -375,22 +371,43 @@ def _restack(old: dict | None, per_group: list[dict]) -> dict:
             for name in per_group[0]}
 
 
+def unstack(tree, n_groups: int) -> list:
+    """The per-group trees of a stacked tree: every leaf unbound once over
+    its leading group axis. Each group's leaves are views, as ``t[g]``
+    would give; under autograd the unbind's backward is one ``stack`` of
+    the groups' gradients, where a ``t[g]`` per group would add a zero
+    tensor the size of the whole stacked leaf for each group."""
+    if isinstance(tree, dict):
+        per = {k: unstack(v, n_groups) for k, v in tree.items()}
+        return [{k: per[k][g] for k in tree} for g in range(n_groups)]
+    if isinstance(tree, (tuple, list)):
+        per = [unstack(v, n_groups) for v in tree]
+        return [type(tree)(p[g] for p in per) for g in range(n_groups)]
+    return list(tree.unbind(0))
+
+
 def apply_stack(params, x: torch.Tensor, ctx: Ctx, cfg: ArchConfig, *,
-                positions=None, caches=None, cross_kv=None, causal=True):
+                positions=None, caches=None, cross_kv=None, causal=True,
+                remat: bool = False):
     """Run all groups. ``caches``: the stacked tree (leading group axis),
     with ``{}`` for an attention sub-block to build its cache at prefill,
     or None. ``cross_kv``: whisper's per-group encoder keys and values
-    (``{key: {"k", "v"}}``, stacked). Returns (x, new_caches, aux_loss)."""
+    (``{key: {"k", "v"}}``, stacked). ``remat``: each group's forward runs
+    under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``
+    of the group body), its activations recomputed in the backward with
+    the RNG state it saw. Returns (x, new_caches, aux_loss)."""
     subs, n_groups = group_layout(cfg)
-    groups = params["groups"]
+    per_group = unstack(params["groups"], n_groups)
     shared = params.get("shared")
     aux = torch.zeros((), device=x.device)
     new: dict[str, list] = {}
-    for g in range(n_groups):
+
+    def group_body(g, x, aux):
         at = lambda t: t[g]                                # noqa: E731
+        ncs = {}
         for i, sub in enumerate(subs):
             key = f"{i}_{sub}"
-            p = shared if sub == "shared_attn" else tree_map(at, groups[key])
+            p = shared if sub == "shared_attn" else per_group[g][key]
             c = None
             if caches is not None and key in caches:
                 c = tree_map(at, caches[key])
@@ -401,9 +418,19 @@ def apply_stack(params, x: torch.Tensor, ctx: Ctx, cfg: ArchConfig, *,
                                       positions=positions, cache=c,
                                       cross_kv=ck, causal=causal)
             if nc is not None:
-                new.setdefault(key, []).append(nc)
+                ncs[key] = nc
             aux = aux + a
-        x = ctx.constrain(x, "dp", None, None)
+        return ctx.constrain(x, "dp", None, None), aux, ncs
+
+    for g in range(n_groups):
+        if remat:
+            x, aux, ncs = torch.utils.checkpoint.checkpoint(
+                group_body, g, x, aux, use_reentrant=False,
+                preserve_rng_state=True)
+        else:
+            x, aux, ncs = group_body(g, x, aux)
+        for key, nc in ncs.items():
+            new.setdefault(key, []).append(nc)
     new_caches = {key: _restack(None if caches is None else caches.get(key),
                                 cs) for key, cs in new.items()}
     return x, (new_caches or None), aux

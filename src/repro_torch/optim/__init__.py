@@ -1,2 +1,3 @@
-"""repro_torch.optim — compression of the statistics the parallel layer
-reduces over slow links (``optim.compression``)."""
+"""repro_torch.optim — AdamW (``optim.adamw``) and the compression of the
+statistics and gradients the parallel layer reduces over slow links
+(``optim.compression``)."""

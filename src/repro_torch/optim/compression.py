@@ -1,7 +1,8 @@
 """Statistics compression for slow (cross-pod) links.
 
-Port of ``quantize_int8``, ``dequantize_int8`` and
-``ef_quantized_allreduce`` of ``repro/optim/compression.py`` (l.30-70).
+Port of ``repro/optim/compression.py``: ``quantize_int8``,
+``dequantize_int8``, ``ef_quantized_allreduce``, and its tree form
+``ef_tree_allreduce`` with ``init_error_tree``.
 ``ef_quantized_allreduce`` is error-feedback int8 compression: each rank
 quantizes its residual-corrected contribution to int8 with per-block
 scales, the int8 payload and its f32 scales are all-gathered over one mesh
@@ -9,7 +10,8 @@ axis (``P * n`` bytes on the wire instead of the ``~8 n`` of an f32 ring
 all-reduce), and every rank dequantizes and sums them. The quantization
 error is fed back into the next call's input, so the scheme is unbiased
 over time. The distributed Lloyd loop uses it for the cross-pod ``(sums,
-counts)`` reduction (``ParallelContext.make_kmeans_fit(compress_pod_axis=)``).
+counts)`` reduction (``ParallelContext.make_kmeans_fit(compress_pod_axis=)``);
+``ef_tree_allreduce`` reduces a gradient tree the same way.
 
 The gather goes through the ``ParallelContext`` that owns the mesh (its
 ``all_gather``): this module calls no collective itself. The rounding and
@@ -21,6 +23,7 @@ import torch
 
 from repro_torch.core.quant8 import (dequantize_symmetric, quantize_symmetric,
                                      symmetric_scale)
+from repro_torch.utils.tree import tree_map
 
 BLOCK = 256
 
@@ -64,3 +67,19 @@ def ef_quantized_allreduce(x: torch.Tensor, err: torch.Tensor,
     for p in range(1, qg.shape[0]):
         total = total + dequantize_int8(qg[p], sg[p], x.shape)
     return total, new_err
+
+
+def ef_tree_allreduce(tree, err_tree, axis_name: str, *, pctx):
+    """``ef_quantized_allreduce`` on every leaf of a tree (nested dicts,
+    lists, tuples) with its residual in ``err_tree``. Returns (the tree of
+    sums, the tree of new residuals)."""
+    pairs = tree_map(lambda x, e: ef_quantized_allreduce(
+        x, e, axis_name, pctx=pctx), tree, err_tree)
+    pick = lambda i: tree_map(lambda _, p: p[i], tree, pairs)  # noqa: E731
+    return pick(0), pick(1)
+
+
+def init_error_tree(tree):
+    """Zero f32 residuals of ``tree``'s leaves' shapes."""
+    return tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
+                                          device=x.device), tree)

@@ -1,2 +1,2 @@
 """repro_torch.utils — logical-axis rules of the parallel layer
-(``utils.sharding``)."""
+(``utils.sharding``) and the tree helpers (``utils.tree``)."""

@@ -8,7 +8,8 @@ reductions) and ``"cells"`` (the centroid axis K: the two-stage argmin and
 the sharded FlashIVF), resolved onto a ``torch.distributed`` ``DeviceMesh``
 by ``core.parallel.ParallelContext.for_mesh``. The other names are the
 reference's LM rules, kept so that one table serves both; their resolvers
-(``resolve_spec``, ``named_tree``, ``constrain``) come with the trainer.
+(``resolve_spec``, ``named_tree``, ``constrain``) come with the mesh half
+of the LM path (ROADMAP.md, queue A item 8a).
 """
 from __future__ import annotations
 

@@ -1,13 +1,15 @@
 """One rank of the port's parallel-layer checks on the CPU (gloo).
 
     PYTHONPATH=src python tests/_torch_parallel_worker.py RANK WORLD STORE \
-        OUT [axes|reliability]
+        OUT [axes|reliability|ef_tree]
 
 Run WORLD copies at once (``tests/test_torch_parallel_ranks.py`` starts 4;
 with ``axes``, ``tests/test_torch_parallel_axes.py`` starts 4 that drive the
 sharded index's other axes instead, ``axes()``; with ``reliability``,
 ``tests/test_torch_parallel_reliability.py`` starts 4 that drive the sharded
-index's faults, refresh repairs, snapshots and engine, ``reliability()``):
+index's faults, refresh repairs, snapshots and engine, ``reliability()``;
+with ``ef_tree``, ``tests/test_torch_train_ef_tree.py`` starts 4 that
+reduce a gradient tree with error feedback, ``ef_tree()``):
 each rendezvouses through the ``FileStore`` at STORE, builds the meshes of
 the cases below, drives the port's multi-rank programs on the same global
 inputs (``inputs()``, made from numpy seeds) and writes what it got to
@@ -333,6 +335,56 @@ def reliability(rank: int, world: int, store: str, out: str) -> None:
     dist.destroy_process_group()
 
 
+def ef_tree(rank: int, world: int, store: str, out: str) -> None:
+    """``optim.compression.ef_tree_allreduce`` over the ``pod`` axis of a
+    2x2x1 ``pod x data x model`` mesh: a tree of three leaves (a dict in a
+    dict), each rank's own scaled copy of ``tree_inputs()``, three rounds
+    with the residuals fed back."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.parallel import ParallelContext, build_mesh
+    from repro_torch.optim import compression
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    pctx = ParallelContext.for_mesh(build_mesh(
+        (2, 2, 1), ("pod", "data", "model"), device_type="cpu"))
+    scale = 1.0 + pctx.axis_rank("pod") + 10.0 * pctx.axis_rank("data")
+    res = {"pod": np.array(pctx.axis_rank("pod")),
+           "data": np.array(pctx.axis_rank("data"))}
+    err = None
+    for i, tree in enumerate(tree_inputs()):
+        x = {"a": torch.from_numpy(tree["a"]) * scale,
+             "b": {"c": torch.from_numpy(tree["c"]) * scale,
+                   "d": torch.from_numpy(tree["d"]) * scale}}
+        if err is None:
+            err = compression.init_error_tree(x)
+        total, new_err = compression.ef_tree_allreduce(x, err, "pod",
+                                                       pctx=pctx)
+        for name, get in (("a", lambda t: t["a"]),
+                          ("c", lambda t: t["b"]["c"]),
+                          ("d", lambda t: t["b"]["d"])):
+            res[f"{i}/{name}/x"] = get(x).numpy()
+            res[f"{i}/{name}/err"] = get(err).numpy()
+            res[f"{i}/{name}/total"] = get(total).numpy()
+            res[f"{i}/{name}/new_err"] = get(new_err).numpy()
+        err = new_err
+    np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
+    dist.destroy_process_group()
+
+
+def tree_inputs() -> list:
+    """Three rounds of a small gradient tree (leaves of 256 + 1, 5 and 21
+    values: a ragged last block, a leaf under one block)."""
+    rng = np.random.default_rng(7)
+    return [{"a": (rng.standard_normal((257,)) * 10.0 ** p).astype(np.float32),
+             "c": rng.standard_normal((5,)).astype(np.float32),
+             "d": rng.standard_normal((3, 7)).astype(np.float32)}
+            for p in range(3)]
+
+
 def main(rank: int, world: int, store: str, out: str) -> None:
     import torch
     import torch.distributed as dist
@@ -458,6 +510,6 @@ def main(rank: int, world: int, store: str, out: str) -> None:
 
 
 if __name__ == "__main__":
-    run = {"axes": axes, "reliability": reliability}.get(
+    run = {"axes": axes, "reliability": reliability, "ef_tree": ef_tree}.get(
         (sys.argv[5:] or [""])[0], main)
     run(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])
