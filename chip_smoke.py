@@ -97,7 +97,7 @@ run and read just after:
   GQA 32/8 heads, d_ff 14,336, vocab 128,256; f32, random weights from the
   seed): ``kmeans_routed_attention`` at S 2,048 over 32 heads (one cluster
   equal to dense attention, 16 through FlashAssign); dense prefill of 128
-  tokens and 128 decode steps, each equal to the full forward; the clustered
+  tokens and 32 decode steps, each equal to the full forward; the clustered
   engine at B 4, prompt 2,048, 32 steps (kc 64, cap 128, two incremental
   re-clusters: every logit finite, the buckets' invariants) beside the dense
   engine; FlashAssign, the sort-inverse update and FlashLloyd at the
@@ -124,8 +124,8 @@ run and read just after:
   full-depth engines count as main-path launches;
 - training (``train_phase``, f32 masters, random weights): granite-moe-1b-
   a400m at full width and depth through ``launch/train.py`` (B 2, S 4,096,
-  bfloat16 with remat, 20 steps, a checkpoint every 10; the loss must
-  fall), the fault contract at depth 2 (a fault at step 9 replayed, a
+  bfloat16 with remat, 6 steps, a checkpoint at the 6th; the loss must
+  fall), the fault contract at depth 1 (a fault at step 9 replayed, a
   SIGTERM at step 6 resumed, both bit for bit an uninterrupted run),
   llama3-8b with ``kmeans_attn`` at depth 2 and S 4,096 (kernels 1-3 on a
   layer's keys and queries against their plain versions, the flash step
@@ -170,7 +170,9 @@ change); ``--reliability-only`` runs the build and the reliability phase,
 the build and that phase's part (e), ``--lm-only`` the build and the LM
 serving phase (details in ``chip_smoke_lm.json``), ``--zoo-only`` the build
 and the LM zoo phase (details in ``chip_smoke_zoo.json``), ``--train-only``
-the build and the training phase (details in ``chip_smoke_train.json``).
+the build and the training phase (details in ``chip_smoke_train.json``),
+``--mesh-lm-only`` the build and the LM-over-a-mesh phase 16 (details in
+``chip_smoke_mesh_lm.json``).
 Details go to
 ``chip_smoke.json`` in the repository's git-ignored output directory.
 """
@@ -1363,6 +1365,10 @@ REL_E = {"fp32/padded/flat": ({}, SEED + 20),
 E_ADDS, E_SNAP = 8, 4
 E_CHAOS_UNITS, E_CHAOS_EVERY = 16, 4
 E_DEAD_B, E_LOW_ROWS, E_QPS_REQUESTS = 64, 262144, 16
+# part (e)'s corpus: IVF's 1,048,576 rows cut to 262,144 for the smoke's
+# time (part (e) took 198.0 s at 1,048,576 rows and 55.5-65.4 s at 262,144
+# in whole smokes on one H100, PERF.md §6); K, d and every check unchanged
+E_N = 262144
 NAN_SEED, DEAD_SHARD = 9, 1
 # float arrays of a snapshot that a mesh of several data shards sums in
 # another order than one device (held within E_RTOL / E_ATOL there)
@@ -1372,12 +1378,12 @@ E_RTOL, E_ATOL = 1e-5, 1e-4
 
 
 def rel_corpus(dev, seed):
-    """Phase 11's corpus of one index (``seed``): ``(centres, x, x2, adds,
-    units, held, x_low)``: ``IVF[0]`` rows, an add of ``REL_ADD_ROWS``,
+    """Part (e)'s corpus of one index (``seed``): ``(centres, x, x2, adds,
+    units, held, x_low)``: ``E_N`` rows, an add of ``REL_ADD_ROWS``,
     the durability run's adds and units, a held-out batch, and
     ``E_LOW_ROWS`` rows around the lower half of the centres."""
     import torch
-    n, k, d = IVF
+    _, k, d = IVF
     gen = torch.Generator(device=dev).manual_seed(seed)
     centers = torch.randn(k, d, device=dev, generator=gen) * 5.0
 
@@ -1385,7 +1391,7 @@ def rel_corpus(dev, seed):
         lab = torch.randint(0, top, (rows,), device=dev, generator=gen)
         return centers[lab] + 0.4 * torch.randn(rows, d, device=dev,
                                                 generator=gen)
-    x = blobs(n)
+    x = blobs(E_N)
     x2 = blobs(REL_ADD_ROWS)
     adds = [blobs(REL_ADD_ROWS) for _ in range(E_ADDS)]
     units = [blobs(IVF_B) for _ in range(E_ADDS)]
@@ -1735,18 +1741,19 @@ def parallel_rank(rank, world, init_file, case, out_dir):
         "gloo", init_method=f"file://{init_file}", rank=rank,
         world_size=world, timeout=datetime.timedelta(seconds=PAR_TIMEOUT_S))
     try:
-        res = {"fits": _rank_fits, "ivf": _rank_ivf,
-               "axes": _rank_axes, "rel": _rank_rel}[case](rank, dev)
+        res = {"fits": _rank_fits, "ivf": _rank_ivf, "axes": _rank_axes,
+               "rel": _rank_rel, "mesh_lm": _rank_mesh_lm}[case](rank, dev)
     finally:
         dist.destroy_process_group()
-    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["peak_gib"] = max(torch.cuda.max_memory_allocated(), res.get(
+        "save_rise", {}).get("peak_before", 0)) / 2**30
     torch.save(res, Path(out_dir) / f"{case}{rank}.pt")
 
 
-def spawn_ranks(case, world):
+def spawn_ranks(case, world, join_s=PAR_JOIN_S):
     """Run ``parallel_rank`` on ``world`` spawned processes; join them
-    within ``PAR_JOIN_S`` (the group is killed past it). Returns ``(results
-    or None by rank, exit codes, seconds)``."""
+    within ``join_s`` (the group is killed past it). Returns ``(results or
+    None by rank, exit codes, seconds)``."""
     import multiprocessing as mp
     import shutil
     import tempfile
@@ -1761,7 +1768,7 @@ def spawn_ranks(case, world):
         for p in procs:
             p.start()
         for p in procs:
-            p.join(max(0.0, PAR_JOIN_S - (time.perf_counter() - t0)))
+            p.join(max(0.0, join_s - (time.perf_counter() - t0)))
     finally:
         for p in procs:
             if p.is_alive():
@@ -2196,7 +2203,7 @@ def rel_mesh_part(dev, smi, rec, runs, checks):
     root = tempfile.mkdtemp(prefix="chip_smoke_rel_mesh_")
     er = rec.setdefault("e", {"card": smi, "1x1": {}, "2x2": {}})
     got1, got2 = {}, {}   # the full results (tensors too), by index
-    n, k, d = IVF
+    n, (_, k, d) = E_N, IVF
     med = statistics.median
 
     def nonzero(d_):
@@ -2440,7 +2447,10 @@ def rel_mesh_part(dev, smi, rec, runs, checks):
 # Llama-3-8B at full width (configs/llama3_8b.py), f32 as the reference's
 # Engine computes, random weights from SEED
 LM_ARCH = "llama3-8b"
-LM_DENSE = (128, 128)    # check 2: prompt, tokens decoded one by one (B 1)
+# check 2: prompt, tokens decoded one by one (B 1); the steps cut 128 -> 32
+# for the smoke's time (83.4 ms a token at full depth in a whole smoke on
+# one H100: about 8 s saved)
+LM_DENSE = (128, 32)
 # check 3: depth cut to 4 layers; top = kc = 64 and a capacity factor of 66
 # (cap 2,176 >= 2,048 + 16 rows), so no row drops and every cluster is read
 LM_EXACT = {"layers": 4, "batch": 1, "prompt": 2048, "steps": 16,
@@ -2747,7 +2757,7 @@ def lm_phase(dev, smi, zero_counts, read_counts, details):
     (5) ``kmeans_routed_attention`` at B 1, S 2,048, 32 heads, hd 128:
         ``clusters=1`` equals ``dot_attention`` (rtol 1e-4, atol 1e-5);
         ``clusters=16`` routes its queries through FlashAssign;
-    (2) dense at full depth, B 1: prefill 128 tokens, decode 128 more one by
+    (2) dense at full depth, B 1: prefill 128 tokens, decode 32 more one by
         one; each step's logits equal the full forward's (rtol = atol =
         1e-3);
     (4) ``Engine(mode="clustered")`` at the config's geometry: B 4, prompt
@@ -3030,7 +3040,10 @@ def lm_phase(dev, smi, zero_counts, read_counts, details):
 # layers and 27 applications of one shared attention block, 32 heads of
 # 112), f32 as the reference's Engine computes, random weights from SEED
 ZOO_ARCH = "zamba2-7b"
-ZOO_DENSE = (128, 128)   # (1): prompt, steps (B 1); 256 tokens, one chunk
+# (1): prompt, steps (B 1), one chunk; the steps cut 128 -> 32 for the
+# smoke's time (166-178 ms a token at full depth in whole smokes on one
+# H100: about 16 s saved)
+ZOO_DENSE = (128, 32)
 ZOO_GEOM = {"batch": 4, "prompt": 2048, "steps": 32, "recent": 16}   # (2)
 # (4): depth cut to 2 groups (6 layers); top = kc and a capacity over every
 # row (cap 2,176 >= 2,048 + 16), so the shared block reads every key
@@ -3069,8 +3082,8 @@ def zoo_phase(dev, smi, zero_counts, read_counts, details):
     (a) zamba2-7b at full width and depth (d_model 3,584, 54 Mamba2 layers
         of d_inner 7,168 and state 64, one shared attention block of 32
         heads of 112 applied 27 times, d_ff 14,336; f32, random weights):
-        (1) dense, B 1: prefill 128 tokens, decode 128 more one by one,
-            each step's logits equal to the full forward's over 256 tokens
+        (1) dense, B 1: prefill 128 tokens, decode 32 more one by one,
+            each step's logits equal to the full forward's over 160 tokens
             (rtol = atol = 1e-3);
         (2) ``Engine(mode="clustered")`` at B 4, prompt 2,048, 32 steps,
             ``recent`` 16 (the shared block's 27 caches: 3,456 problems of
@@ -3728,10 +3741,15 @@ TRAIN_ARCH = "granite-moe-1b-a400m"
 # its batch of 256 cut to 2 for the smoke's time, not for memory: on one
 # H100, B 4 took 2,954.8 ms a step at a peak of 33.53 GiB and 129.8 s for
 # (a), B 2 1,566.4 ms, 26.94 GiB and 65.7 s
-TRAIN_A = {"batch": 2, "seq": 4096, "steps": 20, "ckpt_every": 10}
-# (b) the fault contract: the same config at depth 2, f32, the reference
+# (a)'s steps cut 20 -> 6, one checkpoint at the end, for the smoke's time
+# (1,688-1,868 ms a step and a 16 GB checkpoint every 10 in whole smokes
+# on one H100: (a) took 65.7 s at 20 steps, 46.2 s at 10, 36.3 s at 6)
+TRAIN_A = {"batch": 2, "seq": 4096, "steps": 6, "ckpt_every": 6}
+# (b) the fault contract: the same config at depth 1 (2 -> 1 for the
+# smoke's time: (b) took 44.5 s at depth 2 and 24.9 s at depth 1 in whole
+# smokes on one H100, most of it its checkpoints), f32, the reference
 # test's schedule (tests/distributed/test_fault_tolerance.py:22-33)
-TRAIN_B = {"layers": 2, "batch": 1, "seq": 4096, "steps": 12,
+TRAIN_B = {"layers": 1, "batch": 1, "seq": 4096, "steps": 12,
            "ckpt_every": 4, "fault": 9, "sigterm": 6}
 # (c) the routed train-time workload: llama3-8b with kmeans_attn, depth 2
 TRAIN_C = {"arch": "llama3-8b", "layers": 2, "batch": 1, "seq": 4096,
@@ -3810,11 +3828,11 @@ def train_phase(dev, smi, zero_counts, read_counts, details):
 
     (a) granite-moe-1b-a400m at full width and depth (24 layers, d_model
         1,024, 32 experts top-8) through ``launch/train.py``'s ``main``: B
-        2, S 4,096, bf16 mixed precision with remat, 20 steps, a checkpoint
-        every 10; every loss finite and the mean of the last 3 below the
+        2, S 4,096, bf16 mixed precision with remat, 6 steps, a checkpoint
+        at the 6th; every loss finite and the mean of the last 3 below the
         first 3; ms a step (CUDA events, median), tokens/s, the peak memory
         and 6 N_active tokens / step time against the bf16 dense peak;
-    (b) the fault contract at depth 2, f32, B 1, S 4,096: 12 steps, a
+    (b) the fault contract at depth 1, f32, B 1, S 4,096: 12 steps, a
         checkpoint every 4; a fault at step 9 replays to the uninterrupted
         run's params and AdamW state bit for bit; a SIGTERM at step 6 (the
         handler's flag) leaves a checkpoint that a new trainer resumes to
@@ -3929,7 +3947,7 @@ def train_phase(dev, smi, zero_counts, read_counts, details):
         gc.collect()
         torch.cuda.empty_cache()
 
-        # ---- (b) the fault contract at depth 2 ------------------------------
+        # ---- (b) the fault contract at depth 1 ------------------------------
         b_ = TRAIN_B
         cfg_b = dataclasses.replace(cfg, num_layers=b_["layers"])
 
@@ -3992,7 +4010,7 @@ def train_phase(dev, smi, zero_counts, read_counts, details):
                     "sigterm_ckpt": saved, "resume_bitwise": resume_ok,
                     "ms_median": clean_ms,
                     "seconds": time.perf_counter() - t0}
-        print(f"  (b) {clean_ms:.1f} ms a step at depth 2 f32; "
+        print(f"  (b) {clean_ms:.1f} ms a step at depth {b_['layers']} f32; "
               f"{rec['b']['seconds']:.1f} s", flush=True)
         del clean, resumed, tr, p, o
         gc.collect()
@@ -4222,6 +4240,686 @@ def train_phase(dev, smi, zero_counts, read_counts, details):
     return runs, checks, errs
 
 
+# ---- phase 16: the LM path over a mesh (utils.sharding on DTensor) ---------
+# Four ranks share the card over gloo (NCCL refuses two ranks on one GPU;
+# DTensor's collectives run through utils.sharding.use_list_collectives).
+# (a) Llama-3-8B at full width, depth 32 -> 2 (phase 13 serves it at full
+# depth on one device), dense and clustered on 2x2: its 8 kv heads over
+# "model" (the classic-TP decode specs); (b) starcoder2-3b at full width,
+# depth 30 -> 2, clustered on 1x4: 2 kv heads on a model axis of 4 (the
+# split-KV specs: clusters over "sp", head_dim over "mdl")
+MESH_SERVE = (("a", "llama3-8b", (2, 2), ("dense", "clustered")),
+              ("b", "starcoder2-3b", (1, 4), ("clustered",)))
+MESH_SERVE_SHAPE = {"layers": 2, "batch": 2, "prompt": 1024, "steps": 16,
+                    "recent": 16}
+# (c) make_train_step(mesh=) on 2x2 against one device's, f32 without TF32,
+# remat: llama3-8b with the routed attention (phase 15 (c)'s config) at
+# depth 2, and granite-moe-1b-a400m at full width, depth 24 -> 4 (its
+# experts over "tp"); B 2, S 1,024, 3 steps at a constant learning rate
+# (the first step's too): a trajectory of 2 from the initial params, then
+# the last step from one device's trajectory's end with a fresh optimizer
+# state (cut for the smoke's time: with a third trajectory step, which no
+# gate held that the last step does not, phase 16 took 298.3 s on one
+# H100)
+MESH_TRAIN = (("routed", "llama3-8b", {"kmeans_attn": True}, 2),
+              ("moe", "granite-moe-1b-a400m", {}, 4))
+MESH_TRAIN_SHAPE = {"batch": 2, "seq": 1024, "steps": 3, "lr": 1e-3}
+MESH_TOL = 1e-3          # the logits along the generated tokens, rtol = atol
+# a step's loss and the first moments it leaves from a fresh optimizer
+# state (0.1 x its gradient), relative, global norms, against one device's
+# step from the same params: the first step (from the initial params) and
+# the last (from one device's trajectory's end); where a routed id
+# differs from one device's in that step, phase 15 (c)'s TRAIN_C_LOSS_RTOL
+# and TRAIN_C_GRAD_RTOL instead
+MESH_TRAIN_RTOL = 1e-4
+# A trajectory drifts beyond rounding, on one device too: AdamW
+# divides each gradient by its own root mean square, so an element whose
+# gradient is near 0 takes a step of up to lr either way, and an MoE token
+# near a tie of its router goes to another expert. The witness measures
+# it: the same steps on one device on the batches with their rows
+# reversed, so that only the order of the sums changes. At lr 1e-3 it
+# moved granite-moe's params' change after 3 steps by 18% and its second
+# and third losses by 4e-4 and 7e-4 (one H100). So the trajectory's
+# params' change |p - p_one| /
+# |p_one - p0| is held within MESH_WITNESS_FACTOR x the witness's (set
+# before any reading of the witness), and its second loss is printed
+# beside the witness's; where a routed id moved, the witness, which moves
+# none, says nothing, and the change is printed only
+MESH_WITNESS_FACTOR = 3.0
+MESH_JOIN_S = 900        # the four ranks, killed past it
+
+
+def _mesh_cfg(arch, rep, layers):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, num_layers=layers, **rep)
+
+
+def _mesh_serve_inputs(cfg, dev):
+    """The serving runs' prompt (B, prompt) and config."""
+    import torch
+    from repro_torch.serve import ServeConfig
+    s = MESH_SERVE_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    toks = torch.randint(0, cfg.vocab_size, (s["batch"], s["prompt"]),
+                         generator=gen, device=dev)
+    scfg = lambda mode: ServeConfig(                          # noqa: E731
+        max_seq=s["prompt"] + s["steps"] + 8, mode=mode,
+        recent=s["recent"])
+    return toks, scfg
+
+
+def _mesh_train_setup(tag, arch, rep, layers, dev):
+    """(config, params, batches on the host, train step factory kwargs)."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.data.pipeline import pipeline_for
+    from repro_torch.models import model as M
+    t = MESH_TRAIN_SHAPE
+    cfg = _mesh_cfg(arch, rep, layers)
+    params = M.init_model(cfg, seed=SEED, device=dev, max_pos=1024)
+    pipe = pipeline_for(cfg, SHAPES["train_4k"], seed=SEED + 31,
+                        batch_override=t["batch"], seq_override=t["seq"])
+    batches = [pipe.batch_at(i) for i in range(t["steps"])]
+    return cfg, params, batches, lambda step: t["lr"]
+
+
+def _local_sq(tree, whole, mesh, dev):
+    """This rank's shares of sum((a - w)^2) and sum(w^2) over the leaves
+    of a placed tree against the whole tensors ``whole`` (on the host):
+    each local piece against the same slice of its whole tensor, divided
+    by the number of ranks holding a copy, so that the ranks' shares add
+    up to the global sums. No collective."""
+    import math
+    import torch
+    from repro_torch.utils import sharding as shd
+    from repro_torch.utils.tree import tree_leaves
+    num = den = 0.0
+    for leaf, w in zip(tree_leaves(tree), whole):
+        pl = list(leaf.placements)
+        copies = math.prod(mesh.size(i) for i, p in enumerate(pl)
+                           if p.is_replicate())
+        a = leaf.to_local().float()
+        w = shd.local_slice(w, mesh, pl).to(dev, torch.float32)
+        num += float(((a - w) ** 2).sum()) / copies
+        den += float((w ** 2).sum()) / copies
+        del a, w
+    return num, den
+
+
+class _KeyCapture:
+    """Records each ``cluster_keys`` call's keys and count while a run
+    goes (the clustered build's local problems on a rank)."""
+
+    def __init__(self, kma):
+        self.kma, self.keys = kma, []
+
+    def __enter__(self):
+        self._fit = self.kma.cluster_keys
+
+        def fit(keys, kc, **kw):
+            self.keys.append((keys.detach(), kc, kw.get("iters", 5)))
+            return self._fit(keys, kc, **kw)
+        self.kma.cluster_keys = fit
+        return self
+
+    def __exit__(self, *exc):
+        self.kma.cluster_keys = self._fit
+
+
+def _one_device_steps(tag, arch, rep, layers, dev, reverse=False,
+                      against=None):
+    """Phase 16 (c) on one device (``reverse``: each batch's rows
+    reversed): the trajectory, every step but the last from the initial
+    params, then the last step from the trajectory's end with a fresh
+    optimizer state. Returns the trajectory's losses, its end's params
+    and the first moments after its first step (on the host), |p - p0|^2,
+    |m1|^2 and the first step's routed ids, and ``tf``: the last step's
+    first moments (0.1 x its gradient), their |.|^2, its loss and routed
+    ids. ``against`` another such run: the trajectory's relative gaps to
+    it instead (the loss each step, the first moments, the params'
+    change), and no last step."""
+    import torch
+    from repro_torch.models import kmeans_attention as kma
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.utils.tree import tree_leaves
+    cfg, params, batches, lr = _mesh_train_setup(tag, arch, rep, layers, dev)
+    p0 = [t.detach().clone() for t in tree_leaves(params)]
+    opt = adamw.init(params)
+    step = make_train_step(cfg, compute_dtype=torch.float32, remat=True,
+                           lr_schedule=lr)
+    put = lambda b: {k: torch.from_numpy(  # noqa: E731
+        v[::-1].copy() if reverse else v).to(dev) for k, v in b.items()}
+    last = len(batches) - 1
+
+    def sq(pairs):    # sum((a - b)^2) in f64, leaf by leaf on the card
+        return sum(float(((a.to(dev) - (0 if b is None else b.to(dev)))
+                          .double() ** 2).sum()) for a, b in pairs)
+    losses, m1 = [], None
+    with _Capture(kma) as cap:
+        for i, b in enumerate(batches[:last]):
+            params, opt, mt = step(params, opt, put(b), i)
+            losses.append(float(mt["loss"]))
+            if i == 0:
+                m1 = [t.detach().clone() for t in tree_leaves(opt["m"])]
+        ids = [a.cpu() for _, a in cap.fits[:layers]]
+    del cap
+    pl = tree_leaves(params)
+    out = {"losses": losses, "m1_sq": sq((t, None) for t in m1),
+           "dp_sq": sq(zip(pl, p0))}
+    if against is not None:
+        out["gaps"] = {
+            "loss": [abs(a - b) / abs(b)
+                     for a, b in zip(losses, against["losses"])],
+            "m1": (sq(zip(m1, against["m1"])) / against["m1_sq"]) ** 0.5,
+            "dp": (sq(zip(pl, against["params"])) / against["dp_sq"]) ** 0.5}
+        del params, opt, step, p0, m1, pl
+        return out
+    out.update(params=[t.detach().to("cpu", copy=True) for t in pl],
+               m1=[t.to("cpu", copy=True) for t in m1], ids=ids)
+    del p0, m1, pl
+    # the last step from the trajectory's end with a fresh optimizer state
+    opt = adamw.init(params)
+    with _Capture(kma) as cap:
+        params, opt, mt = step(params, opt, put(batches[last]), last)
+    m_tf = tree_leaves(opt["m"])
+    out["tf"] = {"m": [t.to("cpu", copy=True) for t in m_tf],
+                 "m_sq": sq((t, None) for t in m_tf),
+                 "loss": float(mt["loss"]),
+                 "ids": [a.cpu() for _, a in cap.fits[:layers]]}
+    del params, opt, step, m_tf, cap
+    return out
+
+
+def _mesh_train_refs(dev, tmp):
+    """Phase 16 (c)'s one-device runs (``_one_device_steps``), saved under
+    ``tmp`` for the ranks, and the witness; returns what the checks read
+    (``_mesh_train_checks``)."""
+    import torch
+    ref_s = {}
+    for tag, arch, rep, layers in MESH_TRAIN:
+        one = _one_device_steps(tag, arch, rep, layers, dev)
+        # the witness: the same steps with each batch's rows reversed,
+        # so that only the order of the step's sums changes
+        wit = _one_device_steps(tag, arch, rep, layers, dev,
+                                reverse=True, against=one)
+        # 18 GB for the routed llama, written without the zip entries'
+        # CRC32 (where torch has the option): torch.load does not read it
+        crc = getattr(torch.serialization, "set_crc32_options", None)
+        if crc is not None:
+            crc(False)
+        try:
+            torch.save({k: one[k] for k in ("losses", "params", "m1", "ids",
+                                            "tf")}, tmp / f"train_{tag}.pt")
+        finally:
+            if crc is not None:
+                crc(True)
+        ref_s[tag] = {"losses": one["losses"], "dp_sq": one["dp_sq"],
+                      "m1_sq": one["m1_sq"], "witness": wit["gaps"],
+                      "tf_loss": one["tf"]["loss"],
+                      "tf_m_sq": one["tf"]["m_sq"]}
+        print(f"  (c {tag}) one device: the trajectory's losses "
+              f"{one['losses']}, the last step's from its end with a fresh "
+              f"optimizer state {one['tf']['loss']}; the witness (rows "
+              f"reversed): losses {wit['losses']}, gaps {wit['gaps']}",
+              flush=True)
+        del one, wit
+    return ref_s
+
+
+def _rank_mesh_train(rank, dev, meshes, tmp, zero, read, out):
+    """Phase 16 (c) on one rank: ``make_train_step(mesh=)`` on 2x2, every
+    step but the last from the initial params (the trajectory), the
+    checkpoint (granite-moe), and the last step from one device's
+    trajectory's end with a fresh optimizer state; into
+    ``out["train"]`` against the one-device runs under ``tmp``
+    (``_mesh_train_refs``)."""
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.core.parallel import ParallelContext
+    from repro_torch.data.pipeline import put_batch
+    from repro_torch.launch import specs as launch_specs
+    from repro_torch.models import kmeans_attention as kma
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.utils import sharding as shd
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    m = meshes[(2, 2)]
+
+    def ids_moved(cfg, fits, want):
+        """A step's routed ids (one fit a layer, (B H, S)) that differ from
+        one device's, by layer, on this rank's problems: sequences over
+        "data", heads over "model" where they divide them
+        (shd.problem_split); None without the routed attention."""
+        if not cfg.kmeans_attn:
+            return None
+        bsz, nh = MESH_TRAIN_SHAPE["batch"], cfg.num_heads
+        split = shd.problem_split(m, dp=bsz, tp=nh)
+        bi = m.get_local_rank("data") if split["dp"] else 0
+        hi = m.get_local_rank("model") if split["tp"] else 0
+        bl = bsz // (m.size(0) if split["dp"] else 1)
+        hl = nh // (m.size(1) if split["tp"] else 1)
+        return [int((a.cpu() != w.reshape(bsz, nh, -1)[
+            bi * bl:(bi + 1) * bl, hi * hl:(hi + 1) * hl].reshape(
+                a.shape)).sum()) for (_, a), w in zip(fits, want)]
+    for tag, arch, rep, layers in MESH_TRAIN:
+        cfg, params, batches, lr = _mesh_train_setup(tag, arch, rep, layers,
+                                                     dev)
+        params = shd.place_tree(params, M.model_specs(cfg), m)
+        opt = adamw.init(params)
+        step = make_train_step(cfg, m, compute_dtype=torch.float32,
+                               remat=True, lr_schedule=lr)
+        ref = torch.load(tmp / f"train_{tag}.pt", mmap=True)
+        losses, ms, comm, m1_sq = [], [], {}, None
+        last = len(batches) - 1
+        zero()
+        with _Capture(kma) as cap:
+            for i, b in enumerate(batches[:last]):
+                b = put_batch(b, dev, mesh=m)
+                shd.wire_bytes.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                # the collectives of step 2 (CommDebugMode costs host time)
+                with CommDebugMode() if i == 1 else \
+                        contextlib.nullcontext() as cdm:
+                    params, opt, mt = step(params, opt, b, i)
+                    loss = float(mt["loss"])
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(loss)
+                if i == 0:    # the first moments: 0.1 x the first gradient
+                    m1_sq = _local_sq(opt["m"], ref["m1"], m, dev)
+                if i == 1:
+                    comm = {"counts": {str(k): v for k, v in
+                                       cdm.get_comm_counts().items()},
+                            "bytes": dict(shd.wire_bytes)}
+        # this rank's share of |p - p_one|^2: the trajectory's end against
+        # one device's, its own pieces only
+        p_sq = _local_sq(params, ref["params"], m, dev)
+        ids_differ = ids_moved(cfg, cap.fits[:layers], ref["ids"])
+        out["train"][tag] = {
+            "losses": losses, "m1_sq": m1_sq, "p_sq": p_sq, "ms": ms,
+            "comm": comm, "ids_differ": ids_differ,
+            "placed": tree_map(lambda t: list(t.placements), params)
+            == shd.named_tree(shd.resolve_tree(M.model_specs(cfg), params,
+                                               m), m)}
+        if tag == "moe":
+            # a checkpoint written on 2x2, restored onto 1x4 (every rank)
+            # and onto one device (rank 0 alone: no collective there)
+            state = {"params": params, "opt": opt}
+            d = str(tmp / "ckpt")
+            # the save's rise over what the rank holds: one whole leaf at a
+            # time (gathered in pieces, then joined), never the whole state
+            torch.cuda.synchronize()
+            peak, held = (torch.cuda.max_memory_allocated(),
+                          torch.cuda.memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            Checkpointer(d, pctx=ParallelContext.for_mesh(m)).save(3, state)
+            torch.cuda.synchronize()
+            rise = torch.cuda.max_memory_allocated() - held
+            out["save_rise"] = {
+                "bytes": rise, "largest_leaf": max(
+                    t.numel() * t.element_size()
+                    for t in tree_leaves(state)),
+                "state": sum(t.numel() * t.element_size()
+                             for t in tree_leaves(state)),
+                "peak_before": peak}
+            whole = [shd.gather(t) for t in tree_leaves(state)]
+            other = meshes[(1, 4)]
+            _, psh, _, osh = launch_specs.abstract_state(cfg, other,
+                                                         max_pos=1024)
+            onto = Checkpointer(d, pctx=ParallelContext.for_mesh(
+                other)).restore(3, state, mesh=other,
+                                shardings={"params": psh, "opt": osh})
+            ok_mesh = all(torch.equal(shd.gather(a), b)
+                          for a, b in zip(tree_leaves(onto), whole))
+            ok_placed = tree_map(lambda t: list(t.placements),
+                                 onto["params"]) == psh
+            del onto
+            ok_one = None
+            if rank == 0:
+                meta = tree_map(lambda t: torch.empty(
+                    t.shape, dtype=t.dtype, device="meta"), state)
+                flat = Checkpointer(d).restore(3, meta, device=dev)
+                ok_one = all(not shd.is_dtensor(a) and torch.equal(a, b)
+                             for a, b in zip(tree_leaves(flat), whole))
+                del flat
+            out["ckpt"] = {"onto_1x4": ok_mesh, "placed_1x4": ok_placed,
+                           "onto_one_device": ok_one}
+            del whole, state
+        # the last step from one device's trajectory's end (each rank's
+        # pieces) with a fresh optimizer state: its loss and first moments
+        # (0.1 x the gradient) against one device's, where no trajectory's
+        # drift comes between
+        new = {id(t): w for t, w in zip(tree_leaves(params), ref["params"])}
+        params = tree_map(lambda t: shd.global_of(
+            shd.local_slice(new[id(t)], m, t.placements).to(
+                dev, copy=True).contiguous(), m, t.placements, t.shape),
+            params)
+        del new
+        opt = adamw.init(params)
+        with _Capture(kma) as cap:
+            b = put_batch(batches[last], dev, mesh=m)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, mt = step(params, opt, b, last)
+            loss = float(mt["loss"])
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out["train"][tag]["counts"] = read()
+        out["train"][tag]["tf"] = {
+            "loss": loss, "m_sq": _local_sq(opt["m"], ref["tf"]["m"], m, dev),
+            "ids_differ": ids_moved(cfg, cap.fits[:layers],
+                                    ref["tf"]["ids"])}
+        del params, opt, step, ref, cap
+        torch.cuda.empty_cache()
+
+
+def _rank_mesh_lm(rank, dev):
+    """Phase 16 on one of four ranks sharing the card: (a)-(b) serving, (c)
+    training and the checkpoint, (d) the launchers; every number against
+    the one-device references the parent saved under
+    ``CHIP_SMOKE_MESH_DIR``."""
+    import torch
+    from repro_torch.core.parallel import build_mesh
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import kmeans_attention as kma
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine
+    from repro_torch.utils import sharding as shd
+    tmp = Path(os.environ["CHIP_SMOKE_MESH_DIR"])
+    meshes = {shape: build_mesh(shape, ("data", "model"), backend="gloo")
+              for shape in ((2, 2), (1, 4))}
+    zero, read = launch_counters()
+    out = {"serve": {}, "train": {}}
+    s = MESH_SERVE_SHAPE
+
+    # (a), (b): Engine(mesh=) against the one-device engine
+    for tag, arch, shape, modes in MESH_SERVE:
+        m = meshes[shape]
+        cfg = _mesh_cfg(arch, {}, s["layers"])
+        params = M.init_model(cfg, seed=SEED, device=dev, max_pos=1024)
+        toks, scfg = _mesh_serve_inputs(cfg, dev)
+        ref = torch.load(tmp / f"serve_{tag}.pt")
+        for mode in modes:
+            eng = Engine(cfg, params, scfg(mode), mesh=m)
+            with _KeyCapture(kma) as cap:
+                torch.cuda.synchronize()
+                zero()
+                t0 = time.perf_counter()
+                got = eng.generate(toks, s["steps"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = read()
+            want = ref[mode]
+            # the forward along the reference's tokens, on the mesh
+            seq = torch.cat([toks, want["tokens"].to(dev)], 1)
+            with torch.no_grad():
+                logits = shd.gather(M.forward(
+                    eng.params, eng._put(seq, "tokens"), eng.ctx, cfg)
+                )[:, s["prompt"] - 1:].cpu()
+            excess = float(((logits - want["logits"]).abs() - MESH_TOL * (
+                1 + want["logits"].abs())).max())
+            r = {"tokens_equal": torch.equal(got.cpu(), want["tokens"]),
+                 "logit_excess": excess, "wall_s": wall,
+                 "ms_a_token": wall / s["steps"] * 1e3, "counts": counts,
+                 "problems": [tuple(k.shape) for k, _, _ in cap.keys]}
+            if cap.keys:      # the clustered build: kernels 1-3 held here
+                keys, kc, iters = cap.keys[0]
+                x = keys.reshape(-1, *keys.shape[-2:]).float().contiguous()
+                r["kernels"] = {}
+                lm_kernel_checks(dev, x, kc, iters, r,
+                                 tag=f"mesh/{tag}/{mode}/rank{rank}")
+            out["serve"][f"{tag}/{mode}"] = r
+            del eng, logits
+        del params
+        torch.cuda.empty_cache()
+
+    # (c): make_train_step(mesh=) against the one-device step
+    _rank_mesh_train(rank, dev, meshes, tmp, zero, read, out)
+
+    # (d): the launchers through their main, on the ranks (the reduced
+    # configs: (a)-(c) ran the full widths)
+    t0 = time.perf_counter()
+    tr = train_launch.main(["--arch", "llama3-8b", "--reduced", "--mesh",
+                            "2x2", "--steps", "3", "--batch", "4", "--seq",
+                            "64", "--log-every", "1", "--ckpt-every", "3",
+                            "--ckpt-dir", str(tmp / "launch_ckpt")])
+    sv = serve_launch.main(["--arch", "llama3-8b", "--reduced", "--mode",
+                            "clustered", "--mesh", "1x4", "--batch", "4",
+                            "--prompt-len", "64", "--gen", "8", "--recent",
+                            "4"])
+    out["launchers"] = {"train_losses": [v for _, v in tr["losses"]],
+                        "train_mesh": list(tr["mesh"]),
+                        "serve_ids": sv["ids"].cpu().tolist(),
+                        "seconds": time.perf_counter() - t0}
+    out["failures"] = list(failures)
+    torch.cuda.synchronize()
+    return out
+
+
+def _mesh_train_checks(res, ref_s, runs, rec, label):
+    """Phase 16 (c)'s checks on the ranks' results ``res`` against the
+    one-device runs' ``ref_s``; each rank's counted launches into
+    ``runs``, the readings into ``rec``."""
+    for tag, *_ in MESH_TRAIN:
+        rows = [out["train"][tag] for out in res]
+        one = ref_s[tag]
+        wit = one["witness"]
+        gaps = {
+            "loss": [max(abs(a - b) / abs(b) for a, b in
+                         zip([row["losses"][i] for row in rows],
+                             [one["losses"][i]] * len(rows)))
+                     for i in range(len(one["losses"]))],
+            # the ranks' shares of the global sums (_local_sq)
+            "m1": (sum(row["m1_sq"][0] for row in rows) / one["m1_sq"])
+            ** 0.5,
+            "dp": (sum(row["p_sq"][0] for row in rows) / one["dp_sq"])
+            ** 0.5}
+        for row in rows:
+            runs.append(row["counts"])
+        tf = [row["tf"] for row in rows]
+        gaps["tf_loss"] = max(abs(x["loss"] - one["tf_loss"])
+                              / abs(one["tf_loss"]) for x in tf)
+        gaps["tf_m"] = (sum(x["m_sq"][0] for x in tf) / one["tf_m_sq"]) ** 0.5
+        # a step is held to MESH_TRAIN_RTOL from the same params; where a
+        # routed id differs from one device's in it, as phase 15 (c) holds
+        # the flash step against the plain one
+        tols = lambda moved: ((TRAIN_C_LOSS_RTOL, TRAIN_C_GRAD_RTOL)  # noqa
+                              if moved else (MESH_TRAIN_RTOL,) * 2)
+        moved = any(any(row["ids_differ"] or ()) for row in rows)
+        tf_moved = any(any(x["ids_differ"] or ()) for x in tf)
+        (l0, g0), (l2, g2) = tols(moved), tols(tf_moved)
+        # the trajectory past its first step: held to MESH_WITNESS_FACTOR x
+        # the witness where no routed id moved (the witness moves none)
+        dtol = max(MESH_TRAIN_RTOL, MESH_WITNESS_FACTOR * wit["dp"])
+        ok = (gaps["loss"][0] <= l0 and gaps["m1"] <= g0
+              and gaps["tf_loss"] <= l2 and gaps["tf_m"] <= g2
+              and (moved or gaps["dp"] <= dtol))
+        check(ok and all(row["placed"] for row in rows),
+              f"[mesh_lm] (c {tag}) make_train_step(mesh=) on 2x2 at lr "
+              f"{MESH_TRAIN_SHAPE['lr']} against one device's step from the "
+              f"same params: the first step's loss rel {gaps['loss'][0]:.3g}"
+              f" <= {l0} and first moments (0.1 x the gradient) "
+              f"{gaps['m1']:.3g} <= {g0} (routed ids differing: {moved}); "
+              f"the last step's from one device's trajectory's end "
+              f"{gaps['tf_loss']:.3g}"
+              f" <= {l2} and {gaps['tf_m']:.3g} <= {g2} (routed ids "
+              f"differing: {tf_moved}); the trajectory's params' change |p - "
+              f"p_one| / |p_one - p0| {gaps['dp']:.3g} "
+              + ("(not held: routed ids moved, the witness moves none)"
+                 if moved else f"<= {dtol:.3g}")
+              + f"; every leaf at its resolved placements "
+              f"{[row['placed'] for row in rows]}")
+        # the trajectory's later losses, beside the witness's: one device
+        # against itself, its sums in another order (no gate: see
+        # MESH_WITNESS_FACTOR)
+        print(f"  (c {tag}) the trajectory's losses {rows[0]['losses']} vs "
+              f"one device's {one['losses']}: rel "
+              f"{[f'{g:.3g}' for g in gaps['loss']]}; the witness (one "
+              f"device, rows reversed): rel "
+              f"{[f'{g:.3g}' for g in wit['loss']]}, first moments "
+              f"{wit['m1']:.3g}, params' change {wit['dp']:.3g}", flush=True)
+        rec[f"train/{tag}/gaps"] = {"mesh": gaps, "witness": wit}
+        if rows[0]["ids_differ"] is not None:
+            print(f"  (c {tag}) routed ids differing from one device's, by "
+                  f"rank and layer: the first step "
+                  f"{[row['ids_differ'] for row in rows]}, the last from one "
+                  f"device's params {[x['ids_differ'] for x in tf]}",
+                  flush=True)
+            check(all(row["counts"]["flash_assign"] > 0 and
+                      row["counts"]["flash_lloyd"] > 0 for row in rows),
+                  f"[mesh_lm] (c {tag}) kernels 1-3 launched in each rank's "
+                  f"steps: {[{k: v for k, v in row['counts'].items() if v} for row in rows]}")
+        ms = [statistics.median(row["ms"][1:]) for row in rows]
+        print(f"  (c {tag}) {statistics.median(ms):.1f} ms a step (median "
+              f"of ranks; {label}); the collectives of step 2 on rank 0, as "
+              f"the gloo stand-in makes them (utils.sharding."
+              f"use_list_collectives: a reduce-scatter is an all-reduce "
+              f"there, an all-to-all a gather): {rows[0]['comm']}",
+              flush=True)
+        rec[f"train/{tag}"] = rows
+    sv = [out["save_rise"] for out in res]
+    check(all(x["bytes"] <= 3 * x["largest_leaf"] for x in sv),
+          f"[mesh_lm] (c) the checkpoint's save on 2x2 holds one whole leaf "
+          f"at a time: each rank's rise {[x['bytes'] for x in sv]} B <= 3 x "
+          f"the largest leaf's {sv[0]['largest_leaf']} B (the whole state "
+          f"{sv[0]['state']} B)")
+    rec["save_rise"] = sv
+    ck = [out["ckpt"] for out in res]
+    check(all(c["onto_1x4"] and c["placed_1x4"] for c in ck)
+          and ck[0]["onto_one_device"],
+          f"[mesh_lm] (c) a checkpoint written on 2x2, restored onto 1x4 "
+          f"(every rank, at the resolved placements) and one device (rank "
+          f"0) bit for bit the gathered state: {ck}")
+
+
+def mesh_lm_phase(dev, smi, zero_counts, read_counts, details):
+    """Phase 16: the LM path over a mesh. The one-device references run
+    here first (saved under a temp dir, freed before the spawn), then four
+    ranks share the card over gloo (``_rank_mesh_lm``): (a) Llama-3-8B
+    dense and clustered on 2x2 and (b) starcoder2-3b clustered on 1x4, the
+    greedy tokens equal to one device's and the logits along them within
+    ``MESH_TOL``, kernels 1-3 of each rank's clustered build (its own
+    problems) held to their plain versions there; (c) three train steps of
+    the routed llama3-8b and granite-moe on 2x2: the first step's loss and
+    first moments within ``MESH_TRAIN_RTOL`` of one device's, the last
+    step's from one device's trajectory's end too, the first two steps'
+    params' change within ``MESH_WITNESS_FACTOR`` x the one-device steps' own gap
+    with their batches' rows reversed (run here too), the routed ids that
+    differ from one device's counted, a
+    checkpoint written on 2x2 (one whole leaf at a time on each rank)
+    restored onto 1x4 and one device bit for bit; (d) ``launch/train.py --mesh 2x2``
+    and ``launch/serve.py --mesh 1x4 --mode clustered`` through their main.
+    Returns ``(runs, checks)``: each rank's counted runs' launches (the
+    mesh path), and nothing outside it."""
+    import gc
+    import math
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.common import Ctx
+    from repro_torch.serve import Engine
+    t_phase = time.perf_counter()
+    rec = details.setdefault("mesh_lm", {"card": smi})
+    # the references in memory (a tmpfs where there is one with room): the
+    # ranks read 21 GB of one-device params and first moments back
+    shm = "/dev/shm" if os.path.isdir("/dev/shm") and shutil.disk_usage(
+        "/dev/shm").free > 40 * 2**30 else None
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_lm_", dir=shm))
+    os.environ["CHIP_SMOKE_MESH_DIR"] = str(tmp)
+    s = MESH_SERVE_SHAPE
+    print(f"[mesh_lm] phase 16: {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB allocated at its start; references under {tmp} "
+          f"({shutil.disk_usage(tmp).free / 2**30:.1f} GiB free)", flush=True)
+    ref_s = {}
+    try:
+        # --- the one-device references
+        t0 = time.perf_counter()
+        for tag, arch, shape, modes in MESH_SERVE:
+            cfg = _mesh_cfg(arch, {}, s["layers"])
+            params = M.init_model(cfg, seed=SEED, device=dev, max_pos=1024)
+            toks, scfg = _mesh_serve_inputs(cfg, dev)
+            ctx = Ctx(compute_dtype=torch.float32, device=dev)
+            ref = {}
+            for mode in modes:
+                got = Engine(cfg, params, scfg(mode)).generate(toks,
+                                                               s["steps"])
+                with torch.no_grad():
+                    logits = M.forward(params, torch.cat([toks, got], 1),
+                                       ctx, cfg)[:, s["prompt"] - 1:]
+                ref[mode] = {"tokens": got.cpu(), "logits": logits.cpu()}
+                del logits
+            torch.save(ref, tmp / f"serve_{tag}.pt")
+            del params
+        ref_s = _mesh_train_refs(dev, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["reference_s"] = time.perf_counter() - t0
+        print(f"  one-device references {rec['reference_s']:.1f} s; "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+              f"before the spawn", flush=True)
+
+        # --- four ranks sharing the card
+        res, codes, secs = spawn_ranks("mesh_lm", 4, join_s=MESH_JOIN_S)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.environ.pop("CHIP_SMOKE_MESH_DIR", None)
+    rec["ranks_s"], rec["exit_codes"] = secs, codes
+    check(all(c == 0 for c in codes),
+          f"[mesh_lm] 4 ranks sharing the card over gloo exit 0 within "
+          f"{MESH_JOIN_S} s: {codes} in {secs:.1f} s")
+    runs = []
+    if not all(c == 0 for c in codes):
+        return runs, []
+    for r, out in enumerate(res):
+        for f in out["failures"]:
+            check(False, f"[mesh_lm rank {r}] {f}")
+    label = "ranks time-slicing one card over gloo"
+    for key in res[0]["serve"]:
+        rows = [out["serve"][key] for out in res]
+        clustered = key.endswith("clustered")
+        for r, row in enumerate(rows):
+            if clustered:
+                runs.append(row["counts"])
+        launched = [{k: v for k, v in row["counts"].items() if v}
+                    for row in rows]
+        check(all(row["tokens_equal"] for row in rows)
+              and all(row["logit_excess"] <= 0 for row in rows)
+              and (not clustered or all(
+                  row["counts"][k] > 0 for row in rows
+                  for k in ("flash_assign", "flash_lloyd"))),
+              f"[mesh_lm] ({key}) Engine(mesh=) greedy tokens == one "
+              f"device's on every rank: "
+              f"{[row['tokens_equal'] for row in rows]}; logits along them "
+              f"within rtol = atol = {MESH_TOL} (worst excess "
+              f"{max(row['logit_excess'] for row in rows):.3g}); kernels "
+              f"launched by rank {launched}")
+        print(f"  ({key}) generate {statistics.median(row['wall_s'] for row in rows):.2f} s, "
+              f"{statistics.median(row['ms_a_token'] for row in rows):.1f} "
+              f"ms a token with the prefill (median of ranks; {label}); "
+              f"local problems {rows[0]['problems']}", flush=True)
+        rec[key] = rows
+    _mesh_train_checks(res, ref_s, runs, rec, label)
+    la = [out["launchers"] for out in res]
+    check(all(x["train_losses"] == la[0]["train_losses"]
+              and x["serve_ids"] == la[0]["serve_ids"] for x in la)
+          and la[0]["train_mesh"] == [2, 2]
+          and all(map(math.isfinite, la[0]["train_losses"])),
+          f"[mesh_lm] (d) launch/train.py --mesh 2x2 (losses "
+          f"{la[0]['train_losses']}) and launch/serve.py --mesh 1x4 --mode "
+          f"clustered ran on every rank, the same on each")
+    peaks = [out["peak_gib"] for out in res]
+    rec["peak_gib"] = peaks
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"  peaks by rank {[round(p, 2) for p in peaks]} GiB; ranks "
+          f"{secs:.1f} s; phase 16 {rec['seconds']:.1f} s ({smi})",
+          flush=True)
+    return runs, []
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -4239,6 +4937,8 @@ def main() -> int:
                     help="build and run the LM zoo phase (14) only")
     ap.add_argument("--train-only", action="store_true",
                     help="build and run the training phase (15) only")
+    ap.add_argument("--mesh-lm-only", action="store_true",
+                    help="build and run the LM-over-a-mesh phase (16) only")
     args = ap.parse_args()
     t_main = time.perf_counter()
     # the plain versions' score matrices take up to 32 GiB at a time, in
@@ -4463,6 +5163,18 @@ def main() -> int:
                   file=sys.stderr)
             return 1
         print("\nchip_smoke --zoo-only: all checks passed")
+        return 0
+    if args.mesh_lm_only:   # phase 16 alone (mesh_lm_phase)
+        mesh_lm_phase(dev, smi, zero_counts, read_counts, details)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_mesh_lm.json").write_text(
+            json.dumps(details["mesh_lm"], indent=1, default=str))
+        if failures:
+            print(f"\nchip_smoke: {len(failures)} check(s) failed",
+                  file=sys.stderr)
+            return 1
+        print("\nchip_smoke --mesh-lm-only: all checks passed")
         return 0
     if args.train_only:   # phase 15 alone (train_phase)
         train_phase(dev, smi, zero_counts, read_counts, details)
@@ -5143,6 +5855,7 @@ def main() -> int:
         return rec
 
     # ---- phase 2a: ragged and degenerate shapes, every kernel ------------
+    print(f"[smoke] phase 2a starts at {time.perf_counter() - t_main:.1f} s", flush=True)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     print("\n[ragged shapes]", flush=True)
     for b, n, k, d in RAGGED:
@@ -5515,6 +6228,7 @@ def main() -> int:
                        f"||x||^2 pass): {big}")
 
     # ---- phases 2-3: per regime, compare, then drive the main path ------
+    print(f"[smoke] phases 2-3 starts at {time.perf_counter() - t_main:.1f} s", flush=True)
     for name, n, k, d, b, dt, iters in REGIMES:
         dtype = getattr(torch, dt)
         print(f"\n[{name}] N={n} K={k} d={d} B={b} {dt}, {iters} Lloyd "
@@ -6348,6 +7062,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # ---- phase 5: FlashIVF search at full width, fp32 and q8 -------------
+    print(f"[smoke] phase 5 starts at {time.perf_counter() - t_main:.1f} s", flush=True)
     # a generator of its own: the corpus does not depend on what the earlier
     # phases draw
     gen_ivf, centers, x, queries = ivf_corpus(dev)
@@ -6880,6 +7595,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 5b: the two-level router at K = 65,536 ---------------------
+    print(f"[smoke] phase 5b starts at {time.perf_counter() - t_main:.1f} s", flush=True)
     # the reference's routed regime at the serving width d = 128: fine
     # centroids around meta-centres (scale 8, unit noise), each cell's rows
     # its centroid plus 0.05 noise, added in chunks to IVFIndex(cent,
@@ -7070,6 +7786,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 6: full-probe exactness on a smaller index -----------------
+    print(f"[smoke] phase 6 starts at {time.perf_counter() - t_main:.1f} s", flush=True)
     gen_x = torch.Generator(device=dev).manual_seed(SEED + 5)
     n, k, d = EXACT
     centers = torch.randn(k, d, device=dev, generator=gen_x) * 5.0
@@ -7275,6 +7992,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 7: out-of-core Lloyd (ChunkedKMeans, paper §4.3) ----------
+    print(f"[smoke] phase 7 starts at {time.perf_counter() - t_main:.1f} s", flush=True)
     # a corpus logically larger than the card, streamed from a pool of
     # distinct pinned chunks (their repeats leave the statistics exact over
     # the logical multiset); the pool drawn on the card (seed 11), then
@@ -7411,6 +8129,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 8: streaming (StreamingKMeans) ----------------------------
+    print(f"[smoke] phase 8 starts at {time.perf_counter() - t_main:.1f} s", flush=True)
     k = STREAM_K
     sizes, gen_s, centers, drifting = drifting_stream(dev, d)
     print(f"\n[streaming] StreamingKMeans(k={k}, decay={STREAM_DECAY}, "
@@ -7510,6 +8229,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 9: the out-of-core IVF build (IVFIndex.build(chunk_size=))
+    print(f"[smoke] phase 9 starts at {time.perf_counter() - t_main:.1f} s", flush=True)
     n, k, d = OOC_IVF
     gen_b = torch.Generator(device=dev).manual_seed(13)
     centers = torch.randn(k, d, device=dev, generator=gen_b) * 5.0
@@ -7571,6 +8291,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 10: the planner: exhaustive tune, disk cache --------------
+    print(f"[smoke] phase 10 starts at {time.perf_counter() - t_main:.1f} s", flush=True)
     print(f"\n[planner] exhaustive_tune at largeN_smallK f32 {TUNE}; the "
           f"disk cache", flush=True)
     rep = autotune.exhaustive_tune(*TUNE, device=dev)
@@ -7625,11 +8346,13 @@ def main() -> int:
           f"measured one) with 0 chooser calls: {again.counters()}")
 
     # ---- phase 11: the reliability layer (reliability_phase) -------------
+    print(f"[smoke] phase 11 starts at {time.perf_counter() - t_main:.1f} s", flush=True)
     for store_kind, counts in reliability_phase(dev, smi, zero_counts,
                                                 read_counts, details):
         count_run(counts, store_kind == "paged")
 
     # ---- phase 12: the parallel layer (parallel_phase) -------------------
+    print(f"[smoke] phase 12 starts at {time.perf_counter() - t_main:.1f} s", flush=True)
     par_runs, par_checks = parallel_phase(dev, smi, zero_counts, read_counts,
                                           details)
     for counts, paged in par_runs:
@@ -7638,6 +8361,7 @@ def main() -> int:
         count_check(name, counts, paged)
 
     # ---- phase 13: LM serving (lm_phase) ------------------------------------
+    print(f"[smoke] phase 13 starts at {time.perf_counter() - t_main:.1f} s", flush=True)
     # what the earlier phases left on the card (14.3 GiB): the IVF phase's
     # gathered block and store arrays, indexes held by timing closures'
     # defaults, the regimes' inputs; phase 13 needs 45 GiB of its own
@@ -7655,6 +8379,7 @@ def main() -> int:
         max_err[kname] = max(max_err[kname], err)
 
     # ---- phase 14: the rest of the LM zoo (zoo_phase) --------------------
+    print(f"[smoke] phase 14 starts at {time.perf_counter() - t_main:.1f} s", flush=True)
     zoo_runs, zoo_checks, zoo_errs = zoo_phase(dev, smi, zero_counts,
                                                read_counts, details)
     for counts in zoo_runs:
@@ -7665,6 +8390,7 @@ def main() -> int:
         max_err[kname] = max(max_err[kname], err)
 
     # ---- phase 15: training (train_phase) --------------------------------
+    print(f"[smoke] phase 15 starts at {time.perf_counter() - t_main:.1f} s", flush=True)
     train_runs, train_checks, train_errs = train_phase(
         dev, smi, zero_counts, read_counts, details)
     for counts in train_runs:
@@ -7674,7 +8400,14 @@ def main() -> int:
     for kname, err in train_errs.items():
         max_err[kname] = max(max_err[kname], err)
 
+    # ---- phase 16: the LM path over a mesh (mesh_lm_phase) ---------------
+    print(f"[smoke] phase 16 starts at {time.perf_counter() - t_main:.1f} s", flush=True)
+    mesh_runs, _ = mesh_lm_phase(dev, smi, zero_counts, read_counts, details)
+    for counts in mesh_runs:
+        count_run(counts)
+
     # ---- phase 4: the kernel table ---------------------------------------
+    print(f"[smoke] phase 4 starts at {time.perf_counter() - t_main:.1f} s", flush=True)
     main_shape = {"flash_assign": "largeN_smallK/float32",
                   "sort_inverse_update": "largeN_smallK/float32",
                   "flash_lloyd": "smallN_smallK/float32",

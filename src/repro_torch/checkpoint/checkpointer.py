@@ -1,6 +1,6 @@
 """Async, device-agnostic checkpoints of nested tensor state.
 
-Port of ``repro/checkpoint/checkpointer.py`` for one device:
+Port of ``repro/checkpoint/checkpointer.py``:
 
 - one ``step_%08d.npz`` per step plus a JSON ``manifest.json`` (step,
   tree structure, keys, and each array's shape and dtype), both written
@@ -12,7 +12,17 @@ Port of ``repro/checkpoint/checkpointer.py`` for one device:
   form of ``jax.tree_util.keystr`` (``"['a']['b']"``, ``"[0]"``, dict keys
   sorted), so a checkpoint written by either package restores in the
   other. ``restore(step, like, device=)`` puts the leaves on ``device``
-  (``like``'s own device by default).
+  (``like``'s own device by default);
+- **sharded state** (``pctx=``, a ``core.parallel.ParallelContext`` over
+  the mesh): the DTensor leaves are gathered one at a time on every rank
+  (a collective), rank 0 alone copies each to the host before the next
+  is gathered, and writes, inside
+  ``ParallelContext.rank0_write`` (every rank returns once the files are
+  in place, or raises), so a save on a mesh is blocking. The files are the
+  one-device format. ``restore(..., mesh=, shardings=)`` puts each leaf
+  onto any mesh at the given placements (a ``like`` leaf that is a DTensor
+  gives its own by default), every rank reading the file and keeping its
+  slice.
 
 ``array_manifest`` and ``validate_arrays`` are the per-key shape/dtype
 records the IVF snapshot manifest (``reliability/snapshot.py``) shares.
@@ -29,6 +39,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch.utils import sharding as shd
 
 
 def _dtype_name(v) -> str:
@@ -126,9 +138,10 @@ def validate_arrays(expected: dict, arrays: dict, *, context: str) -> None:
 
 
 class Checkpointer:
-    def __init__(self, directory: str, *, keep: int = 3):
+    def __init__(self, directory: str, *, keep: int = 3, pctx=None):
         self.dir = directory
         self.keep = keep
+        self.pctx = pctx
         os.makedirs(directory, exist_ok=True)
         self._thread: threading.Thread | None = None
         self.last_save_seconds = 0.0
@@ -137,8 +150,20 @@ class Checkpointer:
 
     def save(self, step: int, state: Any, *, blocking: bool = False) -> None:
         t0 = time.perf_counter()
-        # device -> host here; the disk writes on the background thread
-        host = {k: _to_host(v) for k, v in _flatten(state).items()}
+        flat = _flatten(state)
+        if self.pctx is not None:
+            # one leaf at a time: every rank gathers it (a collective), rank
+            # 0 alone copies it to the host, and it is freed before the
+            # next, so a device holds one whole leaf beside its shards
+            host = {}
+            for k, v in flat.items():
+                whole = shd.gather(v)
+                if self.pctx.is_world_rank0:
+                    host[k] = _to_host(whole)
+                del whole
+        else:
+            # device -> host here; the disk writes on the background thread
+            host = {k: _to_host(v) for k, v in flat.items()}
         treedef = _treedef(state)
 
         def write():
@@ -156,6 +181,10 @@ class Checkpointer:
             self._gc()
 
         self.wait()
+        if self.pctx is not None:
+            self.pctx.rank0_write(write)
+            self.last_save_seconds = time.perf_counter() - t0
+            return
         self._thread = threading.Thread(target=write, daemon=True)
         self._thread.start()
         if blocking:
@@ -185,12 +214,16 @@ class Checkpointer:
             return None
         return int(ckpts[-1][len("step_"):-len(".npz")])
 
-    def restore(self, step: int, like: Any, *, device=None) -> Any:
+    def restore(self, step: int, like: Any, *, device=None, mesh=None,
+                shardings: Any = None) -> Any:
         """Restore into the structure of ``like``, each leaf a tensor on
         ``device`` (None: that ``like`` leaf's device, the CPU for an
         array). Validated before any leaf is built: every key ``like``
         asks for must exist, and where the manifest covers this step each
-        leaf's shape and dtype must match its record."""
+        leaf's shape and dtype must match its record. ``shardings`` (a tree
+        of placement lists like ``like``'s, on ``mesh``) reshards onto any
+        mesh; without it a DTensor leaf of ``like`` is restored at its own
+        mesh and placements."""
         self.wait()
         path = os.path.join(self.dir, f"step_{step:08d}.npz")
         flat_like = _flatten(like)
@@ -211,10 +244,39 @@ class Checkpointer:
                     validate_arrays(
                         {k: entries[k] for k in paths if k in entries},
                         flat_like, context=f"restore(step {step})")
+            flat_sh = {} if shardings is None else _flatten_placements(
+                shardings)
             leaves = {}
             for k in paths:
                 ref = flat_like[k]
                 dev = device if device is not None else (
                     ref.device if isinstance(ref, torch.Tensor) else "cpu")
-                leaves[k] = torch.as_tensor(data[k]).to(dev)
+                t = torch.as_tensor(data[k])
+                if k in flat_sh or shd.is_dtensor(ref):
+                    # this rank's slice, cut on the host
+                    m, pl = ((mesh, flat_sh[k]) if k in flat_sh
+                             else (ref.device_mesh, ref.placements))
+                    leaves[k] = shd.global_of(
+                        shd.local_slice(t, m, pl).contiguous().to(dev), m,
+                        pl, t.shape)
+                else:
+                    leaves[k] = t.to(dev)
         return _unflatten(like, leaves)
+
+
+def _flatten_placements(tree: Any) -> dict:
+    """A tree of placement lists flattened with the checkpoint's keys (a
+    placement list is a leaf)."""
+    out: dict = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], f"{path}[{k!r}]")
+        elif isinstance(t, tuple):
+            for i, v in enumerate(t):
+                walk(v, f"{path}[{i}]")
+        elif t is not None:
+            out[path] = t
+    walk(tree, "")
+    return out

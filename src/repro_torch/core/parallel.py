@@ -41,7 +41,12 @@ several data axes is one ``all_reduce`` a group in turn.
   context (``psum``, ``all_gather``, ``gather``; for files and decisions
   that every rank must share, ``rank0_write``, ``agree`` and ``all_ok``:
   rank 0 writes a file and every rank agrees that it is in place; an
-  outcome is agreed before any rank acts on it).
+  outcome is agreed before any rank acts on it). The one exception is the
+  LM path's DTensors: their redistributions (which DTensor carries out
+  with collectives) go through ``utils.sharding`` alone (``place``,
+  ``constrain``, ``gather``, ``local``, ``to_placements``), and so does
+  the gloo stand-in for DTensor's collectives on CUDA tensors
+  (``utils.sharding.use_list_collectives``, installed by ``build_mesh``).
 
 Backends are explicit (``build_mesh``): on ``"cuda"`` the default is NCCL,
 one rank a card; on ``"cpu"`` gloo. Ranks that share one card pass
@@ -147,6 +152,8 @@ def build_mesh(shape: Sequence[int], axes: Sequence[str], *,
     if math.prod(shape) != world:
         raise ValueError(f"mesh {shape} needs {math.prod(shape)} ranks; the "
                          f"world has {world}")
+    if device_type == "cuda" and dist.get_backend() == "gloo":
+        shu.use_list_collectives("cuda")   # ranks sharing a card
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
@@ -435,6 +442,14 @@ class ParallelContext:
         """True on every rank when ``ok`` is true on every rank."""
         return self.agree(ok)[0]
 
+    def any_of(self, flags: Sequence[bool]) -> list[bool]:
+        """Each flag true on every rank when it is true on some rank: one
+        MAX all-reduce of all the flags, read on the host."""
+        t = torch.tensor([1 if f else 0 for f in flags], dtype=torch.int32,
+                         device=self.device)
+        return [bool(v) for v in
+                self._reduce_all(t, dist.ReduceOp.MAX).tolist()]
+
     def rank0_write(self, write: Callable[[], object]) -> None:
         """``write()`` on rank 0 of the world alone, then its outcome agreed
         (``all_ok``, which is also the barrier): every rank returns once
@@ -516,11 +531,13 @@ class ParallelContext:
         so the ids equal single-device FlashAssign's. The merge compares
         the ``||x||^2``-free scores, whose argmin the kernel takes; the
         distance is the winner's score plus ``||x||^2``, clamped at 0.
-        Without a ``k_axis`` this is the single-device assignment."""
+        Without a ``k_axis``, or with one of a single rank (nothing to
+        merge), this is the single-device assignment, whose distances the
+        kernel computes: the same bits as one device's."""
         blk = cfg.blocks_for(x.shape[0], x.shape[1], x.element_size(),
                              x.device)
         c = c_local.to(x.dtype)
-        if self.k_axis is None:
+        if self.k_axis is None or self.axis_size(self.k_axis) == 1:
             a, m = _km._assign(x.unsqueeze(0), c.unsqueeze(0), cfg, blk)
             return a[0], m[0]
         if cfg.assign_impl == "flash":

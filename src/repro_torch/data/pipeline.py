@@ -8,9 +8,10 @@ makes a checkpoint restart bitwise reproducible). Tokens are drawn from a
 Zipfian distribution so MoE routing and the clustering see realistic skew
 rather than uniform noise.
 
-``put_batch`` places a host batch on one device; it replaces the
-reference's ``shard_batch``, and a mesh is refused (ROADMAP.md, queue A
-item 8a).
+``put_batch`` places a host batch on one device, or on a mesh (the
+reference's ``shard_batch``): every rank makes the same global batch from
+the same seed and keeps its own slice of it, by ``launch.specs``'
+``BATCH_SPECS``.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
-from repro_torch.models.common import not_ported
+from repro_torch.utils import sharding as shd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,13 +84,23 @@ def pipeline_for(arch: ArchConfig, shape: ShapeSpec, *, seed: int = 0,
 def put_batch(batch: dict, device, *, mesh=None) -> dict:
     """A host numpy batch as tensors on ``device`` (tokens and labels
     int32, the frontend f32); a copy to a CUDA device goes from pinned
-    memory without a host sync. A mesh raises ``NotImplementedError``."""
-    if mesh is not None:
-        raise not_ported("placing a training batch on a mesh")
+    memory without a host sync. On a mesh each leaf becomes a DTensor of
+    its ``BATCH_SPECS`` placements, the rank copying only its own slice of
+    the global batch it was given."""
+    from repro_torch.launch.specs import BATCH_SPECS
     dev = torch.device(device)
+    rules = None if mesh is None else shd.rules_for_mesh(mesh)
     out = {}
     for k, v in batch.items():
         t = torch.from_numpy(np.ascontiguousarray(v))
-        out[k] = (t.pin_memory().to(dev, non_blocking=True)
-                  if dev.type == "cuda" else t.to(dev))
+        pl = None
+        if mesh is not None:
+            pl = shd.placements(shd.resolve_spec(BATCH_SPECS[k], t.shape,
+                                                 mesh, rules), mesh)
+            t = shd.local_slice(t, mesh, pl).contiguous()
+        t = (t.pin_memory().to(dev, non_blocking=True)
+             if dev.type == "cuda" else t.to(dev))
+        if pl is not None:
+            t = shd.global_of(t, mesh, pl, v.shape)
+        out[k] = t
     return out

@@ -39,9 +39,14 @@ phi-3-vision's patches and whisper's frames (``frontend_seq`` rows of
 get ``--prompt-len + --gen + 64`` rows, as the reference's. The cache
 holds ``--prompt-len + --gen + 8`` slots, and phi-3-vision's patches
 besides (the reference's launcher leaves them out, and its prefill then
-refuses phi-3-vision). ``--mesh`` with
-an LM mode refuses with ``NotImplementedError`` (ROADMAP.md, queue A item
-8a).
+refuses phi-3-vision). ``--mesh DATAxMODEL`` serves the LM through
+``Engine(mesh=)`` over the world ``torchrun`` started (each rank draws the
+same params and prompts from ``--seed`` and keeps its slices; only rank 0
+prints):
+
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
+      -m repro_torch.launch.serve --arch llama3-8b --mode clustered \\
+      --mesh 1x4
 
 Search serving builds an index over a synthetic clustered corpus (Gaussian blobs made
 from ``--seed`` on the device: centres x5, noise 0.4, as the reference),
@@ -80,32 +85,25 @@ import time
 import torch
 
 
-def _not_ported(flag: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{flag} is not ported yet (ROADMAP.md, "
-                               f"queue A {item})")
-
-
-def _refuse_unported(args) -> None:
-    if args.mode != "search" and args.mesh is not None:
-        raise _not_ported(f"--mesh with --mode {args.mode} (Engine over a "
-                          "mesh)", "item 8a")
-
-
 def main(argv=None) -> dict:
     ap = _parser()
     args = ap.parse_args(argv)
-    _refuse_unported(args)
-    if args.mode != "search":
-        if not args.arch:
-            ap.error("--arch is required for dense/clustered serving")
-        return _serve_lm(args)
+    if args.mode != "search" and not args.arch:
+        ap.error("--arch is required for dense/clustered serving")
     if args.mesh is None:
+        if args.mode != "search":
+            return _serve_lm(args, None, print)
         return _serve_search(args, None, print)
     from repro_torch.core.kmeans import resolve_device
     from repro_torch.core.parallel import (ParallelContext, parse_mesh_flag,
                                            release_world)
     dev = resolve_device(args.device)
     try:
+        if args.mode != "search":
+            mesh = parse_mesh_flag(args.mesh, device_type=dev.type)
+            say = print if int(mesh.get_rank()) == 0 else \
+                (lambda *a, **k: None)
+            return _serve_lm(args, mesh, say)
         pctx = ParallelContext.for_mesh(parse_mesh_flag(
             args.mesh, device_type=dev.type))
         rank0 = int(pctx.mesh.get_rank()) == 0
@@ -116,8 +114,9 @@ def main(argv=None) -> dict:
         release_world()
 
 
-def _serve_lm(args) -> dict:
-    """Prefill + decode through ``Engine``; returns the ids and times."""
+def _serve_lm(args, mesh, say) -> dict:
+    """Prefill + decode through ``Engine`` (over ``mesh`` if one is given);
+    returns the ids and times."""
     from repro_torch.configs import get_config
     from repro_torch.core.kmeans import resolve_device
     from repro_torch.models import model as M
@@ -138,7 +137,7 @@ def _serve_lm(args) -> dict:
                     ServeConfig(max_seq=patches + args.prompt_len + args.gen
                                 + 8,
                                 mode=args.mode, recent=args.recent,
-                                temperature=args.temperature))
+                                temperature=args.temperature), mesh=mesh)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=dev)
@@ -158,12 +157,13 @@ def _serve_lm(args) -> dict:
     tok_s = args.batch * args.gen / dt
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu (the kernels' plain versions)")
-    print(f"arch={cfg.name} mode={args.mode} batch={args.batch} "
-          f"prompt={args.prompt_len} gen={args.gen}")
-    print(f"on {name}: {M.n_elements(params)} parameters, "
-          f"{engine.recluster_count} incremental re-clusters")
-    print(f"wall {dt:.2f}s -> {tok_s:.1f} tok/s")
-    print("sample ids:", out[0, :16].tolist())
+    say(f"arch={cfg.name} mode={args.mode} batch={args.batch} "
+        f"prompt={args.prompt_len} gen={args.gen}"
+        + ("" if mesh is None else f" mesh={tuple(mesh.shape)}"))
+    say(f"on {name}: {M.n_elements(params)} parameters, "
+        f"{engine.recluster_count} incremental re-clusters")
+    say(f"wall {dt:.2f}s -> {tok_s:.1f} tok/s")
+    say("sample ids:", out[0, :16].tolist())
     return {"ids": out, "wall_s": dt, "tok_s": tok_s,
             "recluster_count": engine.recluster_count}
 
@@ -278,7 +278,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="cuda (default) or cpu (the plain versions)")
     ap.add_argument("--mesh", default=None,
                     help="serve on a DATAxCELLS mesh (e.g. 2x2): the "
-                         "sharded index; run under torchrun with "
+                         "sharded index, or with --mode dense|clustered "
+                         "the LM over DATAxMODEL; run under torchrun with "
                          "DATA*CELLS ranks (1x1: no torchrun)")
     # LM serving
     ap.add_argument("--arch", default=None,

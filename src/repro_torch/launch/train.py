@@ -8,6 +8,10 @@
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch granite-moe-1b-a400m --batch 4 --steps 20 --ckpt-every 10
 
+  # a 2x2 data x model mesh, one rank a card
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 -m \\
+      repro_torch.launch.train --arch llama3-8b --reduced --mesh 2x2
+
 It initialises ``--arch`` (``--reduced``: the same-family miniature) from
 ``--seed`` on ``--device`` (``cuda`` by default, ``cpu`` runs the kernels'
 plain versions), builds the AdamW state and ``make_train_step``, and runs
@@ -19,8 +23,13 @@ last ``--ckpt-keep`` kept) and printing the loss every ``--log-every``. As the r
 precision over f32 masters with remat; the learning rate is a cosine
 schedule from ``--lr`` with 10 warmup steps. The params and moments are
 updated in place, as the reference's jitted step donates them.
-``--mesh``, ``--production-mesh`` and ``--multi-pod`` are refused
-(ROADMAP.md, queue A item 8a). ``main`` returns a summary: every logged
+``--mesh DATAxMODEL``, ``--production-mesh`` (16x16) and ``--multi-pod``
+(2x16x16) build the mesh through ``launch.mesh`` over the world
+``torchrun`` started (a world of another size raises ``build_mesh``'s
+``ValueError``, which names the ranks the mesh needs): the params and
+moments are placed by their resolved spec trees, each rank keeps its
+slice of every batch, and the ``Trainer`` agrees its decisions over the
+mesh; only world rank 0 prints. ``main`` returns a summary: every logged
 loss, each step's wall time and, on a CUDA device, its device time.
 """
 from __future__ import annotations
@@ -35,11 +44,13 @@ import torch
 
 from repro_torch.configs.base import SHAPES, get_config
 from repro_torch.core.kmeans import resolve_device
+from repro_torch.core.parallel import ParallelContext, release_world
 from repro_torch.data.pipeline import pipeline_for, put_batch
+from repro_torch.launch.mesh import make_production_mesh, parse_mesh_flag
 from repro_torch.launch.specs import train_batch_specs
 from repro_torch.models import model as M
-from repro_torch.models.common import not_ported
 from repro_torch.optim import adamw
+from repro_torch.utils import sharding as shd
 from repro_torch.train.train_step import make_train_step
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -71,17 +82,27 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _refuse_unported(args) -> None:
-    for flag, on in (("--mesh", args.mesh is not None),
-                     ("--production-mesh", args.production_mesh),
-                     ("--multi-pod", args.multi_pod)):
-        if on:
-            raise not_ported(f"training over a mesh ({flag})")
+def _mesh(args, device_type: str):
+    """The mesh the flags ask for (``--mesh`` overrides the production
+    meshes), or None: one device."""
+    if args.mesh:
+        return parse_mesh_flag(args.mesh, device_type=device_type)
+    if args.production_mesh or args.multi_pod:
+        return make_production_mesh(multi_pod=args.multi_pod,
+                                    device_type=device_type)
+    return None
 
 
 def main(argv=None) -> dict:
     args = _parser().parse_args(argv)
-    _refuse_unported(args)
+    try:
+        return _main(args)
+    finally:
+        if args.mesh or args.production_mesh or args.multi_pod:
+            release_world()   # the process group the mesh flag started
+
+
+def _main(args) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -92,16 +113,23 @@ def main(argv=None) -> dict:
             global_batch=args.batch or shape.global_batch,
             seq_len=args.seq or shape.seq_len)
     dev = resolve_device(args.device)
-    print(f"arch={cfg.name} params~{cfg.n_params()/1e6:.1f}M device={dev} "
-          f"batch={shape.global_batch} seq={shape.seq_len}", flush=True)
+    mesh = _mesh(args, dev.type)
+    pctx = None if mesh is None else ParallelContext.for_mesh(mesh)
+    say = print if pctx is None or pctx.is_world_rank0 else \
+        (lambda *a, **k: None)
+    say(f"arch={cfg.name} params~{cfg.n_params()/1e6:.1f}M device={dev} "
+        f"mesh={None if mesh is None else tuple(mesh.shape)} "
+        f"batch={shape.global_batch} seq={shape.seq_len}", flush=True)
 
-    # --- state
+    # --- state: every rank draws the same params and keeps its slice
     params = M.init_model(cfg, seed=args.seed, device=dev,
                           max_pos=max(shape.seq_len, 1024))
+    if mesh is not None:
+        params = shd.place_tree(params, M.model_specs(cfg), mesh)
     opt = adamw.init(params)
     compute_dtype = torch.float32 if args.reduced else torch.bfloat16
     step_fn = make_train_step(
-        cfg, compute_dtype=compute_dtype, remat=not args.reduced,
+        cfg, mesh, compute_dtype=compute_dtype, remat=not args.reduced,
         lr_schedule=adamw.cosine_schedule(args.lr, 10, args.steps))
     specs = train_batch_specs(cfg, shape)
     pipe = pipeline_for(cfg, shape, seed=args.seed)
@@ -111,35 +139,37 @@ def main(argv=None) -> dict:
         want = {k: s for k, (s, _) in specs.items()}
         if got != want:
             raise ValueError(f"batch shapes {got} are not {want}")
-        return put_batch(batch, dev)
+        return put_batch(batch, dev, mesh=mesh)
 
     trainer = Trainer(
         TrainerConfig(total_steps=args.steps,
                       checkpoint_every=args.ckpt_every,
                       checkpoint_dir=args.ckpt_dir,
                       keep=args.ckpt_keep, log_every=args.log_every),
-        step_fn, pipe, put)
+        step_fn, pipe, put, pctx=pctx)
 
     t0 = time.time()
     losses = []
 
     def log(step, metrics):
         losses.append((step, metrics["loss"]))
-        print(f"step {step:5d} loss {metrics['loss']:.4f} "
-              f"gnorm {metrics['grad_norm']:.3f} "
-              f"({(time.time()-t0)/max(step,1):.2f}s/step)", flush=True)
+        say(f"step {step:5d} loss {metrics['loss']:.4f} "
+            f"gnorm {metrics['grad_norm']:.3f} "
+            f"({(time.time()-t0)/max(step,1):.2f}s/step)", flush=True)
 
     state, final = trainer.run(params, opt, metrics_cb=log)
-    print(f"done at step {final}; stragglers={len(trainer.straggler_steps)} "
-          f"retries={trainer.retries}")
+    say(f"done at step {final}; stragglers={len(trainer.straggler_steps)} "
+        f"retries={trainer.retries}")
     if len(losses) >= 2:
-        print(f"loss first->last: {losses[0][1]:.4f} -> {losses[-1][1]:.4f}")
+        say(f"loss first->last: {losses[0][1]:.4f} -> {losses[-1][1]:.4f}")
     return {"arch": cfg.name, "n_params": M.n_elements(state["params"]),
             "batch": shape.global_batch, "seq": shape.seq_len,
             "final_step": final, "losses": losses,
             "step_s": trainer.step_times, "device_ms": trainer.device_ms,
             "stragglers": trainer.straggler_steps,
-            "retries": trainer.retries}
+            "retries": trainer.retries,
+            "mesh": None if mesh is None else tuple(mesh.shape),
+            "state": state}
 
 
 if __name__ == "__main__":

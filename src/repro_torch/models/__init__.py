@@ -13,5 +13,7 @@
   (dense, clustered);
 - ``bridge``: the JAX package's weight and cache trees as numpy.
 
-Serving and training over a mesh wait for queue A item 8a.
+Every ``init_*`` has a ``*_specs`` beside it (``model.model_specs``: the
+reference's logical spec tree); over a mesh the params, batches and caches
+are DTensors and ``Ctx.constrain`` redistributes (``utils.sharding``).
 """

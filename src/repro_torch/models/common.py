@@ -23,42 +23,119 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-
-def not_ported(what: str) -> NotImplementedError:
-    """The refusal of every part of the LM substrate still to come."""
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
-                               "queue A item 8a)")
+from repro_torch.utils import sharding as shd
 
 
 @dataclasses.dataclass(frozen=True)
 class Ctx:
-    """Per-call context: the compute dtype and the device. A mesh (the
-    reference's sharding constraints) is refused where it would act."""
+    """Per-call context: the compute dtype, the device, and the mesh with
+    its logical-axis rules. On a mesh, ``constrain`` redistributes an
+    activation to the placements its logical spec resolves to (the
+    reference's sharding constraints); without one it is the identity."""
     compute_dtype: torch.dtype = torch.bfloat16
     device: torch.device | str | None = None
     mesh: object = None
+    rules: dict | None = None
 
     def cast(self, x: torch.Tensor) -> torch.Tensor:
         return x.to(self.compute_dtype)
 
     def constrain(self, x: torch.Tensor, *logical) -> torch.Tensor:
-        if self.mesh is None:
-            return x
-        raise not_ported("the LM sharding constraints (Ctx with a mesh)")
+        return shd.constrain(x, self.mesh, *logical, rules=self.rules)
+
+
+def problem_specs(tree, lead: int = 0):
+    """Logical specs of a KV cache's leaves for its independent (sequence,
+    kv head) problems: after ``lead`` leading dims, the batch over ``"dp"``
+    and the kv heads over ``"tp"`` (dim 1 of the clustered leaves, dim 2 of
+    a dense cache's ``k``, ``v`` and append buffers), every other dim whole;
+    a leaf of fewer dims replicated."""
+    def one(name, t):
+        if t.ndim < lead + 2:
+            return (None,) * t.ndim
+        head = 2 if name in ("k", "v", "append_k", "append_v") else 1
+        spec = [None] * t.ndim
+        spec[lead], spec[lead + head] = "dp", "tp"
+        return tuple(spec)
+    return {k: one(k, t) for k, t in tree.items()}
+
+
+# the (B, S, heads, head_dim) tensors of an attention core
+HEADS = ("dp", None, "tp", None)
+
+
+def on_problems(fn, ctx: Ctx, args: tuple, specs: tuple, out_specs,
+                **sizes):
+    """``fn(*args)``; on DTensors, on this rank's own problems
+    (``shd.local``): each argument redistributed to the placements of its
+    logical spec tree (None: passed as it is) under
+    ``shd.problem_split(**sizes)`` (e.g. ``dp=B, tp=KH``), the result
+    wrapped back at ``out_specs``' (or a function of the result giving
+    them). For an attention core or scan whose
+    (sequence, head) problems are independent: the local run is the
+    one-device run of those problems, and DTensor's propagation is not
+    relied on inside it."""
+    from repro_torch.utils.tree import tree_leaves
+    if not any(shd.is_dtensor(t) for t in tree_leaves(list(args))
+               if isinstance(t, torch.Tensor)):
+        return fn(*args)
+    split = shd.problem_split(ctx.mesh, ctx.rules, **sizes)
+
+    def pl(specs_):
+        if specs_ is None:
+            return None
+        return shd.map_specs(
+            lambda s: shd.problem_placements(s, split, ctx.mesh), specs_)
+    out_pl = (lambda out: pl(out_specs(out))) if callable(out_specs) \
+        else pl(out_specs)
+    return shd.local(fn, args, tuple(pl(s) for s in specs), out_pl,
+                     ctx.mesh)
+
+
+def on_rows(fn, ctx: Ctx, params, *args):
+    """``fn(params, *args)``; on DTensors, each rank runs the layer on its
+    own batch rows with its weights whole (``shd.local``: the weights
+    gathered, their gradients partial sums over the ``"dp"`` axes; every
+    tensor argument and result with a batch dim split over ``"dp"``,
+    0-dim ones replicated). For a layer whose ops DTensor's propagation
+    does not carry (a recurrent scan, MLA's latent attention); ``fn``'s
+    ``ctx`` must be a mesh-free one."""
+    from repro_torch.utils.tree import tree_map
+    if not shd.is_dtensor(args[0]):
+        return fn(params, *args)
+    mesh = ctx.mesh
+    whole = shd.placements((), mesh)
+    rows = shd.data_placements(mesh, 0, ctx.rules)
+
+    def row_pl(t):
+        return whole if t.ndim == 0 else rows
+    p_pl = tree_map(lambda t: whole, params)
+    g_pl = tree_map(lambda t: shd.partial_data(mesh, ctx.rules), params)
+    a_pl = tuple(None if a is None else tree_map(row_pl, a) for a in args)
+    return shd.local(fn, (params, *args), (p_pl, *a_pl),
+                     lambda out: tree_map(row_pl, out), mesh,
+                     in_grad_pl=(g_pl,) + (None,) * len(args))
 
 
 @dataclasses.dataclass
 class Init:
     """Draws parameters: ``normal(shape, scale)``, ``zeros``, ``ones``, each
-    of shape ``lead + shape`` in f32 on the generator's device."""
-    generator: torch.Generator
+    of shape ``lead + shape`` in f32 on the generator's device. Without a
+    generator the tensors are shapes on the meta device and nothing is
+    drawn (``launch.specs.abstract_state``): a ``torch.Generator`` cannot
+    live there."""
+    generator: torch.Generator | None
     lead: tuple = ()
 
     @property
     def device(self) -> torch.device:
+        if self.generator is None:
+            return torch.device("meta")
         return self.generator.device
 
     def normal(self, shape: tuple, scale: float) -> torch.Tensor:
+        if self.generator is None:
+            return torch.empty((*self.lead, *shape), device="meta")
         return torch.randn((*self.lead, *shape), generator=self.generator,
                            device=self.device).mul_(scale)
 
@@ -73,6 +150,11 @@ def dense_init(ini: Init, d_in: int, d_out: int, *,
                scale: float | None = None) -> dict:
     scale = scale if scale is not None else d_in ** -0.5
     return {"w": ini.normal((d_in, d_out), scale)}
+
+
+def dense_specs(spec=("fsdp", "tp")) -> dict:
+    """The logical specs of ``dense_init``'s tree."""
+    return {"w": spec}
 
 
 def dense(params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
@@ -109,6 +191,15 @@ def layernorm(params, x: torch.Tensor, ctx: Ctx, *,
     var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
     y = (x32 - mu) * torch.rsqrt(var + eps)
     return (y * params["scale"] + params["bias"]).to(x.dtype)
+
+
+def norm_specs(kind: str) -> dict:
+    """The logical specs of ``norm_init``'s tree: replicated."""
+    if kind in ("rmsnorm", "rmsnorm_1p"):
+        return {"scale": (None,)}
+    if kind == "layernorm":
+        return {"scale": (None,), "bias": (None,)}
+    raise ValueError(kind)
 
 
 def _rmsnorm_1p(params, x, ctx):
@@ -176,6 +267,17 @@ def mlp_init(ini: Init, d: int, d_ff: int, *, kind: str = "glu") -> dict:
     raise ValueError(kind)
 
 
+def mlp_specs(kind: str = "glu") -> dict:
+    """The logical specs of ``mlp_init``'s tree (ref. l.127-137)."""
+    if kind == "glu":
+        return {"w_gate": ("fsdp", "tp"), "w_up": ("fsdp", "tp"),
+                "w_down": ("tp", "fsdp")}
+    if kind == "plain":
+        return {"w_up": ("fsdp", "tp"), "b_up": ("tp",),
+                "w_down": ("tp", "fsdp"), "b_down": (None,)}
+    raise ValueError(kind)
+
+
 def _act(name: str, x: torch.Tensor) -> torch.Tensor:
     if name == "silu":
         return F.silu(x)
@@ -204,6 +306,11 @@ def embed_init(ini: Init, vocab_padded: int, d: int) -> dict:
     return {"embedding": ini.normal((vocab_padded, d), 0.02)}
 
 
+def embed_specs() -> dict:
+    """The logical specs of ``embed_init``'s tree (ref. l.172)."""
+    return {"embedding": ("tp", "fsdp")}
+
+
 class _GatherRows(torch.autograd.Function):
     """``table[ids]`` whose backward sums each row's gradients in a fixed
     order (``segment_sum_rows``): the gather's own backward accumulates
@@ -219,9 +326,26 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(fctx, grad):
         (ids,) = fctx.saved_tensors
-        g = grad.reshape(ids.numel(), -1)
-        out = segment_sum_rows(g, ids.reshape(-1), fctx.rows)
-        return out.reshape(fctx.rows, *grad.shape[ids.ndim:]), None
+        if shd.is_dtensor(grad):
+            return _gather_rows_grad_on_mesh(grad, ids, fctx.rows), None
+        return _gather_rows_grad(grad, ids, fctx.rows), None
+
+
+def _gather_rows_grad(grad, ids, rows: int):
+    g = grad.reshape(ids.numel(), -1)
+    out = segment_sum_rows(g, ids.reshape(-1), rows)
+    return out.reshape(rows, *grad.shape[ids.ndim:])
+
+
+def _gather_rows_grad_on_mesh(grad, ids, rows: int):
+    """The gather's backward on a mesh: ``segment_sum_rows`` has no DTensor
+    rule (a boolean mask), so each rank sums its own tokens' rows
+    (``shd.local``, the batch split over ``"dp"``) and the sum over ranks is
+    left partial, for the step to reduce into the table's placements."""
+    mesh = grad.device_mesh
+    pl = shd.data_placements(mesh, 0)
+    return shd.local(lambda g, i: _gather_rows_grad(g, i, rows),
+                     (grad, ids), (pl, pl), shd.partial_data(mesh), mesh)
 
 
 def segment_sum_rows(rows: torch.Tensor, ids: torch.Tensor,

@@ -23,7 +23,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.common import Ctx, Init, apply_rope
+from repro_torch.models.common import (HEADS, Ctx, Init, apply_rope,
+                                       on_problems, problem_specs)
+from repro_torch.utils import sharding as shd
 
 NEG_INF = -1e30
 
@@ -48,6 +50,15 @@ def attn_init(ini: Init, d_model: int, num_heads: int, num_kv_heads: int,
     return params
 
 
+def attn_specs(*, qkv_bias: bool = False) -> dict:
+    """The logical specs of ``attn_init``'s tree (ref. l.38-47)."""
+    specs = {"wq": ("fsdp", "tp"), "wk": ("fsdp", "tp"),
+             "wv": ("fsdp", "tp"), "wo": ("tp", "fsdp")}
+    if qkv_bias:
+        specs.update(bq=("tp",), bk=("tp",), bv=("tp",), bo=(None,))
+    return specs
+
+
 def project_qkv(params, x: torch.Tensor, ctx: Ctx, *, num_heads: int,
                 num_kv_heads: int, head_dim: int):
     """Returns q (B,S,H,hd), k,v (B,S,KH,hd)."""
@@ -58,10 +69,9 @@ def project_qkv(params, x: torch.Tensor, ctx: Ctx, *, num_heads: int,
         q = q + ctx.cast(params["bq"])
         k = k + ctx.cast(params["bk"])
         v = v + ctx.cast(params["bv"])
-    b, s = q.shape[0], q.shape[1]
-    return (q.reshape(b, s, num_heads, head_dim),
-            k.reshape(b, s, num_kv_heads, head_dim),
-            v.reshape(b, s, num_kv_heads, head_dim))
+    return (shd.split_heads(q, num_heads, head_dim),
+            shd.split_heads(k, num_kv_heads, head_dim),
+            shd.split_heads(v, num_kv_heads, head_dim))
 
 
 def _softcap(scores: torch.Tensor, cap: float | None) -> torch.Tensor:
@@ -196,34 +206,62 @@ def self_attention(params, x: torch.Tensor, ctx: Ctx, *, num_heads: int,
     b, s, _ = x.shape
     q, k, v = project_qkv(params, x, ctx, num_heads=num_heads,
                           num_kv_heads=num_kv_heads, head_dim=head_dim)
+    kw = dict(rope_theta=rope_theta, window=window, softcap=softcap,
+              scale=scale)
+    heads = dict(dp=b, tp=num_kv_heads)
+    # the attention core on each rank's own (sequence, kv head) problems:
+    # its views and in-place cache writes have no DTensor rule in every torch
     if cache is not None and "k" in cache:                 # decode step
-        pos = cache["pos"]
-        if rope_theta is not None:
-            pq = pos.to(torch.int32) + torch.arange(
-                s, dtype=torch.int32, device=x.device)
-            pq = pq.unsqueeze(0).expand(b, s)
-            q = _rope_bshd(q, pq, rope_theta)
-            k = _rope_bshd(k, pq, rope_theta)
-        k_cache = update_slice(cache["k"], k, pos, 1)
-        v_cache = update_slice(cache["v"], v, pos, 1)
-        o = _decode_attention(q, k_cache, v_cache, pos, window=window,
-                              softcap=softcap, scale=scale)
-        new_cache = dict(cache, k=k_cache, v=v_cache, pos=pos + s)
+        o, new_cache = on_problems(
+            lambda q, k, v, c: _decode_core(q, k, v, c, **kw), ctx,
+            (q, k, v, cache), (HEADS, HEADS, HEADS, problem_specs(cache)),
+            (HEADS, problem_specs(cache)), **heads)
         return attn_out(params, o, ctx), new_cache
 
     if positions is None:
         positions = torch.arange(s, device=x.device).unsqueeze(0).expand(b, s)
+    built = {"k": HEADS, "v": HEADS, "pos": ()}
+    o, kv = on_problems(
+        lambda q, k, v, p: _prefill_core(q, k, v, p, causal=causal,
+                                         chunk=chunk, **kw), ctx,
+        (q, k, v, positions), (HEADS, HEADS, HEADS, ("dp", None)),
+        (HEADS, built), **heads)
+    y = attn_out(params, o, ctx)
+    if cache is not None:                                  # prefill: build cache
+        return y, kv
+    return y, None
+
+
+def _decode_core(q, k, v, cache, *, rope_theta, window, softcap, scale):
+    """A decode step's attention on plain tensors: rope at ``pos``, the
+    new key and value written into the cache in place, attention over the
+    filled slots. Returns (o, the cache)."""
+    b, s = q.shape[0], q.shape[1]
+    pos = cache["pos"]
+    if rope_theta is not None:
+        pq = pos.to(torch.int32) + torch.arange(
+            s, dtype=torch.int32, device=q.device)
+        pq = pq.unsqueeze(0).expand(b, s)
+        q = _rope_bshd(q, pq, rope_theta)
+        k = _rope_bshd(k, pq, rope_theta)
+    k_cache = update_slice(cache["k"], k, pos, 1)
+    v_cache = update_slice(cache["v"], v, pos, 1)
+    o = _decode_attention(q, k_cache, v_cache, pos, window=window,
+                          softcap=softcap, scale=scale)
+    return o, dict(cache, k=k_cache, v=v_cache, pos=pos + s)
+
+
+def _prefill_core(q, k, v, positions, *, causal, chunk, rope_theta, window,
+                  softcap, scale):
+    """Prefill or train attention on plain tensors: rope, then chunked
+    attention. Returns (o, the built cache {k, v, pos})."""
     if rope_theta is not None:
         q = _rope_bshd(q, positions, rope_theta)
         k = _rope_bshd(k, positions, rope_theta)
     o = chunked_attention(q, k, v, causal=causal, window=window,
                           softcap=softcap, scale=scale, chunk=chunk)
-    y = attn_out(params, o, ctx)
-    if cache is not None:                                  # prefill: build cache
-        return y, {"k": k, "v": v,
-                   "pos": torch.tensor(s, dtype=torch.int32,
-                                       device=x.device)}
-    return y, None
+    return o, {"k": k, "v": v, "pos": torch.tensor(
+        q.shape[1], dtype=torch.int32, device=q.device)}
 
 
 def _rope_bshd(x: torch.Tensor, positions: torch.Tensor,
@@ -263,9 +301,12 @@ def cross_attention(params, x: torch.Tensor, kv_cache: dict, ctx: Ctx, *,
     q = x @ ctx.cast(params["wq"])
     if "bq" in params:
         q = q + ctx.cast(params["bq"])
-    b, s = x.shape[0], x.shape[1]
-    q = q.reshape(b, s, num_heads, head_dim)
-    o = dot_attention(q, kv_cache["k"], kv_cache["v"], causal=False)
+    q = shd.split_heads(q, num_heads, head_dim)
+    # the core on each rank's own problems, as in self_attention
+    o = on_problems(lambda q, k, v: dot_attention(q, k, v, causal=False),
+                    ctx, (q, kv_cache["k"], kv_cache["v"]),
+                    (HEADS, HEADS, HEADS), HEADS, dp=q.shape[0],
+                    tp=num_kv_heads)
     return attn_out(params, o, ctx)
 
 
@@ -278,6 +319,5 @@ def build_cross_kv(params, enc_out: torch.Tensor, ctx: Ctx, *,
     if "bk" in params:
         k = k + ctx.cast(params["bk"])
         v = v + ctx.cast(params["bv"])
-    b, s = enc_out.shape[0], enc_out.shape[1]
-    return {"k": k.reshape(b, s, num_kv_heads, head_dim),
-            "v": v.reshape(b, s, num_kv_heads, head_dim)}
+    return {"k": shd.split_heads(k, num_kv_heads, head_dim),
+            "v": shd.split_heads(v, num_kv_heads, head_dim)}

@@ -40,6 +40,15 @@ def mamba2_init(ini: Init, d_model: int, *, expand: int = 2,
     }
 
 
+def mamba2_specs() -> dict:
+    """The logical specs of ``mamba2_init``'s tree (ref. l.37-43)."""
+    return {"w_z": ("fsdp", "tp"), "w_x": ("fsdp", "tp"),
+            "w_b": ("fsdp", None), "w_c": ("fsdp", None),
+            "w_dt": ("fsdp", "tp"), "dt_bias": ("tp",), "A_log": ("tp",),
+            "D": ("tp",), "conv": (None, None), "norm_scale": ("tp",),
+            "w_out": ("tp", "fsdp")}
+
+
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
                  state: torch.Tensor | None = None):
     """Depthwise causal conv. x: (B, S, C), w: (W, C). With ``state`` (B,

@@ -38,6 +38,15 @@ def mla_init(ini: Init, d_model: int, num_heads: int, *, q_lora_rank: int,
     }
 
 
+def mla_specs() -> dict:
+    """The logical specs of ``mla_init``'s tree (ref. l.42-48)."""
+    return {"wq_a": ("fsdp", None), "q_norm": (None,),
+            "wq_b": (None, "tp"),
+            "wkv_a": ("fsdp", None), "kv_norm": (None,),
+            "wkv_b": (None, "tp"),
+            "wo": ("tp", "fsdp")}
+
+
 def _rms(x: torch.Tensor, scale: torch.Tensor,
          eps: float = 1e-6) -> torch.Tensor:
     x32 = x.float()

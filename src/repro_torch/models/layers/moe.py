@@ -15,12 +15,18 @@ Pallas kernel, so this is plain PyTorch with the same arithmetic:
 - ``jax.nn.one_hot(pos, capacity)`` gives a zero row where ``pos >=
   capacity`` (``F.one_hot`` would raise): the port compares ``pos`` with
   ``arange(capacity)``, which drops those pairs the same way.
+
+Over a mesh the router and the places are DTensor ops; the three einsum
+stages (dispatch, the experts' FFN, combine) run on each rank's own
+(group, expert) problems (``shd.local``), groups over ``"dp"`` and experts
+over ``"tp"``, with the reference's constraints between them.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models.common import Ctx, Init, _act
+from repro_torch.utils import sharding as shd
 
 
 def moe_init(ini: Init, d_model: int, d_ff: int, num_experts: int) -> dict:
@@ -29,6 +35,15 @@ def moe_init(ini: Init, d_model: int, d_ff: int, num_experts: int) -> dict:
             "w_gate": ini.normal((e, d, f), d ** -0.5),
             "w_up": ini.normal((e, d, f), d ** -0.5),
             "w_down": ini.normal((e, f, d), f ** -0.5)}
+
+
+def moe_specs() -> dict:
+    """The logical specs of ``moe_init``'s tree (ref. l.29-32): the experts
+    over ``"expert"``."""
+    return {"router": ("fsdp", None),
+            "w_gate": ("expert", "fsdp", None),
+            "w_up": ("expert", "fsdp", None),
+            "w_down": ("expert", None, "fsdp")}
 
 
 def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -95,13 +110,45 @@ def moe(params, x: torch.Tensor, ctx: Ctx, *, num_experts: int, top_k: int,
                         pos_oh)
     comb = torch.einsum("gske,gskc,gsk->gsec", onehot, pos_oh, weight)
 
-    xe = torch.einsum("gsec,gsd->gecd", disp.to(ctx.compute_dtype), xg)
+    ws = [ctx.cast(params[k]) for k in ("w_gate", "w_up", "w_down")]
+    dt = ctx.compute_dtype
+    if not shd.is_dtensor(xg):
+        xe = _dispatch(disp.to(dt), xg)
+        return _combine(comb.to(dt), _experts(xe, *ws, act=act)).reshape(
+            b, s, d), aux
+    # the einsums' views have no DTensor rule over these splits in every
+    # torch: each runs on this rank's own (group, expert) problems
+    mesh = ctx.mesh
+    split = shd.problem_split(mesh, ctx.rules, dp=g, tp=num_experts)
+    pl = lambda spec: shd.problem_placements(spec, split, mesh)  # noqa: E731
+    gpl, gepl = pl(("dp",)), pl(("dp", "tp"))
+    xe = shd.local(_dispatch, (disp.to(dt), xg), (gpl, gpl), gpl, mesh)
     xe = ctx.constrain(xe, "dp", "tp", None, None)
-    h = (_act(act, torch.einsum("gecd,edf->gecf", xe,
-                                ctx.cast(params["w_gate"])))
-         * torch.einsum("gecd,edf->gecf", xe, ctx.cast(params["w_up"])))
-    ye = torch.einsum("gecf,efd->gecd", h, ctx.cast(params["w_down"]))
+    # each rank's experts whole: their gradients partial over the split
+    # groups' axes
+    wpl = pl(("tp",))
+    wgrad = shd.partial_over(split["dp"], wpl, mesh)
+    ye = shd.local(lambda x_, *w_: _experts(x_, *w_, act=act),
+                   (xe, *ws), (gepl, wpl, wpl, wpl), gepl, mesh,
+                   in_grad_pl=(None, wgrad, wgrad, wgrad))
     ye = ctx.constrain(ye, "dp", "tp", None, None)
-    y = torch.einsum("gsec,gecd->gsd", comb.to(ctx.compute_dtype), ye)
+    y = shd.local(_combine, (comb.to(dt), ye), (pl(("dp", None, "tp")),
+                                                gepl),
+                  shd.partial_over(split["tp"], gpl, mesh), mesh)
+    y = shd.to_placements(y, gpl)
     return y.reshape(b, s, d), aux
+
+
+def _dispatch(disp, xg):
+    return torch.einsum("gsec,gsd->gecd", disp, xg)
+
+
+def _experts(xe, w_gate, w_up, w_down, *, act):
+    h = (_act(act, torch.einsum("gecd,edf->gecf", xe, w_gate))
+         * torch.einsum("gecd,edf->gecf", xe, w_up))
+    return torch.einsum("gecf,efd->gecd", h, w_down)
+
+
+def _combine(comb, ye):
+    return torch.einsum("gsec,gecd->gsd", comb, ye)
 

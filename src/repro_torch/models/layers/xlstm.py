@@ -55,6 +55,15 @@ def mlstm_init(ini: Init, d_model: int, num_heads: int, *,
     }
 
 
+def mlstm_specs() -> dict:
+    """The logical specs of ``mlstm_init``'s tree (ref. l.47-53)."""
+    return {"w_up": ("fsdp", "tp"), "w_gate": ("fsdp", "tp"),
+            "wq": ("fsdp", "tp"), "wk": ("fsdp", "tp"), "wv": ("fsdp", "tp"),
+            "w_i": ("fsdp", None), "b_i": (None,),
+            "w_f": ("fsdp", None), "b_f": (None,),
+            "w_down": ("tp", "fsdp"), "out_norm": ("tp",)}
+
+
 def mlstm_chunk_scan(q, k, v, log_i, log_f, *, chunk: int, state=None):
     """Stabilized chunkwise mLSTM. q, k, v: (B,S,H,D); log_i/log_f:
     (B,S,H). Returns (h (B,S,H,D) f32, (C_hat (B,H,D,D), n_hat (B,H,D),
@@ -183,6 +192,13 @@ def slstm_init(ini: Init, d_model: int, num_heads: int) -> dict:
         "w_out": ini.normal((d_model, d_model), sc),
         "out_norm": ini.ones((d_model,)),
     }
+
+
+def slstm_specs() -> dict:
+    """The logical specs of ``slstm_init``'s tree (ref. l.223-225)."""
+    return {"w_gates": ("fsdp", None), "b_gates": (None,),
+            "r_gates": (None, None, "tp"), "w_out": ("fsdp", "tp"),
+            "out_norm": (None,)}
 
 
 def slstm(params, x: torch.Tensor, ctx: Ctx, *, num_heads: int,

@@ -22,6 +22,7 @@ under ``remat`` (``transformer.apply_stack``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -31,6 +32,7 @@ from repro_torch.models import common, transformer
 from repro_torch.models import kmeans_attention as kma
 from repro_torch.models.common import Ctx, Init
 from repro_torch.models.layers import attention as attn_mod
+from repro_torch.utils import sharding as shd
 from repro_torch.utils.tree import tree_leaves
 
 
@@ -50,10 +52,12 @@ def init_model(cfg: ArchConfig, *, seed: int = 0,
     """The parameter tree, in f32: ``embed``, ``lm_head`` (untied configs),
     ``pos_embed`` (learned positions: ``max_pos`` rows), ``frontend`` (the
     stub projection), ``stack`` (``transformer.init_stack``), ``encoder``
-    and ``enc_pos`` (whisper), ``final_norm``."""
+    and ``enc_pos`` (whisper), ``final_norm``. ``device="meta"`` gives the
+    shapes alone, drawing nothing."""
     dev = resolve_device(device)
-    gen = generator if generator is not None else \
-        torch.Generator(device=dev).manual_seed(seed)
+    gen = generator
+    if gen is None and dev.type != "meta":
+        gen = torch.Generator(device=dev).manual_seed(seed)
     ini = Init(gen)
     params = {"embed": common.embed_init(ini, cfg.vocab_padded(),
                                          cfg.d_model)}
@@ -70,6 +74,24 @@ def init_model(cfg: ArchConfig, *, seed: int = 0,
         params["enc_pos"] = ini.normal((cfg.frontend_seq, cfg.d_model), 0.02)
     params["final_norm"] = common.norm_init(cfg.norm, cfg.d_model, ini)
     return params
+
+
+def model_specs(cfg: ArchConfig) -> dict:
+    """The logical spec tree of ``init_model``'s parameters, leaf for leaf
+    (the reference's second output of ``init_model``)."""
+    specs = {"embed": common.embed_specs()}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = common.embed_specs()
+    if cfg.learned_pos:
+        specs["pos_embed"] = (None, "fsdp")
+    if cfg.frontend:
+        specs["frontend"] = common.dense_specs(("fsdp", None))
+    specs["stack"] = transformer.stack_specs(cfg)
+    if cfg.encoder_layers:
+        specs["encoder"] = transformer.stack_specs(_encoder_cfg(cfg))
+        specs["enc_pos"] = (None, "fsdp")
+    specs["final_norm"] = common.norm_specs(cfg.norm)
+    return specs
 
 
 def n_elements(params) -> int:
@@ -142,6 +164,17 @@ def _inputs(cfg, params, tokens, ctx, frontend):
     return x, cross_kv, n_front
 
 
+def _on_mesh(fn):
+    """Runs an entry point inside ``shd.region`` of ``ctx``'s mesh."""
+    @functools.wraps(fn)
+    def run(*args, **kw):
+        ctx = next(a for a in (*args, *kw.values()) if isinstance(a, Ctx))
+        with shd.region(ctx.mesh):
+            return fn(*args, **kw)
+    return run
+
+
+@_on_mesh
 def forward(params, tokens: torch.Tensor, ctx: Ctx, cfg: ArchConfig, *,
             frontend: torch.Tensor | None = None) -> torch.Tensor:
     """The full forward (the reference's ``loss_fn`` up to its logits):
@@ -159,6 +192,7 @@ def forward(params, tokens: torch.Tensor, ctx: Ctx, cfg: ArchConfig, *,
 # train forward / loss
 # ---------------------------------------------------------------------------
 
+@_on_mesh
 def loss_fn(params, batch: dict, ctx: Ctx, cfg: ArchConfig, *,
             remat: bool = True) -> tuple[torch.Tensor, dict]:
     """batch: tokens (B, S_text) int, labels (B, S_text) int (-1 = pad),
@@ -175,22 +209,36 @@ def loss_fn(params, batch: dict, ctx: Ctx, cfg: ArchConfig, *,
         cross_kv=cross_kv, remat=remat)
     x = _final_norm(cfg, params, x, ctx)
     logits = _logits(cfg, params, x[:, n_front:], ctx)    # (B,S,Vpad) f32
+    if shd.is_dtensor(logits):
+        # each rank sums its own rows (the gather along the vocab has no
+        # DTensor rule over a vocab split); the sums are reduced over "dp"
+        mesh = logits.device_mesh
+        rows = shd.data_placements(mesh, 0, ctx.rules)
+        part = shd.partial_data(mesh, ctx.rules)
+        nll_sum, ntok = (shd.replicated(t) for t in shd.local(
+            _nll_sums, (logits, labels), (rows, rows), part, mesh))
+    else:
+        nll_sum, ntok = _nll_sums(logits, labels)
+    ntok = torch.clamp(ntok, min=1)
+    mean_nll = nll_sum / ntok
+    loss = mean_nll + 0.01 * aux
+    return loss, {"nll": mean_nll, "aux": aux, "ntok": ntok}
 
+
+def _nll_sums(logits, labels):
+    """The NLL summed over the labels >= 0 and their count (int32)."""
     valid = labels >= 0
     lbl = torch.clamp(labels, min=0).long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, lbl.unsqueeze(-1)).squeeze(-1)
-    nll = (logz - gold) * valid
-    ntok = torch.clamp(valid.sum(dtype=torch.int32), min=1)
-    mean_nll = nll.sum() / ntok
-    loss = mean_nll + 0.01 * aux
-    return loss, {"nll": mean_nll, "aux": aux, "ntok": ntok}
+    return ((logz - gold) * valid).sum(), valid.sum(dtype=torch.int32)
 
 
 # ---------------------------------------------------------------------------
 # serving: prefill + decode
 # ---------------------------------------------------------------------------
 
+@_on_mesh
 def prefill(params, tokens: torch.Tensor, ctx: Ctx, cfg: ArchConfig, *,
             max_seq: int, frontend: torch.Tensor | None = None):
     """Full forward that also populates a dense decode cache. Returns
@@ -229,10 +277,8 @@ def _grow(t: torch.Tensor, max_seq: int) -> torch.Tensor:
     """(G, B, S, ...) zero-padded to (G, B, max_seq, ...)."""
     if t.shape[2] == max_seq:
         return t
-    out = torch.zeros((*t.shape[:2], max_seq, *t.shape[3:]), dtype=t.dtype,
-                      device=t.device)
-    out[:, :, :t.shape[2]] = t
-    return out
+    return shd.on_local(lambda t_: torch.nn.functional.pad(
+        t_, (0, 0) * (t.ndim - 3) + (0, max_seq - t.shape[2])), t)
 
 
 def _pad_caches(caches: dict, max_seq: int) -> dict:
@@ -248,6 +294,7 @@ def _pad_caches(caches: dict, max_seq: int) -> dict:
     return {key: pad(c) for key, c in caches.items()}
 
 
+@_on_mesh
 def decode_step(params, token: torch.Tensor, caches: dict, ctx: Ctx,
                 cfg: ArchConfig, *, cross_kv: dict | None = None):
     """One decode step. token: (B, 1) int. Returns (logits (B, 1, V),

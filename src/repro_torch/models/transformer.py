@@ -19,11 +19,14 @@ The recurrent caches hold tuples (``{"mlstm": (C_hat, n_hat, m)}``,
 ``{"slstm": (c, n, m, h)}``), each member stacked. ``apply_stack`` is a
 Python loop over the groups (the reference's ``lax.scan``). A decode step
 writes its key and value into the stacked cache tensors in place; a leaf a
-layer leaves in place is kept, any other is restacked. A mesh (the
-reference's sharding constraints) is refused with ``NotImplementedError``
-naming ROADMAP.md queue A item 8a.
+layer leaves in place is kept, any other is restacked. On a mesh the
+activations are DTensors and ``ctx.constrain`` redistributes them at the
+reference's points (``utils.sharding``).
 """
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 import torch.utils.checkpoint
@@ -31,12 +34,13 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import kmeans as _km
 from repro_torch.models import common
-from repro_torch.models.common import Ctx, Init, not_ported
+from repro_torch.models.common import Ctx, Init
 from repro_torch.models.layers import attention as attn
 from repro_torch.models.layers import mamba2 as m2
 from repro_torch.models.layers import mla as mla_mod
 from repro_torch.models.layers import moe as moe_mod
 from repro_torch.models.layers import xlstm as xl
+from repro_torch.utils import sharding as shd
 from repro_torch.utils.tree import tree_map
 
 _RECURRENT = ("mlstm", "slstm", "mamba2")
@@ -63,13 +67,6 @@ def group_layout(cfg: ArchConfig) -> tuple[list[str], int]:
         assert cfg.num_layers % 2 == 0
         return ["attn_local", "attn_global"], cfg.num_layers // 2
     return ["block"], cfg.num_layers
-
-
-def check_ported(cfg: ArchConfig, mesh=None) -> None:
-    """Every family is served on one device; an LM over a mesh (``Engine(
-    mesh=...)``) raises."""
-    if mesh is not None:
-        raise not_ported(f"serving an LM over a mesh ({cfg.name})")
 
 
 # ---------------------------------------------------------------------------
@@ -129,20 +126,24 @@ def apply_subblock(params, x: torch.Tensor, ctx: Ctx, cfg: ArchConfig,
                    causal=True):
     """Returns (x_out, new_cache, aux_loss)."""
     aux = torch.zeros((), device=x.device)
+    # the recurrent scans and MLA's latent attention run on each rank's own
+    # rows with whole weights (common.on_rows): DTensor carries neither
+    lctx = dataclasses.replace(ctx, mesh=None)
     if sub in _RECURRENT:
         h = _norm(cfg, params["norm"], x, ctx)
         if sub == "mlstm":
-            y, nc = xl.mlstm(params["core"], h, ctx, num_heads=cfg.num_heads,
-                             chunk=cfg.ssm_chunk, cache=cache)
+            core = lambda p_, h_, c_: xl.mlstm(         # noqa: E731
+                p_, h_, lctx, num_heads=cfg.num_heads, chunk=cfg.ssm_chunk,
+                cache=c_)
         elif sub == "slstm":
-            y, nc = xl.slstm(params["core"], h, ctx, num_heads=cfg.num_heads,
-                             cache=cache)
+            core = lambda p_, h_, c_: xl.slstm(         # noqa: E731
+                p_, h_, lctx, num_heads=cfg.num_heads, cache=c_)
         else:
-            y, nc = m2.mamba2(params["core"], h, ctx,
-                              head_dim=cfg.ssm_head_dim,
-                              d_state=cfg.ssm_state,
-                              conv_width=cfg.ssm_conv_width,
-                              chunk=cfg.ssm_chunk, cache=cache)
+            core = lambda p_, h_, c_: m2.mamba2(        # noqa: E731
+                p_, h_, lctx, head_dim=cfg.ssm_head_dim,
+                d_state=cfg.ssm_state, conv_width=cfg.ssm_conv_width,
+                chunk=cfg.ssm_chunk, cache=c_)
+        y, nc = common.on_rows(core, ctx, params["core"], h, cache)
         return x + y, nc, aux
 
     # transformer block
@@ -150,24 +151,28 @@ def apply_subblock(params, x: torch.Tensor, ctx: Ctx, cfg: ArchConfig,
     window = cfg.window_size if sub == "attn_local" else None
     rope_theta = None if cfg.learned_pos else cfg.rope_theta
     if cfg.attention == "mla":
-        y, nc = mla_mod.mla_attention(
-            params["attn"], h, ctx, num_heads=cfg.num_heads,
-            nope_head_dim=MLA["nope_head_dim"],
-            rope_head_dim=MLA["rope_head_dim"],
-            v_head_dim=MLA["v_head_dim"], kv_lora_rank=MLA["kv_lora_rank"],
-            rope_theta=cfg.rope_theta, positions=positions, cache=cache)
+        y, nc = common.on_rows(
+            lambda p_, h_, c_, pos_: mla_mod.mla_attention(
+                p_, h_, lctx, num_heads=cfg.num_heads,
+                nope_head_dim=MLA["nope_head_dim"],
+                rope_head_dim=MLA["rope_head_dim"],
+                v_head_dim=MLA["v_head_dim"],
+                kv_lora_rank=MLA["kv_lora_rank"], rope_theta=cfg.rope_theta,
+                positions=pos_, cache=c_),
+            ctx, params["attn"], h, cache, positions)
     elif cfg.kmeans_attn and cache is None and causal:
         y, nc = _routed_train_attention(params["attn"], h, ctx, cfg,
                                         rope_theta, positions)
     elif isinstance(cache, dict) and "centroids" in cache:
-        y, nc = _clustered_decode(params["attn"], h, ctx, cfg, cache,
-                                  rope_theta)
+        y, nc = _decode(params["attn"], h, ctx, cfg, cache, rope_theta,
+                        _clustered_core)
     elif isinstance(cache, dict) and "blen" in cache:
-        y, nc = _split_decode(params["attn"], h, ctx, cfg, cache,
-                              rope_theta, window=window)
+        y, nc = _decode(params["attn"], h, ctx, cfg, cache, rope_theta,
+                        functools.partial(_split_core, window=window))
     elif isinstance(cache, dict) and "ring" in cache:
-        y, nc = _ring_decode(params["attn"], h, ctx, cfg, cache,
-                             rope_theta, window=cfg.window_size)
+        y, nc = _decode(params["attn"], h, ctx, cfg, cache, rope_theta,
+                        functools.partial(_ring_core,
+                                          window=cfg.window_size))
     else:
         y, nc = attn.self_attention(
             params["attn"], h, ctx, num_heads=cfg.num_heads,
@@ -223,51 +228,69 @@ def _routed_train_attention(p, h, ctx: Ctx, cfg: ArchConfig, rope_theta,
                                head_dim=cfg.resolved_head_dim)
     if positions is None:
         positions = torch.arange(s, device=h.device).unsqueeze(0).expand(b, s)
-    if rope_theta is not None:
-        q = attn._rope_bshd(q, positions, rope_theta)
-        k = attn._rope_bshd(k, positions, rope_theta)
     groups = cfg.num_heads // cfg.num_kv_heads
-    k = attn._expand_kv(k, groups)
-    v = attn._expand_kv(v, groups)
     impl = "flash" if h.is_cuda else "ref"
-    o = kma.kmeans_routed_attention(
-        q, k, v, clusters=cfg.kv_cluster_k,
-        window=min(cfg.window_size, max(32, s // 8)),
-        scale=cfg.query_scale, impl=impl)
+
+    def routed(q, k, v, pos):
+        if rope_theta is not None:
+            q = attn._rope_bshd(q, pos, rope_theta)
+            k = attn._rope_bshd(k, pos, rope_theta)
+        return kma.kmeans_routed_attention(
+            q, attn._expand_kv(k, groups), attn._expand_kv(v, groups),
+            clusters=cfg.kv_cluster_k,
+            window=min(cfg.window_size, max(32, s // 8)),
+            scale=cfg.query_scale, impl=impl)
+    # the kernels take plain tensors: each rank fits and attends its own
+    # (sequence, head) problems
+    heads = common.HEADS
+    o = common.on_problems(routed, ctx, (q, k, v, positions),
+                           (heads, heads, heads, ("dp", None)), heads,
+                           dp=b, tp=cfg.num_kv_heads)
     return attn.attn_out(p, o, ctx), None
 
 
-def _clustered_decode(p, h, ctx: Ctx, cfg: ArchConfig, cache: dict,
-                      rope_theta):
-    """One-token decode against a flash-kmeans clustered KV cache."""
-    from repro_torch.models import kmeans_attention as kma
+def _decode(p, h, ctx: Ctx, cfg: ArchConfig, cache: dict, rope_theta, core):
+    """One-token decode of an attention sub-block against ``cache``: the
+    projections, then ``core(q, k, v, cache, cfg)`` after RoPE at the
+    cache's ``pos``, on each rank's own (sequence, kv head) problems on a
+    mesh (``common.on_problems``: the caches' gathers and in-place writes
+    have no DTensor rule over a split cache)."""
     q, k, v = attn.project_qkv(p, h, ctx, num_heads=cfg.num_heads,
                                num_kv_heads=cfg.num_kv_heads,
                                head_dim=cfg.resolved_head_dim)
-    q, k = _rope_at(q, k, cache["pos"], rope_theta)
-    o, nc = kma.clustered_decode_attention(
-        q, k, v, cache, top=cfg.kv_cluster_top,
-        softcap=cfg.attn_softcap, scale=cfg.query_scale)
+
+    def run(q, k, v, c):
+        q, k = _rope_at(q, k, c["pos"], rope_theta)
+        return core(q, k, v, c, cfg)
+    specs = common.problem_specs(cache)
+    heads = common.HEADS
+    o, nc = common.on_problems(run, ctx, (q, k, v, cache),
+                               (heads, heads, heads, specs), (heads, specs),
+                               dp=h.shape[0], tp=cfg.num_kv_heads)
     return attn.attn_out(p, o, ctx), nc
 
 
-def _split_decode(p, h, ctx: Ctx, cfg: ArchConfig, cache: dict, rope_theta,
-                  *, window=None):
+def _clustered_core(q, k, v, cache: dict, cfg: ArchConfig):
+    """One-token decode against a flash-kmeans clustered KV cache."""
+    from repro_torch.models import kmeans_attention as kma
+    return kma.clustered_decode_attention(
+        q, k, v, cache, top=cfg.kv_cluster_top, softcap=cfg.attn_softcap,
+        scale=cfg.query_scale)
+
+
+def _split_core(q, k, v, cache: dict, cfg: ArchConfig, *, window=None):
     """Split-KV decode: the prefix cache is frozen (populated at prefill),
     new tokens append to a small ``append`` buffer; one joint softmax over
     [bulk ++ recent]."""
-    b, s, _ = h.shape
+    b, s = q.shape[0], q.shape[1]
     hd = cfg.resolved_head_dim
-    q, k, v = attn.project_qkv(p, h, ctx, num_heads=cfg.num_heads,
-                               num_kv_heads=cfg.num_kv_heads, head_dim=hd)
     pos = cache["pos"]
-    q, k = _rope_at(q, k, pos, rope_theta)
     rlen = cache["rlen"]
     rk = attn.update_slice(cache["append_k"], k, rlen, 1)
     rv = attn.update_slice(cache["append_v"], v, rlen, 1)
 
-    kh = cfg.num_kv_heads
-    g = cfg.num_heads // kh
+    kh = k.shape[2]                  # this rank's kv heads
+    g = q.shape[2] // kh
     scale = cfg.query_scale if cfg.query_scale is not None else hd ** -0.5
     qf = q.reshape(b, kh, g, hd)
 
@@ -280,9 +303,9 @@ def _split_decode(p, h, ctx: Ctx, cfg: ArchConfig, cache: dict, rope_theta,
     sb = scores_of(cache["k"])                       # (B,KH,G,S_bulk)
     sr = scores_of(rk)                               # (B,KH,G,R)
     blen = cache["blen"]
-    kpos_b = torch.arange(cache["k"].shape[1], device=h.device)
+    kpos_b = torch.arange(cache["k"].shape[1], device=q.device)
     valid_b = kpos_b < blen
-    valid_r = torch.arange(rk.shape[1], device=h.device) <= rlen
+    valid_r = torch.arange(rk.shape[1], device=q.device) <= rlen
     if window is not None:
         valid_b = valid_b & (kpos_b > pos - window)
     sb = torch.where(valid_b, sb, attn.NEG_INF)
@@ -293,36 +316,75 @@ def _split_decode(p, h, ctx: Ctx, cfg: ArchConfig, cache: dict, rope_theta,
     ob = torch.einsum("bkgs,bskd->bkgd", (eb / denom).to(cache["v"].dtype),
                       cache["v"])
     orc = torch.einsum("bkgs,bskd->bkgd", (er / denom).to(rv.dtype), rv)
-    o = (ob + orc).reshape(b, 1, cfg.num_heads, hd)
-    nc = dict(cache, append_k=rk, append_v=rv, rlen=rlen + 1, pos=pos + s)
-    return attn.attn_out(p, o, ctx), nc
+    o = (ob + orc).reshape(b, 1, kh * g, hd)
+    return o, dict(cache, append_k=rk, append_v=rv, rlen=rlen + 1,
+                   pos=pos + s)
 
 
-def _ring_decode(p, h, ctx: Ctx, cfg: ArchConfig, cache: dict, rope_theta,
-                 *, window: int):
+def _ring_core(q, k, v, cache: dict, cfg: ArchConfig, *, window: int):
     """Sliding-window decode with a ring-buffer cache of ``window`` slots."""
-    b, s, _ = h.shape
-    hd = cfg.resolved_head_dim
-    q, k, v = attn.project_qkv(p, h, ctx, num_heads=cfg.num_heads,
-                               num_kv_heads=cfg.num_kv_heads, head_dim=hd)
+    s, hd = q.shape[1], cfg.resolved_head_dim
     pos = cache["pos"]
-    q, k = _rope_at(q, k, pos, rope_theta)
     slot = torch.remainder(pos, window)
     k_c = attn.update_slice(cache["k"], k, slot, 1)
     v_c = attn.update_slice(cache["v"], v, slot, 1)
-    kh = cfg.num_kv_heads
-    ke = attn._expand_kv(k_c, cfg.num_heads // kh)
-    ve = attn._expand_kv(v_c, cfg.num_heads // kh)
+    kh = k_c.shape[2]                # this rank's kv heads
+    ke = attn._expand_kv(k_c, q.shape[2] // kh)
+    ve = attn._expand_kv(v_c, q.shape[2] // kh)
     scale = cfg.query_scale if cfg.query_scale is not None else hd ** -0.5
     scores = torch.einsum("bqhd,bkhd->bhqk", q, ke).float() * scale
     if cfg.attn_softcap is not None:
         scores = torch.tanh(scores / cfg.attn_softcap) * cfg.attn_softcap
-    valid = torch.arange(window, device=h.device) <= pos   # filled slots
+    valid = torch.arange(window, device=q.device) <= pos   # filled slots
     scores = torch.where(valid, scores, attn.NEG_INF)
     w = torch.softmax(scores, dim=-1).to(ve.dtype)
     o = torch.einsum("bhqk,bkhd->bqhd", w, ve)
-    nc = dict(cache, k=k_c, v=v_c, pos=pos + s)
-    return attn.attn_out(p, o, ctx), nc
+    return o, dict(cache, k=k_c, v=v_c, pos=pos + s)
+
+
+# ---------------------------------------------------------------------------
+# Logical spec trees (the reference's second output of init_*)
+# ---------------------------------------------------------------------------
+
+def subblock_specs(cfg: ArchConfig, sub: str) -> dict:
+    """The logical specs of ``init_subblock``'s tree."""
+    norm = common.norm_specs(cfg.norm)
+    if sub in _RECURRENT:
+        core = {"mlstm": xl.mlstm_specs, "slstm": xl.slstm_specs,
+                "mamba2": m2.mamba2_specs}[sub]()
+        return {"norm": norm, "core": core}
+    specs = {"norm_attn": norm,
+             "attn": mla_mod.mla_specs() if cfg.attention == "mla"
+             else attn.attn_specs(qkv_bias=cfg.qkv_bias)}
+    if cfg.post_norm:
+        specs["postnorm_attn"] = common.norm_specs(cfg.norm)
+        specs["postnorm_mlp"] = common.norm_specs(cfg.norm)
+    specs["norm_mlp"] = common.norm_specs(cfg.norm)
+    if cfg.num_experts:
+        specs["mlp"] = moe_mod.moe_specs()
+    elif cfg.mlp_kind != "none":
+        specs["mlp"] = common.mlp_specs(cfg.mlp_kind)
+    else:
+        specs["mlp"] = {}
+    if cfg.cross_attention:
+        specs["cross"] = attn.attn_specs(qkv_bias=cfg.qkv_bias)
+        specs["norm_cross"] = common.norm_specs(cfg.norm)
+    return specs
+
+
+def stack_specs(cfg: ArchConfig) -> dict:
+    """The logical specs of ``init_stack``'s tree: the groups' leaves with a
+    leading replicated dim (the stacked groups), zamba2's shared block as
+    it is (ref. l.361-370)."""
+    subs, _ = group_layout(cfg)
+    lead = lambda s: (None, *s)                            # noqa: E731
+    specs = {"groups": {f"{i}_{sub}": shd.map_specs(lead,
+                                                subblock_specs(cfg, sub))
+                        for i, sub in enumerate(subs)
+                        if sub != "shared_attn"}}
+    if "shared_attn" in subs:
+        specs["shared"] = subblock_specs(cfg, "shared_attn")
+    return specs
 
 
 # ---------------------------------------------------------------------------
@@ -345,8 +407,7 @@ def init_stack(ini: Init, cfg: ArchConfig) -> dict:
 
 def _aliases(new: torch.Tensor, old: torch.Tensor) -> bool:
     return (new.shape == old.shape and new.dtype == old.dtype
-            and new.numel() > 0 and new.data_ptr() == old.data_ptr()
-            and new.stride() == old.stride())
+            and new.numel() > 0 and shd.same_memory(new, old))
 
 
 def _stack_leaf(old, leaves: list):

@@ -22,6 +22,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.utils import sharding as shd
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -43,9 +44,12 @@ def init(params: Any) -> dict:
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in f32 (a 0-dim tensor)."""
+    """sqrt of the sum of every leaf's squares, in f32 (a 0-dim tensor). On
+    DTensor leaves each leaf's sum is reduced to a replicated value before
+    the leaves' sums are added."""
     leaves = tree_leaves(tree)
-    return torch.sqrt(sum(torch.sum(leaf.float() ** 2) for leaf in leaves))
+    return torch.sqrt(sum(shd.replicated(torch.sum(leaf.float() ** 2))
+                          for leaf in leaves))
 
 
 def clip_by_global_norm(tree: Any, max_norm: float

@@ -8,7 +8,8 @@
   with the reliability layer's health ladder, fault injection, WAL,
   snapshots and ``recover``.
 
-Not ported yet (ROADMAP.md, queue A item 8a): ``Engine`` over a mesh.
+Both serve over a mesh: ``Engine(mesh=)`` (the LM's DTensors,
+``utils.sharding``) and ``SearchEngine`` over a sharded ``IVFIndex``.
 """
 from repro_torch.serve.engine import (Engine, SearchConfig, SearchEngine,
                                       ServeConfig)

@@ -27,8 +27,13 @@ temperature sampling draws from a ``torch.Generator``. ``Engine`` runs on
 the device of the parameters it is given (``models.model.init_model``
 puts them on ``cuda`` unless asked for the CPU). ``generate(...,
 frontend=)`` hands phi-3-vision's patches or whisper's frames to the
-prefill, and whisper's cross-KV to every decode. Not ported yet (ROADMAP.md
-queue A item 8a): ``Engine`` over a mesh, which refuses.
+prefill, and whisper's cross-KV to every decode. ``Engine(mesh=)`` serves
+over a ``DeviceMesh``: the params at their resolved spec tree's
+placements, the prompts at ``BATCH_SPECS``', the caches at
+``cache_logical_specs``' (kv heads over ``model`` where they divide it,
+else the split-KV layout), and the clustered build and refresh on each
+rank's own (sequence, kv head) problems, so the kernels see the local
+tensors; every rank returns the whole batch's tokens.
 
 ``SearchConfig`` and ``SearchEngine`` (port of l.169-714) serve the
 FlashIVF index on one device: continuous batching of ragged query traffic
@@ -108,14 +113,16 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.parallel import COLLECTIVE_FAULTS
 from repro_torch.kernels._build import KernelUnavailable
+from repro_torch.launch import specs as launch_specs
 from repro_torch.models import kmeans_attention as kma
+from repro_torch.models import common
 from repro_torch.models import model as M
-from repro_torch.models import transformer as T
 from repro_torch.models.common import Ctx
 from repro_torch.reliability.health import (HealthCounters, HealthPolicy,
                                             NonFiniteResult)
 from repro_torch.reliability.validate import guard_batch
 from repro_torch.reliability.wal import AddLog
+from repro_torch.utils import sharding as shd
 
 # Faults of the card's kernels, never absorbed by the ladder or the queue of
 # pending adds: a kernel that cannot build or launch, and a CUDA error that
@@ -164,14 +171,23 @@ class Engine:
 
     def __init__(self, cfg: ArchConfig, params: dict, scfg: ServeConfig,
                  mesh=None, compute_dtype=torch.float32):
-        T.check_ported(cfg, mesh)        # an Engine over a mesh refuses
         if scfg.mode not in ("dense", "clustered"):
             raise ValueError(f"unknown serving mode {scfg.mode!r}")
         self.cfg = cfg
         self.scfg = scfg
+        self.mesh = mesh
+        if mesh is not None:
+            # the resolved spec tree's placements; DTensors are
+            # redistributed to them, global tensors sliced
+            params = shd.place_tree(params, M.model_specs(cfg), mesh)
         self.params = params
         self.device = params["embed"]["embedding"].device
-        self.ctx = Ctx(compute_dtype=compute_dtype, device=self.device)
+        self.ctx = Ctx(compute_dtype=compute_dtype, device=self.device,
+                       mesh=mesh)
+        # the caches' specs: kv heads over the model axis where they divide
+        # it, else the split-KV layout (launch.specs._cache_leaf_specs)
+        self.kv_heads_shardable = mesh is not None and \
+            cfg.num_kv_heads % shd.axis_size(mesh, "model") == 0
         self.recluster_count = 0   # incremental flushes performed
 
     # ------------------------------------------------------------------
@@ -186,40 +202,72 @@ class Engine:
         return M.decode_step(self.params, tok, caches, self.ctx, self.cfg,
                              cross_kv=cross_kv)
 
+    def _place_caches(self, caches: dict) -> dict:
+        """On a mesh, every cache leaf to the placements of
+        ``cache_logical_specs`` (the identity without a mesh)."""
+        if self.mesh is None:
+            return caches
+        return shd.place_tree(caches, launch_specs.cache_logical_specs(
+            caches, self.kv_heads_shardable), self.mesh)
+
+    def _on_problems(self, fn, cache: dict) -> dict:
+        """``fn`` (a clustered build or refresh) on this rank's own
+        problems: on a mesh the cache's leaves are redistributed so that
+        each rank holds whole (sequence, kv head) rows, sequences over the
+        ``"dp"`` axes and kv heads over ``"tp"`` where they divide it (the
+        classic-TP cache specs with nothing else split:
+        ``common.problem_specs``), the kernels run on the local tensors
+        (``shd.local``), and the result comes back at the cache's own
+        placements. The problems are independent, so the local
+        fit is the one-device fit of those problems."""
+        if self.mesh is None:
+            return fn(cache)
+        keys = list(cache)
+        specs = common.problem_specs(cache, lead=1)
+        out = common.on_problems(
+            lambda *leaves: fn(dict(zip(keys, leaves))), self.ctx,
+            tuple(cache[k] for k in keys), tuple(specs[k] for k in keys),
+            lambda out: common.problem_specs(out, lead=1),
+            dp=next(t for t in cache.values() if t.ndim > 1).shape[1],
+            tp=self.cfg.num_kv_heads)
+        return self._place_caches(out)
+
     def _cluster_caches(self, caches: dict, seq_len: int) -> dict:
         """Convert dense prefill caches to the clustered layout: for each
-        sub-block key, its G groups' keys in one batched build."""
+        sub-block key, its G groups' keys in one batched build (on a mesh,
+        each rank's own problems: ``_on_problems``)."""
         cfg, scfg = self.cfg, self.scfg
         kc, cap = M.clustered_geometry(cfg, seq_len)
         kc = min(kc, max(4, seq_len // 8))
         hd = cfg.resolved_head_dim
-        out = {}
-        for key, sub_cache in caches.items():
-            if "k" not in sub_cache:
-                out[key] = sub_cache
-                continue
+
+        def build(sub_cache):
             k_, v_ = sub_cache["k"], sub_cache["v"]        # (G,B,S,KH,hd)
             c = kma.build_clustered_cache(
                 k_[:, :, :seq_len], v_[:, :, :seq_len], kc=kc, capacity=cap,
                 iters=scfg.kmeans_iters)
-            g, b = k_.shape[0], k_.shape[1]
+            g, b, kh = k_.shape[0], k_.shape[1], k_.shape[3]
             c.update(
-                recent_k=torch.zeros((g, b, cfg.num_kv_heads, scfg.recent,
-                                      hd), dtype=k_.dtype, device=k_.device),
-                recent_v=torch.zeros((g, b, cfg.num_kv_heads, scfg.recent,
-                                      hd), dtype=k_.dtype, device=k_.device),
+                recent_k=torch.zeros((g, b, kh, scfg.recent, hd),
+                                     dtype=k_.dtype, device=k_.device),
+                recent_v=torch.zeros((g, b, kh, scfg.recent, hd),
+                                     dtype=k_.dtype, device=k_.device),
                 rlen=torch.zeros((g,), dtype=torch.int32, device=k_.device),
                 pos=sub_cache["pos"])
-            out[key] = c
-        return out
+            return c
+
+        return {key: self._on_problems(build, sub_cache)
+                if "k" in sub_cache else sub_cache
+                for key, sub_cache in caches.items()}
 
     def _recluster(self, caches: dict) -> dict:
         """Flush every clustered sub-cache through the warm-start
         ``partial_fit`` refresh (all its groups at once): no full refit
         of the bucketed keys."""
-        caches = {key: kma.refresh_clustered_cache(
-                      c, iters=self.scfg.recluster_iters,
-                      decay=self.scfg.recluster_decay)
+        refresh = lambda c: kma.refresh_clustered_cache(   # noqa: E731
+            c, iters=self.scfg.recluster_iters,
+            decay=self.scfg.recluster_decay)
+        caches = {key: self._on_problems(refresh, c)
                   if _is_clustered(c) else c for key, c in caches.items()}
         self.recluster_count += 1
         return caches
@@ -229,10 +277,25 @@ class Engine:
                  generator: torch.Generator | None = None) -> torch.Tensor:
         """tokens: (B, S) prompt -> (B, steps) int32 generated ids.
         ``frontend``: (B, F, D) patches (vlm) or frames (audio)."""
-        tokens = torch.as_tensor(tokens).to(self.device)
+        tokens = self._put(tokens, "tokens")
         if frontend is not None:
-            frontend = torch.as_tensor(frontend).to(self.device)
+            frontend = self._put(frontend, "frontend")
+        with shd.region(self.mesh):
+            return self._generate(tokens, steps, frontend, generator)
+
+    def _put(self, x, name: str) -> torch.Tensor:
+        """An input on the engine's device; on a mesh, this rank's slice of
+        it as a DTensor of its ``BATCH_SPECS`` placements."""
+        x = torch.as_tensor(x).to(self.device)
+        if self.mesh is None:
+            return x
+        spec = shd.resolve_spec(launch_specs.BATCH_SPECS[name], x.shape,
+                                self.mesh)
+        return shd.place(x, self.mesh, shd.placements(spec, self.mesh))
+
+    def _generate(self, tokens, steps, frontend, generator):
         logits, caches, cross = self._prefill(tokens, frontend)
+        caches = self._place_caches(caches)
         clustered = self.scfg.mode == "clustered"
         if clustered:
             caches = self._cluster_caches(caches, tokens.shape[1])
@@ -255,15 +318,21 @@ class Engine:
         if not out:   # steps=0: prefill-only call, an empty result
             return torch.zeros((tokens.shape[0], 0), dtype=torch.int32,
                                device=self.device)
-        return torch.cat(out, dim=1)
+        return shd.gather(torch.cat(out, dim=1))
 
     def _sample(self, logits: torch.Tensor,
                 generator: torch.Generator | None) -> torch.Tensor:
+        """The next tokens (B, 1) int32. On a mesh every rank samples the
+        whole batch from the gathered logits (the same bits on every rank,
+        and the same draws from the same generator) and keeps its slice."""
+        logits = shd.gather(logits)
         if self.scfg.temperature <= 0 or generator is None:
-            return torch.argmax(logits, -1).unsqueeze(1).to(torch.int32)
-        probs = torch.softmax(logits / self.scfg.temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=generator).to(
-            torch.int32)
+            tok = torch.argmax(logits, -1).unsqueeze(1).to(torch.int32)
+        else:
+            probs = torch.softmax(logits / self.scfg.temperature, dim=-1)
+            tok = torch.multinomial(probs, 1, generator=generator).to(
+                torch.int32)
+        return tok if self.mesh is None else self._put(tok, "tokens")
 
 
 @dataclasses.dataclass

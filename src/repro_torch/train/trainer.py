@@ -18,6 +18,16 @@ A step ends with one host sync, the read of its loss (the reference's
 ``block_until_ready``), so a fault raised on the device surfaces inside
 that step. On a CUDA device each step's device time is also taken with
 CUDA events (``device_ms``).
+
+On a mesh (``pctx=``, a ``core.parallel.ParallelContext``) every decision
+is agreed before any rank acts on it, in one all-reduce of three flags
+after each step (``ParallelContext.any_of``): a step that failed on any
+rank is replayed on every rank, a SIGTERM on any rank stops every rank
+before the next step, and a straggler step counts on every rank; the
+checkpoints are the mesh's (``Checkpointer(pctx=)``). Otherwise one rank
+would step while another waits in a collective until the group's timeout.
+The metrics a step returns are whole on every rank
+(``train_step.make_train_step(mesh=)``).
 """
 from __future__ import annotations
 
@@ -47,14 +57,17 @@ class TrainerConfig:
 
 class Trainer:
     def __init__(self, tcfg: TrainerConfig, train_step: Callable,
-                 pipeline, put_batch: Callable[[dict], dict]):
+                 pipeline, put_batch: Callable[[dict], dict], *, pctx=None):
         """train_step(params, opt, batch, step) -> (params, opt, metrics);
-        put_batch places a host batch on the device."""
+        put_batch places a host batch on the device (on a mesh, its
+        DTensors)."""
         self.cfg = tcfg
         self.train_step = train_step
         self.pipeline = pipeline
         self.put_batch = put_batch
-        self.ckpt = Checkpointer(tcfg.checkpoint_dir, keep=tcfg.keep)
+        self.pctx = pctx
+        self.ckpt = Checkpointer(tcfg.checkpoint_dir, keep=tcfg.keep,
+                                 pctx=pctx)
         self.step_times: list[float] = []
         self.device_ms: list[float] = []
         self.straggler_steps: list[int] = []
@@ -79,6 +92,13 @@ class Trainer:
             if previous is not None:
                 signal.signal(signal.SIGTERM, previous)
 
+    def _any(self, *flags: bool) -> list[bool]:
+        """Each flag true on every rank when it is true on some rank, all
+        agreed in one all-reduce (the flags themselves without a mesh)."""
+        if self.pctx is None:
+            return list(flags)
+        return self.pctx.any_of(flags)
+
     def _run(self, params, opt_state, start_step, metrics_cb):
         state = {"params": params, "opt": opt_state}
 
@@ -90,11 +110,13 @@ class Trainer:
             step = latest
 
         ema, saved = None, None
+        [preempted] = self._any(self._preempted)
         while step < self.cfg.total_steps:
-            if self._preempted:
+            if preempted:
                 self.ckpt.save(step, state, blocking=True)
                 return state, step
             t0 = time.perf_counter()
+            err = None
             try:
                 if self.fault_hook is not None:
                     self.fault_hook(step)
@@ -110,12 +132,24 @@ class Trainer:
                 if events is not None:
                     events[1].record()
                 metrics["loss"].item()     # the one host sync a step
-                state = {"params": p, "opt": o}
-            except Exception:
+            except Exception as e:   # agreed below, then replayed or raised
+                err = e
+            dt = time.perf_counter() - t0
+            # the step's one agreement: a fault, a straggler, and a SIGTERM
+            # that stops the loop before the next step
+            failed, slow, preempted = self._any(
+                err is not None,
+                err is None and ema is not None
+                and dt > self.cfg.straggler_factor * ema,
+                self._preempted)
+            if failed:
                 # fault path: restore + replay
                 self.retries += 1
                 if self.retries > self.cfg.max_retries:
-                    raise
+                    if err is not None:
+                        raise err
+                    raise RuntimeError(f"step {step} failed on another rank "
+                                       f"{self.retries} times")
                 latest = self.ckpt.latest_step()
                 if latest is None:
                     step = start_step
@@ -123,12 +157,12 @@ class Trainer:
                 state = self.ckpt.restore(latest, state)
                 step = latest
                 continue
+            state = {"params": p, "opt": o}
 
-            dt = time.perf_counter() - t0
             self.step_times.append(dt)
             if events is not None:
                 self.device_ms.append(events[0].elapsed_time(events[1]))
-            if ema is not None and dt > self.cfg.straggler_factor * ema:
+            if slow:
                 self.straggler_steps.append(step)
             ema = dt if ema is None else 0.9 * ema + 0.1 * dt
 

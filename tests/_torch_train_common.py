@@ -2,7 +2,14 @@
 the JAX package's reduced model and its weights carried to the port through
 ``models.bridge``, one batch made with numpy, and the two packages' loss
 and gradients."""
+import contextlib
 import functools
+import json
+import os
+import socket
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +26,7 @@ from repro_torch.models import model as TM
 from repro_torch.models.common import Ctx
 from repro_torch.utils.tree import tree_leaves, tree_map
 
+_ROOT = Path(__file__).resolve().parents[1]
 JC = JCtx(mesh=None, compute_dtype=jnp.float32)
 TC = Ctx(compute_dtype=torch.float32, device="cpu")
 ARCHS = sorted(jbase.all_configs())
@@ -131,3 +139,68 @@ def check_loss_and_grads(arch):
     assert torch.equal(rl, tl)
     for a, b in zip(rg, tg):
         assert torch.equal(a, b), arch
+
+
+@contextlib.contextmanager
+def mesh_of_one():
+    """A 1x1 ``data x model`` mesh over a gloo world of one rank, released
+    after the block."""
+    from repro_torch.core import parallel as par
+    try:
+        yield par.build_mesh((1, 1), ("data", "model"), device_type="cpu")
+    finally:
+        par.release_world()
+
+
+def jax_draws(lengths):
+    """The reference's ``random_init`` rows for every (length, count) a
+    worker's fits ask for: one PRNG key for all problems."""
+    return {(n, kc): np.asarray(jax.random.choice(
+        jax.random.PRNGKey(0), n, (kc,), replace=False))
+        for n in lengths for kc in range(1, 17)}
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+_RANK_MAIN = """
+import json, sys
+from repro_torch.launch import {mod}
+out = {mod}.main(sys.argv[2:])
+json.dump({{k: out[k] for k in {keys!r}}}, open(sys.argv[1], "w"),
+          default=lambda v: v.tolist())
+"""
+
+
+def torchrun(tmp_path, world, mod, keys, argv):
+    """``repro_torch.launch.<mod>.main(argv)`` on ``world`` ranks that
+    rendezvous as ``torchrun``'s do (``RANK``, ``WORLD_SIZE``,
+    ``MASTER_ADDR``, ``MASTER_PORT``; gloo on the CPU). Returns each rank's
+    ``keys`` of the summary and each rank's output."""
+    port = _free_port()
+    procs = []
+    for r in range(world):
+        env = {**os.environ, "PYTHONPATH": str(_ROOT / "src"),
+               "OMP_NUM_THREADS": "1", "RANK": str(r),
+               "LOCAL_RANK": str(r), "WORLD_SIZE": str(world),
+               "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _RANK_MAIN.format(mod=mod, keys=keys),
+             str(tmp_path / f"r{r}.json"), *argv],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=240)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, f"rank {r} failed:\n{logs[r][-3000:]}"
+    return [json.load(open(tmp_path / f"r{r}.json")) for r in range(world)], \
+        logs

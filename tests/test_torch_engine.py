@@ -385,18 +385,16 @@ def test_launcher_serves_search_on_the_cpu(codec, capsys):
 @pytest.mark.parametrize("flags,item", [
     (["--mode", "dense", "--arch", "llama3-8b", "--reduced", "--mesh",
       "1x1"], "item 8a"),
-    (["--mode", "clustered", "--arch", "minicpm3-4b", "--mesh", "1x1"],
-     "item 8a"),
+    (["--mode", "clustered", "--arch", "minicpm3-4b", "--reduced",
+      "--mesh", "1x1"], "item 8a"),
     (["--mesh", "1x1", "--health"], None)])
 def test_launcher_refuses_what_is_not_ported(flags, item):
-    """LM serving over a mesh waits for item 8a, for every family (here
-    the dense-attention one and MLA); on one device every family serves
-    (``tests/test_torch_lm_engine.py``, ``tests/test_torch_zoo_engine.py``).
-    ``--mesh`` itself is
-    ported (``test_launcher_serves_a_mesh_of_one``), with the paged store,
-    q8 and the two-level router (``test_launcher_mesh_serves_the_6b_axes``)
-    and, since item 6b, with its health policy (``item`` None: it
-    serves)."""
+    """Since item 8a's mesh half every flag here serves: LM serving over a
+    mesh (here the dense-attention family and MLA, at world size 1: the
+    ids of the launcher without ``--mesh``, no process group left behind;
+    ``tests/test_torch_mesh_lm_serve.py`` serves on 4 ranks), and the
+    sharded index with its health policy (``item`` None)."""
+    import torch.distributed as dist
     from repro_torch.launch import serve
     if item is None:
         out = serve.main(["--device", "cpu", "--n", "2000", "--d", "16",
@@ -404,8 +402,12 @@ def test_launcher_refuses_what_is_not_ported(flags, item):
                           *flags])
         assert out["recall"] >= 0.9 and "counters" in out
         return
-    with pytest.raises(NotImplementedError, match=f"queue A {item}"):
-        serve.main(["--device", "cpu", *flags])
+    lm = ["--device", "cpu", "--batch", "2", "--prompt-len", "32", "--gen",
+          "4", "--recent", "2"]
+    got = serve.main([*lm, *flags])
+    assert not dist.is_initialized()
+    want = serve.main([*lm, *flags[:-2]])
+    assert torch.equal(got["ids"], want["ids"])
 
 
 def test_launcher_serves_a_mesh_of_one(capsys):

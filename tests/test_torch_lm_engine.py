@@ -168,9 +168,18 @@ def test_temperature_sampling_draws_from_the_generator():
 
 
 def test_engine_refuses_a_mesh_and_unknown_modes():
+    """An ``Engine`` over a mesh serves (here a 1x1 mesh: the one-device
+    engine's ids, its params placed as DTensors; 4 ranks in
+    ``tests/test_torch_mesh_lm_serve.py``); an unknown mode raises."""
+    from _torch_train_common import mesh_of_one
+    from repro_torch.utils import sharding as shd
     _, tcfg, _, tp = _models("llama3-8b")
-    with pytest.raises(NotImplementedError, match="queue A item 8a"):
-        Engine(tcfg, tp, ServeConfig(), mesh=object())
+    tokens = torch.from_numpy(_prompt(tcfg, 17))
+    want = Engine(tcfg, tp, ServeConfig(max_seq=48)).generate(tokens, 4)
+    with mesh_of_one() as mesh:
+        eng = Engine(tcfg, tp, ServeConfig(max_seq=48), mesh=mesh)
+        assert shd.is_dtensor(eng.params["embed"]["embedding"])
+        assert torch.equal(eng.generate(tokens, 4), want)
     with pytest.raises(ValueError, match="serving mode"):
         Engine(tcfg, tp, ServeConfig(mode="sparse"))
 

@@ -333,7 +333,18 @@ def test_entry_points_default_to_cuda(entry):
 
 
 def test_ctx_with_a_mesh_refuses_constraints():
-    x = torch.ones(2, 3)
+    """``Ctx.constrain`` is the identity without a mesh and on a plain
+    tensor; on a mesh it redistributes a DTensor to the placements its
+    logical spec resolves to, the values unchanged."""
+    from _torch_train_common import mesh_of_one
+    from repro_torch.utils import sharding as shd
+    x = torch.arange(6.0).reshape(2, 3)
     assert Ctx(device="cpu").constrain(x, "dp") is x
-    with pytest.raises(NotImplementedError, match="queue A item 8a"):
-        Ctx(device="cpu", mesh=object()).constrain(x, "dp")
+    with mesh_of_one() as mesh:
+        ctx = Ctx(device="cpu", mesh=mesh)
+        assert ctx.constrain(x, "dp") is x
+        d = shd.place(x, mesh, shd.placements((None, "model"), mesh))
+        y = ctx.constrain(d, "dp", None)
+        assert list(y.placements) == shd.placements(
+            shd.resolve_spec(("dp", None), (2, 3), mesh), mesh)
+        assert torch.equal(shd.gather(y), x)

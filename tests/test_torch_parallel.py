@@ -445,14 +445,15 @@ _COLLECTIVE = re.compile(
 def test_no_collective_call_sites_outside_parallel():
     """The port's counterpart of ``test_zero_shard_map_call_sites_outside_
     parallel`` (tests/distributed/test_parallel.py:51): only
-    ``core/parallel.py`` imports ``torch.distributed`` or calls a
-    collective, ``to_local``, ``from_local``, ``local_map`` or
-    ``distribute_tensor``; every other module goes through the
-    ``ParallelContext``'s methods."""
+    ``core/parallel.py`` and ``utils/sharding.py`` (the LM path's DTensor
+    redistributions) import ``torch.distributed`` or call a collective,
+    ``to_local``, ``from_local``, ``local_map`` or ``distribute_tensor``;
+    every other module goes through the ``ParallelContext``'s methods or
+    ``utils.sharding``'s."""
     offenders = []
     for path in sorted(SRC.rglob("*.py")):
         rel = path.relative_to(SRC).as_posix()
-        if rel == "core/parallel.py":
+        if rel in ("core/parallel.py", "utils/sharding.py"):
             continue
         for lineno, line in enumerate(path.read_text().splitlines(), 1):
             code = line.split("#", 1)[0]
@@ -460,6 +461,7 @@ def test_no_collective_call_sites_outside_parallel():
                 offenders.append(f"{rel}:{lineno}: {line.strip()}")
     assert not offenders, "\n".join(offenders)
     assert _COLLECTIVE.search((SRC / "core" / "parallel.py").read_text())
+    assert _COLLECTIVE.search((SRC / "utils" / "sharding.py").read_text())
 
 
 def test_the_guard_catches_each_form():

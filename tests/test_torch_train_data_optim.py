@@ -68,12 +68,25 @@ def test_pipeline_for_and_the_batch_specs_follow_the_reference(arch):
 
 
 def test_a_mesh_is_refused_naming_item_8a():
-    with pytest.raises(NotImplementedError, match="queue A item 8a"):
-        tpipe.put_batch({"tokens": np.zeros((1, 2), np.int32)}, "cpu",
-                        mesh=object())
-    with pytest.raises(NotImplementedError, match="queue A item 8a"):
-        train_batch_specs(tbase.get_config("llama3-8b"),
-                          tbase.SHAPES["train_4k"], mesh=object())
+    """On a mesh a batch is placed by ``BATCH_SPECS`` (each leaf a DTensor
+    of the global batch's shape and values) and ``train_batch_specs``
+    returns the reference's ``(batch, shardings)`` pair as placements."""
+    from _torch_train_common import mesh_of_one
+    from repro_torch.launch.specs import BATCH_SPECS
+    from repro_torch.utils import sharding as shd
+    b = {"tokens": np.arange(6, dtype=np.int32).reshape(2, 3),
+         "frontend": np.ones((2, 4, 5), np.float32)}
+    with mesh_of_one() as mesh:
+        on = tpipe.put_batch(b, "cpu", mesh=mesh)
+        for k, v in b.items():
+            assert shd.is_dtensor(on[k]) and tuple(on[k].shape) == v.shape
+            assert list(on[k].placements) == shd.placements(
+                shd.resolve_spec(BATCH_SPECS[k], v.shape, mesh), mesh)
+            np.testing.assert_array_equal(shd.gather(on[k]).numpy(), v)
+        cfg, shape = tbase.get_config("llama3-8b"), tbase.SHAPES["train_4k"]
+        batch, placed = train_batch_specs(cfg, shape, mesh=mesh)
+        assert batch == train_batch_specs(cfg, shape)
+        assert set(placed) == set(batch)
 
 
 def _tree(rng, scale=1.0):

@@ -149,7 +149,51 @@ def test_serve_and_prefill_steps_are_the_models_functions():
 @pytest.mark.parametrize("factory", ["make_train_step", "make_serve_step",
                                      "make_prefill"])
 def test_a_mesh_is_refused_naming_item_8a(factory):
-    _, tcfg, _, _ = models("llama3-8b")
-    kw = {"max_seq": 8} if factory == "make_prefill" else {}
-    with pytest.raises(NotImplementedError, match="queue A item 8a"):
-        getattr(tts, factory)(tcfg, object(), **kw)
+    """Each factory takes a mesh: on a 1x1 mesh (params, batch and caches
+    as DTensors) its step gives the one-device step's numbers (a train
+    step's metrics and params, the prefill's and a decode step's logits);
+    ``tests/test_torch_mesh_lm.py`` runs them on 4 ranks."""
+    from _torch_train_common import mesh_of_one
+    from repro_torch.utils import sharding as shd
+    _, tcfg, _, npp = models("llama3-8b")
+    f32 = {"compute_dtype": torch.float32}
+    tok = torch.from_numpy(np.random.default_rng(4).integers(
+        0, tcfg.vocab_size, (2, 8)).astype(np.int32))
+    with mesh_of_one() as mesh:
+        placed = shd.place_tree(port_params(tcfg, npp), TM.model_specs(tcfg),
+                                mesh)
+        tok_m = shd.place(tok, mesh, shd.placements(("data",), mesh))
+        if factory == "make_train_step":
+            b = _data(tcfg).batch_at(0)
+            one = port_params(tcfg, npp)
+            lr = adamw.cosine_schedule(LR, 0, 10)
+            want = tts.make_train_step(tcfg, lr_schedule=lr, **f32)(
+                one, adamw.init(one), tpipe.put_batch(b, "cpu"), 0)
+            got = tts.make_train_step(tcfg, mesh, lr_schedule=lr, **f32)(
+                placed, adamw.init(placed),
+                tpipe.put_batch(b, "cpu", mesh=mesh), 0)
+            for k, v in want[2].items():
+                assert not shd.is_dtensor(got[2][k])
+                np.testing.assert_allclose(float(got[2][k]), float(v),
+                                           rtol=1e-5)
+            for g, w in zip(tree_leaves(got[0]), tree_leaves(want[0])):
+                np.testing.assert_allclose(shd.gather(g).numpy(), w.numpy(),
+                                           rtol=1e-5, atol=1e-7)
+            return
+        prefill = tts.make_prefill(tcfg, mesh, max_seq=12, **f32)
+        want = tts.make_prefill(tcfg, max_seq=12, **f32)(
+            port_params(tcfg, npp), tok)
+        logits, caches, _ = prefill(placed, tok_m)
+        if factory == "make_prefill":
+            np.testing.assert_allclose(shd.gather(logits).numpy(),
+                                       want[0].numpy(), rtol=1e-5,
+                                       atol=1e-5)
+            return
+        nxt = want[0].argmax(-1).to(torch.int32)
+        one, _ = tts.make_serve_step(tcfg, **f32)(
+            port_params(tcfg, npp), nxt, want[1])
+        got, _ = tts.make_serve_step(tcfg, mesh, **f32)(
+            placed, shd.place(nxt, mesh, shd.placements(("data",), mesh)),
+            caches)
+        np.testing.assert_allclose(shd.gather(got).numpy(), one.numpy(),
+                                   rtol=1e-5, atol=1e-5)

@@ -154,9 +154,18 @@ def test_launcher_trains_the_reduced_config_on_the_cpu(tmp_path, capsys):
 @pytest.mark.parametrize("flag", [["--mesh", "2x4"], ["--production-mesh"],
                                   ["--multi-pod"]])
 def test_launcher_refuses_a_mesh_naming_item_8a(flag):
-    with pytest.raises(NotImplementedError, match="queue A item 8a"):
+    """The mesh flags build their mesh over the world: on a world of one
+    rank ``build_mesh`` raises the ``ValueError`` that names the ranks the
+    mesh needs, and no process group is left behind
+    (``tests/test_torch_mesh_lm.py`` trains on a 2x2 mesh)."""
+    import torch.distributed as dist
+    ranks = {"--mesh": 8, "--production-mesh": 256, "--multi-pod": 512}[
+        flag[0]]
+    with pytest.raises(ValueError, match=f"needs {ranks} ranks; the world "
+                                         "has 1"):
         launch_train.main(["--arch", "llama3-8b", "--reduced", "--device",
                            "cpu", *flag])
+    assert not dist.is_initialized()
 
 
 @pytest.mark.skipif(torch.cuda.is_available(),

@@ -257,10 +257,22 @@ def test_first_pos_reads_jax_leaf_order():
 
 
 def test_mesh_still_refuses():
-    cfg = tbase.get_config("zamba2-7b").reduced()
-    with pytest.raises(NotImplementedError, match="queue A item 8a"):
-        TT.check_ported(cfg, mesh=object())
-    TT.check_ported(cfg)
+    """zamba2 (Mamba2 and the shared attention block) runs over a mesh:
+    its forward on a 1x1 mesh, the params placed by their spec tree, gives
+    the one-device logits."""
+    from _torch_train_common import mesh_of_one
+    from repro_torch.utils import sharding as shd
+    _, tcfg, _, tp = _models("zamba2-7b")
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, tcfg.vocab_size, (2, 16)).astype(np.int32))
+    want = TM.forward(tp, tokens, TC, tcfg)
+    with mesh_of_one() as mesh:
+        ctx = Ctx(compute_dtype=torch.float32, device="cpu", mesh=mesh)
+        placed = shd.place_tree(tp, TM.model_specs(tcfg), mesh)
+        tok = shd.place(tokens, mesh, shd.placements(("data",), mesh))
+        got = shd.gather(TM.forward(placed, tok, ctx, tcfg))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_recurrent_prefill_needs_whole_chunks():
