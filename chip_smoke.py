@@ -172,7 +172,8 @@ serving phase (details in ``chip_smoke_lm.json``), ``--zoo-only`` the build
 and the LM zoo phase (details in ``chip_smoke_zoo.json``), ``--train-only``
 the build and the training phase (details in ``chip_smoke_train.json``),
 ``--mesh-lm-only`` the build and the LM-over-a-mesh phase 16 (details in
-``chip_smoke_mesh_lm.json``).
+``chip_smoke_mesh_lm.json``), ``--dryrun-only`` the dry-run phase 17 alone,
+without the build (details in ``chip_smoke_dryrun.json``).
 Details go to
 ``chip_smoke.json`` in the repository's git-ignored output directory.
 """
@@ -393,6 +394,7 @@ REL_ADDS, REL_ADD_ROWS = 24, 4096     # the durability run's adds
 REL_REFRESH, REL_SNAP = 8, 12         # refresh_every, snapshot_every
 REL_QPS_REQUESTS = 64                 # requests of IVF_B rows, +/- health
 CHAOS_SEEDS, CHAOS_UNITS, CHAOS_ADDS = (7, 8, 9), 64, 16
+BF16_INDEX = (65536, 256, 128)   # (f): the bf16 index's rows, K, d
 UPDATE_BIT_REPS = 5   # runs of the regimes' update and FlashLloyd compared
 DET_SHAPE, DET_REPS = (65536, 8), 5   # a cluster spans 32 update chunks
 
@@ -809,9 +811,87 @@ def reliability_phase(dev, smi, zero_counts, read_counts, details):
             del live, back, adds, units, held, wal
             sync()
             torch.cuda.empty_cache()
+        rec["bf16_files"] = bf16_files_check(dev, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return runs
+
+
+def bf16_files_check(dev, tmp):
+    """Phase 11 (f): bfloat16 files in the reference's format, written from
+    the card. A bf16 index (``BF16_INDEX``, seed ``SEED + 111``) is saved,
+    a bf16 batch appended to a WAL, and a checkpoint of a bf16 and an f32
+    leaf saved: each bf16 array must be the ``|V2`` records of the
+    tensor's int16 view, byte for byte, under a manifest entry
+    ``bfloat16``; and each load must refuse as the reference's does
+    (``load_index``: ``ValueError``, the manifest against ``|V2``;
+    ``AddLog.replay``: the ``|V2`` array; ``Checkpointer.restore``:
+    ``TypeError`` naming the leaf)."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.index import IVFIndex
+    from repro_torch.reliability import AddLog, load_index, read_manifest
+    n, k, d = BF16_INDEX
+    g = torch.Generator(device=dev).manual_seed(SEED + 111)
+    x = (torch.randn(n, d, device=dev, generator=g) * 2).to(torch.bfloat16)
+    idx = IVFIndex(x[:k].clone(), 2 * n // k, device=dev)
+    idx.add(x)
+
+    def same(arr, t):
+        """``arr`` holds the |V2 records of ``t``'s int16 view."""
+        return arr.dtype.str == "|V2" and np.array_equal(
+            arr.view(np.int16), t.detach().view(torch.int16).cpu().numpy())
+    out = {}
+    sdir = os.path.join(tmp, "bf16_index")
+    idx.save(sdir, seqno=1)
+    man = read_manifest(sdir)["arrays"]
+    with np.load(os.path.join(sdir, "index_00000001.npz")) as z:
+        files = {"centroids": same(z["centroids"], idx.global_centroids()),
+                 "buckets": same(z["buckets"], idx.store.dense()[0])}
+    try:
+        load_index(sdir, device=dev)
+        refused = "loaded"
+    except ValueError as e:
+        refused = str(e)
+    dtypes = {key: man[key]["dtype"] for key in files}
+    out["snapshot"] = dict(files, manifest=dtypes, refusal=refused)
+    named = all(f"key '{key}': manifest says" in refused for key in files)
+    check(all(files.values()) and set(dtypes.values()) == {"bfloat16"}
+          and named and "|V2" in refused,
+          f"bf16 snapshot of an index of {n} rows, K {k}, d {d} written on "
+          f"the card: centroids and buckets the |V2 records of their int16 "
+          f"views {files}, manifest {dtypes}; load_index refuses: "
+          f"{' '.join(refused.split())!r}")
+    log = AddLog(os.path.join(tmp, "bf16_wal"))
+    log.append(1, x[:512])
+    ((seq, batch),) = list(log.replay())
+    out["wal"] = {"seqno": seq, "descr": batch.dtype.str,
+                  "bytes_equal": same(batch, x[:512])}
+    check(seq == 1 and out["wal"]["bytes_equal"],
+          f"bf16 WAL record written on the card: replay yields the |V2 "
+          f"records of the batch's int16 view {out['wal']}")
+    ck = Checkpointer(os.path.join(tmp, "bf16_ckpt"))
+    state = {"h": x[:64], "w": x[:64].float()}
+    ck.save(2, state, blocking=True)
+    with np.load(os.path.join(tmp, "bf16_ckpt", "step_00000002.npz")) as z:
+        leaf = same(z["['h']"], x[:64])
+        f32 = np.array_equal(z["['w']"], x[:64].float().cpu().numpy())
+    with open(os.path.join(tmp, "bf16_ckpt", "manifest.json")) as f:
+        entry = json.load(f)["arrays"]["['h']"]
+    try:
+        ck.restore(2, state)
+        refused = "restored"
+    except TypeError as e:
+        refused = str(e)
+    out["checkpoint"] = {"leaf_bytes_equal": leaf, "f32_equal": f32,
+                         "manifest": entry, "refusal": refused}
+    check(leaf and f32 and entry["dtype"] == "bfloat16"
+          and "['h']" in refused and "|V2" in refused,
+          f"bf16 checkpoint leaf written on the card: the |V2 records of its "
+          f"int16 view, the f32 leaf equal, manifest {entry}; restore "
+          f"refuses: {refused!r}")
+    return out
 
 
 # ---- phase 12: the parallel layer (core.parallel) ---------------------------
@@ -4920,6 +5000,107 @@ def mesh_lm_phase(dev, smi, zero_counts, read_counts, details):
     return runs, []
 
 
+# ---- phase 17: the dry-run over a fake production mesh (launch.dryrun) ----
+# three cells of the reference's sweep, each run by
+# ``python -m repro_torch.launch.dryrun`` in a process of its own (rank 0 of
+# a fake world of 256 ranks; meta tensors; no kernel): the clustered
+# long-context decode, whisper-base's train step (8 heads on a model axis
+# of 16) and an MoE decode (its experts' all-to-alls), each on a "cpu" mesh
+# and on a "cuda" one, all six processes at once
+DRYRUN_CELLS = (("llama3-8b", "long_500k"), ("whisper-base", "train_4k"),
+                ("dbrx-132b", "decode_32k"))
+DRYRUN_LIMIT_S = 150
+
+
+def dryrun_phase(smi, details):
+    """Phase 17: ``DRYRUN_CELLS`` through the dry-run's command line, on a
+    ``"cpu"`` mesh (each record ``ok`` with the reference's keys,
+    ``dryrun.OK_KEYS``) and, where this torch builds one over the fake
+    backend, on a ``"cuda"`` mesh, whose collective counts print beside the
+    cpu mesh's (a cpu mesh runs each all-to-all as an all-gather and a
+    chunk; the counter counts it as the all-to-all). Every process is
+    killed at ``DRYRUN_LIMIT_S``, and the phase must end within it."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import dryrun
+    rec = details.setdefault("dryrun", {"card": smi,
+                                        "torch": torch.__version__})
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1"}
+    print(f"\n[dryrun] {len(DRYRUN_CELLS)} cells on a fake 16x16 mesh, "
+          f"cpu and cuda meshes, torch {torch.__version__}; {smi}",
+          flush=True)
+    t0 = time.perf_counter()
+    procs, res = {}, {}
+    try:
+        for md, (arch, shape) in itertools.product(("cpu", "cuda"),
+                                                    DRYRUN_CELLS):
+            procs[md, arch, shape] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--out", os.path.join(tmp, md),
+                 "--mesh-device", md], cwd=ROOT, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for (md, arch, shape), p in procs.items():
+            left = max(1.0, DRYRUN_LIMIT_S - (time.perf_counter() - t0))
+            try:
+                _, err = p.communicate(timeout=left)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                _, err = p.communicate()
+                err += f"\nkilled at the phase's {DRYRUN_LIMIT_S} s"
+            path = os.path.join(tmp, md, f"{arch}__{shape}__single.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    res[md, arch, shape] = json.load(f)
+            else:
+                res[md, arch, shape] = {"status": "missing",
+                                        "error": err[-1500:]}
+        secs = time.perf_counter() - t0
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["seconds"] = secs
+    rec["cells"] = {f"{md}/{a}/{s_}": {k: v for k, v in r.items()
+                                       if k != "traceback"}
+                    for (md, a, s_), r in res.items()}
+    for arch, shape in DRYRUN_CELLS:
+        r = res["cpu", arch, shape]
+        keys = set(dryrun.OK_KEYS) - (
+            set() if SHAPES[shape].kind == "decode" else {"decode_mode"})
+        check(r.get("status") == "ok" and set(r) == keys,
+              f"dryrun {arch} {shape} (cpu mesh): status {r.get('status')}, "
+              f"the reference's keys {set(r) == keys}, lower_s "
+              f"{r.get('lower_s')}, flops/device "
+              f"{r.get('flops_per_device', 0):.4g}, wire bytes "
+              f"{r.get('wire_bytes_total', 0):.4g}, temp bytes "
+              f"{(r.get('memory_analysis') or {}).get('temp_bytes')}"
+              + (f"; {r.get('error')}" if r.get("status") != "ok" else ""))
+    cuda = {(a, s_): res["cuda", a, s_] for a, s_ in DRYRUN_CELLS}
+    rec["cuda_mesh_built"] = all(r.get("status") == "ok"
+                                 for r in cuda.values())
+    if rec["cuda_mesh_built"]:
+        print("  collective counts, cpu mesh / cuda mesh:")
+        for arch, shape in DRYRUN_CELLS:
+            a = res["cpu", arch, shape]["collective_counts"]
+            b = cuda[arch, shape]["collective_counts"]
+            print(f"    {arch} {shape}: " + ", ".join(
+                f"{k} {a[k]}/{b[k]}" for k in a) + f"; lower_s "
+                f"{res['cpu', arch, shape]['lower_s']}/"
+                f"{cuda[arch, shape]['lower_s']}", flush=True)
+    else:
+        print("  no cuda mesh over the fake backend: " + "; ".join(
+            f"{a} {s_}: {r.get('status')} {str(r.get('error'))[:300]}"
+            for (a, s_), r in cuda.items()), flush=True)
+    check(secs <= DRYRUN_LIMIT_S,
+          f"dryrun phase: {secs:.1f} s <= {DRYRUN_LIMIT_S} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -4939,6 +5120,8 @@ def main() -> int:
                     help="build and run the training phase (15) only")
     ap.add_argument("--mesh-lm-only", action="store_true",
                     help="build and run the LM-over-a-mesh phase (16) only")
+    ap.add_argument("--dryrun-only", action="store_true",
+                    help="run the dry-run phase (17) only (no kernel build)")
     args = ap.parse_args()
     t_main = time.perf_counter()
     # the plain versions' score matrices take up to 32 GiB at a time, in
@@ -4993,6 +5176,19 @@ def main() -> int:
         timeout=60).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
+    if args.dryrun_only:   # phase 17 alone: no kernel runs in it
+        details = {}
+        dryrun_phase(smi, details)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_dryrun.json").write_text(
+            json.dumps(details["dryrun"], indent=1, default=str))
+        if failures:
+            print(f"\nchip_smoke: {len(failures)} check(s) failed",
+                  file=sys.stderr)
+            return 1
+        print("\nchip_smoke --dryrun-only: all checks passed")
+        return 0
 
     # ---- phase 1: build ------------------------------------------------
     t0 = time.perf_counter()
@@ -8405,6 +8601,10 @@ def main() -> int:
     mesh_runs, _ = mesh_lm_phase(dev, smi, zero_counts, read_counts, details)
     for counts in mesh_runs:
         count_run(counts)
+
+    # ---- phase 17: the dry-run over a fake production mesh --------------
+    print(f"[smoke] phase 17 starts at {time.perf_counter() - t_main:.1f} s", flush=True)
+    dryrun_phase(smi, details)
 
     # ---- phase 4: the kernel table ---------------------------------------
     print(f"[smoke] phase 4 starts at {time.perf_counter() - t_main:.1f} s", flush=True)

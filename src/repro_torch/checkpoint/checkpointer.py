@@ -26,8 +26,12 @@ Port of ``repro/checkpoint/checkpointer.py``:
 
 ``array_manifest`` and ``validate_arrays`` are the per-key shape/dtype
 records the IVF snapshot manifest (``reliability/snapshot.py``) shares.
-Dtypes are named as numpy names them (``float32``, ``int32``); a bfloat16
-leaf is refused, since its numpy form needs ``ml_dtypes``.
+Dtypes are named as numpy names them (``float32``, ``int32``). A bfloat16
+leaf is written as the reference writes one (``utils.host.host_array``: its
+bits as the 2-byte void records, ``|V2``, that ``np.savez`` makes of an
+``ml_dtypes`` bfloat16 array) under a manifest entry ``bfloat16``. Neither
+package reads such a leaf back: ``restore`` raises ``TypeError`` on it, as
+the reference's ``jax.device_put`` of a ``|V2`` array does.
 """
 from __future__ import annotations
 
@@ -41,13 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.utils import sharding as shd
-
-
-def _dtype_name(v) -> str:
-    """A leaf's dtype as numpy names it (``torch.float32`` -> ``float32``)."""
-    if isinstance(v, torch.Tensor):
-        return str(v.dtype).rsplit(".", 1)[1]
-    return str(v.dtype if hasattr(v, "dtype") else np.asarray(v).dtype)
+from repro_torch.utils.host import dtype_name, host_array, written_dtype
 
 
 def _leaves(tree: Any, path: str = ""):
@@ -98,21 +96,11 @@ def _unflatten(like: Any, leaves: dict, path: str = ""):
     return leaves[path]
 
 
-def _to_host(v) -> np.ndarray:
-    if isinstance(v, torch.Tensor):
-        if v.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "a bfloat16 leaf has no numpy form without ml_dtypes; cast "
-                "it to float32 before saving")
-        return v.detach().cpu().numpy()
-    return np.asarray(v)
-
-
 def array_manifest(arrays: dict) -> dict:
     """Per-key ``{shape, dtype}`` records for a flat array dict, written
     into every manifest so a restore fails with a named mismatch."""
     return {k: {"shape": [int(s) for s in np.shape(v)],
-                "dtype": _dtype_name(v)}
+                "dtype": written_dtype(v)}
             for k, v in arrays.items()}
 
 
@@ -128,7 +116,7 @@ def validate_arrays(expected: dict, arrays: dict, *, context: str) -> None:
             continue
         got = arrays[key]
         shape = [int(s) for s in np.shape(got)]
-        dtype = _dtype_name(got)
+        dtype = dtype_name(got)
         if shape != list(spec["shape"]) or dtype != spec["dtype"]:
             errs.append(f"key {key!r}: manifest says {spec['shape']} "
                         f"{spec['dtype']}, found {shape} {dtype}")
@@ -159,11 +147,11 @@ class Checkpointer:
             for k, v in flat.items():
                 whole = shd.gather(v)
                 if self.pctx.is_world_rank0:
-                    host[k] = _to_host(whole)
+                    host[k] = host_array(whole)
                 del whole
         else:
             # device -> host here; the disk writes on the background thread
-            host = {k: _to_host(v) for k, v in flat.items()}
+            host = {k: host_array(v) for k, v in flat.items()}
         treedef = _treedef(state)
 
         def write():
@@ -251,7 +239,12 @@ class Checkpointer:
                 ref = flat_like[k]
                 dev = device if device is not None else (
                     ref.device if isinstance(ref, torch.Tensor) else "cpu")
-                t = torch.as_tensor(data[k])
+                arr = data[k]
+                if arr.dtype.kind == "V":   # a bfloat16 leaf's records
+                    raise TypeError(f"restore(step {step}): key {k!r}: "
+                                    f"dtype {arr.dtype} is not a valid "
+                                    f"tensor dtype")
+                t = torch.as_tensor(arr)
                 if k in flat_sh or shd.is_dtensor(ref):
                     # this rank's slice, cut on the host
                     m, pl = ((mesh, flat_sh[k]) if k in flat_sh

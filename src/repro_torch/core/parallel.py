@@ -115,6 +115,22 @@ def init_world(device_type: str = "cuda", backend: str | None = None,
     _owned_world = True
 
 
+def init_fake_world(world: int) -> None:
+    """A world of ``world`` ranks in this one process, which is rank 0, on
+    the ``"fake"`` backend (every collective returns at once and moves
+    nothing: no peer exists), for running a mesh program on meta tensors
+    (``launch.dryrun``). Nothing is done when a world of ``world`` ranks is
+    up; a world of another size raises ``ValueError``."""
+    if dist.is_initialized():
+        if dist.get_world_size() != world:
+            raise ValueError(f"a world of {dist.get_world_size()} ranks is "
+                             f"up; {world} are needed")
+        return
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+
+
 def release_world() -> None:
     """Destroy the default process group if ``build_mesh`` made it."""
     global _owned_world

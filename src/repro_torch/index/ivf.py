@@ -1115,9 +1115,13 @@ class IVFIndex:
         B`` at a time, each chunk's top-k kept and the chunks' lists merged
         ties to the lower row (``ref.probe_ref``'s order), so a score matrix
         never exceeds that many entries. On a sharded index every rank
-        gathers the whole store (a collective)."""
+        gathers the whole store (a collective). Padding slots (id -1) are
+        scored as ``_PAD_COORD`` rows whatever the pool holds there (a
+        bfloat16 pool pads with 0, ``store._pad_value``)."""
         q = torch.as_tensor(q).to(device=self.device, dtype=self.dtype)
         flat_x, flat_ids = self.store.flat()
+        flat_x = torch.where((flat_ids < 0).unsqueeze(-1),
+                             torch.full_like(flat_x, _PAD_COORD), flat_x)
         rows = max(topk, BRUTE_CHUNK_ELEMS // max(1, q.shape[0]))
         parts_i, parts_v = [], []
         for lo in range(0, flat_x.shape[0], rows):

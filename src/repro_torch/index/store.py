@@ -13,11 +13,15 @@ contract:
   LRU evictor frees the coldest cells' pages (write-recency clock, bumped
   per append batch), and evicted rows are counted per cell
   (``evict_counts``, ``evicted``) as ``max_cap`` spills are. Page 0 is the
-  reserved padding page (``_PAD_COORD`` coordinates, id ``-1``), which every
-  unmapped table entry points at.
+  reserved padding page (pad coordinates, id ``-1``), which every unmapped
+  table entry points at.
 
-Padded slots hold the finite sentinel ``_PAD_COORD`` (their scores are huge
-but never inf or NaN inside a kernel) and id ``-1``. ``QuantizedBucketStore``
+Padded slots hold id ``-1`` and, in a float32 pool, the finite sentinel
+``_PAD_COORD`` (their scores are huge but never inf or NaN inside a
+kernel); a bfloat16 pool pads with 0, as the reference's does
+(``_pad_value``), so a reader that scores whole cells or the whole pool
+(``IVFIndex.search_brute``) sets the rows of id ``-1`` to ``_PAD_COORD``
+first. ``QuantizedBucketStore``
 wraps either layout holding int8 codes with a per-slot f32 scale sidecar
 (``0.0`` on empty slots), the frozen encode-time anchors, the host
 ``RescoreReservoir`` of original rows (the durable tier) and, with
@@ -71,6 +75,7 @@ from repro_torch.core.kmeans import resolve_device
 from repro_torch.index.rescore_cache import (RESCORE_KINDS,
                                              DeviceRescoreCache,
                                              default_rescore_kind)
+from repro_torch.utils.host import host_array
 
 # Padded-slot coordinate: large enough that a padded candidate can never
 # beat a real one, small enough that d * _PAD^2 stays finite in f32.
@@ -83,8 +88,9 @@ STORE_KINDS = ("padded", "paged")
 
 
 def _out(t: torch.Tensor, host: bool):
-    """A state array: ``t`` on the host, or left where it is."""
-    return t.cpu().numpy() if host else t
+    """A state array: ``t`` on the host (a bfloat16 one as the reference's
+    ``|V2`` records, ``utils.host.host_array``), or left where it is."""
+    return host_array(t) if host else t
 
 
 def _round_up(v: int, mult: int) -> int:
@@ -101,7 +107,14 @@ def _ceil_div(a: int, b: int) -> int:
 
 def _pad_value(dtype: torch.dtype):
     """The far-away sentinel for float payloads; 0 for int8 code pools
-    (quantized stores mask padding through the zero scale)."""
+    (quantized stores mask padding through the zero scale). A bfloat16
+    pool pads with 0 too, as the reference's does: its test
+    ``jnp.dtype(dtype).kind == "f"`` is false for ``ml_dtypes``' bfloat16
+    (kind ``"V"``). So no search may score the pool's pad rows as they
+    are: the scans stop at the counts, gathered candidates of id -1 and
+    ``search_brute``'s rows of id -1 are set to ``_PAD_COORD``."""
+    if dtype == torch.bfloat16:
+        return 0
     return _PAD_COORD if dtype.is_floating_point else 0
 
 
@@ -1060,8 +1073,9 @@ class PagedBucketStore(BucketStore):
         return self._dense_of(self.pool_ids)
 
     def flat(self):
-        # pad pages carry _PAD_COORD/-1: safe to scan wholesale; the shards'
-        # slices gathered in shard order are the reference's pool
+        # pad pages carry id -1 (and _pad_value: 0 in a bf16 pool, so a
+        # scorer masks them); the shards' slices gathered in shard order are
+        # the reference's pool
         return (self._whole(self.pool).reshape(-1, self.d),
                 self._whole(self.pool_ids).reshape(-1))
 

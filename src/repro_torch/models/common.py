@@ -353,16 +353,25 @@ def segment_sum_rows(rows: torch.Tensor, ids: torch.Tensor,
     """(n, d): out[i] = the sum of ``rows[j]`` over ``ids[j] == i``, the same
     bits from run to run. The rows sorted by id (a stable sort) are summed
     by a float64 prefix sum, each segment's sum the difference of its ends,
-    rounded once to ``rows``' dtype; every id is written once."""
+    rounded once to ``rows``' dtype; every id is written once.
+
+    Shape-static (no boolean mask, no host read): each sorted row takes its
+    prefix minus the prefix before its segment's first row, and writes it
+    to its id if it ends a segment, else to a dropped bin ``n``."""
     ids_sorted, order = torch.sort(ids.long(), stable=True)
     cs = torch.cumsum(rows.index_select(0, order).double(), dim=0)
-    last = torch.ones_like(ids_sorted, dtype=torch.bool)
-    last[:-1] = ids_sorted[1:] != ids_sorted[:-1]
-    ends = cs[last]
-    sums = torch.cat([ends[:1], ends[1:] - ends[:-1]])
-    out = rows.new_zeros((n, rows.shape[1]))
-    out[ids_sorted[last]] = sums.to(rows.dtype)
-    return out
+    pos = torch.arange(ids_sorted.numel(), device=ids.device)
+    first = torch.ones_like(ids_sorted, dtype=torch.bool)
+    first[1:] = ids_sorted[1:] != ids_sorted[:-1]
+    last = torch.ones_like(first)
+    last[:-1] = first[1:]
+    start = torch.cummax(torch.where(first, pos, 0), dim=0).values
+    before = torch.where((start > 0)[:, None],
+                         cs.index_select(0, (start - 1).clamp(min=0)), 0.0)
+    sums = (cs - before).to(rows.dtype)
+    out = rows.new_zeros((n + 1, rows.shape[1]))
+    out.index_copy_(0, torch.where(last, ids_sorted, n), sums)
+    return out[:n]
 
 
 def embed(params, tokens: torch.Tensor, ctx: Ctx) -> torch.Tensor:

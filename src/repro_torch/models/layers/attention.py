@@ -171,8 +171,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def attn_out(params, o: torch.Tensor, ctx: Ctx) -> torch.Tensor:
-    b, s = o.shape[0], o.shape[1]
-    y = o.reshape(b, s, -1) @ ctx.cast(params["wo"])
+    y = shd.merge_heads(o) @ ctx.cast(params["wo"])
     if "bo" in params:
         y = y + ctx.cast(params["bo"])
     return y

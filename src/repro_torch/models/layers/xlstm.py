@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import Ctx, Init
+from repro_torch.utils import loops
 
 _LOG_EPS = -1e30
 
@@ -218,11 +219,12 @@ def slstm(params, x: torch.Tensor, ctx: Ctx, *, num_heads: int,
         c, n, m, h_prev = cache["slstm"]
     else:
         c = n = m = h_prev = torch.zeros((b, num_heads, dh), device=x.device)
-    hs = []
-    for t in range(s):
+
+    def step(carry, g_t):
+        c, n, m, h_prev = carry
         rec = torch.einsum("bhd,hde->bhe", h_prev, r)   # (B,H,4dh)
         rec = rec.reshape(b, num_heads, 4, dh).transpose(1, 2)
-        g = pre[:, t] + rec                             # (B,4,H,dh)
+        g = g_t + rec                                   # (B,4,H,dh)
         z = torch.tanh(g[:, 0])
         li = g[:, 1]
         lf = F.logsigmoid(g[:, 2])
@@ -232,10 +234,11 @@ def slstm(params, x: torch.Tensor, ctx: Ctx, *, num_heads: int,
         f_s = torch.exp(lf + m - m_new)
         c = f_s * c + i_s * z
         n = f_s * n + i_s
-        m = m_new
         h_prev = o * c / torch.clamp(n, min=1e-6)
-        hs.append(h_prev)
-    h = torch.stack(hs, 1).reshape(b, s, d)
+        return (c, n, m_new, h_prev), h_prev
+
+    (c, n, m, h_prev), h = loops.scan(step, (c, n, m, h_prev), pre, 1)
+    h = h.reshape(b, s, d)
 
     h = (h * torch.rsqrt((h * h).mean(-1, keepdim=True) + 1e-6)
          * params["out_norm"]).to(ctx.compute_dtype)

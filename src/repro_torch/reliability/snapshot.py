@@ -23,8 +23,12 @@ under ``search_plans`` and installs it on load. The port's plans are
 and never installs a list read from a manifest: its plans come back from
 its planner, in memory or from its disk cache keyed to the card.
 
-A bfloat16 index is refused (``NotImplementedError``): the reference's npz
-holds ``ml_dtypes`` bfloat16 arrays, which the card's machine cannot read.
+A bfloat16 index is written as the reference writes one: its centroids
+and buckets as 2-byte void records (``|V2``, the form ``np.savez`` gives an
+``ml_dtypes`` bfloat16 array; ``utils.host.host_array``) under
+manifest entries ``bfloat16``. Neither package reads such a snapshot back:
+``load_index`` raises the reference's ``ValueError`` (the manifest says
+``bfloat16``, the npz holds ``|V2``).
 
 Meshes. A sharded index (``IVFIndex(pctx=)``) is saved unsharded: every
 rank gathers the whole state (the store's cells, the centroids and both
@@ -60,29 +64,18 @@ from repro_torch.checkpoint.checkpointer import array_manifest, validate_arrays
 from repro_torch.core.streaming import SufficientStats
 from repro_torch.index import router as _router
 from repro_torch.index import store as _store
+from repro_torch.utils.host import host_array
 
 SNAPSHOT_VERSION = 5
 _PREFIX, _SUFFIX = "index_", ".npz"
 MANIFEST = "index_manifest.json"
 
 
-def _no_bf16(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: a bfloat16 index's snapshot holds ml_dtypes bfloat16 "
-        f"arrays, which are not supported (ROADMAP.md, queue A)")
-
-
-def _host(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
-
-
 def _state_arrays(index, host: bool = True) -> dict:
     """The full index state under the snapshot's keys (on a K-sharded
     index gathered over the cells axis: every rank calls it), on the host
     unless ``host`` is false (a rank that writes nothing)."""
-    if index.centroids.dtype == torch.bfloat16:
-        raise _no_bf16("save_index")
-    out = _host if host else (lambda t: t)
+    out = host_array if host else (lambda t: t)
 
     def whole(t):   # a per-cell tensor of all K cells
         if not index._k_sharded:
@@ -175,8 +168,6 @@ def _rebuild(host: dict, meta: dict, *, planner=None, device=None,
     ``n_shards = pctx.n_k_shards`` and placed on this rank's cells)."""
     from repro_torch.index.ivf import IVFIndex   # lazy: an import cycle
     centroids = np.asarray(host["centroids"])
-    if centroids.dtype != np.float32:   # a bfloat16 index's npz
-        raise _no_bf16("load_index")
     k, d = centroids.shape
     if pctx is not None:
         device = pctx.device
@@ -222,9 +213,6 @@ def load_index(directory: str, *, seqno: int | None = None, planner=None,
     with np.load(_path(directory, seqno)) as data:
         host = {k: data[k] for k in data.files}
     if manifest.get("seqno") == seqno:
-        if "bfloat16" in (manifest["arrays"].get("centroids") or {}).get(
-                "dtype", ""):
-            raise _no_bf16("load_index")
         validate_arrays(manifest["arrays"], host,
                         context=f"load_index(seqno {seqno})")
         meta = manifest

@@ -9,7 +9,10 @@ covers; recovery loads the snapshot and replays every record with a higher
 seqno through the live ``add`` path, which reproduces the index an
 uninterrupted run holds (same batches, same order, same refresh schedule).
 
-A batch that is a tensor on the card is copied to the host for its record.
+A batch that is a tensor on the card is copied to the host for its record;
+a bfloat16 batch is written as the reference writes one, as 2-byte void
+records (``|V2``, ``utils.host.host_array``), and ``replay``
+yields that ``|V2`` array, as the reference's does.
 ``log_every = r`` logs every r-th batch (the RPO knob: up to ``r - 1``
 recent batches may be lost); ``fsync=True`` flushes each record to disk
 before its rename.
@@ -26,19 +29,10 @@ from __future__ import annotations
 import os
 
 import numpy as np
-import torch
+
+from repro_torch.utils.host import host_array
 
 _PREFIX, _SUFFIX = "wal_", ".npz"
-
-
-def _host(x) -> np.ndarray:
-    if isinstance(x, torch.Tensor):
-        if x.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "a bfloat16 batch has no numpy form without ml_dtypes; log "
-                "it as float32")
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
 
 
 class AddLog:
@@ -76,7 +70,7 @@ class AddLog:
         path = self._path(seqno)
         tmp = path + ".tmp.npz"
         with open(tmp, "wb") as f:
-            np.savez(f, x=_host(x))
+            np.savez(f, x=host_array(x))
             if self.fsync:
                 f.flush()
                 os.fsync(f.fileno())

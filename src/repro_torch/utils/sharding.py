@@ -189,6 +189,27 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+def is_dtensor_type(cls) -> bool:
+    """Whether ``cls`` is DTensor or a subclass of it (a dispatch mode's
+    ``types``)."""
+    from torch.distributed.tensor import DTensor
+    return issubclass(cls, DTensor)
+
+
+def local_part(x: torch.Tensor) -> torch.Tensor:
+    """This rank's piece of a DTensor; a plain tensor as it is."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def group_size(group) -> int:
+    """The ranks of a process group, given as a group or by the name a
+    functional collective carries."""
+    if not isinstance(group, str):
+        return group.size()
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    return _resolve_process_group(group).size()
+
+
 def local_slice(x: torch.Tensor, mesh, pl: Sequence) -> torch.Tensor:
     """This rank's piece of a global tensor under placements ``pl`` (a
     view, on ``x``'s device)."""
@@ -420,6 +441,37 @@ def split_heads(x, heads: int, head_dim: int):
         if heads % ways:
             x = data_split(x, 0)
     return x.reshape(*x.shape[:-1], heads, head_dim)
+
+
+class _GradPlacements(torch.autograd.Function):
+    """The identity, whose backward redistributes the gradient to the
+    placements ``pl``."""
+
+    @staticmethod
+    def forward(fctx, x, pl):
+        fctx.pl = pl
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, grad):
+        return to_placements(grad, fctx.pl), None
+
+
+def merge_heads(x):
+    """``x.reshape(*lead, heads * head_dim)``, the inverse of
+    ``split_heads``. On a DTensor whose heads the ``"tp"`` axes do not
+    divide, the gradient of the merged tensor (split along its last dim
+    by the projection that reads it) would have to be unflattened into
+    heads split more ways than there are; so it is first redistributed to
+    the placements ``x`` had, which keep every head whole, as the
+    reference's divisibility fallback replicates such a head dim."""
+    merged = x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+    if is_dtensor(x):
+        mesh = x.device_mesh
+        ways = _mesh_size(_axis_sizes(mesh), rules_for_mesh(mesh)["tp"])
+        if x.shape[-2] % ways:
+            merged = _GradPlacements.apply(merged, tuple(merged.placements))
+    return merged
 
 
 def data_placements(mesh, dim: int, rules: dict | None = None) -> list:

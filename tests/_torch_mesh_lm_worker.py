@@ -35,6 +35,11 @@ TRAIN = [
      (2, 2), False),
     # the MoE's groups split over "data" as well as its experts over "model"
     ("moe_dp", "granite-moe-1b-a400m", {}, (2, 2), False),
+    # heads the model axis does not divide (whisper-base's 8 on the
+    # production mesh's 16): the merged heads' gradient keeps whole heads.
+    # A data axis of 1 never reaches the fault, so 3 heads on 2x2
+    ("heads", "whisper-base", {"num_heads": 3, "num_kv_heads": 3}, (2, 2),
+     False),
 ]
 # (name, arch, mesh): the dense GQA heads over the model axis, and
 # starcoder2's two kv heads on a model axis of 4 (the split-KV specs)

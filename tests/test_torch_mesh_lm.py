@@ -6,7 +6,8 @@ One group of 4 ranks runs per module (``tests/_torch_mesh_lm_worker.py
 4x1 of ``data x model``: two ``make_train_step(mesh=)`` AdamW steps (f32,
 a constant learning rate) of the reduced dense GQA (remat on), MoE (on
 1x4, and on 2x2 with its groups split over data), MLA (remat on) and
-starcoder2 configs and of llama3-8b with the routed attention, against ``jax.jit`` of the reference's ``make_train_step`` on
+starcoder2 configs, of whisper-base with 3 heads on a model axis of 2, and
+of llama3-8b with the routed attention, against ``jax.jit`` of the reference's ``make_train_step`` on
 one device: the loss, NLL and grad norm each step within rtol 1e-4 (atol
 1e-6, as ``tests/test_torch_train_step.py``), the params' and the first
 moments' global norms of the difference within 1e-4 of theirs (the routed
@@ -52,7 +53,11 @@ def _batches(cfg, name):
         tok = rng.integers(0, cfg.vocab_size, (B, s)).astype(np.int32)
         lab = np.roll(tok, -1, 1)
         lab[:, -1] = -1
-        out.append({"tokens": tok, "labels": lab})
+        b = {"tokens": tok, "labels": lab}
+        if cfg.frontend:
+            b["frontend"] = rng.standard_normal(
+                (B, cfg.frontend_seq, cfg.d_model)).astype(np.float32)
+        out.append(b)
     return out
 
 

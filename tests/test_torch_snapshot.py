@@ -291,9 +291,14 @@ def test_snapshot_validation_and_refusals(data, tmp_path):
         assert back._k_sharded and back.n_total == tidx.n_total
     finally:
         par.release_world()
+    # a bfloat16 index is written (as the reference writes it) and its
+    # load fails where the reference's does: the manifest says bfloat16,
+    # the npz holds |V2 records
     bf = IVFIndex(tidx.centroids.to(torch.bfloat16), 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        bf.save(str(tmp_path / "bf16"))
+    bf.save(str(tmp_path / "bf16"))
+    with pytest.raises(ValueError, match=r"'centroids': manifest says "
+                       r"\[16, 16\] bfloat16, found \[16, 16\] \|V2"):
+        load_index(str(tmp_path / "bf16"), device="cpu")
 
 
 def test_clone_shares_no_storage(data):
@@ -369,8 +374,14 @@ def test_checkpointer_keeps_validates_and_waits(tmp_path):
         ck.restore(3, {"w": torch.ones(5, 3), "b": torch.zeros(3)})
     with pytest.raises(ValueError, match="missing"):
         ck.restore(3, {"w": torch.ones(4, 3), "extra": torch.zeros(1)})
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        ck.save(4, {"h": torch.ones(2, dtype=torch.bfloat16)})
+    # a bfloat16 leaf is written as |V2 records under a bfloat16 manifest
+    # entry, and its restore raises as the reference's does
+    h = {"h": torch.ones(2, dtype=torch.bfloat16)}
+    ck.save(4, h, blocking=True)
+    assert read_json(tmp_path / "manifest.json")["arrays"]["['h']"] == {
+        "shape": [2], "dtype": "bfloat16"}
+    with pytest.raises(TypeError, match=r"\['h'\].*\|V2"):
+        ck.restore(4, h)
 
 
 @pytest.mark.parametrize("writer", ["port", "jax"])
@@ -405,3 +416,150 @@ def test_snapshot_files_are_the_references(data, tmp_path):
         files = sorted(z.files)
     assert files == sorted(read_manifest(str(tmp_path))["arrays"])
     assert tsnap.MANIFEST == jsnap.MANIFEST
+
+
+def read_json(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+# --- bfloat16 files: the reference's format, refused on load by both -------
+
+def _bits(a: np.ndarray) -> np.ndarray:
+    """An array's raw bytes as unsigned ints of its item size."""
+    return np.ascontiguousarray(a).view(f"u{a.dtype.itemsize}")
+
+
+def _assert_same_npz(got_path, exp_path, f32_close=()):
+    """The same members with the same descr and the same raw bytes; the f32
+    statistics named in ``f32_close`` within rtol 1e-5 (the packages sum
+    them in different orders)."""
+    with np.load(got_path) as g, np.load(exp_path) as e:
+        assert sorted(g.files) == sorted(e.files)
+        for k in e.files:
+            a, b = g[k], e[k]
+            assert a.dtype.str == b.dtype.str and a.shape == b.shape, k
+            if k in f32_close:
+                np.testing.assert_allclose(a, b, rtol=1e-5, err_msg=k)
+            else:
+                assert np.array_equal(_bits(a), _bits(b)), k
+
+
+def _bf16_index_pair(kind):
+    """Well-separated blobs (no bfloat16 near-ties), the same bfloat16
+    centroids and one add in both packages."""
+    rng = np.random.default_rng(31)
+    centers = rng.standard_normal((8, D)).astype(np.float32) * 4
+    x = centers[rng.integers(0, 8, 300)] + rng.standard_normal(
+        (300, D)).astype(np.float32) * 0.3
+    c0 = centers + 0.1
+    kw = dict(KINDS[kind])
+    jidx = JIVF(jnp.asarray(c0, jnp.bfloat16), 32, **kw)
+    tidx = IVFIndex(torch.from_numpy(c0).to(torch.bfloat16), 32,
+                    device="cpu", **kw)
+    jidx.add(jnp.asarray(x, jnp.bfloat16))
+    tidx.add(torch.from_numpy(x).to(torch.bfloat16))
+    return jidx, tidx
+
+
+@pytest.mark.parametrize("kind", ["padded", "paged"])
+def test_bf16_snapshot_is_the_references(kind, tmp_path):
+    """A bfloat16 index's snapshot: the same manifest, the same npz members
+    (centroids and buckets as ``|V2`` records of the same bytes), and both
+    packages' ``load_index`` refuse both packages' files with the
+    reference's ``ValueError``."""
+    jidx, tidx = _bf16_index_pair(kind)
+    dj, dt = str(tmp_path / "jax"), str(tmp_path / "port")
+    jidx.save(dj, seqno=3)
+    tidx.save(dt, seqno=3)
+    mj, mt = read_manifest(dj), read_manifest(dt)
+    assert mt["arrays"] == mj["arrays"]
+    bf = sorted(k for k, v in mj["arrays"].items() if v["dtype"] == "bfloat16")
+    assert "centroids" in bf and len(bf) == 2
+    _assert_same_npz(os.path.join(dt, "index_00000003.npz"),
+                     os.path.join(dj, "index_00000003.npz"),
+                     f32_close=("stats_sums", "stats_inertia",
+                                "pending_sums", "pending_inertia"))
+    with np.load(os.path.join(dt, "index_00000003.npz")) as z:
+        assert all(z[k].dtype.str == "|V2" for k in bf)
+        assert np.array_equal(
+            z["centroids"].view(np.int16),
+            tidx.centroids.view(torch.int16).numpy())
+    msgs = set()
+    for d in (dj, dt):
+        for load in (JIVF.load, lambda d: load_index(d, device="cpu")):
+            with pytest.raises(ValueError, match="manifest mismatch") as e:
+                load(d)
+            msgs.add(str(e.value))
+    (msg,) = msgs    # the same message from either loader on either file
+    for k in bf:
+        shape = mj["arrays"][k]["shape"]
+        assert f"key '{k}': manifest says {shape} bfloat16, found {shape} " \
+            "|V2" in msg
+
+
+@pytest.mark.parametrize("kind", ["padded", "paged"])
+def test_bf16_search_brute_never_returns_padding(kind):
+    """A bfloat16 pool pads with 0 (the reference's bytes), so its padding
+    rows lie at the origin. ``search_brute`` scores them as ``_PAD_COORD``
+    rows and returns a plain top-k over the indexed rows for queries near
+    the origin, where a row at 0 would beat every real one; the reference's
+    ``search_brute`` returns padding (id -1) there, which shows that the
+    queries reach the case."""
+    jidx, tidx = _bf16_index_pair(kind)
+    x, ids = tidx.store.flat()
+    assert (ids < 0).any() and (x[ids < 0] == 0).all()
+    q = np.random.default_rng(7).standard_normal((6, D)).astype(
+        np.float32) * 0.1
+    qt = torch.from_numpy(q).to(torch.bfloat16)
+    got_ids, got_d = tidx.search_brute(qt, topk=5)
+    real = ids >= 0
+    xr, idr = x[real].float(), ids[real]
+    d2 = ((qt.float()[:, None, :] - xr[None]) ** 2).sum(-1)
+    want_d, pos = torch.sort(d2, dim=1, stable=True)
+    assert (got_ids >= 0).all()
+    assert torch.equal(got_ids, idr[pos[:, :5]])
+    torch.testing.assert_close(got_d, want_d[:, :5], rtol=1e-4, atol=1e-3)
+    assert (np.asarray(jidx.search_brute(jnp.asarray(qt.float().numpy(),
+                                                     jnp.bfloat16),
+                                         topk=5)[0]) == -1).any()
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_bf16_wal_records_are_the_references(writer, tmp_path):
+    """A bfloat16 batch's WAL record holds the reference's ``|V2`` records
+    of the same bytes, and both packages' ``replay`` yield that ``|V2``
+    array."""
+    x = np.random.default_rng(5).standard_normal((7, D)).astype(np.float32)
+    tb = torch.from_numpy(x).to(torch.bfloat16)
+    AddLog(str(tmp_path / "port")).append(1, tb)
+    JAddLog(str(tmp_path / "jax")).append(1, jnp.asarray(x, jnp.bfloat16))
+    _assert_same_npz(tmp_path / "port" / "wal_00000001.npz",
+                     tmp_path / "jax" / "wal_00000001.npz")
+    for reader in (AddLog, JAddLog):
+        ((s, got),) = list(reader(str(tmp_path / writer)).replay())
+        assert s == 1 and got.dtype.str == "|V2" and got.shape == (7, D)
+        assert np.array_equal(got.view(np.int16),
+                              tb.view(torch.int16).numpy())
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_bf16_checkpoints_are_the_references(writer, tmp_path):
+    """A checkpoint with a bfloat16 leaf: the same npz bytes and manifest as
+    the reference's, and both packages' ``restore`` raise ``TypeError`` on
+    the ``|V2`` leaf of either package's file."""
+    w = np.arange(12, dtype=np.float32).reshape(4, 3) / 7
+    tstate = {"h": torch.from_numpy(w).to(torch.bfloat16),
+              "w": torch.from_numpy(w)}
+    jstate = {"h": jnp.asarray(w, jnp.bfloat16), "w": jnp.asarray(w)}
+    Checkpointer(str(tmp_path / "port")).save(2, tstate, blocking=True)
+    JCheckpointer(str(tmp_path / "jax")).save(2, jstate, blocking=True)
+    _assert_same_npz(tmp_path / "port" / "step_00000002.npz",
+                     tmp_path / "jax" / "step_00000002.npz")
+    assert read_json(tmp_path / "port" / "manifest.json") == \
+        read_json(tmp_path / "jax" / "manifest.json")
+    d = str(tmp_path / writer)
+    with pytest.raises(TypeError, match=r"\|V2"):
+        JCheckpointer(d).restore(2, jstate)
+    with pytest.raises(TypeError, match=r"\['h'\].*\|V2"):
+        Checkpointer(d).restore(2, tstate, device="cpu")

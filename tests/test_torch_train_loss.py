@@ -10,7 +10,8 @@ bfloat16 in both packages (the reference's own tolerance, rtol = atol =
 2e-2; the loss at 1e-3). The port's loss with ``remat=True`` (a
 ``torch.utils.checkpoint`` per group) gives the same loss and gradients as
 without, bit for bit. Also: the embedding's deterministic backward
-(``common.segment_sum_rows``).
+(``common.segment_sum_rows``), and its shape-static form's bits against
+the boolean-mask form it replaced.
 """
 import numpy as np
 import pytest
@@ -51,6 +52,43 @@ def test_segment_sum_rows_sums_each_id_once_the_same_every_run(n, d):
     assert got.dtype == torch.float32
     assert not got[40 - 3:].any() or (ids >= 37).any()
     assert torch.equal(got, common.segment_sum_rows(rows, ids, 40))
+
+
+def _masked_segment_sum(rows, ids, n):
+    """The boolean-mask form ``segment_sum_rows`` had before it was made
+    shape-static: the bits it must keep."""
+    ids_sorted, order = torch.sort(ids.long(), stable=True)
+    cs = torch.cumsum(rows.index_select(0, order).double(), dim=0)
+    last = torch.ones_like(ids_sorted, dtype=torch.bool)
+    last[:-1] = ids_sorted[1:] != ids_sorted[:-1]
+    ends = cs[last]
+    sums = torch.cat([ends[:1], ends[1:] - ends[:-1]])
+    out = rows.new_zeros((n, rows.shape[1]))
+    out[ids_sorted[last]] = sums.to(rows.dtype)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ids", [[0, 5, 5, 9, 2, 2, 2, 9, 0, 31],
+                                 [7] * 9, [4], list(range(12))[::-1],
+                                 [3, 30, 3, 30, 3, 17, 17, 0, 0, 0, 1]],
+                         ids=["repeats", "one_id", "one_row", "distinct",
+                              "gaps"])
+def test_segment_sum_rows_keeps_the_masked_forms_bits(ids, dtype):
+    """Repeated ids, gaps between ids and a single id: the same bits as
+    the boolean-mask form, and a shape on meta tensors (no mask, no
+    ``nonzero``)."""
+    g = torch.Generator().manual_seed(len(ids))
+    rows = (torch.randn(len(ids), 6, generator=g) * 1e3).to(dtype)
+    rows[0, 0] = -0.0
+    ids = torch.tensor(ids)
+    got = common.segment_sum_rows(rows, ids, 32)
+    want = _masked_segment_sum(rows, ids, 32)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert got.shape == want.shape and got.dtype == dtype
+    assert torch.equal(got.view(bits), want.view(bits))
+    meta = common.segment_sum_rows(rows.to("meta"), ids.to("meta"), 32)
+    assert meta.shape == (32, 6) and meta.dtype == dtype
 
 
 def test_embed_gathers_and_its_gradient_sums_repeated_ids():
